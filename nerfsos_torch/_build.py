@@ -1,0 +1,111 @@
+"""Build and load the port's CUDA kernels (``csrc/*.cu``) as one shared library.
+
+``nvcc`` compiles every source in ``csrc/`` into ``build/kernels/`` at the
+repository root (listed in ``.gitignore``) on first use; the library name
+carries a hash of the sources, so an edited source is rebuilt and a stale
+library is never loaded. The library has a plain C interface and is bound
+with ``ctypes``: pointers and the stream go as ``c_void_p``, and every launch
+function returns its ``cudaError_t``, which :func:`check` turns into an
+exception. Nothing here runs at import time.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from typing import List
+
+_PKG_DIR = os.path.dirname(os.path.abspath(__file__))
+CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+
+def sources() -> List[str]:
+    return sorted(os.path.join(CSRC_DIR, f) for f in os.listdir(CSRC_DIR) if f.endswith(".cu"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+
+
+def library_path() -> str:
+    h = hashlib.sha256()
+    for src in sources():
+        with open(src, "rb") as f:
+            h.update(os.path.basename(src).encode() + b"\0" + f.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"libnerfsos_kernels_{h.hexdigest()[:16]}.so")
+
+
+def build() -> str:
+    """Compile the sources unless the library for them exists; returns its path.
+
+    The compiler's resource report (``-Xptxas -v``: registers, shared memory,
+    spills per kernel) is kept beside the library as ``<lib>.log``.
+    """
+    path = library_path()
+    if os.path.exists(path):
+        return path
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources()]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    with open(path + ".log", "w") as f:
+        f.write(f"{' '.join(cmd)}\n{time.perf_counter() - t0:.1f} s\n{proc.stderr}")
+    os.replace(tmp, path)
+    return path
+
+
+class MLPLayer(ctypes.Structure):
+    """One dense layer inside the packed parameter buffer (offsets in floats)."""
+    _fields_ = [("w", ctypes.c_longlong), ("b", ctypes.c_longlong),
+                ("k", ctypes.c_int), ("n", ctypes.c_int)]
+
+
+MAX_LAYERS = 16
+
+
+class MLPDesc(ctypes.Structure):
+    """Mirror of ``MLPDesc`` in ``csrc/fused_render.cu``."""
+    _fields_ = [("layer", MLPLayer * MAX_LAYERS),
+                ("depth", ctypes.c_int), ("skip", ctypes.c_int),
+                ("hrows", ctypes.c_int), ("emb_dim", ctypes.c_int),
+                ("demb_dim", ctypes.c_int), ("sem_dim", ctypes.c_int),
+                ("sem_with_coord", ctypes.c_int)]
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    lib = ctypes.CDLL(build())
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    desc_p = ctypes.POINTER(MLPDesc)
+    lib.nerf_coarse_weights.argtypes = [vp, vp, vp, desc_p, vp, i32, i32, i32, vp]
+    lib.nerf_coarse_weights.restype = i32
+    lib.nerf_render.argtypes = [vp, vp, vp, desc_p, vp, vp, i32, i32, i32, vp]
+    lib.nerf_render.restype = i32
+    lib.nerf_error_string.argtypes = [i32]
+    lib.nerf_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(code: int, what: str) -> None:
+    """Raise if a launch function returned a nonzero ``cudaError_t``."""
+    if code != 0:
+        msg = library().nerf_error_string(code).decode()
+        raise RuntimeError(f"{what}: CUDA error {code} ({msg})")

@@ -1,0 +1,91 @@
+"""Checkpoints in the reference's torch format, and the bridge from flax params.
+
+The reference saves ``{'global_step', 'model', 'optimizer'}`` as
+``{step:08d}.ckpt`` and resumes from the lexicographically newest ``*.ckpt``
+(``engines/checkpoint.py`` of ``nerfsos_tpu`` documents the same contract).
+``NeRFNet``'s parameter names are the reference's, so such a file loads with
+``load_state_dict``. :func:`state_dict_from_jax_params` is the inverse of
+``nerfsos_tpu.engines.checkpoint._convert_field``: it turns a flax param tree
+(numpy leaves, kernels ``[in, out]``) into a torch state dict
+(weights ``[out, in]``).
+"""
+from __future__ import annotations
+
+import os
+import re
+from typing import Any, Dict, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+
+def find_latest_checkpoint(run_dir: str) -> Optional[str]:
+    """Newest checkpoint in a run dir (``.ckpt`` files or orbax step dirs)."""
+    if not os.path.isdir(run_dir):
+        return None
+    cands = sorted(f for f in os.listdir(run_dir)
+                   if f.endswith(".ckpt") or re.fullmatch(r"\d{8}|latest|last", f))
+    return os.path.join(run_dir, cands[-1]) if cands else None
+
+
+def save_checkpoint(path: str, step: int, net: nn.Module) -> None:
+    """Write a reference-format ``.ckpt`` (no optimizer state: eval only)."""
+    torch.save({"global_step": int(step), "model": net.state_dict(), "optimizer": {}}, path)
+
+
+def load_checkpoint(path: str) -> Tuple[Dict[str, torch.Tensor], int]:
+    """Read a reference-format ``.ckpt`` (or a bare state dict) on the CPU."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(ckpt, Mapping) and "model" in ckpt:
+        return dict(ckpt["model"]), int(ckpt.get("global_step", 0))
+    return dict(ckpt), 0
+
+
+def load_model_state(net: nn.Module, state: Mapping[str, torch.Tensor], strict: bool = True) -> None:
+    """``load_state_dict`` with the reference's ``--load_nostrict`` meaning:
+    with ``strict=False`` missing, extra and shape-mismatched entries keep the
+    model's fresh initialisation (torch alone would raise on a shape mismatch)."""
+    if not strict:
+        own = net.state_dict()
+        state = {k: v for k, v in state.items() if k in own and own[k].shape == v.shape}
+    net.load_state_dict(state, strict=strict)
+
+
+def _field_state(field: Mapping[str, Any], prefix: str) -> Dict[str, torch.Tensor]:
+    mlp = field["mlp"]
+    sd: Dict[str, torch.Tensor] = {}
+
+    def put(torch_name: str, flax_name: str) -> None:
+        layer = mlp[flax_name]
+        sd[f"{prefix}.mlp.{torch_name}.weight"] = torch.from_numpy(
+            np.array(np.asarray(layer["kernel"]).T, np.float32, order="C"))
+        sd[f"{prefix}.mlp.{torch_name}.bias"] = torch.from_numpy(
+            np.array(layer["bias"], np.float32))
+
+    i = 0
+    while f"pts_linears_{i}" in mlp:
+        put(f"pts_linears.{i}", f"pts_linears_{i}")
+        i += 1
+    if "output_linear" in mlp:
+        put("output_linear", "output_linear")
+    else:
+        for torch_name, flax_name in (("alpha_linear", "alpha_linear"),
+                                      ("feature_linear", "feature_linear"),
+                                      ("views_linears.0", "views_linears_0"),
+                                      ("rgb_linear", "rgb_linear")):
+            put(torch_name, flax_name)
+    j = 0
+    while f"sem_{j}" in mlp:  # Sequential(Linear, ReLU, Linear, ...): Linear j at 2j
+        put(f"semantic_linear.{2 * j}", f"sem_{j}")
+        j += 1
+    return sd
+
+
+def state_dict_from_jax_params(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """flax params ``{'coarse': {'mlp': ...}, 'fine': ...}`` -> a ``NeRFNet``
+    state dict with keys ``nerf.mlp.*`` / ``nerf_fine.mlp.*``."""
+    sd = _field_state(params["coarse"], "nerf")
+    if "fine" in params:
+        sd.update(_field_state(params["fine"], "nerf_fine"))
+    return sd

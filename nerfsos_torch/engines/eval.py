@@ -1,0 +1,188 @@
+"""Evaluation engine: per-view eval and the test-set sweep.
+
+Port of ``nerfsos_tpu/engines/eval.py`` (``make_render_fn``,
+``eval_one_view``, ``evaluate``): the same metrics, the same files
+(``rgb_/depth_/depth_*_/alpha_/sem_/clus_*.png``, ``log.json``, ``log.txt``)
+and the same ``log.json`` keys. Differences: LPIPS is reported as NaN (null in
+``log.json``), as the JAX engine does when no weights are given; the DINO
+foreground flip of the cluster labels is not ported; ``depth_*_.png`` has no
+colorbar strip.
+"""
+from __future__ import annotations
+
+import contextlib
+import json
+import os
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from nerfsos_torch.losses.photometric import img2mse, mse2psnr
+from nerfsos_torch.models.nerf import NeRFNet
+from nerfsos_torch.ops.kmeans import segmap_cluster
+from nerfsos_torch.ops.ssim import ssim as ssim_fn
+from nerfsos_torch.utils.image import colorize, to8b, write_png
+from nerfsos_torch.utils.metrics import adjusted_rand_score
+
+METRIC_KEYS = ["mse", "psnr", "ssim", "lpips", "clus_ari", "clus_ari_fg", "sem_ari", "sem_ari_fg"]
+
+
+def _json_nan_to_null(obj):
+    """NaN/inf -> None so log.json stays valid JSON with honest nulls."""
+    if isinstance(obj, dict):
+        return {k: _json_nan_to_null(v) for k, v in obj.items()}
+    if isinstance(obj, list):
+        return [_json_nan_to_null(v) for v in obj]
+    if isinstance(obj, float) and not np.isfinite(obj):
+        return None
+    return obj
+
+
+def _np_softmax(x: np.ndarray) -> np.ndarray:
+    e = np.exp(x - x.max(-1, keepdims=True))
+    return e / e.sum(-1, keepdims=True)
+
+
+@contextlib.contextmanager
+def fp32_exact():
+    """Full-fp32 device math for the metrics. Matrix products must already be
+    fp32 (``torch.backends.cuda.matmul.allow_tf32`` is off by default); cuDNN's
+    TF32, on by default, would put SSIM's convolutions at ~3 digits, so it is
+    switched off here and restored afterwards."""
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("torch.backends.cuda.matmul.allow_tf32 is on: eval needs fp32 products")
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+
+
+def make_render_fn(net: NeRFNet, near: float, far: float, **net_kwargs):
+    """Full-image render: ``rays [2, H, W, 3]`` (numpy or tensor) -> dict of
+    tensors on the net's device. The coarse pass runs density-only
+    (``coarse_outputs=False``); the rays are chunked by ``cfg.ray_block``."""
+    net_kwargs.setdefault("coarse_outputs", False)
+    device = next(net.parameters()).device
+
+    @torch.no_grad()
+    def render(rays) -> Dict[str, torch.Tensor]:
+        rays = torch.as_tensor(np.array(rays, dtype=np.float32), device=device)
+        return net(rays, (near, far), train=False, **net_kwargs)
+
+    return render
+
+
+def eval_one_view(render_fn, batch: Dict[str, np.ndarray], *, clus_no_sfm: bool = False,
+                  n_cluster: int = 2, kmeans_first: Optional[int] = None
+                  ) -> Tuple[Dict[str, np.ndarray], Dict[str, float]]:
+    """Render one view and score it. ``kmeans_first``: the k-means start index
+    (see ``ops/kmeans.segmap_cluster``)."""
+    out = render_fn(batch["rays"])
+    device = out["rgb"].device
+    ret = {k: v.cpu().numpy() for k, v in out.items()}
+
+    clus_ari = clus_ari_fg = sem_ari = sem_ari_fg = 0.0
+    if "semantics" in ret:
+        sem_gt = np.asarray(batch.get("masks", np.zeros_like(ret["disp"]))).astype(np.int32)
+        if clus_no_sfm:
+            sem_prob = ret["semantics"]
+            sem_pred_sft = np.argmax(_np_softmax(sem_prob), -1)[..., None]
+        else:
+            sem_prob = _np_softmax(ret["semantics"])
+            sem_pred_sft = np.argmax(sem_prob, -1)[..., None]
+        with fp32_exact():
+            sem_pred_clus = segmap_cluster(torch.from_numpy(sem_prob).to(device), n_cluster,
+                                           first=kmeans_first).cpu().numpy().astype(np.int32)
+        sem_pred_sft = sem_pred_sft.astype(np.int32)
+        ret["sem"] = sem_pred_sft
+        ret["clustering"] = sem_pred_clus
+        fg = sem_gt == 1
+        clus_ari = adjusted_rand_score(sem_gt, sem_pred_clus)
+        clus_ari_fg = adjusted_rand_score(sem_gt[fg], sem_pred_clus[fg])
+        sem_ari = adjusted_rand_score(sem_gt, sem_pred_sft)
+        sem_ari_fg = adjusted_rand_score(sem_gt[fg], sem_pred_sft[fg])
+
+    metrics: Dict[str, float] = {}
+    if "target" in batch:
+        target = np.asarray(batch["target"])
+        ret["target_s"] = target
+        target_t = torch.tensor(target, dtype=torch.float32, device=device)
+        mse = float(img2mse(out["rgb"], target_t))
+        metrics["mse"] = mse
+        metrics["psnr"] = float(mse2psnr(torch.tensor(mse, dtype=torch.float32)))
+        with fp32_exact():
+            metrics["ssim"] = float(ssim_fn(out["rgb"], target_t, data_format="HWC"))
+        metrics["lpips"] = float("nan")  # LPIPS is not ported: null in log.json
+        metrics.update(clus_ari=clus_ari, clus_ari_fg=clus_ari_fg,
+                       sem_ari=sem_ari, sem_ari_fg=sem_ari_fg)
+    return ret, metrics
+
+
+def evaluate(net: NeRFNet, dataset, save_dir: Optional[str] = None, fast_mode: bool = False,
+             ret_cluster: bool = False, clus_no_sfm: bool = False, n_cluster: int = 2,
+             kmeans_first: Optional[int] = None, **net_kwargs) -> Dict[str, float]:
+    """Test-set sweep: metrics per view, PNGs and ``log.json``/``log.txt``."""
+    near, far = dataset.near_far()
+    render_fn = make_render_fn(net, near, far, **net_kwargs)
+
+    all_metrics: Dict[str, list] = {k: [] for k in METRIC_KEYS}
+    n_views = len(dataset)
+    for i in range(n_views):
+        if fast_mode and i >= 1:
+            continue
+        batch = dataset.get_view(i)
+        ret, metrics = eval_one_view(render_fn, batch, clus_no_sfm=clus_no_sfm,
+                                     n_cluster=n_cluster, kmeans_first=kmeans_first)
+        for k in METRIC_KEYS:
+            all_metrics[k].append(metrics.get(k, 0.0))
+        print(f"[TEST] Iter {i+1}/{n_views} " +
+              " ".join(f"{k}: {metrics.get(k, 0.0):.4f}" for k in METRIC_KEYS))
+
+        if save_dir is not None:
+            img, alpha, depth = ret["rgb"], ret["acc"], ret["depth"]
+            os.makedirs(save_dir, exist_ok=True)
+            write_png(os.path.join(save_dir, f"rgb_{i:03d}.png"), to8b(img))
+            write_png(os.path.join(save_dir, f"depth_{i:03d}.png"), to8b(depth / np.max(depth)))
+            dviz = colorize(depth[..., 0])
+            write_png(os.path.join(save_dir, f"depth_{i:03d}_.png"), to8b(dviz / np.max(dviz)))
+            write_png(os.path.join(save_dir, f"alpha_{i:03d}.png"), to8b(alpha / np.max(alpha)))
+            if "sem" in ret:
+                write_png(os.path.join(save_dir, f"sem_{i:03d}.png"),
+                          (ret["sem"][..., 0] * 255).astype(np.uint8))
+            if ret_cluster and "clustering" in ret:
+                write_png(os.path.join(save_dir, f"clus_{i:03d}.png"),
+                          (ret["clustering"][..., 0] * 255).astype(np.uint8))
+
+    def mean(k):
+        return float(np.mean(all_metrics[k])) if all_metrics[k] else 0.0
+
+    total_mse = mean("mse")
+    finite_lpips = [v for v in all_metrics["lpips"] if np.isfinite(v)]
+    totals = {
+        "total_mse": total_mse,
+        "total_psnr": (float(mse2psnr(torch.tensor(total_mse, dtype=torch.float32)))
+                       if total_mse > 0 else 0.0),
+        "total_ssim": mean("ssim"),
+        "total_lpips": float(np.mean(finite_lpips)) if finite_lpips else float("nan"),
+        **{f"total_{k}": mean(k) for k in ["clus_ari", "clus_ari_fg", "sem_ari", "sem_ari_fg"]},
+    }
+    print("[TEST] " + " ".join(f"{k}: {v:.4f}" for k, v in totals.items()))
+
+    if save_dir is not None:
+        dump = _json_nan_to_null({**all_metrics, **totals})
+        with open(os.path.join(save_dir, "log.json"), "w") as f:
+            json.dump(dump, f)
+        with open(os.path.join(save_dir, "log.txt"), "w") as f:
+            for i in range(len(all_metrics["mse"])):
+                print(f"[TEST] Iter {i+1}/{n_views} MSE: {all_metrics['mse'][i]} "
+                      f"PSNR: {all_metrics['psnr'][i]} SSIM: {all_metrics['ssim'][i]} "
+                      f"LPIPS: {all_metrics['lpips'][i]}", file=f)
+            print(f"[TEST] MSE: {totals['total_mse']} PSNR: {totals['total_psnr']} "
+                  f"SSIM: {totals['total_ssim']} LPIPS: {totals['total_lpips']}", file=f)
+
+    return {"mse": totals["total_mse"], "psnr": totals["total_psnr"],
+            "ssim": totals["total_ssim"], "lpips": totals["total_lpips"],
+            **{k: totals[f"total_{k}"] for k in ["clus_ari", "clus_ari_fg", "sem_ari", "sem_ari_fg"]}}

@@ -1,0 +1,68 @@
+"""Radiance field: positional encoding + MLP, queried point-wise.
+
+Port of ``nerfsos_tpu/models/fields.py`` (``NeRFField``). The module holds
+one ``mlp`` child, so its state-dict keys are the reference's
+``{nerf,nerf_fine}.mlp.*``.
+"""
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+import torch.nn as nn
+
+from nerfsos_torch.core import encoding
+from nerfsos_torch.models.mlp import NeRFMLP
+
+
+class NeRFField(nn.Module):
+    """Classic NeRF field: PE(pts) [+ PE(dirs)] -> NeRFMLP -> raw channels."""
+
+    def __init__(self, net_depth: int = 8, net_width: int = 256, skips: Sequence[int] = (4,),
+                 use_viewdirs: bool = True, use_embed: bool = True, multires: int = 10,
+                 multires_views: int = 4, conv_embed: bool = False, output_ch: int = 4,
+                 use_semantics: bool = False, sem_layer: int = 2, sem_dim: int = 2,
+                 sem_with_coord: bool = False, sem_with_geo: bool = False):
+        super().__init__()
+        if conv_embed:
+            raise NotImplementedError("conv_embed is not ported yet")
+        self.use_viewdirs, self.use_embed = use_viewdirs, use_embed
+        self.multires, self.multires_views = multires, multires_views
+        input_ch = encoding.pe_dim(3, multires) if use_embed else 3
+        input_ch_views = encoding.pe_dim(3, multires_views) if use_embed else 3
+        self.mlp = NeRFMLP(input_ch, input_ch_views, depth=net_depth, width=net_width,
+                           skips=skips, use_viewdirs=use_viewdirs, output_ch=output_ch,
+                           use_semantics=use_semantics, sem_layer=sem_layer, sem_dim=sem_dim,
+                           sem_with_coord=sem_with_coord, sem_with_geo=sem_with_geo)
+
+    def embed(self, pts: torch.Tensor) -> torch.Tensor:
+        if not self.use_embed:
+            return pts
+        return encoding.positional_encoding_fused(pts, self.multires, float(self.multires - 1))
+
+    def embed_views(self, dirs: torch.Tensor) -> torch.Tensor:
+        if not self.use_embed:
+            return dirs
+        return encoding.positional_encoding_fused(dirs, self.multires_views,
+                                                  float(self.multires_views - 1))
+
+    def forward(self, pts: torch.Tensor, viewdirs: Optional[torch.Tensor]) -> torch.Tensor:
+        """``pts [..., S, 3]``, ``viewdirs [..., 3]`` (unit, broadcast over S)
+        -> raw ``[..., S, 4 (+ sem_dim)]``."""
+        lead = pts.shape[:-1]
+        emb = self.embed(pts).reshape(-1, self.mlp.pts_linears[0].in_features)
+        demb = None
+        if self.use_viewdirs:
+            d = viewdirs[..., None, :].expand(pts.shape)
+            demb = self.embed_views(d).reshape(emb.shape[0], -1)
+        out = self.mlp(emb, demb)
+        return out.reshape(*lead, out.shape[-1])
+
+    def sigma(self, pts: torch.Tensor) -> torch.Tensor:
+        """Densities only ``[..., S]``: the trunk and the alpha head."""
+        lead = pts.shape[:-1]
+        emb = self.embed(pts).reshape(-1, self.mlp.pts_linears[0].in_features)
+        h = self.mlp.trunk(emb)
+        layer = self.mlp.alpha_linear if self.use_viewdirs else self.mlp.output_linear
+        out = layer(h)[:, 3 if not self.use_viewdirs else 0]
+        return out.reshape(lead)

@@ -1,0 +1,168 @@
+"""Coarse/fine NeRF rendering (``nn.Module``).
+
+Port of ``nerfsos_tpu/models/nerf.py``. ``NeRFNet`` holds the coarse field
+``nerf`` and, when ``n_importance > 0``, the fine field ``nerf_fine``: the
+reference's module names, so a reference state dict loads with
+``load_state_dict``. Behaviour:
+
+- coarse stratified sample -> coarse field -> composite; det/random inverse-CDF
+  resample (detached, sorted) -> fine field -> composite; coarse outputs
+  under a ``'0'`` suffix and the fine ``z_std`` (biased);
+- ``coarse_outputs=False`` (eval renders) runs the coarse pass density-only;
+  with ``fused_field`` and a supported config it runs the two fused kernels
+  (``ops/fused_render.py``: K1, importance sampling, K2, ``finish_maps``);
+- ``forward`` chunks the rays by ``ray_block``. Rays are independent, so the
+  ragged last chunk needs no padding (the JAX version pads to a fixed block
+  shape for its compiled scan).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn as nn
+
+from nerfsos_torch.core import sampling
+from nerfsos_torch.core.render import sigma_to_weights, volumetric_render
+from nerfsos_torch.models.fields import NeRFField
+from nerfsos_torch.ops import fused_render as fr
+
+
+@dataclasses.dataclass(frozen=True)
+class NeRFConfig:
+    """Model and render configuration (the fields of ``nerfsos_tpu``'s
+    ``NeRFConfig`` that the port reads)."""
+
+    netdepth: int = 8
+    netwidth: int = 256
+    netdepth_fine: int = 8
+    netwidth_fine: int = 256
+    n_samples: int = 64
+    n_importance: int = 64
+    use_viewdirs: bool = True
+    use_embed: bool = True
+    multires: int = 10
+    multires_views: int = 4
+    conv_embed: bool = False
+    perturb: float = 1.0
+    raw_noise_std: float = 0.0
+    white_bkgd: bool = False
+    lindisp: bool = False
+    use_semantics: bool = False
+    skips: tuple = (4,)
+    sem_layer: int = 2
+    sem_dim: int = 2
+    sem_with_coord: bool = False
+    sem_with_geo: bool = False
+    ray_block: int = 4096  # rays per chunk of forward()
+    compute_dtype: str = "float32"
+    fused_field: bool = False  # the fused eval kernels (ops/fused_render.py)
+
+    @property
+    def shared_fine(self) -> bool:
+        return self.n_importance <= 0
+
+
+def _field(cfg: NeRFConfig, fine: bool) -> NeRFField:
+    return NeRFField(
+        net_depth=cfg.netdepth_fine if fine else cfg.netdepth,
+        net_width=cfg.netwidth_fine if fine else cfg.netwidth,
+        skips=tuple(cfg.skips), use_viewdirs=cfg.use_viewdirs, use_embed=cfg.use_embed,
+        multires=cfg.multires, multires_views=cfg.multires_views, conv_embed=cfg.conv_embed,
+        output_ch=4, use_semantics=cfg.use_semantics, sem_layer=cfg.sem_layer,
+        sem_dim=cfg.sem_dim, sem_with_coord=cfg.sem_with_coord, sem_with_geo=cfg.sem_with_geo)
+
+
+class NeRFNet(nn.Module):
+    """Coarse/fine renderer with the reference's ``nerf`` / ``nerf_fine`` children."""
+
+    def __init__(self, cfg: NeRFConfig):
+        super().__init__()
+        if cfg.compute_dtype != "float32":
+            raise NotImplementedError(f"compute_dtype={cfg.compute_dtype!r}: the port "
+                                      "runs float32 only (bf16 kernels are later work)")
+        self.cfg = cfg
+        self.nerf = _field(cfg, fine=False)
+        self.nerf_fine = None if cfg.shared_fine else _field(cfg, fine=True)
+        self.fused = cfg.fused_field and fr.supports_fused(cfg)
+
+    @property
+    def fine_field(self) -> NeRFField:
+        return self.nerf if self.nerf_fine is None else self.nerf_fine
+
+    def render_rays(self, rays_o: torch.Tensor, rays_d: torch.Tensor,
+                    viewdirs: Optional[torch.Tensor], near: torch.Tensor, far: torch.Tensor, *,
+                    perturb: float, raw_noise_std: float,
+                    generator: Optional[torch.Generator] = None,
+                    coarse_outputs: bool = True) -> Dict[str, torch.Tensor]:
+        """Render one chunk of rays (``[R, 3]`` each; near/far ``[R, 1]``)."""
+        cfg = self.cfg
+        n_importance = cfg.n_importance
+        det = perturb == 0.0
+        z_vals = sampling.stratified_sample(near, far, cfg.n_samples, perturb=perturb,
+                                            lindisp=cfg.lindisp, generator=generator)
+        sigma_only = not coarse_outputs and n_importance > 0
+        if self.fused and sigma_only and raw_noise_std == 0.0 and viewdirs is not None:
+            od = torch.cat([rays_o, rays_d], dim=1)
+            weights = fr.fused_coarse_weights(self.nerf, od, z_vals)
+            z_all, z_samples = sampling.importance_sample(z_vals, weights, n_importance,
+                                                          det=det, generator=generator)
+            maps, w_fine = fr.fused_render(self.fine_field, torch.cat([od, viewdirs], dim=1),
+                                           z_all)
+            ret = fr.finish_maps(maps, w_fine, cfg.use_semantics, cfg.white_bkgd)
+            ret["z_std"] = torch.std(z_samples, dim=-1, correction=0)
+            return ret
+
+        pts = sampling.points_along_rays(rays_o, rays_d, z_vals)
+        if sigma_only:
+            ret = {"weights": sigma_to_weights(self.nerf.sigma(pts), z_vals, rays_d,
+                                               raw_noise_std=raw_noise_std,
+                                               generator=generator)}
+        else:
+            ret = volumetric_render(self.nerf(pts, viewdirs), z_vals, rays_d,
+                                    raw_noise_std=raw_noise_std, white_bkgd=cfg.white_bkgd,
+                                    use_semantics=cfg.use_semantics, generator=generator)
+        if n_importance <= 0:
+            return ret
+
+        ret0 = ret
+        z_all, z_samples = sampling.importance_sample(z_vals, ret0["weights"], n_importance,
+                                                      det=det, generator=generator)
+        pts = sampling.points_along_rays(rays_o, rays_d, z_all)
+        ret = volumetric_render(self.fine_field(pts, viewdirs), z_all, rays_d,
+                                raw_noise_std=raw_noise_std, white_bkgd=cfg.white_bkgd,
+                                use_semantics=cfg.use_semantics, generator=generator)
+        ret["z_std"] = torch.std(z_samples, dim=-1, correction=0)
+        if coarse_outputs:
+            for k, v in ret0.items():
+                ret[k + "0"] = v
+        return ret
+
+    def forward(self, ray_batch: torch.Tensor, bounds: Tuple[Any, Any], train: bool = False,
+                generator: Optional[torch.Generator] = None,
+                **overrides: Any) -> Dict[str, torch.Tensor]:
+        """Render ``ray_batch [2, ..., 3]`` (origins, directions); ``bounds`` are
+        (near, far) scalars or per-ray tensors. Outputs keep the leading shape."""
+        cfg = self.cfg
+        perturb = overrides.pop("perturb", cfg.perturb if train else 0.0)
+        raw_noise_std = overrides.pop("raw_noise_std", cfg.raw_noise_std if train else 0.0)
+        rays_o = ray_batch[0].reshape(-1, 3).to(torch.float32)
+        rays_d = ray_batch[1].reshape(-1, 3).to(torch.float32)
+        lead_shape = ray_batch.shape[1:-1]
+        R = rays_o.shape[0]
+        viewdirs = None
+        if cfg.use_viewdirs:
+            viewdirs = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
+        near, far = (torch.as_tensor(b, dtype=torch.float32, device=rays_o.device)
+                     .expand(R).reshape(R, 1) for b in bounds)
+
+        chunks = []
+        for i in range(0, R, cfg.ray_block):
+            sl = slice(i, i + cfg.ray_block)
+            chunks.append(self.render_rays(
+                rays_o[sl], rays_d[sl], None if viewdirs is None else viewdirs[sl],
+                near[sl], far[sl], perturb=perturb, raw_noise_std=raw_noise_std,
+                generator=generator, **overrides))
+        out = {k: torch.cat([c[k] for c in chunks], dim=0) for k in chunks[0]}
+        return {k: v.reshape(*lead_shape, *v.shape[1:]) for k, v in out.items()}
