@@ -1,12 +1,13 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``) as one shared library.
 
-``nvcc`` compiles every source in ``csrc/`` into ``build/kernels/`` at the
-repository root (listed in ``.gitignore``) on first use; the library name
-carries a hash of the sources, so an edited source is rebuilt and a stale
-library is never loaded. The library has a plain C interface and is bound
-with ``ctypes``: pointers and the stream go as ``c_void_p``, and every launch
-function returns its ``cudaError_t``, which :func:`check` turns into an
-exception. Nothing here runs at import time.
+On first use one ``nvcc`` per source in ``csrc/`` compiles it to an object
+file, all of them at once, and a last ``nvcc`` links the objects into one
+library under ``build/kernels/`` at the repository root (listed in
+``.gitignore``). The library name carries a hash of the sources and headers,
+so an edited source is rebuilt and a stale library is never loaded. The library
+has a plain C interface and is bound with ``ctypes``: pointers and the stream
+go as ``c_void_p``, and every launch function returns its ``cudaError_t``,
+which :func:`check` turns into an exception. Nothing here runs at import time.
 """
 from __future__ import annotations
 
@@ -23,11 +24,16 @@ _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 
 def sources() -> List[str]:
     return sorted(os.path.join(CSRC_DIR, f) for f in os.listdir(CSRC_DIR) if f.endswith(".cu"))
+
+
+def _hashed_files() -> List[str]:
+    return sorted(os.path.join(CSRC_DIR, f) for f in os.listdir(CSRC_DIR)
+                  if f.endswith((".cu", ".cuh")))
 
 
 def _nvcc() -> str:
@@ -42,7 +48,7 @@ def _nvcc() -> str:
 
 def library_path() -> str:
     h = hashlib.sha256()
-    for src in sources():
+    for src in _hashed_files():
         with open(src, "rb") as f:
             h.update(os.path.basename(src).encode() + b"\0" + f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -52,21 +58,40 @@ def library_path() -> str:
 def build() -> str:
     """Compile the sources unless the library for them exists; returns its path.
 
-    The compiler's resource report (``-Xptxas -v``: registers, shared memory,
-    spills per kernel) is kept beside the library as ``<lib>.log``.
+    The compilers' resource reports (``-Xptxas -v``: registers, shared memory,
+    spills per kernel) are kept beside the library as ``<lib>.log``.
     """
     path = library_path()
     if os.path.exists(path):
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources()]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    objs, procs = [], []
+    for src in sources():
+        obj = f"{tmp}.{os.path.basename(src)}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+        objs.append(obj)
+        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.PIPE, text=True)))
+    log = []
+    for cmd, proc in procs:  # wait for every compiler before raising
+        _, err = proc.communicate()
+        log.append((cmd, proc.returncode, err))
+    for cmd, code, err in log:
+        if code != 0:
+            raise RuntimeError(f"nvcc failed ({code}): {' '.join(cmd)}\n{err}")
+    link = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", tmp, *objs]
+    proc = subprocess.run(link, capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr}")
     with open(path + ".log", "w") as f:
-        f.write(f"{' '.join(cmd)}\n{time.perf_counter() - t0:.1f} s\n{proc.stderr}")
+        f.write(f"{time.perf_counter() - t0:.1f} s\n")
+        for cmd, _, err in log:
+            f.write(f"{' '.join(cmd)}\n{err}")
+    for obj in objs:
+        os.remove(obj)
     os.replace(tmp, path)
     return path
 
@@ -81,12 +106,24 @@ MAX_LAYERS = 16
 
 
 class MLPDesc(ctypes.Structure):
-    """Mirror of ``MLPDesc`` in ``csrc/fused_render.cu``."""
+    """Mirror of ``MLPDesc`` in ``csrc/tile_mlp.cuh``."""
     _fields_ = [("layer", MLPLayer * MAX_LAYERS),
                 ("depth", ctypes.c_int), ("skip", ctypes.c_int),
                 ("hrows", ctypes.c_int), ("emb_dim", ctypes.c_int),
                 ("demb_dim", ctypes.c_int), ("sem_dim", ctypes.c_int),
                 ("sem_with_coord", ctypes.c_int)]
+
+
+MAX_PLANES = 10 + MAX_LAYERS
+
+
+class TrainDesc(ctypes.Structure):
+    """Mirror of ``TrainDesc`` in ``csrc/train_render.cu``."""
+    _fields_ = [("f", MLPDesc), ("bwd", MLPLayer * MAX_LAYERS),
+                ("gw", ctypes.c_longlong * MAX_LAYERS), ("gb", ctypes.c_longlong * MAX_LAYERS),
+                ("grad_size", ctypes.c_longlong),
+                ("plane", ctypes.c_longlong * MAX_PLANES), ("rows", ctypes.c_int * MAX_PLANES),
+                ("ws_size", ctypes.c_longlong), ("rays_per_chunk", ctypes.c_int)]
 
 
 @functools.cache
@@ -99,6 +136,10 @@ def library() -> ctypes.CDLL:
     lib.nerf_coarse_weights.restype = i32
     lib.nerf_render.argtypes = [vp, vp, vp, desc_p, vp, vp, i32, i32, i32, vp]
     lib.nerf_render.restype = i32
+    lib.nerf_rgb_train_grads.argtypes = [vp, vp, vp, vp, vp, ctypes.POINTER(TrainDesc), vp, vp,
+                                         vp, vp, vp, i32, i32, i32, ctypes.c_uint,
+                                         ctypes.c_float, i32, vp]
+    lib.nerf_rgb_train_grads.restype = i32
     lib.nerf_error_string.argtypes = [i32]
     lib.nerf_error_string.restype = ctypes.c_char_p
     return lib

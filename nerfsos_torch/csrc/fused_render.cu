@@ -48,192 +48,9 @@
 // Later work: bf16 activations with wgmma, TMA-fed weight tiles in shared
 // memory, more than one CTA per SM.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-constexpr int kMaxLayers = 16;
-
-// Host-visible (external linkage): the C entry points take an MLPDesc*.
-struct LayerDesc {
-  long long w;  // offset of W^T [k][pad8(n)] (row-major, segments padded) in the buffer,
-                // followed by its TF32 high parts and TF32 low parts, same shape
-  long long b;  // offset of the bias [pad8(n)]
-  int k;        // input rows including the segment padding
-  int n;        // outputs
-};
-
-struct MLPDesc {
-  LayerDesc layer[kMaxLayers];  // trunk 0..depth-1, alpha, feature, views, rgb, sem_0, sem_1
-  int depth;
-  int skip;            // trunk index after which [emb, h] is concatenated
-  int hrows;           // rows of each activation buffer (max padded layer width)
-  int emb_dim;         // 3 + 6 * multires
-  int demb_dim;        // 3 + 6 * multires_views
-  int sem_dim;         // 0 without the semantic head
-  int sem_with_coord;
-};
+#include "tile_mlp.cuh"
 
 namespace {
-
-constexpr int kPts = 64;          // points per tile
-constexpr int kLd = 72;           // shared-memory row stride (floats), = 8 mod 32
-constexpr int kThreads = 512;
-constexpr int kWarpsN = kThreads / 64;  // warps along the outputs (two along the points)
-constexpr int kTilesN = 32 / kWarpsN;   // n8 tiles per warp (N <= 256)
-constexpr int kMaxSem = 8;
-
-struct Seg {
-  const float* a;  // [k][kLd] feature-major activations
-  int k;
-};
-
-__device__ __forceinline__ Seg none() { return Seg{nullptr, 0}; }
-
-__device__ __forceinline__ int pad8(int x) { return (x + 7) & ~7; }
-
-__device__ __forceinline__ uint32_t tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// x ~= hi + lo with both parts TF32: the 3xTF32 operand split
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32(x);
-  lo = tf32(x - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// One pipeline stage of dense(): raw A values (2 m16 tiles x 4) and the
-// pre-split B fragments (kTilesN n8 tiles x {b0 hi, b1 hi, b0 lo, b1 lo}).
-struct Stage {
-  float a[8];
-  float b[kTilesN][4];
-};
-
-__device__ __forceinline__ void load_stage(Stage& st, int ks, Seg s0, Seg s1, Seg s2, int n1,
-                                           int n2, const float* __restrict__ whi,
-                                           const float* __restrict__ wlo, int ldn, int ntiles,
-                                           int m0, int wn, int g, int t) {
-  const float* a;
-  int k0;
-  if (ks < n1) {
-    a = s0.a, k0 = ks * 8;
-  } else if (ks < n2) {
-    a = s1.a, k0 = (ks - n1) * 8;
-  } else {
-    a = s2.a, k0 = (ks - n2) * 8;
-  }
-  const float* ap = a + (k0 + t) * kLd + m0 + g;
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt) {
-    st.a[mt * 4 + 0] = ap[mt * 16];
-    st.a[mt * 4 + 1] = ap[mt * 16 + 8];
-    st.a[mt * 4 + 2] = ap[4 * kLd + mt * 16];
-    st.a[mt * 4 + 3] = ap[4 * kLd + mt * 16 + 8];
-  }
-  const size_t row = (size_t)(ks * 8 + t) * ldn + g;  // segments are padded to 8 rows
-#pragma unroll
-  for (int j = 0; j < kTilesN; ++j) {
-    const int tile = wn + kWarpsN * j;
-    if (tile < ntiles) {
-      const size_t o = row + tile * 8;
-      st.b[j][0] = __ldg(whi + o);
-      st.b[j][1] = __ldg(whi + o + 4 * ldn);
-      st.b[j][2] = __ldg(wlo + o);
-      st.b[j][3] = __ldg(wlo + o + 4 * ldn);
-    }
-  }
-}
-
-__device__ __forceinline__ void mma_stage(float (&acc)[2][kTilesN][4], const Stage& st,
-                                          int ntiles, int wn) {
-  uint32_t ahi[2][4], alo[2][4];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) split(st.a[mt * 4 + i], ahi[mt][i], alo[mt][i]);
-#pragma unroll
-  for (int j = 0; j < kTilesN; ++j) {
-    if (wn + kWarpsN * j < ntiles) {
-      const uint32_t b0h = __float_as_uint(st.b[j][0]), b1h = __float_as_uint(st.b[j][1]);
-      const uint32_t b0l = __float_as_uint(st.b[j][2]), b1l = __float_as_uint(st.b[j][3]);
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        mma_tf32(acc[mt][j], alo[mt], b0h, b1h);
-        mma_tf32(acc[mt][j], ahi[mt], b0l, b1l);
-        mma_tf32(acc[mt][j], ahi[mt], b0h, b1h);
-      }
-    }
-  }
-}
-
-// out[n][p] = act(sum over the segments, in order, of a[k][p] * W^T[k][n] + b[n])
-// for all n < pad8(N) (padded columns come out 0). Tensor cores, 3xTF32, with
-// the TF32 high/low parts of W^T split on the host. Warp w owns points
-// 32 (w & 1) .. +32 and the n8 tiles w/2 + kWarpsN j; k steps of 8 are
-// pipelined two deep (the next step's loads are in flight during this
-// step's mma).
-__device__ __forceinline__ void dense(const float* __restrict__ params, const LayerDesc L,
-                                      Seg s0, Seg s1, Seg s2, float* out, bool relu) {
-  const int ldn = pad8(L.n), ntiles = ldn / 8;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int m0 = (warp & 1) * 32, wn = warp >> 1;
-  const size_t wsz = (size_t)L.k * ldn;
-  const float* __restrict__ whi = params + L.w + wsz;
-  const float* __restrict__ wlo = whi + wsz;
-  const int n1 = s0.k / 8, n2 = n1 + s1.k / 8, nsteps = n2 + s2.k / 8;
-  float acc[2][kTilesN][4];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int j = 0; j < kTilesN; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[mt][j][i] = 0.f;
-  Stage st0, st1;
-  load_stage(st0, 0, s0, s1, s2, n1, n2, whi, wlo, ldn, ntiles, m0, wn, g, t);
-  for (int ks = 0; ks < nsteps; ks += 2) {
-    if (ks + 1 < nsteps)
-      load_stage(st1, ks + 1, s0, s1, s2, n1, n2, whi, wlo, ldn, ntiles, m0, wn, g, t);
-    mma_stage(acc, st0, ntiles, wn);
-    if (ks + 1 >= nsteps) break;
-    if (ks + 2 < nsteps)
-      load_stage(st0, ks + 2, s0, s1, s2, n1, n2, whi, wlo, ldn, ntiles, m0, wn, g, t);
-    mma_stage(acc, st1, ntiles, wn);
-  }
-  const float* __restrict__ bias = params + L.b;
-#pragma unroll
-  for (int j = 0; j < kTilesN; ++j) {
-    const int tile = wn + kWarpsN * j;
-    if (tile < ntiles) {
-      const int n = tile * 8 + 2 * t;
-      const float b0 = __ldg(bias + n), b1 = __ldg(bias + n + 1);
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const int p = m0 + mt * 16 + g;
-        float v[4] = {acc[mt][j][0] + b0, acc[mt][j][1] + b1, acc[mt][j][2] + b0,
-                      acc[mt][j][3] + b1};
-        if (relu) {
-#pragma unroll
-          for (int i = 0; i < 4; ++i) v[i] = fmaxf(v[i], 0.f);
-        }
-        out[n * kLd + p] = v[0];
-        out[(n + 1) * kLd + p] = v[1];
-        out[n * kLd + p + 8] = v[2];
-        out[(n + 1) * kLd + p + 8] = v[3];
-      }
-    }
-  }
-}
 
 // The wide layers of K2 run as a real call and K1's inline: K2 keeps more
 // values live around its layers, and at 128 registers a thread (512 threads)
@@ -251,38 +68,6 @@ __device__ __forceinline__ void layer(const float* __restrict__ params, const La
     dense_call(params, L, s0, s1, s2, out, relu);
   } else {
     dense(params, L, s0, s1, s2, out, relu);
-  }
-}
-
-// Few-output head: thread (p, g) computes outputs g, g + 8, ... of point p and
-// writes them to strip[(q0 + p) * cs + c0 + n] for valid points.
-__device__ void dense_small(const float* __restrict__ params, const LayerDesc L, Seg s0,
-                            Seg s1, Seg s2, float* strip, int q0, int nq, int cs, int c0) {
-  const int p = threadIdx.x % kPts;
-  const int N = L.n, ldn = pad8(L.n);
-  const Seg segs[3] = {s0, s1, s2};
-  for (int n = threadIdx.x / kPts; n < N; n += kThreads / kPts) {
-    float acc = 0.f;
-    const float* __restrict__ wcol = params + L.w + n;
-#pragma unroll
-    for (int sg = 0; sg < 3; ++sg) {
-      const float* a = segs[sg].a;
-      const int K = segs[sg].k;
-      for (int k = 0; k < K; ++k, wcol += ldn) acc = fmaf(a[k * kLd + p], __ldg(wcol), acc);
-    }
-    if (q0 + p < nq) strip[(q0 + p) * cs + c0 + n] = acc + __ldg(params + L.b + n);
-  }
-}
-
-// Rows 3.. of a PE buffer whose rows 0-2 hold x: row 3 + 6 b + 3 h + c holds
-// sin(2^b * x_c + h * pi/2), the column order of core/encoding.py.
-__device__ void pe_rows(float* buf, int rows) {
-  for (int t = threadIdx.x; t < (rows - 3) * kPts; t += kThreads) {
-    const int f = t / kPts, p = t % kPts;
-    const int band = f / 6, r = f % 6, c = r % 3;
-    const float phase = (r >= 3) ? 1.57079632679489661923f : 0.f;
-    const float freq = ldexpf(1.f, band);
-    buf[(3 + f) * kLd + p] = sinf(__fadd_rn(__fmul_rn(freq, buf[c * kLd + p]), phase));
   }
 }
 

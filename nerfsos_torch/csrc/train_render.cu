@@ -1,0 +1,624 @@
+// Fused RGB train kernels for Hopper (sm_90a): forward recompute, composite,
+// the img2mse cotangent and the full reverse sweep of the field MLP, for one
+// pass of rays, plus a deterministic reduction of the per-CTA gradients.
+//
+// Replaces K3 of nerfsos_tpu/ops/pallas/fused_render.py:
+//   fused_rgb_train_grads -> _train_render_bwd_kernel with rgb_loss=True.
+// From odv [R, 9], z [R, S], gt [R, 3] and a noise seed it writes the
+// UNSCALED gradients of sum((rgb_map - gt)^2) for every layer (the caller
+// scales by rgb_w / (R * 3)), the maps [R, 5 + sem] and the weights [R, S].
+//
+// What bounds it on the H100: arithmetic. Per point it does the forward
+// (~1.27 MFLOP at the flagship fine shape), the input-gradient products and
+// the weight-gradient products (~3x the forward in all); the only traffic
+// the function needs is the rays, z and gt in, the maps and weights out and
+// one read of the weights and one write of the gradients (~5 MB a field).
+//
+// What the design does about it (a first version: right before fast):
+//   * a grid of about one CTA per SM (512 threads) takes chunks of whole
+//     rays (rays_per_chunk = max(1, 512 / S), so ~512 points) in waves of
+//     one chunk per CTA, so the composite and its reverse scan stay inside
+//     the CTA; per wave a forward kernel and a reverse-sweep kernel run in
+//     turn (as one kernel, the layer products of both spilled registers and
+//     the whole ran 1.6x slower: H100, 4096 rays x 192 samples, 190 ms vs
+//     120 ms);
+//   * the activations of a chunk do not fit in shared memory (~3,400 rows
+//     of 64-point tiles, ~7.9 MB a CTA at the flagship shape, ~1 GB for the
+//     grid), so each CTA keeps them in its own slice of a global workspace,
+//     in the same feature-major [row][kLd] tiles the render kernels keep in
+//     shared memory, from its forward to its reverse sweep;
+//   * the forward and the input-gradient products dX = W dY run on the
+//     tensor cores in the 3xTF32 scheme of the render kernels (dense() of
+//     tile_mlp.cuh; the weight slices of the reverse sweep are packed on the
+//     host, and the relu derivative is applied in the epilogue as a gate on
+//     the stored activation). The forward keeps a tile's activations in
+//     shared memory as K2 does and stores each to the workspace; the reverse
+//     sweep copies each dY tile into shared memory first (cp.async, two
+//     stages). The emb rows of the skip
+//     input, the view encoding and layer 0 need no input gradient and get
+//     none;
+//   * dW = X^T dY contracts over the chunk's points: 128 x 128 macro tiles
+//     whose X and dY rows stream through two shared-memory stages
+//     (cp.async), each warp a 32 x 32 block with m16n8k8 3xTF32 mma, added
+//     into the CTA's partial dW in global memory once a chunk. A third
+//     kernel sums the partials in a fixed order, so the gradients are
+//     deterministic (no atomics);
+//   * the semantic head runs forward only: in this loss its cotangent is
+//     identically zero, so its gradients are exact zeros (the wrapper writes
+//     them) and it adds nothing to dh;
+//   * the sigma noise is the TPU kernel's hash: SplitMix-style avalanche of
+//     (global point index + seed) in uint32 arithmetic, Box-Muller with
+//     log1pf and cosf, so kernel and plain version draw the same values.
+// Where the time goes (H100, 4096 rays x 192 samples, clock64 per section):
+// the forward and composite ~35%, the input-gradient products ~32%, the dW
+// products ~33%; every 64-point tile re-reads each layer's weights from L2.
+// Precision: fp32 throughout; the points and the PE phases as in the render
+// kernels (explicit round-to-nearest, accurate sinf), no fast-math.
+
+#include "tile_mlp.cuh"
+
+constexpr int kMaxPlanes = 10 + kMaxLayers;
+
+// Host-visible: the C entry point takes a TrainDesc*.
+struct TrainDesc {
+  MLPDesc f;                    // the forward layers (ops/fused_render.pack_field)
+  LayerDesc bwd[kMaxLayers];    // dX matrices in bparams, by forward layer index:
+                                //   trunk i >= 1: W_i restricted to its h input,
+                                //   depth (alpha's slot): [W_feature; W_alpha] on h,
+                                //   depth + 2: W_views on the feature input, depth + 3: W_rgb
+  long long gw[kMaxLayers];     // offset of dW [k][pad8(n)] in a gradient buffer
+  long long gb[kMaxLayers];     // offset of db [pad8(n)]
+  long long grad_size;          // floats of one gradient buffer
+  long long plane[kMaxPlanes];  // offset of each workspace plane in a CTA's slice
+  int rows[kMaxPlanes];         // padded rows of each plane (one [rows][kLd] tile per 64 points)
+  long long ws_size;            // floats of a CTA's workspace slice
+  int rays_per_chunk;
+};
+
+namespace {
+
+// workspace planes
+enum Plane { P_EMB, P_DEMB, P_FEAT, P_HV, P_DRGB, P_DSIG, P_DPV, P_DFEAT, P_DA, P_DB, P_ACT0 };
+
+__device__ __forceinline__ float* plane(float* ws, const TrainDesc& d, int p, int sub) {
+  return ws + d.plane[p] + (size_t)sub * d.rows[p] * kLd;
+}
+
+__device__ __noinline__ void dense_call(const float* __restrict__ params, const LayerDesc L,
+                                        Seg s0, Seg s1, Seg s2, float* out, bool relu) {
+  dense(params, L, s0, s1, s2, out, relu);
+}
+
+__device__ __forceinline__ uint32_t mix32(uint32_t x) {
+  x ^= x >> 16;
+  x *= 0x7FEB352Du;
+  x ^= x >> 15;
+  x *= 0x84ECE28Bu;
+  x ^= x >> 16;
+  return x;
+}
+
+// N(0, std) for global point index idx (= ray * S + sample): the TPU
+// kernel's _noise_lanes, bit for bit up to the last ulp of log1pf/cosf.
+__device__ __forceinline__ float hash_noise(uint32_t seed, uint32_t idx, float std) {
+  const uint32_t h1 = mix32((idx + seed) * 0x9E3779B9u);
+  const uint32_t h2 = mix32(h1 + 0x7E3779B9u);
+  const float u1 = (float)(h1 >> 8) * 5.9604644775390625e-8f;  // 2^-24
+  const float u2 = (float)(h2 >> 8) * 5.9604644775390625e-8f;
+  const float r = sqrtf(-2.f * log1pf(-u1));
+  return (std * r) * cosf(6.28318530717958f * u2);
+}
+
+// One input of a weight-gradient product: up to two planes, in row order.
+struct XSegs {
+  int p[2];
+  int n;
+};
+
+constexpr int kWgM = 128, kWgN = 128;  // dW macro tile: 4 x 4 warps of 32 x 32
+constexpr int kLdS = 68;               // staged row stride (floats), = 4 mod 32
+constexpr int kStageFloats = (kWgM + kWgN) * kLdS;
+constexpr int kBwdRows = 256 + 8;      // the most dY rows an input-gradient product reads
+constexpr int kBwdStageFloats = kBwdRows * kLd;
+// shared memory after the composite strip: two dW stages or two dX stages
+constexpr int kStagingFloats =
+    2 * (kStageFloats > kBwdStageFloats ? kStageFloats : kBwdStageFloats);
+
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+
+// Copy one 64-point tile of X rows [m0, m0 + 128) and dY rows [n0, n0 + 128)
+// into a stage ([256][kLdS]: X rows, then dY rows; rows past kpad / ldn are
+// zero), as one cp.async group.
+__device__ void stage_tiles(float* stage, float* ws, const TrainDesc& d, XSegs X, int kpad,
+                            int dy, int ldn, int m0, int n0, int sub) {
+  for (int c = threadIdx.x; c < (kWgM + kWgN) * (kPts / 4); c += kThreads) {
+    const int r = c / (kPts / 4), q = (c % (kPts / 4)) * 4;
+    float* dst = stage + r * kLdS + q;
+    const float* src = nullptr;
+    if (r < kWgM) {
+      int m = m0 + r;
+      if (m < kpad) {
+        for (int s = 0; s < X.n; ++s) {
+          const int rows = d.rows[X.p[s]];
+          if (m < rows) {
+            src = ws + d.plane[X.p[s]] + ((size_t)sub * rows + m) * kLd + q;
+            break;
+          }
+          m -= rows;
+        }
+      }
+    } else if (n0 + r - kWgM < ldn) {
+      src = ws + d.plane[dy] + ((size_t)sub * d.rows[dy] + n0 + r - kWgM) * kLd + q;
+    }
+    if (src) {
+      cp_async16(dst, src);
+    } else {
+      *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// out(sub) = W dY(sub) for every 64-point tile of the chunk, gated by the
+// relu derivative of gate(sub) when gate >= 0: the input-gradient product
+// of one layer. dY is up to two planes of rows (k0 then k1); each tile of
+// them is copied into shared memory with cp.async (the next tile in flight
+// while this one is multiplied) and dense() reads it from there.
+__device__ __noinline__ void bwd_layer(const float* __restrict__ bparams, const LayerDesc L,
+                                       float* ws, const TrainDesc& d, int p0, int p1, int out,
+                                       int gate, int nsub, float* stages) {
+  const int k0 = d.rows[p0], k1 = p1 >= 0 ? d.rows[p1] : 0;
+  auto stage = [&](int sub) {
+    float* dst = stages + (sub & 1) * kBwdStageFloats;
+    for (int c = threadIdx.x; c < (k0 + k1) * (kPts / 4); c += kThreads) {
+      const int r = c / (kPts / 4), q = (c % (kPts / 4)) * 4;
+      const float* src = r < k0 ? plane(ws, d, p0, sub) + r * kLd + q
+                                : plane(ws, d, p1, sub) + (r - k0) * kLd + q;
+      cp_async16(dst + r * kLd + q, src);
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+  stage(0);
+  for (int sub = 0; sub < nsub; ++sub) {
+    if (sub + 1 < nsub) {
+      stage(sub + 1);
+      asm volatile("cp.async.wait_group 1;\n" ::);
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::);
+    }
+    __syncthreads();
+    const float* a = stages + (sub & 1) * kBwdStageFloats;
+    const Seg s1 = k1 ? Seg{a + k0 * kLd, k1} : none();
+    if (gate >= 0) {
+      dense<true>(bparams, L, Seg{a, k0}, s1, none(), plane(ws, d, out, sub), false,
+                  plane(ws, d, gate, sub));
+    } else {
+      dense(bparams, L, Seg{a, k0}, s1, none(), plane(ws, d, out, sub), false);
+    }
+    __syncthreads();
+  }
+}
+
+// dW[m][n] += sum over the chunk's points of X[m][p] * dY[n][p] and
+// db[n] += sum_p dY[n][p], for m < sum of the segments' rows and n < ldn.
+// The CTA walks 128 x 128 macro tiles of dW; for each it streams the chunk's
+// 64-point tiles of the X and dY rows it needs through two shared-memory
+// stages (cp.async, the next tile in flight while this one is multiplied),
+// and warp (wm, wn) accumulates its 32 x 32 block with m16n8k8 3xTF32 mma
+// (A = X rows, B = dY rows, k = points), then adds it into the CTA's
+// partial dW in global memory.
+__device__ __noinline__ void wgrad(float* ws, const TrainDesc& d, XSegs X, int dy, int ldn,
+                                   float* __restrict__ dW, float* __restrict__ db, int nsub,
+                                   float* stages) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp & 3, wn = warp >> 2;
+  int kpad = 0;
+  for (int s = 0; s < X.n; ++s) kpad += d.rows[X.p[s]];
+  for (int m0 = 0; m0 < kpad; m0 += kWgM) {
+    for (int n0 = 0; n0 < ldn; n0 += kWgN) {
+      float acc[2][4][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[mt][j][i] = 0.f;
+      float dbacc = 0.f;
+      const bool warp_live = m0 + wm * 32 < kpad && n0 + wn * 32 < ldn;
+      stage_tiles(stages, ws, d, X, kpad, dy, ldn, m0, n0, 0);
+      for (int sub = 0; sub < nsub; ++sub) {
+        if (sub + 1 < nsub) {
+          stage_tiles(stages + ((sub + 1) & 1) * kStageFloats, ws, d, X, kpad, dy, ldn, m0, n0,
+                      sub + 1);
+          asm volatile("cp.async.wait_group 1;\n" ::);
+        } else {
+          asm volatile("cp.async.wait_group 0;\n" ::);
+        }
+        __syncthreads();
+        const float* xs = stages + (sub & 1) * kStageFloats;
+        const float* ys = xs + kWgM * kLdS;
+        if (warp_live) {
+          const float* xa = xs + (wm * 32 + g) * kLdS + t;
+          const float* yb = ys + (wn * 32 + g) * kLdS + t;
+#pragma unroll 2
+          for (int kk = 0; kk < kPts; kk += 8) {
+            uint32_t ahi[2][4], alo[2][4];
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt) {
+              // a0 (row g, k t), a1 (row g + 8, k t), a2 (row g, k t + 4), a3 (g + 8, t + 4)
+              const float* p = xa + mt * 16 * kLdS + kk;
+              split(p[0], ahi[mt][0], alo[mt][0]);
+              split(p[8 * kLdS], ahi[mt][1], alo[mt][1]);
+              split(p[4], ahi[mt][2], alo[mt][2]);
+              split(p[8 * kLdS + 4], ahi[mt][3], alo[mt][3]);
+            }
+uint32_t bh[4][2], bl[4][2];
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const float* p = yb + j * 8 * kLdS + kk;
+              split(p[0], bh[j][0], bl[j][0]);
+              split(p[4], bh[j][1], bl[j][1]);
+            }
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+#pragma unroll
+              for (int mt = 0; mt < 2; ++mt) mma_tf32(acc[mt][j], alo[mt], bh[j][0], bh[j][1]);
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+#pragma unroll
+              for (int mt = 0; mt < 2; ++mt) mma_tf32(acc[mt][j], ahi[mt], bl[j][0], bl[j][1]);
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+#pragma unroll
+              for (int mt = 0; mt < 2; ++mt) mma_tf32(acc[mt][j], ahi[mt], bh[j][0], bh[j][1]);
+          }
+        }
+        if (m0 == 0 && threadIdx.x < kWgN) {
+          const float* row = ys + threadIdx.x * kLdS;
+          for (int p = 0; p < kPts; ++p) dbacc += row[p];
+        }
+        __syncthreads();
+      }
+      if (m0 == 0 && threadIdx.x < kWgN && n0 + (int)threadIdx.x < ldn)
+        db[n0 + threadIdx.x] += dbacc;
+      if (!warp_live) continue;
+      // add into the partial dW: every load first, then every store, so the
+      // 32 round trips to memory overlap instead of following one another
+      float old[2][4][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int n = n0 + wn * 32 + 8 * j + 2 * t;
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          const int m = m0 + wm * 32 + 16 * mt + g;
+          const bool lo = n < ldn && m < kpad, hi = n < ldn && m + 8 < kpad;
+          old[mt][j][0] = lo ? dW[(size_t)m * ldn + n] : 0.f;
+          old[mt][j][1] = lo ? dW[(size_t)m * ldn + n + 1] : 0.f;
+          old[mt][j][2] = hi ? dW[(size_t)(m + 8) * ldn + n] : 0.f;
+          old[mt][j][3] = hi ? dW[(size_t)(m + 8) * ldn + n + 1] : 0.f;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int n = n0 + wn * 32 + 8 * j + 2 * t;
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          const int m = m0 + wm * 32 + 16 * mt + g;
+          if (n < ldn && m < kpad) {
+            dW[(size_t)m * ldn + n] = old[mt][j][0] + acc[mt][j][0];
+            dW[(size_t)m * ldn + n + 1] = old[mt][j][1] + acc[mt][j][1];
+          }
+          if (n < ldn && m + 8 < kpad) {
+            dW[(size_t)(m + 8) * ldn + n] = old[mt][j][2] + acc[mt][j][2];
+            dW[(size_t)(m + 8) * ldn + n + 1] = old[mt][j][3] + acc[mt][j][3];
+          }
+        }
+      }
+    }
+  }
+}
+
+// Copy a [rows][kLd] tile (64 points a row) from shared memory to the workspace.
+__device__ __forceinline__ void store_tile(const float* src, float* dst, int rows) {
+  for (int c = threadIdx.x; c < rows * (kPts / 4); c += kThreads) {
+    const int r = c / (kPts / 4), q = (c % (kPts / 4)) * 4;
+    *reinterpret_cast<float4*>(dst + r * kLd + q) =
+        *reinterpret_cast<const float4*>(src + r * kLd + q);
+  }
+}
+
+// Forward of one 64-point tile of the chunk (rays r0.., nq points), as the
+// render kernel K2 computes it: the points, their PE, the trunk and the
+// heads on activations in shared memory (emb, demb and two layer buffers at
+// `tile`); every activation the reverse sweep reads is also stored to the
+// workspace, and sigma / rgb logits / semantics go to the strip.
+__device__ __forceinline__ void forward_tile(const float* __restrict__ odv, const float* zc,
+                                             const float* __restrict__ params,
+                                             const TrainDesc& d, float* ws, float* strip,
+                                             float* tile, int r0, int nq, int S, int sub) {
+  const MLPDesc& f = d.f;
+  const int depth = f.depth, E = f.emb_dim, Ep = pad8(E), Ed = f.demb_dim, Edp = pad8(Ed);
+  const int sem = f.sem_dim, cs = 6 + sem;
+  const LayerDesc* head = f.layer + depth;  // alpha, feature, views, rgb, sem_0, sem_1
+  const int q0 = sub * kPts;
+  float* emb = tile;
+  float* demb = emb + Ep * kLd;
+  float* hA = demb + Edp * kLd;
+  float* hB = hA + f.hrows * kLd;
+  for (int t = threadIdx.x; t < 3 * kPts; t += kThreads) {
+    const int ch = t / kPts, p = t % kPts, q = q0 + p;
+    float x = 0.f, v = 0.f;
+    if (q < nq) {
+      const float* ray = odv + (size_t)(r0 + q / S) * 9;
+      x = __fadd_rn(ray[ch], __fmul_rn(ray[3 + ch], zc[q]));
+      v = ray[6 + ch];
+    }
+    emb[ch * kLd + p] = x;
+    demb[ch * kLd + p] = v;
+  }
+  __syncthreads();
+  pe_rows(emb, E);
+  pe_rows(demb, Ed);
+  __syncthreads();
+  store_tile(emb, plane(ws, d, P_EMB, sub), Ep);
+  store_tile(demb, plane(ws, d, P_DEMB, sub), Edp);
+
+  // trunk: layer i reads `in0, in1` and writes the buffer not holding h
+  Seg in0{emb, Ep}, in1 = none();
+  float* cur = hB;
+  for (int i = 0; i < depth; ++i) {
+    float* nxt = (cur == hA) ? hB : hA;
+    dense_call(params, f.layer[i], in0, in1, none(), nxt, true);
+    __syncthreads();
+    store_tile(nxt, plane(ws, d, P_ACT0 + i, sub), pad8(f.layer[i].n));
+    cur = nxt;
+    if (i == f.skip) {
+      in0 = Seg{emb, Ep};
+      in1 = Seg{cur, pad8(f.layer[i].n)};
+    } else {
+      in0 = Seg{cur, pad8(f.layer[i].n)};
+      in1 = none();
+    }
+  }
+  float* spare = (cur == hA) ? hB : hA;
+  dense_small(params, head[0], in0, in1, none(), strip, q0, nq, cs, 0);  // sigma
+  if (sem) {
+    const Seg coord = f.sem_with_coord ? Seg{emb, Ep} : none();
+    dense_call(params, head[4], in0, in1, coord, spare, true);
+    __syncthreads();
+    dense_small(params, head[5], Seg{spare, pad8(head[4].n)}, none(), none(), strip, q0, nq, cs,
+                5);
+    __syncthreads();
+  }
+  dense_call(params, head[1], in0, in1, none(), spare, false);  // feature
+  __syncthreads();
+  store_tile(spare, plane(ws, d, P_FEAT, sub), pad8(head[1].n));
+  dense_call(params, head[2], Seg{spare, pad8(head[1].n)}, Seg{demb, Edp}, none(), cur,
+             true);  // views (h is no longer needed)
+  __syncthreads();
+  store_tile(cur, plane(ws, d, P_HV, sub), pad8(head[2].n));
+  dense_small(params, head[3], Seg{cur, pad8(head[2].n)}, none(), none(), strip, q0, nq, cs, 2);
+  __syncthreads();
+}
+
+// The composite of the chunk's rays (one thread a ray): sigma noise, alpha,
+// transmittance, weights and maps out; the img2mse cotangent; its reverse
+// through the composite into dsigma and drgb (pre-sigmoid) per point.
+__device__ __forceinline__ void composite_chunk(const float* __restrict__ odv, const float* zc,
+                                                const float* __restrict__ gt, const TrainDesc& d,
+                                                float* ws, float* strip,
+                                                float* __restrict__ maps,
+                                                float* __restrict__ weights, int r0, int nr,
+                                                int S, int nsub, unsigned seed,
+                                                float noise_std, int white_bkgd) {
+  const int sem = d.f.sem_dim, cs = 6 + sem, nmaps = 5 + sem, nq = nr * S;
+  for (int rl = threadIdx.x; rl < nr; rl += kThreads) {
+    const float* ray = odv + (size_t)(r0 + rl) * 9;
+    const float nd = sqrtf(ray[3] * ray[3] + ray[4] * ray[4] + ray[5] * ray[5]);
+    const float* zr = zc + (size_t)rl * S;
+    float m[5 + kMaxSem];
+#pragma unroll
+    for (int j = 0; j < 5 + kMaxSem; ++j) m[j] = 0.f;
+    float T = 1.f;
+    for (int s = 0; s < S; ++s) {
+      float* cq = strip + (rl * S + s) * cs;
+      float sig = cq[0];
+      if (noise_std > 0.f) sig += hash_noise(seed, (uint32_t)((r0 + rl) * S + s), noise_std);
+      cq[0] = sig;
+      const float dist = (s == S - 1) ? 1e10f : zr[s + 1] - zr[s];
+      const float e = expf(-fmaxf(sig, 0.f) * (dist * nd));
+      const float w = (1.f - e) * T;
+      cq[1] = T;
+      cq[5 + sem] = w;
+      weights[(size_t)(r0 + rl) * S + s] = w;
+#pragma unroll
+      for (int j = 0; j < 3; ++j) m[j] += w * (1.f / (1.f + expf(-cq[2 + j])));
+      m[3] += w * zr[s];
+      m[4] += w;
+#pragma unroll
+      for (int j = 0; j < kMaxSem; ++j)
+        if (j < sem) m[5 + j] += w * cq[5 + j];
+      T *= e + 1e-10f;
+    }
+#pragma unroll
+    for (int j = 0; j < 5 + kMaxSem; ++j)
+      if (j < nmaps) maps[(size_t)(r0 + rl) * nmaps + j] = m[j];
+
+    const float* gr = gt + (size_t)(r0 + rl) * 3;
+    const float bg = white_bkgd ? 1.f - m[4] : 0.f;
+    float diff[3];
+#pragma unroll
+    for (int j = 0; j < 3; ++j) diff[j] = 2.f * (m[j] + bg - gr[j]);
+    const float dacc = white_bkgd ? -(diff[0] + diff[1] + diff[2]) : 0.f;
+    float suffix = 0.f;  // sum over later samples of dw * alpha * T
+    for (int s = S - 1; s >= 0; --s) {
+      const float* cq = strip + (rl * S + s) * cs;
+      const float sig = cq[0], Ts = cq[1], w = cq[5 + sem];
+      const float D = ((s == S - 1) ? 1e10f : zr[s + 1] - zr[s]) * nd;
+      const float e = expf(-fmaxf(sig, 0.f) * D);
+      const float alpha = 1.f - e, y = e + 1e-10f;
+      float rgb[3];
+#pragma unroll
+      for (int j = 0; j < 3; ++j) rgb[j] = 1.f / (1.f + expf(-cq[2 + j]));
+      const float dw = diff[0] * rgb[0] + diff[1] * rgb[1] + diff[2] * rgb[2] + dacc;
+      const float dalpha = dw * Ts - suffix / y;
+      suffix += (dw * alpha) * Ts;
+      const int q = rl * S + s, sub = q / kPts, p = q % kPts;
+      plane(ws, d, P_DSIG, sub)[p] = sig > 0.f ? dalpha * e * D : 0.f;
+      float* dr = plane(ws, d, P_DRGB, sub);
+#pragma unroll
+      for (int j = 0; j < 3; ++j) dr[j * kLd + p] = (diff[j] * w) * (rgb[j] * (1.f - rgb[j]));
+    }
+  }
+  for (int q = nq + threadIdx.x; q < nsub * kPts; q += kThreads) {  // the last tile's tail
+    const int sub = q / kPts, p = q % kPts;
+    plane(ws, d, P_DSIG, sub)[p] = 0.f;
+    float* dr = plane(ws, d, P_DRGB, sub);
+    for (int j = 0; j < 3; ++j) dr[j * kLd + p] = 0.f;
+  }
+  __syncthreads();
+}
+
+// Wave `wave` of the forward: CTA b takes chunk wave * gridDim.x + b into its
+// workspace slice b: every activation of the reverse sweep, then the
+// composite (maps, weights, dsigma and drgb).
+__global__ void __launch_bounds__(kThreads, 1)
+    train_forward_kernel(const float* __restrict__ odv, const float* __restrict__ z,
+                         const float* __restrict__ gt, const float* __restrict__ params,
+                         const __grid_constant__ TrainDesc d, float* __restrict__ maps,
+                         float* __restrict__ weights, float* __restrict__ workspace, int R,
+                         int S, int wave, unsigned seed, float noise_std, int white_bkgd) {
+  extern __shared__ float4 smem4[];
+  const int rpc = d.rays_per_chunk;
+  const int c = wave * gridDim.x + blockIdx.x;
+  if (c * rpc >= R) return;
+  float* strip = reinterpret_cast<float*>(smem4);
+  float* tile = strip + ((rpc * S * (6 + d.f.sem_dim) + 3) & ~3);  // emb, demb, hA, hB
+  float* ws = workspace + (size_t)blockIdx.x * d.ws_size;
+  const int E = d.f.emb_dim, Ep = pad8(E), Ed = d.f.demb_dim, Edp = pad8(Ed);
+  for (int i = threadIdx.x; i < (Ep - E) * kLd; i += kThreads) tile[E * kLd + i] = 0.f;
+  for (int i = threadIdx.x; i < (Edp - Ed) * kLd; i += kThreads)
+    tile[(Ep + Ed) * kLd + i] = 0.f;
+  if (wave == 0) {  // padding rows of the cotangent planes that nothing writes
+    for (int sub = 0; sub < (rpc * S + kPts - 1) / kPts; ++sub) {
+      float* r = plane(ws, d, P_DRGB, sub);
+      float* s = plane(ws, d, P_DSIG, sub);
+      for (int i = threadIdx.x; i < 5 * kLd; i += kThreads) r[3 * kLd + i] = 0.f;
+      for (int i = threadIdx.x; i < 7 * kLd; i += kThreads) s[kLd + i] = 0.f;
+    }
+  }
+  __syncthreads();
+  const int r0 = c * rpc, nr = min(rpc, R - r0), nq = nr * S;
+  const int nsub = (nq + kPts - 1) / kPts;
+  const float* zc = z + (size_t)r0 * S;
+
+  // ---- forward, storing every activation the reverse sweep reads
+  for (int sub = 0; sub < nsub; ++sub)
+    forward_tile(odv, zc, params, d, ws, strip, tile, r0, nq, S, sub);
+
+  // ---- composite, maps, the img2mse cotangent and its reverse: one thread a ray
+  composite_chunk(odv, zc, gt, d, ws, strip, maps, weights, r0, nr, S, nsub, seed, noise_std,
+                  white_bkgd);
+}
+
+// Wave `wave` of the reverse sweep, on the chunk the forward left in
+// workspace slice b: rgb, views, feature + alpha, then the trunk; dW/db add
+// into CTA b's partial gradients (zeroed in wave 0).
+__global__ void __launch_bounds__(kThreads, 1)
+    train_reverse_kernel(const float* __restrict__ bparams, const __grid_constant__ TrainDesc d,
+                         float* __restrict__ partial, float* __restrict__ workspace, int R, int S,
+                         int wave) {
+  extern __shared__ float4 smem4[];
+  float* stages = reinterpret_cast<float*>(smem4);
+  const MLPDesc& f = d.f;
+  const int rpc = d.rays_per_chunk;
+  const int c = wave * gridDim.x + blockIdx.x;
+  float* gpart = partial + (size_t)blockIdx.x * d.grad_size;
+  if (wave == 0) {
+    for (size_t i = threadIdx.x; i < (size_t)d.grad_size; i += kThreads) gpart[i] = 0.f;
+    __syncthreads();
+  }
+  if (c * rpc >= R) return;
+  float* ws = workspace + (size_t)blockIdx.x * d.ws_size;
+  const int depth = f.depth, ldw = pad8(f.layer[0].n);
+  const int nsub = (min(rpc, R - c * rpc) * S + kPts - 1) / kPts;
+  const int k_alpha = depth, k_feat = depth + 1, k_views = depth + 2, k_rgb = depth + 3;
+
+  // ---- reverse sweep: rgb, views, feature + alpha, trunk
+  wgrad(ws, d, XSegs{{P_HV, 0}, 1}, P_DRGB, pad8(3), gpart + d.gw[k_rgb], gpart + d.gb[k_rgb],
+        nsub, stages);
+  bwd_layer(bparams, d.bwd[k_rgb], ws, d, P_DRGB, -1, P_DPV, P_HV, nsub, stages);
+  wgrad(ws, d, XSegs{{P_FEAT, P_DEMB}, 2}, P_DPV, pad8(f.layer[k_views].n),
+        gpart + d.gw[k_views], gpart + d.gb[k_views], nsub, stages);
+  bwd_layer(bparams, d.bwd[k_views], ws, d, P_DPV, -1, P_DFEAT, -1, nsub, stages);
+  const int last = P_ACT0 + depth - 1;
+  const XSegs h = (f.skip == depth - 1) ? XSegs{{P_EMB, last}, 2} : XSegs{{last, 0}, 1};
+  wgrad(ws, d, h, P_DFEAT, ldw, gpart + d.gw[k_feat], gpart + d.gb[k_feat], nsub, stages);
+  wgrad(ws, d, h, P_DSIG, 8, gpart + d.gw[k_alpha], gpart + d.gb[k_alpha], nsub, stages);
+  bwd_layer(bparams, d.bwd[k_alpha], ws, d, P_DFEAT, P_DSIG, P_DA, last, nsub, stages);
+  int cur = P_DA;
+  for (int i = depth - 1; i >= 0; --i) {
+    const XSegs in = (i == 0) ? XSegs{{P_EMB, 0}, 1}
+                     : (i - 1 == f.skip) ? XSegs{{P_EMB, P_ACT0 + i - 1}, 2}
+                                         : XSegs{{P_ACT0 + i - 1, 0}, 1};
+    wgrad(ws, d, in, cur, ldw, gpart + d.gw[i], gpart + d.gb[i], nsub, stages);
+    const int nxt = (cur == P_DA) ? P_DB : P_DA;
+    if (i > 0) bwd_layer(bparams, d.bwd[i], ws, d, cur, -1, nxt, P_ACT0 + i - 1, nsub, stages);
+    cur = nxt;
+  }
+}
+
+// out[i] = sum over the CTAs, in CTA order, of their partial gradients
+__global__ void reduce_partials(const float* __restrict__ partial, float* __restrict__ out,
+                                long long n, int parts) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    float s = 0.f;
+    for (int c = 0; c < parts; ++c) s += partial[(size_t)c * n + i];
+    out[i] = s;
+  }
+}
+
+}  // namespace
+
+// grid CTAs (each with a d->ws_size workspace slice and a d->grad_size partial
+// gradient buffer) take the chunks of rays in waves of grid: per wave the
+// forward kernel, then the reverse-sweep kernel; then the partials are summed
+// into grads [d->grad_size]. Returns the first CUDA error of the launches.
+extern "C" int nerf_rgb_train_grads(const float* odv, const float* z, const float* gt,
+                                    const float* params, const float* bparams,
+                                    const TrainDesc* d, float* maps, float* weights,
+                                    float* partial, float* workspace, float* grads, int R, int S,
+                                    int grid, unsigned seed, float noise_std, int white_bkgd,
+                                    void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int Ep = (d->f.emb_dim + 7) / 8 * 8, Edp = (d->f.demb_dim + 7) / 8 * 8;
+  const int fwd_smem =
+      (int)((((size_t)d->rays_per_chunk * S * (6 + d->f.sem_dim) + 3) / 4 * 4 +
+             (size_t)(Ep + Edp + 2 * d->f.hrows) * kLd) *
+            sizeof(float));
+  const int stage_smem = (int)(kStagingFloats * sizeof(float));
+  cudaError_t err = cudaFuncSetAttribute(train_forward_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, fwd_smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(train_reverse_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               stage_smem);
+  if (err != cudaSuccess) return (int)err;
+  const int nchunks = (R + d->rays_per_chunk - 1) / d->rays_per_chunk;
+  for (int wave = 0; wave * grid < nchunks; ++wave) {
+    train_forward_kernel<<<grid, kThreads, fwd_smem, st>>>(
+        odv, z, gt, params, *d, maps, weights, workspace, R, S, wave, seed, noise_std,
+        white_bkgd);
+    train_reverse_kernel<<<grid, kThreads, stage_smem, st>>>(bparams, *d, partial, workspace, R,
+                                                            S, wave);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int blocks = (int)((d->grad_size + 255) / 256 < 1024 ? (d->grad_size + 255) / 256 : 1024);
+  reduce_partials<<<blocks, 256, 0, st>>>(partial, grads, d->grad_size, grid);
+  return (int)cudaGetLastError();
+}

@@ -1,11 +1,15 @@
-"""Per-view ray datasets for evaluation (numpy).
+"""Ray datasets (numpy): per-view access for evaluation, the shuffled ray
+pool for training.
 
 Reads the prepared dataset layout of ``nerfsos_tpu/data/datasets.py`` (the
 reference's on-disk contract): ``meta.json`` with ``near``/``far``/``focal``/
 ``H``/``W``, ``rays_{split}[_x{subsample}].npy`` ``[N, H, W, 2, 3]``,
 ``rgbs_{split}*.npy`` ``[N, H, W, 3]`` and optional ``masks_{split}.npy``.
-Only the eval access (``get_view``) is ported; the train samplers and the
-raw-scene preparation (``gen_dataset``) are not yet.
+Ported: ``get_view`` and, for the ``train`` split, the flat ray pool and
+``sample_batch`` (``--N_rand`` rays drawn with replacement). Not yet: the
+per-view sampler (``ViewDataset``, ``--no_batching``), the patch sampler
+(``PatchDataset``, ``--patch_tune``) and the raw-scene preparation
+(``gen_dataset``).
 """
 from __future__ import annotations
 
@@ -49,9 +53,22 @@ class RayDataset:
         else:
             self.masks = np.zeros(self.rays.shape[:3] + (1,), np.float32)
         self.image_count, self.height, self.width = self.rays.shape[:3]
+        self.split = split
+        if split == "train":
+            self._flat_rays = np.asarray(self.rays).reshape(-1, 2, 3)
+            self._flat_rgbs = np.asarray(self.rgbs).reshape(-1, self.rgbs.shape[-1])
+            self._flat_masks = np.asarray(self.masks).reshape(-1, self.masks.shape[-1])
 
     def __len__(self) -> int:
-        return self.image_count
+        return self._flat_rays.shape[0] if self.split == "train" else self.image_count
+
+    def sample_batch(self, rng: np.random.Generator, batch_size: int) -> Dict[str, np.ndarray]:
+        """``batch_size`` rays of the pool, uniformly with replacement (the
+        JAX sampler's draw): ``rays [2, B, 3]``, ``target [B, 3]``,
+        ``masks [B, 1]``."""
+        idx = rng.integers(0, self._flat_rays.shape[0], size=batch_size)
+        return {"rays": np.ascontiguousarray(self._flat_rays[idx].transpose(1, 0, 2)),
+                "target": self._flat_rgbs[idx], "masks": self._flat_masks[idx]}
 
     def near_far(self) -> Tuple[float, float]:
         return self.meta["near"], self.meta["far"]

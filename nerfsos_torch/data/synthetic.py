@@ -72,10 +72,16 @@ def render_analytic(rays: np.ndarray):
 
 def write_sphere_scene(root: str, height: int, width: int, n_views: int = 1,
                        split: str = "test") -> None:
-    """Write ``n_views`` views of the scene as ``split`` plus ``meta.json``."""
+    """Write ``n_views`` views of the scene as ``split`` plus ``meta.json``.
+
+    Splits already in ``root`` are kept, so a ``train`` split can be written
+    beside a ``test`` one of the same size; the train cameras sit half a
+    step further round the circle than the test cameras."""
     os.makedirs(root, exist_ok=True)
     focal = 1.25 * width
     angles = np.linspace(0.0, 360.0, n_views, endpoint=False)
+    if split == "train":
+        angles = angles + 180.0 / n_views
     poses = np.stack([pose_spherical(a, -25.0 - 15.0 * ((i % 3) - 1), R_CAM)
                       for i, a in enumerate(angles)])
     rays = persp_rays(height, width, focal, poses)

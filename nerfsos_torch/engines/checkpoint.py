@@ -2,7 +2,10 @@
 
 The reference saves ``{'global_step', 'model', 'optimizer'}`` as
 ``{step:08d}.ckpt`` and resumes from the lexicographically newest ``*.ckpt``
-(``engines/checkpoint.py`` of ``nerfsos_tpu`` documents the same contract).
+(``engines/checkpoint.py`` of ``nerfsos_tpu`` documents the same contract);
+a train run writes ``{step:08d}.ckpt`` and ``latest.ckpt`` every
+``--i_weights`` steps and ``last.ckpt`` at its end, ``optimizer`` holding
+the Adam ``state_dict``.
 ``NeRFNet``'s parameter names are the reference's, so such a file loads with
 ``load_state_dict``. :func:`state_dict_from_jax_params` is the inverse of
 ``nerfsos_tpu.engines.checkpoint._convert_field``: it turns a flax param tree
@@ -21,7 +24,13 @@ import torch.nn as nn
 
 
 def find_latest_checkpoint(run_dir: str) -> Optional[str]:
-    """Newest checkpoint in a run dir (``.ckpt`` files or orbax step dirs)."""
+    """Newest checkpoint in a run dir (``.ckpt`` files or orbax step dirs).
+
+    The rule is the JAX package's: the lexicographically last name, so
+    ``latest.ckpt`` wins over ``last.ckpt`` and over the 8-digit names. A run
+    whose last step is not a multiple of ``--i_weights`` therefore resumes
+    from its last ``--i_weights`` step (``latest``), not from ``last``, in
+    both packages."""
     if not os.path.isdir(run_dir):
         return None
     cands = sorted(f for f in os.listdir(run_dir)
@@ -29,27 +38,33 @@ def find_latest_checkpoint(run_dir: str) -> Optional[str]:
     return os.path.join(run_dir, cands[-1]) if cands else None
 
 
-def save_checkpoint(path: str, step: int, net: nn.Module) -> None:
-    """Write a reference-format ``.ckpt`` (no optimizer state: eval only)."""
-    torch.save({"global_step": int(step), "model": net.state_dict(), "optimizer": {}}, path)
+def save_checkpoint(path: str, step: int, net: nn.Module,
+                    optimizer: Optional[torch.optim.Optimizer] = None) -> None:
+    """Write a reference-format ``.ckpt``; ``optimizer`` is ``{}`` without one."""
+    torch.save({"global_step": int(step), "model": net.state_dict(),
+                "optimizer": optimizer.state_dict() if optimizer is not None else {}}, path)
 
 
-def load_checkpoint(path: str) -> Tuple[Dict[str, torch.Tensor], int]:
-    """Read a reference-format ``.ckpt`` (or a bare state dict) on the CPU."""
+def load_checkpoint(path: str) -> Tuple[Dict[str, torch.Tensor], int, Optional[Dict[str, Any]]]:
+    """Read a reference-format ``.ckpt`` (or a bare state dict) on the CPU:
+    (model state, global step, optimizer state or None)."""
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     if isinstance(ckpt, Mapping) and "model" in ckpt:
-        return dict(ckpt["model"]), int(ckpt.get("global_step", 0))
-    return dict(ckpt), 0
+        return dict(ckpt["model"]), int(ckpt.get("global_step", 0)), ckpt.get("optimizer") or None
+    return dict(ckpt), 0, None
 
 
-def load_model_state(net: nn.Module, state: Mapping[str, torch.Tensor], strict: bool = True) -> None:
+def load_model_state(net: nn.Module, state: Mapping[str, torch.Tensor],
+                     strict: bool = True) -> bool:
     """``load_state_dict`` with the reference's ``--load_nostrict`` meaning:
     with ``strict=False`` missing, extra and shape-mismatched entries keep the
-    model's fresh initialisation (torch alone would raise on a shape mismatch)."""
+    model's fresh initialisation (torch alone would raise on a shape mismatch).
+    Returns whether every parameter of ``net`` came from ``state``."""
+    own = net.state_dict()
     if not strict:
-        own = net.state_dict()
         state = {k: v for k, v in state.items() if k in own and own[k].shape == v.shape}
     net.load_state_dict(state, strict=strict)
+    return set(state) >= set(own)
 
 
 def _field_state(field: Mapping[str, Any], prefix: str) -> Dict[str, torch.Tensor]:

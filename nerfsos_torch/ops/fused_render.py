@@ -1,6 +1,8 @@
-"""Fused eval render: field + volumetric composite in one kernel per pass.
+"""Fused render and RGB train kernels: field + volumetric composite in one
+kernel per pass.
 
-Port of the eval half of ``nerfsos_tpu/ops/pallas/fused_render.py``:
+Port of ``nerfsos_tpu/ops/pallas/fused_render.py``'s eval kernels and its RGB
+train kernel:
 
 - :func:`fused_coarse_weights` (K1, replaces ``fused_coarse_weights_planar``):
   ``od [R, 6]`` (origins, unnormalized directions) and ``z [R, S]`` ->
@@ -8,18 +10,25 @@ Port of the eval half of ``nerfsos_tpu/ops/pallas/fused_render.py``:
 - :func:`fused_render` (K2, replaces ``fused_render_planar``): ``odv [R, 9]``
   (plus unit viewdirs) and ``z`` -> ``maps [R, 5 + sem]`` with columns
   ``(w·sigmoid(rgb) x3, w·z, w, w·sem...)`` and weights ``[R, S]``;
+- :func:`fused_rgb_train_grads` (K3, replaces ``fused_rgb_train_grads`` and
+  its ``_train_render_bwd_kernel`` in ``rgb_loss`` mode): ``odv``, ``z`` and
+  ``gt [R, 3]`` -> the unscaled gradients of ``sum((rgb_map - gt)^2)`` for
+  every parameter of the field, the maps and the weights, with the sigma
+  noise of :func:`noise_plain`;
 - :func:`finish_maps`: vacancy depth, disp and white background on the maps.
 
 Each wrapper takes its plain PyTorch version (:func:`coarse_weights_plain`,
-:func:`render_plain`, same signature) for tensors on the CPU, and for CUDA
-tensors launches the hand-written kernel in ``csrc/fused_render.cu`` or
-raises; it never falls back. ``<wrapper>.launches`` counts kernel launches.
+:func:`render_plain`, :func:`rgb_train_grads_plain`, same signature) for
+tensors on the CPU, and for CUDA tensors launches the hand-written kernel in
+``csrc/fused_render.cu`` or ``csrc/train_render.cu`` or raises; it never
+falls back. ``<wrapper>.launches`` counts kernel launches.
 """
 from __future__ import annotations
 
 import ctypes
 from typing import Dict, List, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -62,16 +71,94 @@ def coarse_weights_plain(field: nn.Module, od: torch.Tensor, z: torch.Tensor) ->
     return _composite_weights(sigma, z, od[:, 3:6])
 
 
-def render_plain(field: nn.Module, odv: torch.Tensor,
-                 z: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of K2: ``odv [R, 9]``, ``z [R, S]`` -> (maps, weights)."""
-    raw = field(points_along_rays(odv[:, 0:3], odv[:, 3:6], z), odv[:, 6:9])
-    w = _composite_weights(raw[..., 3], z, odv[:, 3:6])
+def _maps(raw: torch.Tensor, sigma: torch.Tensor, z: torch.Tensor,
+          rays_d: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Maps ``[R, 5 + sem]`` and weights from the field's raw output, with
+    ``sigma`` in place of its density column."""
+    w = _composite_weights(sigma, z, rays_d)
     cols = [torch.sum(w[..., None] * torch.sigmoid(raw[..., :3]), dim=1),
             torch.sum(w * z, dim=1, keepdim=True), torch.sum(w, dim=1, keepdim=True)]
     if raw.shape[-1] > 4:
         cols.append(torch.sum(w[..., None] * raw[..., 4:], dim=1))
     return torch.cat(cols, dim=-1), w
+
+
+def render_plain(field: nn.Module, odv: torch.Tensor,
+                 z: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K2: ``odv [R, 9]``, ``z [R, S]`` -> (maps, weights)."""
+    raw = field(points_along_rays(odv[:, 0:3], odv[:, 3:6], z), odv[:, 6:9])
+    return _maps(raw, raw[..., 3], z, odv[:, 3:6])
+
+
+_U32 = 0xFFFFFFFF
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """``x * c`` wrapped to uint32, for uint32 values held in int64 (split in
+    16-bit halves of ``c`` so no product leaves int64)."""
+    return (x * (c & 0xFFFF) + (((x * (c >> 16)) & 0xFFFF) << 16)) & _U32
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """The SplitMix32-style avalanche of the TPU kernel (logical shifts)."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x84ECE28B)
+    return x ^ (x >> 16)
+
+
+def noise_seed(seed: int) -> int:
+    """The seed as the kernels see it: the TPU kernel takes it as a float32
+    carrying an integer, so a seed above 2^24 loses its low bits."""
+    return int(np.float32(seed)) & _U32
+
+
+def noise_hash(seed: int, n: int, device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The two uint32 hashes (in int64) of points ``0 .. n-1``; point
+    ``(ray r, sample s)`` of an ``[R, S]`` batch is index ``r * S + s``."""
+    idx = torch.arange(n, dtype=torch.int64, device=device)
+    h1 = _mix32(_mul32((idx + noise_seed(seed)) & _U32, 0x9E3779B9))
+    h2 = _mix32((h1 + 0x7E3779B9) & _U32)
+    return h1, h2
+
+
+def noise_plain(seed: int, R: int, S: int, std: float, device=None) -> torch.Tensor:
+    """Sigma noise ``[R, S]`` of the train kernels: N(0, std) per point by the
+    hash and Box-Muller (``_noise_lanes`` of the TPU kernel)."""
+    h1, h2 = noise_hash(seed, R * S, device)
+    u1 = (h1 >> 8).to(torch.float32) * 2.0**-24
+    u2 = (h2 >> 8).to(torch.float32) * 2.0**-24
+    r = torch.sqrt(-2.0 * torch.log1p(-u1))
+    two_pi = float(np.float32(2.0 * 3.14159265358979))
+    return ((std * r) * torch.cos(two_pi * u2)).reshape(R, S)
+
+
+def rgb_train_grads_plain(field: nn.Module, odv: torch.Tensor, z: torch.Tensor,
+                          gt: torch.Tensor, *, white_bkgd: bool, noise_std: float,
+                          seed: int) -> Tuple[Dict[str, torch.Tensor], torch.Tensor, torch.Tensor]:
+    """Plain version of K3: autograd of ``sum((rgb_map - gt)^2)`` through the
+    field and the composite, with :func:`noise_plain` added to sigma before
+    its relu (``rgb_map + 1 - acc`` under ``white_bkgd``; z is detached).
+
+    Returns (grads keyed by ``field.named_parameters()`` names, UNSCALED: the
+    caller multiplies by ``rgb_w / (R * 3)``; maps ``[R, 5 + sem]``; weights
+    ``[R, S]``). The semantic columns of the maps get no cotangent, so the
+    semantic head's grads are zeros."""
+    R, S = z.shape
+    z = z.detach()
+    names, params = zip(*field.named_parameters())
+    with torch.enable_grad():
+        raw = field(points_along_rays(odv[:, 0:3], odv[:, 3:6], z), odv[:, 6:9])
+        sigma = raw[..., 3]
+        if noise_std > 0.0:
+            sigma = sigma + noise_plain(seed, R, S, noise_std, z.device)
+        maps, w = _maps(raw, sigma, z, odv[:, 3:6])
+        rgbm = maps[:, 0:3] + (1.0 - maps[:, 4:5]) if white_bkgd else maps[:, 0:3]
+        loss = torch.sum((rgbm - gt) ** 2)
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+    out = {n: torch.zeros_like(p) if g is None else g for n, p, g in zip(names, params, grads)}
+    return out, maps.detach(), w.detach()
 
 
 def finish_maps(maps: torch.Tensor, weights: torch.Tensor, use_semantics: bool,
@@ -155,17 +242,139 @@ def pack_field(field: nn.Module) -> Tuple[torch.Tensor, _build.MLPDesc]:
     return torch.cat(parts).to(torch.float32).contiguous(), desc
 
 
-def _packed(field: nn.Module, device: torch.device) -> Tuple[torch.Tensor, _build.MLPDesc]:
-    """``pack_field`` once per weight state: the cache key holds each
-    parameter's storage and version counter, so ``load_state_dict`` or any
-    in-place update repacks."""
+def _bwd_matrix(blocks: List[torch.Tensor]) -> torch.Tensor:
+    """Row blocks ``[rows_i, n]`` stacked, each padded to a multiple of 8 rows,
+    and the columns padded to a multiple of 8."""
+    n = blocks[0].shape[1]
+    w = blocks[0].new_zeros((sum(_pad8(b.shape[0]) for b in blocks), _pad8(n)))
+    r = 0
+    for b in blocks:
+        w[r:r + b.shape[0], :n] = b
+        r += _pad8(b.shape[0])
+    return w
+
+
+def pack_train_bwd(field: nn.Module) -> Tuple[torch.Tensor, List[_build.MLPLayer]]:
+    """The input-gradient matrices of K3's reverse sweep, in ``pack_field``'s
+    per-layer format (matrix, its TF32 high and low parts, a zero bias), by
+    the forward layer index they serve: trunk ``i >= 1`` gets ``W_i`` on the
+    columns of its ``h`` input (``dh_{i-1} = W_i[:, h]^T dY_i``); alpha's
+    slot gets ``[W_feature; W_alpha]`` on the columns of ``h``; views gets
+    ``W_views`` on the feature columns; rgb gets ``W_rgb``. The emb columns
+    of a skip input and layer 0 need no input gradient."""
+    mlp = field.mlp
+    depth, W, E = mlp.depth, mlp.width, mlp.pts_linears[0].in_features
+
+    def cols(lin: nn.Linear, a: int) -> torch.Tensor:
+        return lin.weight.detach()[:, a:a + W]
+
+    mats = {i: [cols(mlp.pts_linears[i], E if i - 1 in mlp.skips else 0)]
+            for i in range(1, depth)}
+    a = E if depth - 1 in mlp.skips else 0
+    mats[depth] = [cols(mlp.feature_linear, a), cols(mlp.alpha_linear, a)]
+    mats[depth + 2] = [cols(mlp.views_linears[0], 0)]
+    mats[depth + 3] = [mlp.rgb_linear.weight.detach()]
+    descs = [_build.MLPLayer() for _ in range(_build.MAX_LAYERS)]
+    parts, off = [], 0
+    for i, blocks in mats.items():
+        w = _bwd_matrix(blocks)
+        hi = _tf32(w)
+        descs[i] = _build.MLPLayer(off, off + 3 * w.numel(), w.shape[0], blocks[0].shape[1])
+        parts += [w.reshape(-1), hi.reshape(-1), _tf32(w - hi).reshape(-1), w.new_zeros(w.shape[1])]
+        off += 3 * w.numel() + w.shape[1]
+    return torch.cat(parts).to(torch.float32).contiguous(), descs
+
+
+def _cached(field: nn.Module, device: torch.device, attr: str, pack):
+    """``pack(field)`` once per weight state: the cache key holds each
+    parameter's storage and version counter, so ``load_state_dict``, an
+    optimizer step or any in-place update repacks."""
     key = (device, tuple((p.data_ptr(), p._version) for p in field.parameters()))
-    cached = getattr(field, "_fused_pack", None)
+    cached = getattr(field, attr, None)
     if cached is None or cached[0] != key:
-        buf, desc = pack_field(field)
+        buf, desc = pack(field)
         cached = (key, buf.to(device), desc)
-        field._fused_pack = cached
+        setattr(field, attr, cached)
     return cached[1], cached[2]
+
+
+def _packed(field: nn.Module, device: torch.device) -> Tuple[torch.Tensor, _build.MLPDesc]:
+    return _cached(field, device, "_fused_pack", pack_field)
+
+
+# K3's workspace planes (csrc/train_render.cu ``enum Plane``) and its chunks
+_P_EMB, _P_DEMB, _P_FEAT, _P_HV, _P_DRGB, _P_DSIG, _P_DPV, _P_DFEAT, _P_DA, _P_DB, _P_ACT0 = \
+    range(11)
+_KLD = 72          # floats a tile row (csrc/tile_mlp.cuh kLd)
+_TILE = 64         # points a tile
+_CHUNK_POINTS = 512
+_MAX_SMEM = 232448  # shared memory a block can use on sm_90
+
+
+def _rays_per_chunk(S: int) -> int:
+    return max(1, _CHUNK_POINTS // S)
+
+
+def grad_layout(field: nn.Module) -> Tuple[List[Tuple[int, int]], int]:
+    """K3's gradient buffer: ``(dW offset, db offset)`` of every layer but the
+    semantic head, in kernel order (dW ``[k][pad8(n)]`` in ``pack_field``'s
+    padded ``W^T`` layout, db ``[pad8(n)]``), and its size in floats."""
+    offs, off = [], 0
+    for lin, segs in _field_layers(field)[:field.mlp.depth + 4]:
+        kpad, npad = sum(_pad8(k) for k in segs), _pad8(lin.out_features)
+        offs.append((off, off + kpad * npad))
+        off += kpad * npad + npad
+    return offs, off
+
+
+def train_desc(field: nn.Module, fdesc: _build.MLPDesc, bwd: List[_build.MLPLayer],
+               S: int) -> _build.TrainDesc:
+    """K3's descriptor for ``S`` samples a ray: the forward and backward
+    layers, the gradient layout and one CTA's workspace planes."""
+    mlp = field.mlp
+    W = mlp.width
+    d = _build.TrainDesc()
+    d.f = fdesc
+    for i, L in enumerate(bwd):
+        d.bwd[i] = L
+    offs, d.grad_size = grad_layout(field)
+    for i, (gw, gb) in enumerate(offs):
+        d.gw[i], d.gb[i] = gw, gb
+    d.rays_per_chunk = _rays_per_chunk(S)
+    nsub = -(-d.rays_per_chunk * S // _TILE)
+    rows = [_pad8(fdesc.emb_dim), _pad8(fdesc.demb_dim), _pad8(W), _pad8(W // 2), 8, 8,
+            _pad8(W // 2), _pad8(W), _pad8(W), _pad8(W)] + [_pad8(W)] * mlp.depth
+    off = 0
+    for p, r in enumerate(rows):
+        d.plane[p], d.rows[p] = off, r
+        off += r * _KLD * nsub
+    d.ws_size = off
+    return d
+
+
+def unpack_grads(field: nn.Module, flat: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """K3's gradient buffer -> grads keyed by ``field.named_parameters()``
+    names: the inverse of ``pack_field``'s layout (the padding rows of every
+    input segment and the padding columns dropped, ``W^T`` transposed back).
+    The semantic head, which K3 does not sweep, gets zeros."""
+    names = {id(p): n for n, p in field.named_parameters()}
+    offs, _ = grad_layout(field)
+    out = {}
+    for i, (lin, segs) in enumerate(_field_layers(field)):
+        if i >= len(offs):
+            out[names[id(lin.weight)]] = torch.zeros_like(lin.weight)
+            out[names[id(lin.bias)]] = torch.zeros_like(lin.bias)
+            continue
+        gw, gb = offs[i]
+        npad, n = _pad8(lin.out_features), lin.out_features
+        dw = flat[gw:gb].view(-1, npad)
+        rows, r = [], 0
+        for k in segs:
+            rows.append(dw[r:r + k, :n])
+            r += _pad8(k)
+        out[names[id(lin.weight)]] = torch.cat(rows).t().contiguous()
+        out[names[id(lin.bias)]] = flat[gb:gb + n].clone()
+    return out
 
 
 # ----------------------------------------------------------------- wrappers
@@ -240,5 +449,53 @@ def fused_render(field: nn.Module, odv: torch.Tensor,
     return maps, weights
 
 
+def fused_rgb_train_grads(field: nn.Module, odv: torch.Tensor, z: torch.Tensor, gt: torch.Tensor,
+                          *, white_bkgd: bool, noise_std: float, seed: int
+                          ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor, torch.Tensor]:
+    """K3: one RGB train pass, ``odv [R, 9]``, ``z [R, S]``, ``gt [R, 3]`` ->
+    (unscaled grads by parameter name, maps ``[R, 5 + sem]``, weights
+    ``[R, S]``); see :func:`rgb_train_grads_plain`. ``seed`` (an int) seeds the
+    sigma noise when ``noise_std > 0``. One call launches the forward and the
+    reverse-sweep kernels once per wave of chunks and the reduction, and adds
+    one to ``launches``."""
+    if odv.device.type == "cpu":
+        return rgb_train_grads_plain(field, odv, z, gt, white_bkgd=white_bkgd,
+                                     noise_std=noise_std, seed=seed)
+    if odv.device.type != "cuda":
+        raise NotImplementedError(f"no kernel for device {odv.device}")
+    _check_inputs(field, odv, 9, z)
+    if gt.device != odv.device or gt.dtype != torch.float32 or not gt.is_contiguous():
+        raise ValueError(f"gt must be contiguous float32 on {odv.device}")
+    if tuple(gt.shape) != (odv.shape[0], 3):
+        raise ValueError(f"expected gt [R, 3], got {tuple(gt.shape)}")
+    R, S = z.shape
+    buf, fdesc = _packed(field, odv.device)
+    bbuf, bwd = _cached(field, odv.device, "_fused_train_pack", pack_train_bwd)
+    desc = train_desc(field, fdesc, bwd, S)
+    smem = (-(-desc.rays_per_chunk * S * (6 + fdesc.sem_dim) // 4) * 4
+            + (_pad8(fdesc.emb_dim) + _pad8(fdesc.demb_dim) + 2 * fdesc.hrows) * _KLD) * 4
+    if smem > _MAX_SMEM:
+        raise NotImplementedError(f"S={S}: the forward's composite strip and tiles need {smem} B "
+                                  "of shared memory")
+    maps = torch.empty((R, 5 + fdesc.sem_dim), device=odv.device, dtype=torch.float32)
+    weights = torch.empty((R, S), device=odv.device, dtype=torch.float32)
+    flat = torch.zeros(desc.grad_size, device=odv.device, dtype=torch.float32)
+    if R > 0:
+        nchunks = -(-R // desc.rays_per_chunk)
+        grid = min(nchunks, torch.cuda.get_device_properties(odv.device).multi_processor_count)
+        partial = torch.empty(grid * desc.grad_size, device=odv.device, dtype=torch.float32)
+        work = torch.empty(grid * desc.ws_size, device=odv.device, dtype=torch.float32)
+        with torch.cuda.device(odv.device):
+            code = _build.library().nerf_rgb_train_grads(
+                odv.data_ptr(), z.data_ptr(), gt.data_ptr(), buf.data_ptr(), bbuf.data_ptr(),
+                ctypes.byref(desc), maps.data_ptr(), weights.data_ptr(), partial.data_ptr(),
+                work.data_ptr(), flat.data_ptr(), R, S, grid, noise_seed(seed),
+                float(noise_std), int(white_bkgd), _stream(odv.device))
+        _build.check(code, "fused_rgb_train_grads")
+        fused_rgb_train_grads.launches += 1
+    return unpack_grads(field, flat), maps, weights
+
+
 fused_coarse_weights.launches = 0
 fused_render.launches = 0
+fused_rgb_train_grads.launches = 0

@@ -1,21 +1,37 @@
 """NeRF-SOS on PyTorch — the command-line entry point of the port.
 
-``python -m nerfsos_torch.run_nerf --config configs/<scene>.txt --eval ...``
-takes the flags of the repository's ``run_nerf.py`` (the same names, types
-and defaults) and the same run-directory layout. Implemented: ``--eval``
-(render the test split, write metrics and images to ``<basedir>/<expname>/eval``).
-The train, ``--eval_video``, ``--eval_vol`` and ``--mipnerf`` modes stop
-with "not yet ported".
+``python -m nerfsos_torch.run_nerf --config configs/<scene>.txt ...`` takes
+the flags of the repository's ``run_nerf.py`` (the same names, types and
+defaults) and the same run-directory layout. Implemented:
 
-The model runs on ``cuda:0`` when a card is visible, else on the CPU. On
-CUDA the eval render goes through the fused kernels (``ops/fused_render.py``)
-unless ``--no_fused_field`` is given or the configuration is outside
-``supports_fused``; on the CPU the same code path runs their plain versions.
+- train (no mode flag): the RGB pretrain on the ``train`` split's ray pool,
+  ``--N_rand`` rays a step, Adam with the exponential LR decay; logs at
+  ``--i_print`` (``tensorboard/scalars.jsonl``), checkpoints at
+  ``--i_weights`` (``checkpoints/{step:08d}.ckpt`` and ``latest.ckpt``, with
+  the optimizer state), a test-set eval at ``--i_testset``, and at the end
+  ``last.ckpt`` and a final eval into ``eval/``. It resumes from the newest
+  checkpoint of the run (``--no_reload`` starts afresh);
+- ``--eval``: render the test split, write metrics and images to
+  ``<basedir>/<expname>/eval``.
+
+``--patch_tune``, ``--no_batching``, ``--eval_video``, ``--eval_vol`` and
+``--mipnerf`` stop with "not yet ported". Each step draws its batch and its
+noise from ``(--seed, step)`` alone, so a resumed run trains as an
+uninterrupted one would (the JAX entry point restarts its batch stream).
+
+``main(args, device=None)`` runs on ``cuda:{--gpuid}`` and raises when no
+card is visible; the CPU only when the caller passes ``device="cpu"`` (the
+tests). The fused kernels (``ops/fused_render.py``: K3 for the train step,
+K1/K2 for the eval render) run unless ``--no_fused_field`` is given or the
+configuration is outside ``supports_fused``; on the CPU the same code path
+runs their plain versions.
 """
 from __future__ import annotations
 
 import dataclasses
 import os
+import shutil
+import time
 
 import numpy as np
 import torch
@@ -183,33 +199,60 @@ def build_model(args, device: torch.device):
     return net.to(device).eval(), cfg
 
 
-def main(args) -> None:
+def write_args_file(args, path: str) -> None:
+    """The resolved flags, one ``key = value`` line each (``args.txt``)."""
+    with open(path, "w") as f:
+        for k in sorted(vars(args)):
+            f.write(f"{k} = {getattr(args, k)}\n")
+
+
+def _resolve_device(args, device) -> torch.device:
+    device = torch.device(f"cuda:{args.gpuid}" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is visible; the port runs on the card "
+                           "(pass device='cpu' to main to run on the CPU)")
+    return device
+
+
+def main(args, device=None) -> None:
     from nerfsos_torch.data.datasets import RayDataset
     from nerfsos_torch.engines import checkpoint as ckpt_lib
     from nerfsos_torch.engines import eval as eval_lib
+    from nerfsos_torch.engines import state as state_lib
+    from nerfsos_torch.engines.trainer import make_rgb_train_step
+    from nerfsos_torch.utils.summary import SummaryWriter
 
-    for flag in ("mipnerf", "eval_video", "eval_vol"):
+    for flag in ("mipnerf", "eval_video", "eval_vol") + (() if args.eval else
+                                                         ("patch_tune", "no_batching")):
         if getattr(args, flag):
             raise SystemExit(f"--{flag}: not yet ported to nerfsos_torch")
-    if not args.eval:
-        raise SystemExit("training: not yet ported to nerfsos_torch (use --eval)")
     if args.no_semantics:
         args.use_semantics = False
-    device = torch.device(f"cuda:{args.gpuid}" if torch.cuda.is_available() else "cpu")
+    device = _resolve_device(args, device)
     print(f"> Semantic branch is {args.use_semantics}")
     print(f"> Device: {device}")
 
     run_dir = os.path.join(args.basedir, args.expname)
     ckpt_dir = os.path.join(run_dir, "checkpoints")
-    if not os.path.exists(run_dir):
+    log_dir = os.path.join(run_dir, "tensorboard")
+    if not os.path.exists(run_dir) and args.eval:
         print("Error: The specified working directory does not exist!")
         return
-    os.makedirs(ckpt_dir, exist_ok=True)
+    for d in (run_dir, ckpt_dir, log_dir):
+        os.makedirs(d, exist_ok=True)
+    if not args.eval:
+        write_args_file(args, os.path.join(run_dir, "args.txt"))
+        if args.config and os.path.exists(args.config):
+            shutil.copy(args.config, os.path.join(run_dir, "config.txt"))
 
     net, cfg = build_model(args, device)
+    schedule = state_lib.exp_decay_schedule(args.lrate, args.decay_rate, args.decay_step * 1000)
+    # no optimizer for --eval: the first one built imports torch._dynamo (seconds)
+    optimizer = None if args.eval else state_lib.make_optimizer(net.parameters(), args.lrate)
     print("Num of Params:", sum(p.numel() for p in net.parameters()))
-    print(f"> Fused eval kernels: {net.fused}")
+    print(f"> Fused kernels: {net.fused}")
 
+    global_step = 0
     ckpt_path = args.ckpt_path
     if not ckpt_path and not args.no_reload:
         ckpt_path = ckpt_lib.find_latest_checkpoint(ckpt_dir) or ""
@@ -220,8 +263,23 @@ def main(args) -> None:
             raise SystemExit(f"{ckpt_path}: only reference-format .ckpt files load in "
                              "nerfsos_torch (orbax checkpoints are read by nerfsos_tpu)")
         print("Reloading from checkpoint:", ckpt_path)
-        state, _ = ckpt_lib.load_checkpoint(ckpt_path)
-        ckpt_lib.load_model_state(net, state, strict=not args.load_nostrict)
+        state, global_step, opt_state = ckpt_lib.load_checkpoint(ckpt_path)
+        full = ckpt_lib.load_model_state(net, state, strict=not args.load_nostrict)
+        # resume (run_nerf.py:358-427 of the JAX entry point): the Adam state
+        # comes back when every parameter did; otherwise fresh moments and
+        # the LR of global_step
+        if optimizer is not None:
+            if opt_state is not None and not full:
+                print("[resume] partial param load: skipping optimizer state")
+                opt_state = None
+            if opt_state is not None:
+                try:
+                    optimizer.load_state_dict(opt_state)
+                except ValueError:
+                    print("[Error]: optimizer initialization failed!")
+                    opt_state = None
+            if opt_state is None:
+                state_lib.fast_forward_lr(optimizer, schedule, global_step)
 
     if args.use_dino:
         print("[Warning!] the DINO foreground flip is not ported: cluster labels keep "
@@ -229,10 +287,63 @@ def main(args) -> None:
     print("Loading nerf data:", args.data_path)
     test_set = RayDataset(args.data_path, split="test", subsample=args.subsample,
                           use_masks=args.use_masks, bin_thres=args.bin_thres)
-    print("> Start to evaluate")
-    eval_lib.evaluate(net, test_set, save_dir=os.path.join(run_dir, "eval"),
-                      fast_mode=args.fast_mode, ret_cluster=args.ret_cluster,
-                      clus_no_sfm=args.clus_no_sfm, n_cluster=args.N_cluster)
+
+    def do_evaluate(save_dir):
+        return eval_lib.evaluate(net, test_set, save_dir=save_dir, fast_mode=args.fast_mode,
+                                 ret_cluster=args.ret_cluster, clus_no_sfm=args.clus_no_sfm,
+                                 n_cluster=args.N_cluster)
+
+    if args.eval:
+        print("> Start to evaluate")
+        do_evaluate(os.path.join(run_dir, "eval"))
+        return
+
+    train_set = RayDataset(args.data_path, split="train", subsample=args.subsample,
+                           bin_thres=args.bin_thres)
+    near, far = test_set.near_far()
+    step_fn = make_rgb_train_step(net, optimizer, schedule, near, far, rgb_w=args.rgb_w,
+                                  seed=args.seed)
+    writer = SummaryWriter(log_dir)
+
+    def save(name):
+        ckpt_lib.save_checkpoint(os.path.join(ckpt_dir, name), global_step, net, optimizer)
+
+    print(f"> Start Iteration from {global_step}")
+    time0 = time.time()
+    while global_step < args.max_steps:
+        batch = train_set.sample_batch(np.random.default_rng([args.seed, global_step]),
+                                       args.batch_size)
+        metrics = step_fn({k: torch.as_tensor(batch[k], device=device)
+                           for k in ("rays", "target")}, global_step)
+        global_step += 1
+
+        if global_step % args.i_print == 0 or global_step == 1:
+            m = {k: float(v) for k, v in metrics.items()}
+            avg_time = (time.time() - time0) / args.i_print
+            print(f"[Logging info]: expname: {args.expname}")
+            print(f"[TRAIN] Iter: {global_step}/{args.max_steps} Loss: {m['loss']:.4f} "
+                  f"L_img0:{m.get('img0', 0):.4f} L_img1:{m['img1']:.4f} "
+                  f"PSNR: {m['psnr']:.4f} Average Time: {avg_time:.4f} "
+                  f"({args.batch_size / max(avg_time, 1e-9):.0f} rays/s)")
+            time0 = time.time()
+            writer.add_scalar("train/loss", m["loss"], global_step)
+            writer.add_scalar("train/psnr", m["psnr"], global_step)
+            writer.add_scalar("l_rate/group_0", schedule(global_step), global_step)
+
+        if global_step % args.i_weights == 0:
+            print("Checkpointing at", os.path.join(ckpt_dir, f"{global_step:08d}.ckpt"))
+            save(f"{global_step:08d}.ckpt")
+            save("latest.ckpt")
+
+        if global_step % args.i_testset == 0:
+            print("Evaluating test images ...")
+            md = do_evaluate(os.path.join(run_dir, f"testset_{global_step:08d}"))
+            writer.add_scalar("test/mse", md["mse"], global_step)
+            writer.add_scalar("test/psnr", md["psnr"], global_step)
+
+    save("last.ckpt")
+    writer.close()
+    do_evaluate(os.path.join(run_dir, "eval"))
 
 
 if __name__ == "__main__":

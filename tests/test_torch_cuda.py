@@ -1,21 +1,26 @@
-"""K1/K2 CUDA kernels vs their plain PyTorch versions on the card.
+"""K1/K2/K3 CUDA kernels vs their plain PyTorch versions on the card.
 
 Marked ``cuda``: every test skips without a CUDA device (the kernels have no
-CPU or interpret mode). On a machine with a card:
+CPU or interpret mode). On a machine with a card (``--noconftest``: the
+repository's conftest imports jax):
 
-    python -m pytest tests/test_torch_cuda.py -q
+    python -m pytest tests/test_torch_cuda.py -q --noconftest
+
+The tolerances and K3's allowance for relu gates that rounding flips are
+``chip_smoke.py``'s, where their reasoning is written down.
 """
+import itertools
+
 import numpy as np
 import pytest
 import torch
 
+from chip_smoke import GATE_MARGIN, GRAD_TOL, TOL, flip_allowance, plain_k3_with_gates
+from nerfsos_torch.core.sampling import points_along_rays
 from nerfsos_torch.models.fields import NeRFField
 from nerfsos_torch.ops import fused_render as fr
 
 pytestmark = pytest.mark.cuda
-
-# fp32 on both sides; only summation orders differ (see chip_smoke.TOL)
-TOL = 1e-4
 
 
 @pytest.fixture
@@ -99,3 +104,131 @@ def test_empty_batch(cuda):
     odv, z = _inputs(cuda, 0, 8, 4)
     maps, w = fr.fused_render(field, odv, z)
     assert maps.shape == (0, 5) and w.shape == (0, 8)
+
+
+def _k3_inputs(device, n, s, seed):
+    odv, z = _inputs(device, n, s, seed)
+    gt = torch.from_numpy(np.random.default_rng(seed).uniform(0, 1, (n, 3)).astype(np.float32))
+    return odv, z, gt.to(device)
+
+
+def _gate_clear_inputs(field, n, s, seed, pool=4096):
+    """``_k3_inputs`` for ``n`` rays none of whose points has a trunk or views
+    relu input within 2 x GATE_MARGIN of 0 (of its layer's largest |input|
+    over a pool of candidates): K3 and its plain version then take those
+    gates alike, and a leaf keeps a flip allowance only for sigma + noise,
+    whose noise depends on the ray's place in the batch."""
+    mlp = field.mlp
+    gates = [*mlp.pts_linears, mlp.views_linears[0]]
+    device = next(field.parameters()).device
+    keep = []
+    for k in itertools.count():
+        odv, z, gt = _k3_inputs(device, pool, s, seed + k)
+        slack = torch.full((pool * s,), float("inf"), device=device)
+
+        def hook(mod, inputs, out):
+            pre = out.reshape(pool * s, -1).abs()
+            torch.minimum(slack, pre.amin(1) / pre.max(), out=slack)
+
+        handles = [m.register_forward_hook(hook) for m in gates]
+        with torch.no_grad():
+            field(points_along_rays(odv[:, 0:3], odv[:, 3:6], z), odv[:, 6:9])
+        for h in handles:
+            h.remove()
+        clear = (slack.view(pool, s) > 2 * GATE_MARGIN).all(1)
+        keep += [(odv[clear], z[clear], gt[clear])]
+        if sum(len(t[0]) for t in keep) >= n:
+            return tuple(torch.cat(parts)[:n].contiguous() for parts in zip(*keep))
+
+
+def _assert_k3_close(got, want, allow=None):
+    """Maps and weights to TOL; each gradient leaf to GRAD_TOL of its max
+    |plain|, plus that leaf's own ``allow`` (``chip_smoke.flip_allowance``:
+    what a relu gate flipped by rounding can move) where given."""
+    g, maps, w = got
+    gp, maps_p, w_p = want
+    assert maps.shape == maps_p.shape and w.shape == w_p.shape
+    assert float((maps - maps_p).abs().max()) <= TOL
+    assert float((w - w_p).abs().max()) <= TOL
+    assert set(g) == set(gp)
+    for name, ref in gp.items():
+        scale = max(float(ref.abs().max()), 1e-12)
+        bound = GRAD_TOL * scale + (0.0 if allow is None else allow[name])
+        assert g[name].shape == ref.shape, name
+        assert torch.isfinite(g[name]).all(), name
+        err = float((g[name] - ref).abs().max())
+        assert err <= bound, (name, err / scale, bound / scale)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("s,sem,white", [(64, True, False), (192, True, False),
+                                         (192, False, True), (16, True, True)])
+@pytest.mark.parametrize("n", [1, 37, 4096])
+def test_k3_matches_plain(cuda, shape, s, sem, white, n):
+    field = _field(cuda, 2, use_semantics=sem, sem_with_coord=sem, sem_dim=2, **shape)
+    odv, z, gt = _gate_clear_inputs(field, n, s, 5)
+    kw = dict(white_bkgd=white, noise_std=1.0, seed=987654)
+    before = fr.fused_rgb_train_grads.launches
+    got = fr.fused_rgb_train_grads(field, odv, z, gt, **kw)
+    want, slack, terms = plain_k3_with_gates(field, odv, z, gt, kw)
+    torch.cuda.synchronize()
+    assert fr.fused_rgb_train_grads.launches == before + 1
+    _assert_k3_close(got, want, flip_allowance(slack, terms))
+    for name, g in got[0].items():
+        if "semantic_linear" in name:
+            assert not g.any(), name
+
+
+def test_k3_is_deterministic(cuda):
+    """The partial gradients of the CTAs are summed in a fixed order."""
+    field = _field(cuda, 3, use_semantics=True, sem_with_coord=True, **SHAPES[0])
+    odv, z, gt = _k3_inputs(cuda, 3000, 64, 6)
+    kw = dict(white_bkgd=False, noise_std=1.0, seed=11)
+    a = fr.fused_rgb_train_grads(field, odv, z, gt, **kw)
+    b = fr.fused_rgb_train_grads(field, odv, z, gt, **kw)
+    for k in a[0]:
+        assert torch.equal(a[0][k], b[0][k]), k
+    assert torch.equal(a[1], b[1]) and torch.equal(a[2], b[2])
+
+
+def test_k3_noise_matches_the_hash(cuda):
+    """With a field whose density is 0 everywhere the kernel's sigma is the
+    noise alone, so its weights follow the plain version's hash draws."""
+    field = _field(cuda, 4, **SHAPES[1])
+    with torch.no_grad():
+        field.mlp.alpha_linear.weight.zero_()
+        field.mlp.alpha_linear.bias.zero_()
+    odv, z, gt = _k3_inputs(cuda, 50, 16, 7)
+    kw = dict(white_bkgd=False, noise_std=2.0, seed=2**31 - 300)
+    _assert_k3_close(fr.fused_rgb_train_grads(field, odv, z, gt, **kw),
+                     fr.rgb_train_grads_plain(field, odv, z, gt, **kw))
+    _, _, w0 = fr.fused_rgb_train_grads(field, odv, z, gt, white_bkgd=False, noise_std=0.0,
+                                        seed=0)
+    assert not w0.any()  # no noise, no density
+
+
+def test_k3_rejects_bad_inputs(cuda):
+    field = _field(cuda, 0, **SHAPES[1])
+    odv, z, gt = _k3_inputs(cuda, 16, 8, 3)
+    kw = dict(white_bkgd=False, noise_std=0.0, seed=0)
+    with pytest.raises(ValueError):
+        fr.fused_rgb_train_grads(field, odv[:, :9:1].t().contiguous().t(), z, gt, **kw)
+    with pytest.raises(ValueError):
+        fr.fused_rgb_train_grads(field, odv, z[:8], gt, **kw)
+    with pytest.raises(ValueError):
+        fr.fused_rgb_train_grads(field, odv, z, gt[:, :2].contiguous(), **kw)
+    with pytest.raises(ValueError):
+        fr.fused_rgb_train_grads(field, odv, z, gt.double(), **kw)
+    with pytest.raises(NotImplementedError):
+        fr.fused_rgb_train_grads(field, odv.double(), z.double(), gt, **kw)
+    with pytest.raises(NotImplementedError):
+        fr.fused_rgb_train_grads(field.cpu(), odv, z, gt, **kw)  # weights on another device
+
+
+def test_k3_empty_batch(cuda):
+    field = _field(cuda, 0, use_semantics=True, **SHAPES[1])
+    odv, z, gt = _k3_inputs(cuda, 0, 8, 4)
+    g, maps, w = fr.fused_rgb_train_grads(field, odv, z, gt, white_bkgd=False, noise_std=0.0,
+                                          seed=0)
+    assert maps.shape == (0, 7) and w.shape == (0, 8)
+    assert all(not v.any() for v in g.values())

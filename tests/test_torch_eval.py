@@ -161,7 +161,7 @@ def test_run_nerf_eval_end_to_end(tmp_path):
                               n_views=2)
     args, _ = run_nerf.create_arg_parser().parse_known_args(
         _argv(data, logs, ckpt, "--eval", "--ret_cluster", "--use_masks"))
-    run_nerf.main(args)
+    run_nerf.main(args, device="cpu")
     out = logs / "t" / "eval"
     names = set(os.listdir(out))
     for i in range(2):
@@ -174,11 +174,23 @@ def test_run_nerf_eval_end_to_end(tmp_path):
     assert ds.get_view(1)["masks"].sum() > 0  # the sphere is in view
 
 
-@pytest.mark.parametrize("mode", [[], ["--eval_video"], ["--eval_vol"], ["--eval", "--mipnerf"]])
+@pytest.mark.parametrize("mode", [["--patch_tune"], ["--no_batching"], ["--eval_video"],
+                                  ["--eval_vol"], ["--eval", "--mipnerf"]])
 def test_unported_modes_exit(tmp_path, mode):
     data, logs, ckpt = _scene(tmp_path, EVAL_CFG, height=4, width=4)
     args, _ = run_nerf.create_arg_parser().parse_known_args(_argv(data, logs, ckpt, *mode))
     with pytest.raises(SystemExit, match="not yet ported"):
+        run_nerf.main(args, device="cpu")
+
+
+def test_main_without_a_card_raises(tmp_path):
+    """With no device given the entry point runs on cuda:{gpuid}; it does not
+    fall back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is visible")
+    data, logs, ckpt = _scene(tmp_path, EVAL_CFG, height=4, width=4)
+    args, _ = run_nerf.create_arg_parser().parse_known_args(_argv(data, logs, ckpt, "--eval"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         run_nerf.main(args)
 
 
@@ -190,6 +202,10 @@ for m in ("jax", "jaxlib", "flax", "optax", "orbax", "sklearn", "imageio", "matp
 import torch
 import nerfsos_torch.run_nerf
 import nerfsos_torch.engines.eval as ev
+import nerfsos_torch.engines.checkpoint
+import nerfsos_torch.engines.state as st
+import nerfsos_torch.engines.trainer as tr
+import nerfsos_torch.utils.summary
 from nerfsos_torch.models.nerf import NeRFConfig, NeRFNet
 import numpy as np
 
@@ -207,6 +223,12 @@ net = NeRFNet(NeRFConfig(netdepth=2, netwidth=8, netdepth_fine=2, netwidth_fine=
                          use_semantics=True, fused_field=True))
 out = ev.evaluate(net, DS(), save_dir=sys.argv[1], ret_cluster=True)
 assert np.isfinite(out["psnr"])
+opt = st.make_optimizer(net.parameters(), 1e-3)
+step = tr.make_rgb_train_step(net, opt, st.exp_decay_schedule(1e-3, 0.1, 1e5), 1.0, 4.0)
+r = np.random.default_rng(1)
+m = step({"rays": torch.from_numpy(r.normal(size=(2, 16, 3)).astype(np.float32)),
+          "target": torch.from_numpy(r.random((16, 3)).astype(np.float32))}, 0)
+assert tr.supports_fused_rgb_loss(net) and np.isfinite(float(m["loss"]))
 print("OK")
 """
 

@@ -139,8 +139,8 @@ def test_checkpoint_save_load(tmp_path):
     path = str(tmp_path / "00000100.ckpt")
     tckpt.save_checkpoint(path, 100, tnet)
     assert tckpt.find_latest_checkpoint(str(tmp_path)) == path
-    state, step = tckpt.load_checkpoint(path)
-    assert step == 100
+    state, step, opt_state = tckpt.load_checkpoint(path)
+    assert step == 100 and opt_state is None
     fresh = TorchNet(tnet.cfg)
     tckpt.load_model_state(fresh, state)
     for k, v in fresh.state_dict().items():
