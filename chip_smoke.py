@@ -1,5 +1,5 @@
 """Smoke run of the PyTorch port on one CUDA card: kernels, the --eval path,
-then the train path.
+the train path, then the frozen SOS finetune.
 
     python3 chip_smoke.py
 
@@ -34,7 +34,28 @@ Phases (one line each; any failure raises and the exit code is nonzero):
   7. resume: ``main`` again with 40 steps resumes from latest.ckpt at step 30
      with the Adam state and launches K3 twice a step;
   8. train step timings (CUDA events) at 1024, 4096 and 16384 rays on the
-     kernel path and at 1024 and 4096 on the plain path (16384 when it fits).
+     kernel path and at 1024 and 4096 on the plain path (16384 when it fits);
+  9. K4 (the SOS train forward) and K5 (the semantic-head backward) vs their
+     plain versions at the flagship width with the semantic head and
+     coordinates, 4096 rays, S=64 and S=192, noise 1 from a fixed seed, fixed
+     sorted z: K4's maps, weights and sem_in to TOL; K5 on K4's own outputs
+     with seeded map cotangents, each leaf to GRAD_TOL plus its allowance for
+     semantic-head gates near 0, and two calls bitwise equal;
+ 10. the SOS finetune: ``run_nerf.main`` with the flags of
+     scripts/train_flower_node0.sh (8 patches of 64x64, stride 6, ViT-S/16
+     with seeded weights, both correlation losses) on 8 train views of
+     384x512, from the [train] run's last.ckpt (trained without
+     --sem_with_coord), 20 steps: K4 twice a step and twice per ARI
+     re-render, K5 twice a step, K7a/K7f/K7g once a step; every loss term
+     finite and the correlation terms nonzero; the trunk bitwise equal to
+     the checkpoint's and the semantic head moved; the final eval through
+     K1/K2; the last step's K4 and K5 calls against their plain versions;
+ 11. K7 (row stats, the four geometry means, the code gradients) on the last
+     SOS step's own inputs (16 x 4096 pixels, 2 channels) vs the plain
+     versions to K7_TOL, two calls bitwise equal;
+ 12. the 32768-ray SOS step (CUDA events) on the kernel and the plain path,
+     with peak memory, and its parts timed alone (K4 and K5 coarse and
+     fine, ViT, appearance loss, K7 forward and backward, Adam).
 The last lines are the card, one JSON object with the kernels' numbers, and
 ``{"ok": true, "device": {...}}``. Scratch files go to build/chip_smoke/.
 """
@@ -83,11 +104,24 @@ GRAD_TOL = 1e-3
 # top of GRAD_TOL. tests/test_torch_cuda.py picks rays with no trunk or
 # views gate near 0, so that its leaves are held to GRAD_TOL alone.
 GATE_MARGIN = 1e-6
-# H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bytes/s, and the fp32-accurate
+# Bound on K7's four means and four code gradients, relative to the largest
+# |plain| of the four means and to each gradient's own max |plain|. Both
+# sides are fp32 and form every pair's terms with the same operations in the
+# same order (IEEE division, no FMA contraction), so the terms are
+# bit-identical; only the order of the sums differs (the kernel: a running
+# sum of 4096 columns or rows a thread, then a fixed tree and the CTAs in
+# order; PyTorch: its blocked reductions). fp32 summation of n terms moves a
+# sum by ~sqrt(n) 2^-24 of its terms' scale, ~4e-6 at n = 4096; 1e-4 leaves
+# an order of margin (the means sum 16 x 4096 of those row sums) while an
+# indexing fault (a wrong column, half or head) moves a value by O(1e-2) of
+# its scale or more.
+K7_TOL = 1e-4
+# H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bytes/s, the fp32-accurate
 # tensor-core rate of the 3xTF32 products the kernels use (495 TFLOP/s TF32
-# dense / 3).
+# dense / 3), and the fp32 rate outside the tensor cores (K7's SIMT work).
 HBM_BYTES_S = 3.35e12
 FP32_MMA_FLOP_S = 495e12 / 3
+FP32_SIMT_FLOP_S = 67e12
 
 
 def phase(name: str, **fields) -> None:
@@ -145,7 +179,19 @@ def ray_inputs(n: int, s: int, seed: int):
 
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
-    return float((a - b).abs().max())
+    return float((a.detach() - b.detach()).abs().max())
+
+
+def k4_errors(got, want) -> list:
+    """K4's (maps, weights, sem_in) against its plain version's: the
+    largest error of each, the maps' taken per column over that column's
+    scale max(1, max |plain|). The depth column is a z-weighted sum of the
+    weights (z up to far = 13), so its rounding is the weights' times z;
+    the other columns are O(1)."""
+    maps, maps_p = got[0].detach(), want[0].detach()
+    scale = maps_p.abs().amax(0).clamp(min=1.0)
+    return [float(((maps - maps_p).abs() / scale).max()), max_err(got[1], want[1]),
+            max_err(got[2], want[2])]
 
 
 def linear_shapes(field):
@@ -174,10 +220,11 @@ def field_flops(field, kind: str) -> float:
     return fwd + dx + dw
 
 
-def bound_ms(bytes_moved: float, flops: float) -> dict:
+def bound_ms(bytes_moved: float, flops: float, flop_s: float = FP32_MMA_FLOP_S) -> dict:
     """The least time the card could take: the larger of the bytes over HBM
-    and the operations over the fp32-accurate tensor-core rate."""
-    t_bytes, t_ops = bytes_moved / HBM_BYTES_S * 1e3, flops / FP32_MMA_FLOP_S * 1e3
+    and the operations over their peak rate (by default the fp32-accurate
+    tensor-core rate)."""
+    t_bytes, t_ops = bytes_moved / HBM_BYTES_S * 1e3, flops / flop_s * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes > t_ops else "operations"}
 
@@ -612,6 +659,467 @@ def train_step_timings(fr) -> None:
                   peak_gib=peak[R] / 2**30)
 
 
+# ----------------------------------------------------------------- the SOS finetune
+
+
+class Capture:
+    """Wraps kernel wrappers of ``module`` (by name) so that the calls made
+    while ``on`` is set are kept: inputs and outputs by reference, a field
+    argument copied (Adam moves it after the step). Each wrapper counts its
+    launches on the stand-in while it is in place; ``close`` adds them to the
+    original wrapper's count and puts the original back."""
+
+    def __init__(self, module, names):
+        self.module, self.on = module, False
+        self.calls = {n: [] for n in names}
+        self.orig = {n: getattr(module, n) for n in names}
+        for n in names:
+            setattr(module, n, self._wrap(n))
+
+    def _wrap(self, name):
+        orig = self.orig[name]
+
+        def wrapper(*a, **kw):
+            out = orig(*a, **kw)
+            if self.on:
+                a = tuple(copy.deepcopy(x) if isinstance(x, torch.nn.Module) else x for x in a)
+                self.calls[name].append((a, kw, out))
+            return out
+
+        wrapper.launches = 0
+        return wrapper
+
+    def close(self) -> None:
+        for n, orig in self.orig.items():
+            orig.launches += getattr(self.module, n).launches
+            setattr(self.module, n, orig)
+
+
+def plain_k5_with_allowance(field, sem_in, w, dmaps):
+    """K5's plain version, and per leaf what a semantic-head relu gate that
+    flips between it and the kernel can move: twice the largest term of a
+    point with a gate input within GATE_MARGIN (of the layer's largest
+    |input|) of 0 (dW0: |sem_in| x |ds|, db0: |ds|; sem_1's terms hold
+    s_act, which is within rounding of 0 at such a gate)."""
+    from nerfsos_torch.ops import fused_render as fr
+
+    want = fr.frozen_sem_grads_plain(field, sem_in, w, dmaps)
+    lin0, lin2 = field.mlp.semantic_linear[0], field.mlp.semantic_linear[2]
+    S = w.shape[1]
+    chunks = range(0, sem_in.shape[0], 1 << 20)
+    with torch.no_grad():
+        top = max(float(torch.nn.functional.linear(sem_in[i:i + (1 << 20)], lin0.weight,
+                                                   lin0.bias).abs().max()) for i in chunks)
+        x_ds, ds_max, near = 0.0, 0.0, 0
+        for i in chunks:
+            blk = sem_in[i:i + (1 << 20)]
+            pre = torch.nn.functional.linear(blk, lin0.weight, lin0.bias).abs()
+            m = pre.amin(1) <= GATE_MARGIN * top
+            if not m.any():
+                continue
+            q = torch.arange(i, i + blk.shape[0], device=blk.device)[m]
+            d_sem = dmaps[q // S, 5:] * w.reshape(-1)[q, None]
+            ds = (d_sem @ lin2.weight).abs().amax(1)
+            x_ds = max(x_ds, float((blk[m].abs().amax(1) * ds).max()))
+            ds_max = max(ds_max, float(ds.max()))
+            near += int(m.sum())
+    names = list(want)
+    allow = {names[0]: 2 * x_ds, names[1]: 2 * ds_max, names[2]: 0.0, names[3]: 0.0}
+    return want, allow, near
+
+
+def check_k5(what: str, got, want, allow, near) -> dict:
+    """Each semantic-head leaf to GRAD_TOL of its max |plain| plus its flip
+    allowance; raises."""
+    worst, name_w, over, abs_err = 0.0, "", 0.0, 0.0
+    for name, ref in want.items():
+        scale = max(float(ref.abs().max()), 1e-12)
+        e = max_err(got[name], ref)
+        abs_err = max(abs_err, e)
+        if e / scale >= worst:
+            worst, name_w = e / scale, name
+        over = max(over, e / (GRAD_TOL * scale + allow[name]))
+    finite = all(torch.isfinite(t).all() for t in got.values())
+    if not (finite and over <= 1.0):
+        raise SystemExit(f"K5 disagrees with its plain version ({what}): worst leaf {name_w} at "
+                         f"{worst} of its max, error over its bound {over}, finite={finite}")
+    return {"max_abs_err": abs_err, "grad_rel_err": worst, "worst_leaf": name_w,
+            "grad_tol": GRAD_TOL, "near_gate_points": near, "grad_err_over_bound": over}
+
+
+def k4_cost(field, R: int, S: int) -> dict:
+    """K4's bound: the forward of every layer a point (FLOP), the rays, z,
+    weights, maps and sem_in moved once (bytes)."""
+    C = field.mlp.semantic_linear[0].in_features
+    nbytes = 4 * (R * (9 + 2 * S + 7) + R * S * C + n_params(field))
+    return bound_ms(nbytes, R * S * field_flops(field, "k2"))
+
+
+def k5_cost(field, R: int, S: int) -> dict:
+    """K5's bound: per point sem_0's forward, ds, dW1 and dW0 (4 C H + 4 H
+    sem FLOP); sem_in, the weights and the maps' cotangent read once."""
+    C, H = field.mlp.semantic_linear[0].in_features, field.mlp.semantic_linear[0].out_features
+    sem = field.mlp.semantic_linear[2].out_features
+    return bound_ms(4 * (R * S * (C + 1) + R * 7 + 2 * (C * H + H + H * sem + sem)),
+                    R * S * (4 * C * H + 4 * H * sem))
+
+
+def k7_ops(S: int) -> dict:
+    """fp32 operations a pair (p, q) of K7's passes, counting a division
+    as one: fd is 3 sub, 3 abs, 3 add, +0.05, div, min (12); K7a adds the
+    row sum; K7f adds -rowmean + offset and per head the codes' L1 (3 S - 1),
+    +0.05, div, min, the product and the sum; K7g (one sweep's worth) per
+    head the L1, +0.05, div, the clamp test and three products, and per
+    channel sign, product and two sums."""
+    return {"K7a": 13, "K7f": 14 + 2 * (3 * S + 4), "K7g": 14 + 2 * (7 * S + 5)}
+
+
+def k7_costs(f1, c1a) -> dict:
+    B2, N, S = c1a.shape
+    pairs = B2 * N * N
+    pts, codes = 4 * B2 * N * 3, 4 * B2 * N * S
+    ops = k7_ops(S)
+    return {"K7a": bound_ms(2 * pts + 4 * B2 * N + 8, pairs * ops["K7a"], FP32_SIMT_FLOP_S),
+            "K7f": bound_ms(2 * pts + 4 * codes + 4 * B2 * N + 24, pairs * ops["K7f"],
+                            FP32_SIMT_FLOP_S),
+            "K7g": bound_ms(2 * pts + 8 * codes + 4 * B2 * N + 40, pairs * ops["K7g"],
+                            FP32_SIMT_FLOP_S)}
+
+
+def kernel_vs_plain_k4_k5(fr, S: int) -> dict:
+    """[K4] and [K5] at the flagship width, 4096 rays, noise 1 from a fixed
+    seed, fixed sorted z; K5 on K4's own sem_in and weights, with seeded
+    dmaps, and two calls bitwise equal."""
+    field = seeded_field(3, net_depth=8, net_width=256, multires=10, multires_views=4,
+                         use_semantics=True, sem_with_coord=True, sem_dim=2)
+    R = 4096
+    odv, z = ray_inputs(R, S, seed=4 + S)
+    kw = dict(noise_std=1.0, seed=7654321, save_semin=True)
+    with torch.no_grad():
+        got = fr.train_render(field, odv, z, **kw)
+        want = fr.train_render_plain(field, odv, z, **kw)
+    torch.cuda.synchronize()
+    errs = k4_errors(got, want)
+    finite = all(torch.isfinite(t).all() for t in got)
+    if not (finite and max(errs) <= TOL):
+        raise SystemExit(f"K4 disagrees with its plain version (S={S}): maps (scaled), "
+                         f"weights, sem_in errors {errs} (tol {TOL}), finite={finite}")
+    with torch.no_grad():
+        ms = cuda_ms(lambda: fr.train_render(field, odv, z, **kw))
+        plain_ms = cuda_ms(lambda: fr.train_render_plain(field, odv, z, **kw), reps=3)
+    phase("K4", rays=R, samples=S, max_err_maps_scaled=errs[0], max_abs_err_weights=errs[1],
+          max_abs_err_sem_in=errs[2], tol=TOL, ms=ms, plain_ms=plain_ms, **k4_cost(field, R, S))
+
+    _, w, sem_in = got
+    dmaps = torch.from_numpy(np.random.default_rng(S).normal(size=(R, 7)).astype(np.float32))
+    dmaps = dmaps.cuda()
+    g = fr.frozen_sem_grads(field, sem_in, w, dmaps)
+    g2 = fr.frozen_sem_grads(field, sem_in, w, dmaps)
+    torch.cuda.synchronize()
+    close = check_k5(f"S={S}", g, *plain_k5_with_allowance(field, sem_in, w, dmaps))
+    if not all(torch.equal(g[k], g2[k]) for k in g):
+        raise SystemExit(f"K5's gradients differ between two calls (S={S})")
+    ms5 = cuda_ms(lambda: fr.frozen_sem_grads(field, sem_in, w, dmaps))
+    plain5 = cuda_ms(lambda: fr.frozen_sem_grads_plain(field, sem_in, w, dmaps), reps=3)
+    phase("K5", rays=R, samples=S, **close, deterministic=True, ms=ms5, plain_ms=plain5,
+          **k5_cost(field, R, S))
+    return {"K4": max(max_err(a, b) for a, b in zip(got, want)), "K5": close["max_abs_err"]}
+
+
+SOS_STEPS = 20
+
+
+def sos_args(ckpt: str, max_steps: int):
+    """The flagship finetune flags (scripts/train_flower_node0.sh) with
+    configs/flower_full.txt on the smoke scene's 384x512 train views."""
+    from nerfsos_torch import run_nerf
+
+    argv = ["--config", os.path.join(ROOT, "configs", "flower_full.txt"),
+            "--expname", "smoke_sos", "--basedir", os.path.join(WORK, "logs"),
+            "--data_path", os.path.join(WORK, "sos_data"), "--max_steps", str(max_steps),
+            "--i_print", "10", "--i_weights", "10", "--i_testset", "1000000",
+            "--patch_tune", "--batch_size", "8", "--patch_size", "64", "--patch_stride", "6",
+            "--load_nostrict", "--sem_w", "0", "--use_dino", "--contrast_w", "0",
+            "--use_correlation", "--use_geoCorr", "--fix_backbone", "--ret_cluster",
+            "--clus_no_sfm", "--sem_with_coord", "--sem_dim", "2", "--use_sim_matrix",
+            "--correlation_w", "1", "--Gcorrelation_w", "0.01",
+            "--app_corr_params", "0.18", "1", "0.46", "1",
+            "--geo_corr_params", "0.5", "1", "3", "1", "--fast_mode", "--ckpt_path", ckpt]
+    args, _ = run_nerf.create_arg_parser().parse_known_args(argv)
+    return args
+
+
+def sos_path(fr, fc) -> dict:
+    """[sos]: ``run_nerf.main`` with the flagship finetune flags from the
+    [train] run's last.ckpt (no --sem_with_coord there, so --load_nostrict
+    keeps a fresh sem_0), SOS_STEPS steps of 8 patches of 64x64. Every kernel
+    count is set to 0 just before and read just after; the last step's K4,
+    K5 and K7 calls are kept and held against their plain versions."""
+    from nerfsos_torch import run_nerf
+    from nerfsos_torch.data.synthetic import write_sphere_scene
+    from nerfsos_torch.engines import checkpoint as ckpt_lib
+    from nerfsos_torch.engines import sos
+
+    data = os.path.join(WORK, "sos_data")
+    write_sphere_scene(data, 192, 256, n_views=1, split="test")
+    write_sphere_scene(data, 384, 512, n_views=8, split="train")
+    ckpt = os.path.join(WORK, "logs", "smoke_train", "checkpoints", "last.ckpt")
+    start_state, start_step, _ = ckpt_lib.load_checkpoint(ckpt)
+    last = start_step + SOS_STEPS - 1
+    args = sos_args(ckpt, start_step + SOS_STEPS)
+
+    for w in (fr.fused_coarse_weights, fr.fused_render, fr.train_render, fr.frozen_sem_grads,
+              fc.geo_row_stats, fc.geo_quad_means, fc.geo_quad_grads):
+        w.launches = 0
+    rec = {"metrics": [], "objects": None, "start": None}
+    orig = sos.make_sos_train_step
+    k4k5 = Capture(fr, ["train_render", "frozen_sem_grads"])
+    k7 = Capture(fc, ["geo_row_stats", "geo_quad_means", "geo_quad_grads"])
+
+    def recording_make_step(net, *a, **kw):
+        rec["objects"] = (net, a, kw)
+        rec["start"] = {n: p.detach().clone() for n, p in net.state_dict().items()}
+        step = orig(net, *a, **kw)
+
+        def recorded(batch, global_step):
+            k4k5.on = k7.on = global_step == last
+            try:
+                m = step(batch, global_step)
+            finally:
+                k4k5.on = k7.on = False
+            rec["metrics"].append((global_step, m))
+            return m
+
+        return recorded
+
+    sos.make_sos_train_step = recording_make_step
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_nerf.main(args)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        sos.make_sos_train_step = orig
+        k4k5.close()
+        k7.close()
+    launches = {"K1": fr.fused_coarse_weights.launches, "K2": fr.fused_render.launches,
+                "K4": fr.train_render.launches, "K5": fr.frozen_sem_grads.launches,
+                "K7a": fc.geo_row_stats.launches, "K7f": fc.geo_quad_means.launches,
+                "K7g": fc.geo_quad_grads.launches}
+    steps = [s for s, _ in rec["metrics"]]
+    metrics = [{k: float(v) for k, v in m.items()} for _, m in rec["metrics"]]
+    rerenders = sum(1 for s in steps if (s + 1) % args.i_print == 0 or s + 1 == 1)
+    phase("sos", steps=len(steps), first_step=steps[0] if steps else None,
+          patches=f"{args.batch_size}x{args.patch_size}x{args.patch_size}", views="8x384x512", seconds_incl_load_and_eval=seconds, launches=launches,
+          loss_first=metrics[0]["loss"] if metrics else None,
+          corr1_last=metrics[-1]["corr1"] if metrics else None,
+          geo_corr1_last=metrics[-1]["geo_corr1"] if metrics else None)
+    if steps != list(range(start_step, start_step + SOS_STEPS)):
+        raise SystemExit(f"the SOS run ran steps {steps}")
+    want = {"K4": 2 * SOS_STEPS + 2 * rerenders, "K5": 2 * SOS_STEPS, "K7a": SOS_STEPS,
+            "K7f": SOS_STEPS, "K7g": SOS_STEPS}
+    if any(launches[k] != n for k, n in want.items()) or min(launches["K1"],
+                                                               launches["K2"]) < 1:
+        raise SystemExit(f"the SOS run did not go through the kernels as expected: {launches}, "
+                         f"expected {want} and K1/K2 in the final eval")
+    for m in metrics:
+        if not all(math.isfinite(v) for v in m.values()):
+            raise SystemExit(f"an SOS loss term is not finite: {m}")
+        if 0.0 in (m["corr0"], m["corr1"], m["geo_corr0"], m["geo_corr1"]):
+            raise SystemExit(f"an SOS correlation term is zero: {m}")
+    run_dir = os.path.join(WORK, "logs", "smoke_sos")
+    check_checkpoints(run_dir, [f"{start_step + 10:08d}.ckpt", f"{start_step + 20:08d}.ckpt",
+                                "latest.ckpt", "last.ckpt"])
+    end_state, end_step, _ = ckpt_lib.load_checkpoint(os.path.join(run_dir, "checkpoints",
+                                                                   "last.ckpt"))
+    for k, v in end_state.items():
+        if "semantic_linear" in k:
+            if torch.equal(v, rec["start"][k].cpu()):
+                raise SystemExit(f"the semantic head did not move: {k}")
+        elif not torch.equal(v, start_state[k]):
+            raise SystemExit(f"a frozen trunk leaf changed: {k}")
+    log = check_final_eval(run_dir)
+    phase("sos_eval", end_step=end_step, psnr=log["total_psnr"], ssim=log["total_ssim"],
+          clus_ari=log["total_clus_ari"], trunk_bitwise_equal=True, head_moved=True)
+
+    # the last step's kernel calls against their plain versions on their own inputs
+    errs = {}
+    calls4, calls5 = k4k5.calls["train_render"], k4k5.calls["frozen_sem_grads"]
+    if len(calls4) != 2 or len(calls5) != 2:
+        raise SystemExit(f"captured {len(calls4)} K4 and {len(calls5)} K5 calls of step {last}")
+    for name, (a, kw, got) in zip(("coarse", "fine"), calls4):
+        with torch.no_grad():
+            want4 = fr.train_render_plain(*a, **kw)
+        e = k4_errors(got, want4)
+        phase("sos_k4_columns", field=name, max_abs_err=[
+            float(x) for x in (got[0].detach() - want4[0]).abs().amax(0)])
+        if max(e) > TOL:
+            raise SystemExit(f"K4 at step {last} ({name}): maps (scaled), weights, sem_in "
+                             f"errors {e} > {TOL}")
+        errs[f"K4 {name}"] = max(e)
+        del want4
+    for a, kw, got in calls5:
+        field, sem_in, w, dmaps = a
+        name = "coarse" if w.shape[1] == args.N_samples else "fine"
+        close = check_k5(f"step {last}, {name}", got, *plain_k5_with_allowance(field, sem_in, w,
+                                                                                dmaps))
+        errs[f"K5 {name}"] = close["grad_rel_err"]
+        phase("sos_k5", step=last, field=name, rays=w.shape[0], samples=w.shape[1], **close)
+    phase("sos_k4", step=last, max_err_coarse=errs["K4 coarse"], max_err_fine=errs["K4 fine"],
+          tol=TOL)
+    return {"launches": launches, "rec": rec, "k7_calls": k7.calls, "k4_calls": calls4,
+            "k5_calls": calls5, "args": args}
+
+
+def kernel_vs_plain_k7(fc, calls) -> dict:
+    """[K7] on the last SOS step's own inputs (16 x 4096 pixels, S = 2):
+    row stats, the four means and the four code gradients against their
+    plain versions to K7_TOL, two calls bitwise equal, and their times."""
+    (a_rs, _, (rm, gm)), = calls["geo_row_stats"]
+    (a_m, _, out), = calls["geo_quad_means"]
+    (a_g, _, grads), = calls["geo_quad_grads"]
+    f1, f2, maxd = a_rs
+    with torch.no_grad():
+        rm_p, gm_p = fc.geo_row_stats_plain(*a_rs)
+        out_p = fc.geo_quad_means_plain(*a_m)
+        g_p = fc.geo_quad_grads_plain(*a_g)
+    pairs = {"rowmean": (rm, rm_p), "gmean": (gm, gm_p), "means": (out, out_p),
+             **dict(zip(("dc1a", "dc2a", "dc1b", "dc2b"), zip(grads, g_p)))}
+    abs_err = {k: max_err(x, ref) for k, (x, ref) in pairs.items()}
+    err = {k: abs_err[k] / max(float(ref.abs().max()), 1e-30) for k, (_, ref) in pairs.items()}
+    finite = all(torch.isfinite(t).all() for t in (rm, gm, out, *grads))
+    if not (finite and max(err.values()) <= K7_TOL):
+        raise SystemExit(f"K7 disagrees with its plain version: relative errors {err} "
+                         f"(tol {K7_TOL}), finite={finite}")
+    out2 = fc.geo_quad_means(*a_m)
+    grads2 = fc.geo_quad_grads(*a_g)
+    torch.cuda.synchronize()
+    if not (torch.equal(out, out2) and all(torch.equal(x, y) for x, y in zip(grads, grads2))):
+        raise SystemExit("K7's means or gradients differ between two calls")
+    with torch.no_grad():
+        t = {"K7a": (cuda_ms(lambda: fc.geo_row_stats(*a_rs)),
+                     cuda_ms(lambda: fc.geo_row_stats_plain(*a_rs), reps=3)),
+             "K7f": (cuda_ms(lambda: fc.geo_quad_means(*a_m)),
+                     cuda_ms(lambda: fc.geo_quad_means_plain(*a_m), reps=3)),
+             "K7g": (cuda_ms(lambda: fc.geo_quad_grads(*a_g)),
+                     cuda_ms(lambda: fc.geo_quad_grads_plain(*a_g), reps=3))}
+    costs = k7_costs(f1, a_m[2])
+    B2, N, S = a_m[2].shape
+    phase("K7", rows=B2, pixels=N, channels=S, values=[float(x) for x in out],
+          **{f"rel_err_{k}": v for k, v in err.items()}, tol=K7_TOL, deterministic=True,
+          **{f"{k}_ms": v[0] for k, v in t.items()}, **{f"{k}_plain_ms": v[1] for k, v in t.items()},
+          **{f"{k}_bound_ms": costs[k]["bound_ms"] for k in costs})
+    kerr = {"K7a": max(abs_err["rowmean"], abs_err["gmean"]), "K7f": abs_err["means"],
+            "K7g": max(abs_err[k] for k in ("dc1a", "dc2a", "dc1b", "dc2b"))}
+    return {k: {"max_abs_err": kerr[k], "ms": t[k][0], "plain_ms": t[k][1], **costs[k],
+                "library_ms": None} for k in t}
+
+
+def sos_step_timings(fr, fc, sos_run) -> dict:
+    """[sos_step]: the 32768-ray SOS step (8 patches of 64x64) in ms from
+    CUDA events on the kernel path and on the plain path (each kernel
+    wrapper's plain version in its place), with peak memory; then the
+    kernel path's step split into its parts, each timed alone on the step's
+    own inputs: K4 and K5 coarse and fine, the ViT, the appearance loss
+    (forward and backward), K7 forward and backward, and Adam."""
+    from nerfsos_torch.data.datasets import PatchDataset
+    from nerfsos_torch.engines import sos
+    from nerfsos_torch.losses.correlation import CorrelationLoss
+
+    net, a, kw = sos_run["rec"]["objects"]
+    extractor, app_loss, geo_loss, cfg, optimizer, schedule, near, far = a
+    args = sos_run["args"]
+    step = sos.make_sos_train_step(net, *a, **kw)
+    ds = PatchDataset(args.data_path, patch_size=args.patch_size,
+                      patch_stride=args.patch_stride, ret_k=True)
+    b = ds.sample_batch(np.random.default_rng(0), args.batch_size)
+    device = next(net.parameters()).device
+    batch = {k: torch.as_tensor(b[k], device=device) for k in ("rays", "target")}
+    out = {}
+    plain = {fr: {"train_render": fr.train_render_plain,
+                  "frozen_sem_grads": fr.frozen_sem_grads_plain},
+             fc: {"geo_row_stats": fc.geo_row_stats_plain,
+                  "geo_quad_means": fc.geo_quad_means_plain,
+                  "geo_quad_grads": fc.geo_quad_grads_plain}}
+    for path in ("kernel", "plain", "kernel", "plain"):
+        saved = {}
+        if path == "plain":
+            for mod, fns in plain.items():
+                for n, f in fns.items():
+                    saved[(mod, n)] = getattr(mod, n)
+                    setattr(mod, n, f)
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ms = cuda_ms(lambda: step(batch, 0), reps=3, warmup=1)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+        finally:
+            for (mod, n), f in saved.items():
+                setattr(mod, n, f)
+        out.setdefault(path, []).append((ms, peak))
+        phase("sos_step", path=path, rays=batch["target"].shape[0], ms=ms,
+              rays_per_s=batch["target"].shape[0] / ms * 1e3, peak_gib=peak)
+
+    # one kernel-path step with every part's inputs kept, then each part alone
+    k4k5 = Capture(fr, ["train_render", "frozen_sem_grads"])
+    k7 = Capture(fc, ["geo_row_stats", "geo_quad_means", "geo_quad_grads"])
+    vit_in, app_in = [], []
+    orig_vit, orig_pair = extractor.get_vit_attn_feat, CorrelationLoss.pair_heads
+
+    def vit(x, *va, **vkw):
+        vit_in.append(x)
+        return orig_vit(x, *va, **vkw)
+
+    def pair_heads(self, *pa):
+        app_in.append(pa)
+        return orig_pair(self, *pa)
+
+    extractor.get_vit_attn_feat, CorrelationLoss.pair_heads = vit, pair_heads
+    k4k5.on = k7.on = True
+    try:
+        step(batch, 0)
+        torch.cuda.synchronize()
+    finally:
+        k4k5.close()
+        k7.close()
+        extractor.get_vit_attn_feat, CorrelationLoss.pair_heads = orig_vit, orig_pair
+    parts = {}
+    for name, (fa, fkw, _) in zip(("K4 coarse", "K4 fine"), k4k5.calls["train_render"]):
+        with torch.no_grad():
+            parts[name] = (cuda_ms(lambda: fr.train_render(*fa, **fkw), reps=3, warmup=1),
+                           cuda_ms(lambda: fr.train_render_plain(*fa, **fkw), reps=2, warmup=1))
+        parts[name + " cost"] = k4_cost(fa[0], *fa[2].shape)
+    for fa, fkw, _ in k4k5.calls["frozen_sem_grads"]:
+        name = "K5 coarse" if fa[2].shape[1] == args.N_samples else "K5 fine"
+        parts[name] = (cuda_ms(lambda: fr.frozen_sem_grads(*fa), reps=3, warmup=1),
+                       cuda_ms(lambda: fr.frozen_sem_grads_plain(*fa), reps=2, warmup=1))
+        parts[name + " cost"] = k5_cost(fa[0], *fa[2].shape)
+    with torch.no_grad():
+        parts["ViT"] = (cuda_ms(lambda: orig_vit(vit_in[0]), reps=3, warmup=1), None)
+
+    def app_fwd_bwd():
+        coords, feat, c0, c1, sim = app_in[0]
+        c0, c1 = c0.detach().requires_grad_(), c1.detach().requires_grad_()
+        sum(app_loss.pair_heads(coords, feat, c0, c1, sim)).backward()
+
+    parts["appearance loss"] = (cuda_ms(app_fwd_bwd, reps=3, warmup=1), None)
+    (a_rs, _, _), (a_m, _, _) = k7.calls["geo_row_stats"][0], k7.calls["geo_quad_means"][0]
+    (a_g, _, _), = k7.calls["geo_quad_grads"]
+    parts["K7 forward"] = (cuda_ms(lambda: (fc.geo_row_stats(*a_rs), fc.geo_quad_means(*a_m))),
+                           None)
+    parts["K7 backward"] = (cuda_ms(lambda: fc.geo_quad_grads(*a_g)), None)
+    parts["Adam"] = (cuda_ms(optimizer.step, reps=5, warmup=1), None)
+    for name, v in parts.items():
+        if not name.endswith("cost"):
+            phase("sos_step_part", part=name, ms=v[0], plain_ms=v[1])
+    step_ms = out["kernel"][-1][0]
+    named = sum(v[0] for n, v in parts.items() if not n.endswith("cost") and n != "Adam")
+    phase("sos_step_split", step_ms=step_ms, parts_ms=named + parts["Adam"][0],
+          rest_ms=step_ms - named - parts["Adam"][0])
+    return parts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -623,6 +1131,7 @@ def main() -> int:
         raise SystemExit("torch.backends.cuda.matmul.allow_tf32 must be off")
 
     from nerfsos_torch import _build
+    from nerfsos_torch.ops import flash_corr as fc
     from nerfsos_torch.ops import fused_render as fr
 
     shutil.rmtree(WORK, ignore_errors=True)
@@ -648,8 +1157,25 @@ def main() -> int:
     train_launches = train_path(fr)
     resume_path(fr)
     train_step_timings(fr)
+    kernel_vs_plain_k4_k5(fr, 64)
+    k45_err = kernel_vs_plain_k4_k5(fr, 192)
+    sos_run = sos_path(fr, fc)
+    k7 = kernel_vs_plain_k7(fc, sos_run["k7_calls"])
+    del sos_run["k4_calls"], sos_run["k5_calls"], sos_run["k7_calls"]
+    torch.cuda.empty_cache()
+    parts = sos_step_timings(fr, fc, sos_run)
+    sos_launches = sos_run["launches"]
 
     src = "nerfsos_torch/csrc/fused_render.cu"
+    train_src = "nerfsos_torch/csrc/train_render.cu"
+    corr_src = "nerfsos_torch/csrc/flash_corr.cu"
+
+    def main_path_numbers(kernel: str, err: float) -> dict:
+        """ms and plain ms of the SOS step's fine call (32768 rays, S=192)."""
+        ms, plain_ms = parts[f"{kernel} fine"]
+        return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                **parts[f"{kernel} fine cost"], "library_ms": None}
+
     kernels = [
         {"name": "K1 fused_coarse_weights", "route": "cuda", "source": src,
          "replaces": "nerfsos_tpu/ops/pallas/fused_render.py:458",
@@ -657,10 +1183,24 @@ def main() -> int:
         {"name": "K2 fused_render", "route": "cuda", "source": src,
          "replaces": "nerfsos_tpu/ops/pallas/fused_render.py:369",
          "launches": launches["K2"], **k2},
-        {"name": "K3 fused_rgb_train_grads", "route": "cuda",
-         "source": "nerfsos_torch/csrc/train_render.cu",
+        {"name": "K3 fused_rgb_train_grads", "route": "cuda", "source": train_src,
          "replaces": "nerfsos_tpu/ops/pallas/fused_render.py:940",
          "launches": train_launches["K3"], **k3},
+        {"name": "K4 train_render", "route": "cuda", "source": train_src,
+         "replaces": "nerfsos_tpu/ops/pallas/fused_render.py:852",
+         "launches": sos_launches["K4"], **main_path_numbers("K4", k45_err["K4"])},
+        {"name": "K5 frozen_sem_grads", "route": "cuda", "source": train_src,
+         "replaces": "nerfsos_tpu/ops/pallas/fused_render.py:1207",
+         "launches": sos_launches["K5"], **main_path_numbers("K5", k45_err["K5"])},
+        {"name": "K7a geo_row_stats", "route": "cuda", "source": corr_src,
+         "replaces": "nerfsos_tpu/ops/pallas/flash_corr.py:105",
+         "launches": sos_launches["K7a"], **k7["K7a"]},
+        {"name": "K7f geo_quad_means", "route": "cuda", "source": corr_src,
+         "replaces": "nerfsos_tpu/ops/pallas/flash_corr.py:422",
+         "launches": sos_launches["K7f"], **k7["K7f"]},
+        {"name": "K7g geo_quad_grads", "route": "cuda", "source": corr_src,
+         "replaces": "nerfsos_tpu/ops/pallas/flash_corr.py:459",
+         "launches": sos_launches["K7g"], **k7["K7g"]},
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -126,20 +126,48 @@ class TrainDesc(ctypes.Structure):
                 ("ws_size", ctypes.c_longlong), ("rays_per_chunk", ctypes.c_int)]
 
 
+MAX_SEM_BLOCKS = 4
+
+
+class FrozenDesc(ctypes.Structure):
+    """Mirror of ``FrozenDesc`` in ``csrc/train_render.cu``."""
+    _fields_ = [("blk", MLPLayer * MAX_SEM_BLOCKS), ("w1", ctypes.c_longlong),
+                ("gw0", ctypes.c_longlong), ("gb0", ctypes.c_longlong),
+                ("gw1", ctypes.c_longlong), ("gb1", ctypes.c_longlong),
+                ("grad_size", ctypes.c_longlong), ("seg", ctypes.c_int * 3),
+                ("kpad", ctypes.c_int), ("hidden", ctypes.c_int), ("sem_dim", ctypes.c_int),
+                ("nblk", ctypes.c_int), ("n_maps", ctypes.c_int)]
+
+
+def stream(device) -> ctypes.c_void_p:
+    """PyTorch's current CUDA stream on ``device``, for a kernel launch."""
+    import torch
+
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
 @functools.cache
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
     lib = ctypes.CDLL(build())
-    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     desc_p = ctypes.POINTER(MLPDesc)
+    train_p = ctypes.POINTER(TrainDesc)
     lib.nerf_coarse_weights.argtypes = [vp, vp, vp, desc_p, vp, i32, i32, i32, vp]
-    lib.nerf_coarse_weights.restype = i32
     lib.nerf_render.argtypes = [vp, vp, vp, desc_p, vp, vp, i32, i32, i32, vp]
-    lib.nerf_render.restype = i32
-    lib.nerf_rgb_train_grads.argtypes = [vp, vp, vp, vp, vp, ctypes.POINTER(TrainDesc), vp, vp,
-                                         vp, vp, vp, i32, i32, i32, ctypes.c_uint,
-                                         ctypes.c_float, i32, vp]
-    lib.nerf_rgb_train_grads.restype = i32
+    lib.nerf_rgb_train_grads.argtypes = [vp, vp, vp, vp, vp, train_p, vp, vp, vp, vp, vp, i32,
+                                         i32, i32, ctypes.c_uint, f32, i32, vp]
+    lib.nerf_train_render.argtypes = [vp, vp, vp, train_p, vp, vp, vp, i32, i32, ctypes.c_uint,
+                                      f32, vp]
+    lib.nerf_frozen_sem_grads.argtypes = [vp, vp, vp, vp, ctypes.POINTER(FrozenDesc), vp, vp,
+                                          ctypes.c_longlong, i32, i32, vp]
+    lib.geo_row_stats.argtypes = [vp, vp, vp, vp, i32, i32, f32, vp]
+    lib.geo_quad_means.argtypes = [vp] * 10 + [i32, i32, i32, f32, f32, f32, vp]
+    lib.geo_quad_grads.argtypes = [vp] * 13 + [i32, i32, i32, f32, f32, f32, vp]
+    for fn in (lib.nerf_coarse_weights, lib.nerf_render, lib.nerf_rgb_train_grads,
+               lib.nerf_train_render, lib.nerf_frozen_sem_grads, lib.geo_row_stats,
+               lib.geo_quad_means, lib.geo_quad_grads):
+        fn.restype = i32
     lib.nerf_error_string.argtypes = [i32]
     lib.nerf_error_string.restype = ctypes.c_char_p
     return lib

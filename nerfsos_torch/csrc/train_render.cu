@@ -54,6 +54,39 @@
 // products ~33%; every 64-point tile re-reads each layer's weights from L2.
 // Precision: fp32 throughout; the points and the PE phases as in the render
 // kernels (explicit round-to-nearest, accurate sinf), no fast-math.
+//
+// The same file holds the frozen-backbone SOS finetune's two kernels:
+//
+// K4 (replaces _train_render_fwd_impl -> _train_render_kernel): the train
+// forward, K3's forward tile and composite without the loss and without the
+// workspace: maps [R, 5 + sem] and weights [R, S] with the hash noise and,
+// on request, sem_in [R * S, C] = [h; emb] per point (C = 319 at the
+// flagship), written from the activations the tile already holds. It is
+// bound by its arithmetic (the forward, ~1.27 MFLOP a fine point); sem_in
+// adds C * 4 bytes a point of writes (8.0 GB for the 32768 x 192 fine pass,
+// ~2.4 ms at 3.35 TB/s). The JAX package recomputes above an 8 GiB residual
+// for a 16 GB TPU; on an 80 GB card sem_in is always stored.
+//
+// K5 (replaces _train_render_frozen_bwd_impl -> _train_frozen_bwd_kernel):
+// the gradients of the semantic head alone, with the composite weights held
+// constant, from sem_in, w and the maps' cotangent. Per 64-point tile:
+// s_act = relu(sem_in W0 + b0) (3xTF32), d_sem = dmaps[ray, 5:] w,
+// ds = (W1^T d_sem) [s_act > 0], and dW1 += s_act^T d_sem, db1, db0, and
+// dW0 += sem_in^T ds (m16n8k8 3xTF32, k = points). A CTA takes one block of
+// 64 of sem_0's 128 outputs over a run of tiles, so its share of dW0
+// (320 x 64) stays in 40 registers a thread; each CTA x writes its share of
+// a partial gradient buffer and reduce_partials sums the buffers in CTA
+// order: two calls give bitwise-equal gradients. The CTA keeps its block of
+// W0^T (320 x 64, fp32) and W1 in shared memory for its whole run of tiles
+// and splits them into TF32 parts as it multiplies (sem0_forward): the
+// shared tile layer dense(), which reads each k step's W fragments from L2,
+// left one n8 tile a warp waiting on those reads most of the time in a
+// first version (clock64 counters, H100). Each tile's rows of sem_in are copied by
+// cp.async straight into the feature-major tile (4-byte copies, lane =
+// column). Bound: reading sem_in (8.0 GB at the fine pass) and the two
+// 320 x 128 products (~164 KFLOP a point), about equal on the H100; the two
+// blocks each read sem_in once. Shared memory: 230 KB at the flagship's
+// 320 padded sem_in rows, the most that fits.
 
 #include "tile_mlp.cuh"
 
@@ -334,12 +367,16 @@ __device__ __forceinline__ void store_tile(const float* src, float* dst, int row
 // Forward of one 64-point tile of the chunk (rays r0.., nq points), as the
 // render kernel K2 computes it: the points, their PE, the trunk and the
 // heads on activations in shared memory (emb, demb and two layer buffers at
-// `tile`); every activation the reverse sweep reads is also stored to the
-// workspace, and sigma / rgb logits / semantics go to the strip.
+// `tile`); sigma / rgb logits / semantics go to the strip. kStore (K3):
+// every activation the reverse sweep reads is also stored to the workspace.
+// semin (K4, may be null): the semantic head's input [h; emb] of each point
+// is written as a row of semin [R * S][C] (C its unpadded width).
+template <bool kStore>
 __device__ __forceinline__ void forward_tile(const float* __restrict__ odv, const float* zc,
                                              const float* __restrict__ params,
                                              const TrainDesc& d, float* ws, float* strip,
-                                             float* tile, int r0, int nq, int S, int sub) {
+                                             float* tile, int r0, int nq, int S, int sub,
+                                             float* __restrict__ semin) {
   const MLPDesc& f = d.f;
   const int depth = f.depth, E = f.emb_dim, Ep = pad8(E), Ed = f.demb_dim, Edp = pad8(Ed);
   const int sem = f.sem_dim, cs = 6 + sem;
@@ -364,8 +401,10 @@ __device__ __forceinline__ void forward_tile(const float* __restrict__ odv, cons
   pe_rows(emb, E);
   pe_rows(demb, Ed);
   __syncthreads();
-  store_tile(emb, plane(ws, d, P_EMB, sub), Ep);
-  store_tile(demb, plane(ws, d, P_DEMB, sub), Edp);
+  if (kStore) {
+    store_tile(emb, plane(ws, d, P_EMB, sub), Ep);
+    store_tile(demb, plane(ws, d, P_DEMB, sub), Edp);
+  }
 
   // trunk: layer i reads `in0, in1` and writes the buffer not holding h
   Seg in0{emb, Ep}, in1 = none();
@@ -374,7 +413,7 @@ __device__ __forceinline__ void forward_tile(const float* __restrict__ odv, cons
     float* nxt = (cur == hA) ? hB : hA;
     dense_call(params, f.layer[i], in0, in1, none(), nxt, true);
     __syncthreads();
-    store_tile(nxt, plane(ws, d, P_ACT0 + i, sub), pad8(f.layer[i].n));
+    if (kStore) store_tile(nxt, plane(ws, d, P_ACT0 + i, sub), pad8(f.layer[i].n));
     cur = nxt;
     if (i == f.skip) {
       in0 = Seg{emb, Ep};
@@ -385,6 +424,23 @@ __device__ __forceinline__ void forward_tile(const float* __restrict__ odv, cons
     }
   }
   float* spare = (cur == hA) ? hB : hA;
+  if (semin != nullptr) {
+    // the rows of in0 and in1 (h, or [emb, h] when the skip follows the last
+    // layer) and of emb, unpadded: one contiguous [np][C] block of semin.
+    // The sem head's __syncthreads below orders these reads before the
+    // views layer overwrites h.
+    const int hn = f.layer[depth - 1].n;
+    const int k0 = (in1.k > 0) ? E : hn, k1 = (in1.k > 0) ? hn : 0;
+    const int C = k0 + k1 + (f.sem_with_coord ? E : 0);
+    const int np = min(kPts, nq - q0);
+    float* dst = semin + ((size_t)r0 * S + q0) * C;
+    for (int e = threadIdx.x; e < np * C; e += kThreads) {
+      const int p = e / C, col = e % C;
+      dst[e] = col < k0 ? in0.a[col * kLd + p]
+             : col < k0 + k1 ? in1.a[(col - k0) * kLd + p]
+                             : emb[(col - k0 - k1) * kLd + p];
+    }
+  }
   dense_small(params, head[0], in0, in1, none(), strip, q0, nq, cs, 0);  // sigma
   if (sem) {
     const Seg coord = f.sem_with_coord ? Seg{emb, Ep} : none();
@@ -396,18 +452,20 @@ __device__ __forceinline__ void forward_tile(const float* __restrict__ odv, cons
   }
   dense_call(params, head[1], in0, in1, none(), spare, false);  // feature
   __syncthreads();
-  store_tile(spare, plane(ws, d, P_FEAT, sub), pad8(head[1].n));
+  if (kStore) store_tile(spare, plane(ws, d, P_FEAT, sub), pad8(head[1].n));
   dense_call(params, head[2], Seg{spare, pad8(head[1].n)}, Seg{demb, Edp}, none(), cur,
              true);  // views (h is no longer needed)
   __syncthreads();
-  store_tile(cur, plane(ws, d, P_HV, sub), pad8(head[2].n));
+  if (kStore) store_tile(cur, plane(ws, d, P_HV, sub), pad8(head[2].n));
   dense_small(params, head[3], Seg{cur, pad8(head[2].n)}, none(), none(), strip, q0, nq, cs, 2);
   __syncthreads();
 }
 
 // The composite of the chunk's rays (one thread a ray): sigma noise, alpha,
-// transmittance, weights and maps out; the img2mse cotangent; its reverse
-// through the composite into dsigma and drgb (pre-sigmoid) per point.
+// transmittance, weights and maps out; with kLoss (K3) the img2mse
+// cotangent and its reverse through the composite into dsigma and drgb
+// (pre-sigmoid) per point.
+template <bool kLoss>
 __device__ __forceinline__ void composite_chunk(const float* __restrict__ odv, const float* zc,
                                                 const float* __restrict__ gt, const TrainDesc& d,
                                                 float* ws, float* strip,
@@ -447,6 +505,7 @@ __device__ __forceinline__ void composite_chunk(const float* __restrict__ odv, c
 #pragma unroll
     for (int j = 0; j < 5 + kMaxSem; ++j)
       if (j < nmaps) maps[(size_t)(r0 + rl) * nmaps + j] = m[j];
+    if (!kLoss) continue;
 
     const float* gr = gt + (size_t)(r0 + rl) * 3;
     const float bg = white_bkgd ? 1.f - m[4] : 0.f;
@@ -474,7 +533,7 @@ __device__ __forceinline__ void composite_chunk(const float* __restrict__ odv, c
       for (int j = 0; j < 3; ++j) dr[j * kLd + p] = (diff[j] * w) * (rgb[j] * (1.f - rgb[j]));
     }
   }
-  for (int q = nq + threadIdx.x; q < nsub * kPts; q += kThreads) {  // the last tile's tail
+  for (int q = nq + threadIdx.x; kLoss && q < nsub * kPts; q += kThreads) {  // last tile's tail
     const int sub = q / kPts, p = q % kPts;
     plane(ws, d, P_DSIG, sub)[p] = 0.f;
     float* dr = plane(ws, d, P_DRGB, sub);
@@ -518,11 +577,299 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   // ---- forward, storing every activation the reverse sweep reads
   for (int sub = 0; sub < nsub; ++sub)
-    forward_tile(odv, zc, params, d, ws, strip, tile, r0, nq, S, sub);
+    forward_tile<true>(odv, zc, params, d, ws, strip, tile, r0, nq, S, sub, nullptr);
 
   // ---- composite, maps, the img2mse cotangent and its reverse: one thread a ray
-  composite_chunk(odv, zc, gt, d, ws, strip, maps, weights, r0, nr, S, nsub, seed, noise_std,
-                  white_bkgd);
+  composite_chunk<true>(odv, zc, gt, d, ws, strip, maps, weights, r0, nr, S, nsub, seed,
+                        noise_std, white_bkgd);
+}
+
+// K4: CTA b takes chunk b (d.rays_per_chunk rays): the forward of each
+// 64-point tile (with the sem_in rows when semin is not null), then the
+// composite with the sigma noise into maps and weights. Nothing is stored
+// for a reverse sweep.
+__global__ void __launch_bounds__(kThreads, 1)
+    train_render_kernel(const float* __restrict__ odv, const float* __restrict__ z,
+                        const float* __restrict__ params, const __grid_constant__ TrainDesc d,
+                        float* __restrict__ maps, float* __restrict__ weights,
+                        float* __restrict__ semin, int R, int S, unsigned seed,
+                        float noise_std) {
+  extern __shared__ float4 smem4[];
+  const int rpc = d.rays_per_chunk;
+  float* strip = reinterpret_cast<float*>(smem4);
+  float* tile = strip + ((rpc * S * (6 + d.f.sem_dim) + 3) & ~3);  // emb, demb, hA, hB
+  const int E = d.f.emb_dim, Ep = pad8(E), Ed = d.f.demb_dim, Edp = pad8(Ed);
+  for (int i = threadIdx.x; i < (Ep - E) * kLd; i += kThreads) tile[E * kLd + i] = 0.f;
+  for (int i = threadIdx.x; i < (Edp - Ed) * kLd; i += kThreads)
+    tile[(Ep + Ed) * kLd + i] = 0.f;
+  __syncthreads();
+  const int r0 = blockIdx.x * rpc, nr = min(rpc, R - r0), nq = nr * S;
+  const int nsub = (nq + kPts - 1) / kPts;
+  const float* zc = z + (size_t)r0 * S;
+  for (int sub = 0; sub < nsub; ++sub)
+    forward_tile<false>(odv, zc, params, d, nullptr, strip, tile, r0, nq, S, sub, semin);
+  composite_chunk<false>(odv, zc, nullptr, d, nullptr, strip, maps, weights, r0, nr, S, nsub,
+                         seed, noise_std, 0);
+}
+
+// K5: the semantic head's weight gradients for a frozen backbone.
+// sem_0's outputs are cut into blocks of kSemBlk; CTA (x, blk) takes block
+// blk of a run of 64-point tiles and keeps its share of dW0 in registers.
+constexpr int kSemBlk = 64;
+constexpr int kMaxSemRows = 384;                    // padded sem_in rows
+constexpr int kSemMt = kMaxSemRows / 16 / 4;        // m16 tiles of dW0 a warp row
+}  // namespace
+
+constexpr int kMaxSemBlocks = 4;
+
+// Host-visible: the C entry point takes a FrozenDesc* (ops/fused_render.pack_frozen).
+struct FrozenDesc {
+  LayerDesc blk[kMaxSemBlocks];  // sem_0 outputs [64 c, 64 c + n) as a packed layer
+  long long w1;                  // sem_1's weight [sem_dim][hidden] (torch layout)
+  long long gw0, gb0, gw1, gb1;  // gradient buffer: dW0^T [kpad][hidden], db0 [hidden],
+                                 //   dW1^T [hidden][sem_dim], db1 [sem_dim]
+  long long grad_size;
+  int seg[3];                    // unpadded widths of sem_in's segments, in order
+  int kpad;                      // sem_in rows with each segment padded to 8
+  int hidden, sem_dim, nblk, n_maps;
+};
+
+namespace {
+
+__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem));
+}
+
+// One 64-point tile of sem_in [P][C] (point-major), copied with cp.async
+// straight into the feature-major [kpad][kLd] tile xin (lane = column, so
+// the global reads are coalesced; padding rows were zeroed once and are
+// never written; points past np are zeroed), and its weights and its rays'
+// map cotangents into rw [kPts] and rw + kPts [kMaxSem][kPts]; one group.
+__device__ __forceinline__ void load_frozen_tile(const float* __restrict__ semin,
+                                                 const float* __restrict__ weights,
+                                                 const float* __restrict__ dmaps,
+                                                 const FrozenDesc& d, float* xin, float* rw,
+                                                 int C, long long q0, int np, int S) {
+  const int k0 = d.seg[0], k1 = d.seg[1];
+  const int o1 = pad8(k0), o2 = o1 + pad8(k1);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const float* src = semin + q0 * C;
+  for (int p = warp; p < kPts; p += kThreads / 32)
+    for (int col = lane; col < C; col += 32) {
+      const int row = col < k0 ? col : col < k0 + k1 ? o1 + col - k0 : o2 + col - k0 - k1;
+      if (p < np) {
+        cp_async4(xin + row * kLd + p, src + (size_t)p * C + col);
+      } else {
+        xin[row * kLd + p] = 0.f;
+      }
+    }
+  for (int e = threadIdx.x; e < np * (1 + d.sem_dim); e += kThreads) {
+    const int j = e / np, p = e % np;
+    const long long q = q0 + p;
+    cp_async4(rw + j * kPts + p, j == 0 ? weights + q : dmaps + (q / S) * d.n_maps + 4 + j);
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// sact [64][kLd] = relu(x W0 + b0) of the tile for this CTA's block of
+// outputs, with the block's W0^T [kpad][kLd] (fp32) in shared memory and
+// split into TF32 parts here: m16n8k8 3xTF32, warp w on points
+// 32 (w & 1) .. +32 and outputs 8 (w >> 1) .. +8.
+__device__ __forceinline__ void sem0_forward(const float* xin, const float* w0s,
+                                             const float* __restrict__ bias, float* sact,
+                                             int kpad, int nbp) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int m0 = (warp & 1) * 32, n0 = (warp >> 1) * 8;
+  if (n0 >= nbp) return;
+  float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+  for (int k = 0; k < kpad; k += 8) {
+    const float* a = xin + (k + t) * kLd + m0 + g;
+    uint32_t ahi[2][4], alo[2][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      split(a[mt * 16], ahi[mt][0], alo[mt][0]);
+      split(a[mt * 16 + 8], ahi[mt][1], alo[mt][1]);
+      split(a[4 * kLd + mt * 16], ahi[mt][2], alo[mt][2]);
+      split(a[4 * kLd + mt * 16 + 8], ahi[mt][3], alo[mt][3]);
+    }
+    const float* b = w0s + (k + t) * kLd + n0 + g;
+    uint32_t bh0, bl0, bh1, bl1;
+    split(b[0], bh0, bl0);
+    split(b[4 * kLd], bh1, bl1);
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) mma_tf32(acc[mt], alo[mt], bh0, bh1);
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) mma_tf32(acc[mt], ahi[mt], bl0, bl1);
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) mma_tf32(acc[mt], ahi[mt], bh0, bh1);
+  }
+  const int n = n0 + 2 * t;
+  const float b0 = __ldg(bias + n), b1 = __ldg(bias + n + 1);
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+    const int p = m0 + mt * 16 + g;
+    sact[n * kLd + p] = fmaxf(acc[mt][0] + b0, 0.f);
+    sact[(n + 1) * kLd + p] = fmaxf(acc[mt][1] + b1, 0.f);
+    sact[n * kLd + p + 8] = fmaxf(acc[mt][2] + b0, 0.f);
+    sact[(n + 1) * kLd + p + 8] = fmaxf(acc[mt][3] + b1, 0.f);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+    frozen_sem_kernel(const float* __restrict__ semin, const float* __restrict__ weights,
+                      const float* __restrict__ dmaps, const float* __restrict__ params,
+                      const __grid_constant__ FrozenDesc d, float* __restrict__ partial,
+                      long long P, int S, long long tiles_per_cta) {
+  extern __shared__ float4 smem4[];
+  float* xin = reinterpret_cast<float*>(smem4);  // [kpad][kLd] sem_in, feature-major
+  float* sact = xin + d.kpad * kLd;               // [64][kLd] relu(sem_in W0 + b0), this block
+  float* ds = sact + kSemBlk * kLd;               // [64][kLd] its cotangent
+  float* dsem = ds + kSemBlk * kLd;               // [8][kLd] d_sem = dmaps[ray, 5 + j] * w
+  float* w0s = dsem + 8 * kLd;                    // [kpad][kLd] this block's W0^T
+  float* acc1 = w0s + d.kpad * kLd;               // dW1 [64][kMaxSem], then db0 [64], db1 [8]
+  float* w1s = acc1 + kSemBlk * kMaxSem + kSemBlk + 8;  // [kMaxSem][64] this block's W1
+  float* rw = w1s + kMaxSem * kSemBlk;            // the tile's w [64], dmaps[:, 5:] [8][64]
+  const int blk = blockIdx.y, n0 = blk * kSemBlk;
+  const LayerDesc L = d.blk[blk];
+  const int nb = L.n, nbp = pad8(nb), sem = d.sem_dim, hidden = d.hidden;
+  const int C = d.seg[0] + d.seg[1] + d.seg[2];
+  for (int i = threadIdx.x; i < d.kpad * kLd; i += kThreads) {
+    const int k = i / kLd, n = i % kLd;
+    xin[i] = 0.f;
+    w0s[i] = n < nbp ? params[L.w + (size_t)k * nbp + n] : 0.f;
+  }
+  for (int i = threadIdx.x; i < kSemBlk * kMaxSem + kSemBlk + 8; i += kThreads) acc1[i] = 0.f;
+  for (int i = threadIdx.x; i < kMaxSem * kSemBlk; i += kThreads) {
+    const int j = i / kSemBlk, n = i % kSemBlk;
+    w1s[i] = (j < sem && n < nb) ? params[d.w1 + (size_t)j * hidden + n0 + n] : 0.f;
+  }
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp & 3, wn = warp >> 2;  // m16 tiles wm + 4 i; n8 tiles 2 wn, 2 wn + 1
+  const int mtiles = d.kpad / 16 + (d.kpad % 16 ? 1 : 0);
+  float acc[kSemMt][2][4];
+#pragma unroll
+  for (int i = 0; i < kSemMt; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.f;
+
+  const long long ntiles = (P + kPts - 1) / kPts;
+  const long long t0 = blockIdx.x * tiles_per_cta;
+  const long long t1 = min(ntiles, t0 + tiles_per_cta);
+  for (long long tile = t0; tile < t1; ++tile) {
+    const long long q0 = tile * kPts;
+    const int np = (int)min((long long)kPts, P - q0);
+    __syncthreads();  // the previous tile's readers of xin are done
+    load_frozen_tile(semin, weights, dmaps, d, xin, rw, C, q0, np, S);
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();
+    for (int e = threadIdx.x; e < 8 * kPts; e += kThreads) {
+      const int j = e / kPts, p = e % kPts;
+      dsem[j * kLd + p] = (j < sem && p < np) ? rw[(j + 1) * kPts + p] * rw[p] : 0.f;
+    }
+    sem0_forward(xin, w0s, params + L.b, sact, d.kpad, nbp);
+    __syncthreads();
+    // ds = (W1^T d_sem) where sact > 0
+    for (int e = threadIdx.x; e < nbp * kPts; e += kThreads) {
+      const int n = e / kPts, p = e % kPts;
+      float v = 0.f;
+      if (n < nb) {
+        for (int j = 0; j < sem; ++j) v += w1s[j * kSemBlk + n] * dsem[j * kLd + p];
+        v = sact[n * kLd + p] > 0.f ? v : 0.f;
+      }
+      ds[n * kLd + p] = v;
+    }
+    __syncthreads();
+    // the small sums, each by one thread in point order: dW1[n][j] of
+    // sact[n] . d_sem[j], db0[n] of ds[n], and (block 0) db1[j] of d_sem[j]
+    for (int i = threadIdx.x; i < nb * sem + nb + (blk == 0 ? sem : 0); i += kThreads) {
+      const float *x, *y = nullptr;
+      int slot;
+      if (i < nb * sem) {
+        x = sact + (i / sem) * kLd;
+        y = dsem + (i % sem) * kLd;
+        slot = (i / sem) * kMaxSem + i % sem;
+      } else if (i < nb * sem + nb) {
+        x = ds + (i - nb * sem) * kLd;
+        slot = kSemBlk * kMaxSem + i - nb * sem;
+      } else {
+        x = dsem + (i - nb * sem - nb) * kLd;
+        slot = kSemBlk * kMaxSem + kSemBlk + i - nb * sem - nb;
+      }
+      float s = 0.f;
+      for (int p = 0; p < kPts; ++p) s += y ? x[p] * y[p] : x[p];
+      acc1[slot] += s;
+    }
+    // dW0[m][n] += sum_p sem_in[m][p] ds[n][p]: m16n8k8 3xTF32, k = points;
+    // the two n8 tiles' products interleaved, so no mma waits on the one
+    // just before it
+#pragma unroll 2
+    for (int kk = 0; kk < kPts; kk += 8) {
+      uint32_t bh[2][2], bl[2][2];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const float* b = ds + (16 * wn + 8 * j + g) * kLd + kk + t;
+        split(b[0], bh[j][0], bl[j][0]);
+        split(b[4], bh[j][1], bl[j][1]);
+      }
+      const bool two = 16 * wn + 8 < nbp;
+#pragma unroll
+      for (int i = 0; i < kSemMt; ++i) {
+        const int mt = wm + 4 * i;
+        if (mt >= mtiles || 16 * wn >= nbp) continue;
+        const float* a = xin + (16 * mt + g) * kLd + kk + t;
+        uint32_t ahi[4], alo[4];
+        split(a[0], ahi[0], alo[0]);
+        split(a[8 * kLd], ahi[1], alo[1]);
+        split(a[4], ahi[2], alo[2]);
+        split(a[8 * kLd + 4], ahi[3], alo[3]);
+        mma_tf32(acc[i][0], alo, bh[0][0], bh[0][1]);
+        if (two) mma_tf32(acc[i][1], alo, bh[1][0], bh[1][1]);
+        mma_tf32(acc[i][0], ahi, bl[0][0], bl[0][1]);
+        if (two) mma_tf32(acc[i][1], ahi, bl[1][0], bl[1][1]);
+        mma_tf32(acc[i][0], ahi, bh[0][0], bh[0][1]);
+        if (two) mma_tf32(acc[i][1], ahi, bh[1][0], bh[1][1]);
+      }
+    }
+  }
+  __syncthreads();
+
+  // this CTA's share of the partial gradient buffer x (every entry of the
+  // buffer is written by exactly one CTA (x, blk))
+  float* gp = partial + (size_t)blockIdx.x * d.grad_size;
+#pragma unroll
+  for (int i = 0; i < kSemMt; ++i) {
+    const int mt = wm + 4 * i;
+    if (mt >= mtiles) continue;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int n = 16 * wn + 8 * j + 2 * t;
+      const int m = 16 * mt + g;
+      if (n >= nb) continue;
+      float* o = gp + d.gw0 + (size_t)m * hidden + n0 + n;
+      const bool two = n + 1 < nb;  // nb is a multiple of 8 but for the last block
+      if (m < d.kpad) {
+        o[0] = acc[i][j][0];
+        if (two) o[1] = acc[i][j][1];
+      }
+      if (m + 8 < d.kpad) {
+        o[8 * (size_t)hidden] = acc[i][j][2];
+        if (two) o[8 * (size_t)hidden + 1] = acc[i][j][3];
+      }
+    }
+  }
+  for (int i = threadIdx.x; i < nb * sem; i += kThreads)
+    gp[d.gw1 + (size_t)(n0 + i / sem) * sem + i % sem] = acc1[(i / sem) * kMaxSem + i % sem];
+  for (int i = threadIdx.x; i < nb; i += kThreads)
+    gp[d.gb0 + n0 + i] = acc1[kSemBlk * kMaxSem + i];
+  if (blk == 0)
+    for (int i = threadIdx.x; i < sem; i += kThreads)
+      gp[d.gb1 + i] = acc1[kSemBlk * kMaxSem + kSemBlk + i];
 }
 
 // Wave `wave` of the reverse sweep, on the chunk the forward left in
@@ -583,7 +930,55 @@ __global__ void reduce_partials(const float* __restrict__ partial, float* __rest
   }
 }
 
+// shared memory of the forward kernels (K3's and K4): the chunk's composite
+// strip, then emb, demb and two layer tiles
+int forward_smem(const TrainDesc* d, int S) {
+  const int Ep = (d->f.emb_dim + 7) / 8 * 8, Edp = (d->f.demb_dim + 7) / 8 * 8;
+  return (int)((((size_t)d->rays_per_chunk * S * (6 + d->f.sem_dim) + 3) / 4 * 4 +
+                (size_t)(Ep + Edp + 2 * d->f.hrows) * kLd) *
+               sizeof(float));
+}
+
 }  // namespace
+
+// K4: one launch, a CTA a chunk of d->rays_per_chunk rays; semin may be null.
+extern "C" int nerf_train_render(const float* odv, const float* z, const float* params,
+                                 const TrainDesc* d, float* maps, float* weights, float* semin,
+                                 int R, int S, unsigned seed, float noise_std, void* stream) {
+  const int smem = forward_smem(d, S);
+  cudaError_t err = cudaFuncSetAttribute(train_render_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int nchunks = (R + d->rays_per_chunk - 1) / d->rays_per_chunk;
+  train_render_kernel<<<nchunks, kThreads, smem, (cudaStream_t)stream>>>(
+      odv, z, params, *d, maps, weights, semin, R, S, seed, noise_std);
+  return (int)cudaGetLastError();
+}
+
+// K5: grid x d->nblk CTAs over P = R * S points, each CTA x with a
+// d->grad_size partial buffer, then the partials summed in CTA order into
+// grads [d->grad_size].
+extern "C" int nerf_frozen_sem_grads(const float* semin, const float* weights,
+                                     const float* dmaps, const float* params,
+                                     const FrozenDesc* d, float* partial, float* grads,
+                                     long long P, int S, int grid, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int smem = (int)(((size_t)(2 * d->kpad + 2 * kSemBlk + 8) * kLd +
+                          kSemBlk * (2 * kMaxSem + 1) + 8 + kPts * (1 + kMaxSem)) *
+                         sizeof(float));
+  cudaError_t err = cudaFuncSetAttribute(frozen_sem_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long ntiles = (P + kPts - 1) / kPts;
+  const long long per_cta = (ntiles + grid - 1) / grid;
+  frozen_sem_kernel<<<dim3(grid, d->nblk), kThreads, smem, st>>>(semin, weights, dmaps, params,
+                                                                 *d, partial, P, S, per_cta);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = (int)((d->grad_size + 255) / 256 < 1024 ? (d->grad_size + 255) / 256 : 1024);
+  reduce_partials<<<blocks, 256, 0, st>>>(partial, grads, d->grad_size, grid);
+  return (int)cudaGetLastError();
+}
 
 // grid CTAs (each with a d->ws_size workspace slice and a d->grad_size partial
 // gradient buffer) take the chunks of rays in waves of grid: per wave the
@@ -596,11 +991,7 @@ extern "C" int nerf_rgb_train_grads(const float* odv, const float* z, const floa
                                     int grid, unsigned seed, float noise_std, int white_bkgd,
                                     void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
-  const int Ep = (d->f.emb_dim + 7) / 8 * 8, Edp = (d->f.demb_dim + 7) / 8 * 8;
-  const int fwd_smem =
-      (int)((((size_t)d->rays_per_chunk * S * (6 + d->f.sem_dim) + 3) / 4 * 4 +
-             (size_t)(Ep + Edp + 2 * d->f.hrows) * kLd) *
-            sizeof(float));
+  const int fwd_smem = forward_smem(d, S);
   const int stage_smem = (int)(kStagingFloats * sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(train_forward_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, fwd_smem);

@@ -6,9 +6,10 @@ reference's on-disk contract): ``meta.json`` with ``near``/``far``/``focal``/
 ``H``/``W``, ``rays_{split}[_x{subsample}].npy`` ``[N, H, W, 2, 3]``,
 ``rgbs_{split}*.npy`` ``[N, H, W, 3]`` and optional ``masks_{split}.npy``.
 Ported: ``get_view`` and, for the ``train`` split, the flat ray pool and
-``sample_batch`` (``--N_rand`` rays drawn with replacement). Not yet: the
-per-view sampler (``ViewDataset``, ``--no_batching``), the patch sampler
-(``PatchDataset``, ``--patch_tune``) and the raw-scene preparation
+``sample_batch`` (``--N_rand`` rays drawn with replacement); the patch
+sampler :class:`PatchDataset` (``--patch_tune``), with a numpy copy of the
+JAX package's ``gather_patches``. Not yet: the per-view sampler
+(``ViewDataset``, ``--no_batching``) and the raw-scene preparation
 (``gen_dataset``).
 """
 from __future__ import annotations
@@ -24,7 +25,7 @@ class RayDataset:
     """Per-image rays (and targets, masks) of one split."""
 
     def __init__(self, root_dir: str, split: str = "test", subsample: int = 0,
-                 use_masks: bool = True, bin_thres: float = 0.3):
+                 use_masks: bool = True, bin_thres: float = 0.3, ret_k: bool = False):
         meta_path = os.path.join(root_dir, "meta.json")
         if not os.path.exists(meta_path):
             raise FileNotFoundError(
@@ -54,7 +55,14 @@ class RayDataset:
             self.masks = np.zeros(self.rays.shape[:3] + (1,), np.float32)
         self.image_count, self.height, self.width = self.rays.shape[:3]
         self.split = split
-        if split == "train":
+        self.poses = np.zeros([self.image_count, 3, 4], np.float32)
+        pose_path = os.path.join(root_dir, f"poses_{split}.npy")
+        if ret_k:
+            if os.path.exists(pose_path):
+                self.poses = np.load(pose_path)
+            else:
+                print(f"[Warning!] poses_{split}.npy missing.")
+        if split == "train" and type(self) is RayDataset:
             self._flat_rays = np.asarray(self.rays).reshape(-1, 2, 3)
             self._flat_rgbs = np.asarray(self.rgbs).reshape(-1, self.rgbs.shape[-1])
             self._flat_masks = np.asarray(self.masks).reshape(-1, self.masks.shape[-1])
@@ -80,3 +88,66 @@ class RayDataset:
         if self.rgbs is not None:
             out["target"] = np.asarray(self.rgbs[i])
         return out
+
+
+def gather_patches(src: np.ndarray, img_idx: np.ndarray, h_idx: np.ndarray,
+                   w_idx: np.ndarray, patch: int, stride: int) -> np.ndarray:
+    """Strided ``patch x patch`` crops: ``src [N, H, W, ...]`` -> ``[B, P, P, ...]``
+    (``nerfsos_tpu/data/native.gather_patches``)."""
+    cs = patch * stride
+    out = np.empty((img_idx.shape[0], patch, patch) + src.shape[3:], src.dtype)
+    for b, (i, h, w) in enumerate(zip(img_idx, h_idx, w_idx)):
+        out[b] = src[i, h:h + cs:stride, w:w + cs:stride]
+    return out
+
+
+class PatchDataset(RayDataset):
+    """Random strided crops, the NeRF-SOS training set: a random
+    ``patch_size * patch_stride`` window per image, strided by
+    ``patch_stride``, so ``patch_size ** 2`` rays a patch. Images are taken
+    in a per-epoch shuffle without replacement."""
+
+    def __init__(self, root_dir: str, split: str = "train", patch_size: int = 64,
+                 patch_stride: int = 1, **kw):
+        super().__init__(root_dir, split=split, **kw)
+        self.patch_size = patch_size
+        self.patch_stride = patch_stride
+        self.crop_size = patch_size * patch_stride
+        if self.crop_size > min(self.height, self.width):
+            raise ValueError(f"crop {self.crop_size} exceeds image {self.height}x{self.width}")
+        self._rays = np.asarray(self.rays)
+        self._rgbs = np.asarray(self.rgbs)
+        self._masks = np.asarray(self.masks)
+        self._perm = np.empty(0, np.int64)
+
+    def __len__(self) -> int:
+        return self.image_count
+
+    def _next_image_indices(self, rng: np.random.Generator, n: int) -> np.ndarray:
+        parts = []
+        while n > 0:
+            if self._perm.size == 0:
+                self._perm = rng.permutation(self.image_count)
+            take = min(n, self._perm.size)
+            parts.append(self._perm[:take])
+            self._perm = self._perm[take:]
+            n -= take
+        return np.concatenate(parts)
+
+    def sample_batch(self, rng: np.random.Generator, batch_size: int) -> Dict[str, np.ndarray]:
+        """``rays [2, B P P, 3]``, ``target [B P P, 3]``, ``masks [B P P, 1]``,
+        ``poses [B, 3, 4]``, ``start_idx [B, 2]``."""
+        P, s = self.patch_size, self.patch_stride
+        img_idx = self._next_image_indices(rng, batch_size)
+        h_idx = rng.integers(0, self.height - self.crop_size + 1, size=batch_size)
+        w_idx = rng.integers(0, self.width - self.crop_size + 1, size=batch_size)
+        rays = gather_patches(self._rays, img_idx, h_idx, w_idx, P, s)
+        rgbs = gather_patches(self._rgbs, img_idx, h_idx, w_idx, P, s)
+        masks = gather_patches(self._masks, img_idx, h_idx, w_idx, P, s)
+        return {
+            "rays": np.ascontiguousarray(rays.reshape(batch_size * P * P, 2, 3).transpose(1, 0, 2)),
+            "target": rgbs.reshape(batch_size * P * P, -1),
+            "masks": masks.reshape(batch_size * P * P, -1),
+            "poses": self.poses[img_idx].astype(np.float32),
+            "start_idx": np.stack([h_idx, w_idx], -1).astype(np.float32),
+        }

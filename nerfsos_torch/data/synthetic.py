@@ -72,11 +72,17 @@ def render_analytic(rays: np.ndarray):
 
 def write_sphere_scene(root: str, height: int, width: int, n_views: int = 1,
                        split: str = "test") -> None:
-    """Write ``n_views`` views of the scene as ``split`` plus ``meta.json``.
+    """Write ``n_views`` views of the scene as ``split`` (rays, rgbs, masks
+    and the camera-to-world ``poses_{split}.npy [N, 3, 4]``) plus
+    ``meta.json``.
 
     Splits already in ``root`` are kept, so a ``train`` split can be written
-    beside a ``test`` one of the same size; the train cameras sit half a
-    step further round the circle than the test cameras."""
+    beside a ``test`` one, of the same size or another (the datasets take
+    each split's size from its arrays; ``meta.json``'s ``H``, ``W`` and
+    ``focal`` are the last split's): ``PatchDataset`` at the flagship
+    ``--patch_size 64 --patch_stride 6`` needs train views of at least 384
+    pixels a side. The train cameras sit half a step further round the
+    circle than the test cameras."""
     os.makedirs(root, exist_ok=True)
     focal = 1.25 * width
     angles = np.linspace(0.0, 360.0, n_views, endpoint=False)
@@ -89,5 +95,6 @@ def write_sphere_scene(root: str, height: int, width: int, n_views: int = 1,
     np.save(os.path.join(root, f"rays_{split}.npy"), rays)
     np.save(os.path.join(root, f"rgbs_{split}.npy"), np.stack(rgbs))
     np.save(os.path.join(root, f"masks_{split}.npy"), np.stack(masks))
+    np.save(os.path.join(root, f"poses_{split}.npy"), poses[:, :3, :4].astype(np.float32))
     with open(os.path.join(root, "meta.json"), "w") as f:
         json.dump({"H": height, "W": width, "focal": focal, "near": NEAR, "far": FAR}, f)

@@ -10,7 +10,10 @@ the Adam ``state_dict``.
 ``load_state_dict``. :func:`state_dict_from_jax_params` is the inverse of
 ``nerfsos_tpu.engines.checkpoint._convert_field``: it turns a flax param tree
 (numpy leaves, kernels ``[in, out]``) into a torch state dict
-(weights ``[out, in]``).
+(weights ``[out, in]``). :func:`vit_state_dict_from_jax_params` does the
+same for the DINO ViT (the inverse of ``nerfsos_tpu.models.vit.
+torch_vit_state_to_flax``), and :func:`synthetic_params_from_jax` carries the
+photometric stand-in's projection.
 """
 from __future__ import annotations
 
@@ -104,3 +107,37 @@ def state_dict_from_jax_params(params: Mapping[str, Any]) -> Dict[str, torch.Ten
     if "fine" in params:
         sd.update(_field_state(params["fine"], "nerf_fine"))
     return sd
+
+
+def _np32(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, np.float32, order="C"))
+
+
+def vit_state_dict_from_jax_params(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """flax ViT params -> a ``models.vit.VisionTransformer`` state dict (the
+    reference DINO names): Conv kernel ``[k, k, Cin, Cout]`` ->
+    ``[Cout, Cin, k, k]``, Dense kernels transposed, LayerNorm ``scale`` ->
+    ``weight``."""
+    sd = {"cls_token": _np32(params["cls_token"]), "pos_embed": _np32(params["pos_embed"]),
+          "patch_embed.proj.weight": _np32(np.asarray(params["patch_embed"]["kernel"])
+                                           .transpose(3, 2, 0, 1)),
+          "patch_embed.proj.bias": _np32(params["patch_embed"]["bias"]),
+          "norm.weight": _np32(params["norm"]["scale"]), "norm.bias": _np32(params["norm"]["bias"])}
+    i = 0
+    while f"blocks_{i}" in params:
+        blk, b = params[f"blocks_{i}"], f"blocks.{i}"
+        for n in ("norm1", "norm2"):
+            sd[f"{b}.{n}.weight"] = _np32(blk[n]["scale"])
+            sd[f"{b}.{n}.bias"] = _np32(blk[n]["bias"])
+        for torch_name, (grp, name) in (("attn.qkv", ("attn", "qkv")), ("attn.proj", ("attn", "proj")),
+                                        ("mlp.fc1", ("mlp", "fc1")), ("mlp.fc2", ("mlp", "fc2"))):
+            sd[f"{b}.{torch_name}.weight"] = _np32(np.asarray(blk[grp][name]["kernel"]).T)
+            sd[f"{b}.{torch_name}.bias"] = _np32(blk[grp][name]["bias"])
+        i += 1
+    return sd
+
+
+def synthetic_params_from_jax(params: Mapping[str, Any]) -> torch.Tensor:
+    """``SyntheticExtractor.params`` of the JAX package -> the port's
+    ``SyntheticExtractor(proj=...)`` projection ``[6, embed_dim]``."""
+    return _np32(params["proj"])

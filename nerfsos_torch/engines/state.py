@@ -8,7 +8,10 @@ Port of ``nerfsos_tpu/engines/state.py``:
   1e-8, as optax's ``adam``; the caller sets the LR before each update with
   :func:`set_lr`. Update ``k`` (0-based, counted in global steps, so from the
   resumed step on a resume) uses ``lr(k)``, as optax's ``scale_by_schedule``
-  does;
+  does. With ``fix_backbone`` (the frozen SOS finetune) Adam holds the
+  semantic head alone and every other parameter stops requiring gradients,
+  as the reference does (``run_nerf.py:307-318``), so the frozen leaves stay
+  bit-equal (optax's ``multi_transform`` with ``set_to_zero``);
 - :func:`fast_forward_lr`: the LR of a resume whose Adam moments start fresh
   (a partial model load, or optimizer state that does not fit): the moments
   and their bias correction start at zero and the LR follows ``global_step``
@@ -18,7 +21,7 @@ Port of ``nerfsos_tpu/engines/state.py``:
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterable
+from typing import Callable, Dict, Iterable, Union
 
 import torch
 import torch.nn as nn
@@ -34,7 +37,18 @@ def exp_decay_schedule(init_lr: float, decay_rate: float,
     return schedule
 
 
-def make_optimizer(params: Iterable[torch.Tensor], init_lr: float) -> torch.optim.Adam:
+def make_optimizer(params: Union[Iterable[torch.Tensor], nn.Module], init_lr: float,
+                   fix_backbone: bool = False) -> torch.optim.Adam:
+    """Adam over ``params`` (tensors, or a model's parameters); with
+    ``fix_backbone``, ``params`` is the model, and only its semantic head is
+    trained."""
+    if fix_backbone:
+        mask = semantic_head_mask(params)
+        for name, p in params.named_parameters():
+            p.requires_grad_(mask[name])
+        params = [p for name, p in params.named_parameters() if mask[name]]
+    elif isinstance(params, nn.Module):
+        params = params.parameters()
     return torch.optim.Adam(params, lr=init_lr, betas=(0.9, 0.999), eps=1e-8)
 
 

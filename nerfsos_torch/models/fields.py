@@ -6,7 +6,7 @@ one ``mlp`` child, so its state-dict keys are the reference's
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -49,14 +49,20 @@ class NeRFField(nn.Module):
     def forward(self, pts: torch.Tensor, viewdirs: Optional[torch.Tensor]) -> torch.Tensor:
         """``pts [..., S, 3]``, ``viewdirs [..., 3]`` (unit, broadcast over S)
         -> raw ``[..., S, 4 (+ sem_dim)]``."""
+        return self.forward_parts(pts, viewdirs)[0]
+
+    def forward_parts(self, pts: torch.Tensor, viewdirs: Optional[torch.Tensor]
+                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """(raw ``[..., S, C]``, the semantic head's input ``[N, sem_in]`` over
+        the flattened points, or None without the head)."""
         lead = pts.shape[:-1]
         emb = self.embed(pts).reshape(-1, self.mlp.pts_linears[0].in_features)
         demb = None
         if self.use_viewdirs:
             d = viewdirs[..., None, :].expand(pts.shape)
             demb = self.embed_views(d).reshape(emb.shape[0], -1)
-        out = self.mlp(emb, demb)
-        return out.reshape(*lead, out.shape[-1])
+        out, sem_in = self.mlp.forward_parts(emb, demb)
+        return out.reshape(*lead, out.shape[-1]), sem_in
 
     def sigma(self, pts: torch.Tensor) -> torch.Tensor:
         """Densities only ``[..., S]``: the trunk and the alpha head."""

@@ -14,7 +14,7 @@ state dict loads with ``load_state_dict``:
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -67,14 +67,21 @@ class NeRFMLP(nn.Module):
 
     def forward(self, pts_embed: torch.Tensor,
                 views_embed: Optional[torch.Tensor]) -> torch.Tensor:
+        return self.forward_parts(pts_embed, views_embed)[0]
+
+    def forward_parts(self, pts_embed: torch.Tensor, views_embed: Optional[torch.Tensor]
+                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """(raw, the semantic head's input ``sem_in = [h, pts_embed]`` or ``h``;
+        None without the head)."""
         h = self.trunk(pts_embed)
         if not self.use_viewdirs:
-            return self.output_linear(h)
+            return self.output_linear(h), None
         alpha = self.alpha_linear(h)
         feature = self.feature_linear(h)
         hv = F.relu(self.views_linears[0](torch.cat([feature, views_embed], dim=-1)))
         parts = [self.rgb_linear(hv), alpha]
+        sem_in = None
         if self.use_semantics:
             sem_in = torch.cat([h, pts_embed], dim=-1) if self.sem_with_coord else h
             parts.append(self.semantic_linear(sem_in))
-        return torch.cat(parts, dim=-1)
+        return torch.cat(parts, dim=-1), sem_in

@@ -11,6 +11,11 @@ reference's module names, so a reference state dict loads with
 - ``coarse_outputs=False`` (eval renders) runs the coarse pass density-only;
   with ``fused_field`` and a supported config it runs the two fused kernels
   (``ops/fused_render.py``: K1, importance sampling, K2, ``finish_maps``);
+- with the coarse outputs (train renders) and ``fused_field`` it runs the
+  differentiable train render twice (K4, importance sampling on the coarse
+  weights, K4), whose backward is K5 under ``frozen_backbone``; the sigma
+  noise of each pass comes from an integer seed (``noise_seeds``, the
+  step's pair from ``engines/trainer.step_randomness``);
 - ``forward`` chunks the rays by ``ray_block``. Rays are independent, so the
   ragged last chunk needs no padding (the JAX version pads to a fixed block
   shape for its compiled scan).
@@ -20,6 +25,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 
@@ -57,11 +63,24 @@ class NeRFConfig:
     sem_with_geo: bool = False
     ray_block: int = 4096  # rays per chunk of forward()
     compute_dtype: str = "float32"
-    fused_field: bool = False  # the fused eval kernels (ops/fused_render.py)
+    fused_field: bool = False  # the fused kernels (ops/fused_render.py)
+    # --fix_backbone: the fused train render's backward is the semantic-head
+    # sweep K5 (every other leaf gets no gradient)
+    frozen_backbone: bool = False
 
     @property
     def shared_fine(self) -> bool:
         return self.n_importance <= 0
+
+
+def _chunk_seeds(seeds: Tuple[int, int], chunk: int) -> Tuple[int, int]:
+    """The noise seeds of ray chunk ``chunk``: the given pair for the first,
+    a pair derived from it and the chunk's index for the others (the
+    kernels' noise is a hash of the point's index in its call)."""
+    if chunk == 0:
+        return seeds
+    words = np.random.SeedSequence([*seeds, chunk]).generate_state(2, np.uint64)
+    return int(words[0] % (2**31 - 1)), int(words[1] % (2**31 - 1))
 
 
 def _field(cfg: NeRFConfig, fine: bool) -> NeRFField:
@@ -95,7 +114,8 @@ class NeRFNet(nn.Module):
                     viewdirs: Optional[torch.Tensor], near: torch.Tensor, far: torch.Tensor, *,
                     perturb: float, raw_noise_std: float,
                     generator: Optional[torch.Generator] = None,
-                    coarse_outputs: bool = True) -> Dict[str, torch.Tensor]:
+                    coarse_outputs: bool = True,
+                    noise_seeds: Tuple[int, int] = (0, 0)) -> Dict[str, torch.Tensor]:
         """Render one chunk of rays (``[R, 3]`` each; near/far ``[R, 1]``)."""
         cfg = self.cfg
         n_importance = cfg.n_importance
@@ -103,6 +123,20 @@ class NeRFNet(nn.Module):
         z_vals = sampling.stratified_sample(near, far, cfg.n_samples, perturb=perturb,
                                             lindisp=cfg.lindisp, generator=generator)
         sigma_only = not coarse_outputs and n_importance > 0
+        if self.fused and coarse_outputs and n_importance > 0 and viewdirs is not None:
+            odv = torch.cat([rays_o, rays_d, viewdirs], dim=1).contiguous()
+            kw = dict(noise_std=raw_noise_std, frozen=cfg.frozen_backbone)
+            maps0, w0 = fr.fused_train_render(self.nerf, odv, z_vals.contiguous(),
+                                              seed=noise_seeds[0], **kw)
+            ret0 = fr.finish_maps(maps0, w0, cfg.use_semantics, cfg.white_bkgd)
+            z_all, z_samples = sampling.importance_sample(z_vals, w0.detach(), n_importance,
+                                                          det=det, generator=generator)
+            maps, w = fr.fused_train_render(self.fine_field, odv, z_all.contiguous(),
+                                            seed=noise_seeds[1], **kw)
+            ret = fr.finish_maps(maps, w, cfg.use_semantics, cfg.white_bkgd)
+            ret["z_std"] = torch.std(z_samples, dim=-1, correction=0)
+            ret.update({k + "0": v for k, v in ret0.items()})
+            return ret
         if self.fused and sigma_only and raw_noise_std == 0.0 and viewdirs is not None:
             od = torch.cat([rays_o, rays_d], dim=1)
             weights = fr.fused_coarse_weights(self.nerf, od, z_vals)
@@ -157,12 +191,14 @@ class NeRFNet(nn.Module):
         near, far = (torch.as_tensor(b, dtype=torch.float32, device=rays_o.device)
                      .expand(R).reshape(R, 1) for b in bounds)
 
+        seeds = overrides.pop("noise_seeds", (0, 0))
         chunks = []
         for i in range(0, R, cfg.ray_block):
             sl = slice(i, i + cfg.ray_block)
             chunks.append(self.render_rays(
                 rays_o[sl], rays_d[sl], None if viewdirs is None else viewdirs[sl],
                 near[sl], far[sl], perturb=perturb, raw_noise_std=raw_noise_std,
-                generator=generator, **overrides))
+                generator=generator, noise_seeds=_chunk_seeds(seeds, i // cfg.ray_block),
+                **overrides))
         out = {k: torch.cat([c[k] for c in chunks], dim=0) for k in chunks[0]}
         return {k: v.reshape(*lead_shape, *v.shape[1:]) for k, v in out.items()}

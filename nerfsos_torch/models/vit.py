@@ -1,0 +1,135 @@
+"""DINO Vision Transformer (ViT-S/16) with the last block's attention as an
+output (``nn.Module``).
+
+Port of ``nerfsos_tpu/models/vit.py``. The module names are the reference
+DINO ones (``patch_embed.proj``, ``cls_token``, ``pos_embed``,
+``blocks.{i}.norm1``, ``blocks.{i}.attn.qkv``, ``blocks.{i}.attn.proj``,
+``blocks.{i}.norm2``, ``blocks.{i}.mlp.fc1``, ``blocks.{i}.mlp.fc2``,
+``norm``), so a DINO ``.pth`` state dict loads with ``load_state_dict``.
+``forward`` returns the last block's residual-stream tokens (pre-final-norm,
+what the reference's block hook captures), the last block's post-softmax
+attention and the final normed tokens.
+
+Parity notes: qkv bias, LayerNorm eps 1e-6, exact (erf) GELU, attention
+written out with its softmax (the attention map is an output). The patch
+embedding's convolution has kernel = stride, so it is computed as one
+matrix product over the flattened patches (a float32 product, where cuDNN
+would take TF32 by default). Non-224 inputs interpolate the position
+embedding bicubically with ``F.interpolate``, the reference DINO's call;
+the JAX package's ``jax.image.resize`` (Keys a = -0.5, antialiased when it
+shrinks) gives other values there. The SOS path always feeds 224 x 224,
+where no interpolation happens.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+
+class Mlp(nn.Module):
+    def __init__(self, dim: int, hidden: int):
+        super().__init__()
+        self.fc1 = nn.Linear(dim, hidden)
+        self.fc2 = nn.Linear(hidden, dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc2(F.gelu(self.fc1(x)))
+
+
+class Attention(nn.Module):
+    def __init__(self, dim: int, num_heads: int):
+        super().__init__()
+        self.num_heads = num_heads
+        self.scale = (dim // num_heads) ** -0.5
+        self.qkv = nn.Linear(dim, dim * 3)
+        self.proj = nn.Linear(dim, dim)
+
+    def forward(self, x: torch.Tensor):
+        """``x [B, N, C]`` -> (out ``[B, N, C]``, attention ``[B, H, N, N]``)."""
+        B, N, C = x.shape
+        qkv = self.qkv(x).reshape(B, N, 3, self.num_heads, C // self.num_heads)
+        q, k, v = qkv.permute(2, 0, 3, 1, 4)
+        attn = torch.softmax((q @ k.transpose(-2, -1)) * self.scale, dim=-1)
+        out = (attn @ v).transpose(1, 2).reshape(B, N, C)
+        return self.proj(out), attn
+
+
+class Block(nn.Module):
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0):
+        super().__init__()
+        self.norm1 = nn.LayerNorm(dim, eps=1e-6)
+        self.attn = Attention(dim, num_heads)
+        self.norm2 = nn.LayerNorm(dim, eps=1e-6)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio))
+
+    def forward(self, x: torch.Tensor):
+        y, attn = self.attn(self.norm1(x))
+        x = x + y
+        return x + self.mlp(self.norm2(x)), attn
+
+
+class PatchEmbed(nn.Module):
+    def __init__(self, patch_size: int, embed_dim: int):
+        super().__init__()
+        self.patch_size = patch_size
+        self.proj = nn.Conv2d(3, embed_dim, kernel_size=patch_size, stride=patch_size)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """``x [B, H, W, 3]`` -> tokens ``[B, (H / p) (W / p), C]``, row-major
+        patches: the convolution as a product over (channel, y, x) patches."""
+        B, H, W, _ = x.shape
+        p = self.patch_size
+        patches = (x.reshape(B, H // p, p, W // p, p, 3).permute(0, 1, 3, 5, 2, 4)
+                   .reshape(B, (H // p) * (W // p), 3 * p * p))
+        return F.linear(patches, self.proj.weight.reshape(self.proj.out_channels, -1),
+                        self.proj.bias)
+
+
+class VisionTransformer(nn.Module):
+    """DINO ViT; input NHWC, already normalised by the caller."""
+
+    def __init__(self, patch_size: int = 16, embed_dim: int = 384, depth: int = 12,
+                 num_heads: int = 6, mlp_ratio: float = 4.0, pos_embed_size: int = 224):
+        super().__init__()
+        self.patch_size = patch_size
+        self.patch_embed = PatchEmbed(patch_size, embed_dim)
+        n_pos = (pos_embed_size // patch_size) ** 2 + 1
+        self.cls_token = nn.Parameter(torch.zeros(1, 1, embed_dim))
+        self.pos_embed = nn.Parameter(torch.zeros(1, n_pos, embed_dim))
+        self.blocks = nn.ModuleList([Block(embed_dim, num_heads, mlp_ratio)
+                                     for _ in range(depth)])
+        self.norm = nn.LayerNorm(embed_dim, eps=1e-6)
+        # the reference DINO initialisation (truncated normal 0.02, zero bias)
+        nn.init.trunc_normal_(self.pos_embed, std=0.02)
+        nn.init.trunc_normal_(self.cls_token, std=0.02)
+        for m in self.modules():
+            if isinstance(m, nn.Linear):
+                nn.init.trunc_normal_(m.weight, std=0.02)
+                nn.init.zeros_(m.bias)
+
+    def interpolate_pos_encoding(self, npatch: int, w: int, h: int) -> torch.Tensor:
+        N = self.pos_embed.shape[1] - 1
+        if npatch == N and w == h:
+            return self.pos_embed
+        dim = self.pos_embed.shape[-1]
+        side = int(math.sqrt(N))
+        patch_pos = self.pos_embed[:, 1:].reshape(1, side, side, dim).permute(0, 3, 1, 2)
+        patch_pos = F.interpolate(patch_pos, size=(w // self.patch_size, h // self.patch_size),
+                                  mode="bicubic", align_corners=False)
+        return torch.cat([self.pos_embed[:, :1],
+                          patch_pos.permute(0, 2, 3, 1).reshape(1, -1, dim)], dim=1)
+
+    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """``x [B, H, W, 3]`` -> dict(tokens, attn_last, normed)."""
+        B, H, W, _ = x.shape
+        x = self.patch_embed(x)
+        x = torch.cat([self.cls_token.expand(B, -1, -1), x], dim=1)
+        x = x + self.interpolate_pos_encoding(x.shape[1] - 1, H, W)
+        attn = None
+        for blk in self.blocks:
+            x, attn = blk(x)
+        return {"tokens": x, "attn_last": attn, "normed": self.norm(x)}

@@ -15,18 +15,29 @@ train kernel:
   ``gt [R, 3]`` -> the unscaled gradients of ``sum((rgb_map - gt)^2)`` for
   every parameter of the field, the maps and the weights, with the sigma
   noise of :func:`noise_plain`;
+- :func:`train_render` (K4, replaces ``_train_render_fwd_impl`` and its
+  ``_train_render_kernel``): the train forward, maps and weights with the
+  sigma noise of :func:`noise_plain`, and on request the semantic head's
+  input ``sem_in`` per point (the JAX ``stream_semin`` residual);
+- :func:`frozen_sem_grads` (K5, replaces ``_train_render_frozen_bwd_impl``
+  and its ``_train_frozen_bwd_kernel``): the ``--fix_backbone`` backward,
+  dW/db of the semantic head alone from ``sem_in``, the weights and the
+  maps' cotangent;
+- :func:`fused_train_render`: K4 and K5 as a ``torch.autograd.Function``
+  (replaces ``fused_train_render_planar`` and its custom VJP);
 - :func:`finish_maps`: vacancy depth, disp and white background on the maps.
 
 Each wrapper takes its plain PyTorch version (:func:`coarse_weights_plain`,
-:func:`render_plain`, :func:`rgb_train_grads_plain`, same signature) for
-tensors on the CPU, and for CUDA tensors launches the hand-written kernel in
-``csrc/fused_render.cu`` or ``csrc/train_render.cu`` or raises; it never
-falls back. ``<wrapper>.launches`` counts kernel launches.
+:func:`render_plain`, :func:`rgb_train_grads_plain`,
+:func:`train_render_plain`, :func:`frozen_sem_grads_plain`, same signature)
+for tensors on the CPU, and for CUDA tensors launches the hand-written
+kernel in ``csrc/fused_render.cu`` or ``csrc/train_render.cu`` or raises; it
+never falls back. ``<wrapper>.launches`` counts kernel launches.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -159,6 +170,57 @@ def rgb_train_grads_plain(field: nn.Module, odv: torch.Tensor, z: torch.Tensor,
         grads = torch.autograd.grad(loss, params, allow_unused=True)
     out = {n: torch.zeros_like(p) if g is None else g for n, p, g in zip(names, params, grads)}
     return out, maps.detach(), w.detach()
+
+
+_PLAIN_CHUNK_POINTS = 1 << 20  # points per chunk of the plain versions below
+
+
+def train_render_plain(field: nn.Module, odv: torch.Tensor, z: torch.Tensor, *,
+                       noise_std: float, seed: int, save_semin: bool
+                       ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """Plain version of K4: ``odv [R, 9]``, ``z [R, S]`` -> (maps ``[R, 5 + sem]``,
+    weights ``[R, S]``, and with ``save_semin`` the semantic head's input
+    ``sem_in [R * S, C]`` (point ``ray * S + sample``), else None), with
+    :func:`noise_plain` added to sigma before its relu. Runs in chunks of
+    rays so that the flagship batch fits on the card."""
+    R, S = z.shape
+    noise = noise_plain(seed, R, S, noise_std, z.device) if noise_std > 0.0 else None
+    maps, weights, sem_in = [], [], []
+    step = max(1, _PLAIN_CHUNK_POINTS // max(S, 1))
+    with torch.no_grad():
+        for r0 in range(0, max(R, 1), step):  # one (empty) chunk when R == 0
+            o, zc = odv[r0:r0 + step], z[r0:r0 + step]
+            raw, si = field.forward_parts(points_along_rays(o[:, 0:3], o[:, 3:6], zc), o[:, 6:9])
+            sigma = raw[..., 3] if noise is None else raw[..., 3] + noise[r0:r0 + step]
+            m, w = _maps(raw, sigma, zc, o[:, 3:6])
+            maps.append(m)
+            weights.append(w)
+            if save_semin:
+                sem_in.append(si)
+    return torch.cat(maps), torch.cat(weights), torch.cat(sem_in) if save_semin else None
+
+
+_SEM_NAMES = ("mlp.semantic_linear.0.weight", "mlp.semantic_linear.0.bias",
+              "mlp.semantic_linear.2.weight", "mlp.semantic_linear.2.bias")
+
+
+def frozen_sem_grads_plain(field: nn.Module, sem_in: torch.Tensor, weights: torch.Tensor,
+                           dmaps: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Plain version of K5: the gradients of ``sum(dmaps[:, 5:] * sem_map)``
+    with respect to the semantic head's four leaves alone, where
+    ``sem_map = sum_s w[r, s] * semantic_linear(sem_in[r * S + s])`` and the
+    weights ``w`` are held constant. Keyed by ``_SEM_NAMES`` (the field's
+    parameter names)."""
+    R, S = weights.shape
+    lin0, lin2 = field.mlp.semantic_linear[0], field.mlp.semantic_linear[2]
+    leaves = [t.detach().requires_grad_() for t in (lin0.weight, lin0.bias, lin2.weight,
+                                                    lin2.bias)]
+    with torch.enable_grad():
+        s_act = F.relu(F.linear(sem_in, leaves[0], leaves[1]))
+        sem = F.linear(s_act, leaves[2], leaves[3])
+        sem_map = (weights.reshape(-1, 1) * sem).reshape(R, S, -1).sum(1)
+        grads = torch.autograd.grad(torch.sum(dmaps[:, 5:] * sem_map), leaves)
+    return dict(zip(_SEM_NAMES, grads))
 
 
 def finish_maps(maps: torch.Tensor, weights: torch.Tensor, use_semantics: bool,
@@ -377,6 +439,67 @@ def unpack_grads(field: nn.Module, flat: torch.Tensor) -> Dict[str, torch.Tensor
     return out
 
 
+# K5's sem_0 column blocks (csrc/train_render.cu kSemBlk, kMaxSemBlocks, kMaxSemRows)
+_SEM_BLOCK, _MAX_SEM_BLOCKS, _MAX_SEM_ROWS = 64, 4, 384
+
+
+def pack_frozen(field: nn.Module) -> Tuple[torch.Tensor, _build.FrozenDesc]:
+    """K5's weights and descriptor. sem_0's ``W^T`` with the rows of each
+    input segment padded to a multiple of 8 (``pack_field``'s layout), cut
+    into column blocks of 64 outputs, each packed as a layer (matrix, TF32
+    high and low parts, bias) for ``dense``; then sem_1's weight as it is
+    (``[sem_dim, hidden]``). The gradient buffer holds dW0 as ``W0^T``
+    ``[kpad, hidden]``, db0, dW1 as ``W1^T`` ``[hidden, sem_dim]`` and db1."""
+    lin0, lin2 = field.mlp.semantic_linear[0], field.mlp.semantic_linear[2]
+    segs = _field_layers(field)[-2][1]
+    hidden, sem = lin0.out_features, lin2.out_features
+    kpad = sum(_pad8(k) for k in segs)
+    wt = lin0.weight.detach().t()
+    w = wt.new_zeros((kpad, hidden))
+    r = rp = 0
+    for k in segs:
+        w[rp:rp + k] = wt[r:r + k]
+        r, rp = r + k, rp + _pad8(k)
+    d = _build.FrozenDesc()
+    parts, off = [], 0
+    d.nblk = -(-hidden // _SEM_BLOCK)
+    for c in range(d.nblk):
+        n = min(_SEM_BLOCK, hidden - c * _SEM_BLOCK)
+        blk = w.new_zeros((kpad, _pad8(n)))
+        blk[:, :n] = w[:, c * _SEM_BLOCK:c * _SEM_BLOCK + n]
+        b = blk.new_zeros(_pad8(n))
+        b[:n] = lin0.bias.detach()[c * _SEM_BLOCK:c * _SEM_BLOCK + n]
+        hi = _tf32(blk)
+        d.blk[c] = _build.MLPLayer(off, off + 3 * blk.numel(), kpad, n)
+        parts += [blk.reshape(-1), hi.reshape(-1), _tf32(blk - hi).reshape(-1), b]
+        off += 3 * blk.numel() + b.numel()
+    d.w1 = off
+    parts.append(lin2.weight.detach().reshape(-1))
+    for i, k in enumerate(segs):
+        d.seg[i] = k
+    d.kpad, d.hidden, d.sem_dim, d.n_maps = kpad, hidden, sem, 5 + sem
+    d.gw0, d.gb0 = 0, kpad * hidden
+    d.gw1 = d.gb0 + hidden
+    d.gb1 = d.gw1 + hidden * sem
+    d.grad_size = d.gb1 + sem
+    return torch.cat(parts).to(torch.float32).contiguous(), d
+
+
+def unpack_frozen(field: nn.Module, flat: torch.Tensor, d: _build.FrozenDesc
+                  ) -> Dict[str, torch.Tensor]:
+    """K5's gradient buffer -> the semantic head's grads keyed by ``_SEM_NAMES``."""
+    segs = _field_layers(field)[-2][1]
+    dw0 = flat[d.gw0:d.gb0].view(d.kpad, d.hidden)
+    rows, r = [], 0
+    for k in segs:
+        rows.append(dw0[r:r + k])
+        r += _pad8(k)
+    grads = (torch.cat(rows).t().contiguous(), flat[d.gb0:d.gw1].clone(),
+             flat[d.gw1:d.gb1].view(d.hidden, d.sem_dim).t().contiguous(),
+             flat[d.gb1:d.grad_size].clone())
+    return dict(zip(_SEM_NAMES, grads))
+
+
 # ----------------------------------------------------------------- wrappers
 
 
@@ -401,9 +524,6 @@ def _rays_per_cta(S: int) -> int:
     return max(1, 64 // S)
 
 
-def _stream(device: torch.device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
-
 
 def fused_coarse_weights(field: nn.Module, od: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
     """K1: coarse eval pass, ``od [R, 6]``, ``z [R, S]`` -> weights ``[R, S]``."""
@@ -420,7 +540,7 @@ def fused_coarse_weights(field: nn.Module, od: torch.Tensor, z: torch.Tensor) ->
     with torch.cuda.device(od.device):
         code = _build.library().nerf_coarse_weights(
             od.data_ptr(), z.data_ptr(), buf.data_ptr(), ctypes.byref(desc),
-            weights.data_ptr(), R, S, _rays_per_cta(S), _stream(od.device))
+            weights.data_ptr(), R, S, _rays_per_cta(S), _build.stream(od.device))
     _build.check(code, "fused_coarse_weights")
     fused_coarse_weights.launches += 1
     return weights
@@ -443,7 +563,7 @@ def fused_render(field: nn.Module, odv: torch.Tensor,
     with torch.cuda.device(odv.device):
         code = _build.library().nerf_render(
             odv.data_ptr(), z.data_ptr(), buf.data_ptr(), ctypes.byref(desc),
-            maps.data_ptr(), weights.data_ptr(), R, S, _rays_per_cta(S), _stream(odv.device))
+            maps.data_ptr(), weights.data_ptr(), R, S, _rays_per_cta(S), _build.stream(odv.device))
     _build.check(code, "fused_render")
     fused_render.launches += 1
     return maps, weights
@@ -472,8 +592,7 @@ def fused_rgb_train_grads(field: nn.Module, odv: torch.Tensor, z: torch.Tensor, 
     buf, fdesc = _packed(field, odv.device)
     bbuf, bwd = _cached(field, odv.device, "_fused_train_pack", pack_train_bwd)
     desc = train_desc(field, fdesc, bwd, S)
-    smem = (-(-desc.rays_per_chunk * S * (6 + fdesc.sem_dim) // 4) * 4
-            + (_pad8(fdesc.emb_dim) + _pad8(fdesc.demb_dim) + 2 * fdesc.hrows) * _KLD) * 4
+    smem = _forward_smem(fdesc, desc.rays_per_chunk, S)
     if smem > _MAX_SMEM:
         raise NotImplementedError(f"S={S}: the forward's composite strip and tiles need {smem} B "
                                   "of shared memory")
@@ -490,12 +609,145 @@ def fused_rgb_train_grads(field: nn.Module, odv: torch.Tensor, z: torch.Tensor, 
                 odv.data_ptr(), z.data_ptr(), gt.data_ptr(), buf.data_ptr(), bbuf.data_ptr(),
                 ctypes.byref(desc), maps.data_ptr(), weights.data_ptr(), partial.data_ptr(),
                 work.data_ptr(), flat.data_ptr(), R, S, grid, noise_seed(seed),
-                float(noise_std), int(white_bkgd), _stream(odv.device))
+                float(noise_std), int(white_bkgd), _build.stream(odv.device))
         _build.check(code, "fused_rgb_train_grads")
         fused_rgb_train_grads.launches += 1
     return unpack_grads(field, flat), maps, weights
 
 
+def _forward_smem(fdesc: _build.MLPDesc, rays_per_chunk: int, S: int) -> int:
+    """Shared memory of K3's forward and of K4: the composite strip of a
+    chunk and the emb, demb and two layer tiles."""
+    return (-(-rays_per_chunk * S * (6 + fdesc.sem_dim) // 4) * 4
+            + (_pad8(fdesc.emb_dim) + _pad8(fdesc.demb_dim) + 2 * fdesc.hrows) * _KLD) * 4
+
+
+def train_render(field: nn.Module, odv: torch.Tensor, z: torch.Tensor, *, noise_std: float,
+                 seed: int, save_semin: bool
+                 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """K4: the train forward, ``odv [R, 9]``, ``z [R, S]`` -> (maps, weights,
+    ``sem_in [R * S, C]`` or None); see :func:`train_render_plain`. One
+    launch: a CTA a chunk of K3's ``rays_per_chunk`` rays."""
+    if odv.device.type == "cpu":
+        return train_render_plain(field, odv, z, noise_std=noise_std, seed=seed,
+                                  save_semin=save_semin)
+    if odv.device.type != "cuda":
+        raise NotImplementedError(f"no kernel for device {odv.device}")
+    _check_inputs(field, odv, 9, z)
+    if save_semin and not field.mlp.use_semantics:
+        raise ValueError("save_semin needs the semantic head")
+    R, S = z.shape
+    buf, fdesc = _packed(field, odv.device)
+    desc = _build.TrainDesc()
+    desc.f = fdesc
+    desc.rays_per_chunk = _rays_per_chunk(S)
+    if _forward_smem(fdesc, desc.rays_per_chunk, S) > _MAX_SMEM:
+        raise NotImplementedError(f"S={S}: the composite strip and tiles do not fit in shared "
+                                  "memory")
+    maps = torch.empty((R, 5 + fdesc.sem_dim), device=odv.device, dtype=torch.float32)
+    weights = torch.empty((R, S), device=odv.device, dtype=torch.float32)
+    sem_in = (torch.empty((R * S, field.mlp.semantic_linear[0].in_features), device=odv.device,
+                          dtype=torch.float32) if save_semin else None)
+    if R > 0:
+        with torch.cuda.device(odv.device):
+            code = _build.library().nerf_train_render(
+                odv.data_ptr(), z.data_ptr(), buf.data_ptr(), ctypes.byref(desc),
+                maps.data_ptr(), weights.data_ptr(), None if sem_in is None else sem_in.data_ptr(),
+                R, S, noise_seed(seed), float(noise_std), _build.stream(odv.device))
+        _build.check(code, "train_render")
+        train_render.launches += 1
+    return maps, weights, sem_in
+
+
+def frozen_sem_grads(field: nn.Module, sem_in: torch.Tensor, weights: torch.Tensor,
+                     dmaps: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """K5: the semantic head's gradients from the stored ``sem_in [R * S, C]``,
+    the forward's ``weights [R, S]`` and the maps' cotangent ``dmaps
+    [R, 5 + sem]``; see :func:`frozen_sem_grads_plain`. One call launches the
+    kernel (a grid of CTAs, each over a run of 64-point tiles and one block
+    of 64 sem_0 outputs, with its partial gradients) and the reduction of the
+    partials in CTA order, and adds one to ``launches``."""
+    if sem_in.device.type == "cpu":
+        return frozen_sem_grads_plain(field, sem_in, weights, dmaps)
+    if sem_in.device.type != "cuda":
+        raise NotImplementedError(f"no kernel for device {sem_in.device}")
+    R, S = weights.shape
+    C = field.mlp.semantic_linear[0].in_features
+    for name, t, shape in (("sem_in", sem_in, (R * S, C)), ("weights", weights, (R, S)),
+                           ("dmaps", dmaps, (R, 5 + field.mlp.semantic_linear[2].out_features))):
+        if t.device != sem_in.device or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous float32 on {sem_in.device}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"expected {name} {shape}, got {tuple(t.shape)}")
+    buf, d = _cached(field, sem_in.device, "_frozen_pack", pack_frozen)
+    smem = 4 * ((2 * d.kpad + 2 * _SEM_BLOCK + 8) * _KLD + _SEM_BLOCK * (2 * _MAX_SEM + 1) + 8
+                + _TILE * (1 + _MAX_SEM))
+    if (d.kpad > _MAX_SEM_ROWS or d.nblk > _MAX_SEM_BLOCKS or d.sem_dim > _MAX_SEM
+            or smem > _MAX_SMEM):
+        raise NotImplementedError(f"semantic head {C} -> {d.hidden} -> {d.sem_dim} is outside K5")
+    flat = torch.zeros(d.grad_size, device=sem_in.device, dtype=torch.float32)
+    P = R * S
+    if P > 0:
+        sms = torch.cuda.get_device_properties(sem_in.device).multi_processor_count
+        grid = max(1, min(-(-P // _TILE), sms // d.nblk))
+        partial = torch.empty(grid * d.grad_size, device=sem_in.device, dtype=torch.float32)
+        with torch.cuda.device(sem_in.device):
+            code = _build.library().nerf_frozen_sem_grads(
+                sem_in.data_ptr(), weights.data_ptr(), dmaps.data_ptr(), buf.data_ptr(),
+                ctypes.byref(d), partial.data_ptr(), flat.data_ptr(), P, S, grid,
+                _build.stream(sem_in.device))
+        _build.check(code, "frozen_sem_grads")
+        frozen_sem_grads.launches += 1
+    return unpack_frozen(field, flat, d)
+
+
+class _TrainRender(torch.autograd.Function):
+    """K4 forward; K5 backward with ``frozen``: only the semantic head's leaves
+    get gradients (every other leaf None; rays and z get no cotangent; the
+    weights' cotangent is dropped, as nothing but the semantic columns of the
+    maps depends on the head)."""
+
+    @staticmethod
+    def forward(ctx, field, odv, z, noise_std, seed, frozen, save, *params):
+        maps, w, sem_in = train_render(field, odv, z, noise_std=noise_std, seed=seed,
+                                       save_semin=save)
+        ctx.field, ctx.frozen, ctx.save = field, frozen, save
+        if save:
+            ctx.save_for_backward(sem_in, w)
+        return maps, w
+
+    @staticmethod
+    def backward(ctx, dmaps, dweights):
+        if not ctx.frozen:
+            raise NotImplementedError(
+                "the train render's full backward (without --fix_backbone) is K6, "
+                "_train_render_bwd_kernel with map cotangents: not yet ported")
+        names = [n for n, _ in ctx.field.named_parameters()]
+        grads = {}
+        if ctx.save and dmaps is not None:
+            sem_in, w = ctx.saved_tensors
+            grads = frozen_sem_grads(ctx.field, sem_in, w, dmaps.contiguous())
+        return (None,) * 7 + tuple(grads.get(n) for n in names)
+
+
+def fused_train_render(field: nn.Module, odv: torch.Tensor, z: torch.Tensor, *,
+                       noise_std: float, seed: int, frozen: bool
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The differentiable train render of one pass (replaces
+    ``fused_train_render_planar``): ``odv [R, 9]``, ``z [R, S]`` -> (maps
+    ``[R, 5 + sem]``, weights ``[R, S]``) through K4. With ``frozen`` (the
+    ``--fix_backbone`` finetune) its backward is K5; ``sem_in`` is stored
+    only when a gradient can be asked for. Without ``frozen`` the backward is
+    K6, which is not ported and raises."""
+    params = list(field.parameters())
+    save = (frozen and field.mlp.use_semantics and torch.is_grad_enabled()
+            and any(p.requires_grad for p in params))
+    return _TrainRender.apply(field, odv, z, float(noise_std), int(seed), bool(frozen), save,
+                              *params)
+
+
 fused_coarse_weights.launches = 0
 fused_render.launches = 0
 fused_rgb_train_grads.launches = 0
+train_render.launches = 0
+frozen_sem_grads.launches = 0

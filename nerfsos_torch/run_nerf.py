@@ -12,17 +12,30 @@ defaults) and the same run-directory layout. Implemented:
   ``last.ckpt`` and a final eval into ``eval/``. It resumes from the newest
   checkpoint of the run (``--no_reload`` starts afresh);
 - ``--eval``: render the test split, write metrics and images to
-  ``<basedir>/<expname>/eval``.
+  ``<basedir>/<expname>/eval``;
+- ``--patch_tune --fix_backbone`` with the SOS losses (``--use_dino`` and
+  ``--use_correlation``/``--use_geoCorr``, negatives from
+  ``--use_sim_matrix``): the frozen-backbone NeRF-SOS finetune on
+  ``PatchDataset`` batches (``engines/sos.py``), with DINO ViT-S/16 from
+  ``--dino_ckpt`` (seeded weights and a warning when the file is missing)
+  or the photometric stand-in (``--dino_synthetic``), the train-time ARI at
+  ``--i_print``, checkpoints, test-set evals and a final eval as above.
 
-``--patch_tune``, ``--no_batching``, ``--eval_video``, ``--eval_vol`` and
-``--mipnerf`` stop with "not yet ported". Each step draws its batch and its
-noise from ``(--seed, step)`` alone, so a resumed run trains as an
-uninterrupted one would (the JAX entry point restarts its batch stream).
+``--no_batching``, ``--eval_video``, ``--eval_vol``, ``--mipnerf``, and
+``--patch_tune`` without ``--fix_backbone`` (the full backward K6), without
+the SOS losses, or with random negatives (``--rand_neg`` or no
+``--use_sim_matrix``: the single-head geometry kernels K7b/K7c) stop with
+"not yet ported". Each RGB step draws its batch and its noise from
+``(--seed, step)`` alone, so a resumed run trains as an uninterrupted one
+would (the JAX entry point restarts its batch stream); a patch step draws
+from ``(--seed, step)`` too, and its images from the dataset's per-epoch
+shuffle, which a resume starts afresh.
 
 ``main(args, device=None)`` runs on ``cuda:{--gpuid}`` and raises when no
 card is visible; the CPU only when the caller passes ``device="cpu"`` (the
-tests). The fused kernels (``ops/fused_render.py``: K3 for the train step,
-K1/K2 for the eval render) run unless ``--no_fused_field`` is given or the
+tests). The fused kernels (``ops/fused_render.py``: K3 for the RGB step,
+K4/K5 for the SOS step, K1/K2 for the eval render; ``ops/flash_corr.py``:
+K7 for the geometry loss) run unless ``--no_fused_field`` is given or the
 configuration is outside ``supports_fused``; on the CPU the same code path
 runs their plain versions.
 """
@@ -135,9 +148,9 @@ def create_arg_parser() -> ConfigArgumentParser:
     parser.add_argument("--bin_thres", type=float, default=0.3)
     parser.add_argument("--use_dino", action="store_true", default=False)
     parser.add_argument("--dino_ckpt", type=str, default="",
-                        help="local path to DINO ViT-S/16 torch weights (not read yet)")
+                        help="local path to DINO ViT-S/16 torch weights")
     parser.add_argument("--dino_synthetic", action="store_true", default=False,
-                        help="photometric oracle extractor (not ported yet)")
+                        help="photometric stand-in for DINO (no weights needed)")
     parser.add_argument("--lpips_path", type=str, default="",
                         help="LPIPS linear-head weights (not ported yet: lpips is null)")
     parser.add_argument("--lpips_backbone_path", type=str, default="",
@@ -191,6 +204,7 @@ def build_model(args, device: torch.device):
         use_semantics=args.use_semantics, sem_layer=args.sem_layer, sem_dim=args.sem_dim,
         sem_with_coord=args.sem_with_coord, sem_with_geo=args.sem_with_geo,
         ray_block=args.ray_chunk, compute_dtype=args.compute_dtype,
+        frozen_backbone=args.fix_backbone,
     )
     cfg = dataclasses.replace(cfg, fused_field=not args.no_fused_field and supports_fused(cfg))
     with torch.random.fork_rng(devices=[]):  # seeded init, global RNG left as it was
@@ -214,18 +228,61 @@ def _resolve_device(args, device) -> torch.device:
     return device
 
 
+def build_dino(args, device: torch.device):
+    """The frozen DINO extractor (JAX ``run_nerf.build_dino``): ViT-S/16 with
+    the ``--dino_ckpt`` weights, seeded weights and a warning when the file
+    is missing, or the photometric stand-in with ``--dino_synthetic``."""
+    from nerfsos_torch.models.extractor import SyntheticExtractor, VitExtractor
+
+    if args.dino_synthetic:
+        print("> Photometric oracle extractor (--dino_synthetic): informative "
+              "features without pretrained weights — quality gates only.")
+        return SyntheticExtractor().to(device)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(42)
+        dino = VitExtractor("dino_vits16")
+    if args.dino_ckpt and os.path.exists(args.dino_ckpt):
+        dino.load_torch_checkpoint(args.dino_ckpt)
+        print(f"> Loaded DINO weights from {args.dino_ckpt}")
+    else:
+        print("[Warning!] No --dino_ckpt provided; DINO is randomly initialized "
+              "(correlation-loss features will be meaningless; fine for smoke runs).")
+    return dino.to(device)
+
+
+def _check_patch_tune(args) -> None:
+    """The ``--patch_tune`` modes the port runs (JAX ``run_nerf.py:326-329``
+    for the SOS-mode check)."""
+    sos_losses = args.use_correlation or args.use_geoCorr
+    if not args.use_dino and sos_losses:
+        raise SystemExit("--use_correlation/--use_geoCorr require --use_dino "
+                         "(the reference crashes here implicitly; we validate up front)")
+    if not args.fix_backbone:
+        raise SystemExit("--patch_tune without --fix_backbone: not yet ported to nerfsos_torch "
+                         "(the full train-render backward K6, _train_render_bwd_kernel with map "
+                         "cotangents)")
+    if not (args.use_dino and sos_losses):
+        raise SystemExit("--patch_tune without the SOS losses: not yet ported to nerfsos_torch")
+    if args.rand_neg or not args.use_sim_matrix:
+        raise SystemExit("--patch_tune with random negatives (--rand_neg or no --use_sim_matrix): "
+                         "not yet ported to nerfsos_torch (the single-head geometry kernels "
+                         "K7b/K7c)")
+
+
 def main(args, device=None) -> None:
-    from nerfsos_torch.data.datasets import RayDataset
+    from nerfsos_torch.data.datasets import PatchDataset, RayDataset
     from nerfsos_torch.engines import checkpoint as ckpt_lib
     from nerfsos_torch.engines import eval as eval_lib
     from nerfsos_torch.engines import state as state_lib
     from nerfsos_torch.engines.trainer import make_rgb_train_step
     from nerfsos_torch.utils.summary import SummaryWriter
 
-    for flag in ("mipnerf", "eval_video", "eval_vol") + (() if args.eval else
-                                                         ("patch_tune", "no_batching")):
+    for flag in ("mipnerf", "eval_video", "eval_vol") + (() if args.eval else ("no_batching",)):
         if getattr(args, flag):
             raise SystemExit(f"--{flag}: not yet ported to nerfsos_torch")
+    sos_mode = args.patch_tune and not args.eval
+    if sos_mode:
+        _check_patch_tune(args)
     if args.no_semantics:
         args.use_semantics = False
     device = _resolve_device(args, device)
@@ -248,9 +305,11 @@ def main(args, device=None) -> None:
     net, cfg = build_model(args, device)
     schedule = state_lib.exp_decay_schedule(args.lrate, args.decay_rate, args.decay_step * 1000)
     # no optimizer for --eval: the first one built imports torch._dynamo (seconds)
-    optimizer = None if args.eval else state_lib.make_optimizer(net.parameters(), args.lrate)
+    optimizer = None if args.eval else state_lib.make_optimizer(
+        net, args.lrate, fix_backbone=args.fix_backbone)
     print("Num of Params:", sum(p.numel() for p in net.parameters()))
     print(f"> Fused kernels: {net.fused}")
+    dino = build_dino(args, device) if sos_mode else None
 
     global_step = 0
     ckpt_path = args.ckpt_path
@@ -298,11 +357,32 @@ def main(args, device=None) -> None:
         do_evaluate(os.path.join(run_dir, "eval"))
         return
 
-    train_set = RayDataset(args.data_path, split="train", subsample=args.subsample,
-                           bin_thres=args.bin_thres)
     near, far = test_set.near_far()
-    step_fn = make_rgb_train_step(net, optimizer, schedule, near, far, rgb_w=args.rgb_w,
-                                  seed=args.seed)
+    if sos_mode:
+        from nerfsos_torch.engines.sos import SOSConfig, make_sos_train_step, online_seg_metrics
+        from nerfsos_torch.losses.correlation import CorrelationLoss, GeoCorrelationLoss
+
+        train_set = PatchDataset(args.data_path, split="train", subsample=args.subsample,
+                                 patch_size=args.patch_size, patch_stride=args.patch_stride,
+                                 bin_thres=args.bin_thres, ret_k=args.use_geoCorr)
+        sos_cfg = SOSConfig(
+            batch_size=args.batch_size, patch_size=args.patch_size,
+            patch_stride=args.patch_stride, rgb_w=args.rgb_w,
+            correlation_w=args.correlation_w, Gcorrelation_w=args.Gcorrelation_w,
+            contrast_w=args.contrast_w, use_dino=args.use_dino,
+            use_correlation=args.use_correlation, use_geoCorr=args.use_geoCorr,
+            use_contrast=args.use_contrast, fix_backbone=args.fix_backbone)
+        app_loss = CorrelationLoss.from_params(args.app_corr_params,
+                                               use_sim_matrix=args.use_sim_matrix)
+        geo_loss = GeoCorrelationLoss.from_params(args.geo_corr_params,
+                                                  use_sim_matrix=args.use_sim_matrix)
+        step_fn = make_sos_train_step(net, dino, app_loss, geo_loss, sos_cfg, optimizer,
+                                      schedule, near, far, seed=args.seed)
+    else:
+        train_set = RayDataset(args.data_path, split="train", subsample=args.subsample,
+                               bin_thres=args.bin_thres)
+        step_fn = make_rgb_train_step(net, optimizer, schedule, near, far, rgb_w=args.rgb_w,
+                                      seed=args.seed)
     writer = SummaryWriter(log_dir)
 
     def save(name):
@@ -313,18 +393,38 @@ def main(args, device=None) -> None:
     while global_step < args.max_steps:
         batch = train_set.sample_batch(np.random.default_rng([args.seed, global_step]),
                                        args.batch_size)
-        metrics = step_fn({k: torch.as_tensor(batch[k], device=device)
-                           for k in ("rays", "target")}, global_step)
+        device_batch = {k: torch.as_tensor(batch[k], device=device) for k in ("rays", "target")}
+        metrics = step_fn(device_batch, global_step)
         global_step += 1
 
         if global_step % args.i_print == 0 or global_step == 1:
             m = {k: float(v) for k, v in metrics.items()}
             avg_time = (time.time() - time0) / args.i_print
+            rays_per_step = device_batch["target"].shape[0]
             print(f"[Logging info]: expname: {args.expname}")
-            print(f"[TRAIN] Iter: {global_step}/{args.max_steps} Loss: {m['loss']:.4f} "
-                  f"L_img0:{m.get('img0', 0):.4f} L_img1:{m['img1']:.4f} "
-                  f"PSNR: {m['psnr']:.4f} Average Time: {avg_time:.4f} "
-                  f"({args.batch_size / max(avg_time, 1e-9):.0f} rays/s)")
+            if sos_mode:
+                # the semantics again, noise-free, for the online ARI (JAX
+                # run_nerf.py:571-578; reference trainer :174-198)
+                with torch.no_grad():
+                    out = net(device_batch["rays"], (near, far), train=False)
+                seg = online_seg_metrics(out["semantics"], batch["masks"], args.batch_size,
+                                         args.patch_size, n_cluster=args.N_cluster,
+                                         clus_no_sfm=args.clus_no_sfm)
+                print(f"[TRAIN] Iter: {global_step}/{args.max_steps} "
+                      f"Loss: {m['loss']:.4f} L_sem0:{m['sem0']:.4f} "
+                      f"L_sem1:{m['sem1']:.4f} L_img0:{m['img0']:.4f} "
+                      f"L_img1:{m['img1']:.4f} L_contrast:{m['contrast']:.4f}")
+                print(f"L_corr0:{m['corr0']:.4f} L_corr1:{m['corr1']:.4f} "
+                      f"L_geo_corr0:{m['geo_corr0']:.4f} L_geo_corr1:{m['geo_corr1']:.4f} "
+                      f"PSNR: {m['psnr']:.4f} Average Time: {avg_time:.4f} "
+                      f"({rays_per_step / max(avg_time, 1e-9):.0f} rays/s)")
+                print(f"clus_ari: {seg['clus_ari']:.4f} clus_ari_fg: {seg['clus_ari_fg']:.4f} "
+                      f"sem_ari: {seg['sem_ari']:.4f} sem_ari_fg: {seg['sem_ari_fg']:.4f}")
+            else:
+                print(f"[TRAIN] Iter: {global_step}/{args.max_steps} Loss: {m['loss']:.4f} "
+                      f"L_img0:{m.get('img0', 0):.4f} L_img1:{m['img1']:.4f} "
+                      f"PSNR: {m['psnr']:.4f} Average Time: {avg_time:.4f} "
+                      f"({rays_per_step / max(avg_time, 1e-9):.0f} rays/s)")
             time0 = time.time()
             writer.add_scalar("train/loss", m["loss"], global_step)
             writer.add_scalar("train/psnr", m["psnr"], global_step)

@@ -1,4 +1,4 @@
-"""K1/K2/K3 CUDA kernels vs their plain PyTorch versions on the card.
+"""K1-K5 and K7 CUDA kernels vs their plain PyTorch versions on the card.
 
 Marked ``cuda``: every test skips without a CUDA device (the kernels have no
 CPU or interpret mode). On a machine with a card (``--noconftest``: the
@@ -7,7 +7,8 @@ repository's conftest imports jax):
     python -m pytest tests/test_torch_cuda.py -q --noconftest
 
 The tolerances and K3's allowance for relu gates that rounding flips are
-``chip_smoke.py``'s, where their reasoning is written down.
+``chip_smoke.py``'s, where their reasoning is written down. K5 is held to GRAD_TOL on
+points whose semantic-head gates are clear of 0 (the others get weight 0).
 """
 import itertools
 
@@ -232,3 +233,163 @@ def test_k3_empty_batch(cuda):
                                           seed=0)
     assert maps.shape == (0, 7) and w.shape == (0, 8)
     assert all(not v.any() for v in g.values())
+
+
+# ----------------------------------------------------------------- K4, K5
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("coord,noise", [(True, 1.0), (False, 0.0)])
+@pytest.mark.parametrize("n,s", [(1, 64), (37, 192), (4096, 64), (4096, 192)])
+def test_k4_matches_plain(cuda, shape, coord, noise, n, s):
+    """The train forward: maps, weights and sem_in to TOL."""
+    field = _field(cuda, 5, use_semantics=True, sem_with_coord=coord, sem_dim=2, **shape)
+    odv, z = _inputs(cuda, n, s, 8)
+    kw = dict(noise_std=noise, seed=24680, save_semin=True)
+    before = fr.train_render.launches
+    with torch.no_grad():
+        got = fr.train_render(field, odv, z, **kw)
+        want = fr.train_render_plain(field, odv, z, **kw)
+    torch.cuda.synchronize()
+    assert fr.train_render.launches == before + 1
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and torch.isfinite(a).all()
+        assert float((a - b).abs().max()) <= TOL
+    maps, w, none = fr.train_render(field, odv, z, noise_std=noise, seed=24680, save_semin=False)
+    assert none is None and torch.equal(maps, got[0]) and torch.equal(w, got[1])
+
+
+def _gate_clear_weights(field, sem_in, w):
+    """``w`` with the points whose semantic-head relu input lies within
+    2 x GATE_MARGIN of 0 (of the layer's largest |input|) set to 0: such a
+    gate may take the other side in the kernel, and a zero weight gives the
+    point no cotangent in either version."""
+    lin = field.mlp.semantic_linear[0]
+    with torch.no_grad():
+        pre = torch.nn.functional.linear(sem_in, lin.weight, lin.bias).abs()
+        slack = pre.amin(1) / pre.max()
+    return torch.where((slack > 2 * GATE_MARGIN).view_as(w), w, torch.zeros_like(w))
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("coord", [True, False])
+@pytest.mark.parametrize("n,s", [(1, 64), (37, 192), (4096, 64), (4096, 192)])
+def test_k5_matches_plain(cuda, shape, coord, n, s):
+    """The semantic head's gradients to GRAD_TOL of each leaf's max, and
+    bitwise equal across two calls."""
+    field = _field(cuda, 6, use_semantics=True, sem_with_coord=coord, sem_dim=2, **shape)
+    odv, z = _inputs(cuda, n, s, 9)
+    with torch.no_grad():
+        _, w, sem_in = fr.train_render(field, odv, z, noise_std=1.0, seed=7, save_semin=True)
+    w = _gate_clear_weights(field, sem_in, w)
+    dmaps = torch.from_numpy(np.random.default_rng(10).normal(size=(n, 7)).astype(np.float32))
+    dmaps = dmaps.to(cuda)
+    before = fr.frozen_sem_grads.launches
+    got = fr.frozen_sem_grads(field, sem_in, w, dmaps)
+    again = fr.frozen_sem_grads(field, sem_in, w, dmaps)
+    want = fr.frozen_sem_grads_plain(field, sem_in, w, dmaps)
+    torch.cuda.synchronize()
+    assert fr.frozen_sem_grads.launches == before + 2
+    assert set(got) == set(want) == set(fr._SEM_NAMES)
+    for name, ref in want.items():
+        assert torch.equal(got[name], again[name]), name
+        assert got[name].shape == ref.shape and torch.isfinite(got[name]).all(), name
+        scale = max(float(ref.abs().max()), 1e-12)
+        assert float((got[name] - ref).abs().max()) <= GRAD_TOL * scale, name
+
+
+def test_k4_k5_through_autograd(cuda):
+    """fused_train_render with ``frozen``: the K4 forward, the K5 backward,
+    semantic-head leaves only."""
+    field = _field(cuda, 7, use_semantics=True, sem_with_coord=True, sem_dim=2, **SHAPES[0])
+    odv, z = _inputs(cuda, 300, 64, 11)
+    counts = (fr.train_render.launches, fr.frozen_sem_grads.launches)
+    maps, w = fr.fused_train_render(field, odv, z, noise_std=1.0, seed=3, frozen=True)
+    (maps[:, 5:] * torch.arange(1.0, 3.0, device=cuda)).sum().backward()
+    torch.cuda.synchronize()
+    assert (fr.train_render.launches, fr.frozen_sem_grads.launches) == (counts[0] + 1,
+                                                                       counts[1] + 1)
+    for name, p in field.named_parameters():
+        assert (p.grad is not None) == (name in fr._SEM_NAMES), name
+
+
+def test_k4_k5_reject_bad_inputs(cuda):
+    field = _field(cuda, 0, use_semantics=True, **SHAPES[1])
+    odv, z = _inputs(cuda, 16, 8, 3)
+    with pytest.raises(ValueError):
+        fr.train_render(field, odv, z[:8], noise_std=0.0, seed=0, save_semin=True)
+    with pytest.raises(NotImplementedError):
+        fr.train_render(field, odv.double(), z.double(), noise_std=0.0, seed=0, save_semin=True)
+    _, w, sem_in = fr.train_render(field, odv, z, noise_std=0.0, seed=0, save_semin=True)
+    with pytest.raises(ValueError):
+        fr.frozen_sem_grads(field, sem_in[:-1], w, torch.zeros(16, 7, device=cuda))
+    with pytest.raises(ValueError):
+        fr.frozen_sem_grads(field, sem_in, w, torch.zeros(16, 6, device=cuda))
+
+
+# ----------------------------------------------------------------- K7
+
+
+def _geo_inputs(device, B2, N, S, seed):
+    """Points of rendered-depth scale and channel-normalised codes, the
+    layouts of ops/flash_corr.py (rows [2B, N, C])."""
+    rng = np.random.default_rng(seed)
+    f1 = rng.normal(size=(B2, N, 3)) * 0.7
+    f2 = np.concatenate([f1[B2 // 2:][::-1], f1[B2 // 2:]])  # neg half, self half
+    codes = []
+    for _ in range(4):
+        c = rng.normal(size=(B2, N, S))
+        codes.append(c / np.linalg.norm(c, axis=2, keepdims=True))
+    return [torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
+            for a in (f1, f2, *codes)]
+
+
+@pytest.mark.parametrize("B2,N,S", [(2, 256, 2), (4, 1000, 3), (16, 4096, 2), (2, 77, 8)])
+@pytest.mark.parametrize("maxd", [15.0, 1.5])
+def test_k7_matches_plain(cuda, B2, N, S, maxd):
+    """Row stats, the four means and the four code gradients to K7_TOL;
+    the means and the gradients bitwise equal across two calls."""
+    from chip_smoke import K7_TOL
+    from nerfsos_torch.ops import flash_corr as fc
+
+    f1, f2, c1a, c2a, c1b, c2b = _geo_inputs(cuda, B2, N, S, B2 + N)
+    args = (0.5, 3.0, maxd)
+    before = (fc.geo_row_stats.launches, fc.geo_quad_means.launches, fc.geo_quad_grads.launches)
+    rm, gm = fc.geo_row_stats(f1, f2, maxd)
+    rm_p, gm_p = fc.geo_row_stats_plain(f1, f2, maxd)
+    assert float((rm - rm_p).abs().max()) <= K7_TOL * float(rm_p.abs().max())
+    assert float((gm - gm_p).abs().max()) <= K7_TOL * float(gm_p.abs().max())
+    out = fc.geo_quad_means(f1, f2, c1a, c2a, c1b, c2b, rm, gm, *args)
+    out2 = fc.geo_quad_means(f1, f2, c1a, c2a, c1b, c2b, rm, gm, *args)
+    want = fc.geo_quad_means_plain(f1, f2, c1a, c2a, c1b, c2b, rm, gm, *args)
+    assert torch.equal(out, out2)
+    assert float((out - want).abs().max()) <= K7_TOL * float(want.abs().max())
+    coeff = torch.tensor([0.3, -1.0, 2.0, 0.7], device=cuda) / (B2 // 2 * N * N)
+    g = fc.geo_quad_grads(f1, f2, c1a, c2a, c1b, c2b, rm, gm, coeff, *args)
+    g2 = fc.geo_quad_grads(f1, f2, c1a, c2a, c1b, c2b, rm, gm, coeff, *args)
+    g_p = fc.geo_quad_grads_plain(f1, f2, c1a, c2a, c1b, c2b, rm, gm, coeff, *args)
+    torch.cuda.synchronize()
+    assert (fc.geo_row_stats.launches, fc.geo_quad_means.launches,
+            fc.geo_quad_grads.launches) == (before[0] + 1, before[1] + 2, before[2] + 2)
+    for a, b, ref in zip(g, g2, g_p):
+        assert torch.equal(a, b) and torch.isfinite(a).all()
+        assert float((a - ref).abs().max()) <= K7_TOL * float(ref.abs().max())
+
+
+def test_k7_through_autograd(cuda):
+    """flash_geo_pair_quad: the forward's K7a and K7f, the backward's K7g,
+    gradients on the codes only."""
+    from nerfsos_torch.ops import flash_corr as fc
+
+    rng = np.random.default_rng(12)
+    t = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(cuda)  # noqa: E731
+    pts, npts = t(4, 3, 16, 16), t(4, 3, 16, 16)
+    codes = [torch.nn.functional.normalize(t(4, 2, 16, 16), dim=1).requires_grad_()
+             for _ in range(4)]
+    counts = (fc.geo_row_stats.launches, fc.geo_quad_means.launches, fc.geo_quad_grads.launches)
+    out = fc.flash_geo_pair_quad(pts, npts, *codes, 3.0, 0.5, 15.0)
+    sum(out).backward()
+    torch.cuda.synchronize()
+    assert (fc.geo_row_stats.launches, fc.geo_quad_means.launches,
+            fc.geo_quad_grads.launches) == tuple(c + 1 for c in counts)
+    assert all(c.grad is not None and torch.isfinite(c.grad).all() for c in codes)

@@ -1,0 +1,259 @@
+"""The frozen SOS finetune's kernels on the CPU: the plain versions of K4
+(train forward with sem_in), K5 (the semantic-head backward) and K7 (the
+quad geometry-correlation loss) against the JAX Pallas kernels in interpret
+mode, and models of the K5 kernel's packed layout.
+
+The CUDA kernels themselves run only on a card (tests/test_torch_cuda.py).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from nerfsos_torch.engines.checkpoint import state_dict_from_jax_params
+from nerfsos_torch.models.nerf import NeRFConfig as TorchConfig
+from nerfsos_torch.models.nerf import NeRFNet as TorchNet
+from nerfsos_torch.ops import flash_corr as tfc
+from nerfsos_torch.ops import fused_render as tfr
+from nerfsos_tpu.models.nerf import NeRFConfig as JaxConfig
+from nerfsos_tpu.models.nerf import NeRFNet as JaxNet
+from nerfsos_tpu.ops.pallas import flash_corr as jfc
+from nerfsos_tpu.ops.pallas import fused_render as jfr
+
+TINY = dict(netwidth=16, netwidth_fine=16, n_samples=8, n_importance=8, multires=4,
+            multires_views=2, use_semantics=True)
+R = 20  # not a multiple of the 8-ray Pallas block
+
+
+@pytest.fixture(autouse=True)
+def small_pallas_block(monkeypatch):
+    """8 rays per Pallas grid step keeps interpret mode fast."""
+    monkeypatch.setattr(jfr, "TRAIN_RAY_BLOCK", 8)
+
+
+def _nets(depth, coord, frozen=True):
+    kw = {**TINY, "netdepth": depth, "netdepth_fine": depth, "sem_with_coord": coord}
+    jcfg = JaxConfig(**kw, fused_field=True, frozen_backbone=frozen)
+    params = JaxNet(jcfg).init(jax.random.PRNGKey(3))
+    tnet = TorchNet(TorchConfig(**kw, fused_field=True))
+    tnet.load_state_dict(state_dict_from_jax_params(jax.tree_util.tree_map(np.asarray, params)))
+    return jcfg, params, tnet
+
+
+def _inputs(seed, s):
+    rng = np.random.default_rng(seed)
+    odv = rng.normal(size=(R, 9)).astype(np.float32)
+    odv[:, 6:9] = odv[:, 3:6] / np.linalg.norm(odv[:, 3:6], axis=1, keepdims=True)
+    z = np.sort(rng.uniform(1, 4, size=(R, s)), 1).astype(np.float32)
+    return odv, z
+
+
+def _jax_seed(key):
+    return int(jax.random.randint(key, (1, 1), 0, 2**31 - 1).astype(jnp.float32)[0, 0])
+
+
+CASES = [(5, True, 0.6, 8), (6, True, 0.0, 16), (6, False, 0.6, 16), (5, False, 0.0, 8)]
+
+
+@pytest.mark.parametrize("depth,coord,noise,s", CASES)
+def test_train_render_plain_matches_pallas(depth, coord, noise, s):
+    """K4: maps, weights and sem_in (the JAX stream_semin residual)."""
+    jcfg, params, tnet = _nets(depth, coord)
+    odv, z = _inputs(s, s)
+    ws, bs = jfr._flatten_mlp_params(params["fine"]["mlp"], depth, True)
+    seed = 1234567
+    maps_j, w_j, semin_j = jfr._train_render_fwd_impl(
+        tuple(ws), tuple(bs), jnp.asarray(odv), jnp.asarray(z),
+        jnp.full((1, 1), seed, jnp.float32), depth, (4,), jcfg.multires, jcfg.multires_views,
+        True, coord, "float32", noise, interpret=True, save_semin=True, frozen_blk=True)
+    C = tnet.nerf_fine.mlp.semantic_linear[0].in_features
+    semin_j = np.asarray(semin_j).transpose(0, 2, 1).reshape(-1, C)[:R * s]
+    maps_t, w_t, semin_t = tfr.train_render_plain(
+        tnet.nerf_fine, torch.from_numpy(odv), torch.from_numpy(z), noise_std=noise, seed=seed,
+        save_semin=True)
+    assert maps_t.shape == (R, 7) and w_t.shape == (R, s) and semin_t.shape == (R * s, C)
+    np.testing.assert_allclose(maps_t.numpy(), np.asarray(maps_j), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(w_t.numpy(), np.asarray(w_j), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(semin_t.numpy(), semin_j, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("depth,coord,noise,s", CASES)
+def test_frozen_backward_matches_pallas(depth, coord, noise, s):
+    """K5 through the autograd function: the semantic head's grads against
+    jax.vjp of fused_train_render_planar with frozen_backbone; every other
+    leaf gets none."""
+    jcfg, params, tnet = _nets(depth, coord)
+    odv, z = _inputs(s + 1, s)
+    key = jax.random.PRNGKey(5)
+    dmaps = np.random.default_rng(s).normal(size=(R, 7)).astype(np.float32)
+    (maps_j, w_j), vjp = jax.vjp(
+        lambda p: jfr.fused_train_render_planar(p, jnp.asarray(odv), jnp.asarray(z), jcfg,
+                                                depth=depth, noise_std=noise, noise_key=key),
+        params["fine"])
+    (g_j,) = vjp((jnp.asarray(dmaps), jnp.zeros_like(w_j)))
+    want = {k[len("nerf."):]: v for k, v in state_dict_from_jax_params(
+        {"coarse": jax.tree_util.tree_map(np.asarray, g_j)}).items()}
+
+    field = tnet.nerf_fine
+    maps_t, w_t = tfr.fused_train_render(field, torch.from_numpy(odv), torch.from_numpy(z),
+                                         noise_std=noise, seed=_jax_seed(key), frozen=True)
+    np.testing.assert_allclose(maps_t.detach().numpy(), np.asarray(maps_j), atol=1e-5, rtol=0)
+    torch.sum(maps_t * torch.from_numpy(dmaps)).backward()
+    for name, p in field.named_parameters():
+        if name in tfr._SEM_NAMES:
+            ref = want[name].numpy()
+            scale = np.abs(ref).max() + 1e-12
+            assert np.abs(p.grad.numpy() - ref).max() <= 1e-5 * scale, name
+        else:
+            assert p.grad is None, name
+            assert not want[name].any(), name
+
+
+def test_unfrozen_backward_names_k6():
+    _, _, tnet = _nets(6, True)
+    odv, z = _inputs(0, 8)
+    maps, _ = tfr.fused_train_render(tnet.nerf, torch.from_numpy(odv), torch.from_numpy(z),
+                                     noise_std=0.0, seed=0, frozen=False)
+    with pytest.raises(NotImplementedError, match="K6"):
+        maps.sum().backward()
+
+
+def test_forward_without_grad_stores_no_sem_in():
+    _, _, tnet = _nets(6, True)
+    odv, z = (torch.from_numpy(a) for a in _inputs(1, 8))
+    with torch.no_grad():
+        maps, w = tfr.fused_train_render(tnet.nerf, odv, z, noise_std=0.0, seed=0, frozen=True)
+    want = tfr.train_render_plain(tnet.nerf, odv, z, noise_std=0.0, seed=0, save_semin=False)
+    assert torch.equal(maps, want[0]) and torch.equal(w, want[1])
+
+
+def _emulate_k5(field, sem_in, w, dmaps):
+    """What K5 computes, from pack_frozen's buffer alone: sem_in rows placed
+    at their padded rows, s_act per column block, ds, then dW0^T, db0, dW1^T
+    and db1 into the gradient buffer, then unpack_frozen."""
+    buf, d = tfr.pack_frozen(field)
+    segs = [d.seg[i] for i in range(3) if d.seg[i]]
+    P = sem_in.shape[0]
+    S = w.shape[1]
+    xin = sem_in.new_zeros((d.kpad, P))
+    r = rp = 0
+    for k in segs:
+        xin[rp:rp + k] = sem_in[:, r:r + k].t()
+        r, rp = r + k, rp + (k + 7) // 8 * 8
+    dsem = (dmaps[:, 5:].repeat_interleave(S, 0) * w.reshape(-1, 1)).t()  # [sem, P]
+    w1 = buf[d.w1:d.w1 + d.sem_dim * d.hidden].view(d.sem_dim, d.hidden)
+    flat = torch.zeros(d.grad_size)
+    for c in range(d.nblk):
+        L = d.blk[c]
+        npad = (L.n + 7) // 8 * 8
+        wblk = buf[L.w:L.w + L.k * npad].view(L.k, npad)
+        bias = buf[L.b:L.b + npad]
+        sact = torch.relu(wblk.t() @ xin + bias[:, None])[:L.n]  # [n, P]
+        n0 = c * tfr._SEM_BLOCK
+        ds = (w1[:, n0:n0 + L.n].t() @ dsem) * (sact > 0)
+        dw0 = flat[d.gw0:d.gb0].view(d.kpad, d.hidden)
+        dw0[:, n0:n0 + L.n] = xin @ ds.t()
+        flat[d.gb0 + n0:d.gb0 + n0 + L.n] = ds.sum(1)
+        dw1 = flat[d.gw1:d.gb1].view(d.hidden, d.sem_dim)
+        dw1[n0:n0 + L.n] = sact @ dsem.t()
+    flat[d.gb1:d.grad_size] = dsem.sum(1)
+    return tfr.unpack_frozen(field, flat, d)
+
+
+@pytest.mark.parametrize("depth,coord,width", [(5, True, 16), (6, False, 16), (8, True, 256)])
+def test_k5_layout_matches_plain(depth, coord, width):
+    """The packed column blocks (two of 64 at width 256), the padded sem_in
+    rows and the gradient layout reproduce the plain version's grads."""
+    torch.manual_seed(0)
+    from nerfsos_torch.models.fields import NeRFField
+    field = NeRFField(net_depth=depth, net_width=width, multires=4, multires_views=2,
+                      use_semantics=True, sem_with_coord=coord, sem_dim=3)
+    odv, z = (torch.from_numpy(a) for a in _inputs(2, 8))
+    _, w, sem_in = tfr.train_render_plain(field, odv, z, noise_std=0.0, seed=0, save_semin=True)
+    dmaps = torch.randn(R, 8)
+    got = _emulate_k5(field, sem_in, w, dmaps)
+    want = tfr.frozen_sem_grads_plain(field, sem_in, w, dmaps)
+    for k in want:
+        assert got[k].shape == want[k].shape, k
+        scale = float(want[k].abs().max()) + 1e-12
+        assert float((got[k] - want[k]).abs().max()) <= 1e-5 * scale, k
+
+
+def test_cpu_wrappers_take_the_plain_path():
+    _, _, tnet = _nets(6, True)
+    odv, z = (torch.from_numpy(a) for a in _inputs(3, 8))
+    before = (tfr.train_render.launches, tfr.frozen_sem_grads.launches)
+    maps, w, sem_in = tfr.train_render(tnet.nerf, odv, z, noise_std=0.3, seed=9, save_semin=True)
+    want = tfr.train_render_plain(tnet.nerf, odv, z, noise_std=0.3, seed=9, save_semin=True)
+    assert all(torch.equal(a, b) for a, b in zip((maps, w, sem_in), want))
+    dmaps = torch.randn(R, 7)
+    g = tfr.frozen_sem_grads(tnet.nerf, sem_in, w, dmaps)
+    g_p = tfr.frozen_sem_grads_plain(tnet.nerf, sem_in, w, dmaps)
+    assert set(g) == set(tfr._SEM_NAMES) and all(torch.equal(g[k], g_p[k]) for k in g)
+    assert (tfr.train_render.launches, tfr.frozen_sem_grads.launches) == before
+
+
+# ----------------------------------------------------------------- K7
+
+
+def _geo_inputs(seed, B=2, P=16, S=2):
+    """Points from depths along rays, and channel-normalised codes, with
+    P * P = 256 (a multiple of 128: the JAX side runs its flash kernels)."""
+    rng = np.random.default_rng(seed)
+    pts = (rng.normal(size=(B, 3, P, P)) * 2.0).astype(np.float32)
+    codes = [rng.normal(size=(B, S, P, P)).astype(np.float32) for _ in range(2)]
+    codes = [c / np.linalg.norm(c, axis=1, keepdims=True) for c in codes]
+    neg = np.array([1, 0][:B]) if B == 2 else rng.permutation(B)
+    return pts, pts[neg], codes[0], codes[0][neg], codes[1], codes[1][neg]
+
+
+@pytest.mark.parametrize("seed,shifts,maxd", [(0, (3.0, 0.5), 15.0), (1, (10.0, 3.0), 2.0)])
+def test_geo_quad_plain_matches_pallas(seed, shifts, maxd):
+    """K7a + K7f: the four means; K7g: the codes' gradients of a weighted
+    sum of them (every code of the neg and the self sweep)."""
+    pts, npts, c0, c0n, c1, c1n = _geo_inputs(seed)
+    wts = np.array([0.7, -1.3, 0.4, 2.0], np.float32)
+
+    def jloss(c0, c0n, c1, c1n):
+        out = jfc.flash_geo_pair_quad(jnp.asarray(pts), jnp.asarray(npts), c0, c0n, c1, c1n,
+                                      shifts[0], shifts[1], maxd, interpret=True)
+        return jnp.sum(jnp.stack(out) * wts), jnp.stack(out)
+
+    (_, want), g_want = jax.value_and_grad(jloss, argnums=(0, 1, 2, 3), has_aux=True)(
+        *(jnp.asarray(a) for a in (c0, c0n, c1, c1n)))
+    tc = [torch.from_numpy(a).requires_grad_() for a in (c0, c0n, c1, c1n)]
+    out = tfc.flash_geo_pair_quad(torch.from_numpy(pts), torch.from_numpy(npts), *tc,
+                                  shifts[0], shifts[1], maxd)
+    got = torch.stack(out)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=1e-5, atol=0)
+    torch.sum(got * torch.from_numpy(wts)).backward()
+    for t, g in zip(tc, g_want):
+        g = np.asarray(g)
+        assert np.abs(t.grad.numpy() - g).max() <= 1e-5 * np.abs(g).max()
+
+
+def test_geo_row_stats_plain_matches_pallas():
+    pts, npts, *_ = _geo_inputs(2)
+    f1 = np.concatenate([pts, pts]).reshape(4, 3, 256).transpose(0, 2, 1)
+    f2 = np.concatenate([npts, pts]).reshape(4, 3, 256)
+    rm_j, _ = jfc._row_stats(jnp.asarray(f1), jnp.asarray(f2), 15.0, True)
+    rm, gm = tfc.geo_row_stats(torch.from_numpy(np.ascontiguousarray(f1)),
+                               torch.from_numpy(np.ascontiguousarray(f2.transpose(0, 2, 1))),
+                               15.0)
+    np.testing.assert_allclose(rm.numpy(), np.asarray(rm_j)[..., 0], rtol=1e-5, atol=0)
+    np.testing.assert_allclose(gm.numpy(), [np.asarray(rm_j)[:2].mean(),
+                                            np.asarray(rm_j)[2:].mean()], rtol=1e-5)
+
+
+def test_geo_quad_cpu_wrappers_count_nothing():
+    pts, npts, c0, c0n, c1, c1n = _geo_inputs(3)
+    before = (tfc.geo_row_stats.launches, tfc.geo_quad_means.launches,
+              tfc.geo_quad_grads.launches)
+    tc = [torch.from_numpy(a).requires_grad_() for a in (c0, c0n, c1, c1n)]
+    out = tfc.flash_geo_pair_quad(torch.from_numpy(pts), torch.from_numpy(npts), *tc,
+                                  3.0, 0.5, 15.0)
+    sum(out).backward()
+    assert all(t.grad is not None and torch.isfinite(t.grad).all() for t in tc)
+    assert (tfc.geo_row_stats.launches, tfc.geo_quad_means.launches,
+            tfc.geo_quad_grads.launches) == before
