@@ -1,5 +1,5 @@
 """Smoke run of the PyTorch port on one CUDA card: kernels, the --eval path,
-the train path, then the frozen SOS finetune.
+the train path, then the SOS finetune (frozen, full, random negatives).
 
     python3 chip_smoke.py
 
@@ -55,7 +55,24 @@ Phases (one line each; any failure raises and the exit code is nonzero):
      versions to K7_TOL, two calls bitwise equal;
  12. the 32768-ray SOS step (CUDA events) on the kernel and the plain path,
      with peak memory, and its parts timed alone (K4 and K5 coarse and
-     fine, ViT, appearance loss, K7 forward and backward, Adam).
+     fine, ViT, appearance loss, K7 forward and backward, Adam);
+ 13. K6 (the full train-render backward) vs its plain version on the
+     [K4]/[K5] phase's field and rays (4096 rays, S=64 and S=192, noise 1)
+     with seeded map and weight cotangents: every leaf to GRAD_TOL plus its
+     allowance for trunk, views, alpha and sem_0 gates near 0, two calls
+     bitwise equal (between 9 and 10);
+ 14. [K7s]: K7 with one half and one head (K7b/K7c) and two heads (K7d/K7e)
+     vs the plain versions at 8 x 4096 pixels, 2 channels, to K7_TOL, two
+     calls bitwise equal (after 11);
+ 15. [sos_full]: the finetune flags without --fix_backbone, 5 steps from the
+     [train] run's last.ckpt: K4 and K6 twice a step, K7a/K7f/K7g once,
+     every leaf moved, Adam state for every leaf, the last step's two K6
+     calls vs the plain version on their own inputs;
+ 16. [sos_randneg]: the finetune flags with --rand_neg, 5 steps: K5 twice a
+     step, K7a/K7b/K7c four times (2 heads x neg/self), the trunk bitwise
+     unchanged, the last step's K7b/K7c calls vs the plain versions;
+ 17. [sos_full_step]: the full finetune's 32768-ray step as in 12, K6 in
+     place of K5.
 The last lines are the card, one JSON object with the kernels' numbers, and
 ``{"ok": true, "device": {...}}``. Scratch files go to build/chip_smoke/.
 """
@@ -205,7 +222,9 @@ def field_flops(field, kind: str) -> float:
     layer, 'k3' the forward of every layer + the input-gradient products of
     K3's reverse sweep (each trunk layer but the first on its h input,
     feature and alpha on h, views on the feature input, rgb) + the
-    weight-gradient products of every layer but the semantic head."""
+    weight-gradient products of every layer but the semantic head; 'k6'
+    K3's work + the semantic head's input-gradient products (sem_1, and
+    sem_0 on h) and weight-gradient products."""
     shapes = linear_shapes(field)
     mlp = field.mlp
     fwd = sum(2 * i * o for _, i, o in shapes)
@@ -217,6 +236,10 @@ def field_flops(field, kind: str) -> float:
     dx = (2 * W * W * (mlp.depth - 1) + 2 * W * W + 2 * W + 2 * (W // 2) * W
           + 2 * 3 * (W // 2))
     dw = sum(2 * i * o for n, i, o in shapes if "semantic" not in n)
+    if kind == "k6" and mlp.use_semantics:
+        H, sem = mlp.semantic_linear[0].out_features, mlp.semantic_linear[2].out_features
+        dx += 2 * sem * H + 2 * H * W
+        dw = sum(2 * i * o for _, i, o in shapes)
     return fwd + dx + dw
 
 
@@ -275,40 +298,75 @@ def kernel_vs_plain_k2(fr, use_semantics: bool) -> dict:
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bound, "library_ms": None}
 
 
-def plain_k3_with_gates(field, odv, z, gt, kw):
-    """K3's plain version, and what a gate that flips between it and the
-    kernel can move: per point, the least |input| of any of its gates
-    relative to that layer's largest (``slack [R*S]``); per dense layer (by
-    name), the point's largest |input| and largest |output cotangent|, whose
-    product bounds the point's term in every entry of the layer's dW."""
+def plain_with_gates(field, R: int, S: int, kw: dict, gates, run):
+    """``run()`` (a plain version over the field's ``R x S`` points), and what
+    a gate that flips between it and the kernel can move: per point, the
+    least |input| of any of its ``gates`` (dense layers whose output goes
+    through a relu; the alpha layer's with the sigma noise of ``kw``)
+    relative to that layer's largest in the same call (``slack [R*S]``); per
+    dense layer (by name), each point's largest |input| and largest |output
+    cotangent|, whose product bounds the point's term in every entry of the
+    layer's dW. The plain version may run the points in chunks, in order."""
     from nerfsos_torch.ops import fused_render as fr
 
     mlp = field.mlp
-    R, S = z.shape
     P = R * S
-    gates = [*mlp.pts_linears, mlp.views_linears[0], mlp.alpha_linear]
-    noise = (fr.noise_plain(kw["seed"], R, S, kw["noise_std"], z.device).reshape(P, 1)
-             if kw["noise_std"] > 0 else 0.0)
-    slack = torch.full((P,), float("inf"), device=z.device)
-    terms = {}
+    noise = (fr.noise_plain(kw["seed"], R, S, kw["noise_std"], field.mlp.alpha_linear.weight.device)
+             .reshape(P, 1) if kw["noise_std"] > 0 else None)
+    slack = torch.full((P,), float("inf"), device=mlp.alpha_linear.weight.device)
+    parts, seen = {}, {}
 
     def hook(mod, inputs, out):
-        t = terms[mod] = [inputs[0].detach().reshape(P, -1).abs().amax(1), torch.zeros_like(slack)]
+        n = out.numel() // out.shape[-1]
+        o = seen.get(mod, 0)
+        seen[mod] = o + n
+        t = [inputs[0].detach().reshape(n, -1).abs().amax(1), torch.zeros_like(slack[:n])]
+        parts.setdefault(mod, []).append(t)
         if out.requires_grad:
-            out.register_hook(lambda g: t.__setitem__(1, g.reshape(P, -1).abs().amax(1)))
+            out.register_hook(lambda g: t.__setitem__(1, g.reshape(n, -1).abs().amax(1)))
         if any(mod is m for m in gates):
-            pre = (out.detach().reshape(P, -1) + (noise if mod is mlp.alpha_linear else 0.0)).abs()
-            torch.minimum(slack, pre.amin(1) / pre.max(), out=slack)
+            pre = out.detach().reshape(n, -1)
+            if mod is mlp.alpha_linear and noise is not None:
+                pre = pre + noise[o:o + n]
+            pre = pre.abs()
+            torch.minimum(slack[o:o + n], pre.amin(1) / pre.max(), out=slack[o:o + n])
 
     handles = [m.register_forward_hook(hook) for m in field.modules()
                if isinstance(m, torch.nn.Linear)]
     try:
-        want = fr.rgb_train_grads_plain(field, odv, z, gt, **kw)
+        want = run()
     finally:
         for h in handles:
             h.remove()
     names = {m: n for n, m in field.named_modules()}
-    return want, slack, {names[m]: t for m, t in terms.items()}
+    terms = {names[m]: [torch.cat([t[i] for t in ts]) for i in (0, 1)]
+             for m, ts in parts.items()}
+    return want, slack, terms
+
+
+def plain_k3_with_gates(field, odv, z, gt, kw):
+    """K3's plain version, and ``plain_with_gates``' slack and terms for the
+    trunk, views and alpha gates."""
+    from nerfsos_torch.ops import fused_render as fr
+
+    mlp = field.mlp
+    return plain_with_gates(field, *z.shape, kw,
+                            [*mlp.pts_linears, mlp.views_linears[0], mlp.alpha_linear],
+                            lambda: fr.rgb_train_grads_plain(field, odv, z, gt, **kw))
+
+
+def plain_k6_with_gates(field, odv, z, dmaps, dweights, kw):
+    """K6's plain version, and ``plain_with_gates``' slack and terms for the
+    trunk, views, alpha and sem_0 gates."""
+    from nerfsos_torch.ops import fused_render as fr
+
+    mlp = field.mlp
+    gates = [*mlp.pts_linears, mlp.views_linears[0], mlp.alpha_linear]
+    if mlp.use_semantics:
+        gates.append(mlp.semantic_linear[0])
+    return plain_with_gates(field, *z.shape, kw, gates,
+                            lambda: fr.train_render_grads_plain(field, odv, z, dmaps, dweights,
+                                                                **kw))
 
 
 def flip_allowance(slack, terms) -> dict:
@@ -344,6 +402,28 @@ def check_k3(what: str, got, want, slack, terms) -> dict:
                          f"grads {grad_err} of the leaf's max at {worst}, worst leaf error over "
                          f"its bound {over}, finite={finite}")
     return {"max_abs_err": err, "tol": TOL, "grad_rel_err": grad_err, "worst_leaf": worst,
+            "grad_tol": GRAD_TOL, "near_gate_points": int((slack <= GATE_MARGIN).sum()),
+            "grad_err_over_bound": over}
+
+
+def check_k6(what: str, got, want, slack, terms) -> dict:
+    """K6's grads vs its plain version's: every leaf to GRAD_TOL of its max
+    |plain| plus the leaf's flip allowance; raises."""
+    allow = flip_allowance(slack, terms)
+    grad_err, worst, over, abs_err = 0.0, "", 0.0, 0.0
+    for name, ref in want.items():
+        scale = max(float(ref.abs().max()), 1e-12)
+        e = max_err(got[name], ref)
+        abs_err = max(abs_err, e)
+        if e / scale >= grad_err:
+            grad_err, worst = e / scale, name
+        over = max(over, e / (GRAD_TOL * scale + allow[name]))
+    finite = all(torch.isfinite(t).all() for t in got.values())
+    if not (set(got) == set(want) and finite and over <= 1.0):
+        raise SystemExit(f"K6 disagrees with its plain version ({what}): grads {grad_err} of the "
+                         f"leaf's max at {worst}, worst leaf error over its bound {over}, "
+                         f"finite={finite}")
+    return {"max_abs_err": abs_err, "grad_rel_err": grad_err, "worst_leaf": worst,
             "grad_tol": GRAD_TOL, "near_gate_points": int((slack <= GATE_MARGIN).sum()),
             "grad_err_over_bound": over}
 
@@ -764,26 +844,37 @@ def k5_cost(field, R: int, S: int) -> dict:
                     R * S * (4 * C * H + 4 * H * sem))
 
 
-def k7_ops(S: int) -> dict:
+def k6_cost(field, R: int, S: int) -> dict:
+    """K6's bound: field_flops 'k6' a point; the rays, z, the maps' and the
+    weights' cotangents and the weights read once, the gradients written."""
+    nmaps = 5 + (field.mlp.semantic_linear[2].out_features if field.mlp.use_semantics else 0)
+    return bound_ms(4 * (R * (9 + 2 * S + nmaps) + 2 * n_params(field)),
+                    R * S * field_flops(field, "k6"))
+
+
+def k7_ops(S: int, heads: int = 2) -> dict:
     """fp32 operations a pair (p, q) of K7's passes, counting a division
     as one: fd is 3 sub, 3 abs, 3 add, +0.05, div, min (12); K7a adds the
-    row sum; K7f adds -rowmean + offset and per head the codes' L1 (3 S - 1),
-    +0.05, div, min, the product and the sum; K7g (one sweep's worth) per
-    head the L1, +0.05, div, the clamp test and three products, and per
-    channel sign, product and two sums."""
-    return {"K7a": 13, "K7f": 14 + 2 * (3 * S + 4), "K7g": 14 + 2 * (7 * S + 5)}
+    row sum; the loss sweep (K7b one head, K7d/K7f two) adds -rowmean +
+    offset and per head the codes' L1 (3 S - 1), +0.05, div, min, the
+    product and the sum; the gradient sweeps (K7c, K7e/K7g; one sweep's
+    worth) per head the L1, +0.05, div, the clamp test and three products,
+    and per channel sign, product and two sums."""
+    return {"K7a": 13, "loss": 14 + heads * (3 * S + 4), "grads": 14 + heads * (7 * S + 5)}
 
 
-def k7_costs(f1, c1a) -> dict:
+def k7_costs(f1, c1a, heads: int = 2) -> dict:
+    """Bounds of K7a and of the loss and gradient sweeps with ``heads``
+    heads over the pairs of ``c1a [B2, N, S]``."""
     B2, N, S = c1a.shape
     pairs = B2 * N * N
-    pts, codes = 4 * B2 * N * 3, 4 * B2 * N * S
-    ops = k7_ops(S)
+    pts, codes = 4 * B2 * N * 3, 4 * B2 * N * S * heads
+    ops = k7_ops(S, heads)
     return {"K7a": bound_ms(2 * pts + 4 * B2 * N + 8, pairs * ops["K7a"], FP32_SIMT_FLOP_S),
-            "K7f": bound_ms(2 * pts + 4 * codes + 4 * B2 * N + 24, pairs * ops["K7f"],
-                            FP32_SIMT_FLOP_S),
-            "K7g": bound_ms(2 * pts + 8 * codes + 4 * B2 * N + 40, pairs * ops["K7g"],
-                            FP32_SIMT_FLOP_S)}
+            "loss": bound_ms(2 * pts + 2 * codes + 4 * B2 * N + 24, pairs * ops["loss"],
+                             FP32_SIMT_FLOP_S),
+            "grads": bound_ms(2 * pts + 4 * codes + 4 * B2 * N + 40, pairs * ops["grads"],
+                              FP32_SIMT_FLOP_S)}
 
 
 def kernel_vs_plain_k4_k5(fr, S: int) -> dict:
@@ -826,16 +917,107 @@ def kernel_vs_plain_k4_k5(fr, S: int) -> dict:
     return {"K4": max(max_err(a, b) for a, b in zip(got, want)), "K5": close["max_abs_err"]}
 
 
+def kernel_vs_plain_k6(fr, S: int) -> dict:
+    """[K6] on the [K4]/[K5] phase's field and rays (4096 rays, noise 1 from
+    a fixed seed, fixed sorted z) with seeded map and weight cotangents:
+    every leaf to GRAD_TOL plus its gate-flip allowance (trunk, views, alpha
+    and sem_0 gates), and two calls bitwise equal."""
+    field = seeded_field(3, net_depth=8, net_width=256, multires=10, multires_views=4,
+                         use_semantics=True, sem_with_coord=True, sem_dim=2)
+    R = 4096
+    odv, z = ray_inputs(R, S, seed=4 + S)
+    rng = np.random.default_rng(100 + S)
+    dmaps = torch.from_numpy(rng.normal(size=(R, 7)).astype(np.float32)).cuda()
+    dweights = torch.from_numpy(rng.normal(size=(R, S)).astype(np.float32)).cuda()
+    kw = dict(noise_std=1.0, seed=7654321)
+    got = fr.train_render_grads(field, odv, z, dmaps, dweights, **kw)
+    again = fr.train_render_grads(field, odv, z, dmaps, dweights, **kw)
+    torch.cuda.synchronize()
+    close = check_k6(f"S={S}", got, *plain_k6_with_gates(field, odv, z, dmaps, dweights, kw))
+    if not all(torch.equal(got[k], again[k]) for k in got):
+        raise SystemExit(f"K6's gradients differ between two calls (S={S})")
+    ms = cuda_ms(lambda: fr.train_render_grads(field, odv, z, dmaps, dweights, **kw))
+    plain_ms = cuda_ms(lambda: fr.train_render_grads_plain(field, odv, z, dmaps, dweights, **kw),
+                       reps=3)
+    phase("K6", rays=R, samples=S, **close, deterministic=True, ms=ms, plain_ms=plain_ms,
+          **k6_cost(field, R, S))
+    return close
+
+
+def k7_single_pair_inputs(B: int, N: int, S: int, seed: int):
+    """Points of B patches of N pixels (back-projected depths in [2, 6]
+    along unit rays from one origin) and four channel-normalised codes
+    ``[B, N, S]``."""
+    rng = np.random.default_rng(seed)
+    d = rng.normal(size=(B, N, 3))
+    d /= np.linalg.norm(d, axis=2, keepdims=True)
+    pts = [d * rng.uniform(2.0, 6.0, size=(B, N, 1)) for _ in range(2)]
+    codes = []
+    for _ in range(4):
+        c = rng.normal(size=(B, N, S))
+        codes.append(c / np.linalg.norm(c, axis=2, keepdims=True))
+    return [torch.from_numpy(np.ascontiguousarray(a, np.float32)).cuda() for a in (*pts, *codes)]
+
+
+def kernel_vs_plain_k7s(fc) -> dict:
+    """[K7s]: the single-head (K7b/K7c) and two-head (K7d/K7e) forms with
+    one half, on seeded points and codes at the SOS step's size (8 patches
+    of 64 x 64 pixels, 2 channels, max_depth 15, the geometry loss's neg
+    shift 0.5): row stats, the means and the code gradients vs their plain
+    versions to K7_TOL, two calls bitwise equal, and their times."""
+    B, N, S, maxd, shift = 8, 4096, 2, 15.0, 0.5
+    f1, f2, *codes = k7_single_pair_inputs(B, N, S, 21)
+    rm, gm = fc.geo_row_stats(f1, f2, maxd, 1)
+    out = {}
+    for heads, (k_m, k_g), (means, grads), (means_p, grads_p) in (
+            (1, ("K7b", "K7c"), (fc.geo_single_means, fc.geo_single_grads),
+             (fc.geo_single_means_plain, fc.geo_single_grads_plain)),
+            (2, ("K7d", "K7e"), (fc.geo_pair_means, fc.geo_pair_grads),
+             (fc.geo_pair_means_plain, fc.geo_pair_grads_plain))):
+        cs = codes[:2 * heads]
+        a_m = (f1, f2, *cs, rm, gm, shift, maxd)
+        coeff = torch.tensor([0.7, -1.2][:heads], device=f1.device) / (B * N * N)
+        a_g = (f1, f2, *cs, rm, gm, coeff, shift, maxd)
+        m, m2 = means(*a_m), means(*a_m)
+        g, g2 = grads(*a_g), grads(*a_g)
+        torch.cuda.synchronize()
+        with torch.no_grad():
+            m_p, g_p = means_p(*a_m), grads_p(*a_g)
+        err_m = max_err(m, m_p) / max(float(m_p.abs().max()), 1e-30)
+        err_g = max(max_err(x, r) / max(float(r.abs().max()), 1e-30) for x, r in zip(g, g_p))
+        finite = all(torch.isfinite(t).all() for t in (m, *g))
+        if not (finite and max(err_m, err_g) <= K7_TOL):
+            raise SystemExit(f"K7 with {heads} head(s) disagrees with its plain version: means "
+                             f"{err_m}, gradients {err_g} (tol {K7_TOL}), finite={finite}")
+        if not (torch.equal(m, m2) and all(torch.equal(x, y) for x, y in zip(g, g2))):
+            raise SystemExit(f"K7 with {heads} head(s) differs between two calls")
+        with torch.no_grad():
+            t = {k_m: (cuda_ms(lambda: means(*a_m)), cuda_ms(lambda: means_p(*a_m), reps=3)),
+                 k_g: (cuda_ms(lambda: grads(*a_g)), cuda_ms(lambda: grads_p(*a_g), reps=3))}
+        c = k7_costs(f1, cs[0], heads)
+        costs = {k_m: c["loss"], k_g: c["grads"]}
+        errs = {k_m: max_err(m, m_p), k_g: max(max_err(x, r) for x, r in zip(g, g_p))}
+        phase("K7s", heads=heads, rows=B, pixels=N, channels=S, values=[float(x) for x in m],
+              rel_err_means=err_m, rel_err_grads=err_g, tol=K7_TOL, deterministic=True,
+              **{f"{k}_ms": v[0] for k, v in t.items()},
+              **{f"{k}_plain_ms": v[1] for k, v in t.items()},
+              **{f"{k}_bound_ms": costs[k]["bound_ms"] for k in costs})
+        out.update({k: {"max_abs_err": errs[k], "ms": t[k][0], "plain_ms": t[k][1], **costs[k],
+                        "library_ms": None} for k in t})
+    return out
+
+
 SOS_STEPS = 20
 
 
-def sos_args(ckpt: str, max_steps: int):
+def sos_args(ckpt: str, max_steps: int, expname: str = "smoke_sos", drop=(), extra=()):
     """The flagship finetune flags (scripts/train_flower_node0.sh) with
-    configs/flower_full.txt on the smoke scene's 384x512 train views."""
+    configs/flower_full.txt on the smoke scene's 384x512 train views; the
+    flags in ``drop`` left out and those in ``extra`` added."""
     from nerfsos_torch import run_nerf
 
     argv = ["--config", os.path.join(ROOT, "configs", "flower_full.txt"),
-            "--expname", "smoke_sos", "--basedir", os.path.join(WORK, "logs"),
+            "--expname", expname, "--basedir", os.path.join(WORK, "logs"),
             "--data_path", os.path.join(WORK, "sos_data"), "--max_steps", str(max_steps),
             "--i_print", "10", "--i_weights", "10", "--i_testset", "1000000",
             "--patch_tune", "--batch_size", "8", "--patch_size", "64", "--patch_stride", "6",
@@ -845,6 +1027,7 @@ def sos_args(ckpt: str, max_steps: int):
             "--correlation_w", "1", "--Gcorrelation_w", "0.01",
             "--app_corr_params", "0.18", "1", "0.46", "1",
             "--geo_corr_params", "0.5", "1", "3", "1", "--fast_mode", "--ckpt_path", ckpt]
+    argv = [a for a in argv if a not in drop] + list(extra)
     args, _ = run_nerf.create_arg_parser().parse_known_args(argv)
     return args
 
@@ -979,7 +1162,7 @@ def kernel_vs_plain_k7(fc, calls) -> dict:
     (a_rs, _, (rm, gm)), = calls["geo_row_stats"]
     (a_m, _, out), = calls["geo_quad_means"]
     (a_g, _, grads), = calls["geo_quad_grads"]
-    f1, f2, maxd = a_rs
+    f1 = a_rs[0]
     with torch.no_grad():
         rm_p, gm_p = fc.geo_row_stats_plain(*a_rs)
         out_p = fc.geo_quad_means_plain(*a_m)
@@ -1004,7 +1187,8 @@ def kernel_vs_plain_k7(fc, calls) -> dict:
                      cuda_ms(lambda: fc.geo_quad_means_plain(*a_m), reps=3)),
              "K7g": (cuda_ms(lambda: fc.geo_quad_grads(*a_g)),
                      cuda_ms(lambda: fc.geo_quad_grads_plain(*a_g), reps=3))}
-    costs = k7_costs(f1, a_m[2])
+    c = k7_costs(f1, a_m[2])
+    costs = {"K7a": c["K7a"], "K7f": c["loss"], "K7g": c["grads"]}
     B2, N, S = a_m[2].shape
     phase("K7", rows=B2, pixels=N, channels=S, values=[float(x) for x in out],
           **{f"rel_err_{k}": v for k, v in err.items()}, tol=K7_TOL, deterministic=True,
@@ -1016,13 +1200,164 @@ def kernel_vs_plain_k7(fc, calls) -> dict:
                 "library_ms": None} for k in t}
 
 
-def sos_step_timings(fr, fc, sos_run) -> dict:
-    """[sos_step]: the 32768-ray SOS step (8 patches of 64x64) in ms from
-    CUDA events on the kernel path and on the plain path (each kernel
-    wrapper's plain version in its place), with peak memory; then the
-    kernel path's step split into its parts, each timed alone on the step's
-    own inputs: K4 and K5 coarse and fine, the ViT, the appearance loss
-    (forward and backward), K7 forward and backward, and Adam."""
+MODE_STEPS = 5
+
+
+def sos_mode_path(fr, fc, mode: str) -> dict:
+    """[sos_full] (the flagship finetune flags without --fix_backbone: the
+    whole network trains, the train render's backward is K6) or
+    [sos_randneg] (with --rand_neg: each head's geometry loss is two
+    single-head means, K7a + K7b forward and K7c backward), MODE_STEPS steps
+    from the [train] run's last.ckpt. Every kernel count is set to 0 just
+    before and read just after; the last step's K6 (or K7b/K7c) calls are
+    kept and held against their plain versions."""
+    from nerfsos_torch import run_nerf
+    from nerfsos_torch.engines import checkpoint as ckpt_lib
+    from nerfsos_torch.engines import sos
+
+    ckpt = os.path.join(WORK, "logs", "smoke_train", "checkpoints", "last.ckpt")
+    start_state, start_step, _ = ckpt_lib.load_checkpoint(ckpt)
+    last, end = start_step + MODE_STEPS - 1, start_step + MODE_STEPS
+    full = mode == "full"
+    name = "sos_full" if full else "sos_randneg"
+    args = (sos_args(ckpt, end, "smoke_" + name, drop=("--fix_backbone",)) if full
+            else sos_args(ckpt, end, "smoke_" + name, extra=("--rand_neg",)))
+    counted = {"K1": (fr, "fused_coarse_weights"), "K2": (fr, "fused_render"),
+               "K4": (fr, "train_render"), "K5": (fr, "frozen_sem_grads"),
+               "K6": (fr, "train_render_grads"), "K7a": (fc, "geo_row_stats"),
+               "K7b": (fc, "geo_single_means"), "K7c": (fc, "geo_single_grads"),
+               "K7d": (fc, "geo_pair_means"), "K7e": (fc, "geo_pair_grads"),
+               "K7f": (fc, "geo_quad_means"), "K7g": (fc, "geo_quad_grads")}
+    for mod, fn in counted.values():
+        getattr(mod, fn).launches = 0
+    rec = {"metrics": [], "objects": None, "start": None}
+    orig = sos.make_sos_train_step
+    cap = (Capture(fr, ["train_render_grads"]) if full
+           else Capture(fc, ["geo_single_means", "geo_single_grads"]))
+
+    def recording_make_step(net, *a, **kw):
+        rec["objects"] = (net, a, kw)
+        rec["start"] = {n: p.detach().clone() for n, p in net.state_dict().items()}
+        step = orig(net, *a, **kw)
+
+        def recorded(batch, global_step):
+            cap.on = global_step == last
+            try:
+                m = step(batch, global_step)
+            finally:
+                cap.on = False
+            rec["metrics"].append((global_step, m))
+            return m
+
+        return recorded
+
+    sos.make_sos_train_step = recording_make_step
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_nerf.main(args)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        sos.make_sos_train_step = orig
+        cap.close()
+    launches = {k: getattr(mod, fn).launches for k, (mod, fn) in counted.items()}
+    steps = [s for s, _ in rec["metrics"]]
+    metrics = [{k: float(v) for k, v in m.items()} for _, m in rec["metrics"]]
+    n = len(steps)
+    rerenders = sum(1 for s in steps if (s + 1) % args.i_print == 0 or s + 1 == 1)
+    phase(name, steps=n, first_step=steps[0] if steps else None,
+          patches=f"{args.batch_size}x{args.patch_size}x{args.patch_size}", views="8x384x512",
+          seconds_incl_load_and_eval=seconds, launches=launches,
+          loss_first=metrics[0]["loss"] if metrics else None,
+          loss_last=metrics[-1]["loss"] if metrics else None)
+    if steps != list(range(start_step, end)):
+        raise SystemExit(f"the {name} run ran steps {steps}")
+    want = dict.fromkeys(counted, 0)
+    want.update(K4=2 * n + 2 * rerenders)
+    if full:
+        want.update(K6=2 * n, K7a=n, K7f=n, K7g=n)
+    else:
+        want.update(K5=2 * n, K7a=4 * n, K7b=4 * n, K7c=4 * n)
+    del want["K1"], want["K2"]
+    if any(launches[k] != c for k, c in want.items()) or min(launches["K1"], launches["K2"]) < 1:
+        raise SystemExit(f"the {name} run did not go through the kernels as expected: "
+                         f"{launches}, expected {want} and K1/K2 in the final eval")
+    for m in metrics:
+        if not all(math.isfinite(v) for v in m.values()):
+            raise SystemExit(f"a {name} loss term is not finite: {m}")
+        if 0.0 in (m["corr0"], m["corr1"], m["geo_corr0"], m["geo_corr1"]):
+            raise SystemExit(f"a {name} correlation term is zero: {m}")
+    run_dir = os.path.join(WORK, "logs", "smoke_" + name)
+    check_checkpoints(run_dir, ["last.ckpt"])
+    end_state, end_step, opt = ckpt_lib.load_checkpoint(os.path.join(run_dir, "checkpoints",
+                                                                     "last.ckpt"))
+    for k, v in end_state.items():
+        moved = not torch.equal(v, rec["start"][k].cpu())
+        if (full or "semantic_linear" in k) and not moved:
+            raise SystemExit(f"{k} did not move in the {name} run")
+        if not full and "semantic_linear" not in k and not torch.equal(v, start_state[k]):
+            raise SystemExit(f"a frozen trunk leaf changed: {k}")
+    held = len(opt["state"])
+    if held != (len(end_state) if full else sum("semantic_linear" in k for k in end_state)):
+        raise SystemExit(f"the {name} checkpoint holds Adam state for {held} leaves")
+    log = check_final_eval(run_dir)
+    phase(f"{name}_eval", end_step=end_step, psnr=log["total_psnr"], ssim=log["total_ssim"],
+          every_trained_leaf_moved=True, adam_leaves=held)
+
+    # the last step's kernel calls against their plain versions on their own inputs
+    errs = {}
+    if full:
+        calls = cap.calls["train_render_grads"]
+        if len(calls) != 2:
+            raise SystemExit(f"captured {len(calls)} K6 calls of step {last}")
+        for a, kw, got in calls:
+            field, odv, z, dmaps, dweights = a
+            part = "coarse" if z.shape[1] == args.N_samples else "fine"
+            close = check_k6(f"step {last}, {part}", got,
+                             *plain_k6_with_gates(field, odv, z, dmaps, dweights, kw))
+            errs[f"K6 {part}"] = close["max_abs_err"]
+            phase("sos_full_k6", step=last, field=part, rays=z.shape[0], samples=z.shape[1],
+                  **close)
+    else:
+        calls_m, calls_g = cap.calls["geo_single_means"], cap.calls["geo_single_grads"]
+        if len(calls_m) != 4 or len(calls_g) != 4:
+            raise SystemExit(f"captured {len(calls_m)} K7b and {len(calls_g)} K7c calls of "
+                             f"step {last}")
+        rel = {"K7b": 0.0, "K7c": 0.0}
+        errs = {"K7b": 0.0, "K7c": 0.0}
+        with torch.no_grad():
+            for k, calls, plain in (("K7b", calls_m, fc.geo_single_means_plain),
+                                    ("K7c", calls_g, fc.geo_single_grads_plain)):
+                for a, _, got in calls:
+                    want_k = plain(*a)
+                    got_t = got if isinstance(got, tuple) else (got,)
+                    want_t = want_k if isinstance(want_k, tuple) else (want_k,)
+                    for x, r in zip(got_t, want_t):
+                        errs[k] = max(errs[k], max_err(x, r))
+                        rel[k] = max(rel[k], max_err(x, r) / max(float(r.abs().max()), 1e-30))
+                        if not torch.isfinite(x).all():
+                            raise SystemExit(f"{k} at step {last} is not finite")
+        if max(rel.values()) > K7_TOL:
+            raise SystemExit(f"K7b/K7c at step {last} disagree with their plain versions: "
+                             f"relative errors {rel} (tol {K7_TOL})")
+        phase("sos_randneg_k7", step=last, calls=4, rel_err_K7b=rel["K7b"],
+              rel_err_K7c=rel["K7c"], tol=K7_TOL)
+    return {"launches": launches, "rec": rec, "args": args, "errs": errs}
+
+
+def sos_step_timings(fr, fc, sos_run, name: str = "sos_step",
+                     bwd: str = "frozen_sem_grads") -> dict:
+    """[sos_step] (``bwd`` K5, the frozen finetune) or [sos_full_step] (K6,
+    the full finetune): the 32768-ray SOS step (8 patches of 64x64) in ms
+    from CUDA events on the kernel path and on the plain path (each kernel
+    wrapper's plain version in its place; K6's runs its autograd a chunk of
+    rays at a time, so the full step's plain path fits too), with peak
+    memory; then the kernel path's step
+    split into its parts, each timed alone on the step's own inputs: the
+    train render's forward (K4) and backward (``bwd``) coarse and fine, the
+    ViT, the appearance loss (forward and backward), K7 forward and
+    backward, and Adam."""
     from nerfsos_torch.data.datasets import PatchDataset
     from nerfsos_torch.engines import sos
     from nerfsos_torch.losses.correlation import CorrelationLoss
@@ -1030,15 +1365,16 @@ def sos_step_timings(fr, fc, sos_run) -> dict:
     net, a, kw = sos_run["rec"]["objects"]
     extractor, app_loss, geo_loss, cfg, optimizer, schedule, near, far = a
     args = sos_run["args"]
-    step = sos.make_sos_train_step(net, *a, **kw)
     ds = PatchDataset(args.data_path, patch_size=args.patch_size,
                       patch_stride=args.patch_stride, ret_k=True)
+    step = sos.make_sos_train_step(net, *a, **kw)
     b = ds.sample_batch(np.random.default_rng(0), args.batch_size)
     device = next(net.parameters()).device
     batch = {k: torch.as_tensor(b[k], device=device) for k in ("rays", "target")}
+    bwd_key = {"frozen_sem_grads": "K5", "train_render_grads": "K6"}[bwd]
+    cost = {"K5": k5_cost, "K6": k6_cost}[bwd_key]
     out = {}
-    plain = {fr: {"train_render": fr.train_render_plain,
-                  "frozen_sem_grads": fr.frozen_sem_grads_plain},
+    plain = {fr: {"train_render": fr.train_render_plain, bwd: getattr(fr, bwd + "_plain")},
              fc: {"geo_row_stats": fc.geo_row_stats_plain,
                   "geo_quad_means": fc.geo_quad_means_plain,
                   "geo_quad_grads": fc.geo_quad_grads_plain}}
@@ -1051,6 +1387,7 @@ def sos_step_timings(fr, fc, sos_run) -> dict:
                     setattr(mod, n, f)
         try:
             torch.cuda.synchronize()
+            torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
             ms = cuda_ms(lambda: step(batch, 0), reps=3, warmup=1)
             peak = torch.cuda.max_memory_allocated() / 2**30
@@ -1058,11 +1395,12 @@ def sos_step_timings(fr, fc, sos_run) -> dict:
             for (mod, n), f in saved.items():
                 setattr(mod, n, f)
         out.setdefault(path, []).append((ms, peak))
-        phase("sos_step", path=path, rays=batch["target"].shape[0], ms=ms,
-              rays_per_s=batch["target"].shape[0] / ms * 1e3, peak_gib=peak)
+        rays = batch["target"].shape[0]
+        phase(name, path=path, patches=args.batch_size, rays=rays, ms=ms,
+              rays_per_s=rays / ms * 1e3, peak_gib=peak)
 
     # one kernel-path step with every part's inputs kept, then each part alone
-    k4k5 = Capture(fr, ["train_render", "frozen_sem_grads"])
+    k4kb = Capture(fr, ["train_render", bwd])
     k7 = Capture(fc, ["geo_row_stats", "geo_quad_means", "geo_quad_grads"])
     vit_in, app_in = [], []
     orig_vit, orig_pair = extractor.get_vit_attn_feat, CorrelationLoss.pair_heads
@@ -1076,25 +1414,26 @@ def sos_step_timings(fr, fc, sos_run) -> dict:
         return orig_pair(self, *pa)
 
     extractor.get_vit_attn_feat, CorrelationLoss.pair_heads = vit, pair_heads
-    k4k5.on = k7.on = True
+    k4kb.on = k7.on = True
     try:
         step(batch, 0)
         torch.cuda.synchronize()
     finally:
-        k4k5.close()
+        k4kb.close()
         k7.close()
         extractor.get_vit_attn_feat, CorrelationLoss.pair_heads = orig_vit, orig_pair
     parts = {}
-    for name, (fa, fkw, _) in zip(("K4 coarse", "K4 fine"), k4k5.calls["train_render"]):
+    for part, (fa, fkw, _) in zip(("K4 coarse", "K4 fine"), k4kb.calls["train_render"]):
         with torch.no_grad():
-            parts[name] = (cuda_ms(lambda: fr.train_render(*fa, **fkw), reps=3, warmup=1),
+            parts[part] = (cuda_ms(lambda: fr.train_render(*fa, **fkw), reps=3, warmup=1),
                            cuda_ms(lambda: fr.train_render_plain(*fa, **fkw), reps=2, warmup=1))
-        parts[name + " cost"] = k4_cost(fa[0], *fa[2].shape)
-    for fa, fkw, _ in k4k5.calls["frozen_sem_grads"]:
-        name = "K5 coarse" if fa[2].shape[1] == args.N_samples else "K5 fine"
-        parts[name] = (cuda_ms(lambda: fr.frozen_sem_grads(*fa), reps=3, warmup=1),
-                       cuda_ms(lambda: fr.frozen_sem_grads_plain(*fa), reps=2, warmup=1))
-        parts[name + " cost"] = k5_cost(fa[0], *fa[2].shape)
+        parts[part + " cost"] = k4_cost(fa[0], *fa[2].shape)
+    for fa, fkw, _ in k4kb.calls[bwd]:
+        part = f"{bwd_key} coarse" if fa[2].shape[1] == args.N_samples else f"{bwd_key} fine"
+        parts[part] = (cuda_ms(lambda: getattr(fr, bwd)(*fa, **fkw), reps=3, warmup=1),
+                       cuda_ms(lambda: getattr(fr, bwd + "_plain")(*fa, **fkw), reps=2,
+                               warmup=1))
+        parts[part + " cost"] = cost(fa[0], *fa[2].shape)
     with torch.no_grad():
         parts["ViT"] = (cuda_ms(lambda: orig_vit(vit_in[0]), reps=3, warmup=1), None)
 
@@ -1110,12 +1449,14 @@ def sos_step_timings(fr, fc, sos_run) -> dict:
                            None)
     parts["K7 backward"] = (cuda_ms(lambda: fc.geo_quad_grads(*a_g)), None)
     parts["Adam"] = (cuda_ms(optimizer.step, reps=5, warmup=1), None)
-    for name, v in parts.items():
-        if not name.endswith("cost"):
-            phase("sos_step_part", part=name, ms=v[0], plain_ms=v[1])
+    for part, v in parts.items():
+        if not part.endswith("cost"):
+            phase(f"{name}_part", part=part, ms=v[0], plain_ms=v[1],
+                  **({"bound_ms": parts[part + " cost"]["bound_ms"]}
+                     if part + " cost" in parts else {}))
     step_ms = out["kernel"][-1][0]
     named = sum(v[0] for n, v in parts.items() if not n.endswith("cost") and n != "Adam")
-    phase("sos_step_split", step_ms=step_ms, parts_ms=named + parts["Adam"][0],
+    phase(f"{name}_split", step_ms=step_ms, parts_ms=named + parts["Adam"][0],
           rest_ms=step_ms - named - parts["Adam"][0])
     return parts
 
@@ -1159,22 +1500,33 @@ def main() -> int:
     train_step_timings(fr)
     kernel_vs_plain_k4_k5(fr, 64)
     k45_err = kernel_vs_plain_k4_k5(fr, 192)
+    kernel_vs_plain_k6(fr, 64)
+    k6 = kernel_vs_plain_k6(fr, 192)
     sos_run = sos_path(fr, fc)
     k7 = kernel_vs_plain_k7(fc, sos_run["k7_calls"])
     del sos_run["k4_calls"], sos_run["k5_calls"], sos_run["k7_calls"]
+    k7s = kernel_vs_plain_k7s(fc)
+    torch.cuda.empty_cache()
+    full_run = sos_mode_path(fr, fc, "full")
+    torch.cuda.empty_cache()
+    rand_run = sos_mode_path(fr, fc, "randneg")
     torch.cuda.empty_cache()
     parts = sos_step_timings(fr, fc, sos_run)
+    del sos_run["rec"]
+    torch.cuda.empty_cache()
+    full_parts = sos_step_timings(fr, fc, full_run, "sos_full_step", "train_render_grads")
     sos_launches = sos_run["launches"]
+    full_launches, rand_launches = full_run["launches"], rand_run["launches"]
 
     src = "nerfsos_torch/csrc/fused_render.cu"
     train_src = "nerfsos_torch/csrc/train_render.cu"
     corr_src = "nerfsos_torch/csrc/flash_corr.cu"
 
-    def main_path_numbers(kernel: str, err: float) -> dict:
+    def main_path_numbers(kernel: str, err: float, timed=parts) -> dict:
         """ms and plain ms of the SOS step's fine call (32768 rays, S=192)."""
-        ms, plain_ms = parts[f"{kernel} fine"]
+        ms, plain_ms = timed[f"{kernel} fine"]
         return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                **parts[f"{kernel} fine cost"], "library_ms": None}
+                **timed[f"{kernel} fine cost"], "library_ms": None}
 
     kernels = [
         {"name": "K1 fused_coarse_weights", "route": "cuda", "source": src,
@@ -1192,9 +1544,25 @@ def main() -> int:
         {"name": "K5 frozen_sem_grads", "route": "cuda", "source": train_src,
          "replaces": "nerfsos_tpu/ops/pallas/fused_render.py:1207",
          "launches": sos_launches["K5"], **main_path_numbers("K5", k45_err["K5"])},
+        {"name": "K6 train_render_grads", "route": "cuda", "source": train_src,
+         "replaces": "nerfsos_tpu/ops/pallas/fused_render.py:940",
+         "launches": full_launches["K6"],
+         **main_path_numbers("K6", k6["max_abs_err"], full_parts)},
         {"name": "K7a geo_row_stats", "route": "cuda", "source": corr_src,
          "replaces": "nerfsos_tpu/ops/pallas/flash_corr.py:105",
          "launches": sos_launches["K7a"], **k7["K7a"]},
+        {"name": "K7b geo_single_means", "route": "cuda", "source": corr_src,
+         "replaces": "nerfsos_tpu/ops/pallas/flash_corr.py:116",
+         "launches": rand_launches["K7b"], **k7s["K7b"]},
+        {"name": "K7c geo_single_grads", "route": "cuda", "source": corr_src,
+         "replaces": "nerfsos_tpu/ops/pallas/flash_corr.py:130",
+         "launches": rand_launches["K7c"], **k7s["K7c"]},
+        {"name": "K7d geo_pair_means", "route": "cuda", "source": corr_src,
+         "replaces": "nerfsos_tpu/ops/pallas/flash_corr.py:281",
+         "launches": full_launches["K7d"] + rand_launches["K7d"], **k7s["K7d"]},
+        {"name": "K7e geo_pair_grads", "route": "cuda", "source": corr_src,
+         "replaces": "nerfsos_tpu/ops/pallas/flash_corr.py:307",
+         "launches": full_launches["K7e"] + rand_launches["K7e"], **k7s["K7e"]},
         {"name": "K7f geo_quad_means", "route": "cuda", "source": corr_src,
          "replaces": "nerfsos_tpu/ops/pallas/flash_corr.py:422",
          "launches": sos_launches["K7f"], **k7["K7f"]},

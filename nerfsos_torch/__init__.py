@@ -6,12 +6,16 @@ the same path:
 - ``core``    : positional encoding, samplers, volumetric compositing (torch).
 - ``models``  : ``NeRFMLP`` / ``NeRFField`` / ``NeRFNet`` as ``nn.Module``s with
                 the reference's parameter names (a reference ``.ckpt`` loads by
-                ``load_state_dict``).
-- ``ops``     : the hand-written Hopper kernels behind the eval render
-                (``ops/fused_render.py``, sources in ``csrc/``), k-means, SSIM.
-- ``losses``  : photometric MSE / PSNR.
-- ``engines`` : config parsing, checkpoints, the eval engine.
-- ``data``    : the numpy ray datasets read by the eval engine.
+                ``load_state_dict``), DINO ViT-S/16 and its extractor.
+- ``ops``     : the hand-written Hopper kernels (sources in ``csrc/``) behind
+                the eval render, the RGB train step and the SOS finetune
+                (``ops/fused_render.py`` K1-K6, ``ops/flash_corr.py`` K7),
+                grid sampling, k-means, SSIM.
+- ``losses``  : photometric MSE / PSNR, the appearance and geometry
+                correlation losses, the contrastive loss.
+- ``engines`` : config parsing, checkpoints, Adam and the LR schedule, the
+                RGB and SOS train steps, the eval engine.
+- ``data``    : the numpy ray and patch datasets.
 - ``utils``   : ARI, PNG writer, colormap (numpy only).
 
 The package imports torch and numpy only; no JAX, and none of sklearn,

@@ -146,7 +146,9 @@ __device__ __forceinline__ void mma_stage(float (&acc)[2][kTilesN][4], const Sta
 // pipelined two deep (the next step's loads are in flight during this
 // step's mma). kGate: the relu derivative of a stored activation,
 // out[n][p] = gate[n][p] > 0 ? v : 0 (the reverse sweep's dY * [act > 0]).
-template <bool kGate = false>
+// kAccum: out's old value is added to v before the gate (a second product
+// into the same cotangent).
+template <bool kGate = false, bool kAccum = false>
 __device__ __forceinline__ void dense(const float* __restrict__ params, const LayerDesc L,
                                       Seg s0, Seg s1, Seg s2, float* out, bool relu,
                                       const float* gate = nullptr) {
@@ -193,6 +195,12 @@ __device__ __forceinline__ void dense(const float* __restrict__ params, const La
         v[1] += b1;
         v[2] += b0;
         v[3] += b1;
+        if (kAccum) {
+          v[0] += out[n * kLd + p];
+          v[1] += out[(n + 1) * kLd + p];
+          v[2] += out[n * kLd + p + 8];
+          v[3] += out[(n + 1) * kLd + p + 8];
+        }
         if (relu) {
 #pragma unroll
           for (int i = 0; i < 4; ++i) v[i] = fmaxf(v[i], 0.f);

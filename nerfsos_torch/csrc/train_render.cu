@@ -1,6 +1,7 @@
-// Fused RGB train kernels for Hopper (sm_90a): forward recompute, composite,
-// the img2mse cotangent and the full reverse sweep of the field MLP, for one
-// pass of rays, plus a deterministic reduction of the per-CTA gradients.
+// Fused train kernels for Hopper (sm_90a): forward recompute, composite,
+// the img2mse cotangent (or given map cotangents) and the full reverse sweep
+// of the field MLP, for one pass of rays, plus a deterministic reduction of
+// the per-CTA gradients; and the SOS finetune's forward and frozen backward.
 //
 // Replaces K3 of nerfsos_tpu/ops/pallas/fused_render.py:
 //   fused_rgb_train_grads -> _train_render_bwd_kernel with rgb_loss=True.
@@ -87,6 +88,24 @@
 // 320 x 128 products (~164 KFLOP a point), about equal on the H100; the two
 // blocks each read sem_in once. Shared memory: 230 KB at the flagship's
 // 320 padded sem_in rows, the most that fits.
+//
+// K6 (replaces _train_render_bwd -> _train_render_bwd_kernel with map
+// cotangents): the full-backbone SOS finetune's backward, a third mode of
+// K3's two kernels. The forward kernel recomputes the chunk as K3 does and
+// also stores the semantic head's hidden activation s_act; its composite
+// reads the maps' cotangent dmaps [R, 5 + sem] and the weights' cotangent
+// dweights [R, S] (null: zero) instead of gt, and forms per point
+//   dw = sum_j dmaps[j] rgb_j + dmaps[3] z + dmaps[4] + sum_c dmaps[5 + c] sem_c
+//        + dweights,
+// then K3's reverse composite for dsigma, d_rgb = dmaps[0:3] w rgb (1 - rgb)
+// and d_sem = dmaps[5:] w (a plane of its own). The reverse kernel sweeps
+// the semantic head between alpha/feature and the trunk: dW of sem_1 from
+// (s_act, d_sem), ds = (W1^T d_sem) [s_act > 0], dW of sem_0 from
+// ([h; emb], ds), and W0[:, h]^T ds added into the last trunk layer's
+// cotangent before its gate (dense's kAccum). K3's mode runs the sweep it
+// ran before. Bound: arithmetic, K3's work plus the semantic head's
+// backward (~3.8 MFLOP a flagship point); the extra planes (s_act, d_sem,
+// ds: 264 rows a tile) add ~8% to the per-CTA workspace.
 
 #include "tile_mlp.cuh"
 
@@ -144,7 +163,7 @@ __device__ __forceinline__ float hash_noise(uint32_t seed, uint32_t idx, float s
 
 // One input of a weight-gradient product: up to two planes, in row order.
 struct XSegs {
-  int p[2];
+  int p[3];
   int n;
 };
 
@@ -199,7 +218,9 @@ __device__ void stage_tiles(float* stage, float* ws, const TrainDesc& d, XSegs X
 // relu derivative of gate(sub) when gate >= 0: the input-gradient product
 // of one layer. dY is up to two planes of rows (k0 then k1); each tile of
 // them is copied into shared memory with cp.async (the next tile in flight
-// while this one is multiplied) and dense() reads it from there.
+// while this one is multiplied) and dense() reads it from there. kAccum:
+// the product is added to what out holds (before the gate).
+template <bool kAccum = false>
 __device__ __noinline__ void bwd_layer(const float* __restrict__ bparams, const LayerDesc L,
                                        float* ws, const TrainDesc& d, int p0, int p1, int out,
                                        int gate, int nsub, float* stages) {
@@ -226,10 +247,10 @@ __device__ __noinline__ void bwd_layer(const float* __restrict__ bparams, const 
     const float* a = stages + (sub & 1) * kBwdStageFloats;
     const Seg s1 = k1 ? Seg{a + k0 * kLd, k1} : none();
     if (gate >= 0) {
-      dense<true>(bparams, L, Seg{a, k0}, s1, none(), plane(ws, d, out, sub), false,
-                  plane(ws, d, gate, sub));
+      dense<true, kAccum>(bparams, L, Seg{a, k0}, s1, none(), plane(ws, d, out, sub), false,
+                          plane(ws, d, gate, sub));
     } else {
-      dense(bparams, L, Seg{a, k0}, s1, none(), plane(ws, d, out, sub), false);
+      dense<false, kAccum>(bparams, L, Seg{a, k0}, s1, none(), plane(ws, d, out, sub), false);
     }
     __syncthreads();
   }
@@ -367,11 +388,13 @@ __device__ __forceinline__ void store_tile(const float* src, float* dst, int row
 // Forward of one 64-point tile of the chunk (rays r0.., nq points), as the
 // render kernel K2 computes it: the points, their PE, the trunk and the
 // heads on activations in shared memory (emb, demb and two layer buffers at
-// `tile`); sigma / rgb logits / semantics go to the strip. kStore (K3):
-// every activation the reverse sweep reads is also stored to the workspace.
-// semin (K4, may be null): the semantic head's input [h; emb] of each point
-// is written as a row of semin [R * S][C] (C its unpadded width).
-template <bool kStore>
+// `tile`); sigma / rgb logits / semantics go to the strip. kStore (K3, K6):
+// every activation the reverse sweep reads is also stored to the workspace;
+// kSemAct (K6): the semantic head's hidden activation too (plane
+// P_ACT0 + depth). semin (K4, may be null): the semantic head's input
+// [h; emb] of each point is written as a row of semin [R * S][C] (C its
+// unpadded width).
+template <bool kStore, bool kSemAct = false>
 __device__ __forceinline__ void forward_tile(const float* __restrict__ odv, const float* zc,
                                              const float* __restrict__ params,
                                              const TrainDesc& d, float* ws, float* strip,
@@ -446,6 +469,7 @@ __device__ __forceinline__ void forward_tile(const float* __restrict__ odv, cons
     const Seg coord = f.sem_with_coord ? Seg{emb, Ep} : none();
     dense_call(params, head[4], in0, in1, coord, spare, true);
     __syncthreads();
+    if (kSemAct) store_tile(spare, plane(ws, d, P_ACT0 + depth, sub), pad8(head[4].n));
     dense_small(params, head[5], Seg{spare, pad8(head[4].n)}, none(), none(), strip, q0, nq, cs,
                 5);
     __syncthreads();
@@ -461,19 +485,28 @@ __device__ __forceinline__ void forward_tile(const float* __restrict__ odv, cons
   __syncthreads();
 }
 
+// What the composite does after the maps: kForward (K4) nothing; kLoss
+// (K3) the img2mse cotangent from gt and its reverse; kCotangent (K6) the
+// reverse of the given map and weight cotangents.
+enum Mode { kForward, kLoss, kCotangent };
+
 // The composite of the chunk's rays (one thread a ray): sigma noise, alpha,
-// transmittance, weights and maps out; with kLoss (K3) the img2mse
-// cotangent and its reverse through the composite into dsigma and drgb
-// (pre-sigmoid) per point.
-template <bool kLoss>
+// transmittance, weights and maps out (each when its pointer is not null);
+// then, but for kForward, the maps' cotangent (kLoss: 2 (rgb_map - gt) from
+// aux = gt [R, 3]; kCotangent: aux = dmaps [R, 5 + sem], with dweights
+// [R, S] or null) and its reverse through the composite into dsigma, drgb
+// (pre-sigmoid) and, for kCotangent, d_sem per point.
+template <int kMode>
 __device__ __forceinline__ void composite_chunk(const float* __restrict__ odv, const float* zc,
-                                                const float* __restrict__ gt, const TrainDesc& d,
-                                                float* ws, float* strip,
+                                                const float* __restrict__ aux,
+                                                const float* __restrict__ dweights,
+                                                const TrainDesc& d, float* ws, float* strip,
                                                 float* __restrict__ maps,
                                                 float* __restrict__ weights, int r0, int nr,
                                                 int S, int nsub, unsigned seed,
                                                 float noise_std, int white_bkgd) {
   const int sem = d.f.sem_dim, cs = 6 + sem, nmaps = 5 + sem, nq = nr * S;
+  const int p_dsem = P_ACT0 + d.f.depth + 1;
   for (int rl = threadIdx.x; rl < nr; rl += kThreads) {
     const float* ray = odv + (size_t)(r0 + rl) * 9;
     const float nd = sqrtf(ray[3] * ray[3] + ray[4] * ray[4] + ray[5] * ray[5]);
@@ -492,7 +525,7 @@ __device__ __forceinline__ void composite_chunk(const float* __restrict__ odv, c
       const float w = (1.f - e) * T;
       cq[1] = T;
       cq[5 + sem] = w;
-      weights[(size_t)(r0 + rl) * S + s] = w;
+      if (weights) weights[(size_t)(r0 + rl) * S + s] = w;
 #pragma unroll
       for (int j = 0; j < 3; ++j) m[j] += w * (1.f / (1.f + expf(-cq[2 + j])));
       m[3] += w * zr[s];
@@ -502,17 +535,30 @@ __device__ __forceinline__ void composite_chunk(const float* __restrict__ odv, c
         if (j < sem) m[5 + j] += w * cq[5 + j];
       T *= e + 1e-10f;
     }
+    if (maps) {
 #pragma unroll
-    for (int j = 0; j < 5 + kMaxSem; ++j)
-      if (j < nmaps) maps[(size_t)(r0 + rl) * nmaps + j] = m[j];
-    if (!kLoss) continue;
+      for (int j = 0; j < 5 + kMaxSem; ++j)
+        if (j < nmaps) maps[(size_t)(r0 + rl) * nmaps + j] = m[j];
+    }
+    if (kMode == kForward) continue;
 
-    const float* gr = gt + (size_t)(r0 + rl) * 3;
-    const float bg = white_bkgd ? 1.f - m[4] : 0.f;
-    float diff[3];
+    // g: the cotangent of each map column (kLoss: the rgb columns' and the
+    // white background's acc term)
+    float g[5 + kMaxSem];
 #pragma unroll
-    for (int j = 0; j < 3; ++j) diff[j] = 2.f * (m[j] + bg - gr[j]);
-    const float dacc = white_bkgd ? -(diff[0] + diff[1] + diff[2]) : 0.f;
+    for (int j = 0; j < 5 + kMaxSem; ++j) g[j] = 0.f;
+    if (kMode == kLoss) {
+      const float* gr = aux + (size_t)(r0 + rl) * 3;
+      const float bg = white_bkgd ? 1.f - m[4] : 0.f;
+#pragma unroll
+      for (int j = 0; j < 3; ++j) g[j] = 2.f * (m[j] + bg - gr[j]);
+      g[4] = white_bkgd ? -(g[0] + g[1] + g[2]) : 0.f;
+    } else {
+      const float* dm = aux + (size_t)(r0 + rl) * nmaps;
+#pragma unroll
+      for (int j = 0; j < 5 + kMaxSem; ++j)
+        if (j < nmaps) g[j] = dm[j];
+    }
     float suffix = 0.f;  // sum over later samples of dw * alpha * T
     for (int s = S - 1; s >= 0; --s) {
       const float* cq = strip + (rl * S + s) * cs;
@@ -523,34 +569,54 @@ __device__ __forceinline__ void composite_chunk(const float* __restrict__ odv, c
       float rgb[3];
 #pragma unroll
       for (int j = 0; j < 3; ++j) rgb[j] = 1.f / (1.f + expf(-cq[2 + j]));
-      const float dw = diff[0] * rgb[0] + diff[1] * rgb[1] + diff[2] * rgb[2] + dacc;
+      float dw;
+      if (kMode == kLoss) {
+        dw = g[0] * rgb[0] + g[1] * rgb[1] + g[2] * rgb[2] + g[4];
+      } else {
+        dw = g[0] * rgb[0] + g[1] * rgb[1] + g[2] * rgb[2] + g[3] * zr[s] + g[4];
+#pragma unroll
+        for (int j = 0; j < kMaxSem; ++j)
+          if (j < sem) dw += g[5 + j] * cq[5 + j];
+        if (dweights) dw += dweights[(size_t)(r0 + rl) * S + s];
+      }
       const float dalpha = dw * Ts - suffix / y;
       suffix += (dw * alpha) * Ts;
       const int q = rl * S + s, sub = q / kPts, p = q % kPts;
       plane(ws, d, P_DSIG, sub)[p] = sig > 0.f ? dalpha * e * D : 0.f;
       float* dr = plane(ws, d, P_DRGB, sub);
 #pragma unroll
-      for (int j = 0; j < 3; ++j) dr[j * kLd + p] = (diff[j] * w) * (rgb[j] * (1.f - rgb[j]));
+      for (int j = 0; j < 3; ++j) dr[j * kLd + p] = (g[j] * w) * (rgb[j] * (1.f - rgb[j]));
+      if (kMode == kCotangent) {
+        float* dsm = plane(ws, d, p_dsem, sub);
+#pragma unroll
+        for (int j = 0; j < kMaxSem; ++j)
+          if (j < sem) dsm[j * kLd + p] = g[5 + j] * w;
+      }
     }
   }
-  for (int q = nq + threadIdx.x; kLoss && q < nsub * kPts; q += kThreads) {  // last tile's tail
-    const int sub = q / kPts, p = q % kPts;
+  for (int q = nq + threadIdx.x; kMode != kForward && q < nsub * kPts; q += kThreads) {
+    const int sub = q / kPts, p = q % kPts;  // the last tile's tail
     plane(ws, d, P_DSIG, sub)[p] = 0.f;
     float* dr = plane(ws, d, P_DRGB, sub);
     for (int j = 0; j < 3; ++j) dr[j * kLd + p] = 0.f;
+    if (kMode == kCotangent)
+      for (int j = 0; j < sem; ++j) plane(ws, d, p_dsem, sub)[j * kLd + p] = 0.f;
   }
   __syncthreads();
 }
 
 // Wave `wave` of the forward: CTA b takes chunk wave * gridDim.x + b into its
 // workspace slice b: every activation of the reverse sweep, then the
-// composite (maps, weights, dsigma and drgb).
+// composite (kLoss: maps, weights, dsigma and drgb from gt = aux;
+// kCotangent: dsigma, drgb and d_sem from dmaps = aux and dweights).
+template <int kMode>
 __global__ void __launch_bounds__(kThreads, 1)
     train_forward_kernel(const float* __restrict__ odv, const float* __restrict__ z,
-                         const float* __restrict__ gt, const float* __restrict__ params,
-                         const __grid_constant__ TrainDesc d, float* __restrict__ maps,
-                         float* __restrict__ weights, float* __restrict__ workspace, int R,
-                         int S, int wave, unsigned seed, float noise_std, int white_bkgd) {
+                         const float* __restrict__ aux, const float* __restrict__ dweights,
+                         const float* __restrict__ params, const __grid_constant__ TrainDesc d,
+                         float* __restrict__ maps, float* __restrict__ weights,
+                         float* __restrict__ workspace, int R, int S, int wave, unsigned seed,
+                         float noise_std, int white_bkgd) {
   extern __shared__ float4 smem4[];
   const int rpc = d.rays_per_chunk;
   const int c = wave * gridDim.x + blockIdx.x;
@@ -568,6 +634,11 @@ __global__ void __launch_bounds__(kThreads, 1)
       float* s = plane(ws, d, P_DSIG, sub);
       for (int i = threadIdx.x; i < 5 * kLd; i += kThreads) r[3 * kLd + i] = 0.f;
       for (int i = threadIdx.x; i < 7 * kLd; i += kThreads) s[kLd + i] = 0.f;
+      if (kMode == kCotangent && d.f.sem_dim > 0) {
+        float* m = plane(ws, d, P_ACT0 + d.f.depth + 1, sub);
+        for (int i = threadIdx.x; i < (8 - d.f.sem_dim) * kLd; i += kThreads)
+          m[d.f.sem_dim * kLd + i] = 0.f;
+      }
     }
   }
   __syncthreads();
@@ -577,11 +648,12 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   // ---- forward, storing every activation the reverse sweep reads
   for (int sub = 0; sub < nsub; ++sub)
-    forward_tile<true>(odv, zc, params, d, ws, strip, tile, r0, nq, S, sub, nullptr);
+    forward_tile<true, kMode == kCotangent>(odv, zc, params, d, ws, strip, tile, r0, nq, S, sub,
+                                            nullptr);
 
-  // ---- composite, maps, the img2mse cotangent and its reverse: one thread a ray
-  composite_chunk<true>(odv, zc, gt, d, ws, strip, maps, weights, r0, nr, S, nsub, seed,
-                        noise_std, white_bkgd);
+  // ---- composite, maps, the cotangent and its reverse: one thread a ray
+  composite_chunk<kMode>(odv, zc, aux, dweights, d, ws, strip, maps, weights, r0, nr, S, nsub,
+                         seed, noise_std, white_bkgd);
 }
 
 // K4: CTA b takes chunk b (d.rays_per_chunk rays): the forward of each
@@ -608,8 +680,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   const float* zc = z + (size_t)r0 * S;
   for (int sub = 0; sub < nsub; ++sub)
     forward_tile<false>(odv, zc, params, d, nullptr, strip, tile, r0, nq, S, sub, semin);
-  composite_chunk<false>(odv, zc, nullptr, d, nullptr, strip, maps, weights, r0, nr, S, nsub,
-                         seed, noise_std, 0);
+  composite_chunk<kForward>(odv, zc, nullptr, nullptr, d, nullptr, strip, maps, weights, r0,
+                            nr, S, nsub, seed, noise_std, 0);
 }
 
 // K5: the semantic head's weight gradients for a frozen backbone.
@@ -873,8 +945,10 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // Wave `wave` of the reverse sweep, on the chunk the forward left in
-// workspace slice b: rgb, views, feature + alpha, then the trunk; dW/db add
-// into CTA b's partial gradients (zeroed in wave 0).
+// workspace slice b: rgb, views, feature + alpha, with kSem (K6) the
+// semantic head, then the trunk; dW/db add into CTA b's partial gradients
+// (zeroed in wave 0).
+template <bool kSem>
 __global__ void __launch_bounds__(kThreads, 1)
     train_reverse_kernel(const float* __restrict__ bparams, const __grid_constant__ TrainDesc d,
                          float* __restrict__ partial, float* __restrict__ workspace, int R, int S,
@@ -907,6 +981,18 @@ __global__ void __launch_bounds__(kThreads, 1)
   wgrad(ws, d, h, P_DFEAT, ldw, gpart + d.gw[k_feat], gpart + d.gb[k_feat], nsub, stages);
   wgrad(ws, d, h, P_DSIG, 8, gpart + d.gw[k_alpha], gpart + d.gb[k_alpha], nsub, stages);
   bwd_layer(bparams, d.bwd[k_alpha], ws, d, P_DFEAT, P_DSIG, P_DA, last, nsub, stages);
+  if (kSem) {  // sem_1, ds, sem_0, and sem_0's input gradient on h added into P_DA
+    const int k_s0 = depth + 4, k_s1 = depth + 5;
+    const int p_sact = P_ACT0 + depth, p_dsem = p_sact + 1, p_ds = p_sact + 2;
+    wgrad(ws, d, XSegs{{p_sact, 0, 0}, 1}, p_dsem, pad8(f.layer[k_s1].n), gpart + d.gw[k_s1],
+          gpart + d.gb[k_s1], nsub, stages);
+    bwd_layer(bparams, d.bwd[k_s1], ws, d, p_dsem, -1, p_ds, p_sact, nsub, stages);
+    XSegs in = h;
+    if (f.sem_with_coord) in.p[in.n++] = P_EMB;
+    wgrad(ws, d, in, p_ds, pad8(f.layer[k_s0].n), gpart + d.gw[k_s0], gpart + d.gb[k_s0], nsub,
+          stages);
+    bwd_layer<true>(bparams, d.bwd[k_s0], ws, d, p_ds, -1, P_DA, last, nsub, stages);
+  }
   int cur = P_DA;
   for (int i = depth - 1; i >= 0; --i) {
     const XSegs in = (i == 0) ? XSegs{{P_EMB, 0}, 1}
@@ -980,36 +1066,68 @@ extern "C" int nerf_frozen_sem_grads(const float* semin, const float* weights,
   return (int)cudaGetLastError();
 }
 
+namespace {
+
 // grid CTAs (each with a d->ws_size workspace slice and a d->grad_size partial
 // gradient buffer) take the chunks of rays in waves of grid: per wave the
 // forward kernel, then the reverse-sweep kernel; then the partials are summed
 // into grads [d->grad_size]. Returns the first CUDA error of the launches.
-extern "C" int nerf_rgb_train_grads(const float* odv, const float* z, const float* gt,
-                                    const float* params, const float* bparams,
-                                    const TrainDesc* d, float* maps, float* weights,
-                                    float* partial, float* workspace, float* grads, int R, int S,
-                                    int grid, unsigned seed, float noise_std, int white_bkgd,
-                                    void* stream) {
-  const cudaStream_t st = (cudaStream_t)stream;
+template <int kMode, bool kSem>
+int train_grads(const float* odv, const float* z, const float* aux, const float* dweights,
+                const float* params, const float* bparams, const TrainDesc* d, float* maps,
+                float* weights, float* partial, float* workspace, float* grads, int R, int S,
+                int grid, unsigned seed, float noise_std, int white_bkgd, cudaStream_t st) {
   const int fwd_smem = forward_smem(d, S);
   const int stage_smem = (int)(kStagingFloats * sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(train_forward_kernel,
+  cudaError_t err = cudaFuncSetAttribute(train_forward_kernel<kMode>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, fwd_smem);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(train_reverse_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               stage_smem);
+    err = cudaFuncSetAttribute(train_reverse_kernel<kSem>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, stage_smem);
   if (err != cudaSuccess) return (int)err;
   const int nchunks = (R + d->rays_per_chunk - 1) / d->rays_per_chunk;
   for (int wave = 0; wave * grid < nchunks; ++wave) {
-    train_forward_kernel<<<grid, kThreads, fwd_smem, st>>>(
-        odv, z, gt, params, *d, maps, weights, workspace, R, S, wave, seed, noise_std,
-        white_bkgd);
-    train_reverse_kernel<<<grid, kThreads, stage_smem, st>>>(bparams, *d, partial, workspace, R,
-                                                            S, wave);
+    train_forward_kernel<kMode><<<grid, kThreads, fwd_smem, st>>>(
+        odv, z, aux, dweights, params, *d, maps, weights, workspace, R, S, wave, seed,
+        noise_std, white_bkgd);
+    train_reverse_kernel<kSem><<<grid, kThreads, stage_smem, st>>>(bparams, *d, partial,
+                                                                  workspace, R, S, wave);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   const int blocks = (int)((d->grad_size + 255) / 256 < 1024 ? (d->grad_size + 255) / 256 : 1024);
   reduce_partials<<<blocks, 256, 0, st>>>(partial, grads, d->grad_size, grid);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// K3: the RGB train pass; see train_grads.
+extern "C" int nerf_rgb_train_grads(const float* odv, const float* z, const float* gt,
+                                    const float* params, const float* bparams,
+                                    const TrainDesc* d, float* maps, float* weights,
+                                    float* partial, float* workspace, float* grads, int R, int S,
+                                    int grid, unsigned seed, float noise_std, int white_bkgd,
+                                    void* stream) {
+  return train_grads<kLoss, false>(odv, z, gt, nullptr, params, bparams, d, maps, weights,
+                                   partial, workspace, grads, R, S, grid, seed, noise_std,
+                                   white_bkgd, (cudaStream_t)stream);
+}
+
+// K6: the train render's backward from the maps' cotangent dmaps [R, 5 + sem]
+// and the weights' dweights [R, S] (null: zero); d describes the semantic
+// head's planes and gradients when d->f.sem_dim > 0; see train_grads.
+extern "C" int nerf_train_render_grads(const float* odv, const float* z, const float* dmaps,
+                                       const float* dweights, const float* params,
+                                       const float* bparams, const TrainDesc* d, float* partial,
+                                       float* workspace, float* grads, int R, int S, int grid,
+                                       unsigned seed, float noise_std, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (d->f.sem_dim > 0)
+    return train_grads<kCotangent, true>(odv, z, dmaps, dweights, params, bparams, d, nullptr,
+                                         nullptr, partial, workspace, grads, R, S, grid, seed,
+                                         noise_std, 0, st);
+  return train_grads<kCotangent, false>(odv, z, dmaps, dweights, params, bparams, d, nullptr,
+                                        nullptr, partial, workspace, grads, R, S, grid, seed,
+                                        noise_std, 0, st);
 }

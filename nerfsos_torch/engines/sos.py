@@ -15,15 +15,25 @@ Kept from the JAX package:
 - both correlation losses train both heads (coarse ``'0'`` and fine), and the
   geometry loss takes the fine depth for both, filtered with the
   batch-global largest depth under ``max_depth``;
-- the negatives are the CLS similarity matrix's argmin;
+- the negatives are the CLS similarity matrix's argmin: both heads share
+  them, so the appearance loss's four evaluations run as one batch and the
+  geometry loss's on the quad kernels K7f/K7g. With ``rand_neg`` each head
+  of each loss draws its own permutation, and each head's loss is a
+  neg and a self helper mean of its own (the single-head geometry kernels
+  K7b/K7c). The similarity matrix is always formed, so ``use_sim_matrix``
+  changes nothing here (as in the JAX step);
 - ``fix_backbone``: only the semantic head is trained. The optimizer holds
   it alone (``engines/state.make_optimizer``) and the fused train render's
   backward is K5 (``NeRFConfig.frozen_backbone``), so the trunk's reverse
-  sweep never runs.
+  sweep never runs. Without it every leaf trains and the fused train
+  render's backward is K6.
 
 Randomness is explicit: the step's generator and noise seeds come from
-``engines/trainer.step_randomness``; the appearance loss's coordinates are
-drawn from the same generator after the render, or given by the caller.
+``engines/trainer.step_randomness``. After the render the same generator
+draws, in this order, the appearance loss's coordinates
+(:func:`draw_pair_coords`) and, when a loss takes random negatives, the
+four permutations of :func:`draw_negatives`. Both can be given by the
+caller instead.
 """
 from __future__ import annotations
 
@@ -71,15 +81,28 @@ def _to_patches(x: torch.Tensor, B: int, P: int) -> torch.Tensor:
     return x.reshape(B, P, P, -1).permute(0, 3, 1, 2)
 
 
+def draw_negatives(generator: Optional[torch.Generator], app_loss: CorrelationLoss,
+                   geo_loss: GeoCorrelationLoss, batch: int,
+                   sim_matrix: torch.Tensor) -> torch.Tensor:
+    """``[4, B]``: the negatives of the appearance loss's coarse and fine
+    heads, then the geometry loss's, each ``loss.negative_index`` in that
+    order (a loss without ``rand_neg`` takes the argmin and draws nothing)."""
+    return torch.stack([loss.negative_index(generator, batch, sim_matrix)
+                        for loss in (app_loss, app_loss, geo_loss, geo_loss)])
+
+
 def sos_loss_fn(net: NeRFNet, extractor, app_loss: CorrelationLoss, geo_loss: GeoCorrelationLoss,
                 cfg: SOSConfig, batch: Batch, near: float, far: float, *,
                 generator: Optional[torch.Generator] = None,
                 noise_seeds: Tuple[int, int] = (0, 0),
-                coords: Optional[torch.Tensor] = None
+                coords: Optional[torch.Tensor] = None,
+                negatives: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The SOS loss and its terms. ``coords [4 B, F, F, 2]``: the appearance
-    loss's sample coordinates (:func:`draw_pair_coords` from ``generator``
-    when None)."""
+    loss's sample coordinates (own patches coarse, fine, then negative
+    patches coarse, fine; :func:`draw_pair_coords` from ``generator`` when
+    None). ``negatives [4, B]``: with ``rand_neg``, the heads' negatives
+    (:func:`draw_negatives` from ``generator`` when None)."""
     if net.fused and cfg.fix_backbone != net.cfg.frozen_backbone:
         raise ValueError("the fused train render needs NeRFConfig.frozen_backbone == "
                          "SOSConfig.fix_backbone (its backward is K5 exactly when frozen)")
@@ -110,10 +133,20 @@ def sos_loss_fn(net: NeRFNet, extractor, app_loss: CorrelationLoss, geo_loss: Ge
         sem0 = _to_patches(out["semantics0"], B, P)
         sem = _to_patches(out["semantics"], B, P)
 
+        if cfg.use_correlation and coords is None:
+            coords = draw_pair_coords(generator, B, app_loss.feature_samples, gt.device)
+        rand = ((cfg.use_correlation and app_loss.rand_neg)
+                or (cfg.use_geoCorr and geo_loss.rand_neg))
+        if rand and negatives is None:
+            negatives = draw_negatives(generator, app_loss, geo_loss, B, sim_matrix)
+
         if cfg.use_correlation:
-            if coords is None:
-                coords = draw_pair_coords(generator, B, app_loss.feature_samples, gt.device)
-            a0, a1 = app_loss.pair_heads(coords, feat, sem0, sem, sim_matrix)
+            if app_loss.rand_neg:  # each head on its own coordinates and negatives
+                c = torch.chunk(coords, 4)
+                a0 = app_loss.single(torch.cat([c[0], c[2]]), negatives[0], feat, sem0)
+                a1 = app_loss.single(torch.cat([c[1], c[3]]), negatives[1], feat, sem)
+            else:
+                a0, a1 = app_loss.pair_heads(coords, feat, sem0, sem, sim_matrix)
             corr0, corr1 = cfg.correlation_w * a0, cfg.correlation_w * a1
             loss = loss + corr0 + corr1
             metrics.update(corr0=corr0, corr1=corr1)
@@ -122,10 +155,14 @@ def sos_loss_fn(net: NeRFNet, extractor, app_loss: CorrelationLoss, geo_loss: Ge
             depth = _to_patches(out["depth"], B, P).detach()  # the fine depth for both heads
             pts = geo_loss._filtered_points(depth, _to_patches(batch["rays"][0], B, P),
                                             _to_patches(batch["rays"][1], B, P))
-            neg = geo_loss.negative_index(sim_matrix)
-            n0, n1, s0, s1 = geo_loss.quad(pts, pts[neg], sem0, sem0[neg], sem, sem[neg])
-            g0 = cfg.Gcorrelation_w * (geo_loss.neg_weight * n0 + geo_loss.self_weight * s0)
-            g1 = cfg.Gcorrelation_w * (geo_loss.neg_weight * n1 + geo_loss.self_weight * s1)
+            if geo_loss.rand_neg:
+                g0 = cfg.Gcorrelation_w * geo_loss.single(pts, sem0, negatives[2])
+                g1 = cfg.Gcorrelation_w * geo_loss.single(pts, sem, negatives[3])
+            else:
+                neg = torch.argmin(sim_matrix, dim=0)
+                n0, n1, s0, s1 = geo_loss.quad(pts, pts[neg], sem0, sem0[neg], sem, sem[neg])
+                g0 = cfg.Gcorrelation_w * (geo_loss.neg_weight * n0 + geo_loss.self_weight * s0)
+                g1 = cfg.Gcorrelation_w * (geo_loss.neg_weight * n1 + geo_loss.self_weight * s1)
             loss = loss + g0 + g1
             metrics.update(geo_corr0=g0, geo_corr1=g1)
 
@@ -144,8 +181,8 @@ def make_sos_train_step(net: NeRFNet, extractor, app_loss: CorrelationLoss,
                         near: float, far: float, seed: int = 0
                         ) -> Callable[[Batch, int], Dict[str, torch.Tensor]]:
     """``step(batch, global_step)``: one update of the parameters the
-    optimizer holds (the semantic head alone under ``fix_backbone``);
-    returns the detached metrics (device tensors)."""
+    optimizer holds (the semantic head alone under ``fix_backbone``, every
+    leaf without it); returns the detached metrics (device tensors)."""
     device = next(net.parameters()).device
     trained = [p for group in optimizer.param_groups for p in group["params"]]
 

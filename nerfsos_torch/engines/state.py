@@ -11,7 +11,8 @@ Port of ``nerfsos_tpu/engines/state.py``:
   does. With ``fix_backbone`` (the frozen SOS finetune) Adam holds the
   semantic head alone and every other parameter stops requiring gradients,
   as the reference does (``run_nerf.py:307-318``), so the frozen leaves stay
-  bit-equal (optax's ``multi_transform`` with ``set_to_zero``);
+  bit-equal (optax's ``multi_transform`` with ``set_to_zero``); without it
+  Adam holds every parameter of a model, each requiring gradients;
 - :func:`fast_forward_lr`: the LR of a resume whose Adam moments start fresh
   (a partial model load, or optimizer state that does not fit): the moments
   and their bias correction start at zero and the LR follows ``global_step``
@@ -41,14 +42,16 @@ def make_optimizer(params: Union[Iterable[torch.Tensor], nn.Module], init_lr: fl
                    fix_backbone: bool = False) -> torch.optim.Adam:
     """Adam over ``params`` (tensors, or a model's parameters); with
     ``fix_backbone``, ``params`` is the model, and only its semantic head is
-    trained."""
+    trained. Without it, a model's every parameter requires gradients again."""
     if fix_backbone:
         mask = semantic_head_mask(params)
         for name, p in params.named_parameters():
             p.requires_grad_(mask[name])
         params = [p for name, p in params.named_parameters() if mask[name]]
     elif isinstance(params, nn.Module):
-        params = params.parameters()
+        params = list(params.parameters())
+        for p in params:  # a module a --fix_backbone run froze trains again
+            p.requires_grad_(True)
     return torch.optim.Adam(params, lr=init_lr, betas=(0.9, 0.999), eps=1e-8)
 
 

@@ -14,11 +14,10 @@ Parity notes: qkv bias, LayerNorm eps 1e-6, exact (erf) GELU, attention
 written out with its softmax (the attention map is an output). The patch
 embedding's convolution has kernel = stride, so it is computed as one
 matrix product over the flattened patches (a float32 product, where cuDNN
-would take TF32 by default). Non-224 inputs interpolate the position
-embedding bicubically with ``F.interpolate``, the reference DINO's call;
-the JAX package's ``jax.image.resize`` (Keys a = -0.5, antialiased when it
-shrinks) gives other values there. The SOS path always feeds 224 x 224,
-where no interpolation happens.
+would take TF32 by default). Non-224 inputs resize the position embedding
+as the JAX package does (``jax.image.resize(..., method="bicubic")``, see
+:func:`cubic_resize_matrix`); the SOS path always feeds 224 x 224, where no
+interpolation happens.
 """
 from __future__ import annotations
 
@@ -28,6 +27,31 @@ from typing import Dict
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+
+def _keys_cubic(x: torch.Tensor) -> torch.Tensor:
+    """Keys' cubic convolution kernel with a = -0.5 at ``|x|``."""
+    out = ((1.5 * x - 2.5) * x) * x + 1.0
+    out = torch.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
+    return torch.where(x >= 2.0, torch.zeros_like(x), out)
+
+
+def cubic_resize_matrix(n_in: int, n_out: int) -> torch.Tensor:
+    """``[n_in, n_out]`` weights of one axis of an antialiased bicubic resize
+    with half-pixel centres (``jax.image.resize``'s ``compute_weight_mat``):
+    the Keys kernel widened by ``n_in / n_out`` when the axis shrinks, each
+    output's weights normalised over the input, outputs whose sample lies
+    outside the input zeroed."""
+    inv_scale = n_in / n_out
+    kernel_scale = max(inv_scale, 1.0)
+    sample = (torch.arange(n_out, dtype=torch.float32) + 0.5) * inv_scale - 0.5
+    x = (sample[None, :] - torch.arange(n_in, dtype=torch.float32)[:, None]).abs() / kernel_scale
+    w = _keys_cubic(x)
+    total = w.sum(0, keepdim=True)
+    w = torch.where(total.abs() > 1000.0 * float(torch.finfo(torch.float32).eps),
+                    w / torch.where(total != 0, total, torch.ones_like(total)), torch.zeros_like(w))
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return torch.where(inside[None, :], w, torch.zeros_like(w))
 
 
 class Mlp(nn.Module):
@@ -117,11 +141,11 @@ class VisionTransformer(nn.Module):
             return self.pos_embed
         dim = self.pos_embed.shape[-1]
         side = int(math.sqrt(N))
-        patch_pos = self.pos_embed[:, 1:].reshape(1, side, side, dim).permute(0, 3, 1, 2)
-        patch_pos = F.interpolate(patch_pos, size=(w // self.patch_size, h // self.patch_size),
-                                  mode="bicubic", align_corners=False)
-        return torch.cat([self.pos_embed[:, :1],
-                          patch_pos.permute(0, 2, 3, 1).reshape(1, -1, dim)], dim=1)
+        patch_pos = self.pos_embed[0, 1:].reshape(side, side, dim)
+        rows = cubic_resize_matrix(side, w // self.patch_size).to(patch_pos)
+        cols = cubic_resize_matrix(side, h // self.patch_size).to(patch_pos)
+        patch_pos = torch.einsum("ijc,ia,jb->abc", patch_pos, rows, cols)
+        return torch.cat([self.pos_embed[:, :1], patch_pos.reshape(1, -1, dim)], dim=1)
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         """``x [B, H, W, 3]`` -> dict(tokens, attn_last, normed)."""

@@ -1,8 +1,8 @@
-"""Fused render and RGB train kernels: field + volumetric composite in one
+"""Fused render and train kernels: field + volumetric composite in one
 kernel per pass.
 
-Port of ``nerfsos_tpu/ops/pallas/fused_render.py``'s eval kernels and its RGB
-train kernel:
+Port of ``nerfsos_tpu/ops/pallas/fused_render.py``'s eval kernels, its RGB
+train kernel and the SOS finetune's train forward and backward kernels:
 
 - :func:`fused_coarse_weights` (K1, replaces ``fused_coarse_weights_planar``):
   ``od [R, 6]`` (origins, unnormalized directions) and ``z [R, S]`` ->
@@ -23,13 +23,19 @@ train kernel:
   and its ``_train_frozen_bwd_kernel``): the ``--fix_backbone`` backward,
   dW/db of the semantic head alone from ``sem_in``, the weights and the
   maps' cotangent;
-- :func:`fused_train_render`: K4 and K5 as a ``torch.autograd.Function``
-  (replaces ``fused_train_render_planar`` and its custom VJP);
+- :func:`train_render_grads` (K6, replaces ``_train_render_bwd`` and its
+  ``_train_render_bwd_kernel`` with map cotangents): the full backward of
+  the train render, dW/db of every layer from the maps' and the weights'
+  cotangents, recomputing the forward with the same noise;
+- :func:`fused_train_render`: K4 with K5 or K6 as a
+  ``torch.autograd.Function`` (replaces ``fused_train_render_planar`` and
+  its custom VJP);
 - :func:`finish_maps`: vacancy depth, disp and white background on the maps.
 
 Each wrapper takes its plain PyTorch version (:func:`coarse_weights_plain`,
 :func:`render_plain`, :func:`rgb_train_grads_plain`,
-:func:`train_render_plain`, :func:`frozen_sem_grads_plain`, same signature)
+:func:`train_render_plain`, :func:`frozen_sem_grads_plain`,
+:func:`train_render_grads_plain`, same signature)
 for tensors on the CPU, and for CUDA tensors launches the hand-written
 kernel in ``csrc/fused_render.cu`` or ``csrc/train_render.cu`` or raises; it
 never falls back. ``<wrapper>.launches`` counts kernel launches.
@@ -155,20 +161,24 @@ def rgb_train_grads_plain(field: nn.Module, odv: torch.Tensor, z: torch.Tensor,
     Returns (grads keyed by ``field.named_parameters()`` names, UNSCALED: the
     caller multiplies by ``rgb_w / (R * 3)``; maps ``[R, 5 + sem]``; weights
     ``[R, S]``). The semantic columns of the maps get no cotangent, so the
-    semantic head's grads are zeros."""
+    semantic head's grads are zeros. Every parameter gets its gradient,
+    whether it requires one or not (a ``--fix_backbone`` optimizer drops
+    the frozen ones)."""
     R, S = z.shape
     z = z.detach()
-    names, params = zip(*field.named_parameters())
+    leaves = {n: p.detach().requires_grad_() for n, p in field.named_parameters()}
     with torch.enable_grad():
-        raw = field(points_along_rays(odv[:, 0:3], odv[:, 3:6], z), odv[:, 6:9])
+        raw = torch.func.functional_call(
+            field, leaves, (points_along_rays(odv[:, 0:3], odv[:, 3:6], z), odv[:, 6:9]))
         sigma = raw[..., 3]
         if noise_std > 0.0:
             sigma = sigma + noise_plain(seed, R, S, noise_std, z.device)
         maps, w = _maps(raw, sigma, z, odv[:, 3:6])
         rgbm = maps[:, 0:3] + (1.0 - maps[:, 4:5]) if white_bkgd else maps[:, 0:3]
         loss = torch.sum((rgbm - gt) ** 2)
-        grads = torch.autograd.grad(loss, params, allow_unused=True)
-    out = {n: torch.zeros_like(p) if g is None else g for n, p, g in zip(names, params, grads)}
+        grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+    out = {n: torch.zeros_like(p) if g is None else g
+           for (n, p), g in zip(leaves.items(), grads)}
     return out, maps.detach(), w.detach()
 
 
@@ -198,6 +208,37 @@ def train_render_plain(field: nn.Module, odv: torch.Tensor, z: torch.Tensor, *,
             if save_semin:
                 sem_in.append(si)
     return torch.cat(maps), torch.cat(weights), torch.cat(sem_in) if save_semin else None
+
+
+def train_render_grads_plain(field: nn.Module, odv: torch.Tensor, z: torch.Tensor,
+                             dmaps: torch.Tensor, dweights: Optional[torch.Tensor], *,
+                             noise_std: float, seed: int) -> Dict[str, torch.Tensor]:
+    """Plain version of K6: the VJP of :func:`train_render_plain`'s maps and
+    weights, ``sum(dmaps * maps) + sum(dweights * weights)`` differentiated
+    with respect to every parameter of the field (``dweights=None``: a zero
+    cotangent), keyed by ``field.named_parameters()`` names; z is constant.
+    Runs in chunks of rays, each chunk's graph freed before the next."""
+    R, S = z.shape
+    z = z.detach()
+    noise = noise_plain(seed, R, S, noise_std, z.device) if noise_std > 0.0 else None
+    leaves = {n: p.detach().requires_grad_() for n, p in field.named_parameters()}
+    grads = {n: torch.zeros_like(p) for n, p in leaves.items()}
+    step = max(1, _PLAIN_CHUNK_POINTS // max(S, 1))
+    with torch.enable_grad():
+        for r0 in range(0, R, step):
+            o, zc = odv[r0:r0 + step], z[r0:r0 + step]
+            raw = torch.func.functional_call(
+                field, leaves, (points_along_rays(o[:, 0:3], o[:, 3:6], zc), o[:, 6:9]))
+            sigma = raw[..., 3] if noise is None else raw[..., 3] + noise[r0:r0 + step]
+            m, w = _maps(raw, sigma, zc, o[:, 3:6])
+            obj = torch.sum(dmaps[r0:r0 + step] * m)
+            if dweights is not None:
+                obj = obj + torch.sum(dweights[r0:r0 + step] * w)
+            for n, g in zip(leaves, torch.autograd.grad(obj, list(leaves.values()),
+                                                        allow_unused=True)):
+                if g is not None:
+                    grads[n] += g
+    return grads
 
 
 _SEM_NAMES = ("mlp.semantic_linear.0.weight", "mlp.semantic_linear.0.bias",
@@ -322,8 +363,11 @@ def pack_train_bwd(field: nn.Module) -> Tuple[torch.Tensor, List[_build.MLPLayer
     the forward layer index they serve: trunk ``i >= 1`` gets ``W_i`` on the
     columns of its ``h`` input (``dh_{i-1} = W_i[:, h]^T dY_i``); alpha's
     slot gets ``[W_feature; W_alpha]`` on the columns of ``h``; views gets
-    ``W_views`` on the feature columns; rgb gets ``W_rgb``. The emb columns
-    of a skip input and layer 0 need no input gradient."""
+    ``W_views`` on the feature columns; rgb gets ``W_rgb``; with the
+    semantic head (K6), sem_0 gets its weight on the columns of ``h`` and
+    sem_1 its whole weight. The emb columns of a skip input, of the semantic
+    head's input and layer 0 need no input gradient. K3 reads none of the
+    semantic head's entries, which come last in the buffer."""
     mlp = field.mlp
     depth, W, E = mlp.depth, mlp.width, mlp.pts_linears[0].in_features
 
@@ -336,6 +380,9 @@ def pack_train_bwd(field: nn.Module) -> Tuple[torch.Tensor, List[_build.MLPLayer
     mats[depth] = [cols(mlp.feature_linear, a), cols(mlp.alpha_linear, a)]
     mats[depth + 2] = [cols(mlp.views_linears[0], 0)]
     mats[depth + 3] = [mlp.rgb_linear.weight.detach()]
+    if mlp.use_semantics:
+        mats[depth + 4] = [cols(mlp.semantic_linear[0], a)]
+        mats[depth + 5] = [mlp.semantic_linear[2].weight.detach()]
     descs = [_build.MLPLayer() for _ in range(_build.MAX_LAYERS)]
     parts, off = [], 0
     for i, blocks in mats.items():
@@ -364,7 +411,8 @@ def _packed(field: nn.Module, device: torch.device) -> Tuple[torch.Tensor, _buil
     return _cached(field, device, "_fused_pack", pack_field)
 
 
-# K3's workspace planes (csrc/train_render.cu ``enum Plane``) and its chunks
+# K3's workspace planes (csrc/train_render.cu ``enum Plane``; K6 adds s_act,
+# d_sem and ds after the trunk's) and its chunks
 _P_EMB, _P_DEMB, _P_FEAT, _P_HV, _P_DRGB, _P_DSIG, _P_DPV, _P_DFEAT, _P_DA, _P_DB, _P_ACT0 = \
     range(11)
 _KLD = 72          # floats a tile row (csrc/tile_mlp.cuh kLd)
@@ -377,12 +425,14 @@ def _rays_per_chunk(S: int) -> int:
     return max(1, _CHUNK_POINTS // S)
 
 
-def grad_layout(field: nn.Module) -> Tuple[List[Tuple[int, int]], int]:
+def grad_layout(field: nn.Module, sem: bool = False) -> Tuple[List[Tuple[int, int]], int]:
     """K3's gradient buffer: ``(dW offset, db offset)`` of every layer but the
-    semantic head, in kernel order (dW ``[k][pad8(n)]`` in ``pack_field``'s
-    padded ``W^T`` layout, db ``[pad8(n)]``), and its size in floats."""
+    semantic head (with ``sem``, K6's: every layer), in kernel order (dW
+    ``[k][pad8(n)]`` in ``pack_field``'s padded ``W^T`` layout, db
+    ``[pad8(n)]``), and its size in floats."""
     offs, off = [], 0
-    for lin, segs in _field_layers(field)[:field.mlp.depth + 4]:
+    layers = _field_layers(field)
+    for lin, segs in (layers if sem else layers[:field.mlp.depth + 4]):
         kpad, npad = sum(_pad8(k) for k in segs), _pad8(lin.out_features)
         offs.append((off, off + kpad * npad))
         off += kpad * npad + npad
@@ -390,22 +440,27 @@ def grad_layout(field: nn.Module) -> Tuple[List[Tuple[int, int]], int]:
 
 
 def train_desc(field: nn.Module, fdesc: _build.MLPDesc, bwd: List[_build.MLPLayer],
-               S: int) -> _build.TrainDesc:
+               S: int, sem: bool = False) -> _build.TrainDesc:
     """K3's descriptor for ``S`` samples a ray: the forward and backward
-    layers, the gradient layout and one CTA's workspace planes."""
+    layers, the gradient layout and one CTA's workspace planes. ``sem``
+    (K6 with the semantic head): the semantic head's gradients and three
+    planes more, after the trunk's: s_act, d_sem and ds."""
     mlp = field.mlp
     W = mlp.width
     d = _build.TrainDesc()
     d.f = fdesc
     for i, L in enumerate(bwd):
         d.bwd[i] = L
-    offs, d.grad_size = grad_layout(field)
+    offs, d.grad_size = grad_layout(field, sem)
     for i, (gw, gb) in enumerate(offs):
         d.gw[i], d.gb[i] = gw, gb
     d.rays_per_chunk = _rays_per_chunk(S)
     nsub = -(-d.rays_per_chunk * S // _TILE)
     rows = [_pad8(fdesc.emb_dim), _pad8(fdesc.demb_dim), _pad8(W), _pad8(W // 2), 8, 8,
             _pad8(W // 2), _pad8(W), _pad8(W), _pad8(W)] + [_pad8(W)] * mlp.depth
+    if sem:
+        hidden = _pad8(mlp.semantic_linear[0].out_features)
+        rows += [hidden, 8, hidden]
     off = 0
     for p, r in enumerate(rows):
         d.plane[p], d.rows[p] = off, r
@@ -414,13 +469,15 @@ def train_desc(field: nn.Module, fdesc: _build.MLPDesc, bwd: List[_build.MLPLaye
     return d
 
 
-def unpack_grads(field: nn.Module, flat: torch.Tensor) -> Dict[str, torch.Tensor]:
-    """K3's gradient buffer -> grads keyed by ``field.named_parameters()``
-    names: the inverse of ``pack_field``'s layout (the padding rows of every
-    input segment and the padding columns dropped, ``W^T`` transposed back).
-    The semantic head, which K3 does not sweep, gets zeros."""
+def unpack_grads(field: nn.Module, flat: torch.Tensor, sem: bool = False
+                 ) -> Dict[str, torch.Tensor]:
+    """K3's (``sem``: K6's) gradient buffer -> grads keyed by
+    ``field.named_parameters()`` names: the inverse of ``pack_field``'s
+    layout (the padding rows of every input segment and the padding columns
+    dropped, ``W^T`` transposed back). A layer outside the buffer (the
+    semantic head, which K3 does not sweep) gets zeros."""
     names = {id(p): n for n, p in field.named_parameters()}
-    offs, _ = grad_layout(field)
+    offs, _ = grad_layout(field, sem)
     out = {}
     for i, (lin, segs) in enumerate(_field_layers(field)):
         if i >= len(offs):
@@ -701,32 +758,93 @@ def frozen_sem_grads(field: nn.Module, sem_in: torch.Tensor, weights: torch.Tens
     return unpack_frozen(field, flat, d)
 
 
+def train_render_grads(field: nn.Module, odv: torch.Tensor, z: torch.Tensor,
+                       dmaps: torch.Tensor, dweights: Optional[torch.Tensor], *,
+                       noise_std: float, seed: int) -> Dict[str, torch.Tensor]:
+    """K6: the gradients of every parameter of the field from the maps'
+    cotangent ``dmaps [R, 5 + sem]`` and the weights' ``dweights [R, S]``
+    (None: zero), recomputing the forward of ``odv [R, 9]``, ``z [R, S]``
+    with the noise of ``seed``; see :func:`train_render_grads_plain`. One call
+    launches K3's forward and reverse-sweep kernels in their cotangent mode
+    once per wave of chunks and the reduction, and adds one to
+    ``launches``."""
+    if odv.device.type == "cpu":
+        return train_render_grads_plain(field, odv, z, dmaps, dweights, noise_std=noise_std,
+                                        seed=seed)
+    if odv.device.type != "cuda":
+        raise NotImplementedError(f"no kernel for device {odv.device}")
+    _check_inputs(field, odv, 9, z)
+    R, S = z.shape
+    buf, fdesc = _packed(field, odv.device)
+    for name, t, shape in (("dmaps", dmaps, (R, 5 + fdesc.sem_dim)),
+                           ("dweights", dweights, (R, S))):
+        if t is None:
+            continue
+        if t.device != odv.device or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous float32 on {odv.device}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"expected {name} {shape}, got {tuple(t.shape)}")
+    sem = field.mlp.use_semantics
+    bbuf, bwd = _cached(field, odv.device, "_fused_train_pack", pack_train_bwd)
+    desc = train_desc(field, fdesc, bwd, S, sem)
+    smem = _forward_smem(fdesc, desc.rays_per_chunk, S)
+    if smem > _MAX_SMEM:
+        raise NotImplementedError(f"S={S}: the forward's composite strip and tiles need {smem} B "
+                                  "of shared memory")
+    flat = torch.zeros(desc.grad_size, device=odv.device, dtype=torch.float32)
+    if R > 0:
+        nchunks = -(-R // desc.rays_per_chunk)
+        grid = min(nchunks, torch.cuda.get_device_properties(odv.device).multi_processor_count)
+        partial = torch.empty(grid * desc.grad_size, device=odv.device, dtype=torch.float32)
+        work = torch.empty(grid * desc.ws_size, device=odv.device, dtype=torch.float32)
+        with torch.cuda.device(odv.device):
+            code = _build.library().nerf_train_render_grads(
+                odv.data_ptr(), z.data_ptr(), dmaps.data_ptr(),
+                None if dweights is None else dweights.data_ptr(), buf.data_ptr(),
+                bbuf.data_ptr(), ctypes.byref(desc), partial.data_ptr(), work.data_ptr(),
+                flat.data_ptr(), R, S, grid, noise_seed(seed), float(noise_std),
+                _build.stream(odv.device))
+        _build.check(code, "train_render_grads")
+        train_render_grads.launches += 1
+    return unpack_grads(field, flat, sem)
+
+
 class _TrainRender(torch.autograd.Function):
-    """K4 forward; K5 backward with ``frozen``: only the semantic head's leaves
-    get gradients (every other leaf None; rays and z get no cotangent; the
-    weights' cotangent is dropped, as nothing but the semantic columns of the
-    maps depends on the head)."""
+    """K4 forward. Backward with ``frozen``: K5, only the semantic head's
+    leaves get gradients (every other leaf None; the weights' cotangent is
+    dropped, as nothing but the semantic columns of the maps depends on the
+    head). Without ``frozen``: K6, every leaf from the maps' and the
+    weights' cotangents. Rays and z get no cotangent; an output that nothing
+    used gets None as its cotangent (a zero one)."""
 
     @staticmethod
     def forward(ctx, field, odv, z, noise_std, seed, frozen, save, *params):
         maps, w, sem_in = train_render(field, odv, z, noise_std=noise_std, seed=seed,
                                        save_semin=save)
-        ctx.field, ctx.frozen, ctx.save = field, frozen, save
+        ctx.field, ctx.frozen, ctx.save, ctx.noise = field, frozen, save, (noise_std, seed)
+        ctx.maps_shape = maps.shape
+        ctx.set_materialize_grads(False)
         if save:
             ctx.save_for_backward(sem_in, w)
+        elif not frozen:
+            ctx.save_for_backward(odv, z)
         return maps, w
 
     @staticmethod
     def backward(ctx, dmaps, dweights):
-        if not ctx.frozen:
-            raise NotImplementedError(
-                "the train render's full backward (without --fix_backbone) is K6, "
-                "_train_render_bwd_kernel with map cotangents: not yet ported")
         names = [n for n, _ in ctx.field.named_parameters()]
         grads = {}
-        if ctx.save and dmaps is not None:
-            sem_in, w = ctx.saved_tensors
-            grads = frozen_sem_grads(ctx.field, sem_in, w, dmaps.contiguous())
+        if ctx.frozen:
+            if ctx.save and dmaps is not None:
+                sem_in, w = ctx.saved_tensors
+                grads = frozen_sem_grads(ctx.field, sem_in, w, dmaps.contiguous())
+        elif dmaps is not None or dweights is not None:
+            odv, z = ctx.saved_tensors
+            if dmaps is None:
+                dmaps = odv.new_zeros(ctx.maps_shape)
+            grads = train_render_grads(ctx.field, odv, z, dmaps.contiguous(),
+                                       None if dweights is None else dweights.contiguous(),
+                                       noise_std=ctx.noise[0], seed=ctx.noise[1])
         return (None,) * 7 + tuple(grads.get(n) for n in names)
 
 
@@ -738,7 +856,7 @@ def fused_train_render(field: nn.Module, odv: torch.Tensor, z: torch.Tensor, *,
     ``[R, 5 + sem]``, weights ``[R, S]``) through K4. With ``frozen`` (the
     ``--fix_backbone`` finetune) its backward is K5; ``sem_in`` is stored
     only when a gradient can be asked for. Without ``frozen`` the backward is
-    K6, which is not ported and raises."""
+    K6, which recomputes the forward and stores no ``sem_in``."""
     params = list(field.parameters())
     save = (frozen and field.mlp.use_semantics and torch.is_grad_enabled()
             and any(p.requires_grad for p in params))
@@ -751,3 +869,4 @@ fused_render.launches = 0
 fused_rgb_train_grads.launches = 0
 train_render.launches = 0
 frozen_sem_grads.launches = 0
+train_render_grads.launches = 0

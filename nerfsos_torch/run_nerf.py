@@ -13,19 +13,20 @@ defaults) and the same run-directory layout. Implemented:
   checkpoint of the run (``--no_reload`` starts afresh);
 - ``--eval``: render the test split, write metrics and images to
   ``<basedir>/<expname>/eval``;
-- ``--patch_tune --fix_backbone`` with the SOS losses (``--use_dino`` and
-  ``--use_correlation``/``--use_geoCorr``, negatives from
-  ``--use_sim_matrix``): the frozen-backbone NeRF-SOS finetune on
-  ``PatchDataset`` batches (``engines/sos.py``), with DINO ViT-S/16 from
-  ``--dino_ckpt`` (seeded weights and a warning when the file is missing)
-  or the photometric stand-in (``--dino_synthetic``), the train-time ARI at
-  ``--i_print``, checkpoints, test-set evals and a final eval as above.
+- ``--patch_tune`` with the SOS losses (``--use_dino`` and
+  ``--use_correlation``/``--use_geoCorr``): the NeRF-SOS finetune on
+  ``PatchDataset`` batches (``engines/sos.py``), of the semantic head alone
+  with ``--fix_backbone`` and of the whole network without it, with random
+  negatives under ``--rand_neg``; DINO ViT-S/16 from ``--dino_ckpt``
+  (seeded weights and a warning when the file is missing) or the
+  photometric stand-in (``--dino_synthetic``), the train-time ARI at
+  ``--i_print``, checkpoints, test-set evals and a final eval as above;
+- ``--patch_tune`` without the SOS losses: the RGB train step on
+  ``PatchDataset`` batches (of the semantic head alone with
+  ``--fix_backbone``, as the JAX entry point's masked optimizer).
 
-``--no_batching``, ``--eval_video``, ``--eval_vol``, ``--mipnerf``, and
-``--patch_tune`` without ``--fix_backbone`` (the full backward K6), without
-the SOS losses, or with random negatives (``--rand_neg`` or no
-``--use_sim_matrix``: the single-head geometry kernels K7b/K7c) stop with
-"not yet ported". Each RGB step draws its batch and its noise from
+``--no_batching``, ``--eval_video``, ``--eval_vol`` and ``--mipnerf`` stop
+with "not yet ported". Each RGB step draws its batch and its noise from
 ``(--seed, step)`` alone, so a resumed run trains as an uninterrupted one
 would (the JAX entry point restarts its batch stream); a patch step draws
 from ``(--seed, step)`` too, and its images from the dataset's per-epoch
@@ -34,8 +35,9 @@ shuffle, which a resume starts afresh.
 ``main(args, device=None)`` runs on ``cuda:{--gpuid}`` and raises when no
 card is visible; the CPU only when the caller passes ``device="cpu"`` (the
 tests). The fused kernels (``ops/fused_render.py``: K3 for the RGB step,
-K4/K5 for the SOS step, K1/K2 for the eval render; ``ops/flash_corr.py``:
-K7 for the geometry loss) run unless ``--no_fused_field`` is given or the
+K4 with K5 or K6 for the SOS step, K1/K2 for the eval render;
+``ops/flash_corr.py``: K7 for the geometry loss) run unless
+``--no_fused_field`` is given or the
 configuration is outside ``supports_fused``; on the CPU the same code path
 runs their plain versions.
 """
@@ -251,22 +253,10 @@ def build_dino(args, device: torch.device):
 
 
 def _check_patch_tune(args) -> None:
-    """The ``--patch_tune`` modes the port runs (JAX ``run_nerf.py:326-329``
-    for the SOS-mode check)."""
-    sos_losses = args.use_correlation or args.use_geoCorr
-    if not args.use_dino and sos_losses:
+    """The SOS losses need DINO (JAX ``run_nerf.py:327-329``)."""
+    if not args.use_dino and (args.use_correlation or args.use_geoCorr):
         raise SystemExit("--use_correlation/--use_geoCorr require --use_dino "
                          "(the reference crashes here implicitly; we validate up front)")
-    if not args.fix_backbone:
-        raise SystemExit("--patch_tune without --fix_backbone: not yet ported to nerfsos_torch "
-                         "(the full train-render backward K6, _train_render_bwd_kernel with map "
-                         "cotangents)")
-    if not (args.use_dino and sos_losses):
-        raise SystemExit("--patch_tune without the SOS losses: not yet ported to nerfsos_torch")
-    if args.rand_neg or not args.use_sim_matrix:
-        raise SystemExit("--patch_tune with random negatives (--rand_neg or no --use_sim_matrix): "
-                         "not yet ported to nerfsos_torch (the single-head geometry kernels "
-                         "K7b/K7c)")
 
 
 def main(args, device=None) -> None:
@@ -280,9 +270,10 @@ def main(args, device=None) -> None:
     for flag in ("mipnerf", "eval_video", "eval_vol") + (() if args.eval else ("no_batching",)):
         if getattr(args, flag):
             raise SystemExit(f"--{flag}: not yet ported to nerfsos_torch")
-    sos_mode = args.patch_tune and not args.eval
-    if sos_mode:
+    patch_mode = args.patch_tune and not args.eval
+    if patch_mode:
         _check_patch_tune(args)
+    sos_mode = patch_mode and args.use_dino and (args.use_correlation or args.use_geoCorr)
     if args.no_semantics:
         args.use_semantics = False
     device = _resolve_device(args, device)
@@ -358,13 +349,17 @@ def main(args, device=None) -> None:
         return
 
     near, far = test_set.near_far()
+    if patch_mode:
+        train_set = PatchDataset(args.data_path, split="train", subsample=args.subsample,
+                                 patch_size=args.patch_size, patch_stride=args.patch_stride,
+                                 bin_thres=args.bin_thres, ret_k=args.use_geoCorr)
+    else:
+        train_set = RayDataset(args.data_path, split="train", subsample=args.subsample,
+                               bin_thres=args.bin_thres)
     if sos_mode:
         from nerfsos_torch.engines.sos import SOSConfig, make_sos_train_step, online_seg_metrics
         from nerfsos_torch.losses.correlation import CorrelationLoss, GeoCorrelationLoss
 
-        train_set = PatchDataset(args.data_path, split="train", subsample=args.subsample,
-                                 patch_size=args.patch_size, patch_stride=args.patch_stride,
-                                 bin_thres=args.bin_thres, ret_k=args.use_geoCorr)
         sos_cfg = SOSConfig(
             batch_size=args.batch_size, patch_size=args.patch_size,
             patch_stride=args.patch_stride, rgb_w=args.rgb_w,
@@ -372,15 +367,13 @@ def main(args, device=None) -> None:
             contrast_w=args.contrast_w, use_dino=args.use_dino,
             use_correlation=args.use_correlation, use_geoCorr=args.use_geoCorr,
             use_contrast=args.use_contrast, fix_backbone=args.fix_backbone)
-        app_loss = CorrelationLoss.from_params(args.app_corr_params,
-                                               use_sim_matrix=args.use_sim_matrix)
-        geo_loss = GeoCorrelationLoss.from_params(args.geo_corr_params,
-                                                  use_sim_matrix=args.use_sim_matrix)
+        app_loss = CorrelationLoss.from_params(
+            args.app_corr_params, use_sim_matrix=args.use_sim_matrix, rand_neg=args.rand_neg)
+        geo_loss = GeoCorrelationLoss.from_params(
+            args.geo_corr_params, use_sim_matrix=args.use_sim_matrix, rand_neg=args.rand_neg)
         step_fn = make_sos_train_step(net, dino, app_loss, geo_loss, sos_cfg, optimizer,
                                       schedule, near, far, seed=args.seed)
     else:
-        train_set = RayDataset(args.data_path, split="train", subsample=args.subsample,
-                               bin_thres=args.bin_thres)
         step_fn = make_rgb_train_step(net, optimizer, schedule, near, far, rgb_w=args.rgb_w,
                                       seed=args.seed)
     writer = SummaryWriter(log_dir)

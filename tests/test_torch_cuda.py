@@ -1,4 +1,4 @@
-"""K1-K5 and K7 CUDA kernels vs their plain PyTorch versions on the card.
+"""K1-K6 and K7 CUDA kernels vs their plain PyTorch versions on the card.
 
 Marked ``cuda``: every test skips without a CUDA device (the kernels have no
 CPU or interpret mode). On a machine with a card (``--noconftest``: the
@@ -8,7 +8,8 @@ repository's conftest imports jax):
 
 The tolerances and K3's allowance for relu gates that rounding flips are
 ``chip_smoke.py``'s, where their reasoning is written down. K5 is held to GRAD_TOL on
-points whose semantic-head gates are clear of 0 (the others get weight 0).
+points whose semantic-head gates are clear of 0 (the others get weight 0); K6
+on rays whose trunk, views and semantic-head gates are clear of 0.
 """
 import itertools
 
@@ -16,7 +17,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import GATE_MARGIN, GRAD_TOL, TOL, flip_allowance, plain_k3_with_gates
+from chip_smoke import (GATE_MARGIN, GRAD_TOL, K7_TOL, TOL, flip_allowance, plain_k3_with_gates,
+                        plain_k6_with_gates)
 from nerfsos_torch.core.sampling import points_along_rays
 from nerfsos_torch.models.fields import NeRFField
 from nerfsos_torch.ops import fused_render as fr
@@ -113,14 +115,15 @@ def _k3_inputs(device, n, s, seed):
     return odv, z, gt.to(device)
 
 
-def _gate_clear_inputs(field, n, s, seed, pool=4096):
+def _gate_clear_inputs(field, n, s, seed, pool=4096, sem=False):
     """``_k3_inputs`` for ``n`` rays none of whose points has a trunk or views
-    relu input within 2 x GATE_MARGIN of 0 (of its layer's largest |input|
-    over a pool of candidates): K3 and its plain version then take those
-    gates alike, and a leaf keeps a flip allowance only for sigma + noise,
-    whose noise depends on the ray's place in the batch."""
+    (with ``sem``, semantic-head) relu input within 2 x GATE_MARGIN of 0 (of
+    its layer's largest |input| over a pool of candidates): K3 or K6 and its
+    plain version then take those gates alike, and a leaf keeps a flip
+    allowance only for sigma + noise, whose noise depends on the ray's place
+    in the batch."""
     mlp = field.mlp
-    gates = [*mlp.pts_linears, mlp.views_linears[0]]
+    gates = [*mlp.pts_linears, mlp.views_linears[0]] + ([mlp.semantic_linear[0]] if sem else [])
     device = next(field.parameters()).device
     keep = []
     for k in itertools.count():
@@ -327,6 +330,83 @@ def test_k4_k5_reject_bad_inputs(cuda):
         fr.frozen_sem_grads(field, sem_in, w, torch.zeros(16, 6, device=cuda))
 
 
+# ----------------------------------------------------------------- K6
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("s,coord,dweights", [(64, True, True), (192, True, False),
+                                              (16, False, True)])
+@pytest.mark.parametrize("n", [1, 37, 4096])
+def test_k6_matches_plain(cuda, shape, s, coord, dweights, n):
+    """The full train-render backward: every leaf to GRAD_TOL of its max
+    plus the sigma + noise gates' allowance, on rays clear of every other
+    gate; bitwise equal across two calls."""
+    field = _field(cuda, 8, use_semantics=True, sem_with_coord=coord, sem_dim=2, **shape)
+    odv, z, _ = _gate_clear_inputs(field, n, s, 13, sem=True)
+    rng = np.random.default_rng(n + s)
+    dmaps = torch.from_numpy(rng.normal(size=(n, 7)).astype(np.float32)).to(cuda)
+    dw = (torch.from_numpy(rng.normal(size=(n, s)).astype(np.float32)).to(cuda) if dweights
+          else None)
+    kw = dict(noise_std=1.0, seed=13579)
+    before = fr.train_render_grads.launches
+    got = fr.train_render_grads(field, odv, z, dmaps, dw, **kw)
+    again = fr.train_render_grads(field, odv, z, dmaps, dw, **kw)
+    want, slack, terms = plain_k6_with_gates(field, odv, z, dmaps, dw, kw)
+    torch.cuda.synchronize()
+    assert fr.train_render_grads.launches == before + 2
+    allow = flip_allowance(slack, terms)
+    assert set(got) == set(want)
+    for name, ref in want.items():
+        assert torch.equal(got[name], again[name]), name
+        assert got[name].shape == ref.shape and torch.isfinite(got[name]).all(), name
+        scale = max(float(ref.abs().max()), 1e-12)
+        err = float((got[name] - ref).abs().max())
+        assert err <= GRAD_TOL * scale + allow[name], (name, err / scale)
+
+
+def test_k6_without_semantics(cuda):
+    """A field without the semantic head: K6 sweeps its layers alone."""
+    field = _field(cuda, 9, **SHAPES[0])
+    odv, z, _ = _gate_clear_inputs(field, 500, 64, 14)
+    dmaps = torch.from_numpy(np.random.default_rng(1).normal(size=(500, 5)).astype(np.float32))
+    kw = dict(noise_std=0.0, seed=0)
+    got = fr.train_render_grads(field, odv, z, dmaps.to(cuda), None, **kw)
+    want, slack, terms = plain_k6_with_gates(field, odv, z, dmaps.to(cuda), None, kw)
+    allow = flip_allowance(slack, terms)
+    for name, ref in want.items():
+        scale = max(float(ref.abs().max()), 1e-12)
+        assert float((got[name] - ref).abs().max()) <= GRAD_TOL * scale + allow[name], name
+
+
+def test_k4_k6_through_autograd(cuda):
+    """fused_train_render without ``frozen``: the K4 forward, the K6
+    backward, a gradient on every leaf; K5 does not run."""
+    field = _field(cuda, 10, use_semantics=True, sem_with_coord=True, sem_dim=2, **SHAPES[0])
+    odv, z = _inputs(cuda, 300, 64, 15)
+    counts = (fr.train_render.launches, fr.train_render_grads.launches,
+              fr.frozen_sem_grads.launches)
+    maps, w = fr.fused_train_render(field, odv, z, noise_std=1.0, seed=3, frozen=False)
+    (maps * torch.arange(1.0, 8.0, device=cuda)).sum().backward()
+    torch.cuda.synchronize()
+    assert (fr.train_render.launches, fr.train_render_grads.launches,
+            fr.frozen_sem_grads.launches) == (counts[0] + 1, counts[1] + 1, counts[2])
+    assert all(p.grad is not None and torch.isfinite(p.grad).all() for p in field.parameters())
+
+
+def test_k6_rejects_bad_inputs(cuda):
+    field = _field(cuda, 0, use_semantics=True, **SHAPES[1])
+    odv, z = _inputs(cuda, 16, 8, 3)
+    kw = dict(noise_std=0.0, seed=0)
+    with pytest.raises(ValueError):
+        fr.train_render_grads(field, odv, z, torch.zeros(16, 6, device=cuda), None, **kw)
+    with pytest.raises(ValueError):
+        fr.train_render_grads(field, odv, z, torch.zeros(16, 7, device=cuda),
+                              torch.zeros(16, 9, device=cuda), **kw)
+    with pytest.raises(ValueError):
+        fr.train_render_grads(field, odv, z, torch.zeros(16, 7, device=cuda).double(), None,
+                              **kw)
+
+
 # ----------------------------------------------------------------- K7
 
 
@@ -349,7 +429,6 @@ def _geo_inputs(device, B2, N, S, seed):
 def test_k7_matches_plain(cuda, B2, N, S, maxd):
     """Row stats, the four means and the four code gradients to K7_TOL;
     the means and the gradients bitwise equal across two calls."""
-    from chip_smoke import K7_TOL
     from nerfsos_torch.ops import flash_corr as fc
 
     f1, f2, c1a, c2a, c1b, c2b = _geo_inputs(cuda, B2, N, S, B2 + N)
@@ -392,4 +471,75 @@ def test_k7_through_autograd(cuda):
     torch.cuda.synchronize()
     assert (fc.geo_row_stats.launches, fc.geo_quad_means.launches,
             fc.geo_quad_grads.launches) == tuple(c + 1 for c in counts)
+    assert all(c.grad is not None and torch.isfinite(c.grad).all() for c in codes)
+
+
+def _single_inputs(device, B, N, S, seed):
+    """Points and channel-normalised codes of one half (rows [B, N, C])."""
+    rng = np.random.default_rng(seed)
+    f1, f2 = rng.normal(size=(B, N, 3)) * 0.7, rng.normal(size=(B, N, 3)) * 0.7
+    codes = []
+    for _ in range(4):
+        c = rng.normal(size=(B, N, S))
+        codes.append(c / np.linalg.norm(c, axis=2, keepdims=True))
+    return [torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
+            for a in (f1, f2, *codes)]
+
+
+@pytest.mark.parametrize("heads", [1, 2])
+@pytest.mark.parametrize("B,N,S", [(2, 256, 2), (3, 1000, 3), (8, 4096, 2), (1, 77, 8)])
+@pytest.mark.parametrize("maxd", [15.0, 1.5])
+def test_k7_single_and_pair_match_plain(cuda, heads, B, N, S, maxd):
+    """One half with one head (K7b/K7c) or two (K7d/K7e): row stats, the
+    means and the code gradients to K7_TOL, bitwise equal across calls."""
+    from nerfsos_torch.ops import flash_corr as fc
+
+    f1, f2, *codes = _single_inputs(cuda, B, N, S, B + N + heads)
+    codes = codes[:2 * heads]
+    means, grads = ((fc.geo_single_means, fc.geo_single_grads) if heads == 1
+                    else (fc.geo_pair_means, fc.geo_pair_grads))
+    means_p, grads_p = ((fc.geo_single_means_plain, fc.geo_single_grads_plain) if heads == 1
+                        else (fc.geo_pair_means_plain, fc.geo_pair_grads_plain))
+    rm, gm = fc.geo_row_stats(f1, f2, maxd, 1)
+    rm_p, gm_p = fc.geo_row_stats_plain(f1, f2, maxd, 1)
+    assert gm.shape == (1,)
+    assert float((rm - rm_p).abs().max()) <= K7_TOL * float(rm_p.abs().max())
+    assert float((gm - gm_p).abs().max()) <= K7_TOL * float(gm_p.abs().max())
+    before = (means.launches, grads.launches)
+    out = means(f1, f2, *codes, rm, gm, 0.5, maxd)
+    out2 = means(f1, f2, *codes, rm, gm, 0.5, maxd)
+    want = means_p(f1, f2, *codes, rm, gm, 0.5, maxd)
+    assert out.shape == (heads,) and torch.equal(out, out2)
+    assert float((out - want).abs().max()) <= K7_TOL * float(want.abs().max())
+    coeff = torch.tensor([0.7, -1.2][:heads], device=cuda) / (B * N * N)
+    g = grads(f1, f2, *codes, rm, gm, coeff, 0.5, maxd)
+    g2 = grads(f1, f2, *codes, rm, gm, coeff, 0.5, maxd)
+    g_p = grads_p(f1, f2, *codes, rm, gm, coeff, 0.5, maxd)
+    torch.cuda.synchronize()
+    assert (means.launches, grads.launches) == (before[0] + 2, before[1] + 2)
+    assert len(g) == 2 * heads
+    for a, b, ref in zip(g, g2, g_p):
+        assert torch.equal(a, b) and torch.isfinite(a).all()
+        assert float((a - ref).abs().max()) <= K7_TOL * float(ref.abs().max())
+
+
+def test_k7_single_and_pair_through_autograd(cuda):
+    """geo_helper_mean: K7a + K7b forward, K7c backward; geo_helper_mean_pair:
+    K7a + K7d forward, K7e backward; gradients on the codes only."""
+    from nerfsos_torch.ops import flash_corr as fc
+
+    rng = np.random.default_rng(16)
+    t = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(cuda)  # noqa: E731
+    pts, npts = t(3, 3, 16, 16), t(3, 3, 16, 16)
+    codes = [torch.nn.functional.normalize(t(3, 2, 16, 16), dim=1).requires_grad_()
+             for _ in range(4)]
+    names = ("geo_row_stats", "geo_single_means", "geo_single_grads", "geo_pair_means",
+             "geo_pair_grads")
+    counts = [getattr(fc, n).launches for n in names]
+    single = fc.geo_helper_mean(pts, npts, codes[0], codes[1], 3.0, 15.0)
+    pair = fc.geo_helper_mean_pair(pts, npts, *codes, 3.0, 15.0)
+    (single + sum(pair)).backward()
+    torch.cuda.synchronize()
+    assert [getattr(fc, n).launches for n in names] == [c + d for c, d in
+                                                        zip(counts, (2, 1, 1, 1, 1))]
     assert all(c.grad is not None and torch.isfinite(c.grad).all() for c in codes)

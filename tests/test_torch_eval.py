@@ -177,8 +177,18 @@ def test_run_nerf_eval_end_to_end(tmp_path):
 @pytest.mark.parametrize("mode", [["--patch_tune"], ["--no_batching"], ["--eval_video"],
                                   ["--eval_vol"], ["--eval", "--mipnerf"]])
 def test_unported_modes_exit(tmp_path, mode):
+    """Each of these modes stops with "not yet ported", but ``--patch_tune``
+    alone, which now runs the RGB finetune on patches: one step here."""
     data, logs, ckpt = _scene(tmp_path, EVAL_CFG, height=4, width=4)
+    if mode == ["--patch_tune"]:
+        write_sphere_scene(str(data), height=4, width=4, n_views=2, split="train")
+        mode = [*mode, "--patch_size", "2", "--batch_size", "2", "--max_steps", "4"]
     args, _ = run_nerf.create_arg_parser().parse_known_args(_argv(data, logs, ckpt, *mode))
+    if "--max_steps" in mode:
+        run_nerf.main(args, device="cpu")
+        state, step, opt = tckpt.load_checkpoint(str(logs / "t" / "checkpoints" / "last.ckpt"))
+        assert step == 4 and len(opt["state"]) == len(state)  # Adam holds every leaf
+        return
     with pytest.raises(SystemExit, match="not yet ported"):
         run_nerf.main(args, device="cpu")
 

@@ -1,12 +1,17 @@
-"""The port's frozen SOS finetune vs nerfsos_tpu's, on tiny inputs (CPU):
-the ViT and the photometric stand-in with carried weights, the correlation
-losses, the whole ``sos_loss_fn`` and one train step with a frozen
-backbone, the patch sampler, the train-time ARI, and ``run_nerf.main`` with
-``--patch_tune --fix_backbone`` from an RGB checkpoint.
+"""The port's SOS finetune vs nerfsos_tpu's, on tiny inputs (CPU): the ViT
+(its position-embedding resize too) and the photometric stand-in with
+carried weights, the correlation losses (single, pair and quad forms, the
+negatives), the whole ``sos_loss_fn`` and one train step with a frozen
+backbone, with the whole network trained, with random negatives and
+without the similarity-matrix flag, the patch sampler, the train-time ARI,
+and ``run_nerf.main`` in every ``--patch_tune`` mode from an RGB checkpoint.
 
 The JAX side's Pallas kernels run in interpret mode (the fused train render
-K4/K5, and K7 at 16 x 16 = 256 pixels a patch, a multiple of 128; at the
-whole-loss tests' 8 x 8 patches its geometry loss takes its XLA path).
+K4/K5 of the frozen step, and K7 at 16 x 16 = 256 pixels a patch, a multiple
+of 128; at the whole-loss tests' 8 x 8 patches its geometry loss takes its
+XLA path). The other steps' JAX side renders without its fused kernels (the
+port's fused path, the kernels' plain versions, is held to it); K6's plain
+version is held to its Pallas kernel in tests/test_torch_sos_kernels.py.
 """
 import os
 
@@ -171,6 +176,103 @@ def test_sos_step_matches_jax(sos_pair, monkeypatch):
             assert torch.equal(p.detach(), before[name]), name
 
 
+# the other --patch_tune modes: (fix_backbone, use_sim_matrix, rand_neg)
+MODES = {"full": (False, True, False), "rand_neg": (True, True, True),
+         "no_sim_matrix": (True, False, False)}
+
+
+def _jax_negatives(key):
+    """The negatives JAX's rand_neg step draws (engines/sos.py:163, :204-229),
+    in draw_negatives' order: the appearance loss's coarse and fine heads'
+    (the third of each key's three splits), then the geometry loss's."""
+    _, k_app0, k_app1, k_geo0, k_geo1 = jax.random.split(key, 5)
+    return np.stack([np.asarray(jax.random.permutation(jax.random.split(k, 3)[2], B))
+                     for k in (k_app0, k_app1)]
+                    + [np.asarray(jax.random.permutation(k, B)) for k in (k_geo0, k_geo1)])
+
+
+@pytest.fixture(scope="module", params=list(MODES))
+def mode_pair(request):
+    """JAX's loss, metrics, gradients and post-Adam params for one more
+    mode on the batch of ``sos_pair`` (its render without the fused
+    kernels; noise 0 and perturb 0, so the step is deterministic)."""
+    fix, sim, rand = MODES[request.param]
+    jnet = JaxNet(JaxConfig(**NET))
+    params = jnet.init(jax.random.PRNGKey(0))
+    je, dino_params, te = _vits()
+    cfg = jsos.SOSConfig(batch_size=B, patch_size=P, patch_stride=STRIDE, fix_backbone=fix)
+    app = jcorr.CorrelationLoss.from_params(APP, use_sim_matrix=sim, rand_neg=rand)
+    geo = jcorr.GeoCorrelationLoss.from_params(GEO, use_sim_matrix=sim, rand_neg=rand)
+    batch, key = _batch(0), jax.random.PRNGKey(7)
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    (_, metrics), grads = jax.value_and_grad(
+        lambda p: jsos.sos_loss_fn(jnet, je, app, geo, cfg, p, dino_params, jbatch, key,
+                                   NEAR, FAR), has_aux=True)(params)
+    tx = jstate.make_optimizer(LR, 0.1, 250_000, fix_backbone=fix, params=params)
+    state = jstate.TrainState.create(params, tx).apply_gradients(grads)
+    return {"mode": request.param, "params": _np(params), "te": te, "batch": batch, "key": key,
+            "metrics": {k: float(v) for k, v in metrics.items()}, "grads": _np(grads),
+            "stepped": _np(state.params),
+            "negatives": torch.from_numpy(_jax_negatives(key)) if rand else None}
+
+
+def _mode_setup(pair):
+    fix, sim, rand = MODES[pair["mode"]]
+    tnet = TorchNet(TorchConfig(**NET, fused_field=True, frozen_backbone=fix))
+    tnet.load_state_dict(tckpt.state_dict_from_jax_params(pair["params"]))
+    cfg = tsos.SOSConfig(batch_size=B, patch_size=P, patch_stride=STRIDE, fix_backbone=fix)
+    app = tcorr.CorrelationLoss.from_params(APP, use_sim_matrix=sim, rand_neg=rand)
+    geo = tcorr.GeoCorrelationLoss.from_params(GEO, use_sim_matrix=sim, rand_neg=rand)
+    batch = {k: torch.from_numpy(pair["batch"][k]) for k in ("rays", "target")}
+    return tnet, cfg, app, geo, batch
+
+
+def test_sos_mode_loss_matches_jax(mode_pair):
+    """The whole network trained (the fused render's backward K6's plain
+    version), random negatives, and no --use_sim_matrix: every term to 1e-5
+    relative and every trained leaf's gradient to 1e-4 of its max, with
+    JAX's coordinates and negatives injected; frozen leaves get none."""
+    tnet, cfg, app, geo, batch = _mode_setup(mode_pair)
+    coords = torch.from_numpy(_app_coords(mode_pair["key"]))
+    loss, m = tsos.sos_loss_fn(tnet, mode_pair["te"], app, geo, cfg, batch, NEAR, FAR,
+                               coords=coords, negatives=mode_pair["negatives"])
+    for k in TERMS:
+        np.testing.assert_allclose(float(m[k]), mode_pair["metrics"][k], rtol=1e-5, atol=1e-7,
+                                   err_msg=k)
+    assert abs(float(m["corr0"])) > 0 and abs(float(m["geo_corr0"])) > 0
+    loss.backward()
+    want = tckpt.state_dict_from_jax_params(mode_pair["grads"])
+    for name, p in tnet.named_parameters():
+        if cfg.fix_backbone and "semantic_linear" not in name:
+            assert p.grad is None, name
+            continue
+        scale = float(want[name].abs().max())
+        assert scale > 0 and float((p.grad - want[name]).abs().max()) <= 1e-4 * scale, name
+
+
+def test_sos_mode_step_matches_jax(mode_pair, monkeypatch):
+    """One make_sos_train_step step of each mode, the draws JAX made
+    injected: every trained leaf after Adam within 1e-6 of the JAX step's
+    and moved; every frozen leaf bit-equal to its start."""
+    tnet, cfg, app, geo, batch = _mode_setup(mode_pair)
+    coords = torch.from_numpy(_app_coords(mode_pair["key"]))
+    monkeypatch.setattr(tsos, "draw_pair_coords", lambda *a: coords)
+    monkeypatch.setattr(tsos, "draw_negatives", lambda *a: mode_pair["negatives"])
+    before = {n: p.detach().clone() for n, p in tnet.named_parameters()}
+    opt = tstate.make_optimizer(tnet, LR, fix_backbone=cfg.fix_backbone)
+    step = tsos.make_sos_train_step(tnet, mode_pair["te"], app, geo, cfg, opt,
+                                    tstate.exp_decay_schedule(LR, 0.1, 250_000), NEAR, FAR)
+    m = step(batch, 0)
+    np.testing.assert_allclose(float(m["loss"]), mode_pair["metrics"]["loss"], rtol=1e-5)
+    want = tckpt.state_dict_from_jax_params(mode_pair["stepped"])
+    for name, p in tnet.named_parameters():
+        if cfg.fix_backbone and "semantic_linear" not in name:
+            assert torch.equal(p.detach(), before[name]), name
+        else:
+            assert not torch.equal(p.detach(), before[name]), name
+            assert float((p.detach() - want[name]).abs().max()) <= 1e-6, name
+
+
 def test_sos_loss_needs_a_matching_frozen_flag(sos_pair):
     tnet, cfg, app, geo, batch = _torch_setup(sos_pair)
     unfrozen = TorchNet(TorchConfig(**NET, fused_field=True))
@@ -187,6 +289,21 @@ def test_vit_extractor_matches_jax():
         assert got[k].shape == want[k].shape, k
         np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), rtol=1e-5, atol=1e-5,
                                    err_msg=k)
+
+
+@pytest.mark.parametrize("w,h", [(10, 10), (20, 20), (12, 18)])
+def test_vit_pos_embed_resize_matches_jax(w, h):
+    """The 14 x 14 position embedding resized for another input side as
+    jax.image.resize(method="bicubic") does (antialiased when it shrinks)."""
+    vit = TorchViT(patch_size=16, embed_dim=32, depth=1, num_heads=2)
+    pe = vit.pos_embed.detach().numpy()
+    got = vit.interpolate_pos_encoding(w * h, 16 * w, 16 * h).detach().numpy()
+    want = jax.image.resize(jnp.asarray(pe[:, 1:]).reshape(1, 14, 14, 32), (1, w, h, 32),
+                            method="bicubic")
+    assert got.shape == (1, 1 + w * h, 32)
+    np.testing.assert_allclose(got[:, 1:], np.asarray(want).reshape(1, -1, 32), rtol=0,
+                               atol=1e-5 * np.abs(pe).max())
+    np.testing.assert_array_equal(got[:, :1], pe[:, :1])
 
 
 def test_vit_state_dict_round_trips_the_reference_names():
@@ -269,6 +386,79 @@ def test_geometry_quad_matches_jax():
         assert np.abs(t.grad.numpy() - g).max() <= 1e-5 * np.abs(g).max()
 
 
+def test_appearance_single_matches_jax():
+    """One head's appearance loss with random negatives (JAX's __call__ with
+    rand_neg), its coordinates and negatives from JAX's key splits, and the
+    code's gradient; __call__ draws the coordinates, then the negatives."""
+    rng = np.random.default_rng(13)
+    feats = rng.normal(size=(3, 8, 5, 5)).astype(np.float32)
+    code = _codes(rng, 3)[0]
+    key = jax.random.PRNGKey(21)
+    japp = jcorr.CorrelationLoss.from_params(APP, rand_neg=True)
+    want, g = jax.value_and_grad(lambda c: japp(key, jnp.asarray(feats), c, None))(
+        jnp.asarray(code))
+    k_c1, k_c2, k_neg = jax.random.split(key, 3)
+    coords = np.concatenate([np.asarray(jax.random.uniform(k, (3, 11, 11, 2)) * 2.0 - 1.0)
+                             for k in (k_c1, k_c2)])
+    neg = torch.from_numpy(np.asarray(jax.random.permutation(k_neg, 3)))
+    tapp = tcorr.CorrelationLoss.from_params(APP, rand_neg=True)
+    t = torch.from_numpy(code).requires_grad_()
+    got = tapp.single(torch.from_numpy(coords), neg, torch.from_numpy(feats), t)
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
+    got.backward()
+    assert np.abs(t.grad.numpy() - np.asarray(g)).max() <= 1e-5 * np.abs(np.asarray(g)).max()
+    drawn = tapp(torch.Generator().manual_seed(5), torch.from_numpy(feats), t, None)
+    gen = torch.Generator().manual_seed(5)
+    replay = torch.rand((6, 11, 11, 2), generator=gen) * 2.0 - 1.0
+    assert torch.equal(drawn, tapp.single(replay, torch.randperm(3, generator=gen),
+                                          torch.from_numpy(feats), t))
+
+
+def test_geometry_single_and_pair_match_jax():
+    """GeoCorrelationLoss.__call__ with random negatives (the single-head
+    means, K7b/K7c's plain versions), .pair with the similarity matrix (the
+    quad means) and .helper_mean_pair (K7d/K7e's) against the JAX loss, its
+    flash kernels in interpret mode at 16 x 16 pixels; the codes' gradients."""
+    rng = np.random.default_rng(14)
+    depth = rng.uniform(2.0, 20.0, size=(2, 1, 16, 16)).astype(np.float32)  # some over max_depth
+    o = rng.normal(size=(2, 3, 16, 16)).astype(np.float32)
+    d = rng.normal(size=(2, 3, 16, 16)).astype(np.float32)
+    c0, c1 = _codes(rng, 2)
+    sim = np.asarray(jcorr.get_similarity_matrix(jnp.asarray(rng.normal(size=(2, 8)))))
+    key = jax.random.PRNGKey(31)
+    jrand = jcorr.GeoCorrelationLoss.from_params(GEO, rand_neg=True)
+    jsim = jcorr.GeoCorrelationLoss.from_params(GEO, use_sim_matrix=True)
+    rays = (jnp.asarray(o), jnp.asarray(d))
+    pts = np.asarray(jsim._filtered_points(jnp.asarray(depth), rays))
+    flip = np.array([1, 0])
+
+    def jloss(a, b):
+        single = jrand(key, jnp.asarray(depth), a, rays, None)
+        pair = jsim.pair(key, key, jnp.asarray(depth), a, b, rays, jnp.asarray(sim))
+        hpair = jsim.helper_mean_pair(jnp.asarray(pts), jnp.asarray(pts[flip]), a, a[flip], b,
+                                      b[flip], 3.0)
+        out = jnp.stack([single, *pair, *hpair])
+        return jnp.sum(out * jnp.arange(1.0, 6.0)), out
+
+    (_, want), grads = jax.value_and_grad(jloss, argnums=(0, 1), has_aux=True)(
+        jnp.asarray(c0), jnp.asarray(c1))
+    trand = tcorr.GeoCorrelationLoss.from_params(GEO, rand_neg=True)
+    tsim = tcorr.GeoCorrelationLoss.from_params(GEO, use_sim_matrix=True)
+    t0, t1 = (torch.from_numpy(c).requires_grad_() for c in (c0, c1))
+    tpts, tf = tsim._filtered_points(*(torch.from_numpy(a) for a in (depth, o, d))), flip
+    np.testing.assert_allclose(tpts.numpy(), pts, rtol=1e-6, atol=1e-6)
+    neg = torch.from_numpy(np.asarray(jax.random.permutation(key, 2)))
+    got = torch.stack([trand.single(tpts, t0, neg),
+                       *tsim.pair(None, *(torch.from_numpy(depth),), t0, t1,
+                                  torch.from_numpy(o), torch.from_numpy(d), torch.from_numpy(sim)),
+                       *tsim.helper_mean_pair(tpts, tpts[tf], t0, t0[tf], t1, t1[tf], 3.0)])
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=1e-5)
+    torch.sum(got * torch.arange(1.0, 6.0)).backward()
+    for t, g in zip((t0, t1), grads):
+        g = np.asarray(g)
+        assert np.abs(t.grad.numpy() - g).max() <= 1e-5 * np.abs(g).max()
+
+
 def test_filtered_points_take_the_batch_max_under():
     depth = torch.tensor([[[[1.0, 20.0]]], [[[7.0, 16.0]]]])  # [2, 1, 1, 2]
     o, d = torch.zeros(2, 3, 1, 2), torch.ones(2, 3, 1, 2)
@@ -288,10 +478,21 @@ def test_nerf_contrastive_and_similarity_match_jax():
 
 
 def test_random_negatives_are_not_ported():
-    with pytest.raises(NotImplementedError, match="K7b"):
-        tcorr.CorrelationLoss(rand_neg=True).negative_index(torch.eye(2))
-    with pytest.raises(NotImplementedError, match="K7b"):
-        tcorr.GeoCorrelationLoss(use_sim_matrix=False).negative_index(torch.eye(2))
+    """The negatives: rand_neg a permutation from the generator, no
+    similarity matrix a permutation without fixed points, else the argmin
+    (whatever use_sim_matrix says, as in the JAX step)."""
+    sim = torch.tensor([[1.0, 0.2, 0.5], [0.2, 1.0, -0.3], [0.5, -0.3, 1.0]])
+    for loss in (tcorr.CorrelationLoss(rand_neg=True), tcorr.GeoCorrelationLoss(rand_neg=True)):
+        draws = [loss.negative_index(torch.Generator().manual_seed(k), 9, sim[:1, :1])
+                 for k in range(8)]
+        assert all(sorted(d.tolist()) == list(range(9)) for d in draws)
+        assert len({tuple(d.tolist()) for d in draws}) > 1
+        again = loss.negative_index(torch.Generator().manual_seed(3), 9, None)
+        assert torch.equal(again, draws[3])
+    for loss in (tcorr.CorrelationLoss(), tcorr.GeoCorrelationLoss(use_sim_matrix=False)):
+        perm = loss.negative_index(torch.Generator().manual_seed(1), 9, None)
+        assert sorted(perm.tolist()) == list(range(9)) and not (perm == torch.arange(9)).any()
+        assert loss.negative_index(None, 3, sim).tolist() == [1, 2, 1]
 
 
 def test_dino_input_chain_matches_jax():
@@ -427,17 +628,127 @@ def test_run_nerf_patch_tune_from_an_rgb_checkpoint(patch_scene, tmp_path, monke
     assert gstep == 4 and {int(s["step"]) for s in opt_state["state"].values()} == {3}
 
 
-@pytest.mark.parametrize("flags,match", [
-    (["--patch_tune", "--use_dino", "--use_correlation", "--use_sim_matrix"], "K6"),
-    (["--patch_tune", "--fix_backbone", "--use_dino", "--use_geoCorr"], "K7b"),
+def _rgb_checkpoint(scene, logs):
+    """One RGB step without --sem_with_coord: its last.ckpt and state."""
+    rgb = _main(scene, logs, "rgb", "--N_rand", "32", "--max_steps", "1")
+    path = str(rgb / "checkpoints" / "last.ckpt")
+    return path, tckpt.load_checkpoint(path)[0]
+
+
+FULL_FLAGS = [f for f in PATCH_FLAGS if f != "--fix_backbone"]
+
+
+def test_run_nerf_full_finetune_from_an_rgb_checkpoint(patch_scene, tmp_path):
+    """The flagship finetune flags without --fix_backbone: every leaf trains
+    (the trunk moves off the checkpoint's), Adam's state of every leaf is
+    saved, and a second run resumes with it."""
+    logs = tmp_path / "logs"
+    rgb_ckpt, rgb_state = _rgb_checkpoint(patch_scene, logs)
+    run = _main(patch_scene, logs, "full", *FULL_FLAGS, "--ckpt_path", rgb_ckpt,
+                "--max_steps", "3")
+    state, gstep, opt_state = tckpt.load_checkpoint(str(run / "checkpoints" / "last.ckpt"))
+    assert gstep == 3 and len(opt_state["state"]) == len(state) == 44  # 22 leaves a field
+    assert {int(s["step"]) for s in opt_state["state"].values()} == {2}
+    for k, v in rgb_state.items():
+        if "semantic_linear.0" not in k:  # sem_0 is fresh: its input width differs
+            assert not torch.equal(state[k], v), k
+    resumed = _main(patch_scene, logs, "full", *FULL_FLAGS, "--max_steps", "4")
+    end, gstep, opt_state = tckpt.load_checkpoint(str(resumed / "checkpoints" / "last.ckpt"))
+    assert gstep == 4 and len(opt_state["state"]) == 44
+    assert {int(s["step"]) for s in opt_state["state"].values()} == {3}
+    assert not torch.equal(end["nerf.mlp.pts_linears.0.weight"],
+                           state["nerf.mlp.pts_linears.0.weight"])
+
+
+def test_run_nerf_random_negatives(patch_scene, tmp_path, monkeypatch):
+    """--rand_neg: each head of each loss takes its own draw of negatives
+    and its single-head losses (the geometry loss's on K7b/K7c); every term
+    is finite and the correlation terms nonzero."""
+    logs = tmp_path / "logs"
+    rgb_ckpt, _ = _rgb_checkpoint(patch_scene, logs)
+    calls, metrics = [], []
+    for cls in (tcorr.CorrelationLoss, tcorr.GeoCorrelationLoss):
+        orig = cls.__dict__["single"]
+
+        def single(self, *a, _orig=orig, _cls=cls):
+            calls.append(_cls.__name__)
+            return _orig(self, *a)
+        monkeypatch.setattr(cls, "single", single)
+    orig_step = tsos.make_sos_train_step
+
+    def recording(*a, **kw):
+        step = orig_step(*a, **kw)
+        return lambda batch, k: metrics.append(step(batch, k)) or metrics[-1]
+    monkeypatch.setattr(tsos, "make_sos_train_step", recording)
+    _main(patch_scene, logs, "rand", *PATCH_FLAGS, "--rand_neg", "--ckpt_path", rgb_ckpt,
+          "--max_steps", "3")
+    assert len(metrics) == 2
+    assert calls == ["CorrelationLoss", "CorrelationLoss", "GeoCorrelationLoss",
+                     "GeoCorrelationLoss"] * 2
+    for m in metrics:
+        assert all(np.isfinite(float(v)) for v in m.values())
+        assert all(float(m[k]) != 0 for k in ("corr0", "corr1", "geo_corr0", "geo_corr1"))
+
+
+def test_run_nerf_patch_tune_without_the_sos_losses(patch_scene, tmp_path, monkeypatch,
+                                                    capsys):
+    """--patch_tune without the SOS losses: the RGB train step on patch
+    batches (B P P rays), no DINO; without --fix_backbone the trunk moves."""
+    logs = tmp_path / "logs"
+    rgb_ckpt, rgb_state = _rgb_checkpoint(patch_scene, logs)
+    from nerfsos_torch.engines import trainer
+
+    rays = []
+    orig = trainer.make_rgb_train_step
+
+    def recording(*a, **kw):
+        step = orig(*a, **kw)
+        return lambda batch, k: rays.append(batch["rays"].shape) or step(batch, k)
+    monkeypatch.setattr(trainer, "make_rgb_train_step", recording)
+    run = _main(patch_scene, logs, "rgbpatch", "--patch_tune", "--batch_size", "2",
+                "--patch_size", "8", "--patch_stride", "2", "--i_print", "2", "--i_weights", "2",
+                "--ckpt_path", rgb_ckpt, "--max_steps", "3")
+    assert rays == [(2, 2 * 8 * 8, 3)] * 2
+    assert "dino" not in capsys.readouterr().out.lower()
+    state, gstep, opt_state = tckpt.load_checkpoint(str(run / "checkpoints" / "last.ckpt"))
+    assert gstep == 3 and len(opt_state["state"]) == len(state)
+    assert not torch.equal(state["nerf.mlp.pts_linears.0.weight"],
+                           rgb_state["nerf.mlp.pts_linears.0.weight"])
+
+
+@pytest.mark.parametrize("flags,leaves", [
+    (["--patch_tune", "--use_dino", "--use_correlation", "--use_sim_matrix"], 44),
+    (["--patch_tune", "--fix_backbone", "--use_dino", "--use_geoCorr"], 8),
     (["--patch_tune", "--fix_backbone", "--use_dino", "--use_geoCorr", "--use_sim_matrix",
-      "--rand_neg"], "K7b"),
-    (["--patch_tune", "--fix_backbone"], "without the SOS losses"),
-    (["--patch_tune", "--fix_backbone", "--use_correlation"], "require --use_dino"),
+      "--rand_neg"], 8),
+    (["--patch_tune", "--fix_backbone"], 8),
+    (["--patch_tune", "--fix_backbone", "--use_correlation"], None),
 ])
-def test_unported_patch_tune_modes_exit(patch_scene, tmp_path, flags, match):
-    args, _ = run_nerf.create_arg_parser().parse_known_args(
-        ["--expname", "x", "--basedir", str(tmp_path / "logs"), "--data_path",
-         str(patch_scene), "--data_type", "llff", *flags])
-    with pytest.raises(SystemExit, match=match):
-        run_nerf.main(args, device="cpu")
+def test_unported_patch_tune_modes_exit(patch_scene, tmp_path, flags, leaves):
+    """Every --patch_tune mode runs a step from a fresh model (the whole
+    network without --fix_backbone, a geometry loss without the similarity
+    matrix flag, random negatives, no SOS losses), Adam holding ``leaves``
+    leaves; the SOS losses without --use_dino still stop."""
+    argv = ["--expname", "x", "--basedir", str(tmp_path / "logs"), "--data_path",
+            str(patch_scene), *SOS_FLAGS, *flags, "--batch_size", "2", "--patch_size", "8",
+            "--patch_stride", "2", "--sem_with_coord", "--max_steps", "1", "--i_weights", "1"]
+    args, _ = run_nerf.create_arg_parser().parse_known_args(argv)
+    if leaves is None:
+        with pytest.raises(SystemExit, match="require --use_dino"):
+            run_nerf.main(args, device="cpu")
+        return
+    run_nerf.main(args, device="cpu")
+    _, gstep, opt_state = tckpt.load_checkpoint(str(tmp_path / "logs" / "x" / "checkpoints" /
+                                                    "last.ckpt"))
+    assert gstep == 1 and len(opt_state["state"]) == leaves
+
+
+def test_make_optimizer_full_finetune_unfreezes():
+    """A module a --fix_backbone optimizer froze trains whole again under an
+    optimizer without it."""
+    net = TorchNet(TorchConfig(**NET))
+    tstate.make_optimizer(net, 1e-3, fix_backbone=True)
+    assert not net.nerf.mlp.pts_linears[0].weight.requires_grad
+    opt = tstate.make_optimizer(net, 1e-3)
+    assert len(opt.param_groups[0]["params"]) == len(list(net.parameters()))
+    assert all(p.requires_grad for p in net.parameters())

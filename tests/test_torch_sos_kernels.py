@@ -1,7 +1,8 @@
-"""The frozen SOS finetune's kernels on the CPU: the plain versions of K4
-(train forward with sem_in), K5 (the semantic-head backward) and K7 (the
-quad geometry-correlation loss) against the JAX Pallas kernels in interpret
-mode, and models of the K5 kernel's packed layout.
+"""The SOS finetune's kernels on the CPU: the plain versions of K4 (train
+forward with sem_in), K5 (the semantic-head backward), K6 (the full
+train-render backward) and K7 (the geometry-correlation loss in its single,
+pair and quad forms) against the JAX Pallas kernels in interpret mode, and
+models of the K5 kernel's packed layout.
 
 The CUDA kernels themselves run only on a card (tests/test_torch_cuda.py).
 """
@@ -110,13 +111,65 @@ def test_frozen_backward_matches_pallas(depth, coord, noise, s):
             assert not want[name].any(), name
 
 
+K6_CASES = [  # (depth, sem_with_coord, noise, samples, seeded dweights)
+    (5, True, 1.0, 8, True),
+    (6, True, 0.0, 16, False),
+    (6, False, 1.0, 16, True),
+    (5, False, 0.0, 8, False),
+]
+
+
+@pytest.mark.parametrize("depth,coord,noise,s,dweights", K6_CASES)
+def test_full_backward_plain_matches_pallas(depth, coord, noise, s, dweights):
+    """K6's plain version against jax.vjp of fused_train_render_planar
+    without frozen_backbone (_train_render_bwd, interpret mode): every leaf
+    to 5e-5 of its max at fixed z, with seeded dmaps and zero or seeded
+    dweights."""
+    jcfg, params, tnet = _nets(depth, coord, frozen=False)
+    odv, z = _inputs(s + 3, s)
+    key = jax.random.PRNGKey(s)
+    rng = np.random.default_rng(depth + s)
+    dmaps = rng.normal(size=(R, 7)).astype(np.float32)
+    dw = rng.normal(size=(R, s)).astype(np.float32) if dweights else np.zeros((R, s), np.float32)
+    (maps_j, _), vjp = jax.vjp(
+        lambda p: jfr.fused_train_render_planar(p, jnp.asarray(odv), jnp.asarray(z), jcfg,
+                                                depth=depth, noise_std=noise, noise_key=key),
+        params["fine"])
+    (g_j,) = vjp((jnp.asarray(dmaps), jnp.asarray(dw)))
+    want = {k[len("nerf."):]: v for k, v in state_dict_from_jax_params(
+        {"coarse": jax.tree_util.tree_map(np.asarray, g_j)}).items()}
+    got = tfr.train_render_grads_plain(tnet.nerf_fine, torch.from_numpy(odv), torch.from_numpy(z),
+                                       torch.from_numpy(dmaps),
+                                       torch.from_numpy(dw) if dweights else None,
+                                       noise_std=noise, seed=_jax_seed(key))
+    assert set(got) == set(want)
+    for name, g in got.items():
+        ref = want[name].numpy()
+        scale = np.abs(ref).max()
+        assert scale > 0 and np.abs(g.numpy() - ref).max() <= 5e-5 * scale, name
+
+
 def test_unfrozen_backward_names_k6():
+    """Without ``frozen`` the autograd function's backward is K6 (its plain
+    version on CPU tensors, no launch): every leaf gets the gradient of
+    train_render_grads_plain, the weights' cotangent included."""
     _, _, tnet = _nets(6, True)
-    odv, z = _inputs(0, 8)
-    maps, _ = tfr.fused_train_render(tnet.nerf, torch.from_numpy(odv), torch.from_numpy(z),
-                                     noise_std=0.0, seed=0, frozen=False)
-    with pytest.raises(NotImplementedError, match="K6"):
-        maps.sum().backward()
+    odv, z = (torch.from_numpy(a) for a in _inputs(0, 8))
+    field = tnet.nerf
+    before = tfr.train_render_grads.launches
+    maps, w = tfr.fused_train_render(field, odv, z, noise_std=0.5, seed=4, frozen=False)
+    dmaps, dw = torch.randn(maps.shape), torch.randn(w.shape)
+    (torch.sum(maps * dmaps) + torch.sum(w * dw)).backward()
+    want = tfr.train_render_grads_plain(field, odv, z, dmaps, dw, noise_std=0.5, seed=4)
+    for name, p in field.named_parameters():
+        assert torch.equal(p.grad, want[name]), name
+    assert tfr.train_render_grads.launches == before
+    for p in field.parameters():  # an unused weights output: a zero cotangent
+        p.grad = None
+    maps, _ = tfr.fused_train_render(field, odv, z, noise_std=0.5, seed=4, frozen=False)
+    torch.sum(maps * dmaps).backward()
+    want = tfr.train_render_grads(field, odv, z, dmaps, None, noise_std=0.5, seed=4)
+    assert all(torch.equal(p.grad, want[n]) for n, p in field.named_parameters())
 
 
 def test_forward_without_grad_stores_no_sem_in():
@@ -257,3 +310,62 @@ def test_geo_quad_cpu_wrappers_count_nothing():
     assert all(t.grad is not None and torch.isfinite(t.grad).all() for t in tc)
     assert (tfc.geo_row_stats.launches, tfc.geo_quad_means.launches,
             tfc.geo_quad_grads.launches) == before
+
+
+@pytest.mark.parametrize("seed,shift,maxd", [(5, 3.0, 15.0), (6, 10.0, 2.0)])
+def test_geo_single_plain_matches_pallas(seed, shift, maxd):
+    """K7a + K7b: one helper mean (one half: gm the mean of every row); K7c:
+    both codes' gradients."""
+    pts, npts, c0, c0n, _, _ = _geo_inputs(seed)
+
+    def jloss(a, b):
+        return jfc.flash_geo_helper_mean(jnp.asarray(pts), jnp.asarray(npts), a, b, shift, maxd,
+                                         interpret=True)
+
+    want, g_want = jax.value_and_grad(jloss, argnums=(0, 1))(jnp.asarray(c0), jnp.asarray(c0n))
+    tc = [torch.from_numpy(a).requires_grad_() for a in (c0, c0n)]
+    got = tfc.geo_helper_mean(torch.from_numpy(pts), torch.from_numpy(npts), *tc, shift, maxd)
+    assert got.shape == ()
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
+    (2.5 * got).backward()
+    for t, g in zip(tc, g_want):
+        g = 2.5 * np.asarray(g)
+        assert np.abs(t.grad.numpy() - g).max() <= 1e-5 * np.abs(g).max()
+
+
+@pytest.mark.parametrize("seed,shift,maxd", [(7, 0.5, 15.0), (8, 3.0, 1.5)])
+def test_geo_pair_plain_matches_pallas(seed, shift, maxd):
+    """K7a + K7d: two heads' means on one sweep; K7e: the four codes'
+    gradients of a weighted sum of them."""
+    pts, npts, c0, c0n, c1, c1n = _geo_inputs(seed)
+    wts = np.array([1.7, -0.6], np.float32)
+
+    def jloss(*c):
+        out = jfc.flash_geo_helper_mean_pair(jnp.asarray(pts), jnp.asarray(npts), *c, shift, maxd,
+                                             interpret=True)
+        return jnp.sum(jnp.stack(out) * wts), jnp.stack(out)
+
+    (_, want), g_want = jax.value_and_grad(jloss, argnums=(0, 1, 2, 3), has_aux=True)(
+        *(jnp.asarray(a) for a in (c0, c0n, c1, c1n)))
+    tc = [torch.from_numpy(a).requires_grad_() for a in (c0, c0n, c1, c1n)]
+    got = torch.stack(tfc.geo_helper_mean_pair(torch.from_numpy(pts), torch.from_numpy(npts),
+                                               *tc, shift, maxd))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=1e-5, atol=0)
+    torch.sum(got * torch.from_numpy(wts)).backward()
+    for t, g in zip(tc, g_want):
+        g = np.asarray(g)
+        assert np.abs(t.grad.numpy() - g).max() <= 1e-5 * np.abs(g).max()
+
+
+def test_geo_single_and_pair_cpu_wrappers_count_nothing():
+    """On CPU tensors the K7b-K7e wrappers are their plain versions: the
+    same values, no launch; the pair's means are the two single means."""
+    pts, npts, c0, c0n, c1, c1n = (torch.from_numpy(a) for a in _geo_inputs(9))
+    names = ("geo_row_stats", "geo_single_means", "geo_single_grads", "geo_pair_means",
+             "geo_pair_grads")
+    before = [getattr(tfc, n).launches for n in names]
+    a = tfc.geo_helper_mean(pts, npts, c0, c0n, 3.0, 15.0)
+    b = tfc.geo_helper_mean(pts, npts, c1, c1n, 3.0, 15.0)
+    pair = tfc.geo_helper_mean_pair(pts, npts, c0, c0n, c1, c1n, 3.0, 15.0)
+    torch.testing.assert_close(torch.stack(pair), torch.stack([a, b]), rtol=1e-6, atol=0)
+    assert [getattr(tfc, n).launches for n in names] == before

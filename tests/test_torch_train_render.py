@@ -1,7 +1,8 @@
 """K3 (the fused RGB train pass) on the CPU: its noise hash and plain version
 against the JAX Pallas kernel in interpret mode, and a model of the CUDA
 kernel's dataflow (the packed layers, the workspace planes, the gradient
-layout) against the plain version.
+layout) against the plain version, in K3's loss mode and in K6's cotangent
+mode (the full train-render backward, with the semantic head's planes).
 
 The CUDA kernel itself runs only on a card (tests/test_torch_cuda.py).
 """
@@ -122,12 +123,15 @@ def _pad_rows(x, rows):
     return torch.cat([x, x.new_zeros(rows - x.shape[0], x.shape[1])])
 
 
-def _emulate_k3(field, odv, z, gt, white, noise_std, seed):
+def _emulate_k3(field, odv, z, gt, white, noise_std, seed, dmaps=None, dweights=None):
     """What csrc/train_render.cu computes, step for step, in feature-major
     torch matrices built only from the packed buffers: forward through
     ``pack_field``, the composite and its reverse per ray, the input
     gradients through ``pack_train_bwd`` with the relu gates, dW = X dY^T
-    into ``grad_layout``'s buffer, then ``unpack_grads``."""
+    into ``grad_layout``'s buffer, then ``unpack_grads``. With ``dmaps``
+    (K6) the maps' cotangent is ``dmaps`` (and ``dweights``) instead of the
+    img2mse one, and the semantic head is swept between alpha and the trunk,
+    its input gradient on h added into the last trunk layer's cotangent."""
     buf, fd = tfr.pack_field(field)
     bbuf, bwd = tfr.pack_train_bwd(field)
     depth, skip, sem = fd.depth, fd.skip, fd.sem_dim
@@ -174,9 +178,17 @@ def _emulate_k3(field, odv, z, gt, white, noise_std, seed):
     if sem:
         cols.append((w * semv).sum(-1).t())
     maps = torch.cat(cols, 1)
-    diff = 2 * (maps[:, :3] + ((1 - maps[:, 4:5]) if white else 0) - gt)
-    dacc = -diff.sum(1, keepdim=True) if white else 0
-    dw = (diff.t()[..., None] * rgb).sum(0) + dacc
+    if dmaps is None:
+        diff = 2 * (maps[:, :3] + ((1 - maps[:, 4:5]) if white else 0) - gt)
+        dacc = -diff.sum(1, keepdim=True) if white else 0
+        dw = (diff.t()[..., None] * rgb).sum(0) + dacc
+    else:
+        diff = dmaps[:, :3]
+        dw = (diff.t()[..., None] * rgb).sum(0) + dmaps[:, 3:4] * z + dmaps[:, 4:5]
+        if sem:
+            dw = dw + (dmaps[:, 5:].t()[..., None] * semv).sum(0)
+        if dweights is not None:
+            dw = dw + dweights
     suffix = torch.zeros(Rn)
     dalpha = torch.zeros_like(w)
     for s in range(S - 1, -1, -1):
@@ -185,8 +197,9 @@ def _emulate_k3(field, odv, z, gt, white, noise_std, seed):
     dsig = torch.where(sigma > 0, dalpha * e * D, torch.zeros_like(D)).reshape(1, -1)
     drgb = ((diff.t()[..., None] * w) * (rgb * (1 - rgb))).reshape(3, -1)
     dsig, drgb = _pad_rows(dsig, 8), _pad_rows(drgb, 8)
+    k6_sem = dmaps is not None and sem > 0
 
-    offs, size = tfr.grad_layout(field)
+    offs, size = tfr.grad_layout(field, k6_sem)
     flat = torch.zeros(size)
 
     def wgrad(layer, segs, dy):
@@ -203,11 +216,17 @@ def _emulate_k3(field, odv, z, gt, white, noise_std, seed):
     wgrad(k_feat, h, dfeat)
     wgrad(k_alpha, h, dsig)
     cur = mm(bbuf, bwd[k_alpha], [dfeat, dsig]) * (acts[-1] > 0)
+    if k6_sem:
+        dsem = _pad_rows((dmaps[:, 5:].t()[..., None] * w).reshape(sem, -1), 8)
+        wgrad(depth + 5, [s_act], dsem)
+        ds = mm(bbuf, bwd[depth + 5], [dsem]) * (s_act > 0)
+        wgrad(depth + 4, h + ([emb] if fd.sem_with_coord else []), ds)
+        cur = (mm(bbuf, bwd[depth + 4], [ds]) + cur) * (acts[-1] > 0)
     for i in range(depth - 1, -1, -1):
         wgrad(i, ins[i], cur)
         if i > 0:
             cur = mm(bbuf, bwd[i], [cur]) * (acts[i - 1] > 0)
-    return tfr.unpack_grads(field, flat), maps, w
+    return tfr.unpack_grads(field, flat, k6_sem), maps, w
 
 
 @pytest.mark.parametrize("sem,coord,white,noise,s", CASES)
@@ -227,10 +246,43 @@ def test_kernel_dataflow_matches_plain(sem, coord, white, noise, s):
         assert err < 1e-5, (name, err)
 
 
+K6_CASES = [  # (use_semantics, sem_with_coord, noise_std, samples, dweights)
+    (True, True, 0.6, 8, True),
+    (True, False, 0.0, 16, False),
+    (True, True, 0.0, 16, False),
+    (False, False, 0.6, 8, True),
+]
+
+
+@pytest.mark.parametrize("sem,coord,noise,s,dweights", K6_CASES)
+def test_k6_dataflow_matches_plain(sem, coord, noise, s, dweights):
+    """K6's cotangent mode: the layout K6 reads (the semantic head's packed
+    input-gradient matrices, its planes and its gradient slots) reproduces
+    train_render_grads_plain."""
+    _, _, tnet = _nets(use_semantics=sem, sem_with_coord=coord)
+    odv, z, _ = (torch.from_numpy(a) for a in _inputs(s + 2, s))
+    rng = np.random.default_rng(s)
+    dmaps = torch.from_numpy(rng.normal(size=(R, 7 if sem else 5)).astype(np.float32))
+    dw = torch.from_numpy(rng.normal(size=(R, s)).astype(np.float32)) if dweights else None
+    field = tnet.nerf_fine
+    with torch.no_grad():
+        g_e, _, _ = _emulate_k3(field, odv, z, None, False, noise, 99, dmaps, dw)
+    g_p = tfr.train_render_grads_plain(field, odv, z, dmaps, dw, noise_std=noise, seed=99)
+    assert set(g_e) == set(g_p) == {n for n, _ in field.named_parameters()}
+    for name, g in g_p.items():
+        assert g_e[name].shape == g.shape, name
+        scale = float(g.abs().max())
+        assert scale > 0, name
+        assert float((g_e[name] - g).abs().max()) / scale < 1e-5, name
+
+
 def test_train_desc_planes_and_layout():
     """The workspace planes hold exactly the padded rows the kernel's layers
     read, one 64-point tile per rays_per_chunk * S / 64, and the gradient
-    buffer covers every layer but the semantic head."""
+    buffer covers every layer but the semantic head (K3); K6 adds the
+    semantic head's three planes (s_act, d_sem, ds) after the trunk's and
+    its two layers' gradients, and the head's two input-gradient matrices
+    come after K3's in the packed buffer."""
     _, _, tnet = _nets(use_semantics=True, sem_with_coord=True)
     field = tnet.nerf_fine
     buf, fd = tfr._packed(field, torch.device("cpu"))
@@ -249,6 +301,17 @@ def test_train_desc_planes_and_layout():
     assert (bwd[fd.depth + 2].k, bwd[fd.depth + 2].n) == (8, 16)
     assert (bwd[fd.depth + 3].k, bwd[fd.depth + 3].n) == (8, 8)
     assert layers[fd.depth][1] == [27, 16]  # the skip follows the last trunk layer here
+    d6 = tfr.train_desc(field, fd, bwd, 192, sem=True)
+    rows6 = [d6.rows[p] for p in range(13 + fd.depth)]
+    assert rows6 == rows + [8, 8, 8]  # hidden 16 / 2, d_sem padded to 8, ds
+    assert d6.ws_size == sum(rows6) * 72 * 6 and d6.rays_per_chunk == 2
+    offs6, size6 = tfr.grad_layout(field, sem=True)
+    assert offs6[:fd.depth + 4] == offs and len(offs6) == fd.depth + 6 and d6.grad_size == size6
+    assert offs6[fd.depth + 4][0] == size  # sem_0's dW right after K3's buffer
+    assert (bwd[fd.depth + 4].k, bwd[fd.depth + 4].n) == (8, 16)  # W_sem0 on h
+    assert (bwd[fd.depth + 5].k, bwd[fd.depth + 5].n) == (8, 8)  # W_sem1
+    assert min(bwd[fd.depth + 4].w, bwd[fd.depth + 5].w) > max(
+        bwd[i].b for i in range(1, fd.depth + 4) if i != fd.depth + 1)
 
 
 def test_cpu_wrapper_takes_the_plain_path():
