@@ -1,5 +1,6 @@
 """Smoke run of the PyTorch port on one CUDA card: kernels, the --eval path,
-the train path, then the SOS finetune (frozen, full, random negatives).
+the train path, the SOS finetune (frozen, full, random negatives), then
+mip-NeRF (--mipnerf train and --eval).
 
     python3 chip_smoke.py
 
@@ -72,7 +73,26 @@ Phases (one line each; any failure raises and the exit code is nonzero):
      step, K7a/K7b/K7c four times (2 heads x neg/self), the trunk bitwise
      unchanged, the last step's K7b/K7c calls vs the plain versions;
  17. [sos_full_step]: the full finetune's 32768-ray step as in 12, K6 in
-     place of K5.
+     place of K5;
+ 18. [K9]: the mip eval kernel vs its plain version at the flagship width
+     (8 x 256, multires 10, multires_views 4), 4096 rays, S=63 and S=190
+     intervals at fixed sorted fenceposts, a 378x504 view's base radius:
+     maps and weights to TOL;
+ 19. [K10a]/[K10b]: the mip train forward (noise 1 from a fixed seed) to
+     TOL, and the mip backward on its inputs with seeded map and weight
+     cotangents, every leaf to GRAD_TOL plus its gate allowance, two calls
+     bitwise equal;
+ 20. [mip_train]: ``run_nerf.main`` with configs/flower_full.txt's flags and
+     --mipnerf on the [train] run's 8 views, 30 steps: K10a and K10b twice a
+     step, the loss falls, the checkpoints hold the Adam state, the final
+     eval runs through K9, and the last step's two K10b calls agree with the
+     plain version on their own inputs;
+ 21. [mip_eval]: ``--eval --mipnerf`` on the 378x504 test view from that
+     run's checkpoint: K9 twice a ray block, finite metrics, and the view
+     rendered by the kernel path vs the plain path;
+ 22. [mip_step]: the mip train step at 1024 and 16384 rays on the kernel
+     and the plain path with peak memory, and its K10a/K10b calls timed
+     alone beside their bounds.
 The last lines are the card, one JSON object with the kernels' numbers, and
 ``{"ok": true, "device": {...}}``. Scratch files go to build/chip_smoke/.
 """
@@ -200,15 +220,15 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
 
 
 def k4_errors(got, want) -> list:
-    """K4's (maps, weights, sem_in) against its plain version's: the
-    largest error of each, the maps' taken per column over that column's
-    scale max(1, max |plain|). The depth column is a z-weighted sum of the
-    weights (z up to far = 13), so its rounding is the weights' times z;
-    the other columns are O(1)."""
+    """K4's (maps, weights, sem_in), or K9's/K10a's (maps, weights), against
+    its plain version's: the largest error of each, the maps' taken per
+    column over that column's scale max(1, max |plain|). The depth column is
+    a z-weighted sum of the weights (z up to far = 13), so its rounding is
+    the weights' times z; the other columns are O(1)."""
     maps, maps_p = got[0].detach(), want[0].detach()
     scale = maps_p.abs().amax(0).clamp(min=1.0)
-    return [float(((maps - maps_p).abs() / scale).max()), max_err(got[1], want[1]),
-            max_err(got[2], want[2])]
+    return [float(((maps - maps_p).abs() / scale).max())] + [
+        max_err(a, b) for a, b in zip(got[1:], want[1:])]
 
 
 def linear_shapes(field):
@@ -369,6 +389,19 @@ def plain_k6_with_gates(field, odv, z, dmaps, dweights, kw):
                                                                 **kw))
 
 
+def plain_k10b_with_gates(field, odvr, z, dmaps, dweights, kw):
+    """K10b's plain version, and ``plain_with_gates``' slack and terms for
+    the trunk, views and alpha gates of the mip field's ``R x S`` intervals
+    (``z`` holds ``S + 1`` fenceposts)."""
+    from nerfsos_torch.ops import fused_render as fr
+
+    mlp = field.mlp
+    return plain_with_gates(field, z.shape[0], z.shape[1] - 1, kw,
+                            [*mlp.pts_linears, mlp.views_linears[0], mlp.alpha_linear],
+                            lambda: fr.mip_train_render_grads_plain(field, odvr, z, dmaps,
+                                                                    dweights, **kw))
+
+
 def flip_allowance(slack, terms) -> dict:
     """Per gradient leaf: twice the largest term of a point with a gate
     within GATE_MARGIN of 0, or 0 where there is none."""
@@ -406,9 +439,9 @@ def check_k3(what: str, got, want, slack, terms) -> dict:
             "grad_err_over_bound": over}
 
 
-def check_k6(what: str, got, want, slack, terms) -> dict:
-    """K6's grads vs its plain version's: every leaf to GRAD_TOL of its max
-    |plain| plus the leaf's flip allowance; raises."""
+def check_k6(what: str, got, want, slack, terms, kernel: str = "K6") -> dict:
+    """K6's (or K10b's) grads vs its plain version's: every leaf to GRAD_TOL
+    of its max |plain| plus the leaf's flip allowance; raises."""
     allow = flip_allowance(slack, terms)
     grad_err, worst, over, abs_err = 0.0, "", 0.0, 0.0
     for name, ref in want.items():
@@ -420,8 +453,8 @@ def check_k6(what: str, got, want, slack, terms) -> dict:
         over = max(over, e / (GRAD_TOL * scale + allow[name]))
     finite = all(torch.isfinite(t).all() for t in got.values())
     if not (set(got) == set(want) and finite and over <= 1.0):
-        raise SystemExit(f"K6 disagrees with its plain version ({what}): grads {grad_err} of the "
-                         f"leaf's max at {worst}, worst leaf error over its bound {over}, "
+        raise SystemExit(f"{kernel} disagrees with its plain version ({what}): grads {grad_err} "
+                         f"of the leaf's max at {worst}, worst leaf error over its bound {over}, "
                          f"finite={finite}")
     return {"max_abs_err": abs_err, "grad_rel_err": grad_err, "worst_leaf": worst,
             "grad_tol": GRAD_TOL, "near_gate_points": int((slack <= GATE_MARGIN).sum()),
@@ -569,46 +602,48 @@ def train_args(data: str, logs: str, max_steps: int):
     return args
 
 
-def run_train(fr, max_steps: int, capture_step: int = -1) -> dict:
-    """``run_nerf.main`` in train mode with every kernel count set to 0 just
-    before and read just after; the train step is wrapped to record each
-    step's index and loss and the Adam step count it starts from. At
-    ``capture_step`` the inputs (the field as it was, rays, z, targets,
-    noise seed) and outputs of both K3 calls are kept in ``rec["k3_calls"]``."""
+TRAIN_COUNTS = {"K1": "fused_coarse_weights", "K2": "fused_render", "K3": "fused_rgb_train_grads"}
+MIP_COUNTS = {"K9": "fused_mip_render", "K10a": "mip_train_render",
+              "K10b": "mip_train_render_grads"}
+
+
+def run_train(fr, args, counts: dict, capture=(), capture_step: int = -1) -> dict:
+    """``run_nerf.main(args)`` in train mode with the kernel counts
+    ``counts`` (kernel -> wrapper name in ``fr``) set to 0 just before and
+    read just after; the train step is wrapped to record each step's index
+    and loss and the Adam step count it starts from. At ``capture_step`` the
+    calls of the wrappers named in ``capture`` are kept in ``rec["calls"]``,
+    as ``Capture`` keeps them."""
     from nerfsos_torch import run_nerf
     from nerfsos_torch.engines import trainer
 
-    rec = {"steps": [], "losses": [], "adam_step_at_start": None, "k3_calls": []}
+    rec = {"steps": [], "losses": [], "adam_step_at_start": None}
     orig = trainer.make_rgb_train_step
-    capturing = [False]
-
-    def recording_grads(field, odv, z, gt, **kw):
-        out = fr.fused_rgb_train_grads(field, odv, z, gt, **kw)
-        if capturing[0]:
-            rec["k3_calls"].append((copy.deepcopy(field), odv.clone(), z.clone(), gt.clone(),
-                                    kw, out))
-        return out
 
     def recording_make_step(net, optimizer, *a, **kw):
-        step = orig(net, optimizer, *a, grads_fn=recording_grads, **kw)
+        # K3's wrapper is looked up here, so that the capturing stand-in is called
+        kw.setdefault("grads_fn", fr.fused_rgb_train_grads)
+        step = orig(net, optimizer, *a, **kw)
         first = next(net.parameters())
 
         def recorded(batch, global_step):
             if rec["adam_step_at_start"] is None:
                 st = optimizer.state.get(first, {})
                 rec["adam_step_at_start"] = int(st["step"]) if "step" in st else 0
-            capturing[0] = global_step == capture_step
-            metrics = step(batch, global_step)
+            cap.on = global_step == capture_step
+            try:
+                metrics = step(batch, global_step)
+            finally:
+                cap.on = False
             rec["steps"].append(global_step)
             rec["losses"].append(metrics["loss"])
             return metrics
 
         return recorded
 
-    args = train_args(os.path.join(WORK, "data"), os.path.join(WORK, "logs"), max_steps)
-    fr.fused_coarse_weights.launches = 0
-    fr.fused_render.launches = 0
-    fr.fused_rgb_train_grads.launches = 0
+    for name in counts.values():
+        getattr(fr, name).launches = 0
+    cap = Capture(fr, list(capture))
     trainer.make_rgb_train_step = recording_make_step
     try:
         torch.cuda.synchronize()
@@ -618,8 +653,9 @@ def run_train(fr, max_steps: int, capture_step: int = -1) -> dict:
         rec["seconds"] = time.perf_counter() - t0
     finally:
         trainer.make_rgb_train_step = orig
-    rec["launches"] = {"K1": fr.fused_coarse_weights.launches, "K2": fr.fused_render.launches,
-                       "K3": fr.fused_rgb_train_grads.launches}
+        cap.close()
+    rec["launches"] = {k: getattr(fr, name).launches for k, name in counts.items()}
+    rec["calls"] = cap.calls
     rec["losses"] = [float(x) for x in rec["losses"]]
     return rec
 
@@ -649,7 +685,9 @@ def train_path(fr) -> dict:
     from nerfsos_torch.data.synthetic import write_sphere_scene
 
     write_sphere_scene(os.path.join(WORK, "data"), 378, 504, n_views=8, split="train")
-    rec = run_train(fr, TRAIN_STEPS, capture_step=TRAIN_STEPS - 1)
+    rec = run_train(fr, train_args(os.path.join(WORK, "data"), os.path.join(WORK, "logs"),
+                                   TRAIN_STEPS),
+                    TRAIN_COUNTS, ["fused_rgb_train_grads"], TRAIN_STEPS - 1)
     losses, launches = rec["losses"], rec["launches"]
     run_dir = os.path.join(WORK, "logs", "smoke_train")
     first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
@@ -669,9 +707,10 @@ def train_path(fr) -> dict:
     # the last step's two K3 calls (coarse: stratified z; fine: the coarse z
     # and the importance samples, sorted) against the plain version on the
     # same inputs; only the plain version runs here
-    if len(rec["k3_calls"]) != 2:
-        raise SystemExit(f"captured {len(rec['k3_calls'])} K3 calls of step {TRAIN_STEPS - 1}")
-    for name, (field, odv, z, gt, kw, got) in zip(("coarse", "fine"), rec["k3_calls"]):
+    calls = rec["calls"]["fused_rgb_train_grads"]
+    if len(calls) != 2:
+        raise SystemExit(f"captured {len(calls)} K3 calls of step {TRAIN_STEPS - 1}")
+    for name, ((field, odv, z, gt), kw, got) in zip(("coarse", "fine"), calls):
         close = check_k3(f"train step {TRAIN_STEPS - 1}, {name}", got,
                          *plain_k3_with_gates(field, odv, z, gt, kw))
         phase("train_k3", step=TRAIN_STEPS - 1, field=name, rays=z.shape[0], samples=z.shape[1],
@@ -680,7 +719,8 @@ def train_path(fr) -> dict:
 
 
 def resume_path(fr) -> None:
-    rec = run_train(fr, RESUME_STEPS)
+    rec = run_train(fr, train_args(os.path.join(WORK, "data"), os.path.join(WORK, "logs"),
+                                   RESUME_STEPS), TRAIN_COUNTS)
     phase("resume", first_step=rec["steps"][0], adam_step_at_start=rec["adam_step_at_start"],
           launches=rec["launches"], loss_first=rec["losses"][0], loss_last=rec["losses"][-1])
     if rec["steps"] != list(range(TRAIN_STEPS, RESUME_STEPS)):
@@ -1461,6 +1501,294 @@ def sos_step_timings(fr, fc, sos_run, name: str = "sos_step",
     return parts
 
 
+# ----------------------------------------------------------------- mip-NeRF
+
+H_VIEW, W_VIEW = 378, 504
+MIP_RADII = 2.0 / max(H_VIEW, W_VIEW) * 2 / math.sqrt(12)  # a 378x504 view's base radius
+
+
+def seeded_mip_field(seed: int):
+    """The flagship mip field (8 x 256, multires 10, multires_views 4) with
+    weights from a seeded torch.Generator, as ``seeded_field``."""
+    from nerfsos_torch.models.fields import MipNeRFField
+
+    field = MipNeRFField(net_depth=8, net_width=256, multires=10, multires_views=4)
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in field.modules():
+            if isinstance(m, torch.nn.Linear):
+                b = 1.0 / math.sqrt(m.in_features)
+                m.weight.uniform_(-b, b, generator=g)
+                m.bias.uniform_(-b, b, generator=g)
+    return field.cuda().eval()
+
+
+def mip_ray_inputs(n: int, s: int, seed: int):
+    """``ray_inputs``' rays with a 378x504 view's base radius as odvr
+    [n, 10], and sorted fenceposts [n, s + 1] in [2, 6]."""
+    odv, z = ray_inputs(n, s + 1, seed)
+    return torch.cat([odv, torch.full_like(odv[:, :1], MIP_RADII)], dim=1).contiguous(), z
+
+
+def mip_cost(field, R: int, S: int, kind: str) -> dict:
+    """Bounds of the mip kernels over R rays of S intervals: K9/K10a the
+    forward of every layer a point (``field_flops`` 'k2'), odvr, z, maps and
+    weights moved once; K10b the forward, input- and weight-gradient products
+    of every layer (``field_flops`` 'k3': the mip field has no semantic
+    head), odvr, z, the two cotangents and the weights read once, the
+    gradients written."""
+    rays = 4 * R * (10 + (S + 1) + 5 + S)
+    if kind == "K10b":
+        return bound_ms(rays + 8 * n_params(field), R * S * field_flops(field, "k3"))
+    return bound_ms(rays + 4 * n_params(field), R * S * field_flops(field, "k2"))
+
+
+def kernel_vs_plain_k9(fr, S: int) -> dict:
+    """[K9] at the flagship width, 4096 rays, fixed sorted fenceposts: maps
+    (per column over max(1, its max)) and weights to TOL, and times."""
+    field = seeded_mip_field(5)
+    odvr, z = mip_ray_inputs(4096, S, seed=30 + S)
+    R = odvr.shape[0]
+    with torch.no_grad():
+        got = fr.fused_mip_render(field, odvr, z)
+        want = fr.mip_render_plain(field, odvr, z)
+        torch.cuda.synchronize()
+        errs = k4_errors(got, want)
+        ms = cuda_ms(lambda: fr.fused_mip_render(field, odvr, z))
+        plain_ms = cuda_ms(lambda: fr.mip_render_plain(field, odvr, z), reps=3)
+    finite = all(torch.isfinite(t).all() for t in got)
+    if not (got[0].shape == (R, 5) and finite and max(errs) <= TOL):
+        raise SystemExit(f"K9 disagrees with its plain version (S={S}): maps (scaled), weights "
+                         f"errors {errs} (tol {TOL}), finite={finite}")
+    bound = mip_cost(field, R, S, "K9")
+    phase("K9", rays=R, samples=S, max_err_maps_scaled=errs[0], max_abs_err_weights=errs[1],
+          tol=TOL, ms=ms, plain_ms=plain_ms, **bound)
+    return {"max_abs_err": max(max_err(a, b) for a, b in zip(got, want)), "ms": ms,
+            "plain_ms": plain_ms, **bound, "library_ms": None}
+
+
+def kernel_vs_plain_k10(fr, S: int) -> dict:
+    """[K10]: K10a vs its plain version with noise 1 from a fixed seed, to
+    TOL; K10b on K10a's inputs with seeded map and weight cotangents, every
+    leaf to GRAD_TOL plus its gate allowance, two calls bitwise equal."""
+    field = seeded_mip_field(6)
+    odvr, z = mip_ray_inputs(4096, S, seed=40 + S)
+    R = odvr.shape[0]
+    kw = dict(noise_std=1.0, seed=1357911)
+    with torch.no_grad():
+        got = fr.mip_train_render(field, odvr, z, **kw)
+        want = fr.mip_train_render_plain(field, odvr, z, **kw)
+    torch.cuda.synchronize()
+    errs = k4_errors(got, want)
+    if not (all(torch.isfinite(t).all() for t in got) and max(errs) <= TOL):
+        raise SystemExit(f"K10a disagrees with its plain version (S={S}): maps (scaled), "
+                         f"weights errors {errs} (tol {TOL})")
+    rng = np.random.default_rng(200 + S)
+    dmaps = torch.from_numpy(rng.normal(size=(R, 5)).astype(np.float32)).cuda()
+    dweights = torch.from_numpy(rng.normal(size=(R, S)).astype(np.float32)).cuda()
+    g = fr.mip_train_render_grads(field, odvr, z, dmaps, dweights, **kw)
+    again = fr.mip_train_render_grads(field, odvr, z, dmaps, dweights, **kw)
+    torch.cuda.synchronize()
+    close = check_k6(f"S={S}", g, *plain_k10b_with_gates(field, odvr, z, dmaps, dweights, kw),
+                     kernel="K10b")
+    if not all(torch.equal(g[k], again[k]) for k in g):
+        raise SystemExit(f"K10b's gradients differ between two calls (S={S})")
+    with torch.no_grad():
+        t_a = (cuda_ms(lambda: fr.mip_train_render(field, odvr, z, **kw)),
+               cuda_ms(lambda: fr.mip_train_render_plain(field, odvr, z, **kw), reps=3))
+    t_b = (cuda_ms(lambda: fr.mip_train_render_grads(field, odvr, z, dmaps, dweights, **kw)),
+           cuda_ms(lambda: fr.mip_train_render_grads_plain(field, odvr, z, dmaps, dweights, **kw),
+                   reps=3))
+    phase("K10a", rays=R, samples=S, max_err_maps_scaled=errs[0], max_abs_err_weights=errs[1],
+          tol=TOL, ms=t_a[0], plain_ms=t_a[1], **mip_cost(field, R, S, "K10a"))
+    phase("K10b", rays=R, samples=S, **close, deterministic=True, ms=t_b[0], plain_ms=t_b[1],
+          **mip_cost(field, R, S, "K10b"))
+    return {"K10a": max(max_err(a, b) for a, b in zip(got, want)), "K10b": close["max_abs_err"]}
+
+
+MIP_STEPS = 30
+
+
+def mip_args(max_steps: int, *extra):
+    """configs/flower_full.txt + --mipnerf (N_rand 1024, 64 + 128 samples,
+    raw_noise_std 1) on the [train] run's 8 views of 378x504."""
+    from nerfsos_torch import run_nerf
+
+    argv = ["--config", os.path.join(ROOT, "configs", "flower_full.txt"), "--mipnerf",
+            "--expname", "smoke_mip", "--basedir", os.path.join(WORK, "logs"),
+            "--data_path", os.path.join(WORK, "data"), "--max_steps", str(max_steps),
+            "--i_print", "10", "--i_weights", "10", "--i_testset", "1000000", "--fast_mode",
+            *extra]
+    args, _ = run_nerf.create_arg_parser().parse_known_args(argv)
+    return args
+
+
+def mip_train_path(fr) -> dict:
+    """[mip_train]: ``run_nerf.main`` with the flags of
+    configs/flower_full.txt + --mipnerf, MIP_STEPS steps. Every mip kernel
+    count is set to 0 just before and read just after: K10a and K10b twice a
+    step, K9 in the final eval; the loss falls; the checkpoints hold the Adam
+    state; the last step's two K10b calls agree with the plain version."""
+    rec = run_train(fr, mip_args(MIP_STEPS), MIP_COUNTS, ["mip_train_render_grads"],
+                    MIP_STEPS - 1)
+    launches, losses = rec["launches"], rec["losses"]
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    phase("mip_train", steps=len(losses), views=f"8x{H_VIEW}x{W_VIEW}",
+          seconds_incl_load_and_eval=rec["seconds"], launches=launches, loss_first10=first,
+          loss_last10=last, loss_step1=losses[0], loss_last=losses[-1])
+    if rec["steps"] != list(range(MIP_STEPS)):
+        raise SystemExit(f"mip train ran steps {rec['steps']}")
+    if (launches["K10a"] != 2 * MIP_STEPS or launches["K10b"] != 2 * MIP_STEPS
+            or launches["K9"] < 1):
+        raise SystemExit(f"the mip train run did not go through the kernels as expected: "
+                         f"{launches}")
+    if not (all(math.isfinite(x) for x in losses) and last < first):
+        raise SystemExit(f"mip train loss not finite or not falling: {losses}")
+    run_dir = os.path.join(WORK, "logs", "smoke_mip")
+    check_checkpoints(run_dir, ["00000010.ckpt", "00000020.ckpt", "00000030.ckpt",
+                                "latest.ckpt", "last.ckpt"])
+    log = check_final_eval(run_dir)
+    phase("mip_train_eval", psnr=log["total_psnr"], ssim=log["total_ssim"])
+    calls = rec["calls"]["mip_train_render_grads"]
+    if len(calls) != 2:
+        raise SystemExit(f"captured {len(calls)} K10b calls of step {MIP_STEPS - 1}")
+    for a, kw, got in calls:
+        field, odvr, z, dmaps, dweights = a
+        part = "coarse" if z.shape[1] == 64 else "fine"
+        close = check_k6(f"mip step {MIP_STEPS - 1}, {part}", got,
+                         *plain_k10b_with_gates(field, odvr, z, dmaps, dweights, kw),
+                         kernel="K10b")
+        phase("mip_train_k10b", step=MIP_STEPS - 1, field=part, rays=z.shape[0],
+              samples=z.shape[1] - 1, **close)
+    return launches
+
+
+def mip_eval_path(fr) -> dict:
+    """[mip_eval]: ``--eval --mipnerf`` on the 378x504 test view from the
+    [mip_train] run's last.ckpt, the K9 count set to 0 just before: two
+    launches a ray block (coarse and fine), finite metrics in log.json; then
+    the same view rendered by the kernel path and the plain path."""
+    from nerfsos_torch import run_nerf
+    from nerfsos_torch.data.datasets import RayDataset
+    from nerfsos_torch.engines import checkpoint as ckpt_lib
+    from nerfsos_torch.engines import eval as eval_lib
+    from nerfsos_torch.models.mip import MipNeRFNet
+
+    args = mip_args(0, "--eval")
+    run_dir = os.path.join(WORK, "logs", "smoke_mip")
+    os.remove(os.path.join(run_dir, "eval", "log.json"))  # [mip_train]'s final eval wrote one
+    fr.fused_mip_render.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run_nerf.main(args)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = fr.fused_mip_render.launches
+    blocks = -(-H_VIEW * W_VIEW // args.ray_chunk)
+    phase("mip_eval", view=f"{H_VIEW}x{W_VIEW}", seconds=seconds, launches={"K9": launches},
+          ray_blocks=blocks)
+    if launches != 2 * blocks:
+        raise SystemExit(f"--eval --mipnerf launched K9 {launches} times, not 2 x {blocks}")
+    log = check_final_eval(run_dir)
+    phase("mip_eval_metrics", psnr=log["total_psnr"], ssim=log["total_ssim"])
+
+    net, _ = run_nerf.build_model(args, torch.device("cuda"))
+    state, _, _ = ckpt_lib.load_checkpoint(os.path.join(run_dir, "checkpoints", "last.ckpt"))
+    net.load_state_dict(state)
+    plain = MipNeRFNet(dataclasses.replace(net.cfg, fused_field=False)).cuda().eval()
+    plain.load_state_dict(state)
+    dataset = RayDataset(args.data_path, split="test")
+    rays = dataset.get_view(0)["rays"]
+    out, secs = {}, {}
+    for name, model in (("kernel", net), ("plain", plain)):
+        render = eval_lib.make_render_fn(model, *dataset.near_far(), radii=dataset.radii())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[name] = render(rays)
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+    d_rgb = (out["kernel"]["rgb"] - out["plain"]["rgb"]).abs().amax(dim=-1)
+    frac = float((d_rgb > 1e-3).float().mean())
+    phase("mip_render", view=f"{H_VIEW}x{W_VIEW}", kernel_s=secs["kernel"], plain_s=secs["plain"],
+          rgb_max_abs_diff=float(d_rgb.max()), frac_rays_over_1e_3=frac)
+    # as [render]: an importance sample may move a bin where a u meets a CDF edge
+    if frac > 1e-3:
+        raise SystemExit(f"{frac:.2%} of mip rays differ by more than 1e-3 from the plain path")
+    return {"K9": launches}
+
+
+def mip_step_timings(fr) -> dict:
+    """[mip_step]: the mip train step (CUDA events around grads + Adam) at
+    1024 and 16384 rays on the kernel path and on the plain path (K10a's and
+    K10b's plain versions in their place), in turns, with peak memory; then
+    one kernel-path step's K10a and K10b calls (1024 rays, coarse S=63 and
+    fine S=190) each timed alone against its plain version and its bound."""
+    from nerfsos_torch import run_nerf
+    from nerfsos_torch.data.datasets import RayDataset
+    from nerfsos_torch.engines import state as state_lib
+    from nerfsos_torch.engines.trainer import make_rgb_train_step
+
+    args = mip_args(0)
+    net, _ = run_nerf.build_model(args, torch.device("cuda"))
+    optimizer = state_lib.make_optimizer(net, args.lrate)
+    schedule = state_lib.exp_decay_schedule(args.lrate, args.decay_rate, args.decay_step * 1000)
+    dataset = RayDataset(args.data_path, split="train")
+    test = RayDataset(args.data_path, split="test")
+    step = make_rgb_train_step(net, optimizer, schedule, *test.near_far(), args.rgb_w, args.seed,
+                               net_kwargs={"radii": test.radii()})
+    plain = {"mip_train_render": fr.mip_train_render_plain,
+             "mip_train_render_grads": fr.mip_train_render_grads_plain}
+    out = {}
+    for R in (1024, 16384):
+        b = dataset.sample_batch(np.random.default_rng(R), R)
+        batch = {k: torch.as_tensor(b[k], device="cuda") for k in ("rays", "target")}
+        for path in ("kernel", "plain", "kernel", "plain"):
+            saved = {n: getattr(fr, n) for n in plain} if path == "plain" else {}
+            for n in saved:
+                setattr(fr, n, plain[n])
+            try:
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                ms = cuda_ms(lambda: step(batch, 0), reps=3 if R == 1024 else 2, warmup=1)
+                peak = torch.cuda.max_memory_allocated() / 2**30
+            finally:
+                for n, f in saved.items():
+                    setattr(fr, n, f)
+            out.setdefault((R, path), []).append(ms)
+            phase("mip_step", path=path, rays=R, ms=ms, rays_per_s=R / ms * 1e3, peak_gib=peak)
+
+    b = dataset.sample_batch(np.random.default_rng(1024), 1024)
+    batch = {k: torch.as_tensor(b[k], device="cuda") for k in ("rays", "target")}
+    cap = Capture(fr, ["mip_train_render", "mip_train_render_grads"])
+    cap.on = True
+    try:
+        step(batch, 0)
+        torch.cuda.synchronize()
+    finally:
+        cap.close()
+    parts = {}
+    for name, wrapper, plain_fn in (("K10a", fr.mip_train_render, fr.mip_train_render_plain),
+                                    ("K10b", fr.mip_train_render_grads,
+                                     fr.mip_train_render_grads_plain)):
+        calls = cap.calls[wrapper.__name__]
+        if len(calls) != 2:
+            raise SystemExit(f"a mip step made {len(calls)} {name} calls, not 2")
+        for a, kw, _ in calls:
+            field, z = a[0], a[2]
+            part = f"{name} {'coarse' if z.shape[1] == args.N_samples else 'fine'}"
+            with torch.no_grad():
+                parts[part] = {"ms": cuda_ms(lambda: wrapper(*a, **kw), reps=5, warmup=1),
+                               "plain_ms": cuda_ms(lambda: plain_fn(*a, **kw), reps=3, warmup=1),
+                               **mip_cost(field, z.shape[0], z.shape[1] - 1, name)}
+            phase("mip_step_part", part=part, rays=z.shape[0], samples=z.shape[1] - 1,
+                  **parts[part])
+    step_ms = out[(1024, "kernel")][-1]
+    named = sum(v["ms"] for v in parts.values())
+    phase("mip_step_split", rays=1024, step_ms=step_ms, kernels_ms=named, rest_ms=step_ms - named)
+    return parts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -1515,6 +1843,16 @@ def main() -> int:
     del sos_run["rec"]
     torch.cuda.empty_cache()
     full_parts = sos_step_timings(fr, fc, full_run, "sos_full_step", "train_render_grads")
+    del full_run["rec"]
+    torch.cuda.empty_cache()
+    kernel_vs_plain_k9(fr, 63)
+    k9 = kernel_vs_plain_k9(fr, 190)
+    kernel_vs_plain_k10(fr, 63)
+    k10 = kernel_vs_plain_k10(fr, 190)
+    torch.cuda.empty_cache()
+    mip_train_launches = mip_train_path(fr)
+    mip_eval_launches = mip_eval_path(fr)
+    mip_parts = mip_step_timings(fr)
     sos_launches = sos_run["launches"]
     full_launches, rand_launches = full_run["launches"], rand_run["launches"]
 
@@ -1527,6 +1865,10 @@ def main() -> int:
         ms, plain_ms = timed[f"{kernel} fine"]
         return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 **timed[f"{kernel} fine cost"], "library_ms": None}
+
+    def mip_step_numbers(kernel: str, err: float) -> dict:
+        """The mip train step's fine call (1024 rays, S=190), timed alone."""
+        return {"max_abs_err": err, **mip_parts[f"{kernel} fine"], "library_ms": None}
 
     kernels = [
         {"name": "K1 fused_coarse_weights", "route": "cuda", "source": src,
@@ -1569,6 +1911,15 @@ def main() -> int:
         {"name": "K7g geo_quad_grads", "route": "cuda", "source": corr_src,
          "replaces": "nerfsos_tpu/ops/pallas/flash_corr.py:459",
          "launches": sos_launches["K7g"], **k7["K7g"]},
+        {"name": "K9 fused_mip_render", "route": "cuda", "source": train_src,
+         "replaces": "nerfsos_tpu/ops/pallas/fused_render.py:1843",
+         "launches": mip_eval_launches["K9"], **k9},
+        {"name": "K10a mip_train_render", "route": "cuda", "source": train_src,
+         "replaces": "nerfsos_tpu/ops/pallas/fused_render.py:2040",
+         "launches": mip_train_launches["K10a"], **mip_step_numbers("K10a", k10["K10a"])},
+        {"name": "K10b mip_train_render_grads", "route": "cuda", "source": train_src,
+         "replaces": "nerfsos_tpu/ops/pallas/fused_render.py:2097",
+         "launches": mip_train_launches["K10b"], **mip_step_numbers("K10b", k10["K10b"])},
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

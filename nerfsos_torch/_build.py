@@ -163,11 +163,16 @@ def library() -> ctypes.CDLL:
                                             i32, i32, ctypes.c_uint, f32, vp]
     lib.nerf_frozen_sem_grads.argtypes = [vp, vp, vp, vp, ctypes.POINTER(FrozenDesc), vp, vp,
                                           ctypes.c_longlong, i32, i32, vp]
+    lib.nerf_mip_render.argtypes = [vp, vp, vp, train_p, vp, vp, i32, i32, ctypes.c_uint, f32,
+                                    vp]
+    lib.nerf_mip_train_render_grads.argtypes = [vp, vp, vp, vp, vp, vp, train_p, vp, vp, vp,
+                                                i32, i32, i32, ctypes.c_uint, f32, vp]
     lib.geo_row_stats.argtypes = [vp, vp, vp, vp, i32, i32, i32, f32, vp]
     lib.geo_means.argtypes = [vp] * 10 + [i32] * 5 + [f32, f32, f32, vp]
     lib.geo_grads.argtypes = [vp] * 13 + [i32] * 5 + [f32, f32, f32, vp]
     for fn in (lib.nerf_coarse_weights, lib.nerf_render, lib.nerf_rgb_train_grads,
                lib.nerf_train_render, lib.nerf_train_render_grads, lib.nerf_frozen_sem_grads,
+               lib.nerf_mip_render, lib.nerf_mip_train_render_grads,
                lib.geo_row_stats, lib.geo_means, lib.geo_grads):
         fn.restype = i32
     lib.nerf_error_string.argtypes = [i32]

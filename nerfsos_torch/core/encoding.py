@@ -1,8 +1,10 @@
-"""Positional encoding (classic NeRF PE).
+"""Positional encoding (classic NeRF PE) and mip-NeRF's integrated PE.
 
 Port of ``nerfsos_tpu/core/encoding.py``. The column order is bit-compatible
 with the reference: ``[x, sin(f0·x), cos(f0·x), sin(f1·x), ...]``, each
 frequency block laid out ``[sin(f·x), sin(f·y), sin(f·z), cos(f·x), ...]``.
+The integrated PE has no raw-input columns: a ``sin`` block then a
+``sin(y + pi/2)`` block, each frequency-major and channel-minor.
 """
 from __future__ import annotations
 
@@ -83,3 +85,28 @@ def positional_encoding_fused(x: torch.Tensor, n_freqs: int, max_freq: float | N
     if include_input:
         emb = torch.cat([x, emb], dim=-1)
     return emb
+
+
+def ipe_dim(input_dim: int, n_freqs: int) -> int:
+    return 2 * input_dim * n_freqs
+
+
+def expected_sin(x: torch.Tensor, x_var: torch.Tensor) -> torch.Tensor:
+    """``E[sin(z)]`` for ``z ~ N(x, x_var)``."""
+    return torch.exp(-0.5 * x_var) * torch.sin(x)
+
+
+def integrated_positional_encoding(x: torch.Tensor, x_cov_diag: torch.Tensor, n_freqs: int,
+                                   max_freq: float | None = None,
+                                   log_sampling: bool = True) -> torch.Tensor:
+    """mip-NeRF's integrated PE of diagonal Gaussians: means ``x [..., D]``
+    and variances ``x_cov_diag [..., D]`` -> ``[..., 2 D n_freqs]``. Each
+    phase ``y = f·x_c`` is one fp32 product and the cos block is
+    ``sin(y + pi/2)``, as the kernels form them."""
+    if max_freq is None:
+        max_freq = float(n_freqs - 1)
+    bands = freq_bands(n_freqs, max_freq, log_sampling).to(x)
+    y = (x[..., None, :] * bands[:, None]).reshape(*x.shape[:-1], -1)
+    y_var = (x_cov_diag[..., None, :] * (bands[:, None] ** 2)).reshape(*x.shape[:-1], -1)
+    return expected_sin(torch.cat([y, y + 0.5 * math.pi], dim=-1),
+                        torch.cat([y_var, y_var], dim=-1))

@@ -1,4 +1,4 @@
-"""Volumetric compositing (quadrature rule).
+"""Volumetric compositing (quadrature rule), classic and mip-NeRF.
 
 Port of ``nerfsos_tpu/core/render.py``: the 1e10 far padding, the ‖rays_d‖
 distance scaling (directions are unnormalized), the ``+1e-10`` inside the
@@ -60,3 +60,24 @@ def finish_maps(rgb_map: torch.Tensor, depth_map: torch.Tensor, acc_map: torch.T
     if sem_map is not None:
         out["semantics"] = sem_map + (1.0 - acc_map) if white_bkgd else sem_map
     return out
+
+
+def mip_volumetric_render(raw: torch.Tensor, z_vals: torch.Tensor, rays_d: torch.Tensor, *,
+                          raw_noise_std: float = 0.0, white_bkgd: bool = False,
+                          generator: Optional[torch.Generator] = None
+                          ) -> Dict[str, torch.Tensor]:
+    """mip-NeRF compositing over intervals: raw ``[R, S, 4]`` with sigma
+    last, z ``[R, S + 1]`` fenceposts. Depths use the interval midpoints and
+    the distances are the fenceposts' gaps times ‖d‖, with no far pad."""
+    mids = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
+    dists = (z_vals[..., 1:] - z_vals[..., :-1]) * torch.linalg.norm(rays_d[..., None, :], dim=-1)
+    sigma = raw[..., -1]
+    if raw_noise_std > 0.0:
+        sigma = sigma + torch.randn(sigma.shape, generator=generator, device=sigma.device,
+                                    dtype=sigma.dtype) * raw_noise_std
+    alpha = 1.0 - torch.exp(-F.relu(sigma) * dists)
+    weights = alpha * exclusive_cumprod_1m(alpha)
+    rgb_map = torch.sum(weights[..., None] * torch.sigmoid(raw[..., :-1]), dim=-2)
+    depth_map = torch.sum(weights * mids, dim=-1, keepdim=True)
+    acc_map = torch.sum(weights, dim=-1, keepdim=True)
+    return finish_maps(rgb_map, depth_map, acc_map, weights, None, white_bkgd)

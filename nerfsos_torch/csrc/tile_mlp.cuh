@@ -1,7 +1,8 @@
 // Device building blocks shared by the fused render kernels (fused_render.cu)
 // and the fused train kernel (train_render.cu): the packed-layer descriptor,
 // the 3xTF32 tensor-core dense layer over a 64-point tile, the few-output
-// SIMT head and the in-kernel positional encoding.
+// SIMT head, the in-kernel positional encoding and mip-NeRF's cone-frustum
+// Gaussians with their integrated positional encoding.
 //
 // Activations are feature-major tiles: [feature][point], row stride kLd
 // floats, 64 points a tile. A layer reads up to three input segments in
@@ -29,7 +30,7 @@ struct MLPDesc {
   int depth;
   int skip;            // trunk index after which [emb, h] is concatenated
   int hrows;           // rows of each activation buffer (max padded layer width)
-  int emb_dim;         // 3 + 6 * multires
+  int emb_dim;         // 3 + 6 * multires (mip-NeRF's integrated PE: 6 * multires)
   int demb_dim;        // 3 + 6 * multires_views
   int sem_dim;         // 0 without the semantic head
   int sem_with_coord;
@@ -260,6 +261,57 @@ __device__ void pe_rows(float* buf, int rows) {
     const float phase = (r >= 3) ? 1.57079632679489661923f : 0.f;
     const float freq = ldexpf(1.f, band);
     buf[(3 + f) * kLd + p] = sinf(__fadd_rn(__fmul_rn(freq, buf[c * kLd + p]), phase));
+  }
+}
+
+// The cone frustum between t0 and t1 of ray = (o, d, viewdirs, radius) as
+// a diagonal Gaussian, channel c: the mean o_c + d_c t_mean and the
+// variance t_var d_c^2 + r_var (1 - d_c^2 / max(1e-10, |d|^2)), with
+// models/mip.py's stable closed forms (frustum_moments, lift_gaussian,
+// cast_rays) in their op order, one rounding each (no FMA contraction), so
+// the means the integrated PE multiplies by up to 2^9 are bit-identical to
+// the plain version's.
+__device__ __forceinline__ void frustum_gauss(const float* ray, float t0, float t1, int c,
+                                              float& mean, float& var) {
+  const float k4_15 = (float)(4.0 / 15.0), k5_12 = (float)(5.0 / 12.0);
+  const float mu = __fmul_rn(__fadd_rn(t0, t1), 0.5f);
+  const float hw = __fmul_rn(__fsub_rn(t1, t0), 0.5f);
+  const float hw2 = __fmul_rn(hw, hw), hw4 = __fmul_rn(hw2, hw2);
+  const float denom = __fadd_rn(__fmul_rn(__fmul_rn(3.f, mu), mu), hw2);
+  const float t_mean =
+      __fadd_rn(mu, __fdiv_rn(__fmul_rn(__fmul_rn(__fmul_rn(2.f, mu), hw), hw), denom));
+  const float t_var = __fsub_rn(
+      __fdiv_rn(hw2, 3.f),
+      __fmul_rn(k4_15, __fdiv_rn(__fmul_rn(hw4, __fsub_rn(__fmul_rn(__fmul_rn(12.f, mu), mu), hw2)),
+                                 __fmul_rn(denom, denom))));
+  const float rad = ray[9];
+  const float r_var = __fmul_rn(
+      __fmul_rn(rad, rad),
+      __fsub_rn(__fadd_rn(__fdiv_rn(__fmul_rn(mu, mu), 4.f), __fmul_rn(__fmul_rn(k5_12, hw), hw)),
+                __fdiv_rn(__fmul_rn(k4_15, hw4), denom)));
+  const float d_mag_sq = fmaxf(1e-10f, __fadd_rn(__fadd_rn(__fmul_rn(ray[3], ray[3]),
+                                                           __fmul_rn(ray[4], ray[4])),
+                                                 __fmul_rn(ray[5], ray[5])));
+  const float dd = __fmul_rn(ray[3 + c], ray[3 + c]);
+  mean = __fadd_rn(ray[c], __fmul_rn(ray[3 + c], t_mean));
+  var = __fadd_rn(__fmul_rn(t_var, dd), __fmul_rn(r_var, __fsub_rn(1.f, __fdiv_rn(dd, d_mag_sq))));
+}
+
+// Rows 0 .. rows-1 (rows = 6 multires) of an integrated-PE buffer from the
+// Gaussians' means (rows 0-2 of g) and variances (rows 3-5): row 3 b + c
+// holds exp(-var_c 4^b / 2) sin(2^b mean_c) and row 3 multires + 3 b + c
+// the same of sin(2^b mean_c + pi/2), the column order of
+// core/encoding.py's integrated_positional_encoding (no raw-input rows).
+__device__ void ipe_rows(float* buf, const float* g, int rows) {
+  const int half = rows / 2;
+  for (int t = threadIdx.x; t < rows * kPts; t += kThreads) {
+    const int f = t / kPts, p = t % kPts;
+    const int k = f % half, c = k % 3;
+    const float freq = ldexpf(1.f, k / 3);
+    const float y = __fmul_rn(freq, g[c * kLd + p]);
+    const float yv = __fmul_rn(__fmul_rn(freq, freq), g[(3 + c) * kLd + p]);
+    const float s = sinf(f >= half ? __fadd_rn(y, 1.57079632679489661923f) : y);
+    buf[f * kLd + p] = __fmul_rn(expf(__fmul_rn(-0.5f, yv)), s);
   }
 }
 

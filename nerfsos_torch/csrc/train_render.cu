@@ -1,7 +1,8 @@
 // Fused train kernels for Hopper (sm_90a): forward recompute, composite,
 // the img2mse cotangent (or given map cotangents) and the full reverse sweep
 // of the field MLP, for one pass of rays, plus a deterministic reduction of
-// the per-CTA gradients; and the SOS finetune's forward and frozen backward.
+// the per-CTA gradients; the SOS finetune's forward and frozen backward; and
+// mip-NeRF's eval render, train forward and backward.
 //
 // Replaces K3 of nerfsos_tpu/ops/pallas/fused_render.py:
 //   fused_rgb_train_grads -> _train_render_bwd_kernel with rgb_loss=True.
@@ -106,6 +107,27 @@
 // ran before. Bound: arithmetic, K3's work plus the semantic head's
 // backward (~3.8 MFLOP a flagship point); the extra planes (s_act, d_sem,
 // ds: 264 rows a tile) add ~8% to the per-CTA workspace.
+//
+// mip-NeRF's three kernels are a fourth mode (kMip) of the same kernels:
+//   K9   fused_mip_render_planar -> _mip_render_kernel: K4's kernel without
+//        noise on odvr [R, 10] (o, d, viewdirs, radius) and fenceposts
+//        z [R, S + 1] -> maps [R, 5] (w·rgb x3, w·mid, w) and w [R, S];
+//   K10a _mip_train_fwd_impl -> _mip_train_kernel: the same with the noise;
+//   K10b _mip_train_bwd -> _mip_train_bwd_kernel: K6's two kernels without
+//        the semantic head, from dmaps [R, 5] and dweights [R, S].
+// A point is an interval (t0, t1) of its ray. The tile's prologue builds
+// the cone frustum's diagonal Gaussian per point (tile_mlp.cuh
+// frustum_gauss, the stable closed forms, one rounding per operation so
+// the means are the plain version's bit for bit: the integrated PE
+// multiplies them by up to 2^9) and its integrated PE (ipe_rows: 60 rows
+// at multires 10, padded to 64, no raw-input rows) in place of the point
+// PE; the composite takes D = (t1 - t0)·‖d‖ with no far pad and the
+// midpoint as the depth, and K10b's cotangent mode reads the midpoint in
+// dw. Everything else (the trunk with its [emb, h] skip, the heads, the
+// reverse sweep, the CTA-ordered reduction) is K4's and K6's. Bound: the
+// same arithmetic as K4 and K6 without the semantic head (~1.18 MFLOP a
+// point forward, ~3x that for K10b); the Gaussian and the 60 sin/exp of a
+// point are ~1% of it.
 
 #include "tile_mlp.cuh"
 
@@ -393,8 +415,11 @@ __device__ __forceinline__ void store_tile(const float* src, float* dst, int row
 // kSemAct (K6): the semantic head's hidden activation too (plane
 // P_ACT0 + depth). semin (K4, may be null): the semantic head's input
 // [h; emb] of each point is written as a row of semin [R * S][C] (C its
-// unpadded width).
-template <bool kStore, bool kSemAct = false>
+// unpadded width). kMip (K9, K10a, K10b): odv is odvr [R, 10] and zc the
+// chunk's fenceposts [nr][S + 1]; each point is the interval (t0, t1) of
+// its ray, whose cone-frustum Gaussian (frustum_gauss) goes through the
+// integrated PE (ipe_rows) in place of the point's PE.
+template <bool kStore, bool kSemAct = false, bool kMip = false>
 __device__ __forceinline__ void forward_tile(const float* __restrict__ odv, const float* zc,
                                              const float* __restrict__ params,
                                              const TrainDesc& d, float* ws, float* strip,
@@ -409,19 +434,40 @@ __device__ __forceinline__ void forward_tile(const float* __restrict__ odv, cons
   float* demb = emb + Ep * kLd;
   float* hA = demb + Edp * kLd;
   float* hB = hA + f.hrows * kLd;
-  for (int t = threadIdx.x; t < 3 * kPts; t += kThreads) {
-    const int ch = t / kPts, p = t % kPts, q = q0 + p;
-    float x = 0.f, v = 0.f;
-    if (q < nq) {
-      const float* ray = odv + (size_t)(r0 + q / S) * 9;
-      x = __fadd_rn(ray[ch], __fmul_rn(ray[3 + ch], zc[q]));
-      v = ray[6 + ch];
+  if (kMip) {
+    // the Gaussians' means and variances in rows 0-5 of hA (layer 0
+    // overwrites them), the viewdirs in rows 0-2 of demb
+    for (int t = threadIdx.x; t < 3 * kPts; t += kThreads) {
+      const int ch = t / kPts, p = t % kPts, q = q0 + p;
+      float m = 0.f, cv = 0.f, v = 0.f;
+      if (q < nq) {
+        const int r = q / S, s = q % S;
+        const float* ray = odv + (size_t)(r0 + r) * 10;
+        const float* zr = zc + (size_t)r * (S + 1);
+        frustum_gauss(ray, zr[s], zr[s + 1], ch, m, cv);
+        v = ray[6 + ch];
+      }
+      hA[ch * kLd + p] = m;
+      hA[(3 + ch) * kLd + p] = cv;
+      demb[ch * kLd + p] = v;
     }
-    emb[ch * kLd + p] = x;
-    demb[ch * kLd + p] = v;
+    __syncthreads();
+    ipe_rows(emb, hA, E);
+  } else {
+    for (int t = threadIdx.x; t < 3 * kPts; t += kThreads) {
+      const int ch = t / kPts, p = t % kPts, q = q0 + p;
+      float x = 0.f, v = 0.f;
+      if (q < nq) {
+        const float* ray = odv + (size_t)(r0 + q / S) * 9;
+        x = __fadd_rn(ray[ch], __fmul_rn(ray[3 + ch], zc[q]));
+        v = ray[6 + ch];
+      }
+      emb[ch * kLd + p] = x;
+      demb[ch * kLd + p] = v;
+    }
+    __syncthreads();
+    pe_rows(emb, E);
   }
-  __syncthreads();
-  pe_rows(emb, E);
   pe_rows(demb, Ed);
   __syncthreads();
   if (kStore) {
@@ -495,8 +541,10 @@ enum Mode { kForward, kLoss, kCotangent };
 // then, but for kForward, the maps' cotangent (kLoss: 2 (rgb_map - gt) from
 // aux = gt [R, 3]; kCotangent: aux = dmaps [R, 5 + sem], with dweights
 // [R, S] or null) and its reverse through the composite into dsigma, drgb
-// (pre-sigmoid) and, for kCotangent, d_sem per point.
-template <int kMode>
+// (pre-sigmoid) and, for kCotangent, d_sem per point. kMip: odv is odvr
+// [R, 10] and zc fenceposts [nr][S + 1]; an interval's distance is
+// (t1 - t0)·‖d‖ with no far pad and its depth the midpoint (t0 + t1) / 2.
+template <int kMode, bool kMip = false>
 __device__ __forceinline__ void composite_chunk(const float* __restrict__ odv, const float* zc,
                                                 const float* __restrict__ aux,
                                                 const float* __restrict__ dweights,
@@ -508,9 +556,13 @@ __device__ __forceinline__ void composite_chunk(const float* __restrict__ odv, c
   const int sem = d.f.sem_dim, cs = 6 + sem, nmaps = 5 + sem, nq = nr * S;
   const int p_dsem = P_ACT0 + d.f.depth + 1;
   for (int rl = threadIdx.x; rl < nr; rl += kThreads) {
-    const float* ray = odv + (size_t)(r0 + rl) * 9;
+    const float* ray = odv + (size_t)(r0 + rl) * (kMip ? 10 : 9);
     const float nd = sqrtf(ray[3] * ray[3] + ray[4] * ray[4] + ray[5] * ray[5]);
-    const float* zr = zc + (size_t)rl * S;
+    const float* zr = zc + (size_t)rl * (kMip ? S + 1 : S);
+    auto gap = [&](int s) {
+      return kMip ? zr[s + 1] - zr[s] : (s == S - 1) ? 1e10f : zr[s + 1] - zr[s];
+    };
+    auto depth_of = [&](int s) { return kMip ? (zr[s] + zr[s + 1]) * 0.5f : zr[s]; };
     float m[5 + kMaxSem];
 #pragma unroll
     for (int j = 0; j < 5 + kMaxSem; ++j) m[j] = 0.f;
@@ -520,15 +572,14 @@ __device__ __forceinline__ void composite_chunk(const float* __restrict__ odv, c
       float sig = cq[0];
       if (noise_std > 0.f) sig += hash_noise(seed, (uint32_t)((r0 + rl) * S + s), noise_std);
       cq[0] = sig;
-      const float dist = (s == S - 1) ? 1e10f : zr[s + 1] - zr[s];
-      const float e = expf(-fmaxf(sig, 0.f) * (dist * nd));
+      const float e = expf(-fmaxf(sig, 0.f) * (gap(s) * nd));
       const float w = (1.f - e) * T;
       cq[1] = T;
       cq[5 + sem] = w;
       if (weights) weights[(size_t)(r0 + rl) * S + s] = w;
 #pragma unroll
       for (int j = 0; j < 3; ++j) m[j] += w * (1.f / (1.f + expf(-cq[2 + j])));
-      m[3] += w * zr[s];
+      m[3] += w * depth_of(s);
       m[4] += w;
 #pragma unroll
       for (int j = 0; j < kMaxSem; ++j)
@@ -563,7 +614,7 @@ __device__ __forceinline__ void composite_chunk(const float* __restrict__ odv, c
     for (int s = S - 1; s >= 0; --s) {
       const float* cq = strip + (rl * S + s) * cs;
       const float sig = cq[0], Ts = cq[1], w = cq[5 + sem];
-      const float D = ((s == S - 1) ? 1e10f : zr[s + 1] - zr[s]) * nd;
+      const float D = gap(s) * nd;
       const float e = expf(-fmaxf(sig, 0.f) * D);
       const float alpha = 1.f - e, y = e + 1e-10f;
       float rgb[3];
@@ -573,7 +624,7 @@ __device__ __forceinline__ void composite_chunk(const float* __restrict__ odv, c
       if (kMode == kLoss) {
         dw = g[0] * rgb[0] + g[1] * rgb[1] + g[2] * rgb[2] + g[4];
       } else {
-        dw = g[0] * rgb[0] + g[1] * rgb[1] + g[2] * rgb[2] + g[3] * zr[s] + g[4];
+        dw = g[0] * rgb[0] + g[1] * rgb[1] + g[2] * rgb[2] + g[3] * depth_of(s) + g[4];
 #pragma unroll
         for (int j = 0; j < kMaxSem; ++j)
           if (j < sem) dw += g[5 + j] * cq[5 + j];
@@ -609,7 +660,8 @@ __device__ __forceinline__ void composite_chunk(const float* __restrict__ odv, c
 // workspace slice b: every activation of the reverse sweep, then the
 // composite (kLoss: maps, weights, dsigma and drgb from gt = aux;
 // kCotangent: dsigma, drgb and d_sem from dmaps = aux and dweights).
-template <int kMode>
+// kMip: odv is odvr [R, 10] and z fenceposts [R, S + 1] (K10b).
+template <int kMode, bool kMip = false>
 __global__ void __launch_bounds__(kThreads, 1)
     train_forward_kernel(const float* __restrict__ odv, const float* __restrict__ z,
                          const float* __restrict__ aux, const float* __restrict__ dweights,
@@ -644,22 +696,24 @@ __global__ void __launch_bounds__(kThreads, 1)
   __syncthreads();
   const int r0 = c * rpc, nr = min(rpc, R - r0), nq = nr * S;
   const int nsub = (nq + kPts - 1) / kPts;
-  const float* zc = z + (size_t)r0 * S;
+  const float* zc = z + (size_t)r0 * (kMip ? S + 1 : S);
 
   // ---- forward, storing every activation the reverse sweep reads
   for (int sub = 0; sub < nsub; ++sub)
-    forward_tile<true, kMode == kCotangent>(odv, zc, params, d, ws, strip, tile, r0, nq, S, sub,
-                                            nullptr);
+    forward_tile<true, kMode == kCotangent, kMip>(odv, zc, params, d, ws, strip, tile, r0, nq, S,
+                                                  sub, nullptr);
 
   // ---- composite, maps, the cotangent and its reverse: one thread a ray
-  composite_chunk<kMode>(odv, zc, aux, dweights, d, ws, strip, maps, weights, r0, nr, S, nsub,
-                         seed, noise_std, white_bkgd);
+  composite_chunk<kMode, kMip>(odv, zc, aux, dweights, d, ws, strip, maps, weights, r0, nr, S,
+                               nsub, seed, noise_std, white_bkgd);
 }
 
 // K4: CTA b takes chunk b (d.rays_per_chunk rays): the forward of each
 // 64-point tile (with the sem_in rows when semin is not null), then the
 // composite with the sigma noise into maps and weights. Nothing is stored
-// for a reverse sweep.
+// for a reverse sweep. kMip: K9 (noise_std 0) and K10a, on odvr [R, 10] and
+// fenceposts [R, S + 1]; maps [R, 5]; semin is null.
+template <bool kMip = false>
 __global__ void __launch_bounds__(kThreads, 1)
     train_render_kernel(const float* __restrict__ odv, const float* __restrict__ z,
                         const float* __restrict__ params, const __grid_constant__ TrainDesc d,
@@ -677,11 +731,12 @@ __global__ void __launch_bounds__(kThreads, 1)
   __syncthreads();
   const int r0 = blockIdx.x * rpc, nr = min(rpc, R - r0), nq = nr * S;
   const int nsub = (nq + kPts - 1) / kPts;
-  const float* zc = z + (size_t)r0 * S;
+  const float* zc = z + (size_t)r0 * (kMip ? S + 1 : S);
   for (int sub = 0; sub < nsub; ++sub)
-    forward_tile<false>(odv, zc, params, d, nullptr, strip, tile, r0, nq, S, sub, semin);
-  composite_chunk<kForward>(odv, zc, nullptr, nullptr, d, nullptr, strip, maps, weights, r0,
-                            nr, S, nsub, seed, noise_std, 0);
+    forward_tile<false, false, kMip>(odv, zc, params, d, nullptr, strip, tile, r0, nq, S, sub,
+                                     semin);
+  composite_chunk<kForward, kMip>(odv, zc, nullptr, nullptr, d, nullptr, strip, maps, weights, r0,
+                                  nr, S, nsub, seed, noise_std, 0);
 }
 
 // K5: the semantic head's weight gradients for a frozen backbone.
@@ -1028,17 +1083,40 @@ int forward_smem(const TrainDesc* d, int S) {
 }  // namespace
 
 // K4: one launch, a CTA a chunk of d->rays_per_chunk rays; semin may be null.
-extern "C" int nerf_train_render(const float* odv, const float* z, const float* params,
-                                 const TrainDesc* d, float* maps, float* weights, float* semin,
-                                 int R, int S, unsigned seed, float noise_std, void* stream) {
+namespace {
+
+template <bool kMip>
+int train_render_launch(const float* odv, const float* z, const float* params,
+                        const TrainDesc* d, float* maps, float* weights, float* semin, int R,
+                        int S, unsigned seed, float noise_std, cudaStream_t st) {
   const int smem = forward_smem(d, S);
-  cudaError_t err = cudaFuncSetAttribute(train_render_kernel,
+  cudaError_t err = cudaFuncSetAttribute(train_render_kernel<kMip>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const int nchunks = (R + d->rays_per_chunk - 1) / d->rays_per_chunk;
-  train_render_kernel<<<nchunks, kThreads, smem, (cudaStream_t)stream>>>(
-      odv, z, params, *d, maps, weights, semin, R, S, seed, noise_std);
+  train_render_kernel<kMip><<<nchunks, kThreads, smem, st>>>(odv, z, params, *d, maps, weights,
+                                                             semin, R, S, seed, noise_std);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int nerf_train_render(const float* odv, const float* z, const float* params,
+                                 const TrainDesc* d, float* maps, float* weights, float* semin,
+                                 int R, int S, unsigned seed, float noise_std, void* stream) {
+  return train_render_launch<false>(odv, z, params, d, maps, weights, semin, R, S, seed,
+                                    noise_std, (cudaStream_t)stream);
+}
+
+// K9 (noise_std 0) and K10a: the mip render pass, odvr [R, 10] and
+// fenceposts z [R, S + 1] -> maps [R, 5] and weights [R, S], with the sigma
+// noise of seed; one launch, a CTA a chunk of d->rays_per_chunk rays. The
+// two TPU kernels differ by the noise alone, so they are one kernel here.
+extern "C" int nerf_mip_render(const float* odvr, const float* z, const float* params,
+                               const TrainDesc* d, float* maps, float* weights, int R, int S,
+                               unsigned seed, float noise_std, void* stream) {
+  return train_render_launch<true>(odvr, z, params, d, maps, weights, nullptr, R, S, seed,
+                                   noise_std, (cudaStream_t)stream);
 }
 
 // K5: grid x d->nblk CTAs over P = R * S points, each CTA x with a
@@ -1072,14 +1150,14 @@ namespace {
 // gradient buffer) take the chunks of rays in waves of grid: per wave the
 // forward kernel, then the reverse-sweep kernel; then the partials are summed
 // into grads [d->grad_size]. Returns the first CUDA error of the launches.
-template <int kMode, bool kSem>
+template <int kMode, bool kSem, bool kMip = false>
 int train_grads(const float* odv, const float* z, const float* aux, const float* dweights,
                 const float* params, const float* bparams, const TrainDesc* d, float* maps,
                 float* weights, float* partial, float* workspace, float* grads, int R, int S,
                 int grid, unsigned seed, float noise_std, int white_bkgd, cudaStream_t st) {
   const int fwd_smem = forward_smem(d, S);
   const int stage_smem = (int)(kStagingFloats * sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(train_forward_kernel<kMode>,
+  cudaError_t err = cudaFuncSetAttribute(train_forward_kernel<kMode, kMip>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, fwd_smem);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(train_reverse_kernel<kSem>,
@@ -1087,7 +1165,7 @@ int train_grads(const float* odv, const float* z, const float* aux, const float*
   if (err != cudaSuccess) return (int)err;
   const int nchunks = (R + d->rays_per_chunk - 1) / d->rays_per_chunk;
   for (int wave = 0; wave * grid < nchunks; ++wave) {
-    train_forward_kernel<kMode><<<grid, kThreads, fwd_smem, st>>>(
+    train_forward_kernel<kMode, kMip><<<grid, kThreads, fwd_smem, st>>>(
         odv, z, aux, dweights, params, *d, maps, weights, workspace, R, S, wave, seed,
         noise_std, white_bkgd);
     train_reverse_kernel<kSem><<<grid, kThreads, stage_smem, st>>>(bparams, *d, partial,
@@ -1130,4 +1208,20 @@ extern "C" int nerf_train_render_grads(const float* odv, const float* z, const f
   return train_grads<kCotangent, false>(odv, z, dmaps, dweights, params, bparams, d, nullptr,
                                         nullptr, partial, workspace, grads, R, S, grid, seed,
                                         noise_std, 0, st);
+}
+
+// K10b: the mip train render's backward from the maps' cotangent dmaps
+// [R, 5] and the weights' dweights [R, S] (null: zero), on odvr [R, 10] and
+// fenceposts z [R, S + 1]: K6's kernels without the semantic head in their
+// mip mode (the Gaussian and integrated-PE prologue, the mip composite);
+// see train_grads.
+extern "C" int nerf_mip_train_render_grads(const float* odvr, const float* z, const float* dmaps,
+                                           const float* dweights, const float* params,
+                                           const float* bparams, const TrainDesc* d,
+                                           float* partial, float* workspace, float* grads, int R,
+                                           int S, int grid, unsigned seed, float noise_std,
+                                           void* stream) {
+  return train_grads<kCotangent, false, true>(odvr, z, dmaps, dweights, params, bparams, d,
+                                              nullptr, nullptr, partial, workspace, grads, R, S,
+                                              grid, seed, noise_std, 0, (cudaStream_t)stream);
 }

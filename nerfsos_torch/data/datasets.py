@@ -15,6 +15,7 @@ JAX package's ``gather_patches``. Not yet: the per-view sampler
 from __future__ import annotations
 
 import json
+import math
 import os
 from typing import Dict, Tuple
 
@@ -80,6 +81,11 @@ class RayDataset:
 
     def near_far(self) -> Tuple[float, float]:
         return self.meta["near"], self.meta["far"]
+
+    def radii(self) -> float:
+        """mip-NeRF's base radius: a pixel's footprint, ``2 / max(H, W)``
+        scaled by ``2 / sqrt(12)``."""
+        return 2.0 / max(self.height, self.width) * 2 / math.sqrt(12)
 
     def get_view(self, i: int) -> Dict[str, np.ndarray]:
         """Rays ``[2, H, W, 3]``, masks ``[H, W, 1]`` and, if present, target ``[H, W, 3]``."""

@@ -7,7 +7,11 @@ a train run writes ``{step:08d}.ckpt`` and ``latest.ckpt`` every
 ``--i_weights`` steps and ``last.ckpt`` at its end, ``optimizer`` holding
 the Adam ``state_dict``.
 ``NeRFNet``'s parameter names are the reference's, so such a file loads with
-``load_state_dict``. :func:`state_dict_from_jax_params` is the inverse of
+``load_state_dict``. A ``MipNeRFNet`` saves its one field as ``mip.mlp.*``
+with ``NeRFMLP``'s names (``pts_linears.i``, ``alpha_linear``, ...): the
+JAX package's tree, ``{"mip": {"mlp": ...}}``. The reference's own mip-NeRF
+module names are not known here, so whether its mip ``.ckpt`` files load
+is unverified. :func:`state_dict_from_jax_params` is the inverse of
 ``nerfsos_tpu.engines.checkpoint._convert_field``: it turns a flax param tree
 (numpy leaves, kernels ``[in, out]``) into a torch state dict
 (weights ``[out, in]``). :func:`vit_state_dict_from_jax_params` does the
@@ -102,7 +106,11 @@ def _field_state(field: Mapping[str, Any], prefix: str) -> Dict[str, torch.Tenso
 
 def state_dict_from_jax_params(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """flax params ``{'coarse': {'mlp': ...}, 'fine': ...}`` -> a ``NeRFNet``
-    state dict with keys ``nerf.mlp.*`` / ``nerf_fine.mlp.*``."""
+    state dict with keys ``nerf.mlp.*`` / ``nerf_fine.mlp.*``; a mip-NeRF's
+    ``{'mip': {'mlp': ...}}`` -> a ``MipNeRFNet`` state dict with keys
+    ``mip.mlp.*`` (the names of ``NeRFMLP``)."""
+    if "mip" in params:
+        return _field_state(params["mip"], "mip")
     sd = _field_state(params["coarse"], "nerf")
     if "fine" in params:
         sd.update(_field_state(params["fine"], "nerf_fine"))

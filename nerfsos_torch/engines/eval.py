@@ -17,6 +17,7 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn as nn
 
 from nerfsos_torch.losses.photometric import img2mse, mse2psnr
 from nerfsos_torch.models.nerf import NeRFNet
@@ -60,11 +61,15 @@ def fp32_exact():
         torch.backends.cudnn.allow_tf32 = saved
 
 
-def make_render_fn(net: NeRFNet, near: float, far: float, **net_kwargs):
+def make_render_fn(net: nn.Module, near: float, far: float, **net_kwargs):
     """Full-image render: ``rays [2, H, W, 3]`` (numpy or tensor) -> dict of
-    tensors on the net's device. The coarse pass runs density-only
-    (``coarse_outputs=False``); the rays are chunked by ``cfg.ray_block``."""
-    net_kwargs.setdefault("coarse_outputs", False)
+    tensors on the net's device; ``net_kwargs`` threads model statics
+    (mip-NeRF's ``radii``). A ``NeRFNet``'s coarse pass runs density-only
+    (``coarse_outputs=False``); a ``MipNeRFNet`` renders both passes in
+    full, as the JAX package's does. The rays are chunked by
+    ``cfg.ray_block``."""
+    if isinstance(net, NeRFNet):
+        net_kwargs.setdefault("coarse_outputs", False)
     device = next(net.parameters()).device
 
     @torch.no_grad()
@@ -121,10 +126,12 @@ def eval_one_view(render_fn, batch: Dict[str, np.ndarray], *, clus_no_sfm: bool 
     return ret, metrics
 
 
-def evaluate(net: NeRFNet, dataset, save_dir: Optional[str] = None, fast_mode: bool = False,
+def evaluate(net: nn.Module, dataset, save_dir: Optional[str] = None, fast_mode: bool = False,
              ret_cluster: bool = False, clus_no_sfm: bool = False, n_cluster: int = 2,
              kmeans_first: Optional[int] = None, **net_kwargs) -> Dict[str, float]:
-    """Test-set sweep: metrics per view, PNGs and ``log.json``/``log.txt``."""
+    """Test-set sweep: metrics per view, PNGs and ``log.json``/``log.txt``.
+    Without a semantic head (mip-NeRF) the ARI metrics are 0 and no
+    ``sem_``/``clus_`` images are written."""
     near, far = dataset.near_far()
     render_fn = make_render_fn(net, near, far, **net_kwargs)
 

@@ -2,9 +2,11 @@
 
 Port of ``nerfsos_tpu/engines/trainer.py`` (single device):
 
-- :func:`rgb_loss_fn`: coarse + fine MSE through ``NeRFNet.forward(train=True)``,
-  differentiated by autograd; used when the configuration is outside
-  :func:`supports_fused_rgb_loss`;
+- :func:`rgb_loss_fn`: coarse + fine MSE through the net's
+  ``forward(train=True)``, differentiated by autograd; used when the
+  configuration is outside :func:`supports_fused_rgb_loss`, and for a
+  ``MipNeRFNet`` (``net_kwargs`` carries its ``radii``), whose fused train
+  render is K10a with K10b as its backward;
 - :func:`fused_rgb_value_and_grads`: the fused path, one K3 pass per field
   (``ops/fused_render.fused_rgb_train_grads``: forward, maps, the in-kernel
   img2mse cotangent and the reverse sweep), with the importance resampling
@@ -18,10 +20,11 @@ path runs K3's plain version: no choice between the paths is made by device.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn as nn
 
 from nerfsos_torch.core import sampling
 from nerfsos_torch.engines.state import set_lr
@@ -44,10 +47,14 @@ def step_randomness(seed: int, global_step: int,
     return generator, (int(words[1] % (2**31 - 1)), int(words[2] % (2**31 - 1)))
 
 
-def rgb_loss_fn(net: NeRFNet, batch: Batch, near: float, far: float, rgb_w: float = 1.0,
-                generator: torch.Generator = None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Coarse + fine MSE (reference ``engines/trainer.py:113-121``)."""
-    out = net(batch["rays"], (near, far), train=True, generator=generator)
+def rgb_loss_fn(net: nn.Module, batch: Batch, near: float, far: float, rgb_w: float = 1.0,
+                generator: torch.Generator = None, noise_seeds: Tuple[int, int] = (0, 0),
+                net_kwargs: Optional[Dict[str, Any]] = None
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Coarse + fine MSE (reference ``engines/trainer.py:113-121``);
+    ``net_kwargs`` threads model statics (mip-NeRF's ``radii``)."""
+    out = net(batch["rays"], (near, far), train=True, generator=generator,
+              noise_seeds=noise_seeds, **(net_kwargs or {}))
     img_loss = img2mse(out["rgb"], batch["target"])
     loss = rgb_w * img_loss
     metrics = {"img1": img_loss, "psnr": mse2psnr(img_loss)}
@@ -59,7 +66,10 @@ def rgb_loss_fn(net: NeRFNet, batch: Batch, near: float, far: float, rgb_w: floa
     return loss, {k: v.detach() for k, v in metrics.items()}
 
 
-def supports_fused_rgb_loss(net: NeRFNet) -> bool:
+def supports_fused_rgb_loss(net: nn.Module) -> bool:
+    """K3's loss-in-kernel step: a fused ``NeRFNet`` with a fine pass."""
+    if not isinstance(net, NeRFNet):
+        return False
     cfg = net.cfg
     return net.fused and cfg.use_viewdirs and cfg.n_importance > 0
 
@@ -103,13 +113,16 @@ def fused_rgb_value_and_grads(net: NeRFNet, batch: Batch, near: float, far: floa
     return grads, metrics
 
 
-def make_rgb_train_step(net: NeRFNet, optimizer: torch.optim.Optimizer,
+def make_rgb_train_step(net: nn.Module, optimizer: torch.optim.Optimizer,
                         schedule: Callable[[float], float], near: float, far: float,
                         rgb_w: float = 1.0, seed: int = 0,
-                        grads_fn: Callable = fr.fused_rgb_train_grads
+                        grads_fn: Callable = fr.fused_rgb_train_grads,
+                        net_kwargs: Optional[Dict[str, Any]] = None
                         ) -> Callable[[Batch, int], Dict[str, torch.Tensor]]:
     """``step(batch, global_step)``: one update, where ``global_step`` counts
-    the updates made before it; returns the metrics (device tensors)."""
+    the updates made before it; returns the metrics (device tensors).
+    ``net_kwargs``: model statics for the autograd path (mip-NeRF's
+    ``radii``)."""
     fused = supports_fused_rgb_loss(net)
     params = dict(net.named_parameters())
     device = next(net.parameters()).device
@@ -123,7 +136,8 @@ def make_rgb_train_step(net: NeRFNet, optimizer: torch.optim.Optimizer,
                 p.grad = grads[name]
         else:
             optimizer.zero_grad(set_to_none=True)
-            loss, metrics = rgb_loss_fn(net, batch, near, far, rgb_w, generator)
+            loss, metrics = rgb_loss_fn(net, batch, near, far, rgb_w, generator, noise_seeds,
+                                        net_kwargs)
             loss.backward()
             for p in params.values():  # unused (semantic head): a zero update, as optax
                 if p.grad is None:

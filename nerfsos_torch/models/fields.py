@@ -1,8 +1,9 @@
-"""Radiance field: positional encoding + MLP, queried point-wise.
+"""Radiance fields: positional encoding + MLP, queried point-wise.
 
-Port of ``nerfsos_tpu/models/fields.py`` (``NeRFField``). The module holds
-one ``mlp`` child, so its state-dict keys are the reference's
-``{nerf,nerf_fine}.mlp.*``.
+Port of ``nerfsos_tpu/models/fields.py`` (``NeRFField``, ``MipNeRFField``).
+Each module holds one ``mlp`` child, so a ``NeRFNet``'s state-dict keys are
+the reference's ``{nerf,nerf_fine}.mlp.*`` and a ``MipNeRFNet``'s
+``mip.mlp.*``.
 """
 from __future__ import annotations
 
@@ -72,3 +73,41 @@ class NeRFField(nn.Module):
         layer = self.mlp.alpha_linear if self.use_viewdirs else self.mlp.output_linear
         out = layer(h)[:, 3 if not self.use_viewdirs else 0]
         return out.reshape(lead)
+
+
+class MipNeRFField(nn.Module):
+    """mip-NeRF field: IPE(mean, cov) [+ PE(dirs)] -> NeRFMLP -> raw
+    ``(rgb, sigma)``. The trunk's input is the 60-wide IPE at ``multires``
+    10, with no raw-input columns; no semantic head."""
+
+    def __init__(self, net_depth: int = 8, net_width: int = 256, skips: Sequence[int] = (4,),
+                 use_viewdirs: bool = True, use_embed: bool = True, multires: int = 10,
+                 multires_views: int = 4, output_ch: int = 4):
+        super().__init__()
+        self.use_viewdirs, self.use_embed = use_viewdirs, use_embed
+        self.multires, self.multires_views = multires, multires_views
+        input_ch = encoding.ipe_dim(3, multires) if use_embed else 3
+        input_ch_views = encoding.pe_dim(3, multires_views) if use_embed else 3
+        self.mlp = NeRFMLP(input_ch, input_ch_views, depth=net_depth, width=net_width,
+                           skips=skips, use_viewdirs=use_viewdirs, output_ch=output_ch)
+
+    def embed(self, mean: torch.Tensor, cov: torch.Tensor) -> torch.Tensor:
+        if not self.use_embed:
+            return mean
+        return encoding.integrated_positional_encoding(mean, cov, self.multires,
+                                                       float(self.multires - 1))
+
+    def forward(self, mean: torch.Tensor, cov: torch.Tensor,
+                viewdirs: Optional[torch.Tensor]) -> torch.Tensor:
+        """Gaussians ``mean, cov [..., S, 3]`` (diagonal covariances),
+        ``viewdirs [..., 3]`` (unit, broadcast over S) -> raw ``[..., S, 4]``."""
+        lead = mean.shape[:-1]
+        emb = self.embed(mean, cov).reshape(-1, self.mlp.pts_linears[0].in_features)
+        demb = None
+        if self.use_viewdirs:
+            d = viewdirs[..., None, :].expand(mean.shape)
+            demb = (encoding.positional_encoding_fused(d, self.multires_views,
+                                                       float(self.multires_views - 1))
+                    if self.use_embed else d).reshape(emb.shape[0], -1)
+        out = self.mlp(emb, demb)
+        return out.reshape(*lead, out.shape[-1])

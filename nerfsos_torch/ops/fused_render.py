@@ -32,13 +32,33 @@ train kernel and the SOS finetune's train forward and backward kernels:
   its custom VJP);
 - :func:`finish_maps`: vacancy depth, disp and white background on the maps.
 
+and its mip-NeRF kernels, which take ``odvr [R, 10]`` (origins, directions,
+unit viewdirs, base radii) and ``z [R, S + 1]`` fenceposts, build each
+interval's cone-frustum Gaussian and its integrated PE in the kernel, and
+composite over the intervals (midpoint depths, no far pad) into
+``maps [R, 5]`` and weights ``[R, S]``:
+
+- :func:`fused_mip_render` (K9, replaces ``fused_mip_render_planar`` and its
+  ``_mip_render_kernel``): the eval pass;
+- :func:`mip_train_render` (K10a, replaces ``_mip_train_fwd_impl`` and its
+  ``_mip_train_kernel``): the train forward with the sigma noise of
+  :func:`noise_plain` at point ``ray * S + interval``;
+- :func:`mip_train_render_grads` (K10b, replaces ``_mip_train_bwd`` and its
+  ``_mip_train_bwd_kernel``): dW/db of every layer from the maps' and the
+  weights' cotangents, recomputing the forward with the same noise;
+- :func:`fused_mip_train_render`: K10a with K10b as its backward
+  (replaces ``fused_mip_train_render_planar``);
+- :func:`finish_mip_maps`: the mip finishing of the maps.
+
 Each wrapper takes its plain PyTorch version (:func:`coarse_weights_plain`,
 :func:`render_plain`, :func:`rgb_train_grads_plain`,
 :func:`train_render_plain`, :func:`frozen_sem_grads_plain`,
-:func:`train_render_grads_plain`, same signature)
-for tensors on the CPU, and for CUDA tensors launches the hand-written
-kernel in ``csrc/fused_render.cu`` or ``csrc/train_render.cu`` or raises; it
-never falls back. ``<wrapper>.launches`` counts kernel launches.
+:func:`train_render_grads_plain`, :func:`mip_render_plain`,
+:func:`mip_train_render_plain`, :func:`mip_train_render_grads_plain`, same
+signature) for tensors on the CPU, and for CUDA tensors launches the
+hand-written kernel in ``csrc/fused_render.cu`` or ``csrc/train_render.cu``
+or raises; it never falls back. ``<wrapper>.launches`` counts kernel
+launches.
 """
 from __future__ import annotations
 
@@ -270,6 +290,99 @@ def finish_maps(maps: torch.Tensor, weights: torch.Tensor, use_semantics: bool,
     on their columns)."""
     return render.finish_maps(maps[:, 0:3], maps[:, 3:4], maps[:, 4:5], weights,
                               maps[:, 5:] if use_semantics else None, white_bkgd)
+
+
+def _mip_raw(field: nn.Module, odvr: torch.Tensor, z: torch.Tensor,
+             params: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+    """The field's raw ``[R, S, 4]`` (with ``params`` in place of its own
+    parameters, when given) on the cone-frustum Gaussians of the intervals
+    between the fenceposts ``z [R, S + 1]``."""
+    from nerfsos_torch.models.mip import cast_rays
+
+    means, covs = cast_rays(z, odvr[:, 0:3], odvr[:, 3:6], odvr[:, 9:10])
+    args = (means, covs, odvr[:, 6:9])
+    return field(*args) if params is None else torch.func.functional_call(field, params, args)
+
+
+def _mip_maps(raw: torch.Tensor, sigma: torch.Tensor, z: torch.Tensor,
+              rays_d: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mip maps ``[R, 5]`` ``(w·sigmoid(rgb) x3, w·mid, w)`` and weights
+    ``[R, S]``, as the kernels form them: ``D = (t1 - t0)·‖d‖`` with no far
+    pad, ``e = exp(-relu(σ)·D)``, transmittance = exclusive product of
+    ``e + 1e-10``, ``w = (1 - e)·T``."""
+    e = torch.exp(-F.relu(sigma) * ((z[:, 1:] - z[:, :-1])
+                                    * torch.linalg.norm(rays_d, dim=-1, keepdim=True)))
+    T = torch.cumprod(torch.cat([torch.ones_like(e[:, :1]), e[:, :-1] + 1e-10], dim=-1), dim=-1)
+    w = (1.0 - e) * T
+    mids = (z[:, :-1] + z[:, 1:]) * 0.5
+    return torch.cat([torch.sum(w[..., None] * torch.sigmoid(raw[..., :3]), dim=1),
+                      torch.sum(w * mids, dim=1, keepdim=True),
+                      torch.sum(w, dim=1, keepdim=True)], dim=-1), w
+
+
+def mip_train_render_plain(field: nn.Module, odvr: torch.Tensor, z: torch.Tensor, *,
+                           noise_std: float, seed: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K10a: ``odvr [R, 10]``, fenceposts ``z [R, S + 1]``
+    -> (maps ``[R, 5]``, weights ``[R, S]``), with :func:`noise_plain` added
+    to sigma before its relu. Runs in chunks of rays."""
+    R, S = z.shape[0], z.shape[1] - 1
+    noise = noise_plain(seed, R, S, noise_std, z.device) if noise_std > 0.0 else None
+    maps, weights = [], []
+    step = max(1, _PLAIN_CHUNK_POINTS // max(S, 1))
+    with torch.no_grad():
+        for r0 in range(0, max(R, 1), step):  # one (empty) chunk when R == 0
+            o, zc = odvr[r0:r0 + step], z[r0:r0 + step]
+            raw = _mip_raw(field, o, zc)
+            sigma = raw[..., 3] if noise is None else raw[..., 3] + noise[r0:r0 + step]
+            m, w = _mip_maps(raw, sigma, zc, o[:, 3:6])
+            maps.append(m)
+            weights.append(w)
+    return torch.cat(maps), torch.cat(weights)
+
+
+def mip_render_plain(field: nn.Module, odvr: torch.Tensor,
+                     z: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K9: ``odvr [R, 10]``, fenceposts ``z [R, S + 1]`` ->
+    (maps ``[R, 5]``, weights ``[R, S]``)."""
+    return mip_train_render_plain(field, odvr, z, noise_std=0.0, seed=0)
+
+
+def mip_train_render_grads_plain(field: nn.Module, odvr: torch.Tensor, z: torch.Tensor,
+                                 dmaps: torch.Tensor, dweights: Optional[torch.Tensor], *,
+                                 noise_std: float, seed: int) -> Dict[str, torch.Tensor]:
+    """Plain version of K10b: the VJP of :func:`mip_train_render_plain`'s
+    maps and weights with respect to every parameter of the field
+    (``dweights=None``: a zero cotangent), keyed by
+    ``field.named_parameters()`` names; rays and z are constant. Runs in
+    chunks of rays, each chunk's graph freed before the next."""
+    R, S = z.shape[0], z.shape[1] - 1
+    z = z.detach()
+    noise = noise_plain(seed, R, S, noise_std, z.device) if noise_std > 0.0 else None
+    leaves = {n: p.detach().requires_grad_() for n, p in field.named_parameters()}
+    grads = {n: torch.zeros_like(p) for n, p in leaves.items()}
+    step = max(1, _PLAIN_CHUNK_POINTS // max(S, 1))
+    with torch.enable_grad():
+        for r0 in range(0, R, step):
+            o, zc = odvr[r0:r0 + step], z[r0:r0 + step]
+            raw = _mip_raw(field, o, zc, leaves)
+            sigma = raw[..., 3] if noise is None else raw[..., 3] + noise[r0:r0 + step]
+            m, w = _mip_maps(raw, sigma, zc, o[:, 3:6])
+            obj = torch.sum(dmaps[r0:r0 + step] * m)
+            if dweights is not None:
+                obj = obj + torch.sum(dweights[r0:r0 + step] * w)
+            for n, g in zip(leaves, torch.autograd.grad(obj, list(leaves.values()),
+                                                        allow_unused=True)):
+                if g is not None:
+                    grads[n] += g
+    return grads
+
+
+def finish_mip_maps(maps: torch.Tensor, weights: torch.Tensor,
+                    white_bkgd: bool) -> Dict[str, torch.Tensor]:
+    """Mip per-ray finishing on the ``[R, 5]`` maps: vacancy depth, disp and
+    the white background (``core.render.finish_maps`` without semantics)."""
+    return render.finish_maps(maps[:, 0:3], maps[:, 3:4], maps[:, 4:5], weights, None,
+                              white_bkgd)
 
 
 # ----------------------------------------------------------------- packing
@@ -864,9 +977,160 @@ def fused_train_render(field: nn.Module, odv: torch.Tensor, z: torch.Tensor, *,
                               *params)
 
 
+def _mip_shapes(field: nn.Module, odvr: torch.Tensor, z: torch.Tensor) -> Tuple[int, int]:
+    """Checks the inputs of a mip kernel; returns (R, S intervals)."""
+    _check_inputs(field, odvr, 10, z)
+    if z.shape[1] < 2:
+        raise ValueError(f"z holds fenceposts [R, S + 1] with S >= 1, got {tuple(z.shape)}")
+    if field.mlp.use_semantics:
+        raise NotImplementedError("the mip kernels have no semantic head")
+    return z.shape[0], z.shape[1] - 1
+
+
+def _mip_forward(field: nn.Module, odvr: torch.Tensor, z: torch.Tensor, noise_std: float,
+                 seed: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch of the mip forward kernel (K9 without noise, K10a with):
+    a CTA a chunk of ``_rays_per_chunk(S)`` rays."""
+    R, S = _mip_shapes(field, odvr, z)
+    buf, fdesc = _packed(field, odvr.device)
+    desc = _build.TrainDesc()
+    desc.f = fdesc
+    desc.rays_per_chunk = _rays_per_chunk(S)
+    if _forward_smem(fdesc, desc.rays_per_chunk, S) > _MAX_SMEM:
+        raise NotImplementedError(f"S={S}: the composite strip and tiles do not fit in shared "
+                                  "memory")
+    maps = torch.empty((R, 5), device=odvr.device, dtype=torch.float32)
+    weights = torch.empty((R, S), device=odvr.device, dtype=torch.float32)
+    if R > 0:
+        with torch.cuda.device(odvr.device):
+            code = _build.library().nerf_mip_render(
+                odvr.data_ptr(), z.data_ptr(), buf.data_ptr(), ctypes.byref(desc),
+                maps.data_ptr(), weights.data_ptr(), R, S, noise_seed(seed), float(noise_std),
+                _build.stream(odvr.device))
+        _build.check(code, "nerf_mip_render")
+    return maps, weights
+
+
+def fused_mip_render(field: nn.Module, odvr: torch.Tensor,
+                     z: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K9: the mip eval pass, ``odvr [R, 10]``, fenceposts ``z [R, S + 1]``
+    -> (maps ``[R, 5]``, weights ``[R, S]``); see :func:`mip_render_plain`."""
+    if odvr.device.type == "cpu":
+        return mip_render_plain(field, odvr, z)
+    if odvr.device.type != "cuda":
+        raise NotImplementedError(f"no kernel for device {odvr.device}")
+    out = _mip_forward(field, odvr, z, 0.0, 0)
+    if z.shape[0] > 0:
+        fused_mip_render.launches += 1
+    return out
+
+
+def mip_train_render(field: nn.Module, odvr: torch.Tensor, z: torch.Tensor, *,
+                     noise_std: float, seed: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K10a: the mip train forward, ``odvr [R, 10]``, ``z [R, S + 1]`` ->
+    (maps, weights) with the sigma noise of ``seed``; see
+    :func:`mip_train_render_plain`."""
+    if odvr.device.type == "cpu":
+        return mip_train_render_plain(field, odvr, z, noise_std=noise_std, seed=seed)
+    if odvr.device.type != "cuda":
+        raise NotImplementedError(f"no kernel for device {odvr.device}")
+    out = _mip_forward(field, odvr, z, noise_std, seed)
+    if z.shape[0] > 0:
+        mip_train_render.launches += 1
+    return out
+
+
+def mip_train_render_grads(field: nn.Module, odvr: torch.Tensor, z: torch.Tensor,
+                           dmaps: torch.Tensor, dweights: Optional[torch.Tensor], *,
+                           noise_std: float, seed: int) -> Dict[str, torch.Tensor]:
+    """K10b: the gradients of every parameter of the mip field from the
+    maps' cotangent ``dmaps [R, 5]`` and the weights' ``dweights [R, S]``
+    (None: zero), recomputing the forward of ``odvr [R, 10]``,
+    ``z [R, S + 1]`` with the noise of ``seed``; see
+    :func:`mip_train_render_grads_plain`. One call launches K3's forward
+    and reverse-sweep kernels in their mip cotangent mode once per wave of
+    chunks and the reduction, and adds one to ``launches``."""
+    if odvr.device.type == "cpu":
+        return mip_train_render_grads_plain(field, odvr, z, dmaps, dweights,
+                                            noise_std=noise_std, seed=seed)
+    if odvr.device.type != "cuda":
+        raise NotImplementedError(f"no kernel for device {odvr.device}")
+    R, S = _mip_shapes(field, odvr, z)
+    for name, t, shape in (("dmaps", dmaps, (R, 5)), ("dweights", dweights, (R, S))):
+        if t is None:
+            continue
+        if t.device != odvr.device or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous float32 on {odvr.device}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"expected {name} {shape}, got {tuple(t.shape)}")
+    buf, fdesc = _packed(field, odvr.device)
+    bbuf, bwd = _cached(field, odvr.device, "_fused_train_pack", pack_train_bwd)
+    desc = train_desc(field, fdesc, bwd, S)
+    smem = _forward_smem(fdesc, desc.rays_per_chunk, S)
+    if smem > _MAX_SMEM:
+        raise NotImplementedError(f"S={S}: the forward's composite strip and tiles need {smem} B "
+                                  "of shared memory")
+    flat = torch.zeros(desc.grad_size, device=odvr.device, dtype=torch.float32)
+    if R > 0:
+        nchunks = -(-R // desc.rays_per_chunk)
+        grid = min(nchunks, torch.cuda.get_device_properties(odvr.device).multi_processor_count)
+        partial = torch.empty(grid * desc.grad_size, device=odvr.device, dtype=torch.float32)
+        work = torch.empty(grid * desc.ws_size, device=odvr.device, dtype=torch.float32)
+        with torch.cuda.device(odvr.device):
+            code = _build.library().nerf_mip_train_render_grads(
+                odvr.data_ptr(), z.data_ptr(), dmaps.data_ptr(),
+                None if dweights is None else dweights.data_ptr(), buf.data_ptr(),
+                bbuf.data_ptr(), ctypes.byref(desc), partial.data_ptr(), work.data_ptr(),
+                flat.data_ptr(), R, S, grid, noise_seed(seed), float(noise_std),
+                _build.stream(odvr.device))
+        _build.check(code, "mip_train_render_grads")
+        mip_train_render_grads.launches += 1
+    return unpack_grads(field, flat)
+
+
+class _MipTrainRender(torch.autograd.Function):
+    """K10a forward, K10b backward: every leaf from the maps' and the
+    weights' cotangents; rays and z get none. An output that nothing used
+    gets None as its cotangent (a zero one)."""
+
+    @staticmethod
+    def forward(ctx, field, odvr, z, noise_std, seed, *params):
+        maps, w = mip_train_render(field, odvr, z, noise_std=noise_std, seed=seed)
+        ctx.field, ctx.noise, ctx.maps_shape = field, (noise_std, seed), maps.shape
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(odvr, z)
+        return maps, w
+
+    @staticmethod
+    def backward(ctx, dmaps, dweights):
+        names = [n for n, _ in ctx.field.named_parameters()]
+        grads = {}
+        if dmaps is not None or dweights is not None:
+            odvr, z = ctx.saved_tensors
+            if dmaps is None:
+                dmaps = odvr.new_zeros(ctx.maps_shape)
+            grads = mip_train_render_grads(ctx.field, odvr, z, dmaps.contiguous(),
+                                           None if dweights is None else dweights.contiguous(),
+                                           noise_std=ctx.noise[0], seed=ctx.noise[1])
+        return (None,) * 5 + tuple(grads.get(n) for n in names)
+
+
+def fused_mip_train_render(field: nn.Module, odvr: torch.Tensor, z: torch.Tensor, *,
+                           noise_std: float, seed: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The differentiable mip train render of one pass (replaces
+    ``fused_mip_train_render_planar``): ``odvr [R, 10]``, ``z [R, S + 1]``
+    -> (maps ``[R, 5]``, weights ``[R, S]``) through K10a, whose backward is
+    K10b (it recomputes the forward; nothing is stored but the inputs)."""
+    return _MipTrainRender.apply(field, odvr, z, float(noise_std), int(seed),
+                                 *field.parameters())
+
+
 fused_coarse_weights.launches = 0
 fused_render.launches = 0
 fused_rgb_train_grads.launches = 0
 train_render.launches = 0
 frozen_sem_grads.launches = 0
 train_render_grads.launches = 0
+fused_mip_render.launches = 0
+mip_train_render.launches = 0
+mip_train_render_grads.launches = 0

@@ -25,8 +25,14 @@ defaults) and the same run-directory layout. Implemented:
   ``PatchDataset`` batches (of the semantic head alone with
   ``--fix_backbone``, as the JAX entry point's masked optimizer).
 
-``--no_batching``, ``--eval_video``, ``--eval_vol`` and ``--mipnerf`` stop
-with "not yet ported". Each RGB step draws its batch and its noise from
+- ``--mipnerf`` (train and ``--eval``): mip-NeRF, one field shared by the
+  coarse and fine passes, no semantic head, the test split's base
+  ``radii`` threaded into the train step and the evals; its fused passes
+  are K9 (renders) and K10a with K10b as its backward (training). With the
+  SOS losses it stops: they need the semantic head.
+
+``--no_batching``, ``--eval_video`` and ``--eval_vol`` stop with "not yet
+ported". Each RGB step draws its batch and its noise from
 ``(--seed, step)`` alone, so a resumed run trains as an uninterrupted one
 would (the JAX entry point restarts its batch stream); a patch step draws
 from ``(--seed, step)`` too, and its images from the dataset's per-epoch
@@ -35,7 +41,8 @@ shuffle, which a resume starts afresh.
 ``main(args, device=None)`` runs on ``cuda:{--gpuid}`` and raises when no
 card is visible; the CPU only when the caller passes ``device="cpu"`` (the
 tests). The fused kernels (``ops/fused_render.py``: K3 for the RGB step,
-K4 with K5 or K6 for the SOS step, K1/K2 for the eval render;
+K4 with K5 or K6 for the SOS step, K1/K2 for the eval render, K9/K10a/K10b
+under ``--mipnerf``;
 ``ops/flash_corr.py``: K7 for the geometry loss) run unless
 ``--no_fused_field`` is given or the
 configuration is outside ``supports_fused``; on the CPU the same code path
@@ -191,7 +198,9 @@ def create_arg_parser() -> ConfigArgumentParser:
 
 
 def build_model(args, device: torch.device):
-    """``NeRFNet`` from the flags, initialised from ``--seed``, on ``device``."""
+    """``NeRFNet`` (``MipNeRFNet`` under ``--mipnerf``, without the semantic
+    head) from the flags, initialised from ``--seed``, on ``device``."""
+    from nerfsos_torch.models.mip import MipNeRFNet
     from nerfsos_torch.models.nerf import NeRFConfig, NeRFNet
     from nerfsos_torch.ops.fused_render import supports_fused
 
@@ -203,7 +212,8 @@ def build_model(args, device: torch.device):
         multires=args.multires, multires_views=args.multires_views,
         conv_embed=args.conv_embed, perturb=args.perturb,
         raw_noise_std=args.raw_noise_std, white_bkgd=args.white_bkgd,
-        use_semantics=args.use_semantics, sem_layer=args.sem_layer, sem_dim=args.sem_dim,
+        use_semantics=args.use_semantics and not args.mipnerf,
+        sem_layer=args.sem_layer, sem_dim=args.sem_dim,
         sem_with_coord=args.sem_with_coord, sem_with_geo=args.sem_with_geo,
         ray_block=args.ray_chunk, compute_dtype=args.compute_dtype,
         frozen_backbone=args.fix_backbone,
@@ -211,7 +221,7 @@ def build_model(args, device: torch.device):
     cfg = dataclasses.replace(cfg, fused_field=not args.no_fused_field and supports_fused(cfg))
     with torch.random.fork_rng(devices=[]):  # seeded init, global RNG left as it was
         torch.manual_seed(args.seed)
-        net = NeRFNet(cfg)
+        net = MipNeRFNet(cfg) if args.mipnerf else NeRFNet(cfg)
     return net.to(device).eval(), cfg
 
 
@@ -267,13 +277,15 @@ def main(args, device=None) -> None:
     from nerfsos_torch.engines.trainer import make_rgb_train_step
     from nerfsos_torch.utils.summary import SummaryWriter
 
-    for flag in ("mipnerf", "eval_video", "eval_vol") + (() if args.eval else ("no_batching",)):
+    for flag in ("eval_video", "eval_vol") + (() if args.eval else ("no_batching",)):
         if getattr(args, flag):
             raise SystemExit(f"--{flag}: not yet ported to nerfsos_torch")
     patch_mode = args.patch_tune and not args.eval
     if patch_mode:
         _check_patch_tune(args)
     sos_mode = patch_mode and args.use_dino and (args.use_correlation or args.use_geoCorr)
+    if sos_mode and args.mipnerf:
+        raise SystemExit("--mipnerf has no semantic head: the SOS losses need one")
     if args.no_semantics:
         args.use_semantics = False
     device = _resolve_device(args, device)
@@ -337,11 +349,13 @@ def main(args, device=None) -> None:
     print("Loading nerf data:", args.data_path)
     test_set = RayDataset(args.data_path, split="test", subsample=args.subsample,
                           use_masks=args.use_masks, bin_thres=args.bin_thres)
+    # mip-NeRF's base radius, from the test split as the JAX entry point takes it
+    net_kwargs = {"radii": test_set.radii()} if args.mipnerf else {}
 
     def do_evaluate(save_dir):
         return eval_lib.evaluate(net, test_set, save_dir=save_dir, fast_mode=args.fast_mode,
                                  ret_cluster=args.ret_cluster, clus_no_sfm=args.clus_no_sfm,
-                                 n_cluster=args.N_cluster)
+                                 n_cluster=args.N_cluster, **net_kwargs)
 
     if args.eval:
         print("> Start to evaluate")
@@ -375,7 +389,7 @@ def main(args, device=None) -> None:
                                       schedule, near, far, seed=args.seed)
     else:
         step_fn = make_rgb_train_step(net, optimizer, schedule, near, far, rgb_w=args.rgb_w,
-                                      seed=args.seed)
+                                      seed=args.seed, net_kwargs=net_kwargs)
     writer = SummaryWriter(log_dir)
 
     def save(name):

@@ -1,4 +1,5 @@
-"""K1-K6 and K7 CUDA kernels vs their plain PyTorch versions on the card.
+"""K1-K7 and the mip kernels K9/K10a/K10b vs their plain PyTorch versions on
+the card.
 
 Marked ``cuda``: every test skips without a CUDA device (the kernels have no
 CPU or interpret mode). On a machine with a card (``--noconftest``: the
@@ -9,7 +10,8 @@ repository's conftest imports jax):
 The tolerances and K3's allowance for relu gates that rounding flips are
 ``chip_smoke.py``'s, where their reasoning is written down. K5 is held to GRAD_TOL on
 points whose semantic-head gates are clear of 0 (the others get weight 0); K6
-on rays whose trunk, views and semantic-head gates are clear of 0.
+on rays whose trunk, views and semantic-head gates are clear of 0; K10b on
+rays whose trunk and views gates are clear of 0.
 """
 import itertools
 
@@ -18,9 +20,9 @@ import pytest
 import torch
 
 from chip_smoke import (GATE_MARGIN, GRAD_TOL, K7_TOL, TOL, flip_allowance, plain_k3_with_gates,
-                        plain_k6_with_gates)
+                        plain_k6_with_gates, plain_k10b_with_gates)
 from nerfsos_torch.core.sampling import points_along_rays
-from nerfsos_torch.models.fields import NeRFField
+from nerfsos_torch.models.fields import MipNeRFField, NeRFField
 from nerfsos_torch.ops import fused_render as fr
 
 pytestmark = pytest.mark.cuda
@@ -115,19 +117,20 @@ def _k3_inputs(device, n, s, seed):
     return odv, z, gt.to(device)
 
 
-def _gate_clear_inputs(field, n, s, seed, pool=4096, sem=False):
-    """``_k3_inputs`` for ``n`` rays none of whose points has a trunk or views
-    (with ``sem``, semantic-head) relu input within 2 x GATE_MARGIN of 0 (of
-    its layer's largest |input| over a pool of candidates): K3 or K6 and its
-    plain version then take those gates alike, and a leaf keeps a flip
-    allowance only for sigma + noise, whose noise depends on the ray's place
-    in the batch."""
+def _gate_clear_inputs(field, n, s, seed, pool=4096, sem=False, mip=False):
+    """``_k3_inputs`` (with ``mip``, ``_mip_inputs`` for a ``MipNeRFField``)
+    for ``n`` rays none of whose points has a trunk or views (with ``sem``,
+    semantic-head) relu input within 2 x GATE_MARGIN of 0 (of its layer's
+    largest |input| over a pool of candidates): a kernel and its plain
+    version then take those gates alike, and a leaf keeps a flip allowance
+    only for sigma + noise, whose noise depends on the ray's place in the
+    batch."""
     mlp = field.mlp
     gates = [*mlp.pts_linears, mlp.views_linears[0]] + ([mlp.semantic_linear[0]] if sem else [])
     device = next(field.parameters()).device
     keep = []
     for k in itertools.count():
-        odv, z, gt = _k3_inputs(device, pool, s, seed + k)
+        cand = (_mip_inputs if mip else _k3_inputs)(device, pool, s, seed + k)
         slack = torch.full((pool * s,), float("inf"), device=device)
 
         def hook(mod, inputs, out):
@@ -136,11 +139,15 @@ def _gate_clear_inputs(field, n, s, seed, pool=4096, sem=False):
 
         handles = [m.register_forward_hook(hook) for m in gates]
         with torch.no_grad():
-            field(points_along_rays(odv[:, 0:3], odv[:, 3:6], z), odv[:, 6:9])
+            if mip:
+                fr._mip_raw(field, *cand)
+            else:
+                odv, z = cand[:2]
+                field(points_along_rays(odv[:, 0:3], odv[:, 3:6], z), odv[:, 6:9])
         for h in handles:
             h.remove()
         clear = (slack.view(pool, s) > 2 * GATE_MARGIN).all(1)
-        keep += [(odv[clear], z[clear], gt[clear])]
+        keep += [tuple(t[clear] for t in cand)]
         if sum(len(t[0]) for t in keep) >= n:
             return tuple(torch.cat(parts)[:n].contiguous() for parts in zip(*keep))
 
@@ -543,3 +550,135 @@ def test_k7_single_and_pair_through_autograd(cuda):
     assert [getattr(fc, n).launches for n in names] == [c + d for c, d in
                                                         zip(counts, (2, 1, 1, 1, 1))]
     assert all(c.grad is not None and torch.isfinite(c.grad).all() for c in codes)
+
+
+# ----------------------------------------------------------------- K9, K10a, K10b
+
+
+MIP_SHAPES = [
+    dict(net_depth=8, net_width=256, multires=10, multires_views=4),
+    dict(net_depth=5, net_width=16, multires=4, multires_views=2),  # skip after the last layer
+]
+
+
+def _mip_field(device, seed, **kw):
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        field = MipNeRFField(**kw)
+    return field.to(device).eval()
+
+
+def _mip_inputs(device, n, s, seed):
+    """odvr [n, 10] (origins, directions, unit viewdirs, the base radius of a
+    504-pixel-wide view) and sorted fenceposts [n, s + 1] in [1, 6]."""
+    rng = np.random.default_rng(seed)
+    odvr = rng.normal(size=(n, 10)).astype(np.float32)
+    odvr[:, 0:3] *= 2.0
+    odvr[:, 6:9] = odvr[:, 3:6] / np.linalg.norm(odvr[:, 3:6], axis=1, keepdims=True)
+    odvr[:, 9] = 2.0 / 504 * 2 / np.sqrt(12)
+    z = np.sort(rng.uniform(1, 6, size=(n, s + 1)), 1).astype(np.float32)
+    return torch.from_numpy(odvr).to(device), torch.from_numpy(z).to(device)
+
+
+@pytest.mark.parametrize("shape", MIP_SHAPES)
+@pytest.mark.parametrize("noise", [0.0, 1.0])
+@pytest.mark.parametrize("n,s", [(1, 63), (37, 7), (1000, 63), (300, 190)])
+def test_k9_k10a_match_plain(cuda, shape, noise, n, s):
+    """K9 (no noise) and K10a (noise 1): maps and weights to TOL."""
+    field = _mip_field(cuda, 20, **shape)
+    odvr, z = _mip_inputs(cuda, n, s, 21)
+    if noise == 0.0:
+        wrapper, plain, kw = fr.fused_mip_render, fr.mip_render_plain, {}
+    else:
+        wrapper, plain = fr.mip_train_render, fr.mip_train_render_plain
+        kw = dict(noise_std=noise, seed=97531)
+    before = wrapper.launches
+    with torch.no_grad():
+        got = wrapper(field, odvr, z, **kw)
+        want = plain(field, odvr, z, **kw)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    assert got[0].shape == (n, 5) and got[1].shape == (n, s)
+    for a, b in zip(got, want):
+        assert torch.isfinite(a).all()
+        assert float((a - b).abs().max()) <= TOL
+
+
+@pytest.mark.parametrize("shape", MIP_SHAPES)
+@pytest.mark.parametrize("s,dweights", [(7, True), (63, True), (190, False)])
+@pytest.mark.parametrize("n", [1, 37, 1024])
+def test_k10b_matches_plain(cuda, shape, s, dweights, n):
+    """The mip backward: every leaf to GRAD_TOL of its max plus the sigma +
+    noise gates' allowance, on rays clear of every other gate; bitwise equal
+    across two calls."""
+    field = _mip_field(cuda, 22, **shape)
+    odvr, z = _gate_clear_inputs(field, n, s, 23, pool=2048, mip=True)
+    rng = np.random.default_rng(n + s)
+    dmaps = torch.from_numpy(rng.normal(size=(n, 5)).astype(np.float32)).to(cuda)
+    dw = (torch.from_numpy(rng.normal(size=(n, s)).astype(np.float32)).to(cuda) if dweights
+          else None)
+    kw = dict(noise_std=1.0, seed=86420)
+    before = fr.mip_train_render_grads.launches
+    got = fr.mip_train_render_grads(field, odvr, z, dmaps, dw, **kw)
+    again = fr.mip_train_render_grads(field, odvr, z, dmaps, dw, **kw)
+    want, slack, terms = plain_k10b_with_gates(field, odvr, z, dmaps, dw, kw)
+    torch.cuda.synchronize()
+    assert fr.mip_train_render_grads.launches == before + 2
+    allow = flip_allowance(slack, terms)
+    assert set(got) == set(want)
+    for name, ref in want.items():
+        assert torch.equal(got[name], again[name]), name
+        assert got[name].shape == ref.shape and torch.isfinite(got[name]).all(), name
+        scale = max(float(ref.abs().max()), 1e-12)
+        err = float((got[name] - ref).abs().max())
+        assert err <= GRAD_TOL * scale + allow[name], (name, err / scale)
+
+
+def test_k10_noise_matches_the_hash(cuda):
+    """With a field whose density is 0 everywhere the mip kernels' sigma is
+    the noise alone, so K10a's weights follow the plain version's hash draws
+    at point ray * S + interval, and K9's are 0."""
+    field = _mip_field(cuda, 24, **MIP_SHAPES[1])
+    with torch.no_grad():
+        field.mlp.alpha_linear.weight.zero_()
+        field.mlp.alpha_linear.bias.zero_()
+    odvr, z = _mip_inputs(cuda, 50, 16, 25)
+    kw = dict(noise_std=2.0, seed=2**31 - 300)
+    with torch.no_grad():
+        got = fr.mip_train_render(field, odvr, z, **kw)
+        want = fr.mip_train_render_plain(field, odvr, z, **kw)
+        assert float((got[1] - want[1]).abs().max()) <= TOL and got[1].any()
+        assert not fr.fused_mip_render(field, odvr, z)[1].any()
+
+
+def test_k10_through_autograd(cuda):
+    """fused_mip_train_render: the K10a forward and the K10b backward, once
+    each, a gradient on every leaf."""
+    field = _mip_field(cuda, 26, **MIP_SHAPES[0])
+    odvr, z = _mip_inputs(cuda, 300, 63, 27)
+    counts = (fr.mip_train_render.launches, fr.mip_train_render_grads.launches)
+    maps, w = fr.fused_mip_train_render(field, odvr, z, noise_std=1.0, seed=3)
+    (maps * torch.arange(1.0, 6.0, device=cuda)).sum().backward()
+    torch.cuda.synchronize()
+    assert (fr.mip_train_render.launches, fr.mip_train_render_grads.launches) == (
+        counts[0] + 1, counts[1] + 1)
+    assert all(p.grad is not None and torch.isfinite(p.grad).all() for p in field.parameters())
+
+
+def test_mip_kernels_reject_bad_inputs(cuda):
+    field = _mip_field(cuda, 0, **MIP_SHAPES[1])
+    odvr, z = _mip_inputs(cuda, 16, 8, 3)
+    kw = dict(noise_std=0.0, seed=0)
+    with pytest.raises(ValueError):
+        fr.fused_mip_render(field, odvr[:, :9].contiguous(), z)
+    with pytest.raises(ValueError):
+        fr.fused_mip_render(field, odvr, z[:, :1].contiguous())
+    with pytest.raises(ValueError):
+        fr.mip_train_render(field, odvr, z[:8], **kw)
+    with pytest.raises(NotImplementedError):
+        fr.fused_mip_render(field, odvr.double(), z.double())
+    with pytest.raises(ValueError):
+        fr.mip_train_render_grads(field, odvr, z, torch.zeros(16, 7, device=cuda), None, **kw)
+    with pytest.raises(ValueError):
+        fr.mip_train_render_grads(field, odvr, z, torch.zeros(16, 5, device=cuda),
+                                  torch.zeros(16, 9, device=cuda), **kw)

@@ -17,6 +17,7 @@ from nerfsos_torch.data.synthetic import write_sphere_scene
 from nerfsos_torch.engines import checkpoint as tckpt
 from nerfsos_torch.engines import eval as teval
 from nerfsos_torch.losses.photometric import img2mse, mse2psnr
+from nerfsos_torch.models.mip import MipNeRFNet
 from nerfsos_torch.models.nerf import NeRFConfig as TorchConfig
 from nerfsos_torch.models.nerf import NeRFNet as TorchNet
 from nerfsos_torch.ops.kmeans import kmeans, segmap_cluster
@@ -178,8 +179,18 @@ def test_run_nerf_eval_end_to_end(tmp_path):
                                   ["--eval_vol"], ["--eval", "--mipnerf"]])
 def test_unported_modes_exit(tmp_path, mode):
     """Each of these modes stops with "not yet ported", but ``--patch_tune``
-    alone, which now runs the RGB finetune on patches: one step here."""
+    alone, which now runs the RGB finetune on patches (one step here), and
+    ``--eval --mipnerf``, which now renders the test view from a mip
+    checkpoint."""
     data, logs, ckpt = _scene(tmp_path, EVAL_CFG, height=4, width=4)
+    if "--mipnerf" in mode:
+        cfg = {k: v for k, v in EVAL_CFG.items() if k != "use_semantics"}
+        tckpt.save_checkpoint(ckpt, 3, MipNeRFNet(TorchConfig(**cfg, use_semantics=False)))
+        args, _ = run_nerf.create_arg_parser().parse_known_args(_argv(data, logs, ckpt, *mode))
+        run_nerf.main(args, device="cpu")
+        log = json.load(open(logs / "t" / "eval" / "log.json"))
+        assert len(log["mse"]) == 1 and np.isfinite(log["total_psnr"])
+        return
     if mode == ["--patch_tune"]:
         write_sphere_scene(str(data), height=4, width=4, n_views=2, split="train")
         mode = [*mode, "--patch_size", "2", "--batch_size", "2", "--max_steps", "4"]
