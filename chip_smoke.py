@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch port on one CUDA card: kernels, the --eval path,
-the train path, the SOS finetune (frozen, full, random negatives), then
-mip-NeRF (--mipnerf train and --eval).
+the train path, the SOS finetune (frozen, full, random negatives),
+mip-NeRF (--mipnerf train and --eval), then the field kernels (--eval_vol
+and nets with no fine pass, --N_importance 0).
 
     python3 chip_smoke.py
 
@@ -92,7 +93,33 @@ Phases (one line each; any failure raises and the exit code is nonzero):
      rendered by the kernel path vs the plain path;
  22. [mip_step]: the mip train step at 1024 and 16384 rays on the kernel
      and the plain path with peak memory, and its K10a/K10b calls timed
-     alone beside their bounds.
+     alone beside their bounds;
+ 23. [K8]: the field forward (K8b/K8d) with the semantic head and without
+     it, the sigma forward (K8a/K8e) and K11 at zero and non-zero
+     covariances vs their plain versions at the flagship width on 2^18
+     points of the x14 density grid's cube: each column to TOL over
+     max(1, its max), and times;
+ 24. [K8_bwd]: the field backward at 1024 x 64 points of rays, weights only
+     (K8f) and with the points' and directions' gradients (K8c): every leaf
+     to GRAD_TOL plus its gate allowance, dpts/ddirs to GRAD_TOL on
+     gate-clear points, two calls bitwise equal;
+ 25. [eval_vol]: ``run_nerf.main --eval_vol`` (a 256^3 grid, 64 chunks of
+     2^18 points) on the [eval] phase's checkpoint, then with --mipnerf on
+     the [mip_train] run's: 64 launches of the field kernel (K11), both
+     files written, the volume vs the plain path's to TOL x max(1, max);
+ 26. [train_noimp]: ``run_nerf.main`` with configs/flower_full.txt's flags
+     and --N_importance 0, 30 steps: the field forward and backward once a
+     step, the loss falls, the final eval through the field forward, the
+     last step's backward call vs the plain version on its own inputs;
+ 27. [sos_noimp]: 5 ``--patch_tune --fix_backbone --N_importance 0`` steps
+     from that run's checkpoint (the RGB finetune on patches: the SOS
+     losses need a fine pass): every term finite, the trunk bitwise equal;
+ 28. [sigma_noise]: one 378x504 view through ``NeRFNet.forward(...,
+     coarse_outputs=False, raw_noise_std=1.0)``: the sigma and the field
+     kernel once a ray block, the view vs the plain net's with the same
+     noise, one sigma call vs plain and timed;
+ 29. [noimp_step]: the --N_importance 0 step at 1024 and 16384 rays, kernel
+     vs plain path with peak memory, and its two field calls timed alone.
 The last lines are the card, one JSON object with the kernels' numbers, and
 ``{"ok": true, "device": {...}}``. Scratch files go to build/chip_smoke/.
 """
@@ -134,13 +161,20 @@ GRAD_TOL = 1e-3
 # A gate (a trunk or views relu, or the relu of sigma + noise) whose input
 # lies within this share of its layer's largest |input| of 0 may take the
 # other side in the kernel than in the plain version: their inputs differ by
-# rounding alone (fp32 sums in another order), far below 1e-6 of the layer's
-# largest. A flipped gate moves every leaf by up to that point's whole term,
-# which in a 1024-ray train step is above GRAD_TOL of a leaf ([train_k3]);
-# each leaf therefore gets twice the largest term of a point near a gate on
-# top of GRAD_TOL. tests/test_torch_cuda.py picks rays with no trunk or
-# views gate near 0, so that its leaves are held to GRAD_TOL alone.
+# rounding alone (fp32 sums in another order, 3xTF32 products), mostly below
+# 1e-6 of the layer's largest (gates flipped at up to 1.23e-6 of it among
+# [K8_bwd]'s 65536 points, H100). A flipped gate moves every leaf by up to
+# that point's whole term, which in a 1024-ray train step is above GRAD_TOL
+# of a leaf ([train_k3]); each leaf therefore gets twice the largest term of
+# a point near a gate on top of GRAD_TOL (a flip just past the margin moves
+# a leaf by one point's term, within GRAD_TOL at these sizes).
+# tests/test_torch_cuda.py picks rays with no trunk or views gate near 0, so
+# that its leaves are held to GRAD_TOL alone.
 GATE_MARGIN = 1e-6
+# A flipped gate moves its point's input gradient (K8c's dpts and ddirs) by
+# that gradient's whole size, so those are compared on the points whose
+# every gate clears this share, ten times the largest flip seen.
+INPUT_GRAD_MARGIN = 1e-5
 # Bound on K7's four means and four code gradients, relative to the largest
 # |plain| of the four means and to each gradient's own max |plain|. Both
 # sides are fp32 and form every pair's terms with the same operations in the
@@ -483,6 +517,19 @@ def kernel_vs_plain_k3(fr, R: int, S: int, use_semantics: bool, white_bkgd: bool
             "library_ms": None}
 
 
+def eval_args(*extra):
+    """The [eval] phase's flags (its seeded flagship .ckpt, 64 + 128 samples,
+    the semantic head with coordinates) with the flags in ``extra``."""
+    from nerfsos_torch import run_nerf
+
+    argv = ["--expname", "smoke", "--basedir", os.path.join(WORK, "logs"),
+            "--data_path", os.path.join(WORK, "data"), "--data_type", "llff",
+            "--sem_with_coord", "--N_samples", "64", "--N_importance", "128",
+            "--ckpt_path", os.path.join(WORK, "seeded.ckpt"), *extra]
+    args, _ = run_nerf.create_arg_parser().parse_known_args(argv)
+    return args
+
+
 def eval_path(fr) -> dict:
     from nerfsos_torch import run_nerf
     from nerfsos_torch.data.datasets import RayDataset
@@ -502,11 +549,7 @@ def eval_path(fr) -> dict:
     ckpt = os.path.join(WORK, "seeded.ckpt")
     ckpt_lib.save_checkpoint(ckpt, 0, ckpt_net)
 
-    argv = ["--expname", "smoke", "--basedir", logs, "--data_path", data,
-            "--data_type", "llff", "--eval", "--fast_mode", "--ret_cluster", "--clus_no_sfm",
-            "--sem_with_coord", "--N_samples", "64", "--N_importance", "128",
-            "--use_masks", "--ckpt_path", ckpt]
-    args, _ = run_nerf.create_arg_parser().parse_known_args(argv)
+    args = eval_args("--eval", "--fast_mode", "--ret_cluster", "--clus_no_sfm", "--use_masks")
 
     views, spent = [], {"view": 0.0, "render": 0.0}
     orig = eval_lib.eval_one_view
@@ -588,16 +631,16 @@ def eval_path(fr) -> dict:
 TRAIN_STEPS, RESUME_STEPS = 30, 40
 
 
-def train_args(data: str, logs: str, max_steps: int):
+def train_args(data: str, logs: str, max_steps: int, expname: str = "smoke_train", extra=()):
     """The flagship pretrain flags (configs/flower_full.txt: N_rand 1024,
     64 + 128 samples, raw_noise_std 1, the semantic head by default) on the
-    smoke scene."""
+    smoke scene, with the flags in ``extra`` added."""
     from nerfsos_torch import run_nerf
 
     argv = ["--config", os.path.join(ROOT, "configs", "flower_full.txt"),
-            "--expname", "smoke_train", "--basedir", logs, "--data_path", data,
+            "--expname", expname, "--basedir", logs, "--data_path", data,
             "--max_steps", str(max_steps), "--i_print", "10", "--i_weights", "10",
-            "--i_testset", "1000000", "--fast_mode"]
+            "--i_testset", "1000000", "--fast_mode", *extra]
     args, _ = run_nerf.create_arg_parser().parse_known_args(argv)
     return args
 
@@ -607,13 +650,13 @@ MIP_COUNTS = {"K9": "fused_mip_render", "K10a": "mip_train_render",
               "K10b": "mip_train_render_grads"}
 
 
-def run_train(fr, args, counts: dict, capture=(), capture_step: int = -1) -> dict:
+def run_train(fr, args, counts: dict, capture=(), capture_step: int = -1, mod=None) -> dict:
     """``run_nerf.main(args)`` in train mode with the kernel counts
-    ``counts`` (kernel -> wrapper name in ``fr``) set to 0 just before and
-    read just after; the train step is wrapped to record each step's index
-    and loss and the Adam step count it starts from. At ``capture_step`` the
-    calls of the wrappers named in ``capture`` are kept in ``rec["calls"]``,
-    as ``Capture`` keeps them."""
+    ``counts`` (kernel -> wrapper name in ``mod``, by default ``fr``) set to
+    0 just before and read just after; the train step is wrapped to record
+    each step's index and loss and the Adam step count it starts from. At
+    ``capture_step`` the calls of the wrappers of ``mod`` named in
+    ``capture`` are kept in ``rec["calls"]``, as ``Capture`` keeps them."""
     from nerfsos_torch import run_nerf
     from nerfsos_torch.engines import trainer
 
@@ -641,9 +684,10 @@ def run_train(fr, args, counts: dict, capture=(), capture_step: int = -1) -> dic
 
         return recorded
 
+    mod = fr if mod is None else mod
     for name in counts.values():
-        getattr(fr, name).launches = 0
-    cap = Capture(fr, list(capture))
+        getattr(mod, name).launches = 0
+    cap = Capture(mod, list(capture))
     trainer.make_rgb_train_step = recording_make_step
     try:
         torch.cuda.synchronize()
@@ -654,7 +698,7 @@ def run_train(fr, args, counts: dict, capture=(), capture_step: int = -1) -> dic
     finally:
         trainer.make_rgb_train_step = orig
         cap.close()
-    rec["launches"] = {k: getattr(fr, name).launches for k, name in counts.items()}
+    rec["launches"] = {k: getattr(mod, name).launches for k, name in counts.items()}
     rec["calls"] = cap.calls
     rec["losses"] = [float(x) for x in rec["losses"]]
     return rec
@@ -786,8 +830,9 @@ class Capture:
     """Wraps kernel wrappers of ``module`` (by name) so that the calls made
     while ``on`` is set are kept: inputs and outputs by reference, a field
     argument copied (Adam moves it after the step). Each wrapper counts its
-    launches on the stand-in while it is in place; ``close`` adds them to the
-    original wrapper's count and puts the original back."""
+    launches on the stand-in while it is in place (every integer counter:
+    ``launches``, ``input_grad_launches``); ``close`` adds them to the
+    original wrapper's counters and puts the original back."""
 
     def __init__(self, module, names):
         self.module, self.on = module, False
@@ -806,12 +851,14 @@ class Capture:
                 self.calls[name].append((a, kw, out))
             return out
 
-        wrapper.launches = 0
+        wrapper.__dict__.update({k: 0 for k, v in vars(orig).items() if isinstance(v, int)})
         return wrapper
 
     def close(self) -> None:
         for n, orig in self.orig.items():
-            orig.launches += getattr(self.module, n).launches
+            for k, v in vars(getattr(self.module, n)).items():
+                if isinstance(v, int) and k in vars(orig):
+                    setattr(orig, k, getattr(orig, k) + v)
             setattr(self.module, n, orig)
 
 
@@ -1717,6 +1764,34 @@ def mip_eval_path(fr) -> dict:
     return {"K9": launches}
 
 
+def step_paths(name: str, step, dataset, mod, plain: dict) -> dict:
+    """[``name``]: ``step`` (a train step: grads and Adam) timed with CUDA
+    events at 1024 and 16384 rays of ``dataset`` on the kernel path and on
+    the plain path (each wrapper of ``mod`` named in ``plain`` swapped for
+    its plain version), in turns (kernel, plain, kernel, plain), with peak
+    memory; returns the ms by (rays, path)."""
+    out = {}
+    for R in (1024, 16384):
+        b = dataset.sample_batch(np.random.default_rng(R), R)
+        batch = {k: torch.as_tensor(b[k], device="cuda") for k in ("rays", "target")}
+        for path in ("kernel", "plain", "kernel", "plain"):
+            saved = {n: getattr(mod, n) for n in plain} if path == "plain" else {}
+            for n in saved:
+                setattr(mod, n, plain[n])
+            try:
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                ms = cuda_ms(lambda: step(batch, 0), reps=3 if R == 1024 else 2, warmup=1)
+                peak = torch.cuda.max_memory_allocated() / 2**30
+            finally:
+                for n, f in saved.items():
+                    setattr(mod, n, f)
+            out.setdefault((R, path), []).append(ms)
+            phase(name, path=path, rays=R, ms=ms, rays_per_s=R / ms * 1e3, peak_gib=peak)
+    return out
+
+
 def mip_step_timings(fr) -> dict:
     """[mip_step]: the mip train step (CUDA events around grads + Adam) at
     1024 and 16384 rays on the kernel path and on the plain path (K10a's and
@@ -1736,27 +1811,9 @@ def mip_step_timings(fr) -> dict:
     test = RayDataset(args.data_path, split="test")
     step = make_rgb_train_step(net, optimizer, schedule, *test.near_far(), args.rgb_w, args.seed,
                                net_kwargs={"radii": test.radii()})
-    plain = {"mip_train_render": fr.mip_train_render_plain,
-             "mip_train_render_grads": fr.mip_train_render_grads_plain}
-    out = {}
-    for R in (1024, 16384):
-        b = dataset.sample_batch(np.random.default_rng(R), R)
-        batch = {k: torch.as_tensor(b[k], device="cuda") for k in ("rays", "target")}
-        for path in ("kernel", "plain", "kernel", "plain"):
-            saved = {n: getattr(fr, n) for n in plain} if path == "plain" else {}
-            for n in saved:
-                setattr(fr, n, plain[n])
-            try:
-                torch.cuda.synchronize()
-                torch.cuda.empty_cache()
-                torch.cuda.reset_peak_memory_stats()
-                ms = cuda_ms(lambda: step(batch, 0), reps=3 if R == 1024 else 2, warmup=1)
-                peak = torch.cuda.max_memory_allocated() / 2**30
-            finally:
-                for n, f in saved.items():
-                    setattr(fr, n, f)
-            out.setdefault((R, path), []).append(ms)
-            phase("mip_step", path=path, rays=R, ms=ms, rays_per_s=R / ms * 1e3, peak_gib=peak)
+    out = step_paths("mip_step", step, dataset, fr,
+                     {"mip_train_render": fr.mip_train_render_plain,
+                      "mip_train_render_grads": fr.mip_train_render_grads_plain})
 
     b = dataset.sample_batch(np.random.default_rng(1024), 1024)
     batch = {k: torch.as_tensor(b[k], device="cuda") for k in ("rays", "target")}
@@ -1789,6 +1846,465 @@ def mip_step_timings(fr) -> dict:
     return parts
 
 
+# ----------------------------------------------------------------- the field kernels
+
+EXPORT_CHUNK = 1 << 18  # points a call of engines/eval.export_density
+FIELD_POINTS = EXPORT_CHUNK
+
+
+def grid_points(n: int, seed: int) -> torch.Tensor:
+    """``n`` points uniform in the cube of the x14 density grid, [-14, 14]^3."""
+    g = torch.Generator().manual_seed(seed)
+    return (torch.rand(n, 3, generator=g) * 28.0 - 14.0).cuda()
+
+
+def unit_dirs(n: int, seed: int) -> torch.Tensor:
+    d = torch.randn(n, 3, generator=torch.Generator().manual_seed(seed))
+    return (d / d.norm(dim=1, keepdim=True)).cuda()
+
+
+def field_bwd_flops(field, input_grads: bool) -> float:
+    """The field backward's matrix-product FLOP a point: ``field_flops``
+    'k6' (the forward, every input-gradient product of the reverse sweep,
+    every weight-gradient product), and with ``input_grads`` the products
+    that gather the emb cotangent (layer 0, the layer after the skip,
+    sem_0's coordinate columns) and the view-PE cotangent (the views
+    layer's view-PE columns)."""
+    flops = field_flops(field, "k6")
+    if input_grads:
+        mlp = field.mlp
+        E, W = mlp.pts_linears[0].in_features, mlp.width
+        Ed = mlp.views_linears[0].in_features - W
+        skips = sum(1 for i in range(1, mlp.depth) if i - 1 in mlp.skips)
+        flops += 2 * E * W * (1 + skips) + 2 * Ed * (W // 2)
+        if mlp.use_semantics and mlp.sem_with_coord:
+            flops += 2 * E * mlp.semantic_linear[0].out_features
+    return flops
+
+
+def field_cost(field, n: int, kind: str, input_grads: bool = False) -> dict:
+    """Bounds of the field kernels over ``n`` points: 'sigma' the trunk and
+    the alpha head (``field_flops`` 'k1'), points in and sigma out; 'field'
+    every layer ('k2'), points and directions in, raw out; 'mip' the same
+    with the covariances in; 'bwd' ``field_bwd_flops``, points, directions
+    and the cotangent in, the gradients (and dpts/ddirs) out. The weights
+    are read once."""
+    C = 4 + (field.mlp.semantic_linear[2].out_features
+             if getattr(field.mlp, "use_semantics", False) else 0)
+    w = 4 * n_params(field)
+    if kind == "sigma":
+        return bound_ms(4 * n * 4 + w, n * field_flops(field, "k1"))
+    if kind == "field":
+        return bound_ms(4 * n * (6 + C) + w, n * field_flops(field, "k2"))
+    if kind == "mip":
+        return bound_ms(4 * n * (9 + C) + w, n * field_flops(field, "k2"))
+    return bound_ms(4 * n * (6 + C + (6 if input_grads else 0)) + 2 * w,
+                    n * field_bwd_flops(field, input_grads))
+
+
+def scaled_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| of each column over max(1, its max |want|)."""
+    got, want = got.reshape(got.shape[0], -1), want.reshape(want.shape[0], -1)
+    return float(((got - want).abs() / want.abs().amax(0).clamp(min=1.0)).max())
+
+
+def kernel_vs_plain_k8(ff) -> dict:
+    """[K8] at the flagship width (8 x 256, multires 10/4) on 2^18 points
+    uniform in the x14 density grid's cube with random unit directions: the
+    field forward with the semantic head (coordinates, sem_dim 2) and
+    without it, the sigma forward, and K11 (the flagship mip field) at
+    random non-zero and at zero covariances. Each output column to TOL over
+    max(1, its max |plain|) (sigma reaches O(10) at |x| up to 14), and
+    each timed against its plain version with CUDA events."""
+    N = FIELD_POINTS
+    pts, dirs = grid_points(N, 50), unit_dirs(N, 51)
+    out = {}
+
+    def check(name, got, want, run, plain, cost, **fields):
+        err = scaled_err(got, want)
+        if not (got.shape == want.shape and torch.isfinite(got).all() and err <= TOL):
+            raise SystemExit(f"{name} disagrees with its plain version ({fields}): "
+                             f"max scaled error {err} (tol {TOL})")
+        with torch.no_grad():
+            ms, plain_ms = cuda_ms(run), cuda_ms(plain, reps=3)
+        phase("K8", kernel=name, points=N, **fields, max_err_scaled=err, tol=TOL, ms=ms,
+              plain_ms=plain_ms, **cost)
+        return {"max_abs_err": max_err(got, want), "ms": ms, "plain_ms": plain_ms, **cost,
+                "library_ms": None}
+
+    for sem in (True, False):
+        field = seeded_field(40 + sem, net_depth=8, net_width=256, multires=10, multires_views=4,
+                             use_semantics=sem, sem_with_coord=sem, sem_dim=2)
+        with torch.no_grad():
+            got, want = ff.field_forward(field, pts, dirs), ff.field_plain(field, pts, dirs)
+        res = check("field forward", got, want, lambda: ff.field_forward(field, pts, dirs),
+                    lambda: ff.field_plain(field, pts, dirs), field_cost(field, N, "field"),
+                    semantics=sem)
+        if sem:
+            out["field"] = res
+            with torch.no_grad():
+                got, want = ff.fused_sigma_apply(field, pts), ff.sigma_plain(field, pts)
+            out["sigma"] = check("sigma forward", got, want,
+                                 lambda: ff.fused_sigma_apply(field, pts),
+                                 lambda: ff.sigma_plain(field, pts),
+                                 field_cost(field, N, "sigma"), semantics=sem)
+    mip = seeded_mip_field(42)
+    g = torch.Generator().manual_seed(52)
+    for zero in (False, True):
+        cov = torch.zeros_like(pts) if zero else (torch.rand(N, 3, generator=g) * 1e-4).cuda()
+        with torch.no_grad():
+            got = ff.fused_mip_field_apply(mip, pts, cov, dirs)
+            want = ff.mip_field_plain(mip, pts, cov, dirs)
+        res = check("K11", got, want, lambda: ff.fused_mip_field_apply(mip, pts, cov, dirs),
+                    lambda: ff.mip_field_plain(mip, pts, cov, dirs), field_cost(mip, N, "mip"),
+                    zero_cov=zero)
+        if zero:
+            out["mip"] = res
+    return out
+
+
+def plain_field_grads_with_gates(ff, field, pts, dirs, g, input_grads: bool):
+    """The field backward's plain version, and ``plain_with_gates``' slack
+    and terms for the trunk, views and sem_0 gates (the raw sigma has no
+    relu in the field)."""
+    mlp = field.mlp
+    gates = [*mlp.pts_linears, mlp.views_linears[0]]
+    if mlp.use_semantics:
+        gates.append(mlp.semantic_linear[0])
+    return plain_with_gates(field, pts.shape[0], 1, {"noise_std": 0.0}, gates,
+                            lambda: ff.field_grads_plain(field, pts, dirs, g,
+                                                         input_grads=input_grads))
+
+
+def check_field_grads(ff, what: str, got, field, pts, dirs, g, input_grads: bool) -> dict:
+    """The field backward's (grads, dpts, ddirs) against its plain version's
+    on the same inputs: every leaf to GRAD_TOL of its max plus its flip
+    allowance (``check_k6``); dpts and ddirs to GRAD_TOL of their max over
+    the points whose gates clear INPUT_GRAD_MARGIN (a flipped gate moves
+    its own point's input gradient alone); raises."""
+    (want, dp, dd), slack, terms = plain_field_grads_with_gates(ff, field, pts, dirs, g,
+                                                                input_grads)
+    kernel = "K8c" if input_grads else "K8f"
+    close = check_k6(what, got[0], want, slack, terms, kernel=kernel)
+    if input_grads:
+        clear = slack > INPUT_GRAD_MARGIN
+        close["input_grad_points"] = int(clear.sum())
+        for name, a, b in (("dpts", got[1], dp), ("ddirs", got[2], dd)):
+            scale = max(float(b[clear].abs().max()), 1e-12)
+            err = float((a[clear] - b[clear]).abs().max()) / scale
+            if not (torch.isfinite(a).all() and err <= GRAD_TOL):
+                raise SystemExit(f"{kernel} {name} disagrees with its plain version ({what}): "
+                                 f"{err} of its max (tol {GRAD_TOL})")
+            close[f"{name}_rel_err"] = err
+    return close
+
+
+def kernel_vs_plain_k8_bwd(ff) -> dict:
+    """[K8_bwd] the field backward at the --N_importance 0 step's size,
+    1024 rays x 64 samples = 65536 points (``ray_inputs``), of the flagship
+    field with the semantic head (coordinates), from a seeded cotangent, in
+    both modes: weights only (K8f) and with dpts/ddirs (K8c); each checked
+    by ``check_field_grads`` and two calls bitwise equal."""
+    from nerfsos_torch.core.sampling import points_along_rays
+
+    field = seeded_field(43, net_depth=8, net_width=256, multires=10, multires_views=4,
+                         use_semantics=True, sem_with_coord=True, sem_dim=2)
+    odv, z = ray_inputs(1024, 64, seed=44)
+    pts = points_along_rays(odv[:, 0:3], odv[:, 3:6], z).reshape(-1, 3).contiguous()
+    dirs = odv[:, None, 6:9].expand(1024, 64, 3).reshape(-1, 3).contiguous()
+    N = pts.shape[0]
+    g = torch.from_numpy(np.random.default_rng(45).normal(size=(N, 6)).astype(np.float32)).cuda()
+    out = {}
+    for input_grads in (False, True):
+        kernel = "K8c" if input_grads else "K8f"
+        before = (ff.field_grads.launches, ff.field_grads.input_grad_launches)
+        got = ff.field_grads(field, pts, dirs, g, input_grads=input_grads)
+        again = ff.field_grads(field, pts, dirs, g, input_grads=input_grads)
+        torch.cuda.synchronize()
+        launches = (ff.field_grads.launches - before[0],
+                    ff.field_grads.input_grad_launches - before[1])
+        if launches != (2, 2 * input_grads):
+            raise SystemExit(f"{kernel}: two calls counted {launches}")
+        close = check_field_grads(ff, kernel, got, field, pts, dirs, g, input_grads)
+        same = all(torch.equal(got[0][k], again[0][k]) for k in got[0]) and (
+            not input_grads or (torch.equal(got[1], again[1]) and torch.equal(got[2], again[2])))
+        if not same:
+            raise SystemExit(f"{kernel}'s gradients differ between two calls")
+        ms = cuda_ms(lambda: ff.field_grads(field, pts, dirs, g, input_grads=input_grads))
+        plain_ms = cuda_ms(lambda: ff.field_grads_plain(field, pts, dirs, g,
+                                                        input_grads=input_grads), reps=3)
+        cost = field_cost(field, N, "bwd", input_grads)
+        phase("K8_bwd", mode=kernel, points=N, launches={"field_grads": launches[0],
+                                                          "input_grad_mode": launches[1]},
+              **close, deterministic=True, ms=ms, plain_ms=plain_ms, **cost)
+        out[kernel] = {"max_abs_err": close["max_abs_err"], "ms": ms, "plain_ms": plain_ms,
+                       **cost, "library_ms": None}
+    return out
+
+
+def eval_vol_path(ff) -> dict:
+    """[eval_vol]: ``run_nerf.main --eval_vol`` at the default --vol_extents
+    2.0 --vol_size 2/256 (a 256^3 grid, 64 chunks of 2^18 points) on the
+    [eval] phase's seeded flagship .ckpt: the field forward's count, set to
+    0 just before, must read 64 just after; density.mrc and density.ply are
+    written; the volume equals the plain path's within TOL x max(1, max
+    sigma). Then the same on the [mip_train] run's checkpoint with
+    --mipnerf (K11, 64 launches)."""
+    from nerfsos_torch import run_nerf
+    from nerfsos_torch.engines import checkpoint as ckpt_lib
+    from nerfsos_torch.engines import eval as eval_lib
+    from nerfsos_torch.models.mip import MipNeRFNet
+    from nerfsos_torch.models.nerf import NeRFNet
+    from nerfsos_torch.utils import io as io_utils
+
+    out = {}
+    for name, args, wrapper, run_dir, ckpt in (
+            ("classic", eval_args("--eval_vol"), ff.field_forward,
+             os.path.join(WORK, "logs", "smoke"), os.path.join(WORK, "seeded.ckpt")),
+            ("mip", mip_args(0, "--eval_vol"), ff.fused_mip_field_apply,
+             os.path.join(WORK, "logs", "smoke_mip"),
+             os.path.join(WORK, "logs", "smoke_mip", "checkpoints", "last.ckpt"))):
+        wrapper.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_nerf.main(args)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = wrapper.launches
+        side = int(args.vol_extents[0] / args.vol_size)
+        chunks = -(-side**3 // EXPORT_CHUNK)
+        files = [os.path.join(run_dir, "eval", f) for f in ("density.mrc", "density.ply")]
+        if launches != chunks or not all(os.path.exists(f) for f in files):
+            raise SystemExit(f"--eval_vol ({name}) launched {wrapper.__name__} {launches} times, "
+                             f"not {chunks}, or did not write {files}")
+        vol = io_utils.read_mrc(files[0])
+        net, cfg = run_nerf.build_model(args, torch.device("cuda"))
+        state, _, _ = ckpt_lib.load_checkpoint(ckpt)
+        plain = (MipNeRFNet if name == "mip" else NeRFNet)(dataclasses.replace(cfg, fused_field=False))
+        plain = plain.cuda().eval()
+        plain.load_state_dict(state)
+        net.load_state_dict(state)
+        secs = {}
+        for path, model in (("kernel", net), ("plain", plain)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            v = eval_lib.export_density(model, extents=(args.vol_extents[0],) * 3,
+                                        voxel_size=args.vol_size)
+            torch.cuda.synchronize()
+            secs[path] = time.perf_counter() - t0
+            if path == "plain":
+                want = v
+        top = max(1.0, float(np.abs(want).max()))
+        err = float(np.abs(vol - want).max())
+        phase("eval_vol", field=name, grid=vol.shape, seconds=seconds,
+              launches={wrapper.__name__: launches}, export_kernel_s=secs["kernel"],
+              export_plain_s=secs["plain"], max_sigma=float(want.max()),
+              occupied=int((want > 1e-6).sum()), max_abs_err=err, tol=TOL * top)
+        if not (vol.shape == (side,) * 3 and np.isfinite(vol).all() and err <= TOL * top):
+            raise SystemExit(f"--eval_vol ({name}) volume vs the plain path: max abs err {err} "
+                             f"(tol {TOL * top}), shape {vol.shape}")
+        out[name] = launches
+    return out
+
+
+NOIMP_COUNTS = {"K8d": "field_forward", "K8f": "field_grads", "K8e": "fused_sigma_apply"}
+
+
+def train_noimp_path(fr, ff) -> dict:
+    """[train_noimp]: ``run_nerf.main`` with configs/flower_full.txt's flags
+    and --N_importance 0 (N_rand 1024, 64 samples, noise 1, the semantic
+    head) on the [train] run's 8 views of 378x504, TRAIN_STEPS steps. The
+    field kernels' counts, set to 0 just before: the backward (K8f) once a
+    step, the forward (K8d) once a step and once a ray block of the final
+    eval, no K1-K4; the loss is finite and falls; the last step's K8f call
+    agrees with the plain version on its own inputs."""
+    args = train_args(os.path.join(WORK, "data"), os.path.join(WORK, "logs"), TRAIN_STEPS,
+                      expname="smoke_noimp", extra=("--N_importance", "0"))
+    other = {n: getattr(fr, n).launches for n in (*TRAIN_COUNTS.values(), "train_render")}
+    ff.field_grads.input_grad_launches = 0
+    rec = run_train(fr, args, NOIMP_COUNTS, ["field_grads"], TRAIN_STEPS - 1, mod=ff)
+    launches, losses = rec["launches"], rec["losses"]
+    launches["K8c"] = ff.field_grads.input_grad_launches
+    blocks = -(-H_VIEW * W_VIEW // args.ray_chunk)
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    phase("train_noimp", steps=len(losses), views=f"8x{H_VIEW}x{W_VIEW}",
+          seconds_incl_load_and_eval=rec["seconds"], launches=launches, eval_ray_blocks=blocks,
+          loss_first10=first, loss_last10=last, loss_step1=losses[0], loss_last=losses[-1])
+    if rec["steps"] != list(range(TRAIN_STEPS)):
+        raise SystemExit(f"the --N_importance 0 run ran steps {rec['steps']}")
+    if (launches["K8f"] != TRAIN_STEPS or launches["K8d"] != TRAIN_STEPS + blocks
+            or launches["K8c"] != 0 or launches["K8e"] != 0
+            or any(getattr(fr, n).launches != c for n, c in other.items())):
+        raise SystemExit(f"the --N_importance 0 run did not go through the field kernels as "
+                         f"expected: {launches}")
+    if not (all(math.isfinite(x) for x in losses) and last < first):
+        raise SystemExit(f"the --N_importance 0 loss is not finite or not falling: {losses}")
+    run_dir = os.path.join(WORK, "logs", "smoke_noimp")
+    check_checkpoints(run_dir, ["00000010.ckpt", "00000020.ckpt", "00000030.ckpt", "last.ckpt"])
+    log = check_final_eval(run_dir)
+    phase("train_noimp_eval", psnr=log["total_psnr"], ssim=log["total_ssim"])
+    calls = rec["calls"]["field_grads"]
+    if len(calls) != 1:
+        raise SystemExit(f"captured {len(calls)} K8f calls of step {TRAIN_STEPS - 1}")
+    (field, pts, dirs, g), kw, got = calls[0]
+    close = check_field_grads(ff, f"--N_importance 0 step {TRAIN_STEPS - 1}", got, field, pts,
+                              dirs, g, kw["input_grads"])
+    phase("train_noimp_k8f", step=TRAIN_STEPS - 1, points=pts.shape[0], **close)
+    return launches
+
+
+def sos_noimp_path(fr, ff) -> dict:
+    """[sos_noimp]: ``--patch_tune --fix_backbone --N_importance 0``, 5 steps
+    from the [train_noimp] run's last.ckpt on the [sos] phase's 8 views of
+    384x512 (8 patches of 64x64). The SOS losses read the coarse pass's
+    outputs, which a net with no fine pass has not (the entry point stops
+    on them), so this is the RGB finetune on patches: K8d once a step, K8f
+    once a step (every field counted 0 just before); every term finite, and
+    the trunk bitwise equal to the checkpoint's."""
+    from nerfsos_torch.engines import checkpoint as ckpt_lib
+
+    ckpt = os.path.join(WORK, "logs", "smoke_noimp", "checkpoints", "last.ckpt")
+    start_state, start, _ = ckpt_lib.load_checkpoint(ckpt)
+    args = sos_args(ckpt, start + MODE_STEPS, "smoke_sos_noimp",
+                    drop=("--use_dino", "--use_correlation", "--use_geoCorr"),
+                    extra=("--N_importance", "0"))
+    rec = run_train(fr, args, NOIMP_COUNTS, mod=ff)
+    launches = rec["launches"]
+    state, end, _ = ckpt_lib.load_checkpoint(os.path.join(WORK, "logs", "smoke_sos_noimp",
+                                                          "checkpoints", "last.ckpt"))
+    trunk = [k for k in start_state if "semantic" not in k]
+    moved = [k for k in trunk if not torch.equal(state[k].cpu(), start_state[k].cpu())]
+    phase("sos_noimp", steps=len(rec["steps"]), first_step=rec["steps"][0], end_step=end,
+          seconds_incl_load_and_eval=rec["seconds"], launches=launches,
+          losses=rec["losses"], trunk_leaves=len(trunk), trunk_moved=moved)
+    if rec["steps"] != list(range(start, start + MODE_STEPS)) or end != start + MODE_STEPS:
+        raise SystemExit(f"--N_importance 0 patch finetune ran steps {rec['steps']}, "
+                         f"ended at {end}")
+    if launches["K8f"] != MODE_STEPS or launches["K8d"] < MODE_STEPS:
+        raise SystemExit(f"the patch finetune did not go through the field kernels: {launches}")
+    if not all(math.isfinite(x) for x in rec["losses"]) or moved:
+        raise SystemExit(f"patch finetune: losses {rec['losses']}, trunk leaves moved {moved}")
+    return launches
+
+
+def sigma_noise_path(ff) -> dict:
+    """[sigma_noise]: the 378x504 test view of the [eval] phase through the
+    seeded flagship net's ``forward(..., coarse_outputs=False,
+    raw_noise_std=1.0)`` (64 + 128 samples, the semantic head with
+    coordinates): the density-only coarse pass with noise runs the sigma
+    kernel (K8e) and the fine pass after it the field kernel (K8d), each
+    once a ray block (counts set to 0 just before). The plain net renders
+    the view with the same generator seed (the noise is drawn in torch,
+    outside the kernels); rgb is compared as [render] does. One of the
+    view's sigma calls is then held against its plain version and timed."""
+    from nerfsos_torch import run_nerf
+    from nerfsos_torch.data.datasets import RayDataset
+    from nerfsos_torch.engines import checkpoint as ckpt_lib
+    from nerfsos_torch.models.nerf import NeRFNet
+
+    args = eval_args("--eval")
+    net, cfg = run_nerf.build_model(args, torch.device("cuda"))
+    state, _, _ = ckpt_lib.load_checkpoint(os.path.join(WORK, "seeded.ckpt"))
+    net.load_state_dict(state)
+    plain = NeRFNet(dataclasses.replace(cfg, fused_field=False)).cuda().eval()
+    plain.load_state_dict(state)
+    dataset = RayDataset(args.data_path, split="test")
+    rays = torch.as_tensor(dataset.get_view(0)["rays"], device="cuda")
+    near_far = dataset.near_far()
+    blocks = -(-H_VIEW * W_VIEW // cfg.ray_block)
+    for name in NOIMP_COUNTS.values():
+        getattr(ff, name).launches = 0
+    cap = Capture(ff, ["fused_sigma_apply"])
+    out, secs = {}, {}
+    for path, model in (("kernel", net), ("plain", plain)):
+        cap.on = path == "kernel"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out[path] = model(rays, near_far, train=False, coarse_outputs=False,
+                              raw_noise_std=1.0,
+                              generator=torch.Generator(device="cuda").manual_seed(7))
+        torch.cuda.synchronize()
+        secs[path] = time.perf_counter() - t0
+    cap.close()
+    launches = {k: getattr(ff, n).launches for k, n in NOIMP_COUNTS.items()}
+    d_rgb = (out["kernel"]["rgb"] - out["plain"]["rgb"]).abs().amax(dim=-1)
+    frac = float((d_rgb > 1e-3).float().mean())
+    phase("sigma_noise", view=f"{H_VIEW}x{W_VIEW}", ray_blocks=blocks, launches=launches,
+          kernel_s=secs["kernel"], plain_s=secs["plain"], rgb_max_abs_diff=float(d_rgb.max()),
+          frac_rays_over_1e_3=frac)
+    if launches["K8e"] != blocks or launches["K8d"] != blocks or launches["K8f"] != 0:
+        raise SystemExit(f"the noisy density-only render launched {launches}, not the sigma "
+                         f"and the field kernel once each of {blocks} ray blocks")
+    if not all(torch.isfinite(v).all() for v in out["kernel"].values()) or frac > 1e-3:
+        raise SystemExit(f"{frac:.2%} of rays differ by more than 1e-3 from the plain path")
+    (field, pts), _, got = cap.calls["fused_sigma_apply"][0]
+    with torch.no_grad():
+        want = ff.sigma_plain(field, pts)
+        err = scaled_err(got, want)
+        ms = cuda_ms(lambda: ff.fused_sigma_apply(field, pts))
+        plain_ms = cuda_ms(lambda: ff.sigma_plain(field, pts), reps=3)
+    cost = field_cost(field, pts.shape[0], "sigma")
+    phase("sigma_noise_k8e", points=pts.shape[0], max_err_scaled=err, tol=TOL, ms=ms,
+          plain_ms=plain_ms, **cost)
+    if err > TOL:
+        raise SystemExit(f"the view's sigma call disagrees with its plain version: {err}")
+    return {"launches": launches, "timed": {"max_abs_err": max_err(got, want), "ms": ms,
+                                            "plain_ms": plain_ms, **cost, "library_ms": None}}
+
+
+def noimp_step_timings(ff) -> dict:
+    """[noimp_step]: the --N_importance 0 RGB step (configs/flower_full.txt's
+    flags: 64 samples, noise 1, the semantic head; autograd through the
+    field forward and backward, then Adam) at 1024 and 16384 rays on the
+    kernel path and on the plain path (the field wrappers swapped for their
+    plain versions), in turns, with peak memory; then one kernel-path
+    step's field forward (K8d) and backward (K8f) calls (1024 x 64 points)
+    each timed alone against its plain version and its bound."""
+    from nerfsos_torch import run_nerf
+    from nerfsos_torch.data.datasets import RayDataset
+    from nerfsos_torch.engines import state as state_lib
+    from nerfsos_torch.engines.trainer import make_rgb_train_step
+
+    args = train_args(os.path.join(WORK, "data"), os.path.join(WORK, "logs"), 0,
+                      extra=("--N_importance", "0"))
+    net, _ = run_nerf.build_model(args, torch.device("cuda"))
+    optimizer = state_lib.make_optimizer(net, args.lrate)
+    schedule = state_lib.exp_decay_schedule(args.lrate, args.decay_rate, args.decay_step * 1000)
+    dataset = RayDataset(args.data_path, split="train")
+    step = make_rgb_train_step(net, optimizer, schedule, *dataset.near_far(), args.rgb_w,
+                               args.seed)
+    step_paths("noimp_step", step, dataset, ff,
+               {"field_forward": ff.field_plain, "field_grads": ff.field_grads_plain})
+
+    b = dataset.sample_batch(np.random.default_rng(1024), 1024)
+    batch = {k: torch.as_tensor(b[k], device="cuda") for k in ("rays", "target")}
+    cap = Capture(ff, ["field_forward", "field_grads"])
+    cap.on = True
+    try:
+        step(batch, 0)
+        torch.cuda.synchronize()
+    finally:
+        cap.close()
+    parts = {}
+    for name, wrapper, plain_fn, kind in (("K8d", ff.field_forward, ff.field_plain, "field"),
+                                          ("K8f", ff.field_grads, ff.field_grads_plain, "bwd")):
+        calls = cap.calls[wrapper.__name__]
+        if len(calls) != 1:
+            raise SystemExit(f"a --N_importance 0 step made {len(calls)} {name} calls, not 1")
+        a, kw, got = calls[0]
+        with torch.no_grad():
+            want = plain_fn(*a, **kw)
+            err = (scaled_err(got, want) if name == "K8d"
+                   else max(max_err(got[0][k], want[0][k]) for k in want[0]))
+            parts[name] = {"max_abs_err": err,
+                           "ms": cuda_ms(lambda: wrapper(*a, **kw), reps=5, warmup=1),
+                           "plain_ms": cuda_ms(lambda: plain_fn(*a, **kw), reps=3, warmup=1),
+                           **field_cost(a[0], a[1].shape[0], kind), "library_ms": None}
+        phase("noimp_step_part", part=name, points=a[1].shape[0], **parts[name])
+    return parts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -1801,6 +2317,7 @@ def main() -> int:
 
     from nerfsos_torch import _build
     from nerfsos_torch.ops import flash_corr as fc
+    from nerfsos_torch.ops import fused_field as ff
     from nerfsos_torch.ops import fused_render as fr
 
     shutil.rmtree(WORK, ignore_errors=True)
@@ -1853,12 +2370,24 @@ def main() -> int:
     mip_train_launches = mip_train_path(fr)
     mip_eval_launches = mip_eval_path(fr)
     mip_parts = mip_step_timings(fr)
+    torch.cuda.empty_cache()
+    k8 = kernel_vs_plain_k8(ff)
+    k8_bwd = kernel_vs_plain_k8_bwd(ff)
+    torch.cuda.empty_cache()
+    vol_launches = eval_vol_path(ff)
+    noimp_launches = train_noimp_path(fr, ff)
+    sos_noimp_path(fr, ff)
+    sigma = sigma_noise_path(ff)
+    torch.cuda.empty_cache()
+    noimp_parts = noimp_step_timings(ff)
     sos_launches = sos_run["launches"]
     full_launches, rand_launches = full_run["launches"], rand_run["launches"]
 
     src = "nerfsos_torch/csrc/fused_render.cu"
     train_src = "nerfsos_torch/csrc/train_render.cu"
     corr_src = "nerfsos_torch/csrc/flash_corr.cu"
+    field_src = "nerfsos_torch/csrc/fused_field.cu"
+    field_tpu = "nerfsos_tpu/ops/pallas/fused_field.py"
 
     def main_path_numbers(kernel: str, err: float, timed=parts) -> dict:
         """ms and plain ms of the SOS step's fine call (32768 rays, S=192)."""
@@ -1920,6 +2449,29 @@ def main() -> int:
         {"name": "K10b mip_train_render_grads", "route": "cuda", "source": train_src,
          "replaces": "nerfsos_tpu/ops/pallas/fused_render.py:2097",
          "launches": mip_train_launches["K10b"], **mip_step_numbers("K10b", k10["K10b"])},
+        # the TPU's row-major and channel-major twins are one kernel each here:
+        # K8a/K8e the sigma forward, timed on a [sigma_noise] call (32768 x 64
+        # points); K8b/K8d the field forward, K8b at the export's 2^18-point
+        # chunks ([K8]), K8d at the --N_importance 0 step's 1024 x 64 points;
+        # K8c/K8f the field backward's two modes (K8c at 1024 x 64 points,
+        # [K8_bwd]: no path asks for the points' gradients); K11 the field
+        # forward's integrated-PE mode, at the export's chunks
+        {"name": "K8a fused_sigma_apply", "route": "cuda", "source": field_src,
+         "replaces": f"{field_tpu}:115", "launches": sigma["launches"]["K8e"], **sigma["timed"]},
+        {"name": "K8e fused_sigma_apply (planar twin)", "route": "cuda", "source": field_src,
+         "replaces": f"{field_tpu}:688", "launches": sigma["launches"]["K8e"], **sigma["timed"]},
+        {"name": "K8b field_forward", "route": "cuda", "source": field_src,
+         "replaces": f"{field_tpu}:68", "launches": vol_launches["classic"], **k8["field"]},
+        {"name": "K8d field_forward (planar twin)", "route": "cuda", "source": field_src,
+         "replaces": f"{field_tpu}:638", "launches": noimp_launches["K8d"],
+         **noimp_parts["K8d"]},
+        {"name": "K8c field_grads (input-gradient mode)", "route": "cuda", "source": field_src,
+         "replaces": f"{field_tpu}:346", "launches": noimp_launches["K8c"], **k8_bwd["K8c"]},
+        {"name": "K8f field_grads", "route": "cuda", "source": field_src,
+         "replaces": f"{field_tpu}:818", "launches": noimp_launches["K8f"],
+         **noimp_parts["K8f"]},
+        {"name": "K11 fused_mip_field_apply", "route": "cuda", "source": field_src,
+         "replaces": f"{field_tpu}:1044", "launches": vol_launches["mip"], **k8["mip"]},
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

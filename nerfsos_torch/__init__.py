@@ -8,15 +8,18 @@ the same path:
                 the reference's parameter names (a reference ``.ckpt`` loads by
                 ``load_state_dict``), DINO ViT-S/16 and its extractor.
 - ``ops``     : the hand-written Hopper kernels (sources in ``csrc/``) behind
-                the eval render, the RGB train step and the SOS finetune
-                (``ops/fused_render.py`` K1-K6, ``ops/flash_corr.py`` K7),
-                grid sampling, k-means, SSIM.
+                the eval render, the RGB train step, the SOS finetune,
+                mip-NeRF and the point-wise field queries
+                (``ops/fused_render.py`` K1-K6, K9, K10; ``ops/flash_corr.py``
+                K7; ``ops/fused_field.py`` K8a-K8f, K11), grid sampling,
+                k-means, SSIM.
 - ``losses``  : photometric MSE / PSNR, the appearance and geometry
                 correlation losses, the contrastive loss.
 - ``engines`` : config parsing, checkpoints, Adam and the LR schedule, the
-                RGB and SOS train steps, the eval engine.
+                RGB and SOS train steps, the eval engine and the density
+                export.
 - ``data``    : the numpy ray and patch datasets.
-- ``utils``   : ARI, PNG writer, colormap (numpy only).
+- ``utils``   : ARI, PNG, MRC and PLY writers, colormap (numpy only).
 
 The package imports torch and numpy only; no JAX, and none of sklearn,
 imageio, matplotlib or cv2 on the eval path. CUDA kernels are compiled with

@@ -118,12 +118,13 @@ MAX_PLANES = 10 + MAX_LAYERS
 
 
 class TrainDesc(ctypes.Structure):
-    """Mirror of ``TrainDesc`` in ``csrc/train_render.cu``."""
+    """Mirror of ``TrainDesc`` in ``csrc/train_sweep.cuh``."""
     _fields_ = [("f", MLPDesc), ("bwd", MLPLayer * MAX_LAYERS),
                 ("gw", ctypes.c_longlong * MAX_LAYERS), ("gb", ctypes.c_longlong * MAX_LAYERS),
                 ("grad_size", ctypes.c_longlong),
                 ("plane", ctypes.c_longlong * MAX_PLANES), ("rows", ctypes.c_int * MAX_PLANES),
-                ("ws_size", ctypes.c_longlong), ("rays_per_chunk", ctypes.c_int)]
+                ("ws_size", ctypes.c_longlong), ("rays_per_chunk", ctypes.c_int),
+                ("ibwd", MLPLayer * MAX_LAYERS)]
 
 
 MAX_SEM_BLOCKS = 4
@@ -167,12 +168,18 @@ def library() -> ctypes.CDLL:
                                     vp]
     lib.nerf_mip_train_render_grads.argtypes = [vp, vp, vp, vp, vp, vp, train_p, vp, vp, vp,
                                                 i32, i32, i32, ctypes.c_uint, f32, vp]
+    lib.nerf_field_sigma.argtypes = [vp, vp, train_p, vp, ctypes.c_longlong, vp]
+    lib.nerf_field.argtypes = [vp, vp, vp, train_p, vp, ctypes.c_longlong, vp]
+    lib.nerf_mip_field.argtypes = [vp, vp, vp, vp, train_p, vp, ctypes.c_longlong, vp]
+    lib.nerf_field_grads.argtypes = [vp, vp, vp, vp, vp, vp, train_p, vp, vp, vp, vp, vp, i32,
+                                     i32, vp]
     lib.geo_row_stats.argtypes = [vp, vp, vp, vp, i32, i32, i32, f32, vp]
     lib.geo_means.argtypes = [vp] * 10 + [i32] * 5 + [f32, f32, f32, vp]
     lib.geo_grads.argtypes = [vp] * 13 + [i32] * 5 + [f32, f32, f32, vp]
     for fn in (lib.nerf_coarse_weights, lib.nerf_render, lib.nerf_rgb_train_grads,
                lib.nerf_train_render, lib.nerf_train_render_grads, lib.nerf_frozen_sem_grads,
-               lib.nerf_mip_render, lib.nerf_mip_train_render_grads,
+               lib.nerf_mip_render, lib.nerf_mip_train_render_grads, lib.nerf_field_sigma,
+               lib.nerf_field, lib.nerf_mip_field, lib.nerf_field_grads,
                lib.geo_row_stats, lib.geo_means, lib.geo_grads):
         fn.restype = i32
     lib.nerf_error_string.argtypes = [i32]

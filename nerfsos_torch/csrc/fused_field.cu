@@ -1,0 +1,245 @@
+// Field kernels for Hopper (sm_90a): the radiance field queried point by
+// point with no composite, its density alone, and its backward from a
+// per-point cotangent.
+//
+// Replaces the six kernels of nerfsos_tpu/ops/pallas/fused_field.py and K11,
+// one kernel per role: the TPU's row-major and channel-major twins differ in
+// their IO layout alone, and here the IO is the plain NeRFField's, [N, 3]
+// in and [N, C] out.
+//   sigma forward   K8a _sigma_forward -> _sigma_kernel and K8e
+//                   _sigma_forward_pl -> _sigma_kernel_pl: PE(pts), the
+//                   trunk (skip after layer 4), the alpha head;
+//                   pts [N, 3] -> sigma [N];
+//   field forward   K8b _fused_forward -> _field_kernel and K8d
+//                   _fused_forward_pl -> _field_kernel_pl: PE(pts) and
+//                   PE(dirs), the trunk, alpha, feature, views, rgb and the
+//                   2-layer semantic head; pts, dirs [N, 3] -> raw
+//                   [N, 4 + sem] (rgb logits, sigma, semantics); and K11
+//                   fused_mip_apply_planar (_field_kernel_pl with ipe): the
+//                   same on the integrated PE of diagonal Gaussians (mean,
+//                   cov [N, 3]) -> raw [N, 4], no semantic head;
+//   field backward  K8c _fused_backward -> _field_bwd_kernel and K8f
+//                   _fused_backward_pl -> _field_bwd_kernel_pl: dW/db of
+//                   every layer from a cotangent g [N, 4 + sem] of the raw
+//                   outputs; in its input-gradient mode (K8c) also dpts and
+//                   ddirs [N, 3].
+//
+// What bounds them on the H100: arithmetic. A flagship point (8 x 256
+// trunk, multires 10/4, the semantic head with coordinates) costs ~1.27
+// MFLOP forward (~0.98 for the density alone) and ~3.7 MFLOP backward in
+// the 3xTF32 products; a point moves 24 bytes in and 4 to 24 out (plus its
+// cotangent for the backward), three orders of magnitude below that.
+//
+// The design is the train kernels' (train_sweep.cuh), not a new one:
+//   * the forwards walk 64-point tiles, one CTA of 512 threads a tile at a
+//     time (a grid-stride loop): forward_tile writes the tile's points into
+//     shared memory, forms their PE (the integrated PE of the Gaussians for
+//     K11, ipe_rows, as K9 does) and runs the trunk and the heads on 3xTF32
+//     tensor-core layers; dense_small writes each point's outputs straight
+//     to global memory, masked at N, so a ragged last tile needs no
+//     padding. The sigma forward stops after the alpha head;
+//   * the backward is K6's: per wave of 512-point chunks, one a CTA, a
+//     forward kernel recomputes the chunk, storing every activation in the
+//     CTA's workspace slice, and copies g into the planes K6's composite
+//     fills (rgb logits, sigma, semantics; zero in the padding rows and
+//     past N); K6's reverse sweep (train_reverse_kernel) follows, and a
+//     last kernel sums the CTAs' partial dW/db in CTA order, so two calls
+//     give bitwise-equal gradients. The input-gradient mode gathers the
+//     cotangent of the point PE from every layer that reads it and that of
+//     the view PE from the views layer, and runs both back through the PE
+//     (pe_grads), as fused_field.py:454-465 does.
+// Precision: the PE phases reach |x| 2^9 rad (7.2e3 at the x14 grid of the
+// density export) and are formed with explicit round-to-nearest operations
+// in the plain version's order, as are the IPE's; accurate sinf/cosf/expf,
+// no fast-math, fp32 throughout.
+
+#include "train_sweep.cuh"
+
+namespace {
+
+// forward_tile's inputs for points: point q of the chunk is row base + q of
+// pts [N, 3] (kGauss: of the Gaussians' means pts and variances cov
+// [N, 3]), seen from row base + q of dirs [N, 3] (null: not read, as by the
+// sigma forward).
+template <bool kGauss>
+struct PointFill {
+  const float* pts;
+  const float* cov;
+  const float* dirs;
+  long long base;
+  int nq;
+
+  __device__ __forceinline__ void operator()(float* emb, float* demb, float* g, int q0) const {
+    for (int t = threadIdx.x; t < 3 * kPts; t += kThreads) {
+      const int ch = t / kPts, p = t % kPts, q = q0 + p;
+      const bool live = q < nq;
+      const size_t i = (size_t)(base + (live ? q : 0)) * 3 + ch;
+      if (kGauss) {
+        g[ch * kLd + p] = live ? pts[i] : 0.f;
+        g[(3 + ch) * kLd + p] = live ? cov[i] : 0.f;
+      } else {
+        emb[ch * kLd + p] = live ? pts[i] : 0.f;
+      }
+      if (dirs != nullptr) demb[ch * kLd + p] = live ? dirs[i] : 0.f;
+    }
+  }
+};
+
+// The sigma forward (kHeads = false), the field forward and K11 (kGauss):
+// the CTAs walk the 64-point tiles of N points; point q's outputs go to
+// out[q * oc.cs + ...].
+template <bool kHeads, bool kGauss>
+__global__ void __launch_bounds__(kThreads, 1)
+    field_kernel(const float* __restrict__ pts, const float* __restrict__ cov,
+                 const float* __restrict__ dirs, const float* __restrict__ params,
+                 const __grid_constant__ TrainDesc d, float* __restrict__ out, OutCols oc,
+                 long long N) {
+  extern __shared__ float4 smem4[];
+  float* tile = reinterpret_cast<float*>(smem4);
+  zero_pad_rows(tile, d.f);  // the fill's __syncthreads orders these writes before any read
+  const long long ntiles = (N + kPts - 1) / kPts;
+  for (long long t = blockIdx.x; t < ntiles; t += gridDim.x) {
+    const long long base = t * kPts;
+    const int nq = (int)min((long long)kPts, N - base);
+    forward_tile<false, false, kGauss, kHeads>(PointFill<kGauss>{pts, cov, dirs, base, nq},
+                                               params, d, nullptr, out + base * oc.cs, oc, tile,
+                                               nq, 0, nullptr, 0);
+  }
+}
+
+template <bool kHeads, bool kGauss>
+int field_launch(const float* pts, const float* cov, const float* dirs, const float* params,
+                 const TrainDesc* d, float* out, OutCols oc, long long N, cudaStream_t st) {
+  const int smem = tile_smem(d->f);
+  cudaError_t err = cudaFuncSetAttribute(field_kernel<kHeads, kGauss>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long ntiles = (N + kPts - 1) / kPts;
+  const int grid = (int)(ntiles < (1 << 20) ? ntiles : (1 << 20));
+  field_kernel<kHeads, kGauss><<<grid, kThreads, smem, st>>>(pts, cov, dirs, params, *d, out, oc,
+                                                             N);
+  return (int)cudaGetLastError();
+}
+
+// Wave `wave` of the field backward's forward: CTA b takes chunk
+// wave * gridDim.x + b (d.rays_per_chunk points) into its workspace slice b:
+// every activation the reverse sweep reads (kSem: the semantic head's
+// hidden activation too), then the cotangent of each output from
+// g [N, 4 + sem] into the planes that K6's composite fills (rgb logits,
+// sigma, semantics), zero in their padding rows and past N. kInGrad: the
+// plane the sweep gathers the point PE's cotangent in is zeroed.
+template <bool kSem, bool kInGrad>
+__global__ void __launch_bounds__(kThreads, 1)
+    field_bwd_forward_kernel(const float* __restrict__ pts, const float* __restrict__ dirs,
+                             const float* __restrict__ g, const float* __restrict__ params,
+                             const __grid_constant__ TrainDesc d, float* __restrict__ workspace,
+                             int N, int wave) {
+  extern __shared__ float4 smem4[];
+  const int rpc = d.rays_per_chunk;
+  const int c = wave * gridDim.x + blockIdx.x;
+  if (c * rpc >= N) return;
+  float* tile = reinterpret_cast<float*>(smem4);
+  float* ws = workspace + (size_t)blockIdx.x * d.ws_size;
+  zero_pad_rows(tile, d.f);
+  const long long base = (long long)c * rpc;
+  const int nq = min(rpc, N - c * rpc), nsub = (nq + kPts - 1) / kPts;
+  for (int sub = 0; sub < nsub; ++sub)
+    forward_tile<true, kSem, false, true>(PointFill<false>{pts, nullptr, dirs, base, nq}, params,
+                                          d, ws, nullptr, OutCols{0, 0, 0, 0}, tile, nq, sub,
+                                          nullptr, 0);
+  const int sem = d.f.sem_dim, C = 4 + sem;
+  const int p_dsem = P_ACT0 + d.f.depth + 1, p_gemb = P_ACT0 + d.f.depth + 3;
+  for (int e = threadIdx.x; e < nsub * 8 * kPts; e += kThreads) {
+    const int sub = e / (8 * kPts), r = e / kPts % 8, p = e % kPts, q = sub * kPts + p;
+    const bool live = q < nq;
+    const float* gq = g + (size_t)(base + (live ? q : 0)) * C;
+    plane(ws, d, P_DRGB, sub)[r * kLd + p] = live && r < 3 ? gq[r] : 0.f;
+    plane(ws, d, P_DSIG, sub)[r * kLd + p] = live && r == 0 ? gq[3] : 0.f;
+    if (kSem) plane(ws, d, p_dsem, sub)[r * kLd + p] = live && r < sem ? gq[4 + r] : 0.f;
+  }
+  if (kInGrad) {  // the chunk's tiles of a plane are contiguous
+    float* gemb = plane(ws, d, p_gemb, 0);
+    for (int e = threadIdx.x; e < nsub * d.rows[p_gemb] * kLd; e += kThreads) gemb[e] = 0.f;
+  }
+}
+
+// grid CTAs (each with a d->ws_size workspace slice and a d->grad_size
+// partial gradient buffer) take the chunks of points in waves of grid: per
+// wave the forward kernel, then the reverse sweep; then the partials are
+// summed into grads [d->grad_size]. Returns the first CUDA error.
+template <bool kSem, bool kInGrad>
+int field_grads_launch(const float* pts, const float* dirs, const float* g, const float* params,
+                       const float* bparams, const float* iparams, const TrainDesc* d,
+                       float* partial, float* workspace, float* grads, float* dpts, float* ddirs,
+                       int N, int grid, cudaStream_t st) {
+  const int fwd_smem = tile_smem(d->f);
+  const int stage_smem = (int)(kStagingFloats * sizeof(float));
+  cudaError_t err = cudaFuncSetAttribute(field_bwd_forward_kernel<kSem, kInGrad>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, fwd_smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(train_reverse_kernel<kSem, kInGrad>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, stage_smem);
+  if (err != cudaSuccess) return (int)err;
+  const int nchunks = (N + d->rays_per_chunk - 1) / d->rays_per_chunk;
+  for (int wave = 0; wave * grid < nchunks; ++wave) {
+    field_bwd_forward_kernel<kSem, kInGrad><<<grid, kThreads, fwd_smem, st>>>(
+        pts, dirs, g, params, *d, workspace, N, wave);
+    train_reverse_kernel<kSem, kInGrad><<<grid, kThreads, stage_smem, st>>>(
+        bparams, iparams, *d, partial, workspace, N, 1, wave, dpts, ddirs);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  reduce_partials<<<reduce_blocks(d->grad_size), 256, 0, st>>>(partial, grads, d->grad_size, grid);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// K8a/K8e: sigma [N] of pts [N, 3]; one launch.
+extern "C" int nerf_field_sigma(const float* pts, const float* params, const TrainDesc* d,
+                                float* sigma, long long N, void* stream) {
+  return field_launch<false, false>(pts, nullptr, nullptr, params, d, sigma, OutCols{1, 0, 0, 0},
+                                    N, (cudaStream_t)stream);
+}
+
+// K8b/K8d: raw [N, 4 + sem] (rgb logits, sigma, semantics) of pts and
+// dirs [N, 3]; one launch.
+extern "C" int nerf_field(const float* pts, const float* dirs, const float* params,
+                          const TrainDesc* d, float* raw, long long N, void* stream) {
+  return field_launch<true, false>(pts, nullptr, dirs, params, d, raw,
+                                   OutCols{4 + d->f.sem_dim, 3, 0, 4}, N, (cudaStream_t)stream);
+}
+
+// K11: raw [N, 4] of the mip field at the Gaussians (mean, diagonal cov
+// [N, 3]) seen from dirs [N, 3]; one launch.
+extern "C" int nerf_mip_field(const float* mean, const float* cov, const float* dirs,
+                              const float* params, const TrainDesc* d, float* raw, long long N,
+                              void* stream) {
+  return field_launch<true, true>(mean, cov, dirs, params, d, raw, OutCols{4, 3, 0, 4}, N,
+                                  (cudaStream_t)stream);
+}
+
+// K8f (dpts null) and K8c: the field's dW/db from g [N, 4 + sem] into grads
+// [d->grad_size] (K6's layout), and with dpts (then also ddirs, iparams and
+// d->ibwd) the points' and directions' gradients [N, 3]; see
+// field_grads_launch.
+extern "C" int nerf_field_grads(const float* pts, const float* dirs, const float* g,
+                                const float* params, const float* bparams, const float* iparams,
+                                const TrainDesc* d, float* partial, float* workspace,
+                                float* grads, float* dpts, float* ddirs, int N, int grid,
+                                void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  const bool sem = d->f.sem_dim > 0;
+  if (dpts != nullptr) {
+    if (sem)
+      return field_grads_launch<true, true>(pts, dirs, g, params, bparams, iparams, d, partial,
+                                            workspace, grads, dpts, ddirs, N, grid, st);
+    return field_grads_launch<false, true>(pts, dirs, g, params, bparams, iparams, d, partial,
+                                           workspace, grads, dpts, ddirs, N, grid, st);
+  }
+  if (sem)
+    return field_grads_launch<true, false>(pts, dirs, g, params, bparams, nullptr, d, partial,
+                                           workspace, grads, nullptr, nullptr, N, grid, st);
+  return field_grads_launch<false, false>(pts, dirs, g, params, bparams, nullptr, d, partial,
+                                          workspace, grads, nullptr, nullptr, N, grid, st);
+}

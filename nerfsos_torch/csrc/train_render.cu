@@ -129,39 +129,11 @@
 // point forward, ~3x that for K10b); the Gaussian and the 60 sin/exp of a
 // point are ~1% of it.
 
-#include "tile_mlp.cuh"
-
-constexpr int kMaxPlanes = 10 + kMaxLayers;
-
-// Host-visible: the C entry point takes a TrainDesc*.
-struct TrainDesc {
-  MLPDesc f;                    // the forward layers (ops/fused_render.pack_field)
-  LayerDesc bwd[kMaxLayers];    // dX matrices in bparams, by forward layer index:
-                                //   trunk i >= 1: W_i restricted to its h input,
-                                //   depth (alpha's slot): [W_feature; W_alpha] on h,
-                                //   depth + 2: W_views on the feature input, depth + 3: W_rgb
-  long long gw[kMaxLayers];     // offset of dW [k][pad8(n)] in a gradient buffer
-  long long gb[kMaxLayers];     // offset of db [pad8(n)]
-  long long grad_size;          // floats of one gradient buffer
-  long long plane[kMaxPlanes];  // offset of each workspace plane in a CTA's slice
-  int rows[kMaxPlanes];         // padded rows of each plane (one [rows][kLd] tile per 64 points)
-  long long ws_size;            // floats of a CTA's workspace slice
-  int rays_per_chunk;
-};
+// The forward tile, the reverse sweep and the reduction live in
+// train_sweep.cuh, which the field kernels (fused_field.cu) share.
+#include "train_sweep.cuh"
 
 namespace {
-
-// workspace planes
-enum Plane { P_EMB, P_DEMB, P_FEAT, P_HV, P_DRGB, P_DSIG, P_DPV, P_DFEAT, P_DA, P_DB, P_ACT0 };
-
-__device__ __forceinline__ float* plane(float* ws, const TrainDesc& d, int p, int sub) {
-  return ws + d.plane[p] + (size_t)sub * d.rows[p] * kLd;
-}
-
-__device__ __noinline__ void dense_call(const float* __restrict__ params, const LayerDesc L,
-                                        Seg s0, Seg s1, Seg s2, float* out, bool relu) {
-  dense(params, L, s0, s1, s2, out, relu);
-}
 
 __device__ __forceinline__ uint32_t mix32(uint32_t x) {
   x ^= x >> 16;
@@ -183,353 +155,44 @@ __device__ __forceinline__ float hash_noise(uint32_t seed, uint32_t idx, float s
   return (std * r) * cosf(6.28318530717958f * u2);
 }
 
-// One input of a weight-gradient product: up to two planes, in row order.
-struct XSegs {
-  int p[3];
-  int n;
+// forward_tile's inputs for a chunk of rays (rays r0.., S samples a ray, nq
+// points): point q is sample q % S of ray r0 + q / S, at o + d z (kMip: the
+// cone-frustum Gaussian of the interval (z[s], z[s + 1]) of its ray,
+// frustum_gauss), seen from the ray's viewdir.
+template <bool kMip>
+struct RayFill {
+  const float* rays;  // odv [R, 9] (kMip: odvr [R, 10])
+  const float* zc;    // the chunk's z [nr][S] (kMip: fenceposts [nr][S + 1])
+  int r0, S, nq;
+
+  __device__ __forceinline__ void operator()(float* emb, float* demb, float* g, int q0) const {
+    for (int t = threadIdx.x; t < 3 * kPts; t += kThreads) {
+      const int ch = t / kPts, p = t % kPts, q = q0 + p;
+      if (kMip) {
+        float m = 0.f, cv = 0.f, v = 0.f;
+        if (q < nq) {
+          const int r = q / S, s = q % S;
+          const float* ray = rays + (size_t)(r0 + r) * 10;
+          const float* zr = zc + (size_t)r * (S + 1);
+          frustum_gauss(ray, zr[s], zr[s + 1], ch, m, cv);
+          v = ray[6 + ch];
+        }
+        g[ch * kLd + p] = m;
+        g[(3 + ch) * kLd + p] = cv;
+        demb[ch * kLd + p] = v;
+      } else {
+        float x = 0.f, v = 0.f;
+        if (q < nq) {
+          const float* ray = rays + (size_t)(r0 + q / S) * 9;
+          x = __fadd_rn(ray[ch], __fmul_rn(ray[3 + ch], zc[q]));
+          v = ray[6 + ch];
+        }
+        emb[ch * kLd + p] = x;
+        demb[ch * kLd + p] = v;
+      }
+    }
+  }
 };
-
-constexpr int kWgM = 128, kWgN = 128;  // dW macro tile: 4 x 4 warps of 32 x 32
-constexpr int kLdS = 68;               // staged row stride (floats), = 4 mod 32
-constexpr int kStageFloats = (kWgM + kWgN) * kLdS;
-constexpr int kBwdRows = 256 + 8;      // the most dY rows an input-gradient product reads
-constexpr int kBwdStageFloats = kBwdRows * kLd;
-// shared memory after the composite strip: two dW stages or two dX stages
-constexpr int kStagingFloats =
-    2 * (kStageFloats > kBwdStageFloats ? kStageFloats : kBwdStageFloats);
-
-__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
-
-// Copy one 64-point tile of X rows [m0, m0 + 128) and dY rows [n0, n0 + 128)
-// into a stage ([256][kLdS]: X rows, then dY rows; rows past kpad / ldn are
-// zero), as one cp.async group.
-__device__ void stage_tiles(float* stage, float* ws, const TrainDesc& d, XSegs X, int kpad,
-                            int dy, int ldn, int m0, int n0, int sub) {
-  for (int c = threadIdx.x; c < (kWgM + kWgN) * (kPts / 4); c += kThreads) {
-    const int r = c / (kPts / 4), q = (c % (kPts / 4)) * 4;
-    float* dst = stage + r * kLdS + q;
-    const float* src = nullptr;
-    if (r < kWgM) {
-      int m = m0 + r;
-      if (m < kpad) {
-        for (int s = 0; s < X.n; ++s) {
-          const int rows = d.rows[X.p[s]];
-          if (m < rows) {
-            src = ws + d.plane[X.p[s]] + ((size_t)sub * rows + m) * kLd + q;
-            break;
-          }
-          m -= rows;
-        }
-      }
-    } else if (n0 + r - kWgM < ldn) {
-      src = ws + d.plane[dy] + ((size_t)sub * d.rows[dy] + n0 + r - kWgM) * kLd + q;
-    }
-    if (src) {
-      cp_async16(dst, src);
-    } else {
-      *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-  }
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// out(sub) = W dY(sub) for every 64-point tile of the chunk, gated by the
-// relu derivative of gate(sub) when gate >= 0: the input-gradient product
-// of one layer. dY is up to two planes of rows (k0 then k1); each tile of
-// them is copied into shared memory with cp.async (the next tile in flight
-// while this one is multiplied) and dense() reads it from there. kAccum:
-// the product is added to what out holds (before the gate).
-template <bool kAccum = false>
-__device__ __noinline__ void bwd_layer(const float* __restrict__ bparams, const LayerDesc L,
-                                       float* ws, const TrainDesc& d, int p0, int p1, int out,
-                                       int gate, int nsub, float* stages) {
-  const int k0 = d.rows[p0], k1 = p1 >= 0 ? d.rows[p1] : 0;
-  auto stage = [&](int sub) {
-    float* dst = stages + (sub & 1) * kBwdStageFloats;
-    for (int c = threadIdx.x; c < (k0 + k1) * (kPts / 4); c += kThreads) {
-      const int r = c / (kPts / 4), q = (c % (kPts / 4)) * 4;
-      const float* src = r < k0 ? plane(ws, d, p0, sub) + r * kLd + q
-                                : plane(ws, d, p1, sub) + (r - k0) * kLd + q;
-      cp_async16(dst + r * kLd + q, src);
-    }
-    asm volatile("cp.async.commit_group;\n" ::);
-  };
-  stage(0);
-  for (int sub = 0; sub < nsub; ++sub) {
-    if (sub + 1 < nsub) {
-      stage(sub + 1);
-      asm volatile("cp.async.wait_group 1;\n" ::);
-    } else {
-      asm volatile("cp.async.wait_group 0;\n" ::);
-    }
-    __syncthreads();
-    const float* a = stages + (sub & 1) * kBwdStageFloats;
-    const Seg s1 = k1 ? Seg{a + k0 * kLd, k1} : none();
-    if (gate >= 0) {
-      dense<true, kAccum>(bparams, L, Seg{a, k0}, s1, none(), plane(ws, d, out, sub), false,
-                          plane(ws, d, gate, sub));
-    } else {
-      dense<false, kAccum>(bparams, L, Seg{a, k0}, s1, none(), plane(ws, d, out, sub), false);
-    }
-    __syncthreads();
-  }
-}
-
-// dW[m][n] += sum over the chunk's points of X[m][p] * dY[n][p] and
-// db[n] += sum_p dY[n][p], for m < sum of the segments' rows and n < ldn.
-// The CTA walks 128 x 128 macro tiles of dW; for each it streams the chunk's
-// 64-point tiles of the X and dY rows it needs through two shared-memory
-// stages (cp.async, the next tile in flight while this one is multiplied),
-// and warp (wm, wn) accumulates its 32 x 32 block with m16n8k8 3xTF32 mma
-// (A = X rows, B = dY rows, k = points), then adds it into the CTA's
-// partial dW in global memory.
-__device__ __noinline__ void wgrad(float* ws, const TrainDesc& d, XSegs X, int dy, int ldn,
-                                   float* __restrict__ dW, float* __restrict__ db, int nsub,
-                                   float* stages) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = warp & 3, wn = warp >> 2;
-  int kpad = 0;
-  for (int s = 0; s < X.n; ++s) kpad += d.rows[X.p[s]];
-  for (int m0 = 0; m0 < kpad; m0 += kWgM) {
-    for (int n0 = 0; n0 < ldn; n0 += kWgN) {
-      float acc[2][4][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[mt][j][i] = 0.f;
-      float dbacc = 0.f;
-      const bool warp_live = m0 + wm * 32 < kpad && n0 + wn * 32 < ldn;
-      stage_tiles(stages, ws, d, X, kpad, dy, ldn, m0, n0, 0);
-      for (int sub = 0; sub < nsub; ++sub) {
-        if (sub + 1 < nsub) {
-          stage_tiles(stages + ((sub + 1) & 1) * kStageFloats, ws, d, X, kpad, dy, ldn, m0, n0,
-                      sub + 1);
-          asm volatile("cp.async.wait_group 1;\n" ::);
-        } else {
-          asm volatile("cp.async.wait_group 0;\n" ::);
-        }
-        __syncthreads();
-        const float* xs = stages + (sub & 1) * kStageFloats;
-        const float* ys = xs + kWgM * kLdS;
-        if (warp_live) {
-          const float* xa = xs + (wm * 32 + g) * kLdS + t;
-          const float* yb = ys + (wn * 32 + g) * kLdS + t;
-#pragma unroll 2
-          for (int kk = 0; kk < kPts; kk += 8) {
-            uint32_t ahi[2][4], alo[2][4];
-#pragma unroll
-            for (int mt = 0; mt < 2; ++mt) {
-              // a0 (row g, k t), a1 (row g + 8, k t), a2 (row g, k t + 4), a3 (g + 8, t + 4)
-              const float* p = xa + mt * 16 * kLdS + kk;
-              split(p[0], ahi[mt][0], alo[mt][0]);
-              split(p[8 * kLdS], ahi[mt][1], alo[mt][1]);
-              split(p[4], ahi[mt][2], alo[mt][2]);
-              split(p[8 * kLdS + 4], ahi[mt][3], alo[mt][3]);
-            }
-uint32_t bh[4][2], bl[4][2];
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              const float* p = yb + j * 8 * kLdS + kk;
-              split(p[0], bh[j][0], bl[j][0]);
-              split(p[4], bh[j][1], bl[j][1]);
-            }
-#pragma unroll
-            for (int j = 0; j < 4; ++j)
-#pragma unroll
-              for (int mt = 0; mt < 2; ++mt) mma_tf32(acc[mt][j], alo[mt], bh[j][0], bh[j][1]);
-#pragma unroll
-            for (int j = 0; j < 4; ++j)
-#pragma unroll
-              for (int mt = 0; mt < 2; ++mt) mma_tf32(acc[mt][j], ahi[mt], bl[j][0], bl[j][1]);
-#pragma unroll
-            for (int j = 0; j < 4; ++j)
-#pragma unroll
-              for (int mt = 0; mt < 2; ++mt) mma_tf32(acc[mt][j], ahi[mt], bh[j][0], bh[j][1]);
-          }
-        }
-        if (m0 == 0 && threadIdx.x < kWgN) {
-          const float* row = ys + threadIdx.x * kLdS;
-          for (int p = 0; p < kPts; ++p) dbacc += row[p];
-        }
-        __syncthreads();
-      }
-      if (m0 == 0 && threadIdx.x < kWgN && n0 + (int)threadIdx.x < ldn)
-        db[n0 + threadIdx.x] += dbacc;
-      if (!warp_live) continue;
-      // add into the partial dW: every load first, then every store, so the
-      // 32 round trips to memory overlap instead of following one another
-      float old[2][4][4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int n = n0 + wn * 32 + 8 * j + 2 * t;
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          const int m = m0 + wm * 32 + 16 * mt + g;
-          const bool lo = n < ldn && m < kpad, hi = n < ldn && m + 8 < kpad;
-          old[mt][j][0] = lo ? dW[(size_t)m * ldn + n] : 0.f;
-          old[mt][j][1] = lo ? dW[(size_t)m * ldn + n + 1] : 0.f;
-          old[mt][j][2] = hi ? dW[(size_t)(m + 8) * ldn + n] : 0.f;
-          old[mt][j][3] = hi ? dW[(size_t)(m + 8) * ldn + n + 1] : 0.f;
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int n = n0 + wn * 32 + 8 * j + 2 * t;
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          const int m = m0 + wm * 32 + 16 * mt + g;
-          if (n < ldn && m < kpad) {
-            dW[(size_t)m * ldn + n] = old[mt][j][0] + acc[mt][j][0];
-            dW[(size_t)m * ldn + n + 1] = old[mt][j][1] + acc[mt][j][1];
-          }
-          if (n < ldn && m + 8 < kpad) {
-            dW[(size_t)(m + 8) * ldn + n] = old[mt][j][2] + acc[mt][j][2];
-            dW[(size_t)(m + 8) * ldn + n + 1] = old[mt][j][3] + acc[mt][j][3];
-          }
-        }
-      }
-    }
-  }
-}
-
-// Copy a [rows][kLd] tile (64 points a row) from shared memory to the workspace.
-__device__ __forceinline__ void store_tile(const float* src, float* dst, int rows) {
-  for (int c = threadIdx.x; c < rows * (kPts / 4); c += kThreads) {
-    const int r = c / (kPts / 4), q = (c % (kPts / 4)) * 4;
-    *reinterpret_cast<float4*>(dst + r * kLd + q) =
-        *reinterpret_cast<const float4*>(src + r * kLd + q);
-  }
-}
-
-// Forward of one 64-point tile of the chunk (rays r0.., nq points), as the
-// render kernel K2 computes it: the points, their PE, the trunk and the
-// heads on activations in shared memory (emb, demb and two layer buffers at
-// `tile`); sigma / rgb logits / semantics go to the strip. kStore (K3, K6):
-// every activation the reverse sweep reads is also stored to the workspace;
-// kSemAct (K6): the semantic head's hidden activation too (plane
-// P_ACT0 + depth). semin (K4, may be null): the semantic head's input
-// [h; emb] of each point is written as a row of semin [R * S][C] (C its
-// unpadded width). kMip (K9, K10a, K10b): odv is odvr [R, 10] and zc the
-// chunk's fenceposts [nr][S + 1]; each point is the interval (t0, t1) of
-// its ray, whose cone-frustum Gaussian (frustum_gauss) goes through the
-// integrated PE (ipe_rows) in place of the point's PE.
-template <bool kStore, bool kSemAct = false, bool kMip = false>
-__device__ __forceinline__ void forward_tile(const float* __restrict__ odv, const float* zc,
-                                             const float* __restrict__ params,
-                                             const TrainDesc& d, float* ws, float* strip,
-                                             float* tile, int r0, int nq, int S, int sub,
-                                             float* __restrict__ semin) {
-  const MLPDesc& f = d.f;
-  const int depth = f.depth, E = f.emb_dim, Ep = pad8(E), Ed = f.demb_dim, Edp = pad8(Ed);
-  const int sem = f.sem_dim, cs = 6 + sem;
-  const LayerDesc* head = f.layer + depth;  // alpha, feature, views, rgb, sem_0, sem_1
-  const int q0 = sub * kPts;
-  float* emb = tile;
-  float* demb = emb + Ep * kLd;
-  float* hA = demb + Edp * kLd;
-  float* hB = hA + f.hrows * kLd;
-  if (kMip) {
-    // the Gaussians' means and variances in rows 0-5 of hA (layer 0
-    // overwrites them), the viewdirs in rows 0-2 of demb
-    for (int t = threadIdx.x; t < 3 * kPts; t += kThreads) {
-      const int ch = t / kPts, p = t % kPts, q = q0 + p;
-      float m = 0.f, cv = 0.f, v = 0.f;
-      if (q < nq) {
-        const int r = q / S, s = q % S;
-        const float* ray = odv + (size_t)(r0 + r) * 10;
-        const float* zr = zc + (size_t)r * (S + 1);
-        frustum_gauss(ray, zr[s], zr[s + 1], ch, m, cv);
-        v = ray[6 + ch];
-      }
-      hA[ch * kLd + p] = m;
-      hA[(3 + ch) * kLd + p] = cv;
-      demb[ch * kLd + p] = v;
-    }
-    __syncthreads();
-    ipe_rows(emb, hA, E);
-  } else {
-    for (int t = threadIdx.x; t < 3 * kPts; t += kThreads) {
-      const int ch = t / kPts, p = t % kPts, q = q0 + p;
-      float x = 0.f, v = 0.f;
-      if (q < nq) {
-        const float* ray = odv + (size_t)(r0 + q / S) * 9;
-        x = __fadd_rn(ray[ch], __fmul_rn(ray[3 + ch], zc[q]));
-        v = ray[6 + ch];
-      }
-      emb[ch * kLd + p] = x;
-      demb[ch * kLd + p] = v;
-    }
-    __syncthreads();
-    pe_rows(emb, E);
-  }
-  pe_rows(demb, Ed);
-  __syncthreads();
-  if (kStore) {
-    store_tile(emb, plane(ws, d, P_EMB, sub), Ep);
-    store_tile(demb, plane(ws, d, P_DEMB, sub), Edp);
-  }
-
-  // trunk: layer i reads `in0, in1` and writes the buffer not holding h
-  Seg in0{emb, Ep}, in1 = none();
-  float* cur = hB;
-  for (int i = 0; i < depth; ++i) {
-    float* nxt = (cur == hA) ? hB : hA;
-    dense_call(params, f.layer[i], in0, in1, none(), nxt, true);
-    __syncthreads();
-    if (kStore) store_tile(nxt, plane(ws, d, P_ACT0 + i, sub), pad8(f.layer[i].n));
-    cur = nxt;
-    if (i == f.skip) {
-      in0 = Seg{emb, Ep};
-      in1 = Seg{cur, pad8(f.layer[i].n)};
-    } else {
-      in0 = Seg{cur, pad8(f.layer[i].n)};
-      in1 = none();
-    }
-  }
-  float* spare = (cur == hA) ? hB : hA;
-  if (semin != nullptr) {
-    // the rows of in0 and in1 (h, or [emb, h] when the skip follows the last
-    // layer) and of emb, unpadded: one contiguous [np][C] block of semin.
-    // The sem head's __syncthreads below orders these reads before the
-    // views layer overwrites h.
-    const int hn = f.layer[depth - 1].n;
-    const int k0 = (in1.k > 0) ? E : hn, k1 = (in1.k > 0) ? hn : 0;
-    const int C = k0 + k1 + (f.sem_with_coord ? E : 0);
-    const int np = min(kPts, nq - q0);
-    float* dst = semin + ((size_t)r0 * S + q0) * C;
-    for (int e = threadIdx.x; e < np * C; e += kThreads) {
-      const int p = e / C, col = e % C;
-      dst[e] = col < k0 ? in0.a[col * kLd + p]
-             : col < k0 + k1 ? in1.a[(col - k0) * kLd + p]
-                             : emb[(col - k0 - k1) * kLd + p];
-    }
-  }
-  dense_small(params, head[0], in0, in1, none(), strip, q0, nq, cs, 0);  // sigma
-  if (sem) {
-    const Seg coord = f.sem_with_coord ? Seg{emb, Ep} : none();
-    dense_call(params, head[4], in0, in1, coord, spare, true);
-    __syncthreads();
-    if (kSemAct) store_tile(spare, plane(ws, d, P_ACT0 + depth, sub), pad8(head[4].n));
-    dense_small(params, head[5], Seg{spare, pad8(head[4].n)}, none(), none(), strip, q0, nq, cs,
-                5);
-    __syncthreads();
-  }
-  dense_call(params, head[1], in0, in1, none(), spare, false);  // feature
-  __syncthreads();
-  if (kStore) store_tile(spare, plane(ws, d, P_FEAT, sub), pad8(head[1].n));
-  dense_call(params, head[2], Seg{spare, pad8(head[1].n)}, Seg{demb, Edp}, none(), cur,
-             true);  // views (h is no longer needed)
-  __syncthreads();
-  if (kStore) store_tile(cur, plane(ws, d, P_HV, sub), pad8(head[2].n));
-  dense_small(params, head[3], Seg{cur, pad8(head[2].n)}, none(), none(), strip, q0, nq, cs, 2);
-  __syncthreads();
-}
 
 // What the composite does after the maps: kForward (K4) nothing; kLoss
 // (K3) the img2mse cotangent from gt and its reverse; kCotangent (K6) the
@@ -676,10 +339,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   float* strip = reinterpret_cast<float*>(smem4);
   float* tile = strip + ((rpc * S * (6 + d.f.sem_dim) + 3) & ~3);  // emb, demb, hA, hB
   float* ws = workspace + (size_t)blockIdx.x * d.ws_size;
-  const int E = d.f.emb_dim, Ep = pad8(E), Ed = d.f.demb_dim, Edp = pad8(Ed);
-  for (int i = threadIdx.x; i < (Ep - E) * kLd; i += kThreads) tile[E * kLd + i] = 0.f;
-  for (int i = threadIdx.x; i < (Edp - Ed) * kLd; i += kThreads)
-    tile[(Ep + Ed) * kLd + i] = 0.f;
+  zero_pad_rows(tile, d.f);
   if (wave == 0) {  // padding rows of the cotangent planes that nothing writes
     for (int sub = 0; sub < (rpc * S + kPts - 1) / kPts; ++sub) {
       float* r = plane(ws, d, P_DRGB, sub);
@@ -700,8 +360,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   // ---- forward, storing every activation the reverse sweep reads
   for (int sub = 0; sub < nsub; ++sub)
-    forward_tile<true, kMode == kCotangent, kMip>(odv, zc, params, d, ws, strip, tile, r0, nq, S,
-                                                  sub, nullptr);
+    forward_tile<true, kMode == kCotangent, kMip, true>(
+        RayFill<kMip>{odv, zc, r0, S, nq}, params, d, ws, strip,
+        OutCols{6 + d.f.sem_dim, 0, 2, 5}, tile, nq, sub, nullptr, 0);
 
   // ---- composite, maps, the cotangent and its reverse: one thread a ray
   composite_chunk<kMode, kMip>(odv, zc, aux, dweights, d, ws, strip, maps, weights, r0, nr, S,
@@ -724,17 +385,15 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int rpc = d.rays_per_chunk;
   float* strip = reinterpret_cast<float*>(smem4);
   float* tile = strip + ((rpc * S * (6 + d.f.sem_dim) + 3) & ~3);  // emb, demb, hA, hB
-  const int E = d.f.emb_dim, Ep = pad8(E), Ed = d.f.demb_dim, Edp = pad8(Ed);
-  for (int i = threadIdx.x; i < (Ep - E) * kLd; i += kThreads) tile[E * kLd + i] = 0.f;
-  for (int i = threadIdx.x; i < (Edp - Ed) * kLd; i += kThreads)
-    tile[(Ep + Ed) * kLd + i] = 0.f;
+  zero_pad_rows(tile, d.f);
   __syncthreads();
   const int r0 = blockIdx.x * rpc, nr = min(rpc, R - r0), nq = nr * S;
   const int nsub = (nq + kPts - 1) / kPts;
   const float* zc = z + (size_t)r0 * (kMip ? S + 1 : S);
   for (int sub = 0; sub < nsub; ++sub)
-    forward_tile<false, false, kMip>(odv, zc, params, d, nullptr, strip, tile, r0, nq, S, sub,
-                                     semin);
+    forward_tile<false, false, kMip, true>(RayFill<kMip>{odv, zc, r0, S, nq}, params, d, nullptr,
+                                           strip, OutCols{6 + d.f.sem_dim, 0, 2, 5}, tile, nq,
+                                           sub, semin, (long long)r0 * S);
   composite_chunk<kForward, kMip>(odv, zc, nullptr, nullptr, d, nullptr, strip, maps, weights, r0,
                                   nr, S, nsub, seed, noise_std, 0);
 }
@@ -999,85 +658,12 @@ __global__ void __launch_bounds__(kThreads, 1)
       gp[d.gb1 + i] = acc1[kSemBlk * kMaxSem + kSemBlk + i];
 }
 
-// Wave `wave` of the reverse sweep, on the chunk the forward left in
-// workspace slice b: rgb, views, feature + alpha, with kSem (K6) the
-// semantic head, then the trunk; dW/db add into CTA b's partial gradients
-// (zeroed in wave 0).
-template <bool kSem>
-__global__ void __launch_bounds__(kThreads, 1)
-    train_reverse_kernel(const float* __restrict__ bparams, const __grid_constant__ TrainDesc d,
-                         float* __restrict__ partial, float* __restrict__ workspace, int R, int S,
-                         int wave) {
-  extern __shared__ float4 smem4[];
-  float* stages = reinterpret_cast<float*>(smem4);
-  const MLPDesc& f = d.f;
-  const int rpc = d.rays_per_chunk;
-  const int c = wave * gridDim.x + blockIdx.x;
-  float* gpart = partial + (size_t)blockIdx.x * d.grad_size;
-  if (wave == 0) {
-    for (size_t i = threadIdx.x; i < (size_t)d.grad_size; i += kThreads) gpart[i] = 0.f;
-    __syncthreads();
-  }
-  if (c * rpc >= R) return;
-  float* ws = workspace + (size_t)blockIdx.x * d.ws_size;
-  const int depth = f.depth, ldw = pad8(f.layer[0].n);
-  const int nsub = (min(rpc, R - c * rpc) * S + kPts - 1) / kPts;
-  const int k_alpha = depth, k_feat = depth + 1, k_views = depth + 2, k_rgb = depth + 3;
-
-  // ---- reverse sweep: rgb, views, feature + alpha, trunk
-  wgrad(ws, d, XSegs{{P_HV, 0}, 1}, P_DRGB, pad8(3), gpart + d.gw[k_rgb], gpart + d.gb[k_rgb],
-        nsub, stages);
-  bwd_layer(bparams, d.bwd[k_rgb], ws, d, P_DRGB, -1, P_DPV, P_HV, nsub, stages);
-  wgrad(ws, d, XSegs{{P_FEAT, P_DEMB}, 2}, P_DPV, pad8(f.layer[k_views].n),
-        gpart + d.gw[k_views], gpart + d.gb[k_views], nsub, stages);
-  bwd_layer(bparams, d.bwd[k_views], ws, d, P_DPV, -1, P_DFEAT, -1, nsub, stages);
-  const int last = P_ACT0 + depth - 1;
-  const XSegs h = (f.skip == depth - 1) ? XSegs{{P_EMB, last}, 2} : XSegs{{last, 0}, 1};
-  wgrad(ws, d, h, P_DFEAT, ldw, gpart + d.gw[k_feat], gpart + d.gb[k_feat], nsub, stages);
-  wgrad(ws, d, h, P_DSIG, 8, gpart + d.gw[k_alpha], gpart + d.gb[k_alpha], nsub, stages);
-  bwd_layer(bparams, d.bwd[k_alpha], ws, d, P_DFEAT, P_DSIG, P_DA, last, nsub, stages);
-  if (kSem) {  // sem_1, ds, sem_0, and sem_0's input gradient on h added into P_DA
-    const int k_s0 = depth + 4, k_s1 = depth + 5;
-    const int p_sact = P_ACT0 + depth, p_dsem = p_sact + 1, p_ds = p_sact + 2;
-    wgrad(ws, d, XSegs{{p_sact, 0, 0}, 1}, p_dsem, pad8(f.layer[k_s1].n), gpart + d.gw[k_s1],
-          gpart + d.gb[k_s1], nsub, stages);
-    bwd_layer(bparams, d.bwd[k_s1], ws, d, p_dsem, -1, p_ds, p_sact, nsub, stages);
-    XSegs in = h;
-    if (f.sem_with_coord) in.p[in.n++] = P_EMB;
-    wgrad(ws, d, in, p_ds, pad8(f.layer[k_s0].n), gpart + d.gw[k_s0], gpart + d.gb[k_s0], nsub,
-          stages);
-    bwd_layer<true>(bparams, d.bwd[k_s0], ws, d, p_ds, -1, P_DA, last, nsub, stages);
-  }
-  int cur = P_DA;
-  for (int i = depth - 1; i >= 0; --i) {
-    const XSegs in = (i == 0) ? XSegs{{P_EMB, 0}, 1}
-                     : (i - 1 == f.skip) ? XSegs{{P_EMB, P_ACT0 + i - 1}, 2}
-                                         : XSegs{{P_ACT0 + i - 1, 0}, 1};
-    wgrad(ws, d, in, cur, ldw, gpart + d.gw[i], gpart + d.gb[i], nsub, stages);
-    const int nxt = (cur == P_DA) ? P_DB : P_DA;
-    if (i > 0) bwd_layer(bparams, d.bwd[i], ws, d, cur, -1, nxt, P_ACT0 + i - 1, nsub, stages);
-    cur = nxt;
-  }
-}
-
-// out[i] = sum over the CTAs, in CTA order, of their partial gradients
-__global__ void reduce_partials(const float* __restrict__ partial, float* __restrict__ out,
-                                long long n, int parts) {
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
-       i += (long long)gridDim.x * blockDim.x) {
-    float s = 0.f;
-    for (int c = 0; c < parts; ++c) s += partial[(size_t)c * n + i];
-    out[i] = s;
-  }
-}
-
 // shared memory of the forward kernels (K3's and K4): the chunk's composite
 // strip, then emb, demb and two layer tiles
 int forward_smem(const TrainDesc* d, int S) {
-  const int Ep = (d->f.emb_dim + 7) / 8 * 8, Edp = (d->f.demb_dim + 7) / 8 * 8;
-  return (int)((((size_t)d->rays_per_chunk * S * (6 + d->f.sem_dim) + 3) / 4 * 4 +
-                (size_t)(Ep + Edp + 2 * d->f.hrows) * kLd) *
-               sizeof(float));
+  return (int)((((size_t)d->rays_per_chunk * S * (6 + d->f.sem_dim) + 3) / 4 * 4) *
+               sizeof(float)) +
+         tile_smem(d->f);
 }
 
 }  // namespace
@@ -1139,8 +725,7 @@ extern "C" int nerf_frozen_sem_grads(const float* semin, const float* weights,
                                                                  *d, partial, P, S, per_cta);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const int blocks = (int)((d->grad_size + 255) / 256 < 1024 ? (d->grad_size + 255) / 256 : 1024);
-  reduce_partials<<<blocks, 256, 0, st>>>(partial, grads, d->grad_size, grid);
+  reduce_partials<<<reduce_blocks(d->grad_size), 256, 0, st>>>(partial, grads, d->grad_size, grid);
   return (int)cudaGetLastError();
 }
 
@@ -1168,13 +753,12 @@ int train_grads(const float* odv, const float* z, const float* aux, const float*
     train_forward_kernel<kMode, kMip><<<grid, kThreads, fwd_smem, st>>>(
         odv, z, aux, dweights, params, *d, maps, weights, workspace, R, S, wave, seed,
         noise_std, white_bkgd);
-    train_reverse_kernel<kSem><<<grid, kThreads, stage_smem, st>>>(bparams, *d, partial,
-                                                                  workspace, R, S, wave);
+    train_reverse_kernel<kSem><<<grid, kThreads, stage_smem, st>>>(
+        bparams, nullptr, *d, partial, workspace, R, S, wave, nullptr, nullptr);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  const int blocks = (int)((d->grad_size + 255) / 256 < 1024 ? (d->grad_size + 255) / 256 : 1024);
-  reduce_partials<<<blocks, 256, 0, st>>>(partial, grads, d->grad_size, grid);
+  reduce_partials<<<reduce_blocks(d->grad_size), 256, 0, st>>>(partial, grads, d->grad_size, grid);
   return (int)cudaGetLastError();
 }
 

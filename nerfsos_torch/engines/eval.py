@@ -1,7 +1,8 @@
-"""Evaluation engine: per-view eval and the test-set sweep.
+"""Evaluation engine: per-view eval, the test-set sweep and the density
+export.
 
 Port of ``nerfsos_tpu/engines/eval.py`` (``make_render_fn``,
-``eval_one_view``, ``evaluate``): the same metrics, the same files
+``eval_one_view``, ``evaluate``, ``export_density``): the same metrics, the same files
 (``rgb_/depth_/depth_*_/alpha_/sem_/clus_*.png``, ``log.json``, ``log.txt``)
 and the same ``log.json`` keys. Differences: LPIPS is reported as NaN (null in
 ``log.json``), as the JAX engine does when no weights are given; the DINO
@@ -20,9 +21,11 @@ import torch
 import torch.nn as nn
 
 from nerfsos_torch.losses.photometric import img2mse, mse2psnr
+from nerfsos_torch.models.mip import MipNeRFNet
 from nerfsos_torch.models.nerf import NeRFNet
 from nerfsos_torch.ops.kmeans import segmap_cluster
 from nerfsos_torch.ops.ssim import ssim as ssim_fn
+from nerfsos_torch.utils import io as io_utils
 from nerfsos_torch.utils.image import colorize, to8b, write_png
 from nerfsos_torch.utils.metrics import adjusted_rand_score
 
@@ -193,3 +196,44 @@ def evaluate(net: nn.Module, dataset, save_dir: Optional[str] = None, fast_mode:
     return {"mse": totals["total_mse"], "psnr": totals["total_psnr"],
             "ssim": totals["total_ssim"], "lpips": totals["total_lpips"],
             **{k: totals[f"total_{k}"] for k in ["clus_ari", "clus_ari_fg", "sem_ari", "sem_ari_fg"]}}
+
+
+@torch.no_grad()
+def export_density(net: nn.Module, extents: Tuple[float, float, float] = (2.0, 2.0, 2.0),
+                   voxel_size: float = 2.0 / 256.0, save_dir: str = "", scale: float = 14.0,
+                   chunk: int = 1 << 18) -> np.ndarray:
+    """Dense sigma export (JAX ``export_density``; reference
+    ``engines/eval.py:285-307``): a grid of ``int(extent / voxel_size)``
+    points an axis over the extents ``(h, w, d)`` centred on 0, x from
+    ``w``, scaled by ``scale``, indexed ``[x, y, z]``; the fine field (the
+    coarse one of a net with no fine pass, the one field of a mip net, at
+    zero covariance) queried with zero viewdirs in chunks of ``chunk``
+    points: relu of the sigma column (the column before the semantics, the
+    last of a mip field's). Writes ``density.mrc`` and ``density.ply`` under
+    ``save_dir`` when given. The kernels take a ragged last chunk as it is."""
+    h, w, d = extents
+    xs = np.linspace(-w / 2, w / 2, int(w / voxel_size), dtype=np.float32)
+    ys = np.linspace(-h / 2, h / 2, int(h / voxel_size), dtype=np.float32)
+    zs = np.linspace(-d / 2, d / 2, int(d / voxel_size), dtype=np.float32)
+    pts = np.stack(np.meshgrid(xs, ys, zs, indexing="ij"), -1) * scale  # [W, H, D, 3]
+    shape = pts.shape[:3]
+    flat = torch.from_numpy(pts.reshape(-1, 3))
+    device = next(net.parameters()).device
+    mip = isinstance(net, MipNeRFNet)
+    out = torch.empty(flat.shape[0], dtype=torch.float32, device=device)
+    for i in range(0, flat.shape[0], chunk):
+        p = flat[i:i + chunk].to(device)
+        zeros = torch.zeros_like(p)
+        if mip:
+            sigma = net.field_query(p, zeros, zeros)[:, -1]
+        else:
+            raw = net.field_query(p, zeros)
+            sem_dim = net.cfg.sem_dim if net.cfg.use_semantics else 0
+            sigma = raw[:, raw.shape[-1] - 1 - sem_dim]  # sigma sits before the semantics
+        out[i:i + p.shape[0]] = torch.relu(sigma)
+    sigma = out.cpu().numpy().reshape(shape)
+    if save_dir:
+        os.makedirs(save_dir, exist_ok=True)
+        io_utils.write_mrc(os.path.join(save_dir, "density.mrc"), sigma)
+        io_utils.write_voxel_ply(os.path.join(save_dir, "density.ply"), sigma)
+    return sigma

@@ -18,7 +18,9 @@ Port of ``nerfsos_tpu/models/mip.py``:
   K10a with K10b as its backward for training; otherwise the plain route,
   ``MipNeRFField`` + ``mip_volumetric_render``, which draws its noise from
   the generator;
-- ``forward`` chunks the rays by ``ray_block`` and threads ``radii``.
+- ``forward`` chunks the rays by ``ray_block`` and threads ``radii``;
+- :meth:`MipNeRFNet.field_query` queries the field at given Gaussians, on
+  K11 when fused (``engines/eval.export_density``).
 """
 from __future__ import annotations
 
@@ -32,6 +34,7 @@ from nerfsos_torch.core import sampling
 from nerfsos_torch.core.render import mip_volumetric_render
 from nerfsos_torch.models.fields import MipNeRFField
 from nerfsos_torch.models.nerf import NeRFConfig, _chunk_seeds
+from nerfsos_torch.ops import fused_field as ff
 from nerfsos_torch.ops import fused_render as fr
 
 _F4_15 = float(np.float32(4.0 / 15.0))
@@ -123,6 +126,16 @@ class MipNeRFNet(nn.Module):
                                 use_viewdirs=cfg.use_viewdirs, use_embed=cfg.use_embed,
                                 multires=cfg.multires, multires_views=cfg.multires_views)
         self.fused = cfg.fused_field and fr.supports_fused(cfg)
+
+    def field_query(self, mean: torch.Tensor, cov: torch.Tensor,
+                    viewdirs: torch.Tensor) -> torch.Tensor:
+        """raw ``[N, 4]`` of the field at the Gaussians ``mean`` and diagonal
+        ``cov [N, 3]``, each seen from its ``viewdirs [N, 3]``: K11 when
+        fused, else the field."""
+        if self.fused:
+            return ff.fused_mip_field_apply(self.mip, mean.contiguous(), cov.contiguous(),
+                                            viewdirs.contiguous())
+        return ff.mip_field_plain(self.mip, mean, cov, viewdirs)
 
     def render_rays(self, rays_o: torch.Tensor, rays_d: torch.Tensor,
                     viewdirs: Optional[torch.Tensor], near: torch.Tensor, far: torch.Tensor,

@@ -16,6 +16,13 @@ reference's module names, so a reference state dict loads with
   weights, K4), whose backward is K5 under ``frozen_backbone``; the sigma
   noise of each pass comes from an integer seed (``noise_seeds``, the
   step's pair from ``engines/trainer.step_randomness``);
+- every other pass of a fused net queries the field through the field
+  kernels (``ops/fused_field.py``), as the JAX package's planar route does:
+  a net with no fine pass (``n_importance <= 0``) through the field
+  forward (K8d), whose backward is the field backward (K8f), and a
+  density-only coarse pass with noise through the sigma forward (K8e), its
+  fine pass through K8d; the noise is drawn from the generator outside the
+  kernels, as in the plain route;
 - ``forward`` chunks the rays by ``ray_block``. Rays are independent, so the
   ragged last chunk needs no padding (the JAX version pads to a fixed block
   shape for its compiled scan).
@@ -32,6 +39,7 @@ import torch.nn as nn
 from nerfsos_torch.core import sampling
 from nerfsos_torch.core.render import sigma_to_weights, volumetric_render
 from nerfsos_torch.models.fields import NeRFField
+from nerfsos_torch.ops import fused_field as ff
 from nerfsos_torch.ops import fused_render as fr
 
 
@@ -110,6 +118,31 @@ class NeRFNet(nn.Module):
     def fine_field(self) -> NeRFField:
         return self.nerf if self.nerf_fine is None else self.nerf_fine
 
+    def _raw(self, field: NeRFField, pts: torch.Tensor,
+             viewdirs: Optional[torch.Tensor]) -> torch.Tensor:
+        """raw ``[R, S, C]`` of ``field`` at ``pts [R, S, 3]`` seen from
+        ``viewdirs [R, 3]``: the field kernels when fused, else the field."""
+        if not self.fused:
+            return field(pts, viewdirs)
+        dirs = viewdirs[:, None, :].expand(pts.shape).reshape(-1, 3)
+        raw = ff.fused_field_apply(field, pts.reshape(-1, 3), dirs)
+        return raw.reshape(*pts.shape[:-1], raw.shape[-1])
+
+    def _sigma(self, pts: torch.Tensor) -> torch.Tensor:
+        """The coarse field's densities ``[R, S]`` at ``pts [R, S, 3]``: the
+        sigma kernel when fused, else the field."""
+        if not self.fused:
+            return self.nerf.sigma(pts)
+        return ff.fused_sigma_apply(self.nerf, pts.reshape(-1, 3)).reshape(pts.shape[:-1])
+
+    def field_query(self, pts: torch.Tensor, viewdirs: torch.Tensor) -> torch.Tensor:
+        """raw ``[N, C]`` of the fine field (the coarse one of a net with no
+        fine pass) at ``pts [N, 3]``, each seen from its ``viewdirs [N, 3]``:
+        the field kernel when fused (``engines/eval.export_density``)."""
+        if self.fused:
+            return ff.fused_field_apply(self.fine_field, pts.contiguous(), viewdirs.contiguous())
+        return ff.field_plain(self.fine_field, pts, viewdirs)
+
     def render_rays(self, rays_o: torch.Tensor, rays_d: torch.Tensor,
                     viewdirs: Optional[torch.Tensor], near: torch.Tensor, far: torch.Tensor, *,
                     perturb: float, raw_noise_std: float,
@@ -150,11 +183,11 @@ class NeRFNet(nn.Module):
 
         pts = sampling.points_along_rays(rays_o, rays_d, z_vals)
         if sigma_only:
-            ret = {"weights": sigma_to_weights(self.nerf.sigma(pts), z_vals, rays_d,
+            ret = {"weights": sigma_to_weights(self._sigma(pts), z_vals, rays_d,
                                                raw_noise_std=raw_noise_std,
                                                generator=generator)}
         else:
-            ret = volumetric_render(self.nerf(pts, viewdirs), z_vals, rays_d,
+            ret = volumetric_render(self._raw(self.nerf, pts, viewdirs), z_vals, rays_d,
                                     raw_noise_std=raw_noise_std, white_bkgd=cfg.white_bkgd,
                                     use_semantics=cfg.use_semantics, generator=generator)
         if n_importance <= 0:
@@ -164,7 +197,7 @@ class NeRFNet(nn.Module):
         z_all, z_samples = sampling.importance_sample(z_vals, ret0["weights"], n_importance,
                                                       det=det, generator=generator)
         pts = sampling.points_along_rays(rays_o, rays_d, z_all)
-        ret = volumetric_render(self.fine_field(pts, viewdirs), z_all, rays_d,
+        ret = volumetric_render(self._raw(self.fine_field, pts, viewdirs), z_all, rays_d,
                                 raw_noise_std=raw_noise_std, white_bkgd=cfg.white_bkgd,
                                 use_semantics=cfg.use_semantics, generator=generator)
         ret["z_std"] = torch.std(z_samples, dim=-1, correction=0)

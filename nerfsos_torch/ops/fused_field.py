@@ -1,0 +1,321 @@
+"""The radiance field queried point by point: its forward, its density
+alone and its backward, as hand-written CUDA kernels.
+
+Port of ``nerfsos_tpu/ops/pallas/fused_field.py`` and of K11, one kernel per
+role (``csrc/fused_field.cu``). The JAX package's row-major and
+channel-major twins differ in their IO layout alone; the port's is the
+plain ``NeRFField``'s, ``[N, 3]`` in and ``[N, C]`` out:
+
+- :func:`fused_sigma_apply` (K8a ``fused_sigma_apply`` and K8e
+  ``fused_sigma_apply_planar``): ``pts [N, 3]`` -> sigma ``[N]`` from the
+  trunk and the alpha head;
+- :func:`field_forward` (K8b ``_fused_forward`` and K8d
+  ``_fused_forward_pl``): ``pts, dirs [N, 3]`` -> raw ``[N, 4 + sem]``
+  (rgb logits, sigma, semantics);
+- :func:`fused_mip_field_apply` (K11 ``fused_mip_apply_planar``): the mip
+  field at diagonal Gaussians ``mean, cov [N, 3]`` seen from ``dirs`` ->
+  raw ``[N, 4]``;
+- :func:`field_grads` (K8f ``_fused_backward_pl``, and K8c
+  ``_fused_backward`` in its input-gradient mode): the gradients of every
+  parameter from a cotangent ``g [N, 4 + sem]`` of raw, and in the
+  input-gradient mode those of ``pts`` and ``dirs``;
+- :func:`fused_field_apply`: :func:`field_forward` with :func:`field_grads`
+  as its backward (``_FieldFn``); the input-gradient mode runs when
+  autograd asks for the points' or the directions' gradient, which stands
+  in for the JAX package's ``cfg.field_input_grads``.
+
+Each wrapper runs its plain PyTorch version (:func:`sigma_plain`,
+:func:`field_plain`, :func:`mip_field_plain`, :func:`field_grads_plain`, same
+signature) for tensors on the CPU, and for CUDA tensors launches its kernel
+or raises; it never falls back. ``<wrapper>.launches`` counts the launches
+(``field_grads.input_grad_launches`` those in the input-gradient mode).
+The weights are packed by ``ops/fused_render.py``'s packers.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, List, Optional, Tuple
+
+import torch
+import torch.nn as nn
+
+from nerfsos_torch import _build
+from nerfsos_torch.ops import fused_render as fr
+
+# ----------------------------------------------------------------- plain versions
+
+
+def field_plain(field: nn.Module, pts: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
+    """Plain version of the field forward: the ``NeRFField`` at ``pts [N, 3]``
+    seen from ``dirs [N, 3]`` -> raw ``[N, 4 + sem]``."""
+    return field(pts[:, None, :], dirs)[:, 0]
+
+
+def sigma_plain(field: nn.Module, pts: torch.Tensor) -> torch.Tensor:
+    """Plain version of the sigma forward: ``NeRFField.sigma`` of ``pts
+    [N, 3]`` -> ``[N]``."""
+    return field.sigma(pts)
+
+
+def mip_field_plain(field: nn.Module, mean: torch.Tensor, cov: torch.Tensor,
+                    dirs: torch.Tensor) -> torch.Tensor:
+    """Plain version of K11: the ``MipNeRFField`` at the Gaussians ``mean``
+    and diagonal ``cov [N, 3]`` seen from ``dirs [N, 3]`` -> raw ``[N, 4]``."""
+    return field(mean[:, None, :], cov[:, None, :], dirs)[:, 0]
+
+
+def field_grads_plain(field: nn.Module, pts: torch.Tensor, dirs: torch.Tensor, g: torch.Tensor,
+                      *, input_grads: bool
+                      ) -> Tuple[Dict[str, torch.Tensor], Optional[torch.Tensor],
+                                 Optional[torch.Tensor]]:
+    """Plain version of the field backward: autograd of ``sum(g *
+    field_plain(field, pts, dirs))``. Returns (the gradient of every
+    parameter, keyed by ``field.named_parameters()`` names; with
+    ``input_grads`` those of ``pts`` and ``dirs`` ``[N, 3]``, else None and
+    None). Runs in chunks of points, each chunk's graph freed before the
+    next."""
+    leaves = {n: p.detach().requires_grad_() for n, p in field.named_parameters()}
+    grads = {n: torch.zeros_like(p) for n, p in leaves.items()}
+    dpts, ddirs = [], []
+    step = fr._PLAIN_CHUNK_POINTS
+    with torch.enable_grad():
+        for i in range(0, pts.shape[0], step):
+            p = pts[i:i + step].detach().requires_grad_(input_grads)
+            d = dirs[i:i + step].detach().requires_grad_(input_grads)
+            raw = torch.func.functional_call(field, leaves, (p[:, None, :], d))[:, 0]
+            wrt = list(leaves.values()) + ([p, d] if input_grads else [])
+            out = torch.autograd.grad(torch.sum(g[i:i + step] * raw), wrt, allow_unused=True)
+            for n, gn in zip(leaves, out):
+                if gn is not None:
+                    grads[n] += gn
+            if input_grads:
+                dpts.append(out[-2])
+                ddirs.append(out[-1])
+    if not input_grads:
+        return grads, None, None
+    empty = pts.new_zeros((0, 3))
+    return grads, torch.cat(dpts) if dpts else empty, torch.cat(ddirs) if ddirs else empty
+
+
+# ----------------------------------------------------------------- packing
+
+
+def pack_input_bwd(field: nn.Module) -> Tuple[torch.Tensor, List[_build.MLPLayer]]:
+    """K8c's input-gradient matrices, by the forward layer index they serve
+    (``fused_render.pack_bwd_matrices``' format): the emb columns of every
+    layer that reads the point PE (layer 0 whole, the layer after the skip;
+    when the skip follows the last layer, feature and alpha stacked as
+    ``[W_feature; W_alpha]`` and sem_0's h segment), sem_0's coordinate
+    columns (one matrix with its h segment's emb columns when both read
+    emb: both multiply the same cotangent), and the views layer's
+    view-PE columns."""
+    mlp = field.mlp
+    depth, W, E = mlp.depth, mlp.width, mlp.pts_linears[0].in_features
+    skip_last = depth - 1 in mlp.skips
+    mats = {0: [mlp.pts_linears[0].weight.detach()]}
+    for i in range(1, depth):
+        if i - 1 in mlp.skips:
+            mats[i] = [mlp.pts_linears[i].weight.detach()[:, :E]]
+    if skip_last:
+        mats[depth] = [mlp.feature_linear.weight.detach()[:, :E],
+                       mlp.alpha_linear.weight.detach()[:, :E]]
+    mats[depth + 2] = [mlp.views_linears[0].weight.detach()[:, W:]]
+    if mlp.use_semantics and (skip_last or mlp.sem_with_coord):
+        w0 = mlp.semantic_linear[0].weight.detach()
+        emb = w0.new_zeros((w0.shape[0], E))
+        if skip_last:
+            emb = emb + w0[:, :E]
+        if mlp.sem_with_coord:
+            emb = emb + w0[:, -E:]
+        mats[depth + 4] = [emb]
+    return fr.pack_bwd_matrices(mats)
+
+
+# ----------------------------------------------------------------- wrappers
+
+
+def _check_points(field: nn.Module, n: int, **tensors: torch.Tensor) -> None:
+    """Each tensor ``[n, 3]`` (the cotangent ``g``: ``[n, C]``), contiguous
+    float32 on the device of the first, with the field's weights there."""
+    device = next(iter(tensors.values())).device
+    for name, t in tensors.items():
+        if t.device != device:
+            raise ValueError(f"{name} on {t.device}, expected {device}")
+        if t.dtype != torch.float32:
+            raise NotImplementedError(f"{name}: the kernels take float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.dim() != 2 or t.shape[0] != n or (name != "g" and t.shape[1] != 3):
+            raise ValueError(f"expected {name} [{n}, {'C' if name == 'g' else 3}], "
+                             f"got {tuple(t.shape)}")
+    p = next(field.parameters())
+    if p.device != device or p.dtype != torch.float32:
+        raise NotImplementedError(f"field weights must be float32 on {device}, "
+                                  f"got {p.dtype} on {p.device}")
+
+
+def _forward_desc(field: nn.Module, device: torch.device
+                  ) -> Tuple[torch.Tensor, _build.TrainDesc]:
+    buf, fdesc = fr._packed(field, device)
+    desc = _build.TrainDesc()
+    desc.f = fdesc
+    return buf, desc
+
+
+def _on_card(t: torch.Tensor) -> bool:
+    """False for a CPU tensor (the plain version runs); True for a CUDA one;
+    raises for any other device."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise NotImplementedError(f"no kernel for device {t.device}")
+    return True
+
+
+def fused_sigma_apply(field: nn.Module, pts: torch.Tensor) -> torch.Tensor:
+    """The sigma forward (K8a/K8e): ``pts [N, 3]`` -> sigma ``[N]``; see
+    :func:`sigma_plain`. One launch."""
+    if not _on_card(pts):
+        return sigma_plain(field, pts)
+    N = pts.shape[0]
+    _check_points(field, N, pts=pts)
+    sigma = torch.empty(N, device=pts.device, dtype=torch.float32)
+    if N > 0:
+        buf, desc = _forward_desc(field, pts.device)
+        with torch.cuda.device(pts.device):
+            code = _build.library().nerf_field_sigma(pts.data_ptr(), buf.data_ptr(),
+                                                     ctypes.byref(desc), sigma.data_ptr(), N,
+                                                     _build.stream(pts.device))
+        _build.check(code, "fused_sigma_apply")
+        fused_sigma_apply.launches += 1
+    return sigma
+
+
+def field_forward(field: nn.Module, pts: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
+    """The field forward (K8b/K8d): ``pts, dirs [N, 3]`` -> raw
+    ``[N, 4 + sem]``; see :func:`field_plain`. One launch."""
+    if not _on_card(pts):
+        return field_plain(field, pts, dirs)
+    N = pts.shape[0]
+    _check_points(field, N, pts=pts, dirs=dirs)
+    buf, desc = _forward_desc(field, pts.device)
+    raw = torch.empty((N, 4 + desc.f.sem_dim), device=pts.device, dtype=torch.float32)
+    if N > 0:
+        with torch.cuda.device(pts.device):
+            code = _build.library().nerf_field(pts.data_ptr(), dirs.data_ptr(), buf.data_ptr(),
+                                               ctypes.byref(desc), raw.data_ptr(), N,
+                                               _build.stream(pts.device))
+        _build.check(code, "field_forward")
+        field_forward.launches += 1
+    return raw
+
+
+def fused_mip_field_apply(field: nn.Module, mean: torch.Tensor, cov: torch.Tensor,
+                          dirs: torch.Tensor) -> torch.Tensor:
+    """K11: the ``MipNeRFField`` at ``mean, cov [N, 3]`` seen from ``dirs
+    [N, 3]`` -> raw ``[N, 4]``; see :func:`mip_field_plain`. One launch of
+    the field kernel in its integrated-PE mode. Forward only, as the JAX
+    package's only caller of K11 is a render."""
+    if not _on_card(mean):
+        return mip_field_plain(field, mean, cov, dirs)
+    N = mean.shape[0]
+    _check_points(field, N, mean=mean, cov=cov, dirs=dirs)
+    if field.mlp.use_semantics:
+        raise NotImplementedError("the mip field kernel has no semantic head")
+    raw = torch.empty((N, 4), device=mean.device, dtype=torch.float32)
+    if N > 0:
+        buf, desc = _forward_desc(field, mean.device)
+        with torch.cuda.device(mean.device):
+            code = _build.library().nerf_mip_field(
+                mean.data_ptr(), cov.data_ptr(), dirs.data_ptr(), buf.data_ptr(),
+                ctypes.byref(desc), raw.data_ptr(), N, _build.stream(mean.device))
+        _build.check(code, "fused_mip_field_apply")
+        fused_mip_field_apply.launches += 1
+    return raw
+
+
+def field_grads(field: nn.Module, pts: torch.Tensor, dirs: torch.Tensor, g: torch.Tensor, *,
+                input_grads: bool
+                ) -> Tuple[Dict[str, torch.Tensor], Optional[torch.Tensor],
+                           Optional[torch.Tensor]]:
+    """The field backward (K8f; K8c with ``input_grads``): the gradients of
+    every parameter from the cotangent ``g [N, 4 + sem]`` of raw at ``pts,
+    dirs [N, 3]``, and with ``input_grads`` those of pts and dirs; see
+    :func:`field_grads_plain`. One call launches the forward and the
+    reverse-sweep kernels once per wave of 512-point chunks and the
+    reduction of the CTAs' partial gradients, and adds one to ``launches``
+    (and, with ``input_grads``, to ``input_grad_launches``)."""
+    if not _on_card(pts):
+        return field_grads_plain(field, pts, dirs, g, input_grads=input_grads)
+    N = pts.shape[0]
+    sem = field.mlp.use_semantics
+    _check_points(field, N, pts=pts, dirs=dirs, g=g)
+    buf, fdesc = fr._packed(field, pts.device)
+    if g.shape[1] != 4 + fdesc.sem_dim:
+        raise ValueError(f"expected g [{N}, {4 + fdesc.sem_dim}], got {tuple(g.shape)}")
+    bbuf, bwd = fr._cached(field, pts.device, "_fused_train_pack", fr.pack_train_bwd)
+    desc = fr.train_desc(field, fdesc, bwd, 1, sem, input_grads=input_grads)
+    ibuf, dpts, ddirs = None, None, None
+    if input_grads:
+        ibuf, ibwd = fr._cached(field, pts.device, "_field_input_pack", pack_input_bwd)
+        for i, L in enumerate(ibwd):
+            desc.ibwd[i] = L
+        dpts = torch.empty((N, 3), device=pts.device, dtype=torch.float32)
+        ddirs = torch.empty((N, 3), device=pts.device, dtype=torch.float32)
+    flat = torch.zeros(desc.grad_size, device=pts.device, dtype=torch.float32)
+    if N > 0:
+        nchunks = -(-N // desc.rays_per_chunk)
+        grid = min(nchunks, torch.cuda.get_device_properties(pts.device).multi_processor_count)
+        partial = torch.empty(grid * desc.grad_size, device=pts.device, dtype=torch.float32)
+        work = torch.empty(grid * desc.ws_size, device=pts.device, dtype=torch.float32)
+        with torch.cuda.device(pts.device):
+            code = _build.library().nerf_field_grads(
+                pts.data_ptr(), dirs.data_ptr(), g.data_ptr(), buf.data_ptr(), bbuf.data_ptr(),
+                None if ibuf is None else ibuf.data_ptr(), ctypes.byref(desc), partial.data_ptr(),
+                work.data_ptr(), flat.data_ptr(), None if dpts is None else dpts.data_ptr(),
+                None if ddirs is None else ddirs.data_ptr(), N, grid, _build.stream(pts.device))
+        _build.check(code, "field_grads")
+        field_grads.launches += 1
+        field_grads.input_grad_launches += int(input_grads)
+    return fr.unpack_grads(field, flat, sem), dpts, ddirs
+
+
+class _FieldFn(torch.autograd.Function):
+    """The field forward (K8b/K8d) with the field backward as its backward:
+    every parameter gets its gradient (K8f), and ``pts``/``dirs`` get theirs
+    only when autograd asks for them (K8c's input-gradient mode); None
+    otherwise. A raw that nothing used gets None as its cotangent."""
+
+    @staticmethod
+    def forward(ctx, field, pts, dirs, *params):
+        ctx.field = field
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(pts, dirs)
+        return field_forward(field, pts, dirs)
+
+    @staticmethod
+    def backward(ctx, g):
+        names = [n for n, _ in ctx.field.named_parameters()]
+        if g is None:
+            return (None,) * (3 + len(names))
+        pts, dirs = ctx.saved_tensors
+        want_pts, want_dirs = ctx.needs_input_grad[1], ctx.needs_input_grad[2]
+        grads, dpts, ddirs = field_grads(ctx.field, pts, dirs, g.contiguous(),
+                                         input_grads=want_pts or want_dirs)
+        return (None, dpts if want_pts else None, ddirs if want_dirs else None,
+                *(grads[n] for n in names))
+
+
+def fused_field_apply(field: nn.Module, pts: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
+    """The differentiable field query (replaces ``fused_field_apply`` and
+    ``fused_field_apply_planar``): ``pts, dirs [N, 3]`` -> raw
+    ``[N, 4 + sem]`` through the field forward, whose backward is the field
+    backward (``_FieldFn``)."""
+    return _FieldFn.apply(field, pts, dirs, *field.parameters())
+
+
+fused_sigma_apply.launches = 0
+field_forward.launches = 0
+fused_mip_field_apply.launches = 0
+field_grads.launches = 0
+field_grads.input_grad_launches = 0

@@ -496,6 +496,15 @@ def pack_train_bwd(field: nn.Module) -> Tuple[torch.Tensor, List[_build.MLPLayer
     if mlp.use_semantics:
         mats[depth + 4] = [cols(mlp.semantic_linear[0], a)]
         mats[depth + 5] = [mlp.semantic_linear[2].weight.detach()]
+    return pack_bwd_matrices(mats)
+
+
+def pack_bwd_matrices(mats: Dict[int, List[torch.Tensor]]
+                      ) -> Tuple[torch.Tensor, List[_build.MLPLayer]]:
+    """Row blocks of input-gradient matrices by forward layer index, each as
+    ``_bwd_matrix`` stacks them, in ``pack_field``'s per-layer format (the
+    matrix, its TF32 high and low parts, a zero bias): one buffer and the
+    layers' descriptors (empty for the indices not given)."""
     descs = [_build.MLPLayer() for _ in range(_build.MAX_LAYERS)]
     parts, off = [], 0
     for i, blocks in mats.items():
@@ -553,11 +562,14 @@ def grad_layout(field: nn.Module, sem: bool = False) -> Tuple[List[Tuple[int, in
 
 
 def train_desc(field: nn.Module, fdesc: _build.MLPDesc, bwd: List[_build.MLPLayer],
-               S: int, sem: bool = False) -> _build.TrainDesc:
+               S: int, sem: bool = False, input_grads: bool = False) -> _build.TrainDesc:
     """K3's descriptor for ``S`` samples a ray: the forward and backward
     layers, the gradient layout and one CTA's workspace planes. ``sem``
     (K6 with the semantic head): the semantic head's gradients and three
-    planes more, after the trunk's: s_act, d_sem and ds."""
+    planes more, after the trunk's: s_act, d_sem and ds. ``input_grads``
+    (the field backward's input-gradient mode, K8c): two planes after
+    those three (empty without the head), the cotangents of the point PE
+    and of the view PE."""
     mlp = field.mlp
     W = mlp.width
     d = _build.TrainDesc()
@@ -574,6 +586,8 @@ def train_desc(field: nn.Module, fdesc: _build.MLPDesc, bwd: List[_build.MLPLaye
     if sem:
         hidden = _pad8(mlp.semantic_linear[0].out_features)
         rows += [hidden, 8, hidden]
+    if input_grads:
+        rows += ([] if sem else [0, 0, 0]) + [_pad8(fdesc.emb_dim), _pad8(fdesc.demb_dim)]
     off = 0
     for p, r in enumerate(rows):
         d.plane[p], d.rows[p] = off, r

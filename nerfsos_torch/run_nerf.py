@@ -20,7 +20,10 @@ defaults) and the same run-directory layout. Implemented:
   negatives under ``--rand_neg``; DINO ViT-S/16 from ``--dino_ckpt``
   (seeded weights and a warning when the file is missing) or the
   photometric stand-in (``--dino_synthetic``), the train-time ARI at
-  ``--i_print``, checkpoints, test-set evals and a final eval as above;
+  ``--i_print``, checkpoints, test-set evals and a final eval as above.
+  The losses read the coarse pass's outputs, so a net with no fine pass
+  (``--N_importance 0``) stops up front (the JAX package fails on the
+  missing ``rgb0``);
 - ``--patch_tune`` without the SOS losses: the RGB train step on
   ``PatchDataset`` batches (of the semantic head alone with
   ``--fix_backbone``, as the JAX entry point's masked optimizer).
@@ -29,11 +32,15 @@ defaults) and the same run-directory layout. Implemented:
   coarse and fine passes, no semantic head, the test split's base
   ``radii`` threaded into the train step and the evals; its fused passes
   are K9 (renders) and K10a with K10b as its backward (training). With the
-  SOS losses it stops: they need the semantic head.
+  SOS losses it stops: they need the semantic head;
+- ``--eval_vol``: the density export (``engines/eval.export_density``) of
+  the restored net on the x14 grid of ``--vol_extents`` (one value or
+  three) and ``--vol_size``, into ``<basedir>/<expname>/eval/density.mrc``
+  and ``density.ply``; the field kernel (K11 with ``--mipnerf``) queries it.
 
-``--no_batching``, ``--eval_video`` and ``--eval_vol`` stop with "not yet
-ported". Each RGB step draws its batch and its noise from
-``(--seed, step)`` alone, so a resumed run trains as an uninterrupted one
+``--no_batching`` and ``--eval_video`` stop with "not yet ported". Each
+RGB step draws its batch and its noise from ``(--seed, step)`` alone, so a
+resumed run trains as an uninterrupted one
 would (the JAX entry point restarts its batch stream); a patch step draws
 from ``(--seed, step)`` too, and its images from the dataset's per-epoch
 shuffle, which a resume starts afresh.
@@ -42,8 +49,10 @@ shuffle, which a resume starts afresh.
 card is visible; the CPU only when the caller passes ``device="cpu"`` (the
 tests). The fused kernels (``ops/fused_render.py``: K3 for the RGB step,
 K4 with K5 or K6 for the SOS step, K1/K2 for the eval render, K9/K10a/K10b
-under ``--mipnerf``;
-``ops/flash_corr.py``: K7 for the geometry loss) run unless
+under ``--mipnerf``; ``ops/fused_field.py``: the field kernels for a net
+with no fine pass (``--N_importance 0``), for noisy density-only coarse
+passes and for ``--eval_vol``; ``ops/flash_corr.py``: K7 for the geometry
+loss) run unless
 ``--no_fused_field`` is given or the
 configuration is outside ``supports_fused``; on the CPU the same code path
 runs their plain versions.
@@ -277,7 +286,7 @@ def main(args, device=None) -> None:
     from nerfsos_torch.engines.trainer import make_rgb_train_step
     from nerfsos_torch.utils.summary import SummaryWriter
 
-    for flag in ("eval_video", "eval_vol") + (() if args.eval else ("no_batching",)):
+    for flag in ("eval_video",) + (() if args.eval or args.eval_vol else ("no_batching",)):
         if getattr(args, flag):
             raise SystemExit(f"--{flag}: not yet ported to nerfsos_torch")
     patch_mode = args.patch_tune and not args.eval
@@ -286,6 +295,9 @@ def main(args, device=None) -> None:
     sos_mode = patch_mode and args.use_dino and (args.use_correlation or args.use_geoCorr)
     if sos_mode and args.mipnerf:
         raise SystemExit("--mipnerf has no semantic head: the SOS losses need one")
+    if sos_mode and args.N_importance <= 0:
+        raise SystemExit("the SOS losses read the coarse pass's outputs (rgb0, semantics0): "
+                         "they need a fine pass, --N_importance > 0")
     if args.no_semantics:
         args.use_semantics = False
     device = _resolve_device(args, device)
@@ -307,8 +319,8 @@ def main(args, device=None) -> None:
 
     net, cfg = build_model(args, device)
     schedule = state_lib.exp_decay_schedule(args.lrate, args.decay_rate, args.decay_step * 1000)
-    # no optimizer for --eval: the first one built imports torch._dynamo (seconds)
-    optimizer = None if args.eval else state_lib.make_optimizer(
+    # no optimizer for --eval or --eval_vol: the first one built imports torch._dynamo (seconds)
+    optimizer = None if args.eval or args.eval_vol else state_lib.make_optimizer(
         net, args.lrate, fix_backbone=args.fix_backbone)
     print("Num of Params:", sum(p.numel() for p in net.parameters()))
     print(f"> Fused kernels: {net.fused}")
@@ -360,6 +372,18 @@ def main(args, device=None) -> None:
     if args.eval:
         print("> Start to evaluate")
         do_evaluate(os.path.join(run_dir, "eval"))
+        return
+
+    if args.eval_vol:
+        print("> Start to export density")
+        extents = args.vol_extents
+        if len(extents) == 1:
+            extents = extents * 3
+        if len(extents) != 3:
+            print("Unsupported length of extents:", extents)
+            return
+        eval_lib.export_density(net, extents=tuple(extents), voxel_size=args.vol_size,
+                                save_dir=os.path.join(run_dir, "eval"))
         return
 
     near, far = test_set.near_far()

@@ -1,5 +1,5 @@
-"""K1-K7 and the mip kernels K9/K10a/K10b vs their plain PyTorch versions on
-the card.
+"""K1-K7, the mip kernels K9/K10a/K10b and the field kernels (K8a-K8f,
+K11) vs their plain PyTorch versions on the card.
 
 Marked ``cuda``: every test skips without a CUDA device (the kernels have no
 CPU or interpret mode). On a machine with a card (``--noconftest``: the
@@ -11,7 +11,8 @@ The tolerances and K3's allowance for relu gates that rounding flips are
 ``chip_smoke.py``'s, where their reasoning is written down. K5 is held to GRAD_TOL on
 points whose semantic-head gates are clear of 0 (the others get weight 0); K6
 on rays whose trunk, views and semantic-head gates are clear of 0; K10b on
-rays whose trunk and views gates are clear of 0.
+rays whose trunk and views gates are clear of 0; the field backward on
+points whose trunk, views and semantic-head gates are clear of 0.
 """
 import itertools
 
@@ -19,10 +20,11 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (GATE_MARGIN, GRAD_TOL, K7_TOL, TOL, flip_allowance, plain_k3_with_gates,
-                        plain_k6_with_gates, plain_k10b_with_gates)
+from chip_smoke import (GATE_MARGIN, GRAD_TOL, INPUT_GRAD_MARGIN, K7_TOL, TOL, flip_allowance,
+                        plain_k3_with_gates, plain_k6_with_gates, plain_k10b_with_gates)
 from nerfsos_torch.core.sampling import points_along_rays
 from nerfsos_torch.models.fields import MipNeRFField, NeRFField
+from nerfsos_torch.ops import fused_field as ff
 from nerfsos_torch.ops import fused_render as fr
 
 pytestmark = pytest.mark.cuda
@@ -682,3 +684,189 @@ def test_mip_kernels_reject_bad_inputs(cuda):
     with pytest.raises(ValueError):
         fr.mip_train_render_grads(field, odvr, z, torch.zeros(16, 5, device=cuda),
                                   torch.zeros(16, 9, device=cuda), **kw)
+
+
+# ----------------------------------------------------------------- K8a-K8f, K11
+
+
+def _field_points(device, n, seed, scale=2.0):
+    """Points ``[n, 3]`` of norm ~``scale`` and unit directions."""
+    rng = np.random.default_rng(seed)
+    pts = (rng.normal(size=(n, 3)) * scale).astype(np.float32)
+    d = rng.normal(size=(n, 3))
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    return torch.from_numpy(pts).to(device), torch.from_numpy(d).to(device)
+
+
+# tile tails: one point, a tile less one, a tile and one, a few tiles
+FIELD_NS = [1, 63, 65, 4097]
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("sem,coord", [(True, True), (True, False), (False, False)])
+@pytest.mark.parametrize("n", FIELD_NS)
+def test_field_and_sigma_match_plain(cuda, shape, sem, coord, n):
+    """The field forward (K8b/K8d) and the sigma forward (K8a/K8e): raw and
+    sigma to TOL, one launch each."""
+    field = _field(cuda, 30, use_semantics=sem, sem_with_coord=coord, sem_dim=2, **shape)
+    pts, dirs = _field_points(cuda, n, 31)
+    before = (ff.field_forward.launches, ff.fused_sigma_apply.launches)
+    with torch.no_grad():
+        raw = ff.field_forward(field, pts, dirs)
+        sigma = ff.fused_sigma_apply(field, pts)
+        raw_p, sigma_p = ff.field_plain(field, pts, dirs), ff.sigma_plain(field, pts)
+    torch.cuda.synchronize()
+    assert (ff.field_forward.launches, ff.fused_sigma_apply.launches) == (before[0] + 1,
+                                                                          before[1] + 1)
+    assert raw.shape == raw_p.shape == (n, 4 + 2 * sem) and sigma.shape == (n,)
+    assert torch.isfinite(raw).all() and torch.isfinite(sigma).all()
+    assert float((raw - raw_p).abs().max()) <= TOL
+    assert float((sigma - sigma_p).abs().max()) <= TOL
+
+
+def test_field_at_the_export_grid(cuda):
+    """The flagship field at 2^18 + 5 points of the x14 density grid (|x| up
+    to 14, PE phases up to 7.2e3 rad) with zero directions: raw to TOL over
+    max(1, its max |plain|) a column, sigma likewise."""
+    field = _field(cuda, 32, use_semantics=True, sem_with_coord=True, sem_dim=2, **SHAPES[0])
+    n = (1 << 18) + 5
+    pts = (torch.rand(n, 3, generator=torch.Generator().manual_seed(0)) * 28 - 14).to(cuda)
+    dirs = torch.zeros_like(pts)
+    with torch.no_grad():
+        raw, raw_p = ff.field_forward(field, pts, dirs), ff.field_plain(field, pts, dirs)
+        sigma, sigma_p = ff.fused_sigma_apply(field, pts), ff.sigma_plain(field, pts)
+    scale = raw_p.abs().amax(0).clamp(min=1.0)
+    assert float(((raw - raw_p).abs() / scale).max()) <= TOL
+    assert float((sigma - sigma_p).abs().max()) <= TOL * max(1.0, float(sigma_p.abs().max()))
+
+
+@pytest.mark.parametrize("shape", MIP_SHAPES)
+@pytest.mark.parametrize("zero_cov", [True, False])
+@pytest.mark.parametrize("n", FIELD_NS)
+def test_mip_field_matches_plain(cuda, shape, zero_cov, n):
+    """K11: the field kernel in its integrated-PE mode, raw to TOL."""
+    field = _mip_field(cuda, 33, **shape)
+    mean, dirs = _field_points(cuda, n, 34)
+    cov = (torch.zeros_like(mean) if zero_cov
+           else torch.rand(n, 3, generator=torch.Generator().manual_seed(1)).to(cuda) * 0.01)
+    before = ff.fused_mip_field_apply.launches
+    with torch.no_grad():
+        got = ff.fused_mip_field_apply(field, mean, cov, dirs)
+        want = ff.mip_field_plain(field, mean, cov, dirs)
+    torch.cuda.synchronize()
+    assert ff.fused_mip_field_apply.launches == before + 1
+    assert got.shape == (n, 4) and torch.isfinite(got).all()
+    assert float((got - want).abs().max()) <= TOL
+
+
+def _gate_clear_points(field, n, seed, sem, margin, pool=8192):
+    """``_field_points`` for ``n`` points none of which has a trunk or views
+    (with ``sem``, semantic-head) relu input within ``margin`` of 0 (of its
+    layer's largest |input| over the pool), so the kernel and the plain
+    version take every gate alike."""
+    mlp = field.mlp
+    gates = [*mlp.pts_linears, mlp.views_linears[0]] + ([mlp.semantic_linear[0]] if sem else [])
+    device = next(field.parameters()).device
+    keep = []
+    for k in itertools.count():
+        pts, dirs = _field_points(device, pool, seed + k)
+        slack = torch.full((pool,), float("inf"), device=device)
+
+        def hook(mod, inputs, out):
+            pre = out.reshape(pool, -1).abs()
+            torch.minimum(slack, pre.amin(1) / pre.max(), out=slack)
+
+        handles = [m.register_forward_hook(hook) for m in gates]
+        with torch.no_grad():
+            ff.field_plain(field, pts, dirs)
+        for h in handles:
+            h.remove()
+        clear = slack > margin
+        keep.append((pts[clear], dirs[clear]))
+        if sum(len(p) for p, _ in keep) >= n:
+            return tuple(torch.cat(parts)[:n].contiguous() for parts in zip(*keep))
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("sem,coord", [(True, True), (True, False), (False, False)])
+@pytest.mark.parametrize("input_grads", [False, True])
+@pytest.mark.parametrize("n", [1, 63, 65, 1000])
+def test_field_grads_match_plain(cuda, shape, sem, coord, input_grads, n):
+    """The field backward in both modes (K8f: weights only; K8c: with dpts
+    and ddirs) on gate-clear points: every leaf and dpts/ddirs to GRAD_TOL
+    of its max, on points whose gates clear 2 x GATE_MARGIN (INPUT_GRAD_MARGIN
+    with the input gradients, which a flipped gate moves by their whole
+    size); two calls bitwise equal."""
+    field = _field(cuda, 35, use_semantics=sem, sem_with_coord=coord, sem_dim=2, **shape)
+    pts, dirs = _gate_clear_points(field, n, 36, sem,
+                                   INPUT_GRAD_MARGIN if input_grads else 2 * GATE_MARGIN)
+    g = torch.from_numpy(np.random.default_rng(n).normal(size=(n, 4 + 2 * sem))
+                         .astype(np.float32)).to(cuda)
+    before = (ff.field_grads.launches, ff.field_grads.input_grad_launches)
+    got = ff.field_grads(field, pts, dirs, g, input_grads=input_grads)
+    again = ff.field_grads(field, pts, dirs, g, input_grads=input_grads)
+    want = ff.field_grads_plain(field, pts, dirs, g, input_grads=input_grads)
+    torch.cuda.synchronize()
+    assert (ff.field_grads.launches, ff.field_grads.input_grad_launches) == (
+        before[0] + 2, before[1] + 2 * input_grads)
+    leaves = {**got[0], "dpts": got[1], "ddirs": got[2]}
+    leaves_again = {**again[0], "dpts": again[1], "ddirs": again[2]}
+    refs = {**want[0], "dpts": want[1], "ddirs": want[2]}
+    for name, ref in refs.items():
+        if ref is None:
+            assert leaves[name] is None, name
+            continue
+        assert torch.equal(leaves[name], leaves_again[name]), name
+        assert leaves[name].shape == ref.shape and torch.isfinite(leaves[name]).all(), name
+        scale = max(float(ref.abs().max()), 1e-12)
+        err = float((leaves[name] - ref).abs().max())
+        assert err <= GRAD_TOL * scale, (name, err / scale)
+
+
+def test_field_through_autograd(cuda):
+    """fused_field_apply: the field forward, and as its backward the field
+    backward, in its input-gradient mode only when pts or dirs needs a
+    gradient; every leaf gets one."""
+    field = _field(cuda, 37, use_semantics=True, sem_with_coord=True, sem_dim=2, **SHAPES[0])
+    pts, dirs = _field_points(cuda, 300, 38)
+    for want_inputs in (False, True):
+        p, d = pts.clone().requires_grad_(want_inputs), dirs.clone().requires_grad_(want_inputs)
+        before = (ff.field_forward.launches, ff.field_grads.launches,
+                  ff.field_grads.input_grad_launches)
+        field.zero_grad(set_to_none=True)
+        (ff.fused_field_apply(field, p, d) ** 2).sum().backward()
+        torch.cuda.synchronize()
+        assert (ff.field_forward.launches, ff.field_grads.launches,
+                ff.field_grads.input_grad_launches) == (before[0] + 1, before[1] + 1,
+                                                         before[2] + want_inputs)
+        assert all(q.grad is not None and torch.isfinite(q.grad).all()
+                   for q in field.parameters())
+        assert (p.grad is not None) == want_inputs and (d.grad is not None) == want_inputs
+
+
+def test_field_kernels_reject_bad_inputs(cuda):
+    field = _field(cuda, 0, use_semantics=True, sem_dim=2, **SHAPES[1])
+    pts, dirs = _field_points(cuda, 16, 3)
+    with pytest.raises(ValueError):
+        ff.field_forward(field, pts, dirs[:8])
+    with pytest.raises(ValueError):
+        ff.fused_sigma_apply(field, pts.t().contiguous().t())  # not contiguous
+    with pytest.raises(NotImplementedError):
+        ff.field_forward(field, pts.double(), dirs.double())
+    with pytest.raises(NotImplementedError):
+        ff.field_forward(field.cpu(), pts, dirs)
+    with pytest.raises(ValueError):
+        ff.field_grads(field.to(cuda), pts, dirs, torch.zeros(16, 5, device=cuda),
+                       input_grads=False)
+    with pytest.raises(NotImplementedError):
+        ff.fused_mip_field_apply(field, pts, torch.zeros_like(pts), dirs)  # a semantic head
+
+
+def test_field_kernels_empty_batch(cuda):
+    field = _field(cuda, 0, use_semantics=True, sem_dim=2, **SHAPES[1])
+    pts = torch.zeros(0, 3, device=cuda)
+    assert ff.field_forward(field, pts, pts).shape == (0, 6)
+    assert ff.fused_sigma_apply(field, pts).shape == (0,)
+    grads, dp, dd = ff.field_grads(field, pts, pts, torch.zeros(0, 6, device=cuda),
+                                   input_grads=True)
+    assert dp.shape == dd.shape == (0, 3) and all(float(v.abs().max()) == 0 for v in grads.values())

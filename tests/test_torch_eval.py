@@ -22,6 +22,7 @@ from nerfsos_torch.models.nerf import NeRFConfig as TorchConfig
 from nerfsos_torch.models.nerf import NeRFNet as TorchNet
 from nerfsos_torch.ops.kmeans import kmeans, segmap_cluster
 from nerfsos_torch.ops.ssim import ssim as tssim
+from nerfsos_torch.utils import io as tio
 from nerfsos_tpu.engines import eval as jeval
 from nerfsos_tpu.losses import photometric as jphoto
 from nerfsos_tpu.models.nerf import NeRFConfig as JaxConfig
@@ -179,10 +180,19 @@ def test_run_nerf_eval_end_to_end(tmp_path):
                                   ["--eval_vol"], ["--eval", "--mipnerf"]])
 def test_unported_modes_exit(tmp_path, mode):
     """Each of these modes stops with "not yet ported", but ``--patch_tune``
-    alone, which now runs the RGB finetune on patches (one step here), and
+    alone, which now runs the RGB finetune on patches (one step here),
     ``--eval --mipnerf``, which now renders the test view from a mip
-    checkpoint."""
+    checkpoint, and ``--eval_vol``, which now exports the checkpoint's
+    density on the ``--vol_extents 0.2 --vol_size 0.02`` grid."""
     data, logs, ckpt = _scene(tmp_path, EVAL_CFG, height=4, width=4)
+    if mode == ["--eval_vol"]:
+        args, _ = run_nerf.create_arg_parser().parse_known_args(
+            _argv(data, logs, ckpt, *mode, "--vol_extents", "0.2", "--vol_size", "0.02"))
+        run_nerf.main(args, device="cpu")
+        vol = tio.read_mrc(str(logs / "t" / "eval" / "density.mrc"))
+        assert vol.shape == (10, 10, 10) and np.isfinite(vol).all() and (vol >= 0).all()
+        assert os.path.exists(logs / "t" / "eval" / "density.ply")
+        return
     if "--mipnerf" in mode:
         cfg = {k: v for k, v in EVAL_CFG.items() if k != "use_semantics"}
         tckpt.save_checkpoint(ckpt, 3, MipNeRFNet(TorchConfig(**cfg, use_semantics=False)))
