@@ -40,9 +40,12 @@ Phases (one line each; any failure raises and the exit code is nonzero):
   9. K4 (the SOS train forward) and K5 (the semantic-head backward) vs their
      plain versions at the flagship width with the semantic head and
      coordinates, 4096 rays, S=64 and S=192, noise 1 from a fixed seed, fixed
-     sorted z: K4's maps, weights and sem_in to TOL; K5 on K4's own outputs
-     with seeded map cotangents, each leaf to GRAD_TOL plus its allowance for
-     semantic-head gates near 0, and two calls bitwise equal;
+     sorted z: K4's maps, weights and sem_in to TOL and two calls bitwise
+     equal, with K4's design numbers (the weight bytes a point reads from
+     L2 through its ring, the achieved 3xTF32 rate against the peak,
+     ptxas's register/spill line); K5 on K4's own outputs with seeded map
+     cotangents, each leaf to GRAD_TOL plus its allowance for semantic-head
+     gates near 0, and two calls bitwise equal;
  10. the SOS finetune: ``run_nerf.main`` with the flags of
      scripts/train_flower_node0.sh (8 patches of 64x64, stride 6, ViT-S/16
      with seeded weights, both correlation losses) on 8 train views of
@@ -51,13 +54,15 @@ Phases (one line each; any failure raises and the exit code is nonzero):
      re-render, K5 twice a step, K7a/K7f/K7g once a step; every loss term
      finite and the correlation terms nonzero; the trunk bitwise equal to
      the checkpoint's and the semantic head moved; the final eval through
-     K1/K2; the last step's K4 and K5 calls against their plain versions;
+     K1/K2; the last step's K4 and K5 calls against their plain versions
+     (K4 also against a second call on the same inputs, bitwise);
  11. K7 (row stats, the four geometry means, the code gradients) on the last
      SOS step's own inputs (16 x 4096 pixels, 2 channels) vs the plain
      versions to K7_TOL, two calls bitwise equal;
  12. the 32768-ray SOS step (CUDA events) on the kernel and the plain path,
      with peak memory, and its parts timed alone (K4 and K5 coarse and
-     fine, ViT, appearance loss, K7 forward and backward, Adam);
+     fine, ViT, appearance loss, K7 forward and backward, Adam), K4's with
+     its design numbers as in 9;
  13. K6 (the full train-render backward) vs its plain version on the
      [K4]/[K5] phase's field and rays (4096 rays, S=64 and S=192, noise 1)
      with seeded map and weight cotangents: every leaf to GRAD_TOL plus its
@@ -193,6 +198,9 @@ K7_TOL = 1e-4
 HBM_BYTES_S = 3.35e12
 FP32_MMA_FLOP_S = 495e12 / 3
 FP32_SIMT_FLOP_S = 67e12
+# ptxas's line for K4's kernel (train_render_wg_kernel), read from the build
+# log in main
+K4_PTXAS = None
 
 
 def phase(name: str, **fields) -> None:
@@ -922,6 +930,23 @@ def k4_cost(field, R: int, S: int) -> dict:
     return bound_ms(nbytes, R * S * field_flops(field, "k2"))
 
 
+def k4_design(field, R: int, S: int, ms: float) -> dict:
+    """What K4's design moves and reaches on R x S points in ms: the weight
+    bytes a point reads from L2 (pack_ring's stages, once per 128-point
+    tile, against the 64-point dense() tile's hi and lo fragments, read by
+    both warps along its points: 2 x 8 B per k x pad8(n) entry a tile), the
+    achieved 3xTF32 rate and its peak, and ptxas's line for the kernel."""
+    from nerfsos_torch.ops import fused_render as fr
+
+    ring, _ = fr.pack_ring(field)
+    old = sum(L.k * ((L.n + 7) // 8 * 8) for L in fr.pack_field(field)[1].layer
+              if L.n > 8) * 16 / 64
+    return {"l2_weight_bytes_per_point": ring.numel() * 4 / 128,
+            "dense_tile_l2_weight_bytes_per_point": old,
+            "achieved_tflop_s": R * S * field_flops(field, "k2") / ms / 1e9,
+            "mma_peak_tflop_s": FP32_MMA_FLOP_S / 1e12, "ptxas": repr(K4_PTXAS)}
+
+
 def k5_cost(field, R: int, S: int) -> dict:
     """K5's bound: per point sem_0's forward, ds, dW1 and dW0 (4 C H + 4 H
     sem FLOP); sem_in, the weights and the maps' cotangent read once."""
@@ -975,6 +1000,7 @@ def kernel_vs_plain_k4_k5(fr, S: int) -> dict:
     kw = dict(noise_std=1.0, seed=7654321, save_semin=True)
     with torch.no_grad():
         got = fr.train_render(field, odv, z, **kw)
+        again = fr.train_render(field, odv, z, **kw)
         want = fr.train_render_plain(field, odv, z, **kw)
     torch.cuda.synchronize()
     errs = k4_errors(got, want)
@@ -982,11 +1008,14 @@ def kernel_vs_plain_k4_k5(fr, S: int) -> dict:
     if not (finite and max(errs) <= TOL):
         raise SystemExit(f"K4 disagrees with its plain version (S={S}): maps (scaled), "
                          f"weights, sem_in errors {errs} (tol {TOL}), finite={finite}")
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise SystemExit(f"K4's outputs differ between two calls (S={S})")
     with torch.no_grad():
         ms = cuda_ms(lambda: fr.train_render(field, odv, z, **kw))
         plain_ms = cuda_ms(lambda: fr.train_render_plain(field, odv, z, **kw), reps=3)
     phase("K4", rays=R, samples=S, max_err_maps_scaled=errs[0], max_abs_err_weights=errs[1],
-          max_abs_err_sem_in=errs[2], tol=TOL, ms=ms, plain_ms=plain_ms, **k4_cost(field, R, S))
+          max_abs_err_sem_in=errs[2], tol=TOL, deterministic=True, ms=ms, plain_ms=plain_ms,
+          **k4_cost(field, R, S), **k4_design(field, R, S, ms))
 
     _, w, sem_in = got
     dmaps = torch.from_numpy(np.random.default_rng(S).normal(size=(R, 7)).astype(np.float32))
@@ -1227,6 +1256,10 @@ def sos_path(fr, fc) -> dict:
         if max(e) > TOL:
             raise SystemExit(f"K4 at step {last} ({name}): maps (scaled), weights, sem_in "
                              f"errors {e} > {TOL}")
+        with torch.no_grad():
+            again = fr.train_render(*a, **kw)
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            raise SystemExit(f"K4 at step {last} ({name}): two calls differ")
         errs[f"K4 {name}"] = max(e)
         del want4
     for a, kw, got in calls5:
@@ -1538,9 +1571,13 @@ def sos_step_timings(fr, fc, sos_run, name: str = "sos_step",
     parts["Adam"] = (cuda_ms(optimizer.step, reps=5, warmup=1), None)
     for part, v in parts.items():
         if not part.endswith("cost"):
+            design = {}
+            if part.startswith("K4"):
+                fa = k4kb.calls["train_render"][part == "K4 fine"][0]
+                design = k4_design(fa[0], *fa[2].shape, v[0])
             phase(f"{name}_part", part=part, ms=v[0], plain_ms=v[1],
                   **({"bound_ms": parts[part + " cost"]["bound_ms"]}
-                     if part + " cost" in parts else {}))
+                     if part + " cost" in parts else {}), **design)
     step_ms = out["kernel"][-1][0]
     named = sum(v[0] for n, v in parts.items() if not n.endswith("cost") and n != "Adam")
     phase(f"{name}_split", step_ms=step_ms, parts_ms=named + parts["Adam"][0],
@@ -2326,10 +2363,17 @@ def main() -> int:
     lib_path = _build.build()
     _build.library()
     phase("build", seconds=time.perf_counter() - t0, lib=os.path.relpath(lib_path, ROOT))
+    global K4_PTXAS
     with open(lib_path + ".log") as f:
-        for line in f:
-            if "registers" in line or "spill" in line:
-                print("  ptxas:", line.strip())
+        lines = f.read().splitlines()
+    for i, line in enumerate(lines):
+        if "registers" in line or "spill" in line:
+            print("  ptxas:", line.strip())
+        if "Compiling entry function" in line and "train_render_wg_kernel" in line:
+            K4_PTXAS = "; ".join(x.replace("ptxas info    :", "").strip()
+                                 for x in lines[i + 2:i + 4])
+    if K4_PTXAS is None:
+        raise SystemExit("no ptxas report for K4's kernel (train_render_wg_kernel)")
 
     k1 = kernel_vs_plain_k1(fr)
     k2 = kernel_vs_plain_k2(fr, use_semantics=True)
@@ -2409,7 +2453,8 @@ def main() -> int:
         {"name": "K3 fused_rgb_train_grads", "route": "cuda", "source": train_src,
          "replaces": "nerfsos_tpu/ops/pallas/fused_render.py:940",
          "launches": train_launches["K3"], **k3},
-        {"name": "K4 train_render", "route": "cuda", "source": train_src,
+        {"name": "K4 train_render", "route": "cuda",
+         "source": "nerfsos_torch/csrc/wg_tile.cuh",
          "replaces": "nerfsos_tpu/ops/pallas/fused_render.py:852",
          "launches": sos_launches["K4"], **main_path_numbers("K4", k45_err["K4"])},
         {"name": "K5 frozen_sem_grads", "route": "cuda", "source": train_src,

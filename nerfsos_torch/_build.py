@@ -127,6 +127,16 @@ class TrainDesc(ctypes.Structure):
                 ("ibwd", MLPLayer * MAX_LAYERS)]
 
 
+MAX_RING_STAGES = 4
+
+
+class RingDesc(ctypes.Structure):
+    """Mirror of ``RingDesc`` in ``csrc/wg_tile.cuh``."""
+    _fields_ = [("off", ctypes.c_longlong * MAX_LAYERS), ("ncols", ctypes.c_int * MAX_LAYERS),
+                ("hrows", ctypes.c_int), ("stages", ctypes.c_int),
+                ("stage_floats", ctypes.c_int)]
+
+
 MAX_SEM_BLOCKS = 4
 
 
@@ -158,8 +168,8 @@ def library() -> ctypes.CDLL:
     lib.nerf_render.argtypes = [vp, vp, vp, desc_p, vp, vp, i32, i32, i32, vp]
     lib.nerf_rgb_train_grads.argtypes = [vp, vp, vp, vp, vp, train_p, vp, vp, vp, vp, vp, i32,
                                          i32, i32, ctypes.c_uint, f32, i32, vp]
-    lib.nerf_train_render.argtypes = [vp, vp, vp, train_p, vp, vp, vp, i32, i32, ctypes.c_uint,
-                                      f32, vp]
+    lib.nerf_train_render.argtypes = [vp, vp, vp, vp, train_p, ctypes.POINTER(RingDesc), vp, vp,
+                                      vp, i32, i32, ctypes.c_uint, f32, vp]
     lib.nerf_train_render_grads.argtypes = [vp, vp, vp, vp, vp, vp, train_p, vp, vp, vp, i32,
                                             i32, i32, ctypes.c_uint, f32, vp]
     lib.nerf_frozen_sem_grads.argtypes = [vp, vp, vp, vp, ctypes.POINTER(FrozenDesc), vp, vp,

@@ -60,14 +60,15 @@
 // The same file holds the frozen-backbone SOS finetune's two kernels:
 //
 // K4 (replaces _train_render_fwd_impl -> _train_render_kernel): the train
-// forward, K3's forward tile and composite without the loss and without the
-// workspace: maps [R, 5 + sem] and weights [R, S] with the hash noise and,
-// on request, sem_in [R * S, C] = [h; emb] per point (C = 319 at the
+// forward, maps [R, 5 + sem] and weights [R, S] with the hash noise and, on
+// request, sem_in [R * S, C] = [h; emb] per point (C = 319 at the
 // flagship), written from the activations the tile already holds. It is
 // bound by its arithmetic (the forward, ~1.27 MFLOP a fine point); sem_in
 // adds C * 4 bytes a point of writes (8.0 GB for the 32768 x 192 fine pass,
 // ~2.4 ms at 3.35 TB/s). The JAX package recomputes above an 8 GiB residual
-// for a 16 GB TPU; on an 80 GB card sem_in is always stored.
+// for a 16 GB TPU; on an 80 GB card sem_in is always stored. Its tile is
+// Hopper's own (wg_tile.cuh: 128 points, two consumer warpgroups on wgmma,
+// the weights through a TMA ring), then K3's composite.
 //
 // K5 (replaces _train_render_frozen_bwd_impl -> _train_frozen_bwd_kernel):
 // the gradients of the semantic head alone, with the composite weights held
@@ -109,7 +110,8 @@
 // ds: 264 rows a tile) add ~8% to the per-CTA workspace.
 //
 // mip-NeRF's three kernels are a fourth mode (kMip) of the same kernels:
-//   K9   fused_mip_render_planar -> _mip_render_kernel: K4's kernel without
+//   K9   fused_mip_render_planar -> _mip_render_kernel: the train forward
+//        (K4's work, on train_sweep.cuh's 64-point forward_tile) without
 //        noise on odvr [R, 10] (o, d, viewdirs, radius) and fenceposts
 //        z [R, S + 1] -> maps [R, 5] (w·rgb x3, w·mid, w) and w [R, S];
 //   K10a _mip_train_fwd_impl -> _mip_train_kernel: the same with the noise;
@@ -124,14 +126,14 @@
 // PE; the composite takes D = (t1 - t0)·‖d‖ with no far pad and the
 // midpoint as the depth, and K10b's cotangent mode reads the midpoint in
 // dw. Everything else (the trunk with its [emb, h] skip, the heads, the
-// reverse sweep, the CTA-ordered reduction) is K4's and K6's. Bound: the
+// reverse sweep, the CTA-ordered reduction) is K3's and K6's. Bound: the
 // same arithmetic as K4 and K6 without the semantic head (~1.18 MFLOP a
 // point forward, ~3x that for K10b); the Gaussian and the 60 sin/exp of a
 // point are ~1% of it.
 
 // The forward tile, the reverse sweep and the reduction live in
 // train_sweep.cuh, which the field kernels (fused_field.cu) share.
-#include "train_sweep.cuh"
+#include "wg_tile.cuh"
 
 namespace {
 
@@ -207,7 +209,8 @@ enum Mode { kForward, kLoss, kCotangent };
 // (pre-sigmoid) and, for kCotangent, d_sem per point. kMip: odv is odvr
 // [R, 10] and zc fenceposts [nr][S + 1]; an interval's distance is
 // (t1 - t0)·‖d‖ with no far pad and its depth the midpoint (t0 + t1) / 2.
-template <int kMode, bool kMip = false>
+// kThr: the threads that run it (threads 0 .. kThr - 1 of the CTA).
+template <int kMode, bool kMip = false, int kThr = kThreads>
 __device__ __forceinline__ void composite_chunk(const float* __restrict__ odv, const float* zc,
                                                 const float* __restrict__ aux,
                                                 const float* __restrict__ dweights,
@@ -218,7 +221,7 @@ __device__ __forceinline__ void composite_chunk(const float* __restrict__ odv, c
                                                 float noise_std, int white_bkgd) {
   const int sem = d.f.sem_dim, cs = 6 + sem, nmaps = 5 + sem, nq = nr * S;
   const int p_dsem = P_ACT0 + d.f.depth + 1;
-  for (int rl = threadIdx.x; rl < nr; rl += kThreads) {
+  for (int rl = threadIdx.x; rl < nr; rl += kThr) {
     const float* ray = odv + (size_t)(r0 + rl) * (kMip ? 10 : 9);
     const float nd = sqrtf(ray[3] * ray[3] + ray[4] * ray[4] + ray[5] * ray[5]);
     const float* zr = zc + (size_t)rl * (kMip ? S + 1 : S);
@@ -308,7 +311,7 @@ __device__ __forceinline__ void composite_chunk(const float* __restrict__ odv, c
       }
     }
   }
-  for (int q = nq + threadIdx.x; kMode != kForward && q < nsub * kPts; q += kThreads) {
+  for (int q = nq + threadIdx.x; kMode != kForward && q < nsub * kPts; q += kThr) {
     const int sub = q / kPts, p = q % kPts;  // the last tile's tail
     plane(ws, d, P_DSIG, sub)[p] = 0.f;
     float* dr = plane(ws, d, P_DRGB, sub);
@@ -316,7 +319,7 @@ __device__ __forceinline__ void composite_chunk(const float* __restrict__ odv, c
     if (kMode == kCotangent)
       for (int j = 0; j < sem; ++j) plane(ws, d, p_dsem, sub)[j * kLd + p] = 0.f;
   }
-  __syncthreads();
+  if (kThr == kThreads) __syncthreads();
 }
 
 // Wave `wave` of the forward: CTA b takes chunk wave * gridDim.x + b into its
@@ -369,12 +372,15 @@ __global__ void __launch_bounds__(kThreads, 1)
                                nsub, seed, noise_std, white_bkgd);
 }
 
-// K4: CTA b takes chunk b (d.rays_per_chunk rays): the forward of each
-// 64-point tile (with the sem_in rows when semin is not null), then the
-// composite with the sigma noise into maps and weights. Nothing is stored
-// for a reverse sweep. kMip: K9 (noise_std 0) and K10a, on odvr [R, 10] and
-// fenceposts [R, S + 1]; maps [R, 5]; semin is null.
-template <bool kMip = false>
+// K9 (noise_std 0) and K10a: CTA b takes chunk b (d.rays_per_chunk rays)
+// of odvr [R, 10] and fenceposts [R, S + 1]: the forward of each 64-point
+// tile, then the composite with the sigma noise into maps [R, 5] and
+// weights. Nothing is stored for a reverse sweep. semin is null: it was
+// K4's (forward_tile's sem_in rows) before K4 had a tile of its own, and
+// stays a runtime argument because without it ptxas allocates this kernel
+// otherwise and K9 ran 5.5% slower (H100, 4096 x 190 intervals, 28.9 ->
+// 30.6 ms, nerfsos_torch/tools/tile_probe.py --kernel k9).
+template <bool kMip>
 __global__ void __launch_bounds__(kThreads, 1)
     train_render_kernel(const float* __restrict__ odv, const float* __restrict__ z,
                         const float* __restrict__ params, const __grid_constant__ TrainDesc d,
@@ -396,6 +402,64 @@ __global__ void __launch_bounds__(kThreads, 1)
                                            sub, semin, (long long)r0 * S);
   composite_chunk<kForward, kMip>(odv, zc, nullptr, nullptr, d, nullptr, strip, maps, weights, r0,
                                   nr, S, nsub, seed, noise_std, 0);
+}
+
+// K4: CTA b takes chunk b (d.rays_per_chunk rays, nq points) in tiles of
+// 128 points (wg_tile.cuh): warps 0-7 are the two consumer warpgroups,
+// whose registers setmaxnreg raises to 232 a thread (the 128 accumulators
+// of an N = 256 layer), warps 8-11 the producer warpgroup, down to 40, of
+// which one thread drives the ring; then the consumers composite the chunk
+// with the sigma noise into maps and weights (a thread a ray).
+// Shared memory: the ring's barriers (128 B), rd.stages ring stages, the
+// two warpgroups' emb, demb and h tiles, the composite strip.
+__global__ void __launch_bounds__(kWgThreads, 1)
+    train_render_wg_kernel(const float* __restrict__ odv, const float* __restrict__ z,
+                           const float* __restrict__ params, const float* __restrict__ ring,
+                           const __grid_constant__ TrainDesc d,
+                           const __grid_constant__ RingDesc rd, float* __restrict__ maps,
+                           float* __restrict__ weights, float* __restrict__ semin, int R, int S,
+                           unsigned seed, float noise_std) {
+  extern __shared__ __align__(128) unsigned char wg_raw[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(wg_raw);
+  uint64_t* empty = full + kMaxRingStages;
+  float* stages = reinterpret_cast<float*>(wg_raw + 128);
+  const MLPDesc& f = d.f;
+  const int Ep = pad8(f.emb_dim), Edp = pad8(f.demb_dim);
+  const int per_wg = (Ep + Edp + rd.hrows) * kWgPts;
+  float* tiles = stages + (size_t)rd.stages * rd.stage_floats;
+  float* strip = tiles + 2 * per_wg;
+  const int rpc = d.rays_per_chunk, r0 = blockIdx.x * rpc, nr = min(rpc, R - r0), nq = nr * S;
+  const int ntiles = (nq + kWgTile - 1) / kWgTile;
+  const WgRing rg{stages, full, empty, rd.stages, rd.stage_floats};
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < rd.stages; ++i) {
+      mbar_init(full + i, 1);
+      mbar_init(empty + i, kWgConsumers / 32);  // lane 0 of each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (threadIdx.x < 2 * kWgPts) {  // the padding rows of emb and demb, which nothing else writes
+    float* mine = tiles + (threadIdx.x / kWgPts) * per_wg;
+    const int p = threadIdx.x % kWgPts;
+    for (int k = f.emb_dim; k < Ep; ++k) mine[swz(k, p)] = 0.f;
+    for (int k = f.demb_dim; k < Edp; ++k) mine[Ep * kWgPts + swz(k, p)] = 0.f;
+  }
+  __syncthreads();
+  if (threadIdx.x >= kWgConsumers) {  // the producer warpgroup gives up its registers
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x == kWgConsumers) ring_producer(ring, f, rd, rg, ntiles);
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  float* mine = tiles + (threadIdx.x >> 7) * per_wg;
+  const float* zc = z + (size_t)r0 * S;
+  int pos = 0;
+  for (int tile = 0; tile < ntiles; ++tile)
+    pos = wg_forward_tile(odv, zc, r0, S, nq, tile, params, f, rd, rg, pos, mine, strip, semin,
+                          (long long)r0 * S);
+  asm volatile("bar.sync 3, %0;\n" ::"n"(kWgConsumers) : "memory");  // the strip is whole
+  composite_chunk<kForward, false, kWgConsumers>(odv, zc, nullptr, nullptr, d, nullptr, strip,
+                                                 maps, weights, r0, nr, S, 0, seed, noise_std, 0);
 }
 
 // K5: the semantic head's weight gradients for a frozen backbone.
@@ -658,40 +722,39 @@ __global__ void __launch_bounds__(kThreads, 1)
       gp[d.gb1 + i] = acc1[kSemBlk * kMaxSem + kSemBlk + i];
 }
 
-// shared memory of the forward kernels (K3's and K4): the chunk's composite
-// strip, then emb, demb and two layer tiles
+// shared memory of the forward kernels (K3's, K9's and K10a's): the chunk's
+// composite strip, then emb, demb and two layer tiles
 int forward_smem(const TrainDesc* d, int S) {
   return (int)((((size_t)d->rays_per_chunk * S * (6 + d->f.sem_dim) + 3) / 4 * 4) *
                sizeof(float)) +
          tile_smem(d->f);
 }
 
-}  // namespace
-
-// K4: one launch, a CTA a chunk of d->rays_per_chunk rays; semin may be null.
-namespace {
-
-template <bool kMip>
-int train_render_launch(const float* odv, const float* z, const float* params,
-                        const TrainDesc* d, float* maps, float* weights, float* semin, int R,
-                        int S, unsigned seed, float noise_std, cudaStream_t st) {
-  const int smem = forward_smem(d, S);
-  cudaError_t err = cudaFuncSetAttribute(train_render_kernel<kMip>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const int nchunks = (R + d->rays_per_chunk - 1) / d->rays_per_chunk;
-  train_render_kernel<kMip><<<nchunks, kThreads, smem, st>>>(odv, z, params, *d, maps, weights,
-                                                             semin, R, S, seed, noise_std);
-  return (int)cudaGetLastError();
+// shared memory of K4 (train_render_wg_kernel); ops/fused_render.py
+// _wg_smem computes the same
+int wg_smem(const TrainDesc* d, const RingDesc* rd, int S) {
+  const MLPDesc& f = d->f;
+  const size_t rows = (f.emb_dim + 7) / 8 * 8 + (f.demb_dim + 7) / 8 * 8 + rd->hrows;
+  const size_t strip = ((size_t)d->rays_per_chunk * S * (6 + f.sem_dim) + 3) / 4 * 4;
+  return (int)(128 + ((size_t)rd->stages * rd->stage_floats + 2 * rows * kWgPts + strip) *
+                         sizeof(float));
 }
 
 }  // namespace
 
+// K4: one launch, a CTA a chunk of d->rays_per_chunk rays; semin may be null.
 extern "C" int nerf_train_render(const float* odv, const float* z, const float* params,
-                                 const TrainDesc* d, float* maps, float* weights, float* semin,
-                                 int R, int S, unsigned seed, float noise_std, void* stream) {
-  return train_render_launch<false>(odv, z, params, d, maps, weights, semin, R, S, seed,
-                                    noise_std, (cudaStream_t)stream);
+                                 const float* ring, const TrainDesc* d, const RingDesc* rd,
+                                 float* maps, float* weights, float* semin, int R, int S,
+                                 unsigned seed, float noise_std, void* stream) {
+  const int smem = wg_smem(d, rd, S);
+  cudaError_t err = cudaFuncSetAttribute(train_render_wg_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int nchunks = (R + d->rays_per_chunk - 1) / d->rays_per_chunk;
+  train_render_wg_kernel<<<nchunks, kWgThreads, smem, (cudaStream_t)stream>>>(
+      odv, z, params, ring, *d, *rd, maps, weights, semin, R, S, seed, noise_std);
+  return (int)cudaGetLastError();
 }
 
 // K9 (noise_std 0) and K10a: the mip render pass, odvr [R, 10] and
@@ -701,8 +764,14 @@ extern "C" int nerf_train_render(const float* odv, const float* z, const float* 
 extern "C" int nerf_mip_render(const float* odvr, const float* z, const float* params,
                                const TrainDesc* d, float* maps, float* weights, int R, int S,
                                unsigned seed, float noise_std, void* stream) {
-  return train_render_launch<true>(odvr, z, params, d, maps, weights, nullptr, R, S, seed,
-                                   noise_std, (cudaStream_t)stream);
+  const int smem = forward_smem(d, S);
+  cudaError_t err = cudaFuncSetAttribute(train_render_kernel<true>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int nchunks = (R + d->rays_per_chunk - 1) / d->rays_per_chunk;
+  train_render_kernel<true><<<nchunks, kThreads, smem, (cudaStream_t)stream>>>(
+      odvr, z, params, *d, maps, weights, nullptr, R, S, seed, noise_std);
+  return (int)cudaGetLastError();
 }
 
 // K5: grid x d->nblk CTAs over P = R * S points, each CTA x with a

@@ -1,5 +1,6 @@
 // Device building blocks of the train kernels' reverse sweep, shared by the
-// fused train kernels (train_render.cu: K3, K4, K6, K9, K10a, K10b) and the
+// fused train kernels (train_render.cu: K3, K6, K9, K10a, K10b; K4's tile
+// is wg_tile.cuh) and the
 // field kernels (fused_field.cu: K8a-K8f, K11): the train descriptor and
 // its workspace planes, the forward of one 64-point tile (storing what the
 // reverse sweep reads), the input-gradient product of a layer (bwd_layer),
@@ -295,9 +296,10 @@ struct OutCols {
 // the trunk and the alpha head alone, with no view encoding. kStore (K3,
 // K6, K8c/K8f): every activation the reverse sweep reads is also stored to
 // the workspace; kSemAct (K6, K8c/K8f): the semantic head's hidden
-// activation too (plane P_ACT0 + depth). semin (K4, may be null): the
-// semantic head's input [h; emb] of each point is written as a row of semin
-// [P][C] (C its unpadded width), point q of the chunk at row base + q.
+// activation too (plane P_ACT0 + depth). semin (may be null, as every
+// caller's is since K4 has its own tile, wg_tile.cuh): the semantic head's
+// input [h; emb] of each point is written as a row of semin [P][C] (C its
+// unpadded width), point q of the chunk at row base + q.
 template <bool kStore, bool kSemAct, bool kIpe, bool kHeads, class Fill>
 __device__ __forceinline__ void forward_tile(const Fill& fill, const float* __restrict__ params,
                                              const TrainDesc& d, float* ws, float* out,

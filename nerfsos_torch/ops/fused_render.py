@@ -420,6 +420,22 @@ def _field_layers(field: nn.Module) -> List[Tuple[nn.Linear, List[int]]]:
     return out
 
 
+def _padded_wt(lin: nn.Linear, segs: List[int]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``W^T`` (``[in, out]``) with every input segment and the output width
+    padded to a multiple of 8 by zero rows and columns, and the zero-padded
+    bias."""
+    wt = lin.weight.detach().t()
+    kpad, npad = sum(_pad8(k) for k in segs), _pad8(lin.out_features)
+    w = wt.new_zeros((kpad, npad))
+    r = rp = 0
+    for k in segs:
+        w[rp:rp + k, :lin.out_features] = wt[r:r + k]
+        r, rp = r + k, rp + _pad8(k)
+    b = wt.new_zeros(npad)
+    b[:lin.out_features] = lin.bias.detach()
+    return w, b
+
+
 def pack_field(field: nn.Module) -> Tuple[torch.Tensor, _build.MLPDesc]:
     """All weights of a field in one fp32 buffer plus the descriptor the
     kernel reads. Each layer is ``W^T`` (``[in, out]``, the layout the kernel
@@ -432,18 +448,10 @@ def pack_field(field: nn.Module) -> Tuple[torch.Tensor, _build.MLPDesc]:
     desc = _build.MLPDesc()
     parts, off = [], 0
     for i, (lin, segs) in enumerate(layers):
-        wt = lin.weight.detach().t()
-        kpad, npad = sum(_pad8(k) for k in segs), _pad8(lin.out_features)
-        w = wt.new_zeros((kpad, npad))
-        r = rp = 0
-        for k in segs:
-            w[rp:rp + k, :lin.out_features] = wt[r:r + k]
-            r, rp = r + k, rp + _pad8(k)
-        b = wt.new_zeros(npad)
-        b[:lin.out_features] = lin.bias.detach()
+        w, b = _padded_wt(lin, segs)
         hi = _tf32(w)
         lo = _tf32(w - hi)
-        desc.layer[i] = _build.MLPLayer(off, off + 3 * w.numel(), kpad, lin.out_features)
+        desc.layer[i] = _build.MLPLayer(off, off + 3 * w.numel(), w.shape[0], lin.out_features)
         parts += [w.reshape(-1), hi.reshape(-1), lo.reshape(-1), b]
         off += 3 * w.numel() + b.numel()
     depth = mlp.depth
@@ -456,6 +464,57 @@ def pack_field(field: nn.Module) -> Tuple[torch.Tensor, _build.MLPDesc]:
     desc.sem_dim = layers[-1][0].out_features if mlp.use_semantics else 0
     desc.sem_with_coord = int(mlp.use_semantics and mlp.sem_with_coord)
     return torch.cat(parts).to(torch.float32).contiguous(), desc
+
+
+_RING_WIDTHS = (8, 16, 32, 64, 128, 256)  # K4's wgmma widths (csrc/wg_tile.cuh wg_layer_n)
+
+
+def _ring_n(n: int) -> int:
+    """The wgmma width K4 multiplies a layer of ``n`` outputs at."""
+    for w in _RING_WIDTHS:
+        if w >= n:
+            return w
+    raise NotImplementedError(f"K4 takes layers of at most {_RING_WIDTHS[-1]} outputs, got {n}")
+
+
+def ring_layers(field: nn.Module) -> List[int]:
+    """The layers K4 multiplies on wgmma, by kernel layer index, in the
+    order its ring delivers them (``ring_order`` in ``csrc/wg_tile.cuh``):
+    the trunk, sem_0 (with the semantic head), feature, views."""
+    depth = field.mlp.depth
+    return (list(range(depth)) + ([depth + 4] if field.mlp.use_semantics else [])
+            + [depth + 1, depth + 2])
+
+
+def pack_ring(field: nn.Module) -> Tuple[torch.Tensor, _build.RingDesc]:
+    """K4's weights for its ring of shared-memory stages, and the ring's
+    descriptor (``stages`` left 0: the wrapper sets it per call). For each
+    of :func:`ring_layers`, ``pack_field``'s padded ``W^T [kpad, npad]``
+    with its columns padded further to the wgmma width ``N`` (:func:`_ring_n`)
+    is cut into k-slices of 8 rows, each one stage: the slice's TF32 high
+    parts, then its low parts, each as ``[N / 8][2][8][4]`` with element
+    ``(j, h, r, c) = W^T[8 s + 4 h + c][8 j + r]`` (wgmma's K-major core
+    matrices of 8 outputs x 4 inputs, the two k halves of an output group
+    side by side). ``hrows`` is the widest ``N`` of the trunk and feature
+    (the rows each warpgroup's ``h`` tile holds)."""
+    layers = _field_layers(field)
+    rd = _build.RingDesc()
+    parts, off = [], 0
+    for i in ring_layers(field):
+        w, _ = _padded_wt(*layers[i])
+        n = _ring_n(w.shape[1])
+        wt = w.new_zeros((w.shape[0], n))
+        wt[:, :w.shape[1]] = w
+        hi = _tf32(wt)
+        blocks = torch.stack([hi, _tf32(wt - hi)]).reshape(2, -1, 2, 4, n // 8, 8)
+        blocks = blocks.permute(1, 0, 4, 2, 5, 3).reshape(-1)  # [s, part, j, h, r, c]
+        rd.off[i], rd.ncols[i] = off, n
+        parts.append(blocks)
+        off += blocks.numel()
+    depth = field.mlp.depth
+    rd.hrows = max(rd.ncols[i] for i in list(range(depth)) + [depth + 1])
+    rd.stage_floats = 16 * max(rd.ncols[i] for i in ring_layers(field))
+    return torch.cat(parts).to(torch.float32).contiguous(), rd
 
 
 def _bwd_matrix(blocks: List[torch.Tensor]) -> torch.Tensor:
@@ -800,10 +859,37 @@ def fused_rgb_train_grads(field: nn.Module, odv: torch.Tensor, z: torch.Tensor, 
 
 
 def _forward_smem(fdesc: _build.MLPDesc, rays_per_chunk: int, S: int) -> int:
-    """Shared memory of K3's forward and of K4: the composite strip of a
-    chunk and the emb, demb and two layer tiles."""
+    """Shared memory of K3's forward and of K9/K10a: the composite strip of
+    a chunk and the emb, demb and two layer tiles."""
     return (-(-rays_per_chunk * S * (6 + fdesc.sem_dim) // 4) * 4
             + (_pad8(fdesc.emb_dim) + _pad8(fdesc.demb_dim) + 2 * fdesc.hrows) * _KLD) * 4
+
+
+def _wg_smem(fdesc: _build.MLPDesc, rd: _build.RingDesc, rays_per_chunk: int, S: int) -> int:
+    """Shared memory of K4 (``wg_smem`` in ``csrc/train_render.cu``): the
+    ring's barriers and stages, two warpgroups' emb, demb and h tiles of
+    64 points, and the chunk's composite strip."""
+    rows = _pad8(fdesc.emb_dim) + _pad8(fdesc.demb_dim) + rd.hrows
+    strip = -(-rays_per_chunk * S * (6 + fdesc.sem_dim) // 4) * 4
+    return 128 + 4 * (rd.stages * rd.stage_floats + 2 * rows * _TILE + strip)
+
+
+def _wg_plan(fdesc: _build.MLPDesc, ring: _build.RingDesc, S: int) -> Tuple[int, _build.RingDesc]:
+    """K4's chunk (K3's ``rays_per_chunk``, fewer rays where the strip and
+    two ring stages would not fit) and its ring descriptor with as many
+    stages (2 to ``MAX_RING_STAGES``) as the rest of shared memory holds."""
+    rd = _build.RingDesc.from_buffer_copy(ring)
+    rd.stages = 2
+    rpc = _rays_per_chunk(S)
+    while rpc > 1 and _wg_smem(fdesc, rd, rpc, S) > _MAX_SMEM:
+        rpc -= 1
+    if _wg_smem(fdesc, rd, rpc, S) > _MAX_SMEM:
+        raise NotImplementedError(f"S={S}: K4's tiles, ring and composite strip need "
+                                  f"{_wg_smem(fdesc, rd, rpc, S)} B of shared memory")
+    while (rd.stages < _build.MAX_RING_STAGES
+           and _wg_smem(fdesc, rd, rpc, S) + 4 * rd.stage_floats <= _MAX_SMEM):
+        rd.stages += 1
+    return rpc, rd
 
 
 def train_render(field: nn.Module, odv: torch.Tensor, z: torch.Tensor, *, noise_std: float,
@@ -811,7 +897,8 @@ def train_render(field: nn.Module, odv: torch.Tensor, z: torch.Tensor, *, noise_
                  ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """K4: the train forward, ``odv [R, 9]``, ``z [R, S]`` -> (maps, weights,
     ``sem_in [R * S, C]`` or None); see :func:`train_render_plain`. One
-    launch: a CTA a chunk of K3's ``rays_per_chunk`` rays."""
+    launch: a CTA a chunk of rays in tiles of 128 points, the weights from
+    :func:`pack_ring` through its ring (``csrc/wg_tile.cuh``)."""
     if odv.device.type == "cpu":
         return train_render_plain(field, odv, z, noise_std=noise_std, seed=seed,
                                   save_semin=save_semin)
@@ -822,12 +909,10 @@ def train_render(field: nn.Module, odv: torch.Tensor, z: torch.Tensor, *, noise_
         raise ValueError("save_semin needs the semantic head")
     R, S = z.shape
     buf, fdesc = _packed(field, odv.device)
+    rbuf, ring = _cached(field, odv.device, "_ring_pack", pack_ring)
     desc = _build.TrainDesc()
     desc.f = fdesc
-    desc.rays_per_chunk = _rays_per_chunk(S)
-    if _forward_smem(fdesc, desc.rays_per_chunk, S) > _MAX_SMEM:
-        raise NotImplementedError(f"S={S}: the composite strip and tiles do not fit in shared "
-                                  "memory")
+    desc.rays_per_chunk, rd = _wg_plan(fdesc, ring, S)
     maps = torch.empty((R, 5 + fdesc.sem_dim), device=odv.device, dtype=torch.float32)
     weights = torch.empty((R, S), device=odv.device, dtype=torch.float32)
     sem_in = (torch.empty((R * S, field.mlp.semantic_linear[0].in_features), device=odv.device,
@@ -835,9 +920,10 @@ def train_render(field: nn.Module, odv: torch.Tensor, z: torch.Tensor, *, noise_
     if R > 0:
         with torch.cuda.device(odv.device):
             code = _build.library().nerf_train_render(
-                odv.data_ptr(), z.data_ptr(), buf.data_ptr(), ctypes.byref(desc),
-                maps.data_ptr(), weights.data_ptr(), None if sem_in is None else sem_in.data_ptr(),
-                R, S, noise_seed(seed), float(noise_std), _build.stream(odv.device))
+                odv.data_ptr(), z.data_ptr(), buf.data_ptr(), rbuf.data_ptr(), ctypes.byref(desc),
+                ctypes.byref(rd), maps.data_ptr(), weights.data_ptr(),
+                None if sem_in is None else sem_in.data_ptr(), R, S, noise_seed(seed),
+                float(noise_std), _build.stream(odv.device))
         _build.check(code, "train_render")
         train_render.launches += 1
     return maps, weights, sem_in

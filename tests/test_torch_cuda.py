@@ -271,6 +271,34 @@ def test_k4_matches_plain(cuda, shape, coord, noise, n, s):
     assert none is None and torch.equal(maps, got[0]) and torch.equal(w, got[1])
 
 
+@pytest.mark.parametrize("width", [128, 256])
+@pytest.mark.parametrize("sem,coord", [(True, True), (True, False), (False, False)])
+@pytest.mark.parametrize("noise,semin", [(1.0, True), (0.0, False)])
+@pytest.mark.parametrize("n,s", [(41, 37), (300, 64), (77, 192)])
+def test_k4_tile_matches_plain(cuda, width, sem, coord, noise, semin, n, s):
+    """K4's 128-point tile (csrc/wg_tile.cuh) at widths 128 and 256, with and
+    without the semantic head and its coordinates, sem_in stored or not, on
+    batches whose last tile is ragged (41 x 37, the last chunk of 300 x 64
+    and of 77 x 192): maps, weights and sem_in to TOL, two calls bitwise
+    equal."""
+    field = _field(cuda, 12, use_semantics=sem, sem_with_coord=coord, sem_dim=2,
+                   net_depth=8, net_width=width, multires=10, multires_views=4)
+    odv, z = _inputs(cuda, n, s, 13)
+    kw = dict(noise_std=noise, seed=97531, save_semin=sem and semin)
+    with torch.no_grad():
+        got = fr.train_render(field, odv, z, **kw)
+        again = fr.train_render(field, odv, z, **kw)
+        want = fr.train_render_plain(field, odv, z, **kw)
+    torch.cuda.synchronize()
+    assert (got[2] is None) == (want[2] is None) == (not kw["save_semin"])
+    for a, b, c in zip(got, want, again):
+        if b is None:
+            continue
+        assert a.shape == b.shape and torch.isfinite(a).all()
+        assert float((a - b).abs().max()) <= TOL
+        assert torch.equal(a, c)
+
+
 def _gate_clear_weights(field, sem_in, w):
     """``w`` with the points whose semantic-head relu input lies within
     2 x GATE_MARGIN of 0 (of the layer's largest |input|) set to 0: such a
