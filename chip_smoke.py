@@ -61,8 +61,8 @@ Phases (one line each; any failure raises and the exit code is nonzero):
      versions to K7_TOL, two calls bitwise equal;
  12. the 32768-ray SOS step (CUDA events) on the kernel and the plain path,
      with peak memory, and its parts timed alone (K4 and K5 coarse and
-     fine, ViT, appearance loss, K7 forward and backward, Adam), K4's with
-     its design numbers as in 9;
+     fine, ViT, the forward kernels' weight packing, appearance loss, K7
+     forward and backward, Adam), K4's with its design numbers as in 9;
  13. K6 (the full train-render backward) vs its plain version on the
      [K4]/[K5] phase's field and rays (4096 rays, S=64 and S=192, noise 1)
      with seeded map and weight cotangents: every leaf to GRAD_TOL plus its
@@ -1476,8 +1476,10 @@ def sos_step_timings(fr, fc, sos_run, name: str = "sos_step",
     memory; then the kernel path's step
     split into its parts, each timed alone on the step's own inputs: the
     train render's forward (K4) and backward (``bwd``) coarse and fine, the
-    ViT, the appearance loss (forward and backward), K7 forward and
-    backward, and Adam."""
+    ViT, the packing of both fields' weight buffers for the forward kernels
+    (``pack_field``, ``pack_ring``: again after every Adam step), the
+    appearance loss (forward and backward), K7 forward and backward, and
+    Adam."""
     from nerfsos_torch.data.datasets import PatchDataset
     from nerfsos_torch.engines import sos
     from nerfsos_torch.losses.correlation import CorrelationLoss
@@ -1556,6 +1558,18 @@ def sos_step_timings(fr, fc, sos_run, name: str = "sos_step",
         parts[part + " cost"] = cost(fa[0], *fa[2].shape)
     with torch.no_grad():
         parts["ViT"] = (cuda_ms(lambda: orig_vit(vit_in[0]), reps=3, warmup=1), None)
+        # the forward kernels' weight buffers of both fields, packed again
+        # after each Adam step: the step's leaves get the version bump an
+        # update gives (pack_ring keeps each unchanged layer's stages)
+        fields = [fa[0] for fa, _, _ in k4kb.calls["train_render"]]
+        leaves = [p for g in optimizer.param_groups for p in g["params"]]
+
+        def repack():
+            for p in leaves:
+                p.add_(0.0)
+            return [pack(f) for f in fields for pack in (fr.pack_field, fr.pack_ring)]
+
+        parts["weight packing"] = (cuda_ms(repack, reps=3, warmup=1), None)
 
     def app_fwd_bwd():
         coords, feat, c0, c1, sim = app_in[0]

@@ -486,6 +486,26 @@ def ring_layers(field: nn.Module) -> List[int]:
             + [depth + 1, depth + 2])
 
 
+def _ring_block(lin: nn.Linear, segs: List[int]) -> Tuple[torch.Tensor, int]:
+    """One layer's stages in :func:`pack_ring`'s layout and its wgmma width,
+    kept on the layer for its weight's storage and version: a step that
+    updates the semantic head alone (``--fix_backbone``) repacks sem_0's
+    stages and no other layer's."""
+    key = (lin.weight.data_ptr(), lin.weight._version)
+    cached = lin.__dict__.get("_ring_block")
+    if cached is None or cached[0] != key:
+        w, _ = _padded_wt(lin, segs)
+        n = _ring_n(w.shape[1])
+        wt = w.new_zeros((w.shape[0], n))
+        wt[:, :w.shape[1]] = w
+        hi = _tf32(wt)
+        blocks = torch.stack([hi, _tf32(wt - hi)]).reshape(2, -1, 2, 4, n // 8, 8)
+        blocks = blocks.permute(1, 0, 4, 2, 5, 3).reshape(-1)  # [s, part, j, h, r, c]
+        cached = (key, blocks.to(torch.float32).contiguous(), n)
+        lin.__dict__["_ring_block"] = cached
+    return cached[1], cached[2]
+
+
 def pack_ring(field: nn.Module) -> Tuple[torch.Tensor, _build.RingDesc]:
     """K4's weights for its ring of shared-memory stages, and the ring's
     descriptor (``stages`` left 0: the wrapper sets it per call). For each
@@ -501,13 +521,7 @@ def pack_ring(field: nn.Module) -> Tuple[torch.Tensor, _build.RingDesc]:
     rd = _build.RingDesc()
     parts, off = [], 0
     for i in ring_layers(field):
-        w, _ = _padded_wt(*layers[i])
-        n = _ring_n(w.shape[1])
-        wt = w.new_zeros((w.shape[0], n))
-        wt[:, :w.shape[1]] = w
-        hi = _tf32(wt)
-        blocks = torch.stack([hi, _tf32(wt - hi)]).reshape(2, -1, 2, 4, n // 8, 8)
-        blocks = blocks.permute(1, 0, 4, 2, 5, 3).reshape(-1)  # [s, part, j, h, r, c]
+        blocks, n = _ring_block(*layers[i])
         rd.off[i], rd.ncols[i] = off, n
         parts.append(blocks)
         off += blocks.numel()

@@ -27,9 +27,10 @@ never edited):
   step, so the weights stay in L1 (results are wrong; the time is what K4
   takes without its L2 weight traffic);
 - ``wgclock`` (K4's tile of ``csrc/wg_tile.cuh``): clock64 counters,
-  thread 0 of CTA 0, around its waits for a full ring stage and around the
-  whole tile loop, and the producer thread of CTA 0 around its waits for
-  an empty stage.
+  thread 0 of CTA 0, around its waits for a full ring stage, the layers'
+  k loops, the waits for its own wgmma inside them, the layers'
+  epilogues and the whole tile loop, and the producer thread of CTA 0
+  around its waits for an empty stage.
 
 It prints one line per variant: K4's ms (CUDA events) and the counters as
 shares of the counted span, then the card's name and power limit.
@@ -117,8 +118,21 @@ def _patch(variant: str, csrc: str) -> None:
                      "    while (!mbar_try_wait(rg.full + slot, phase)) {\n    }\n"
                      "    PROBE_ADD(1, p_w);\n", 1)
             wait = "        while (!mbar_try_wait(rg.empty + slot, phase ^ 1)) {\n        }\n"
-            return _sub(t, wait, "        long long p_e = clock64();\n" + wait
-                        + "        if (blockIdx.x == 0) g_probe[2] += clock64() - p_e;\n", 1)
+            t = _sub(t, wait, "        long long p_e = clock64();\n" + wait
+                     + "        if (blockIdx.x == 0) g_probe[2] += clock64() - p_e;\n", 1)
+            # the layer products' k loops, their own wgmma waits, and the epilogues
+            t = _sub(t, "  load(0, raw);\n", "  load(0, raw);\n  long long p_k = clock64();\n", 1)
+            t = _sub(t, "    wgmma_wait<0>();\n", "    long long p_g = clock64();\n"
+                     "    wgmma_wait<0>();\n    PROBE_ADD(4, p_g);\n", 1)
+            t = _sub(t, "  pos += nsteps;\n", "  pos += nsteps;\n  PROBE_ADD(3, p_k);\n"
+                     "  long long p_x = clock64();\n", 1)
+            t = _sub(t, "    __syncwarp();\n    return pos;\n",
+                     "    __syncwarp();\n    PROBE_ADD(5, p_x);\n    return pos;\n", 1)
+            lines = t.split("\n")
+            i = max(j for j, s in enumerate(lines[:t[:t.index("wg_layer_n")].count("\n")])
+                    if s == "  return pos;")
+            lines[i] = "  PROBE_ADD(5, p_x);\n  return pos;"
+            return "\n".join(lines)
 
         edit("wg_tile.cuh", tile)
 
@@ -194,7 +208,8 @@ def main() -> int:
                 _build.check(lib.probe_read(buf), "probe_read")
                 total = max(buf[0], 1)
                 names = (["load_stage", "mma_stage"] if variant == "l1clock"
-                         else ["ring_full_wait", "producer_empty_wait"])
+                         else ["ring_full_wait", "producer_empty_wait", "k_loops",
+                               "own_wgmma_wait", "epilogues"])
                 out["cycles_cta0_thread0"] = buf[0]
                 out.update({f"{n}_share": buf[i + 1] / total for i, n in enumerate(names)})
         print(json.dumps(out), flush=True)

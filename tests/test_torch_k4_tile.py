@@ -12,7 +12,6 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-import torch.nn.functional as F
 
 from nerfsos_torch.engines.checkpoint import state_dict_from_jax_params
 from nerfsos_torch.models.fields import NeRFField
@@ -244,3 +243,28 @@ def test_k4_tile_model_matches_plain_and_pallas(depth, sem, coord, noise, s):
         C = field.mlp.semantic_linear[0].in_features
         semin_j = np.asarray(outs[2]).transpose(0, 2, 1).reshape(-1, C)[:R * s]
         np.testing.assert_allclose(got[2].numpy(), semin_j, atol=1e-5, rtol=0)
+
+
+def test_ring_repacks_a_changed_layer_only():
+    """pack_ring keeps each layer's stages for its weight state: an update
+    of sem_0 alone (a --fix_backbone step) repacks sem_0's stages, reuses
+    the others, and gives what a fresh field with the same weights gives."""
+    torch.manual_seed(1)
+    kw = dict(net_depth=4, net_width=32, multires=4, multires_views=2, use_semantics=True,
+              sem_with_coord=True, sem_dim=2)
+    field = NeRFField(**kw)
+    before, rd = fr.pack_ring(field)
+    trunk = field.mlp.pts_linears[0].__dict__["_ring_block"][1]
+    with torch.no_grad():
+        field.mlp.semantic_linear[0].weight.mul_(-0.5)
+    after, rd2 = fr.pack_ring(field)
+    assert field.mlp.pts_linears[0].__dict__["_ring_block"][1] is trunk
+    fresh = NeRFField(**kw)
+    fresh.load_state_dict(field.state_dict())
+    assert torch.equal(after, fr.pack_ring(fresh)[0])
+    i = 4 + 4  # sem_0's kernel layer index at depth 4
+    k, n = fr.pack_field(field)[1].layer[i].k, rd.ncols[i]
+    lo, hi = rd.off[i], rd.off[i] + 2 * k * n
+    assert not torch.equal(before[lo:hi], after[lo:hi])
+    assert torch.equal(before[:lo], after[:lo]) and torch.equal(before[hi:], after[hi:])
+    assert list(rd.off) == list(rd2.off) and list(rd.ncols) == list(rd2.ncols)
