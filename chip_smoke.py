@@ -25,7 +25,10 @@ Phases (one line each; any failure raises and the exit code is nonzero):
      S=64 and fine S=192 with the semantic head, then S=192 with white_bkgd
      and no semantic head; at 1024 rays (the train step's size) S=64 and
      S=192; maps, weights and every gradient leaf, and the gradients of two
-     calls must be bitwise equal;
+     calls must be bitwise equal; each case also prints its forward's and
+     its reverse sweep's ms (``forward_split``: the call timed again with
+     ``tools/tile_probe``'s ``fwdonly`` build) and ptxas's line for the
+     forward kernel;
   6. the train path: ``run_nerf.main`` without --eval, with the flags of
      configs/flower_full.txt (N_rand 1024, 64 + 128 samples, noise 1, the
      semantic head) on 8 train views at 378x504, 30 steps: K3 launches twice
@@ -36,7 +39,8 @@ Phases (one line each; any failure raises and the exit code is nonzero):
   7. resume: ``main`` again with 40 steps resumes from latest.ckpt at step 30
      with the Adam state and launches K3 twice a step;
   8. train step timings (CUDA events) at 1024, 4096 and 16384 rays on the
-     kernel path and at 1024 and 4096 on the plain path (16384 when it fits);
+     kernel path and at 1024 and 4096 on the plain path (16384 when it fits),
+     and the packing of both fields' weight buffers after an Adam step;
   9. K4 (the SOS train forward) and K5 (the semantic-head backward) vs their
      plain versions at the flagship width with the semantic head and
      coordinates, 4096 rays, S=64 and S=192, noise 1 from a fixed seed, fixed
@@ -67,7 +71,7 @@ Phases (one line each; any failure raises and the exit code is nonzero):
      [K4]/[K5] phase's field and rays (4096 rays, S=64 and S=192, noise 1)
      with seeded map and weight cotangents: every leaf to GRAD_TOL plus its
      allowance for trunk, views, alpha and sem_0 gates near 0, two calls
-     bitwise equal (between 9 and 10);
+     bitwise equal, and the forward/reverse split as in 5 (between 9 and 10);
  14. [K7s]: K7 with one half and one head (K7b/K7c) and two heads (K7d/K7e)
      vs the plain versions at 8 x 4096 pixels, 2 channels, to K7_TOL, two
      calls bitwise equal (after 11);
@@ -198,9 +202,11 @@ K7_TOL = 1e-4
 HBM_BYTES_S = 3.35e12
 FP32_MMA_FLOP_S = 495e12 / 3
 FP32_SIMT_FLOP_S = 67e12
-# ptxas's line for K4's kernel (train_render_wg_kernel), read from the build
-# log in main
+# ptxas's line for K4's kernel (train_render_wg_kernel) and for K3's and
+# K6's forward (train_forward_wg_kernel, kLoss and kCotangent), read from
+# the build log in main
 K4_PTXAS = None
+FWD_PTXAS = {}
 
 
 def phase(name: str, **fields) -> None:
@@ -503,6 +509,31 @@ def check_k6(what: str, got, want, slack, terms, kernel: str = "K6") -> dict:
             "grad_err_over_bound": over}
 
 
+def forward_split(run, kernel: str) -> dict:
+    """The forward's and the reverse sweep's ms of K3 or K6 (``run`` calls
+    its wrapper): ``run`` timed again with the library of
+    ``nerfsos_torch.tools.tile_probe``'s ``fwdonly`` copy of the sources
+    (``train_grads`` launches each wave's forward kernel and the reduction,
+    no reverse-sweep kernel; built once under build/tile_probe/), its time
+    the forward's; the reverse sweep's is the whole call's less that. The
+    kernels' own library is put back after. ``forward_ptxas``: the forward
+    kernel's ptxas line (K3: kLoss, K6: kCotangent)."""
+    from nerfsos_torch import _build
+    from nerfsos_torch.tools import tile_probe
+
+    whole = cuda_ms(run)
+    saved = _build.CSRC_DIR, _build.BUILD_DIR
+    try:
+        tile_probe._use(_build, ROOT, "fwdonly")
+        fwd = cuda_ms(run)
+    finally:
+        _build.CSRC_DIR, _build.BUILD_DIR = saved
+        _build.library.cache_clear()
+        _build.library()
+    return {"forward_ms": fwd, "reverse_ms": whole - fwd,
+            "forward_ptxas": repr(FWD_PTXAS.get({"K3": 1, "K6": 2}[kernel]))}
+
+
 def kernel_vs_plain_k3(fr, R: int, S: int, use_semantics: bool, white_bkgd: bool) -> dict:
     field = seeded_field(2, net_depth=8, net_width=256, multires=10, multires_views=4,
                          use_semantics=use_semantics, sem_dim=2)
@@ -517,10 +548,11 @@ def kernel_vs_plain_k3(fr, R: int, S: int, use_semantics: bool, white_bkgd: bool
         raise SystemExit(f"K3's gradients differ between two calls (R={R} S={S})")
     ms = cuda_ms(lambda: fr.fused_rgb_train_grads(field, odv, z, gt, **kw))
     plain_ms = cuda_ms(lambda: fr.rgb_train_grads_plain(field, odv, z, gt, **kw), reps=3)
+    split = forward_split(lambda: fr.fused_rgb_train_grads(field, odv, z, gt, **kw), "K3")
     flops = R * S * field_flops(field, "k3")
     bound = bound_ms(4 * (R * (9 + 3 + 2 * S + got[1].shape[1]) + 2 * n_params(field)), flops)
     phase("K3", rays=R, samples=S, semantics=use_semantics, white_bkgd=white_bkgd, **close,
-          deterministic=True, ms=ms, plain_ms=plain_ms, tflop=flops / 1e12, **bound)
+          deterministic=True, ms=ms, plain_ms=plain_ms, **split, tflop=flops / 1e12, **bound)
     return {"max_abs_err": close["max_abs_err"], "ms": ms, "plain_ms": plain_ms, **bound,
             "library_ms": None}
 
@@ -829,6 +861,17 @@ def train_step_timings(fr) -> None:
             phase("train_step", path=path, rays=R, ms=ms, rays_per_s=R / ms * 1e3,
                   tflop=flops / 1e12, bound_ms=bound, share_of_bound=bound / ms,
                   peak_gib=peak[R] / 2**30)
+    # K3's weight buffers of both fields, which the step packs again after
+    # each Adam step: pack_field's, the ring gathered from it, and
+    # pack_train_bwd's
+    fields = (net.nerf, net.nerf_fine)
+    with torch.no_grad():
+        packed = [fr.pack_field(f) for f in fields]
+        for part, pack in (("pack_field", lambda: [fr.pack_field(f) for f in fields]),
+                           ("ring", lambda: [fr._ring_from(f, *p) for f, p in zip(fields, packed)]),
+                           ("pack_train_bwd", lambda: [fr.pack_train_bwd(f) for f in fields])):
+            phase("train_step_part", part=f"weight packing: {part}",
+                  ms=cuda_ms(pack, reps=5, warmup=1))
 
 
 # ----------------------------------------------------------------- the SOS finetune
@@ -1055,8 +1098,10 @@ def kernel_vs_plain_k6(fr, S: int) -> dict:
     ms = cuda_ms(lambda: fr.train_render_grads(field, odv, z, dmaps, dweights, **kw))
     plain_ms = cuda_ms(lambda: fr.train_render_grads_plain(field, odv, z, dmaps, dweights, **kw),
                        reps=3)
+    split = forward_split(lambda: fr.train_render_grads(field, odv, z, dmaps, dweights, **kw),
+                          "K6")
     phase("K6", rays=R, samples=S, **close, deterministic=True, ms=ms, plain_ms=plain_ms,
-          **k6_cost(field, R, S))
+          **split, **k6_cost(field, R, S))
     return close
 
 
@@ -1477,7 +1522,8 @@ def sos_step_timings(fr, fc, sos_run, name: str = "sos_step",
     split into its parts, each timed alone on the step's own inputs: the
     train render's forward (K4) and backward (``bwd``) coarse and fine, the
     ViT, the packing of both fields' weight buffers for the forward kernels
-    (``pack_field``, ``pack_ring``: again after every Adam step), the
+    (``pack_field`` and the ring gathered from it, ``pack_ring``: again
+    after every Adam step), the
     appearance loss (forward and backward), K7 forward and backward, and
     Adam."""
     from nerfsos_torch.data.datasets import PatchDataset
@@ -1559,17 +1605,11 @@ def sos_step_timings(fr, fc, sos_run, name: str = "sos_step",
     with torch.no_grad():
         parts["ViT"] = (cuda_ms(lambda: orig_vit(vit_in[0]), reps=3, warmup=1), None)
         # the forward kernels' weight buffers of both fields, packed again
-        # after each Adam step: the step's leaves get the version bump an
-        # update gives (pack_ring keeps each unchanged layer's stages)
+        # after each Adam step: pack_field's and the ring gathered from it
+        # (pack_ring does both)
         fields = [fa[0] for fa, _, _ in k4kb.calls["train_render"]]
-        leaves = [p for g in optimizer.param_groups for p in g["params"]]
-
-        def repack():
-            for p in leaves:
-                p.add_(0.0)
-            return [pack(f) for f in fields for pack in (fr.pack_field, fr.pack_ring)]
-
-        parts["weight packing"] = (cuda_ms(repack, reps=3, warmup=1), None)
+        parts["weight packing"] = (cuda_ms(lambda: [fr.pack_ring(f) for f in fields], reps=3,
+                                           warmup=1), None)
 
     def app_fwd_bwd():
         coords, feat, c0, c1, sim = app_in[0]
@@ -2386,8 +2426,13 @@ def main() -> int:
         if "Compiling entry function" in line and "train_render_wg_kernel" in line:
             K4_PTXAS = "; ".join(x.replace("ptxas info    :", "").strip()
                                  for x in lines[i + 2:i + 4])
-    if K4_PTXAS is None:
-        raise SystemExit("no ptxas report for K4's kernel (train_render_wg_kernel)")
+        if "Compiling entry function" in line and "train_forward_wg_kernel" in line:
+            mode = int(line.split("train_forward_wg_kernelILi")[1][0])  # kLoss 1, kCotangent 2
+            FWD_PTXAS[mode] = "; ".join(x.replace("ptxas info    :", "").strip()
+                                        for x in lines[i + 2:i + 4])
+    if K4_PTXAS is None or sorted(FWD_PTXAS) != [1, 2]:
+        raise SystemExit("no ptxas report for K4's kernel (train_render_wg_kernel) or K3's and "
+                         "K6's forward (train_forward_wg_kernel)")
 
     k1 = kernel_vs_plain_k1(fr)
     k2 = kernel_vs_plain_k2(fr, use_semantics=True)

@@ -166,12 +166,13 @@ def library() -> ctypes.CDLL:
     train_p = ctypes.POINTER(TrainDesc)
     lib.nerf_coarse_weights.argtypes = [vp, vp, vp, desc_p, vp, i32, i32, i32, vp]
     lib.nerf_render.argtypes = [vp, vp, vp, desc_p, vp, vp, i32, i32, i32, vp]
-    lib.nerf_rgb_train_grads.argtypes = [vp, vp, vp, vp, vp, train_p, vp, vp, vp, vp, vp, i32,
-                                         i32, i32, ctypes.c_uint, f32, i32, vp]
-    lib.nerf_train_render.argtypes = [vp, vp, vp, vp, train_p, ctypes.POINTER(RingDesc), vp, vp,
-                                      vp, i32, i32, ctypes.c_uint, f32, vp]
-    lib.nerf_train_render_grads.argtypes = [vp, vp, vp, vp, vp, vp, train_p, vp, vp, vp, i32,
-                                            i32, i32, ctypes.c_uint, f32, vp]
+    ring_p = ctypes.POINTER(RingDesc)
+    lib.nerf_rgb_train_grads.argtypes = [vp, vp, vp, vp, vp, vp, train_p, ring_p, vp, vp, vp, vp,
+                                         vp, i32, i32, i32, ctypes.c_uint, f32, i32, vp]
+    lib.nerf_train_render.argtypes = [vp, vp, vp, vp, train_p, ring_p, vp, vp, vp, i32, i32,
+                                      ctypes.c_uint, f32, vp]
+    lib.nerf_train_render_grads.argtypes = [vp, vp, vp, vp, vp, vp, vp, train_p, ring_p, vp, vp,
+                                            vp, i32, i32, i32, ctypes.c_uint, f32, vp]
     lib.nerf_frozen_sem_grads.argtypes = [vp, vp, vp, vp, ctypes.POINTER(FrozenDesc), vp, vp,
                                           ctypes.c_longlong, i32, i32, vp]
     lib.nerf_mip_render.argtypes = [vp, vp, vp, train_p, vp, vp, i32, i32, ctypes.c_uint, f32,

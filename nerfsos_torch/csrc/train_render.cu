@@ -16,29 +16,37 @@
 // the function needs is the rays, z and gt in, the maps and weights out and
 // one read of the weights and one write of the gradients (~5 MB a field).
 //
-// What the design does about it (a first version: right before fast):
-//   * a grid of about one CTA per SM (512 threads) takes chunks of whole
-//     rays (rays_per_chunk = max(1, 512 / S), so ~512 points) in waves of
-//     one chunk per CTA, so the composite and its reverse scan stay inside
-//     the CTA; per wave a forward kernel and a reverse-sweep kernel run in
-//     turn (as one kernel, the layer products of both spilled registers and
-//     the whole ran 1.6x slower: H100, 4096 rays x 192 samples, 190 ms vs
-//     120 ms);
+// What the design does about it:
+//   * a grid of about one CTA per SM takes chunks of whole rays
+//     (rays_per_chunk = max(1, 512 / S), so ~512 points; fewer where the
+//     forward's strip and ring do not fit, ops/fused_render._wg_plan) in
+//     waves of one chunk per CTA, so the composite and its reverse scan stay
+//     inside the CTA; per wave a forward kernel and a reverse-sweep kernel
+//     run in turn (as one kernel, the layer products of both spilled
+//     registers and the whole ran 1.6x slower: H100, 4096 rays x 192
+//     samples, 190 ms vs 120 ms);
 //   * the activations of a chunk do not fit in shared memory (~3,400 rows
 //     of 64-point tiles, ~7.9 MB a CTA at the flagship shape, ~1 GB for the
 //     grid), so each CTA keeps them in its own slice of a global workspace,
-//     in the same feature-major [row][kLd] tiles the render kernels keep in
-//     shared memory, from its forward to its reverse sweep;
-//   * the forward and the input-gradient products dX = W dY run on the
-//     tensor cores in the 3xTF32 scheme of the render kernels (dense() of
-//     tile_mlp.cuh; the weight slices of the reverse sweep are packed on the
-//     host, and the relu derivative is applied in the epilogue as a gate on
-//     the stored activation). The forward keeps a tile's activations in
-//     shared memory as K2 does and stores each to the workspace; the reverse
-//     sweep copies each dY tile into shared memory first (cp.async, two
-//     stages). The emb rows of the skip
-//     input, the view encoding and layer 0 need no input gradient and get
-//     none;
+//     in feature-major [row][kLd] tiles of 64 points, from its forward to
+//     its reverse sweep;
+//   * the forward (train_forward_wg_kernel) runs on K4's tile (wg_tile.cuh:
+//     128 points, two consumer warpgroups on wgmma 3xTF32, the weights
+//     through a TMA ring, setmaxnreg) in its store mode: each layer's
+//     epilogue writes act(acc + b) of the warpgroup's 64 points from the
+//     accumulators into the workspace plane beside its write into the
+//     shared h tile (a warp's 8 points of two rows: four 32-byte sectors),
+//     the views' and sem_0's hidden activations too (K4 keeps them in
+//     registers only), and emb and demb go out unswizzled once a tile;
+//     warpgroup w of tile t writes sub 2 t + w, and a warpgroup wholly past
+//     the chunk's points stores nothing;
+//   * the input-gradient products dX = W dY run on the tensor cores in the
+//     3xTF32 scheme of the render kernels (dense() of tile_mlp.cuh; the
+//     weight slices of the reverse sweep are packed on the host, and the
+//     relu derivative is applied in the epilogue as a gate on the stored
+//     activation); the reverse sweep copies each dY tile into shared memory
+//     first (cp.async, two stages). The emb rows of the skip input, the view
+//     encoding and layer 0 need no input gradient and get none;
 //   * dW = X^T dY contracts over the chunk's points: 128 x 128 macro tiles
 //     whose X and dY rows stream through two shared-memory stages
 //     (cp.async), each warp a 32 x 32 block with m16n8k8 3xTF32 mma, added
@@ -51,9 +59,12 @@
 //   * the sigma noise is the TPU kernel's hash: SplitMix-style avalanche of
 //     (global point index + seed) in uint32 arithmetic, Box-Muller with
 //     log1pf and cosf, so kernel and plain version draw the same values.
-// Where the time goes (H100, 4096 rays x 192 samples, clock64 per section):
-// the forward and composite ~35%, the input-gradient products ~32%, the dW
-// products ~33%; every 64-point tile re-reads each layer's weights from L2.
+// Where the time goes (H100 at 700 W, nerfsos_torch/tools/tile_probe.py, K6
+// at 32768 rays x 192 samples): the forward on K4's tile 178.7 of 803.4 ms
+// (fwdonly; 302.8 on the 64-point tile before it), the reverse sweep 624.7
+// ms; inside the reverse kernel (sweepclock, thread 0 of CTA 0) the dX
+// products (bwd_layer) 52%, the dW products (wgrad) 35%, the issue of
+// their cp.async staging 12%, the waits for it under 0.1%.
 // Precision: fp32 throughout; the points and the PE phases as in the render
 // kernels (explicit round-to-nearest, accurate sinf), no fast-math.
 //
@@ -109,14 +120,16 @@
 // backward (~3.8 MFLOP a flagship point); the extra planes (s_act, d_sem,
 // ds: 264 rows a tile) add ~8% to the per-CTA workspace.
 //
-// mip-NeRF's three kernels are a fourth mode (kMip) of the same kernels:
+// mip-NeRF's three kernels are a mode (kMip) of the 64-point kernels
+// (train_render_kernel, train_forward_kernel) and of the reverse sweep:
 //   K9   fused_mip_render_planar -> _mip_render_kernel: the train forward
 //        (K4's work, on train_sweep.cuh's 64-point forward_tile) without
 //        noise on odvr [R, 10] (o, d, viewdirs, radius) and fenceposts
 //        z [R, S + 1] -> maps [R, 5] (w·rgb x3, w·mid, w) and w [R, S];
 //   K10a _mip_train_fwd_impl -> _mip_train_kernel: the same with the noise;
-//   K10b _mip_train_bwd -> _mip_train_bwd_kernel: K6's two kernels without
-//        the semantic head, from dmaps [R, 5] and dweights [R, S].
+//   K10b _mip_train_bwd -> _mip_train_bwd_kernel: K6's reverse sweep
+//        without the semantic head after the 64-point storing forward
+//        (train_forward_kernel), from dmaps [R, 5] and dweights [R, S].
 // A point is an interval (t0, t1) of its ray. The tile's prologue builds
 // the cone frustum's diagonal Gaussian per point (tile_mlp.cuh
 // frustum_gauss, the stable closed forms, one rounding per operation so
@@ -126,7 +139,7 @@
 // PE; the composite takes D = (t1 - t0)·‖d‖ with no far pad and the
 // midpoint as the depth, and K10b's cotangent mode reads the midpoint in
 // dw. Everything else (the trunk with its [emb, h] skip, the heads, the
-// reverse sweep, the CTA-ordered reduction) is K3's and K6's. Bound: the
+// reverse sweep, the CTA-ordered reduction) is K6's. Bound: the
 // same arithmetic as K4 and K6 without the semantic head (~1.18 MFLOP a
 // point forward, ~3x that for K10b); the Gaussian and the 60 sin/exp of a
 // point are ~1% of it.
@@ -322,12 +335,30 @@ __device__ __forceinline__ void composite_chunk(const float* __restrict__ odv, c
   if (kThr == kThreads) __syncthreads();
 }
 
-// Wave `wave` of the forward: CTA b takes chunk wave * gridDim.x + b into its
-// workspace slice b: every activation of the reverse sweep, then the
-// composite (kLoss: maps, weights, dsigma and drgb from gt = aux;
-// kCotangent: dsigma, drgb and d_sem from dmaps = aux and dweights).
-// kMip: odv is odvr [R, 10] and z fenceposts [R, S + 1] (K10b).
-template <int kMode, bool kMip = false>
+// The padding rows of the cotangent planes of a workspace slice, which
+// nothing else writes (rows 3-7 of P_DRGB, 1-7 of P_DSIG, sem.. 7 of d_sem),
+// zeroed for the rays_per_chunk * S points of a chunk by kThr threads.
+template <int kMode, int kThr>
+__device__ __forceinline__ void zero_cotangent_padding(float* ws, const TrainDesc& d, int S) {
+  for (int sub = 0; sub < (d.rays_per_chunk * S + kPts - 1) / kPts; ++sub) {
+    float* r = plane(ws, d, P_DRGB, sub);
+    float* s = plane(ws, d, P_DSIG, sub);
+    for (int i = threadIdx.x; i < 5 * kLd; i += kThr) r[3 * kLd + i] = 0.f;
+    for (int i = threadIdx.x; i < 7 * kLd; i += kThr) s[kLd + i] = 0.f;
+    if (kMode == kCotangent && d.f.sem_dim > 0) {
+      float* m = plane(ws, d, P_ACT0 + d.f.depth + 1, sub);
+      for (int i = threadIdx.x; i < (8 - d.f.sem_dim) * kLd; i += kThr)
+        m[d.f.sem_dim * kLd + i] = 0.f;
+    }
+  }
+}
+
+// K10b's wave `wave` of the forward on the 64-point tile: CTA b takes chunk
+// wave * gridDim.x + b into its workspace slice b: every activation of the
+// reverse sweep, then the composite (kCotangent: dsigma and drgb from
+// dmaps = aux and dweights). odv is odvr [R, 10] and z fenceposts
+// [R, S + 1]. K3 and K6 take train_forward_wg_kernel instead.
+template <int kMode, bool kMip>
 __global__ void __launch_bounds__(kThreads, 1)
     train_forward_kernel(const float* __restrict__ odv, const float* __restrict__ z,
                          const float* __restrict__ aux, const float* __restrict__ dweights,
@@ -343,19 +374,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   float* tile = strip + ((rpc * S * (6 + d.f.sem_dim) + 3) & ~3);  // emb, demb, hA, hB
   float* ws = workspace + (size_t)blockIdx.x * d.ws_size;
   zero_pad_rows(tile, d.f);
-  if (wave == 0) {  // padding rows of the cotangent planes that nothing writes
-    for (int sub = 0; sub < (rpc * S + kPts - 1) / kPts; ++sub) {
-      float* r = plane(ws, d, P_DRGB, sub);
-      float* s = plane(ws, d, P_DSIG, sub);
-      for (int i = threadIdx.x; i < 5 * kLd; i += kThreads) r[3 * kLd + i] = 0.f;
-      for (int i = threadIdx.x; i < 7 * kLd; i += kThreads) s[kLd + i] = 0.f;
-      if (kMode == kCotangent && d.f.sem_dim > 0) {
-        float* m = plane(ws, d, P_ACT0 + d.f.depth + 1, sub);
-        for (int i = threadIdx.x; i < (8 - d.f.sem_dim) * kLd; i += kThreads)
-          m[d.f.sem_dim * kLd + i] = 0.f;
-      }
-    }
-  }
+  if (wave == 0) zero_cotangent_padding<kMode, kThreads>(ws, d, S);
   __syncthreads();
   const int r0 = c * rpc, nr = min(rpc, R - r0), nq = nr * S;
   const int nsub = (nq + kPts - 1) / kPts;
@@ -405,13 +424,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // K4: CTA b takes chunk b (d.rays_per_chunk rays, nq points) in tiles of
-// 128 points (wg_tile.cuh): warps 0-7 are the two consumer warpgroups,
-// whose registers setmaxnreg raises to 232 a thread (the 128 accumulators
-// of an N = 256 layer), warps 8-11 the producer warpgroup, down to 40, of
-// which one thread drives the ring; then the consumers composite the chunk
-// with the sigma noise into maps and weights (a thread a ray).
-// Shared memory: the ring's barriers (128 B), rd.stages ring stages, the
-// two warpgroups' emb, demb and h tiles, the composite strip.
+// 128 points (wg_tile.cuh: wg_cta's shared memory, wg_consumer's two
+// consumer warpgroups and producer thread); then the consumers composite
+// the chunk with the sigma noise into maps and weights (a thread a ray).
 __global__ void __launch_bounds__(kWgThreads, 1)
     train_render_wg_kernel(const float* __restrict__ odv, const float* __restrict__ z,
                            const float* __restrict__ params, const float* __restrict__ ring,
@@ -420,46 +435,60 @@ __global__ void __launch_bounds__(kWgThreads, 1)
                            float* __restrict__ weights, float* __restrict__ semin, int R, int S,
                            unsigned seed, float noise_std) {
   extern __shared__ __align__(128) unsigned char wg_raw[];
-  uint64_t* full = reinterpret_cast<uint64_t*>(wg_raw);
-  uint64_t* empty = full + kMaxRingStages;
-  float* stages = reinterpret_cast<float*>(wg_raw + 128);
-  const MLPDesc& f = d.f;
-  const int Ep = pad8(f.emb_dim), Edp = pad8(f.demb_dim);
-  const int per_wg = (Ep + Edp + rd.hrows) * kWgPts;
-  float* tiles = stages + (size_t)rd.stages * rd.stage_floats;
-  float* strip = tiles + 2 * per_wg;
+  const WgCta cta = wg_cta(wg_raw, d.f, rd);
   const int rpc = d.rays_per_chunk, r0 = blockIdx.x * rpc, nr = min(rpc, R - r0), nq = nr * S;
   const int ntiles = (nq + kWgTile - 1) / kWgTile;
-  const WgRing rg{stages, full, empty, rd.stages, rd.stage_floats};
-  if (threadIdx.x == 0) {
-    for (int i = 0; i < rd.stages; ++i) {
-      mbar_init(full + i, 1);
-      mbar_init(empty + i, kWgConsumers / 32);  // lane 0 of each consumer warp
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  if (threadIdx.x < 2 * kWgPts) {  // the padding rows of emb and demb, which nothing else writes
-    float* mine = tiles + (threadIdx.x / kWgPts) * per_wg;
-    const int p = threadIdx.x % kWgPts;
-    for (int k = f.emb_dim; k < Ep; ++k) mine[swz(k, p)] = 0.f;
-    for (int k = f.demb_dim; k < Edp; ++k) mine[Ep * kWgPts + swz(k, p)] = 0.f;
-  }
   __syncthreads();
-  if (threadIdx.x >= kWgConsumers) {  // the producer warpgroup gives up its registers
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
-    if (threadIdx.x == kWgConsumers) ring_producer(ring, f, rd, rg, ntiles);
-    return;
-  }
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
-  float* mine = tiles + (threadIdx.x >> 7) * per_wg;
+  if (!wg_consumer(ring, d.f, rd, cta.rg, ntiles)) return;
+  float* mine = cta.tiles + (threadIdx.x >> 7) * cta.per_wg;
+  float* strip = cta.strip;
   const float* zc = z + (size_t)r0 * S;
   int pos = 0;
   for (int tile = 0; tile < ntiles; ++tile)
-    pos = wg_forward_tile(odv, zc, r0, S, nq, tile, params, f, rd, rg, pos, mine, strip, semin,
-                          (long long)r0 * S);
+    pos = wg_forward_tile<false, false>(odv, zc, r0, S, nq, tile, params, d, rd, cta.rg, pos,
+                                        mine, strip, semin, (long long)r0 * S, nullptr);
   asm volatile("bar.sync 3, %0;\n" ::"n"(kWgConsumers) : "memory");  // the strip is whole
   composite_chunk<kForward, false, kWgConsumers>(odv, zc, nullptr, nullptr, d, nullptr, strip,
                                                  maps, weights, r0, nr, S, 0, seed, noise_std, 0);
+}
+
+// K3 (kLoss) and K6 (kCotangent): wave `wave` of the storing forward on
+// K4's tile. CTA b takes chunk wave * gridDim.x + b in 128-point tiles
+// (threads, registers and shared memory as train_render_wg_kernel's) and
+// writes every activation the reverse sweep reads into its workspace slice
+// b, sub 2 t + w for warpgroup w of tile t (wg_forward_tile's kStore); then
+// the consumers composite the chunk (kLoss: maps, weights, dsigma and drgb
+// from gt = aux; kCotangent: dsigma, drgb and d_sem from dmaps = aux and
+// dweights). train_reverse_kernel then sweeps the slice.
+template <int kMode>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    train_forward_wg_kernel(const float* __restrict__ odv, const float* __restrict__ z,
+                            const float* __restrict__ aux, const float* __restrict__ dweights,
+                            const float* __restrict__ params, const float* __restrict__ ring,
+                            const __grid_constant__ TrainDesc d,
+                            const __grid_constant__ RingDesc rd, float* __restrict__ maps,
+                            float* __restrict__ weights, float* __restrict__ workspace, int R,
+                            int S, int wave, unsigned seed, float noise_std, int white_bkgd) {
+  extern __shared__ __align__(128) unsigned char wg_raw[];
+  const int rpc = d.rays_per_chunk, c = wave * gridDim.x + blockIdx.x;
+  if (c * rpc >= R) return;
+  const WgCta cta = wg_cta(wg_raw, d.f, rd);
+  float* ws = workspace + (size_t)blockIdx.x * d.ws_size;
+  const int r0 = c * rpc, nr = min(rpc, R - r0), nq = nr * S;
+  const int ntiles = (nq + kWgTile - 1) / kWgTile, nsub = (nq + kPts - 1) / kPts;
+  if (wave == 0) zero_cotangent_padding<kMode, kWgThreads>(ws, d, S);
+  __syncthreads();
+  if (!wg_consumer(ring, d.f, rd, cta.rg, ntiles)) return;
+  float* mine = cta.tiles + (threadIdx.x >> 7) * cta.per_wg;
+  float* strip = cta.strip;
+  const float* zc = z + (size_t)r0 * S;
+  int pos = 0;
+  for (int tile = 0; tile < ntiles; ++tile)
+    pos = wg_forward_tile<true, kMode == kCotangent>(odv, zc, r0, S, nq, tile, params, d, rd,
+                                                     cta.rg, pos, mine, strip, nullptr, 0, ws);
+  asm volatile("bar.sync 3, %0;\n" ::"n"(kWgConsumers) : "memory");  // the strip is whole
+  composite_chunk<kMode, false, kWgConsumers>(odv, zc, aux, dweights, d, ws, strip, maps, weights,
+                                              r0, nr, S, nsub, seed, noise_std, white_bkgd);
 }
 
 // K5: the semantic head's weight gradients for a frozen backbone.
@@ -730,8 +759,8 @@ int forward_smem(const TrainDesc* d, int S) {
          tile_smem(d->f);
 }
 
-// shared memory of K4 (train_render_wg_kernel); ops/fused_render.py
-// _wg_smem computes the same
+// shared memory of K4 (train_render_wg_kernel) and of K3's and K6's forward
+// (train_forward_wg_kernel); ops/fused_render.py _wg_smem computes the same
 int wg_smem(const TrainDesc* d, const RingDesc* rd, int S) {
   const MLPDesc& f = d->f;
   const size_t rows = (f.emb_dim + 7) / 8 * 8 + (f.demb_dim + 7) / 8 * 8 + rd->hrows;
@@ -802,26 +831,43 @@ namespace {
 
 // grid CTAs (each with a d->ws_size workspace slice and a d->grad_size partial
 // gradient buffer) take the chunks of rays in waves of grid: per wave the
-// forward kernel, then the reverse-sweep kernel; then the partials are summed
-// into grads [d->grad_size]. Returns the first CUDA error of the launches.
+// forward kernel (K3, K6: train_forward_wg_kernel on K4's tile, with the
+// ring of ring and rd; kMip, K10b: train_forward_kernel), then the
+// reverse-sweep kernel; then the partials are summed into grads
+// [d->grad_size]. Returns the first CUDA error of the launches.
 template <int kMode, bool kSem, bool kMip = false>
 int train_grads(const float* odv, const float* z, const float* aux, const float* dweights,
-                const float* params, const float* bparams, const TrainDesc* d, float* maps,
-                float* weights, float* partial, float* workspace, float* grads, int R, int S,
-                int grid, unsigned seed, float noise_std, int white_bkgd, cudaStream_t st) {
-  const int fwd_smem = forward_smem(d, S);
+                const float* params, const float* ring, const float* bparams,
+                const TrainDesc* d, const RingDesc* rd, float* maps, float* weights,
+                float* partial, float* workspace, float* grads, int R, int S, int grid,
+                unsigned seed, float noise_std, int white_bkgd, cudaStream_t st) {
   const int stage_smem = (int)(kStagingFloats * sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(train_forward_kernel<kMode, kMip>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, fwd_smem);
+  int fwd_smem;
+  cudaError_t err;
+  if constexpr (kMip) {
+    fwd_smem = forward_smem(d, S);
+    err = cudaFuncSetAttribute(train_forward_kernel<kMode, true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, fwd_smem);
+  } else {
+    fwd_smem = wg_smem(d, rd, S);
+    err = cudaFuncSetAttribute(train_forward_wg_kernel<kMode>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, fwd_smem);
+  }
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(train_reverse_kernel<kSem>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, stage_smem);
   if (err != cudaSuccess) return (int)err;
   const int nchunks = (R + d->rays_per_chunk - 1) / d->rays_per_chunk;
   for (int wave = 0; wave * grid < nchunks; ++wave) {
-    train_forward_kernel<kMode, kMip><<<grid, kThreads, fwd_smem, st>>>(
-        odv, z, aux, dweights, params, *d, maps, weights, workspace, R, S, wave, seed,
-        noise_std, white_bkgd);
+    if constexpr (kMip) {
+      train_forward_kernel<kMode, true><<<grid, kThreads, fwd_smem, st>>>(
+          odv, z, aux, dweights, params, *d, maps, weights, workspace, R, S, wave, seed,
+          noise_std, white_bkgd);
+    } else {
+      train_forward_wg_kernel<kMode><<<grid, kWgThreads, fwd_smem, st>>>(
+          odv, z, aux, dweights, params, ring, *d, *rd, maps, weights, workspace, R, S, wave,
+          seed, noise_std, white_bkgd);
+    }
     train_reverse_kernel<kSem><<<grid, kThreads, stage_smem, st>>>(
         bparams, nullptr, *d, partial, workspace, R, S, wave, nullptr, nullptr);
     err = cudaGetLastError();
@@ -833,34 +879,37 @@ int train_grads(const float* odv, const float* z, const float* aux, const float*
 
 }  // namespace
 
-// K3: the RGB train pass; see train_grads.
+// K3: the RGB train pass, the forward's weights from ring (ops/fused_render
+// pack_ring) as rd describes; see train_grads.
 extern "C" int nerf_rgb_train_grads(const float* odv, const float* z, const float* gt,
-                                    const float* params, const float* bparams,
-                                    const TrainDesc* d, float* maps, float* weights,
-                                    float* partial, float* workspace, float* grads, int R, int S,
-                                    int grid, unsigned seed, float noise_std, int white_bkgd,
-                                    void* stream) {
-  return train_grads<kLoss, false>(odv, z, gt, nullptr, params, bparams, d, maps, weights,
-                                   partial, workspace, grads, R, S, grid, seed, noise_std,
-                                   white_bkgd, (cudaStream_t)stream);
+                                    const float* params, const float* ring, const float* bparams,
+                                    const TrainDesc* d, const RingDesc* rd, float* maps,
+                                    float* weights, float* partial, float* workspace,
+                                    float* grads, int R, int S, int grid, unsigned seed,
+                                    float noise_std, int white_bkgd, void* stream) {
+  return train_grads<kLoss, false>(odv, z, gt, nullptr, params, ring, bparams, d, rd, maps,
+                                   weights, partial, workspace, grads, R, S, grid, seed,
+                                   noise_std, white_bkgd, (cudaStream_t)stream);
 }
 
 // K6: the train render's backward from the maps' cotangent dmaps [R, 5 + sem]
 // and the weights' dweights [R, S] (null: zero); d describes the semantic
-// head's planes and gradients when d->f.sem_dim > 0; see train_grads.
+// head's planes and gradients when d->f.sem_dim > 0; the forward's weights
+// from ring as rd describes; see train_grads.
 extern "C" int nerf_train_render_grads(const float* odv, const float* z, const float* dmaps,
                                        const float* dweights, const float* params,
-                                       const float* bparams, const TrainDesc* d, float* partial,
+                                       const float* ring, const float* bparams,
+                                       const TrainDesc* d, const RingDesc* rd, float* partial,
                                        float* workspace, float* grads, int R, int S, int grid,
                                        unsigned seed, float noise_std, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   if (d->f.sem_dim > 0)
-    return train_grads<kCotangent, true>(odv, z, dmaps, dweights, params, bparams, d, nullptr,
-                                         nullptr, partial, workspace, grads, R, S, grid, seed,
-                                         noise_std, 0, st);
-  return train_grads<kCotangent, false>(odv, z, dmaps, dweights, params, bparams, d, nullptr,
-                                        nullptr, partial, workspace, grads, R, S, grid, seed,
-                                        noise_std, 0, st);
+    return train_grads<kCotangent, true>(odv, z, dmaps, dweights, params, ring, bparams, d, rd,
+                                         nullptr, nullptr, partial, workspace, grads, R, S, grid,
+                                         seed, noise_std, 0, st);
+  return train_grads<kCotangent, false>(odv, z, dmaps, dweights, params, ring, bparams, d, rd,
+                                        nullptr, nullptr, partial, workspace, grads, R, S, grid,
+                                        seed, noise_std, 0, st);
 }
 
 // K10b: the mip train render's backward from the maps' cotangent dmaps
@@ -874,7 +923,8 @@ extern "C" int nerf_mip_train_render_grads(const float* odvr, const float* z, co
                                            float* partial, float* workspace, float* grads, int R,
                                            int S, int grid, unsigned seed, float noise_std,
                                            void* stream) {
-  return train_grads<kCotangent, false, true>(odvr, z, dmaps, dweights, params, bparams, d,
-                                              nullptr, nullptr, partial, workspace, grads, R, S,
-                                              grid, seed, noise_std, 0, (cudaStream_t)stream);
+  return train_grads<kCotangent, false, true>(odvr, z, dmaps, dweights, params, nullptr, bparams,
+                                              d, nullptr, nullptr, nullptr, partial, workspace,
+                                              grads, R, S, grid, seed, noise_std, 0,
+                                              (cudaStream_t)stream);
 }

@@ -50,7 +50,7 @@
 //   * the semantic head's sem_1 and the rgb head are formed from the
 //     accumulators of sem_0 and views in registers (a row of an m64
 //     accumulator lies in one quad: two shuffles), so neither hidden layer
-//     is stored; sem_in's h columns are written from the last trunk
+//     is written to shared memory; sem_in's h columns are written from the last trunk
 //     layer's accumulators; the alpha head (one output) is a SIMT dot
 //     product over h in shared memory.
 // Shared memory (flagship): two warpgroup tiles of emb 64, demb 32 and
@@ -63,6 +63,12 @@
 // takes the producers to 40 and the consumers to 232, room for the 128
 // accumulators of an N = 256 layer (at 168 ptxas serialised the wgmma and
 // spilled 734 B).
+// K3's and K6's forward (train_render.cu train_forward_wg_kernel) run the
+// same tile in its store mode (wg_forward_tile's kStore): every activation
+// their reverse sweep reads also goes from the epilogues' registers to the
+// CTA's workspace, in train_sweep.cuh's [row][kLd] planes of 64 points
+// (sub 2 t + w for warpgroup w of tile t), and emb and demb are copied out
+// unswizzled once a tile; K4's instantiation compiles none of it.
 // Precision: fp32 activations, 3xTF32 products (both operands split into
 // TF32 high and low parts), the PE phases with explicit round-to-nearest
 // (no fast-math).
@@ -316,11 +322,19 @@ struct WgRing {
   int nst, stage_floats;
 };
 
-// Where a layer's output goes. Store mode (h set): rows n < N of h get
+// Where a layer's output goes. Layer mode (h set): rows n < N of h get
 // act(acc + b) (relu or not) and, with semin set (the last trunk layer),
 // sem_in's h columns of each valid point, semin + (point - qw) * C + n for
 // n < hn. Head mode (h null): head's outputs over relu(acc + b) go to
-// strip[q * cs + col0 ..] for the valid points q of the warpgroup.
+// strip[q * cs + col0 ..] for the valid points q of the warpgroup. With
+// plane set (wg_layer's kStore: the train kernels' storing forward), the
+// layer's output of all 64 points also goes to plane[n * kLd + point],
+// rows n < prow, a workspace tile in the layout train_reverse_kernel
+// reads: in layer mode each warp copies its 16 points of each row from h
+// once its epilogue is done (float4 copies: 152.3 against 178.5 ms for
+// K6's forward at 32768 x 192 with the epilogue's scalar stores, H100,
+// tools/tile_probe.py); in head mode, where nothing is written to h, the
+// epilogue writes the hidden activation relu(acc + b) itself.
 struct WgOut {
   float* h;
   bool relu;
@@ -329,13 +343,15 @@ struct WgOut {
   LayerDesc head;
   float* strip;
   int cs, col0, qw, nq;
+  float* plane;
+  int prow;
 };
 
 // One layer for a consumer warpgroup: acc[point][n] = sum over the
 // segments' rows k (in order) of a[k][point] W^T[k][n], k step by k step as
 // the ring delivers W^T's k-slices, then the epilogue of o. Returns the
-// ring position after the layer's stages.
-template <int N>
+// ring position after the layer's stages. kStore: o.plane may be set.
+template <int N, bool kStore>
 __device__ __forceinline__ int wg_layer(const float* __restrict__ params, const LayerDesc L,
                                         ASeg s0, ASeg s1, ASeg s2, const WgRing rg, int pos,
                                         const WgOut o) {
@@ -413,6 +429,13 @@ __device__ __forceinline__ int wg_layer(const float* __restrict__ params, const 
       if (rb && n + 1 < o.hn) rb[n + 1] = v[3];
     }
     __syncwarp();
+    if (kStore && o.plane) {  // the warp's 16 points of each row, unswizzled from h
+      for (int i = lane; i < o.prow * 4; i += 32) {
+        const int k = i >> 2, p = 16 * w + 4 * (i & 3);
+        *reinterpret_cast<float4*>(o.plane + k * kLd + p) =
+            *reinterpret_cast<const float4*>(o.h + swz(k, p));
+      }
+    }
     return pos;
   }
   const LayerDesc H = o.head;  // W^T [ldn][pad8(H.n)] fp32, H.n <= kMaxSem
@@ -429,6 +452,10 @@ __device__ __forceinline__ int wg_layer(const float* __restrict__ params, const 
       if (n < ldn) {
         const float b = __ldg(bias + n);
         const float va = fmaxf(acc[4 * j + e] + b, 0.f), vb = fmaxf(acc[4 * j + 2 + e] + b, 0.f);
+        if (kStore && o.plane) {
+          o.plane[n * kLd + m0] = va;
+          o.plane[n * kLd + m0 + 8] = vb;
+        }
 #pragma unroll
         for (int c = 0; c < kMaxSem; ++c)
           if (c < H.n) {
@@ -459,16 +486,17 @@ __device__ __forceinline__ int wg_layer(const float* __restrict__ params, const 
 }
 
 // wg_layer at the layer's ring width N (pack_ring's: 8, 16, 32, 64, 128 or 256)
+template <bool kStore>
 __device__ __forceinline__ int wg_layer_n(int N, const float* __restrict__ params,
                                           const LayerDesc L, ASeg s0, ASeg s1, ASeg s2,
                                           const WgRing rg, int pos, const WgOut& o) {
   switch (N) {
-    case 256: return wg_layer<256>(params, L, s0, s1, s2, rg, pos, o);
-    case 128: return wg_layer<128>(params, L, s0, s1, s2, rg, pos, o);
-    case 64: return wg_layer<64>(params, L, s0, s1, s2, rg, pos, o);
-    case 32: return wg_layer<32>(params, L, s0, s1, s2, rg, pos, o);
-    case 16: return wg_layer<16>(params, L, s0, s1, s2, rg, pos, o);
-    default: return wg_layer<8>(params, L, s0, s1, s2, rg, pos, o);
+    case 256: return wg_layer<256, kStore>(params, L, s0, s1, s2, rg, pos, o);
+    case 128: return wg_layer<128, kStore>(params, L, s0, s1, s2, rg, pos, o);
+    case 64: return wg_layer<64, kStore>(params, L, s0, s1, s2, rg, pos, o);
+    case 32: return wg_layer<32, kStore>(params, L, s0, s1, s2, rg, pos, o);
+    case 16: return wg_layer<16, kStore>(params, L, s0, s1, s2, rg, pos, o);
+    default: return wg_layer<8, kStore>(params, L, s0, s1, s2, rg, pos, o);
   }
 }
 
@@ -510,6 +538,59 @@ __device__ __forceinline__ void ring_producer(const float* __restrict__ ring, co
     }
 }
 
+// A CTA of the 128-point tile (K4's kernel, K3's and K6's forward): its
+// dynamic shared memory holds the ring's barriers (128 B), rd.stages ring
+// stages, the two warpgroups' emb, demb and h tiles and the composite strip.
+struct WgCta {
+  WgRing rg;
+  float* tiles;  // warpgroup w's emb, demb and h at tiles + w * per_wg
+  float* strip;
+  int per_wg;
+};
+
+// Lays out raw, initialises the ring's barriers and zeroes the padding rows
+// of emb and demb, which nothing else writes; the caller synchronises.
+__device__ __forceinline__ WgCta wg_cta(unsigned char* raw, const MLPDesc& f,
+                                        const RingDesc& rd) {
+  uint64_t* full = reinterpret_cast<uint64_t*>(raw);
+  uint64_t* empty = full + kMaxRingStages;
+  float* stages = reinterpret_cast<float*>(raw + 128);
+  const int Ep = pad8(f.emb_dim), Edp = pad8(f.demb_dim);
+  const int per_wg = (Ep + Edp + rd.hrows) * kWgPts;
+  float* tiles = stages + (size_t)rd.stages * rd.stage_floats;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < rd.stages; ++i) {
+      mbar_init(full + i, 1);
+      mbar_init(empty + i, kWgConsumers / 32);  // lane 0 of each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (threadIdx.x < 2 * kWgPts) {
+    float* mine = tiles + (threadIdx.x / kWgPts) * per_wg;
+    const int p = threadIdx.x % kWgPts;
+    for (int k = f.emb_dim; k < Ep; ++k) mine[swz(k, p)] = 0.f;
+    for (int k = f.demb_dim; k < Edp; ++k) mine[Ep * kWgPts + swz(k, p)] = 0.f;
+  }
+  return WgCta{WgRing{stages, full, empty, rd.stages, rd.stage_floats}, tiles,
+               tiles + 2 * per_wg, per_wg};
+}
+
+// After the CTA's barrier: warps 8-11, the producer warpgroup, give up
+// their registers (setmaxnreg 40) and one thread streams ntiles tiles'
+// weights (ring_producer), and get false; warps 0-7, the two consumer
+// warpgroups, take 232 registers a thread (the 128 accumulators of an
+// N = 256 layer) and get true.
+__device__ __forceinline__ bool wg_consumer(const float* __restrict__ ring, const MLPDesc& f,
+                                            const RingDesc& rd, const WgRing rg, int ntiles) {
+  if (threadIdx.x >= kWgConsumers) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x == kWgConsumers) ring_producer(ring, f, rd, rg, ntiles);
+    return false;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  return true;
+}
+
 // Rows 3.. of a warpgroup's PE buffer whose rows 0-2 hold x: pe_rows's
 // values (sin(2^b x_c + h pi/2) in row 3 + 6 b + 3 h + c) in a swizzled tile.
 __device__ __forceinline__ void pe_rows_wg(float* buf, int rows) {
@@ -522,21 +603,37 @@ __device__ __forceinline__ void pe_rows_wg(float* buf, int rows) {
   }
 }
 
-// K4's forward of tile `tile` of a chunk (rays r0.., S samples a ray, nq
+// Rows [0, rows) of a warpgroup tile, unswizzled, to a workspace tile [rows][kLd].
+__device__ __forceinline__ void wg_store_rows(const float* src, float* dst, int rows) {
+  for (int i = threadIdx.x & 127; i < rows * (kWgPts / 4); i += 128) {
+    const int k = i / (kWgPts / 4), p = (i % (kWgPts / 4)) * 4;
+    *reinterpret_cast<float4*>(dst + k * kLd + p) =
+        *reinterpret_cast<const float4*>(src + swz(k, p));
+  }
+}
+
+// The forward of tile `tile` of a chunk (rays r0.., S samples a ray, nq
 // points; z of the chunk at zc) for the calling consumer warpgroup, its
 // points qw .. qw + 63 (qw = 128 tile + 64 warpgroup): their inputs and
 // PE, the trunk, alpha, sem_0 and sem_1, feature, views and rgb on the
 // warpgroup's emb, demb and h tiles at `mine`; sigma, the rgb logits and
-// the semantics of point q go to strip[q * (6 + sem) + 0, 2.., 5..], and
-// with semin, [h; emb] (forward_tile's sem_in row) to semin row base + q.
+// the semantics of point q go to strip[q * (6 + sem) + 0, 2.., 5..].
+// K4 (kStore false): with semin, [h; emb] (forward_tile's sem_in row) to
+// semin row base + q. K3/K6 (kStore): every activation the reverse sweep
+// reads goes to the workspace slice ws, as sub qw / 64 of its planes
+// (train_desc's layout: P_EMB, P_DEMB, P_ACT0 + i, P_FEAT, P_HV, and with
+// kSemAct the semantic head's hidden activation at P_ACT0 + depth); a
+// warpgroup whose points all lie past nq has no sub and stores nothing.
 // Returns the ring position after the tile.
+template <bool kStore, bool kSemAct>
 __device__ __forceinline__ int wg_forward_tile(const float* __restrict__ odv, const float* zc,
                                                int r0, int S, int nq, int tile,
                                                const float* __restrict__ params,
-                                               const MLPDesc& f, const RingDesc& rd,
+                                               const TrainDesc& d, const RingDesc& rd,
                                                const WgRing rg, int pos, float* mine,
                                                float* strip, float* __restrict__ semin,
-                                               long long base) {
+                                               long long base, float* ws) {
+  const MLPDesc& f = d.f;
   const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127, bar = 1 + wg;
   const int depth = f.depth, E = f.emb_dim, Ep = pad8(E), Ed = f.demb_dim, Edp = pad8(Ed);
   const int sem = f.sem_dim, cs = 6 + sem;
@@ -545,6 +642,8 @@ __device__ __forceinline__ int wg_forward_tile(const float* __restrict__ odv, co
   float* h = demb + Edp * kWgPts;
   const int qw = tile * kWgTile + wg * kWgPts;
   const LayerDesc* head = f.layer + depth;  // alpha, feature, views, rgb, sem_0, sem_1
+  const bool store = kStore && qw < nq;
+  const int sub = qw / kWgPts;
 
   wg_bar(bar);  // the last tile's reads of emb and demb are done
   for (int i = tid; i < 3 * kWgPts; i += 128) {
@@ -562,6 +661,10 @@ __device__ __forceinline__ int wg_forward_tile(const float* __restrict__ odv, co
   pe_rows_wg(emb, E);
   pe_rows_wg(demb, Ed);
   wg_bar(bar);
+  if (store) {
+    wg_store_rows(emb, plane(ws, d, P_EMB, sub), Ep);
+    wg_store_rows(demb, plane(ws, d, P_DEMB, sub), Edp);
+  }
 
   // the ring's layers in order (ring_order): the trunk, each output over h;
   // sem_0 on [h; emb] with sem_1 from its accumulators; feature over h;
@@ -578,7 +681,7 @@ __device__ __forceinline__ int wg_forward_tile(const float* __restrict__ odv, co
     if (l == depth) {
       wg_bar(bar);  // h is whole: the reads below cross warps
       // sem_in's emb columns, then the alpha head (a thread a point)
-      if (semin != nullptr) {
+      if (!kStore && semin != nullptr) {
         const int np = min(kWgPts, nq - qw);
         for (int part = 0; part < 2; ++part) {
           if (part == 0 ? hoff == 0 : !f.sem_with_coord) continue;
@@ -607,10 +710,12 @@ __device__ __forceinline__ int wg_forward_tile(const float* __restrict__ odv, co
     o.qw = qw;
     o.nq = nq;
     ASeg a0 = in0, a1 = in1, a2 = none;
+    int out = -1;  // the layer's workspace plane (kStore)
     if (l < depth || li == depth + 1) {  // trunk, feature
       o.h = h;
       o.relu = l < depth;
-      if (l == depth - 1 && semin != nullptr) {
+      out = l < depth ? P_ACT0 + l : P_FEAT;
+      if (!kStore && l == depth - 1 && semin != nullptr) {
         o.semin = semin + (base + qw) * C + hoff;
         o.C = C;
         o.hn = hn;
@@ -619,13 +724,19 @@ __device__ __forceinline__ int wg_forward_tile(const float* __restrict__ odv, co
       a2 = f.sem_with_coord ? ASeg{emb, Ep} : none;
       o.head = head[5];
       o.col0 = 5;
+      if (kSemAct) out = P_ACT0 + depth;
     } else {  // views
       a0 = ASeg{h, pad8(head[1].n)};
       a1 = ASeg{demb, Edp};
       o.head = head[3];
       o.col0 = 2;
+      out = P_HV;
     }
-    pos = wg_layer_n(rd.ncols[li], params, f.layer[li], a0, a1, a2, rg, pos, o);
+    if (store && out >= 0) {
+      o.plane = plane(ws, d, out, sub);
+      o.prow = d.rows[out];
+    }
+    pos = wg_layer_n<kStore>(rd.ncols[li], params, f.layer[li], a0, a1, a2, rg, pos, o);
     if (l < depth) {
       const ASeg hs{h, pad8(f.layer[l].n)};
       in0 = l == f.skip ? ASeg{emb, Ep} : hs;

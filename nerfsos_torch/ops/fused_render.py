@@ -486,49 +486,59 @@ def ring_layers(field: nn.Module) -> List[int]:
             + [depth + 1, depth + 2])
 
 
-def _ring_block(lin: nn.Linear, segs: List[int]) -> Tuple[torch.Tensor, int]:
-    """One layer's stages in :func:`pack_ring`'s layout and its wgmma width,
-    kept on the layer for its weight's storage and version: a step that
-    updates the semantic head alone (``--fix_backbone``) repacks sem_0's
-    stages and no other layer's."""
-    key = (lin.weight.data_ptr(), lin.weight._version)
-    cached = lin.__dict__.get("_ring_block")
+def _ring_index(field: nn.Module, fdesc: _build.MLPDesc, numel: int,
+                device: torch.device) -> Tuple[torch.Tensor, _build.RingDesc]:
+    """Where each float of :func:`pack_ring`'s buffer lies in ``pack_field``'s
+    (``numel`` floats; index ``numel`` for a padding column, read as 0), and
+    the ring's descriptor: kept on the field for its layers' shapes, per
+    device."""
+    order = ring_layers(field)
+    key = (tuple((fdesc.layer[i].w, fdesc.layer[i].k, fdesc.layer[i].n) for i in order), numel,
+           device)
+    cached = field.__dict__.get("_ring_index")
     if cached is None or cached[0] != key:
-        w, _ = _padded_wt(lin, segs)
-        n = _ring_n(w.shape[1])
-        wt = w.new_zeros((w.shape[0], n))
-        wt[:, :w.shape[1]] = w
-        hi = _tf32(wt)
-        blocks = torch.stack([hi, _tf32(wt - hi)]).reshape(2, -1, 2, 4, n // 8, 8)
-        blocks = blocks.permute(1, 0, 4, 2, 5, 3).reshape(-1)  # [s, part, j, h, r, c]
-        cached = (key, blocks.to(torch.float32).contiguous(), n)
-        lin.__dict__["_ring_block"] = cached
+        rd = _build.RingDesc()
+        parts, off = [], 0
+        for i in order:
+            L = fdesc.layer[i]
+            ldn, n = _pad8(L.n), _ring_n(L.n)
+            s, part, j, h, r, c = torch.meshgrid(
+                *(torch.arange(x) for x in (L.k // 8, 2, n // 8, 2, 8, 4)), indexing="ij")
+            row, col = 8 * s + 4 * h + c, 8 * j + r
+            src = L.w + (1 + part) * L.k * ldn + row * ldn + col  # the hi, then the lo parts
+            parts.append(torch.where(col < ldn, src, numel).reshape(-1))
+            rd.off[i], rd.ncols[i] = off, n
+            off += parts[-1].numel()
+        depth = field.mlp.depth
+        rd.hrows = max(rd.ncols[i] for i in list(range(depth)) + [depth + 1])
+        rd.stage_floats = 16 * max(rd.ncols[i] for i in order)
+        cached = (key, torch.cat(parts).to(device), rd)
+        field.__dict__["_ring_index"] = cached
     return cached[1], cached[2]
 
 
+def _ring_from(field: nn.Module, buf: torch.Tensor, fdesc: _build.MLPDesc
+               ) -> Tuple[torch.Tensor, _build.RingDesc]:
+    """:func:`pack_ring` from ``pack_field``'s buffer ``buf`` of ``field``:
+    one gather of its TF32 parts, so each layer is split once per weight
+    state."""
+    idx, rd = _ring_index(field, fdesc, buf.numel(), buf.device)
+    return torch.cat([buf, buf.new_zeros(1)])[idx], _build.RingDesc.from_buffer_copy(rd)
+
+
 def pack_ring(field: nn.Module) -> Tuple[torch.Tensor, _build.RingDesc]:
-    """K4's weights for its ring of shared-memory stages, and the ring's
-    descriptor (``stages`` left 0: the wrapper sets it per call). For each
-    of :func:`ring_layers`, ``pack_field``'s padded ``W^T [kpad, npad]``
-    with its columns padded further to the wgmma width ``N`` (:func:`_ring_n`)
-    is cut into k-slices of 8 rows, each one stage: the slice's TF32 high
-    parts, then its low parts, each as ``[N / 8][2][8][4]`` with element
+    """The weights of the 128-point tile (K4, and K3's and K6's forward) for
+    its ring of shared-memory stages, and the ring's descriptor (``stages``
+    left 0: the wrapper sets it per call). For each of :func:`ring_layers`,
+    ``pack_field``'s padded ``W^T [kpad, npad]`` with its columns padded
+    further to the wgmma width ``N`` (:func:`_ring_n`) is cut into k-slices
+    of 8 rows, each one stage: the slice's TF32 high parts, then its low
+    parts (``pack_field``'s), each as ``[N / 8][2][8][4]`` with element
     ``(j, h, r, c) = W^T[8 s + 4 h + c][8 j + r]`` (wgmma's K-major core
     matrices of 8 outputs x 4 inputs, the two k halves of an output group
     side by side). ``hrows`` is the widest ``N`` of the trunk and feature
     (the rows each warpgroup's ``h`` tile holds)."""
-    layers = _field_layers(field)
-    rd = _build.RingDesc()
-    parts, off = [], 0
-    for i in ring_layers(field):
-        blocks, n = _ring_block(*layers[i])
-        rd.off[i], rd.ncols[i] = off, n
-        parts.append(blocks)
-        off += blocks.numel()
-    depth = field.mlp.depth
-    rd.hrows = max(rd.ncols[i] for i in list(range(depth)) + [depth + 1])
-    rd.stage_floats = 16 * max(rd.ncols[i] for i in ring_layers(field))
-    return torch.cat(parts).to(torch.float32).contiguous(), rd
+    return _ring_from(field, *pack_field(field))
 
 
 def _bwd_matrix(blocks: List[torch.Tensor]) -> torch.Tensor:
@@ -606,6 +616,12 @@ def _packed(field: nn.Module, device: torch.device) -> Tuple[torch.Tensor, _buil
     return _cached(field, device, "_fused_pack", pack_field)
 
 
+def _ring(field: nn.Module, device: torch.device) -> Tuple[torch.Tensor, _build.RingDesc]:
+    """:func:`pack_ring` on ``device`` once per weight state, gathered from
+    the cached :func:`_packed` buffer."""
+    return _cached(field, device, "_ring_pack", lambda f: _ring_from(f, *_packed(f, device)))
+
+
 # K3's workspace planes (csrc/train_render.cu ``enum Plane``; K6 adds s_act,
 # d_sem and ds after the trunk's) and its chunks
 _P_EMB, _P_DEMB, _P_FEAT, _P_HV, _P_DRGB, _P_DSIG, _P_DPV, _P_DFEAT, _P_DA, _P_DB, _P_ACT0 = \
@@ -635,9 +651,12 @@ def grad_layout(field: nn.Module, sem: bool = False) -> Tuple[List[Tuple[int, in
 
 
 def train_desc(field: nn.Module, fdesc: _build.MLPDesc, bwd: List[_build.MLPLayer],
-               S: int, sem: bool = False, input_grads: bool = False) -> _build.TrainDesc:
+               S: int, sem: bool = False, input_grads: bool = False,
+               rays_per_chunk: Optional[int] = None) -> _build.TrainDesc:
     """K3's descriptor for ``S`` samples a ray: the forward and backward
-    layers, the gradient layout and one CTA's workspace planes. ``sem``
+    layers, the gradient layout and one CTA's workspace planes, sized for
+    chunks of ``rays_per_chunk`` rays (default ``_rays_per_chunk(S)``; K3's
+    and K6's forward take :func:`_wg_plan`'s). ``sem``
     (K6 with the semantic head): the semantic head's gradients and three
     planes more, after the trunk's: s_act, d_sem and ds. ``input_grads``
     (the field backward's input-gradient mode, K8c): two planes after
@@ -652,7 +671,7 @@ def train_desc(field: nn.Module, fdesc: _build.MLPDesc, bwd: List[_build.MLPLaye
     offs, d.grad_size = grad_layout(field, sem)
     for i, (gw, gb) in enumerate(offs):
         d.gw[i], d.gb[i] = gw, gb
-    d.rays_per_chunk = _rays_per_chunk(S)
+    d.rays_per_chunk = rays_per_chunk or _rays_per_chunk(S)
     nsub = -(-d.rays_per_chunk * S // _TILE)
     rows = [_pad8(fdesc.emb_dim), _pad8(fdesc.demb_dim), _pad8(W), _pad8(W // 2), 8, 8,
             _pad8(W // 2), _pad8(W), _pad8(W), _pad8(W)] + [_pad8(W)] * mlp.depth
@@ -832,9 +851,10 @@ def fused_rgb_train_grads(field: nn.Module, odv: torch.Tensor, z: torch.Tensor, 
     """K3: one RGB train pass, ``odv [R, 9]``, ``z [R, S]``, ``gt [R, 3]`` ->
     (unscaled grads by parameter name, maps ``[R, 5 + sem]``, weights
     ``[R, S]``); see :func:`rgb_train_grads_plain`. ``seed`` (an int) seeds the
-    sigma noise when ``noise_std > 0``. One call launches the forward and the
-    reverse-sweep kernels once per wave of chunks and the reduction, and adds
-    one to ``launches``."""
+    sigma noise when ``noise_std > 0``. One call launches the forward (on
+    K4's 128-point tile, the weights from :func:`pack_ring` through its ring)
+    and the reverse-sweep kernels once per wave of chunks and the reduction,
+    and adds one to ``launches``."""
     if odv.device.type == "cpu":
         return rgb_train_grads_plain(field, odv, z, gt, white_bkgd=white_bkgd,
                                      noise_std=noise_std, seed=seed)
@@ -847,12 +867,10 @@ def fused_rgb_train_grads(field: nn.Module, odv: torch.Tensor, z: torch.Tensor, 
         raise ValueError(f"expected gt [R, 3], got {tuple(gt.shape)}")
     R, S = z.shape
     buf, fdesc = _packed(field, odv.device)
+    rbuf, ring = _ring(field, odv.device)
+    rpc, rd = _wg_plan(fdesc, ring, S)
     bbuf, bwd = _cached(field, odv.device, "_fused_train_pack", pack_train_bwd)
-    desc = train_desc(field, fdesc, bwd, S)
-    smem = _forward_smem(fdesc, desc.rays_per_chunk, S)
-    if smem > _MAX_SMEM:
-        raise NotImplementedError(f"S={S}: the forward's composite strip and tiles need {smem} B "
-                                  "of shared memory")
+    desc = train_desc(field, fdesc, bwd, S, rays_per_chunk=rpc)
     maps = torch.empty((R, 5 + fdesc.sem_dim), device=odv.device, dtype=torch.float32)
     weights = torch.empty((R, S), device=odv.device, dtype=torch.float32)
     flat = torch.zeros(desc.grad_size, device=odv.device, dtype=torch.float32)
@@ -863,24 +881,26 @@ def fused_rgb_train_grads(field: nn.Module, odv: torch.Tensor, z: torch.Tensor, 
         work = torch.empty(grid * desc.ws_size, device=odv.device, dtype=torch.float32)
         with torch.cuda.device(odv.device):
             code = _build.library().nerf_rgb_train_grads(
-                odv.data_ptr(), z.data_ptr(), gt.data_ptr(), buf.data_ptr(), bbuf.data_ptr(),
-                ctypes.byref(desc), maps.data_ptr(), weights.data_ptr(), partial.data_ptr(),
-                work.data_ptr(), flat.data_ptr(), R, S, grid, noise_seed(seed),
-                float(noise_std), int(white_bkgd), _build.stream(odv.device))
+                odv.data_ptr(), z.data_ptr(), gt.data_ptr(), buf.data_ptr(), rbuf.data_ptr(),
+                bbuf.data_ptr(), ctypes.byref(desc), ctypes.byref(rd), maps.data_ptr(),
+                weights.data_ptr(), partial.data_ptr(), work.data_ptr(), flat.data_ptr(), R, S,
+                grid, noise_seed(seed), float(noise_std), int(white_bkgd),
+                _build.stream(odv.device))
         _build.check(code, "fused_rgb_train_grads")
         fused_rgb_train_grads.launches += 1
     return unpack_grads(field, flat), maps, weights
 
 
 def _forward_smem(fdesc: _build.MLPDesc, rays_per_chunk: int, S: int) -> int:
-    """Shared memory of K3's forward and of K9/K10a: the composite strip of
+    """Shared memory of K9/K10a and of K10b's forward: the composite strip of
     a chunk and the emb, demb and two layer tiles."""
     return (-(-rays_per_chunk * S * (6 + fdesc.sem_dim) // 4) * 4
             + (_pad8(fdesc.emb_dim) + _pad8(fdesc.demb_dim) + 2 * fdesc.hrows) * _KLD) * 4
 
 
 def _wg_smem(fdesc: _build.MLPDesc, rd: _build.RingDesc, rays_per_chunk: int, S: int) -> int:
-    """Shared memory of K4 (``wg_smem`` in ``csrc/train_render.cu``): the
+    """Shared memory of K4 and of K3's and K6's forward (``wg_smem`` in
+    ``csrc/train_render.cu``): the
     ring's barriers and stages, two warpgroups' emb, demb and h tiles of
     64 points, and the chunk's composite strip."""
     rows = _pad8(fdesc.emb_dim) + _pad8(fdesc.demb_dim) + rd.hrows
@@ -889,9 +909,10 @@ def _wg_smem(fdesc: _build.MLPDesc, rd: _build.RingDesc, rays_per_chunk: int, S:
 
 
 def _wg_plan(fdesc: _build.MLPDesc, ring: _build.RingDesc, S: int) -> Tuple[int, _build.RingDesc]:
-    """K4's chunk (K3's ``rays_per_chunk``, fewer rays where the strip and
-    two ring stages would not fit) and its ring descriptor with as many
-    stages (2 to ``MAX_RING_STAGES``) as the rest of shared memory holds."""
+    """The 128-point tile's chunk (K4's, and K3's and K6's forward's:
+    ``_rays_per_chunk(S)``, fewer rays where the strip and two ring stages
+    would not fit) and its ring descriptor with as many stages (2 to
+    ``MAX_RING_STAGES``) as the rest of shared memory holds."""
     rd = _build.RingDesc.from_buffer_copy(ring)
     rd.stages = 2
     rpc = _rays_per_chunk(S)
@@ -923,7 +944,7 @@ def train_render(field: nn.Module, odv: torch.Tensor, z: torch.Tensor, *, noise_
         raise ValueError("save_semin needs the semantic head")
     R, S = z.shape
     buf, fdesc = _packed(field, odv.device)
-    rbuf, ring = _cached(field, odv.device, "_ring_pack", pack_ring)
+    rbuf, ring = _ring(field, odv.device)
     desc = _build.TrainDesc()
     desc.f = fdesc
     desc.rays_per_chunk, rd = _wg_plan(fdesc, ring, S)
@@ -992,9 +1013,9 @@ def train_render_grads(field: nn.Module, odv: torch.Tensor, z: torch.Tensor,
     cotangent ``dmaps [R, 5 + sem]`` and the weights' ``dweights [R, S]``
     (None: zero), recomputing the forward of ``odv [R, 9]``, ``z [R, S]``
     with the noise of ``seed``; see :func:`train_render_grads_plain`. One call
-    launches K3's forward and reverse-sweep kernels in their cotangent mode
-    once per wave of chunks and the reduction, and adds one to
-    ``launches``."""
+    launches K3's forward (on K4's tile) and reverse-sweep kernels in their
+    cotangent mode once per wave of chunks and the reduction, and adds one
+    to ``launches``."""
     if odv.device.type == "cpu":
         return train_render_grads_plain(field, odv, z, dmaps, dweights, noise_std=noise_std,
                                         seed=seed)
@@ -1012,12 +1033,10 @@ def train_render_grads(field: nn.Module, odv: torch.Tensor, z: torch.Tensor,
         if tuple(t.shape) != shape:
             raise ValueError(f"expected {name} {shape}, got {tuple(t.shape)}")
     sem = field.mlp.use_semantics
+    rbuf, ring = _ring(field, odv.device)
+    rpc, rd = _wg_plan(fdesc, ring, S)
     bbuf, bwd = _cached(field, odv.device, "_fused_train_pack", pack_train_bwd)
-    desc = train_desc(field, fdesc, bwd, S, sem)
-    smem = _forward_smem(fdesc, desc.rays_per_chunk, S)
-    if smem > _MAX_SMEM:
-        raise NotImplementedError(f"S={S}: the forward's composite strip and tiles need {smem} B "
-                                  "of shared memory")
+    desc = train_desc(field, fdesc, bwd, S, sem, rays_per_chunk=rpc)
     flat = torch.zeros(desc.grad_size, device=odv.device, dtype=torch.float32)
     if R > 0:
         nchunks = -(-R // desc.rays_per_chunk)
@@ -1028,9 +1047,9 @@ def train_render_grads(field: nn.Module, odv: torch.Tensor, z: torch.Tensor,
             code = _build.library().nerf_train_render_grads(
                 odv.data_ptr(), z.data_ptr(), dmaps.data_ptr(),
                 None if dweights is None else dweights.data_ptr(), buf.data_ptr(),
-                bbuf.data_ptr(), ctypes.byref(desc), partial.data_ptr(), work.data_ptr(),
-                flat.data_ptr(), R, S, grid, noise_seed(seed), float(noise_std),
-                _build.stream(odv.device))
+                rbuf.data_ptr(), bbuf.data_ptr(), ctypes.byref(desc), ctypes.byref(rd),
+                partial.data_ptr(), work.data_ptr(), flat.data_ptr(), R, S, grid,
+                noise_seed(seed), float(noise_std), _build.stream(odv.device))
         _build.check(code, "train_render_grads")
         train_render_grads.launches += 1
     return unpack_grads(field, flat, sem)
@@ -1161,9 +1180,10 @@ def mip_train_render_grads(field: nn.Module, odvr: torch.Tensor, z: torch.Tensor
     maps' cotangent ``dmaps [R, 5]`` and the weights' ``dweights [R, S]``
     (None: zero), recomputing the forward of ``odvr [R, 10]``,
     ``z [R, S + 1]`` with the noise of ``seed``; see
-    :func:`mip_train_render_grads_plain`. One call launches K3's forward
-    and reverse-sweep kernels in their mip cotangent mode once per wave of
-    chunks and the reduction, and adds one to ``launches``."""
+    :func:`mip_train_render_grads_plain`. One call launches the 64-point
+    forward kernel and K3's reverse-sweep kernel in their mip cotangent mode
+    once per wave of chunks and the reduction, and adds one to
+    ``launches``."""
     if odvr.device.type == "cpu":
         return mip_train_render_grads_plain(field, odvr, z, dmaps, dweights,
                                             noise_std=noise_std, seed=seed)

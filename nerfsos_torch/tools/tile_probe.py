@@ -1,9 +1,10 @@
-"""Where K4's time goes on the card: builds patched copies of the kernel
-sources under ``<root>/build/tile_probe/<variant>/`` and times K4
-(``ops.fused_render.train_render``) with each, in one process.
+"""Where K4's, K3's and K6's time goes on the card: builds patched copies of
+the kernel sources under ``<root>/build/tile_probe/<variant>/`` and times
+K4 (``ops.fused_render.train_render``), K6 (``train_render_grads``) or K3
+(``fused_rgb_train_grads``) with each, in one process.
 
     python -m nerfsos_torch.tools.tile_probe [--root DIR] [--rays 32768]
-        [--samples 192] [--variants base,wgclock] [--kernel k4|k9]
+        [--samples 192[,64...]] [--variants base,wgclock] [--kernel k4|k9|k6|k3]
 
 ``--root`` is the checkout whose package, kernels and ``chip_smoke.py`` are
 used (default: this one). To A/B K4 against the 64-point tile it replaced,
@@ -30,13 +31,32 @@ never edited):
   thread 0 of CTA 0, around its waits for a full ring stage, the layers'
   k loops, the waits for its own wgmma inside them, the layers'
   epilogues and the whole tile loop, and the producer thread of CTA 0
-  around its waits for an empty stage.
+  around its waits for an empty stage;
+- ``fwdonly`` (K3, K6): ``train_grads`` launches the forward kernel of each
+  wave and the reduction but no reverse-sweep kernel, so the reverse
+  sweep's time is ``base``'s less this;
+- ``sweepclock`` (K3, K6): clock64 counters, thread 0 of CTA 0 over every
+  wave, in ``train_reverse_kernel`` (``csrc/train_sweep.cuh``): the whole
+  kernel, each ``wgrad`` (the dW products) and each ``bwd_layer`` (the dX
+  products), and inside each its issue of the next tile's ``cp.async``
+  copies and its waits for them (``cp.async.wait_group`` and the barrier
+  after it): the staging;
+- ``nostore``, ``nocomposite``, ``epistore`` (K3's and K6's forward on the
+  128-point tile; results wrong but for ``epistore``): no workspace stores;
+  no composite after the tiles; the layer-mode stores from the epilogue's
+  registers (a warp's 8 points of two rows a store) in place of the
+  warp's float4 copy of its points from h.
 
-It prints one line per variant: K4's ms (CUDA events) and the counters as
-shares of the counted span, then the card's name and power limit.
-``--kernel k9`` times K9 (``fused_mip_render``, the mip eval pass, which
-still runs the 64-point tile) instead, ``base`` variant only: an A/B of the
-kernels that this tile change must leave alone.
+Variants join with ``+`` (``fwdonly+nostore``: one copy with both patches).
+
+It prints one line per variant and sample count: the kernel's ms (CUDA
+events) and the counters as shares of the counted span, then the card's
+name and power limit. ``--kernel k9`` times K9 (``fused_mip_render``, the
+mip eval pass, which still runs the 64-point tile) instead, ``base``
+variant only: an A/B of the kernels that a tile change must leave alone.
+``--kernel k6`` takes the full SOS finetune's backward at the flagship
+width with the semantic head and its coordinates and seeded map and weight
+cotangents, ``--kernel k3`` the RGB train pass with the semantic head.
 """
 from __future__ import annotations
 
@@ -48,6 +68,7 @@ import re
 import shutil
 import sys
 
+import numpy as np
 import torch
 
 HERE = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -75,7 +96,50 @@ def _sub(text: str, old: str, new: str, count: int = 0) -> str:
     return text.replace(old, new)
 
 
+def _in_function(text: str, head: str, fn) -> str:
+    """text with fn applied to the function that starts with head."""
+    i = text.index(head)
+    j = text.index("\n}\n", i) + 3
+    return text[:i] + fn(text[i:j]) + text[j:]
+
+
+def _sweep_clocks(t: str) -> str:
+    """train_sweep.cuh with sweepclock's counters: 0 the reverse kernel,
+    1-3 wgrad, its copy issue and its waits, 4-6 the same of bwd_layer."""
+    t = _sub(t, "#include \"tile_mlp.cuh\"\n", "#include \"tile_mlp.cuh\"\n" + _COUNTERS, 1)
+
+    def timed(body, stage, total, issue, wait, first):
+        body = _sub(body, first, first + "  long long p_all = clock64(), p_w = 0;\n", 1)
+        body = body[:body.rindex("}")] + f"  PROBE_ADD({total}, p_all);\n}}\n"
+        body = re.sub(r"(\n\s*)(" + stage + r"\([^;]*;)",
+                      r"\1{ long long p_i = clock64(); \2 PROBE_ADD(" + str(issue) + ", p_i); }",
+                      body)
+        for n in (1, 0):
+            w = f'asm volatile("cp.async.wait_group {n};\\n" ::);'
+            body = _sub(body, w, f"p_w = clock64(); {w}", 1)
+        return re.sub(r"(\n\s*\}\n\s*__syncthreads\(\);)",
+                      r"\1 PROBE_ADD(" + str(wait) + ", p_w);", body, count=1)
+
+    t = _in_function(t, "__device__ __noinline__ void wgrad(", lambda b: timed(
+        b, "stage_tiles", 1, 2, 3, "  const int wm = warp & 3, wn = warp >> 2;\n"))
+    t = _in_function(t, "__device__ __noinline__ void bwd_layer(", lambda b: timed(
+        b, "stage", 4, 5, 6, "  const int k0 = d.rows[p0], k1 = p1 >= 0 ? d.rows[p1] : 0;\n"))
+    t = _in_function(t, "    train_reverse_kernel(", lambda b: _sub(
+        _sub(b, "  float* stages = reinterpret_cast<float*>(smem4);\n",
+             "  float* stages = reinterpret_cast<float*>(smem4);\n"
+             "  long long p_start = clock64();\n", 1),
+        "  if (kInGrad) {\n    const long long base", "  PROBE_ADD(0, p_start);\n"
+        "  if (kInGrad) {\n    const long long base", 1))
+    return t
+
+
 def _patch(variant: str, csrc: str) -> None:
+    """Apply each of a '+'-joined variant's patches to the copy at csrc."""
+    for v in variant.split("+"):
+        _patch_one(v, csrc)
+
+
+def _patch_one(variant: str, csrc: str) -> None:
     def edit(name, fn):
         path = os.path.join(csrc, name)
         with open(path) as f:
@@ -126,8 +190,8 @@ def _patch(variant: str, csrc: str) -> None:
                      "    wgmma_wait<0>();\n    PROBE_ADD(4, p_g);\n", 1)
             t = _sub(t, "  pos += nsteps;\n", "  pos += nsteps;\n  PROBE_ADD(3, p_k);\n"
                      "  long long p_x = clock64();\n", 1)
-            t = _sub(t, "    __syncwarp();\n    return pos;\n",
-                     "    __syncwarp();\n    PROBE_ADD(5, p_x);\n    return pos;\n", 1)
+            i = t.index("    return pos;\n", t.index("    __syncwarp();\n"))  # layer mode's
+            t = t[:i] + "    PROBE_ADD(5, p_x);\n" + t[i:]
             lines = t.split("\n")
             i = max(j for j, s in enumerate(lines[:t[:t.index("wg_layer_n")].count("\n")])
                     if s == "  return pos;")
@@ -137,28 +201,66 @@ def _patch(variant: str, csrc: str) -> None:
         edit("wg_tile.cuh", tile)
 
         def kern(t):
-            t = _sub(t, "  int pos = 0;\n",
-                     "  int pos = 0;\n  long long p_start = clock64();\n", 1)
+            # the tile loops of K4's kernel and of K3's and K6's forward
+            t = _sub(t, "  int pos = 0;\n", "  int pos = 0;\n  long long p_start = clock64();\n")
             t = _sub(t, "  asm volatile(\"bar.sync 3, %0;\\n\"",
-                     "  PROBE_ADD(0, p_start);\n  asm volatile(\"bar.sync 3, %0;\\n\"", 1)
+                     "  PROBE_ADD(0, p_start);\n  asm volatile(\"bar.sync 3, %0;\\n\"")
             return t + _READER
 
         edit("train_render.cu", kern)
+    elif variant == "fwdonly":
+        edit("train_render.cu", lambda t: _sub(
+            t, "    train_reverse_kernel<kSem><<<grid, kThreads, stage_smem, st>>>(\n"
+               "        bparams, nullptr, *d, partial, workspace, R, S, wave, nullptr, nullptr);\n",
+            "", 1))
+    elif variant == "sweepclock":
+        edit("train_sweep.cuh", _sweep_clocks)
+        edit("train_render.cu", lambda t: t + _READER)
+    elif variant == "nostore":
+        edit("wg_tile.cuh", lambda t: _sub(t, "const bool store = kStore && qw < nq;",
+                                           "const bool store = false;", 1))
+    elif variant == "nocomposite":
+        edit("train_render.cu", lambda t: _sub(
+            t, "  composite_chunk<kMode, false, kWgConsumers>(odv, zc, aux, dweights, d, ws, strip,",
+            "  if (false) composite_chunk<kMode, false, kWgConsumers>(odv, zc, aux, dweights, d, "
+            "ws, strip,", 1))
+    elif variant == "epistore":
+        def tile(t):
+            start = t.index("    if (kStore && o.plane) {  // the warp's 16 points of each row")
+            t = t[:start] + t[t.index("\n    }\n", start) + 7:]  # the copy from h goes
+            return _sub(t, "      if (rb && n + 1 < o.hn) rb[n + 1] = v[3];\n", """\
+      if (rb && n + 1 < o.hn) rb[n + 1] = v[3];
+      if (kStore && o.plane && n < o.prow) {  // a warp's 8 points of rows n, n + 1
+        float* r = o.plane + n * kLd;
+        r[m0] = v[0];
+        r[m0 + 8] = v[2];
+        r[kLd + m0] = v[1];
+        r[kLd + m0 + 8] = v[3];
+      }
+""", 1)
+
+        edit("wg_tile.cuh", tile)
     elif variant != "base":
         raise ValueError(f"unknown variant {variant}")
 
 
+def _clock(variant: str) -> str:
+    """The clock64 part of a '+'-joined variant, or ''."""
+    return next((v for v in variant.split("+") if v.endswith("clock")), "")
+
+
 def _use(_build, root: str, variant: str):
-    """Point _build at a patched copy of root's sources and load its library."""
+    """Point _build at a patched copy of root's sources and load its library
+    (built unless one for the same sources is there)."""
     base = os.path.join(root, "build", "tile_probe", variant)
     csrc = os.path.join(base, "csrc")
-    shutil.rmtree(base, ignore_errors=True)
+    shutil.rmtree(csrc, ignore_errors=True)
     shutil.copytree(os.path.join(root, "nerfsos_torch", "csrc"), csrc)
     _patch(variant, csrc)
     _build.CSRC_DIR, _build.BUILD_DIR = csrc, os.path.join(base, "kernels")
     _build.library.cache_clear()
     lib = _build.library()
-    if variant.endswith("clock"):
+    if _clock(variant):
         lib.probe_read.argtypes = [ctypes.c_void_p]
         lib.probe_read.restype = ctypes.c_int
     return lib
@@ -167,10 +269,10 @@ def _use(_build, root: str, variant: str):
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--rays", type=int, default=32768)
-    ap.add_argument("--samples", type=int, default=192)
+    ap.add_argument("--samples", default="192", help="samples a ray, a comma-separated list")
     ap.add_argument("--variants", default="base,wgclock")
     ap.add_argument("--root", default=HERE)
-    ap.add_argument("--kernel", default="k4", choices=("k4", "k9"))
+    ap.add_argument("--kernel", default="k4", choices=("k4", "k9", "k6", "k3"))
     a = ap.parse_args()
     if not torch.cuda.is_available():
         print("tile_probe: no CUDA device visible", file=sys.stderr)
@@ -184,35 +286,53 @@ def main() -> int:
     from nerfsos_torch import _build
     from nerfsos_torch.ops import fused_render as fr
 
-    if a.kernel == "k9":
-        field = seeded_mip_field(5)
-        odv, z = mip_ray_inputs(a.rays, a.samples, seed=11)
-        run = lambda: fr.fused_mip_render(field, odv, z)  # noqa: E731
-    else:
-        field = seeded_field(3, net_depth=8, net_width=256, multires=10, multires_views=4,
-                             use_semantics=True, sem_with_coord=True, sem_dim=2)
-        odv, z = ray_inputs(a.rays, a.samples, seed=11)
+    def runner(S: int):
+        """The call to time at S samples a ray."""
+        if a.kernel == "k9":
+            field = seeded_mip_field(5)
+            odv, z = mip_ray_inputs(a.rays, S, seed=11)
+            return lambda: fr.fused_mip_render(field, odv, z)
+        field = seeded_field(3 if a.kernel != "k3" else 2, net_depth=8, net_width=256,
+                             multires=10, multires_views=4, use_semantics=True,
+                             sem_with_coord=a.kernel != "k3", sem_dim=2)
+        odv, z = ray_inputs(a.rays, S, seed=11)
+        rng = np.random.default_rng(S)
+        if a.kernel == "k6":
+            dmaps = torch.from_numpy(rng.normal(size=(a.rays, 7)).astype(np.float32)).cuda()
+            dw = torch.from_numpy(rng.normal(size=(a.rays, S)).astype(np.float32)).cuda()
+            return lambda: fr.train_render_grads(field, odv, z, dmaps, dw, noise_std=1.0,
+                                                 seed=7654321)
+        if a.kernel == "k3":
+            gt = torch.from_numpy(rng.uniform(0, 1, (a.rays, 3)).astype(np.float32)).cuda()
+            return lambda: fr.fused_rgb_train_grads(field, odv, z, gt, white_bkgd=False,
+                                                    noise_std=1.0, seed=7654321)
         kw = dict(noise_std=1.0, seed=7654321, save_semin=True)
-        run = lambda: fr.train_render(field, odv, z, **kw)  # noqa: E731
+        return lambda: fr.train_render(field, odv, z, **kw)
+
+    names = {"l1clock": ["load_stage", "mma_stage"],
+             "wgclock": ["ring_full_wait", "producer_empty_wait", "k_loops", "own_wgmma_wait",
+                         "epilogues"],
+             "sweepclock": ["wgrad", "wgrad_copy_issue", "wgrad_copy_wait", "bwd_layer",
+                            "bwd_layer_copy_issue", "bwd_layer_copy_wait"]}
+    runs = {int(S): runner(int(S)) for S in a.samples.split(",")}
     for variant in a.variants.split(","):
         lib = _use(_build, root, variant)
-        with torch.no_grad():
-            ms = cuda_ms(run, reps=3, warmup=1)
-            out = {"root": os.path.relpath(root, HERE), "variant": variant, "rays": a.rays,
-                   "samples": a.samples, f"{a.kernel}_ms": ms}
-            if variant.endswith("clock"):
-                buf = (ctypes.c_ulonglong * 8)()
-                _build.check(lib.probe_read(buf), "probe_read")  # drop the timed calls' sums
-                run()
-                torch.cuda.synchronize()
-                _build.check(lib.probe_read(buf), "probe_read")
-                total = max(buf[0], 1)
-                names = (["load_stage", "mma_stage"] if variant == "l1clock"
-                         else ["ring_full_wait", "producer_empty_wait", "k_loops",
-                               "own_wgmma_wait", "epilogues"])
-                out["cycles_cta0_thread0"] = buf[0]
-                out.update({f"{n}_share": buf[i + 1] / total for i, n in enumerate(names)})
-        print(json.dumps(out), flush=True)
+        for S, run in runs.items():
+            with torch.no_grad():
+                ms = cuda_ms(run, reps=3, warmup=1)
+                out = {"root": os.path.relpath(root, HERE), "variant": variant, "rays": a.rays,
+                       "samples": S, f"{a.kernel}_ms": ms}
+                if _clock(variant):
+                    buf = (ctypes.c_ulonglong * 8)()
+                    _build.check(lib.probe_read(buf), "probe_read")  # drop the timed calls' sums
+                    run()
+                    torch.cuda.synchronize()
+                    _build.check(lib.probe_read(buf), "probe_read")
+                    total = max(buf[0], 1)
+                    out["cycles_cta0_thread0"] = buf[0]
+                    out.update({f"{n}_share": buf[i + 1] / total
+                                for i, n in enumerate(names[_clock(variant)])})
+            print(json.dumps(out), flush=True)
     print(smi_line())
     return 0
 

@@ -401,6 +401,47 @@ def test_k6_matches_plain(cuda, shape, s, coord, dweights, n):
         assert err <= GRAD_TOL * scale + allow[name], (name, err / scale)
 
 
+@pytest.mark.parametrize("depth", [8, 6])
+@pytest.mark.parametrize("sem_dim,coord", [(2, True), (2, False), (8, True), (8, False)])
+@pytest.mark.parametrize("n,s", [(41, 136), (300, 64), (77, 192)])
+def test_k3_k6_tile_forward_match_plain(cuda, depth, sem_dim, coord, n, s):
+    """K3's and K6's storing forward on the 128-point tile (csrc/wg_tile.cuh,
+    train_forward_wg_kernel): S = 136 gives 3-ray chunks of 408 points, an
+    odd 7 subs, so the last tile's second warpgroup stores nothing; 41, 300
+    and 77 rays leave a ragged last chunk; sem_dim 8 shrinks the plan's
+    chunk (the strip is wider); depth 8 and 6, the semantic head with and
+    without coordinates. On gate-clear rays: K3's maps and weights to TOL,
+    K3's and K6's leaves to GRAD_TOL plus the sigma gates' allowance, and
+    both bitwise equal across two calls."""
+    field = _field(cuda, 21, use_semantics=True, sem_with_coord=coord, sem_dim=sem_dim,
+                   net_depth=depth, net_width=256, multires=10, multires_views=4)
+    odv, z, gt = _gate_clear_inputs(field, n, s, 23, sem=True)
+    kw = dict(white_bkgd=False, noise_std=1.0, seed=4242)
+    got = fr.fused_rgb_train_grads(field, odv, z, gt, **kw)
+    again = fr.fused_rgb_train_grads(field, odv, z, gt, **kw)
+    want, slack, terms = plain_k3_with_gates(field, odv, z, gt, kw)
+    torch.cuda.synchronize()
+    _assert_k3_close(got, want, flip_allowance(slack, terms))
+    assert all(torch.equal(got[0][k], again[0][k]) for k in got[0])
+    assert torch.equal(got[1], again[1]) and torch.equal(got[2], again[2])
+    rng = np.random.default_rng(n + s)
+    dmaps = torch.from_numpy(rng.normal(size=(n, 5 + sem_dim)).astype(np.float32)).to(cuda)
+    dw = torch.from_numpy(rng.normal(size=(n, s)).astype(np.float32)).to(cuda)
+    kw = dict(noise_std=1.0, seed=4243)
+    got = fr.train_render_grads(field, odv, z, dmaps, dw, **kw)
+    again = fr.train_render_grads(field, odv, z, dmaps, dw, **kw)
+    want, slack, terms = plain_k6_with_gates(field, odv, z, dmaps, dw, kw)
+    torch.cuda.synchronize()
+    allow = flip_allowance(slack, terms)
+    assert set(got) == set(want)
+    for name, ref in want.items():
+        assert torch.equal(got[name], again[name]), name
+        assert got[name].shape == ref.shape and torch.isfinite(got[name]).all(), name
+        scale = max(float(ref.abs().max()), 1e-12)
+        err = float((got[name] - ref).abs().max())
+        assert err <= GRAD_TOL * scale + allow[name], (name, err / scale)
+
+
 def test_k6_without_semantics(cuda):
     """A field without the semantic head: K6 sweeps its layers alone."""
     field = _field(cuda, 9, **SHAPES[0])

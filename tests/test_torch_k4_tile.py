@@ -101,10 +101,18 @@ def test_ring_packing_unpacks_to_the_weights(depth, sem, coord, width):
         assert 2 <= rds.stages <= 4 and fr._wg_smem(fdesc, rds, rpc, S) <= fr._MAX_SMEM
 
 
-def _k4_model(field, odv, z, noise_std, seed, save_semin):
+def _k4_model(field, odv, z, noise_std, seed, save_semin, desc=None, sem_act=False):
     """K4 as the kernel computes it, from pack_field's and pack_ring's
     buffers alone: chunks of rays, 128-point tiles of two 64-point
-    warpgroups, each layer k-slice by k-slice in the ring's order."""
+    warpgroups, each layer k-slice by k-slice in the ring's order. With
+    ``desc`` (``train_desc`` at the plan's chunk), K3's and K6's storing
+    forward (``wg_forward_tile``'s kStore): each warpgroup with a point
+    before the chunk's nq also writes emb, demb, every trunk layer's output,
+    feature, views' hidden activation and (``sem_act``, K6) the semantic
+    head's into sub 2 t + w of its chunk's workspace slice; the slices come
+    back with each float's count of writes and the chunk's nq, and so do
+    the heads' outputs of every point (the composite strip: sigma without
+    noise at column 0, the rgb logits at 2.., the semantics at 5..)."""
     buf, fdesc = fr.pack_field(field)
     ring, rd = fr.pack_ring(field)
     R_, S = z.shape
@@ -149,12 +157,23 @@ def _k4_model(field, odv, z, noise_std, seed, save_semin):
                 out.append(torch.sin(x * (2.0 ** band) + phase))
         return torch.cat(out)
 
-    maps, weights, sem_in = [], [], []
+    maps, weights, sem_in, slices, strips = [], [], [], [], []
     for r0 in range(0, R_, rpc):
         o, zc = odv[r0:r0 + rpc], z[r0:r0 + rpc]
         nq = zc.numel()
         strip = torch.zeros(nq, cs)
         semin = torch.zeros(nq, C)
+        if desc is not None:
+            ws = torch.zeros(desc.ws_size)
+            writes = torch.zeros(desc.ws_size, dtype=torch.int32)
+            slices.append((ws, writes, nq))
+
+        def put(p, sub, x):
+            rows = desc.rows[p]
+            at = desc.plane[p] + sub * rows * fr._KLD
+            ws[at:at + rows * fr._KLD].view(rows, fr._KLD)[:, :WG] = x[:rows]
+            writes[at:at + rows * fr._KLD].view(rows, fr._KLD)[:, :WG] += 1
+
         pts = (o[:, None, 0:3] + o[:, None, 3:6] * zc[..., None]).reshape(-1, 3)
         dirs = o[:, None, 6:9].expand(-1, zc.shape[1], 3).reshape(-1, 3)
         for t in range(-(-nq // 128)):
@@ -167,11 +186,17 @@ def _k4_model(field, odv, z, noise_std, seed, save_semin):
                 demb = torch.zeros(Edp, WG)
                 emb[:E] = pe(torch.where(live, pts[qc].t(), 0.0), E)
                 demb[:Ed] = pe(torch.where(live, dirs[qc].t(), 0.0), Ed)
+                store, sub = desc is not None and qw < nq, qw // WG
+                if store:
+                    put(fr._P_EMB, sub, emb)
+                    put(fr._P_DEMB, sub, demb)
                 h = torch.full((rd.hrows, WG), float("nan"))  # rows are written before read
                 in0, in1 = emb, None
                 for i in range(depth):
                     v = torch.relu(product(i, [in0, in1]) + bias(L[i], rd.ncols[i]))
                     h[:rd.ncols[i]] = v.t()  # over the layer's own input rows
+                    if store:
+                        put(fr._P_ACT0 + i, sub, v.t())
                     if i == depth - 1:
                         semin[qc[live], hoff:hoff + hn] = v[live, :hn]
                     hs = h[:fr._pad8(L[i].n)]
@@ -187,16 +212,23 @@ def _k4_model(field, odv, z, noise_std, seed, save_semin):
                     i = depth + 4
                     v = torch.relu(product(i, [in0, in1, emb if fdesc.sem_with_coord else None])
                                    + bias(head[4], rd.ncols[i]))
+                    if store and sem_act:
+                        put(fr._P_ACT0 + depth, sub, v.t())
                     s_out = v[:, :head[5].k] @ wt_fp32(head[5])[:, :sem] + buf[head[5].b:
                                                                              head[5].b + sem]
                     strip[qc[live], 5:5 + sem] = s_out[live]
                 i = depth + 1
                 h[:rd.ncols[i]] = (product(i, [in0, in1]) + bias(head[1], rd.ncols[i])).t()
+                if store:
+                    put(fr._P_FEAT, sub, h)
                 i = depth + 2
                 v = torch.relu(product(i, [h[:fr._pad8(head[1].n)], demb])
                                + bias(head[2], rd.ncols[i]))
+                if store:
+                    put(fr._P_HV, sub, v.t())
                 rgb = v[:, :head[3].k] @ wt_fp32(head[3])[:, :3] + buf[head[3].b:head[3].b + 3]
                 strip[qc[live], 2:5] = rgb[live]
+        strips.append(strip)
         raw = torch.cat([strip[:, 2:5], strip[:, 0:1], strip[:, 5:5 + sem]], 1)
         raw = raw.view(zc.shape[0], zc.shape[1], -1)
         sigma = raw[..., 3]
@@ -209,7 +241,8 @@ def _k4_model(field, odv, z, noise_std, seed, save_semin):
     per_tile = sum(L[i].k // 8 for i in fr.ring_layers(field))
     assert stages["n"] == 2 * per_tile * sum(-(-min(rpc, R_ - r0) * S // 128)
                                              for r0 in range(0, R_, rpc))
-    return torch.cat(maps), torch.cat(weights), torch.cat(sem_in) if save_semin else None
+    out = torch.cat(maps), torch.cat(weights), torch.cat(sem_in) if save_semin else None
+    return out if desc is None else (*out, slices, torch.cat(strips))
 
 
 CASES = [(4, True, True, 0.6, 8), (5, True, False, 0.0, 16), (6, True, True, 0.0, 8),
@@ -246,19 +279,22 @@ def test_k4_tile_model_matches_plain_and_pallas(depth, sem, coord, noise, s):
 
 
 def test_ring_repacks_a_changed_layer_only():
-    """pack_ring keeps each layer's stages for its weight state: an update
-    of sem_0 alone (a --fix_backbone step) repacks sem_0's stages, reuses
-    the others, and gives what a fresh field with the same weights gives."""
+    """pack_ring is a gather of pack_field's TF32 parts: an update of sem_0
+    alone (a --fix_backbone step) changes sem_0's stages and no other
+    layer's, gives what a fresh field with the same weights gives, and the
+    wrappers' cached ring (``_ring``, gathered from the cached ``_packed``
+    buffer) follows the update."""
     torch.manual_seed(1)
     kw = dict(net_depth=4, net_width=32, multires=4, multires_views=2, use_semantics=True,
               sem_with_coord=True, sem_dim=2)
     field = NeRFField(**kw)
+    cpu = torch.device("cpu")
     before, rd = fr.pack_ring(field)
-    trunk = field.mlp.pts_linears[0].__dict__["_ring_block"][1]
+    assert torch.equal(fr._ring(field, cpu)[0], before)
     with torch.no_grad():
         field.mlp.semantic_linear[0].weight.mul_(-0.5)
     after, rd2 = fr.pack_ring(field)
-    assert field.mlp.pts_linears[0].__dict__["_ring_block"][1] is trunk
+    assert torch.equal(fr._ring(field, cpu)[0], after)
     fresh = NeRFField(**kw)
     fresh.load_state_dict(field.state_dict())
     assert torch.equal(after, fr.pack_ring(fresh)[0])
@@ -268,3 +304,75 @@ def test_ring_repacks_a_changed_layer_only():
     assert not torch.equal(before[lo:hi], after[lo:hi])
     assert torch.equal(before[:lo], after[:lo]) and torch.equal(before[hi:], after[hi:])
     assert list(rd.off) == list(rd2.off) and list(rd.ncols) == list(rd2.ncols)
+
+
+STORE_CASES = [  # (K3 or K6, depth, semantic head, its coordinates, noise)
+    ("k3", 4, True, True, 0.6), ("k3", 5, False, False, 0.0), ("k6", 4, True, True, 0.0),
+    ("k6", 5, True, False, 0.6), ("k6", 4, False, False, 0.0)]
+
+
+@pytest.mark.parametrize("mode,depth,sem,coord,noise", STORE_CASES)
+def test_storing_forward_model_feeds_the_reverse_sweep(mode, depth, sem, coord, noise):
+    """K3's and K6's storing forward on the 128-point tile, at S = 136:
+    chunks of 3 rays (the plan's, which sizes train_desc's planes), 408
+    points, 7 subs, so the last tile's second warpgroup lies wholly past
+    the points; the last chunk of 20 rays has 2 rays (272 points, 5 subs).
+    Every float of each stored plane's subs of the chunk's points is written
+    once and nothing else is written; the planes, fed through the reverse
+    sweep of ``_emulate_k3`` (with the tile's heads as the composite's
+    input), give ``rgb_train_grads_plain``'s and ``train_render_grads_plain``'s
+    gradients."""
+    from test_torch_train_render import _emulate_k3
+
+    torch.manual_seed(depth)
+    field = NeRFField(net_depth=depth, net_width=32, multires=4, multires_views=2,
+                      use_semantics=sem, sem_with_coord=coord, sem_dim=2)
+    S, k6 = 136, mode == "k6"
+    odv, z = (torch.from_numpy(a) for a in _inputs(depth, S))
+    fdesc = fr.pack_field(field)[1]
+    rpc, _ = fr._wg_plan(fdesc, fr.pack_ring(field)[1], S)
+    desc = fr.train_desc(field, fdesc, fr.pack_train_bwd(field)[1], S, sem=k6 and sem,
+                         rays_per_chunk=rpc)
+    assert desc.rays_per_chunk == rpc == 3
+    with torch.no_grad():
+        *_, slices, strip = _k4_model(field, odv, z, noise, 5, False, desc, sem_act=k6 and sem)
+    nsub = -(-rpc * S // WG)
+    stored = ([fr._P_EMB, fr._P_DEMB, fr._P_FEAT, fr._P_HV]
+              + [fr._P_ACT0 + i for i in range(depth + (k6 and sem))])
+    acts = {p: [] for p in stored}
+    for ws, writes, nq in slices:
+        want = torch.zeros_like(writes)
+        for p in stored:
+            rows, at = desc.rows[p], desc.plane[p]
+            want[at:at + nsub * rows * fr._KLD].view(nsub, rows, fr._KLD)[:-(-nq // WG), :, :WG] = 1
+            tiles = ws[at:at + nsub * rows * fr._KLD].view(nsub, rows, fr._KLD)[:, :, :WG]
+            acts[p].append(tiles.permute(1, 0, 2).reshape(rows, -1)[:, :nq])
+        assert torch.equal(writes, want)
+    acts = {p: torch.cat(a, 1) for p, a in acts.items()}
+    sems = fdesc.sem_dim
+    fwd = dict(emb=acts[fr._P_EMB], demb=acts[fr._P_DEMB], feat=acts[fr._P_FEAT],
+               hv=acts[fr._P_HV], acts=[acts[fr._P_ACT0 + i] for i in range(depth)],
+               s_act=acts.get(fr._P_ACT0 + depth), sigma=strip[:, 0].view(R, S),
+               logits=strip[:, 2:5].t().reshape(3, R, S),
+               semv=strip[:, 5:5 + sems].t().reshape(sems, R, S) if sem else None)
+    rng = np.random.default_rng(depth)
+    kw = dict(noise_std=noise, seed=99)
+    with torch.no_grad():
+        if k6:
+            dmaps = torch.from_numpy(rng.normal(size=(R, 5 + sems)).astype(np.float32))
+            dw = torch.from_numpy(rng.normal(size=(R, S)).astype(np.float32))
+            got, _, _ = _emulate_k3(field, odv, z, None, False, noise, 99, dmaps, dw, fwd=fwd)
+    if k6:
+        want = fr.train_render_grads_plain(field, odv, z, dmaps, dw, **kw)
+    else:
+        gt = torch.from_numpy(rng.uniform(0, 1, size=(R, 3)).astype(np.float32))
+        with torch.no_grad():
+            got, maps, w = _emulate_k3(field, odv, z, gt, False, noise, 99, fwd=fwd)
+        want, maps_p, w_p = fr.rgb_train_grads_plain(field, odv, z, gt, white_bkgd=False, **kw)
+        torch.testing.assert_close(maps, maps_p, atol=1e-5, rtol=0)
+        torch.testing.assert_close(w, w_p, atol=1e-5, rtol=0)
+    assert set(got) == set(want)
+    for name, g in want.items():
+        assert got[name].shape == g.shape, name
+        err = float((got[name] - g).abs().max()) / (float(g.abs().max()) + 1e-9)
+        assert err < 1e-5, (name, err)

@@ -123,45 +123,65 @@ def _pad_rows(x, rows):
     return torch.cat([x, x.new_zeros(rows - x.shape[0], x.shape[1])])
 
 
-def _emulate_k3(field, odv, z, gt, white, noise_std, seed, dmaps=None, dweights=None):
-    """What csrc/train_render.cu computes, step for step, in feature-major
-    torch matrices built only from the packed buffers: forward through
-    ``pack_field``, the composite and its reverse per ray, the input
-    gradients through ``pack_train_bwd`` with the relu gates, dW = X dY^T
-    into ``grad_layout``'s buffer, then ``unpack_grads``. With ``dmaps``
-    (K6) the maps' cotangent is ``dmaps`` (and ``dweights``) instead of the
-    img2mse one, and the semantic head is swept between alpha and the trunk,
-    its input gradient on h added into the last trunk layer's cotangent."""
+def _mm(b, L, segs, relu=False):
+    w, bias = _layer(b, L)
+    x = torch.cat(segs)
+    assert x.shape[0] == w.shape[0]
+    y = w.t() @ x + bias[:, None]
+    return torch.relu(y) if relu else y
+
+
+def _emulate_forward(field, odv, z):
+    """The forward of every point through ``pack_field``'s buffer, feature
+    major: the activations the reverse sweep reads (the workspace planes'
+    rows: emb, demb, each trunk layer's, feature, views' hidden and the
+    semantic head's hidden ``s_act``) and the heads' outputs (sigma without
+    noise, the rgb logits, the semantics)."""
     buf, fd = tfr.pack_field(field)
-    bbuf, bwd = tfr.pack_train_bwd(field)
     depth, skip, sem = fd.depth, fd.skip, fd.sem_dim
     Rn, S = z.shape
     pts = (odv[:, None, 0:3] + odv[:, None, 3:6] * z[..., None]).reshape(-1, 3)
     dirs = odv[:, None, 6:9].expand(Rn, S, 3).reshape(-1, 3)
     emb = _pad_rows(field.embed(pts).t(), (fd.emb_dim + 7) // 8 * 8)
     demb = _pad_rows(field.embed_views(dirs).t(), (fd.demb_dim + 7) // 8 * 8)
-
-    def mm(b, L, segs, relu=False):
-        w, bias = _layer(b, L)
-        x = torch.cat(segs)
-        assert x.shape[0] == w.shape[0]
-        y = w.t() @ x + bias[:, None]
-        return torch.relu(y) if relu else y
-
     acts, h = [], [emb]
     for i in range(depth):
-        acts.append(mm(buf, fd.layer[i], h, relu=True))
+        acts.append(_mm(buf, fd.layer[i], h, relu=True))
         h = [emb, acts[-1]] if i == skip else [acts[-1]]
+    out = dict(emb=emb, demb=demb, acts=acts, s_act=None, semv=None)
+    out["sigma"] = _mm(buf, fd.layer[depth], h)[0].view(Rn, S)
+    out["feat"] = _mm(buf, fd.layer[depth + 1], h)
+    out["hv"] = _mm(buf, fd.layer[depth + 2], [out["feat"], demb], relu=True)
+    out["logits"] = _mm(buf, fd.layer[depth + 3], [out["hv"]])[:3].view(3, Rn, S)
+    if sem:
+        out["s_act"] = _mm(buf, fd.layer[depth + 4], h + ([emb] if fd.sem_with_coord else []),
+                           relu=True)
+        out["semv"] = _mm(buf, fd.layer[depth + 5], [out["s_act"]])[:sem].view(sem, Rn, S)
+    return out
+
+
+def _emulate_k3(field, odv, z, gt, white, noise_std, seed, dmaps=None, dweights=None, fwd=None):
+    """What csrc/train_render.cu computes, step for step, in feature-major
+    torch matrices built only from the packed buffers: the forward
+    (``fwd``, by default ``_emulate_forward``'s), the composite and its
+    reverse per ray, the input gradients through ``pack_train_bwd`` with the
+    relu gates, dW = X dY^T into ``grad_layout``'s buffer, then
+    ``unpack_grads``. With ``dmaps`` (K6) the maps' cotangent is ``dmaps``
+    (and ``dweights``) instead of the img2mse one, and the semantic head is
+    swept between alpha and the trunk, its input gradient on h added into
+    the last trunk layer's cotangent."""
+    fd = tfr.pack_field(field)[1]
+    bbuf, bwd = tfr.pack_train_bwd(field)
+    depth, skip, sem = fd.depth, fd.skip, fd.sem_dim
+    Rn, S = z.shape
+    fwd = _emulate_forward(field, odv, z) if fwd is None else fwd
+    emb, demb, acts, feat, hv, s_act = (fwd[k] for k in ("emb", "demb", "acts", "feat", "hv",
+                                                          "s_act"))
+    sigma, logits, semv = fwd["sigma"], fwd["logits"], fwd["semv"]
+    mm = _mm
+    h = [emb, acts[-1]] if depth - 1 == skip else [acts[-1]]
     ins = [[emb]] + [[emb, acts[i - 1]] if i - 1 == skip else [acts[i - 1]]
                      for i in range(1, depth)]
-    sigma = mm(buf, fd.layer[depth], h)[0].view(Rn, S)
-    feat = mm(buf, fd.layer[depth + 1], h)
-    hv = mm(buf, fd.layer[depth + 2], [feat, demb], relu=True)
-    logits = mm(buf, fd.layer[depth + 3], [hv])[:3].view(3, Rn, S)
-    semv = None
-    if sem:
-        s_act = mm(buf, fd.layer[depth + 4], h + ([emb] if fd.sem_with_coord else []), relu=True)
-        semv = mm(buf, fd.layer[depth + 5], [s_act])[:sem].view(sem, Rn, S)
     if noise_std > 0:
         sigma = sigma + tfr.noise_plain(seed, Rn, S, noise_std)
 
