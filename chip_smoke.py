@@ -8,7 +8,9 @@ and nets with no fine pass, --N_importance 0).
 Phases (one line each; any failure raises and the exit code is nonzero):
   0. the card (nvidia-smi name and power limit), torch and CUDA versions;
   1. build the kernels from nerfsos_torch/csrc with nvcc, one compiler per
-     source at once (seconds), and print ptxas's register/spill report;
+     source at once (seconds), and print ptxas's register/spill report,
+     with [reverse_ptxas]: the reverse-sweep kernel's line in each of its
+     four modes, its bwd_layer's and wgrad's frames, and any wgmma warning;
   2. K1 (fused coarse weights) vs its plain PyTorch version at the flagship
      width: depth 8, width 256, multires 10, 64 samples, 8192 rays;
   3. K2 (fused fine render) vs its plain version: 192 samples, semantic head
@@ -27,8 +29,8 @@ Phases (one line each; any failure raises and the exit code is nonzero):
      S=192; maps, weights and every gradient leaf, and the gradients of two
      calls must be bitwise equal; each case also prints its forward's and
      its reverse sweep's ms (``forward_split``: the call timed again with
-     ``tools/tile_probe``'s ``fwdonly`` build) and ptxas's line for the
-     forward kernel;
+     ``tools/tile_probe``'s ``fwdonly`` build) and ptxas's lines for the
+     forward kernel and the reverse-sweep kernel;
   6. the train path: ``run_nerf.main`` without --eval, with the flags of
      configs/flower_full.txt (N_rand 1024, 64 + 128 samples, noise 1, the
      semantic head) on 8 train views at 378x504, 30 steps: K3 launches twice
@@ -40,7 +42,8 @@ Phases (one line each; any failure raises and the exit code is nonzero):
      with the Adam state and launches K3 twice a step;
   8. train step timings (CUDA events) at 1024, 4096 and 16384 rays on the
      kernel path and at 1024 and 4096 on the plain path (16384 when it fits),
-     and the packing of both fields' weight buffers after an Adam step;
+     and the packing of both fields' weight buffers after an Adam step (the
+     forward's and the reverse sweep's rings gathered from them);
   9. K4 (the SOS train forward) and K5 (the semantic-head backward) vs their
      plain versions at the flagship width with the semantic head and
      coordinates, 4096 rays, S=64 and S=192, noise 1 from a fixed seed, fixed
@@ -102,7 +105,8 @@ Phases (one line each; any failure raises and the exit code is nonzero):
      rendered by the kernel path vs the plain path;
  22. [mip_step]: the mip train step at 1024 and 16384 rays on the kernel
      and the plain path with peak memory, and its K10a/K10b calls timed
-     alone beside their bounds;
+     alone beside their bounds (K10b's with its forward/reverse split and
+     the reverse kernel's ptxas line);
  23. [K8]: the field forward (K8b/K8d) with the semantic head and without
      it, the sigma forward (K8a/K8e) and K11 at zero and non-zero
      covariances vs their plain versions at the flagship width on 2^18
@@ -111,7 +115,8 @@ Phases (one line each; any failure raises and the exit code is nonzero):
  24. [K8_bwd]: the field backward at 1024 x 64 points of rays, weights only
      (K8f) and with the points' and directions' gradients (K8c): every leaf
      to GRAD_TOL plus its gate allowance, dpts/ddirs to GRAD_TOL on
-     gate-clear points, two calls bitwise equal;
+     gate-clear points, two calls bitwise equal, each mode's forward/reverse
+     split and the reverse kernel's ptxas line;
  25. [eval_vol]: ``run_nerf.main --eval_vol`` (a 256^3 grid, 64 chunks of
      2^18 points) on the [eval] phase's checkpoint, then with --mipnerf on
      the [mip_train] run's: 64 launches of the field kernel (K11), both
@@ -202,11 +207,14 @@ K7_TOL = 1e-4
 HBM_BYTES_S = 3.35e12
 FP32_MMA_FLOP_S = 495e12 / 3
 FP32_SIMT_FLOP_S = 67e12
-# ptxas's line for K4's kernel (train_render_wg_kernel) and for K3's and
-# K6's forward (train_forward_wg_kernel, kLoss and kCotangent), read from
-# the build log in main
+# ptxas's line for K4's kernel (train_render_wg_kernel), for K3's and K6's
+# forward (train_forward_wg_kernel, kLoss and kCotangent) and for the
+# reverse-sweep kernel (train_reverse_kernel by (kSem, kInGrad), with the
+# stack and spills of its bwd_layer and wgrad functions), read from the
+# build log in main
 K4_PTXAS = None
 FWD_PTXAS = {}
+REV_PTXAS = {}
 
 
 def phase(name: str, **fields) -> None:
@@ -509,15 +517,22 @@ def check_k6(what: str, got, want, slack, terms, kernel: str = "K6") -> dict:
             "grad_err_over_bound": over}
 
 
+# forward_split's ptxas lines: the forward kernel's mode on K4's tile (the
+# 64-point forwards of K10b and the field backward print none) and the
+# reverse-sweep kernel's (kSem, kInGrad)
+SPLIT_PTXAS = {"K3": (1, (0, 0)), "K6": (2, (1, 0)), "K10b": (None, (0, 0)),
+               "K8f": (None, (1, 0)), "K8c": (None, (1, 1))}
+
+
 def forward_split(run, kernel: str) -> dict:
-    """The forward's and the reverse sweep's ms of K3 or K6 (``run`` calls
-    its wrapper): ``run`` timed again with the library of
+    """The forward's and the reverse sweep's ms of K3, K6, K10b, K8f or K8c
+    (``run`` calls its wrapper): ``run`` timed again with the library of
     ``nerfsos_torch.tools.tile_probe``'s ``fwdonly`` copy of the sources
-    (``train_grads`` launches each wave's forward kernel and the reduction,
-    no reverse-sweep kernel; built once under build/tile_probe/), its time
-    the forward's; the reverse sweep's is the whole call's less that. The
-    kernels' own library is put back after. ``forward_ptxas``: the forward
-    kernel's ptxas line (K3: kLoss, K6: kCotangent)."""
+    (each wave's forward kernel and the reduction, no reverse-sweep kernel;
+    built once under build/tile_probe/), its time the forward's; the reverse
+    sweep's is the whole call's less that. The kernels' own library is put
+    back after. ``forward_ptxas`` (K3: kLoss, K6: kCotangent) and
+    ``reverse_ptxas``: the kernels' ptxas lines."""
     from nerfsos_torch import _build
     from nerfsos_torch.tools import tile_probe
 
@@ -530,8 +545,12 @@ def forward_split(run, kernel: str) -> dict:
         _build.CSRC_DIR, _build.BUILD_DIR = saved
         _build.library.cache_clear()
         _build.library()
-    return {"forward_ms": fwd, "reverse_ms": whole - fwd,
-            "forward_ptxas": repr(FWD_PTXAS.get({"K3": 1, "K6": 2}[kernel]))}
+    fwd_mode, rev_mode = SPLIT_PTXAS[kernel]
+    out = {"forward_ms": fwd, "reverse_ms": whole - fwd,
+           "reverse_ptxas": repr(REV_PTXAS.get(rev_mode))}
+    if fwd_mode is not None:
+        out["forward_ptxas"] = repr(FWD_PTXAS.get(fwd_mode))
+    return out
 
 
 def kernel_vs_plain_k3(fr, R: int, S: int, use_semantics: bool, white_bkgd: bool) -> dict:
@@ -862,14 +881,17 @@ def train_step_timings(fr) -> None:
                   tflop=flops / 1e12, bound_ms=bound, share_of_bound=bound / ms,
                   peak_gib=peak[R] / 2**30)
     # K3's weight buffers of both fields, which the step packs again after
-    # each Adam step: pack_field's, the ring gathered from it, and
-    # pack_train_bwd's
+    # each Adam step: pack_field's, the ring gathered from it,
+    # pack_train_bwd's, and the reverse sweep's ring gathered from that
     fields = (net.nerf, net.nerf_fine)
     with torch.no_grad():
         packed = [fr.pack_field(f) for f in fields]
+        bwd = [fr.pack_train_bwd(f) for f in fields]
         for part, pack in (("pack_field", lambda: [fr.pack_field(f) for f in fields]),
                            ("ring", lambda: [fr._ring_from(f, *p) for f, p in zip(fields, packed)]),
-                           ("pack_train_bwd", lambda: [fr.pack_train_bwd(f) for f in fields])):
+                           ("pack_train_bwd", lambda: [fr.pack_train_bwd(f) for f in fields]),
+                           ("bwd ring", lambda: [fr._bwd_ring_from(f, *b)
+                                                 for f, b in zip(fields, bwd)])):
             phase("train_step_part", part=f"weight packing: {part}",
                   ms=cuda_ms(pack, reps=5, warmup=1))
 
@@ -1929,8 +1951,10 @@ def mip_step_timings(fr) -> dict:
                 parts[part] = {"ms": cuda_ms(lambda: wrapper(*a, **kw), reps=5, warmup=1),
                                "plain_ms": cuda_ms(lambda: plain_fn(*a, **kw), reps=3, warmup=1),
                                **mip_cost(field, z.shape[0], z.shape[1] - 1, name)}
+                split = (forward_split(lambda: wrapper(*a, **kw), name) if name == "K10b"
+                         else {})
             phase("mip_step_part", part=part, rays=z.shape[0], samples=z.shape[1] - 1,
-                  **parts[part])
+                  **parts[part], **split)
     step_ms = out[(1024, "kernel")][-1]
     named = sum(v["ms"] for v in parts.values())
     phase("mip_step_split", rays=1024, step_ms=step_ms, kernels_ms=named, rest_ms=step_ms - named)
@@ -2125,9 +2149,11 @@ def kernel_vs_plain_k8_bwd(ff) -> dict:
         plain_ms = cuda_ms(lambda: ff.field_grads_plain(field, pts, dirs, g,
                                                         input_grads=input_grads), reps=3)
         cost = field_cost(field, N, "bwd", input_grads)
+        split = forward_split(lambda: ff.field_grads(field, pts, dirs, g,
+                                                     input_grads=input_grads), kernel)
         phase("K8_bwd", mode=kernel, points=N, launches={"field_grads": launches[0],
                                                           "input_grad_mode": launches[1]},
-              **close, deterministic=True, ms=ms, plain_ms=plain_ms, **cost)
+              **close, deterministic=True, ms=ms, plain_ms=plain_ms, **split, **cost)
         out[kernel] = {"max_abs_err": close["max_abs_err"], "ms": ms, "plain_ms": plain_ms,
                        **cost, "library_ms": None}
     return out
@@ -2420,6 +2446,7 @@ def main() -> int:
     global K4_PTXAS
     with open(lib_path + ".log") as f:
         lines = f.read().splitlines()
+    calls, serialised = {}, []  # bwd_layer's and wgrad's frames; ptxas's wgmma warnings
     for i, line in enumerate(lines):
         if "registers" in line or "spill" in line:
             print("  ptxas:", line.strip())
@@ -2430,9 +2457,27 @@ def main() -> int:
             mode = int(line.split("train_forward_wg_kernelILi")[1][0])  # kLoss 1, kCotangent 2
             FWD_PTXAS[mode] = "; ".join(x.replace("ptxas info    :", "").strip()
                                         for x in lines[i + 2:i + 4])
-    if K4_PTXAS is None or sorted(FWD_PTXAS) != [1, 2]:
-        raise SystemExit("no ptxas report for K4's kernel (train_render_wg_kernel) or K3's and "
-                         "K6's forward (train_forward_wg_kernel)")
+        if "Compiling entry function" in line and "train_reverse_kernel" in line:
+            sem, ingrad = line.split("train_reverse_kernelILb")[1].split("ELb")[:2]
+            used = next(j for j in range(i, len(lines)) if "Used" in lines[j])
+            REV_PTXAS.setdefault((int(sem[0]), int(ingrad[0])), "; ".join(
+                x.replace("ptxas info    :", "").strip() for x in lines[i + 1:used + 1]
+                if "bytes" in x or "Used" in x))
+        if "Function properties for" in line and ("bwd_layer" in line or "wgrad" in line):
+            fn = "bwd_layer" if "bwd_layer" in line else "wgrad"
+            fn += "<kAccum>" if "bwd_layerILb1E" in line else ""
+            calls[fn] = lines[i + 1].strip()
+        if "wgmma" in line and "warning" in line:
+            serialised.append(line.strip())
+    if K4_PTXAS is None or sorted(FWD_PTXAS) != [1, 2] or len(REV_PTXAS) != 4:
+        raise SystemExit("no ptxas report for K4's kernel (train_render_wg_kernel), K3's and "
+                         "K6's forward (train_forward_wg_kernel) or the reverse sweep's four "
+                         "modes (train_reverse_kernel)")
+    for key in REV_PTXAS:
+        REV_PTXAS[key] += "; " + "; ".join(f"{k}: {v}" for k, v in sorted(calls.items()))
+    phase("reverse_ptxas", modes={f"kSem={k[0]},kInGrad={k[1]}": v
+                                  for k, v in sorted(REV_PTXAS.items())},
+          wgmma_warnings=serialised)
 
     k1 = kernel_vs_plain_k1(fr)
     k2 = kernel_vs_plain_k2(fr, use_semantics=True)

@@ -169,23 +169,23 @@ __global__ void __launch_bounds__(kThreads, 1)
 // summed into grads [d->grad_size]. Returns the first CUDA error.
 template <bool kSem, bool kInGrad>
 int field_grads_launch(const float* pts, const float* dirs, const float* g, const float* params,
-                       const float* bparams, const float* iparams, const TrainDesc* d,
-                       float* partial, float* workspace, float* grads, float* dpts, float* ddirs,
-                       int N, int grid, cudaStream_t st) {
+                       const float* bring, const float* iring, const TrainDesc* d,
+                       const RingDesc* brd, const RingDesc* ird, float* partial,
+                       float* workspace, float* grads, float* dpts, float* ddirs, int N,
+                       int grid, cudaStream_t st) {
   const int fwd_smem = tile_smem(d->f);
-  const int stage_smem = (int)(kStagingFloats * sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(field_bwd_forward_kernel<kSem, kInGrad>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, fwd_smem);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(train_reverse_kernel<kSem, kInGrad>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, stage_smem);
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, kReverseSmem);
   if (err != cudaSuccess) return (int)err;
   const int nchunks = (N + d->rays_per_chunk - 1) / d->rays_per_chunk;
   for (int wave = 0; wave * grid < nchunks; ++wave) {
     field_bwd_forward_kernel<kSem, kInGrad><<<grid, kThreads, fwd_smem, st>>>(
         pts, dirs, g, params, *d, workspace, N, wave);
-    train_reverse_kernel<kSem, kInGrad><<<grid, kThreads, stage_smem, st>>>(
-        bparams, iparams, *d, partial, workspace, N, 1, wave, dpts, ddirs);
+    train_reverse_kernel<kSem, kInGrad><<<grid, kThreads, kReverseSmem, st>>>(
+        bring, iring, *d, *brd, *ird, partial, workspace, N, 1, wave, dpts, ddirs);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
@@ -220,26 +220,29 @@ extern "C" int nerf_mip_field(const float* mean, const float* cov, const float* 
 }
 
 // K8f (dpts null) and K8c: the field's dW/db from g [N, 4 + sem] into grads
-// [d->grad_size] (K6's layout), and with dpts (then also ddirs, iparams and
-// d->ibwd) the points' and directions' gradients [N, 3]; see
-// field_grads_launch.
+// [d->grad_size] (K6's layout), the input-gradient products' matrices from
+// bring (ops/fused_render.pack_bwd_ring) as brd describes; with dpts (then
+// also ddirs, d->ibwd and iring as ird describes: fused_field.pack_input_ring)
+// the points' and directions' gradients [N, 3]; see field_grads_launch.
 extern "C" int nerf_field_grads(const float* pts, const float* dirs, const float* g,
-                                const float* params, const float* bparams, const float* iparams,
-                                const TrainDesc* d, float* partial, float* workspace,
-                                float* grads, float* dpts, float* ddirs, int N, int grid,
-                                void* stream) {
+                                const float* params, const float* bring, const float* iring,
+                                const TrainDesc* d, const RingDesc* brd, const RingDesc* ird,
+                                float* partial, float* workspace, float* grads, float* dpts,
+                                float* ddirs, int N, int grid, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   const bool sem = d->f.sem_dim > 0;
   if (dpts != nullptr) {
     if (sem)
-      return field_grads_launch<true, true>(pts, dirs, g, params, bparams, iparams, d, partial,
-                                            workspace, grads, dpts, ddirs, N, grid, st);
-    return field_grads_launch<false, true>(pts, dirs, g, params, bparams, iparams, d, partial,
-                                           workspace, grads, dpts, ddirs, N, grid, st);
+      return field_grads_launch<true, true>(pts, dirs, g, params, bring, iring, d, brd, ird,
+                                            partial, workspace, grads, dpts, ddirs, N, grid, st);
+    return field_grads_launch<false, true>(pts, dirs, g, params, bring, iring, d, brd, ird,
+                                           partial, workspace, grads, dpts, ddirs, N, grid, st);
   }
   if (sem)
-    return field_grads_launch<true, false>(pts, dirs, g, params, bparams, nullptr, d, partial,
-                                           workspace, grads, nullptr, nullptr, N, grid, st);
-  return field_grads_launch<false, false>(pts, dirs, g, params, bparams, nullptr, d, partial,
-                                          workspace, grads, nullptr, nullptr, N, grid, st);
+    return field_grads_launch<true, false>(pts, dirs, g, params, bring, nullptr, d, brd, ird,
+                                           partial, workspace, grads, nullptr, nullptr, N, grid,
+                                           st);
+  return field_grads_launch<false, false>(pts, dirs, g, params, bring, nullptr, d, brd, ird,
+                                          partial, workspace, grads, nullptr, nullptr, N, grid,
+                                          st);
 }

@@ -40,13 +40,20 @@
 //     registers only), and emb and demb go out unswizzled once a tile;
 //     warpgroup w of tile t writes sub 2 t + w, and a warpgroup wholly past
 //     the chunk's points stores nothing;
-//   * the input-gradient products dX = W dY run on the tensor cores in the
-//     3xTF32 scheme of the render kernels (dense() of tile_mlp.cuh; the
-//     weight slices of the reverse sweep are packed on the host, and the
-//     relu derivative is applied in the epilogue as a gate on the stored
-//     activation); the reverse sweep copies each dY tile into shared memory
-//     first (cp.async, two stages). The emb rows of the skip input, the view
-//     encoding and layer 0 need no input gradient and get none;
+//   * the input-gradient products dX = W dY (train_sweep.cuh bwd_layer) run
+//     on wgmma m64nNk8 in 3xTF32, as K4's forward does: the host packs each
+//     backward matrix per k-slice of 8 dY rows, TF32 high then low parts in
+//     wgmma's K-major B layout (ops/fused_render.pack_bwd_ring), and the
+//     warpgroups' first threads in turn fill a ring of shared-memory stages
+//     ahead of the consumers with bulk copies on full/empty mbarriers: each
+//     stage the matrix's k-slice, the 8 dY rows of that k step of up to four
+//     64-point subs and, for the trunk and alpha's slot, the same rows of
+//     the stored activations that gate the outputs. The four warpgroups take
+//     (sub, piece of at most 128 outputs) units in rounds, A = their sub's
+//     dY from the stage in registers, and apply the relu derivative in the
+//     epilogue as a gate on the stored activation. The emb rows of the skip
+//     input, the view encoding and layer 0 need no input gradient and get
+//     none;
 //   * dW = X^T dY contracts over the chunk's points: 128 x 128 macro tiles
 //     whose X and dY rows stream through two shared-memory stages
 //     (cp.async), each warp a 32 x 32 block with m16n8k8 3xTF32 mma, added
@@ -60,11 +67,12 @@
 //     (global point index + seed) in uint32 arithmetic, Box-Muller with
 //     log1pf and cosf, so kernel and plain version draw the same values.
 // Where the time goes (H100 at 700 W, nerfsos_torch/tools/tile_probe.py, K6
-// at 32768 rays x 192 samples): the forward on K4's tile 178.7 of 803.4 ms
-// (fwdonly; 302.8 on the 64-point tile before it), the reverse sweep 624.7
-// ms; inside the reverse kernel (sweepclock, thread 0 of CTA 0) the dX
-// products (bwd_layer) 52%, the dW products (wgrad) 35%, the issue of
-// their cp.async staging 12%, the waits for it under 0.1%.
+// at 32768 rays x 192 samples): the forward on K4's tile 152.6 of 564.2 ms
+// (fwdonly), the reverse sweep 411.6 ms (621.5 with the input-gradient
+// products on dense()'s 64-point tile); inside the reverse kernel
+// (sweepclock, thread 0 of CTA 0) the dW products (wgrad) 62%, of it 15
+// points issuing their cp.async staging, and the dX products (bwd_layer)
+// 38% (53% before).
 // Precision: fp32 throughout; the points and the PE phases as in the render
 // kernels (explicit round-to-nearest, accurate sinf), no fast-math.
 //
@@ -833,15 +841,15 @@ namespace {
 // gradient buffer) take the chunks of rays in waves of grid: per wave the
 // forward kernel (K3, K6: train_forward_wg_kernel on K4's tile, with the
 // ring of ring and rd; kMip, K10b: train_forward_kernel), then the
-// reverse-sweep kernel; then the partials are summed into grads
-// [d->grad_size]. Returns the first CUDA error of the launches.
+// reverse-sweep kernel (its input-gradient products' matrices from the
+// backward ring bring as brd describes); then the partials are summed into
+// grads [d->grad_size]. Returns the first CUDA error of the launches.
 template <int kMode, bool kSem, bool kMip = false>
 int train_grads(const float* odv, const float* z, const float* aux, const float* dweights,
-                const float* params, const float* ring, const float* bparams,
-                const TrainDesc* d, const RingDesc* rd, float* maps, float* weights,
-                float* partial, float* workspace, float* grads, int R, int S, int grid,
-                unsigned seed, float noise_std, int white_bkgd, cudaStream_t st) {
-  const int stage_smem = (int)(kStagingFloats * sizeof(float));
+                const float* params, const float* ring, const float* bring,
+                const TrainDesc* d, const RingDesc* rd, const RingDesc* brd, float* maps,
+                float* weights, float* partial, float* workspace, float* grads, int R, int S,
+                int grid, unsigned seed, float noise_std, int white_bkgd, cudaStream_t st) {
   int fwd_smem;
   cudaError_t err;
   if constexpr (kMip) {
@@ -855,7 +863,7 @@ int train_grads(const float* odv, const float* z, const float* aux, const float*
   }
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(train_reverse_kernel<kSem>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, stage_smem);
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, kReverseSmem);
   if (err != cudaSuccess) return (int)err;
   const int nchunks = (R + d->rays_per_chunk - 1) / d->rays_per_chunk;
   for (int wave = 0; wave * grid < nchunks; ++wave) {
@@ -868,8 +876,8 @@ int train_grads(const float* odv, const float* z, const float* aux, const float*
           odv, z, aux, dweights, params, ring, *d, *rd, maps, weights, workspace, R, S, wave,
           seed, noise_std, white_bkgd);
     }
-    train_reverse_kernel<kSem><<<grid, kThreads, stage_smem, st>>>(
-        bparams, nullptr, *d, partial, workspace, R, S, wave, nullptr, nullptr);
+    train_reverse_kernel<kSem><<<grid, kThreads, kReverseSmem, st>>>(
+        bring, nullptr, *d, *brd, RingDesc{}, partial, workspace, R, S, wave, nullptr, nullptr);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
@@ -880,14 +888,15 @@ int train_grads(const float* odv, const float* z, const float* aux, const float*
 }  // namespace
 
 // K3: the RGB train pass, the forward's weights from ring (ops/fused_render
-// pack_ring) as rd describes; see train_grads.
+// pack_ring) as rd describes, the reverse sweep's from bring (pack_bwd_ring)
+// as brd describes; see train_grads.
 extern "C" int nerf_rgb_train_grads(const float* odv, const float* z, const float* gt,
-                                    const float* params, const float* ring, const float* bparams,
-                                    const TrainDesc* d, const RingDesc* rd, float* maps,
-                                    float* weights, float* partial, float* workspace,
+                                    const float* params, const float* ring, const float* bring,
+                                    const TrainDesc* d, const RingDesc* rd, const RingDesc* brd,
+                                    float* maps, float* weights, float* partial, float* workspace,
                                     float* grads, int R, int S, int grid, unsigned seed,
                                     float noise_std, int white_bkgd, void* stream) {
-  return train_grads<kLoss, false>(odv, z, gt, nullptr, params, ring, bparams, d, rd, maps,
+  return train_grads<kLoss, false>(odv, z, gt, nullptr, params, ring, bring, d, rd, brd, maps,
                                    weights, partial, workspace, grads, R, S, grid, seed,
                                    noise_std, white_bkgd, (cudaStream_t)stream);
 }
@@ -895,36 +904,38 @@ extern "C" int nerf_rgb_train_grads(const float* odv, const float* z, const floa
 // K6: the train render's backward from the maps' cotangent dmaps [R, 5 + sem]
 // and the weights' dweights [R, S] (null: zero); d describes the semantic
 // head's planes and gradients when d->f.sem_dim > 0; the forward's weights
-// from ring as rd describes; see train_grads.
+// from ring as rd describes, the reverse sweep's from bring as brd
+// describes; see train_grads.
 extern "C" int nerf_train_render_grads(const float* odv, const float* z, const float* dmaps,
                                        const float* dweights, const float* params,
-                                       const float* ring, const float* bparams,
-                                       const TrainDesc* d, const RingDesc* rd, float* partial,
-                                       float* workspace, float* grads, int R, int S, int grid,
-                                       unsigned seed, float noise_std, void* stream) {
+                                       const float* ring, const float* bring,
+                                       const TrainDesc* d, const RingDesc* rd,
+                                       const RingDesc* brd, float* partial, float* workspace,
+                                       float* grads, int R, int S, int grid, unsigned seed,
+                                       float noise_std, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   if (d->f.sem_dim > 0)
-    return train_grads<kCotangent, true>(odv, z, dmaps, dweights, params, ring, bparams, d, rd,
-                                         nullptr, nullptr, partial, workspace, grads, R, S, grid,
-                                         seed, noise_std, 0, st);
-  return train_grads<kCotangent, false>(odv, z, dmaps, dweights, params, ring, bparams, d, rd,
-                                        nullptr, nullptr, partial, workspace, grads, R, S, grid,
-                                        seed, noise_std, 0, st);
+    return train_grads<kCotangent, true>(odv, z, dmaps, dweights, params, ring, bring, d, rd,
+                                         brd, nullptr, nullptr, partial, workspace, grads, R, S,
+                                         grid, seed, noise_std, 0, st);
+  return train_grads<kCotangent, false>(odv, z, dmaps, dweights, params, ring, bring, d, rd,
+                                        brd, nullptr, nullptr, partial, workspace, grads, R, S,
+                                        grid, seed, noise_std, 0, st);
 }
 
 // K10b: the mip train render's backward from the maps' cotangent dmaps
 // [R, 5] and the weights' dweights [R, S] (null: zero), on odvr [R, 10] and
 // fenceposts z [R, S + 1]: K6's kernels without the semantic head in their
-// mip mode (the Gaussian and integrated-PE prologue, the mip composite);
-// see train_grads.
+// mip mode (the Gaussian and integrated-PE prologue, the mip composite), the
+// reverse sweep's matrices from bring as brd describes; see train_grads.
 extern "C" int nerf_mip_train_render_grads(const float* odvr, const float* z, const float* dmaps,
                                            const float* dweights, const float* params,
-                                           const float* bparams, const TrainDesc* d,
-                                           float* partial, float* workspace, float* grads, int R,
-                                           int S, int grid, unsigned seed, float noise_std,
-                                           void* stream) {
-  return train_grads<kCotangent, false, true>(odvr, z, dmaps, dweights, params, nullptr, bparams,
-                                              d, nullptr, nullptr, nullptr, partial, workspace,
-                                              grads, R, S, grid, seed, noise_std, 0,
+                                           const float* bring, const TrainDesc* d,
+                                           const RingDesc* brd, float* partial, float* workspace,
+                                           float* grads, int R, int S, int grid, unsigned seed,
+                                           float noise_std, void* stream) {
+  return train_grads<kCotangent, false, true>(odvr, z, dmaps, dweights, params, nullptr, bring,
+                                              d, nullptr, brd, nullptr, nullptr, partial,
+                                              workspace, grads, R, S, grid, seed, noise_std, 0,
                                               (cudaStream_t)stream);
 }

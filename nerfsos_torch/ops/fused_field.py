@@ -131,6 +131,31 @@ def pack_input_bwd(field: nn.Module) -> Tuple[torch.Tensor, List[_build.MLPLayer
     return fr.pack_bwd_matrices(mats)
 
 
+def input_ring_layers(field: nn.Module) -> List[int]:
+    """K8c's input-gradient products by forward layer index (the entries of
+    :func:`pack_input_bwd`), in the order ``train_reverse_kernel`` runs them:
+    views, alpha's slot (the skip after the last layer), sem_0, then the
+    layer after the skip and layer 0."""
+    mlp = field.mlp
+    depth = mlp.depth
+    skip_last = depth - 1 in mlp.skips
+    return ([depth + 2] + ([depth] if skip_last else [])
+            + ([depth + 4] if mlp.use_semantics and (skip_last or mlp.sem_with_coord) else [])
+            + [i for i in range(depth - 1, 0, -1) if i - 1 in mlp.skips] + [0])
+
+
+def _input_ring_from(field: nn.Module, buf: torch.Tensor, ibwd: List[_build.MLPLayer]
+                     ) -> Tuple[torch.Tensor, _build.RingDesc]:
+    return fr.gather_ring(field, "_input_ring_index", buf, ibwd, input_ring_layers(field))
+
+
+def pack_input_ring(field: nn.Module) -> Tuple[torch.Tensor, _build.RingDesc]:
+    """K8c's input-gradient matrices (:func:`pack_input_bwd`) for the reverse
+    sweep's ring, cut as ``fused_render.pack_bwd_ring`` cuts the backward
+    matrices, in :func:`input_ring_layers`' order."""
+    return _input_ring_from(field, *pack_input_bwd(field))
+
+
 # ----------------------------------------------------------------- wrappers
 
 
@@ -242,7 +267,9 @@ def field_grads(field: nn.Module, pts: torch.Tensor, dirs: torch.Tensor, g: torc
     every parameter from the cotangent ``g [N, 4 + sem]`` of raw at ``pts,
     dirs [N, 3]``, and with ``input_grads`` those of pts and dirs; see
     :func:`field_grads_plain`. One call launches the forward and the
-    reverse-sweep kernels once per wave of 512-point chunks and the
+    reverse-sweep kernels (its input-gradient products through the ring of
+    ``fused_render.pack_bwd_ring``, and with ``input_grads`` of
+    :func:`pack_input_ring`) once per wave of 512-point chunks and the
     reduction of the CTAs' partial gradients, and adds one to ``launches``
     (and, with ``input_grads``, to ``input_grad_launches``)."""
     if not _on_card(pts):
@@ -253,11 +280,14 @@ def field_grads(field: nn.Module, pts: torch.Tensor, dirs: torch.Tensor, g: torc
     buf, fdesc = fr._packed(field, pts.device)
     if g.shape[1] != 4 + fdesc.sem_dim:
         raise ValueError(f"expected g [{N}, {4 + fdesc.sem_dim}], got {tuple(g.shape)}")
-    bbuf, bwd = fr._cached(field, pts.device, "_fused_train_pack", fr.pack_train_bwd)
+    bwd = fr._train_bwd(field, pts.device)[1]
+    bring, brd = fr._bwd_ring(field, pts.device)
     desc = fr.train_desc(field, fdesc, bwd, 1, sem, input_grads=input_grads)
-    ibuf, dpts, ddirs = None, None, None
+    iring, ird, dpts, ddirs = None, _build.RingDesc(), None, None
     if input_grads:
         ibuf, ibwd = fr._cached(field, pts.device, "_field_input_pack", pack_input_bwd)
+        iring, ird = fr._cached(field, pts.device, "_field_input_ring",
+                                lambda f: _input_ring_from(f, ibuf, ibwd))
         for i, L in enumerate(ibwd):
             desc.ibwd[i] = L
         dpts = torch.empty((N, 3), device=pts.device, dtype=torch.float32)
@@ -270,9 +300,10 @@ def field_grads(field: nn.Module, pts: torch.Tensor, dirs: torch.Tensor, g: torc
         work = torch.empty(grid * desc.ws_size, device=pts.device, dtype=torch.float32)
         with torch.cuda.device(pts.device):
             code = _build.library().nerf_field_grads(
-                pts.data_ptr(), dirs.data_ptr(), g.data_ptr(), buf.data_ptr(), bbuf.data_ptr(),
-                None if ibuf is None else ibuf.data_ptr(), ctypes.byref(desc), partial.data_ptr(),
-                work.data_ptr(), flat.data_ptr(), None if dpts is None else dpts.data_ptr(),
+                pts.data_ptr(), dirs.data_ptr(), g.data_ptr(), buf.data_ptr(), bring.data_ptr(),
+                None if iring is None else iring.data_ptr(), ctypes.byref(desc),
+                ctypes.byref(brd), ctypes.byref(ird), partial.data_ptr(), work.data_ptr(),
+                flat.data_ptr(), None if dpts is None else dpts.data_ptr(),
                 None if ddirs is None else ddirs.data_ptr(), N, grid, _build.stream(pts.device))
         _build.check(code, "field_grads")
         field_grads.launches += 1

@@ -63,7 +63,7 @@ launches.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -486,21 +486,22 @@ def ring_layers(field: nn.Module) -> List[int]:
             + [depth + 1, depth + 2])
 
 
-def _ring_index(field: nn.Module, fdesc: _build.MLPDesc, numel: int,
-                device: torch.device) -> Tuple[torch.Tensor, _build.RingDesc]:
-    """Where each float of :func:`pack_ring`'s buffer lies in ``pack_field``'s
-    (``numel`` floats; index ``numel`` for a padding column, read as 0), and
-    the ring's descriptor: kept on the field for its layers' shapes, per
-    device."""
-    order = ring_layers(field)
-    key = (tuple((fdesc.layer[i].w, fdesc.layer[i].k, fdesc.layer[i].n) for i in order), numel,
-           device)
-    cached = field.__dict__.get("_ring_index")
+def _ring_index(field: nn.Module, attr: str, layers: Sequence[_build.MLPLayer],
+                order: List[int], numel: int, device: torch.device,
+                h_layers: Sequence[int] = ()) -> Tuple[torch.Tensor, _build.RingDesc]:
+    """Where each float of a ring's buffer lies in the packed buffer its
+    ``layers`` describe (``numel`` floats in ``pack_field``'s per-layer
+    format; index ``numel`` for a padding column, read as 0), for the layers
+    in ``order``, and the ring's descriptor (``hrows``: the widest N of
+    ``h_layers``): kept on the field under ``attr`` for the layers' shapes,
+    per device."""
+    key = (tuple((layers[i].w, layers[i].k, layers[i].n) for i in order), numel, device)
+    cached = field.__dict__.get(attr)
     if cached is None or cached[0] != key:
         rd = _build.RingDesc()
         parts, off = [], 0
         for i in order:
-            L = fdesc.layer[i]
+            L = layers[i]
             ldn, n = _pad8(L.n), _ring_n(L.n)
             s, part, j, h, r, c = torch.meshgrid(
                 *(torch.arange(x) for x in (L.k // 8, 2, n // 8, 2, 8, 4)), indexing="ij")
@@ -509,21 +510,30 @@ def _ring_index(field: nn.Module, fdesc: _build.MLPDesc, numel: int,
             parts.append(torch.where(col < ldn, src, numel).reshape(-1))
             rd.off[i], rd.ncols[i] = off, n
             off += parts[-1].numel()
-        depth = field.mlp.depth
-        rd.hrows = max(rd.ncols[i] for i in list(range(depth)) + [depth + 1])
+        rd.hrows = max((rd.ncols[i] for i in h_layers), default=0)
         rd.stage_floats = 16 * max(rd.ncols[i] for i in order)
         cached = (key, torch.cat(parts).to(device), rd)
-        field.__dict__["_ring_index"] = cached
+        field.__dict__[attr] = cached
     return cached[1], cached[2]
+
+
+def gather_ring(field: nn.Module, attr: str, buf: torch.Tensor,
+                layers: Sequence[_build.MLPLayer], order: List[int],
+                h_layers: Sequence[int] = ()) -> Tuple[torch.Tensor, _build.RingDesc]:
+    """A ring buffer from the packed buffer ``buf`` (``pack_field``'s
+    per-layer format, ``layers`` its descriptors): one gather of the TF32
+    parts of the layers in ``order``, so each layer is split once per weight
+    state; see :func:`pack_ring`."""
+    idx, rd = _ring_index(field, attr, layers, order, buf.numel(), buf.device, h_layers)
+    return torch.cat([buf, buf.new_zeros(1)])[idx], _build.RingDesc.from_buffer_copy(rd)
 
 
 def _ring_from(field: nn.Module, buf: torch.Tensor, fdesc: _build.MLPDesc
                ) -> Tuple[torch.Tensor, _build.RingDesc]:
-    """:func:`pack_ring` from ``pack_field``'s buffer ``buf`` of ``field``:
-    one gather of its TF32 parts, so each layer is split once per weight
-    state."""
-    idx, rd = _ring_index(field, fdesc, buf.numel(), buf.device)
-    return torch.cat([buf, buf.new_zeros(1)])[idx], _build.RingDesc.from_buffer_copy(rd)
+    """:func:`pack_ring` from ``pack_field``'s buffer ``buf`` of ``field``."""
+    depth = field.mlp.depth
+    return gather_ring(field, "_ring_index", buf, fdesc.layer, ring_layers(field),
+                       list(range(depth)) + [depth + 1])
 
 
 def pack_ring(field: nn.Module) -> Tuple[torch.Tensor, _build.RingDesc]:
@@ -599,6 +609,36 @@ def pack_bwd_matrices(mats: Dict[int, List[torch.Tensor]]
     return torch.cat(parts).to(torch.float32).contiguous(), descs
 
 
+def bwd_ring_layers(field: nn.Module) -> List[int]:
+    """The input-gradient products of the reverse sweep by forward layer
+    index (:func:`pack_train_bwd`'s entries), in the order
+    ``train_reverse_kernel`` runs them: rgb, views, alpha's slot
+    ``[W_feature; W_alpha]``, with the semantic head sem_1 and sem_0, then
+    the trunk from layer ``depth - 1`` down to 1."""
+    depth = field.mlp.depth
+    return ([depth + 3, depth + 2, depth]
+            + ([depth + 5, depth + 4] if field.mlp.use_semantics else [])
+            + list(range(depth - 1, 0, -1)))
+
+
+def _bwd_ring_from(field: nn.Module, buf: torch.Tensor, bwd: List[_build.MLPLayer]
+                   ) -> Tuple[torch.Tensor, _build.RingDesc]:
+    return gather_ring(field, "_bwd_ring_index", buf, bwd, bwd_ring_layers(field))
+
+
+def pack_bwd_ring(field: nn.Module) -> Tuple[torch.Tensor, _build.RingDesc]:
+    """The reverse sweep's input-gradient matrices for its ring of
+    shared-memory stages (``csrc/train_sweep.cuh`` bwd_layer), and the
+    ring's descriptor: :func:`pack_train_bwd`'s matrices ``Wb [k = dY rows,
+    n = input rows]`` in :func:`bwd_ring_layers`' order, each cut as
+    :func:`pack_ring` cuts a layer's ``W^T`` (per k-slice of 8 dY rows the
+    TF32 high parts, then the low parts, element ``(j, h, r, c) = Wb[8 s +
+    4 h + c][8 j + r]``, the columns padded to the wgmma width ``N``:
+    ``off``/``ncols`` by forward layer index; ``stages`` and ``hrows`` are
+    not read)."""
+    return _bwd_ring_from(field, *pack_train_bwd(field))
+
+
 def _cached(field: nn.Module, device: torch.device, attr: str, pack):
     """``pack(field)`` once per weight state: the cache key holds each
     parameter's storage and version counter, so ``load_state_dict``, an
@@ -620,6 +660,18 @@ def _ring(field: nn.Module, device: torch.device) -> Tuple[torch.Tensor, _build.
     """:func:`pack_ring` on ``device`` once per weight state, gathered from
     the cached :func:`_packed` buffer."""
     return _cached(field, device, "_ring_pack", lambda f: _ring_from(f, *_packed(f, device)))
+
+
+def _train_bwd(field: nn.Module, device: torch.device
+               ) -> Tuple[torch.Tensor, List[_build.MLPLayer]]:
+    return _cached(field, device, "_fused_train_pack", pack_train_bwd)
+
+
+def _bwd_ring(field: nn.Module, device: torch.device) -> Tuple[torch.Tensor, _build.RingDesc]:
+    """:func:`pack_bwd_ring` on ``device`` once per weight state, gathered
+    from the cached :func:`pack_train_bwd` buffer."""
+    return _cached(field, device, "_bwd_ring_pack",
+                   lambda f: _bwd_ring_from(f, *_train_bwd(f, device)))
 
 
 # K3's workspace planes (csrc/train_render.cu ``enum Plane``; K6 adds s_act,
@@ -853,8 +905,9 @@ def fused_rgb_train_grads(field: nn.Module, odv: torch.Tensor, z: torch.Tensor, 
     ``[R, S]``); see :func:`rgb_train_grads_plain`. ``seed`` (an int) seeds the
     sigma noise when ``noise_std > 0``. One call launches the forward (on
     K4's 128-point tile, the weights from :func:`pack_ring` through its ring)
-    and the reverse-sweep kernels once per wave of chunks and the reduction,
-    and adds one to ``launches``."""
+    and the reverse-sweep kernels (the input-gradient matrices from
+    :func:`pack_bwd_ring` through the reverse sweep's ring) once per wave of
+    chunks and the reduction, and adds one to ``launches``."""
     if odv.device.type == "cpu":
         return rgb_train_grads_plain(field, odv, z, gt, white_bkgd=white_bkgd,
                                      noise_std=noise_std, seed=seed)
@@ -869,7 +922,8 @@ def fused_rgb_train_grads(field: nn.Module, odv: torch.Tensor, z: torch.Tensor, 
     buf, fdesc = _packed(field, odv.device)
     rbuf, ring = _ring(field, odv.device)
     rpc, rd = _wg_plan(fdesc, ring, S)
-    bbuf, bwd = _cached(field, odv.device, "_fused_train_pack", pack_train_bwd)
+    bwd = _train_bwd(field, odv.device)[1]
+    bring, brd = _bwd_ring(field, odv.device)
     desc = train_desc(field, fdesc, bwd, S, rays_per_chunk=rpc)
     maps = torch.empty((R, 5 + fdesc.sem_dim), device=odv.device, dtype=torch.float32)
     weights = torch.empty((R, S), device=odv.device, dtype=torch.float32)
@@ -882,10 +936,10 @@ def fused_rgb_train_grads(field: nn.Module, odv: torch.Tensor, z: torch.Tensor, 
         with torch.cuda.device(odv.device):
             code = _build.library().nerf_rgb_train_grads(
                 odv.data_ptr(), z.data_ptr(), gt.data_ptr(), buf.data_ptr(), rbuf.data_ptr(),
-                bbuf.data_ptr(), ctypes.byref(desc), ctypes.byref(rd), maps.data_ptr(),
-                weights.data_ptr(), partial.data_ptr(), work.data_ptr(), flat.data_ptr(), R, S,
-                grid, noise_seed(seed), float(noise_std), int(white_bkgd),
-                _build.stream(odv.device))
+                bring.data_ptr(), ctypes.byref(desc), ctypes.byref(rd), ctypes.byref(brd),
+                maps.data_ptr(), weights.data_ptr(), partial.data_ptr(), work.data_ptr(),
+                flat.data_ptr(), R, S, grid, noise_seed(seed), float(noise_std),
+                int(white_bkgd), _build.stream(odv.device))
         _build.check(code, "fused_rgb_train_grads")
         fused_rgb_train_grads.launches += 1
     return unpack_grads(field, flat), maps, weights
@@ -1013,9 +1067,10 @@ def train_render_grads(field: nn.Module, odv: torch.Tensor, z: torch.Tensor,
     cotangent ``dmaps [R, 5 + sem]`` and the weights' ``dweights [R, S]``
     (None: zero), recomputing the forward of ``odv [R, 9]``, ``z [R, S]``
     with the noise of ``seed``; see :func:`train_render_grads_plain`. One call
-    launches K3's forward (on K4's tile) and reverse-sweep kernels in their
-    cotangent mode once per wave of chunks and the reduction, and adds one
-    to ``launches``."""
+    launches K3's forward (on K4's tile) and reverse-sweep kernels (its
+    input-gradient products through the ring of :func:`pack_bwd_ring`) in
+    their cotangent mode once per wave of chunks and the reduction, and adds
+    one to ``launches``."""
     if odv.device.type == "cpu":
         return train_render_grads_plain(field, odv, z, dmaps, dweights, noise_std=noise_std,
                                         seed=seed)
@@ -1035,7 +1090,8 @@ def train_render_grads(field: nn.Module, odv: torch.Tensor, z: torch.Tensor,
     sem = field.mlp.use_semantics
     rbuf, ring = _ring(field, odv.device)
     rpc, rd = _wg_plan(fdesc, ring, S)
-    bbuf, bwd = _cached(field, odv.device, "_fused_train_pack", pack_train_bwd)
+    bwd = _train_bwd(field, odv.device)[1]
+    bring, brd = _bwd_ring(field, odv.device)
     desc = train_desc(field, fdesc, bwd, S, sem, rays_per_chunk=rpc)
     flat = torch.zeros(desc.grad_size, device=odv.device, dtype=torch.float32)
     if R > 0:
@@ -1047,9 +1103,9 @@ def train_render_grads(field: nn.Module, odv: torch.Tensor, z: torch.Tensor,
             code = _build.library().nerf_train_render_grads(
                 odv.data_ptr(), z.data_ptr(), dmaps.data_ptr(),
                 None if dweights is None else dweights.data_ptr(), buf.data_ptr(),
-                rbuf.data_ptr(), bbuf.data_ptr(), ctypes.byref(desc), ctypes.byref(rd),
-                partial.data_ptr(), work.data_ptr(), flat.data_ptr(), R, S, grid,
-                noise_seed(seed), float(noise_std), _build.stream(odv.device))
+                rbuf.data_ptr(), bring.data_ptr(), ctypes.byref(desc), ctypes.byref(rd),
+                ctypes.byref(brd), partial.data_ptr(), work.data_ptr(), flat.data_ptr(), R, S,
+                grid, noise_seed(seed), float(noise_std), _build.stream(odv.device))
         _build.check(code, "train_render_grads")
         train_render_grads.launches += 1
     return unpack_grads(field, flat, sem)
@@ -1181,9 +1237,9 @@ def mip_train_render_grads(field: nn.Module, odvr: torch.Tensor, z: torch.Tensor
     (None: zero), recomputing the forward of ``odvr [R, 10]``,
     ``z [R, S + 1]`` with the noise of ``seed``; see
     :func:`mip_train_render_grads_plain`. One call launches the 64-point
-    forward kernel and K3's reverse-sweep kernel in their mip cotangent mode
-    once per wave of chunks and the reduction, and adds one to
-    ``launches``."""
+    forward kernel and K3's reverse-sweep kernel (through the ring of
+    :func:`pack_bwd_ring`) in their mip cotangent mode once per wave of
+    chunks and the reduction, and adds one to ``launches``."""
     if odvr.device.type == "cpu":
         return mip_train_render_grads_plain(field, odvr, z, dmaps, dweights,
                                             noise_std=noise_std, seed=seed)
@@ -1198,7 +1254,8 @@ def mip_train_render_grads(field: nn.Module, odvr: torch.Tensor, z: torch.Tensor
         if tuple(t.shape) != shape:
             raise ValueError(f"expected {name} {shape}, got {tuple(t.shape)}")
     buf, fdesc = _packed(field, odvr.device)
-    bbuf, bwd = _cached(field, odvr.device, "_fused_train_pack", pack_train_bwd)
+    bwd = _train_bwd(field, odvr.device)[1]
+    bring, brd = _bwd_ring(field, odvr.device)
     desc = train_desc(field, fdesc, bwd, S)
     smem = _forward_smem(fdesc, desc.rays_per_chunk, S)
     if smem > _MAX_SMEM:
@@ -1214,9 +1271,9 @@ def mip_train_render_grads(field: nn.Module, odvr: torch.Tensor, z: torch.Tensor
             code = _build.library().nerf_mip_train_render_grads(
                 odvr.data_ptr(), z.data_ptr(), dmaps.data_ptr(),
                 None if dweights is None else dweights.data_ptr(), buf.data_ptr(),
-                bbuf.data_ptr(), ctypes.byref(desc), partial.data_ptr(), work.data_ptr(),
-                flat.data_ptr(), R, S, grid, noise_seed(seed), float(noise_std),
-                _build.stream(odvr.device))
+                bring.data_ptr(), ctypes.byref(desc), ctypes.byref(brd), partial.data_ptr(),
+                work.data_ptr(), flat.data_ptr(), R, S, grid, noise_seed(seed),
+                float(noise_std), _build.stream(odvr.device))
         _build.check(code, "mip_train_render_grads")
         mip_train_render_grads.launches += 1
     return unpack_grads(field, flat)

@@ -32,15 +32,19 @@ never edited):
   k loops, the waits for its own wgmma inside them, the layers'
   epilogues and the whole tile loop, and the producer thread of CTA 0
   around its waits for an empty stage;
-- ``fwdonly`` (K3, K6): ``train_grads`` launches the forward kernel of each
-  wave and the reduction but no reverse-sweep kernel, so the reverse
-  sweep's time is ``base``'s less this;
+- ``fwdonly`` (K3, K6, K10b, K8c/K8f): ``train_grads`` and the field
+  backward launch the forward kernel of each wave and the reduction but no
+  reverse-sweep kernel, so the reverse sweep's time is ``base``'s less this;
 - ``sweepclock`` (K3, K6): clock64 counters, thread 0 of CTA 0 over every
   wave, in ``train_reverse_kernel`` (``csrc/train_sweep.cuh``): the whole
-  kernel, each ``wgrad`` (the dW products) and each ``bwd_layer`` (the dX
-  products), and inside each its issue of the next tile's ``cp.async``
-  copies and its waits for them (``cp.async.wait_group`` and the barrier
-  after it): the staging;
+  kernel; each ``wgrad`` (the dW products), its issue of the next tile's
+  ``cp.async`` copies and its waits for them (``cp.async.wait_group`` and
+  the barrier after it); each ``bwd_layer`` (the dX products), thread 0's
+  fills of the backward ring (its turns as the producer: the bulk copies'
+  issue and its waits for a free stage), its waits for a full stage and its
+  epilogues;
+- ``bwdstagesN`` (K3, K6): the reverse sweep's ring with N stages
+  (``kBwdStages``; the shared memory grows with it);
 - ``nostore``, ``nocomposite``, ``epistore`` (K3's and K6's forward on the
   128-point tile; results wrong but for ``epistore``): no workspace stores;
   no composite after the tiles; the layer-mode stores from the epilogue's
@@ -105,28 +109,49 @@ def _in_function(text: str, head: str, fn) -> str:
 
 def _sweep_clocks(t: str) -> str:
     """train_sweep.cuh with sweepclock's counters: 0 the reverse kernel,
-    1-3 wgrad, its copy issue and its waits, 4-6 the same of bwd_layer."""
-    t = _sub(t, "#include \"tile_mlp.cuh\"\n", "#include \"tile_mlp.cuh\"\n" + _COUNTERS, 1)
+    1-3 wgrad, its copy issue and its waits; 4 bwd_layer, 5 thread 0's fills
+    (bulk-copy issue, with its waits for a free stage), 6 its waits for a
+    full stage, 7 its epilogues."""
+    t = _sub(t, "#include \"wgmma.cuh\"\n", "#include \"wgmma.cuh\"\n" + _COUNTERS, 1)
 
-    def timed(body, stage, total, issue, wait, first):
-        body = _sub(body, first, first + "  long long p_all = clock64(), p_w = 0;\n", 1)
-        body = body[:body.rindex("}")] + f"  PROBE_ADD({total}, p_all);\n}}\n"
-        body = re.sub(r"(\n\s*)(" + stage + r"\([^;]*;)",
-                      r"\1{ long long p_i = clock64(); \2 PROBE_ADD(" + str(issue) + ", p_i); }",
-                      body)
+    def wgrad(body):
+        body = _sub(body, "  const int wm = warp & 3, wn = warp >> 2;\n",
+                    "  const int wm = warp & 3, wn = warp >> 2;\n"
+                    "  long long p_all = clock64(), p_w = 0;\n", 1)
+        body = body[:body.rindex("}")] + "  PROBE_ADD(1, p_all);\n}\n"
+        body = re.sub(r"(\n\s*)(stage_tiles\([^;]*;)",
+                      r"\1{ long long p_i = clock64(); \2 PROBE_ADD(2, p_i); }", body)
         for n in (1, 0):
             w = f'asm volatile("cp.async.wait_group {n};\\n" ::);'
             body = _sub(body, w, f"p_w = clock64(); {w}", 1)
-        return re.sub(r"(\n\s*\}\n\s*__syncthreads\(\);)",
-                      r"\1 PROBE_ADD(" + str(wait) + ", p_w);", body, count=1)
+        return re.sub(r"(\n\s*\}\n\s*__syncthreads\(\);)", r"\1 PROBE_ADD(3, p_w);", body,
+                      count=1)
 
-    t = _in_function(t, "__device__ __noinline__ void wgrad(", lambda b: timed(
-        b, "stage_tiles", 1, 2, 3, "  const int wm = warp & 3, wn = warp >> 2;\n"))
-    t = _in_function(t, "__device__ __noinline__ void bwd_layer(", lambda b: timed(
-        b, "stage", 4, 5, 6, "  const int k0 = d.rows[p0], k1 = p1 >= 0 ? d.rows[p1] : 0;\n"))
+    def pieces(body):
+        head = body.index("\n", body.index("  auto fill = [&]("))
+        end = body.index("\n  };\n", head)
+        body = (body[:head] + "\n    long long p_f = clock64();" + body[head:end]
+                + "\n    PROBE_ADD(5, p_f);" + body[end:])
+        wait = ("      while (!mbar_try_wait(br.full + slot, (at / kBwdStages) & 1)) {\n"
+                "      }\n")
+        body = _sub(body, wait, "      long long p_w = clock64();\n" + wait
+                    + "      PROBE_ADD(6, p_w);\n", 1)
+        body = _sub(body, "    if (!live) continue;\n",
+                    "    if (!live) continue;\n    long long p_e = clock64();\n", 1)
+        return _sub(body, "    }\n  }\n  return pos + total;\n",
+                    "    }\n    PROBE_ADD(7, p_e);\n  }\n  return pos + total;\n", 1)
+
+    def layer(body):
+        body = _sub(body, "  const int nk = L.k / 8, ldn = pad8(L.n);\n",
+                    "  long long p_all = clock64();\n  const int nk = L.k / 8, ldn = pad8(L.n);\n", 1)
+        return _sub(body, "  return pos;\n}\n", "  PROBE_ADD(4, p_all);\n  return pos;\n}\n", 1)
+
+    t = _in_function(t, "__device__ __noinline__ void wgrad(", wgrad)
+    t = _in_function(t, "__device__ __forceinline__ int bwd_pieces(", pieces)
+    t = _in_function(t, "__device__ __noinline__ int bwd_layer(", layer)
     t = _in_function(t, "    train_reverse_kernel(", lambda b: _sub(
-        _sub(b, "  float* stages = reinterpret_cast<float*>(smem4);\n",
-             "  float* stages = reinterpret_cast<float*>(smem4);\n"
+        _sub(b, "  float* stages = reinterpret_cast<float*>(rev_raw + 128);\n",
+             "  float* stages = reinterpret_cast<float*>(rev_raw + 128);\n"
              "  long long p_start = clock64();\n", 1),
         "  if (kInGrad) {\n    const long long base", "  PROBE_ADD(0, p_start);\n"
         "  if (kInGrad) {\n    const long long base", 1))
@@ -210,12 +235,19 @@ def _patch_one(variant: str, csrc: str) -> None:
         edit("train_render.cu", kern)
     elif variant == "fwdonly":
         edit("train_render.cu", lambda t: _sub(
-            t, "    train_reverse_kernel<kSem><<<grid, kThreads, stage_smem, st>>>(\n"
-               "        bparams, nullptr, *d, partial, workspace, R, S, wave, nullptr, nullptr);\n",
+            t, "    train_reverse_kernel<kSem><<<grid, kThreads, kReverseSmem, st>>>(\n"
+               "        bring, nullptr, *d, *brd, RingDesc{}, partial, workspace, R, S, wave, "
+               "nullptr, nullptr);\n", "", 1))
+        edit("fused_field.cu", lambda t: _sub(
+            t, "    train_reverse_kernel<kSem, kInGrad><<<grid, kThreads, kReverseSmem, st>>>(\n"
+               "        bring, iring, *d, *brd, *ird, partial, workspace, N, 1, wave, dpts, ddirs);\n",
             "", 1))
     elif variant == "sweepclock":
         edit("train_sweep.cuh", _sweep_clocks)
         edit("train_render.cu", lambda t: t + _READER)
+    elif variant.startswith("bwdstages"):
+        edit("train_sweep.cuh", lambda t: _sub(t, "constexpr int kBwdStages = 4;",
+                                               f"constexpr int kBwdStages = {variant[9:]};", 1))
     elif variant == "nostore":
         edit("wg_tile.cuh", lambda t: _sub(t, "const bool store = kStore && qw < nq;",
                                            "const bool store = false;", 1))
@@ -313,7 +345,7 @@ def main() -> int:
              "wgclock": ["ring_full_wait", "producer_empty_wait", "k_loops", "own_wgmma_wait",
                          "epilogues"],
              "sweepclock": ["wgrad", "wgrad_copy_issue", "wgrad_copy_wait", "bwd_layer",
-                            "bwd_layer_copy_issue", "bwd_layer_copy_wait"]}
+                            "bwd_layer_fill_issue", "bwd_layer_full_wait", "bwd_layer_epilogue"]}
     runs = {int(S): runner(int(S)) for S in a.samples.split(",")}
     for variant in a.variants.split(","):
         lib = _use(_build, root, variant)

@@ -939,3 +939,79 @@ def test_field_kernels_empty_batch(cuda):
     grads, dp, dd = ff.field_grads(field, pts, pts, torch.zeros(0, 6, device=cuda),
                                    input_grads=True)
     assert dp.shape == dd.shape == (0, 3) and all(float(v.abs().max()) == 0 for v in grads.values())
+
+
+@pytest.mark.parametrize("kernel", ["k3", "k6", "k10b", "k8f"])
+def test_reverse_ring_follows_a_weight_update(cuda, kernel):
+    """The reverse sweep's input-gradient products read their matrices from
+    the backward ring (``pack_bwd_ring``, gathered once per weight state):
+    at the flagship width on gate-clear inputs, the gradients match the
+    plain version's (GRAD_TOL of each leaf's max plus the sigma gates'
+    allowance) and are bitwise equal across two calls; after an in-place
+    update of rgb's weight (it moves no relu gate, so the inputs stay
+    gate-clear) the cached ring is gathered anew, equals a fresh
+    ``pack_bwd_ring``, and the gradients follow the plain version's again."""
+    mip = kernel == "k10b"
+    if mip:
+        field = _mip_field(cuda, 50, **SHAPES[0])
+    else:
+        field = _field(cuda, 50, use_semantics=kernel != "k3", sem_with_coord=True, sem_dim=2,
+                       **SHAPES[0])
+    n, s = (300, 190) if mip else (300, 64)
+    rng = np.random.default_rng(51)
+    if kernel == "k8f":
+        pts, dirs = _gate_clear_points(field, 4096, 52, True, 2 * GATE_MARGIN)
+        g = torch.from_numpy(rng.normal(size=(4096, 6)).astype(np.float32)).to(cuda)
+
+        def run():
+            return ff.field_grads(field, pts, dirs, g, input_grads=False)[0]
+
+        def plain():
+            return ff.field_grads_plain(field, pts, dirs, g, input_grads=False)[0], None
+    else:
+        odv, z = _gate_clear_inputs(field, n, s, 52, pool=2048, sem=kernel == "k6", mip=mip)[:2]
+        dmaps = torch.from_numpy(rng.normal(size=(n, 5 if mip else 7)).astype(np.float32))
+        dmaps, dw = dmaps.to(cuda), torch.from_numpy(rng.normal(size=(n, s)).astype(
+            np.float32)).to(cuda)
+        gt = torch.from_numpy(rng.uniform(0, 1, (n, 3)).astype(np.float32)).to(cuda)
+        kw = dict(noise_std=1.0, seed=5353)
+        if kernel == "k3":
+            kw3 = dict(kw, white_bkgd=False)
+
+            def run():
+                return fr.fused_rgb_train_grads(field, odv, z, gt, **kw3)[0]
+
+            def plain():
+                want, slack, terms = plain_k3_with_gates(field, odv, z, gt, kw3)
+                return want[0], flip_allowance(slack, terms)
+        else:
+            wrapper = fr.mip_train_render_grads if mip else fr.train_render_grads
+            with_gates = plain_k10b_with_gates if mip else plain_k6_with_gates
+
+            def run():
+                return wrapper(field, odv, z, dmaps, dw, **kw)
+
+            def plain():
+                want, slack, terms = with_gates(field, odv, z, dmaps, dw, kw)
+                return want, flip_allowance(slack, terms)
+
+    def check():
+        got, again = run(), run()
+        want, allow = plain()
+        torch.cuda.synchronize()
+        assert set(got) == set(want)
+        for name, ref in want.items():
+            assert torch.equal(got[name], again[name]), name
+            assert got[name].shape == ref.shape and torch.isfinite(got[name]).all(), name
+            scale = max(float(ref.abs().max()), 1e-12)
+            err = float((got[name] - ref).abs().max())
+            assert err <= GRAD_TOL * scale + (allow[name] if allow else 0.0), (name, err / scale)
+
+    check()
+    before = fr._bwd_ring(field, cuda)[0].clone()
+    with torch.no_grad():
+        field.mlp.rgb_linear.weight.mul_(-0.75)
+    check()
+    ring = fr._bwd_ring(field, cuda)[0]
+    assert not torch.equal(ring, before)
+    assert torch.equal(ring, fr.pack_bwd_ring(field)[0])

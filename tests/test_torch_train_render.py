@@ -160,7 +160,8 @@ def _emulate_forward(field, odv, z):
     return out
 
 
-def _emulate_k3(field, odv, z, gt, white, noise_std, seed, dmaps=None, dweights=None, fwd=None):
+def _emulate_k3(field, odv, z, gt, white, noise_std, seed, dmaps=None, dweights=None, fwd=None,
+                dx=None):
     """What csrc/train_render.cu computes, step for step, in feature-major
     torch matrices built only from the packed buffers: the forward
     (``fwd``, by default ``_emulate_forward``'s), the composite and its
@@ -169,16 +170,22 @@ def _emulate_k3(field, odv, z, gt, white, noise_std, seed, dmaps=None, dweights=
     ``unpack_grads``. With ``dmaps`` (K6) the maps' cotangent is ``dmaps``
     (and ``dweights``) instead of the img2mse one, and the semantic head is
     swept between alpha and the trunk, its input gradient on h added into
-    the last trunk layer's cotangent."""
+    the last trunk layer's cotangent. ``dx(i, segs, gate, add)``: layer
+    i's input-gradient product of the dY rows ``segs``, ``add`` added and
+    then gated by ``gate > 0`` (each when not None); by default
+    ``pack_train_bwd``'s matrix in one product."""
     fd = tfr.pack_field(field)[1]
     bbuf, bwd = tfr.pack_train_bwd(field)
+    if dx is None:
+        def dx(i, segs, gate=None, add=None):
+            y = _mm(bbuf, bwd[i], segs) + (0 if add is None else add)
+            return y if gate is None else y * (gate > 0)
     depth, skip, sem = fd.depth, fd.skip, fd.sem_dim
     Rn, S = z.shape
     fwd = _emulate_forward(field, odv, z) if fwd is None else fwd
     emb, demb, acts, feat, hv, s_act = (fwd[k] for k in ("emb", "demb", "acts", "feat", "hv",
                                                           "s_act"))
     sigma, logits, semv = fwd["sigma"], fwd["logits"], fwd["semv"]
-    mm = _mm
     h = [emb, acts[-1]] if depth - 1 == skip else [acts[-1]]
     ins = [[emb]] + [[emb, acts[i - 1]] if i - 1 == skip else [acts[i - 1]]
                      for i in range(1, depth)]
@@ -230,22 +237,22 @@ def _emulate_k3(field, odv, z, gt, white, noise_std, seed, dmaps=None, dweights=
 
     k_alpha, k_feat, k_views, k_rgb = depth, depth + 1, depth + 2, depth + 3
     wgrad(k_rgb, [hv], drgb)
-    dpv = mm(bbuf, bwd[k_rgb], [drgb]) * (hv > 0)
+    dpv = dx(k_rgb, [drgb], hv)
     wgrad(k_views, [feat, demb], dpv)
-    dfeat = mm(bbuf, bwd[k_views], [dpv])
+    dfeat = dx(k_views, [dpv])
     wgrad(k_feat, h, dfeat)
     wgrad(k_alpha, h, dsig)
-    cur = mm(bbuf, bwd[k_alpha], [dfeat, dsig]) * (acts[-1] > 0)
+    cur = dx(k_alpha, [dfeat, dsig], acts[-1])
     if k6_sem:
         dsem = _pad_rows((dmaps[:, 5:].t()[..., None] * w).reshape(sem, -1), 8)
         wgrad(depth + 5, [s_act], dsem)
-        ds = mm(bbuf, bwd[depth + 5], [dsem]) * (s_act > 0)
+        ds = dx(depth + 5, [dsem], s_act)
         wgrad(depth + 4, h + ([emb] if fd.sem_with_coord else []), ds)
-        cur = (mm(bbuf, bwd[depth + 4], [ds]) + cur) * (acts[-1] > 0)
+        cur = dx(depth + 4, [ds], acts[-1], cur)
     for i in range(depth - 1, -1, -1):
         wgrad(i, ins[i], cur)
         if i > 0:
-            cur = mm(bbuf, bwd[i], [cur]) * (acts[i - 1] > 0)
+            cur = dx(i, [cur], acts[i - 1])
     return tfr.unpack_grads(field, flat, k6_sem), maps, w
 
 
