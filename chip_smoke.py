@@ -10,18 +10,25 @@ Phases (one line each; any failure raises and the exit code is nonzero):
   1. build the kernels from nerfsos_torch/csrc with nvcc, one compiler per
      source at once (seconds), and print ptxas's register/spill report,
      with [reverse_ptxas]: the reverse-sweep kernel's line in each of its
-     four modes, its bwd_layer's and wgrad's frames, and any wgmma warning;
+     four modes, its bwd_layer's and wgrad's frames, and any wgmma warning
+     (C75xx: serialised wgmma); such a warning for K2/K4's kernel or K5's
+     fails the run;
   2. K1 (fused coarse weights) vs its plain PyTorch version at the flagship
-     width: depth 8, width 256, multires 10, 64 samples, 8192 rays;
-  3. K2 (fused fine render) vs its plain version: 192 samples, semantic head
-     with coordinates (sem_dim 2), multires_views 4, fixed sorted z; then
-     again without the semantic head;
+     width: depth 8, width 256, multires 10, 64 samples, 8192 rays; then
+     timed at the eval path's 32768 rays a launch beside its bound;
+  3. K2 (fused fine render: K4's kernel without noise or sem_in) vs its
+     plain version: 8192 rays, 192 samples, semantic head with coordinates
+     (sem_dim 2), multires_views 4, fixed sorted z, two calls bitwise equal,
+     then timed at the eval path's 32768 rays a launch beside its bound;
+     then again without the semantic head;
   4. the eval path: an analytic scene with one 378x504 test view and seeded
      flagship weights saved as a reference-format .ckpt, evaluated through
      ``nerfsos_torch.run_nerf.main --eval``; the kernels' launch counters
      must show both kernels ran, log.json must hold finite metrics, the run's
-     seconds are split into render, metrics and the rest, and the view is
-     rendered again by the plain path and compared;
+     seconds are split into render, metrics and the rest, the view's last K2
+     call is held against its plain version on its own inputs to TOL and
+     against a second call bitwise ([eval_k2]), and the view is rendered
+     again by the plain path and compared;
   5. K3 (fused RGB train pass) vs its plain version at the flagship width,
      sigma noise 1 from a fixed seed, fixed sorted z: at 4096 rays coarse
      S=64 and fine S=192 with the semantic head, then S=192 with white_bkgd
@@ -52,7 +59,8 @@ Phases (one line each; any failure raises and the exit code is nonzero):
      L2 through its ring, the achieved 3xTF32 rate against the peak,
      ptxas's register/spill line); K5 on K4's own outputs with seeded map
      cotangents, each leaf to GRAD_TOL plus its allowance for semantic-head
-     gates near 0, and two calls bitwise equal;
+     gates near 0, and two calls bitwise equal, with ptxas's line for K5's
+     kernel;
  10. the SOS finetune: ``run_nerf.main`` with the flags of
      scripts/train_flower_node0.sh (8 patches of 64x64, stride 6, ViT-S/16
      with seeded weights, both correlation losses) on 8 train views of
@@ -62,14 +70,15 @@ Phases (one line each; any failure raises and the exit code is nonzero):
      finite and the correlation terms nonzero; the trunk bitwise equal to
      the checkpoint's and the semantic head moved; the final eval through
      K1/K2; the last step's K4 and K5 calls against their plain versions
-     (K4 also against a second call on the same inputs, bitwise);
+     and against a second call on the same inputs, bitwise;
  11. K7 (row stats, the four geometry means, the code gradients) on the last
      SOS step's own inputs (16 x 4096 pixels, 2 channels) vs the plain
      versions to K7_TOL, two calls bitwise equal;
  12. the 32768-ray SOS step (CUDA events) on the kernel and the plain path,
      with peak memory, and its parts timed alone (K4 and K5 coarse and
      fine, ViT, the forward kernels' weight packing, appearance loss, K7
-     forward and backward, Adam), K4's with its design numbers as in 9;
+     forward and backward, Adam), K4's with its design numbers as in 9,
+     K5's with ptxas's line;
  13. K6 (the full train-render backward) vs its plain version on the
      [K4]/[K5] phase's field and rays (4096 rays, S=64 and S=192, noise 1)
      with seeded map and weight cotangents: every leaf to GRAD_TOL plus its
@@ -207,12 +216,14 @@ K7_TOL = 1e-4
 HBM_BYTES_S = 3.35e12
 FP32_MMA_FLOP_S = 495e12 / 3
 FP32_SIMT_FLOP_S = 67e12
-# ptxas's line for K4's kernel (train_render_wg_kernel), for K3's and K6's
+# ptxas's line for K4's kernel (train_render_wg_kernel, also K2's), for K5's
+# (frozen_sem_kernel), for K3's and K6's
 # forward (train_forward_wg_kernel, kLoss and kCotangent) and for the
 # reverse-sweep kernel (train_reverse_kernel by (kSem, kInGrad), with the
 # stack and spills of its bwd_layer and wgrad functions), read from the
 # build log in main
 K4_PTXAS = None
+K5_PTXAS = None
 FWD_PTXAS = {}
 REV_PTXAS = {}
 
@@ -332,6 +343,9 @@ def n_params(field) -> int:
     return sum(p.numel() for p in field.parameters())
 
 
+EVAL_CHUNK = 32768  # rays a K1 or K2 launch on the eval path (--ray_chunk's default)
+
+
 def kernel_vs_plain_k1(fr) -> dict:
     field = seeded_field(0, net_depth=8, net_width=256, multires=10, multires_views=4)
     odv, z = ray_inputs(8192, 64, seed=0)
@@ -349,15 +363,30 @@ def kernel_vs_plain_k1(fr) -> dict:
                      8192 * 64 * field_flops(field, "k1"))
     phase("K1", rays=8192, samples=64, max_abs_err=err, tol=TOL, ms=ms, plain_ms=plain_ms,
           **bound)
+    # at the eval path's 32768 rays a launch, the numbers the kernels line reports
+    R = EVAL_CHUNK
+    odv, z = ray_inputs(R, 64, seed=3)
+    od = odv[:, :6].contiguous()
+    with torch.no_grad():
+        ms = cuda_ms(lambda: fr.fused_coarse_weights(field, od, z), reps=3)
+        plain_ms = cuda_ms(lambda: fr.coarse_weights_plain(field, od, z), reps=2, warmup=1)
+    bound = bound_ms(4 * (R * (6 + 2 * 64) + n_params(field)), R * 64 * field_flops(field, "k1"))
+    phase("K1", rays=R, samples=64, ms=ms, plain_ms=plain_ms, **bound)
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bound, "library_ms": None}
 
 
 def kernel_vs_plain_k2(fr, use_semantics: bool) -> dict:
+    """[K2] (K4's kernel without noise or sem_in) vs its plain version at
+    8192 rays x 192 samples, and two calls bitwise equal; with the semantic
+    head also timed at the eval path's 32768 rays a launch beside its bound
+    (the plain version there in chunks of 8192 rays), the numbers the
+    kernels line reports."""
     field = seeded_field(1, net_depth=8, net_width=256, multires=10, multires_views=4,
                          use_semantics=use_semantics, sem_with_coord=use_semantics, sem_dim=2)
     odv, z = ray_inputs(8192, 192, seed=1)
     with torch.no_grad():
         maps, w = fr.fused_render(field, odv, z)
+        again = fr.fused_render(field, odv, z)
         maps_p, w_p = fr.render_plain(field, odv, z)
         torch.cuda.synchronize()
         err = max(max_err(maps, maps_p), max_err(w, w_p))
@@ -367,11 +396,26 @@ def kernel_vs_plain_k2(fr, use_semantics: bool) -> dict:
         raise SystemExit(f"K2 maps shape {tuple(maps.shape)}")
     if not (torch.isfinite(maps).all() and torch.isfinite(w).all() and err <= TOL):
         raise SystemExit(f"K2 disagrees with its plain version: max_abs_err={err} > {TOL}")
+    if not (torch.equal(maps, again[0]) and torch.equal(w, again[1])):
+        raise SystemExit("K2's outputs differ between two calls")
     bound = bound_ms(4 * (8192 * (9 + 2 * 192 + maps.shape[1]) + n_params(field)),
                      8192 * 192 * field_flops(field, "k2"))
     phase("K2", rays=8192, samples=192, semantics=use_semantics, max_abs_err=err, tol=TOL,
-          ms=ms, plain_ms=plain_ms, **bound)
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bound, "library_ms": None}
+          deterministic=True, ms=ms, plain_ms=plain_ms, **bound)
+    out = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bound, "library_ms": None}
+    if use_semantics:
+        R = EVAL_CHUNK
+        odv, z = ray_inputs(R, 192, seed=2)
+        with torch.no_grad():
+            ms = cuda_ms(lambda: fr.fused_render(field, odv, z), reps=3)
+            plain_ms = cuda_ms(lambda: [fr.render_plain(field, odv[i:i + 8192], z[i:i + 8192])
+                                        for i in range(0, R, 8192)], reps=2, warmup=1)
+        bound = bound_ms(4 * (R * (9 + 2 * 192 + maps.shape[1]) + n_params(field)),
+                         R * 192 * field_flops(field, "k2"))
+        phase("K2", rays=R, samples=192, semantics=True, ms=ms, plain_ms=plain_ms, **bound,
+              ptxas=repr(K4_PTXAS))
+        out.update(ms=ms, plain_ms=plain_ms, **bound)
+    return out
 
 
 def plain_with_gates(field, R: int, S: int, kw: dict, gates, run):
@@ -628,6 +672,8 @@ def eval_path(fr) -> dict:
 
     fr.fused_coarse_weights.launches = 0
     fr.fused_render.launches = 0
+    cap = Capture(fr, ["fused_render"])  # the view's K2 calls, held against plain below
+    cap.on = True
     eval_lib.eval_one_view = recording_eval_one_view
     try:
         torch.cuda.synchronize()
@@ -637,6 +683,7 @@ def eval_path(fr) -> dict:
         seconds = time.perf_counter() - t0
     finally:
         eval_lib.eval_one_view = orig
+        cap.close()
     launches = {"K1": fr.fused_coarse_weights.launches, "K2": fr.fused_render.launches}
     # the run's seconds: the view's render, then its k-means, ARI and SSIM,
     # then the rest (arguments, model, checkpoint, data, PNGs, logs)
@@ -659,6 +706,21 @@ def eval_path(fr) -> dict:
             raise SystemExit(f"rendered {k} holds non-finite values")
     phase("eval_metrics", psnr=log["total_psnr"], ssim=log["total_ssim"],
           clus_ari=log["total_clus_ari"], sem_ari=log["total_sem_ari"])
+    # the view's last K2 call (its own importance-sampled z) against plain, and
+    # again on the same inputs, bitwise
+    a, _, got = cap.calls["fused_render"][-1]
+    with torch.no_grad():
+        want = fr.render_plain(*a)
+        again = fr.fused_render(*a)
+    torch.cuda.synchronize()
+    err = max(max_err(got[0], want[0]), max_err(got[1], want[1]))
+    if not (torch.isfinite(got[0]).all() and err <= TOL):
+        raise SystemExit(f"K2 on the eval view disagrees with its plain version: {err} > {TOL}")
+    if not all(torch.equal(x, y) for x, y in zip(got, again)):
+        raise SystemExit("K2 on the eval view: two calls differ")
+    phase("eval_k2", calls=len(cap.calls["fused_render"]), rays=a[2].shape[0],
+          samples=a[2].shape[1], max_abs_err=err, tol=TOL, deterministic=True)
+    del cap
 
     # the same view again, render only: kernel path vs plain path
     net, _ = run_nerf.build_model(args, torch.device("cuda"))
@@ -1094,7 +1156,7 @@ def kernel_vs_plain_k4_k5(fr, S: int) -> dict:
     ms5 = cuda_ms(lambda: fr.frozen_sem_grads(field, sem_in, w, dmaps))
     plain5 = cuda_ms(lambda: fr.frozen_sem_grads_plain(field, sem_in, w, dmaps), reps=3)
     phase("K5", rays=R, samples=S, **close, deterministic=True, ms=ms5, plain_ms=plain5,
-          **k5_cost(field, R, S))
+          **k5_cost(field, R, S), ptxas=repr(K5_PTXAS))
     return {"K4": max(max_err(a, b) for a, b in zip(got, want)), "K5": close["max_abs_err"]}
 
 
@@ -1334,6 +1396,9 @@ def sos_path(fr, fc) -> dict:
         name = "coarse" if w.shape[1] == args.N_samples else "fine"
         close = check_k5(f"step {last}, {name}", got, *plain_k5_with_allowance(field, sem_in, w,
                                                                                 dmaps))
+        again = fr.frozen_sem_grads(*a, **kw)
+        if not all(torch.equal(got[k], again[k]) for k in got):
+            raise SystemExit(f"K5 at step {last} ({name}): two calls differ")
         errs[f"K5 {name}"] = close["grad_rel_err"]
         phase("sos_k5", step=last, field=name, rays=w.shape[0], samples=w.shape[1], **close)
     phase("sos_k4", step=last, max_err_coarse=errs["K4 coarse"], max_err_fine=errs["K4 fine"],
@@ -1651,6 +1716,8 @@ def sos_step_timings(fr, fc, sos_run, name: str = "sos_step",
             if part.startswith("K4"):
                 fa = k4kb.calls["train_render"][part == "K4 fine"][0]
                 design = k4_design(fa[0], *fa[2].shape, v[0])
+            if part.startswith("K5"):
+                design = {"ptxas": repr(K5_PTXAS)}
             phase(f"{name}_part", part=part, ms=v[0], plain_ms=v[1],
                   **({"bound_ms": parts[part + " cost"]["bound_ms"]}
                      if part + " cost" in parts else {}), **design)
@@ -2443,7 +2510,7 @@ def main() -> int:
     lib_path = _build.build()
     _build.library()
     phase("build", seconds=time.perf_counter() - t0, lib=os.path.relpath(lib_path, ROOT))
-    global K4_PTXAS
+    global K4_PTXAS, K5_PTXAS
     with open(lib_path + ".log") as f:
         lines = f.read().splitlines()
     calls, serialised = {}, []  # bwd_layer's and wgrad's frames; ptxas's wgmma warnings
@@ -2452,6 +2519,9 @@ def main() -> int:
             print("  ptxas:", line.strip())
         if "Compiling entry function" in line and "train_render_wg_kernel" in line:
             K4_PTXAS = "; ".join(x.replace("ptxas info    :", "").strip()
+                                 for x in lines[i + 2:i + 4])
+        if "Compiling entry function" in line and "frozen_sem_kernel" in line:
+            K5_PTXAS = "; ".join(x.replace("ptxas info    :", "").strip()
                                  for x in lines[i + 2:i + 4])
         if "Compiling entry function" in line and "train_forward_wg_kernel" in line:
             mode = int(line.split("train_forward_wg_kernelILi")[1][0])  # kLoss 1, kCotangent 2
@@ -2467,12 +2537,17 @@ def main() -> int:
             fn = "bwd_layer" if "bwd_layer" in line else "wgrad"
             fn += "<kAccum>" if "bwd_layerILb1E" in line else ""
             calls[fn] = lines[i + 1].strip()
-        if "wgmma" in line and "warning" in line:
+        if ("wgmma" in line and "warning" in line) or "(C75" in line:
             serialised.append(line.strip())
-    if K4_PTXAS is None or sorted(FWD_PTXAS) != [1, 2] or len(REV_PTXAS) != 4:
-        raise SystemExit("no ptxas report for K4's kernel (train_render_wg_kernel), K3's and "
-                         "K6's forward (train_forward_wg_kernel) or the reverse sweep's four "
-                         "modes (train_reverse_kernel)")
+    if (K4_PTXAS is None or K5_PTXAS is None or sorted(FWD_PTXAS) != [1, 2]
+            or len(REV_PTXAS) != 4):
+        raise SystemExit("no ptxas report for K4's kernel (train_render_wg_kernel), K5's "
+                         "(frozen_sem_kernel), K3's and K6's forward (train_forward_wg_kernel) "
+                         "or the reverse sweep's four modes (train_reverse_kernel)")
+    # the redesigned kernels (K2/K4's and K5's) keep their wgmma pipelines
+    new = [x for x in serialised if "train_render_wg_kernel" in x or "frozen_sem_kernel" in x]
+    if new:
+        raise SystemExit(f"ptxas serialised the wgmma of K2/K4 or K5: {new}")
     for key in REV_PTXAS:
         REV_PTXAS[key] += "; " + "; ".join(f"{k}: {v}" for k, v in sorted(calls.items()))
     phase("reverse_ptxas", modes={f"kSem={k[0]},kInGrad={k[1]}": v
@@ -2551,7 +2626,7 @@ def main() -> int:
         {"name": "K1 fused_coarse_weights", "route": "cuda", "source": src,
          "replaces": "nerfsos_tpu/ops/pallas/fused_render.py:458",
          "launches": launches["K1"], **k1},
-        {"name": "K2 fused_render", "route": "cuda", "source": src,
+        {"name": "K2 fused_render", "route": "cuda", "source": "nerfsos_torch/csrc/wg_tile.cuh",
          "replaces": "nerfsos_tpu/ops/pallas/fused_render.py:369",
          "launches": launches["K2"], **k2},
         {"name": "K3 fused_rgb_train_grads", "route": "cuda", "source": train_src,

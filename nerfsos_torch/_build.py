@@ -137,17 +137,14 @@ class RingDesc(ctypes.Structure):
                 ("stage_floats", ctypes.c_int)]
 
 
-MAX_SEM_BLOCKS = 4
-
-
 class FrozenDesc(ctypes.Structure):
     """Mirror of ``FrozenDesc`` in ``csrc/train_render.cu``."""
-    _fields_ = [("blk", MLPLayer * MAX_SEM_BLOCKS), ("w1", ctypes.c_longlong),
+    _fields_ = [("b0", ctypes.c_longlong), ("w1", ctypes.c_longlong),
                 ("gw0", ctypes.c_longlong), ("gb0", ctypes.c_longlong),
                 ("gw1", ctypes.c_longlong), ("gb1", ctypes.c_longlong),
-                ("grad_size", ctypes.c_longlong), ("seg", ctypes.c_int * 3),
-                ("kpad", ctypes.c_int), ("hidden", ctypes.c_int), ("sem_dim", ctypes.c_int),
-                ("nblk", ctypes.c_int), ("n_maps", ctypes.c_int)]
+                ("grad_size", ctypes.c_longlong), ("C", ctypes.c_int),
+                ("kslices", ctypes.c_int), ("hidden", ctypes.c_int), ("sem_dim", ctypes.c_int),
+                ("n_maps", ctypes.c_int), ("xstages", ctypes.c_int), ("wstages", ctypes.c_int)]
 
 
 def stream(device) -> ctypes.c_void_p:
@@ -165,7 +162,6 @@ def library() -> ctypes.CDLL:
     desc_p = ctypes.POINTER(MLPDesc)
     train_p = ctypes.POINTER(TrainDesc)
     lib.nerf_coarse_weights.argtypes = [vp, vp, vp, desc_p, vp, i32, i32, i32, vp]
-    lib.nerf_render.argtypes = [vp, vp, vp, desc_p, vp, vp, i32, i32, i32, vp]
     ring_p = ctypes.POINTER(RingDesc)
     lib.nerf_rgb_train_grads.argtypes = [vp, vp, vp, vp, vp, vp, train_p, ring_p, ring_p, vp, vp,
                                          vp, vp, vp, i32, i32, i32, ctypes.c_uint, f32, i32, vp]
@@ -174,7 +170,9 @@ def library() -> ctypes.CDLL:
     lib.nerf_train_render_grads.argtypes = [vp, vp, vp, vp, vp, vp, vp, train_p, ring_p, ring_p,
                                             vp, vp, vp, i32, i32, i32, ctypes.c_uint, f32, vp]
     lib.nerf_frozen_sem_grads.argtypes = [vp, vp, vp, vp, ctypes.POINTER(FrozenDesc), vp, vp,
-                                          ctypes.c_longlong, i32, i32, vp]
+                                          ctypes.c_longlong, i32, i32, ctypes.c_longlong, vp]
+    lib.nerf_frozen_sem_clusters.argtypes = [ctypes.POINTER(FrozenDesc),
+                                             ctypes.POINTER(ctypes.c_int)]
     lib.nerf_mip_render.argtypes = [vp, vp, vp, train_p, vp, vp, i32, i32, ctypes.c_uint, f32,
                                     vp]
     lib.nerf_mip_train_render_grads.argtypes = [vp, vp, vp, vp, vp, vp, train_p, ring_p, vp, vp,
@@ -187,8 +185,9 @@ def library() -> ctypes.CDLL:
     lib.geo_row_stats.argtypes = [vp, vp, vp, vp, i32, i32, i32, f32, vp]
     lib.geo_means.argtypes = [vp] * 10 + [i32] * 5 + [f32, f32, f32, vp]
     lib.geo_grads.argtypes = [vp] * 13 + [i32] * 5 + [f32, f32, f32, vp]
-    for fn in (lib.nerf_coarse_weights, lib.nerf_render, lib.nerf_rgb_train_grads,
+    for fn in (lib.nerf_coarse_weights, lib.nerf_rgb_train_grads,
                lib.nerf_train_render, lib.nerf_train_render_grads, lib.nerf_frozen_sem_grads,
+               lib.nerf_frozen_sem_clusters,
                lib.nerf_mip_render, lib.nerf_mip_train_render_grads, lib.nerf_field_sigma,
                lib.nerf_field, lib.nerf_mip_field, lib.nerf_field_grads,
                lib.geo_row_stats, lib.geo_means, lib.geo_grads):

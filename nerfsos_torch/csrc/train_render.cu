@@ -91,24 +91,60 @@
 //
 // K5 (replaces _train_render_frozen_bwd_impl -> _train_frozen_bwd_kernel):
 // the gradients of the semantic head alone, with the composite weights held
-// constant, from sem_in, w and the maps' cotangent. Per 64-point tile:
-// s_act = relu(sem_in W0 + b0) (3xTF32), d_sem = dmaps[ray, 5:] w,
-// ds = (W1^T d_sem) [s_act > 0], and dW1 += s_act^T d_sem, db1, db0, and
-// dW0 += sem_in^T ds (m16n8k8 3xTF32, k = points). A CTA takes one block of
-// 64 of sem_0's 128 outputs over a run of tiles, so its share of dW0
-// (320 x 64) stays in 40 registers a thread; each CTA x writes its share of
-// a partial gradient buffer and reduce_partials sums the buffers in CTA
-// order: two calls give bitwise-equal gradients. The CTA keeps its block of
-// W0^T (320 x 64, fp32) and W1 in shared memory for its whole run of tiles
-// and splits them into TF32 parts as it multiplies (sem0_forward): the
-// shared tile layer dense(), which reads each k step's W fragments from L2,
-// left one n8 tile a warp waiting on those reads most of the time in a
-// first version (clock64 counters, H100). Each tile's rows of sem_in are copied by
-// cp.async straight into the feature-major tile (4-byte copies, lane =
-// column). Bound: reading sem_in (8.0 GB at the fine pass) and the two
-// 320 x 128 products (~164 KFLOP a point), about equal on the H100; the two
-// blocks each read sem_in once. Shared memory: 230 KB at the flagship's
-// 320 padded sem_in rows, the most that fits.
+// constant, from sem_in [P, C], w and the maps' cotangent: per point
+// s_pre = sem_in W0^T + b0, d_sem = dmaps[ray, 5:] w,
+// ds = (W1^T d_sem) [s_pre > 0]; dW1 += relu(s_pre)^T d_sem, db1, db0 and
+// dW0 += sem_in^T ds. Bound: the two C x 128 products (~164 KFLOP a
+// flagship point, 6.27 ms at 32768 x 192 at 165 TFLOP/s) over reading
+// sem_in once (8.0 GB there, 2.4 ms).
+// The design (redesigned for Hopper; frozen_sem_kernel):
+//   * a cluster of four CTAs takes a run of 64-point tiles; CTA rank r owns
+//     sem_0's outputs 32 r .. 32 r + 31 (the flagship head has 128), so each
+//     CTA's dW0 share is C x 32. Rank 0's producer warp brings each tile of
+//     sem_in (64 rows of C floats: 81,664 B at C = 319, one contiguous,
+//     16-byte aligned block) into all four CTAs with one multicast bulk
+//     copy, so sem_in leaves device memory once; each CTA frees a stage on
+//     its own barrier and the other ranks' consumers also on rank 0's, which
+//     refills it;
+//   * 512 threads: warpgroup F, two dW0 warpgroups D0/D1 and a producer
+//     warpgroup (warp 0 the X ring, one thread of warp 1 the W0 ring);
+//   * F: s_pre on wgmma m64n32k8 in 3xTF32 (M = the tile's points, N = the
+//     CTA's outputs, K = C), A = the tile's sem_in rows split in registers,
+//     B = W0^T's k-slices, host-packed as TF32 high and low parts in wgmma's
+//     K-major B layout (pack_frozen, as pack_ring packs K4's layers), four
+//     k-slices an 8 KB stage of a ring of up to six; W0 never sits whole in
+//     shared memory (80 KB a rank at C = 319). Its epilogue forms ds from
+//     the accumulators and writes it to shared memory as dW0's B operand
+//     ([output][point] per k-slice of 8 points: K-major), TF32 high and low
+//     parts as split() forms them, and the small sums (dW1, db0, db1) by
+//     shuffles over the warp's points in a fixed order into registers;
+//   * D0/D1: dW0 += sem_in^T ds on wgmma m64n32k8 in 3xTF32 (M = features
+//     in blocks of 64, N = the CTA's outputs, K = the tile's 64 points),
+//     A = sem_in read transposed from the X stage into registers and split,
+//     B = F's ds; D0 takes feature blocks 0-2, D1 3-5 (C <= 384). TF32
+//     wgmma takes only K-major shared-memory operands, hence A from
+//     registers for both products. The points are permuted inside a tile
+//     (F: accumulator row 16 w + g is point 4 g + w; D: k position j of
+//     slice kk is point kk + 8 j) so that a fragment's loads of rows C
+//     floats apart hit 32 banks for odd C;
+//   * registers: 128 a thread (512 threads; ptxas allocates within the
+//     launch bound, setmaxnreg or not: at 64 outputs a CTA, with D's 96
+//     accumulators, it serialised the wgmma (C7512) and spilled, and so it
+//     did with setmaxnreg 232 for D). D: 3 blocks x 16 accumulators = 48
+//     (the CTA's C x 32 dW0 share over two warpgroups, kept for the whole
+//     run) + 24 A parts; F: 16 accumulators + 48 A registers and raw loads
+//     of a stage, the small sums and d_sem 4 x sem_dim (rounded up to 2, 4
+//     or 8: a template argument);
+//   * shared memory: two X stages (163,328 B at C = 319), ds (16,384 B),
+//     six W0 stages (49,152 B) and the barriers: 229,120 B of 232,448;
+//     the widest head (C = 382: a skip after the last trunk layer, with
+//     coordinates) takes two X stages beside two W0 stages
+//     (ops/fused_render._frozen_plan; one X stage where two do not fit);
+//   * each cluster writes its partial gradient buffer (each entry by one
+//     CTA) and reduce_partials sums the buffers in cluster order: two
+//     calls give bitwise-equal gradients;
+//   * every mbarrier wait traps after ~19 s (mbar_wait): a protocol fault
+//     ends the launch with an error rather than hanging the card.
 //
 // K6 (replaces _train_render_bwd -> _train_render_bwd_kernel with map
 // cotangents): the full-backbone SOS finetune's backward, a third mode of
@@ -499,264 +535,440 @@ __global__ void __launch_bounds__(kWgThreads, 1)
                                               r0, nr, S, nsub, seed, noise_std, white_bkgd);
 }
 
-// K5: the semantic head's weight gradients for a frozen backbone.
-// sem_0's outputs are cut into blocks of kSemBlk; CTA (x, blk) takes block
-// blk of a run of 64-point tiles and keeps its share of dW0 in registers.
-constexpr int kSemBlk = 64;
-constexpr int kMaxSemRows = 384;                    // padded sem_in rows
-constexpr int kSemMt = kMaxSemRows / 16 / 4;        // m16 tiles of dW0 a warp row
+// K5: the semantic head's weight gradients for a frozen backbone, on a
+// cluster of four CTAs a run of 64-point tiles (the design is in the header
+// of this file).
+constexpr int kSemRanks = 4;      // CTAs a cluster
+constexpr int kSemPts = 64;       // points a tile
+constexpr int kSemCols = 32;      // sem_0 outputs a CTA: cluster rank r has 32 r ..
+constexpr int kSemKs = 4;         // W0 k-slices of 8 rows a ring stage
+constexpr int kSemSlice = 16 * kSemCols;          // floats a k-slice, hi + lo (2 KB)
+constexpr int kSemStage = kSemKs * kSemSlice;     // floats a W0 ring stage (8 KB)
+constexpr int kSemDs = 8 * kSemSlice;             // floats of the tile's ds as B (16 KB)
+constexpr int kSemBars = 256;     // bytes of the CTA's barriers
+constexpr int kSemMb = 3;         // m64 feature blocks of dW0 a dW0 warpgroup
+constexpr int kSemThreads = 512;  // F, D0, D1 and the producer warpgroup
+constexpr int kSemRelease = 12;   // arrivals a CTA frees an X stage with: 4 warps x 3
 }  // namespace
 
-constexpr int kMaxSemBlocks = 4;
+constexpr int kMaxSemWStages = 6;
 
 // Host-visible: the C entry point takes a FrozenDesc* (ops/fused_render.pack_frozen).
 struct FrozenDesc {
-  LayerDesc blk[kMaxSemBlocks];  // sem_0 outputs [64 c, 64 c + n) as a packed layer
-  long long w1;                  // sem_1's weight [sem_dim][hidden] (torch layout)
-  long long gw0, gb0, gw1, gb1;  // gradient buffer: dW0^T [kpad][hidden], db0 [hidden],
+  long long b0, w1;              // sem_0's bias [hidden], sem_1's weight [sem_dim][hidden]
+  long long gw0, gb0, gw1, gb1;  // gradient buffer: dW0^T [C][hidden], db0 [hidden],
                                  //   dW1^T [hidden][sem_dim], db1 [sem_dim]
   long long grad_size;
-  int seg[3];                    // unpadded widths of sem_in's segments, in order
-  int kpad;                      // sem_in rows with each segment padded to 8
-  int hidden, sem_dim, nblk, n_maps;
+  int C;                         // sem_in columns
+  int kslices;                   // W0^T's k-slices of 8 rows (C padded to 32) a rank
+  int hidden, sem_dim, n_maps;
+  int xstages, wstages;          // sem_in tile stages (1-2), W0 ring stages (2-6)
 };
 
 namespace {
 
-__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem));
+// The X (sem_in tile) and W0 rings and the ds hand-off of a K5 CTA, in its
+// dynamic shared memory: barriers (kSemBars), the X stages, ds, the W0 stages.
+struct SemCta {
+  uint64_t *xfull, *xempty, *wfull, *wempty, *dsfull, *dsempty;
+  float *xs, *ds, *ws;
+};
+
+// The producer warp of the X ring: tile i of the cluster's run into stage
+// i % xstages once every CTA's consumers freed it (rank 0's empty barrier
+// counts the other ranks' arrivals too); rank 0 multicasts each full tile
+// (64 rows of C floats, one contiguous block) to the cluster's CTAs, the
+// others only expect its bytes; the ragged last tile each CTA copies
+// itself, rows past np zeroed.
+__device__ __forceinline__ void sem_x_producer(const float* __restrict__ semin, const SemCta& c,
+                                               const FrozenDesc& d, uint32_t rank,
+                                               long long t0, int nt, long long P) {
+  const int lane = threadIdx.x & 31, C = d.C;
+  for (int i = 0; i < nt; ++i) {
+    const int slot = i % d.xstages;
+    const long long q0 = (t0 + i) * kSemPts;
+    const int np = (int)min((long long)kSemPts, P - q0);
+    float* dst = c.xs + (size_t)slot * kSemPts * C;
+    if (lane == 0) mbar_wait(c.xempty + slot, ((i / d.xstages) & 1) ^ 1);
+    __syncwarp();
+    if (np == kSemPts) {
+      if (lane == 0) {
+        const uint32_t bytes = kSemPts * C * 4;
+        mbar_expect_tx(c.xfull + slot, bytes);
+        if (rank == 0)
+          bulk_g2s_multicast(dst, semin + q0 * C, bytes, c.xfull + slot, (1 << kSemRanks) - 1);
+      }
+    } else {
+      const float* src = semin + q0 * C;
+      for (int e = lane; e < kSemPts * C; e += 32) dst[e] = e < np * C ? __ldg(src + e) : 0.f;
+      __syncwarp();
+      if (lane == 0) mbar_arrive(c.xfull + slot);
+    }
+  }
 }
 
-// One 64-point tile of sem_in [P][C] (point-major), copied with cp.async
-// straight into the feature-major [kpad][kLd] tile xin (lane = column, so
-// the global reads are coalesced; padding rows were zeroed once and are
-// never written; points past np are zeroed), and its weights and its rays'
-// map cotangents into rw [kPts] and rw + kPts [kMaxSem][kPts]; one group.
-__device__ __forceinline__ void load_frozen_tile(const float* __restrict__ semin,
-                                                 const float* __restrict__ weights,
-                                                 const float* __restrict__ dmaps,
-                                                 const FrozenDesc& d, float* xin, float* rw,
-                                                 int C, long long q0, int np, int S) {
-  const int k0 = d.seg[0], k1 = d.seg[1];
-  const int o1 = pad8(k0), o2 = o1 + pad8(k1);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const float* src = semin + q0 * C;
-  for (int p = warp; p < kPts; p += kThreads / 32)
-    for (int col = lane; col < C; col += 32) {
-      const int row = col < k0 ? col : col < k0 + k1 ? o1 + col - k0 : o2 + col - k0 - k1;
-      if (p < np) {
-        cp_async4(xin + row * kLd + p, src + (size_t)p * C + col);
-      } else {
-        xin[row * kLd + p] = 0.f;
+// The W0 ring's producer (one thread): this rank's k-slices of W0^T, every
+// tile of the run, kSemKs slices a stage.
+__device__ __forceinline__ void sem_w_producer(const float* __restrict__ ring, const SemCta& c,
+                                               const FrozenDesc& d, int nt) {
+  const int nst = d.kslices / kSemKs;
+  int pos = 0;
+  for (int i = 0; i < nt; ++i)
+    for (int s = 0; s < nst; ++s, ++pos) {
+      const int slot = pos % d.wstages;
+      mbar_wait(c.wempty + slot, ((pos / d.wstages) & 1) ^ 1);
+      mbar_expect_tx(c.wfull + slot, kSemStage * 4);
+      bulk_g2s(c.ws + (size_t)slot * kSemStage, ring + (size_t)s * kSemStage, kSemStage * 4,
+               c.wfull + slot);
+    }
+}
+
+// An X stage is done with for this warp: every CTA's consumers free it on
+// their own barrier, the other ranks' also on rank 0's (whose producer
+// multicasts).
+__device__ __forceinline__ void sem_release_x(const SemCta& c, int slot, uint32_t rank) {
+  fence_proxy_async_smem();
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) {
+    mbar_arrive(c.xempty + slot);
+    if (rank != 0) mbar_arrive_remote(c.xempty + slot, 0);
+  }
+}
+
+// v[q] (q < 4) summed over the 8 lanes of a warp that share lane & 3 (lane
+// bits 2-4, g = lane >> 2): lanes g = 2 q and 2 q + 1 get the sum of v[q],
+// by a reduce-scatter of 4 shuffles (each step hands the partner the half
+// of the values it keeps); the order of the additions is fixed, so the
+// result is deterministic and the same in both lanes.
+__device__ __forceinline__ float sum_scatter4(const float (&v)[4], int g) {
+  const bool h2 = (g >> 2) & 1, h1 = (g >> 1) & 1;
+  float a[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    a[i] = (h2 ? v[2 + i] : v[i]) + __shfl_xor_sync(0xffffffffu, h2 ? v[i] : v[2 + i], 16);
+  const float b = (h1 ? a[1] : a[0]) + __shfl_xor_sync(0xffffffffu, h1 ? a[0] : a[1], 8);
+  return b + __shfl_xor_sync(0xffffffffu, b, 4);
+}
+
+// The forward warpgroup (F): per tile, s_pre = X W0 (M = the tile's 64
+// points, N = this CTA's 32 outputs, K = C) through the W0 ring; then, once
+// the dW0 warpgroups are done with the last tile's ds, the epilogue:
+// d_sem = dmaps[ray, 5 + j] w of the thread's two points, ds = (W1^T d_sem)
+// [s_pre + b0 > 0] written as dW0's B operand (TF32 high and low parts,
+// point p at k position p / 8 of k-slice p % 8), and the small sums in
+// registers: accumulator row m0 (m0 + 8) is point 4 g + w (+ 32), whose
+// X row loads then hit 32 banks for odd C; each (output, j) sum over the
+// warp's 16 points by a reduce-scatter of shuffles in a fixed order
+// (sum_scatter4), kept by lanes 2 q and 2 q + 1 of its output group q. kS: sem_dim rounded
+// up to 2, 4 or 8 (the sums' registers). At the end the four warps' sums
+// are added in order through the (then idle) W0 ring's shared memory into
+// the partial buffer gp.
+template <int kS>
+__device__ __forceinline__ void sem_forward_wg(const float* __restrict__ weights,
+                                               const float* __restrict__ dmaps,
+                                               const float* __restrict__ params, const SemCta& c,
+                                               const FrozenDesc& d, uint32_t rank, long long t0,
+                                               int nt, long long P, int S, float* gp) {
+  const int lane = threadIdx.x & 31, w = (threadIdx.x >> 5) & 3, g = lane >> 2, t = lane & 3;
+  const int C = d.C, sem = d.sem_dim, hidden = d.hidden, n0 = rank * kSemCols;
+  const int nb = min(kSemCols, hidden - n0), nst = d.kslices / kSemKs;
+  const int pa = 4 * g + w, pb = pa + 32;  // the points of accumulator rows m0, m0 + 8
+  const float* __restrict__ b0 = params + d.b0;
+  const float* __restrict__ w1 = params + d.w1;
+  // this lane's sums over its warp's points: dW1 and db0 of outputs
+  // 8 (g >> 1) + 2 t + e, db1 (kept by lane 0)
+  float dw1r[2][kS], db0r[2] = {0.f, 0.f}, db1r[kS];
+#pragma unroll
+  for (int j = 0; j < kS; ++j) dw1r[0][j] = dw1r[1][j] = db1r[j] = 0.f;
+  int wpos = 0;
+  for (int i = 0; i < nt; ++i) {
+    const int slot = i % d.xstages;
+    const long long q0 = (t0 + i) * kSemPts;
+    const int np = (int)min((long long)kSemPts, P - q0);
+    mbar_wait(c.xfull + slot, (i / d.xstages) & 1);
+    const float* x = c.xs + (size_t)slot * kSemPts * C;
+    const float* xa = x + (size_t)pa * C;
+    const float* xb = x + (size_t)pb * C;
+    auto load = [&](int st, float (&v)[kSemKs][4]) {
+#pragma unroll
+      for (int kk = 0; kk < kSemKs; ++kk) {
+        const int k = 8 * (kSemKs * st + kk) + t;
+        v[kk][0] = k < C ? xa[k] : 0.f;
+        v[kk][1] = k < C ? xb[k] : 0.f;
+        v[kk][2] = k + 4 < C ? xa[k + 4] : 0.f;
+        v[kk][3] = k + 4 < C ? xb[k + 4] : 0.f;
+      }
+    };
+    // two accumulators, the even and the odd k-slices', so that no wgmma
+    // waits on the one before it (an m64n32k8's work is short beside the
+    // latency of its accumulator); summed after the loop
+    float acc[kSemCols / 2], acc1[kSemCols / 2];
+#pragma unroll
+    for (int e = 0; e < kSemCols / 2; ++e) acc[e] = acc1[e] = 0.f;
+    for (int st = 0; st < nst; ++st, ++wpos) {
+      // the stage's A values are loaded while the W0 stage may still be
+      // landing, and split after (a prefetch of the next stage's cost 16
+      // registers and spilled)
+      float raw[kSemKs][4];
+      load(st, raw);
+      const int wslot = wpos % d.wstages;
+      mbar_wait(c.wfull + wslot, (wpos / d.wstages) & 1);
+      uint32_t ahi[kSemKs][4], alo[kSemKs][4];
+#pragma unroll
+      for (int kk = 0; kk < kSemKs; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) split(raw[kk][e], ahi[kk][e], alo[kk][e]);
+      const float* b = c.ws + (size_t)wslot * kSemStage;
+      wgmma_fence();
+#pragma unroll
+      for (int pr = 0; pr < 3; ++pr)  // lo x hi, hi x lo, hi x hi of every k-slice
+#pragma unroll
+        for (int kk = 0; kk < kSemKs; ++kk) {
+          const uint64_t bd = b_desc(b + kk * kSemSlice + (pr == 1 ? 8 * kSemCols : 0));
+          float(&ac)[kSemCols / 2] = kk & 1 ? acc1 : acc;
+          Wgmma<kSemCols>::mma(ac, pr == 0 ? alo[kk] : ahi[kk], bd);
+        }
+      wgmma_commit();
+      wgmma_wait<0>();
+      if (lane == 0) mbar_arrive(c.wempty + wslot);  // the stage is free
+    }
+#pragma unroll
+    for (int e = 0; e < kSemCols / 2; ++e) {
+      asm volatile("" : "+f"(acc[e]), "+f"(acc1[e])::"memory");
+      acc[e] += acc1[e];
+    }
+    sem_release_x(c, slot, rank);
+
+    // d_sem of the thread's two points (0 past the tile's points and for j >= sem)
+    float da[kS], dbv[kS];
+    const bool va = pa < np, vb = pb < np;
+    const float wa = va ? __ldg(weights + q0 + pa) : 0.f, wb = vb ? __ldg(weights + q0 + pb) : 0.f;
+    const float* ma = dmaps + ((q0 + pa) / S) * d.n_maps + 5;
+    const float* mb = dmaps + ((q0 + pb) / S) * d.n_maps + 5;
+#pragma unroll
+    for (int j = 0; j < kS; ++j) {
+      da[j] = j < sem && va ? __ldg(ma + j) * wa : 0.f;
+      dbv[j] = j < sem && vb ? __ldg(mb + j) * wb : 0.f;
+    }
+    mbar_wait(c.dsempty, (i & 1) ^ 1);  // the dW0 warpgroups are done with the last ds
+    float* sla = c.ds + (pa & 7) * kSemSlice;
+    float* slb = c.ds + (pb & 7) * kSemSlice;
+    // accumulator 4 q + 2 r + e: point row r (pa, pb), output n = 8 q + 2 t + e
+    constexpr int kQ = kSemCols / 8;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float bias[kQ], v[kQ];
+#pragma unroll
+      for (int q = 0; q < kQ; ++q) {
+        const int n = 8 * q + 2 * t + e;
+        const bool live = n < nb;
+        bias[q] = live ? __ldg(b0 + n0 + n) : 0.f;
+        const float sa = acc[4 * q + e] + bias[q], sb = acc[4 * q + 2 + e] + bias[q];
+        float ga = 0.f, gb = 0.f;  // W1^T d_sem
+#pragma unroll
+        for (int j = 0; j < kS; ++j) {
+          const float w1v = live && j < sem ? __ldg(w1 + (size_t)j * hidden + n0 + n) : 0.f;
+          ga = fmaf(w1v, da[j], ga);
+          gb = fmaf(w1v, dbv[j], gb);
+        }
+        const float dsa = sa > 0.f ? ga : 0.f, dsb = sb > 0.f ? gb : 0.f;
+        store_b_split(sla, kSemCols, pa >> 3, n, dsa);
+        store_b_split(slb, kSemCols, pb >> 3, n, dsb);
+        v[q] = dsa + dsb;
+      }
+      db0r[e] += sum_scatter4(v, g);  // db0 of output 8 (g >> 1) + 2 t + e
+#pragma unroll
+      for (int j = 0; j < kS; ++j) {
+#pragma unroll
+        for (int q = 0; q < kQ; ++q)
+          v[q] = fmaxf(acc[4 * q + e] + bias[q], 0.f) * da[j] +
+                 fmaxf(acc[4 * q + 2 + e] + bias[q], 0.f) * dbv[j];
+        dw1r[e][j] += sum_scatter4(v, g);
       }
     }
-  for (int e = threadIdx.x; e < np * (1 + d.sem_dim); e += kThreads) {
-    const int j = e / np, p = e % np;
-    const long long q = q0 + p;
-    cp_async4(rw + j * kPts + p, j == 0 ? weights + q : dmaps + (q / S) * d.n_maps + 4 + j);
-  }
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// sact [64][kLd] = relu(x W0 + b0) of the tile for this CTA's block of
-// outputs, with the block's W0^T [kpad][kLd] (fp32) in shared memory and
-// split into TF32 parts here: m16n8k8 3xTF32, warp w on points
-// 32 (w & 1) .. +32 and outputs 8 (w >> 1) .. +8.
-__device__ __forceinline__ void sem0_forward(const float* xin, const float* w0s,
-                                             const float* __restrict__ bias, float* sact,
-                                             int kpad, int nbp) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int m0 = (warp & 1) * 32, n0 = (warp >> 1) * 8;
-  if (n0 >= nbp) return;
-  float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-  for (int k = 0; k < kpad; k += 8) {
-    const float* a = xin + (k + t) * kLd + m0 + g;
-    uint32_t ahi[2][4], alo[2][4];
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-      split(a[mt * 16], ahi[mt][0], alo[mt][0]);
-      split(a[mt * 16 + 8], ahi[mt][1], alo[mt][1]);
-      split(a[4 * kLd + mt * 16], ahi[mt][2], alo[mt][2]);
-      split(a[4 * kLd + mt * 16 + 8], ahi[mt][3], alo[mt][3]);
+    for (int j = 0; j < kS; ++j) {  // db1 over the warp's 16 points
+      float u = da[j] + dbv[j];
+      u += __shfl_xor_sync(0xffffffffu, u, 4);
+      u += __shfl_xor_sync(0xffffffffu, u, 8);
+      u += __shfl_xor_sync(0xffffffffu, u, 16);
+      db1r[j] += u;
     }
-    const float* b = w0s + (k + t) * kLd + n0 + g;
-    uint32_t bh0, bl0, bh1, bl1;
-    split(b[0], bh0, bl0);
-    split(b[4 * kLd], bh1, bl1);
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt) mma_tf32(acc[mt], alo[mt], bh0, bh1);
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt) mma_tf32(acc[mt], ahi[mt], bl0, bl1);
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt) mma_tf32(acc[mt], ahi[mt], bh0, bh1);
+    fence_proxy_async_smem();  // ds is read by the dW0 warpgroups' wgmma
+    __syncwarp();
+    if (lane == 0) mbar_arrive(c.dsfull);
   }
-  const int n = n0 + 2 * t;
-  const float b0 = __ldg(bias + n), b1 = __ldg(bias + n + 1);
+
+  // the four warps' sums in order: each warp's into the W0 ring's stages
+  // (every fill has landed and been read), then one thread an entry
+  float* red = c.ws;  // [4][kSemCols][kMaxSem + 1], then db1 [4][kMaxSem]
+  constexpr int kRed = kSemCols * (kMaxSem + 1);
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt) {
-    const int p = m0 + mt * 16 + g;
-    sact[n * kLd + p] = fmaxf(acc[mt][0] + b0, 0.f);
-    sact[(n + 1) * kLd + p] = fmaxf(acc[mt][1] + b1, 0.f);
-    sact[n * kLd + p + 8] = fmaxf(acc[mt][2] + b0, 0.f);
-    sact[(n + 1) * kLd + p + 8] = fmaxf(acc[mt][3] + b1, 0.f);
+  for (int e = 0; e < 2 && (g & 1) == 0; ++e) {
+    float* r = red + w * kRed + (8 * (g >> 1) + 2 * t + e) * (kMaxSem + 1);
+#pragma unroll
+    for (int j = 0; j < kS; ++j) r[j] = dw1r[e][j];
+    r[kMaxSem] = db0r[e];
+  }
+  if (lane == 0)
+#pragma unroll
+    for (int j = 0; j < kS; ++j) red[4 * kRed + w * kMaxSem + j] = db1r[j];
+  asm volatile("bar.sync 1, 128;\n" ::: "memory");
+  const int tid = threadIdx.x & 127;
+  for (int e = tid; e < nb * (sem + 1); e += 128) {
+    const int n = e / (sem + 1), j = e % (sem + 1);
+    const int k = j < sem ? j : kMaxSem;
+    float v = 0.f;
+    for (int ww = 0; ww < 4; ++ww) v += red[ww * kRed + n * (kMaxSem + 1) + k];
+    if (j < sem) {
+      gp[d.gw1 + (size_t)(n0 + n) * sem + j] = v;
+    } else {
+      gp[d.gb0 + n0 + n] = v;
+    }
+  }
+  if (rank == 0 && tid < sem) {
+    float v = 0.f;
+    for (int ww = 0; ww < 4; ++ww) v += red[4 * kRed + ww * kMaxSem + tid];
+    gp[d.gb1 + tid] = v;
   }
 }
 
-__global__ void __launch_bounds__(kThreads, 1)
+// A dW0 warpgroup (D0 or D1: dwg): dW0[c][n] += sum_p X[p][c] ds[p][n] for
+// its kNb feature blocks c in 64 (kSemMb dwg + u) .. + 64 (u < kNb: those
+// that start below C; a block's count is a template argument, so no wgmma
+// sits under a runtime branch, which made ptxas serialise them, C7520),
+// M = features, N = the CTA's 32 outputs, K = the tile's points,
+// A = X^T from the X stage in registers (k position j of slice kk is point
+// kk + 8 j, so a fragment's loads hit 32 banks for odd C), B = the F
+// warpgroup's ds; its accumulators stay in registers for the whole run and
+// go to the partial buffer gp at the end.
+template <int kNb>
+__device__ __forceinline__ void sem_dw0_wg(int dwg, const SemCta& c, const FrozenDesc& d,
+                                           uint32_t rank, int nt, float* gp) {
+  const int lane = threadIdx.x & 31, w = (threadIdx.x >> 5) & 3, g = lane >> 2, t = lane & 3;
+  const int C = d.C, hidden = d.hidden, n0 = rank * kSemCols;
+  const int nb = min(kSemCols, hidden - n0);
+  const int m0 = 16 * w + g;
+  float acc[kNb > 0 ? kNb : 1][kSemCols / 2];
+#pragma unroll
+  for (int u = 0; u < kNb; ++u)
+#pragma unroll
+    for (int e = 0; e < kSemCols / 2; ++e) acc[u][e] = 0.f;
+  for (int i = 0; i < nt; ++i) {
+    const int slot = i % d.xstages;
+    mbar_wait(c.xfull + slot, (i / d.xstages) & 1);
+    mbar_wait(c.dsfull, i & 1);
+    const float* x = c.xs + (size_t)slot * kSemPts * C;
+    for (int kk = 0; kk < 8; ++kk) {
+      const int pa = kk + 8 * t, pb = pa + 32;  // the points of k positions t, t + 4
+      if (kNb == 0) continue;
+      uint32_t ahi[kNb > 0 ? kNb : 1][4], alo[kNb > 0 ? kNb : 1][4];
+#pragma unroll
+      for (int u = 0; u < kNb; ++u)
+        xt_fragment(x, C, C, 64 * (kSemMb * dwg + u) + m0, pa, pb, ahi[u], alo[u]);
+      const float* b = c.ds + kk * kSemSlice;
+      const uint64_t bhi = b_desc(b), blo = b_desc(b + 8 * kSemCols);
+      wgmma_fence();
+#pragma unroll
+      for (int pr = 0; pr < 3; ++pr)  // the blocks' chains interleaved
+#pragma unroll
+        for (int u = 0; u < kNb; ++u)
+          Wgmma<kSemCols>::mma(acc[u], pr == 0 ? alo[u] : ahi[u], pr == 1 ? blo : bhi);
+      wgmma_commit();
+      wgmma_wait<0>();
+    }
+#pragma unroll
+    for (int u = 0; u < kNb; ++u)
+#pragma unroll
+      for (int e = 0; e < kSemCols / 2; ++e) asm volatile("" : "+f"(acc[u][e])::"memory");
+    __syncwarp();
+    if (lane == 0) mbar_arrive(c.dsempty);
+    sem_release_x(c, slot, rank);
+  }
+  // accumulator e of block u: feature 64 (kSemMb dwg + u) + m0 + 8 ((e >> 1) & 1),
+  // output 8 (e >> 2) + 2 t + (e & 1)
+#pragma unroll
+  for (int u = 0; u < kNb; ++u)
+#pragma unroll
+    for (int e = 0; e < kSemCols / 2; ++e) {
+      const int row = 64 * (kSemMb * dwg + u) + m0 + 8 * ((e >> 1) & 1);
+      const int n = 8 * (e >> 2) + 2 * t + (e & 1);
+      if (row < C && n < nb) gp[d.gw0 + (size_t)row * hidden + n0 + n] = acc[u][e];
+    }
+}
+
+// K5: cluster k (CTAs 4 k .. 4 k + 3, rank r) takes tiles [k per, (k + 1)
+// per) of the P points and writes its share (sem_0's outputs 32 r ..) of
+// partial buffer k; every entry of the buffer is written by one CTA.
+__global__ void __cluster_dims__(kSemRanks, 1, 1) __launch_bounds__(kSemThreads, 1)
     frozen_sem_kernel(const float* __restrict__ semin, const float* __restrict__ weights,
                       const float* __restrict__ dmaps, const float* __restrict__ params,
                       const __grid_constant__ FrozenDesc d, float* __restrict__ partial,
-                      long long P, int S, long long tiles_per_cta) {
-  extern __shared__ float4 smem4[];
-  float* xin = reinterpret_cast<float*>(smem4);  // [kpad][kLd] sem_in, feature-major
-  float* sact = xin + d.kpad * kLd;               // [64][kLd] relu(sem_in W0 + b0), this block
-  float* ds = sact + kSemBlk * kLd;               // [64][kLd] its cotangent
-  float* dsem = ds + kSemBlk * kLd;               // [8][kLd] d_sem = dmaps[ray, 5 + j] * w
-  float* w0s = dsem + 8 * kLd;                    // [kpad][kLd] this block's W0^T
-  float* acc1 = w0s + d.kpad * kLd;               // dW1 [64][kMaxSem], then db0 [64], db1 [8]
-  float* w1s = acc1 + kSemBlk * kMaxSem + kSemBlk + 8;  // [kMaxSem][64] this block's W1
-  float* rw = w1s + kMaxSem * kSemBlk;            // the tile's w [64], dmaps[:, 5:] [8][64]
-  const int blk = blockIdx.y, n0 = blk * kSemBlk;
-  const LayerDesc L = d.blk[blk];
-  const int nb = L.n, nbp = pad8(nb), sem = d.sem_dim, hidden = d.hidden;
-  const int C = d.seg[0] + d.seg[1] + d.seg[2];
-  for (int i = threadIdx.x; i < d.kpad * kLd; i += kThreads) {
-    const int k = i / kLd, n = i % kLd;
-    xin[i] = 0.f;
-    w0s[i] = n < nbp ? params[L.w + (size_t)k * nbp + n] : 0.f;
-  }
-  for (int i = threadIdx.x; i < kSemBlk * kMaxSem + kSemBlk + 8; i += kThreads) acc1[i] = 0.f;
-  for (int i = threadIdx.x; i < kMaxSem * kSemBlk; i += kThreads) {
-    const int j = i / kSemBlk, n = i % kSemBlk;
-    w1s[i] = (j < sem && n < nb) ? params[d.w1 + (size_t)j * hidden + n0 + n] : 0.f;
-  }
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = warp & 3, wn = warp >> 2;  // m16 tiles wm + 4 i; n8 tiles 2 wn, 2 wn + 1
-  const int mtiles = d.kpad / 16 + (d.kpad % 16 ? 1 : 0);
-  float acc[kSemMt][2][4];
-#pragma unroll
-  for (int i = 0; i < kSemMt; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.f;
-
-  const long long ntiles = (P + kPts - 1) / kPts;
-  const long long t0 = blockIdx.x * tiles_per_cta;
-  const long long t1 = min(ntiles, t0 + tiles_per_cta);
-  for (long long tile = t0; tile < t1; ++tile) {
-    const long long q0 = tile * kPts;
-    const int np = (int)min((long long)kPts, P - q0);
-    __syncthreads();  // the previous tile's readers of xin are done
-    load_frozen_tile(semin, weights, dmaps, d, xin, rw, C, q0, np, S);
-    asm volatile("cp.async.wait_all;\n" ::: "memory");
-    __syncthreads();
-    for (int e = threadIdx.x; e < 8 * kPts; e += kThreads) {
-      const int j = e / kPts, p = e % kPts;
-      dsem[j * kLd + p] = (j < sem && p < np) ? rw[(j + 1) * kPts + p] * rw[p] : 0.f;
+                      long long P, int S, long long per) {
+  extern __shared__ __align__(128) unsigned char sem_raw[];
+  SemCta c;
+  c.xfull = reinterpret_cast<uint64_t*>(sem_raw);
+  c.xempty = c.xfull + 2;
+  c.wfull = c.xempty + 2;
+  c.wempty = c.wfull + kMaxSemWStages;
+  c.dsfull = c.wempty + kMaxSemWStages;
+  c.dsempty = c.dsfull + 1;
+  c.xs = reinterpret_cast<float*>(sem_raw + kSemBars);
+  c.ds = c.xs + (size_t)d.xstages * kSemPts * d.C;
+  c.ws = c.ds + kSemDs;
+  const uint32_t rank = cluster_rank();
+  const long long cl = blockIdx.x / kSemRanks, ntiles = (P + kSemPts - 1) / kSemPts;
+  const long long t0 = cl * per;
+  const int nt = (int)max(0ll, min(ntiles, t0 + per) - t0);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < d.xstages; ++i) {
+      mbar_init(c.xfull + i, 1);
+      mbar_init(c.xempty + i, kSemRelease * (rank == 0 ? kSemRanks : 1));
     }
-    sem0_forward(xin, w0s, params + L.b, sact, d.kpad, nbp);
-    __syncthreads();
-    // ds = (W1^T d_sem) where sact > 0
-    for (int e = threadIdx.x; e < nbp * kPts; e += kThreads) {
-      const int n = e / kPts, p = e % kPts;
-      float v = 0.f;
-      if (n < nb) {
-        for (int j = 0; j < sem; ++j) v += w1s[j * kSemBlk + n] * dsem[j * kLd + p];
-        v = sact[n * kLd + p] > 0.f ? v : 0.f;
-      }
-      ds[n * kLd + p] = v;
+    for (int i = 0; i < d.wstages; ++i) {
+      mbar_init(c.wfull + i, 1);
+      mbar_init(c.wempty + i, 4);  // lane 0 of each F warp
     }
-    __syncthreads();
-    // the small sums, each by one thread in point order: dW1[n][j] of
-    // sact[n] . d_sem[j], db0[n] of ds[n], and (block 0) db1[j] of d_sem[j]
-    for (int i = threadIdx.x; i < nb * sem + nb + (blk == 0 ? sem : 0); i += kThreads) {
-      const float *x, *y = nullptr;
-      int slot;
-      if (i < nb * sem) {
-        x = sact + (i / sem) * kLd;
-        y = dsem + (i % sem) * kLd;
-        slot = (i / sem) * kMaxSem + i % sem;
-      } else if (i < nb * sem + nb) {
-        x = ds + (i - nb * sem) * kLd;
-        slot = kSemBlk * kMaxSem + i - nb * sem;
-      } else {
-        x = dsem + (i - nb * sem - nb) * kLd;
-        slot = kSemBlk * kMaxSem + kSemBlk + i - nb * sem - nb;
-      }
-      float s = 0.f;
-      for (int p = 0; p < kPts; ++p) s += y ? x[p] * y[p] : x[p];
-      acc1[slot] += s;
-    }
-    // dW0[m][n] += sum_p sem_in[m][p] ds[n][p]: m16n8k8 3xTF32, k = points;
-    // the two n8 tiles' products interleaved, so no mma waits on the one
-    // just before it
-#pragma unroll 2
-    for (int kk = 0; kk < kPts; kk += 8) {
-      uint32_t bh[2][2], bl[2][2];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const float* b = ds + (16 * wn + 8 * j + g) * kLd + kk + t;
-        split(b[0], bh[j][0], bl[j][0]);
-        split(b[4], bh[j][1], bl[j][1]);
-      }
-      const bool two = 16 * wn + 8 < nbp;
-#pragma unroll
-      for (int i = 0; i < kSemMt; ++i) {
-        const int mt = wm + 4 * i;
-        if (mt >= mtiles || 16 * wn >= nbp) continue;
-        const float* a = xin + (16 * mt + g) * kLd + kk + t;
-        uint32_t ahi[4], alo[4];
-        split(a[0], ahi[0], alo[0]);
-        split(a[8 * kLd], ahi[1], alo[1]);
-        split(a[4], ahi[2], alo[2]);
-        split(a[8 * kLd + 4], ahi[3], alo[3]);
-        mma_tf32(acc[i][0], alo, bh[0][0], bh[0][1]);
-        if (two) mma_tf32(acc[i][1], alo, bh[1][0], bh[1][1]);
-        mma_tf32(acc[i][0], ahi, bl[0][0], bl[0][1]);
-        if (two) mma_tf32(acc[i][1], ahi, bl[1][0], bl[1][1]);
-        mma_tf32(acc[i][0], ahi, bh[0][0], bh[0][1]);
-        if (two) mma_tf32(acc[i][1], ahi, bh[1][0], bh[1][1]);
-      }
-    }
+    mbar_init(c.dsfull, 4);   // lane 0 of each F warp
+    mbar_init(c.dsempty, 8);  // lane 0 of each dW0 warp
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-
-  // this CTA's share of the partial gradient buffer x (every entry of the
-  // buffer is written by exactly one CTA (x, blk))
-  float* gp = partial + (size_t)blockIdx.x * d.grad_size;
-#pragma unroll
-  for (int i = 0; i < kSemMt; ++i) {
-    const int mt = wm + 4 * i;
-    if (mt >= mtiles) continue;
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int n = 16 * wn + 8 * j + 2 * t;
-      const int m = 16 * mt + g;
-      if (n >= nb) continue;
-      float* o = gp + d.gw0 + (size_t)m * hidden + n0 + n;
-      const bool two = n + 1 < nb;  // nb is a multiple of 8 but for the last block
-      if (m < d.kpad) {
-        o[0] = acc[i][j][0];
-        if (two) o[1] = acc[i][j][1];
-      }
-      if (m + 8 < d.kpad) {
-        o[8 * (size_t)hidden] = acc[i][j][2];
-        if (two) o[8 * (size_t)hidden + 1] = acc[i][j][3];
-      }
+  cluster_sync();  // the peers' barriers are initialised before any remote signal
+  float* gp = partial + (size_t)cl * d.grad_size;
+  // the warpgroup, warp-uniform as ptxas sees it (a role branch on
+  // threadIdx.x alone made it serialise the wgmma, C7520)
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x >> 7, 0);
+  if (wg == 3) {
+    const int warp = (threadIdx.x >> 5) & 3;
+    if (warp == 0) {
+      sem_x_producer(semin, c, d, rank, t0, nt, P);
+    } else if (warp == 1 && (threadIdx.x & 31) == 0) {
+      sem_w_producer(params + (size_t)rank * d.kslices * kSemSlice, c, d, nt);
+    }
+  } else if (wg == 0) {
+    if (d.sem_dim <= 2) {
+      sem_forward_wg<2>(weights, dmaps, params, c, d, rank, t0, nt, P, S, gp);
+    } else if (d.sem_dim <= 4) {
+      sem_forward_wg<4>(weights, dmaps, params, c, d, rank, t0, nt, P, S, gp);
+    } else {
+      sem_forward_wg<kMaxSem>(weights, dmaps, params, c, d, rank, t0, nt, P, S, gp);
+    }
+  } else {
+    // D0 takes feature blocks 0-2, D1 3-5, each those that start below C
+    const int nblk = min(kSemMb, max(0, (d.C + 63) / 64 - kSemMb * (wg - 1)));
+    if (nblk == 3) {
+      sem_dw0_wg<3>(wg - 1, c, d, rank, nt, gp);
+    } else if (nblk == 2) {
+      sem_dw0_wg<2>(wg - 1, c, d, rank, nt, gp);
+    } else if (nblk == 1) {
+      sem_dw0_wg<1>(wg - 1, c, d, rank, nt, gp);
+    } else {
+      sem_dw0_wg<0>(wg - 1, c, d, rank, nt, gp);
     }
   }
-  for (int i = threadIdx.x; i < nb * sem; i += kThreads)
-    gp[d.gw1 + (size_t)(n0 + i / sem) * sem + i % sem] = acc1[(i / sem) * kMaxSem + i % sem];
-  for (int i = threadIdx.x; i < nb; i += kThreads)
-    gp[d.gb0 + n0 + i] = acc1[kSemBlk * kMaxSem + i];
-  if (blk == 0)
-    for (int i = threadIdx.x; i < sem; i += kThreads)
-      gp[d.gb1 + i] = acc1[kSemBlk * kMaxSem + kSemBlk + i];
+  __syncwarp();
+  cluster_sync();  // no CTA exits while a peer may still signal it
 }
 
 // shared memory of the forward kernels (K3's, K9's and K10a's): the chunk's
@@ -775,6 +987,13 @@ int wg_smem(const TrainDesc* d, const RingDesc* rd, int S) {
   const size_t strip = ((size_t)d->rays_per_chunk * S * (6 + f.sem_dim) + 3) / 4 * 4;
   return (int)(128 + ((size_t)rd->stages * rd->stage_floats + 2 * rows * kWgPts + strip) *
                          sizeof(float));
+}
+
+// shared memory of K5 (frozen_sem_kernel); ops/fused_render.py _frozen_smem
+// computes the same
+int frozen_smem(const FrozenDesc* d) {
+  return (int)(kSemBars + ((size_t)d->xstages * kSemPts * d->C + kSemDs +
+                      (size_t)d->wstages * kSemStage) * sizeof(float));
 }
 
 }  // namespace
@@ -811,27 +1030,39 @@ extern "C" int nerf_mip_render(const float* odvr, const float* z, const float* p
   return (int)cudaGetLastError();
 }
 
-// K5: grid x d->nblk CTAs over P = R * S points, each CTA x with a
-// d->grad_size partial buffer, then the partials summed in CTA order into
-// grads [d->grad_size].
-extern "C" int nerf_frozen_sem_grads(const float* semin, const float* weights,
-                                     const float* dmaps, const float* params,
-                                     const FrozenDesc* d, float* partial, float* grads,
-                                     long long P, int S, int grid, void* stream) {
-  const cudaStream_t st = (cudaStream_t)stream;
-  const int smem = (int)(((size_t)(2 * d->kpad + 2 * kSemBlk + 8) * kLd +
-                          kSemBlk * (2 * kMaxSem + 1) + 8 + kPts * (1 + kMaxSem)) *
-                         sizeof(float));
+// K5's clusters that fit on the card at once with d's shared memory
+// (cudaOccupancyMaxActiveClusters: four SMs of one GPC each), into *out.
+extern "C" int nerf_frozen_sem_clusters(const FrozenDesc* d, int* out) {
+  const int smem = frozen_smem(d);
   cudaError_t err = cudaFuncSetAttribute(frozen_sem_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const long long ntiles = (P + kPts - 1) / kPts;
-  const long long per_cta = (ntiles + grid - 1) / grid;
-  frozen_sem_kernel<<<dim3(grid, d->nblk), kThreads, smem, st>>>(semin, weights, dmaps, params,
-                                                                 *d, partial, P, S, per_cta);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kSemRanks * 256);
+  cfg.blockDim = dim3(kSemThreads);
+  cfg.dynamicSmemBytes = smem;
+  return (int)cudaOccupancyMaxActiveClusters(out, frozen_sem_kernel, &cfg);
+}
+
+// K5: `clusters` clusters of four CTAs over P = R * S points, cluster k on
+// 64-point tiles [k per, (k + 1) per) with partial buffer k (d->grad_size
+// floats), then the partials summed in cluster order into grads.
+extern "C" int nerf_frozen_sem_grads(const float* semin, const float* weights,
+                                     const float* dmaps, const float* params,
+                                     const FrozenDesc* d, float* partial, float* grads,
+                                     long long P, int S, int clusters, long long per,
+                                     void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int smem = frozen_smem(d);
+  cudaError_t err = cudaFuncSetAttribute(frozen_sem_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  frozen_sem_kernel<<<kSemRanks * clusters, kSemThreads, smem, st>>>(
+      semin, weights, dmaps, params, *d, partial, P, S, per);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  reduce_partials<<<reduce_blocks(d->grad_size), 256, 0, st>>>(partial, grads, d->grad_size, grid);
+  reduce_partials<<<reduce_blocks(d->grad_size), 256, 0, st>>>(partial, grads, d->grad_size,
+                                                               clusters);
   return (int)cudaGetLastError();
 }
 

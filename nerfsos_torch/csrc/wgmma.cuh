@@ -1,8 +1,12 @@
 // Hopper's asynchronous building blocks, shared by the 128-point forward
-// tile (wg_tile.cuh) and the reverse sweep's input-gradient products
-// (train_sweep.cuh bwd_layer): a ring's descriptor, mbarriers, bulk (TMA)
-// copies from global to shared memory, and wgmma m64nNk8 in TF32 with A
-// from registers and B (a K-major, no-swizzle operand) from shared memory.
+// tile (wg_tile.cuh), the reverse sweep's input-gradient products
+// (train_sweep.cuh bwd_layer) and the frozen semantic-head backward
+// (train_render.cu frozen_sem_kernel): a ring's descriptor, mbarriers (also
+// across a 2-CTA cluster), bulk (TMA) copies from global to shared memory
+// (also multicast to a cluster), wgmma m64nNk8 in TF32 with A from
+// registers and B (a K-major, no-swizzle operand) from shared memory, and
+// the two operand pieces of a weight-gradient product X^T dY that contracts
+// over points (xt_fragment, store_b_split).
 #pragma once
 
 #include "tile_mlp.cuh"
@@ -56,6 +60,51 @@ __device__ __forceinline__ void bulk_g2s(float* dst, const float* src, uint32_t 
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
       ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
+}
+
+// mbarrier wait that traps (ends the launch with an error) after ~2^35
+// cycles (~19 s at 1.8 GHz) of polling, so a pipeline fault does not hang
+// the card
+__device__ __forceinline__ void mbar_wait(uint64_t* b, uint32_t parity) {
+  const long long t0 = clock64();
+  while (!mbar_try_wait(b, parity))
+    if (clock64() - t0 > (1ll << 35)) __trap();
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// every thread of every CTA of the cluster: release, then acquire
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// arrive (release, cluster scope) on the barrier at b's offset in cluster CTA rank
+__device__ __forceinline__ void mbar_arrive_remote(uint64_t* b, uint32_t rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(smem_u32(b)), "r"(rank));
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(remote)
+               : "memory");
+}
+
+// bulk_g2s to dst's offset in every CTA of the cluster in mask, each
+// completing on the barrier at bar's offset in that CTA
+__device__ __forceinline__ void bulk_g2s_multicast(float* dst, const float* src, uint32_t bytes,
+                                                   uint64_t* bar, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster"
+      " [%0], [%1], %2, [%3], %4;\n" ::"r"(smem_u32(dst)), "l"(src), "r"(bytes),
+      "r"(smem_u32(bar)), "h"(mask)
+      : "memory");
+}
+
+// generic-proxy accesses of shared memory before the async proxy's (wgmma
+// operands, bulk copies) that follow a barrier
+__device__ __forceinline__ void fence_proxy_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -224,5 +273,42 @@ struct Wgmma<8> {
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
   }
 };
+
+// The weight-gradient product X^T dY over points (K5's dW0 = sem_in^T ds;
+// the shape the reverse sweep's wgrad has): M = features, N = outputs,
+// K = points, A = X^T from registers, B = dY from shared memory. A k-slice
+// of 8 points has k positions 0..7; the caller maps them to points so that
+// the A loads below hit 32 banks (frozen_sem_kernel: point kk + 8 j at
+// position j of slice kk).
+//
+// Element (k, n) of one k-slice of a K-major, no-swizzle B operand
+// (pack_ring's layout: core matrices of 8 outputs x 4 k, the two k halves
+// of an output group side by side)
+__device__ __forceinline__ int b_offset(int k, int n) {
+  return (n >> 3) * 64 + (k >> 2) * 32 + (n & 7) * 4 + (k & 3);
+}
+
+// v as the TF32 high and low parts of element (k, n) of the k-slice at
+// slice (its high parts, then at slice + 8 N its low parts), as split()
+// forms them
+__device__ __forceinline__ void store_b_split(float* slice, int N, int k, int n, float v) {
+  uint32_t hi, lo;
+  split(v, hi, lo);
+  slice[b_offset(k, n)] = __uint_as_float(hi);
+  slice[8 * N + b_offset(k, n)] = __uint_as_float(lo);
+}
+
+// The A fragment of X^T for accumulator rows (features) c and c + 8 at the
+// k positions t and t + 4, whose points are pa and pb, from point-major
+// rows of ldx floats at x, split into TF32 parts; features >= ncols read 0.
+__device__ __forceinline__ void xt_fragment(const float* x, int ldx, int ncols, int c, int pa,
+                                            int pb, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  const float* ra = x + (size_t)pa * ldx;
+  const float* rb = x + (size_t)pb * ldx;
+  split(c < ncols ? ra[c] : 0.f, hi[0], lo[0]);
+  split(c + 8 < ncols ? ra[c + 8] : 0.f, hi[1], lo[1]);
+  split(c < ncols ? rb[c] : 0.f, hi[2], lo[2]);
+  split(c + 8 < ncols ? rb[c + 8] : 0.f, hi[3], lo[3]);
+}
 
 }  // namespace

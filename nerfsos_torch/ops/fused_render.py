@@ -9,7 +9,8 @@ train kernel and the SOS finetune's train forward and backward kernels:
   quadrature weights ``[R, S]`` from the density trunk alone;
 - :func:`fused_render` (K2, replaces ``fused_render_planar``): ``odv [R, 9]``
   (plus unit viewdirs) and ``z`` -> ``maps [R, 5 + sem]`` with columns
-  ``(w·sigmoid(rgb) x3, w·z, w, w·sem...)`` and weights ``[R, S]``;
+  ``(w·sigmoid(rgb) x3, w·z, w, w·sem...)`` and weights ``[R, S]``: K4's
+  kernel without noise and without ``sem_in``;
 - :func:`fused_rgb_train_grads` (K3, replaces ``fused_rgb_train_grads`` and
   its ``_train_render_bwd_kernel`` in ``rgb_loss`` mode): ``odv``, ``z`` and
   ``gt [R, 3]`` -> the unscaled gradients of ``sum((rgb_map - gt)^2)`` for
@@ -56,8 +57,8 @@ Each wrapper takes its plain PyTorch version (:func:`coarse_weights_plain`,
 :func:`train_render_grads_plain`, :func:`mip_render_plain`,
 :func:`mip_train_render_plain`, :func:`mip_train_render_grads_plain`, same
 signature) for tensors on the CPU, and for CUDA tensors launches the
-hand-written kernel in ``csrc/fused_render.cu`` or ``csrc/train_render.cu``
-or raises; it never falls back. ``<wrapper>.launches`` counts kernel
+hand-written kernel in ``csrc/fused_render.cu`` (K1) or
+``csrc/train_render.cu`` or raises; it never falls back. ``<wrapper>.launches`` counts kernel
 launches.
 """
 from __future__ import annotations
@@ -767,65 +768,81 @@ def unpack_grads(field: nn.Module, flat: torch.Tensor, sem: bool = False
     return out
 
 
-# K5's sem_0 column blocks (csrc/train_render.cu kSemBlk, kMaxSemBlocks, kMaxSemRows)
-_SEM_BLOCK, _MAX_SEM_BLOCKS, _MAX_SEM_ROWS = 64, 4, 384
+# K5 (csrc/train_render.cu frozen_sem_kernel): CTAs a cluster, sem_0 outputs
+# a CTA, points a tile, W0 k-slices a ring stage, sem_in columns, most W0
+# ring stages, bytes of a CTA's barriers
+_SEM_RANKS, _SEM_COLS, _SEM_PTS, _SEM_KS, _MAX_SEM_ROWS, _MAX_SEM_WSTAGES, _SEM_BARS = \
+    4, 32, 64, 4, 384, 6, 256
 
 
 def pack_frozen(field: nn.Module) -> Tuple[torch.Tensor, _build.FrozenDesc]:
-    """K5's weights and descriptor. sem_0's ``W^T`` with the rows of each
-    input segment padded to a multiple of 8 (``pack_field``'s layout), cut
-    into column blocks of 64 outputs, each packed as a layer (matrix, TF32
-    high and low parts, bias) for ``dense``; then sem_1's weight as it is
-    (``[sem_dim, hidden]``). The gradient buffer holds dW0 as ``W0^T``
-    ``[kpad, hidden]``, db0, dW1 as ``W1^T`` ``[hidden, sem_dim]`` and db1."""
+    """K5's weights and descriptor (``xstages``/``wstages`` left 0: the
+    wrapper sets them, :func:`_frozen_plan`). For each cluster rank ``r``
+    (sem_0's outputs ``32 r .. 32 r + 31``), ``W0^T [C, hidden]`` with its
+    rows padded to a multiple of 32 and its columns to 128 by zeros is cut
+    into k-slices of 8 rows, each the slice's TF32 high parts, then its low
+    parts, as ``[4][2][8][4]`` with element ``(j, h, r8, c) = W0^T[8 s +
+    4 h + c][32 r + 8 j + r8]`` (:func:`pack_ring`'s wgmma B layout at
+    N = 32); then sem_0's bias and sem_1's weight ``[sem_dim, hidden]``.
+    The gradient buffer holds dW0 as ``W0^T [C, hidden]``, db0, dW1 as
+    ``W1^T [hidden, sem_dim]`` and db1."""
     lin0, lin2 = field.mlp.semantic_linear[0], field.mlp.semantic_linear[2]
-    segs = _field_layers(field)[-2][1]
-    hidden, sem = lin0.out_features, lin2.out_features
-    kpad = sum(_pad8(k) for k in segs)
-    wt = lin0.weight.detach().t()
-    w = wt.new_zeros((kpad, hidden))
-    r = rp = 0
-    for k in segs:
-        w[rp:rp + k] = wt[r:r + k]
-        r, rp = r + k, rp + _pad8(k)
+    C, hidden, sem = lin0.in_features, lin0.out_features, lin2.out_features
+    kslices = -(-C // (8 * _SEM_KS)) * _SEM_KS
+    cols = _SEM_RANKS * _SEM_COLS
+    wt = lin0.weight.detach().new_zeros((8 * kslices, cols))
+    wt[:C, :min(hidden, cols)] = lin0.weight.detach().t()[:, :cols]
+    hi = _tf32(wt)
+    parts = torch.stack([hi, _tf32(wt - hi)])  # [part, 8 s + 4 h + c, 32 rank + 8 j + r8]
+    ring = (parts.view(2, kslices, 2, 4, _SEM_RANKS, _SEM_COLS // 8, 8)
+            .permute(4, 1, 0, 5, 2, 6, 3).reshape(-1))
     d = _build.FrozenDesc()
-    parts, off = [], 0
-    d.nblk = -(-hidden // _SEM_BLOCK)
-    for c in range(d.nblk):
-        n = min(_SEM_BLOCK, hidden - c * _SEM_BLOCK)
-        blk = w.new_zeros((kpad, _pad8(n)))
-        blk[:, :n] = w[:, c * _SEM_BLOCK:c * _SEM_BLOCK + n]
-        b = blk.new_zeros(_pad8(n))
-        b[:n] = lin0.bias.detach()[c * _SEM_BLOCK:c * _SEM_BLOCK + n]
-        hi = _tf32(blk)
-        d.blk[c] = _build.MLPLayer(off, off + 3 * blk.numel(), kpad, n)
-        parts += [blk.reshape(-1), hi.reshape(-1), _tf32(blk - hi).reshape(-1), b]
-        off += 3 * blk.numel() + b.numel()
-    d.w1 = off
-    parts.append(lin2.weight.detach().reshape(-1))
-    for i, k in enumerate(segs):
-        d.seg[i] = k
-    d.kpad, d.hidden, d.sem_dim, d.n_maps = kpad, hidden, sem, 5 + sem
-    d.gw0, d.gb0 = 0, kpad * hidden
+    d.b0 = ring.numel()
+    d.w1 = d.b0 + hidden
+    d.C, d.kslices, d.hidden, d.sem_dim, d.n_maps = C, kslices, hidden, sem, 5 + sem
+    d.gw0, d.gb0 = 0, C * hidden
     d.gw1 = d.gb0 + hidden
     d.gb1 = d.gw1 + hidden * sem
     d.grad_size = d.gb1 + sem
-    return torch.cat(parts).to(torch.float32).contiguous(), d
+    buf = torch.cat([ring, lin0.bias.detach(), lin2.weight.detach().reshape(-1)])
+    return buf.to(torch.float32).contiguous(), d
 
 
 def unpack_frozen(field: nn.Module, flat: torch.Tensor, d: _build.FrozenDesc
                   ) -> Dict[str, torch.Tensor]:
     """K5's gradient buffer -> the semantic head's grads keyed by ``_SEM_NAMES``."""
-    segs = _field_layers(field)[-2][1]
-    dw0 = flat[d.gw0:d.gb0].view(d.kpad, d.hidden)
-    rows, r = [], 0
-    for k in segs:
-        rows.append(dw0[r:r + k])
-        r += _pad8(k)
-    grads = (torch.cat(rows).t().contiguous(), flat[d.gb0:d.gw1].clone(),
+    grads = (flat[d.gw0:d.gb0].view(d.C, d.hidden).t().contiguous(), flat[d.gb0:d.gw1].clone(),
              flat[d.gw1:d.gb1].view(d.hidden, d.sem_dim).t().contiguous(),
              flat[d.gb1:d.grad_size].clone())
     return dict(zip(_SEM_NAMES, grads))
+
+
+def _frozen_smem(d: _build.FrozenDesc) -> int:
+    """K5's shared memory (``frozen_smem`` in ``csrc/train_render.cu``): the
+    barriers, the sem_in tile stages, the tile's ds (TF32 parts) and the W0
+    ring's stages."""
+    return _SEM_BARS + 4 * (d.xstages * _SEM_PTS * d.C + 2 * _SEM_PTS * _SEM_COLS
+                      + d.wstages * 16 * _SEM_COLS * _SEM_KS)
+
+
+def _frozen_plan(d: _build.FrozenDesc) -> _build.FrozenDesc:
+    """``d`` with K5's stages: two sem_in tile stages where they fit beside
+    ds and at least two W0 stages, else one; as many W0 stages (2 to
+    ``_MAX_SEM_WSTAGES``) as the rest holds. Raises for a head K5 does not
+    take."""
+    if d.C > _MAX_SEM_ROWS or d.hidden > _SEM_RANKS * _SEM_COLS or d.sem_dim > _MAX_SEM:
+        raise NotImplementedError(f"semantic head {d.C} -> {d.hidden} -> {d.sem_dim} is "
+                                  "outside K5")
+    plan = _build.FrozenDesc.from_buffer_copy(d)
+    for plan.xstages in (2, 1):
+        plan.wstages = 2
+        if _frozen_smem(plan) <= _MAX_SMEM:
+            while (plan.wstages < _MAX_SEM_WSTAGES
+                   and _frozen_smem(plan) + 4 * 16 * _SEM_COLS * _SEM_KS <= _MAX_SMEM):
+                plan.wstages += 1
+            return plan
+    raise NotImplementedError(f"semantic head {d.C} -> {d.hidden}: K5's stages need "
+                              f"{_frozen_smem(plan)} B of shared memory")
 
 
 # ----------------------------------------------------------------- wrappers
@@ -852,7 +869,6 @@ def _rays_per_cta(S: int) -> int:
     return max(1, 64 // S)
 
 
-
 def fused_coarse_weights(field: nn.Module, od: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
     """K1: coarse eval pass, ``od [R, 6]``, ``z [R, S]`` -> weights ``[R, S]``."""
     if od.device.type == "cpu":
@@ -876,24 +892,19 @@ def fused_coarse_weights(field: nn.Module, od: torch.Tensor, z: torch.Tensor) ->
 
 def fused_render(field: nn.Module, odv: torch.Tensor,
                  z: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K2: fine eval pass, ``odv [R, 9]``, ``z [R, S]`` -> (maps, weights)."""
+    """K2: fine eval pass, ``odv [R, 9]``, ``z [R, S]`` -> (maps, weights);
+    see :func:`render_plain`. One launch of K4's kernel without noise and
+    without ``sem_in`` (:func:`train_render`'s 128-point tile, the weights
+    from :func:`pack_ring` through its ring; the two functions are the same
+    there), counted in ``fused_render.launches``."""
     if odv.device.type == "cpu":
         return render_plain(field, odv, z)
     if odv.device.type != "cuda":
         raise NotImplementedError(f"no kernel for device {odv.device}")
     _check_inputs(field, odv, 9, z)
-    R, S = z.shape
-    buf, desc = _packed(field, odv.device)
-    maps = torch.empty((R, 5 + desc.sem_dim), device=odv.device, dtype=torch.float32)
-    weights = torch.empty((R, S), device=odv.device, dtype=torch.float32)
-    if R == 0:
-        return maps, weights
-    with torch.cuda.device(odv.device):
-        code = _build.library().nerf_render(
-            odv.data_ptr(), z.data_ptr(), buf.data_ptr(), ctypes.byref(desc),
-            maps.data_ptr(), weights.data_ptr(), R, S, _rays_per_cta(S), _build.stream(odv.device))
-    _build.check(code, "fused_render")
-    fused_render.launches += 1
+    maps, weights, _ = _tile_forward(field, odv, z, 0.0, 0, False)
+    if z.shape[0] > 0:
+        fused_render.launches += 1
     return maps, weights
 
 
@@ -981,21 +992,14 @@ def _wg_plan(fdesc: _build.MLPDesc, ring: _build.RingDesc, S: int) -> Tuple[int,
     return rpc, rd
 
 
-def train_render(field: nn.Module, odv: torch.Tensor, z: torch.Tensor, *, noise_std: float,
-                 seed: int, save_semin: bool
-                 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
-    """K4: the train forward, ``odv [R, 9]``, ``z [R, S]`` -> (maps, weights,
-    ``sem_in [R * S, C]`` or None); see :func:`train_render_plain`. One
-    launch: a CTA a chunk of rays in tiles of 128 points, the weights from
-    :func:`pack_ring` through its ring (``csrc/wg_tile.cuh``)."""
-    if odv.device.type == "cpu":
-        return train_render_plain(field, odv, z, noise_std=noise_std, seed=seed,
-                                  save_semin=save_semin)
-    if odv.device.type != "cuda":
-        raise NotImplementedError(f"no kernel for device {odv.device}")
-    _check_inputs(field, odv, 9, z)
-    if save_semin and not field.mlp.use_semantics:
-        raise ValueError("save_semin needs the semantic head")
+def _tile_forward(field: nn.Module, odv: torch.Tensor, z: torch.Tensor, noise_std: float,
+                  seed: int, save_semin: bool
+                  ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """One launch of K4's kernel (``csrc/train_render.cu``
+    ``train_render_wg_kernel``) on checked CUDA inputs, none for ``R == 0``:
+    a CTA a chunk of :func:`_wg_plan`'s rays in tiles of 128 points, the
+    weights from :func:`pack_ring` through its ring; raises where the plan
+    does not fit."""
     R, S = z.shape
     buf, fdesc = _packed(field, odv.device)
     rbuf, ring = _ring(field, odv.device)
@@ -1013,9 +1017,47 @@ def train_render(field: nn.Module, odv: torch.Tensor, z: torch.Tensor, *, noise_
                 ctypes.byref(rd), maps.data_ptr(), weights.data_ptr(),
                 None if sem_in is None else sem_in.data_ptr(), R, S, noise_seed(seed),
                 float(noise_std), _build.stream(odv.device))
-        _build.check(code, "train_render")
-        train_render.launches += 1
+        _build.check(code, "nerf_train_render")
     return maps, weights, sem_in
+
+
+def train_render(field: nn.Module, odv: torch.Tensor, z: torch.Tensor, *, noise_std: float,
+                 seed: int, save_semin: bool
+                 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """K4: the train forward, ``odv [R, 9]``, ``z [R, S]`` -> (maps, weights,
+    ``sem_in [R * S, C]`` or None); see :func:`train_render_plain`. One
+    launch: a CTA a chunk of rays in tiles of 128 points, the weights from
+    :func:`pack_ring` through its ring (``csrc/wg_tile.cuh``)."""
+    if odv.device.type == "cpu":
+        return train_render_plain(field, odv, z, noise_std=noise_std, seed=seed,
+                                  save_semin=save_semin)
+    if odv.device.type != "cuda":
+        raise NotImplementedError(f"no kernel for device {odv.device}")
+    _check_inputs(field, odv, 9, z)
+    if save_semin and not field.mlp.use_semantics:
+        raise ValueError("save_semin needs the semantic head")
+    out = _tile_forward(field, odv, z, noise_std, seed, save_semin)
+    if z.shape[0] > 0:
+        train_render.launches += 1
+    return out
+
+
+_FROZEN_CLUSTERS: Dict[Tuple[torch.device, int], int] = {}
+
+
+def _frozen_clusters(device: torch.device, d: _build.FrozenDesc) -> int:
+    """K5's clusters that run at once on ``device`` with ``d``'s shared
+    memory (the card's occupancy calculator: four SMs of one GPC each), so
+    that one wave of clusters covers the points; per device and size."""
+    key = (device, _frozen_smem(d))
+    if key not in _FROZEN_CLUSTERS:
+        n = ctypes.c_int()
+        with torch.cuda.device(device):
+            _build.check(_build.library().nerf_frozen_sem_clusters(ctypes.byref(d),
+                                                                    ctypes.byref(n)),
+                         "nerf_frozen_sem_clusters")
+        _FROZEN_CLUSTERS[key] = max(1, n.value)
+    return _FROZEN_CLUSTERS[key]
 
 
 def frozen_sem_grads(field: nn.Module, sem_in: torch.Tensor, weights: torch.Tensor,
@@ -1023,9 +1065,10 @@ def frozen_sem_grads(field: nn.Module, sem_in: torch.Tensor, weights: torch.Tens
     """K5: the semantic head's gradients from the stored ``sem_in [R * S, C]``,
     the forward's ``weights [R, S]`` and the maps' cotangent ``dmaps
     [R, 5 + sem]``; see :func:`frozen_sem_grads_plain`. One call launches the
-    kernel (a grid of CTAs, each over a run of 64-point tiles and one block
-    of 64 sem_0 outputs, with its partial gradients) and the reduction of the
-    partials in CTA order, and adds one to ``launches``."""
+    kernel (clusters of four CTAs, each cluster over a run of 64-point
+    tiles of sem_in multicast to its CTAs, each CTA 32 of sem_0's outputs, a
+    partial gradient buffer a cluster) and the reduction of the partials in
+    cluster order, and adds one to ``launches``."""
     if sem_in.device.type == "cpu":
         return frozen_sem_grads_plain(field, sem_in, weights, dmaps)
     if sem_in.device.type != "cuda":
@@ -1038,22 +1081,21 @@ def frozen_sem_grads(field: nn.Module, sem_in: torch.Tensor, weights: torch.Tens
             raise ValueError(f"{name} must be contiguous float32 on {sem_in.device}")
         if tuple(t.shape) != shape:
             raise ValueError(f"expected {name} {shape}, got {tuple(t.shape)}")
+    if sem_in.data_ptr() % 16:
+        raise ValueError("sem_in must start on a 16-byte boundary (its tiles are bulk copies)")
     buf, d = _cached(field, sem_in.device, "_frozen_pack", pack_frozen)
-    smem = 4 * ((2 * d.kpad + 2 * _SEM_BLOCK + 8) * _KLD + _SEM_BLOCK * (2 * _MAX_SEM + 1) + 8
-                + _TILE * (1 + _MAX_SEM))
-    if (d.kpad > _MAX_SEM_ROWS or d.nblk > _MAX_SEM_BLOCKS or d.sem_dim > _MAX_SEM
-            or smem > _MAX_SMEM):
-        raise NotImplementedError(f"semantic head {C} -> {d.hidden} -> {d.sem_dim} is outside K5")
+    d = _frozen_plan(d)
     flat = torch.zeros(d.grad_size, device=sem_in.device, dtype=torch.float32)
     P = R * S
     if P > 0:
-        sms = torch.cuda.get_device_properties(sem_in.device).multi_processor_count
-        grid = max(1, min(-(-P // _TILE), sms // d.nblk))
-        partial = torch.empty(grid * d.grad_size, device=sem_in.device, dtype=torch.float32)
+        ntiles = -(-P // _SEM_PTS)
+        per = -(-ntiles // min(ntiles, _frozen_clusters(sem_in.device, d)))
+        clusters = -(-ntiles // per)
+        partial = torch.empty(clusters * d.grad_size, device=sem_in.device, dtype=torch.float32)
         with torch.cuda.device(sem_in.device):
             code = _build.library().nerf_frozen_sem_grads(
                 sem_in.data_ptr(), weights.data_ptr(), dmaps.data_ptr(), buf.data_ptr(),
-                ctypes.byref(d), partial.data_ptr(), flat.data_ptr(), P, S, grid,
+                ctypes.byref(d), partial.data_ptr(), flat.data_ptr(), P, S, clusters, per,
                 _build.stream(sem_in.device))
         _build.check(code, "frozen_sem_grads")
         frozen_sem_grads.launches += 1

@@ -56,6 +56,12 @@ loss) run unless
 ``--no_fused_field`` is given or the
 configuration is outside ``supports_fused``; on the CPU the same code path
 runs their plain versions.
+
+``--debug_nans`` runs the whole of ``main`` under
+``torch.autograd.set_detect_anomaly`` and checks each step's loss and
+gradients with ``utils/debug.assert_finite`` (``FloatingPointError`` on a
+nan or inf): the fused RGB step forms its gradients in a kernel, outside
+autograd, where anomaly mode sees nothing.
 """
 from __future__ import annotations
 
@@ -176,7 +182,8 @@ def create_arg_parser() -> ConfigArgumentParser:
     parser.add_argument("--lpips_net", type=str, default="alex",
                         choices=["alex", "vgg"])
     parser.add_argument("--debug_nans", action="store_true", default=False,
-                        help="torch anomaly detection")
+                        help="torch anomaly detection, and each step's loss and "
+                             "gradients checked for nan/inf")
     parser.add_argument("--use_contrast", action="store_true", default=False)
     parser.add_argument("--fast_mode", action="store_true", default=False)
     parser.add_argument("--contrast_w", type=float, default=0)
@@ -279,11 +286,20 @@ def _check_patch_tune(args) -> None:
 
 
 def main(args, device=None) -> None:
+    if not args.debug_nans:
+        return _main(args, device)
+    print("> torch anomaly detection and finite checks of the loss and gradients enabled")
+    with torch.autograd.set_detect_anomaly(True):
+        return _main(args, device)
+
+
+def _main(args, device) -> None:
     from nerfsos_torch.data.datasets import PatchDataset, RayDataset
     from nerfsos_torch.engines import checkpoint as ckpt_lib
     from nerfsos_torch.engines import eval as eval_lib
     from nerfsos_torch.engines import state as state_lib
     from nerfsos_torch.engines.trainer import make_rgb_train_step
+    from nerfsos_torch.utils import debug
     from nerfsos_torch.utils.summary import SummaryWriter
 
     for flag in ("eval_video",) + (() if args.eval or args.eval_vol else ("no_batching",)):
@@ -426,6 +442,10 @@ def main(args, device=None) -> None:
                                        args.batch_size)
         device_batch = {k: torch.as_tensor(batch[k], device=device) for k in ("rays", "target")}
         metrics = step_fn(device_batch, global_step)
+        if args.debug_nans:
+            debug.assert_finite(metrics["loss"], f"step {global_step}: loss")
+            debug.assert_finite({n: p.grad for n, p in net.named_parameters()},
+                                f"step {global_step}: grad")
         global_step += 1
 
         if global_step % args.i_print == 0 or global_step == 1:

@@ -1,0 +1,67 @@
+"""Where a kernel's register spills sit in its machine code: dumps the SASS of
+the built kernel library with ``cuobjdump`` and, for each kernel whose
+mangled name contains one of the given names, counts its wgmma (HGMMA) and
+local-memory spill instructions (STL, LDL) in all and inside the innermost
+loops that hold a wgmma (a backward branch whose range holds an HGMMA and no
+other such loop: the k loops of its products).
+
+    python -m nerfsos_torch.tools.sass_spills [frozen_sem_kernel ...]
+
+Builds the library first if it is missing (needs the CUDA toolkit: run it on
+the machine with the card). Prints one JSON line a kernel.
+"""
+from __future__ import annotations
+
+import json
+import os
+import re
+import shutil
+import subprocess
+import sys
+
+_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
+
+
+def scan(sass: str) -> dict:
+    """Counts for one function's SASS text."""
+    insns = [(int(a, 16), text) for a, text in _INSN.findall(sass)]
+    loops = []
+    for addr, text in insns:
+        m = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", text)
+        if m and int(m.group(1), 16) < addr:
+            lo = int(m.group(1), 16)
+            if any(lo <= a <= addr and "HGMMA" in t for a, t in insns):
+                loops.append((lo, addr))
+    # the innermost of them: the k loops, not the tile loops around them
+    loops = [(lo, hi) for lo, hi in loops
+             if not any((lo, hi) != (a, b) and lo <= a and b <= hi for a, b in loops)]
+
+    def count(op, inside):
+        return sum(1 for a, t in insns if re.search(rf"\b{op}\b", t)
+                   and (not inside or any(lo <= a <= hi for lo, hi in loops)))
+
+    return {"hgmma": count("HGMMA", False), "stl": count("STL", False),
+            "ldl": count("LDL", False), "wgmma_loops": len(loops),
+            "stl_in_wgmma_loops": count("STL", True), "ldl_in_wgmma_loops": count("LDL", True)}
+
+
+def main() -> int:
+    names = sys.argv[1:] or ["frozen_sem_kernel", "train_render_wg_kernel"]
+    from nerfsos_torch import _build
+
+    lib = _build.build()
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        print("sass_spills: cuobjdump not found", file=sys.stderr)
+        return 1
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True, text=True,
+                          check=True).stdout
+    for part in re.split(r"\n\s*Function : ", sass)[1:]:
+        name = part.split("\n", 1)[0].strip()
+        if any(n in name for n in names):
+            print(json.dumps({"function": name, **scan(part)}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,10 +1,11 @@
-"""Where K4's, K3's and K6's time goes on the card: builds patched copies of
-the kernel sources under ``<root>/build/tile_probe/<variant>/`` and times
-K4 (``ops.fused_render.train_render``), K6 (``train_render_grads``) or K3
-(``fused_rgb_train_grads``) with each, in one process.
+"""Where K4's, K3's, K6's and K5's time goes on the card: builds patched
+copies of the kernel sources under ``<root>/build/tile_probe/<variant>/`` and
+times K4 (``ops.fused_render.train_render``), K6 (``train_render_grads``), K3
+(``fused_rgb_train_grads``), K5 (``frozen_sem_grads``) or K2
+(``fused_render``) with each, in one process.
 
     python -m nerfsos_torch.tools.tile_probe [--root DIR] [--rays 32768]
-        [--samples 192[,64...]] [--variants base,wgclock] [--kernel k4|k9|k6|k3]
+        [--samples 192[,64...]] [--variants base,wgclock] [--kernel k4|k9|k6|k3|k5|k2]
 
 ``--root`` is the checkout whose package, kernels and ``chip_smoke.py`` are
 used (default: this one). To A/B K4 against the 64-point tile it replaced,
@@ -43,6 +44,13 @@ never edited):
   fills of the backward ring (its turns as the producer: the bulk copies'
   issue and its waits for a free stage), its waits for a full stage and its
   epilogues;
+- ``semclock`` (K5, ``frozen_sem_kernel`` in ``csrc/train_render.cu``):
+  clock64 counters in CTA 0 over its run of tiles: thread 0 (the forward
+  warpgroup F) around its whole tile loop, its waits for a full sem_in
+  stage, its waits for a full W0 stage, its forward products (the W0 waits
+  included), its waits for the dW0 warpgroups to free ds and its
+  epilogues (ds, the small sums); thread 128 (dW0 warpgroup D0) around its
+  waits for a full sem_in stage and for ds, and its whole tile loop;
 - ``bwdstagesN`` (K3, K6): the reverse sweep's ring with N stages
   (``kBwdStages``; the shared memory grows with it);
 - ``nostore``, ``nocomposite``, ``epistore`` (K3's and K6's forward on the
@@ -60,7 +68,13 @@ mip eval pass, which still runs the 64-point tile) instead, ``base``
 variant only: an A/B of the kernels that a tile change must leave alone.
 ``--kernel k6`` takes the full SOS finetune's backward at the flagship
 width with the semantic head and its coordinates and seeded map and weight
-cotangents, ``--kernel k3`` the RGB train pass with the semantic head.
+cotangents, ``--kernel k3`` the RGB train pass with the semantic head,
+``--kernel k5`` the frozen finetune's semantic-head backward on K4's own
+``sem_in`` and weights of those rays, with seeded map cotangents, ``--kernel
+k2`` the eval fine render (K4's kernel without noise or sem_in; ``--rays
+32768`` is one ``--ray_chunk`` of the eval path). With ``--root`` unpacked
+from a parent commit, K2 and K5 are timed through that tree's wrappers (the
+same Python interface), ``base`` variant only, for an A/B in one call.
 """
 from __future__ import annotations
 
@@ -158,6 +172,46 @@ def _sweep_clocks(t: str) -> str:
     return t
 
 
+def _sem_clocks(t: str) -> str:
+    """train_render.cu with semclock's counters: 0 F's tile loop, 1 its
+    sem_in waits, 2 its W0 waits, 3 its forward products, 4 its ds waits,
+    5 its epilogues (thread 0); 6 D0's sem_in and ds waits, 7 its tile loop
+    (thread 128)."""
+    t = _sub(t, '#include "wg_tile.cuh"\n', '#include "wg_tile.cuh"\n' + _COUNTERS
+             + "#define SEM_PROBE(i, t0, tid) do { if (blockIdx.x == 0 && threadIdx.x == (tid)) "
+               "g_probe[i] += clock64() - (t0); } while (0)\n", 1)
+    t = _sub(t, "  int wpos = 0;\n  for (int i = 0; i < nt; ++i) {\n",
+             "  int wpos = 0;\n  long long p_f = clock64();\n  for (int i = 0; i < nt; ++i) {\n", 1)
+    t = _sub(t, "  // the four warps' sums in order", "  SEM_PROBE(0, p_f, 0);\n"
+             "  // the four warps' sums in order", 1)
+    t = _sub(t, "    mbar_wait(c.xfull + slot, (i / d.xstages) & 1);\n    const float* x = c.xs + "
+                "(size_t)slot * kSemPts * C;\n    const float* xa",
+             "    long long p_x = clock64();\n    mbar_wait(c.xfull + slot, (i / d.xstages) & 1);\n"
+             "    SEM_PROBE(1, p_x, 0);\n    const float* x = c.xs + (size_t)slot * kSemPts * C;\n"
+             "    const float* xa", 1)
+    t = _sub(t, "      mbar_wait(c.wfull + wslot, (wpos / d.wstages) & 1);\n",
+             "      long long p_w = clock64();\n      mbar_wait(c.wfull + wslot, (wpos / d.wstages) & 1);"
+             "\n      SEM_PROBE(2, p_w, 0);\n", 1)
+    t = _sub(t, "    for (int st = 0; st < nst; ++st, ++wpos) {\n",
+             "    long long p_m = clock64();\n    for (int st = 0; st < nst; ++st, ++wpos) {\n", 1)
+    t = _sub(t, "    sem_release_x(c, slot, rank);\n\n    // d_sem",
+             "    SEM_PROBE(3, p_m, 0);\n    sem_release_x(c, slot, rank);\n\n    // d_sem", 1)
+    t = _sub(t, "    mbar_wait(c.dsempty, (i & 1) ^ 1);",
+             "    long long p_d = clock64();\n    mbar_wait(c.dsempty, (i & 1) ^ 1);\n"
+             "    SEM_PROBE(4, p_d, 0);\n    long long p_e = clock64();", 1)
+    t = _sub(t, "    if (lane == 0) mbar_arrive(c.dsfull);\n",
+             "    if (lane == 0) mbar_arrive(c.dsfull);\n    SEM_PROBE(5, p_e, 0);\n", 1)
+    t = _sub(t, "  for (int i = 0; i < nt; ++i) {\n    const int slot = i % d.xstages;\n"
+                "    mbar_wait(c.xfull + slot, (i / d.xstages) & 1);\n    mbar_wait(c.dsfull, i & 1);\n",
+             "  long long p_r = clock64();\n  for (int i = 0; i < nt; ++i) {\n"
+             "    const int slot = i % d.xstages;\n    long long p_q = clock64();\n"
+             "    mbar_wait(c.xfull + slot, (i / d.xstages) & 1);\n    mbar_wait(c.dsfull, i & 1);\n"
+             "    SEM_PROBE(6, p_q, 128);\n", 1)
+    return _sub(t, "  // accumulator e of block u: feature 64 (kSemMb dwg + u)",
+                "  SEM_PROBE(7, p_r, 128);\n  // accumulator e of block u: feature 64 (kSemMb dwg + u)",
+                1) + _READER
+
+
 def _patch(variant: str, csrc: str) -> None:
     """Apply each of a '+'-joined variant's patches to the copy at csrc."""
     for v in variant.split("+"):
@@ -245,6 +299,8 @@ def _patch_one(variant: str, csrc: str) -> None:
     elif variant == "sweepclock":
         edit("train_sweep.cuh", _sweep_clocks)
         edit("train_render.cu", lambda t: t + _READER)
+    elif variant == "semclock":
+        edit("train_render.cu", _sem_clocks)
     elif variant.startswith("bwdstages"):
         edit("train_sweep.cuh", lambda t: _sub(t, "constexpr int kBwdStages = 4;",
                                                f"constexpr int kBwdStages = {variant[9:]};", 1))
@@ -304,7 +360,7 @@ def main() -> int:
     ap.add_argument("--samples", default="192", help="samples a ray, a comma-separated list")
     ap.add_argument("--variants", default="base,wgclock")
     ap.add_argument("--root", default=HERE)
-    ap.add_argument("--kernel", default="k4", choices=("k4", "k9", "k6", "k3"))
+    ap.add_argument("--kernel", default="k4", choices=("k4", "k9", "k6", "k3", "k5", "k2"))
     a = ap.parse_args()
     if not torch.cuda.is_available():
         print("tile_probe: no CUDA device visible", file=sys.stderr)
@@ -338,14 +394,23 @@ def main() -> int:
             gt = torch.from_numpy(rng.uniform(0, 1, (a.rays, 3)).astype(np.float32)).cuda()
             return lambda: fr.fused_rgb_train_grads(field, odv, z, gt, white_bkgd=False,
                                                     noise_std=1.0, seed=7654321)
+        if a.kernel == "k2":
+            return lambda: fr.fused_render(field, odv, z)
         kw = dict(noise_std=1.0, seed=7654321, save_semin=True)
+        if a.kernel == "k5":
+            with torch.no_grad():
+                _, w, sem_in = fr.train_render(field, odv, z, **kw)
+            dmaps = torch.from_numpy(rng.normal(size=(a.rays, 7)).astype(np.float32)).cuda()
+            return lambda: fr.frozen_sem_grads(field, sem_in, w, dmaps)
         return lambda: fr.train_render(field, odv, z, **kw)
 
     names = {"l1clock": ["load_stage", "mma_stage"],
              "wgclock": ["ring_full_wait", "producer_empty_wait", "k_loops", "own_wgmma_wait",
                          "epilogues"],
              "sweepclock": ["wgrad", "wgrad_copy_issue", "wgrad_copy_wait", "bwd_layer",
-                            "bwd_layer_fill_issue", "bwd_layer_full_wait", "bwd_layer_epilogue"]}
+                            "bwd_layer_fill_issue", "bwd_layer_full_wait", "bwd_layer_epilogue"],
+             "semclock": ["f_x_wait", "f_w_wait", "f_products", "f_ds_wait", "f_epilogue",
+                          "d0_waits", "d0_loop"]}
     runs = {int(S): runner(int(S)) for S in a.samples.split(",")}
     for variant in a.variants.split(","):
         lib = _use(_build, root, variant)

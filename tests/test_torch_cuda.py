@@ -85,12 +85,29 @@ def test_k2_matches_plain(cuda, shape, sem, coord, n, s):
     before = fr.fused_render.launches
     with torch.no_grad():
         maps, w = fr.fused_render(field, odv, z)
+        again = fr.fused_render(field, odv, z)
         maps_p, w_p = fr.render_plain(field, odv, z)
     torch.cuda.synchronize()
-    assert fr.fused_render.launches == before + 1
+    assert fr.fused_render.launches == before + 2
     assert maps.shape == maps_p.shape
     assert float((maps - maps_p).abs().max()) <= TOL
     assert float((w - w_p).abs().max()) <= TOL
+    assert torch.equal(maps, again[0]) and torch.equal(w, again[1])
+
+
+@pytest.mark.parametrize("sem", [True, False])
+def test_k2_is_k4_without_noise(cuda, sem):
+    """K2 launches K4's kernel with noise 0 and no sem_in: the same bits as
+    train_render's at noise 0, and its own launch count."""
+    field = _field(cuda, 2, use_semantics=sem, sem_with_coord=sem, sem_dim=2, **SHAPES[0])
+    odv, z = _inputs(cuda, 300, 192, 3)
+    counts = (fr.fused_render.launches, fr.train_render.launches)
+    with torch.no_grad():
+        got = fr.fused_render(field, odv, z)
+        want = fr.train_render(field, odv, z, noise_std=0.0, seed=0, save_semin=False)
+    torch.cuda.synchronize()
+    assert (fr.fused_render.launches, fr.train_render.launches) == (counts[0] + 1, counts[1] + 1)
+    assert want[2] is None and torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 def test_wrappers_reject_bad_inputs(cuda):
@@ -338,6 +355,30 @@ def test_k5_matches_plain(cuda, shape, coord, n, s):
         assert float((got[name] - ref).abs().max()) <= GRAD_TOL * scale, name
 
 
+@pytest.mark.parametrize("n,s", [(37, 64), (512, 192)])
+def test_k5_takes_the_384_row_head(cuda, n, s):
+    """The head whose sem_in has 382 columns (the skip after the last trunk
+    layer, width 256, coordinates): one sem_in stage (its plan), every leaf
+    to GRAD_TOL, two calls bitwise equal."""
+    field = _field(cuda, 8, use_semantics=True, sem_with_coord=True, sem_dim=2, net_depth=5,
+                   net_width=256, multires=10, multires_views=4)
+    assert field.mlp.semantic_linear[0].in_features == 382
+    odv, z = _inputs(cuda, n, s, 12)
+    with torch.no_grad():
+        _, w, sem_in = fr.train_render(field, odv, z, noise_std=1.0, seed=5, save_semin=True)
+    w = _gate_clear_weights(field, sem_in, w)
+    dmaps = torch.from_numpy(np.random.default_rng(13).normal(size=(n, 7)).astype(np.float32))
+    dmaps = dmaps.to(cuda)
+    got = fr.frozen_sem_grads(field, sem_in, w, dmaps)
+    again = fr.frozen_sem_grads(field, sem_in, w, dmaps)
+    want = fr.frozen_sem_grads_plain(field, sem_in, w, dmaps)
+    torch.cuda.synchronize()
+    for name, ref in want.items():
+        assert torch.equal(got[name], again[name]), name
+        scale = max(float(ref.abs().max()), 1e-12)
+        assert float((got[name] - ref).abs().max()) <= GRAD_TOL * scale, name
+
+
 def test_k4_k5_through_autograd(cuda):
     """fused_train_render with ``frozen``: the K4 forward, the K5 backward,
     semantic-head leaves only."""
@@ -365,6 +406,10 @@ def test_k4_k5_reject_bad_inputs(cuda):
         fr.frozen_sem_grads(field, sem_in[:-1], w, torch.zeros(16, 7, device=cuda))
     with pytest.raises(ValueError):
         fr.frozen_sem_grads(field, sem_in, w, torch.zeros(16, 6, device=cuda))
+    shifted = torch.empty(sem_in.numel() + 1, device=cuda)[1:].view_as(sem_in)
+    shifted.copy_(sem_in)
+    with pytest.raises(ValueError):  # its tiles are bulk copies from 16-byte boundaries
+        fr.frozen_sem_grads(field, shifted, w, torch.zeros(16, 7, device=cuda))
 
 
 # ----------------------------------------------------------------- K6

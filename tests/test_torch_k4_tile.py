@@ -278,6 +278,35 @@ def test_k4_tile_model_matches_plain_and_pallas(depth, sem, coord, noise, s):
         np.testing.assert_allclose(got[2].numpy(), semin_j, atol=1e-5, rtol=0)
 
 
+K2_CASES = [(4, True, True, 8), (5, True, False, 16), (6, False, False, 16), (5, False, False, 8)]
+
+
+@pytest.mark.parametrize("depth,sem,coord,s", K2_CASES)
+def test_k2_route_is_the_tile_without_noise(monkeypatch, depth, sem, coord, s):
+    """K2 runs K4's kernel with noise 0 and no sem_in: the tile's dataflow
+    at noise 0 and train_render_plain(noise_std=0, save_semin=False) against
+    K2's plain version and the JAX package's eval kernel
+    (``fused_render_planar``, Pallas in interpret mode), ragged last tile."""
+    monkeypatch.setattr(jfr, "RAY_BLOCK", 8)
+    jcfg, params, tnet = _nets(depth, sem, coord)
+    odv, z = _inputs(3 * s + depth, s)
+    field = tnet.nerf_fine
+    odv_t, z_t = torch.from_numpy(odv), torch.from_numpy(z)
+    with torch.no_grad():
+        model = _k4_model(field, odv_t, z_t, 0.0, 0, False)
+        route = fr.train_render_plain(field, odv_t, z_t, noise_std=0.0, seed=0, save_semin=False)
+        want = fr.render_plain(field, odv_t, z_t)
+    assert route[2] is None and model[2] is None
+    for got in (model[:2], route[:2]):
+        for a, b in zip(got, want):
+            assert a.shape == b.shape
+            np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-5, rtol=0)
+    maps_j, w_j = jfr.fused_render_planar(params["fine"], jnp.asarray(odv), jnp.asarray(z), jcfg,
+                                          depth=depth, interpret=True)
+    np.testing.assert_allclose(model[0].numpy(), np.asarray(maps_j), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(model[1].numpy(), np.asarray(w_j), atol=1e-5, rtol=0)
+
+
 def test_ring_repacks_a_changed_layer_only():
     """pack_ring is a gather of pack_field's TF32 parts: an update of sem_0
     alone (a --fix_backbone step) changes sem_0's stages and no other

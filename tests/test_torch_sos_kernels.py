@@ -181,47 +181,96 @@ def test_forward_without_grad_stores_no_sem_in():
     assert torch.equal(maps, want[0]) and torch.equal(w, want[1])
 
 
+def _k5_ring(buf, d, rank):
+    """Cluster rank ``rank``'s W0^T [8 kslices, 32] TF32 high and low parts
+    unpacked from pack_frozen's ring (the inverse of its per-slice layout)."""
+    n = d.kslices * 16 * tfr._SEM_COLS
+    blocks = buf[rank * n:(rank + 1) * n].view(d.kslices, 2, tfr._SEM_COLS // 8, 2, 8, 4)
+    parts = blocks.permute(1, 0, 3, 5, 2, 4).reshape(2, 8 * d.kslices, tfr._SEM_COLS)
+    return parts[0], parts[1]
+
+
+def _b_offset(k, n):
+    """csrc/wgmma.cuh b_offset: element (k, n) of a k-slice of a wgmma B operand."""
+    return (n // 8) * 64 + (k // 4) * 32 + (n % 8) * 4 + k % 4
+
+
 def _emulate_k5(field, sem_in, w, dmaps):
-    """What K5 computes, from pack_frozen's buffer alone: sem_in rows placed
-    at their padded rows, s_act per column block, ds, then dW0^T, db0, dW1^T
-    and db1 into the gradient buffer, then unpack_frozen."""
+    """What K5 computes, from pack_frozen's buffer alone, in its dataflow: per
+    cluster rank (32 of sem_0's outputs) and 64-point tile of sem_in (rows
+    past the points zeroed, columns past C read 0), F's product with the
+    ring's W0 k-slices and the rows in its point order (3xTF32 through
+    _tf32), ds written into dW0's B buffer at (k-slice p % 8, position
+    p // 8) as TF32 parts, D's product reading it back per k-slice against
+    sem_in's rows in its point order, the small sums; then the gradient
+    buffer and unpack_frozen."""
     buf, d = tfr.pack_frozen(field)
-    segs = [d.seg[i] for i in range(3) if d.seg[i]]
-    P = sem_in.shape[0]
-    S = w.shape[1]
-    xin = sem_in.new_zeros((d.kpad, P))
-    r = rp = 0
-    for k in segs:
-        xin[rp:rp + k] = sem_in[:, r:r + k].t()
-        r, rp = r + k, rp + (k + 7) // 8 * 8
-    dsem = (dmaps[:, 5:].repeat_interleave(S, 0) * w.reshape(-1, 1)).t()  # [sem, P]
-    w1 = buf[d.w1:d.w1 + d.sem_dim * d.hidden].view(d.sem_dim, d.hidden)
+    P, C = sem_in.shape
+    S, sem, hidden, cols = w.shape[1], d.sem_dim, d.hidden, tfr._SEM_COLS
+    tf = tfr._tf32
+    b0 = buf[d.b0:d.b0 + hidden]
+    w1 = buf[d.w1:d.w1 + sem * hidden].view(sem, hidden)
+    m = torch.arange(64)
+    pi = 4 * (m % 8) + m // 16 + 32 * ((m % 16) // 8)  # F: accumulator row m -> point
+    sigma = m // 8 + 8 * (m % 8)                         # D: k position m -> point
+    assert sorted(pi.tolist()) == sorted(sigma.tolist()) == list(range(64))
+    n = torch.arange(cols)
     flat = torch.zeros(d.grad_size)
-    for c in range(d.nblk):
-        L = d.blk[c]
-        npad = (L.n + 7) // 8 * 8
-        wblk = buf[L.w:L.w + L.k * npad].view(L.k, npad)
-        bias = buf[L.b:L.b + npad]
-        sact = torch.relu(wblk.t() @ xin + bias[:, None])[:L.n]  # [n, P]
-        n0 = c * tfr._SEM_BLOCK
-        ds = (w1[:, n0:n0 + L.n].t() @ dsem) * (sact > 0)
-        dw0 = flat[d.gw0:d.gb0].view(d.kpad, d.hidden)
-        dw0[:, n0:n0 + L.n] = xin @ ds.t()
-        flat[d.gb0 + n0:d.gb0 + n0 + L.n] = ds.sum(1)
-        dw1 = flat[d.gw1:d.gb1].view(d.hidden, d.sem_dim)
-        dw1[n0:n0 + L.n] = sact @ dsem.t()
-    flat[d.gb1:d.grad_size] = dsem.sum(1)
+    dw0 = flat[d.gw0:d.gb0].view(C, hidden)
+    dw1 = flat[d.gw1:d.gb1].view(hidden, sem)
+    for rank in range(tfr._SEM_RANKS):
+        n0 = cols * rank
+        nb = min(cols, hidden - n0)
+        if nb <= 0:
+            continue
+        whi, wlo = _k5_ring(buf, d, rank)
+        acc0 = torch.zeros(8 * d.kslices, cols)
+        for q0 in range(0, P, 64):
+            np_ = min(64, P - q0)
+            x = torch.zeros(64, 8 * d.kslices)
+            x[:np_, :C] = sem_in[q0:q0 + np_]
+            xr = x[pi]
+            xh = tf(xr)
+            xl = tf(xr - xh)
+            s_pre = xl @ whi + xh @ wlo + xh @ whi
+            s_pre[:, :nb] += b0[n0:n0 + nb]
+            pts, valid = q0 + pi, pi < np_
+            q = pts.clamp(max=P - 1)
+            dsem = torch.where(valid[:, None], dmaps[q // S, 5:] * w.reshape(-1)[q, None], 0.0)
+            w1b = torch.zeros(sem, cols)
+            w1b[:, :nb] = w1[:, n0:n0 + nb]
+            ds = torch.where(s_pre > 0, dsem @ w1b, 0.0)  # [row, output]
+            dsbuf = torch.zeros(8, 2, 8 * cols)
+            off = _b_offset((pi // 8)[:, None], n[None, :])
+            dsbuf[(pi % 8)[:, None], 0, off] = tf(ds)
+            dsbuf[(pi % 8)[:, None], 1, off] = tf(ds - tf(ds))
+            for kk in range(8):
+                k = torch.arange(8)
+                bhi = dsbuf[kk, 0][_b_offset(k[:, None], n[None, :])]  # [k, output]
+                blo = dsbuf[kk, 1][_b_offset(k[:, None], n[None, :])]
+                at = x[sigma[8 * kk:8 * kk + 8]].t()  # [features, k]
+                ah = tf(at)
+                acc0 += tf(at - ah) @ bhi + ah @ blo + ah @ bhi
+            dw1[n0:n0 + nb] += (torch.relu(s_pre).t() @ dsem)[:nb]
+            flat[d.gb0 + n0:d.gb0 + n0 + nb] += ds.sum(0)[:nb]
+            if rank == 0:
+                flat[d.gb1:d.grad_size] += dsem.sum(0)
+        dw0[:, n0:n0 + nb] = acc0[:C, :nb]
     return tfr.unpack_frozen(field, flat, d)
 
 
-@pytest.mark.parametrize("depth,coord,width", [(5, True, 16), (6, False, 16), (8, True, 256)])
+@pytest.mark.parametrize("depth,coord,width", [(5, True, 16), (6, False, 16), (8, True, 256),
+                                               (5, True, 256), (6, True, 64)])
 def test_k5_layout_matches_plain(depth, coord, width):
-    """The packed column blocks (two of 64 at width 256), the padded sem_in
-    rows and the gradient layout reproduce the plain version's grads."""
+    """The W0 ring of each cluster rank (four of 32 outputs at width 256,
+    the last ones empty at narrow widths), the tiles' point orders, ds in the B layout and
+    the gradient layout reproduce the plain version's grads; (5, True, 256)
+    is the 384-row head (C = 382: the skip after the last trunk layer, with
+    coordinates)."""
     torch.manual_seed(0)
     from nerfsos_torch.models.fields import NeRFField
-    field = NeRFField(net_depth=depth, net_width=width, multires=4, multires_views=2,
-                      use_semantics=True, sem_with_coord=coord, sem_dim=3)
+    field = NeRFField(net_depth=depth, net_width=width, multires=10 if width == 256 else 4,
+                      multires_views=2, use_semantics=True, sem_with_coord=coord, sem_dim=3)
     odv, z = (torch.from_numpy(a) for a in _inputs(2, 8))
     _, w, sem_in = tfr.train_render_plain(field, odv, z, noise_std=0.0, seed=0, save_semin=True)
     dmaps = torch.randn(R, 8)
@@ -231,6 +280,48 @@ def test_k5_layout_matches_plain(depth, coord, width):
         assert got[k].shape == want[k].shape, k
         scale = float(want[k].abs().max()) + 1e-12
         assert float((got[k] - want[k]).abs().max()) <= 1e-5 * scale, k
+
+
+def test_k5_ring_unpacks_to_the_weights():
+    """pack_frozen's rings are W0^T's TF32 parts, columns 32 r .. of rank r,
+    rows past C and columns past the head zero; its bias and W1 follow."""
+    torch.manual_seed(1)
+    from nerfsos_torch.models.fields import NeRFField
+    field = NeRFField(net_depth=5, net_width=256, multires=10, multires_views=2,
+                      use_semantics=True, sem_with_coord=True, sem_dim=3)
+    buf, d = tfr.pack_frozen(field)
+    lin0, lin2 = field.mlp.semantic_linear[0], field.mlp.semantic_linear[2]
+    wt = lin0.weight.detach().t()
+    assert (d.C, d.hidden, d.kslices) == (382, 128, 48)
+    for rank in range(tfr._SEM_RANKS):
+        hi, lo = _k5_ring(buf, d, rank)
+        part = wt[:, 32 * rank:32 * rank + 32]
+        assert torch.equal(hi[:d.C], tfr._tf32(part))
+        assert torch.equal(lo[:d.C], tfr._tf32(part - tfr._tf32(part)))
+        assert not hi[d.C:].any() and not lo[d.C:].any()
+    assert torch.equal(buf[d.b0:d.b0 + 128], lin0.bias.detach())
+    assert torch.equal(buf[d.w1:], lin2.weight.detach().reshape(-1))
+
+
+@pytest.mark.parametrize("depth,width,stages", [(8, 256, (2, 6)), (5, 256, (2, 2)),
+                                                (5, 16, (2, 6))])
+def test_k5_plan_fits_shared_memory(depth, width, stages):
+    """Two sem_in stages beside six W0 stages at the flagship head
+    (C = 319), beside two at the 384-row head (C = 382), within the
+    232,448 B a block can use; a head of more than 128 outputs is
+    refused."""
+    from nerfsos_torch.models.fields import NeRFField
+    field = NeRFField(net_depth=depth, net_width=width, multires=10 if width == 256 else 4,
+                      multires_views=4, use_semantics=True, sem_with_coord=True, sem_dim=2)
+    plan = tfr._frozen_plan(tfr.pack_frozen(field)[1])
+    assert (plan.xstages, plan.wstages) == stages
+    assert tfr._frozen_smem(plan) <= tfr._MAX_SMEM
+    if width == 256 and depth == 8:
+        assert tfr._frozen_smem(plan) == 229120
+    big = tfr.pack_frozen(field)[1]
+    big.hidden = 192
+    with pytest.raises(NotImplementedError):
+        tfr._frozen_plan(big)
 
 
 def test_cpu_wrappers_take_the_plain_path():

@@ -1,0 +1,27 @@
+"""The port's measurement tools on the CPU: the SASS spill scan of
+``nerfsos_torch/tools/sass_spills.py`` on a hand-written listing (the tool
+itself runs ``cuobjdump`` on the card's machine)."""
+from nerfsos_torch.tools import sass_spills
+
+_SASS = """
+        /*0000*/                   MOV R1, c[0x0][0x28] ;
+        /*0010*/                   STL [R1], R0 ;
+        /*0020*/                   LDL R3, [R1] ;
+        /*0030*/                   HGMMA.64x32x8.F32.TF32 R24, R8, gdesc[UR4], R24 ;
+        /*0040*/                   LDL R4, [R1+0x4] ;
+        /*0050*/              @!P0 BRA 0x20 ;
+        /*0060*/                   STL [R1+0x8], R5 ;
+        /*0070*/              @!P1 BRA 0x10 ;
+        /*0080*/                   EXIT ;
+"""
+
+
+def test_scan_counts_spills_in_the_innermost_wgmma_loop():
+    got = sass_spills.scan(_SASS)
+    assert got == {"hgmma": 1, "stl": 2, "ldl": 2, "wgmma_loops": 1,
+                   "stl_in_wgmma_loops": 0, "ldl_in_wgmma_loops": 2}
+
+
+def test_scan_without_wgmma_has_no_loops():
+    got = sass_spills.scan(_SASS.replace("HGMMA.64x32x8.F32.TF32", "FFMA"))
+    assert got["hgmma"] == 0 and got["wgmma_loops"] == 0 and got["ldl_in_wgmma_loops"] == 0
