@@ -10,12 +10,14 @@ Phases (one line each; any failure raises and the exit code is nonzero):
   1. build the kernels from nerfsos_torch/csrc with nvcc, one compiler per
      source at once (seconds), and print ptxas's register/spill report,
      with [reverse_ptxas]: the reverse-sweep kernel's line in each of its
-     four modes, its bwd_layer's and wgrad's frames, and any wgmma warning
-     (C75xx: serialised wgmma); such a warning for K2/K4's kernel or K5's
-     fails the run;
-  2. K1 (fused coarse weights) vs its plain PyTorch version at the flagship
-     width: depth 8, width 256, multires 10, 64 samples, 8192 rays; then
-     timed at the eval path's 32768 rays a launch beside its bound;
+     four modes, and any wgmma warning (C75xx: serialised wgmma); any such
+     warning (K1/K2/K4's kernel, K5's, the reverse sweep's bwd_layer and
+     wgrad products) fails the run;
+  2. K1 (fused coarse weights: K4's kernel in its sigma-only mode) vs its
+     plain PyTorch version at the flagship width: depth 8, width 256,
+     multires 10, 64 samples, 8192 rays, two calls bitwise equal; then at
+     the eval path's 32768 rays a launch, vs plain and timed beside its
+     bound, with ptxas's line for its kernel;
   3. K2 (fused fine render: K4's kernel without noise or sem_in) vs its
      plain version: 8192 rays, 192 samples, semantic head with coordinates
      (sem_dim 2), multires_views 4, fixed sorted z, two calls bitwise equal,
@@ -25,10 +27,10 @@ Phases (one line each; any failure raises and the exit code is nonzero):
      flagship weights saved as a reference-format .ckpt, evaluated through
      ``nerfsos_torch.run_nerf.main --eval``; the kernels' launch counters
      must show both kernels ran, log.json must hold finite metrics, the run's
-     seconds are split into render, metrics and the rest, the view's last K2
-     call is held against its plain version on its own inputs to TOL and
-     against a second call bitwise ([eval_k2]), and the view is rendered
-     again by the plain path and compared;
+     seconds are split into render, metrics and the rest, the view's last K1
+     and K2 calls are held against their plain versions on their own inputs
+     to TOL and against a second call bitwise ([eval_k1], [eval_k2]), and
+     the view is rendered again by the plain path and compared;
   5. K3 (fused RGB train pass) vs its plain version at the flagship width,
      sigma noise 1 from a fixed seed, fixed sorted z: at 4096 rays coarse
      S=64 and fine S=192 with the semantic head, then S=192 with white_bkgd
@@ -216,12 +218,12 @@ K7_TOL = 1e-4
 HBM_BYTES_S = 3.35e12
 FP32_MMA_FLOP_S = 495e12 / 3
 FP32_SIMT_FLOP_S = 67e12
-# ptxas's line for K4's kernel (train_render_wg_kernel, also K2's), for K5's
-# (frozen_sem_kernel), for K3's and K6's
-# forward (train_forward_wg_kernel, kLoss and kCotangent) and for the
-# reverse-sweep kernel (train_reverse_kernel by (kSem, kInGrad), with the
-# stack and spills of its bwd_layer and wgrad functions), read from the
-# build log in main
+# ptxas's line for K4's kernel (train_render_wg_kernel<false>, also K2's),
+# for K1's (its sigma-only mode, <true>), for K5's (frozen_sem_kernel), for
+# K3's and K6's forward (train_forward_wg_kernel, kLoss and kCotangent) and
+# for the reverse-sweep kernel (train_reverse_kernel by (kSem, kInGrad)),
+# read from the build log in main
+K1_PTXAS = None
 K4_PTXAS = None
 K5_PTXAS = None
 FWD_PTXAS = {}
@@ -352,6 +354,7 @@ def kernel_vs_plain_k1(fr) -> dict:
     od = odv[:, :6].contiguous()
     with torch.no_grad():
         got = fr.fused_coarse_weights(field, od, z)
+        again = fr.fused_coarse_weights(field, od, z)
         want = fr.coarse_weights_plain(field, od, z)
         torch.cuda.synchronize()
         err = max_err(got, want)
@@ -359,20 +362,27 @@ def kernel_vs_plain_k1(fr) -> dict:
         plain_ms = cuda_ms(lambda: fr.coarse_weights_plain(field, od, z))
     if not (torch.isfinite(got).all() and err <= TOL):
         raise SystemExit(f"K1 disagrees with its plain version: max_abs_err={err} > {TOL}")
+    if not torch.equal(got, again):
+        raise SystemExit("K1: two calls differ")
     bound = bound_ms(4 * (8192 * (6 + 2 * 64) + n_params(field)),
                      8192 * 64 * field_flops(field, "k1"))
-    phase("K1", rays=8192, samples=64, max_abs_err=err, tol=TOL, ms=ms, plain_ms=plain_ms,
-          **bound)
+    phase("K1", rays=8192, samples=64, max_abs_err=err, tol=TOL, deterministic=True, ms=ms,
+          plain_ms=plain_ms, **bound, ptxas=repr(K1_PTXAS))
     # at the eval path's 32768 rays a launch, the numbers the kernels line reports
     R = EVAL_CHUNK
     odv, z = ray_inputs(R, 64, seed=3)
     od = odv[:, :6].contiguous()
     with torch.no_grad():
+        got = fr.fused_coarse_weights(field, od, z)
+        err_r = max_err(got, fr.coarse_weights_plain(field, od, z))
         ms = cuda_ms(lambda: fr.fused_coarse_weights(field, od, z), reps=3)
         plain_ms = cuda_ms(lambda: fr.coarse_weights_plain(field, od, z), reps=2, warmup=1)
+    if not (torch.isfinite(got).all() and err_r <= TOL):
+        raise SystemExit(f"K1 at {R} rays disagrees with its plain version: {err_r} > {TOL}")
     bound = bound_ms(4 * (R * (6 + 2 * 64) + n_params(field)), R * 64 * field_flops(field, "k1"))
-    phase("K1", rays=R, samples=64, ms=ms, plain_ms=plain_ms, **bound)
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bound, "library_ms": None}
+    phase("K1", rays=R, samples=64, max_abs_err=err_r, tol=TOL, ms=ms, plain_ms=plain_ms, **bound)
+    return {"max_abs_err": max(err, err_r), "ms": ms, "plain_ms": plain_ms, **bound,
+            "library_ms": None}
 
 
 def kernel_vs_plain_k2(fr, use_semantics: bool) -> dict:
@@ -672,7 +682,8 @@ def eval_path(fr) -> dict:
 
     fr.fused_coarse_weights.launches = 0
     fr.fused_render.launches = 0
-    cap = Capture(fr, ["fused_render"])  # the view's K2 calls, held against plain below
+    # the view's K1 and K2 calls, held against plain below
+    cap = Capture(fr, ["fused_coarse_weights", "fused_render"])
     cap.on = True
     eval_lib.eval_one_view = recording_eval_one_view
     try:
@@ -706,6 +717,19 @@ def eval_path(fr) -> dict:
             raise SystemExit(f"rendered {k} holds non-finite values")
     phase("eval_metrics", psnr=log["total_psnr"], ssim=log["total_ssim"],
           clus_ari=log["total_clus_ari"], sem_ari=log["total_sem_ari"])
+    # the view's last K1 call against plain, and again on the same inputs, bitwise
+    a, _, got = cap.calls["fused_coarse_weights"][-1]
+    with torch.no_grad():
+        want = fr.coarse_weights_plain(*a)
+        again = fr.fused_coarse_weights(*a)
+    torch.cuda.synchronize()
+    err = max_err(got, want)
+    if not (torch.isfinite(got).all() and err <= TOL):
+        raise SystemExit(f"K1 on the eval view disagrees with its plain version: {err} > {TOL}")
+    if not torch.equal(got, again):
+        raise SystemExit("K1 on the eval view: two calls differ")
+    phase("eval_k1", calls=len(cap.calls["fused_coarse_weights"]), rays=a[2].shape[0],
+          samples=a[2].shape[1], max_abs_err=err, tol=TOL, deterministic=True)
     # the view's last K2 call (its own importance-sampled z) against plain, and
     # again on the same inputs, bitwise
     a, _, got = cap.calls["fused_render"][-1]
@@ -2510,15 +2534,18 @@ def main() -> int:
     lib_path = _build.build()
     _build.library()
     phase("build", seconds=time.perf_counter() - t0, lib=os.path.relpath(lib_path, ROOT))
-    global K4_PTXAS, K5_PTXAS
+    global K1_PTXAS, K4_PTXAS, K5_PTXAS
     with open(lib_path + ".log") as f:
         lines = f.read().splitlines()
-    calls, serialised = {}, []  # bwd_layer's and wgrad's frames; ptxas's wgmma warnings
+    serialised = []  # ptxas's wgmma warnings
     for i, line in enumerate(lines):
         if "registers" in line or "spill" in line:
             print("  ptxas:", line.strip())
-        if "Compiling entry function" in line and "train_render_wg_kernel" in line:
+        if "Compiling entry function" in line and "train_render_wg_kernelILb0E" in line:
             K4_PTXAS = "; ".join(x.replace("ptxas info    :", "").strip()
+                                 for x in lines[i + 2:i + 4])
+        if "Compiling entry function" in line and "train_render_wg_kernelILb1E" in line:
+            K1_PTXAS = "; ".join(x.replace("ptxas info    :", "").strip()
                                  for x in lines[i + 2:i + 4])
         if "Compiling entry function" in line and "frozen_sem_kernel" in line:
             K5_PTXAS = "; ".join(x.replace("ptxas info    :", "").strip()
@@ -2533,23 +2560,19 @@ def main() -> int:
             REV_PTXAS.setdefault((int(sem[0]), int(ingrad[0])), "; ".join(
                 x.replace("ptxas info    :", "").strip() for x in lines[i + 1:used + 1]
                 if "bytes" in x or "Used" in x))
-        if "Function properties for" in line and ("bwd_layer" in line or "wgrad" in line):
-            fn = "bwd_layer" if "bwd_layer" in line else "wgrad"
-            fn += "<kAccum>" if "bwd_layerILb1E" in line else ""
-            calls[fn] = lines[i + 1].strip()
         if ("wgmma" in line and "warning" in line) or "(C75" in line:
             serialised.append(line.strip())
-    if (K4_PTXAS is None or K5_PTXAS is None or sorted(FWD_PTXAS) != [1, 2]
+    if (K1_PTXAS is None or K4_PTXAS is None or K5_PTXAS is None or sorted(FWD_PTXAS) != [1, 2]
             or len(REV_PTXAS) != 4):
-        raise SystemExit("no ptxas report for K4's kernel (train_render_wg_kernel), K5's "
-                         "(frozen_sem_kernel), K3's and K6's forward (train_forward_wg_kernel) "
-                         "or the reverse sweep's four modes (train_reverse_kernel)")
-    # the redesigned kernels (K2/K4's and K5's) keep their wgmma pipelines
-    new = [x for x in serialised if "train_render_wg_kernel" in x or "frozen_sem_kernel" in x]
-    if new:
-        raise SystemExit(f"ptxas serialised the wgmma of K2/K4 or K5: {new}")
-    for key in REV_PTXAS:
-        REV_PTXAS[key] += "; " + "; ".join(f"{k}: {v}" for k, v in sorted(calls.items()))
+        raise SystemExit("no ptxas report for K1's and K4's kernel (train_render_wg_kernel), "
+                         "K5's (frozen_sem_kernel), K3's and K6's forward "
+                         "(train_forward_wg_kernel) or the reverse sweep's four modes "
+                         "(train_reverse_kernel)")
+    # every wgmma kernel keeps its pipeline: K1/K2/K4's, K5's, K3's and K6's
+    # forward, and the reverse sweep's bwd_layer and wgrad products (one
+    # inlined call site each, no call in the kernel)
+    if serialised:
+        raise SystemExit(f"ptxas serialised wgmma: {serialised}")
     phase("reverse_ptxas", modes={f"kSem={k[0]},kInGrad={k[1]}": v
                                   for k, v in sorted(REV_PTXAS.items())},
           wgmma_warnings=serialised)
@@ -2606,7 +2629,6 @@ def main() -> int:
     sos_launches = sos_run["launches"]
     full_launches, rand_launches = full_run["launches"], rand_run["launches"]
 
-    src = "nerfsos_torch/csrc/fused_render.cu"
     train_src = "nerfsos_torch/csrc/train_render.cu"
     corr_src = "nerfsos_torch/csrc/flash_corr.cu"
     field_src = "nerfsos_torch/csrc/fused_field.cu"
@@ -2623,7 +2645,8 @@ def main() -> int:
         return {"max_abs_err": err, **mip_parts[f"{kernel} fine"], "library_ms": None}
 
     kernels = [
-        {"name": "K1 fused_coarse_weights", "route": "cuda", "source": src,
+        {"name": "K1 fused_coarse_weights", "route": "cuda",
+         "source": "nerfsos_torch/csrc/wg_tile.cuh",
          "replaces": "nerfsos_tpu/ops/pallas/fused_render.py:458",
          "launches": launches["K1"], **k1},
         {"name": "K2 fused_render", "route": "cuda", "source": "nerfsos_torch/csrc/wg_tile.cuh",

@@ -159,16 +159,16 @@ def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
     lib = ctypes.CDLL(build())
     vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    desc_p = ctypes.POINTER(MLPDesc)
     train_p = ctypes.POINTER(TrainDesc)
-    lib.nerf_coarse_weights.argtypes = [vp, vp, vp, desc_p, vp, i32, i32, i32, vp]
     ring_p = ctypes.POINTER(RingDesc)
+    lib.nerf_coarse_weights.argtypes = [vp, vp, vp, vp, train_p, ring_p, vp, i32, i32, vp]
     lib.nerf_rgb_train_grads.argtypes = [vp, vp, vp, vp, vp, vp, train_p, ring_p, ring_p, vp, vp,
-                                         vp, vp, vp, i32, i32, i32, ctypes.c_uint, f32, i32, vp]
+                                         vp, vp, vp, i32, i32, i32, i32, ctypes.c_uint, f32, i32,
+                                         vp]
     lib.nerf_train_render.argtypes = [vp, vp, vp, vp, train_p, ring_p, vp, vp, vp, i32, i32,
                                       ctypes.c_uint, f32, vp]
     lib.nerf_train_render_grads.argtypes = [vp, vp, vp, vp, vp, vp, vp, train_p, ring_p, ring_p,
-                                            vp, vp, vp, i32, i32, i32, ctypes.c_uint, f32, vp]
+                                            vp, vp, vp, i32, i32, i32, i32, ctypes.c_uint, f32, vp]
     lib.nerf_frozen_sem_grads.argtypes = [vp, vp, vp, vp, ctypes.POINTER(FrozenDesc), vp, vp,
                                           ctypes.c_longlong, i32, i32, ctypes.c_longlong, vp]
     lib.nerf_frozen_sem_clusters.argtypes = [ctypes.POINTER(FrozenDesc),
@@ -176,12 +176,12 @@ def library() -> ctypes.CDLL:
     lib.nerf_mip_render.argtypes = [vp, vp, vp, train_p, vp, vp, i32, i32, ctypes.c_uint, f32,
                                     vp]
     lib.nerf_mip_train_render_grads.argtypes = [vp, vp, vp, vp, vp, vp, train_p, ring_p, vp, vp,
-                                                vp, i32, i32, i32, ctypes.c_uint, f32, vp]
+                                                vp, i32, i32, i32, i32, ctypes.c_uint, f32, vp]
     lib.nerf_field_sigma.argtypes = [vp, vp, train_p, vp, ctypes.c_longlong, vp]
     lib.nerf_field.argtypes = [vp, vp, vp, train_p, vp, ctypes.c_longlong, vp]
     lib.nerf_mip_field.argtypes = [vp, vp, vp, vp, train_p, vp, ctypes.c_longlong, vp]
     lib.nerf_field_grads.argtypes = [vp, vp, vp, vp, vp, vp, train_p, ring_p, ring_p, vp, vp, vp,
-                                     vp, vp, i32, i32, vp]
+                                     vp, vp, i32, i32, i32, vp]
     lib.geo_row_stats.argtypes = [vp, vp, vp, vp, i32, i32, i32, f32, vp]
     lib.geo_means.argtypes = [vp] * 10 + [i32] * 5 + [f32, f32, f32, vp]
     lib.geo_grads.argtypes = [vp] * 13 + [i32] * 5 + [f32, f32, f32, vp]

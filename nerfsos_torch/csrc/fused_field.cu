@@ -163,16 +163,18 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// grid CTAs (each with a d->ws_size workspace slice and a d->grad_size
-// partial gradient buffer) take the chunks of points in waves of grid: per
-// wave the forward kernel, then the reverse sweep; then the partials are
-// summed into grads [d->grad_size]. Returns the first CUDA error.
+// grid CTAs (each with a d->ws_size workspace slice and a d->grad_size partial
+// gradient buffer) take the chunks of points in waves of `group` forward
+// waves of grid chunks (train_grads's scheme): per wave the forward kernel
+// of each, chunk j of the group into sub j nsf .. of the slice's planes
+// (group_desc), then one reverse sweep over the group's chunks; then the
+// partials are summed into grads [d->grad_size]. Returns the first CUDA error.
 template <bool kSem, bool kInGrad>
 int field_grads_launch(const float* pts, const float* dirs, const float* g, const float* params,
                        const float* bring, const float* iring, const TrainDesc* d,
                        const RingDesc* brd, const RingDesc* ird, float* partial,
                        float* workspace, float* grads, float* dpts, float* ddirs, int N,
-                       int grid, cudaStream_t st) {
+                       int grid, int group, cudaStream_t st) {
   const int fwd_smem = tile_smem(d->f);
   cudaError_t err = cudaFuncSetAttribute(field_bwd_forward_kernel<kSem, kInGrad>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, fwd_smem);
@@ -180,12 +182,13 @@ int field_grads_launch(const float* pts, const float* dirs, const float* g, cons
     err = cudaFuncSetAttribute(train_reverse_kernel<kSem, kInGrad>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, kReverseSmem);
   if (err != cudaSuccess) return (int)err;
-  const int nchunks = (N + d->rays_per_chunk - 1) / d->rays_per_chunk;
-  for (int wave = 0; wave * grid < nchunks; ++wave) {
-    field_bwd_forward_kernel<kSem, kInGrad><<<grid, kThreads, fwd_smem, st>>>(
-        pts, dirs, g, params, *d, workspace, N, wave);
+  const long long nchunks = (N + d->rays_per_chunk - 1) / d->rays_per_chunk;
+  for (int wave = 0; (long long)wave * group * grid < nchunks; ++wave) {
+    for (int j = 0; j < group && (long long)(wave * group + j) * grid < nchunks; ++j)
+      field_bwd_forward_kernel<kSem, kInGrad><<<grid, kThreads, fwd_smem, st>>>(
+          pts, dirs, g, params, group_desc(*d, j, 1), workspace, N, wave * group + j);
     train_reverse_kernel<kSem, kInGrad><<<grid, kThreads, kReverseSmem, st>>>(
-        bring, iring, *d, *brd, *ird, partial, workspace, N, 1, wave, dpts, ddirs);
+        bring, iring, *d, *brd, *ird, partial, workspace, N, 1, wave, group, dpts, ddirs);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
@@ -223,26 +226,29 @@ extern "C" int nerf_mip_field(const float* mean, const float* cov, const float* 
 // [d->grad_size] (K6's layout), the input-gradient products' matrices from
 // bring (ops/fused_render.pack_bwd_ring) as brd describes; with dpts (then
 // also ddirs, d->ibwd and iring as ird describes: fused_field.pack_input_ring)
-// the points' and directions' gradients [N, 3]; see field_grads_launch.
+// the points' and directions' gradients [N, 3]; `group` forward chunks a
+// reverse sweep; see field_grads_launch.
 extern "C" int nerf_field_grads(const float* pts, const float* dirs, const float* g,
                                 const float* params, const float* bring, const float* iring,
                                 const TrainDesc* d, const RingDesc* brd, const RingDesc* ird,
                                 float* partial, float* workspace, float* grads, float* dpts,
-                                float* ddirs, int N, int grid, void* stream) {
+                                float* ddirs, int N, int grid, int group, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   const bool sem = d->f.sem_dim > 0;
   if (dpts != nullptr) {
     if (sem)
       return field_grads_launch<true, true>(pts, dirs, g, params, bring, iring, d, brd, ird,
-                                            partial, workspace, grads, dpts, ddirs, N, grid, st);
+                                            partial, workspace, grads, dpts, ddirs, N, grid, group,
+                                            st);
     return field_grads_launch<false, true>(pts, dirs, g, params, bring, iring, d, brd, ird,
-                                           partial, workspace, grads, dpts, ddirs, N, grid, st);
+                                           partial, workspace, grads, dpts, ddirs, N, grid, group,
+                                           st);
   }
   if (sem)
     return field_grads_launch<true, false>(pts, dirs, g, params, bring, nullptr, d, brd, ird,
                                            partial, workspace, grads, nullptr, nullptr, N, grid,
-                                           st);
+                                           group, st);
   return field_grads_launch<false, false>(pts, dirs, g, params, bring, nullptr, d, brd, ird,
                                           partial, workspace, grads, nullptr, nullptr, N, grid,
-                                          st);
+                                          group, st);
 }

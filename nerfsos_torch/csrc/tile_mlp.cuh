@@ -1,5 +1,5 @@
-// Device building blocks shared by the fused render kernels (fused_render.cu)
-// and the fused train kernel (train_render.cu): the packed-layer descriptor,
+// Device building blocks shared by the train kernels (train_render.cu) and
+// the field kernels (fused_field.cu): the packed-layer descriptor,
 // the 3xTF32 tensor-core dense layer over a 64-point tile, the few-output
 // SIMT head, the in-kernel positional encoding and mip-NeRF's cone-frustum
 // Gaussians with their integrated positional encoding.

@@ -54,11 +54,21 @@
 //     epilogue as a gate on the stored activation. The emb rows of the skip
 //     input, the view encoding and layer 0 need no input gradient and get
 //     none;
-//   * dW = X^T dY contracts over the chunk's points: 128 x 128 macro tiles
-//     whose X and dY rows stream through two shared-memory stages
-//     (cp.async), each warp a 32 x 32 block with m16n8k8 3xTF32 mma, added
-//     into the CTA's partial dW in global memory once a chunk. A third
-//     kernel sums the partials in a fixed order, so the gradients are
+//   * dW = X^T dY contracts over the points (train_sweep.cuh wgrad) on
+//     wgmma m64nNk8 in 3xTF32 too: M = X rows, N = dY rows, K = points.
+//     A second ring brings each sub's rows in blocks of 64 by bulk copies;
+//     the CTA converts the sub's dY rows once into TF32 parts in wgmma's
+//     K-major B layout, and each warpgroup multiplies a 64-row block of X
+//     (A, from its stage in registers) into its 64 x (<= 128) accumulators,
+//     so a sub's dY is staged once a layer and its X once a piece of 128
+//     outputs (the old 128 x 128 macro tiles read X again for every n0 and
+//     dY for every m0). A k-slice's k positions hold its points in the
+//     order 0, 2, 4, 6, 1, 3, 5, 7, so an A fragment's two points are one
+//     float2 and its loads hit 32 banks a half-warp. The reverse kernel
+//     sweeps `group` forward chunks at once (ops/fused_render._rev_group:
+//     about 2048 points), so the CTA's partial dW in global memory is read
+//     and written once a group rather than once a chunk. A third kernel
+//     sums the partials in a fixed order, so the gradients are
 //     deterministic (no atomics);
 //   * the semantic head runs forward only: in this loss its cotangent is
 //     identically zero, so its gradients are exact zeros (the wrapper writes
@@ -66,15 +76,22 @@
 //   * the sigma noise is the TPU kernel's hash: SplitMix-style avalanche of
 //     (global point index + seed) in uint32 arithmetic, Box-Muller with
 //     log1pf and cosf, so kernel and plain version draw the same values.
-// Where the time goes (H100 at 700 W, nerfsos_torch/tools/tile_probe.py, K6
-// at 32768 rays x 192 samples): the forward on K4's tile 152.6 of 564.2 ms
-// (fwdonly), the reverse sweep 411.6 ms (621.5 with the input-gradient
-// products on dense()'s 64-point tile); inside the reverse kernel
-// (sweepclock, thread 0 of CTA 0) the dW products (wgrad) 62%, of it 15
-// points issuing their cp.async staging, and the dX products (bwd_layer)
-// 38% (53% before).
+// Where the time went before wgrad's redesign (H100 at 700 W,
+// nerfsos_torch/tools/tile_probe.py, K6 at 32768 rays x 192 samples): the
+// forward on K4's tile 152.6 of 564.2 ms (fwdonly), the reverse sweep
+// 411.6 ms; inside the reverse kernel (sweepclock, thread 0 of CTA 0) the
+// dW products on m16n8k8 mma.sync 62%, of it 15 points issuing their
+// cp.async staging, and the dX products (bwd_layer) 38%.
 // Precision: fp32 throughout; the points and the PE phases as in the render
 // kernels (explicit round-to-nearest, accurate sinf), no fast-math.
+//
+// K1 (replaces fused_coarse_weights_planar -> _sigma_weights_kernel, the
+// eval's coarse pass: points o + d z, PE, the skip trunk, the alpha head,
+// the composite -> weights [R, S]) is K4's kernel below in its sigma-only
+// mode (train_render_wg_kernel<true>): od [R, 6] in, the trunk through the
+// tile's ring and wgmma, the alpha head, K3's composite without noise, the
+// weights out. Bound: the trunk's products (~0.98 MFLOP a flagship coarse
+// point, 12.49 ms at 32768 x 64 at 165 TFLOP/s).
 //
 // The same file holds the frozen-backbone SOS finetune's two kernels:
 //
@@ -266,8 +283,9 @@ enum Mode { kForward, kLoss, kCotangent };
 // (pre-sigmoid) and, for kCotangent, d_sem per point. kMip: odv is odvr
 // [R, 10] and zc fenceposts [nr][S + 1]; an interval's distance is
 // (t1 - t0)·‖d‖ with no far pad and its depth the midpoint (t0 + t1) / 2.
-// kThr: the threads that run it (threads 0 .. kThr - 1 of the CTA).
-template <int kMode, bool kMip = false, int kThr = kThreads>
+// kThr: the threads that run it (threads 0 .. kThr - 1 of the CTA). kCols:
+// the floats of a ray of odv (K1: od [R, 6]).
+template <int kMode, bool kMip = false, int kThr = kThreads, int kCols = kMip ? 10 : 9>
 __device__ __forceinline__ void composite_chunk(const float* __restrict__ odv, const float* zc,
                                                 const float* __restrict__ aux,
                                                 const float* __restrict__ dweights,
@@ -279,7 +297,7 @@ __device__ __forceinline__ void composite_chunk(const float* __restrict__ odv, c
   const int sem = d.f.sem_dim, cs = 6 + sem, nmaps = 5 + sem, nq = nr * S;
   const int p_dsem = P_ACT0 + d.f.depth + 1;
   for (int rl = threadIdx.x; rl < nr; rl += kThr) {
-    const float* ray = odv + (size_t)(r0 + rl) * (kMip ? 10 : 9);
+    const float* ray = odv + (size_t)(r0 + rl) * kCols;
     const float nd = sqrtf(ray[3] * ray[3] + ray[4] * ray[4] + ray[5] * ray[5]);
     const float* zr = zc + (size_t)rl * (kMip ? S + 1 : S);
     auto gap = [&](int s) {
@@ -398,18 +416,20 @@ __device__ __forceinline__ void zero_cotangent_padding(float* ws, const TrainDes
 }
 
 // K10b's wave `wave` of the forward on the 64-point tile: CTA b takes chunk
-// wave * gridDim.x + b into its workspace slice b: every activation of the
-// reverse sweep, then the composite (kCotangent: dsigma and drgb from
-// dmaps = aux and dweights). odv is odvr [R, 10] and z fenceposts
-// [R, S + 1]. K3 and K6 take train_forward_wg_kernel instead.
+// wave * gridDim.x + b into its workspace slice b (at the planes of d,
+// group_desc's for its place in a group of `group` forward waves, which
+// zero the cotangent planes' padding rows in the first group): every
+// activation of the reverse sweep, then the composite (kCotangent: dsigma
+// and drgb from dmaps = aux and dweights). odv is odvr [R, 10] and z
+// fenceposts [R, S + 1]. K3 and K6 take train_forward_wg_kernel instead.
 template <int kMode, bool kMip>
 __global__ void __launch_bounds__(kThreads, 1)
     train_forward_kernel(const float* __restrict__ odv, const float* __restrict__ z,
                          const float* __restrict__ aux, const float* __restrict__ dweights,
                          const float* __restrict__ params, const __grid_constant__ TrainDesc d,
                          float* __restrict__ maps, float* __restrict__ weights,
-                         float* __restrict__ workspace, int R, int S, int wave, unsigned seed,
-                         float noise_std, int white_bkgd) {
+                         float* __restrict__ workspace, int R, int S, int wave, int group,
+                         unsigned seed, float noise_std, int white_bkgd) {
   extern __shared__ float4 smem4[];
   const int rpc = d.rays_per_chunk;
   const int c = wave * gridDim.x + blockIdx.x;
@@ -418,7 +438,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   float* tile = strip + ((rpc * S * (6 + d.f.sem_dim) + 3) & ~3);  // emb, demb, hA, hB
   float* ws = workspace + (size_t)blockIdx.x * d.ws_size;
   zero_pad_rows(tile, d.f);
-  if (wave == 0) zero_cotangent_padding<kMode, kThreads>(ws, d, S);
+  if (wave < group) zero_cotangent_padding<kMode, kThreads>(ws, d, S);
   __syncthreads();
   const int r0 = c * rpc, nr = min(rpc, R - r0), nq = nr * S;
   const int nsub = (nq + kPts - 1) / kPts;
@@ -471,6 +491,10 @@ __global__ void __launch_bounds__(kThreads, 1)
 // 128 points (wg_tile.cuh: wg_cta's shared memory, wg_consumer's two
 // consumer warpgroups and producer thread); then the consumers composite
 // the chunk with the sigma noise into maps and weights (a thread a ray).
+// kSigma (K1, noise 0, maps and semin null): odv is od [R, 6] and the
+// tiles run the trunk and the alpha head alone; only the weights are
+// written.
+template <bool kSigma>
 __global__ void __launch_bounds__(kWgThreads, 1)
     train_render_wg_kernel(const float* __restrict__ odv, const float* __restrict__ z,
                            const float* __restrict__ params, const float* __restrict__ ring,
@@ -483,24 +507,27 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   const int rpc = d.rays_per_chunk, r0 = blockIdx.x * rpc, nr = min(rpc, R - r0), nq = nr * S;
   const int ntiles = (nq + kWgTile - 1) / kWgTile;
   __syncthreads();
-  if (!wg_consumer(ring, d.f, rd, cta.rg, ntiles)) return;
+  if (!wg_consumer(ring, d.f, rd, cta.rg, ntiles, !kSigma)) return;
   float* mine = cta.tiles + (threadIdx.x >> 7) * cta.per_wg;
   float* strip = cta.strip;
   const float* zc = z + (size_t)r0 * S;
   int pos = 0;
   for (int tile = 0; tile < ntiles; ++tile)
-    pos = wg_forward_tile<false, false>(odv, zc, r0, S, nq, tile, params, d, rd, cta.rg, pos,
-                                        mine, strip, semin, (long long)r0 * S, nullptr);
+    pos = wg_forward_tile<false, false, kSigma>(odv, zc, r0, S, nq, tile, params, d, rd, cta.rg,
+                                                pos, mine, strip, semin, (long long)r0 * S,
+                                                nullptr);
   asm volatile("bar.sync 3, %0;\n" ::"n"(kWgConsumers) : "memory");  // the strip is whole
-  composite_chunk<kForward, false, kWgConsumers>(odv, zc, nullptr, nullptr, d, nullptr, strip,
-                                                 maps, weights, r0, nr, S, 0, seed, noise_std, 0);
+  composite_chunk<kForward, false, kWgConsumers, kSigma ? 6 : 9>(
+      odv, zc, nullptr, nullptr, d, nullptr, strip, maps, weights, r0, nr, S, 0, seed, noise_std,
+      0);
 }
 
 // K3 (kLoss) and K6 (kCotangent): wave `wave` of the storing forward on
 // K4's tile. CTA b takes chunk wave * gridDim.x + b in 128-point tiles
 // (threads, registers and shared memory as train_render_wg_kernel's) and
 // writes every activation the reverse sweep reads into its workspace slice
-// b, sub 2 t + w for warpgroup w of tile t (wg_forward_tile's kStore); then
+// b, sub 2 t + w for warpgroup w of tile t (wg_forward_tile's kStore) of
+// d's planes (group_desc's, as train_forward_kernel's); then
 // the consumers composite the chunk (kLoss: maps, weights, dsigma and drgb
 // from gt = aux; kCotangent: dsigma, drgb and d_sem from dmaps = aux and
 // dweights). train_reverse_kernel then sweeps the slice.
@@ -512,7 +539,8 @@ __global__ void __launch_bounds__(kWgThreads, 1)
                             const __grid_constant__ TrainDesc d,
                             const __grid_constant__ RingDesc rd, float* __restrict__ maps,
                             float* __restrict__ weights, float* __restrict__ workspace, int R,
-                            int S, int wave, unsigned seed, float noise_std, int white_bkgd) {
+                            int S, int wave, int group, unsigned seed, float noise_std,
+                            int white_bkgd) {
   extern __shared__ __align__(128) unsigned char wg_raw[];
   const int rpc = d.rays_per_chunk, c = wave * gridDim.x + blockIdx.x;
   if (c * rpc >= R) return;
@@ -520,7 +548,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   float* ws = workspace + (size_t)blockIdx.x * d.ws_size;
   const int r0 = c * rpc, nr = min(rpc, R - r0), nq = nr * S;
   const int ntiles = (nq + kWgTile - 1) / kWgTile, nsub = (nq + kPts - 1) / kPts;
-  if (wave == 0) zero_cotangent_padding<kMode, kWgThreads>(ws, d, S);
+  if (wave < group) zero_cotangent_padding<kMode, kWgThreads>(ws, d, S);
   __syncthreads();
   if (!wg_consumer(ring, d.f, rd, cta.rg, ntiles)) return;
   float* mine = cta.tiles + (threadIdx.x >> 7) * cta.per_wg;
@@ -1004,13 +1032,33 @@ extern "C" int nerf_train_render(const float* odv, const float* z, const float* 
                                  float* maps, float* weights, float* semin, int R, int S,
                                  unsigned seed, float noise_std, void* stream) {
   const int smem = wg_smem(d, rd, S);
-  cudaError_t err = cudaFuncSetAttribute(train_render_wg_kernel,
+  cudaError_t err = cudaFuncSetAttribute(train_render_wg_kernel<false>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const int nchunks = (R + d->rays_per_chunk - 1) / d->rays_per_chunk;
-  train_render_wg_kernel<<<nchunks, kWgThreads, smem, (cudaStream_t)stream>>>(
+  train_render_wg_kernel<false><<<nchunks, kWgThreads, smem, (cudaStream_t)stream>>>(
       odv, z, params, ring, *d, *rd, maps, weights, semin, R, S, seed, noise_std);
   return (int)cudaGetLastError();
+}
+
+// K1: the eval's coarse pass, od [R, 6] and z [R, S] -> weights [R, S]:
+// K4's kernel in its sigma-only mode (the trunk's weights from ring as rd
+// describes), no noise; one launch, a CTA a chunk of d->rays_per_chunk rays.
+extern "C" int nerf_coarse_weights(const float* od, const float* z, const float* params,
+                                   const float* ring, const TrainDesc* d, const RingDesc* rd,
+                                   float* weights, int R, int S, void* stream) {
+  const int smem = wg_smem(d, rd, S);
+  cudaError_t err = cudaFuncSetAttribute(train_render_wg_kernel<true>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int nchunks = (R + d->rays_per_chunk - 1) / d->rays_per_chunk;
+  train_render_wg_kernel<true><<<nchunks, kWgThreads, smem, (cudaStream_t)stream>>>(
+      od, z, params, ring, *d, *rd, nullptr, weights, nullptr, R, S, 0u, 0.f);
+  return (int)cudaGetLastError();
+}
+
+extern "C" const char* nerf_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
 }
 
 // K9 (noise_std 0) and K10a: the mip render pass, odvr [R, 10] and
@@ -1069,10 +1117,12 @@ extern "C" int nerf_frozen_sem_grads(const float* semin, const float* weights,
 namespace {
 
 // grid CTAs (each with a d->ws_size workspace slice and a d->grad_size partial
-// gradient buffer) take the chunks of rays in waves of grid: per wave the
-// forward kernel (K3, K6: train_forward_wg_kernel on K4's tile, with the
-// ring of ring and rd; kMip, K10b: train_forward_kernel), then the
-// reverse-sweep kernel (its input-gradient products' matrices from the
+// gradient buffer) take the chunks of rays in waves of `group` forward
+// waves of grid chunks: per wave the forward kernel of each (K3, K6:
+// train_forward_wg_kernel on K4's tile, with the ring of ring and rd;
+// kMip, K10b: train_forward_kernel), chunk j of the group into sub j nsf ..
+// of the slice's planes (group_desc), then one reverse-sweep kernel over
+// the group's chunks (its input-gradient products' matrices from the
 // backward ring bring as brd describes); then the partials are summed into
 // grads [d->grad_size]. Returns the first CUDA error of the launches.
 template <int kMode, bool kSem, bool kMip = false>
@@ -1080,7 +1130,8 @@ int train_grads(const float* odv, const float* z, const float* aux, const float*
                 const float* params, const float* ring, const float* bring,
                 const TrainDesc* d, const RingDesc* rd, const RingDesc* brd, float* maps,
                 float* weights, float* partial, float* workspace, float* grads, int R, int S,
-                int grid, unsigned seed, float noise_std, int white_bkgd, cudaStream_t st) {
+                int grid, int group, unsigned seed, float noise_std, int white_bkgd,
+                cudaStream_t st) {
   int fwd_smem;
   cudaError_t err;
   if constexpr (kMip) {
@@ -1096,19 +1147,23 @@ int train_grads(const float* odv, const float* z, const float* aux, const float*
     err = cudaFuncSetAttribute(train_reverse_kernel<kSem>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, kReverseSmem);
   if (err != cudaSuccess) return (int)err;
-  const int nchunks = (R + d->rays_per_chunk - 1) / d->rays_per_chunk;
-  for (int wave = 0; wave * grid < nchunks; ++wave) {
-    if constexpr (kMip) {
-      train_forward_kernel<kMode, true><<<grid, kThreads, fwd_smem, st>>>(
-          odv, z, aux, dweights, params, *d, maps, weights, workspace, R, S, wave, seed,
-          noise_std, white_bkgd);
-    } else {
-      train_forward_wg_kernel<kMode><<<grid, kWgThreads, fwd_smem, st>>>(
-          odv, z, aux, dweights, params, ring, *d, *rd, maps, weights, workspace, R, S, wave,
-          seed, noise_std, white_bkgd);
+  const long long nchunks = (R + d->rays_per_chunk - 1) / d->rays_per_chunk;
+  for (int wave = 0; (long long)wave * group * grid < nchunks; ++wave) {
+    for (int j = 0; j < group && (long long)(wave * group + j) * grid < nchunks; ++j) {
+      const TrainDesc dj = group_desc(*d, j, S);
+      if constexpr (kMip) {
+        train_forward_kernel<kMode, true><<<grid, kThreads, fwd_smem, st>>>(
+            odv, z, aux, dweights, params, dj, maps, weights, workspace, R, S, wave * group + j,
+            group, seed, noise_std, white_bkgd);
+      } else {
+        train_forward_wg_kernel<kMode><<<grid, kWgThreads, fwd_smem, st>>>(
+            odv, z, aux, dweights, params, ring, dj, *rd, maps, weights, workspace, R, S,
+            wave * group + j, group, seed, noise_std, white_bkgd);
+      }
     }
     train_reverse_kernel<kSem><<<grid, kThreads, kReverseSmem, st>>>(
-        bring, nullptr, *d, *brd, RingDesc{}, partial, workspace, R, S, wave, nullptr, nullptr);
+        bring, nullptr, *d, *brd, RingDesc{}, partial, workspace, R, S, wave, group, nullptr,
+        nullptr);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
@@ -1125,10 +1180,11 @@ extern "C" int nerf_rgb_train_grads(const float* odv, const float* z, const floa
                                     const float* params, const float* ring, const float* bring,
                                     const TrainDesc* d, const RingDesc* rd, const RingDesc* brd,
                                     float* maps, float* weights, float* partial, float* workspace,
-                                    float* grads, int R, int S, int grid, unsigned seed,
-                                    float noise_std, int white_bkgd, void* stream) {
+                                    float* grads, int R, int S, int grid, int group,
+                                    unsigned seed, float noise_std, int white_bkgd,
+                                    void* stream) {
   return train_grads<kLoss, false>(odv, z, gt, nullptr, params, ring, bring, d, rd, brd, maps,
-                                   weights, partial, workspace, grads, R, S, grid, seed,
+                                   weights, partial, workspace, grads, R, S, grid, group, seed,
                                    noise_std, white_bkgd, (cudaStream_t)stream);
 }
 
@@ -1142,16 +1198,16 @@ extern "C" int nerf_train_render_grads(const float* odv, const float* z, const f
                                        const float* ring, const float* bring,
                                        const TrainDesc* d, const RingDesc* rd,
                                        const RingDesc* brd, float* partial, float* workspace,
-                                       float* grads, int R, int S, int grid, unsigned seed,
-                                       float noise_std, void* stream) {
+                                       float* grads, int R, int S, int grid, int group,
+                                       unsigned seed, float noise_std, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   if (d->f.sem_dim > 0)
     return train_grads<kCotangent, true>(odv, z, dmaps, dweights, params, ring, bring, d, rd,
                                          brd, nullptr, nullptr, partial, workspace, grads, R, S,
-                                         grid, seed, noise_std, 0, st);
+                                         grid, group, seed, noise_std, 0, st);
   return train_grads<kCotangent, false>(odv, z, dmaps, dweights, params, ring, bring, d, rd,
                                         brd, nullptr, nullptr, partial, workspace, grads, R, S,
-                                        grid, seed, noise_std, 0, st);
+                                        grid, group, seed, noise_std, 0, st);
 }
 
 // K10b: the mip train render's backward from the maps' cotangent dmaps
@@ -1163,10 +1219,10 @@ extern "C" int nerf_mip_train_render_grads(const float* odvr, const float* z, co
                                            const float* dweights, const float* params,
                                            const float* bring, const TrainDesc* d,
                                            const RingDesc* brd, float* partial, float* workspace,
-                                           float* grads, int R, int S, int grid, unsigned seed,
-                                           float noise_std, void* stream) {
+                                           float* grads, int R, int S, int grid, int group,
+                                           unsigned seed, float noise_std, void* stream) {
   return train_grads<kCotangent, false, true>(odvr, z, dmaps, dweights, params, nullptr, bring,
                                               d, nullptr, brd, nullptr, nullptr, partial,
-                                              workspace, grads, R, S, grid, seed, noise_std, 0,
-                                              (cudaStream_t)stream);
+                                              workspace, grads, R, S, grid, group, seed,
+                                              noise_std, 0, (cudaStream_t)stream);
 }

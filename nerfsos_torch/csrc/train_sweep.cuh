@@ -5,9 +5,10 @@
 // its workspace planes, the forward of one 64-point tile (storing what the
 // reverse sweep reads), the input-gradient product of a layer (bwd_layer:
 // wgmma 3xTF32, its matrix and dY through a ring of shared-memory stages
-// filled by bulk copies), the weight-gradient product (wgrad), the reverse
-// sweep of the field MLP from the per-point cotangents of its outputs, and
-// the CTA-ordered reduction of the partial gradients.
+// filled by bulk copies), the weight-gradient product (wgrad: wgmma 3xTF32,
+// the X and dY rows of each sub through a second ring of bulk copies), the
+// reverse sweep of the field MLP from the per-point cotangents of its
+// outputs, and the CTA-ordered reduction of the partial gradients.
 #pragma once
 
 #include "tile_mlp.cuh"
@@ -47,15 +48,12 @@ __device__ __noinline__ void dense_call(const float* __restrict__ params, const 
   dense(params, L, s0, s1, s2, out, relu);
 }
 
-// One input of a weight-gradient product: up to two planes, in row order.
+// One input of a weight-gradient product: up to three planes, in row order.
 struct XSegs {
   int p[3];
   int n;
 };
 
-constexpr int kWgM = 128, kWgN = 128;  // dW macro tile: 4 x 4 warps of 32 x 32
-constexpr int kLdS = 68;               // staged row stride (floats), = 4 mod 32
-constexpr int kStageFloats = (kWgM + kWgN) * kLdS;
 // The backward ring of bwd_layer: kBwdStages stages, each one k step s of a
 // product: the k-slice of its matrix (16 N floats: the TF32 high parts, then
 // the low parts, N <= kBwdMaxN), in slot j the 8 dY rows of that k step of
@@ -67,50 +65,18 @@ constexpr int kBwdSlot = 8 * kLd;
 constexpr int kBwdGate = 16 * kBwdMaxN + 4 * kBwdSlot;  // the gate slots' offset
 constexpr int kBwdStageFloats = kBwdGate + 4 * kBwdSlot;
 constexpr int kBwdStages = 4;
-// The reverse kernel's shared memory: the ring's barriers (128 B), then the
-// stages that wgrad (two of kStageFloats) and the ring take in turn.
-constexpr int kStagingFloats = kBwdStages * kBwdStageFloats > 2 * kStageFloats
-                                   ? kBwdStages * kBwdStageFloats
-                                   : 2 * kStageFloats;
-constexpr int kReverseSmem = 128 + kStagingFloats * (int)sizeof(float);
-
-__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
-
-// Copy one 64-point tile of X rows [m0, m0 + 128) and dY rows [n0, n0 + 128)
-// into a stage ([256][kLdS]: X rows, then dY rows; rows past kpad / ldn are
-// zero), as one cp.async group.
-__device__ void stage_tiles(float* stage, float* ws, const TrainDesc& d, XSegs X, int kpad,
-                            int dy, int ldn, int m0, int n0, int sub) {
-  for (int c = threadIdx.x; c < (kWgM + kWgN) * (kPts / 4); c += kThreads) {
-    const int r = c / (kPts / 4), q = (c % (kPts / 4)) * 4;
-    float* dst = stage + r * kLdS + q;
-    const float* src = nullptr;
-    if (r < kWgM) {
-      int m = m0 + r;
-      if (m < kpad) {
-        for (int s = 0; s < X.n; ++s) {
-          const int rows = d.rows[X.p[s]];
-          if (m < rows) {
-            src = ws + d.plane[X.p[s]] + ((size_t)sub * rows + m) * kLd + q;
-            break;
-          }
-          m -= rows;
-        }
-      }
-    } else if (n0 + r - kWgM < ldn) {
-      src = ws + d.plane[dy] + ((size_t)sub * d.rows[dy] + n0 + r - kWgM) * kLd + q;
-    }
-    if (src) {
-      cp_async16(dst, src);
-    } else {
-      *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-  }
-  asm volatile("cp.async.commit_group;\n" ::);
-}
+// wgrad's ring: kWgrStages stages, each a block of up to 64 rows of one
+// 64-point sub of a plane ([row][kLd], as the plane holds them, one bulk
+// copy a plane it spans); B: a sub's dY rows of a round as the wgmma B
+// operand (per k-slice of 8 points the TF32 high then low parts, at most
+// kWgrMaxN outputs); db: a sub's sums of dY over each k-slice's points
+// ([8][kWgrMaxN]).
+constexpr int kWgrStageFloats = 64 * kLd;
+constexpr int kWgrStages = 8;
+constexpr int kWgrMaxN = 128;
+constexpr int kWgrB = 8 * 16 * kWgrMaxN;
+constexpr int kWgrDb = 8 * kWgrMaxN;
+constexpr int kWgrFloats = kWgrB + kWgrDb + kWgrStages * kWgrStageFloats;
 
 // The reverse kernel's view of the backward ring: stage pos (counted over
 // the kernel's run) lies in slot pos % kBwdStages, and its fill completes
@@ -138,11 +104,11 @@ struct BwdRing {
 // waits on no load of it: an epilogue that loads no gate took K6 at
 // 32768 x 192 from 567 to 528 ms (results wrong; H100,
 // nerfsos_torch/tools/tile_probe.py).
-template <int NP, bool kAccum>
+template <int NP>
 __device__ __forceinline__ int bwd_pieces(const float* __restrict__ src, int N, int nk,
                                           int ldn, float* ws, const TrainDesc& d, int p0,
                                           int p1, int out, int gate, int nsub,
-                                          const BwdRing& br, int pos) {
+                                          const BwdRing& br, int pos, bool add) {
   const int tid = threadIdx.x, wg = tid >> 7, lane = tid & 31, w = (tid >> 5) & 3;
   const int g = lane >> 2, t = lane & 3;
   const int m0 = 16 * w + g;  // the thread's accumulator rows: points m0 and m0 + 8
@@ -222,9 +188,9 @@ __device__ __forceinline__ int bwd_pieces(const float* __restrict__ src, int N, 
 #pragma unroll
     for (int i = 0; i < NP / 2; ++i) asm volatile("" : "+f"(acc[i])::"memory");
     // accumulator i: point m0 + 8 ((i >> 1) & 1), output n0 + 8 (i >> 2) + 2 t + (i & 1);
-    // dense()'s epilogue: kAccum adds out's value, then the gate (the
-    // ring's bits, or loaded), then the store of the plane's rows n < ldn
-    // (the matrices' bias is zero)
+    // dense()'s epilogue: add adds out's value, then the gate (the ring's
+    // bits, or loaded), then the store of the plane's rows n < ldn (the
+    // matrices' bias is zero)
     float* o = plane(ws, d, out, sub) + (size_t)n0 * kLd + m0;
     const float* gp =
         gate >= 0 && !ring_gate ? plane(ws, d, gate, sub) + (size_t)n0 * kLd + m0 : nullptr;
@@ -235,7 +201,7 @@ __device__ __forceinline__ int bwd_pieces(const float* __restrict__ src, int N, 
       float* r0 = o + n * kLd;
       float* r1 = r0 + kLd;
       float v[4] = {acc[4 * q], acc[4 * q + 1], acc[4 * q + 2], acc[4 * q + 3]};
-      if (kAccum) {
+      if (add) {
         v[0] += r0[0];
         v[1] += r1[0];
         v[2] += r0[8];
@@ -270,14 +236,15 @@ __device__ __forceinline__ int bwd_pieces(const float* __restrict__ src, int N, 
 // width). dY is up to two planes of rows (p0 then p1). On wgmma m64nNPk8
 // in 3xTF32 (lo x hi, hi x lo, hi x hi), A = a sub's dY from the stage in
 // registers, B = the stage's slice, in pieces of NP = min(N, 128) outputs
-// (64 accumulators a thread under the kernel's 128 registers). kAccum:
-// the product is added to what out holds (before the gate). Returns the
-// ring position after the layer's stages. One function with no calls, so
-// ptxas keeps the wgmma pipeline.
-template <bool kAccum = false>
-__device__ __noinline__ int bwd_layer(const float* __restrict__ src, int N, const LayerDesc L,
-                                      float* ws, const TrainDesc& d, int p0, int p1, int out,
-                                      int gate, int nsub, const BwdRing br, int pos) {
+// (64 accumulators a thread under the kernel's 128 registers). add: the
+// product is added to what out holds (before the gate). Returns the ring
+// position after the layer's stages. Inlined into the reverse kernel's one
+// call site, so no call splits a wgmma pipeline (ptxas serialises every
+// wgmma of a function whose pipeline crosses a call, C7510).
+__device__ __forceinline__ int bwd_layer(const float* __restrict__ src, int N, const LayerDesc L,
+                                         float* ws, const TrainDesc& d, int p0, int p1, int out,
+                                         int gate, int nsub, const BwdRing br, int pos,
+                                         bool add) {
   // the planes' stores and wgrad's use of the stages before the bulk copies
   asm volatile("fence.proxy.async;\n" ::: "memory");
   __syncthreads();
@@ -285,143 +252,315 @@ __device__ __noinline__ int bwd_layer(const float* __restrict__ src, int N, cons
   switch (N) {
     case 256:
     case 128:
-      pos = bwd_pieces<128, kAccum>(src, N, nk, ldn, ws, d, p0, p1, out, gate, nsub, br, pos);
+      pos = bwd_pieces<128>(src, N, nk, ldn, ws, d, p0, p1, out, gate, nsub, br, pos, add);
       break;
     case 64:
-      pos = bwd_pieces<64, kAccum>(src, N, nk, ldn, ws, d, p0, p1, out, gate, nsub, br, pos);
+      pos = bwd_pieces<64>(src, N, nk, ldn, ws, d, p0, p1, out, gate, nsub, br, pos, add);
       break;
     case 32:
-      pos = bwd_pieces<32, kAccum>(src, N, nk, ldn, ws, d, p0, p1, out, gate, nsub, br, pos);
+      pos = bwd_pieces<32>(src, N, nk, ldn, ws, d, p0, p1, out, gate, nsub, br, pos, add);
       break;
     case 16:
-      pos = bwd_pieces<16, kAccum>(src, N, nk, ldn, ws, d, p0, p1, out, gate, nsub, br, pos);
+      pos = bwd_pieces<16>(src, N, nk, ldn, ws, d, p0, p1, out, gate, nsub, br, pos, add);
       break;
     default:
-      pos = bwd_pieces<8, kAccum>(src, N, nk, ldn, ws, d, p0, p1, out, gate, nsub, br, pos);
+      pos = bwd_pieces<8>(src, N, nk, ldn, ws, d, p0, p1, out, gate, nsub, br, pos, add);
   }
   __syncthreads();  // out is whole before wgrad or the next product reads it
   return pos;
 }
 
-// dW[m][n] += sum over the chunk's points of X[m][p] * dY[n][p] and
-// db[n] += sum_p dY[n][p], for m < sum of the segments' rows and n < ldn.
-// The CTA walks 128 x 128 macro tiles of dW; for each it streams the chunk's
-// 64-point tiles of the X and dY rows it needs through two shared-memory
-// stages (cp.async, the next tile in flight while this one is multiplied),
-// and warp (wm, wn) accumulates its 32 x 32 block with m16n8k8 3xTF32 mma
-// (A = X rows, B = dY rows, k = points), then adds it into the CTA's
-// partial dW in global memory.
-__device__ __noinline__ void wgrad(float* ws, const TrainDesc& d, XSegs X, int dy, int ldn,
-                                   float* __restrict__ dW, float* __restrict__ db, int nsub,
-                                   float* stages) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = warp & 3, wn = warp >> 2;
-  int kpad = 0;
-  for (int s = 0; s < X.n; ++s) kpad += d.rows[X.p[s]];
-  for (int m0 = 0; m0 < kpad; m0 += kWgM) {
-    for (int n0 = 0; n0 < ldn; n0 += kWgN) {
-      float acc[2][4][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[mt][j][i] = 0.f;
-      float dbacc = 0.f;
-      const bool warp_live = m0 + wm * 32 < kpad && n0 + wn * 32 < ldn;
-      stage_tiles(stages, ws, d, X, kpad, dy, ldn, m0, n0, 0);
-      for (int sub = 0; sub < nsub; ++sub) {
-        if (sub + 1 < nsub) {
-          stage_tiles(stages + ((sub + 1) & 1) * kStageFloats, ws, d, X, kpad, dy, ldn, m0, n0,
-                      sub + 1);
-          asm volatile("cp.async.wait_group 1;\n" ::);
-        } else {
-          asm volatile("cp.async.wait_group 0;\n" ::);
+// The reverse kernel's view of wgrad's ring: stage pos (counted over the
+// kernel's run) in slot pos % kWgrStages, its fill completing phase
+// (pos / kWgrStages) & 1 of the slot's full barrier; its consumers free it
+// with 16 arrivals on the slot's empty barrier (a dY stage: each of the
+// CTA's 16 warps once; an X stage: each warp of its warpgroup 4 times).
+struct WgrRing {
+  uint64_t* full;
+  uint64_t* empty;
+  float* b;
+  float* db;
+  float* stages;
+};
+
+// Round r of a layer's dW: the dY rows [pc NP, pc NP + nrow) (nd stages of
+// up to 64 rows a sub) against the X row blocks mb0 .. mb0 + cnt - 1 of 64
+// rows (warpgroup w takes block mb0 + w); rounds go m-group by m-group of
+// four blocks (ngr of them), then piece by piece.
+struct WgrRound {
+  int pc, mb0, cnt, nrow, nd;
+};
+
+__device__ __forceinline__ WgrRound wgr_round(int r, int ngr, int nm, int NP, int ldn) {
+  WgrRound o;
+  o.pc = r / ngr;
+  o.mb0 = 4 * (r - o.pc * ngr);
+  o.cnt = min(4, nm - o.mb0);
+  o.nrow = min(NP, ldn - o.pc * NP);
+  o.nd = (o.nrow + 63) / 64;
+  return o;
+}
+
+// Rows [r0, r1) of the concatenation of X's planes, sub `sub`, to dst: one
+// bulk copy a plane they span, completing on bar (issue false: none).
+// Returns their bytes.
+__device__ __forceinline__ uint32_t copy_rows(float* dst, float* ws, const TrainDesc& d,
+                                              const XSegs& X, int sub, int r0, int r1,
+                                              uint64_t* bar, bool issue) {
+  uint32_t bytes = 0;
+  int off = 0;
+  for (int s = 0; s < X.n; ++s) {
+    const int rows = d.rows[X.p[s]], lo = max(r0, off), hi = min(r1, off + rows);
+    if (lo < hi) {
+      const uint32_t nb = (uint32_t)(hi - lo) * kLd * 4;
+      if (issue)
+        bulk_g2s(dst + (lo - r0) * kLd, plane(ws, d, X.p[s], sub) + (size_t)(lo - off) * kLd,
+                 nb, bar);
+      bytes += nb;
+    }
+    off += rows;
+  }
+  return bytes;
+}
+
+// x as TF32 high and low parts, four consecutive floats each at hi and lo
+__device__ __forceinline__ void split4(float* hi, float* lo, float a, float b, float c, float e) {
+  uint32_t h[4], l[4];
+  split(a, h[0], l[0]);
+  split(b, h[1], l[1]);
+  split(c, h[2], l[2]);
+  split(e, h[3], l[3]);
+  *reinterpret_cast<uint4*>(hi) = make_uint4(h[0], h[1], h[2], h[3]);
+  *reinterpret_cast<uint4*>(lo) = make_uint4(l[0], l[1], l[2], l[3]);
+}
+
+// wgrad at a piece width NP (see wgrad). Sub by sub of a round: the CTA
+// converts the sub's dY rows from their stages into B (and, in a piece's
+// first round, db's sums), then warpgroup w multiplies its X block's stage
+// into its accumulators, 8 k steps of three wgmma; after the round's last
+// sub each warpgroup adds its 64 x NP block into dW. Thread 0 fills the
+// ring: at the call's start, whenever it waits for a stage, once a k step,
+// and after the conversion (then waiting for a free slot) every X stage of
+// the sub; a slot is never waited for before its last use is done.
+template <int NP>
+__device__ __forceinline__ int wgrad_rounds(float* ws, const TrainDesc& d, const XSegs X,
+                                            int kpad, int dy, int ldn, float* __restrict__ dW,
+                                            float* __restrict__ db, int nsub, const WgrRing& wr,
+                                            int wpos) {
+  constexpr int K = kWgrStages;
+  const int tid = threadIdx.x, lane = tid & 31, w = (tid >> 5) & 3;
+  // the warpgroup, warp-uniform as ptxas sees it (C7520 otherwise)
+  const int wg = __shfl_sync(0xffffffffu, tid >> 7, 0);
+  const int g = lane >> 2, t = lane & 3, m0 = 16 * w + g;
+  const int nm = (kpad + 63) / 64, ngr = (nm + 3) / 4;
+  const int nrounds = ((ldn + NP - 1) / NP) * ngr;
+  const XSegs Y{{dy, 0, 0}, 1};
+  // thread 0's next fill: round fr (its plan frd), sub fs, item fi (items
+  // 0 .. nd - 1 the dY blocks, then the X blocks), ring position fpos
+  int fr = 0, fs = 0, fi = 0, fpos = wpos;
+  WgrRound frd = wgr_round(0, ngr, nm, NP, ldn);
+  auto pump = [&](int until) {  // fill every stage before `until`, then those with a free slot
+    while (fr < nrounds) {
+      uint64_t* e = wr.empty + fpos % K;
+      const uint32_t par = ((fpos / K) & 1) ^ 1;
+      if (fpos < until) {
+        while (!mbar_try_wait(e, par)) {
         }
-        __syncthreads();
-        const float* xs = stages + (sub & 1) * kStageFloats;
-        const float* ys = xs + kWgM * kLdS;
-        if (warp_live) {
-          const float* xa = xs + (wm * 32 + g) * kLdS + t;
-          const float* yb = ys + (wn * 32 + g) * kLdS + t;
-#pragma unroll 2
-          for (int kk = 0; kk < kPts; kk += 8) {
-            uint32_t ahi[2][4], alo[2][4];
-#pragma unroll
-            for (int mt = 0; mt < 2; ++mt) {
-              // a0 (row g, k t), a1 (row g + 8, k t), a2 (row g, k t + 4), a3 (g + 8, t + 4)
-              const float* p = xa + mt * 16 * kLdS + kk;
-              split(p[0], ahi[mt][0], alo[mt][0]);
-              split(p[8 * kLdS], ahi[mt][1], alo[mt][1]);
-              split(p[4], ahi[mt][2], alo[mt][2]);
-              split(p[8 * kLdS + 4], ahi[mt][3], alo[mt][3]);
-            }
-uint32_t bh[4][2], bl[4][2];
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              const float* p = yb + j * 8 * kLdS + kk;
-              split(p[0], bh[j][0], bl[j][0]);
-              split(p[4], bh[j][1], bl[j][1]);
-            }
-#pragma unroll
-            for (int j = 0; j < 4; ++j)
-#pragma unroll
-              for (int mt = 0; mt < 2; ++mt) mma_tf32(acc[mt][j], alo[mt], bh[j][0], bh[j][1]);
-#pragma unroll
-            for (int j = 0; j < 4; ++j)
-#pragma unroll
-              for (int mt = 0; mt < 2; ++mt) mma_tf32(acc[mt][j], ahi[mt], bl[j][0], bl[j][1]);
-#pragma unroll
-            for (int j = 0; j < 4; ++j)
-#pragma unroll
-              for (int mt = 0; mt < 2; ++mt) mma_tf32(acc[mt][j], ahi[mt], bh[j][0], bh[j][1]);
-          }
-        }
-        if (m0 == 0 && threadIdx.x < kWgN) {
-          const float* row = ys + threadIdx.x * kLdS;
-          for (int p = 0; p < kPts; ++p) dbacc += row[p];
-        }
-        __syncthreads();
+      } else if (!mbar_test_wait(e, par)) {
+        break;
       }
-      if (m0 == 0 && threadIdx.x < kWgN && n0 + (int)threadIdx.x < ldn)
-        db[n0 + threadIdx.x] += dbacc;
-      if (!warp_live) continue;
-      // add into the partial dW: every load first, then every store, so the
-      // 32 round trips to memory overlap instead of following one another
-      float old[2][4][4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int n = n0 + wn * 32 + 8 * j + 2 * t;
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          const int m = m0 + wm * 32 + 16 * mt + g;
-          const bool lo = n < ldn && m < kpad, hi = n < ldn && m + 8 < kpad;
-          old[mt][j][0] = lo ? dW[(size_t)m * ldn + n] : 0.f;
-          old[mt][j][1] = lo ? dW[(size_t)m * ldn + n + 1] : 0.f;
-          old[mt][j][2] = hi ? dW[(size_t)(m + 8) * ldn + n] : 0.f;
-          old[mt][j][3] = hi ? dW[(size_t)(m + 8) * ldn + n + 1] : 0.f;
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int n = n0 + wn * 32 + 8 * j + 2 * t;
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          const int m = m0 + wm * 32 + 16 * mt + g;
-          if (n < ldn && m < kpad) {
-            dW[(size_t)m * ldn + n] = old[mt][j][0] + acc[mt][j][0];
-            dW[(size_t)m * ldn + n + 1] = old[mt][j][1] + acc[mt][j][1];
-          }
-          if (n < ldn && m + 8 < kpad) {
-            dW[(size_t)(m + 8) * ldn + n] = old[mt][j][2] + acc[mt][j][2];
-            dW[(size_t)(m + 8) * ldn + n + 1] = old[mt][j][3] + acc[mt][j][3];
-          }
+      float* st = wr.stages + (size_t)(fpos % K) * kWgrStageFloats;
+      uint64_t* bar = wr.full + fpos % K;
+      const bool isd = fi < frd.nd;
+      const int r0 = isd ? frd.pc * NP + 64 * fi : 64 * (frd.mb0 + fi - frd.nd);
+      const int r1 = min(r0 + 64, isd ? frd.pc * NP + frd.nrow : kpad);
+      const XSegs src = isd ? Y : X;
+      mbar_expect_tx(bar, copy_rows(st, ws, d, src, fs, r0, r1, bar, false));
+      copy_rows(st, ws, d, src, fs, r0, r1, bar, true);
+      ++fpos;
+      if (++fi == frd.nd + frd.cnt) {
+        fi = 0;
+        if (++fs == nsub) {
+          fs = 0;
+          if (++fr < nrounds) frd = wgr_round(fr, ngr, nm, NP, ldn);
         }
       }
     }
+  };
+  auto wait_full = [&](int q) {
+    if (tid == 0) {
+      while (!mbar_test_wait(wr.full + q % K, (q / K) & 1)) pump(0);
+    } else {
+      while (!mbar_try_wait(wr.full + q % K, (q / K) & 1)) {
+      }
+    }
+  };
+  if (tid == 0) pump(0);
+  int pos = wpos;
+  for (int r = 0; r < nrounds; ++r) {
+    const WgrRound rd = wgr_round(r, ngr, nm, NP, ldn);
+    const bool live = wg < rd.cnt, sums = rd.mb0 == 0;
+    float acc[NP / 2];
+#pragma unroll
+    for (int i = 0; i < NP / 2; ++i) acc[i] = 0.f;
+    float dbacc = 0.f;
+    for (int s = 0; s < nsub; ++s) {
+      __syncthreads();  // the last sub's products and sums are done: B and db are free
+      for (int b = 0; b < rd.nd; ++b) wait_full(pos + b);
+      // dY row n, points 8 kk .. 8 kk + 7 into k-slice kk of B: k position
+      // j holds point 8 kk + 2 (j & 3) + (j >> 2), so that an A fragment's
+      // points t and t + 4 are one float2 (the X loads below hit 32 banks
+      // a half-warp); the 4 k positions of a half are 4 consecutive floats
+      // of B's K-major core matrix (b_offset). A warp's 8 lanes of a
+      // quarter take 8 consecutive rows, so their B stores hit 32 banks.
+      for (int i = tid; i < rd.nrow * 8; i += kThreads) {
+        const int n = (i & 7) + 8 * (i >> 6), kk = (i >> 3) & 7;
+        const float* y = wr.stages + (size_t)((pos + (n >> 6)) % K) * kWgrStageFloats +
+                         (n & 63) * kLd + 8 * kk;
+        const float4 v0 = *reinterpret_cast<const float4*>(y);
+        const float4 v1 = *reinterpret_cast<const float4*>(y + 4);
+        float* bs = wr.b + kk * 16 * NP + (n >> 3) * 64 + (n & 7) * 4;
+        split4(bs, bs + 8 * NP, v0.x, v0.z, v1.x, v1.z);
+        split4(bs + 32, bs + 32 + 8 * NP, v0.y, v0.w, v1.y, v1.w);
+        if (sums)
+          wr.db[kk * kWgrMaxN + n] = ((((((v0.x + v0.y) + v0.z) + v0.w) + v1.x) + v1.y) + v1.z) +
+                                     v1.w;
+      }
+      fence_proxy_async_smem();  // B is read by wgmma, the dY stages refilled by bulk copies
+      __syncwarp();
+      if (lane == 0)
+        for (int b = 0; b < rd.nd; ++b) mbar_arrive(wr.empty + (pos + b) % K);
+      __syncthreads();  // B is whole
+      if (tid == 0) pump(pos + rd.nd + rd.cnt);  // the sub's X blocks
+      if (sums && tid < rd.nrow) {
+        float v = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk) v += wr.db[kk * kWgrMaxN + tid];
+        dbacc += v;
+      }
+      if (live) {
+        const int q = pos + rd.nd + wg;
+        wait_full(q);
+        // A fragment of k-slice kk: a0 (row m0, k t) and a2 (m0, t + 4) are
+        // points 8 kk + 2 t and + 1, a1 and a3 the same of row m0 + 8; rows
+        // past kpad hold stale values, which reach only accumulator rows
+        // that are never stored
+        const float* xa = wr.stages + (size_t)(q % K) * kWgrStageFloats + m0 * kLd + 2 * t;
+        for (int kk = 0; kk < 8; ++kk) {
+          const float2 u = *reinterpret_cast<const float2*>(xa + 8 * kk);
+          const float2 v = *reinterpret_cast<const float2*>(xa + 8 * kLd + 8 * kk);
+          uint32_t ahi[4], alo[4];
+          split(u.x, ahi[0], alo[0]);
+          split(v.x, ahi[1], alo[1]);
+          split(u.y, ahi[2], alo[2]);
+          split(v.y, ahi[3], alo[3]);
+          const float* bk = wr.b + kk * 16 * NP;
+          const uint64_t bhi = b_desc(bk), blo = b_desc(bk + 8 * NP);
+          wgmma_fence();
+          Wgmma<NP>::mma(acc, alo, bhi);
+          Wgmma<NP>::mma(acc, ahi, blo);
+          Wgmma<NP>::mma(acc, ahi, bhi);
+          wgmma_commit();
+          wgmma_wait<0>();
+          if (tid == 0) pump(0);
+        }
+        fence_proxy_async_smem();
+        __syncwarp();
+        if (lane == 0) mbar_arrive_n(wr.empty + q % K, 4);  // the X stage is free
+      }
+      pos += rd.nd + rd.cnt;
+    }
+    if (live) {
+#pragma unroll
+      for (int i = 0; i < NP / 2; ++i) asm volatile("" : "+f"(acc[i])::"memory");
+      // accumulator i: row 64 mb + m0 + 8 ((i >> 1) & 1), output pc NP +
+      // 8 (i >> 2) + 2 t + (i & 1); added into the partial dW four output
+      // groups at a time, every load of a group before its stores
+      const int ma = 64 * (rd.mb0 + wg) + m0;
+      float* ra = ma < kpad ? dW + (size_t)ma * ldn : nullptr;
+      float* rb = ma + 8 < kpad ? dW + (size_t)(ma + 8) * ldn : nullptr;
+#pragma unroll
+      for (int q0 = 0; q0 < NP / 8; q0 += 4) {
+        float2 old[4][2];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int n = rd.pc * NP + 8 * (q0 + q) + 2 * t;
+          const bool ok = q0 + q < NP / 8 && n < ldn;
+          old[q][0] = ok && ra ? *reinterpret_cast<const float2*>(ra + n) : make_float2(0.f, 0.f);
+          old[q][1] = ok && rb ? *reinterpret_cast<const float2*>(rb + n) : make_float2(0.f, 0.f);
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int n = rd.pc * NP + 8 * (q0 + q) + 2 * t, i = 4 * (q0 + q);
+          if (q0 + q >= NP / 8 || n >= ldn) continue;
+          if (ra)
+            *reinterpret_cast<float2*>(ra + n) =
+                make_float2(old[q][0].x + acc[i], old[q][0].y + acc[i + 1]);
+          if (rb)
+            *reinterpret_cast<float2*>(rb + n) =
+                make_float2(old[q][1].x + acc[i + 2], old[q][1].y + acc[i + 3]);
+        }
+      }
+    }
+    if (sums && tid < rd.nrow) db[rd.pc * NP + tid] += dbacc;
+  }
+  return pos;
+}
+
+// dW[m][n] += sum over the chunk's points p of X[m][p] dY[n][p] and
+// db[n] += sum_p dY[n][p], for m < kpad (the rows of X's planes) and
+// n < ldn: the weight-gradient product of one layer, over nsub 64-point
+// subs. On wgmma m64nNPk8 in 3xTF32 (lo x hi, hi x lo, hi x hi) with
+// M = X rows, N = dY rows and K = points: A = 64 X rows of a sub from a
+// ring stage in registers, split with cvt.rna.tf32; B = the sub's dY rows
+// of the round, converted once a sub into TF32 parts in the K-major
+// layout. NP = min(128, ldn rounded up to 8 .. 256) outputs a warpgroup
+// (64 accumulators a thread under the kernel's 128 registers); the four
+// warpgroups take four 64-row blocks of X a round, so each sub's dY rows
+// are staged once a layer and its X rows once a piece of NP outputs (twice
+// for a 256-wide layer). The CTA's partial dW is read and written once a
+// round of the call. Returns the ring position after the call's stages.
+__device__ __forceinline__ int wgrad(float* ws, const TrainDesc& d, const XSegs X, int dy,
+                                     int ldn, float* __restrict__ dW, float* __restrict__ db,
+                                     int nsub, const WgrRing& wr, int wpos) {
+  // bwd_layer's use of the stages before the bulk copies
+  asm volatile("fence.proxy.async;\n" ::: "memory");
+  __syncthreads();
+  int kpad = 0;
+  for (int s = 0; s < X.n; ++s) kpad += d.rows[X.p[s]];
+  int n = 8;
+  while (n < ldn && n < kWgrMaxN) n *= 2;
+  switch (n) {
+    case 128:
+      return wgrad_rounds<128>(ws, d, X, kpad, dy, ldn, dW, db, nsub, wr, wpos);
+    case 64:
+      return wgrad_rounds<64>(ws, d, X, kpad, dy, ldn, dW, db, nsub, wr, wpos);
+    case 32:
+      return wgrad_rounds<32>(ws, d, X, kpad, dy, ldn, dW, db, nsub, wr, wpos);
+    case 16:
+      return wgrad_rounds<16>(ws, d, X, kpad, dy, ldn, dW, db, nsub, wr, wpos);
+    default:
+      return wgrad_rounds<8>(ws, d, X, kpad, dy, ldn, dW, db, nsub, wr, wpos);
   }
 }
+
+// One step of the reverse sweep: a layer's dW product (wgrad: X planes x,
+// dY plane dy of ldn rows) or its input-gradient product (bwd_layer: dY
+// planes p0, p1 into out, gated by gate, added with add; in: its emb
+// columns' matrix, K8c).
+struct SweepStep {
+  XSegs x;
+  int layer, dy, ldn, p0, p1, out, gate;
+  bool dx, add, in;
+};
+constexpr int kMaxSteps = 4 * kMaxLayers;
+// The reverse kernel's shared memory: both rings' barriers (256 B), the
+// sweep's steps and their count, then the stages that bwd_layer and wgrad
+// take in turn.
+constexpr int kRevHead = (256 + kMaxSteps * (int)sizeof(SweepStep) + 4 + 127) / 128 * 128;
+constexpr int kRevFloats =
+    kBwdStages * kBwdStageFloats > kWgrFloats ? kBwdStages * kBwdStageFloats : kWgrFloats;
+constexpr int kReverseSmem = kRevHead + kRevFloats * (int)sizeof(float);
 
 // Zero the padding rows of a tile's emb and demb buffers, which nothing else writes.
 __device__ __forceinline__ void zero_pad_rows(float* tile, const MLPDesc& f) {
@@ -554,16 +693,16 @@ __device__ __forceinline__ void forward_tile(const Fill& fill, const float* __re
   __syncthreads();
 }
 
-// The chain rule of the PE for the chunk's nq points: from the cotangent
-// of a PE buffer (plane pg: rows 3 + 6 b + 3 h + c of sin(2^b x_c + h pi/2),
-// rows 0-2 of x itself) and the stored x (rows 0-2 of plane pe),
-// out[base + q][c] = g[c] + sum over b, h of (g[3 + 6 b + 3 h + c]
-// cos(2^b x_c + h pi/2)) 2^b, the phase rounded as pe_rows rounds it.
+// The chain rule of the PE for nq points from sub sub0 on: from the
+// cotangent of a PE buffer (plane pg: rows 3 + 6 b + 3 h + c of
+// sin(2^b x_c + h pi/2), rows 0-2 of x itself) and the stored x (rows 0-2
+// of plane pe), out[base + q][c] = g[c] + sum over b, h of (g[3 + 6 b +
+// 3 h + c] cos(2^b x_c + h pi/2)) 2^b, the phase rounded as pe_rows rounds it.
 __device__ void pe_grads(float* ws, const TrainDesc& d, int pe, int pg, int rows,
-                         float* __restrict__ out, long long base, int nq) {
+                         float* __restrict__ out, long long base, int nq, int sub0) {
   const int F = (rows - 3) / 6;
   for (int e = threadIdx.x; e < nq * 3; e += kThreads) {
-    const int q = e / 3, c = e % 3, sub = q / kPts, p = q % kPts;
+    const int q = e / 3, c = e % 3, sub = sub0 + q / kPts, p = q % kPts;
     const float* g = plane(ws, d, pg, sub) + p;
     const float x = plane(ws, d, pe, sub)[c * kLd + p];
     float acc = 0.f;
@@ -579,104 +718,160 @@ __device__ void pe_grads(float* ws, const TrainDesc& d, int pe, int pg, int rows
   }
 }
 
-// Wave `wave` of the reverse sweep, on the chunk the forward left in
-// workspace slice b: rgb, views, feature + alpha, with kSem (K6, K8c/K8f)
-// the semantic head, then the trunk; dW/db add into CTA b's partial
-// gradients (zeroed in wave 0). Every input-gradient product is bwd_layer's,
-// its matrix from bring as br describes (pack_bwd_ring, by forward layer
-// index). kInGrad (K8c): the cotangent of the point PE is gathered in plane
-// P_ACT0 + depth + 3 (zeroed by the forward) from every layer that reads emb
-// (layer 0, the layer after the skip, sem_0's coordinates, and feature and
-// alpha when the skip follows the last layer; their emb columns in iring as
-// bi describes, d.ibwd by forward layer index), the view PE's from the views
-// layer's (plane P_ACT0 + depth + 4), and both run back through the PE's
-// chain rule into dpts and ddirs [R * S, 3].
+// Chunk j (< group) of wave `wave` of CTA b: chunk (wave group + j) G + b
+// of the R rays (or points), G = the grid.
+__device__ __forceinline__ long long group_chunk(int wave, int group, int j) {
+  return ((long long)wave * group + j) * gridDim.x + blockIdx.x;
+}
+
+// The sweep's steps in order (see train_reverse_kernel) into tab; returns their count.
+template <bool kSem, bool kInGrad>
+__device__ int sweep_steps(const TrainDesc& d, SweepStep* tab) {
+  const MLPDesc& f = d.f;
+  const int depth = f.depth, ldw = pad8(f.layer[0].n);
+  const int k_alpha = depth, k_feat = depth + 1, k_views = depth + 2, k_rgb = depth + 3;
+  const int p_gemb = P_ACT0 + depth + 3, p_gdemb = p_gemb + 1;
+  int n = 0;
+  auto W = [&](int layer, XSegs x, int dy, int ldn) {
+    SweepStep s{};
+    s.x = x;
+    s.layer = layer;
+    s.dy = dy;
+    s.ldn = ldn;
+    tab[n++] = s;
+  };
+  auto D = [&](bool add, bool in, int layer, int p0, int p1, int out, int gate) {
+    SweepStep s{};
+    s.dx = true;
+    s.add = add;
+    s.in = in;
+    s.layer = layer;
+    s.p0 = p0;
+    s.p1 = p1;
+    s.out = out;
+    s.gate = gate;
+    tab[n++] = s;
+  };
+  W(k_rgb, XSegs{{P_HV, 0, 0}, 1}, P_DRGB, pad8(3));
+  D(false, false, k_rgb, P_DRGB, -1, P_DPV, P_HV);
+  W(k_views, XSegs{{P_FEAT, P_DEMB, 0}, 2}, P_DPV, pad8(f.layer[k_views].n));
+  D(false, false, k_views, P_DPV, -1, P_DFEAT, -1);
+  if (kInGrad) D(false, true, k_views, P_DPV, -1, p_gdemb, -1);
+  const int last = P_ACT0 + depth - 1;
+  const XSegs h = (f.skip == depth - 1) ? XSegs{{P_EMB, last, 0}, 2} : XSegs{{last, 0, 0}, 1};
+  W(k_feat, h, P_DFEAT, ldw);
+  W(k_alpha, h, P_DSIG, 8);
+  D(false, false, k_alpha, P_DFEAT, P_DSIG, P_DA, last);
+  if (kInGrad && d.ibwd[k_alpha].k > 0) D(true, true, k_alpha, P_DFEAT, P_DSIG, p_gemb, -1);
+  if (kSem) {  // sem_1, ds, sem_0, and sem_0's input gradient on h added into P_DA
+    const int k_s0 = depth + 4, k_s1 = depth + 5;
+    const int p_sact = P_ACT0 + depth, p_dsem = p_sact + 1, p_ds = p_sact + 2;
+    W(k_s1, XSegs{{p_sact, 0, 0}, 1}, p_dsem, pad8(f.layer[k_s1].n));
+    D(false, false, k_s1, p_dsem, -1, p_ds, p_sact);
+    XSegs in = h;
+    if (f.sem_with_coord) in.p[in.n++] = P_EMB;
+    W(k_s0, in, p_ds, pad8(f.layer[k_s0].n));
+    D(true, false, k_s0, p_ds, -1, P_DA, last);
+    if (kInGrad && d.ibwd[k_s0].k > 0) D(true, true, k_s0, p_ds, -1, p_gemb, -1);
+  }
+  int cur = P_DA;
+  for (int i = depth - 1; i >= 0; --i) {
+    const XSegs in = (i == 0) ? XSegs{{P_EMB, 0, 0}, 1}
+                     : (i - 1 == f.skip) ? XSegs{{P_EMB, P_ACT0 + i - 1, 0}, 2}
+                                         : XSegs{{P_ACT0 + i - 1, 0, 0}, 1};
+    W(i, in, cur, ldw);
+    if (kInGrad && (i == 0 || i - 1 == f.skip)) D(true, true, i, cur, -1, p_gemb, -1);
+    const int nxt = (cur == P_DA) ? P_DB : P_DA;
+    if (i > 0) D(false, false, i, cur, -1, nxt, P_ACT0 + i - 1);
+    cur = nxt;
+  }
+  return n;
+}
+
+// Wave `wave` of the reverse sweep, on the chunks that the forward left in
+// workspace slice b: its `group` chunks (group_chunk; those past R are
+// absent, and only the last present one may be short), sub j nsf.. of its
+// planes chunk j's (nsf = the subs of a whole chunk), swept as one run of
+// subs: rgb, views, feature + alpha, with kSem (K6, K8c/K8f) the semantic
+// head, then the trunk; dW/db add into CTA b's partial gradients (zeroed in
+// wave 0), once a wgrad round a wave. Every input-gradient product is
+// bwd_layer's, its matrix from bring as br describes (pack_bwd_ring, by
+// forward layer index). kInGrad (K8c): the cotangent of the point PE is
+// gathered in plane P_ACT0 + depth + 3 (zeroed by the forward) from every
+// layer that reads emb (layer 0, the layer after the skip, sem_0's
+// coordinates, and feature and alpha when the skip follows the last
+// layer; their emb columns in iring as bi describes, d.ibwd by forward
+// layer index), the view PE's from the views layer's (plane P_ACT0 +
+// depth + 4), and both run back through the PE's chain rule into dpts
+// and ddirs [R * S, 3]. The steps (sweep_steps) run from one table, so
+// bwd_layer and wgrad each have one inlined call site and the kernel makes
+// no call inside a wgmma pipeline.
 template <bool kSem, bool kInGrad = false>
 __global__ void __launch_bounds__(kThreads, 1)
     train_reverse_kernel(const float* __restrict__ bring, const float* __restrict__ iring,
                          const __grid_constant__ TrainDesc d, const __grid_constant__ RingDesc br,
                          const __grid_constant__ RingDesc bi, float* __restrict__ partial,
-                         float* __restrict__ workspace, int R, int S, int wave,
+                         float* __restrict__ workspace, int R, int S, int wave, int group,
                          float* __restrict__ dpts, float* __restrict__ ddirs) {
   extern __shared__ __align__(128) unsigned char rev_raw[];
-  uint64_t* full = reinterpret_cast<uint64_t*>(rev_raw);
-  float* stages = reinterpret_cast<float*>(rev_raw + 128);
-  const BwdRing ring{full, full + kBwdStages, stages};
-  const MLPDesc& f = d.f;
-  const int rpc = d.rays_per_chunk;
-  const int c = wave * gridDim.x + blockIdx.x;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(rev_raw);
+  SweepStep* tab = reinterpret_cast<SweepStep*>(rev_raw + 256);
+  int* nsteps = reinterpret_cast<int*>(tab + kMaxSteps);
+  float* region = reinterpret_cast<float*>(rev_raw + kRevHead);
+  const BwdRing ring{bars, bars + kBwdStages, region};
+  const WgrRing wr{bars + 2 * kBwdStages, bars + 2 * kBwdStages + kWgrStages, region,
+                   region + kWgrB, region + kWgrB + kWgrDb};
+  const int rpc = d.rays_per_chunk, nsf = (rpc * S + kPts - 1) / kPts;
   float* gpart = partial + (size_t)blockIdx.x * d.grad_size;
   if (wave == 0) {
     for (size_t i = threadIdx.x; i < (size_t)d.grad_size; i += kThreads) gpart[i] = 0.f;
     __syncthreads();
   }
-  if (c * rpc >= R) return;
+  int nsub = 0, nchunks = 0;
+  for (int j = 0; j < group; ++j) {
+    const long long c = group_chunk(wave, group, j);
+    if (c * rpc >= R) break;
+    nsub = j * nsf + (int)((min((long long)rpc, R - c * rpc) * S + kPts - 1) / kPts);
+    nchunks = j + 1;
+  }
+  if (nsub == 0) return;
   if (threadIdx.x == 0) {
     for (int i = 0; i < kBwdStages; ++i) {
       mbar_init(ring.full + i, 1);
       mbar_init(ring.empty + i, kThreads / 32);  // lane 0 of each warp
     }
+    for (int i = 0; i < kWgrStages; ++i) {
+      mbar_init(wr.full + i, 1);
+      mbar_init(wr.empty + i, kThreads / 32);
+    }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    *nsteps = sweep_steps<kSem, kInGrad>(d, tab);
   }
   __syncthreads();
   float* ws = workspace + (size_t)blockIdx.x * d.ws_size;
-  const int depth = f.depth, ldw = pad8(f.layer[0].n);
-  const int nq = min(rpc, R - c * rpc) * S, nsub = (nq + kPts - 1) / kPts;
-  const int k_alpha = depth, k_feat = depth + 1, k_views = depth + 2, k_rgb = depth + 3;
-  const int p_gemb = P_ACT0 + depth + 3, p_gdemb = p_gemb + 1;
-  int pos = 0;  // the ring's stages so far
-  // layer i's input-gradient product (in: its emb columns, K8c), added into
-  // out's values with add
-  auto dx = [&](bool add, bool in, int i, int p0, int p1, int out, int gate) {
-    const float* src = in ? iring + bi.off[i] : bring + br.off[i];
-    const int N = in ? bi.ncols[i] : br.ncols[i];
-    const LayerDesc L = in ? d.ibwd[i] : d.bwd[i];
-    pos = add ? bwd_layer<true>(src, N, L, ws, d, p0, p1, out, gate, nsub, ring, pos)
-              : bwd_layer<false>(src, N, L, ws, d, p0, p1, out, gate, nsub, ring, pos);
-  };
-
-  // ---- reverse sweep: rgb, views, feature + alpha, trunk
-  wgrad(ws, d, XSegs{{P_HV, 0}, 1}, P_DRGB, pad8(3), gpart + d.gw[k_rgb], gpart + d.gb[k_rgb],
-        nsub, stages);
-  dx(false, false, k_rgb, P_DRGB, -1, P_DPV, P_HV);
-  wgrad(ws, d, XSegs{{P_FEAT, P_DEMB}, 2}, P_DPV, pad8(f.layer[k_views].n),
-        gpart + d.gw[k_views], gpart + d.gb[k_views], nsub, stages);
-  dx(false, false, k_views, P_DPV, -1, P_DFEAT, -1);
-  if (kInGrad) dx(false, true, k_views, P_DPV, -1, p_gdemb, -1);
-  const int last = P_ACT0 + depth - 1;
-  const XSegs h = (f.skip == depth - 1) ? XSegs{{P_EMB, last}, 2} : XSegs{{last, 0}, 1};
-  wgrad(ws, d, h, P_DFEAT, ldw, gpart + d.gw[k_feat], gpart + d.gb[k_feat], nsub, stages);
-  wgrad(ws, d, h, P_DSIG, 8, gpart + d.gw[k_alpha], gpart + d.gb[k_alpha], nsub, stages);
-  dx(false, false, k_alpha, P_DFEAT, P_DSIG, P_DA, last);
-  if (kInGrad && d.ibwd[k_alpha].k > 0) dx(true, true, k_alpha, P_DFEAT, P_DSIG, p_gemb, -1);
-  if (kSem) {  // sem_1, ds, sem_0, and sem_0's input gradient on h added into P_DA
-    const int k_s0 = depth + 4, k_s1 = depth + 5;
-    const int p_sact = P_ACT0 + depth, p_dsem = p_sact + 1, p_ds = p_sact + 2;
-    wgrad(ws, d, XSegs{{p_sact, 0, 0}, 1}, p_dsem, pad8(f.layer[k_s1].n), gpart + d.gw[k_s1],
-          gpart + d.gb[k_s1], nsub, stages);
-    dx(false, false, k_s1, p_dsem, -1, p_ds, p_sact);
-    XSegs in = h;
-    if (f.sem_with_coord) in.p[in.n++] = P_EMB;
-    wgrad(ws, d, in, p_ds, pad8(f.layer[k_s0].n), gpart + d.gw[k_s0], gpart + d.gb[k_s0], nsub,
-          stages);
-    dx(true, false, k_s0, p_ds, -1, P_DA, last);
-    if (kInGrad && d.ibwd[k_s0].k > 0) dx(true, true, k_s0, p_ds, -1, p_gemb, -1);
-  }
-  int cur = P_DA;
-  for (int i = depth - 1; i >= 0; --i) {
-    const XSegs in = (i == 0) ? XSegs{{P_EMB, 0}, 1}
-                     : (i - 1 == f.skip) ? XSegs{{P_EMB, P_ACT0 + i - 1}, 2}
-                                         : XSegs{{P_ACT0 + i - 1, 0}, 1};
-    wgrad(ws, d, in, cur, ldw, gpart + d.gw[i], gpart + d.gb[i], nsub, stages);
-    if (kInGrad && (i == 0 || i - 1 == f.skip)) dx(true, true, i, cur, -1, p_gemb, -1);
-    const int nxt = (cur == P_DA) ? P_DB : P_DA;
-    if (i > 0) dx(false, false, i, cur, -1, nxt, P_ACT0 + i - 1);
-    cur = nxt;
+  int pos = 0, wpos = 0;  // the two rings' stages so far
+  for (int k = 0; k < *nsteps; ++k) {
+    const SweepStep s = tab[k];
+    if (s.dx) {
+      const float* src = s.in ? iring + bi.off[s.layer] : bring + br.off[s.layer];
+      const int N = s.in ? bi.ncols[s.layer] : br.ncols[s.layer];
+      const LayerDesc L = s.in ? d.ibwd[s.layer] : d.bwd[s.layer];
+      pos = bwd_layer(src, N, L, ws, d, s.p0, s.p1, s.out, s.gate, nsub, ring, pos, s.add);
+    } else {
+      wpos = wgrad(ws, d, s.x, s.dy, s.ldn, gpart + d.gw[s.layer], gpart + d.gb[s.layer], nsub,
+                   wr, wpos);
+    }
   }
   if (kInGrad) {
-    const long long base = (long long)c * rpc * S;
-    pe_grads(ws, d, P_EMB, p_gemb, f.emb_dim, dpts, base, nq);
-    pe_grads(ws, d, P_DEMB, p_gdemb, f.demb_dim, ddirs, base, nq);
+    __syncthreads();
+    const int p_gemb = P_ACT0 + d.f.depth + 3;
+    for (int j = 0; j < nchunks; ++j) {
+      const long long c = group_chunk(wave, group, j);
+      const long long base = c * rpc * S;
+      const int nq = (int)(min((long long)rpc, R - c * rpc) * S);
+      pe_grads(ws, d, P_EMB, p_gemb, d.f.emb_dim, dpts, base, nq, j * nsf);
+      pe_grads(ws, d, P_DEMB, p_gemb + 1, d.f.demb_dim, ddirs, base, nq, j * nsf);
+    }
   }
 }
 
@@ -689,6 +884,16 @@ __global__ void reduce_partials(const float* __restrict__ partial, float* __rest
     for (int c = 0; c < parts; ++c) s += partial[(size_t)c * n + i];
     out[i] = s;
   }
+}
+
+// d with its planes moved to chunk j of a wave's group: sub j nsf .. of
+// each plane, nsf the subs of a whole chunk of S samples a ray (the
+// forward kernels of a group write there, the reverse sweep reads all)
+inline TrainDesc group_desc(const TrainDesc& d, int j, int S) {
+  TrainDesc dj = d;
+  const long long nsf = ((long long)d.rays_per_chunk * S + kPts - 1) / kPts;
+  for (int p = 0; p < kMaxPlanes; ++p) dj.plane[p] += j * nsf * d.rows[p] * kLd;
+  return dj;
 }
 
 // shared memory of a forward tile: emb, demb and two layer buffers

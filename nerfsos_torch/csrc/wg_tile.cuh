@@ -63,6 +63,8 @@
 // takes the producers to 40 and the consumers to 232, room for the 128
 // accumulators of an N = 256 layer (at 168 ptxas serialised the wgmma and
 // spilled 734 B).
+// K1 runs it in a sigma-only mode (wg_forward_tile's kSigma: od [R, 6],
+// the trunk's layers alone through the ring, the alpha head).
 // K3's and K6's forward (train_render.cu train_forward_wg_kernel) run the
 // same tile in its store mode (wg_forward_tile's kStore): every activation
 // their reverse sweep reads also goes from the epilogues' registers to the
@@ -286,23 +288,26 @@ __device__ __forceinline__ int wg_layer_n(int N, const float* __restrict__ param
   }
 }
 
-// The ring's layers in the consumers' order: the trunk, sem_0 (with the
-// semantic head), feature, views. Returns their count.
-__device__ __forceinline__ int ring_order(const MLPDesc& f, int (&order)[kMaxLayers]) {
+// The ring's layers in the consumers' order: the trunk, then with heads
+// sem_0 (with the semantic head), feature, views. Returns their count.
+__device__ __forceinline__ int ring_order(const MLPDesc& f, int (&order)[kMaxLayers],
+                                          bool heads) {
   int nl = 0;
   for (int i = 0; i < f.depth; ++i) order[nl++] = i;
+  if (!heads) return nl;
   if (f.sem_dim) order[nl++] = f.depth + 4;
   order[nl++] = f.depth + 1;
   order[nl++] = f.depth + 2;
   return nl;
 }
 
-// The producer (one thread): every k-slice of every ring layer, tile after
-// tile, each into the next free stage by one bulk copy.
+// The producer (one thread): every k-slice of every ring layer (heads:
+// ring_order's), tile after tile, each into the next free stage by one bulk copy.
 __device__ __forceinline__ void ring_producer(const float* __restrict__ ring, const MLPDesc& f,
-                                              const RingDesc& rd, const WgRing rg, int ntiles) {
+                                              const RingDesc& rd, const WgRing rg, int ntiles,
+                                              bool heads) {
   int order[kMaxLayers];
-  const int nl = ring_order(f, order);
+  const int nl = ring_order(f, order, heads);
   int slot = 0;
   uint32_t phase = 0;
   for (int tile = 0; tile < ntiles; ++tile)
@@ -363,14 +368,15 @@ __device__ __forceinline__ WgCta wg_cta(unsigned char* raw, const MLPDesc& f,
 
 // After the CTA's barrier: warps 8-11, the producer warpgroup, give up
 // their registers (setmaxnreg 40) and one thread streams ntiles tiles'
-// weights (ring_producer), and get false; warps 0-7, the two consumer
-// warpgroups, take 232 registers a thread (the 128 accumulators of an
-// N = 256 layer) and get true.
+// weights (ring_producer; heads false: the trunk's alone), and get false;
+// warps 0-7, the two consumer warpgroups, take 232 registers a thread (the
+// 128 accumulators of an N = 256 layer) and get true.
 __device__ __forceinline__ bool wg_consumer(const float* __restrict__ ring, const MLPDesc& f,
-                                            const RingDesc& rd, const WgRing rg, int ntiles) {
+                                            const RingDesc& rd, const WgRing rg, int ntiles,
+                                            bool heads = true) {
   if (threadIdx.x >= kWgConsumers) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
-    if (threadIdx.x == kWgConsumers) ring_producer(ring, f, rd, rg, ntiles);
+    if (threadIdx.x == kWgConsumers) ring_producer(ring, f, rd, rg, ntiles, heads);
     return false;
   }
   asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
@@ -410,8 +416,10 @@ __device__ __forceinline__ void wg_store_rows(const float* src, float* dst, int 
 // (train_desc's layout: P_EMB, P_DEMB, P_ACT0 + i, P_FEAT, P_HV, and with
 // kSemAct the semantic head's hidden activation at P_ACT0 + depth); a
 // warpgroup whose points all lie past nq has no sub and stores nothing.
+// kSigma (K1): odv is od [R, 6] (no view direction), and the tile runs the
+// trunk and the alpha head alone (sigma to the strip), nothing else.
 // Returns the ring position after the tile.
-template <bool kStore, bool kSemAct>
+template <bool kStore, bool kSemAct, bool kSigma = false>
 __device__ __forceinline__ int wg_forward_tile(const float* __restrict__ odv, const float* zc,
                                                int r0, int S, int nq, int tile,
                                                const float* __restrict__ params,
@@ -436,16 +444,16 @@ __device__ __forceinline__ int wg_forward_tile(const float* __restrict__ odv, co
     const int ch = i / kWgPts, p = i % kWgPts, q = qw + p;
     float x = 0.f, v = 0.f;
     if (q < nq) {
-      const float* ray = odv + (size_t)(r0 + q / S) * 9;
+      const float* ray = odv + (size_t)(r0 + q / S) * (kSigma ? 6 : 9);
       x = __fadd_rn(ray[ch], __fmul_rn(ray[3 + ch], zc[q]));
-      v = ray[6 + ch];
+      if (!kSigma) v = ray[6 + ch];
     }
     emb[swz(ch, p)] = x;
-    demb[swz(ch, p)] = v;
+    if (!kSigma) demb[swz(ch, p)] = v;
   }
   wg_bar(bar);
   pe_rows_wg(emb, E);
-  pe_rows_wg(demb, Ed);
+  if (!kSigma) pe_rows_wg(demb, Ed);
   wg_bar(bar);
   if (store) {
     wg_store_rows(emb, plane(ws, d, P_EMB, sub), Ep);
@@ -460,10 +468,9 @@ __device__ __forceinline__ int wg_forward_tile(const float* __restrict__ odv, co
   const int hn = f.layer[depth - 1].n, hoff = f.skip == depth - 1 ? E : 0;
   const int C = hoff + hn + (f.sem_with_coord ? E : 0);
   int order[kMaxLayers];
-  const int nl = ring_order(f, order);
+  const int nl = ring_order(f, order, !kSigma);
   ASeg in0{emb, Ep}, in1 = none;
-  for (int l = 0; l < nl; ++l) {
-    const int li = order[l];
+  for (int l = 0; l <= nl; ++l) {
     if (l == depth) {
       wg_bar(bar);  // h is whole: the reads below cross warps
       // sem_in's emb columns, then the alpha head (a thread a point)
@@ -490,6 +497,8 @@ __device__ __forceinline__ int wg_forward_tile(const float* __restrict__ odv, co
       }
       wg_bar(bar);  // before feature's output overwrites h
     }
+    if (l == nl) break;
+    const int li = order[l];
     WgOut o{};
     o.strip = strip;
     o.cs = cs;

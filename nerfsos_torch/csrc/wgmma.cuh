@@ -1,12 +1,12 @@
 // Hopper's asynchronous building blocks, shared by the 128-point forward
-// tile (wg_tile.cuh), the reverse sweep's input-gradient products
-// (train_sweep.cuh bwd_layer) and the frozen semantic-head backward
+// tile (wg_tile.cuh), the reverse sweep's products (train_sweep.cuh
+// bwd_layer and wgrad) and the frozen semantic-head backward
 // (train_render.cu frozen_sem_kernel): a ring's descriptor, mbarriers (also
 // across a 2-CTA cluster), bulk (TMA) copies from global to shared memory
 // (also multicast to a cluster), wgmma m64nNk8 in TF32 with A from
 // registers and B (a K-major, no-swizzle operand) from shared memory, and
-// the two operand pieces of a weight-gradient product X^T dY that contracts
-// over points (xt_fragment, store_b_split).
+// the two operand pieces of K5's weight-gradient product X^T dY that
+// contracts over points (xt_fragment, store_b_split).
 #pragma once
 
 #include "tile_mlp.cuh"
@@ -43,8 +43,26 @@ __device__ __forceinline__ bool mbar_try_wait(uint64_t* b, uint32_t parity) {
   return ok != 0;
 }
 
+// whether the phase of parity `parity` has completed, without waiting
+__device__ __forceinline__ bool mbar_test_wait(uint64_t* b, uint32_t parity) {
+  uint32_t ok;
+  asm volatile(
+      "{\n.reg .pred p;\nmbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(ok)
+      : "r"(smem_u32(b)), "r"(parity)
+      : "memory");
+  return ok != 0;
+}
+
 __device__ __forceinline__ void mbar_arrive(uint64_t* b) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(b)) : "memory");
+}
+
+// `count` arrivals at once
+__device__ __forceinline__ void mbar_arrive_n(uint64_t* b, uint32_t count) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(b)), "r"(count)
+               : "memory");
 }
 
 __device__ __forceinline__ void mbar_expect_tx(uint64_t* b, uint32_t bytes) {
@@ -275,7 +293,8 @@ struct Wgmma<8> {
 };
 
 // The weight-gradient product X^T dY over points (K5's dW0 = sem_in^T ds;
-// the shape the reverse sweep's wgrad has): M = features, N = outputs,
+// the reverse sweep's wgrad has the same shape, with its own point order
+// and B stores): M = features, N = outputs,
 // K = points, A = X^T from registers, B = dY from shared memory. A k-slice
 // of 8 points has k positions 0..7; the caller maps them to points so that
 // the A loads below hit 32 banks (frozen_sem_kernel: point kk + 8 j at

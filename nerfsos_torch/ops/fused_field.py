@@ -282,7 +282,8 @@ def field_grads(field: nn.Module, pts: torch.Tensor, dirs: torch.Tensor, g: torc
         raise ValueError(f"expected g [{N}, {4 + fdesc.sem_dim}], got {tuple(g.shape)}")
     bwd = fr._train_bwd(field, pts.device)[1]
     bring, brd = fr._bwd_ring(field, pts.device)
-    desc = fr.train_desc(field, fdesc, bwd, 1, sem, input_grads=input_grads)
+    desc, grid, group = fr._sweep_launch(field, fdesc, bwd, N, 1, pts.device, sem,
+                                         input_grads=input_grads)
     iring, ird, dpts, ddirs = None, _build.RingDesc(), None, None
     if input_grads:
         ibuf, ibwd = fr._cached(field, pts.device, "_field_input_pack", pack_input_bwd)
@@ -294,8 +295,6 @@ def field_grads(field: nn.Module, pts: torch.Tensor, dirs: torch.Tensor, g: torc
         ddirs = torch.empty((N, 3), device=pts.device, dtype=torch.float32)
     flat = torch.zeros(desc.grad_size, device=pts.device, dtype=torch.float32)
     if N > 0:
-        nchunks = -(-N // desc.rays_per_chunk)
-        grid = min(nchunks, torch.cuda.get_device_properties(pts.device).multi_processor_count)
         partial = torch.empty(grid * desc.grad_size, device=pts.device, dtype=torch.float32)
         work = torch.empty(grid * desc.ws_size, device=pts.device, dtype=torch.float32)
         with torch.cuda.device(pts.device):
@@ -304,7 +303,8 @@ def field_grads(field: nn.Module, pts: torch.Tensor, dirs: torch.Tensor, g: torc
                 None if iring is None else iring.data_ptr(), ctypes.byref(desc),
                 ctypes.byref(brd), ctypes.byref(ird), partial.data_ptr(), work.data_ptr(),
                 flat.data_ptr(), None if dpts is None else dpts.data_ptr(),
-                None if ddirs is None else ddirs.data_ptr(), N, grid, _build.stream(pts.device))
+                None if ddirs is None else ddirs.data_ptr(), N, grid, group,
+                _build.stream(pts.device))
         _build.check(code, "field_grads")
         field_grads.launches += 1
         field_grads.input_grad_launches += int(input_grads)

@@ -57,9 +57,8 @@ Each wrapper takes its plain PyTorch version (:func:`coarse_weights_plain`,
 :func:`train_render_grads_plain`, :func:`mip_render_plain`,
 :func:`mip_train_render_plain`, :func:`mip_train_render_grads_plain`, same
 signature) for tensors on the CPU, and for CUDA tensors launches the
-hand-written kernel in ``csrc/fused_render.cu`` (K1) or
-``csrc/train_render.cu`` or raises; it never falls back. ``<wrapper>.launches`` counts kernel
-launches.
+hand-written kernel in ``csrc/train_render.cu`` or raises; it never falls
+back. ``<wrapper>.launches`` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -683,10 +682,39 @@ _KLD = 72          # floats a tile row (csrc/tile_mlp.cuh kLd)
 _TILE = 64         # points a tile
 _CHUNK_POINTS = 512
 _MAX_SMEM = 232448  # shared memory a block can use on sm_90
+# The reverse sweep takes about _REV_POINTS points of several forward
+# chunks at once (a group: the CTA's partial dW is read and written once a
+# group), its workspace within _REV_BYTES.
+_REV_POINTS = 2048
+_REV_BYTES = 4 << 30
 
 
 def _rays_per_chunk(S: int) -> int:
     return max(1, _CHUNK_POINTS // S)
+
+
+def _rev_group(nchunks: int, grid: int, chunk_points: int, chunk_ws: int) -> int:
+    """Forward chunks a reverse sweep takes at once: about ``_REV_POINTS``
+    points, no more than the waves of ``grid`` chunks, and ``grid`` groups'
+    workspace (``chunk_ws`` floats a chunk) within ``_REV_BYTES``."""
+    group = max(1, min(-(-nchunks // grid), _REV_POINTS // max(chunk_points, 1)))
+    while group > 1 and 4 * grid * group * chunk_ws > _REV_BYTES:
+        group -= 1
+    return group
+
+
+def _sweep_launch(field: nn.Module, fdesc: _build.MLPDesc, bwd: List[_build.MLPLayer], R: int,
+                  S: int, device: torch.device, sem: bool = False, input_grads: bool = False,
+                  rays_per_chunk: Optional[int] = None) -> Tuple[_build.TrainDesc, int, int]:
+    """The train kernels' descriptor, grid (a CTA an SM, at most one a
+    chunk) and group (:func:`_rev_group`) for ``R`` rays (or points) of
+    ``S`` samples; the descriptor's planes hold a group of chunks."""
+    one = train_desc(field, fdesc, bwd, S, sem, input_grads, rays_per_chunk)
+    nchunks = -(-R // one.rays_per_chunk)
+    grid = max(1, min(nchunks, torch.cuda.get_device_properties(device).multi_processor_count))
+    group = _rev_group(nchunks, grid, one.rays_per_chunk * S, one.ws_size)
+    return (train_desc(field, fdesc, bwd, S, sem, input_grads, one.rays_per_chunk, group),
+            grid, group)
 
 
 def grad_layout(field: nn.Module, sem: bool = False) -> Tuple[List[Tuple[int, int]], int]:
@@ -705,10 +733,11 @@ def grad_layout(field: nn.Module, sem: bool = False) -> Tuple[List[Tuple[int, in
 
 def train_desc(field: nn.Module, fdesc: _build.MLPDesc, bwd: List[_build.MLPLayer],
                S: int, sem: bool = False, input_grads: bool = False,
-               rays_per_chunk: Optional[int] = None) -> _build.TrainDesc:
+               rays_per_chunk: Optional[int] = None, group: int = 1) -> _build.TrainDesc:
     """K3's descriptor for ``S`` samples a ray: the forward and backward
     layers, the gradient layout and one CTA's workspace planes, sized for
-    chunks of ``rays_per_chunk`` rays (default ``_rays_per_chunk(S)``; K3's
+    ``group`` chunks (the reverse sweep's, each chunk's subs after the last
+    one's) of ``rays_per_chunk`` rays (default ``_rays_per_chunk(S)``; K3's
     and K6's forward take :func:`_wg_plan`'s). ``sem``
     (K6 with the semantic head): the semantic head's gradients and three
     planes more, after the trunk's: s_act, d_sem and ds. ``input_grads``
@@ -725,7 +754,7 @@ def train_desc(field: nn.Module, fdesc: _build.MLPDesc, bwd: List[_build.MLPLaye
     for i, (gw, gb) in enumerate(offs):
         d.gw[i], d.gb[i] = gw, gb
     d.rays_per_chunk = rays_per_chunk or _rays_per_chunk(S)
-    nsub = -(-d.rays_per_chunk * S // _TILE)
+    nsub = group * -(-d.rays_per_chunk * S // _TILE)
     rows = [_pad8(fdesc.emb_dim), _pad8(fdesc.demb_dim), _pad8(W), _pad8(W // 2), 8, 8,
             _pad8(W // 2), _pad8(W), _pad8(W), _pad8(W)] + [_pad8(W)] * mlp.depth
     if sem:
@@ -865,12 +894,12 @@ def _check_inputs(field: nn.Module, rays: torch.Tensor, cols: int, z: torch.Tens
                                   f"got {p.dtype} on {p.device}")
 
 
-def _rays_per_cta(S: int) -> int:
-    return max(1, 64 // S)
-
-
 def fused_coarse_weights(field: nn.Module, od: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
-    """K1: coarse eval pass, ``od [R, 6]``, ``z [R, S]`` -> weights ``[R, S]``."""
+    """K1: coarse eval pass, ``od [R, 6]``, ``z [R, S]`` -> weights ``[R, S]``;
+    see :func:`coarse_weights_plain`. One launch of K4's kernel in its
+    sigma-only mode (``csrc/train_render.cu``: the 128-point tile's trunk
+    through its ring, the alpha head, the composite without noise), a CTA a
+    chunk of :func:`_wg_plan`'s rays."""
     if od.device.type == "cpu":
         return coarse_weights_plain(field, od, z)
     if od.device.type != "cuda":
@@ -880,11 +909,15 @@ def fused_coarse_weights(field: nn.Module, od: torch.Tensor, z: torch.Tensor) ->
     weights = torch.empty((R, S), device=od.device, dtype=torch.float32)
     if R == 0:
         return weights
-    buf, desc = _packed(field, od.device)
+    buf, fdesc = _packed(field, od.device)
+    rbuf, ring = _ring(field, od.device)
+    desc = _build.TrainDesc()
+    desc.f = fdesc
+    desc.rays_per_chunk, rd = _wg_plan(fdesc, ring, S)
     with torch.cuda.device(od.device):
         code = _build.library().nerf_coarse_weights(
-            od.data_ptr(), z.data_ptr(), buf.data_ptr(), ctypes.byref(desc),
-            weights.data_ptr(), R, S, _rays_per_cta(S), _build.stream(od.device))
+            od.data_ptr(), z.data_ptr(), buf.data_ptr(), rbuf.data_ptr(), ctypes.byref(desc),
+            ctypes.byref(rd), weights.data_ptr(), R, S, _build.stream(od.device))
     _build.check(code, "fused_coarse_weights")
     fused_coarse_weights.launches += 1
     return weights
@@ -935,13 +968,11 @@ def fused_rgb_train_grads(field: nn.Module, odv: torch.Tensor, z: torch.Tensor, 
     rpc, rd = _wg_plan(fdesc, ring, S)
     bwd = _train_bwd(field, odv.device)[1]
     bring, brd = _bwd_ring(field, odv.device)
-    desc = train_desc(field, fdesc, bwd, S, rays_per_chunk=rpc)
+    desc, grid, group = _sweep_launch(field, fdesc, bwd, R, S, odv.device, rays_per_chunk=rpc)
     maps = torch.empty((R, 5 + fdesc.sem_dim), device=odv.device, dtype=torch.float32)
     weights = torch.empty((R, S), device=odv.device, dtype=torch.float32)
     flat = torch.zeros(desc.grad_size, device=odv.device, dtype=torch.float32)
     if R > 0:
-        nchunks = -(-R // desc.rays_per_chunk)
-        grid = min(nchunks, torch.cuda.get_device_properties(odv.device).multi_processor_count)
         partial = torch.empty(grid * desc.grad_size, device=odv.device, dtype=torch.float32)
         work = torch.empty(grid * desc.ws_size, device=odv.device, dtype=torch.float32)
         with torch.cuda.device(odv.device):
@@ -949,7 +980,7 @@ def fused_rgb_train_grads(field: nn.Module, odv: torch.Tensor, z: torch.Tensor, 
                 odv.data_ptr(), z.data_ptr(), gt.data_ptr(), buf.data_ptr(), rbuf.data_ptr(),
                 bring.data_ptr(), ctypes.byref(desc), ctypes.byref(rd), ctypes.byref(brd),
                 maps.data_ptr(), weights.data_ptr(), partial.data_ptr(), work.data_ptr(),
-                flat.data_ptr(), R, S, grid, noise_seed(seed), float(noise_std),
+                flat.data_ptr(), R, S, grid, group, noise_seed(seed), float(noise_std),
                 int(white_bkgd), _build.stream(odv.device))
         _build.check(code, "fused_rgb_train_grads")
         fused_rgb_train_grads.launches += 1
@@ -1134,11 +1165,10 @@ def train_render_grads(field: nn.Module, odv: torch.Tensor, z: torch.Tensor,
     rpc, rd = _wg_plan(fdesc, ring, S)
     bwd = _train_bwd(field, odv.device)[1]
     bring, brd = _bwd_ring(field, odv.device)
-    desc = train_desc(field, fdesc, bwd, S, sem, rays_per_chunk=rpc)
+    desc, grid, group = _sweep_launch(field, fdesc, bwd, R, S, odv.device, sem,
+                                      rays_per_chunk=rpc)
     flat = torch.zeros(desc.grad_size, device=odv.device, dtype=torch.float32)
     if R > 0:
-        nchunks = -(-R // desc.rays_per_chunk)
-        grid = min(nchunks, torch.cuda.get_device_properties(odv.device).multi_processor_count)
         partial = torch.empty(grid * desc.grad_size, device=odv.device, dtype=torch.float32)
         work = torch.empty(grid * desc.ws_size, device=odv.device, dtype=torch.float32)
         with torch.cuda.device(odv.device):
@@ -1147,7 +1177,7 @@ def train_render_grads(field: nn.Module, odv: torch.Tensor, z: torch.Tensor,
                 None if dweights is None else dweights.data_ptr(), buf.data_ptr(),
                 rbuf.data_ptr(), bring.data_ptr(), ctypes.byref(desc), ctypes.byref(rd),
                 ctypes.byref(brd), partial.data_ptr(), work.data_ptr(), flat.data_ptr(), R, S,
-                grid, noise_seed(seed), float(noise_std), _build.stream(odv.device))
+                grid, group, noise_seed(seed), float(noise_std), _build.stream(odv.device))
         _build.check(code, "train_render_grads")
         train_render_grads.launches += 1
     return unpack_grads(field, flat, sem)
@@ -1298,15 +1328,13 @@ def mip_train_render_grads(field: nn.Module, odvr: torch.Tensor, z: torch.Tensor
     buf, fdesc = _packed(field, odvr.device)
     bwd = _train_bwd(field, odvr.device)[1]
     bring, brd = _bwd_ring(field, odvr.device)
-    desc = train_desc(field, fdesc, bwd, S)
-    smem = _forward_smem(fdesc, desc.rays_per_chunk, S)
+    smem = _forward_smem(fdesc, _rays_per_chunk(S), S)
     if smem > _MAX_SMEM:
         raise NotImplementedError(f"S={S}: the forward's composite strip and tiles need {smem} B "
                                   "of shared memory")
+    desc, grid, group = _sweep_launch(field, fdesc, bwd, R, S, odvr.device)
     flat = torch.zeros(desc.grad_size, device=odvr.device, dtype=torch.float32)
     if R > 0:
-        nchunks = -(-R // desc.rays_per_chunk)
-        grid = min(nchunks, torch.cuda.get_device_properties(odvr.device).multi_processor_count)
         partial = torch.empty(grid * desc.grad_size, device=odvr.device, dtype=torch.float32)
         work = torch.empty(grid * desc.ws_size, device=odvr.device, dtype=torch.float32)
         with torch.cuda.device(odvr.device):
@@ -1314,7 +1342,7 @@ def mip_train_render_grads(field: nn.Module, odvr: torch.Tensor, z: torch.Tensor
                 odvr.data_ptr(), z.data_ptr(), dmaps.data_ptr(),
                 None if dweights is None else dweights.data_ptr(), buf.data_ptr(),
                 bring.data_ptr(), ctypes.byref(desc), ctypes.byref(brd), partial.data_ptr(),
-                work.data_ptr(), flat.data_ptr(), R, S, grid, noise_seed(seed),
+                work.data_ptr(), flat.data_ptr(), R, S, grid, group, noise_seed(seed),
                 float(noise_std), _build.stream(odvr.device))
         _build.check(code, "mip_train_render_grads")
         mip_train_render_grads.launches += 1

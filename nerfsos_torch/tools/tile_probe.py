@@ -91,16 +91,17 @@ import torch
 
 HERE = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+_NPROBE = 12
 _COUNTERS = """
-static __device__ unsigned long long g_probe[8];
+static __device__ unsigned long long g_probe[%d];
 #define PROBE_ON (blockIdx.x == 0 && threadIdx.x == 0)
 #define PROBE_ADD(i, t0) do { if (PROBE_ON) g_probe[i] += clock64() - (t0); } while (0)
-"""
+""" % _NPROBE
 
 _READER = """
 extern "C" int probe_read(unsigned long long* out) {
   cudaError_t e = cudaMemcpyFromSymbol(out, g_probe, sizeof(g_probe));
-  unsigned long long zero[8] = {0};
+  unsigned long long zero[sizeof(g_probe) / 8] = {0};
   if (e == cudaSuccess) e = cudaMemcpyToSymbol(g_probe, zero, sizeof(zero));
   return (int)e;
 }
@@ -122,53 +123,75 @@ def _in_function(text: str, head: str, fn) -> str:
 
 
 def _sweep_clocks(t: str) -> str:
-    """train_sweep.cuh with sweepclock's counters: 0 the reverse kernel,
-    1-3 wgrad, its copy issue and its waits; 4 bwd_layer, 5 thread 0's fills
-    (bulk-copy issue, with its waits for a free stage), 6 its waits for a
-    full stage, 7 its epilogues."""
+    """train_sweep.cuh with sweepclock's counters: 0 the reverse kernel;
+    wgrad: 1 all of it, 2 thread 0's fills (bulk-copy issue and its waits
+    for a free slot), 3 its waits for a full stage (with the fills made
+    while waiting), 4 the dY conversion with the barrier after it, 5 its
+    warpgroup's products (8 k steps a sub), 6 the partial dW's read and
+    write (once a round); bwd_layer: 7 all of it, 8 thread 0's fills, 9 its
+    waits for a full stage, 10 its epilogues."""
     t = _sub(t, "#include \"wgmma.cuh\"\n", "#include \"wgmma.cuh\"\n" + _COUNTERS, 1)
 
     def wgrad(body):
-        body = _sub(body, "  const int wm = warp & 3, wn = warp >> 2;\n",
-                    "  const int wm = warp & 3, wn = warp >> 2;\n"
-                    "  long long p_all = clock64(), p_w = 0;\n", 1)
-        body = body[:body.rindex("}")] + "  PROBE_ADD(1, p_all);\n}\n"
-        body = re.sub(r"(\n\s*)(stage_tiles\([^;]*;)",
-                      r"\1{ long long p_i = clock64(); \2 PROBE_ADD(2, p_i); }", body)
-        for n in (1, 0):
-            w = f'asm volatile("cp.async.wait_group {n};\\n" ::);'
-            body = _sub(body, w, f"p_w = clock64(); {w}", 1)
-        return re.sub(r"(\n\s*\}\n\s*__syncthreads\(\);)", r"\1 PROBE_ADD(3, p_w);", body,
-                      count=1)
+        body = _sub(body, "  constexpr int K = kWgrStages;\n",
+                    "  constexpr int K = kWgrStages;\n  long long p_all = clock64();\n", 1)
+        body = _sub(body, "  return pos;\n}\n", "  PROBE_ADD(1, p_all);\n  return pos;\n}\n", 1)
+        body = _sub(body, "  auto pump = [&](int until) {  // fill every stage before `until`, "
+                    "then those with a free slot\n",
+                    "  auto pump = [&](int until) {\n    long long p_p = clock64();\n", 1)
+        body = _sub(body, "    }\n  };\n  auto wait_full = [&](int q) {\n",
+                    "    }\n    PROBE_ADD(2, p_p);\n  };\n  auto wait_full = [&](int q) {\n"
+                    "    long long p_w = clock64();\n", 1)
+        body = _sub(body, "    }\n  };\n  if (tid == 0) pump(0);\n",
+                    "    }\n    PROBE_ADD(3, p_w);\n  };\n  if (tid == 0) pump(0);\n", 1)
+        body = _sub(body, "      // dY row n, points 8 kk .. 8 kk + 7 into k-slice kk of B",
+                    "      long long p_c = clock64();\n"
+                    "      // dY row n, points 8 kk .. 8 kk + 7 into k-slice kk of B", 1)
+        body = _sub(body, "      __syncthreads();  // B is whole\n",
+                    "      __syncthreads();  // B is whole\n      PROBE_ADD(4, p_c);\n", 1)
+        body = _sub(body, "        wait_full(q);\n",
+                    "        wait_full(q);\n        long long p_k = clock64();\n", 1)
+        body = _sub(body, "        if (lane == 0) mbar_arrive_n(wr.empty + q % K, 4);  "
+                    "// the X stage is free\n",
+                    "        if (lane == 0) mbar_arrive_n(wr.empty + q % K, 4);\n"
+                    "        PROBE_ADD(5, p_k);\n", 1)
+        body = _sub(body, "    if (live) {\n#pragma unroll\n      for (int i = 0; i < NP / 2; ++i) "
+                    "asm volatile(\"\" : \"+f\"(acc[i])::\"memory\");\n      // accumulator i: row 64",
+                    "    long long p_r = clock64();\n    if (live) {\n#pragma unroll\n      for "
+                    "(int i = 0; i < NP / 2; ++i) asm volatile(\"\" : \"+f\"(acc[i])::\"memory\");\n"
+                    "      // accumulator i: row 64", 1)
+        return _sub(body, "    if (sums && tid < rd.nrow) db[rd.pc * NP + tid] += dbacc;\n",
+                    "    PROBE_ADD(6, p_r);\n"
+                    "    if (sums && tid < rd.nrow) db[rd.pc * NP + tid] += dbacc;\n", 1)
 
     def pieces(body):
         head = body.index("\n", body.index("  auto fill = [&]("))
         end = body.index("\n  };\n", head)
         body = (body[:head] + "\n    long long p_f = clock64();" + body[head:end]
-                + "\n    PROBE_ADD(5, p_f);" + body[end:])
+                + "\n    PROBE_ADD(8, p_f);" + body[end:])
         wait = ("      while (!mbar_try_wait(br.full + slot, (at / kBwdStages) & 1)) {\n"
                 "      }\n")
         body = _sub(body, wait, "      long long p_w = clock64();\n" + wait
-                    + "      PROBE_ADD(6, p_w);\n", 1)
+                    + "      PROBE_ADD(9, p_w);\n", 1)
         body = _sub(body, "    if (!live) continue;\n",
                     "    if (!live) continue;\n    long long p_e = clock64();\n", 1)
         return _sub(body, "    }\n  }\n  return pos + total;\n",
-                    "    }\n    PROBE_ADD(7, p_e);\n  }\n  return pos + total;\n", 1)
+                    "    }\n    PROBE_ADD(10, p_e);\n  }\n  return pos + total;\n", 1)
 
     def layer(body):
         body = _sub(body, "  const int nk = L.k / 8, ldn = pad8(L.n);\n",
                     "  long long p_all = clock64();\n  const int nk = L.k / 8, ldn = pad8(L.n);\n", 1)
-        return _sub(body, "  return pos;\n}\n", "  PROBE_ADD(4, p_all);\n  return pos;\n}\n", 1)
+        return _sub(body, "  return pos;\n}\n", "  PROBE_ADD(7, p_all);\n  return pos;\n}\n", 1)
 
-    t = _in_function(t, "__device__ __noinline__ void wgrad(", wgrad)
+    t = _in_function(t, "__device__ __forceinline__ int wgrad_rounds(", wgrad)
     t = _in_function(t, "__device__ __forceinline__ int bwd_pieces(", pieces)
-    t = _in_function(t, "__device__ __noinline__ int bwd_layer(", layer)
+    t = _in_function(t, "__device__ __forceinline__ int bwd_layer(", layer)
     t = _in_function(t, "    train_reverse_kernel(", lambda b: _sub(
-        _sub(b, "  float* stages = reinterpret_cast<float*>(rev_raw + 128);\n",
-             "  float* stages = reinterpret_cast<float*>(rev_raw + 128);\n"
+        _sub(b, "  float* region = reinterpret_cast<float*>(rev_raw + kRevHead);\n",
+             "  float* region = reinterpret_cast<float*>(rev_raw + kRevHead);\n"
              "  long long p_start = clock64();\n", 1),
-        "  if (kInGrad) {\n    const long long base", "  PROBE_ADD(0, p_start);\n"
-        "  if (kInGrad) {\n    const long long base", 1))
+        "  if (kInGrad) {\n    __syncthreads();", "  PROBE_ADD(0, p_start);\n"
+        "  if (kInGrad) {\n    __syncthreads();", 1))
     return t
 
 
@@ -290,12 +313,12 @@ def _patch_one(variant: str, csrc: str) -> None:
     elif variant == "fwdonly":
         edit("train_render.cu", lambda t: _sub(
             t, "    train_reverse_kernel<kSem><<<grid, kThreads, kReverseSmem, st>>>(\n"
-               "        bring, nullptr, *d, *brd, RingDesc{}, partial, workspace, R, S, wave, "
-               "nullptr, nullptr);\n", "", 1))
+               "        bring, nullptr, *d, *brd, RingDesc{}, partial, workspace, R, S, wave, group, "
+               "nullptr,\n        nullptr);\n", "", 1))
         edit("fused_field.cu", lambda t: _sub(
             t, "    train_reverse_kernel<kSem, kInGrad><<<grid, kThreads, kReverseSmem, st>>>(\n"
-               "        bring, iring, *d, *brd, *ird, partial, workspace, N, 1, wave, dpts, ddirs);\n",
-            "", 1))
+               "        bring, iring, *d, *brd, *ird, partial, workspace, N, 1, wave, group, dpts, "
+               "ddirs);\n", "", 1))
     elif variant == "sweepclock":
         edit("train_sweep.cuh", _sweep_clocks)
         edit("train_render.cu", lambda t: t + _READER)
@@ -328,7 +351,7 @@ def _patch_one(variant: str, csrc: str) -> None:
 """, 1)
 
         edit("wg_tile.cuh", tile)
-    elif variant != "base":
+    elif variant != "base" and not variant.startswith("revpoints"):
         raise ValueError(f"unknown variant {variant}")
 
 
@@ -337,9 +360,16 @@ def _clock(variant: str) -> str:
     return next((v for v in variant.split("+") if v.endswith("clock")), "")
 
 
+def _sources(variant: str) -> str:
+    """The '+'-joined source patches of a variant ('base' for none)."""
+    parts = [v for v in variant.split("+") if not v.startswith("revpoints")]
+    return "+".join(parts) or "base"
+
+
 def _use(_build, root: str, variant: str):
     """Point _build at a patched copy of root's sources and load its library
     (built unless one for the same sources is there)."""
+    variant = _sources(variant)
     base = os.path.join(root, "build", "tile_probe", variant)
     csrc = os.path.join(base, "csrc")
     shutil.rmtree(csrc, ignore_errors=True)
@@ -360,7 +390,8 @@ def main() -> int:
     ap.add_argument("--samples", default="192", help="samples a ray, a comma-separated list")
     ap.add_argument("--variants", default="base,wgclock")
     ap.add_argument("--root", default=HERE)
-    ap.add_argument("--kernel", default="k4", choices=("k4", "k9", "k6", "k3", "k5", "k2"))
+    ap.add_argument("--kernel", default="k4",
+                    choices=("k4", "k9", "k6", "k3", "k5", "k2", "k1"))
     a = ap.parse_args()
     if not torch.cuda.is_available():
         print("tile_probe: no CUDA device visible", file=sys.stderr)
@@ -380,6 +411,11 @@ def main() -> int:
             field = seeded_mip_field(5)
             odv, z = mip_ray_inputs(a.rays, S, seed=11)
             return lambda: fr.fused_mip_render(field, odv, z)
+        if a.kernel == "k1":
+            field = seeded_field(0, net_depth=8, net_width=256, multires=10, multires_views=4)
+            odv, z = ray_inputs(a.rays, S, seed=11)
+            od = odv[:, :6].contiguous()
+            return lambda: fr.fused_coarse_weights(field, od, z)
         field = seeded_field(3 if a.kernel != "k3" else 2, net_depth=8, net_width=256,
                              multires=10, multires_views=4, use_semantics=True,
                              sem_with_coord=a.kernel != "k3", sem_dim=2)
@@ -407,20 +443,24 @@ def main() -> int:
     names = {"l1clock": ["load_stage", "mma_stage"],
              "wgclock": ["ring_full_wait", "producer_empty_wait", "k_loops", "own_wgmma_wait",
                          "epilogues"],
-             "sweepclock": ["wgrad", "wgrad_copy_issue", "wgrad_copy_wait", "bwd_layer",
+             "sweepclock": ["wgrad", "wgrad_fills", "wgrad_full_wait", "wgrad_convert",
+                            "wgrad_products", "wgrad_partial_rmw", "bwd_layer",
                             "bwd_layer_fill_issue", "bwd_layer_full_wait", "bwd_layer_epilogue"],
              "semclock": ["f_x_wait", "f_w_wait", "f_products", "f_ds_wait", "f_epilogue",
                           "d0_waits", "d0_loop"]}
     runs = {int(S): runner(int(S)) for S in a.samples.split(",")}
+    rev_points = getattr(fr, "_REV_POINTS", None)
     for variant in a.variants.split(","):
         lib = _use(_build, root, variant)
+        rev = next((v for v in variant.split("+") if v.startswith("revpoints")), None)
+        fr._REV_POINTS = int(rev[9:]) if rev else rev_points
         for S, run in runs.items():
             with torch.no_grad():
                 ms = cuda_ms(run, reps=3, warmup=1)
                 out = {"root": os.path.relpath(root, HERE), "variant": variant, "rays": a.rays,
                        "samples": S, f"{a.kernel}_ms": ms}
                 if _clock(variant):
-                    buf = (ctypes.c_ulonglong * 8)()
+                    buf = (ctypes.c_ulonglong * _NPROBE)()
                     _build.check(lib.probe_read(buf), "probe_read")  # drop the timed calls' sums
                     run()
                     torch.cuda.synchronize()

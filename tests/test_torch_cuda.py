@@ -69,10 +69,11 @@ def test_k1_matches_plain(cuda, shape, n, s):
     before = fr.fused_coarse_weights.launches
     with torch.no_grad():
         got = fr.fused_coarse_weights(field, od, z)
+        again = fr.fused_coarse_weights(field, od, z)
         want = fr.coarse_weights_plain(field, od, z)
     torch.cuda.synchronize()
-    assert fr.fused_coarse_weights.launches == before + 1
-    assert torch.isfinite(got).all()
+    assert fr.fused_coarse_weights.launches == before + 2
+    assert torch.isfinite(got).all() and torch.equal(got, again)
     assert float((got - want).abs().max()) <= TOL
 
 
@@ -441,6 +442,37 @@ def test_k6_matches_plain(cuda, shape, s, coord, dweights, n):
     for name, ref in want.items():
         assert torch.equal(got[name], again[name]), name
         assert got[name].shape == ref.shape and torch.isfinite(got[name]).all(), name
+        scale = max(float(ref.abs().max()), 1e-12)
+        err = float((got[name] - ref).abs().max())
+        assert err <= GRAD_TOL * scale + allow[name], (name, err / scale)
+
+
+@pytest.mark.parametrize("n,s", [(1100, 64), (701, 192)])
+def test_k6_dw_at_the_382_row_head(cuda, n, s):
+    """wgrad's widest input, sem_0's X rows [emb; h; emb] (382: the skip
+    after the last trunk layer, width 256, coordinates) in six 64-row
+    blocks, two rounds of the four warpgroups; n rays leave a ragged last
+    chunk and more chunks than CTAs, so each reverse sweep takes several
+    forward chunks (``_rev_group``). On gate-clear rays every leaf to
+    GRAD_TOL of its max plus the sigma gates' allowance, bitwise equal
+    across two calls."""
+    field = _field(cuda, 8, use_semantics=True, sem_with_coord=True, sem_dim=2, net_depth=5,
+                   net_width=256, multires=10, multires_views=4)
+    assert field.mlp.semantic_linear[0].in_features == 382
+    odv, z, _ = _gate_clear_inputs(field, n, s, 21, sem=True)
+    rng = np.random.default_rng(n)
+    dmaps = torch.from_numpy(rng.normal(size=(n, 7)).astype(np.float32)).to(cuda)
+    dw = torch.from_numpy(rng.normal(size=(n, s)).astype(np.float32)).to(cuda)
+    kw = dict(noise_std=1.0, seed=2468)
+    got = fr.train_render_grads(field, odv, z, dmaps, dw, **kw)
+    again = fr.train_render_grads(field, odv, z, dmaps, dw, **kw)
+    want, slack, terms = plain_k6_with_gates(field, odv, z, dmaps, dw, kw)
+    torch.cuda.synchronize()
+    allow = flip_allowance(slack, terms)
+    assert set(got) == set(want)
+    for name, ref in want.items():
+        assert torch.equal(got[name], again[name]), name
+        assert torch.isfinite(got[name]).all(), name
         scale = max(float(ref.abs().max()), 1e-12)
         err = float((got[name] - ref).abs().max())
         assert err <= GRAD_TOL * scale + allow[name], (name, err / scale)

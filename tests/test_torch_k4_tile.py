@@ -101,10 +101,14 @@ def test_ring_packing_unpacks_to_the_weights(depth, sem, coord, width):
         assert 2 <= rds.stages <= 4 and fr._wg_smem(fdesc, rds, rpc, S) <= fr._MAX_SMEM
 
 
-def _k4_model(field, odv, z, noise_std, seed, save_semin, desc=None, sem_act=False):
+def _k4_model(field, odv, z, noise_std, seed, save_semin, desc=None, sem_act=False,
+              sigma_only=False):
     """K4 as the kernel computes it, from pack_field's and pack_ring's
     buffers alone: chunks of rays, 128-point tiles of two 64-point
-    warpgroups, each layer k-slice by k-slice in the ring's order. With
+    warpgroups, each layer k-slice by k-slice in the ring's order.
+    ``sigma_only`` (K1's mode): the tile reads the rays' first 6 columns,
+    streams the trunk's layers alone, then the alpha head; only the weights
+    come out right. With
     ``desc`` (``train_desc`` at the plan's chunk), K3's and K6's storing
     forward (``wg_forward_tile``'s kStore): each warpgroup with a point
     before the chunk's nq also writes emb, demb, every trunk layer's output,
@@ -175,7 +179,7 @@ def _k4_model(field, odv, z, noise_std, seed, save_semin, desc=None, sem_act=Fal
             writes[at:at + rows * fr._KLD].view(rows, fr._KLD)[:, :WG] += 1
 
         pts = (o[:, None, 0:3] + o[:, None, 3:6] * zc[..., None]).reshape(-1, 3)
-        dirs = o[:, None, 6:9].expand(-1, zc.shape[1], 3).reshape(-1, 3)
+        dirs = None if sigma_only else o[:, None, 6:9].expand(-1, zc.shape[1], 3).reshape(-1, 3)
         for t in range(-(-nq // 128)):
             for wg in range(2):
                 qw = 128 * t + WG * wg
@@ -185,7 +189,8 @@ def _k4_model(field, odv, z, noise_std, seed, save_semin, desc=None, sem_act=Fal
                 emb = torch.zeros(Ep, WG)
                 demb = torch.zeros(Edp, WG)
                 emb[:E] = pe(torch.where(live, pts[qc].t(), 0.0), E)
-                demb[:Ed] = pe(torch.where(live, dirs[qc].t(), 0.0), Ed)
+                if not sigma_only:
+                    demb[:Ed] = pe(torch.where(live, dirs[qc].t(), 0.0), Ed)
                 store, sub = desc is not None and qw < nq, qw // WG
                 if store:
                     put(fr._P_EMB, sub, emb)
@@ -208,6 +213,8 @@ def _k4_model(field, odv, z, noise_std, seed, save_semin, desc=None, sem_act=Fal
                 xa = torch.cat([s for s in (in0, in1) if s is not None])
                 alpha = xa.t() @ wt_fp32(head[0])[:, 0] + buf[head[0].b]
                 strip[qc[live], 0] = alpha[live]
+                if sigma_only:
+                    continue
                 if sem:
                     i = depth + 4
                     v = torch.relu(product(i, [in0, in1, emb if fdesc.sem_with_coord else None])
@@ -238,7 +245,8 @@ def _k4_model(field, odv, z, noise_std, seed, save_semin, desc=None, sem_act=Fal
         maps.append(m)
         weights.append(w)
         sem_in.append(semin)
-    per_tile = sum(L[i].k // 8 for i in fr.ring_layers(field))
+    layers = range(depth) if sigma_only else fr.ring_layers(field)
+    per_tile = sum(L[i].k // 8 for i in layers)
     assert stages["n"] == 2 * per_tile * sum(-(-min(rpc, R_ - r0) * S // 128)
                                              for r0 in range(0, R_, rpc))
     out = torch.cat(maps), torch.cat(weights), torch.cat(sem_in) if save_semin else None
@@ -305,6 +313,33 @@ def test_k2_route_is_the_tile_without_noise(monkeypatch, depth, sem, coord, s):
                                           depth=depth, interpret=True)
     np.testing.assert_allclose(model[0].numpy(), np.asarray(maps_j), atol=1e-5, rtol=0)
     np.testing.assert_allclose(model[1].numpy(), np.asarray(w_j), atol=1e-5, rtol=0)
+
+
+K1_CASES = [(4, True, True, 8), (5, False, False, 16), (6, True, False, 16)]
+
+
+@pytest.mark.parametrize("depth,sem,coord,s", K1_CASES)
+def test_k1_route_is_the_tile_sigma_only(monkeypatch, depth, sem, coord, s):
+    """K1 runs K4's kernel in its sigma-only mode: the tile's dataflow on
+    ``od [R, 6]`` (the trunk's ring stages, the alpha head, the composite at
+    noise 0) against K1's plain version and the JAX package's coarse pass
+    (``fused_coarse_weights_planar``, Pallas in interpret mode), the
+    coarse field's weights bridged from JAX, fixed z, ragged last tile:
+    the weights to 1e-5."""
+    monkeypatch.setattr(jfr, "RAY_BLOCK", 8)
+    jcfg, params, tnet = _nets(depth, sem, coord)
+    odv, z = _inputs(5 * s + depth, s)
+    od = np.ascontiguousarray(odv[:, :6])
+    field = tnet.nerf
+    od_t, z_t = torch.from_numpy(od), torch.from_numpy(z)
+    with torch.no_grad():
+        model = _k4_model(field, od_t, z_t, 0.0, 0, False, sigma_only=True)[1]
+        want = fr.coarse_weights_plain(field, od_t, z_t)
+    assert model.shape == want.shape == (R, s)
+    np.testing.assert_allclose(model.numpy(), want.numpy(), atol=1e-5, rtol=0)
+    w_j = jfr.fused_coarse_weights_planar(params["coarse"], jnp.asarray(od), jnp.asarray(z), jcfg,
+                                          depth=depth, interpret=True)
+    np.testing.assert_allclose(model.numpy(), np.asarray(w_j), atol=1e-5, rtol=0)
 
 
 def test_ring_repacks_a_changed_layer_only():

@@ -1,7 +1,14 @@
 """The port's measurement tools on the CPU: the SASS spill scan of
 ``nerfsos_torch/tools/sass_spills.py`` on a hand-written listing (the tool
-itself runs ``cuobjdump`` on the card's machine)."""
-from nerfsos_torch.tools import sass_spills
+itself runs ``cuobjdump`` on the card's machine), and ``tile_probe``'s
+source patches applied to a copy of the kernels' sources."""
+import os
+import shutil
+
+import pytest
+
+from nerfsos_torch import _build
+from nerfsos_torch.tools import sass_spills, tile_probe
 
 _SASS = """
         /*0000*/                   MOV R1, c[0x0][0x28] ;
@@ -25,3 +32,22 @@ def test_scan_counts_spills_in_the_innermost_wgmma_loop():
 def test_scan_without_wgmma_has_no_loops():
     got = sass_spills.scan(_SASS.replace("HGMMA.64x32x8.F32.TF32", "FFMA"))
     assert got["hgmma"] == 0 and got["wgmma_loops"] == 0 and got["ldl_in_wgmma_loops"] == 0
+
+
+@pytest.mark.parametrize("variant", ["fwdonly", "sweepclock", "wgclock", "semclock", "l1clock",
+                                     "l1", "bwdstages6", "nostore", "nocomposite", "epistore",
+                                     "fwdonly+nostore", "sweepclock+revpoints64"])
+def test_tile_probe_patches_apply_to_the_sources(tmp_path, variant):
+    """Each of ``nerfsos_torch/tools/tile_probe.py``'s variants finds the
+    text it patches in this checkout's ``csrc/`` (a patch that no longer
+    matches its source raises) and changes it; ``revpoints`` patches no
+    source."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC_DIR, csrc)
+    tile_probe._patch(tile_probe._sources(variant), str(csrc))
+    changed = [f.name for f in sorted(csrc.iterdir())
+               if f.read_text() != open(os.path.join(_build.CSRC_DIR, f.name)).read()]
+    assert changed, variant
+    if "sweepclock" in variant:
+        text = (csrc / "train_sweep.cuh").read_text()
+        assert all(f"PROBE_ADD({i}, " in text for i in range(11))

@@ -161,7 +161,7 @@ def _emulate_forward(field, odv, z):
 
 
 def _emulate_k3(field, odv, z, gt, white, noise_std, seed, dmaps=None, dweights=None, fwd=None,
-                dx=None):
+                dx=None, dwb=None):
     """What csrc/train_render.cu computes, step for step, in feature-major
     torch matrices built only from the packed buffers: the forward
     (``fwd``, by default ``_emulate_forward``'s), the composite and its
@@ -173,7 +173,10 @@ def _emulate_k3(field, odv, z, gt, white, noise_std, seed, dmaps=None, dweights=
     the last trunk layer's cotangent. ``dx(i, segs, gate, add)``: layer
     i's input-gradient product of the dY rows ``segs``, ``add`` added and
     then gated by ``gate > 0`` (each when not None); by default
-    ``pack_train_bwd``'s matrix in one product."""
+    ``pack_train_bwd``'s matrix in one product. ``dwb(layer, segs, dy)``:
+    layer's (dW ``[rows of segs, dy rows]``, db) from its input rows
+    ``segs`` and its cotangent rows ``dy``; by default one product and one
+    sum."""
     fd = tfr.pack_field(field)[1]
     bbuf, bwd = tfr.pack_train_bwd(field)
     if dx is None:
@@ -231,9 +234,13 @@ def _emulate_k3(field, odv, z, gt, white, noise_std, seed, dmaps=None, dweights=
 
     def wgrad(layer, segs, dy):
         gw, gb = offs[layer]
-        x = torch.cat(segs)
-        flat[gw:gb] = (x @ dy.t()).reshape(-1)
-        flat[gb:gb + dy.shape[0]] = dy.sum(1)
+        if dwb is None:
+            flat[gw:gb] = (torch.cat(segs) @ dy.t()).reshape(-1)
+            flat[gb:gb + dy.shape[0]] = dy.sum(1)
+        else:
+            w_, b_ = dwb(layer, segs, dy)
+            flat[gw:gb] = w_.reshape(-1)
+            flat[gb:gb + dy.shape[0]] = b_
 
     k_alpha, k_feat, k_views, k_rgb = depth, depth + 1, depth + 2, depth + 3
     wgrad(k_rgb, [hv], drgb)
