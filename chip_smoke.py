@@ -75,7 +75,10 @@ Phases (one line each; any failure raises and the exit code is nonzero):
      and against a second call on the same inputs, bitwise;
  11. K7 (row stats, the four geometry means, the code gradients) on the last
      SOS step's own inputs (16 x 4096 pixels, 2 channels) vs the plain
-     versions to K7_TOL, two calls bitwise equal;
+     versions to K7_TOL, two calls bitwise equal, the pair sweeps'
+     reciprocal fast path against 1.f / x on every float it can meet, and
+     [K7_design]: each kernel's grid, ptxas line and issue-rate bound (its
+     SASS pair loop's instructions a pair over the SMs' issue rate);
  12. the 32768-ray SOS step (CUDA events) on the kernel and the plain path,
      with peak memory, and its parts timed alone (K4 and K5 coarse and
      fine, ViT, the forward kernels' weight packing, appearance loss, K7
@@ -88,7 +91,7 @@ Phases (one line each; any failure raises and the exit code is nonzero):
      bitwise equal, and the forward/reverse split as in 5 (between 9 and 10);
  14. [K7s]: K7 with one half and one head (K7b/K7c) and two heads (K7d/K7e)
      vs the plain versions at 8 x 4096 pixels, 2 channels, to K7_TOL, two
-     calls bitwise equal (after 11);
+     calls bitwise equal, with [K7s_design] as in 11 (after 11);
  15. [sos_full]: the finetune flags without --fix_backbone, 5 steps from the
      [train] run's last.ckpt: K4 and K6 twice a step, K7a/K7f/K7g once,
      every leaf moved, Adam state for every leaf, the last step's two K6
@@ -97,7 +100,9 @@ Phases (one line each; any failure raises and the exit code is nonzero):
      step, K7a/K7b/K7c four times (2 heads x neg/self), the trunk bitwise
      unchanged, the last step's K7b/K7c calls vs the plain versions;
  17. [sos_full_step]: the full finetune's 32768-ray step as in 12, K6 in
-     place of K5;
+     place of K5; [sos_randneg_step]: the --rand_neg finetune's step on the
+     kernel and the plain path (K7a/K7b/K7c in place of K7a/K7f/K7g), with
+     peak memory, no parts;
  18. [K9]: the mip eval kernel vs its plain version at the flagship width
      (8 x 256, multires 10, multires_views 4), 4096 rays, S=63 and S=190
      intervals at fixed sorted fenceposts, a 378x504 view's base radius:
@@ -155,6 +160,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -203,14 +209,20 @@ INPUT_GRAD_MARGIN = 1e-5
 # Bound on K7's four means and four code gradients, relative to the largest
 # |plain| of the four means and to each gradient's own max |plain|. Both
 # sides are fp32 and form every pair's terms with the same operations in the
-# same order (IEEE division, no FMA contraction), so the terms are
-# bit-identical; only the order of the sums differs (the kernel: a running
-# sum of 4096 columns or rows a thread, then a fixed tree and the CTAs in
-# order; PyTorch: its blocked reductions). fp32 summation of n terms moves a
-# sum by ~sqrt(n) 2^-24 of its terms' scale, ~4e-6 at n = 4096; 1e-4 leaves
-# an order of margin (the means sum 16 x 4096 of those row sums) while an
-# indexing fault (a wrong column, half or head) moves a value by O(1e-2) of
-# its scale or more.
+# same order (IEEE reciprocals: a tile with every input within 2^90 takes
+# the division's fast path alone, which [K7] holds against 1.f / x on every
+# float it can meet, rcp_fast_path_mismatches=0; the loss's product -cd *
+# fd2 rounded on its own with __fmul_rn, not fused into its sum; the
+# gradients' dd * sign(.) is exact, so its fusion into a sum changes
+# nothing), so the terms are bit-identical; only the order of the sums
+# differs (the kernel, in pair tiles of up to 256 rows x 256 columns: a
+# lane's running sum over a warp's 64 columns (dc1, the loss) or over its
+# rows (dc2), a fixed shuffle tree over the warp and the warps in order,
+# then the tiles in order; PyTorch: its blocked reductions). fp32 summation
+# of n terms moves a sum by ~sqrt(n) 2^-24 of its terms' scale, ~4e-6 at
+# n = 4096; 1e-4 leaves an order of margin (the means sum 16 x 4096 of
+# those row sums) while an indexing fault (a wrong column, half or head)
+# moves a value by O(1e-2) of its scale or more.
 K7_TOL = 1e-4
 # H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bytes/s, the fp32-accurate
 # tensor-core rate of the 3xTF32 products the kernels use (495 TFLOP/s TF32
@@ -218,6 +230,12 @@ K7_TOL = 1e-4
 HBM_BYTES_S = 3.35e12
 FP32_MMA_FLOP_S = 495e12 / 3
 FP32_SIMT_FLOP_S = 67e12
+# K7's second bound, by instruction issue: an SM issues one warp instruction
+# a clock on each of its 4 schedulers (128 lane instructions a clock), and
+# its MUFU units take 16 lane reciprocals a clock (the CUDA C++ Programming
+# Guide's arithmetic throughput table, compute capability 9.0)
+LANE_INSNS_PER_CLOCK = 128
+MUFU_LANES_PER_CLOCK = 16
 # ptxas's line for K4's kernel (train_render_wg_kernel<false>, also K2's),
 # for K1's (its sigma-only mode, <true>), for K5's (frozen_sem_kernel), for
 # K3's and K6's forward (train_forward_wg_kernel, kLoss and kCotangent) and
@@ -228,6 +246,13 @@ K4_PTXAS = None
 K5_PTXAS = None
 FWD_PTXAS = {}
 REV_PTXAS = {}
+# ptxas's line and the SASS pair loop (sass_spills.inner_loop) of each of
+# K7's kernels, by the part of its mangled name K7_KERNEL matches:
+# rowsum_kernel (K7a) and every loss_tile_kernel and grad_tile_kernel
+# instantiation (ILi<heads>ELi<S>E)
+K7_KERNEL = re.compile(r"(rowsum_kernel|(?:loss|grad)_tile_kernelILi\dELi\dE)")
+K7_PTXAS = {}
+K7_SASS = {}
 
 
 def phase(name: str, **fields) -> None:
@@ -1120,10 +1145,44 @@ def k7_ops(S: int, heads: int = 2) -> dict:
     as one: fd is 3 sub, 3 abs, 3 add, +0.05, div, min (12); K7a adds the
     row sum; the loss sweep (K7b one head, K7d/K7f two) adds -rowmean +
     offset and per head the codes' L1 (3 S - 1), +0.05, div, min, the
-    product and the sum; the gradient sweeps (K7c, K7e/K7g; one sweep's
-    worth) per head the L1, +0.05, div, the clamp test and three products,
-    and per channel sign, product and two sums."""
+    product and the sum; the gradient sweep (K7c, K7e/K7g: one pass, each
+    pair once) per head the L1, +0.05, div, the clamp test and three
+    products, and per channel sign, product and two sums."""
     return {"K7a": 13, "loss": 14 + heads * (3 * S + 4), "grads": 14 + heads * (7 * S + 5)}
+
+
+def max_sm_clock_hz() -> float:
+    """The card's top SM clock (nvidia-smi's clocks.max.sm)."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                         timeout=60, check=True)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+def k7_design(kernel: str, heads: int, B2: int, N: int, S: int) -> dict:
+    """One K7 kernel's design numbers at a call of B2 x N pixels: its grid
+    (rowsum_kernel: a row a thread; the pair sweeps: fc.tile_grid's tiles),
+    ptxas's line, and the issue-rate bound: the SASS pair loop's
+    instructions a pair (the loop's MUFU reciprocals over the pair's, one
+    for fd and one a head in the sweeps) times the pairs over the SMs' issue
+    rate at the card's top SM clock, or its reciprocals at the MUFU rate if
+    that is slower."""
+    from nerfsos_torch.ops import flash_corr as fc
+
+    if kernel == "rowsum_kernel":
+        grid, rcp = [-(-N // 128), B2], 1
+    else:
+        grid, rcp = [*fc.tile_grid(N, S, heads), B2], 1 + heads
+        kernel = f"{kernel}ILi{heads}ELi{S}E"
+    loop = K7_SASS[kernel]
+    pairs_per_iter = loop["mufu"] / rcp
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clocks = B2 * N * N / pairs_per_iter * max(loop["insns"] / LANE_INSNS_PER_CLOCK,
+                                                 loop["mufu"] / MUFU_LANES_PER_CLOCK)
+    return {"grid": grid, "ctas": math.prod(grid), "ptxas": repr(K7_PTXAS[kernel]),
+            "loop_insns": loop["insns"], "loop_mufu": loop["mufu"],
+            "insns_per_pair": loop["insns"] / pairs_per_iter,
+            "issue_bound_ms": clocks / (sms * max_sm_clock_hz()) * 1e3}
 
 
 def k7_costs(f1, c1a, heads: int = 2) -> dict:
@@ -1271,6 +1330,8 @@ def kernel_vs_plain_k7s(fc) -> dict:
               **{f"{k}_ms": v[0] for k, v in t.items()},
               **{f"{k}_plain_ms": v[1] for k, v in t.items()},
               **{f"{k}_bound_ms": costs[k]["bound_ms"] for k in costs})
+        for k, kernel in ((k_m, "loss_tile_kernel"), (k_g, "grad_tile_kernel")):
+            phase("K7s_design", kernel=k, **k7_design(kernel, heads, B, N, S))
         out.update({k: {"max_abs_err": errs[k], "ms": t[k][0], "plain_ms": t[k][1], **costs[k],
                         "library_ms": None} for k in t})
     return out
@@ -1466,10 +1527,18 @@ def kernel_vs_plain_k7(fc, calls) -> dict:
     c = k7_costs(f1, a_m[2])
     costs = {"K7a": c["K7a"], "K7f": c["loss"], "K7g": c["grads"]}
     B2, N, S = a_m[2].shape
+    mismatches = fc.rcp_mismatches(f1.device)
+    if mismatches:
+        raise SystemExit(f"K7's reciprocal fast path differs from 1.f / x on {mismatches} "
+                         f"floats of [0.05, 2^95]")
     phase("K7", rows=B2, pixels=N, channels=S, values=[float(x) for x in out],
+          rcp_fast_path_mismatches=mismatches,
           **{f"rel_err_{k}": v for k, v in err.items()}, tol=K7_TOL, deterministic=True,
           **{f"{k}_ms": v[0] for k, v in t.items()}, **{f"{k}_plain_ms": v[1] for k, v in t.items()},
           **{f"{k}_bound_ms": costs[k]["bound_ms"] for k in costs})
+    for k, kernel in (("K7a", "rowsum_kernel"), ("K7f", "loss_tile_kernel"),
+                      ("K7g", "grad_tile_kernel")):
+        phase("K7_design", kernel=k, **k7_design(kernel, 2, B2, N, S))
     kerr = {"K7a": max(abs_err["rowmean"], abs_err["gmean"]), "K7f": abs_err["means"],
             "K7g": max(abs_err[k] for k in ("dc1a", "dc2a", "dc1b", "dc2b"))}
     return {k: {"max_abs_err": kerr[k], "ms": t[k][0], "plain_ms": t[k][1], **costs[k],
@@ -1623,9 +1692,10 @@ def sos_mode_path(fr, fc, mode: str) -> dict:
 
 
 def sos_step_timings(fr, fc, sos_run, name: str = "sos_step",
-                     bwd: str = "frozen_sem_grads") -> dict:
-    """[sos_step] (``bwd`` K5, the frozen finetune) or [sos_full_step] (K6,
-    the full finetune): the 32768-ray SOS step (8 patches of 64x64) in ms
+                     bwd: str = "frozen_sem_grads", parts: bool = True) -> dict:
+    """[sos_step] (``bwd`` K5, the frozen finetune), [sos_full_step] (K6,
+    the full finetune) or, without its parts, [sos_randneg_step] (K5 and
+    the single-head K7b/K7c): the 32768-ray SOS step (8 patches of 64x64) in ms
     from CUDA events on the kernel path and on the plain path (each kernel
     wrapper's plain version in its place; K6's runs its autograd a chunk of
     rays at a time, so the full step's plain path fits too), with peak
@@ -1654,9 +1724,9 @@ def sos_step_timings(fr, fc, sos_run, name: str = "sos_step",
     cost = {"K5": k5_cost, "K6": k6_cost}[bwd_key]
     out = {}
     plain = {fr: {"train_render": fr.train_render_plain, bwd: getattr(fr, bwd + "_plain")},
-             fc: {"geo_row_stats": fc.geo_row_stats_plain,
-                  "geo_quad_means": fc.geo_quad_means_plain,
-                  "geo_quad_grads": fc.geo_quad_grads_plain}}
+             fc: {n: getattr(fc, n + "_plain")
+                  for n in ("geo_row_stats", "geo_quad_means", "geo_quad_grads",
+                            "geo_single_means", "geo_single_grads")}}
     for path in ("kernel", "plain", "kernel", "plain"):
         saved = {}
         if path == "plain":
@@ -1677,6 +1747,8 @@ def sos_step_timings(fr, fc, sos_run, name: str = "sos_step",
         rays = batch["target"].shape[0]
         phase(name, path=path, patches=args.batch_size, rays=rays, ms=ms,
               rays_per_s=rays / ms * 1e3, peak_gib=peak)
+    if not parts:
+        return out
 
     # one kernel-path step with every part's inputs kept, then each part alone
     k4kb = Capture(fr, ["train_render", bwd])
@@ -2527,6 +2599,7 @@ def main() -> int:
     from nerfsos_torch.ops import flash_corr as fc
     from nerfsos_torch.ops import fused_field as ff
     from nerfsos_torch.ops import fused_render as fr
+    from nerfsos_torch.tools import sass_spills
 
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
@@ -2560,6 +2633,12 @@ def main() -> int:
             REV_PTXAS.setdefault((int(sem[0]), int(ingrad[0])), "; ".join(
                 x.replace("ptxas info    :", "").strip() for x in lines[i + 1:used + 1]
                 if "bytes" in x or "Used" in x))
+        m = K7_KERNEL.search(line)
+        if "Compiling entry function" in line and m:
+            used = next(j for j in range(i, len(lines)) if "Used" in lines[j])
+            K7_PTXAS[m.group(1)] = "; ".join(
+                x.replace("ptxas info    :", "").strip() for x in lines[i + 1:used + 1]
+                if "bytes" in x or "Used" in x)
         if ("wgmma" in line and "warning" in line) or "(C75" in line:
             serialised.append(line.strip())
     if (K1_PTXAS is None or K4_PTXAS is None or K5_PTXAS is None or sorted(FWD_PTXAS) != [1, 2]
@@ -2576,6 +2655,16 @@ def main() -> int:
     phase("reverse_ptxas", modes={f"kSem={k[0]},kInGrad={k[1]}": v
                                   for k, v in sorted(REV_PTXAS.items())},
           wgmma_warnings=serialised)
+    for name, sass in sass_spills.functions(lib_path).items():
+        m = K7_KERNEL.search(name)
+        if m:
+            K7_SASS[m.group(1)] = sass_spills.inner_loop(sass)
+    k7_kernels = ["rowsum_kernel"] + [f"{k}_tile_kernelILi{h}ELi{c}E" for k in ("loss", "grad")
+                                      for h in (1, 2) for c in range(1, 9)]
+    if sorted(K7_PTXAS) != sorted(k7_kernels) or not all(
+            K7_SASS.get(k, {}).get("mufu") for k in k7_kernels):
+        raise SystemExit(f"no ptxas line or no SASS pair loop with its reciprocals for some of "
+                         f"K7's kernels: ptxas {sorted(K7_PTXAS)}, SASS {K7_SASS}")
 
     k1 = kernel_vs_plain_k1(fr)
     k2 = kernel_vs_plain_k2(fr, use_semantics=True)
@@ -2607,6 +2696,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     full_parts = sos_step_timings(fr, fc, full_run, "sos_full_step", "train_render_grads")
     del full_run["rec"]
+    torch.cuda.empty_cache()
+    sos_step_timings(fr, fc, rand_run, "sos_randneg_step", parts=False)
+    del rand_run["rec"]
     torch.cuda.empty_cache()
     kernel_vs_plain_k9(fr, 63)
     k9 = kernel_vs_plain_k9(fr, 190)

@@ -183,14 +183,15 @@ def library() -> ctypes.CDLL:
     lib.nerf_field_grads.argtypes = [vp, vp, vp, vp, vp, vp, train_p, ring_p, ring_p, vp, vp, vp,
                                      vp, vp, i32, i32, i32, vp]
     lib.geo_row_stats.argtypes = [vp, vp, vp, vp, i32, i32, i32, f32, vp]
-    lib.geo_means.argtypes = [vp] * 10 + [i32] * 5 + [f32, f32, f32, vp]
-    lib.geo_grads.argtypes = [vp] * 13 + [i32] * 5 + [f32, f32, f32, vp]
+    lib.geo_means.argtypes = [vp] * 10 + [ctypes.c_longlong] + [i32] * 5 + [f32, f32, f32, vp]
+    lib.geo_grads.argtypes = [vp] * 14 + [ctypes.c_longlong] + [i32] * 5 + [f32, f32, f32, vp]
+    lib.geo_rcp_mismatches.argtypes = [vp, vp]
     for fn in (lib.nerf_coarse_weights, lib.nerf_rgb_train_grads,
                lib.nerf_train_render, lib.nerf_train_render_grads, lib.nerf_frozen_sem_grads,
                lib.nerf_frozen_sem_clusters,
                lib.nerf_mip_render, lib.nerf_mip_train_render_grads, lib.nerf_field_sigma,
                lib.nerf_field, lib.nerf_mip_field, lib.nerf_field_grads,
-               lib.geo_row_stats, lib.geo_means, lib.geo_grads):
+               lib.geo_row_stats, lib.geo_means, lib.geo_grads, lib.geo_rcp_mismatches):
         fn.restype = i32
     lib.nerf_error_string.argtypes = [i32]
     lib.nerf_error_string.restype = ctypes.c_char_p

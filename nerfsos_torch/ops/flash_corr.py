@@ -28,9 +28,13 @@ with the same signature as its plain version here:
 
 Layouts: points ``f1, f2 [B2, N, 3]`` and codes ``[B2, N, S]`` (the JAX
 code keeps ``f2`` and ``c2`` as ``[B2, C, N]``). The plain versions form
-the pairwise tiles a block of rows at a time. A wrapper takes its plain
-version for CPU tensors and launches its kernel or raises for CUDA tensors;
-``<wrapper>.launches`` counts calls that launched.
+the pairwise tiles a block of rows at a time. The loss and gradient
+kernels sweep pair tiles of ``32 tile_rows(heads, S)`` rows x
+``TILE_COLS`` columns (:func:`tile_grid`) and leave one partial a tile
+in a scratch buffer that the wrapper allocates (:func:`means_scratch`,
+:func:`grads_scratch`). A wrapper takes its plain version for CPU tensors
+and launches its kernel or raises for CUDA tensors; ``<wrapper>.launches``
+counts calls that launched.
 """
 from __future__ import annotations
 
@@ -41,8 +45,33 @@ import torch
 from nerfsos_torch import _build
 
 _MAX_S = 8
-_THREADS = 128  # csrc/flash_corr.cu kThreads
 _ROW_BLOCK = 256  # rows a block of the plain versions
+TILE_COLS = 256  # columns a pair tile (csrc/flash_corr.cu kTileCols: 4 warps of 64)
+
+
+def tile_rows(heads: int, S: int) -> int:
+    """Rows a lane of a pair tile (csrc/flash_corr.cu ``Tile::kRows``):
+    fewer as the ``heads * S`` code values a row takes registers."""
+    k = heads * S
+    return 8 if k <= 4 else 4 if k <= 8 else 2
+
+
+def tile_grid(N: int, S: int, heads: int) -> Tuple[int, int]:
+    """(column tiles, row tiles) of a batch row's N x N pairs."""
+    return -(-N // TILE_COLS), -(-N // (32 * tile_rows(heads, S)))
+
+
+def means_scratch(B2: int, N: int, S: int, heads: int) -> int:
+    """Floats of the loss sweep's partials: one a tile and head."""
+    cols, rows = tile_grid(N, S, heads)
+    return B2 * rows * cols * heads
+
+
+def grads_scratch(B2: int, N: int, S: int, heads: int) -> int:
+    """Floats of the gradient sweep's partials: a ``[B2, N, heads S]``
+    slice of dc1 a column tile, then one of dc2 a row tile."""
+    cols, rows = tile_grid(N, S, heads)
+    return (cols + rows) * B2 * N * heads * S
 
 
 def _l1(a: torch.Tensor, b: torch.Tensor, start_zero: bool) -> torch.Tensor:
@@ -219,36 +248,41 @@ def geo_row_stats(f1: torch.Tensor, f2: torch.Tensor, max_depth: float,
 
 def _means(what, f1, f2, codes, rowmean, gm, shifts, max_depth) -> torch.Tensor:
     """The loss sweep for ``len(gm)`` halves x ``len(codes) // 2`` heads:
-    per CTA partial sums, then their sum in CTA order (deterministic)."""
+    one partial sum a pair tile, then their sums in a fixed order
+    (deterministic)."""
     heads, halves = len(codes) // 2, gm.shape[0]
     _check(f1, f2, codes, rowmean, gm, halves=halves)
     B2, N, S = codes[0].shape
     c1b, c2b = codes[2:] if heads == 2 else (None, None)
-    partial = torch.empty(B2 * -(-N // _THREADS) * heads, device=f1.device, dtype=torch.float32)
+    n = means_scratch(B2, N, S, heads)
+    partial = torch.empty(n, device=f1.device, dtype=torch.float32)
     out = torch.empty(halves * heads, device=f1.device, dtype=torch.float32)
     with torch.cuda.device(f1.device):
         code = _build.library().geo_means(
-            *_ptrs(f1, f2, codes[0], codes[1], c1b, c2b, rowmean, gm, partial, out), B2, N, S,
-            heads, halves, float(shifts[0]), float(shifts[-1]), float(max_depth),
+            *_ptrs(f1, f2, codes[0], codes[1], c1b, c2b, rowmean, gm, partial, out), n, B2, N,
+            S, heads, halves, float(shifts[0]), float(shifts[-1]), float(max_depth),
             _build.stream(f1.device))
     _build.check(code, what)
     return out
 
 
 def _grads(what, f1, f2, codes, rowmean, gm, coeff, shifts, max_depth):
-    """The row sweep (each head's dc1) and the column sweep (dc2), each sum
-    taken by one thread (deterministic); ``(dc1, dc2)`` of each head."""
+    """One sweep over the pair tiles (each pair once: its terms go to the
+    tile's dc1 and dc2 partials), then the partials summed in tile order
+    (deterministic); ``(dc1, dc2)`` of each head."""
     heads, halves = len(codes) // 2, gm.shape[0]
     _check(f1, f2, codes, rowmean, gm, coeff, halves=halves)
     B2, N, S = codes[0].shape
     outs = [torch.empty_like(c) for c in codes]
     c1b, c2b = codes[2:] if heads == 2 else (None, None)
     dc1b, dc2b = outs[2:] if heads == 2 else (None, None)
+    n = grads_scratch(B2, N, S, heads)
+    scratch = torch.empty(n, device=f1.device, dtype=torch.float32)
     with torch.cuda.device(f1.device):
         code = _build.library().geo_grads(
-            *_ptrs(f1, f2, codes[0], codes[1], c1b, c2b, rowmean, gm, coeff, outs[0], outs[1],
-                   dc1b, dc2b), B2, N, S, heads, halves, float(shifts[0]), float(shifts[-1]),
-            float(max_depth), _build.stream(f1.device))
+            *_ptrs(f1, f2, codes[0], codes[1], c1b, c2b, rowmean, gm, coeff, scratch, outs[0],
+                   outs[1], dc1b, dc2b), n, B2, N, S, heads, halves, float(shifts[0]),
+            float(shifts[-1]), float(max_depth), _build.stream(f1.device))
     _build.check(code, what)
     return tuple(outs)
 
@@ -317,6 +351,18 @@ def geo_quad_grads(f1, f2, c1a, c2a, c1b, c2b, rowmean, gm, coeff, shift_lo: flo
                  (shift_lo, shift_hi), max_depth)
     geo_quad_grads.launches += 1
     return out
+
+
+def rcp_mismatches(device: torch.device) -> int:
+    """The floats in [0.05, 2^95] whose reciprocal on the pair sweeps' fast
+    path (taken where a tile's inputs are all within 2^90, so that every
+    ``1 / (L1 + 0.05)`` lies there) differs from IEEE ``1 / x`` in any bit:
+    0 on a correct build. Runs on the card only."""
+    count = torch.empty(1, device=device, dtype=torch.int64)
+    with torch.cuda.device(device):
+        code = _build.library().geo_rcp_mismatches(count.data_ptr(), _build.stream(device))
+    _build.check(code, "geo_rcp_mismatches")
+    return int(count.item())
 
 
 for _fn in (geo_row_stats, geo_single_means, geo_single_grads, geo_pair_means, geo_pair_grads,

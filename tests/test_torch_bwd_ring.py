@@ -229,8 +229,9 @@ def test_ring_dx_model_matches_plain(mode, depth, sem, coord, s, noise, piece):
     sweep, gives ``rgb_train_grads_plain``'s (K3) and
     ``train_render_grads_plain``'s (K6) gradients, every leaf to 1e-5 of its
     largest value (the 3xTF32 products drop only lo x lo, ~2^-22 of a
-    term)."""
-    torch.manual_seed(depth)
+    term); every case's field has density at its points, so the trunk's
+    gradient is not zero."""
+    torch.manual_seed(100 * depth + s)
     field = NeRFField(net_depth=depth, net_width=32, multires=4, multires_views=2,
                       use_semantics=sem, sem_with_coord=coord, sem_dim=2)
     odv, z = (torch.from_numpy(a) for a in _inputs(depth + s, s))
@@ -247,6 +248,7 @@ def test_ring_dx_model_matches_plain(mode, depth, sem, coord, s, noise, piece):
             got, _, _ = _emulate_k3(field, odv, z, gt, False, noise, 99, dx=dx)
             want = fr.rgb_train_grads_plain(field, odv, z, gt, white_bkgd=False, noise_std=noise,
                                             seed=99)[0]
+    assert float(want["mlp.pts_linears.0.weight"].abs().max()) > 0  # not a field with no density
     for name, err in _rel_errs(got, want).items():
         assert err < 1e-5, (name, err)
 

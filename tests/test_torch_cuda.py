@@ -579,7 +579,8 @@ def _geo_inputs(device, B2, N, S, seed):
             for a in (f1, f2, *codes)]
 
 
-@pytest.mark.parametrize("B2,N,S", [(2, 256, 2), (4, 1000, 3), (16, 4096, 2), (2, 77, 8)])
+@pytest.mark.parametrize("B2,N,S", [(2, 256, 2), (4, 1000, 3), (16, 4096, 2), (2, 77, 8),
+                                    (2, 4133, 2), (4, 129, 8)])  # past a pair tile's edges
 @pytest.mark.parametrize("maxd", [15.0, 1.5])
 def test_k7_matches_plain(cuda, B2, N, S, maxd):
     """Row stats, the four means and the four code gradients to K7_TOL;
@@ -607,6 +608,39 @@ def test_k7_matches_plain(cuda, B2, N, S, maxd):
             fc.geo_quad_grads.launches) == (before[0] + 1, before[1] + 2, before[2] + 2)
     for a, b, ref in zip(g, g2, g_p):
         assert torch.equal(a, b) and torch.isfinite(a).all()
+        assert float((a - ref).abs().max()) <= K7_TOL * float(ref.abs().max())
+
+
+def test_k7_fast_reciprocal_is_ieee(cuda):
+    """The pair sweeps' reciprocal fast path is IEEE 1 / x in every bit on
+    every float of [0.05, 2^95], where their in-range tiles take it."""
+    from nerfsos_torch.ops import flash_corr as fc
+
+    assert fc.rcp_mismatches(cuda) == 0
+
+
+@pytest.mark.parametrize("bad", [float("inf"), 1e35])
+def test_k7_tiles_past_the_input_bound_match_plain(cuda, bad):
+    """A point past 2^90, or infinite, sends its tiles to IEEE division
+    (its fd is 0 or ~1e-35, not what the fast path would give): the means
+    and the code gradients stay finite and match the plain versions to
+    K7_TOL."""
+    from nerfsos_torch.ops import flash_corr as fc
+
+    f1, f2, c1a, c2a, c1b, c2b = _geo_inputs(cuda, 4, 1000, 2, 31)
+    f1[1, 300, 0] = bad
+    f2[3, 700, 2] = bad
+    rm, gm = fc.geo_row_stats(f1, f2, 15.0)
+    args = (0.5, 3.0, 15.0)
+    out = fc.geo_quad_means(f1, f2, c1a, c2a, c1b, c2b, rm, gm, *args)
+    want = fc.geo_quad_means_plain(f1, f2, c1a, c2a, c1b, c2b, rm, gm, *args)
+    assert torch.isfinite(out).all()
+    assert float((out - want).abs().max()) <= K7_TOL * float(want.abs().max())
+    coeff = torch.tensor([0.3, -1.0, 2.0, 0.7], device=cuda) / (2 * 1000 * 1000)
+    g = fc.geo_quad_grads(f1, f2, c1a, c2a, c1b, c2b, rm, gm, coeff, *args)
+    g_p = fc.geo_quad_grads_plain(f1, f2, c1a, c2a, c1b, c2b, rm, gm, coeff, *args)
+    for a, ref in zip(g, g_p):
+        assert torch.isfinite(a).all()
         assert float((a - ref).abs().max()) <= K7_TOL * float(ref.abs().max())
 
 
@@ -642,7 +676,8 @@ def _single_inputs(device, B, N, S, seed):
 
 
 @pytest.mark.parametrize("heads", [1, 2])
-@pytest.mark.parametrize("B,N,S", [(2, 256, 2), (3, 1000, 3), (8, 4096, 2), (1, 77, 8)])
+@pytest.mark.parametrize("B,N,S", [(2, 256, 2), (3, 1000, 3), (8, 4096, 2), (1, 77, 8),
+                                   (2, 4133, 2), (4, 129, 8)])  # past a pair tile's edges
 @pytest.mark.parametrize("maxd", [15.0, 1.5])
 def test_k7_single_and_pair_match_plain(cuda, heads, B, N, S, maxd):
     """One half with one head (K7b/K7c) or two (K7d/K7e): row stats, the

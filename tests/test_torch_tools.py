@@ -8,7 +8,7 @@ import shutil
 import pytest
 
 from nerfsos_torch import _build
-from nerfsos_torch.tools import sass_spills, tile_probe
+from nerfsos_torch.tools import k7_probe, sass_spills, tile_probe
 
 _SASS = """
         /*0000*/                   MOV R1, c[0x0][0x28] ;
@@ -32,6 +32,40 @@ def test_scan_counts_spills_in_the_innermost_wgmma_loop():
 def test_scan_without_wgmma_has_no_loops():
     got = sass_spills.scan(_SASS.replace("HGMMA.64x32x8.F32.TF32", "FFMA"))
     assert got["hgmma"] == 0 and got["wgmma_loops"] == 0 and got["ldl_in_wgmma_loops"] == 0
+
+
+def test_inner_loop_counts_the_cheapest_innermost_loop_with_a_reciprocal():
+    """K7's pair loop: of the innermost loops holding a MUFU, the one with
+    the fewest instructions a MUFU (a kernel's fast copy of its loop, not
+    the guarded one with its slow-path call), NOPs left out; the loop
+    around them is not counted."""
+    sass = """
+        /*0000*/                   MOV R1, c[0x0][0x28] ;
+        /*0010*/                   MUFU.RCP R2, R3 ;
+        /*0020*/                   FFMA R4, R2, R3, R4 ;
+        /*0030*/                   NOP ;
+        /*0040*/               @P0 BRA 0x10 ;
+        /*0050*/                   MUFU.RCP R5, R6 ;
+        /*0060*/                   FADD R5, R5, R6 ;
+        /*0070*/                   FADD R5, R5, R6 ;
+        /*0080*/                   CALL.REL.NOINC 0x100 ;
+        /*0090*/               @P1 BRA 0x50 ;
+        /*00a0*/               @P2 BRA 0x0 ;
+        /*00b0*/                   EXIT ;
+"""
+    assert sass_spills.inner_loop(sass) == {"insns": 3, "mufu": 1}
+    assert sass_spills.inner_loop(sass.replace("MUFU.RCP", "FMUL")) == {"insns": 0, "mufu": 0}
+
+
+@pytest.mark.parametrize("variant", ["ieeercp", "frcp", "ieeercp+frcp", "sgnmul", "rows4",
+                                     "cols32", "cols128"])
+def test_k7_probe_patches_apply_to_the_source(variant):
+    """Each of ``nerfsos_torch/tools/k7_probe.py``'s variants finds the text
+    it patches in this checkout's ``csrc/flash_corr.cu`` (a patch that no
+    longer matches raises) and changes it."""
+    with open(os.path.join(_build.CSRC_DIR, "flash_corr.cu")) as f:
+        src = f.read()
+    assert k7_probe.patch(src, variant) != src
 
 
 @pytest.mark.parametrize("variant", ["fwdonly", "sweepclock", "wgclock", "semclock", "l1clock",
