@@ -11,7 +11,7 @@ Phases (one line each; any failure raises and the exit code is nonzero):
      source at once (seconds), and print ptxas's register/spill report,
      with [reverse_ptxas]: the reverse-sweep kernel's line in each of its
      four modes, and any wgmma warning (C75xx: serialised wgmma); any such
-     warning (K1/K2/K4's kernel, K5's, the reverse sweep's bwd_layer and
+     warning (K1/K2/K4/K9's kernel, K5's, the reverse sweep's bwd_layer and
      wgrad products) fails the run;
   2. K1 (fused coarse weights: K4's kernel in its sigma-only mode) vs its
      plain PyTorch version at the flagship width: depth 8, width 256,
@@ -103,12 +103,15 @@ Phases (one line each; any failure raises and the exit code is nonzero):
      place of K5; [sos_randneg_step]: the --rand_neg finetune's step on the
      kernel and the plain path (K7a/K7b/K7c in place of K7a/K7f/K7g), with
      peak memory, no parts;
- 18. [K9]: the mip eval kernel vs its plain version at the flagship width
-     (8 x 256, multires 10, multires_views 4), 4096 rays, S=63 and S=190
-     intervals at fixed sorted fenceposts, a 378x504 view's base radius:
-     maps and weights to TOL;
+ 18. [K9]: the mip eval kernel (K4's kernel in its mip mode) vs its plain
+     version at the flagship width (8 x 256, multires 10, multires_views
+     4), 4096 rays, S=63 and S=190 intervals at fixed sorted fenceposts, a
+     378x504 view's base radius: maps and weights to TOL, two calls bitwise
+     equal; then at the eval path's 32768 rays a launch, vs plain and timed
+     beside its bound, with ptxas's line for the mip mode ([K9_design]);
  19. [K10a]/[K10b]: the mip train forward (noise 1 from a fixed seed) to
-     TOL, and the mip backward on its inputs with seeded map and weight
+     TOL and two calls bitwise equal, also at 32768 rays a launch as K9;
+     the mip backward on its 4096-ray inputs with seeded map and weight
      cotangents, every leaf to GRAD_TOL plus its gate allowance, two calls
      bitwise equal;
  20. [mip_train]: ``run_nerf.main`` with configs/flower_full.txt's flags and
@@ -117,7 +120,9 @@ Phases (one line each; any failure raises and the exit code is nonzero):
      eval runs through K9, and the last step's two K10b calls agree with the
      plain version on their own inputs;
  21. [mip_eval]: ``--eval --mipnerf`` on the 378x504 test view from that
-     run's checkpoint: K9 twice a ray block, finite metrics, and the view
+     run's checkpoint: K9 twice a ray block, finite metrics, the view's last
+     two K9 calls held against the plain version on their own inputs to TOL
+     and against a second call bitwise ([mip_eval_k9]), and the view
      rendered by the kernel path vs the plain path;
  22. [mip_step]: the mip train step at 1024 and 16384 rays on the kernel
      and the plain path with peak memory, and its K10a/K10b calls timed
@@ -236,13 +241,15 @@ FP32_SIMT_FLOP_S = 67e12
 # Guide's arithmetic throughput table, compute capability 9.0)
 LANE_INSNS_PER_CLOCK = 128
 MUFU_LANES_PER_CLOCK = 16
-# ptxas's line for K4's kernel (train_render_wg_kernel<false>, also K2's),
-# for K1's (its sigma-only mode, <true>), for K5's (frozen_sem_kernel), for
+# ptxas's line for K4's kernel (train_render_wg_kernel<kInPoint>, also
+# K2's), for K1's (its sigma-only mode, <kInSigma>), for K9's and K10a's
+# (its mip mode, <kInMip>), for K5's (frozen_sem_kernel), for
 # K3's and K6's forward (train_forward_wg_kernel, kLoss and kCotangent) and
 # for the reverse-sweep kernel (train_reverse_kernel by (kSem, kInGrad)),
 # read from the build log in main
 K1_PTXAS = None
 K4_PTXAS = None
+K9_PTXAS = None
 K5_PTXAS = None
 FWD_PTXAS = {}
 REV_PTXAS = {}
@@ -1866,14 +1873,44 @@ def mip_cost(field, R: int, S: int, kind: str) -> dict:
     return bound_ms(rays + 4 * n_params(field), R * S * field_flops(field, "k2"))
 
 
+def mip_eval_launch(fr, field, S: int, kw: dict, seed: int) -> dict:
+    """K9 (``kw`` empty) or K10a (``kw`` its noise) at the eval path's 32768
+    rays a launch and S intervals: vs its plain version (which runs the
+    points in chunks of its own, the noise drawn at each point's index in
+    the whole call) to TOL, its time and the plain version's, and its
+    bound."""
+    R = EVAL_CHUNK
+    odvr, z = mip_ray_inputs(R, S, seed=seed)
+    wrapper, plain = ((fr.mip_train_render, fr.mip_train_render_plain) if kw
+                      else (fr.fused_mip_render, fr.mip_render_plain))
+    with torch.no_grad():
+        got, want = wrapper(field, odvr, z, **kw), plain(field, odvr, z, **kw)
+        errs = k4_errors(got, want)
+        ms = cuda_ms(lambda: wrapper(field, odvr, z, **kw), reps=3)
+        plain_ms = cuda_ms(lambda: plain(field, odvr, z, **kw), reps=2, warmup=1)
+    name = "K10a" if kw else "K9"
+    if not (all(torch.isfinite(t).all() for t in got) and max(errs) <= TOL):
+        raise SystemExit(f"{name} at {R} rays disagrees with its plain version (S={S}): maps "
+                         f"(scaled), weights errors {errs} (tol {TOL})")
+    bound = mip_cost(field, R, S, name)
+    phase(name, rays=R, samples=S, max_err_maps_scaled=errs[0], max_abs_err_weights=errs[1],
+          tol=TOL, ms=ms, plain_ms=plain_ms, **bound)
+    return {"max_abs_err": max(max_err(a, b) for a, b in zip(got, want)), "ms": ms,
+            "plain_ms": plain_ms, **bound, "library_ms": None}
+
+
 def kernel_vs_plain_k9(fr, S: int) -> dict:
-    """[K9] at the flagship width, 4096 rays, fixed sorted fenceposts: maps
-    (per column over max(1, its max)) and weights to TOL, and times."""
+    """[K9] (K4's kernel in its mip mode, no noise) at the flagship width,
+    4096 rays, fixed sorted fenceposts: maps (per column over max(1, its
+    max)) and weights to TOL, two calls bitwise equal, and times; then at
+    the eval path's 32768 rays a launch (``mip_eval_launch``), whose numbers
+    it returns, with ptxas's line for the kernel."""
     field = seeded_mip_field(5)
     odvr, z = mip_ray_inputs(4096, S, seed=30 + S)
     R = odvr.shape[0]
     with torch.no_grad():
         got = fr.fused_mip_render(field, odvr, z)
+        again = fr.fused_mip_render(field, odvr, z)
         want = fr.mip_render_plain(field, odvr, z)
         torch.cuda.synchronize()
         errs = k4_errors(got, want)
@@ -1883,29 +1920,37 @@ def kernel_vs_plain_k9(fr, S: int) -> dict:
     if not (got[0].shape == (R, 5) and finite and max(errs) <= TOL):
         raise SystemExit(f"K9 disagrees with its plain version (S={S}): maps (scaled), weights "
                          f"errors {errs} (tol {TOL}), finite={finite}")
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise SystemExit(f"K9's outputs differ between two calls (S={S})")
     bound = mip_cost(field, R, S, "K9")
     phase("K9", rays=R, samples=S, max_err_maps_scaled=errs[0], max_abs_err_weights=errs[1],
-          tol=TOL, ms=ms, plain_ms=plain_ms, **bound)
-    return {"max_abs_err": max(max_err(a, b) for a, b in zip(got, want)), "ms": ms,
-            "plain_ms": plain_ms, **bound, "library_ms": None}
+          tol=TOL, deterministic=True, ms=ms, plain_ms=plain_ms, **bound)
+    out = mip_eval_launch(fr, field, S, {}, seed=50 + S)
+    phase("K9_design", samples=S, ptxas=repr(K9_PTXAS))
+    return out
 
 
 def kernel_vs_plain_k10(fr, S: int) -> dict:
     """[K10]: K10a vs its plain version with noise 1 from a fixed seed, to
-    TOL; K10b on K10a's inputs with seeded map and weight cotangents, every
-    leaf to GRAD_TOL plus its gate allowance, two calls bitwise equal."""
+    TOL, two calls bitwise equal, and at the eval path's 32768 rays a launch
+    (``mip_eval_launch``); K10b on K10a's 4096-ray inputs with seeded map
+    and weight cotangents, every leaf to GRAD_TOL plus its gate allowance,
+    two calls bitwise equal."""
     field = seeded_mip_field(6)
     odvr, z = mip_ray_inputs(4096, S, seed=40 + S)
     R = odvr.shape[0]
     kw = dict(noise_std=1.0, seed=1357911)
     with torch.no_grad():
         got = fr.mip_train_render(field, odvr, z, **kw)
+        again = fr.mip_train_render(field, odvr, z, **kw)
         want = fr.mip_train_render_plain(field, odvr, z, **kw)
     torch.cuda.synchronize()
     errs = k4_errors(got, want)
     if not (all(torch.isfinite(t).all() for t in got) and max(errs) <= TOL):
         raise SystemExit(f"K10a disagrees with its plain version (S={S}): maps (scaled), "
                          f"weights errors {errs} (tol {TOL})")
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise SystemExit(f"K10a's outputs differ between two calls (S={S})")
     rng = np.random.default_rng(200 + S)
     dmaps = torch.from_numpy(rng.normal(size=(R, 5)).astype(np.float32)).cuda()
     dweights = torch.from_numpy(rng.normal(size=(R, S)).astype(np.float32)).cuda()
@@ -1923,9 +1968,11 @@ def kernel_vs_plain_k10(fr, S: int) -> dict:
            cuda_ms(lambda: fr.mip_train_render_grads_plain(field, odvr, z, dmaps, dweights, **kw),
                    reps=3))
     phase("K10a", rays=R, samples=S, max_err_maps_scaled=errs[0], max_abs_err_weights=errs[1],
-          tol=TOL, ms=t_a[0], plain_ms=t_a[1], **mip_cost(field, R, S, "K10a"))
+          tol=TOL, deterministic=True, ms=t_a[0], plain_ms=t_a[1],
+          **mip_cost(field, R, S, "K10a"))
     phase("K10b", rays=R, samples=S, **close, deterministic=True, ms=t_b[0], plain_ms=t_b[1],
           **mip_cost(field, R, S, "K10b"))
+    mip_eval_launch(fr, field, S, kw, seed=60 + S)
     return {"K10a": max(max_err(a, b) for a, b in zip(got, want)), "K10b": close["max_abs_err"]}
 
 
@@ -2001,19 +2048,43 @@ def mip_eval_path(fr) -> dict:
     run_dir = os.path.join(WORK, "logs", "smoke_mip")
     os.remove(os.path.join(run_dir, "eval", "log.json"))  # [mip_train]'s final eval wrote one
     fr.fused_mip_render.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    run_nerf.main(args)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
+    cap = Capture(fr, ["fused_mip_render"])  # the view's K9 calls, held against plain below
+    cap.on = True
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_nerf.main(args)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        cap.close()
     launches = fr.fused_mip_render.launches
     blocks = -(-H_VIEW * W_VIEW // args.ray_chunk)
     phase("mip_eval", view=f"{H_VIEW}x{W_VIEW}", seconds=seconds, launches={"K9": launches},
-          ray_blocks=blocks)
+          ray_blocks=blocks, ray_chunk=args.ray_chunk)
     if launches != 2 * blocks:
         raise SystemExit(f"--eval --mipnerf launched K9 {launches} times, not 2 x {blocks}")
     log = check_final_eval(run_dir)
     phase("mip_eval_metrics", psnr=log["total_psnr"], ssim=log["total_ssim"])
+    # the view's last two K9 calls (the last ray block's coarse and fine
+    # passes, the fine one on its own importance-sampled fenceposts) against
+    # plain, and again on the same inputs, bitwise
+    calls = cap.calls["fused_mip_render"]
+    for a, _, got in calls[-2:]:
+        with torch.no_grad():
+            want = fr.mip_render_plain(*a)
+            again = fr.fused_mip_render(*a)
+        torch.cuda.synchronize()
+        errs = k4_errors(got, want)
+        if not (all(torch.isfinite(x).all() for x in got) and max(errs) <= TOL):
+            raise SystemExit(f"K9 on the mip eval view disagrees with its plain version: maps "
+                             f"(scaled), weights errors {errs} (tol {TOL})")
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            raise SystemExit("K9 on the mip eval view: two calls differ")
+        phase("mip_eval_k9", calls=len(calls), rays=a[2].shape[0], samples=a[2].shape[1] - 1,
+              max_err_maps_scaled=errs[0], max_abs_err_weights=errs[1], tol=TOL,
+              deterministic=True)
+    del cap, calls
 
     net, _ = run_nerf.build_model(args, torch.device("cuda"))
     state, _, _ = ckpt_lib.load_checkpoint(os.path.join(run_dir, "checkpoints", "last.ckpt"))
@@ -2607,18 +2678,21 @@ def main() -> int:
     lib_path = _build.build()
     _build.library()
     phase("build", seconds=time.perf_counter() - t0, lib=os.path.relpath(lib_path, ROOT))
-    global K1_PTXAS, K4_PTXAS, K5_PTXAS
+    global K1_PTXAS, K4_PTXAS, K5_PTXAS, K9_PTXAS
     with open(lib_path + ".log") as f:
         lines = f.read().splitlines()
     serialised = []  # ptxas's wgmma warnings
     for i, line in enumerate(lines):
         if "registers" in line or "spill" in line:
             print("  ptxas:", line.strip())
-        if "Compiling entry function" in line and "train_render_wg_kernelILb0E" in line:
+        if "Compiling entry function" in line and "train_render_wg_kernelILi0E" in line:
             K4_PTXAS = "; ".join(x.replace("ptxas info    :", "").strip()
                                  for x in lines[i + 2:i + 4])
-        if "Compiling entry function" in line and "train_render_wg_kernelILb1E" in line:
+        if "Compiling entry function" in line and "train_render_wg_kernelILi1E" in line:
             K1_PTXAS = "; ".join(x.replace("ptxas info    :", "").strip()
+                                 for x in lines[i + 2:i + 4])
+        if "Compiling entry function" in line and "train_render_wg_kernelILi2E" in line:
+            K9_PTXAS = "; ".join(x.replace("ptxas info    :", "").strip()
                                  for x in lines[i + 2:i + 4])
         if "Compiling entry function" in line and "frozen_sem_kernel" in line:
             K5_PTXAS = "; ".join(x.replace("ptxas info    :", "").strip()
@@ -2641,10 +2715,11 @@ def main() -> int:
                 if "bytes" in x or "Used" in x)
         if ("wgmma" in line and "warning" in line) or "(C75" in line:
             serialised.append(line.strip())
-    if (K1_PTXAS is None or K4_PTXAS is None or K5_PTXAS is None or sorted(FWD_PTXAS) != [1, 2]
-            or len(REV_PTXAS) != 4):
-        raise SystemExit("no ptxas report for K1's and K4's kernel (train_render_wg_kernel), "
-                         "K5's (frozen_sem_kernel), K3's and K6's forward "
+    if (K1_PTXAS is None or K4_PTXAS is None or K5_PTXAS is None or K9_PTXAS is None
+            or sorted(FWD_PTXAS) != [1, 2] or len(REV_PTXAS) != 4):
+        raise SystemExit("no ptxas report for K1's, K4's and K9's kernel (train_render_wg_kernel "
+                         "in its three input modes), K5's (frozen_sem_kernel), K3's and K6's "
+                         "forward "
                          "(train_forward_wg_kernel) or the reverse sweep's four modes "
                          "(train_reverse_kernel)")
     # every wgmma kernel keeps its pipeline: K1/K2/K4's, K5's, K3's and K6's
@@ -2779,10 +2854,11 @@ def main() -> int:
         {"name": "K7g geo_quad_grads", "route": "cuda", "source": corr_src,
          "replaces": "nerfsos_tpu/ops/pallas/flash_corr.py:459",
          "launches": sos_launches["K7g"], **k7["K7g"]},
-        {"name": "K9 fused_mip_render", "route": "cuda", "source": train_src,
+        {"name": "K9 fused_mip_render", "route": "cuda", "source": "nerfsos_torch/csrc/wg_tile.cuh",
          "replaces": "nerfsos_tpu/ops/pallas/fused_render.py:1843",
          "launches": mip_eval_launches["K9"], **k9},
-        {"name": "K10a mip_train_render", "route": "cuda", "source": train_src,
+        {"name": "K10a mip_train_render", "route": "cuda",
+         "source": "nerfsos_torch/csrc/wg_tile.cuh",
          "replaces": "nerfsos_tpu/ops/pallas/fused_render.py:2040",
          "launches": mip_train_launches["K10a"], **mip_step_numbers("K10a", k10["K10a"])},
         {"name": "K10b mip_train_render_grads", "route": "cuda", "source": train_src,

@@ -173,8 +173,8 @@ def library() -> ctypes.CDLL:
                                           ctypes.c_longlong, i32, i32, ctypes.c_longlong, vp]
     lib.nerf_frozen_sem_clusters.argtypes = [ctypes.POINTER(FrozenDesc),
                                              ctypes.POINTER(ctypes.c_int)]
-    lib.nerf_mip_render.argtypes = [vp, vp, vp, train_p, vp, vp, i32, i32, ctypes.c_uint, f32,
-                                    vp]
+    lib.nerf_mip_render.argtypes = [vp, vp, vp, vp, train_p, ring_p, vp, vp, i32, i32,
+                                    ctypes.c_uint, f32, vp]
     lib.nerf_mip_train_render_grads.argtypes = [vp, vp, vp, vp, vp, vp, train_p, ring_p, vp, vp,
                                                 vp, i32, i32, i32, i32, ctypes.c_uint, f32, vp]
     lib.nerf_field_sigma.argtypes = [vp, vp, train_p, vp, ctypes.c_longlong, vp]

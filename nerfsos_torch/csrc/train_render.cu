@@ -88,10 +88,10 @@
 // K1 (replaces fused_coarse_weights_planar -> _sigma_weights_kernel, the
 // eval's coarse pass: points o + d z, PE, the skip trunk, the alpha head,
 // the composite -> weights [R, S]) is K4's kernel below in its sigma-only
-// mode (train_render_wg_kernel<true>): od [R, 6] in, the trunk through the
-// tile's ring and wgmma, the alpha head, K3's composite without noise, the
-// weights out. Bound: the trunk's products (~0.98 MFLOP a flagship coarse
-// point, 12.49 ms at 32768 x 64 at 165 TFLOP/s).
+// mode (train_render_wg_kernel<kInSigma>): od [R, 6] in, the trunk through
+// the tile's ring and wgmma, the alpha head, K3's composite without noise,
+// the weights out. Bound: the trunk's products (~0.98 MFLOP a flagship
+// coarse point, 12.49 ms at 32768 x 64 at 165 TFLOP/s).
 //
 // The same file holds the frozen-backbone SOS finetune's two kernels:
 //
@@ -181,29 +181,32 @@
 // backward (~3.8 MFLOP a flagship point); the extra planes (s_act, d_sem,
 // ds: 264 rows a tile) add ~8% to the per-CTA workspace.
 //
-// mip-NeRF's three kernels are a mode (kMip) of the 64-point kernels
-// (train_render_kernel, train_forward_kernel) and of the reverse sweep:
+// mip-NeRF's three kernels:
 //   K9   fused_mip_render_planar -> _mip_render_kernel: the train forward
-//        (K4's work, on train_sweep.cuh's 64-point forward_tile) without
-//        noise on odvr [R, 10] (o, d, viewdirs, radius) and fenceposts
-//        z [R, S + 1] -> maps [R, 5] (w·rgb x3, w·mid, w) and w [R, S];
+//        without noise on odvr [R, 10] (o, d, viewdirs, radius) and
+//        fenceposts z [R, S + 1] -> maps [R, 5] (w·rgb x3, w·mid, w) and
+//        w [R, S];
 //   K10a _mip_train_fwd_impl -> _mip_train_kernel: the same with the noise;
 //   K10b _mip_train_bwd -> _mip_train_bwd_kernel: K6's reverse sweep
 //        without the semantic head after the 64-point storing forward
-//        (train_forward_kernel), from dmaps [R, 5] and dweights [R, S].
-// A point is an interval (t0, t1) of its ray. The tile's prologue builds
-// the cone frustum's diagonal Gaussian per point (tile_mlp.cuh
-// frustum_gauss, the stable closed forms, one rounding per operation so
-// the means are the plain version's bit for bit: the integrated PE
-// multiplies them by up to 2^9) and its integrated PE (ipe_rows: 60 rows
-// at multires 10, padded to 64, no raw-input rows) in place of the point
-// PE; the composite takes D = (t1 - t0)·‖d‖ with no far pad and the
-// midpoint as the depth, and K10b's cotangent mode reads the midpoint in
-// dw. Everything else (the trunk with its [emb, h] skip, the heads, the
-// reverse sweep, the CTA-ordered reduction) is K6's. Bound: the
-// same arithmetic as K4 and K6 without the semantic head (~1.18 MFLOP a
-// point forward, ~3x that for K10b); the Gaussian and the 60 sin/exp of a
-// point are ~1% of it.
+//        (train_forward_kernel, train_sweep.cuh forward_tile in its kIpe mode),
+//        from dmaps [R, 5] and dweights [R, S].
+// K9 and K10a are K4's kernel in its mip mode (train_render_wg_kernel<kInMip>,
+// wg_tile.cuh: 128-point tiles, two consumer warpgroups on wgmma 3xTF32, the
+// trunk's, feature's and views' weights through the TMA ring). A point is an
+// interval (t0, t1) of its ray. The tile's prologue builds the cone
+// frustum's diagonal Gaussian per point (tile_mlp.cuh frustum_gauss, the
+// stable closed forms, one rounding per operation so the means are the
+// plain version's bit for bit: the integrated PE multiplies them by up to
+// 2^9) into six scratch rows of the warpgroup's h tile, and from them its
+// integrated PE (ipe_rows_wg: 60 rows at multires 10, padded to 64, no
+// raw-input rows) in place of the point PE; the composite takes
+// D = (t1 - t0)·‖d‖ with no far pad and the midpoint as the depth, and
+// K10b's cotangent mode reads the midpoint in dw. Everything else (the
+// trunk with its [emb, h] skip, the heads, the reverse sweep, the
+// CTA-ordered reduction) is K4's and K6's. Bound: the same arithmetic as
+// K4 and K6 without the semantic head (~1.18 MFLOP a point forward, ~3x
+// that for K10b); the Gaussian and the 60 sin/exp of a point are ~1% of it.
 
 // The forward tile, the reverse sweep and the reduction live in
 // train_sweep.cuh, which the field kernels (fused_field.cu) share.
@@ -231,41 +234,29 @@ __device__ __forceinline__ float hash_noise(uint32_t seed, uint32_t idx, float s
   return (std * r) * cosf(6.28318530717958f * u2);
 }
 
-// forward_tile's inputs for a chunk of rays (rays r0.., S samples a ray, nq
-// points): point q is sample q % S of ray r0 + q / S, at o + d z (kMip: the
-// cone-frustum Gaussian of the interval (z[s], z[s + 1]) of its ray,
-// frustum_gauss), seen from the ray's viewdir.
-template <bool kMip>
-struct RayFill {
-  const float* rays;  // odv [R, 9] (kMip: odvr [R, 10])
-  const float* zc;    // the chunk's z [nr][S] (kMip: fenceposts [nr][S + 1])
+// K10b's forward_tile inputs for a chunk of rays (rays r0.., S intervals a
+// ray, nq points): point q is the cone-frustum Gaussian of interval
+// (z[s], z[s + 1]) of ray r0 + r (r = q / S, s = q % S; frustum_gauss),
+// seen from the ray's viewdir.
+struct MipFill {
+  const float* rays;  // odvr [R, 10]
+  const float* zc;    // the chunk's fenceposts [nr][S + 1]
   int r0, S, nq;
 
   __device__ __forceinline__ void operator()(float* emb, float* demb, float* g, int q0) const {
     for (int t = threadIdx.x; t < 3 * kPts; t += kThreads) {
       const int ch = t / kPts, p = t % kPts, q = q0 + p;
-      if (kMip) {
-        float m = 0.f, cv = 0.f, v = 0.f;
-        if (q < nq) {
-          const int r = q / S, s = q % S;
-          const float* ray = rays + (size_t)(r0 + r) * 10;
-          const float* zr = zc + (size_t)r * (S + 1);
-          frustum_gauss(ray, zr[s], zr[s + 1], ch, m, cv);
-          v = ray[6 + ch];
-        }
-        g[ch * kLd + p] = m;
-        g[(3 + ch) * kLd + p] = cv;
-        demb[ch * kLd + p] = v;
-      } else {
-        float x = 0.f, v = 0.f;
-        if (q < nq) {
-          const float* ray = rays + (size_t)(r0 + q / S) * 9;
-          x = __fadd_rn(ray[ch], __fmul_rn(ray[3 + ch], zc[q]));
-          v = ray[6 + ch];
-        }
-        emb[ch * kLd + p] = x;
-        demb[ch * kLd + p] = v;
+      float m = 0.f, cv = 0.f, v = 0.f;
+      if (q < nq) {
+        const int r = q / S, s = q % S;
+        const float* ray = rays + (size_t)(r0 + r) * 10;
+        const float* zr = zc + (size_t)r * (S + 1);
+        frustum_gauss(ray, zr[s], zr[s + 1], ch, m, cv);
+        v = ray[6 + ch];
       }
+      g[ch * kLd + p] = m;
+      g[(3 + ch) * kLd + p] = cv;
+      demb[ch * kLd + p] = v;
     }
   }
 };
@@ -422,7 +413,7 @@ __device__ __forceinline__ void zero_cotangent_padding(float* ws, const TrainDes
 // activation of the reverse sweep, then the composite (kCotangent: dsigma
 // and drgb from dmaps = aux and dweights). odv is odvr [R, 10] and z
 // fenceposts [R, S + 1]. K3 and K6 take train_forward_wg_kernel instead.
-template <int kMode, bool kMip>
+template <int kMode>
 __global__ void __launch_bounds__(kThreads, 1)
     train_forward_kernel(const float* __restrict__ odv, const float* __restrict__ z,
                          const float* __restrict__ aux, const float* __restrict__ dweights,
@@ -442,59 +433,32 @@ __global__ void __launch_bounds__(kThreads, 1)
   __syncthreads();
   const int r0 = c * rpc, nr = min(rpc, R - r0), nq = nr * S;
   const int nsub = (nq + kPts - 1) / kPts;
-  const float* zc = z + (size_t)r0 * (kMip ? S + 1 : S);
+  const float* zc = z + (size_t)r0 * (S + 1);
 
   // ---- forward, storing every activation the reverse sweep reads
   for (int sub = 0; sub < nsub; ++sub)
-    forward_tile<true, kMode == kCotangent, kMip, true>(
-        RayFill<kMip>{odv, zc, r0, S, nq}, params, d, ws, strip,
-        OutCols{6 + d.f.sem_dim, 0, 2, 5}, tile, nq, sub, nullptr, 0);
+    forward_tile<true, kMode == kCotangent, true, true>(
+        MipFill{odv, zc, r0, S, nq}, params, d, ws, strip, OutCols{6 + d.f.sem_dim, 0, 2, 5},
+        tile, nq, sub, nullptr, 0);
 
   // ---- composite, maps, the cotangent and its reverse: one thread a ray
-  composite_chunk<kMode, kMip>(odv, zc, aux, dweights, d, ws, strip, maps, weights, r0, nr, S,
+  composite_chunk<kMode, true>(odv, zc, aux, dweights, d, ws, strip, maps, weights, r0, nr, S,
                                nsub, seed, noise_std, white_bkgd);
-}
-
-// K9 (noise_std 0) and K10a: CTA b takes chunk b (d.rays_per_chunk rays)
-// of odvr [R, 10] and fenceposts [R, S + 1]: the forward of each 64-point
-// tile, then the composite with the sigma noise into maps [R, 5] and
-// weights. Nothing is stored for a reverse sweep. semin is null: it was
-// K4's (forward_tile's sem_in rows) before K4 had a tile of its own, and
-// stays a runtime argument because without it ptxas allocates this kernel
-// otherwise and K9 ran 5.5% slower (H100, 4096 x 190 intervals, 28.9 ->
-// 30.6 ms, nerfsos_torch/tools/tile_probe.py --kernel k9).
-template <bool kMip>
-__global__ void __launch_bounds__(kThreads, 1)
-    train_render_kernel(const float* __restrict__ odv, const float* __restrict__ z,
-                        const float* __restrict__ params, const __grid_constant__ TrainDesc d,
-                        float* __restrict__ maps, float* __restrict__ weights,
-                        float* __restrict__ semin, int R, int S, unsigned seed,
-                        float noise_std) {
-  extern __shared__ float4 smem4[];
-  const int rpc = d.rays_per_chunk;
-  float* strip = reinterpret_cast<float*>(smem4);
-  float* tile = strip + ((rpc * S * (6 + d.f.sem_dim) + 3) & ~3);  // emb, demb, hA, hB
-  zero_pad_rows(tile, d.f);
-  __syncthreads();
-  const int r0 = blockIdx.x * rpc, nr = min(rpc, R - r0), nq = nr * S;
-  const int nsub = (nq + kPts - 1) / kPts;
-  const float* zc = z + (size_t)r0 * (kMip ? S + 1 : S);
-  for (int sub = 0; sub < nsub; ++sub)
-    forward_tile<false, false, kMip, true>(RayFill<kMip>{odv, zc, r0, S, nq}, params, d, nullptr,
-                                           strip, OutCols{6 + d.f.sem_dim, 0, 2, 5}, tile, nq,
-                                           sub, semin, (long long)r0 * S);
-  composite_chunk<kForward, kMip>(odv, zc, nullptr, nullptr, d, nullptr, strip, maps, weights, r0,
-                                  nr, S, nsub, seed, noise_std, 0);
 }
 
 // K4: CTA b takes chunk b (d.rays_per_chunk rays, nq points) in tiles of
 // 128 points (wg_tile.cuh: wg_cta's shared memory, wg_consumer's two
 // consumer warpgroups and producer thread); then the consumers composite
 // the chunk with the sigma noise into maps and weights (a thread a ray).
-// kSigma (K1, noise 0, maps and semin null): odv is od [R, 6] and the
-// tiles run the trunk and the alpha head alone; only the weights are
-// written.
-template <bool kSigma>
+// kIn (wg_tile.cuh InMode): kInPoint K4 (and K2: noise 0, semin null);
+// kInSigma K1 (noise 0, maps and semin null): odv is od [R, 6] and the
+// tiles run the trunk and the alpha head alone, only the weights are
+// written; kInMip K9 (noise 0) and K10a (semin null): odv is odvr [R, 10]
+// and z fenceposts [R, S + 1], the tiles start from the intervals'
+// Gaussians and their integrated PE, and the composite is the mip one
+// (maps [R, 5]). The ring holds ring_order's layers: the trunk, then but
+// for kInSigma sem_0 (with the semantic head), feature and views.
+template <int kIn>
 __global__ void __launch_bounds__(kWgThreads, 1)
     train_render_wg_kernel(const float* __restrict__ odv, const float* __restrict__ z,
                            const float* __restrict__ params, const float* __restrict__ ring,
@@ -502,22 +466,22 @@ __global__ void __launch_bounds__(kWgThreads, 1)
                            const __grid_constant__ RingDesc rd, float* __restrict__ maps,
                            float* __restrict__ weights, float* __restrict__ semin, int R, int S,
                            unsigned seed, float noise_std) {
+  constexpr bool kMip = kIn == kInMip;
   extern __shared__ __align__(128) unsigned char wg_raw[];
   const WgCta cta = wg_cta(wg_raw, d.f, rd);
   const int rpc = d.rays_per_chunk, r0 = blockIdx.x * rpc, nr = min(rpc, R - r0), nq = nr * S;
   const int ntiles = (nq + kWgTile - 1) / kWgTile;
   __syncthreads();
-  if (!wg_consumer(ring, d.f, rd, cta.rg, ntiles, !kSigma)) return;
+  if (!wg_consumer(ring, d.f, rd, cta.rg, ntiles, kIn != kInSigma)) return;
   float* mine = cta.tiles + (threadIdx.x >> 7) * cta.per_wg;
   float* strip = cta.strip;
-  const float* zc = z + (size_t)r0 * S;
+  const float* zc = z + (size_t)r0 * (kMip ? S + 1 : S);
   int pos = 0;
   for (int tile = 0; tile < ntiles; ++tile)
-    pos = wg_forward_tile<false, false, kSigma>(odv, zc, r0, S, nq, tile, params, d, rd, cta.rg,
-                                                pos, mine, strip, semin, (long long)r0 * S,
-                                                nullptr);
+    pos = wg_forward_tile<false, false, kIn>(odv, zc, r0, S, nq, tile, params, d, rd, cta.rg, pos,
+                                             mine, strip, semin, (long long)r0 * S, nullptr);
   asm volatile("bar.sync 3, %0;\n" ::"n"(kWgConsumers) : "memory");  // the strip is whole
-  composite_chunk<kForward, false, kWgConsumers, kSigma ? 6 : 9>(
+  composite_chunk<kForward, kMip, kWgConsumers, kIn == kInSigma ? 6 : kMip ? 10 : 9>(
       odv, zc, nullptr, nullptr, d, nullptr, strip, maps, weights, r0, nr, S, 0, seed, noise_std,
       0);
 }
@@ -999,16 +963,18 @@ __global__ void __cluster_dims__(kSemRanks, 1, 1) __launch_bounds__(kSemThreads,
   cluster_sync();  // no CTA exits while a peer may still signal it
 }
 
-// shared memory of the forward kernels (K3's, K9's and K10a's): the chunk's
-// composite strip, then emb, demb and two layer tiles
+// shared memory of the 64-point forward (K10b's, train_forward_kernel): the
+// chunk's composite strip, then emb, demb and two layer tiles;
+// ops/fused_render.py _forward_smem computes the same
 int forward_smem(const TrainDesc* d, int S) {
   return (int)((((size_t)d->rays_per_chunk * S * (6 + d->f.sem_dim) + 3) / 4 * 4) *
                sizeof(float)) +
          tile_smem(d->f);
 }
 
-// shared memory of K4 (train_render_wg_kernel) and of K3's and K6's forward
-// (train_forward_wg_kernel); ops/fused_render.py _wg_smem computes the same
+// shared memory of train_render_wg_kernel (K4, K2, K1, K9, K10a) and of K3's
+// and K6's forward (train_forward_wg_kernel); ops/fused_render.py _wg_smem
+// computes the same
 int wg_smem(const TrainDesc* d, const RingDesc* rd, int S) {
   const MLPDesc& f = d->f;
   const size_t rows = (f.emb_dim + 7) / 8 * 8 + (f.demb_dim + 7) / 8 * 8 + rd->hrows;
@@ -1024,37 +990,42 @@ int frozen_smem(const FrozenDesc* d) {
                       (size_t)d->wstages * kSemStage) * sizeof(float));
 }
 
+// One launch of train_render_wg_kernel<kIn>, a CTA a chunk of
+// d->rays_per_chunk rays, the ring's layers from ring as rd describes.
+template <int kIn>
+int render_wg(const float* rays, const float* z, const float* params, const float* ring,
+              const TrainDesc* d, const RingDesc* rd, float* maps, float* weights, float* semin,
+              int R, int S, unsigned seed, float noise_std, void* stream) {
+  const int smem = wg_smem(d, rd, S);
+  cudaError_t err = cudaFuncSetAttribute(train_render_wg_kernel<kIn>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int nchunks = (R + d->rays_per_chunk - 1) / d->rays_per_chunk;
+  train_render_wg_kernel<kIn><<<nchunks, kWgThreads, smem, (cudaStream_t)stream>>>(
+      rays, z, params, ring, *d, *rd, maps, weights, semin, R, S, seed, noise_std);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// K4: one launch, a CTA a chunk of d->rays_per_chunk rays; semin may be null.
+// K4 (and K2, noise 0 and semin null): odv [R, 9] and z [R, S] -> maps
+// [R, 5 + sem], weights [R, S] and, where semin is not null, sem_in.
 extern "C" int nerf_train_render(const float* odv, const float* z, const float* params,
                                  const float* ring, const TrainDesc* d, const RingDesc* rd,
                                  float* maps, float* weights, float* semin, int R, int S,
                                  unsigned seed, float noise_std, void* stream) {
-  const int smem = wg_smem(d, rd, S);
-  cudaError_t err = cudaFuncSetAttribute(train_render_wg_kernel<false>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const int nchunks = (R + d->rays_per_chunk - 1) / d->rays_per_chunk;
-  train_render_wg_kernel<false><<<nchunks, kWgThreads, smem, (cudaStream_t)stream>>>(
-      odv, z, params, ring, *d, *rd, maps, weights, semin, R, S, seed, noise_std);
-  return (int)cudaGetLastError();
+  return render_wg<kInPoint>(odv, z, params, ring, d, rd, maps, weights, semin, R, S, seed,
+                             noise_std, stream);
 }
 
 // K1: the eval's coarse pass, od [R, 6] and z [R, S] -> weights [R, S]:
-// K4's kernel in its sigma-only mode (the trunk's weights from ring as rd
-// describes), no noise; one launch, a CTA a chunk of d->rays_per_chunk rays.
+// K4's kernel in its sigma-only mode (the ring holds the trunk alone), no
+// noise.
 extern "C" int nerf_coarse_weights(const float* od, const float* z, const float* params,
                                    const float* ring, const TrainDesc* d, const RingDesc* rd,
                                    float* weights, int R, int S, void* stream) {
-  const int smem = wg_smem(d, rd, S);
-  cudaError_t err = cudaFuncSetAttribute(train_render_wg_kernel<true>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const int nchunks = (R + d->rays_per_chunk - 1) / d->rays_per_chunk;
-  train_render_wg_kernel<true><<<nchunks, kWgThreads, smem, (cudaStream_t)stream>>>(
-      od, z, params, ring, *d, *rd, nullptr, weights, nullptr, R, S, 0u, 0.f);
-  return (int)cudaGetLastError();
+  return render_wg<kInSigma>(od, z, params, ring, d, rd, nullptr, weights, nullptr, R, S, 0u,
+                             0.f, stream);
 }
 
 extern "C" const char* nerf_error_string(int code) {
@@ -1063,19 +1034,15 @@ extern "C" const char* nerf_error_string(int code) {
 
 // K9 (noise_std 0) and K10a: the mip render pass, odvr [R, 10] and
 // fenceposts z [R, S + 1] -> maps [R, 5] and weights [R, S], with the sigma
-// noise of seed; one launch, a CTA a chunk of d->rays_per_chunk rays. The
-// two TPU kernels differ by the noise alone, so they are one kernel here.
+// noise of seed: K4's kernel in its mip mode (the ring holds the trunk,
+// feature and views). The two TPU kernels differ by the noise alone, so
+// they are one kernel here.
 extern "C" int nerf_mip_render(const float* odvr, const float* z, const float* params,
-                               const TrainDesc* d, float* maps, float* weights, int R, int S,
-                               unsigned seed, float noise_std, void* stream) {
-  const int smem = forward_smem(d, S);
-  cudaError_t err = cudaFuncSetAttribute(train_render_kernel<true>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const int nchunks = (R + d->rays_per_chunk - 1) / d->rays_per_chunk;
-  train_render_kernel<true><<<nchunks, kThreads, smem, (cudaStream_t)stream>>>(
-      odvr, z, params, *d, maps, weights, nullptr, R, S, seed, noise_std);
-  return (int)cudaGetLastError();
+                               const float* ring, const TrainDesc* d, const RingDesc* rd,
+                               float* maps, float* weights, int R, int S, unsigned seed,
+                               float noise_std, void* stream) {
+  return render_wg<kInMip>(odvr, z, params, ring, d, rd, maps, weights, nullptr, R, S, seed,
+                           noise_std, stream);
 }
 
 // K5's clusters that fit on the card at once with d's shared memory
@@ -1136,7 +1103,7 @@ int train_grads(const float* odv, const float* z, const float* aux, const float*
   cudaError_t err;
   if constexpr (kMip) {
     fwd_smem = forward_smem(d, S);
-    err = cudaFuncSetAttribute(train_forward_kernel<kMode, true>,
+    err = cudaFuncSetAttribute(train_forward_kernel<kMode>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, fwd_smem);
   } else {
     fwd_smem = wg_smem(d, rd, S);
@@ -1152,7 +1119,7 @@ int train_grads(const float* odv, const float* z, const float* aux, const float*
     for (int j = 0; j < group && (long long)(wave * group + j) * grid < nchunks; ++j) {
       const TrainDesc dj = group_desc(*d, j, S);
       if constexpr (kMip) {
-        train_forward_kernel<kMode, true><<<grid, kThreads, fwd_smem, st>>>(
+        train_forward_kernel<kMode><<<grid, kThreads, fwd_smem, st>>>(
             odv, z, aux, dweights, params, dj, maps, weights, workspace, R, S, wave * group + j,
             group, seed, noise_std, white_bkgd);
       } else {

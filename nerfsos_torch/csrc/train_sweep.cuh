@@ -1,8 +1,9 @@
 // Device building blocks of the train kernels' reverse sweep, shared by the
-// fused train kernels (train_render.cu: K3, K6, K9, K10a, K10b; K4's tile
-// is wg_tile.cuh) and the
-// field kernels (fused_field.cu: K8a-K8f, K11): the train descriptor and
-// its workspace planes, the forward of one 64-point tile (storing what the
+// fused train kernels (train_render.cu: the reverse sweep of K3, K6 and
+// K10b, and K10b's 64-point forward; the 128-point tile of K1, K2, K4, K9,
+// K10a and of K3's and K6's forward is wg_tile.cuh) and the field kernels
+// (fused_field.cu: K8a-K8f, K11): the train descriptor and its workspace
+// planes, the forward of one 64-point tile (storing what the
 // reverse sweep reads), the input-gradient product of a layer (bwd_layer:
 // wgmma 3xTF32, its matrix and dY through a ring of shared-memory stages
 // filled by bulk copies), the weight-gradient product (wgrad: wgmma 3xTF32,

@@ -63,8 +63,13 @@
 // takes the producers to 40 and the consumers to 232, room for the 128
 // accumulators of an N = 256 layer (at 168 ptxas serialised the wgmma and
 // spilled 734 B).
-// K1 runs it in a sigma-only mode (wg_forward_tile's kSigma: od [R, 6],
-// the trunk's layers alone through the ring, the alpha head).
+// K1 runs it in a sigma-only mode (wg_forward_tile's kInSigma: od [R, 6],
+// the trunk's layers alone through the ring, the alpha head), K9 and K10a
+// in a mip mode (kInMip: odvr [R, 10] and fenceposts [R, S + 1]; each
+// warpgroup builds its 64 intervals' cone-frustum Gaussians in six scratch
+// rows of its h tile, which nothing reads before the first trunk layer
+// overwrites them, and from them the integrated PE in emb, 6 multires rows
+// in ipe_rows' order; the rest is K4's tile without the semantic head).
 // K3's and K6's forward (train_render.cu train_forward_wg_kernel) run the
 // same tile in its store mode (wg_forward_tile's kStore): every activation
 // their reverse sweep reads also goes from the epilogues' registers to the
@@ -86,6 +91,13 @@ constexpr int kWgPts = 64;               // points a consumer warpgroup
 constexpr int kWgTile = 2 * kWgPts;      // points a tile
 constexpr int kWgConsumers = 256;        // threads of the two consumer warpgroups
 constexpr int kWgThreads = kWgConsumers + 128;  // and the producer warpgroup
+
+// wg_forward_tile's inputs: kInPoint (K4, K2, K3's and K6's forward) the
+// points o + d z of odv [R, 9] and z [R, S] and their PE; kInSigma (K1) the
+// same points of od [R, 6], the trunk and the alpha head alone; kInMip (K9,
+// K10a) the intervals between the fenceposts z [R, S + 1] of odvr [R, 10]
+// as Gaussians and their integrated PE.
+enum InMode { kInPoint, kInSigma, kInMip };
 
 // row k, point p of a warpgroup tile
 __device__ __forceinline__ int swz(int k, int p) { return k * kWgPts + (p ^ ((k & 3) << 3)); }
@@ -395,6 +407,22 @@ __device__ __forceinline__ void pe_rows_wg(float* buf, int rows) {
   }
 }
 
+// Rows 0 .. rows - 1 (rows = 6 multires) of a warpgroup's integrated-PE
+// tile from the Gaussians' means (rows 0-2 of the tile g) and variances
+// (rows 3-5): ipe_rows's values, row order and rounding in swizzled tiles.
+__device__ __forceinline__ void ipe_rows_wg(float* buf, const float* g, int rows) {
+  const int half = rows / 2;
+  for (int i = threadIdx.x & 127; i < rows * kWgPts; i += 128) {
+    const int f = i / kWgPts, p = i % kWgPts;
+    const int k = f % half, c = k % 3;
+    const float freq = ldexpf(1.f, k / 3);
+    const float y = __fmul_rn(freq, g[swz(c, p)]);
+    const float yv = __fmul_rn(__fmul_rn(freq, freq), g[swz(3 + c, p)]);
+    const float s = sinf(f >= half ? __fadd_rn(y, 1.57079632679489661923f) : y);
+    buf[swz(f, p)] = __fmul_rn(expf(__fmul_rn(-0.5f, yv)), s);
+  }
+}
+
 // Rows [0, rows) of a warpgroup tile, unswizzled, to a workspace tile [rows][kLd].
 __device__ __forceinline__ void wg_store_rows(const float* src, float* dst, int rows) {
   for (int i = threadIdx.x & 127; i < rows * (kWgPts / 4); i += 128) {
@@ -416,10 +444,14 @@ __device__ __forceinline__ void wg_store_rows(const float* src, float* dst, int 
 // (train_desc's layout: P_EMB, P_DEMB, P_ACT0 + i, P_FEAT, P_HV, and with
 // kSemAct the semantic head's hidden activation at P_ACT0 + depth); a
 // warpgroup whose points all lie past nq has no sub and stores nothing.
-// kSigma (K1): odv is od [R, 6] (no view direction), and the tile runs the
-// trunk and the alpha head alone (sigma to the strip), nothing else.
+// kIn (InMode): kInSigma (K1): odv is od [R, 6] (no view direction), and
+// the tile runs the trunk and the alpha head alone (sigma to the strip),
+// nothing else. kInMip (K9, K10a): odv is odvr [R, 10] and zc the chunk's
+// fenceposts [nr][S + 1]; point q is the interval (zc[r][s], zc[r][s + 1])
+// of ray r0 + r (r = q / S, s = q % S), its Gaussian (frustum_gauss)
+// in rows 0-5 of h, then its integrated PE in emb's rows 0 .. E - 1.
 // Returns the ring position after the tile.
-template <bool kStore, bool kSemAct, bool kSigma = false>
+template <bool kStore, bool kSemAct, int kIn = kInPoint>
 __device__ __forceinline__ int wg_forward_tile(const float* __restrict__ odv, const float* zc,
                                                int r0, int S, int nq, int tile,
                                                const float* __restrict__ params,
@@ -439,22 +471,40 @@ __device__ __forceinline__ int wg_forward_tile(const float* __restrict__ odv, co
   const bool store = kStore && qw < nq;
   const int sub = qw / kWgPts;
 
-  wg_bar(bar);  // the last tile's reads of emb and demb are done
+  constexpr bool kSigma = kIn == kInSigma;
+  wg_bar(bar);  // the last tile's reads of emb, demb and h are done
   for (int i = tid; i < 3 * kWgPts; i += 128) {
     const int ch = i / kWgPts, p = i % kWgPts, q = qw + p;
-    float x = 0.f, v = 0.f;
+    float x = 0.f, var = 0.f, v = 0.f;
     if (q < nq) {
-      const float* ray = odv + (size_t)(r0 + q / S) * (kSigma ? 6 : 9);
-      x = __fadd_rn(ray[ch], __fmul_rn(ray[3 + ch], zc[q]));
-      if (!kSigma) v = ray[6 + ch];
+      if (kIn == kInMip) {
+        const int r = q / S, s = q % S;
+        const float* ray = odv + (size_t)(r0 + r) * 10;
+        const float* zr = zc + (size_t)r * (S + 1);
+        frustum_gauss(ray, zr[s], zr[s + 1], ch, x, var);
+        v = ray[6 + ch];
+      } else {
+        const float* ray = odv + (size_t)(r0 + q / S) * (kSigma ? 6 : 9);
+        x = __fadd_rn(ray[ch], __fmul_rn(ray[3 + ch], zc[q]));
+        if (!kSigma) v = ray[6 + ch];
+      }
     }
-    emb[swz(ch, p)] = x;
+    if (kIn == kInMip) {  // the Gaussian in h's scratch rows: means 0-2, variances 3-5
+      h[swz(ch, p)] = x;
+      h[swz(3 + ch, p)] = var;
+    } else {
+      emb[swz(ch, p)] = x;
+    }
     if (!kSigma) demb[swz(ch, p)] = v;
   }
   wg_bar(bar);
-  pe_rows_wg(emb, E);
+  if (kIn == kInMip) {
+    ipe_rows_wg(emb, h, E);
+  } else {
+    pe_rows_wg(emb, E);
+  }
   if (!kSigma) pe_rows_wg(demb, Ed);
-  wg_bar(bar);
+  wg_bar(bar);  // emb is whole (and h's scratch rows read) before layer 0
   if (store) {
     wg_store_rows(emb, plane(ws, d, P_EMB, sub), Ep);
     wg_store_rows(demb, plane(ws, d, P_DEMB, sub), Edp);

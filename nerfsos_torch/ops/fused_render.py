@@ -40,7 +40,7 @@ composite over the intervals (midpoint depths, no far pad) into
 ``maps [R, 5]`` and weights ``[R, S]``:
 
 - :func:`fused_mip_render` (K9, replaces ``fused_mip_render_planar`` and its
-  ``_mip_render_kernel``): the eval pass;
+  ``_mip_render_kernel``): the eval pass, K4's kernel in its mip mode;
 - :func:`mip_train_render` (K10a, replaces ``_mip_train_fwd_impl`` and its
   ``_mip_train_kernel``): the train forward with the sigma noise of
   :func:`noise_plain` at point ``ray * S + interval``;
@@ -988,15 +988,16 @@ def fused_rgb_train_grads(field: nn.Module, odv: torch.Tensor, z: torch.Tensor, 
 
 
 def _forward_smem(fdesc: _build.MLPDesc, rays_per_chunk: int, S: int) -> int:
-    """Shared memory of K9/K10a and of K10b's forward: the composite strip of
-    a chunk and the emb, demb and two layer tiles."""
+    """Shared memory of K10b's forward on the 64-point tile
+    (``forward_smem`` in ``csrc/train_render.cu``): the composite strip of a
+    chunk and the emb, demb and two layer tiles."""
     return (-(-rays_per_chunk * S * (6 + fdesc.sem_dim) // 4) * 4
             + (_pad8(fdesc.emb_dim) + _pad8(fdesc.demb_dim) + 2 * fdesc.hrows) * _KLD) * 4
 
 
 def _wg_smem(fdesc: _build.MLPDesc, rd: _build.RingDesc, rays_per_chunk: int, S: int) -> int:
-    """Shared memory of K4 and of K3's and K6's forward (``wg_smem`` in
-    ``csrc/train_render.cu``): the
+    """Shared memory of K4's kernel (K4, K2, K1, K9, K10a) and of K3's and
+    K6's forward (``wg_smem`` in ``csrc/train_render.cu``): the
     ring's barriers and stages, two warpgroups' emb, demb and h tiles of
     64 points, and the chunk's composite strip."""
     rows = _pad8(fdesc.emb_dim) + _pad8(fdesc.demb_dim) + rd.hrows
@@ -1005,10 +1006,10 @@ def _wg_smem(fdesc: _build.MLPDesc, rd: _build.RingDesc, rays_per_chunk: int, S:
 
 
 def _wg_plan(fdesc: _build.MLPDesc, ring: _build.RingDesc, S: int) -> Tuple[int, _build.RingDesc]:
-    """The 128-point tile's chunk (K4's, and K3's and K6's forward's:
-    ``_rays_per_chunk(S)``, fewer rays where the strip and two ring stages
-    would not fit) and its ring descriptor with as many stages (2 to
-    ``MAX_RING_STAGES``) as the rest of shared memory holds."""
+    """The 128-point tile's chunk (K4's kernel in each of its modes, and K3's
+    and K6's forward's: ``_rays_per_chunk(S)``, fewer rays where the strip
+    and two ring stages would not fit) and its ring descriptor with as many
+    stages (2 to ``MAX_RING_STAGES``) as the rest of shared memory holds."""
     rd = _build.RingDesc.from_buffer_copy(ring)
     rd.stages = 2
     rpc = _rays_per_chunk(S)
@@ -1250,24 +1251,25 @@ def _mip_shapes(field: nn.Module, odvr: torch.Tensor, z: torch.Tensor) -> Tuple[
 
 def _mip_forward(field: nn.Module, odvr: torch.Tensor, z: torch.Tensor, noise_std: float,
                  seed: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One launch of the mip forward kernel (K9 without noise, K10a with):
-    a CTA a chunk of ``_rays_per_chunk(S)`` rays."""
+    """One launch of K4's kernel in its mip mode (K9 without noise, K10a
+    with; ``csrc/train_render.cu`` ``train_render_wg_kernel<kInMip>``) on
+    checked CUDA inputs, none for ``R == 0``: a CTA a chunk of
+    :func:`_wg_plan`'s rays in tiles of 128 intervals, the weights from
+    :func:`pack_ring` through its ring; raises where the plan does not fit."""
     R, S = _mip_shapes(field, odvr, z)
     buf, fdesc = _packed(field, odvr.device)
+    rbuf, ring = _ring(field, odvr.device)
     desc = _build.TrainDesc()
     desc.f = fdesc
-    desc.rays_per_chunk = _rays_per_chunk(S)
-    if _forward_smem(fdesc, desc.rays_per_chunk, S) > _MAX_SMEM:
-        raise NotImplementedError(f"S={S}: the composite strip and tiles do not fit in shared "
-                                  "memory")
+    desc.rays_per_chunk, rd = _wg_plan(fdesc, ring, S)
     maps = torch.empty((R, 5), device=odvr.device, dtype=torch.float32)
     weights = torch.empty((R, S), device=odvr.device, dtype=torch.float32)
     if R > 0:
         with torch.cuda.device(odvr.device):
             code = _build.library().nerf_mip_render(
-                odvr.data_ptr(), z.data_ptr(), buf.data_ptr(), ctypes.byref(desc),
-                maps.data_ptr(), weights.data_ptr(), R, S, noise_seed(seed), float(noise_std),
-                _build.stream(odvr.device))
+                odvr.data_ptr(), z.data_ptr(), buf.data_ptr(), rbuf.data_ptr(),
+                ctypes.byref(desc), ctypes.byref(rd), maps.data_ptr(), weights.data_ptr(), R, S,
+                noise_seed(seed), float(noise_std), _build.stream(odvr.device))
         _build.check(code, "nerf_mip_render")
     return maps, weights
 
@@ -1275,7 +1277,9 @@ def _mip_forward(field: nn.Module, odvr: torch.Tensor, z: torch.Tensor, noise_st
 def fused_mip_render(field: nn.Module, odvr: torch.Tensor,
                      z: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """K9: the mip eval pass, ``odvr [R, 10]``, fenceposts ``z [R, S + 1]``
-    -> (maps ``[R, 5]``, weights ``[R, S]``); see :func:`mip_render_plain`."""
+    -> (maps ``[R, 5]``, weights ``[R, S]``); see :func:`mip_render_plain`.
+    One launch of K4's kernel in its mip mode without noise
+    (:func:`_mip_forward`), counted in ``fused_mip_render.launches``."""
     if odvr.device.type == "cpu":
         return mip_render_plain(field, odvr, z)
     if odvr.device.type != "cuda":
@@ -1290,7 +1294,8 @@ def mip_train_render(field: nn.Module, odvr: torch.Tensor, z: torch.Tensor, *,
                      noise_std: float, seed: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """K10a: the mip train forward, ``odvr [R, 10]``, ``z [R, S + 1]`` ->
     (maps, weights) with the sigma noise of ``seed``; see
-    :func:`mip_train_render_plain`."""
+    :func:`mip_train_render_plain`. One launch of K4's kernel in its mip
+    mode (:func:`_mip_forward`)."""
     if odvr.device.type == "cpu":
         return mip_train_render_plain(field, odvr, z, noise_std=noise_std, seed=seed)
     if odvr.device.type != "cuda":

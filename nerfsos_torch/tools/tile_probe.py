@@ -1,38 +1,35 @@
-"""Where K4's, K3's, K6's and K5's time goes on the card: builds patched
-copies of the kernel sources under ``<root>/build/tile_probe/<variant>/`` and
-times K4 (``ops.fused_render.train_render``), K6 (``train_render_grads``), K3
-(``fused_rgb_train_grads``), K5 (``frozen_sem_grads``) or K2
-(``fused_render``) with each, in one process.
+"""Where K4's, K3's, K6's, K5's and K9's time goes on the card: builds
+patched copies of the kernel sources under
+``<root>/build/tile_probe/<variant>/`` and times K4
+(``ops.fused_render.train_render``), K6 (``train_render_grads``), K3
+(``fused_rgb_train_grads``), K5 (``frozen_sem_grads``), K2
+(``fused_render``), K1 (``fused_coarse_weights``), K9 (``fused_mip_render``)
+or K10a (``mip_train_render``) with each, in one process.
 
     python -m nerfsos_torch.tools.tile_probe [--root DIR] [--rays 32768]
-        [--samples 192[,64...]] [--variants base,wgclock] [--kernel k4|k9|k6|k3|k5|k2]
+        [--samples 192[,64...]] [--variants base,wgclock]
+        [--kernel k4|k9|k10a|k6|k3|k5|k2|k1]
 
 ``--root`` is the checkout whose package, kernels and ``chip_smoke.py`` are
-used (default: this one). To A/B K4 against the 64-point tile it replaced,
-unpack the commit before it under ``build/`` and time both in one call:
+used (default: this one). To A/B K9 against the parent's, unpack the
+parent under ``build/`` and time both in one call:
 
-    git archive 3e99da6 | tar -x -C build/parent
-    python -m nerfsos_torch.tools.tile_probe --root build/parent --variants base,l1clock,l1
-    python -m nerfsos_torch.tools.tile_probe --variants base,wgclock
+    git archive <parent> | tar -x -C build/parent
+    python -m nerfsos_torch.tools.tile_probe --root build/parent --kernel k9 \
+        --samples 190,63 --variants base
+    python -m nerfsos_torch.tools.tile_probe --kernel k9 --samples 190,63 \
+        --variants base,wgclock
 
 Variants (a copy of ``nerfsos_torch/csrc`` each; the sources themselves are
 never edited):
 
 - ``base``: the sources as they are;
-- ``l1clock`` (K4 on the 64-point ``dense()`` tile of ``csrc/tile_mlp.cuh``,
-  as K4 was before 128-point tiles):
-  clock64 counters, thread 0 of CTA 0, around each ``load_stage`` call
-  (issuing the A and weight loads of a k step), each ``mma_stage`` call
-  (the split and the mma, which first waits for those loads) and the
-  kernel up to its composite;
-- ``l1``: ``load_stage`` reads the first k step's weight rows at every k
-  step, so the weights stay in L1 (results are wrong; the time is what K4
-  takes without its L2 weight traffic);
-- ``wgclock`` (K4's tile of ``csrc/wg_tile.cuh``): clock64 counters,
-  thread 0 of CTA 0, around its waits for a full ring stage, the layers'
-  k loops, the waits for its own wgmma inside them, the layers'
-  epilogues and the whole tile loop, and the producer thread of CTA 0
-  around its waits for an empty stage;
+- ``wgclock`` (the 128-point tile of ``csrc/wg_tile.cuh``: K4, K2, K1, K9,
+  K10a, K3's and K6's forward): clock64 counters, thread 0 of CTA 0,
+  around its waits for a full ring stage, the layers' k loops, the waits
+  for its own wgmma inside them, the layers' epilogues and the whole tile
+  loop, and the producer thread of CTA 0 around its waits for an empty
+  stage;
 - ``fwdonly`` (K3, K6, K10b, K8c/K8f): ``train_grads`` and the field
   backward launch the forward kernel of each wave and the reduction but no
   reverse-sweep kernel, so the reverse sweep's time is ``base``'s less this;
@@ -63,18 +60,20 @@ Variants join with ``+`` (``fwdonly+nostore``: one copy with both patches).
 
 It prints one line per variant and sample count: the kernel's ms (CUDA
 events) and the counters as shares of the counted span, then the card's
-name and power limit. ``--kernel k9`` times K9 (``fused_mip_render``, the
-mip eval pass, which still runs the 64-point tile) instead, ``base``
-variant only: an A/B of the kernels that a tile change must leave alone.
-``--kernel k6`` takes the full SOS finetune's backward at the flagship
-width with the semantic head and its coordinates and seeded map and weight
-cotangents, ``--kernel k3`` the RGB train pass with the semantic head,
-``--kernel k5`` the frozen finetune's semantic-head backward on K4's own
-``sem_in`` and weights of those rays, with seeded map cotangents, ``--kernel
-k2`` the eval fine render (K4's kernel without noise or sem_in; ``--rays
-32768`` is one ``--ray_chunk`` of the eval path). With ``--root`` unpacked
-from a parent commit, K2 and K5 are timed through that tree's wrappers (the
-same Python interface), ``base`` variant only, for an A/B in one call.
+name and power limit. ``--kernel k9`` takes the mip eval pass (K4's kernel
+in its mip mode, no noise) on the flagship mip field, ``--samples`` its
+intervals a ray (190 and 63 on the eval path), ``--kernel k10a`` the same
+with noise 1 (the mip train forward). ``--kernel k6`` takes the full SOS
+finetune's backward at the flagship width with the semantic head and its
+coordinates and seeded map and weight cotangents, ``--kernel k3`` the RGB
+train pass with the semantic head, ``--kernel k5`` the frozen finetune's
+semantic-head backward on K4's own ``sem_in`` and weights of those rays,
+with seeded map cotangents, ``--kernel k2`` the eval fine render (K4's
+kernel without noise or sem_in; ``--rays 32768`` is one ``--ray_chunk`` of
+the eval path), ``--kernel k1`` the eval coarse pass. With ``--root``
+unpacked from a parent commit, the kernels are timed through that tree's
+wrappers (the same Python interface), ``base`` variant only, for an A/B
+in one call.
 """
 from __future__ import annotations
 
@@ -82,7 +81,6 @@ import argparse
 import ctypes
 import json
 import os
-import re
 import shutil
 import sys
 
@@ -249,33 +247,7 @@ def _patch_one(variant: str, csrc: str) -> None:
         with open(path, "w") as f:
             f.write(fn(text))
 
-    if variant == "l1":
-        edit("tile_mlp.cuh", lambda t: _sub(
-            t, "const size_t row = (size_t)(ks * 8 + t) * ldn + g;",
-            "const size_t row = (size_t)t * ldn + g;", 1))
-    elif variant == "l1clock":
-        def tile(t):
-            t = _sub(t, "#include <stdint.h>\n", "#include <stdint.h>\n" + _COUNTERS, 1)
-            t = re.sub(r"(\n\s*)(load_stage\(st[01], [^;]*;)",
-                       r"\1{ long long p0 = clock64(); \2 PROBE_ADD(1, p0); }", t)
-            return re.sub(r"(\n\s*)(mma_stage\(acc, st[01], [^;]*;)",
-                          r"\1{ long long p0 = clock64(); \2 PROBE_ADD(2, p0); }", t)
-
-        edit("tile_mlp.cuh", tile)
-
-        def kern(t):
-            t = _sub(t, "float* __restrict__ semin, int R, int S, unsigned seed,\n"
-                        "                        float noise_std) {\n",
-                     "float* __restrict__ semin, int R, int S, unsigned seed,\n"
-                     "                        float noise_std) {\n"
-                     "  long long p_start = clock64();\n", 1)
-            t = _sub(t, "  composite_chunk<kForward, kMip>(odv, zc, nullptr, nullptr, d, nullptr,",
-                     "  PROBE_ADD(0, p_start);\n"
-                     "  composite_chunk<kForward, kMip>(odv, zc, nullptr, nullptr, d, nullptr,", 1)
-            return t + _READER
-
-        edit("train_render.cu", kern)
-    elif variant == "wgclock":
+    if variant == "wgclock":
         def tile(t):
             t = _sub(t, "#include \"train_sweep.cuh\"\n",
                      "#include \"train_sweep.cuh\"\n" + _COUNTERS, 1)
@@ -303,7 +275,7 @@ def _patch_one(variant: str, csrc: str) -> None:
         edit("wg_tile.cuh", tile)
 
         def kern(t):
-            # the tile loops of K4's kernel and of K3's and K6's forward
+            # the tile loops of K4's kernel (each input mode) and of K3's and K6's forward
             t = _sub(t, "  int pos = 0;\n", "  int pos = 0;\n  long long p_start = clock64();\n")
             t = _sub(t, "  asm volatile(\"bar.sync 3, %0;\\n\"",
                      "  PROBE_ADD(0, p_start);\n  asm volatile(\"bar.sync 3, %0;\\n\"")
@@ -391,7 +363,7 @@ def main() -> int:
     ap.add_argument("--variants", default="base,wgclock")
     ap.add_argument("--root", default=HERE)
     ap.add_argument("--kernel", default="k4",
-                    choices=("k4", "k9", "k6", "k3", "k5", "k2", "k1"))
+                    choices=("k4", "k9", "k10a", "k6", "k3", "k5", "k2", "k1"))
     a = ap.parse_args()
     if not torch.cuda.is_available():
         print("tile_probe: no CUDA device visible", file=sys.stderr)
@@ -407,10 +379,12 @@ def main() -> int:
 
     def runner(S: int):
         """The call to time at S samples a ray."""
-        if a.kernel == "k9":
+        if a.kernel in ("k9", "k10a"):
             field = seeded_mip_field(5)
-            odv, z = mip_ray_inputs(a.rays, S, seed=11)
-            return lambda: fr.fused_mip_render(field, odv, z)
+            odvr, z = mip_ray_inputs(a.rays, S, seed=11)
+            if a.kernel == "k10a":
+                return lambda: fr.mip_train_render(field, odvr, z, noise_std=1.0, seed=7654321)
+            return lambda: fr.fused_mip_render(field, odvr, z)
         if a.kernel == "k1":
             field = seeded_field(0, net_depth=8, net_width=256, multires=10, multires_views=4)
             odv, z = ray_inputs(a.rays, S, seed=11)
@@ -440,8 +414,7 @@ def main() -> int:
             return lambda: fr.frozen_sem_grads(field, sem_in, w, dmaps)
         return lambda: fr.train_render(field, odv, z, **kw)
 
-    names = {"l1clock": ["load_stage", "mma_stage"],
-             "wgclock": ["ring_full_wait", "producer_empty_wait", "k_loops", "own_wgmma_wait",
+    names = {"wgclock": ["ring_full_wait", "producer_empty_wait", "k_loops", "own_wgmma_wait",
                          "epilogues"],
              "sweepclock": ["wgrad", "wgrad_fills", "wgrad_full_wait", "wgrad_convert",
                             "wgrad_products", "wgrad_partial_rmw", "bwd_layer",

@@ -765,9 +765,12 @@ def _mip_inputs(device, n, s, seed):
 
 @pytest.mark.parametrize("shape", MIP_SHAPES)
 @pytest.mark.parametrize("noise", [0.0, 1.0])
-@pytest.mark.parametrize("n,s", [(1, 63), (37, 7), (1000, 63), (300, 190)])
+@pytest.mark.parametrize("n,s", [(1, 63), (37, 7), (1000, 63), (300, 190), (301, 190)])
 def test_k9_k10a_match_plain(cuda, shape, noise, n, s):
-    """K9 (no noise) and K10a (noise 1): maps and weights to TOL."""
+    """K9 (no noise) and K10a (noise 1), K4's kernel in its mip mode: maps
+    and weights to TOL, and two calls bitwise equal. 301 rays at S = 190
+    leave a last chunk of one ray (190 intervals: a ragged second tile
+    whose second warpgroup lies wholly past them)."""
     field = _mip_field(cuda, 20, **shape)
     odvr, z = _mip_inputs(cuda, n, s, 21)
     if noise == 0.0:
@@ -778,13 +781,15 @@ def test_k9_k10a_match_plain(cuda, shape, noise, n, s):
     before = wrapper.launches
     with torch.no_grad():
         got = wrapper(field, odvr, z, **kw)
+        again = wrapper(field, odvr, z, **kw)
         want = plain(field, odvr, z, **kw)
     torch.cuda.synchronize()
-    assert wrapper.launches == before + 1
+    assert wrapper.launches == before + 2
     assert got[0].shape == (n, 5) and got[1].shape == (n, s)
-    for a, b in zip(got, want):
+    for a, b, c in zip(got, want, again):
         assert torch.isfinite(a).all()
         assert float((a - b).abs().max()) <= TOL
+        assert torch.equal(a, c)
 
 
 @pytest.mark.parametrize("shape", MIP_SHAPES)

@@ -5,8 +5,14 @@ order, k-slice by k-slice 3xTF32 products with A split through ``_tf32``,
 in-place write-back into each warpgroup's h, the heads from the
 accumulators, the composite strip) held against ``train_render_plain`` and
 the JAX package's ``_train_render_fwd_impl`` (Pallas, interpret mode) at
-tiny widths, with ragged last tiles (R * S not a multiple of 128).
+tiny widths, with ragged last tiles (R * S not a multiple of 128); and its
+routes: K2 (noise 0), K1 (sigma-only), K3's and K6's storing forward, and
+K9/K10a's mip mode (the Gaussians and the integrated PE in the prologue,
+the mip composite) against their plain versions and the JAX package's
+kernels.
 """
+import contextlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -14,10 +20,13 @@ import pytest
 import torch
 
 from nerfsos_torch.engines.checkpoint import state_dict_from_jax_params
-from nerfsos_torch.models.fields import NeRFField
+from nerfsos_torch.models import mip as tmip
+from nerfsos_torch.models.fields import MipNeRFField, NeRFField
+from nerfsos_torch.models.mip import cast_rays
 from nerfsos_torch.models.nerf import NeRFConfig as TorchConfig
 from nerfsos_torch.models.nerf import NeRFNet as TorchNet
 from nerfsos_torch.ops import fused_render as fr
+from nerfsos_tpu.models import mip as jmip
 from nerfsos_tpu.models.nerf import NeRFConfig as JaxConfig
 from nerfsos_tpu.models.nerf import NeRFNet as JaxNet
 from nerfsos_tpu.ops.pallas import fused_render as jfr
@@ -66,6 +75,26 @@ def test_ring_packing_unpacks_to_the_weights(depth, sem, coord, width):
     torch.manual_seed(depth)
     field = NeRFField(net_depth=depth, net_width=width, multires=4, multires_views=2,
                       use_semantics=sem, sem_with_coord=coord, sem_dim=3)
+    _check_ring(field, (8, 64, 192))
+
+
+@pytest.mark.parametrize("depth,width,multires", [(5, 32, 4), (8, 64, 10)])
+def test_ring_packing_unpacks_a_mip_field(depth, width, multires):
+    """pack_ring of a ``MipNeRFField`` (the integrated PE's 6 multires
+    input rows, no semantic head, the skip after layer 4): the trunk,
+    feature and views in ring order, each unpacking to its weights, and
+    ``_wg_plan`` fitting at K9's and K10a's interval counts."""
+    torch.manual_seed(depth)
+    field = MipNeRFField(net_depth=depth, net_width=width, multires=multires,
+                         multires_views=multires // 2)
+    assert fr.pack_field(field)[1].emb_dim == 6 * multires
+    _check_ring(field, (7, 63, 190))
+
+
+def _check_ring(field, samples):
+    """pack_ring's buffer of ``field`` unpacked against its weights and
+    ``pack_field``'s TF32 parts; the plan at each of ``samples`` fits."""
+    depth, sem = field.mlp.depth, field.mlp.use_semantics
     buf, fdesc = fr.pack_field(field)
     ring, rd = fr.pack_ring(field)
     layers = fr._field_layers(field)
@@ -96,19 +125,57 @@ def test_ring_packing_unpacks_to_the_weights(depth, sem, coord, width):
     assert rd.hrows == max(rd.ncols[i] for i in list(range(depth)) + [depth + 1])
     assert rd.stage_floats == 16 * max(rd.ncols[i] for i in order)
     assert rd.stages == 0  # set per call by the wrapper
-    for S in (8, 64, 192):
+    for S in samples:
         rpc, rds = fr._wg_plan(fdesc, rd, S)
         assert 2 <= rds.stages <= 4 and fr._wg_smem(fdesc, rds, rpc, S) <= fr._MAX_SMEM
 
 
+def _swz(k, p):
+    """Row k, point p of a warpgroup tile (``csrc/wg_tile.cuh`` swz)."""
+    return k * WG + (p ^ ((k & 3) << 3))
+
+
+def _mip_prologue(gauss, E, Ep, hrows):
+    """wg_forward_tile's kInMip prologue for one warpgroup on flat swizzled
+    tiles: the 64 points' Gaussians ``gauss [64, 6]`` (means, variances;
+    zero past the chunk's points) into rows 0-5 of h, then ipe_rows_wg's E
+    rows (row f: k = f mod E/2, channel k mod 3, frequency 2^(k // 3); the
+    second half's phase + pi/2) from them into emb. emb's pad rows E ..
+    Ep - 1 hold wg_cta's zeros, every other float of both tiles starts NaN:
+    the prologue writes every emb row and reads no h row past 5. Returns emb
+    unswizzled ``[Ep, 64]``."""
+    p = torch.arange(WG)
+    h = torch.full((hrows * WG,), float("nan"))
+    emb = torch.full((Ep * WG,), float("nan"))
+    for k in range(E, Ep):
+        emb[_swz(k, p)] = 0.0
+    for r in range(6):
+        h[_swz(r, p)] = gauss[:, r]
+    half = E // 2
+    for f in range(E):
+        k = f % half
+        c, freq = k % 3, 2.0 ** (k // 3)
+        y = freq * h[_swz(c, p)]
+        yv = (freq * freq) * h[_swz(3 + c, p)]
+        s = torch.sin(y + 0.5 * np.pi if f >= half else y)
+        emb[_swz(f, p)] = torch.exp(-0.5 * yv) * s
+    assert h[_swz(6, 0):].isnan().all()  # rows 6.. are the trunk's
+    out = emb[_swz(torch.arange(Ep)[:, None], p)]
+    assert not out.isnan().any() and not out[E:].any()
+    return out
+
+
 def _k4_model(field, odv, z, noise_std, seed, save_semin, desc=None, sem_act=False,
-              sigma_only=False):
+              sigma_only=False, mip=False):
     """K4 as the kernel computes it, from pack_field's and pack_ring's
     buffers alone: chunks of rays, 128-point tiles of two 64-point
     warpgroups, each layer k-slice by k-slice in the ring's order.
     ``sigma_only`` (K1's mode): the tile reads the rays' first 6 columns,
     streams the trunk's layers alone, then the alpha head; only the weights
-    come out right. With
+    come out right. ``mip`` (K9's and K10a's mode): ``odv`` is odvr
+    ``[R, 10]`` and ``z`` fenceposts ``[R, S + 1]``; each warpgroup's
+    prologue is :func:`_mip_prologue` on its intervals' Gaussians, and the
+    chunk's composite is the mip one (maps ``[R, 5]``). With
     ``desc`` (``train_desc`` at the plan's chunk), K3's and K6's storing
     forward (``wg_forward_tile``'s kStore): each warpgroup with a point
     before the chunk's nq also writes emb, demb, every trunk layer's output,
@@ -119,7 +186,7 @@ def _k4_model(field, odv, z, noise_std, seed, save_semin, desc=None, sem_act=Fal
     noise at column 0, the rgb logits at 2.., the semantics at 5..)."""
     buf, fdesc = fr.pack_field(field)
     ring, rd = fr.pack_ring(field)
-    R_, S = z.shape
+    R_, S = z.shape[0], z.shape[1] - int(mip)
     rpc, _ = fr._wg_plan(fdesc, rd, S)
     depth, sem = fdesc.depth, fdesc.sem_dim
     E, Ed = fdesc.emb_dim, fdesc.demb_dim
@@ -164,7 +231,7 @@ def _k4_model(field, odv, z, noise_std, seed, save_semin, desc=None, sem_act=Fal
     maps, weights, sem_in, slices, strips = [], [], [], [], []
     for r0 in range(0, R_, rpc):
         o, zc = odv[r0:r0 + rpc], z[r0:r0 + rpc]
-        nq = zc.numel()
+        nq = zc.shape[0] * S
         strip = torch.zeros(nq, cs)
         semin = torch.zeros(nq, C)
         if desc is not None:
@@ -178,8 +245,11 @@ def _k4_model(field, odv, z, noise_std, seed, save_semin, desc=None, sem_act=Fal
             ws[at:at + rows * fr._KLD].view(rows, fr._KLD)[:, :WG] = x[:rows]
             writes[at:at + rows * fr._KLD].view(rows, fr._KLD)[:, :WG] += 1
 
-        pts = (o[:, None, 0:3] + o[:, None, 3:6] * zc[..., None]).reshape(-1, 3)
-        dirs = None if sigma_only else o[:, None, 6:9].expand(-1, zc.shape[1], 3).reshape(-1, 3)
+        if mip:
+            gauss = torch.cat(cast_rays(zc, o[:, 0:3], o[:, 3:6], o[:, 9:10]), -1).reshape(-1, 6)
+        else:
+            pts = (o[:, None, 0:3] + o[:, None, 3:6] * zc[..., None]).reshape(-1, 3)
+        dirs = None if sigma_only else o[:, None, 6:9].expand(-1, S, 3).reshape(-1, 3)
         for t in range(-(-nq // 128)):
             for wg in range(2):
                 qw = 128 * t + WG * wg
@@ -188,7 +258,11 @@ def _k4_model(field, odv, z, noise_std, seed, save_semin, desc=None, sem_act=Fal
                 qc = q.clamp(max=nq - 1)
                 emb = torch.zeros(Ep, WG)
                 demb = torch.zeros(Edp, WG)
-                emb[:E] = pe(torch.where(live, pts[qc].t(), 0.0), E)
+                if mip:
+                    emb = _mip_prologue(torch.where(live[:, None], gauss[qc], 0.0), E, Ep,
+                                        rd.hrows)
+                else:
+                    emb[:E] = pe(torch.where(live, pts[qc].t(), 0.0), E)
                 if not sigma_only:
                     demb[:Ed] = pe(torch.where(live, dirs[qc].t(), 0.0), Ed)
                 store, sub = desc is not None and qw < nq, qw // WG
@@ -237,11 +311,11 @@ def _k4_model(field, odv, z, noise_std, seed, save_semin, desc=None, sem_act=Fal
                 strip[qc[live], 2:5] = rgb[live]
         strips.append(strip)
         raw = torch.cat([strip[:, 2:5], strip[:, 0:1], strip[:, 5:5 + sem]], 1)
-        raw = raw.view(zc.shape[0], zc.shape[1], -1)
+        raw = raw.view(zc.shape[0], S, -1)
         sigma = raw[..., 3]
         if noise_std > 0:
             sigma = sigma + fr.noise_plain(seed, R_, S, noise_std)[r0:r0 + rpc]
-        m, w = fr._maps(raw, sigma, zc, o[:, 3:6])
+        m, w = (fr._mip_maps if mip else fr._maps)(raw, sigma, zc, o[:, 3:6])
         maps.append(m)
         weights.append(w)
         sem_in.append(semin)
@@ -340,6 +414,134 @@ def test_k1_route_is_the_tile_sigma_only(monkeypatch, depth, sem, coord, s):
     w_j = jfr.fused_coarse_weights_planar(params["coarse"], jnp.asarray(od), jnp.asarray(z), jcfg,
                                           depth=depth, interpret=True)
     np.testing.assert_allclose(model.numpy(), np.asarray(w_j), atol=1e-5, rtol=0)
+
+
+def _mip_nets(depth):
+    """A JAX MipNeRFNet with seeded params and the port's twin holding them,
+    at a tiny width (32, multires 4: a 24-row integrated PE)."""
+    kw = dict(netwidth=32, netdepth=depth, n_samples=8, n_importance=8, multires=4,
+              multires_views=2, use_semantics=False)
+    jcfg = JaxConfig(**kw, fused_field=True)
+    params = jmip.MipNeRFNet(jcfg).init(jax.random.PRNGKey(7))
+    tnet = tmip.MipNeRFNet(TorchConfig(**kw, fused_field=True))
+    tnet.load_state_dict(state_dict_from_jax_params(jax.tree_util.tree_map(np.asarray, params)))
+    return jcfg, params, tnet
+
+
+def _mip_inputs(seed, s):
+    """odvr [R, 10] (origins, directions, unit viewdirs, a 504-pixel view's
+    base radius) and sorted fenceposts [R, s + 1] in [1, 4]."""
+    rng = np.random.default_rng(seed)
+    odvr = rng.normal(size=(R, 10)).astype(np.float32)
+    odvr[:, 0:3] *= 0.3
+    odvr[:, 6:9] = odvr[:, 3:6] / np.linalg.norm(odvr[:, 3:6], axis=1, keepdims=True)
+    odvr[:, 9] = 2.0 / 504 * 2 / np.sqrt(12)
+    z = np.sort(rng.uniform(1, 4, size=(R, s + 1)), 1).astype(np.float32)
+    return odvr, z
+
+
+MIP_CASES = [(4, 0.0, 8), (5, 0.0, 16), (5, 0.6, 7)]  # depth, noise, intervals
+
+
+@pytest.mark.parametrize("depth,noise,s", MIP_CASES)
+def test_k9_k10a_route_is_the_tile_in_mip_mode(monkeypatch, depth, noise, s):
+    """K9 (noise 0) and K10a run K4's kernel in its mip mode: the tile's
+    dataflow with the mip prologue (the Gaussians in h's scratch rows, the
+    swizzled IPE rows, zero pad rows) and the mip composite against the
+    plain versions and the JAX package's kernels (``fused_mip_render_planar``
+    and ``_mip_train_fwd_impl``, Pallas in interpret mode), the mip field's
+    weights bridged from JAX, the noise at a fixed seed, 20 rays in one
+    chunk (160, 320 or 140 intervals: the last 128-point tile is ragged, at
+    16 intervals its second warpgroup lies wholly past them): maps and
+    weights to 1e-5."""
+    monkeypatch.setattr(jfr, "RAY_BLOCK", 8)
+    jcfg, params, tnet = _mip_nets(depth)
+    odvr, z = _mip_inputs(7 * s + depth, s)
+    seed = 1234567
+    field = tnet.mip
+    odvr_t, z_t = torch.from_numpy(odvr), torch.from_numpy(z)
+    with torch.no_grad():
+        model = _k4_model(field, odvr_t, z_t, noise, seed, False, mip=True)
+        if noise == 0.0:
+            want = fr.mip_render_plain(field, odvr_t, z_t)
+        else:
+            want = fr.mip_train_render_plain(field, odvr_t, z_t, noise_std=noise, seed=seed)
+    assert model[2] is None and model[0].shape == (R, 5) and model[1].shape == (R, s)
+    for a, b in zip(model[:2], want):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-5, rtol=0)
+    if noise == 0.0:
+        outs = jfr.fused_mip_render_planar(params["mip"], jnp.asarray(odvr), jnp.asarray(z), jcfg,
+                                           interpret=True)
+    else:
+        ws, bs = jfr._flatten_mlp_params(params["mip"]["mlp"], depth, False)
+        outs = jfr._mip_train_fwd_impl(
+            tuple(ws), tuple(bs), jnp.asarray(odvr), jnp.asarray(z),
+            jnp.full((1, 1), seed, jnp.float32), depth, (4,), jcfg.multires,
+            jcfg.multires_views, "float32", "cone", noise, interpret=True)
+    for a, b in zip(model[:2], outs):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b)[:R], atol=1e-5, rtol=0)
+
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that says it lies on the card: the wrappers take their
+    CUDA branch on it."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+
+def test_mip_wrappers_launch_the_tile_with_a_ring(monkeypatch):
+    """On CUDA tensors fused_mip_render and mip_train_render launch K4's
+    kernel in its mip mode through ``_mip_forward`` (no plain fallback,
+    noise 0 for K9) and count the launch; ``_mip_forward`` calls the
+    library's ``nerf_mip_render`` once with ``_wg_plan``'s chunk and ring
+    stages and ``pack_ring``'s buffer (here on a library that records the
+    call)."""
+    torch.manual_seed(3)
+    field = MipNeRFField(net_depth=5, net_width=32, multires=4, multires_views=2)
+    odvr, z = (torch.from_numpy(a) for a in _mip_inputs(3, 63))
+    seen = []
+
+    def forward(f, o, zz, noise_std, seed):
+        seen.append((f, o, zz, noise_std, seed))
+        return "maps", "weights"
+
+    monkeypatch.setattr(fr, "_mip_forward", forward)
+    card = odvr.as_subclass(_OnCard), z.as_subclass(_OnCard)
+    counts = fr.fused_mip_render.launches, fr.mip_train_render.launches
+    assert fr.fused_mip_render(field, *card) == ("maps", "weights")
+    assert fr.mip_train_render(field, *card, noise_std=1.0, seed=5) == ("maps", "weights")
+    assert (fr.fused_mip_render.launches, fr.mip_train_render.launches) == (
+        counts[0] + 1, counts[1] + 1)
+    assert [s[3:] for s in seen] == [(0.0, 0), (1.0, 5)]
+    assert all(s[0] is field and s[1] is card[0] and s[2] is card[1] for s in seen)
+    monkeypatch.undo()
+
+    calls = []
+
+    class Lib:
+        def nerf_mip_render(self, *a):
+            calls.append(a)
+            return 0
+
+    monkeypatch.setattr(fr._build, "library", Lib)
+    monkeypatch.setattr(fr._build, "stream", lambda device: None)
+    monkeypatch.setattr(fr.torch.cuda, "device", lambda device: contextlib.nullcontext())
+    maps, weights = fr._mip_forward(field, odvr, z, 1.0, 5)
+    assert maps.shape == (R, 5) and weights.shape == (R, 63)
+    (a,) = calls
+    buf, fdesc = fr._packed(field, odvr.device)
+    rbuf, ring = fr._ring(field, odvr.device)
+    rpc, rd = fr._wg_plan(fdesc, ring, 63)
+    assert rpc == 8 and torch.equal(rbuf, fr.pack_ring(field)[0])
+    assert a[:4] == (odvr.data_ptr(), z.data_ptr(), buf.data_ptr(), rbuf.data_ptr())
+    desc, rdesc = a[4]._obj, a[5]._obj
+    assert desc.rays_per_chunk == rpc and desc.f.emb_dim == 24
+    assert bytes(rdesc) == bytes(rd) and rdesc.stages >= 2
+    assert a[6:] == (maps.data_ptr(), weights.data_ptr(), R, 63, fr.noise_seed(5), 1.0, None)
+    with pytest.raises(NotImplementedError):  # no kernel and no plain fallback off the card
+        fr.fused_mip_render(field, odvr.to("meta"), z.to("meta"))
 
 
 def test_ring_repacks_a_changed_layer_only():

@@ -68,8 +68,8 @@ def test_k7_probe_patches_apply_to_the_source(variant):
     assert k7_probe.patch(src, variant) != src
 
 
-@pytest.mark.parametrize("variant", ["fwdonly", "sweepclock", "wgclock", "semclock", "l1clock",
-                                     "l1", "bwdstages6", "nostore", "nocomposite", "epistore",
+@pytest.mark.parametrize("variant", ["fwdonly", "sweepclock", "wgclock", "semclock",
+                                     "bwdstages6", "nostore", "nocomposite", "epistore",
                                      "fwdonly+nostore", "sweepclock+revpoints64"])
 def test_tile_probe_patches_apply_to_the_sources(tmp_path, variant):
     """Each of ``nerfsos_torch/tools/tile_probe.py``'s variants finds the
@@ -85,3 +85,31 @@ def test_tile_probe_patches_apply_to_the_sources(tmp_path, variant):
     if "sweepclock" in variant:
         text = (csrc / "train_sweep.cuh").read_text()
         assert all(f"PROBE_ADD({i}, " in text for i in range(11))
+
+
+def test_tile_probe_wgclock_counts_the_mip_mode(tmp_path):
+    """``wgclock``'s tile-loop counter lands in ``train_render_wg_kernel``,
+    one template over its input modes, so ``--kernel k9`` and ``k10a`` (its
+    mip mode) are counted as K4 is; its ring-wait and k-loop counters in
+    ``wg_tile.cuh``'s one layer function."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC_DIR, csrc)
+    tile_probe._patch("wgclock", str(csrc))
+    kern = (csrc / "train_render.cu").read_text()
+    body = kern[kern.index("    train_render_wg_kernel("):]
+    body = body[:body.index("\n}\n")]
+    assert "composite_chunk<kForward, kMip" in body
+    assert body.count("PROBE_ADD(0, p_start);") == 1 and "p_start = clock64();" in body
+    tile = (csrc / "wg_tile.cuh").read_text()
+    assert all(f"PROBE_ADD({i}, " in tile for i in (1, 3, 4, 5))
+
+
+@pytest.mark.parametrize("variant", ["l1", "l1clock"])
+def test_tile_probe_rejects_the_old_tiles_variants(tmp_path, variant):
+    """The 64-point tile's variants went with the last kernel tile_probe
+    timed on it (K9's and K10a's ``train_render_kernel``): asking for one
+    raises rather than timing an unpatched build."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC_DIR, csrc)
+    with pytest.raises(ValueError, match="unknown variant"):
+        tile_probe._patch(variant, str(csrc))
