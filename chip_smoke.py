@@ -11,8 +11,9 @@ Phases (one line each; any failure raises and the exit code is nonzero):
      source at once (seconds), and print ptxas's register/spill report,
      with [reverse_ptxas]: the reverse-sweep kernel's line in each of its
      four modes, and any wgmma warning (C75xx: serialised wgmma); any such
-     warning (K1/K2/K4/K9's kernel, K5's, the reverse sweep's bwd_layer and
-     wgrad products) fails the run;
+     warning (K1/K2/K4/K9's kernel, K3's, K6's and K10b's forward, the field
+     forwards' kernel, K5's, the reverse sweep's bwd_layer and wgrad
+     products) fails the run;
   2. K1 (fused coarse weights: K4's kernel in its sigma-only mode) vs its
      plain PyTorch version at the flagship width: depth 8, width 256,
      multires 10, 64 samples, 8192 rays, two calls bitwise equal; then at
@@ -111,9 +112,9 @@ Phases (one line each; any failure raises and the exit code is nonzero):
      beside its bound, with ptxas's line for the mip mode ([K9_design]);
  19. [K10a]/[K10b]: the mip train forward (noise 1 from a fixed seed) to
      TOL and two calls bitwise equal, also at 32768 rays a launch as K9;
-     the mip backward on its 4096-ray inputs with seeded map and weight
-     cotangents, every leaf to GRAD_TOL plus its gate allowance, two calls
-     bitwise equal;
+     the mip backward (its forward K6's on K4's tile in the mip mode) on
+     its 4096-ray inputs with seeded map and weight cotangents, every leaf
+     to GRAD_TOL plus its gate allowance, two calls bitwise equal;
  20. [mip_train]: ``run_nerf.main`` with configs/flower_full.txt's flags and
      --mipnerf on the [train] run's 8 views, 30 steps: K10a and K10b twice a
      step, the loss falls, the checkpoints hold the Adam state, the final
@@ -127,12 +128,14 @@ Phases (one line each; any failure raises and the exit code is nonzero):
  22. [mip_step]: the mip train step at 1024 and 16384 rays on the kernel
      and the plain path with peak memory, and its K10a/K10b calls timed
      alone beside their bounds (K10b's with its forward/reverse split and
-     the reverse kernel's ptxas line);
+     the forward's and the reverse kernel's ptxas lines);
  23. [K8]: the field forward (K8b/K8d) with the semantic head and without
      it, the sigma forward (K8a/K8e) and K11 at zero and non-zero
-     covariances vs their plain versions at the flagship width on 2^18
-     points of the x14 density grid's cube: each column to TOL over
-     max(1, its max), and times;
+     covariances (K4's tile in its point-list modes) vs their plain
+     versions at the flagship width on 2^18 points of the x14 density
+     grid's cube: each column to TOL over max(1, its max), two calls
+     bitwise equal, times, and [K8_design]: each mode's ptxas line, ring
+     stages and tiles a CTA;
  24. [K8_bwd]: the field backward at 1024 x 64 points of rays, weights only
      (K8f) and with the points' and directions' gradients (K8c): every leaf
      to GRAD_TOL plus its gate allowance, dpts/ddirs to GRAD_TOL on
@@ -250,6 +253,7 @@ MUFU_LANES_PER_CLOCK = 16
 K1_PTXAS = None
 K4_PTXAS = None
 K9_PTXAS = None
+FIELD_PTXAS = {}  # field_wg_kernel by input mode: kInList 3, kInListSigma 4, kInListGauss 5
 K5_PTXAS = None
 FWD_PTXAS = {}
 REV_PTXAS = {}
@@ -603,10 +607,10 @@ def check_k6(what: str, got, want, slack, terms, kernel: str = "K6") -> dict:
             "grad_err_over_bound": over}
 
 
-# forward_split's ptxas lines: the forward kernel's mode on K4's tile (the
-# 64-point forwards of K10b and the field backward print none) and the
+# forward_split's ptxas lines: the forward kernel's (mode, input mode) on
+# K4's tile (the field backward's 64-point forward prints none) and the
 # reverse-sweep kernel's (kSem, kInGrad)
-SPLIT_PTXAS = {"K3": (1, (0, 0)), "K6": (2, (1, 0)), "K10b": (None, (0, 0)),
+SPLIT_PTXAS = {"K3": ((1, 0), (0, 0)), "K6": ((2, 0), (1, 0)), "K10b": ((2, 2), (0, 0)),
                "K8f": (None, (1, 0)), "K8c": (None, (1, 1))}
 
 
@@ -617,8 +621,9 @@ def forward_split(run, kernel: str) -> dict:
     (each wave's forward kernel and the reduction, no reverse-sweep kernel;
     built once under build/tile_probe/), its time the forward's; the reverse
     sweep's is the whole call's less that. The kernels' own library is put
-    back after. ``forward_ptxas`` (K3: kLoss, K6: kCotangent) and
-    ``reverse_ptxas``: the kernels' ptxas lines."""
+    back after. ``forward_ptxas`` (K3: kLoss, K6: kCotangent, K10b:
+    kCotangent in the mip mode) and ``reverse_ptxas``: the kernels' ptxas
+    lines."""
     from nerfsos_torch import _build
     from nerfsos_torch.tools import tile_probe
 
@@ -2257,14 +2262,28 @@ def scaled_err(got: torch.Tensor, want: torch.Tensor) -> float:
     return float(((got - want).abs() / want.abs().amax(0).clamp(min=1.0)).max())
 
 
+def field_design(ff, field, N: int, mode: int) -> dict:
+    """[K8_design]: the field forward's launch on N points in input mode
+    ``mode`` (FIELD_PTXAS's key): its ring stages and tiles a CTA
+    (``_field_plan``), the CTAs, and ptxas's line for the kernel."""
+    from nerfsos_torch.ops import fused_render as fr
+
+    dev = next(field.parameters()).device
+    per, rd = ff._field_plan(fr._packed(field, dev)[1], fr._ring(field, dev)[1], N,
+                             ff._sm_count(dev), mode != 4)
+    return {"ring_stages": rd.stages, "tiles_per_cta": per, "ctas": -(-N // (128 * per)),
+            "ptxas": repr(FIELD_PTXAS.get(mode))}
+
+
 def kernel_vs_plain_k8(ff) -> dict:
     """[K8] at the flagship width (8 x 256, multires 10/4) on 2^18 points
     uniform in the x14 density grid's cube with random unit directions: the
     field forward with the semantic head (coordinates, sem_dim 2) and
     without it, the sigma forward, and K11 (the flagship mip field) at
     random non-zero and at zero covariances. Each output column to TOL over
-    max(1, its max |plain|) (sigma reaches O(10) at |x| up to 14), and
-    each timed against its plain version with CUDA events."""
+    max(1, its max |plain|) (sigma reaches O(10) at |x| up to 14), two calls
+    bitwise equal, each timed against its plain version with CUDA events,
+    with its launch's [K8_design]."""
     N = FIELD_POINTS
     pts, dirs = grid_points(N, 50), unit_dirs(N, 51)
     out = {}
@@ -2275,9 +2294,12 @@ def kernel_vs_plain_k8(ff) -> dict:
             raise SystemExit(f"{name} disagrees with its plain version ({fields}): "
                              f"max scaled error {err} (tol {TOL})")
         with torch.no_grad():
+            again = run()
+            if not torch.equal(got, again):
+                raise SystemExit(f"{name}'s outputs differ between two calls ({fields})")
             ms, plain_ms = cuda_ms(run), cuda_ms(plain, reps=3)
-        phase("K8", kernel=name, points=N, **fields, max_err_scaled=err, tol=TOL, ms=ms,
-              plain_ms=plain_ms, **cost)
+        phase("K8", kernel=name, points=N, **fields, max_err_scaled=err, tol=TOL,
+              deterministic=True, ms=ms, plain_ms=plain_ms, **cost)
         return {"max_abs_err": max_err(got, want), "ms": ms, "plain_ms": plain_ms, **cost,
                 "library_ms": None}
 
@@ -2289,6 +2311,7 @@ def kernel_vs_plain_k8(ff) -> dict:
         res = check("field forward", got, want, lambda: ff.field_forward(field, pts, dirs),
                     lambda: ff.field_plain(field, pts, dirs), field_cost(field, N, "field"),
                     semantics=sem)
+        phase("K8_design", kernel="field forward", semantics=sem, **field_design(ff, field, N, 3))
         if sem:
             out["field"] = res
             with torch.no_grad():
@@ -2297,6 +2320,7 @@ def kernel_vs_plain_k8(ff) -> dict:
                                  lambda: ff.fused_sigma_apply(field, pts),
                                  lambda: ff.sigma_plain(field, pts),
                                  field_cost(field, N, "sigma"), semantics=sem)
+            phase("K8_design", kernel="sigma forward", **field_design(ff, field, N, 4))
     mip = seeded_mip_field(42)
     g = torch.Generator().manual_seed(52)
     for zero in (False, True):
@@ -2309,6 +2333,7 @@ def kernel_vs_plain_k8(ff) -> dict:
                     zero_cov=zero)
         if zero:
             out["mip"] = res
+    phase("K8_design", kernel="K11", **field_design(ff, mip, N, 5))
     return out
 
 
@@ -2698,9 +2723,13 @@ def main() -> int:
             K5_PTXAS = "; ".join(x.replace("ptxas info    :", "").strip()
                                  for x in lines[i + 2:i + 4])
         if "Compiling entry function" in line and "train_forward_wg_kernel" in line:
-            mode = int(line.split("train_forward_wg_kernelILi")[1][0])  # kLoss 1, kCotangent 2
-            FWD_PTXAS[mode] = "; ".join(x.replace("ptxas info    :", "").strip()
-                                        for x in lines[i + 2:i + 4])
+            # (kLoss 1 or kCotangent 2, kInPoint 0 or kInMip 2)
+            mode, kin = line.split("train_forward_wg_kernelILi")[1].split("ELi")[:2]
+            FWD_PTXAS[(int(mode), int(kin[0]))] = "; ".join(
+                x.replace("ptxas info    :", "").strip() for x in lines[i + 2:i + 4])
+        if "Compiling entry function" in line and "field_wg_kernelILi" in line:
+            FIELD_PTXAS[int(line.split("field_wg_kernelILi")[1][0])] = "; ".join(
+                x.replace("ptxas info    :", "").strip() for x in lines[i + 2:i + 4])
         if "Compiling entry function" in line and "train_reverse_kernel" in line:
             sem, ingrad = line.split("train_reverse_kernelILb")[1].split("ELb")[:2]
             used = next(j for j in range(i, len(lines)) if "Used" in lines[j])
@@ -2716,15 +2745,17 @@ def main() -> int:
         if ("wgmma" in line and "warning" in line) or "(C75" in line:
             serialised.append(line.strip())
     if (K1_PTXAS is None or K4_PTXAS is None or K5_PTXAS is None or K9_PTXAS is None
-            or sorted(FWD_PTXAS) != [1, 2] or len(REV_PTXAS) != 4):
+            or sorted(FWD_PTXAS) != [(1, 0), (2, 0), (2, 2)] or len(REV_PTXAS) != 4
+            or sorted(FIELD_PTXAS) != [3, 4, 5]):
         raise SystemExit("no ptxas report for K1's, K4's and K9's kernel (train_render_wg_kernel "
-                         "in its three input modes), K5's (frozen_sem_kernel), K3's and K6's "
-                         "forward "
-                         "(train_forward_wg_kernel) or the reverse sweep's four modes "
-                         "(train_reverse_kernel)")
-    # every wgmma kernel keeps its pipeline: K1/K2/K4's, K5's, K3's and K6's
-    # forward, and the reverse sweep's bwd_layer and wgrad products (one
-    # inlined call site each, no call in the kernel)
+                         "in its three input modes), K5's (frozen_sem_kernel), K3's, K6's and "
+                         "K10b's forward (train_forward_wg_kernel), the field forwards' three "
+                         "point-list modes (field_wg_kernel) or the reverse sweep's four modes "
+                         f"(train_reverse_kernel): forward {sorted(FWD_PTXAS)}, field "
+                         f"{sorted(FIELD_PTXAS)}")
+    # every wgmma kernel keeps its pipeline: K1/K2/K4's, K5's, K3's, K6's and
+    # K10b's forward, the field forwards', and the reverse sweep's bwd_layer
+    # and wgrad products (one inlined call site each, no call in the kernel)
     if serialised:
         raise SystemExit(f"ptxas serialised wgmma: {serialised}")
     phase("reverse_ptxas", modes={f"kSem={k[0]},kInGrad={k[1]}": v
@@ -2799,6 +2830,7 @@ def main() -> int:
     train_src = "nerfsos_torch/csrc/train_render.cu"
     corr_src = "nerfsos_torch/csrc/flash_corr.cu"
     field_src = "nerfsos_torch/csrc/fused_field.cu"
+    tile_src = "nerfsos_torch/csrc/wg_tile.cuh"  # K4's tile; the field forwards' kernel is in field_src
     field_tpu = "nerfsos_tpu/ops/pallas/fused_field.py"
 
     def main_path_numbers(kernel: str, err: float, timed=parts) -> dict:
@@ -2871,13 +2903,13 @@ def main() -> int:
         # K8c/K8f the field backward's two modes (K8c at 1024 x 64 points,
         # [K8_bwd]: no path asks for the points' gradients); K11 the field
         # forward's integrated-PE mode, at the export's chunks
-        {"name": "K8a fused_sigma_apply", "route": "cuda", "source": field_src,
+        {"name": "K8a fused_sigma_apply", "route": "cuda", "source": tile_src,
          "replaces": f"{field_tpu}:115", "launches": sigma["launches"]["K8e"], **sigma["timed"]},
-        {"name": "K8e fused_sigma_apply (planar twin)", "route": "cuda", "source": field_src,
+        {"name": "K8e fused_sigma_apply (planar twin)", "route": "cuda", "source": tile_src,
          "replaces": f"{field_tpu}:688", "launches": sigma["launches"]["K8e"], **sigma["timed"]},
-        {"name": "K8b field_forward", "route": "cuda", "source": field_src,
+        {"name": "K8b field_forward", "route": "cuda", "source": tile_src,
          "replaces": f"{field_tpu}:68", "launches": vol_launches["classic"], **k8["field"]},
-        {"name": "K8d field_forward (planar twin)", "route": "cuda", "source": field_src,
+        {"name": "K8d field_forward (planar twin)", "route": "cuda", "source": tile_src,
          "replaces": f"{field_tpu}:638", "launches": noimp_launches["K8d"],
          **noimp_parts["K8d"]},
         {"name": "K8c field_grads (input-gradient mode)", "route": "cuda", "source": field_src,
@@ -2885,7 +2917,7 @@ def main() -> int:
         {"name": "K8f field_grads", "route": "cuda", "source": field_src,
          "replaces": f"{field_tpu}:818", "launches": noimp_launches["K8f"],
          **noimp_parts["K8f"]},
-        {"name": "K11 fused_mip_field_apply", "route": "cuda", "source": field_src,
+        {"name": "K11 fused_mip_field_apply", "route": "cuda", "source": tile_src,
          "replaces": f"{field_tpu}:1044", "launches": vol_launches["mip"], **k8["mip"]},
     ]
     print(smi)

@@ -175,11 +175,13 @@ def library() -> ctypes.CDLL:
                                              ctypes.POINTER(ctypes.c_int)]
     lib.nerf_mip_render.argtypes = [vp, vp, vp, vp, train_p, ring_p, vp, vp, i32, i32,
                                     ctypes.c_uint, f32, vp]
-    lib.nerf_mip_train_render_grads.argtypes = [vp, vp, vp, vp, vp, vp, train_p, ring_p, vp, vp,
-                                                vp, i32, i32, i32, i32, ctypes.c_uint, f32, vp]
-    lib.nerf_field_sigma.argtypes = [vp, vp, train_p, vp, ctypes.c_longlong, vp]
-    lib.nerf_field.argtypes = [vp, vp, vp, train_p, vp, ctypes.c_longlong, vp]
-    lib.nerf_mip_field.argtypes = [vp, vp, vp, vp, train_p, vp, ctypes.c_longlong, vp]
+    lib.nerf_mip_train_render_grads.argtypes = [vp, vp, vp, vp, vp, vp, vp, train_p, ring_p,
+                                                ring_p, vp, vp, vp, i32, i32, i32, i32,
+                                                ctypes.c_uint, f32, vp]
+    i64 = ctypes.c_longlong
+    lib.nerf_field_sigma.argtypes = [vp, vp, vp, train_p, ring_p, vp, i64, i32, vp]
+    lib.nerf_field.argtypes = [vp, vp, vp, vp, train_p, ring_p, vp, i64, i32, vp]
+    lib.nerf_mip_field.argtypes = [vp, vp, vp, vp, vp, train_p, ring_p, vp, i64, i32, vp]
     lib.nerf_field_grads.argtypes = [vp, vp, vp, vp, vp, vp, train_p, ring_p, ring_p, vp, vp, vp,
                                      vp, vp, i32, i32, i32, vp]
     lib.geo_row_stats.argtypes = [vp, vp, vp, vp, i32, i32, i32, f32, vp]

@@ -30,94 +30,112 @@
 // the 3xTF32 products; a point moves 24 bytes in and 4 to 24 out (plus its
 // cotangent for the backward), three orders of magnitude below that.
 //
-// The design is the train kernels' (train_sweep.cuh), not a new one:
-//   * the forwards walk 64-point tiles, one CTA of 512 threads a tile at a
-//     time (a grid-stride loop): forward_tile writes the tile's points into
-//     shared memory, forms their PE (the integrated PE of the Gaussians for
-//     K11, ipe_rows, as K9 does) and runs the trunk and the heads on 3xTF32
-//     tensor-core layers; dense_small writes each point's outputs straight
-//     to global memory, masked at N, so a ragged last tile needs no
-//     padding. The sigma forward stops after the alpha head;
+// The design is the train kernels', not a new one:
+//   * the forwards (field_wg_kernel) run K4's 128-point tile (wg_tile.cuh:
+//     two consumer warpgroups of 64 points on wgmma m64nNk8 in 3xTF32, the
+//     weights through a ring of shared-memory stages that one producer
+//     thread fills with bulk copies, setmaxnreg) in its point-list modes:
+//     a CTA takes a run of `per` consecutive tiles (ops/fused_field.py
+//     _field_plan: about one CTA an SM, one wave), point q of a tile is a
+//     row of pts (K11: of the Gaussians' means and covariances, written
+//     straight into h's scratch rows, then their integrated PE as K9 forms
+//     it), seen from a row of dirs. The ring holds the trunk alone for the
+//     sigma forward (the alpha head is a SIMT dot product, as K1's) and
+//     every layer for the field forward. The alpha thread writes sigma to
+//     its column of the output row; the rgb logits and the semantics go to
+//     the tile's strip (3 + sem floats a point, so that a third ring stage
+//     fits beside the flagship's tiles), and each warpgroup copies its 64
+//     points' rows out, masked at N, after its last head;
 //   * the backward is K6's: per wave of 512-point chunks, one a CTA, a
-//     forward kernel recomputes the chunk, storing every activation in the
-//     CTA's workspace slice, and copies g into the planes K6's composite
-//     fills (rgb logits, sigma, semantics; zero in the padding rows and
-//     past N); K6's reverse sweep (train_reverse_kernel) follows, and a
-//     last kernel sums the CTAs' partial dW/db in CTA order, so two calls
-//     give bitwise-equal gradients. The input-gradient mode gathers the
-//     cotangent of the point PE from every layer that reads it and that of
-//     the view PE from the views layer, and runs both back through the PE
-//     (pe_grads), as fused_field.py:454-465 does.
+//     forward kernel recomputes the chunk on the 64-point tile
+//     (train_sweep.cuh forward_tile, its last caller), storing every
+//     activation in the CTA's workspace slice, and copies g into the planes
+//     K6's composite fills (rgb logits, sigma, semantics; zero in the
+//     padding rows and past N); K6's reverse sweep (train_reverse_kernel)
+//     follows, and a last kernel sums the CTAs' partial dW/db in CTA order,
+//     so two calls give bitwise-equal gradients. The input-gradient mode
+//     gathers the cotangent of the point PE from every layer that reads it
+//     and that of the view PE from the views layer, and runs both back
+//     through the PE (pe_grads), as fused_field.py:454-465 does.
 // Precision: the PE phases reach |x| 2^9 rad (7.2e3 at the x14 grid of the
 // density export) and are formed with explicit round-to-nearest operations
 // in the plain version's order, as are the IPE's; accurate sinf/cosf/expf,
 // no fast-math, fp32 throughout.
 
-#include "train_sweep.cuh"
+#include "wg_tile.cuh"
 
 namespace {
 
-// forward_tile's inputs for points: point q of the chunk is row base + q of
-// pts [N, 3] (kGauss: of the Gaussians' means pts and variances cov
-// [N, 3]), seen from row base + q of dirs [N, 3] (null: not read, as by the
-// sigma forward).
-template <bool kGauss>
+// forward_tile's inputs for the field backward's forward: point q of the
+// chunk is row base + q of pts [N, 3], seen from row base + q of dirs.
 struct PointFill {
   const float* pts;
-  const float* cov;
   const float* dirs;
   long long base;
   int nq;
 
-  __device__ __forceinline__ void operator()(float* emb, float* demb, float* g, int q0) const {
+  __device__ __forceinline__ void operator()(float* emb, float* demb, int q0) const {
     for (int t = threadIdx.x; t < 3 * kPts; t += kThreads) {
       const int ch = t / kPts, p = t % kPts, q = q0 + p;
       const bool live = q < nq;
       const size_t i = (size_t)(base + (live ? q : 0)) * 3 + ch;
-      if (kGauss) {
-        g[ch * kLd + p] = live ? pts[i] : 0.f;
-        g[(3 + ch) * kLd + p] = live ? cov[i] : 0.f;
-      } else {
-        emb[ch * kLd + p] = live ? pts[i] : 0.f;
-      }
-      if (dirs != nullptr) demb[ch * kLd + p] = live ? dirs[i] : 0.f;
+      emb[ch * kLd + p] = live ? pts[i] : 0.f;
+      demb[ch * kLd + p] = live ? dirs[i] : 0.f;
     }
   }
 };
 
-// The sigma forward (kHeads = false), the field forward and K11 (kGauss):
-// the CTAs walk the 64-point tiles of N points; point q's outputs go to
-// out[q * oc.cs + ...].
-template <bool kHeads, bool kGauss>
-__global__ void __launch_bounds__(kThreads, 1)
-    field_kernel(const float* __restrict__ pts, const float* __restrict__ cov,
-                 const float* __restrict__ dirs, const float* __restrict__ params,
-                 const __grid_constant__ TrainDesc d, float* __restrict__ out, OutCols oc,
-                 long long N) {
-  extern __shared__ float4 smem4[];
-  float* tile = reinterpret_cast<float*>(smem4);
-  zero_pad_rows(tile, d.f);  // the fill's __syncthreads orders these writes before any read
-  const long long ntiles = (N + kPts - 1) / kPts;
-  for (long long t = blockIdx.x; t < ntiles; t += gridDim.x) {
-    const long long base = t * kPts;
-    const int nq = (int)min((long long)kPts, N - base);
-    forward_tile<false, false, kGauss, kHeads>(PointFill<kGauss>{pts, cov, dirs, base, nq},
-                                               params, d, nullptr, out + base * oc.cs, oc, tile,
-                                               nq, 0, nullptr, 0);
-  }
+// The sigma forward (kInListSigma), the field forward (kInList) and K11
+// (kInListGauss) on K4's tile: CTA b takes the tiles of points [b per 128,
+// (b + 1) per 128) of the N (the ring's weights for each), point q's
+// outputs to row q of out [N, C].
+template <int kIn>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    field_wg_kernel(const float* __restrict__ pts, const float* __restrict__ cov,
+                    const float* __restrict__ dirs, const float* __restrict__ params,
+                    const float* __restrict__ ring, const __grid_constant__ TrainDesc d,
+                    const __grid_constant__ RingDesc rd, float* __restrict__ out, int C,
+                    long long N, int per) {
+  extern __shared__ __align__(128) unsigned char wg_raw[];
+  const WgCta cta = wg_cta(wg_raw, d.f, rd);
+  const long long base = (long long)blockIdx.x * per * kWgTile;
+  const int nq = (int)min((long long)per * kWgTile, N - base);
+  const int ntiles = (nq + kWgTile - 1) / kWgTile;
+  __syncthreads();
+  if (!wg_consumer(ring, d.f, rd, cta.rg, ntiles, kIn != kInListSigma)) return;
+  float* mine = cta.tiles + (threadIdx.x >> 7) * cta.per_wg;
+  const PointList pl{pts + base * 3, cov ? cov + base * 3 : nullptr,
+                     dirs ? dirs + base * 3 : nullptr, out + base * C, C};
+  int pos = 0;
+  for (int tile = 0; tile < ntiles; ++tile)
+    pos = wg_forward_tile<false, false, kIn>(nullptr, nullptr, 0, 1, nq, tile, params, d, rd,
+                                             cta.rg, pos, mine, cta.strip, nullptr, 0, nullptr,
+                                             pl);
 }
 
-template <bool kHeads, bool kGauss>
+// shared memory of field_wg_kernel: the ring's barriers and stages, two
+// warpgroups' emb, demb and h tiles, and (heads) the tile's strip of 3 + sem
+// floats a point; ops/fused_field.py _field_smem computes the same
+int field_smem(const TrainDesc* d, const RingDesc* rd, bool heads) {
+  const MLPDesc& f = d->f;
+  const size_t rows = (f.emb_dim + 7) / 8 * 8 + (f.demb_dim + 7) / 8 * 8 + rd->hrows;
+  const size_t strip = heads ? (size_t)kWgTile * (3 + f.sem_dim) : 0;
+  return (int)(128 + ((size_t)rd->stages * rd->stage_floats + 2 * rows * kWgPts + strip) *
+                         sizeof(float));
+}
+
+// One launch of field_wg_kernel<kIn> over N > 0 points, `per` tiles a CTA.
+template <int kIn>
 int field_launch(const float* pts, const float* cov, const float* dirs, const float* params,
-                 const TrainDesc* d, float* out, OutCols oc, long long N, cudaStream_t st) {
-  const int smem = tile_smem(d->f);
-  cudaError_t err = cudaFuncSetAttribute(field_kernel<kHeads, kGauss>,
+                 const float* ring, const TrainDesc* d, const RingDesc* rd, float* out, int C,
+                 long long N, int per, cudaStream_t st) {
+  const int smem = field_smem(d, rd, kIn != kInListSigma);
+  cudaError_t err = cudaFuncSetAttribute(field_wg_kernel<kIn>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const long long ntiles = (N + kPts - 1) / kPts;
-  const int grid = (int)(ntiles < (1 << 20) ? ntiles : (1 << 20));
-  field_kernel<kHeads, kGauss><<<grid, kThreads, smem, st>>>(pts, cov, dirs, params, *d, out, oc,
-                                                             N);
+  const long long span = (long long)per * kWgTile, grid = (N + span - 1) / span;
+  field_wg_kernel<kIn><<<(unsigned)grid, kWgThreads, smem, st>>>(pts, cov, dirs, params, ring, *d,
+                                                                 *rd, out, C, N, per);
   return (int)cudaGetLastError();
 }
 
@@ -144,9 +162,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const long long base = (long long)c * rpc;
   const int nq = min(rpc, N - c * rpc), nsub = (nq + kPts - 1) / kPts;
   for (int sub = 0; sub < nsub; ++sub)
-    forward_tile<true, kSem, false, true>(PointFill<false>{pts, nullptr, dirs, base, nq}, params,
-                                          d, ws, nullptr, OutCols{0, 0, 0, 0}, tile, nq, sub,
-                                          nullptr, 0);
+    forward_tile<kSem>(PointFill{pts, dirs, base, nq}, params, d, ws, tile, sub);
   const int sem = d.f.sem_dim, C = 4 + sem;
   const int p_dsem = P_ACT0 + d.f.depth + 1, p_gemb = P_ACT0 + d.f.depth + 3;
   for (int e = threadIdx.x; e < nsub * 8 * kPts; e += kThreads) {
@@ -198,28 +214,33 @@ int field_grads_launch(const float* pts, const float* dirs, const float* g, cons
 
 }  // namespace
 
-// K8a/K8e: sigma [N] of pts [N, 3]; one launch.
-extern "C" int nerf_field_sigma(const float* pts, const float* params, const TrainDesc* d,
-                                float* sigma, long long N, void* stream) {
-  return field_launch<false, false>(pts, nullptr, nullptr, params, d, sigma, OutCols{1, 0, 0, 0},
-                                    N, (cudaStream_t)stream);
+// K8a/K8e: sigma [N] of pts [N, 3], the trunk's weights from ring (ops/
+// fused_render.pack_ring) as rd describes, `per` 128-point tiles a CTA; one
+// launch.
+extern "C" int nerf_field_sigma(const float* pts, const float* params, const float* ring,
+                                const TrainDesc* d, const RingDesc* rd, float* sigma,
+                                long long N, int per, void* stream) {
+  return field_launch<kInListSigma>(pts, nullptr, nullptr, params, ring, d, rd, sigma, 1, N, per,
+                                    (cudaStream_t)stream);
 }
 
 // K8b/K8d: raw [N, 4 + sem] (rgb logits, sigma, semantics) of pts and
-// dirs [N, 3]; one launch.
+// dirs [N, 3], every layer's weights from ring as rd describes; one launch.
 extern "C" int nerf_field(const float* pts, const float* dirs, const float* params,
-                          const TrainDesc* d, float* raw, long long N, void* stream) {
-  return field_launch<true, false>(pts, nullptr, dirs, params, d, raw,
-                                   OutCols{4 + d->f.sem_dim, 3, 0, 4}, N, (cudaStream_t)stream);
+                          const float* ring, const TrainDesc* d, const RingDesc* rd, float* raw,
+                          long long N, int per, void* stream) {
+  return field_launch<kInList>(pts, nullptr, dirs, params, ring, d, rd, raw, 4 + d->f.sem_dim, N,
+                               per, (cudaStream_t)stream);
 }
 
 // K11: raw [N, 4] of the mip field at the Gaussians (mean, diagonal cov
 // [N, 3]) seen from dirs [N, 3]; one launch.
 extern "C" int nerf_mip_field(const float* mean, const float* cov, const float* dirs,
-                              const float* params, const TrainDesc* d, float* raw, long long N,
+                              const float* params, const float* ring, const TrainDesc* d,
+                              const RingDesc* rd, float* raw, long long N, int per,
                               void* stream) {
-  return field_launch<true, true>(mean, cov, dirs, params, d, raw, OutCols{4, 3, 0, 4}, N,
-                                  (cudaStream_t)stream);
+  return field_launch<kInListGauss>(mean, cov, dirs, params, ring, d, rd, raw, 4, N, per,
+                                    (cudaStream_t)stream);
 }
 
 // K8f (dpts null) and K8c: the field's dW/db from g [N, 4 + sem] into grads

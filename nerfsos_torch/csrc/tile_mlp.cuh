@@ -1,8 +1,10 @@
 // Device building blocks shared by the train kernels (train_render.cu) and
-// the field kernels (fused_field.cu): the packed-layer descriptor,
-// the 3xTF32 tensor-core dense layer over a 64-point tile, the few-output
-// SIMT head, the in-kernel positional encoding and mip-NeRF's cone-frustum
-// Gaussians with their integrated positional encoding.
+// the field kernels (fused_field.cu): the packed-layer descriptor, the
+// 3xTF32 tensor-core dense layer over a 64-point tile on mma.sync (dense();
+// its last user is the field backward's forward, train_sweep.cuh
+// forward_tile), the in-kernel positional encoding of such a tile and
+// mip-NeRF's cone-frustum Gaussians (frustum_gauss, which K4's tile builds
+// in its mip mode).
 //
 // Activations are feature-major tiles: [feature][point], row stride kLd
 // floats, 64 points a tile. A layer reads up to three input segments in
@@ -145,14 +147,9 @@ __device__ __forceinline__ void mma_stage(float (&acc)[2][kTilesN][4], const Sta
 // the TF32 high/low parts of W^T split on the host. Warp w owns points
 // 32 (w & 1) .. +32 and the n8 tiles w/2 + kWarpsN j; k steps of 8 are
 // pipelined two deep (the next step's loads are in flight during this
-// step's mma). kGate: the relu derivative of a stored activation,
-// out[n][p] = gate[n][p] > 0 ? v : 0 (the reverse sweep's dY * [act > 0]).
-// kAccum: out's old value is added to v before the gate (a second product
-// into the same cotangent).
-template <bool kGate = false, bool kAccum = false>
+// step's mma).
 __device__ __forceinline__ void dense(const float* __restrict__ params, const LayerDesc L,
-                                      Seg s0, Seg s1, Seg s2, float* out, bool relu,
-                                      const float* gate = nullptr) {
+                                      Seg s0, Seg s1, Seg s2, float* out, bool relu) {
   const int ldn = pad8(L.n), ntiles = ldn / 8;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -179,8 +176,7 @@ __device__ __forceinline__ void dense(const float* __restrict__ params, const La
       load_stage(st0, ks + 2, s0, s1, s2, n1, n2, whi, wlo, ldn, ntiles, m0, wn, g, t);
     mma_stage(acc, st1, ntiles, wn);
   }
-  // epilogue in two passes: bias, relu and gate in registers (the gate loads
-  // are not ordered behind any store, so they overlap), then the stores
+  // epilogue in two passes: bias and relu in registers, then the stores
   const float* __restrict__ bias = params + L.b;
 #pragma unroll
   for (int j = 0; j < kTilesN; ++j) {
@@ -196,21 +192,9 @@ __device__ __forceinline__ void dense(const float* __restrict__ params, const La
         v[1] += b1;
         v[2] += b0;
         v[3] += b1;
-        if (kAccum) {
-          v[0] += out[n * kLd + p];
-          v[1] += out[(n + 1) * kLd + p];
-          v[2] += out[n * kLd + p + 8];
-          v[3] += out[(n + 1) * kLd + p + 8];
-        }
         if (relu) {
 #pragma unroll
           for (int i = 0; i < 4; ++i) v[i] = fmaxf(v[i], 0.f);
-        }
-        if (kGate) {
-          v[0] = gate[n * kLd + p] > 0.f ? v[0] : 0.f;
-          v[1] = gate[(n + 1) * kLd + p] > 0.f ? v[1] : 0.f;
-          v[2] = gate[n * kLd + p + 8] > 0.f ? v[2] : 0.f;
-          v[3] = gate[(n + 1) * kLd + p + 8] > 0.f ? v[3] : 0.f;
         }
       }
     }
@@ -229,26 +213,6 @@ __device__ __forceinline__ void dense(const float* __restrict__ params, const La
         out[(n + 1) * kLd + p + 8] = acc[mt][j][3];
       }
     }
-  }
-}
-
-// Few-output head: thread (p, g) computes outputs g, g + 8, ... of point p and
-// writes them to strip[(q0 + p) * cs + c0 + n] for valid points.
-__device__ void dense_small(const float* __restrict__ params, const LayerDesc L, Seg s0,
-                            Seg s1, Seg s2, float* strip, int q0, int nq, int cs, int c0) {
-  const int p = threadIdx.x % kPts;
-  const int N = L.n, ldn = pad8(L.n);
-  const Seg segs[3] = {s0, s1, s2};
-  for (int n = threadIdx.x / kPts; n < N; n += kThreads / kPts) {
-    float acc = 0.f;
-    const float* __restrict__ wcol = params + L.w + n;
-#pragma unroll
-    for (int sg = 0; sg < 3; ++sg) {
-      const float* a = segs[sg].a;
-      const int K = segs[sg].k;
-      for (int k = 0; k < K; ++k, wcol += ldn) acc = fmaf(a[k * kLd + p], __ldg(wcol), acc);
-    }
-    if (q0 + p < nq) strip[(q0 + p) * cs + c0 + n] = acc + __ldg(params + L.b + n);
   }
 }
 
@@ -295,24 +259,6 @@ __device__ __forceinline__ void frustum_gauss(const float* ray, float t0, float 
   const float dd = __fmul_rn(ray[3 + c], ray[3 + c]);
   mean = __fadd_rn(ray[c], __fmul_rn(ray[3 + c], t_mean));
   var = __fadd_rn(__fmul_rn(t_var, dd), __fmul_rn(r_var, __fsub_rn(1.f, __fdiv_rn(dd, d_mag_sq))));
-}
-
-// Rows 0 .. rows-1 (rows = 6 multires) of an integrated-PE buffer from the
-// Gaussians' means (rows 0-2 of g) and variances (rows 3-5): row 3 b + c
-// holds exp(-var_c 4^b / 2) sin(2^b mean_c) and row 3 multires + 3 b + c
-// the same of sin(2^b mean_c + pi/2), the column order of
-// core/encoding.py's integrated_positional_encoding (no raw-input rows).
-__device__ void ipe_rows(float* buf, const float* g, int rows) {
-  const int half = rows / 2;
-  for (int t = threadIdx.x; t < rows * kPts; t += kThreads) {
-    const int f = t / kPts, p = t % kPts;
-    const int k = f % half, c = k % 3;
-    const float freq = ldexpf(1.f, k / 3);
-    const float y = __fmul_rn(freq, g[c * kLd + p]);
-    const float yv = __fmul_rn(__fmul_rn(freq, freq), g[(3 + c) * kLd + p]);
-    const float s = sinf(f >= half ? __fadd_rn(y, 1.57079632679489661923f) : y);
-    buf[f * kLd + p] = __fmul_rn(expf(__fmul_rn(-0.5f, yv)), s);
-  }
 }
 
 }  // namespace

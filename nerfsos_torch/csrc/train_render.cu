@@ -187,13 +187,15 @@
 //        fenceposts z [R, S + 1] -> maps [R, 5] (w·rgb x3, w·mid, w) and
 //        w [R, S];
 //   K10a _mip_train_fwd_impl -> _mip_train_kernel: the same with the noise;
-//   K10b _mip_train_bwd -> _mip_train_bwd_kernel: K6's reverse sweep
-//        without the semantic head after the 64-point storing forward
-//        (train_forward_kernel, train_sweep.cuh forward_tile in its kIpe mode),
-//        from dmaps [R, 5] and dweights [R, S].
+//   K10b _mip_train_bwd -> _mip_train_bwd_kernel: K6's kernels without the
+//        semantic head in their mip mode (the storing forward
+//        train_forward_wg_kernel<kCotangent, kInMip> on K4's tile, the mip
+//        composite's reverse, the reverse sweep), from dmaps [R, 5] and
+//        dweights [R, S].
 // K9 and K10a are K4's kernel in its mip mode (train_render_wg_kernel<kInMip>,
 // wg_tile.cuh: 128-point tiles, two consumer warpgroups on wgmma 3xTF32, the
-// trunk's, feature's and views' weights through the TMA ring). A point is an
+// trunk's, feature's and views' weights through the TMA ring), and K10b's
+// forward is K6's storing forward in the same mode. A point is an
 // interval (t0, t1) of its ray. The tile's prologue builds the cone
 // frustum's diagonal Gaussian per point (tile_mlp.cuh frustum_gauss, the
 // stable closed forms, one rounding per operation so the means are the
@@ -234,33 +236,6 @@ __device__ __forceinline__ float hash_noise(uint32_t seed, uint32_t idx, float s
   return (std * r) * cosf(6.28318530717958f * u2);
 }
 
-// K10b's forward_tile inputs for a chunk of rays (rays r0.., S intervals a
-// ray, nq points): point q is the cone-frustum Gaussian of interval
-// (z[s], z[s + 1]) of ray r0 + r (r = q / S, s = q % S; frustum_gauss),
-// seen from the ray's viewdir.
-struct MipFill {
-  const float* rays;  // odvr [R, 10]
-  const float* zc;    // the chunk's fenceposts [nr][S + 1]
-  int r0, S, nq;
-
-  __device__ __forceinline__ void operator()(float* emb, float* demb, float* g, int q0) const {
-    for (int t = threadIdx.x; t < 3 * kPts; t += kThreads) {
-      const int ch = t / kPts, p = t % kPts, q = q0 + p;
-      float m = 0.f, cv = 0.f, v = 0.f;
-      if (q < nq) {
-        const int r = q / S, s = q % S;
-        const float* ray = rays + (size_t)(r0 + r) * 10;
-        const float* zr = zc + (size_t)r * (S + 1);
-        frustum_gauss(ray, zr[s], zr[s + 1], ch, m, cv);
-        v = ray[6 + ch];
-      }
-      g[ch * kLd + p] = m;
-      g[(3 + ch) * kLd + p] = cv;
-      demb[ch * kLd + p] = v;
-    }
-  }
-};
-
 // What the composite does after the maps: kForward (K4) nothing; kLoss
 // (K3) the img2mse cotangent from gt and its reverse; kCotangent (K6) the
 // reverse of the given map and weight cotangents.
@@ -274,9 +249,10 @@ enum Mode { kForward, kLoss, kCotangent };
 // (pre-sigmoid) and, for kCotangent, d_sem per point. kMip: odv is odvr
 // [R, 10] and zc fenceposts [nr][S + 1]; an interval's distance is
 // (t1 - t0)·‖d‖ with no far pad and its depth the midpoint (t0 + t1) / 2.
-// kThr: the threads that run it (threads 0 .. kThr - 1 of the CTA). kCols:
-// the floats of a ray of odv (K1: od [R, 6]).
-template <int kMode, bool kMip = false, int kThr = kThreads, int kCols = kMip ? 10 : 9>
+// The two consumer warpgroups of K4's tile run it (threads 0 ..
+// kWgConsumers - 1 of the CTA). kCols: the floats of a ray of odv (K1: od
+// [R, 6]).
+template <int kMode, bool kMip = false, int kCols = kMip ? 10 : 9>
 __device__ __forceinline__ void composite_chunk(const float* __restrict__ odv, const float* zc,
                                                 const float* __restrict__ aux,
                                                 const float* __restrict__ dweights,
@@ -287,7 +263,7 @@ __device__ __forceinline__ void composite_chunk(const float* __restrict__ odv, c
                                                 float noise_std, int white_bkgd) {
   const int sem = d.f.sem_dim, cs = 6 + sem, nmaps = 5 + sem, nq = nr * S;
   const int p_dsem = P_ACT0 + d.f.depth + 1;
-  for (int rl = threadIdx.x; rl < nr; rl += kThr) {
+  for (int rl = threadIdx.x; rl < nr; rl += kWgConsumers) {
     const float* ray = odv + (size_t)(r0 + rl) * kCols;
     const float nd = sqrtf(ray[3] * ray[3] + ray[4] * ray[4] + ray[5] * ray[5]);
     const float* zr = zc + (size_t)rl * (kMip ? S + 1 : S);
@@ -377,7 +353,7 @@ __device__ __forceinline__ void composite_chunk(const float* __restrict__ odv, c
       }
     }
   }
-  for (int q = nq + threadIdx.x; kMode != kForward && q < nsub * kPts; q += kThr) {
+  for (int q = nq + threadIdx.x; kMode != kForward && q < nsub * kPts; q += kWgConsumers) {
     const int sub = q / kPts, p = q % kPts;  // the last tile's tail
     plane(ws, d, P_DSIG, sub)[p] = 0.f;
     float* dr = plane(ws, d, P_DRGB, sub);
@@ -385,65 +361,24 @@ __device__ __forceinline__ void composite_chunk(const float* __restrict__ odv, c
     if (kMode == kCotangent)
       for (int j = 0; j < sem; ++j) plane(ws, d, p_dsem, sub)[j * kLd + p] = 0.f;
   }
-  if (kThr == kThreads) __syncthreads();
 }
 
 // The padding rows of the cotangent planes of a workspace slice, which
 // nothing else writes (rows 3-7 of P_DRGB, 1-7 of P_DSIG, sem.. 7 of d_sem),
-// zeroed for the rays_per_chunk * S points of a chunk by kThr threads.
-template <int kMode, int kThr>
+// zeroed for the rays_per_chunk * S points of a chunk by the CTA's threads.
+template <int kMode>
 __device__ __forceinline__ void zero_cotangent_padding(float* ws, const TrainDesc& d, int S) {
   for (int sub = 0; sub < (d.rays_per_chunk * S + kPts - 1) / kPts; ++sub) {
     float* r = plane(ws, d, P_DRGB, sub);
     float* s = plane(ws, d, P_DSIG, sub);
-    for (int i = threadIdx.x; i < 5 * kLd; i += kThr) r[3 * kLd + i] = 0.f;
-    for (int i = threadIdx.x; i < 7 * kLd; i += kThr) s[kLd + i] = 0.f;
+    for (int i = threadIdx.x; i < 5 * kLd; i += kWgThreads) r[3 * kLd + i] = 0.f;
+    for (int i = threadIdx.x; i < 7 * kLd; i += kWgThreads) s[kLd + i] = 0.f;
     if (kMode == kCotangent && d.f.sem_dim > 0) {
       float* m = plane(ws, d, P_ACT0 + d.f.depth + 1, sub);
-      for (int i = threadIdx.x; i < (8 - d.f.sem_dim) * kLd; i += kThr)
+      for (int i = threadIdx.x; i < (8 - d.f.sem_dim) * kLd; i += kWgThreads)
         m[d.f.sem_dim * kLd + i] = 0.f;
     }
   }
-}
-
-// K10b's wave `wave` of the forward on the 64-point tile: CTA b takes chunk
-// wave * gridDim.x + b into its workspace slice b (at the planes of d,
-// group_desc's for its place in a group of `group` forward waves, which
-// zero the cotangent planes' padding rows in the first group): every
-// activation of the reverse sweep, then the composite (kCotangent: dsigma
-// and drgb from dmaps = aux and dweights). odv is odvr [R, 10] and z
-// fenceposts [R, S + 1]. K3 and K6 take train_forward_wg_kernel instead.
-template <int kMode>
-__global__ void __launch_bounds__(kThreads, 1)
-    train_forward_kernel(const float* __restrict__ odv, const float* __restrict__ z,
-                         const float* __restrict__ aux, const float* __restrict__ dweights,
-                         const float* __restrict__ params, const __grid_constant__ TrainDesc d,
-                         float* __restrict__ maps, float* __restrict__ weights,
-                         float* __restrict__ workspace, int R, int S, int wave, int group,
-                         unsigned seed, float noise_std, int white_bkgd) {
-  extern __shared__ float4 smem4[];
-  const int rpc = d.rays_per_chunk;
-  const int c = wave * gridDim.x + blockIdx.x;
-  if (c * rpc >= R) return;
-  float* strip = reinterpret_cast<float*>(smem4);
-  float* tile = strip + ((rpc * S * (6 + d.f.sem_dim) + 3) & ~3);  // emb, demb, hA, hB
-  float* ws = workspace + (size_t)blockIdx.x * d.ws_size;
-  zero_pad_rows(tile, d.f);
-  if (wave < group) zero_cotangent_padding<kMode, kThreads>(ws, d, S);
-  __syncthreads();
-  const int r0 = c * rpc, nr = min(rpc, R - r0), nq = nr * S;
-  const int nsub = (nq + kPts - 1) / kPts;
-  const float* zc = z + (size_t)r0 * (S + 1);
-
-  // ---- forward, storing every activation the reverse sweep reads
-  for (int sub = 0; sub < nsub; ++sub)
-    forward_tile<true, kMode == kCotangent, true, true>(
-        MipFill{odv, zc, r0, S, nq}, params, d, ws, strip, OutCols{6 + d.f.sem_dim, 0, 2, 5},
-        tile, nq, sub, nullptr, 0);
-
-  // ---- composite, maps, the cotangent and its reverse: one thread a ray
-  composite_chunk<kMode, true>(odv, zc, aux, dweights, d, ws, strip, maps, weights, r0, nr, S,
-                               nsub, seed, noise_std, white_bkgd);
 }
 
 // K4: CTA b takes chunk b (d.rays_per_chunk rays, nq points) in tiles of
@@ -481,7 +416,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     pos = wg_forward_tile<false, false, kIn>(odv, zc, r0, S, nq, tile, params, d, rd, cta.rg, pos,
                                              mine, strip, semin, (long long)r0 * S, nullptr);
   asm volatile("bar.sync 3, %0;\n" ::"n"(kWgConsumers) : "memory");  // the strip is whole
-  composite_chunk<kForward, kMip, kWgConsumers, kIn == kInSigma ? 6 : kMip ? 10 : 9>(
+  composite_chunk<kForward, kMip, kIn == kInSigma ? 6 : kMip ? 10 : 9>(
       odv, zc, nullptr, nullptr, d, nullptr, strip, maps, weights, r0, nr, S, 0, seed, noise_std,
       0);
 }
@@ -491,11 +426,15 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 // (threads, registers and shared memory as train_render_wg_kernel's) and
 // writes every activation the reverse sweep reads into its workspace slice
 // b, sub 2 t + w for warpgroup w of tile t (wg_forward_tile's kStore) of
-// d's planes (group_desc's, as train_forward_kernel's); then
-// the consumers composite the chunk (kLoss: maps, weights, dsigma and drgb
-// from gt = aux; kCotangent: dsigma, drgb and d_sem from dmaps = aux and
-// dweights). train_reverse_kernel then sweeps the slice.
-template <int kMode>
+// d's planes (group_desc's for its place in a group of `group` forward
+// waves, which zero the cotangent planes' padding rows in the first
+// group); then the consumers composite the chunk (kLoss: maps, weights,
+// dsigma and drgb from gt = aux; kCotangent: dsigma, drgb and d_sem from
+// dmaps = aux and dweights). K10b (kCotangent, kIn kInMip): odv is odvr
+// [R, 10] and z fenceposts [R, S + 1], the tiles start from the intervals'
+// Gaussians and their integrated PE, and the composite is the mip one.
+// train_reverse_kernel then sweeps the slice.
+template <int kMode, int kIn = kInPoint>
 __global__ void __launch_bounds__(kWgThreads, 1)
     train_forward_wg_kernel(const float* __restrict__ odv, const float* __restrict__ z,
                             const float* __restrict__ aux, const float* __restrict__ dweights,
@@ -505,6 +444,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
                             float* __restrict__ weights, float* __restrict__ workspace, int R,
                             int S, int wave, int group, unsigned seed, float noise_std,
                             int white_bkgd) {
+  constexpr bool kMip = kIn == kInMip;
   extern __shared__ __align__(128) unsigned char wg_raw[];
   const int rpc = d.rays_per_chunk, c = wave * gridDim.x + blockIdx.x;
   if (c * rpc >= R) return;
@@ -512,19 +452,20 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   float* ws = workspace + (size_t)blockIdx.x * d.ws_size;
   const int r0 = c * rpc, nr = min(rpc, R - r0), nq = nr * S;
   const int ntiles = (nq + kWgTile - 1) / kWgTile, nsub = (nq + kPts - 1) / kPts;
-  if (wave < group) zero_cotangent_padding<kMode, kWgThreads>(ws, d, S);
+  if (wave < group) zero_cotangent_padding<kMode>(ws, d, S);
   __syncthreads();
   if (!wg_consumer(ring, d.f, rd, cta.rg, ntiles)) return;
   float* mine = cta.tiles + (threadIdx.x >> 7) * cta.per_wg;
   float* strip = cta.strip;
-  const float* zc = z + (size_t)r0 * S;
+  const float* zc = z + (size_t)r0 * (kMip ? S + 1 : S);
   int pos = 0;
   for (int tile = 0; tile < ntiles; ++tile)
-    pos = wg_forward_tile<true, kMode == kCotangent>(odv, zc, r0, S, nq, tile, params, d, rd,
-                                                     cta.rg, pos, mine, strip, nullptr, 0, ws);
+    pos = wg_forward_tile<true, kMode == kCotangent, kIn>(odv, zc, r0, S, nq, tile, params, d,
+                                                          rd, cta.rg, pos, mine, strip, nullptr,
+                                                          0, ws);
   asm volatile("bar.sync 3, %0;\n" ::"n"(kWgConsumers) : "memory");  // the strip is whole
-  composite_chunk<kMode, false, kWgConsumers>(odv, zc, aux, dweights, d, ws, strip, maps, weights,
-                                              r0, nr, S, nsub, seed, noise_std, white_bkgd);
+  composite_chunk<kMode, kMip>(odv, zc, aux, dweights, d, ws, strip, maps, weights, r0, nr, S,
+                               nsub, seed, noise_std, white_bkgd);
 }
 
 // K5: the semantic head's weight gradients for a frozen backbone, on a
@@ -963,17 +904,8 @@ __global__ void __cluster_dims__(kSemRanks, 1, 1) __launch_bounds__(kSemThreads,
   cluster_sync();  // no CTA exits while a peer may still signal it
 }
 
-// shared memory of the 64-point forward (K10b's, train_forward_kernel): the
-// chunk's composite strip, then emb, demb and two layer tiles;
-// ops/fused_render.py _forward_smem computes the same
-int forward_smem(const TrainDesc* d, int S) {
-  return (int)((((size_t)d->rays_per_chunk * S * (6 + d->f.sem_dim) + 3) / 4 * 4) *
-               sizeof(float)) +
-         tile_smem(d->f);
-}
-
-// shared memory of train_render_wg_kernel (K4, K2, K1, K9, K10a) and of K3's
-// and K6's forward (train_forward_wg_kernel); ops/fused_render.py _wg_smem
+// shared memory of train_render_wg_kernel (K4, K2, K1, K9, K10a) and of K3's,
+// K6's and K10b's forward (train_forward_wg_kernel); ops/fused_render.py _wg_smem
 // computes the same
 int wg_smem(const TrainDesc* d, const RingDesc* rd, int S) {
   const MLPDesc& f = d->f;
@@ -1085,31 +1017,23 @@ namespace {
 
 // grid CTAs (each with a d->ws_size workspace slice and a d->grad_size partial
 // gradient buffer) take the chunks of rays in waves of `group` forward
-// waves of grid chunks: per wave the forward kernel of each (K3, K6:
-// train_forward_wg_kernel on K4's tile, with the ring of ring and rd;
-// kMip, K10b: train_forward_kernel), chunk j of the group into sub j nsf ..
-// of the slice's planes (group_desc), then one reverse-sweep kernel over
-// the group's chunks (its input-gradient products' matrices from the
-// backward ring bring as brd describes); then the partials are summed into
-// grads [d->grad_size]. Returns the first CUDA error of the launches.
-template <int kMode, bool kSem, bool kMip = false>
+// waves of grid chunks: per wave the forward kernel of each
+// (train_forward_wg_kernel<kMode, kIn> on K4's tile, with the ring of ring
+// and rd; kIn kInMip for K10b), chunk j of the group into sub j nsf .. of
+// the slice's planes (group_desc), then one reverse-sweep kernel over the
+// group's chunks (its input-gradient products' matrices from the backward
+// ring bring as brd describes); then the partials are summed into grads
+// [d->grad_size]. Returns the first CUDA error of the launches.
+template <int kMode, bool kSem, int kIn = kInPoint>
 int train_grads(const float* odv, const float* z, const float* aux, const float* dweights,
                 const float* params, const float* ring, const float* bring,
                 const TrainDesc* d, const RingDesc* rd, const RingDesc* brd, float* maps,
                 float* weights, float* partial, float* workspace, float* grads, int R, int S,
                 int grid, int group, unsigned seed, float noise_std, int white_bkgd,
                 cudaStream_t st) {
-  int fwd_smem;
-  cudaError_t err;
-  if constexpr (kMip) {
-    fwd_smem = forward_smem(d, S);
-    err = cudaFuncSetAttribute(train_forward_kernel<kMode>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, fwd_smem);
-  } else {
-    fwd_smem = wg_smem(d, rd, S);
-    err = cudaFuncSetAttribute(train_forward_wg_kernel<kMode>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, fwd_smem);
-  }
+  const int fwd_smem = wg_smem(d, rd, S);
+  cudaError_t err = cudaFuncSetAttribute(train_forward_wg_kernel<kMode, kIn>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, fwd_smem);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(train_reverse_kernel<kSem>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, kReverseSmem);
@@ -1117,16 +1041,9 @@ int train_grads(const float* odv, const float* z, const float* aux, const float*
   const long long nchunks = (R + d->rays_per_chunk - 1) / d->rays_per_chunk;
   for (int wave = 0; (long long)wave * group * grid < nchunks; ++wave) {
     for (int j = 0; j < group && (long long)(wave * group + j) * grid < nchunks; ++j) {
-      const TrainDesc dj = group_desc(*d, j, S);
-      if constexpr (kMip) {
-        train_forward_kernel<kMode><<<grid, kThreads, fwd_smem, st>>>(
-            odv, z, aux, dweights, params, dj, maps, weights, workspace, R, S, wave * group + j,
-            group, seed, noise_std, white_bkgd);
-      } else {
-        train_forward_wg_kernel<kMode><<<grid, kWgThreads, fwd_smem, st>>>(
-            odv, z, aux, dweights, params, ring, dj, *rd, maps, weights, workspace, R, S,
-            wave * group + j, group, seed, noise_std, white_bkgd);
-      }
+      train_forward_wg_kernel<kMode, kIn><<<grid, kWgThreads, fwd_smem, st>>>(
+          odv, z, aux, dweights, params, ring, group_desc(*d, j, S), *rd, maps, weights,
+          workspace, R, S, wave * group + j, group, seed, noise_std, white_bkgd);
     }
     train_reverse_kernel<kSem><<<grid, kThreads, kReverseSmem, st>>>(
         bring, nullptr, *d, *brd, RingDesc{}, partial, workspace, R, S, wave, group, nullptr,
@@ -1180,16 +1097,18 @@ extern "C" int nerf_train_render_grads(const float* odv, const float* z, const f
 // K10b: the mip train render's backward from the maps' cotangent dmaps
 // [R, 5] and the weights' dweights [R, S] (null: zero), on odvr [R, 10] and
 // fenceposts z [R, S + 1]: K6's kernels without the semantic head in their
-// mip mode (the Gaussian and integrated-PE prologue, the mip composite), the
+// mip mode (the forward on K4's tile with the Gaussian and integrated-PE
+// prologue, its weights from ring as rd describes, the mip composite), the
 // reverse sweep's matrices from bring as brd describes; see train_grads.
 extern "C" int nerf_mip_train_render_grads(const float* odvr, const float* z, const float* dmaps,
                                            const float* dweights, const float* params,
-                                           const float* bring, const TrainDesc* d,
+                                           const float* ring, const float* bring,
+                                           const TrainDesc* d, const RingDesc* rd,
                                            const RingDesc* brd, float* partial, float* workspace,
                                            float* grads, int R, int S, int grid, int group,
                                            unsigned seed, float noise_std, void* stream) {
-  return train_grads<kCotangent, false, true>(odvr, z, dmaps, dweights, params, nullptr, bring,
-                                              d, nullptr, brd, nullptr, nullptr, partial,
-                                              workspace, grads, R, S, grid, group, seed,
-                                              noise_std, 0, (cudaStream_t)stream);
+  return train_grads<kCotangent, false, kInMip>(odvr, z, dmaps, dweights, params, ring, bring, d,
+                                                rd, brd, nullptr, nullptr, partial, workspace,
+                                                grads, R, S, grid, group, seed, noise_std, 0,
+                                                (cudaStream_t)stream);
 }

@@ -1,10 +1,12 @@
 // Device building blocks of the train kernels' reverse sweep, shared by the
 // fused train kernels (train_render.cu: the reverse sweep of K3, K6 and
-// K10b, and K10b's 64-point forward; the 128-point tile of K1, K2, K4, K9,
-// K10a and of K3's and K6's forward is wg_tile.cuh) and the field kernels
-// (fused_field.cu: K8a-K8f, K11): the train descriptor and its workspace
-// planes, the forward of one 64-point tile (storing what the
-// reverse sweep reads), the input-gradient product of a layer (bwd_layer:
+// K10b; the 128-point tile of K1, K2, K4, K9, K10a, of K3's, K6's and
+// K10b's forward and of the field forwards K8a/K8b/K8d/K8e/K11 is
+// wg_tile.cuh) and the field backward (fused_field.cu: K8c/K8f): the train
+// descriptor and its workspace planes, the forward of one 64-point tile on
+// tile_mlp.cuh's mma.sync dense() (storing what the reverse sweep reads;
+// its last caller is the field backward's forward,
+// field_bwd_forward_kernel), the input-gradient product of a layer (bwd_layer:
 // wgmma 3xTF32, its matrix and dY through a ring of shared-memory stages
 // filled by bulk copies), the weight-gradient product (wgrad: wgmma 3xTF32,
 // the X and dY rows of each sub through a second ring of bulk copies), the
@@ -580,56 +582,33 @@ __device__ __forceinline__ void store_tile(const float* src, float* dst, int row
 }
 
 
-// Where the per-point outputs of a tile go: point q's sigma at
-// out[q * cs + sig], its rgb logits at out[q * cs + rgb ..] and its
-// semantics at out[q * cs + sem ..].
-struct OutCols {
-  int cs, sig, rgb, sem;
-};
-
-// Forward of one 64-point tile (points sub * 64 .. of a chunk of nq points),
-// as the render kernel K2 computes it. fill(emb, demb, g, q0) writes the raw
-// inputs of points q0 .. q0 + 63 of the chunk, zero past nq: emb rows 0-2
-// the point and demb rows 0-2 its view direction, or with kIpe the
-// Gaussian's means and variances in rows 0-5 of g (the first layer buffer,
-// which layer 0 overwrites) and the view direction. Then their PE (kIpe:
-// the integrated PE, ipe_rows), the trunk and the heads run on activations
-// in shared memory (emb, demb and two layer buffers at `tile`); point q's
-// outputs go to out (OutCols; out null: none are written). kHeads = false:
-// the trunk and the alpha head alone, with no view encoding. kStore (K3,
-// K6, K8c/K8f): every activation the reverse sweep reads is also stored to
-// the workspace; kSemAct (K6, K8c/K8f): the semantic head's hidden
-// activation too (plane P_ACT0 + depth). semin (may be null, as every
-// caller's is since K4 has its own tile, wg_tile.cuh): the semantic head's
-// input [h; emb] of each point is written as a row of semin [P][C] (C its
-// unpadded width), point q of the chunk at row base + q.
-template <bool kStore, bool kSemAct, bool kIpe, bool kHeads, class Fill>
+// Forward of one 64-point tile (points sub * 64 .. of a chunk), storing
+// every activation the reverse sweep reads in the workspace (the field
+// backward's forward, K8c/K8f, its last caller). fill(emb, demb, q0) writes
+// the raw inputs of points q0 .. q0 + 63 of the chunk, zero past its
+// points: emb rows 0-2 the point and demb rows 0-2 its view direction. Then
+// their PE, the trunk and the heads run on activations in shared memory
+// (emb, demb and two layer buffers at `tile`); kSemAct: the semantic head's
+// hidden activation too (plane P_ACT0 + depth). The heads' outputs are not
+// needed: the cotangents come from the caller.
+template <bool kSemAct, class Fill>
 __device__ __forceinline__ void forward_tile(const Fill& fill, const float* __restrict__ params,
-                                             const TrainDesc& d, float* ws, float* out,
-                                             OutCols oc, float* tile, int nq, int sub,
-                                             float* __restrict__ semin, long long base) {
+                                             const TrainDesc& d, float* ws, float* tile,
+                                             int sub) {
   const MLPDesc& f = d.f;
   const int depth = f.depth, E = f.emb_dim, Ep = pad8(E), Ed = f.demb_dim, Edp = pad8(Ed);
-  const int sem = f.sem_dim;
   const LayerDesc* head = f.layer + depth;  // alpha, feature, views, rgb, sem_0, sem_1
-  const int q0 = sub * kPts;
   float* emb = tile;
   float* demb = emb + Ep * kLd;
   float* hA = demb + Edp * kLd;
   float* hB = hA + f.hrows * kLd;
-  fill(emb, demb, hA, q0);
+  fill(emb, demb, sub * kPts);
   __syncthreads();
-  if (kIpe) {
-    ipe_rows(emb, hA, E);
-  } else {
-    pe_rows(emb, E);
-  }
-  if (kHeads) pe_rows(demb, Ed);
+  pe_rows(emb, E);
+  pe_rows(demb, Ed);
   __syncthreads();
-  if (kStore) {
-    store_tile(emb, plane(ws, d, P_EMB, sub), Ep);
-    store_tile(demb, plane(ws, d, P_DEMB, sub), Edp);
-  }
+  store_tile(emb, plane(ws, d, P_EMB, sub), Ep);
+  store_tile(demb, plane(ws, d, P_DEMB, sub), Edp);
 
   // trunk: layer i reads `in0, in1` and writes the buffer not holding h
   Seg in0{emb, Ep}, in1 = none();
@@ -638,7 +617,7 @@ __device__ __forceinline__ void forward_tile(const Fill& fill, const float* __re
     float* nxt = (cur == hA) ? hB : hA;
     dense_call(params, f.layer[i], in0, in1, none(), nxt, true);
     __syncthreads();
-    if (kStore) store_tile(nxt, plane(ws, d, P_ACT0 + i, sub), pad8(f.layer[i].n));
+    store_tile(nxt, plane(ws, d, P_ACT0 + i, sub), pad8(f.layer[i].n));
     cur = nxt;
     if (i == f.skip) {
       in0 = Seg{emb, Ep};
@@ -649,48 +628,20 @@ __device__ __forceinline__ void forward_tile(const Fill& fill, const float* __re
     }
   }
   float* spare = (cur == hA) ? hB : hA;
-  if (semin != nullptr) {
-    // the rows of in0 and in1 (h, or [emb, h] when the skip follows the last
-    // layer) and of emb, unpadded: one contiguous [np][C] block of semin.
-    // The sem head's __syncthreads below orders these reads before the
-    // views layer overwrites h.
-    const int hn = f.layer[depth - 1].n;
-    const int k0 = (in1.k > 0) ? E : hn, k1 = (in1.k > 0) ? hn : 0;
-    const int C = k0 + k1 + (f.sem_with_coord ? E : 0);
-    const int np = min(kPts, nq - q0);
-    float* dst = semin + (base + q0) * C;
-    for (int e = threadIdx.x; e < np * C; e += kThreads) {
-      const int p = e / C, col = e % C;
-      dst[e] = col < k0 ? in0.a[col * kLd + p]
-             : col < k0 + k1 ? in1.a[(col - k0) * kLd + p]
-                             : emb[(col - k0 - k1) * kLd + p];
-    }
-  }
-  if (out) dense_small(params, head[0], in0, in1, none(), out, q0, nq, oc.cs, oc.sig);  // sigma
-  if (!kHeads) {
-    __syncthreads();
-    return;
-  }
-  if (sem) {
+  if (f.sem_dim && kSemAct) {
     const Seg coord = f.sem_with_coord ? Seg{emb, Ep} : none();
     dense_call(params, head[4], in0, in1, coord, spare, true);
     __syncthreads();
-    if (kSemAct) store_tile(spare, plane(ws, d, P_ACT0 + depth, sub), pad8(head[4].n));
-    if (out)
-      dense_small(params, head[5], Seg{spare, pad8(head[4].n)}, none(), none(), out, q0, nq,
-                  oc.cs, oc.sem);
+    store_tile(spare, plane(ws, d, P_ACT0 + depth, sub), pad8(head[4].n));
     __syncthreads();
   }
   dense_call(params, head[1], in0, in1, none(), spare, false);  // feature
   __syncthreads();
-  if (kStore) store_tile(spare, plane(ws, d, P_FEAT, sub), pad8(head[1].n));
+  store_tile(spare, plane(ws, d, P_FEAT, sub), pad8(head[1].n));
   dense_call(params, head[2], Seg{spare, pad8(head[1].n)}, Seg{demb, Edp}, none(), cur,
              true);  // views (h is no longer needed)
   __syncthreads();
-  if (kStore) store_tile(cur, plane(ws, d, P_HV, sub), pad8(head[2].n));
-  if (out)
-    dense_small(params, head[3], Seg{cur, pad8(head[2].n)}, none(), none(), out, q0, nq, oc.cs,
-                oc.rgb);
+  store_tile(cur, plane(ws, d, P_HV, sub), pad8(head[2].n));
   __syncthreads();
 }
 

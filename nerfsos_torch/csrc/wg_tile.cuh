@@ -70,12 +70,22 @@
 // rows of its h tile, which nothing reads before the first trunk layer
 // overwrites them, and from them the integrated PE in emb, 6 multires rows
 // in ipe_rows' order; the rest is K4's tile without the semantic head).
-// K3's and K6's forward (train_render.cu train_forward_wg_kernel) run the
-// same tile in its store mode (wg_forward_tile's kStore): every activation
-// their reverse sweep reads also goes from the epilogues' registers to the
-// CTA's workspace, in train_sweep.cuh's [row][kLd] planes of 64 points
-// (sub 2 t + w for warpgroup w of tile t), and emb and demb are copied out
-// unswizzled once a tile; K4's instantiation compiles none of it.
+// K3's, K6's and K10b's forward (train_render.cu train_forward_wg_kernel;
+// K10b's in the mip mode) run the same tile in its store mode
+// (wg_forward_tile's kStore): every activation their reverse sweep reads
+// also goes from the epilogues' registers to the CTA's workspace, in
+// train_sweep.cuh's [row][kLd] planes of 64 points (sub 2 t + w for
+// warpgroup w of tile t), and emb and demb are copied out unswizzled once a
+// tile; K4's instantiation compiles none of it.
+// The field kernels (fused_field.cu field_wg_kernel: K8a/K8e, K8b/K8d, K11)
+// run it in its point-list modes (kInListSigma, kInList, kInListGauss):
+// point q of the tile is row q of the point list's pts [n, 3] (K11: the
+// Gaussian of row q of mean and cov [n, 3], straight into h's scratch rows
+// as the mip mode's), seen from row q of dirs; there is no composite. The
+// alpha thread writes each point's sigma straight to its column of the
+// output rows, the other heads go to a strip of the tile's 128 points (3 +
+// sem floats a point: rgb logits, semantics), and each warpgroup copies its
+// 64 points' rows out after its last head (one warpgroup barrier).
 // Precision: fp32 activations, 3xTF32 products (both operands split into
 // TF32 high and low parts), the PE phases with explicit round-to-nearest
 // (no fast-math).
@@ -95,9 +105,26 @@ constexpr int kWgThreads = kWgConsumers + 128;  // and the producer warpgroup
 // wg_forward_tile's inputs: kInPoint (K4, K2, K3's and K6's forward) the
 // points o + d z of odv [R, 9] and z [R, S] and their PE; kInSigma (K1) the
 // same points of od [R, 6], the trunk and the alpha head alone; kInMip (K9,
-// K10a) the intervals between the fenceposts z [R, S + 1] of odvr [R, 10]
-// as Gaussians and their integrated PE.
-enum InMode { kInPoint, kInSigma, kInMip };
+// K10a, K10b's forward) the intervals between the fenceposts z [R, S + 1]
+// of odvr [R, 10] as Gaussians and their integrated PE. The point-list
+// modes (the field kernels, PointList): kInList (K8b/K8d) rows of pts and
+// dirs [n, 3], kInListSigma (K8a/K8e) rows of pts alone, the trunk and the
+// alpha head; kInListGauss (K11) the Gaussians of rows of mean and cov
+// [n, 3] and their integrated PE, seen from rows of dirs.
+enum InMode { kInPoint, kInSigma, kInMip, kInList, kInListSigma, kInListGauss };
+
+// A point-list mode's rows (each pointer at the CTA's first point): point
+// q's inputs are row q of pts (kInListGauss: the means) and cov [n, 3] (the
+// diagonal covariances) and of dirs [n, 3] (kInListSigma: not read); its
+// outputs go to row q of out [n, C]: sigma [n] (C = 1, kInListSigma) or raw
+// [n, 4 + sem] (rgb logits 0-2, sigma 3, semantics 4..).
+struct PointList {
+  const float* pts;
+  const float* cov;
+  const float* dirs;
+  float* out;
+  int C;
+};
 
 // row k, point p of a warpgroup tile
 __device__ __forceinline__ int swz(int k, int p) { return k * kWgPts + (p ^ ((k & 3) << 3)); }
@@ -126,7 +153,8 @@ struct WgRing {
 // act(acc + b) (relu or not) and, with semin set (the last trunk layer),
 // sem_in's h columns of each valid point, semin + (point - qw) * C + n for
 // n < hn. Head mode (h null): head's outputs over relu(acc + b) go to
-// strip[q * cs + col0 ..] for the valid points q of the warpgroup. With
+// strip[(q - qw) * cs + col0 ..] for the valid points q of the warpgroup
+// (strip: the row of the warpgroup's first point qw). With
 // plane set (wg_layer's kStore: the train kernels' storing forward), the
 // layer's output of all 64 points also goes to plane[n * kLd + point],
 // rows n < prow, a workspace tile in the layout train_reverse_kernel
@@ -275,11 +303,11 @@ __device__ __forceinline__ int wg_layer(const float* __restrict__ params, const 
       }
     }
   if (t == 0) {
-    const int qa = o.qw + m0, qb = qa + 8;
+    const bool va = o.qw + m0 < o.nq, vb = o.qw + m0 + 8 < o.nq;
     for (int c = 0; c < H.n; ++c) {
       const float bc = __ldg(params + H.b + c);
-      if (qa < o.nq) o.strip[qa * o.cs + o.col0 + c] = s[c][0] + bc;
-      if (qb < o.nq) o.strip[qb * o.cs + o.col0 + c] = s[c][1] + bc;
+      if (va) o.strip[m0 * o.cs + o.col0 + c] = s[c][0] + bc;
+      if (vb) o.strip[(m0 + 8) * o.cs + o.col0 + c] = s[c][1] + bc;
     }
   }
   return pos;
@@ -341,9 +369,10 @@ __device__ __forceinline__ void ring_producer(const float* __restrict__ ring, co
     }
 }
 
-// A CTA of the 128-point tile (K4's kernel, K3's and K6's forward): its
-// dynamic shared memory holds the ring's barriers (128 B), rd.stages ring
-// stages, the two warpgroups' emb, demb and h tiles and the composite strip.
+// A CTA of the 128-point tile (K4's kernel, K3's, K6's and K10b's forward,
+// the field kernels): its dynamic shared memory holds the ring's barriers
+// (128 B), rd.stages ring stages, the two warpgroups' emb, demb and h tiles
+// and the composite strip (a point-list mode's: the tile's heads).
 struct WgCta {
   WgRing rg;
   float* tiles;  // warpgroup w's emb, demb and h at tiles + w * per_wg
@@ -450,6 +479,12 @@ __device__ __forceinline__ void wg_store_rows(const float* src, float* dst, int 
 // fenceposts [nr][S + 1]; point q is the interval (zc[r][s], zc[r][s + 1])
 // of ray r0 + r (r = q / S, s = q % S), its Gaussian (frustum_gauss)
 // in rows 0-5 of h, then its integrated PE in emb's rows 0 .. E - 1.
+// The point-list modes (kInList, kInListSigma, kInListGauss; odv, zc and
+// semin null, nq the CTA's points): point q's inputs are row q of pl's
+// lists, its sigma goes straight to its column of out (kInListSigma: the
+// only output), its rgb logits and semantics to strip[(q - 128 tile) (3 +
+// sem) + 0.., 3..], and after the last head each warpgroup copies its
+// points' rows out (rgb logits, sigma, semantics: raw's column order).
 // Returns the ring position after the tile.
 template <bool kStore, bool kSemAct, int kIn = kInPoint>
 __device__ __forceinline__ int wg_forward_tile(const float* __restrict__ odv, const float* zc,
@@ -458,26 +493,35 @@ __device__ __forceinline__ int wg_forward_tile(const float* __restrict__ odv, co
                                                const TrainDesc& d, const RingDesc& rd,
                                                const WgRing rg, int pos, float* mine,
                                                float* strip, float* __restrict__ semin,
-                                               long long base, float* ws) {
+                                               long long base, float* ws,
+                                               const PointList pl = PointList{}) {
+  constexpr bool kSigma = kIn == kInSigma || kIn == kInListSigma;
+  constexpr bool kGauss = kIn == kInMip || kIn == kInListGauss;
+  constexpr bool kList = kIn >= kInList;
   const MLPDesc& f = d.f;
   const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127, bar = 1 + wg;
   const int depth = f.depth, E = f.emb_dim, Ep = pad8(E), Ed = f.demb_dim, Edp = pad8(Ed);
-  const int sem = f.sem_dim, cs = 6 + sem;
+  const int sem = f.sem_dim, cs = kList ? 3 + sem : 6 + sem;
   float* emb = mine;
   float* demb = emb + Ep * kWgPts;
   float* h = demb + Edp * kWgPts;
   const int qw = tile * kWgTile + wg * kWgPts;
+  float* wstrip = strip + (size_t)(kList ? wg * kWgPts : qw) * cs;  // the warpgroup's first point
   const LayerDesc* head = f.layer + depth;  // alpha, feature, views, rgb, sem_0, sem_1
   const bool store = kStore && qw < nq;
   const int sub = qw / kWgPts;
 
-  constexpr bool kSigma = kIn == kInSigma;
   wg_bar(bar);  // the last tile's reads of emb, demb and h are done
   for (int i = tid; i < 3 * kWgPts; i += 128) {
     const int ch = i / kWgPts, p = i % kWgPts, q = qw + p;
     float x = 0.f, var = 0.f, v = 0.f;
     if (q < nq) {
-      if (kIn == kInMip) {
+      if (kList) {
+        const size_t e = (size_t)q * 3 + ch;
+        x = pl.pts[e];
+        if (kGauss) var = pl.cov[e];
+        if (!kSigma) v = pl.dirs[e];
+      } else if (kIn == kInMip) {
         const int r = q / S, s = q % S;
         const float* ray = odv + (size_t)(r0 + r) * 10;
         const float* zr = zc + (size_t)r * (S + 1);
@@ -489,7 +533,7 @@ __device__ __forceinline__ int wg_forward_tile(const float* __restrict__ odv, co
         if (!kSigma) v = ray[6 + ch];
       }
     }
-    if (kIn == kInMip) {  // the Gaussian in h's scratch rows: means 0-2, variances 3-5
+    if (kGauss) {  // the Gaussian in h's scratch rows: means 0-2, variances 3-5
       h[swz(ch, p)] = x;
       h[swz(3 + ch, p)] = var;
     } else {
@@ -498,7 +542,7 @@ __device__ __forceinline__ int wg_forward_tile(const float* __restrict__ odv, co
     if (!kSigma) demb[swz(ch, p)] = v;
   }
   wg_bar(bar);
-  if (kIn == kInMip) {
+  if (kGauss) {
     ipe_rows_wg(emb, h, E);
   } else {
     pe_rows_wg(emb, E);
@@ -543,14 +587,19 @@ __device__ __forceinline__ int wg_forward_tile(const float* __restrict__ odv, co
         for (int sg = 0; sg < 2; ++sg)
           for (int k = 0; k < segs[sg].k; ++k, wcol += 8)
             acc = fmaf(segs[sg].a[swz(k, tid)], __ldg(wcol), acc);
-        strip[(qw + tid) * cs] = acc + __ldg(params + head[0].b);
+        acc += __ldg(params + head[0].b);
+        if (kList) {
+          pl.out[(size_t)(qw + tid) * pl.C + (kSigma ? 0 : 3)] = acc;
+        } else {
+          wstrip[tid * cs] = acc;
+        }
       }
       wg_bar(bar);  // before feature's output overwrites h
     }
     if (l == nl) break;
     const int li = order[l];
     WgOut o{};
-    o.strip = strip;
+    o.strip = wstrip;
     o.cs = cs;
     o.qw = qw;
     o.nq = nq;
@@ -568,13 +617,13 @@ __device__ __forceinline__ int wg_forward_tile(const float* __restrict__ odv, co
     } else if (li == depth + 4) {  // sem_0
       a2 = f.sem_with_coord ? ASeg{emb, Ep} : none;
       o.head = head[5];
-      o.col0 = 5;
+      o.col0 = kList ? 3 : 5;
       if (kSemAct) out = P_ACT0 + depth;
     } else {  // views
       a0 = ASeg{h, pad8(head[1].n)};
       a1 = ASeg{demb, Edp};
       o.head = head[3];
-      o.col0 = 2;
+      o.col0 = kList ? 0 : 2;
       out = P_HV;
     }
     if (store && out >= 0) {
@@ -586,6 +635,15 @@ __device__ __forceinline__ int wg_forward_tile(const float* __restrict__ odv, co
       const ASeg hs{h, pad8(f.layer[l].n)};
       in0 = l == f.skip ? ASeg{emb, Ep} : hs;
       in1 = l == f.skip ? hs : none;
+    }
+  }
+  if (kList && !kSigma) {  // the warpgroup's rows of out, but sigma, from its strip
+    wg_bar(bar);  // every warp's heads are in the strip
+    const int C = pl.C, np = min(kWgPts, nq - qw);
+    float* out = pl.out + (size_t)qw * C;
+    for (int e = tid; e < np * C; e += 128) {
+      const int p = e / C, c = e - p * C;
+      if (c != 3) out[e] = wstrip[p * cs + (c < 3 ? c : c - 1)];
     }
   }
   return pos;

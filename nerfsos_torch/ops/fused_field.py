@@ -24,10 +24,14 @@ plain ``NeRFField``'s, ``[N, 3]`` in and ``[N, C]`` out:
   autograd asks for the points' or the directions' gradient, which stands
   in for the JAX package's ``cfg.field_input_grads``.
 
-Each wrapper runs its plain PyTorch version (:func:`sigma_plain`,
-:func:`field_plain`, :func:`mip_field_plain`, :func:`field_grads_plain`, same
-signature) for tensors on the CPU, and for CUDA tensors launches its kernel
-or raises; it never falls back. ``<wrapper>.launches`` counts the launches
+The three forwards run K4's 128-point tile (``csrc/wg_tile.cuh``) in its
+point-list modes (``csrc/fused_field.cu`` ``field_wg_kernel``): a CTA a run
+of :func:`_field_plan`'s tiles, the weights from ``fused_render.pack_ring``
+through the tile's ring. Each wrapper runs its plain PyTorch version
+(:func:`sigma_plain`, :func:`field_plain`, :func:`mip_field_plain`,
+:func:`field_grads_plain`, same signature) for tensors on the CPU, and for
+CUDA tensors launches its kernel or raises; it never falls back.
+``<wrapper>.launches`` counts the launches
 (``field_grads.input_grad_launches`` those in the input-gradient mode).
 The weights are packed by ``ops/fused_render.py``'s packers.
 """
@@ -179,12 +183,59 @@ def _check_points(field: nn.Module, n: int, **tensors: torch.Tensor) -> None:
                                   f"got {p.dtype} on {p.device}")
 
 
-def _forward_desc(field: nn.Module, device: torch.device
-                  ) -> Tuple[torch.Tensor, _build.TrainDesc]:
+_TILE_POINTS = 128  # points a tile of K4's tile (csrc/wg_tile.cuh kWgTile)
+
+
+def _field_smem(fdesc: _build.MLPDesc, rd: _build.RingDesc, heads: bool) -> int:
+    """Shared memory of ``field_wg_kernel`` (``field_smem`` in
+    ``csrc/fused_field.cu``): the ring's barriers and stages, two
+    warpgroups' emb, demb and h tiles of 64 points, and with ``heads`` the
+    tile's strip of its points' rgb logits and semantics."""
+    rows = fr._pad8(fdesc.emb_dim) + fr._pad8(fdesc.demb_dim) + rd.hrows
+    strip = _TILE_POINTS * (3 + fdesc.sem_dim) if heads else 0
+    return 128 + 4 * (rd.stages * rd.stage_floats + 2 * rows * fr._TILE + strip)
+
+
+def _field_plan(fdesc: _build.MLPDesc, ring: _build.RingDesc, N: int, sms: int, heads: bool
+                ) -> Tuple[int, _build.RingDesc]:
+    """The field forwards' launch: ``per``, the 128-point tiles a CTA runs
+    (consecutive, about one CTA an SM of ``sms``, one wave), and the ring's
+    descriptor with as many stages (2 to ``MAX_RING_STAGES``) as the rest of
+    shared memory holds; raises where two do not fit."""
+    rd = _build.RingDesc.from_buffer_copy(ring)
+    rd.stages = 2
+    if _field_smem(fdesc, rd, heads) > fr._MAX_SMEM:
+        raise NotImplementedError(f"the field's tiles and ring need "
+                                  f"{_field_smem(fdesc, rd, heads)} B of shared memory")
+    while (rd.stages < _build.MAX_RING_STAGES
+           and _field_smem(fdesc, rd, heads) + 4 * rd.stage_floats <= fr._MAX_SMEM):
+        rd.stages += 1
+    ntiles = max(1, -(-N // _TILE_POINTS))
+    return -(-ntiles // min(ntiles, sms)), rd
+
+
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _field_launch(field: nn.Module, name: str, out: torch.Tensor, heads: bool,
+                  *inputs: torch.Tensor) -> None:
+    """One launch of the library's field forward ``name``
+    (``nerf_field_sigma``, ``nerf_field`` or ``nerf_mip_field``) on checked
+    ``inputs`` of ``N > 0`` rows into ``out``: the packed weights, the ring
+    of ``fused_render.pack_ring`` (the trunk's stages alone unless
+    ``heads``) and :func:`_field_plan`'s tiles a CTA and ring stages."""
+    device, N = out.device, out.shape[0]
     buf, fdesc = fr._packed(field, device)
+    rbuf, ring = fr._ring(field, device)
+    per, rd = _field_plan(fdesc, ring, N, _sm_count(device), heads)
     desc = _build.TrainDesc()
     desc.f = fdesc
-    return buf, desc
+    with torch.cuda.device(device):
+        code = getattr(_build.library(), name)(
+            *(t.data_ptr() for t in inputs), buf.data_ptr(), rbuf.data_ptr(), ctypes.byref(desc),
+            ctypes.byref(rd), out.data_ptr(), N, per, _build.stream(device))
+    _build.check(code, name)
 
 
 def _on_card(t: torch.Tensor) -> bool:
@@ -199,38 +250,31 @@ def _on_card(t: torch.Tensor) -> bool:
 
 def fused_sigma_apply(field: nn.Module, pts: torch.Tensor) -> torch.Tensor:
     """The sigma forward (K8a/K8e): ``pts [N, 3]`` -> sigma ``[N]``; see
-    :func:`sigma_plain`. One launch."""
+    :func:`sigma_plain`. One launch of K4's tile in its sigma-only point-list
+    mode (the trunk's ring stages, the alpha head)."""
     if not _on_card(pts):
         return sigma_plain(field, pts)
     N = pts.shape[0]
     _check_points(field, N, pts=pts)
     sigma = torch.empty(N, device=pts.device, dtype=torch.float32)
     if N > 0:
-        buf, desc = _forward_desc(field, pts.device)
-        with torch.cuda.device(pts.device):
-            code = _build.library().nerf_field_sigma(pts.data_ptr(), buf.data_ptr(),
-                                                     ctypes.byref(desc), sigma.data_ptr(), N,
-                                                     _build.stream(pts.device))
-        _build.check(code, "fused_sigma_apply")
+        _field_launch(field, "nerf_field_sigma", sigma, False, pts)
         fused_sigma_apply.launches += 1
     return sigma
 
 
 def field_forward(field: nn.Module, pts: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
     """The field forward (K8b/K8d): ``pts, dirs [N, 3]`` -> raw
-    ``[N, 4 + sem]``; see :func:`field_plain`. One launch."""
+    ``[N, 4 + sem]``; see :func:`field_plain`. One launch of K4's tile in
+    its point-list mode (every layer through the ring)."""
     if not _on_card(pts):
         return field_plain(field, pts, dirs)
     N = pts.shape[0]
     _check_points(field, N, pts=pts, dirs=dirs)
-    buf, desc = _forward_desc(field, pts.device)
-    raw = torch.empty((N, 4 + desc.f.sem_dim), device=pts.device, dtype=torch.float32)
+    sem = field.mlp.semantic_linear[2].out_features if field.mlp.use_semantics else 0
+    raw = torch.empty((N, 4 + sem), device=pts.device, dtype=torch.float32)
     if N > 0:
-        with torch.cuda.device(pts.device):
-            code = _build.library().nerf_field(pts.data_ptr(), dirs.data_ptr(), buf.data_ptr(),
-                                               ctypes.byref(desc), raw.data_ptr(), N,
-                                               _build.stream(pts.device))
-        _build.check(code, "field_forward")
+        _field_launch(field, "nerf_field", raw, True, pts, dirs)
         field_forward.launches += 1
     return raw
 
@@ -239,8 +283,9 @@ def fused_mip_field_apply(field: nn.Module, mean: torch.Tensor, cov: torch.Tenso
                           dirs: torch.Tensor) -> torch.Tensor:
     """K11: the ``MipNeRFField`` at ``mean, cov [N, 3]`` seen from ``dirs
     [N, 3]`` -> raw ``[N, 4]``; see :func:`mip_field_plain`. One launch of
-    the field kernel in its integrated-PE mode. Forward only, as the JAX
-    package's only caller of K11 is a render."""
+    K4's tile in its Gaussian point-list mode (the Gaussians in h's scratch
+    rows, their integrated PE). Forward only, as the JAX package's only
+    caller of K11 is a render."""
     if not _on_card(mean):
         return mip_field_plain(field, mean, cov, dirs)
     N = mean.shape[0]
@@ -249,12 +294,7 @@ def fused_mip_field_apply(field: nn.Module, mean: torch.Tensor, cov: torch.Tenso
         raise NotImplementedError("the mip field kernel has no semantic head")
     raw = torch.empty((N, 4), device=mean.device, dtype=torch.float32)
     if N > 0:
-        buf, desc = _forward_desc(field, mean.device)
-        with torch.cuda.device(mean.device):
-            code = _build.library().nerf_mip_field(
-                mean.data_ptr(), cov.data_ptr(), dirs.data_ptr(), buf.data_ptr(),
-                ctypes.byref(desc), raw.data_ptr(), N, _build.stream(mean.device))
-        _build.check(code, "fused_mip_field_apply")
+        _field_launch(field, "nerf_mip_field", raw, True, mean, cov, dirs)
         fused_mip_field_apply.launches += 1
     return raw
 

@@ -987,17 +987,9 @@ def fused_rgb_train_grads(field: nn.Module, odv: torch.Tensor, z: torch.Tensor, 
     return unpack_grads(field, flat), maps, weights
 
 
-def _forward_smem(fdesc: _build.MLPDesc, rays_per_chunk: int, S: int) -> int:
-    """Shared memory of K10b's forward on the 64-point tile
-    (``forward_smem`` in ``csrc/train_render.cu``): the composite strip of a
-    chunk and the emb, demb and two layer tiles."""
-    return (-(-rays_per_chunk * S * (6 + fdesc.sem_dim) // 4) * 4
-            + (_pad8(fdesc.emb_dim) + _pad8(fdesc.demb_dim) + 2 * fdesc.hrows) * _KLD) * 4
-
-
 def _wg_smem(fdesc: _build.MLPDesc, rd: _build.RingDesc, rays_per_chunk: int, S: int) -> int:
-    """Shared memory of K4's kernel (K4, K2, K1, K9, K10a) and of K3's and
-    K6's forward (``wg_smem`` in ``csrc/train_render.cu``): the
+    """Shared memory of K4's kernel (K4, K2, K1, K9, K10a) and of K3's, K6's
+    and K10b's forward (``wg_smem`` in ``csrc/train_render.cu``): the
     ring's barriers and stages, two warpgroups' emb, demb and h tiles of
     64 points, and the chunk's composite strip."""
     rows = _pad8(fdesc.emb_dim) + _pad8(fdesc.demb_dim) + rd.hrows
@@ -1006,8 +998,8 @@ def _wg_smem(fdesc: _build.MLPDesc, rd: _build.RingDesc, rays_per_chunk: int, S:
 
 
 def _wg_plan(fdesc: _build.MLPDesc, ring: _build.RingDesc, S: int) -> Tuple[int, _build.RingDesc]:
-    """The 128-point tile's chunk (K4's kernel in each of its modes, and K3's
-    and K6's forward's: ``_rays_per_chunk(S)``, fewer rays where the strip
+    """The 128-point tile's chunk (K4's kernel in each of its modes, and K3's,
+    K6's and K10b's forward's: ``_rays_per_chunk(S)``, fewer rays where the strip
     and two ring stages would not fit) and its ring descriptor with as many
     stages (2 to ``MAX_RING_STAGES``) as the rest of shared memory holds."""
     rd = _build.RingDesc.from_buffer_copy(ring)
@@ -1306,6 +1298,36 @@ def mip_train_render(field: nn.Module, odvr: torch.Tensor, z: torch.Tensor, *,
     return out
 
 
+def _mip_grads_launch(field: nn.Module, odvr: torch.Tensor, z: torch.Tensor,
+                      dmaps: torch.Tensor, dweights: Optional[torch.Tensor], noise_std: float,
+                      seed: int) -> torch.Tensor:
+    """K10b's launches on checked CUDA inputs (none for ``R == 0``): K6's
+    storing forward on K4's tile in its mip mode (a chunk of
+    :func:`_wg_plan`'s rays, the weights from :func:`pack_ring` through its
+    ring) and reverse sweep in waves, and the reduction; returns the flat
+    gradient buffer."""
+    R, S = z.shape[0], z.shape[1] - 1
+    buf, fdesc = _packed(field, odvr.device)
+    rbuf, ring = _ring(field, odvr.device)
+    rpc, rd = _wg_plan(fdesc, ring, S)
+    bwd = _train_bwd(field, odvr.device)[1]
+    bring, brd = _bwd_ring(field, odvr.device)
+    desc, grid, group = _sweep_launch(field, fdesc, bwd, R, S, odvr.device, rays_per_chunk=rpc)
+    flat = torch.zeros(desc.grad_size, device=odvr.device, dtype=torch.float32)
+    if R > 0:
+        partial = torch.empty(grid * desc.grad_size, device=odvr.device, dtype=torch.float32)
+        work = torch.empty(grid * desc.ws_size, device=odvr.device, dtype=torch.float32)
+        with torch.cuda.device(odvr.device):
+            code = _build.library().nerf_mip_train_render_grads(
+                odvr.data_ptr(), z.data_ptr(), dmaps.data_ptr(),
+                None if dweights is None else dweights.data_ptr(), buf.data_ptr(),
+                rbuf.data_ptr(), bring.data_ptr(), ctypes.byref(desc), ctypes.byref(rd),
+                ctypes.byref(brd), partial.data_ptr(), work.data_ptr(), flat.data_ptr(), R, S,
+                grid, group, noise_seed(seed), float(noise_std), _build.stream(odvr.device))
+        _build.check(code, "mip_train_render_grads")
+    return flat
+
+
 def mip_train_render_grads(field: nn.Module, odvr: torch.Tensor, z: torch.Tensor,
                            dmaps: torch.Tensor, dweights: Optional[torch.Tensor], *,
                            noise_std: float, seed: int) -> Dict[str, torch.Tensor]:
@@ -1313,10 +1335,12 @@ def mip_train_render_grads(field: nn.Module, odvr: torch.Tensor, z: torch.Tensor
     maps' cotangent ``dmaps [R, 5]`` and the weights' ``dweights [R, S]``
     (None: zero), recomputing the forward of ``odvr [R, 10]``,
     ``z [R, S + 1]`` with the noise of ``seed``; see
-    :func:`mip_train_render_grads_plain`. One call launches the 64-point
-    forward kernel and K3's reverse-sweep kernel (through the ring of
-    :func:`pack_bwd_ring`) in their mip cotangent mode once per wave of
-    chunks and the reduction, and adds one to ``launches``."""
+    :func:`mip_train_render_grads_plain`. One call launches K6's forward (on
+    K4's tile in its mip mode, a chunk of :func:`_wg_plan`'s rays, the
+    weights from :func:`pack_ring` through its ring) and reverse-sweep
+    kernels (through the ring of :func:`pack_bwd_ring`) in their mip
+    cotangent mode once per wave of chunks and the reduction, and adds one
+    to ``launches``."""
     if odvr.device.type == "cpu":
         return mip_train_render_grads_plain(field, odvr, z, dmaps, dweights,
                                             noise_std=noise_std, seed=seed)
@@ -1330,26 +1354,8 @@ def mip_train_render_grads(field: nn.Module, odvr: torch.Tensor, z: torch.Tensor
             raise ValueError(f"{name} must be contiguous float32 on {odvr.device}")
         if tuple(t.shape) != shape:
             raise ValueError(f"expected {name} {shape}, got {tuple(t.shape)}")
-    buf, fdesc = _packed(field, odvr.device)
-    bwd = _train_bwd(field, odvr.device)[1]
-    bring, brd = _bwd_ring(field, odvr.device)
-    smem = _forward_smem(fdesc, _rays_per_chunk(S), S)
-    if smem > _MAX_SMEM:
-        raise NotImplementedError(f"S={S}: the forward's composite strip and tiles need {smem} B "
-                                  "of shared memory")
-    desc, grid, group = _sweep_launch(field, fdesc, bwd, R, S, odvr.device)
-    flat = torch.zeros(desc.grad_size, device=odvr.device, dtype=torch.float32)
+    flat = _mip_grads_launch(field, odvr, z, dmaps, dweights, noise_std, seed)
     if R > 0:
-        partial = torch.empty(grid * desc.grad_size, device=odvr.device, dtype=torch.float32)
-        work = torch.empty(grid * desc.ws_size, device=odvr.device, dtype=torch.float32)
-        with torch.cuda.device(odvr.device):
-            code = _build.library().nerf_mip_train_render_grads(
-                odvr.data_ptr(), z.data_ptr(), dmaps.data_ptr(),
-                None if dweights is None else dweights.data_ptr(), buf.data_ptr(),
-                bring.data_ptr(), ctypes.byref(desc), ctypes.byref(brd), partial.data_ptr(),
-                work.data_ptr(), flat.data_ptr(), R, S, grid, group, noise_seed(seed),
-                float(noise_std), _build.stream(odvr.device))
-        _build.check(code, "mip_train_render_grads")
         mip_train_render_grads.launches += 1
     return unpack_grads(field, flat)
 

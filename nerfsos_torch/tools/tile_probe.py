@@ -1,14 +1,16 @@
-"""Where K4's, K3's, K6's, K5's and K9's time goes on the card: builds
-patched copies of the kernel sources under
+"""Where K4's, K3's, K6's, K5's, K9's, K10b's and the field forwards' time
+goes on the card: builds patched copies of the kernel sources under
 ``<root>/build/tile_probe/<variant>/`` and times K4
 (``ops.fused_render.train_render``), K6 (``train_render_grads``), K3
 (``fused_rgb_train_grads``), K5 (``frozen_sem_grads``), K2
-(``fused_render``), K1 (``fused_coarse_weights``), K9 (``fused_mip_render``)
-or K10a (``mip_train_render``) with each, in one process.
+(``fused_render``), K1 (``fused_coarse_weights``), K9 (``fused_mip_render``),
+K10a (``mip_train_render``), K10b (``mip_train_render_grads``), K8b
+(``ops.fused_field.field_forward``), K8a (``fused_sigma_apply``) or K11
+(``fused_mip_field_apply``) with each, in one process.
 
     python -m nerfsos_torch.tools.tile_probe [--root DIR] [--rays 32768]
         [--samples 192[,64...]] [--variants base,wgclock]
-        [--kernel k4|k9|k10a|k6|k3|k5|k2|k1]
+        [--kernel k4|k9|k10a|k10b|k6|k3|k5|k2|k1|k8b|k8a|k11]
 
 ``--root`` is the checkout whose package, kernels and ``chip_smoke.py`` are
 used (default: this one). To A/B K9 against the parent's, unpack the
@@ -25,11 +27,12 @@ never edited):
 
 - ``base``: the sources as they are;
 - ``wgclock`` (the 128-point tile of ``csrc/wg_tile.cuh``: K4, K2, K1, K9,
-  K10a, K3's and K6's forward): clock64 counters, thread 0 of CTA 0,
-  around its waits for a full ring stage, the layers' k loops, the waits
-  for its own wgmma inside them, the layers' epilogues and the whole tile
-  loop, and the producer thread of CTA 0 around its waits for an empty
-  stage;
+  K10a, K3's, K6's and K10b's forward, the field forwards K8a/K8b/K11):
+  clock64 counters, thread 0 of CTA 0, around its waits for a full ring
+  stage, the layers' k loops, the waits for its own wgmma inside them, the
+  layers' epilogues, the point-list modes' copy-out of a warpgroup's rows
+  (its barrier included) and the whole tile loop, and the producer thread
+  of CTA 0 around its waits for an empty stage;
 - ``fwdonly`` (K3, K6, K10b, K8c/K8f): ``train_grads`` and the field
   backward launch the forward kernel of each wave and the reduction but no
   reverse-sweep kernel, so the reverse sweep's time is ``base``'s less this;
@@ -70,7 +73,14 @@ train pass with the semantic head, ``--kernel k5`` the frozen finetune's
 semantic-head backward on K4's own ``sem_in`` and weights of those rays,
 with seeded map cotangents, ``--kernel k2`` the eval fine render (K4's
 kernel without noise or sem_in; ``--rays 32768`` is one ``--ray_chunk`` of
-the eval path), ``--kernel k1`` the eval coarse pass. With ``--root``
+the eval path), ``--kernel k1`` the eval coarse pass, ``--kernel k10b``
+the mip train backward (noise 1, seeded map and weight cotangents; its
+forward is K6's on K4's tile in its mip mode). ``--kernel k8b`` takes the
+field forward of the flagship field with the semantic head and its
+coordinates on ``--rays`` x ``--samples`` points uniform in the x14
+density grid's cube (4096 x 64: one 2^18-point export chunk) with random
+unit directions, ``k8a`` the sigma forward of the same field, ``k11`` the
+flagship mip field at random covariances below 1e-4. With ``--root``
 unpacked from a parent commit, the kernels are timed through that tree's
 wrappers (the same Python interface), ``base`` variant only, for an A/B
 in one call.
@@ -97,13 +107,16 @@ static __device__ unsigned long long g_probe[%d];
 """ % _NPROBE
 
 _READER = """
-extern "C" int probe_read(unsigned long long* out) {
+extern "C" int probe_read%s(unsigned long long* out) {
   cudaError_t e = cudaMemcpyFromSymbol(out, g_probe, sizeof(g_probe));
   unsigned long long zero[sizeof(g_probe) / 8] = {0};
   if (e == cudaSuccess) e = cudaMemcpyToSymbol(g_probe, zero, sizeof(zero));
   return (int)e;
 }
 """
+READER = _READER % ""  # train_render.cu's counters
+FIELD_READER = _READER % "_field"  # fused_field.cu's (a translation unit of its own)
+FIELD_KERNELS = ("k8a", "k8b", "k11")
 
 
 def _sub(text: str, old: str, new: str, count: int = 0) -> str:
@@ -230,7 +243,7 @@ def _sem_clocks(t: str) -> str:
              "    SEM_PROBE(6, p_q, 128);\n", 1)
     return _sub(t, "  // accumulator e of block u: feature 64 (kSemMb dwg + u)",
                 "  SEM_PROBE(7, p_r, 128);\n  // accumulator e of block u: feature 64 (kSemMb dwg + u)",
-                1) + _READER
+                1) + READER
 
 
 def _patch(variant: str, csrc: str) -> None:
@@ -270,7 +283,14 @@ def _patch_one(variant: str, csrc: str) -> None:
             i = max(j for j, s in enumerate(lines[:t[:t.index("wg_layer_n")].count("\n")])
                     if s == "  return pos;")
             lines[i] = "  PROBE_ADD(5, p_x);\n  return pos;"
-            return "\n".join(lines)
+            t = "\n".join(lines)
+            # the point-list modes' copy-out of a warpgroup's rows
+            t = _sub(t, "  if (kList && !kSigma) {  // the warpgroup's rows of out",
+                     "  long long p_o = clock64();\n"
+                     "  if (kList && !kSigma) {  // the warpgroup's rows of out", 1)
+            return _sub(t, "      if (c != 3) out[e] = wstrip[p * cs + (c < 3 ? c : c - 1)];\n"
+                        "    }\n  }\n", "      if (c != 3) out[e] = wstrip[p * cs + (c < 3 ? c : "
+                        "c - 1)];\n    }\n  }\n  PROBE_ADD(6, p_o);\n", 1)
 
         edit("wg_tile.cuh", tile)
 
@@ -279,9 +299,16 @@ def _patch_one(variant: str, csrc: str) -> None:
             t = _sub(t, "  int pos = 0;\n", "  int pos = 0;\n  long long p_start = clock64();\n")
             t = _sub(t, "  asm volatile(\"bar.sync 3, %0;\\n\"",
                      "  PROBE_ADD(0, p_start);\n  asm volatile(\"bar.sync 3, %0;\\n\"")
-            return t + _READER
+            return t + READER
 
         edit("train_render.cu", kern)
+
+        def field(body):  # the field forwards' tile loop
+            body = _sub(body, "  int pos = 0;\n", "  int pos = 0;\n  long long p_start = clock64();\n", 1)
+            return _sub(body, "pl);\n}\n", "pl);\n  PROBE_ADD(0, p_start);\n}\n", 1)
+
+        edit("fused_field.cu", lambda t: _in_function(t, "    field_wg_kernel(", field)
+             + FIELD_READER)
     elif variant == "fwdonly":
         edit("train_render.cu", lambda t: _sub(
             t, "    train_reverse_kernel<kSem><<<grid, kThreads, kReverseSmem, st>>>(\n"
@@ -293,7 +320,7 @@ def _patch_one(variant: str, csrc: str) -> None:
                "ddirs);\n", "", 1))
     elif variant == "sweepclock":
         edit("train_sweep.cuh", _sweep_clocks)
-        edit("train_render.cu", lambda t: t + _READER)
+        edit("train_render.cu", lambda t: t + READER)
     elif variant == "semclock":
         edit("train_render.cu", _sem_clocks)
     elif variant.startswith("bwdstages"):
@@ -304,9 +331,8 @@ def _patch_one(variant: str, csrc: str) -> None:
                                            "const bool store = false;", 1))
     elif variant == "nocomposite":
         edit("train_render.cu", lambda t: _sub(
-            t, "  composite_chunk<kMode, false, kWgConsumers>(odv, zc, aux, dweights, d, ws, strip,",
-            "  if (false) composite_chunk<kMode, false, kWgConsumers>(odv, zc, aux, dweights, d, "
-            "ws, strip,", 1))
+            t, "  composite_chunk<kMode, kMip>(odv, zc, aux, dweights, d, ws, strip,",
+            "  if (false) composite_chunk<kMode, kMip>(odv, zc, aux, dweights, d, ws, strip,", 1))
     elif variant == "epistore":
         def tile(t):
             start = t.index("    if (kStore && o.plane) {  // the warp's 16 points of each row")
@@ -351,20 +377,28 @@ def _use(_build, root: str, variant: str):
     _build.library.cache_clear()
     lib = _build.library()
     if _clock(variant):
-        lib.probe_read.argtypes = [ctypes.c_void_p]
-        lib.probe_read.restype = ctypes.c_int
+        for fn in (lib.probe_read, *([lib.probe_read_field] if _clock(variant) == "wgclock"
+                                     else [])):
+            fn.argtypes = [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
     return lib
 
 
-def main() -> int:
+KERNELS = ("k4", "k9", "k10a", "k10b", "k6", "k3", "k5", "k2", "k1", "k8b", "k8a", "k11")
+
+
+def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--rays", type=int, default=32768)
     ap.add_argument("--samples", default="192", help="samples a ray, a comma-separated list")
     ap.add_argument("--variants", default="base,wgclock")
     ap.add_argument("--root", default=HERE)
-    ap.add_argument("--kernel", default="k4",
-                    choices=("k4", "k9", "k10a", "k6", "k3", "k5", "k2", "k1"))
-    a = ap.parse_args()
+    ap.add_argument("--kernel", default="k4", choices=KERNELS)
+    return ap
+
+
+def main() -> int:
+    a = parser().parse_args()
     if not torch.cuda.is_available():
         print("tile_probe: no CUDA device visible", file=sys.stderr)
         return 1
@@ -372,16 +406,36 @@ def main() -> int:
     sys.path.insert(0, root)
     for m in [m for m in sys.modules if m == "chip_smoke" or m.startswith("nerfsos_torch")]:
         del sys.modules[m]  # the package and chip_smoke.py of root, not of this checkout
-    from chip_smoke import (cuda_ms, mip_ray_inputs, ray_inputs, seeded_field,
-                            seeded_mip_field, smi_line)
+    from chip_smoke import (cuda_ms, grid_points, mip_ray_inputs, ray_inputs, seeded_field,
+                            seeded_mip_field, smi_line, unit_dirs)
     from nerfsos_torch import _build
+    from nerfsos_torch.ops import fused_field as ff
     from nerfsos_torch.ops import fused_render as fr
 
     def runner(S: int):
         """The call to time at S samples a ray."""
-        if a.kernel in ("k9", "k10a"):
+        if a.kernel in FIELD_KERNELS:
+            n = a.rays * S
+            pts, dirs = grid_points(n, 50), unit_dirs(n, 51)
+            if a.kernel == "k11":
+                mip = seeded_mip_field(42)
+                g = torch.Generator().manual_seed(52)
+                cov = (torch.rand(n, 3, generator=g) * 1e-4).cuda()
+                return lambda: ff.fused_mip_field_apply(mip, pts, cov, dirs)
+            field = seeded_field(40, net_depth=8, net_width=256, multires=10, multires_views=4,
+                                 use_semantics=True, sem_with_coord=True, sem_dim=2)
+            if a.kernel == "k8a":
+                return lambda: ff.fused_sigma_apply(field, pts)
+            return lambda: ff.field_forward(field, pts, dirs)
+        if a.kernel in ("k9", "k10a", "k10b"):
             field = seeded_mip_field(5)
             odvr, z = mip_ray_inputs(a.rays, S, seed=11)
+            if a.kernel == "k10b":
+                rng = np.random.default_rng(S)
+                dmaps = torch.from_numpy(rng.normal(size=(a.rays, 5)).astype(np.float32)).cuda()
+                dw = torch.from_numpy(rng.normal(size=(a.rays, S)).astype(np.float32)).cuda()
+                return lambda: fr.mip_train_render_grads(field, odvr, z, dmaps, dw, noise_std=1.0,
+                                                         seed=7654321)
             if a.kernel == "k10a":
                 return lambda: fr.mip_train_render(field, odvr, z, noise_std=1.0, seed=7654321)
             return lambda: fr.fused_mip_render(field, odvr, z)
@@ -415,7 +469,7 @@ def main() -> int:
         return lambda: fr.train_render(field, odv, z, **kw)
 
     names = {"wgclock": ["ring_full_wait", "producer_empty_wait", "k_loops", "own_wgmma_wait",
-                         "epilogues"],
+                         "epilogues", "copy_out"],
              "sweepclock": ["wgrad", "wgrad_fills", "wgrad_full_wait", "wgrad_convert",
                             "wgrad_products", "wgrad_partial_rmw", "bwd_layer",
                             "bwd_layer_fill_issue", "bwd_layer_full_wait", "bwd_layer_epilogue"],
@@ -433,11 +487,13 @@ def main() -> int:
                 out = {"root": os.path.relpath(root, HERE), "variant": variant, "rays": a.rays,
                        "samples": S, f"{a.kernel}_ms": ms}
                 if _clock(variant):
+                    read = (lib.probe_read_field if a.kernel in FIELD_KERNELS
+                            else lib.probe_read)
                     buf = (ctypes.c_ulonglong * _NPROBE)()
-                    _build.check(lib.probe_read(buf), "probe_read")  # drop the timed calls' sums
+                    _build.check(read(buf), "probe_read")  # drop the timed calls' sums
                     run()
                     torch.cuda.synchronize()
-                    _build.check(lib.probe_read(buf), "probe_read")
+                    _build.check(read(buf), "probe_read")
                     total = max(buf[0], 1)
                     out["cycles_cta0_thread0"] = buf[0]
                     out.update({f"{n}_share": buf[i + 1] / total

@@ -892,8 +892,9 @@ FIELD_NS = [1, 63, 65, 4097]
 @pytest.mark.parametrize("sem,coord", [(True, True), (True, False), (False, False)])
 @pytest.mark.parametrize("n", FIELD_NS)
 def test_field_and_sigma_match_plain(cuda, shape, sem, coord, n):
-    """The field forward (K8b/K8d) and the sigma forward (K8a/K8e): raw and
-    sigma to TOL, one launch each."""
+    """The field forward (K8b/K8d) and the sigma forward (K8a/K8e), K4's
+    tile in its point-list modes: raw and sigma to TOL, one launch each,
+    and a second call bitwise equal."""
     field = _field(cuda, 30, use_semantics=sem, sem_with_coord=coord, sem_dim=2, **shape)
     pts, dirs = _field_points(cuda, n, 31)
     before = (ff.field_forward.launches, ff.fused_sigma_apply.launches)
@@ -904,6 +905,9 @@ def test_field_and_sigma_match_plain(cuda, shape, sem, coord, n):
     torch.cuda.synchronize()
     assert (ff.field_forward.launches, ff.fused_sigma_apply.launches) == (before[0] + 1,
                                                                           before[1] + 1)
+    with torch.no_grad():
+        assert torch.equal(raw, ff.field_forward(field, pts, dirs))
+        assert torch.equal(sigma, ff.fused_sigma_apply(field, pts))
     assert raw.shape == raw_p.shape == (n, 4 + 2 * sem) and sigma.shape == (n,)
     assert torch.isfinite(raw).all() and torch.isfinite(sigma).all()
     assert float((raw - raw_p).abs().max()) <= TOL
@@ -913,7 +917,8 @@ def test_field_and_sigma_match_plain(cuda, shape, sem, coord, n):
 def test_field_at_the_export_grid(cuda):
     """The flagship field at 2^18 + 5 points of the x14 density grid (|x| up
     to 14, PE phases up to 7.2e3 rad) with zero directions: raw to TOL over
-    max(1, its max |plain|) a column, sigma likewise."""
+    max(1, its max |plain|) a column, sigma likewise (runs of 16 tiles a
+    CTA, the last CTA's one tile of 5 points)."""
     field = _field(cuda, 32, use_semantics=True, sem_with_coord=True, sem_dim=2, **SHAPES[0])
     n = (1 << 18) + 5
     pts = (torch.rand(n, 3, generator=torch.Generator().manual_seed(0)) * 28 - 14).to(cuda)
@@ -930,7 +935,8 @@ def test_field_at_the_export_grid(cuda):
 @pytest.mark.parametrize("zero_cov", [True, False])
 @pytest.mark.parametrize("n", FIELD_NS)
 def test_mip_field_matches_plain(cuda, shape, zero_cov, n):
-    """K11: the field kernel in its integrated-PE mode, raw to TOL."""
+    """K11: K4's tile in its Gaussian point-list mode (the integrated PE),
+    raw to TOL, and a second call bitwise equal."""
     field = _mip_field(cuda, 33, **shape)
     mean, dirs = _field_points(cuda, n, 34)
     cov = (torch.zeros_like(mean) if zero_cov
@@ -943,6 +949,8 @@ def test_mip_field_matches_plain(cuda, shape, zero_cov, n):
     assert ff.fused_mip_field_apply.launches == before + 1
     assert got.shape == (n, 4) and torch.isfinite(got).all()
     assert float((got - want).abs().max()) <= TOL
+    with torch.no_grad():
+        assert torch.equal(got, ff.fused_mip_field_apply(field, mean, cov, dirs))
 
 
 def _gate_clear_points(field, n, seed, sem, margin, pool=8192):

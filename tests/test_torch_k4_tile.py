@@ -25,10 +25,12 @@ from nerfsos_torch.models.fields import MipNeRFField, NeRFField
 from nerfsos_torch.models.mip import cast_rays
 from nerfsos_torch.models.nerf import NeRFConfig as TorchConfig
 from nerfsos_torch.models.nerf import NeRFNet as TorchNet
+from nerfsos_torch.ops import fused_field as ff
 from nerfsos_torch.ops import fused_render as fr
 from nerfsos_tpu.models import mip as jmip
 from nerfsos_tpu.models.nerf import NeRFConfig as JaxConfig
 from nerfsos_tpu.models.nerf import NeRFNet as JaxNet
+from nerfsos_tpu.ops.pallas import fused_field as jff
 from nerfsos_tpu.ops.pallas import fused_render as jfr
 
 R = 20  # 160 or 320 points: the last 128-point tile is ragged
@@ -166,7 +168,7 @@ def _mip_prologue(gauss, E, Ep, hrows):
 
 
 def _k4_model(field, odv, z, noise_std, seed, save_semin, desc=None, sem_act=False,
-              sigma_only=False, mip=False):
+              sigma_only=False, mip=False, points=None, per=1):
     """K4 as the kernel computes it, from pack_field's and pack_ring's
     buffers alone: chunks of rays, 128-point tiles of two 64-point
     warpgroups, each layer k-slice by k-slice in the ring's order.
@@ -176,19 +178,36 @@ def _k4_model(field, odv, z, noise_std, seed, save_semin, desc=None, sem_act=Fal
     ``[R, 10]`` and ``z`` fenceposts ``[R, S + 1]``; each warpgroup's
     prologue is :func:`_mip_prologue` on its intervals' Gaussians, and the
     chunk's composite is the mip one (maps ``[R, 5]``). With
-    ``desc`` (``train_desc`` at the plan's chunk), K3's and K6's storing
-    forward (``wg_forward_tile``'s kStore): each warpgroup with a point
-    before the chunk's nq also writes emb, demb, every trunk layer's output,
-    feature, views' hidden activation and (``sem_act``, K6) the semantic
-    head's into sub 2 t + w of its chunk's workspace slice; the slices come
-    back with each float's count of writes and the chunk's nq, and so do
-    the heads' outputs of every point (the composite strip: sigma without
-    noise at column 0, the rgb logits at 2.., the semantics at 5..)."""
+    ``desc`` (``train_desc`` at the plan's chunk), K3's, K6's and (``mip``)
+    K10b's storing forward (``wg_forward_tile``'s kStore): each warpgroup
+    with a point before the chunk's nq also writes emb, demb, every trunk
+    layer's output, feature, views' hidden activation and (``sem_act``, K6)
+    the semantic head's into sub 2 t + w of its chunk's workspace slice;
+    the slices come back with each float's count of writes and the chunk's
+    nq, and so do the heads' outputs of every point (the composite strip:
+    sigma without noise at column 0, the rgb logits at 2.., the semantics
+    at 5..). With ``points`` (the field kernels' point-list modes; odv and
+    z unused): ``(pts, dirs)`` (K8b/K8d), ``(pts,)`` with ``sigma_only``
+    (K8a/K8e) or ``(mean, cov, dirs)`` with ``mip`` (K11); a CTA takes
+    ``per`` consecutive tiles of the rows, the alpha thread writes sigma to
+    its output column, the rgb logits and semantics go to the tile's strip
+    (3 + sem floats a point) and each warpgroup copies its rows out after
+    its last head. Returns the output rows (sigma ``[N]`` or raw
+    ``[N, 4 + sem]``), each float of which is checked to be written once."""
     buf, fdesc = fr.pack_field(field)
     ring, rd = fr.pack_ring(field)
-    R_, S = z.shape[0], z.shape[1] - int(mip)
-    rpc, _ = fr._wg_plan(fdesc, rd, S)
+    listed = points is not None
     depth, sem = fdesc.depth, fdesc.sem_dim
+    if listed:
+        N = points[0].shape[0]
+        C = 1 if sigma_only else 4 + sem
+        rows = torch.full((N, C), float("nan"))
+        written = torch.zeros((N, C), dtype=torch.int32)
+        spans = [(b, min(per * 128, N - b)) for b in range(0, N, per * 128)]
+    else:
+        R_, S = z.shape[0], z.shape[1] - int(mip)
+        rpc, _ = fr._wg_plan(fdesc, rd, S)
+        spans = [(r0, min(rpc, R_ - r0) * S) for r0 in range(0, R_, rpc)]
     E, Ed = fdesc.emb_dim, fdesc.demb_dim
     Ep, Edp = fr._pad8(E), fr._pad8(Ed)
     L = fdesc.layer
@@ -196,7 +215,7 @@ def _k4_model(field, odv, z, noise_std, seed, save_semin, desc=None, sem_act=Fal
     cs = 6 + sem
     hn = L[depth - 1].n
     hoff = E if fdesc.skip == depth - 1 else 0
-    C = hoff + hn + (E if fdesc.sem_with_coord else 0)
+    C_in = hoff + hn + (E if fdesc.sem_with_coord else 0)
     stages = {"n": 0}
 
     def bias(Li, n):
@@ -228,34 +247,48 @@ def _k4_model(field, odv, z, noise_std, seed, save_semin, desc=None, sem_act=Fal
                 out.append(torch.sin(x * (2.0 ** band) + phase))
         return torch.cat(out)
 
+    def put_row(q, c, v):  # a point-list mode's write of out row q, column c
+        rows[q, c] = v
+        written[q, c] += 1
+
     maps, weights, sem_in, slices, strips = [], [], [], [], []
-    for r0 in range(0, R_, rpc):
-        o, zc = odv[r0:r0 + rpc], z[r0:r0 + rpc]
-        nq = zc.shape[0] * S
+    for r0, nq in spans:
+        if listed:
+            sl = slice(r0, r0 + nq)
+            if mip:
+                gauss = torch.cat([points[0][sl], points[1][sl]], 1)
+            else:
+                pts = points[0][sl]
+            dirs = None if sigma_only else points[-1][sl]
+            tstrip = torch.full((128, 3 + sem), float("nan"))  # the tile's heads
+        else:
+            o, zc = odv[r0:r0 + rpc], z[r0:r0 + rpc]
+            if mip:
+                gauss = torch.cat(cast_rays(zc, o[:, 0:3], o[:, 3:6], o[:, 9:10]),
+                                  -1).reshape(-1, 6)
+            else:
+                pts = (o[:, None, 0:3] + o[:, None, 3:6] * zc[..., None]).reshape(-1, 3)
+            dirs = None if sigma_only else o[:, None, 6:9].expand(-1, S, 3).reshape(-1, 3)
         strip = torch.zeros(nq, cs)
-        semin = torch.zeros(nq, C)
+        semin = torch.zeros(nq, C_in)
         if desc is not None:
             ws = torch.zeros(desc.ws_size)
             writes = torch.zeros(desc.ws_size, dtype=torch.int32)
             slices.append((ws, writes, nq))
 
         def put(p, sub, x):
-            rows = desc.rows[p]
-            at = desc.plane[p] + sub * rows * fr._KLD
-            ws[at:at + rows * fr._KLD].view(rows, fr._KLD)[:, :WG] = x[:rows]
-            writes[at:at + rows * fr._KLD].view(rows, fr._KLD)[:, :WG] += 1
+            rows_ = desc.rows[p]
+            at = desc.plane[p] + sub * rows_ * fr._KLD
+            ws[at:at + rows_ * fr._KLD].view(rows_, fr._KLD)[:, :WG] = x[:rows_]
+            writes[at:at + rows_ * fr._KLD].view(rows_, fr._KLD)[:, :WG] += 1
 
-        if mip:
-            gauss = torch.cat(cast_rays(zc, o[:, 0:3], o[:, 3:6], o[:, 9:10]), -1).reshape(-1, 6)
-        else:
-            pts = (o[:, None, 0:3] + o[:, None, 3:6] * zc[..., None]).reshape(-1, 3)
-        dirs = None if sigma_only else o[:, None, 6:9].expand(-1, S, 3).reshape(-1, 3)
         for t in range(-(-nq // 128)):
             for wg in range(2):
                 qw = 128 * t + WG * wg
                 q = torch.arange(qw, qw + WG)
                 live = q < nq
                 qc = q.clamp(max=nq - 1)
+                ql = qc[live]
                 emb = torch.zeros(Ep, WG)
                 demb = torch.zeros(Edp, WG)
                 if mip:
@@ -277,16 +310,18 @@ def _k4_model(field, odv, z, noise_std, seed, save_semin, desc=None, sem_act=Fal
                     if store:
                         put(fr._P_ACT0 + i, sub, v.t())
                     if i == depth - 1:
-                        semin[qc[live], hoff:hoff + hn] = v[live, :hn]
+                        semin[ql, hoff:hoff + hn] = v[live, :hn]
                     hs = h[:fr._pad8(L[i].n)]
                     in0, in1 = (emb, hs) if i == fdesc.skip else (hs, None)
                 if hoff:
-                    semin[qc[live], :E] = emb[:E].t()[live]
+                    semin[ql, :E] = emb[:E].t()[live]
                 if fdesc.sem_with_coord:
-                    semin[qc[live], hoff + hn:] = emb[:E].t()[live]
+                    semin[ql, hoff + hn:] = emb[:E].t()[live]
                 xa = torch.cat([s for s in (in0, in1) if s is not None])
                 alpha = xa.t() @ wt_fp32(head[0])[:, 0] + buf[head[0].b]
-                strip[qc[live], 0] = alpha[live]
+                strip[ql, 0] = alpha[live]
+                if listed:
+                    put_row(r0 + ql, 0 if sigma_only else 3, alpha[live])
                 if sigma_only:
                     continue
                 if sem:
@@ -297,7 +332,9 @@ def _k4_model(field, odv, z, noise_std, seed, save_semin, desc=None, sem_act=Fal
                         put(fr._P_ACT0 + depth, sub, v.t())
                     s_out = v[:, :head[5].k] @ wt_fp32(head[5])[:, :sem] + buf[head[5].b:
                                                                              head[5].b + sem]
-                    strip[qc[live], 5:5 + sem] = s_out[live]
+                    strip[ql, 5:5 + sem] = s_out[live]
+                    if listed:
+                        tstrip[ql - 128 * t, 3:3 + sem] = s_out[live]
                 i = depth + 1
                 h[:rd.ncols[i]] = (product(i, [in0, in1]) + bias(head[1], rd.ncols[i])).t()
                 if store:
@@ -308,7 +345,15 @@ def _k4_model(field, odv, z, noise_std, seed, save_semin, desc=None, sem_act=Fal
                 if store:
                     put(fr._P_HV, sub, v.t())
                 rgb = v[:, :head[3].k] @ wt_fp32(head[3])[:, :3] + buf[head[3].b:head[3].b + 3]
-                strip[qc[live], 2:5] = rgb[live]
+                strip[ql, 2:5] = rgb[live]
+                if listed:  # the warpgroup's rows but sigma from the tile's strip
+                    tstrip[ql - 128 * t, 0:3] = rgb[live]
+                    part = tstrip[ql - 128 * t]
+                    for c in range(C):
+                        if c != 3:
+                            put_row(r0 + ql, c, part[:, c if c < 3 else c - 1])
+        if listed:
+            continue
         strips.append(strip)
         raw = torch.cat([strip[:, 2:5], strip[:, 0:1], strip[:, 5:5 + sem]], 1)
         raw = raw.view(zc.shape[0], S, -1)
@@ -321,8 +366,10 @@ def _k4_model(field, odv, z, noise_std, seed, save_semin, desc=None, sem_act=Fal
         sem_in.append(semin)
     layers = range(depth) if sigma_only else fr.ring_layers(field)
     per_tile = sum(L[i].k // 8 for i in layers)
-    assert stages["n"] == 2 * per_tile * sum(-(-min(rpc, R_ - r0) * S // 128)
-                                             for r0 in range(0, R_, rpc))
+    assert stages["n"] == 2 * per_tile * sum(-(-nq // 128) for _, nq in spans)
+    if listed:
+        assert (written == 1).all() and not rows.isnan().any()
+        return rows[:, 0] if sigma_only else rows
     out = torch.cat(maps), torch.cat(weights), torch.cat(sem_in) if save_semin else None
     return out if desc is None else (*out, slices, torch.cat(strips))
 
@@ -572,36 +619,44 @@ def test_ring_repacks_a_changed_layer_only():
     assert list(rd.off) == list(rd2.off) and list(rd.ncols) == list(rd2.ncols)
 
 
-STORE_CASES = [  # (K3 or K6, depth, semantic head, its coordinates, noise)
+STORE_CASES = [  # (K3, K6 or K10b, depth, semantic head, its coordinates, noise)
     ("k3", 4, True, True, 0.6), ("k3", 5, False, False, 0.0), ("k6", 4, True, True, 0.0),
-    ("k6", 5, True, False, 0.6), ("k6", 4, False, False, 0.0)]
+    ("k6", 5, True, False, 0.6), ("k6", 4, False, False, 0.0), ("k10b", 5, False, False, 0.6),
+    ("k10b", 4, False, False, 0.0)]
 
 
 @pytest.mark.parametrize("mode,depth,sem,coord,noise", STORE_CASES)
 def test_storing_forward_model_feeds_the_reverse_sweep(mode, depth, sem, coord, noise):
-    """K3's and K6's storing forward on the 128-point tile, at S = 136:
-    chunks of 3 rays (the plan's, which sizes train_desc's planes), 408
-    points, 7 subs, so the last tile's second warpgroup lies wholly past
-    the points; the last chunk of 20 rays has 2 rays (272 points, 5 subs).
-    Every float of each stored plane's subs of the chunk's points is written
-    once and nothing else is written; the planes, fed through the reverse
-    sweep of ``_emulate_k3`` (with the tile's heads as the composite's
-    input), give ``rgb_train_grads_plain``'s and ``train_render_grads_plain``'s
-    gradients."""
+    """K3's, K6's and K10b's storing forward on the 128-point tile (K10b's
+    in its mip mode: fenceposts, the Gaussians and the integrated PE, the
+    mip field), at S = 136: chunks of 3 rays (the plan's, which sizes
+    train_desc's planes), 408 points, 7 subs, so the last tile's second
+    warpgroup lies wholly past the points; the last chunk of 20 rays has 2
+    rays (272 points, 5 subs). Every float of each stored plane's subs of
+    the chunk's points is written once and nothing else is written; the
+    planes, fed through the reverse sweep of ``_emulate_k3`` (with the
+    tile's heads as the composite's input; K10b's composite the mip one),
+    give ``rgb_train_grads_plain``'s, ``train_render_grads_plain``'s and
+    ``mip_train_render_grads_plain``'s gradients."""
     from test_torch_train_render import _emulate_k3
 
     torch.manual_seed(depth)
-    field = NeRFField(net_depth=depth, net_width=32, multires=4, multires_views=2,
-                      use_semantics=sem, sem_with_coord=coord, sem_dim=2)
-    S, k6 = 136, mode == "k6"
-    odv, z = (torch.from_numpy(a) for a in _inputs(depth, S))
+    S, k6, mip = 136, mode != "k3", mode == "k10b"
+    if mip:
+        field = MipNeRFField(net_depth=depth, net_width=32, multires=4, multires_views=2)
+        odv, z = (torch.from_numpy(a) for a in _mip_inputs(depth, S))
+    else:
+        field = NeRFField(net_depth=depth, net_width=32, multires=4, multires_views=2,
+                          use_semantics=sem, sem_with_coord=coord, sem_dim=2)
+        odv, z = (torch.from_numpy(a) for a in _inputs(depth, S))
     fdesc = fr.pack_field(field)[1]
     rpc, _ = fr._wg_plan(fdesc, fr.pack_ring(field)[1], S)
     desc = fr.train_desc(field, fdesc, fr.pack_train_bwd(field)[1], S, sem=k6 and sem,
                          rays_per_chunk=rpc)
     assert desc.rays_per_chunk == rpc == 3
     with torch.no_grad():
-        *_, slices, strip = _k4_model(field, odv, z, noise, 5, False, desc, sem_act=k6 and sem)
+        *_, slices, strip = _k4_model(field, odv, z, noise, 5, False, desc, sem_act=k6 and sem,
+                                      mip=mip)
     nsub = -(-rpc * S // WG)
     stored = ([fr._P_EMB, fr._P_DEMB, fr._P_FEAT, fr._P_HV]
               + [fr._P_ACT0 + i for i in range(depth + (k6 and sem))])
@@ -627,8 +682,11 @@ def test_storing_forward_model_feeds_the_reverse_sweep(mode, depth, sem, coord, 
         if k6:
             dmaps = torch.from_numpy(rng.normal(size=(R, 5 + sems)).astype(np.float32))
             dw = torch.from_numpy(rng.normal(size=(R, S)).astype(np.float32))
-            got, _, _ = _emulate_k3(field, odv, z, None, False, noise, 99, dmaps, dw, fwd=fwd)
-    if k6:
+            got, _, _ = _emulate_k3(field, odv, z, None, False, noise, 99, dmaps, dw, fwd=fwd,
+                                    mip=mip)
+    if mip:
+        want = fr.mip_train_render_grads_plain(field, odv, z, dmaps, dw, **kw)
+    elif k6:
         want = fr.train_render_grads_plain(field, odv, z, dmaps, dw, **kw)
     else:
         gt = torch.from_numpy(rng.uniform(0, 1, size=(R, 3)).astype(np.float32))
@@ -642,3 +700,177 @@ def test_storing_forward_model_feeds_the_reverse_sweep(mode, depth, sem, coord, 
         assert got[name].shape == g.shape, name
         err = float((got[name] - g).abs().max()) / (float(g.abs().max()) + 1e-9)
         assert err < 1e-5, (name, err)
+
+
+def _field_rows(n, seed):
+    """``n`` points in [-2, 2]^3, unit directions and small diagonal
+    covariances ``[n, 3]`` (float32 numpy)."""
+    rng = np.random.default_rng(seed)
+    pts = rng.uniform(-2, 2, size=(n, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3))
+    dirs = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    cov = rng.uniform(0, 0.02, size=(n, 3)).astype(np.float32)
+    return pts, dirs, cov
+
+
+N_LIST = 300  # 2 tiles and 44 points: the last tile's second warpgroup lies past N
+LIST_CASES = [  # (kernel, depth, semantic head, its coordinates, tiles a CTA)
+    ("k8b", 5, True, True, 2), ("k8b", 4, True, False, 1), ("k8b", 5, False, False, 1),
+    ("k8a", 5, True, True, 2), ("k11", 5, False, False, 2), ("k11", 4, False, False, 1)]
+
+
+@pytest.mark.parametrize("kernel,depth,sem,coord,per", LIST_CASES)
+def test_field_forwards_are_the_tile_in_point_list_mode(kernel, depth, sem, coord, per):
+    """The field forwards (K8b/K8d, K8a/K8e, K11) run K4's tile in its
+    point-list modes: the tile model on rows of points (a CTA ``per``
+    tiles, 300 points: the last tile's second warpgroup wholly past N;
+    sigma straight to its column, the other heads through the tile's strip
+    and the warpgroups' copy-out, each output float written once) against
+    the plain versions and the JAX package's field kernels (Pallas,
+    interpret mode), the fields' weights bridged from JAX, at 1e-5."""
+    pts, dirs, cov = _field_rows(N_LIST, 11 * depth + per)
+    tp, td, tc = (torch.from_numpy(a) for a in (pts, dirs, cov))
+    if kernel == "k11":
+        jcfg, params, tnet = _mip_nets(depth)
+        field = tnet.mip
+        with torch.no_grad():
+            got = _k4_model(field, None, None, 0.0, 0, False, mip=True, points=(tp, tc, td),
+                            per=per)
+            want = ff.mip_field_plain(field, tp, tc, td)
+        pd = jnp.asarray(np.concatenate([pts.T, cov.T, dirs.T], 0))
+        jax_out = np.asarray(jff.fused_mip_apply_planar(params["mip"], pd, jcfg)).T
+    else:
+        jcfg, params, tnet = _nets(depth, sem, coord)
+        field = tnet.nerf
+        with torch.no_grad():
+            if kernel == "k8a":
+                got = _k4_model(field, None, None, 0.0, 0, False, sigma_only=True, points=(tp,),
+                                per=per)
+                want = ff.sigma_plain(field, tp)
+            else:
+                got = _k4_model(field, None, None, 0.0, 0, False, points=(tp, td), per=per)
+                want = ff.field_plain(field, tp, td)
+        if kernel == "k8a":
+            jax_out = np.asarray(jff.fused_sigma_apply(params["coarse"], jnp.asarray(pts),
+                                                       jcfg, depth=depth))[:, 0]
+        else:
+            jax_out = np.asarray(jff.fused_field_apply(params["coarse"], jnp.asarray(pts)[:, None],
+                                                       jnp.asarray(dirs), jcfg,
+                                                       depth=depth))[:, 0]
+    assert got.shape == want.shape == jax_out.shape
+    assert got.shape == ((N_LIST,) if kernel == "k8a" else (N_LIST, 4 + 2 * sem))
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(got.numpy(), jax_out, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("sem,mip", [(True, False), (False, False), (False, True)])
+def test_field_plan_takes_three_ring_stages_at_the_flagship(sem, mip):
+    """``_field_plan`` at the flagship widths (8 x 256, multires 10/4; the
+    semantic head with coordinates, sem_dim 2; the mip field): three ring
+    stages beside the tiles and the compact strip (3 + sem floats a point)
+    within the shared memory, for the field forward and the sigma forward,
+    and one wave of runs of consecutive tiles (2^18 points on 132 SMs: 16
+    tiles a CTA, 128 CTAs; 1024 x 64: 4; 32768 x 64: 125)."""
+    torch.manual_seed(0)
+    if mip:
+        field = MipNeRFField(net_depth=8, net_width=256, multires=10, multires_views=4)
+    else:
+        field = NeRFField(net_depth=8, net_width=256, multires=10, multires_views=4,
+                          use_semantics=sem, sem_with_coord=sem, sem_dim=2)
+    fdesc = fr.pack_field(field)[1]
+    ring = fr.pack_ring(field)[1]
+    for heads in (True, False):
+        for n, want in ((1 << 18, 16), (1024 * 64, 4), (32768 * 64, 125), (300, 1), (1, 1)):
+            per, rd = ff._field_plan(fdesc, ring, n, 132, heads)
+            assert per == want and rd.stages == 3, (n, heads, per, rd.stages)
+            assert ff._field_smem(fdesc, rd, heads) <= fr._MAX_SMEM
+            assert -(-n // (128 * per)) <= 132
+    assert ring.stages == 0  # the cached descriptor is not touched
+
+
+def test_field_and_k10b_wrappers_launch_the_tile_with_a_ring(monkeypatch):
+    """On CUDA tensors fused_sigma_apply, field_forward and
+    fused_mip_field_apply launch K4's tile in its point-list modes through
+    ``_field_launch`` (no plain fallback) and count the launch, and
+    mip_train_render_grads launches K10b through ``_mip_grads_launch``;
+    those call the library's ``nerf_field_sigma``, ``nerf_field``,
+    ``nerf_mip_field`` and ``nerf_mip_train_render_grads`` once each with
+    ``pack_ring``'s buffer, ``_field_plan``'s tiles a CTA and ring stages
+    (``_wg_plan``'s chunk and stages for K10b) and their inputs (here on
+    a library that records the calls)."""
+    torch.manual_seed(4)
+    field = NeRFField(net_depth=4, net_width=32, multires=4, multires_views=2,
+                      use_semantics=True, sem_with_coord=True, sem_dim=2)
+    mfield = MipNeRFField(net_depth=5, net_width=32, multires=4, multires_views=2)
+    pts, dirs, cov = (torch.from_numpy(a) for a in _field_rows(N_LIST, 3))
+    odvr, z = (torch.from_numpy(a) for a in _mip_inputs(3, 63))
+    dmaps, dw = torch.ones(R, 5), torch.ones(R, 63)
+    seen = []
+    monkeypatch.setattr(ff, "_check_points", lambda *a, **k: None)
+    monkeypatch.setattr(fr, "_check_inputs", lambda *a, **k: None)
+    monkeypatch.setattr(ff, "_field_launch", lambda f, name, out, heads, *ins: seen.append(
+        (f, name, tuple(out.shape), heads, ins)))
+    monkeypatch.setattr(fr, "_mip_grads_launch", lambda *a: seen.append(a) or torch.zeros(
+        fr.grad_layout(mfield)[1]))
+    card = [t.as_subclass(_OnCard) for t in (pts, dirs, cov, odvr, z, dmaps, dw)]
+    counts = (ff.fused_sigma_apply.launches, ff.field_forward.launches,
+              ff.fused_mip_field_apply.launches, fr.mip_train_render_grads.launches)
+    monkeypatch.setattr(torch, "empty", lambda shape, **kw: torch.zeros(shape))
+    ff.fused_sigma_apply(field, card[0])
+    ff.field_forward(field, card[0], card[1])
+    ff.fused_mip_field_apply(mfield, card[0], card[2], card[1])
+    fr.mip_train_render_grads(mfield, *card[3:], noise_std=1.0, seed=5)
+    assert (ff.fused_sigma_apply.launches, ff.field_forward.launches,
+            ff.fused_mip_field_apply.launches, fr.mip_train_render_grads.launches) == tuple(
+                c + 1 for c in counts)
+    assert [s[1:4] for s in seen[:3]] == [("nerf_field_sigma", (N_LIST,), False),
+                                          ("nerf_field", (N_LIST, 6), True),
+                                          ("nerf_mip_field", (N_LIST, 4), True)]
+    assert [len(s[4]) for s in seen[:3]] == [1, 2, 3] and seen[3][0] is mfield
+    assert seen[3][1] is card[3] and seen[3][2] is card[4] and seen[3][5:] == (1.0, 5)
+    monkeypatch.undo()
+
+    calls = []
+
+    class Lib:
+        def __getattr__(self, name):
+            return lambda *a: calls.append((name, a)) or 0
+
+    props = type("Props", (), {"multi_processor_count": 132})()
+    monkeypatch.setattr(fr._build, "library", Lib)
+    monkeypatch.setattr(fr._build, "stream", lambda device: None)
+    monkeypatch.setattr(fr.torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(fr.torch.cuda, "get_device_properties", lambda device: props)
+    for f, name, C, heads, ins in ((field, "nerf_field_sigma", 1, False, (pts,)),
+                                   (field, "nerf_field", 6, True, (pts, dirs)),
+                                   (mfield, "nerf_mip_field", 4, True, (pts, cov, dirs))):
+        out = torch.empty((N_LIST, C) if C > 1 else (N_LIST,))
+        ff._field_launch(f, name, out, heads, *ins)
+        (got, a), = calls[-1:]
+        buf, fdesc = fr._packed(f, pts.device)
+        rbuf, ring = fr._ring(f, pts.device)
+        per, rd = ff._field_plan(fdesc, ring, N_LIST, 132, heads)
+        assert got == name and torch.equal(rbuf, fr.pack_ring(f)[0]) and per == 1
+        k = len(ins)
+        assert a[:k] == tuple(t.data_ptr() for t in ins)
+        assert a[k:k + 2] == (buf.data_ptr(), rbuf.data_ptr())
+        assert a[k + 2]._obj.f.emb_dim == fdesc.emb_dim and bytes(a[k + 3]._obj) == bytes(rd)
+        assert rd.stages == 4 and a[k + 4:] == (out.data_ptr(), N_LIST, per, None)
+    flat = fr._mip_grads_launch(mfield, odvr, z, dmaps, dw, 1.0, 5)
+    (got, a), = calls[-1:]
+    buf, fdesc = fr._packed(mfield, odvr.device)
+    rbuf, ring = fr._ring(mfield, odvr.device)
+    rpc, rd = fr._wg_plan(fdesc, ring, 63)
+    bring, brd = fr._bwd_ring(mfield, odvr.device)
+    assert got == "nerf_mip_train_render_grads" and rpc == 8
+    assert a[:7] == (odvr.data_ptr(), z.data_ptr(), dmaps.data_ptr(), dw.data_ptr(),
+                     buf.data_ptr(), rbuf.data_ptr(), bring.data_ptr())
+    desc = a[7]._obj
+    assert desc.rays_per_chunk == rpc and bytes(a[8]._obj) == bytes(rd) and rd.stages >= 2
+    assert bytes(a[9]._obj) == bytes(brd) and a[12] == flat.data_ptr()
+    assert a[13:15] == (R, 63) and a[17:] == (fr.noise_seed(5), 1.0, None)
+    with pytest.raises(NotImplementedError):  # no kernel and no plain fallback off the card
+        ff.field_forward(field, pts.to("meta"), dirs.to("meta"))
+    with pytest.raises(NotImplementedError):
+        fr.mip_train_render_grads(mfield, odvr.to("meta"), z.to("meta"), dmaps, dw,
+                                  noise_std=1.0, seed=5)

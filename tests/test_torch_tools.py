@@ -113,3 +113,42 @@ def test_tile_probe_rejects_the_old_tiles_variants(tmp_path, variant):
     shutil.copytree(_build.CSRC_DIR, csrc)
     with pytest.raises(ValueError, match="unknown variant"):
         tile_probe._patch(variant, str(csrc))
+
+
+def test_tile_probe_wgclock_counts_the_field_forwards(tmp_path):
+    """``wgclock`` also counts the field forwards' tile loop
+    (``field_wg_kernel`` in ``csrc/fused_field.cu``, a translation unit of
+    its own, read by ``probe_read_field``) and the point-list modes'
+    copy-out in ``wg_tile.cuh``; K10b's forward is ``train_forward_wg_kernel``,
+    whose tile loop the K3/K6 counter already covers."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC_DIR, csrc)
+    tile_probe._patch("wgclock", str(csrc))
+    field = (csrc / "fused_field.cu").read_text()
+    body = field[field.index("    field_wg_kernel("):]
+    body = body[:body.index("\n}\n")]
+    assert body.count("PROBE_ADD(0, p_start);") == 1 and "p_start = clock64();" in body
+    assert 'extern "C" int probe_read_field(' in field
+    tile = (csrc / "wg_tile.cuh").read_text()
+    assert "PROBE_ADD(6, p_o);" in tile and "long long p_o = clock64();" in tile
+    kern = (csrc / "train_render.cu").read_text()
+    fwd = kern[kern.index("    train_forward_wg_kernel("):]
+    fwd = fwd[:fwd.index("\n}\n")]
+    assert "PROBE_ADD(0, p_start);" in fwd and "composite_chunk<kMode, kMip" in fwd
+
+
+@pytest.mark.parametrize("kernel", ["k8b", "k8a", "k11", "k10b", "k9", "k4", "k1"])
+def test_tile_probe_takes_the_tile_kernels(kernel):
+    """``--kernel`` takes every kernel that runs K4's tile, the field
+    forwards and K10b among them, with the rays, samples and variants."""
+    a = tile_probe.parser().parse_args(["--kernel", kernel, "--rays", "4096", "--samples",
+                                        "64,32", "--variants", "base,wgclock"])
+    assert (a.kernel, a.rays, a.samples, a.variants) == (kernel, 4096, "64,32", "base,wgclock")
+
+
+@pytest.mark.parametrize("kernel", ["k8c", "k8f", "k7"])
+def test_tile_probe_rejects_kernels_off_the_tile(kernel, capsys):
+    """Kernels that run no part of K4's tile (the field backward, K7) are
+    refused by the argument parser."""
+    with pytest.raises(SystemExit):
+        tile_probe.parser().parse_args(["--kernel", kernel])

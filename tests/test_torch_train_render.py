@@ -161,7 +161,7 @@ def _emulate_forward(field, odv, z):
 
 
 def _emulate_k3(field, odv, z, gt, white, noise_std, seed, dmaps=None, dweights=None, fwd=None,
-                dx=None, dwb=None):
+                dx=None, dwb=None, mip=False):
     """What csrc/train_render.cu computes, step for step, in feature-major
     torch matrices built only from the packed buffers: the forward
     (``fwd``, by default ``_emulate_forward``'s), the composite and its
@@ -176,7 +176,9 @@ def _emulate_k3(field, odv, z, gt, white, noise_std, seed, dmaps=None, dweights=
     ``pack_train_bwd``'s matrix in one product. ``dwb(layer, segs, dy)``:
     layer's (dW ``[rows of segs, dy rows]``, db) from its input rows
     ``segs`` and its cotangent rows ``dy``; by default one product and one
-    sum."""
+    sum. ``mip`` (K10b, with ``fwd`` given): ``z`` holds fenceposts
+    ``[R, S + 1]``, an interval's distance is its length (no far pad) and
+    its depth the midpoint."""
     fd = tfr.pack_field(field)[1]
     bbuf, bwd = tfr.pack_train_bwd(field)
     if dx is None:
@@ -184,7 +186,7 @@ def _emulate_k3(field, odv, z, gt, white, noise_std, seed, dmaps=None, dweights=
             y = _mm(bbuf, bwd[i], segs) + (0 if add is None else add)
             return y if gate is None else y * (gate > 0)
     depth, skip, sem = fd.depth, fd.skip, fd.sem_dim
-    Rn, S = z.shape
+    Rn, S = z.shape[0], z.shape[1] - int(mip)
     fwd = _emulate_forward(field, odv, z) if fwd is None else fwd
     emb, demb, acts, feat, hv, s_act = (fwd[k] for k in ("emb", "demb", "acts", "feat", "hv",
                                                           "s_act"))
@@ -196,7 +198,11 @@ def _emulate_k3(field, odv, z, gt, white, noise_std, seed, dmaps=None, dweights=
         sigma = sigma + tfr.noise_plain(seed, Rn, S, noise_std)
 
     nd = torch.sqrt(odv[:, 3] ** 2 + odv[:, 4] ** 2 + odv[:, 5] ** 2)
-    D = torch.cat([z[:, 1:] - z[:, :-1], torch.full_like(z[:, :1], 1e10)], 1) * nd[:, None]
+    if mip:
+        D = (z[:, 1:] - z[:, :-1]) * nd[:, None]
+        z = (z[:, :-1] + z[:, 1:]) * 0.5  # the depth of an interval
+    else:
+        D = torch.cat([z[:, 1:] - z[:, :-1], torch.full_like(z[:, :1], 1e10)], 1) * nd[:, None]
     e = torch.exp(-torch.clamp(sigma, min=0) * D)
     alpha, y = 1 - e, e + 1e-10
     T = torch.ones_like(e)
