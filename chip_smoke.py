@@ -140,7 +140,8 @@ Phases (one line each; any failure raises and the exit code is nonzero):
      (K8f) and with the points' and directions' gradients (K8c): every leaf
      to GRAD_TOL plus its gate allowance, dpts/ddirs to GRAD_TOL on
      gate-clear points, two calls bitwise equal, each mode's forward/reverse
-     split and the reverse kernel's ptxas line;
+     split, the forward's ring stages and the forward and reverse kernels'
+     ptxas lines;
  25. [eval_vol]: ``run_nerf.main --eval_vol`` (a 256^3 grid, 64 chunks of
      2^18 points) on the [eval] phase's checkpoint, then with --mipnerf on
      the [mip_train] run's: 64 launches of the field kernel (K11), both
@@ -248,8 +249,9 @@ MUFU_LANES_PER_CLOCK = 16
 # K2's), for K1's (its sigma-only mode, <kInSigma>), for K9's and K10a's
 # (its mip mode, <kInMip>), for K5's (frozen_sem_kernel), for
 # K3's and K6's forward (train_forward_wg_kernel, kLoss and kCotangent) and
-# for the reverse-sweep kernel (train_reverse_kernel by (kSem, kInGrad)),
-# read from the build log in main
+# for the reverse-sweep kernel (train_reverse_kernel by (kSem, kInGrad)) and
+# for the field backward's forward (field_bwd_forward_kernel by (kSem,
+# kInGrad)), read from the build log in main
 K1_PTXAS = None
 K4_PTXAS = None
 K9_PTXAS = None
@@ -257,11 +259,12 @@ FIELD_PTXAS = {}  # field_wg_kernel by input mode: kInList 3, kInListSigma 4, kI
 K5_PTXAS = None
 FWD_PTXAS = {}
 REV_PTXAS = {}
+FIELD_BWD_PTXAS = {}
 # ptxas's line and the SASS pair loop (sass_spills.inner_loop) of each of
 # K7's kernels, by the part of its mangled name K7_KERNEL matches:
-# rowsum_kernel (K7a) and every loss_tile_kernel and grad_tile_kernel
+# rowsum_tile_kernel (K7a) and every loss_tile_kernel and grad_tile_kernel
 # instantiation (ILi<heads>ELi<S>E)
-K7_KERNEL = re.compile(r"(rowsum_kernel|(?:loss|grad)_tile_kernelILi\dELi\dE)")
+K7_KERNEL = re.compile(r"(rowsum_tile_kernel|(?:loss|grad)_tile_kernelILi\dELi\dE)")
 K7_PTXAS = {}
 K7_SASS = {}
 
@@ -607,11 +610,12 @@ def check_k6(what: str, got, want, slack, terms, kernel: str = "K6") -> dict:
             "grad_err_over_bound": over}
 
 
-# forward_split's ptxas lines: the forward kernel's (mode, input mode) on
-# K4's tile (the field backward's 64-point forward prints none) and the
-# reverse-sweep kernel's (kSem, kInGrad)
+# forward_split's ptxas lines: the forward kernel's on K4's tile (K3, K6,
+# K10b: train_forward_wg_kernel's (mode, input mode); K8f, K8c:
+# field_bwd_forward_kernel's (kSem, kInGrad)) and the reverse-sweep
+# kernel's (kSem, kInGrad)
 SPLIT_PTXAS = {"K3": ((1, 0), (0, 0)), "K6": ((2, 0), (1, 0)), "K10b": ((2, 2), (0, 0)),
-               "K8f": (None, (1, 0)), "K8c": (None, (1, 1))}
+               "K8f": ((1, 0), (1, 0)), "K8c": ((1, 1), (1, 1))}
 
 
 def forward_split(run, kernel: str) -> dict:
@@ -622,8 +626,8 @@ def forward_split(run, kernel: str) -> dict:
     built once under build/tile_probe/), its time the forward's; the reverse
     sweep's is the whole call's less that. The kernels' own library is put
     back after. ``forward_ptxas`` (K3: kLoss, K6: kCotangent, K10b:
-    kCotangent in the mip mode) and ``reverse_ptxas``: the kernels' ptxas
-    lines."""
+    kCotangent in the mip mode, K8f/K8c: the field backward's forward) and
+    ``reverse_ptxas``: the kernels' ptxas lines."""
     from nerfsos_torch import _build
     from nerfsos_torch.tools import tile_probe
 
@@ -637,11 +641,10 @@ def forward_split(run, kernel: str) -> dict:
         _build.library.cache_clear()
         _build.library()
     fwd_mode, rev_mode = SPLIT_PTXAS[kernel]
-    out = {"forward_ms": fwd, "reverse_ms": whole - fwd,
-           "reverse_ptxas": repr(REV_PTXAS.get(rev_mode))}
-    if fwd_mode is not None:
-        out["forward_ptxas"] = repr(FWD_PTXAS.get(fwd_mode))
-    return out
+    fwd_ptxas = FIELD_BWD_PTXAS if kernel in ("K8f", "K8c") else FWD_PTXAS
+    return {"forward_ms": fwd, "reverse_ms": whole - fwd,
+            "forward_ptxas": repr(fwd_ptxas.get(fwd_mode)),
+            "reverse_ptxas": repr(REV_PTXAS.get(rev_mode))}
 
 
 def kernel_vs_plain_k3(fr, R: int, S: int, use_semantics: bool, white_bkgd: bool) -> dict:
@@ -1121,16 +1124,12 @@ def k4_cost(field, R: int, S: int) -> dict:
 def k4_design(field, R: int, S: int, ms: float) -> dict:
     """What K4's design moves and reaches on R x S points in ms: the weight
     bytes a point reads from L2 (pack_ring's stages, once per 128-point
-    tile, against the 64-point dense() tile's hi and lo fragments, read by
-    both warps along its points: 2 x 8 B per k x pad8(n) entry a tile), the
-    achieved 3xTF32 rate and its peak, and ptxas's line for the kernel."""
+    tile), the achieved 3xTF32 rate and its peak, and ptxas's line for the
+    kernel."""
     from nerfsos_torch.ops import fused_render as fr
 
     ring, _ = fr.pack_ring(field)
-    old = sum(L.k * ((L.n + 7) // 8 * 8) for L in fr.pack_field(field)[1].layer
-              if L.n > 8) * 16 / 64
     return {"l2_weight_bytes_per_point": ring.numel() * 4 / 128,
-            "dense_tile_l2_weight_bytes_per_point": old,
             "achieved_tflop_s": R * S * field_flops(field, "k2") / ms / 1e9,
             "mma_peak_tflop_s": FP32_MMA_FLOP_S / 1e12, "ptxas": repr(K4_PTXAS)}
 
@@ -1173,7 +1172,7 @@ def max_sm_clock_hz() -> float:
 
 def k7_design(kernel: str, heads: int, B2: int, N: int, S: int) -> dict:
     """One K7 kernel's design numbers at a call of B2 x N pixels: its grid
-    (rowsum_kernel: a row a thread; the pair sweeps: fc.tile_grid's tiles),
+    (fc.tile_grid's tiles; rowsum_tile_kernel's: 256 rows, no codes),
     ptxas's line, and the issue-rate bound: the SASS pair loop's
     instructions a pair (the loop's MUFU reciprocals over the pair's, one
     for fd and one a head in the sweeps) times the pairs over the SMs' issue
@@ -1181,8 +1180,8 @@ def k7_design(kernel: str, heads: int, B2: int, N: int, S: int) -> dict:
     that is slower."""
     from nerfsos_torch.ops import flash_corr as fc
 
-    if kernel == "rowsum_kernel":
-        grid, rcp = [-(-N // 128), B2], 1
+    if kernel == "rowsum_tile_kernel":
+        grid, rcp = [*fc.tile_grid(N, 0, 0), B2], 1
     else:
         grid, rcp = [*fc.tile_grid(N, S, heads), B2], 1 + heads
         kernel = f"{kernel}ILi{heads}ELi{S}E"
@@ -1524,11 +1523,13 @@ def kernel_vs_plain_k7(fc, calls) -> dict:
     if not (finite and max(err.values()) <= K7_TOL):
         raise SystemExit(f"K7 disagrees with its plain version: relative errors {err} "
                          f"(tol {K7_TOL}), finite={finite}")
+    rm2, gm2 = fc.geo_row_stats(*a_rs)
     out2 = fc.geo_quad_means(*a_m)
     grads2 = fc.geo_quad_grads(*a_g)
     torch.cuda.synchronize()
-    if not (torch.equal(out, out2) and all(torch.equal(x, y) for x, y in zip(grads, grads2))):
-        raise SystemExit("K7's means or gradients differ between two calls")
+    if not (torch.equal(rm, rm2) and torch.equal(gm, gm2) and torch.equal(out, out2)
+            and all(torch.equal(x, y) for x, y in zip(grads, grads2))):
+        raise SystemExit("K7's row stats, means or gradients differ between two calls")
     with torch.no_grad():
         t = {"K7a": (cuda_ms(lambda: fc.geo_row_stats(*a_rs)),
                      cuda_ms(lambda: fc.geo_row_stats_plain(*a_rs), reps=3)),
@@ -1548,7 +1549,7 @@ def kernel_vs_plain_k7(fc, calls) -> dict:
           **{f"rel_err_{k}": v for k, v in err.items()}, tol=K7_TOL, deterministic=True,
           **{f"{k}_ms": v[0] for k, v in t.items()}, **{f"{k}_plain_ms": v[1] for k, v in t.items()},
           **{f"{k}_bound_ms": costs[k]["bound_ms"] for k in costs})
-    for k, kernel in (("K7a", "rowsum_kernel"), ("K7f", "loss_tile_kernel"),
+    for k, kernel in (("K7a", "rowsum_tile_kernel"), ("K7f", "loss_tile_kernel"),
                       ("K7g", "grad_tile_kernel")):
         phase("K7_design", kernel=k, **k7_design(kernel, 2, B2, N, S))
     kerr = {"K7a": max(abs_err["rowmean"], abs_err["gmean"]), "K7f": abs_err["means"],
@@ -2378,7 +2379,8 @@ def kernel_vs_plain_k8_bwd(ff) -> dict:
     1024 rays x 64 samples = 65536 points (``ray_inputs``), of the flagship
     field with the semantic head (coordinates), from a seeded cotangent, in
     both modes: weights only (K8f) and with dpts/ddirs (K8c); each checked
-    by ``check_field_grads`` and two calls bitwise equal."""
+    by ``check_field_grads`` and two calls bitwise equal, with its
+    forward's ring stages (``_field_ring``) and ``forward_split``."""
     from nerfsos_torch.core.sampling import points_along_rays
 
     field = seeded_field(43, net_depth=8, net_width=256, multires=10, multires_views=4,
@@ -2388,6 +2390,9 @@ def kernel_vs_plain_k8_bwd(ff) -> dict:
     dirs = odv[:, None, 6:9].expand(1024, 64, 3).reshape(-1, 3).contiguous()
     N = pts.shape[0]
     g = torch.from_numpy(np.random.default_rng(45).normal(size=(N, 6)).astype(np.float32)).cuda()
+    from nerfsos_torch.ops import fused_render as fr
+    stages = ff._field_ring(fr._packed(field, pts.device)[1], fr._ring(field, pts.device)[1],
+                            True).stages
     out = {}
     for input_grads in (False, True):
         kernel = "K8c" if input_grads else "K8f"
@@ -2412,7 +2417,8 @@ def kernel_vs_plain_k8_bwd(ff) -> dict:
                                                      input_grads=input_grads), kernel)
         phase("K8_bwd", mode=kernel, points=N, launches={"field_grads": launches[0],
                                                           "input_grad_mode": launches[1]},
-              **close, deterministic=True, ms=ms, plain_ms=plain_ms, **split, **cost)
+              **close, deterministic=True, ms=ms, plain_ms=plain_ms, ring_stages=stages, **split,
+              **cost)
         out[kernel] = {"max_abs_err": close["max_abs_err"], "ms": ms, "plain_ms": plain_ms,
                        **cost, "library_ms": None}
     return out
@@ -2727,6 +2733,10 @@ def main() -> int:
             mode, kin = line.split("train_forward_wg_kernelILi")[1].split("ELi")[:2]
             FWD_PTXAS[(int(mode), int(kin[0]))] = "; ".join(
                 x.replace("ptxas info    :", "").strip() for x in lines[i + 2:i + 4])
+        if "Compiling entry function" in line and "field_bwd_forward_kernel" in line:
+            sem, ingrad = line.split("field_bwd_forward_kernelILb")[1].split("ELb")[:2]
+            FIELD_BWD_PTXAS[(int(sem[0]), int(ingrad[0]))] = "; ".join(
+                x.replace("ptxas info    :", "").strip() for x in lines[i + 2:i + 4])
         if "Compiling entry function" in line and "field_wg_kernelILi" in line:
             FIELD_PTXAS[int(line.split("field_wg_kernelILi")[1][0])] = "; ".join(
                 x.replace("ptxas info    :", "").strip() for x in lines[i + 2:i + 4])
@@ -2746,15 +2756,17 @@ def main() -> int:
             serialised.append(line.strip())
     if (K1_PTXAS is None or K4_PTXAS is None or K5_PTXAS is None or K9_PTXAS is None
             or sorted(FWD_PTXAS) != [(1, 0), (2, 0), (2, 2)] or len(REV_PTXAS) != 4
-            or sorted(FIELD_PTXAS) != [3, 4, 5]):
+            or sorted(FIELD_PTXAS) != [3, 4, 5] or len(FIELD_BWD_PTXAS) != 4):
         raise SystemExit("no ptxas report for K1's, K4's and K9's kernel (train_render_wg_kernel "
                          "in its three input modes), K5's (frozen_sem_kernel), K3's, K6's and "
                          "K10b's forward (train_forward_wg_kernel), the field forwards' three "
-                         "point-list modes (field_wg_kernel) or the reverse sweep's four modes "
-                         f"(train_reverse_kernel): forward {sorted(FWD_PTXAS)}, field "
-                         f"{sorted(FIELD_PTXAS)}")
-    # every wgmma kernel keeps its pipeline: K1/K2/K4's, K5's, K3's, K6's and
-    # K10b's forward, the field forwards', and the reverse sweep's bwd_layer
+                         "point-list modes (field_wg_kernel), the field backward's forward's "
+                         "four modes (field_bwd_forward_kernel) or the reverse sweep's four "
+                         f"modes (train_reverse_kernel): forward {sorted(FWD_PTXAS)}, field "
+                         f"{sorted(FIELD_PTXAS)}, field backward {sorted(FIELD_BWD_PTXAS)}")
+    # every wgmma kernel keeps its pipeline: K1/K2/K4's, K5's, K3's, K6's,
+    # K10b's and the field backward's forward, the field forwards', and the
+    # reverse sweep's bwd_layer
     # and wgrad products (one inlined call site each, no call in the kernel)
     if serialised:
         raise SystemExit(f"ptxas serialised wgmma: {serialised}")
@@ -2765,7 +2777,7 @@ def main() -> int:
         m = K7_KERNEL.search(name)
         if m:
             K7_SASS[m.group(1)] = sass_spills.inner_loop(sass)
-    k7_kernels = ["rowsum_kernel"] + [f"{k}_tile_kernelILi{h}ELi{c}E" for k in ("loss", "grad")
+    k7_kernels = ["rowsum_tile_kernel"] + [f"{k}_tile_kernelILi{h}ELi{c}E" for k in ("loss", "grad")
                                       for h in (1, 2) for c in range(1, 9)]
     if sorted(K7_PTXAS) != sorted(k7_kernels) or not all(
             K7_SASS.get(k, {}).get("mufu") for k in k7_kernels):

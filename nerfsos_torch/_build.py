@@ -182,9 +182,9 @@ def library() -> ctypes.CDLL:
     lib.nerf_field_sigma.argtypes = [vp, vp, vp, train_p, ring_p, vp, i64, i32, vp]
     lib.nerf_field.argtypes = [vp, vp, vp, vp, train_p, ring_p, vp, i64, i32, vp]
     lib.nerf_mip_field.argtypes = [vp, vp, vp, vp, vp, train_p, ring_p, vp, i64, i32, vp]
-    lib.nerf_field_grads.argtypes = [vp, vp, vp, vp, vp, vp, train_p, ring_p, ring_p, vp, vp, vp,
-                                     vp, vp, i32, i32, i32, vp]
-    lib.geo_row_stats.argtypes = [vp, vp, vp, vp, i32, i32, i32, f32, vp]
+    lib.nerf_field_grads.argtypes = [vp] * 7 + [train_p, ring_p, ring_p, ring_p] + [vp] * 5 + [
+        i32, i32, i32, vp]
+    lib.geo_row_stats.argtypes = [vp] * 5 + [ctypes.c_longlong] + [i32] * 3 + [f32, vp]
     lib.geo_means.argtypes = [vp] * 10 + [ctypes.c_longlong] + [i32] * 5 + [f32, f32, f32, vp]
     lib.geo_grads.argtypes = [vp] * 14 + [ctypes.c_longlong] + [i32] * 5 + [f32, f32, f32, vp]
     lib.geo_rcp_mismatches.argtypes = [vp, vp]

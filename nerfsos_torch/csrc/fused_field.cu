@@ -47,16 +47,20 @@
 //     fits beside the flagship's tiles), and each warpgroup copies its 64
 //     points' rows out, masked at N, after its last head;
 //   * the backward is K6's: per wave of 512-point chunks, one a CTA, a
-//     forward kernel recomputes the chunk on the 64-point tile
-//     (train_sweep.cuh forward_tile, its last caller), storing every
-//     activation in the CTA's workspace slice, and copies g into the planes
-//     K6's composite fills (rgb logits, sigma, semantics; zero in the
-//     padding rows and past N); K6's reverse sweep (train_reverse_kernel)
-//     follows, and a last kernel sums the CTAs' partial dW/db in CTA order,
-//     so two calls give bitwise-equal gradients. The input-gradient mode
-//     gathers the cotangent of the point PE from every layer that reads it
-//     and that of the view PE from the views layer, and runs both back
-//     through the PE (pe_grads), as fused_field.py:454-465 does.
+//     forward kernel (field_bwd_forward_kernel) recomputes the chunk on the
+//     same tile in its storing point-list mode (wg_forward_tile<kStore,
+//     kSemAct, kInList>: every activation the reverse sweep reads goes from
+//     the epilogues to the CTA's workspace slice, 4 tiles a chunk, the
+//     weights through the forward ring; no output row is written), then its
+//     consumers copy g into the planes K6's composite fills (rgb logits,
+//     sigma, semantics; zero in the padding rows and past N); K6's reverse
+//     sweep (train_reverse_kernel) follows, and a last kernel sums the CTAs'
+//     partial dW/db in CTA order, so two calls give bitwise-equal
+//     gradients. The input-gradient mode gathers the cotangent of the point
+//     PE from every layer that reads it and that of the view PE from the
+//     views layer, and runs both back through the PE (pe_grads, from the
+//     stored x, its phases rounded as pe_rows_wg rounds them), as
+//     fused_field.py:454-465 does.
 // Precision: the PE phases reach |x| 2^9 rad (7.2e3 at the x14 grid of the
 // density export) and are formed with explicit round-to-nearest operations
 // in the plain version's order, as are the IPE's; accurate sinf/cosf/expf,
@@ -65,25 +69,6 @@
 #include "wg_tile.cuh"
 
 namespace {
-
-// forward_tile's inputs for the field backward's forward: point q of the
-// chunk is row base + q of pts [N, 3], seen from row base + q of dirs.
-struct PointFill {
-  const float* pts;
-  const float* dirs;
-  long long base;
-  int nq;
-
-  __device__ __forceinline__ void operator()(float* emb, float* demb, int q0) const {
-    for (int t = threadIdx.x; t < 3 * kPts; t += kThreads) {
-      const int ch = t / kPts, p = t % kPts, q = q0 + p;
-      const bool live = q < nq;
-      const size_t i = (size_t)(base + (live ? q : 0)) * 3 + ch;
-      emb[ch * kLd + p] = live ? pts[i] : 0.f;
-      demb[ch * kLd + p] = live ? dirs[i] : 0.f;
-    }
-  }
-};
 
 // The sigma forward (kInListSigma), the field forward (kInList) and K11
 // (kInListGauss) on K4's tile: CTA b takes the tiles of points [b per 128,
@@ -139,33 +124,44 @@ int field_launch(const float* pts, const float* cov, const float* dirs, const fl
   return (int)cudaGetLastError();
 }
 
-// Wave `wave` of the field backward's forward: CTA b takes chunk
-// wave * gridDim.x + b (d.rays_per_chunk points) into its workspace slice b:
-// every activation the reverse sweep reads (kSem: the semantic head's
-// hidden activation too), then the cotangent of each output from
+// Wave `wave` of the field backward's forward on K4's tile: CTA b takes
+// chunk wave * gridDim.x + b (d.rays_per_chunk points) in 128-point tiles
+// (threads, registers and shared memory as field_wg_kernel's, the ring of
+// ring and rd: every layer) and writes every activation the reverse sweep
+// reads into its workspace slice b, sub 2 t + w for warpgroup w of tile t
+// (wg_forward_tile's kStore; kSem: the semantic head's hidden activation
+// too); then the consumers copy the cotangent of each output from
 // g [N, 4 + sem] into the planes that K6's composite fills (rgb logits,
 // sigma, semantics), zero in their padding rows and past N. kInGrad: the
 // plane the sweep gathers the point PE's cotangent in is zeroed.
 template <bool kSem, bool kInGrad>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(kWgThreads, 1)
     field_bwd_forward_kernel(const float* __restrict__ pts, const float* __restrict__ dirs,
                              const float* __restrict__ g, const float* __restrict__ params,
-                             const __grid_constant__ TrainDesc d, float* __restrict__ workspace,
+                             const float* __restrict__ ring, const __grid_constant__ TrainDesc d,
+                             const __grid_constant__ RingDesc rd, float* __restrict__ workspace,
                              int N, int wave) {
-  extern __shared__ float4 smem4[];
-  const int rpc = d.rays_per_chunk;
-  const int c = wave * gridDim.x + blockIdx.x;
+  extern __shared__ __align__(128) unsigned char wg_raw[];
+  const int rpc = d.rays_per_chunk, c = wave * gridDim.x + blockIdx.x;
   if (c * rpc >= N) return;
-  float* tile = reinterpret_cast<float*>(smem4);
+  const WgCta cta = wg_cta(wg_raw, d.f, rd);
   float* ws = workspace + (size_t)blockIdx.x * d.ws_size;
-  zero_pad_rows(tile, d.f);
   const long long base = (long long)c * rpc;
-  const int nq = min(rpc, N - c * rpc), nsub = (nq + kPts - 1) / kPts;
-  for (int sub = 0; sub < nsub; ++sub)
-    forward_tile<kSem>(PointFill{pts, dirs, base, nq}, params, d, ws, tile, sub);
+  const int nq = min(rpc, N - c * rpc);
+  const int ntiles = (nq + kWgTile - 1) / kWgTile, nsub = (nq + kPts - 1) / kPts;
+  __syncthreads();
+  if (!wg_consumer(ring, d.f, rd, cta.rg, ntiles)) return;
+  float* mine = cta.tiles + (threadIdx.x >> 7) * cta.per_wg;
+  const PointList pl{pts + base * 3, nullptr, dirs + base * 3, nullptr, 0};
+  int pos = 0;
+  for (int tile = 0; tile < ntiles; ++tile)
+    pos = wg_forward_tile<true, kSem, kInList>(nullptr, nullptr, 0, 1, nq, tile, params, d, rd,
+                                               cta.rg, pos, mine, cta.strip, nullptr, 0, ws, pl);
+  // the consumers alone from here: the producer warpgroup has returned
+  asm volatile("bar.sync 3, %0;\n" ::"n"(kWgConsumers) : "memory");
   const int sem = d.f.sem_dim, C = 4 + sem;
   const int p_dsem = P_ACT0 + d.f.depth + 1, p_gemb = P_ACT0 + d.f.depth + 3;
-  for (int e = threadIdx.x; e < nsub * 8 * kPts; e += kThreads) {
+  for (int e = threadIdx.x; e < nsub * 8 * kPts; e += kWgConsumers) {
     const int sub = e / (8 * kPts), r = e / kPts % 8, p = e % kPts, q = sub * kPts + p;
     const bool live = q < nq;
     const float* gq = g + (size_t)(base + (live ? q : 0)) * C;
@@ -175,23 +171,25 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
   if (kInGrad) {  // the chunk's tiles of a plane are contiguous
     float* gemb = plane(ws, d, p_gemb, 0);
-    for (int e = threadIdx.x; e < nsub * d.rows[p_gemb] * kLd; e += kThreads) gemb[e] = 0.f;
+    for (int e = threadIdx.x; e < nsub * d.rows[p_gemb] * kLd; e += kWgConsumers) gemb[e] = 0.f;
   }
 }
 
 // grid CTAs (each with a d->ws_size workspace slice and a d->grad_size partial
 // gradient buffer) take the chunks of points in waves of `group` forward
 // waves of grid chunks (train_grads's scheme): per wave the forward kernel
-// of each, chunk j of the group into sub j nsf .. of the slice's planes
-// (group_desc), then one reverse sweep over the group's chunks; then the
-// partials are summed into grads [d->grad_size]. Returns the first CUDA error.
+// of each (field_bwd_forward_kernel on K4's tile, its weights from ring as
+// rd describes), chunk j of the group into sub j nsf .. of the slice's
+// planes (group_desc), then one reverse sweep over the group's chunks; then
+// the partials are summed into grads [d->grad_size]. Returns the first CUDA
+// error.
 template <bool kSem, bool kInGrad>
 int field_grads_launch(const float* pts, const float* dirs, const float* g, const float* params,
-                       const float* bring, const float* iring, const TrainDesc* d,
-                       const RingDesc* brd, const RingDesc* ird, float* partial,
-                       float* workspace, float* grads, float* dpts, float* ddirs, int N,
-                       int grid, int group, cudaStream_t st) {
-  const int fwd_smem = tile_smem(d->f);
+                       const float* ring, const float* bring, const float* iring,
+                       const TrainDesc* d, const RingDesc* rd, const RingDesc* brd,
+                       const RingDesc* ird, float* partial, float* workspace, float* grads,
+                       float* dpts, float* ddirs, int N, int grid, int group, cudaStream_t st) {
+  const int fwd_smem = field_smem(d, rd, true);
   cudaError_t err = cudaFuncSetAttribute(field_bwd_forward_kernel<kSem, kInGrad>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, fwd_smem);
   if (err == cudaSuccess)
@@ -201,8 +199,8 @@ int field_grads_launch(const float* pts, const float* dirs, const float* g, cons
   const long long nchunks = (N + d->rays_per_chunk - 1) / d->rays_per_chunk;
   for (int wave = 0; (long long)wave * group * grid < nchunks; ++wave) {
     for (int j = 0; j < group && (long long)(wave * group + j) * grid < nchunks; ++j)
-      field_bwd_forward_kernel<kSem, kInGrad><<<grid, kThreads, fwd_smem, st>>>(
-          pts, dirs, g, params, group_desc(*d, j, 1), workspace, N, wave * group + j);
+      field_bwd_forward_kernel<kSem, kInGrad><<<grid, kWgThreads, fwd_smem, st>>>(
+          pts, dirs, g, params, ring, group_desc(*d, j, 1), *rd, workspace, N, wave * group + j);
     train_reverse_kernel<kSem, kInGrad><<<grid, kThreads, kReverseSmem, st>>>(
         bring, iring, *d, *brd, *ird, partial, workspace, N, 1, wave, group, dpts, ddirs);
     err = cudaGetLastError();
@@ -244,32 +242,34 @@ extern "C" int nerf_mip_field(const float* mean, const float* cov, const float* 
 }
 
 // K8f (dpts null) and K8c: the field's dW/db from g [N, 4 + sem] into grads
-// [d->grad_size] (K6's layout), the input-gradient products' matrices from
-// bring (ops/fused_render.pack_bwd_ring) as brd describes; with dpts (then
-// also ddirs, d->ibwd and iring as ird describes: fused_field.pack_input_ring)
-// the points' and directions' gradients [N, 3]; `group` forward chunks a
-// reverse sweep; see field_grads_launch.
+// [d->grad_size] (K6's layout), the forward's weights from ring (ops/
+// fused_render.pack_ring) as rd describes, the input-gradient products'
+// matrices from bring (ops/fused_render.pack_bwd_ring) as brd describes;
+// with dpts (then also ddirs, d->ibwd and iring as ird describes:
+// fused_field.pack_input_ring) the points' and directions' gradients
+// [N, 3]; `group` forward chunks a reverse sweep; see field_grads_launch.
 extern "C" int nerf_field_grads(const float* pts, const float* dirs, const float* g,
-                                const float* params, const float* bring, const float* iring,
-                                const TrainDesc* d, const RingDesc* brd, const RingDesc* ird,
-                                float* partial, float* workspace, float* grads, float* dpts,
-                                float* ddirs, int N, int grid, int group, void* stream) {
+                                const float* params, const float* ring, const float* bring,
+                                const float* iring, const TrainDesc* d, const RingDesc* rd,
+                                const RingDesc* brd, const RingDesc* ird, float* partial,
+                                float* workspace, float* grads, float* dpts, float* ddirs, int N,
+                                int grid, int group, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   const bool sem = d->f.sem_dim > 0;
   if (dpts != nullptr) {
     if (sem)
-      return field_grads_launch<true, true>(pts, dirs, g, params, bring, iring, d, brd, ird,
-                                            partial, workspace, grads, dpts, ddirs, N, grid, group,
-                                            st);
-    return field_grads_launch<false, true>(pts, dirs, g, params, bring, iring, d, brd, ird,
-                                           partial, workspace, grads, dpts, ddirs, N, grid, group,
-                                           st);
+      return field_grads_launch<true, true>(pts, dirs, g, params, ring, bring, iring, d, rd, brd,
+                                            ird, partial, workspace, grads, dpts, ddirs, N, grid,
+                                            group, st);
+    return field_grads_launch<false, true>(pts, dirs, g, params, ring, bring, iring, d, rd, brd,
+                                           ird, partial, workspace, grads, dpts, ddirs, N, grid,
+                                           group, st);
   }
   if (sem)
-    return field_grads_launch<true, false>(pts, dirs, g, params, bring, nullptr, d, brd, ird,
-                                           partial, workspace, grads, nullptr, nullptr, N, grid,
-                                           group, st);
-  return field_grads_launch<false, false>(pts, dirs, g, params, bring, nullptr, d, brd, ird,
-                                          partial, workspace, grads, nullptr, nullptr, N, grid,
-                                          group, st);
+    return field_grads_launch<true, false>(pts, dirs, g, params, ring, bring, nullptr, d, rd,
+                                           brd, ird, partial, workspace, grads, nullptr, nullptr,
+                                           N, grid, group, st);
+  return field_grads_launch<false, false>(pts, dirs, g, params, ring, bring, nullptr, d, rd, brd,
+                                          ird, partial, workspace, grads, nullptr, nullptr, N,
+                                          grid, group, st);
 }

@@ -176,7 +176,7 @@
 // the semantic head between alpha/feature and the trunk: dW of sem_1 from
 // (s_act, d_sem), ds = (W1^T d_sem) [s_act > 0], dW of sem_0 from
 // ([h; emb], ds), and W0[:, h]^T ds added into the last trunk layer's
-// cotangent before its gate (dense's kAccum). K3's mode runs the sweep it
+// cotangent before its gate (bwd_layer's add). K3's mode runs the sweep it
 // ran before. Bound: arithmetic, K3's work plus the semantic head's
 // backward (~3.8 MFLOP a flagship point); the extra planes (s_act, d_sem,
 // ds: 264 rows a tile) add ~8% to the per-CTA workspace.

@@ -1,12 +1,9 @@
 // Device building blocks of the train kernels' reverse sweep, shared by the
 // fused train kernels (train_render.cu: the reverse sweep of K3, K6 and
-// K10b; the 128-point tile of K1, K2, K4, K9, K10a, of K3's, K6's and
-// K10b's forward and of the field forwards K8a/K8b/K8d/K8e/K11 is
-// wg_tile.cuh) and the field backward (fused_field.cu: K8c/K8f): the train
-// descriptor and its workspace planes, the forward of one 64-point tile on
-// tile_mlp.cuh's mma.sync dense() (storing what the reverse sweep reads;
-// its last caller is the field backward's forward,
-// field_bwd_forward_kernel), the input-gradient product of a layer (bwd_layer:
+// K10b) and the field backward (fused_field.cu: K8c/K8f); every forward,
+// the storing ones that fill the workspace included, is the 128-point tile
+// of wg_tile.cuh: the train descriptor and its workspace planes, the
+// input-gradient product of a layer (bwd_layer:
 // wgmma 3xTF32, its matrix and dY through a ring of shared-memory stages
 // filled by bulk copies), the weight-gradient product (wgrad: wgmma 3xTF32,
 // the X and dY rows of each sub through a second ring of bulk copies), the
@@ -44,11 +41,6 @@ enum Plane { P_EMB, P_DEMB, P_FEAT, P_HV, P_DRGB, P_DSIG, P_DPV, P_DFEAT, P_DA, 
 
 __device__ __forceinline__ float* plane(float* ws, const TrainDesc& d, int p, int sub) {
   return ws + d.plane[p] + (size_t)sub * d.rows[p] * kLd;
-}
-
-__device__ __noinline__ void dense_call(const float* __restrict__ params, const LayerDesc L,
-                                        Seg s0, Seg s1, Seg s2, float* out, bool relu) {
-  dense(params, L, s0, s1, s2, out, relu);
 }
 
 // One input of a weight-gradient product: up to three planes, in row order.
@@ -191,7 +183,7 @@ __device__ __forceinline__ int bwd_pieces(const float* __restrict__ src, int N, 
 #pragma unroll
     for (int i = 0; i < NP / 2; ++i) asm volatile("" : "+f"(acc[i])::"memory");
     // accumulator i: point m0 + 8 ((i >> 1) & 1), output n0 + 8 (i >> 2) + 2 t + (i & 1);
-    // dense()'s epilogue: add adds out's value, then the gate (the ring's
+    // the epilogue: add adds out's value, then the gate (the ring's
     // bits, or loaded), then the store of the plane's rows n < ldn (the
     // matrices' bias is zero)
     float* o = plane(ws, d, out, sub) + (size_t)n0 * kLd + m0;
@@ -565,91 +557,12 @@ constexpr int kRevFloats =
     kBwdStages * kBwdStageFloats > kWgrFloats ? kBwdStages * kBwdStageFloats : kWgrFloats;
 constexpr int kReverseSmem = kRevHead + kRevFloats * (int)sizeof(float);
 
-// Zero the padding rows of a tile's emb and demb buffers, which nothing else writes.
-__device__ __forceinline__ void zero_pad_rows(float* tile, const MLPDesc& f) {
-  const int E = f.emb_dim, Ep = pad8(E), Ed = f.demb_dim, Edp = pad8(Ed);
-  for (int i = threadIdx.x; i < (Ep - E) * kLd; i += kThreads) tile[E * kLd + i] = 0.f;
-  for (int i = threadIdx.x; i < (Edp - Ed) * kLd; i += kThreads) tile[(Ep + Ed) * kLd + i] = 0.f;
-}
-
-// Copy a [rows][kLd] tile (64 points a row) from shared memory to the workspace.
-__device__ __forceinline__ void store_tile(const float* src, float* dst, int rows) {
-  for (int c = threadIdx.x; c < rows * (kPts / 4); c += kThreads) {
-    const int r = c / (kPts / 4), q = (c % (kPts / 4)) * 4;
-    *reinterpret_cast<float4*>(dst + r * kLd + q) =
-        *reinterpret_cast<const float4*>(src + r * kLd + q);
-  }
-}
-
-
-// Forward of one 64-point tile (points sub * 64 .. of a chunk), storing
-// every activation the reverse sweep reads in the workspace (the field
-// backward's forward, K8c/K8f, its last caller). fill(emb, demb, q0) writes
-// the raw inputs of points q0 .. q0 + 63 of the chunk, zero past its
-// points: emb rows 0-2 the point and demb rows 0-2 its view direction. Then
-// their PE, the trunk and the heads run on activations in shared memory
-// (emb, demb and two layer buffers at `tile`); kSemAct: the semantic head's
-// hidden activation too (plane P_ACT0 + depth). The heads' outputs are not
-// needed: the cotangents come from the caller.
-template <bool kSemAct, class Fill>
-__device__ __forceinline__ void forward_tile(const Fill& fill, const float* __restrict__ params,
-                                             const TrainDesc& d, float* ws, float* tile,
-                                             int sub) {
-  const MLPDesc& f = d.f;
-  const int depth = f.depth, E = f.emb_dim, Ep = pad8(E), Ed = f.demb_dim, Edp = pad8(Ed);
-  const LayerDesc* head = f.layer + depth;  // alpha, feature, views, rgb, sem_0, sem_1
-  float* emb = tile;
-  float* demb = emb + Ep * kLd;
-  float* hA = demb + Edp * kLd;
-  float* hB = hA + f.hrows * kLd;
-  fill(emb, demb, sub * kPts);
-  __syncthreads();
-  pe_rows(emb, E);
-  pe_rows(demb, Ed);
-  __syncthreads();
-  store_tile(emb, plane(ws, d, P_EMB, sub), Ep);
-  store_tile(demb, plane(ws, d, P_DEMB, sub), Edp);
-
-  // trunk: layer i reads `in0, in1` and writes the buffer not holding h
-  Seg in0{emb, Ep}, in1 = none();
-  float* cur = hB;
-  for (int i = 0; i < depth; ++i) {
-    float* nxt = (cur == hA) ? hB : hA;
-    dense_call(params, f.layer[i], in0, in1, none(), nxt, true);
-    __syncthreads();
-    store_tile(nxt, plane(ws, d, P_ACT0 + i, sub), pad8(f.layer[i].n));
-    cur = nxt;
-    if (i == f.skip) {
-      in0 = Seg{emb, Ep};
-      in1 = Seg{cur, pad8(f.layer[i].n)};
-    } else {
-      in0 = Seg{cur, pad8(f.layer[i].n)};
-      in1 = none();
-    }
-  }
-  float* spare = (cur == hA) ? hB : hA;
-  if (f.sem_dim && kSemAct) {
-    const Seg coord = f.sem_with_coord ? Seg{emb, Ep} : none();
-    dense_call(params, head[4], in0, in1, coord, spare, true);
-    __syncthreads();
-    store_tile(spare, plane(ws, d, P_ACT0 + depth, sub), pad8(head[4].n));
-    __syncthreads();
-  }
-  dense_call(params, head[1], in0, in1, none(), spare, false);  // feature
-  __syncthreads();
-  store_tile(spare, plane(ws, d, P_FEAT, sub), pad8(head[1].n));
-  dense_call(params, head[2], Seg{spare, pad8(head[1].n)}, Seg{demb, Edp}, none(), cur,
-             true);  // views (h is no longer needed)
-  __syncthreads();
-  store_tile(cur, plane(ws, d, P_HV, sub), pad8(head[2].n));
-  __syncthreads();
-}
-
 // The chain rule of the PE for nq points from sub sub0 on: from the
 // cotangent of a PE buffer (plane pg: rows 3 + 6 b + 3 h + c of
 // sin(2^b x_c + h pi/2), rows 0-2 of x itself) and the stored x (rows 0-2
 // of plane pe), out[base + q][c] = g[c] + sum over b, h of (g[3 + 6 b +
-// 3 h + c] cos(2^b x_c + h pi/2)) 2^b, the phase rounded as pe_rows rounds it.
+// 3 h + c] cos(2^b x_c + h pi/2)) 2^b, the phase rounded as the forward's
+// PE (wg_tile.cuh pe_rows_wg) rounds it.
 __device__ void pe_grads(float* ws, const TrainDesc& d, int pe, int pg, int rows,
                          float* __restrict__ out, long long base, int nq, int sub0) {
   const int F = (rows - 3) / 6;
@@ -846,12 +759,6 @@ inline TrainDesc group_desc(const TrainDesc& d, int j, int S) {
   const long long nsf = ((long long)d.rays_per_chunk * S + kPts - 1) / kPts;
   for (int p = 0; p < kMaxPlanes; ++p) dj.plane[p] += j * nsf * d.rows[p] * kLd;
   return dj;
-}
-
-// shared memory of a forward tile: emb, demb and two layer buffers
-inline int tile_smem(const MLPDesc& f) {
-  return (int)((size_t)((f.emb_dim + 7) / 8 * 8 + (f.demb_dim + 7) / 8 * 8 + 2 * f.hrows) * kLd *
-               sizeof(float));
 }
 
 // Launch configuration of reduce_partials over n floats.

@@ -5,8 +5,9 @@
 // with bulk (TMA) copies, and the layer products on wgmma in 3xTF32.
 //
 // Replaces, with the kernel, nerfsos_tpu/ops/pallas/fused_render.py
-// _train_render_fwd_impl -> _train_render_kernel, as the 64-point tile of
-// train_sweep.cuh forward_tile did before it.
+// _train_render_fwd_impl -> _train_render_kernel; it took the place of a
+// first design on mma.sync over 64-point tiles, whose last caller, the
+// field backward's forward, now runs this tile too.
 //
 // What bounds it on the H100: the 3xTF32 products, ~1.27 MFLOP a flagship
 // point (8 x 256 trunk, the semantic head with coordinates), 48.39 ms for
@@ -85,7 +86,10 @@
 // alpha thread writes each point's sigma straight to its column of the
 // output rows, the other heads go to a strip of the tile's 128 points (3 +
 // sem floats a point: rgb logits, semantics), and each warpgroup copies its
-// 64 points' rows out after its last head (one warpgroup barrier).
+// 64 points' rows out after its last head (one warpgroup barrier). The
+// field backward's forward (fused_field.cu field_bwd_forward_kernel: K8c/
+// K8f) runs the store mode with the point-list input (kStore, kInList): the
+// workspace planes of K6's forward, no alpha head and no output rows.
 // Precision: fp32 activations, 3xTF32 products (both operands split into
 // TF32 high and low parts), the PE phases with explicit round-to-nearest
 // (no fast-math).
@@ -424,8 +428,10 @@ __device__ __forceinline__ bool wg_consumer(const float* __restrict__ ring, cons
   return true;
 }
 
-// Rows 3.. of a warpgroup's PE buffer whose rows 0-2 hold x: pe_rows's
-// values (sin(2^b x_c + h pi/2) in row 3 + 6 b + 3 h + c) in a swizzled tile.
+// Rows 3.. of a warpgroup's PE buffer whose rows 0-2 hold x: sin(2^b x_c +
+// h pi/2) in row 3 + 6 b + 3 h + c (core/encoding.py's column order), the
+// phase rounded once an operation (train_sweep.cuh pe_grads rounds it
+// alike), in a swizzled tile.
 __device__ __forceinline__ void pe_rows_wg(float* buf, int rows) {
   for (int i = threadIdx.x & 127; i < (rows - 3) * kWgPts; i += 128) {
     const int f = i / kWgPts, p = i % kWgPts;
@@ -467,7 +473,7 @@ __device__ __forceinline__ void wg_store_rows(const float* src, float* dst, int 
 // PE, the trunk, alpha, sem_0 and sem_1, feature, views and rgb on the
 // warpgroup's emb, demb and h tiles at `mine`; sigma, the rgb logits and
 // the semantics of point q go to strip[q * (6 + sem) + 0, 2.., 5..].
-// K4 (kStore false): with semin, [h; emb] (forward_tile's sem_in row) to
+// K4 (kStore false): with semin, [h; emb] (the semantic head's input row) to
 // semin row base + q. K3/K6 (kStore): every activation the reverse sweep
 // reads goes to the workspace slice ws, as sub qw / 64 of its planes
 // (train_desc's layout: P_EMB, P_DEMB, P_ACT0 + i, P_FEAT, P_HV, and with
@@ -485,6 +491,8 @@ __device__ __forceinline__ void wg_store_rows(const float* src, float* dst, int 
 // only output), its rgb logits and semantics to strip[(q - 128 tile) (3 +
 // sem) + 0.., 3..], and after the last head each warpgroup copies its
 // points' rows out (rgb logits, sigma, semantics: raw's column order).
+// With kStore (the field backward's forward, kInList alone) a point-list
+// mode writes no outputs: the alpha head is skipped, pl.out is not read.
 // Returns the ring position after the tile.
 template <bool kStore, bool kSemAct, int kIn = kInPoint>
 __device__ __forceinline__ int wg_forward_tile(const float* __restrict__ odv, const float* zc,
@@ -498,6 +506,7 @@ __device__ __forceinline__ int wg_forward_tile(const float* __restrict__ odv, co
   constexpr bool kSigma = kIn == kInSigma || kIn == kInListSigma;
   constexpr bool kGauss = kIn == kInMip || kIn == kInListGauss;
   constexpr bool kList = kIn >= kInList;
+  constexpr bool kOut = kList && !kStore;  // a point-list mode's output rows
   const MLPDesc& f = d.f;
   const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127, bar = 1 + wg;
   const int depth = f.depth, E = f.emb_dim, Ep = pad8(E), Ed = f.demb_dim, Edp = pad8(Ed);
@@ -579,7 +588,7 @@ __device__ __forceinline__ int wg_forward_tile(const float* __restrict__ odv, co
           }
         }
       }
-      if (tid < kWgPts && qw + tid < nq) {
+      if (!(kList && kStore) && tid < kWgPts && qw + tid < nq) {
         const ASeg segs[2] = {in0, in1};
         const float* __restrict__ wcol = params + head[0].w;
         float acc = 0.f;
@@ -588,7 +597,7 @@ __device__ __forceinline__ int wg_forward_tile(const float* __restrict__ odv, co
           for (int k = 0; k < segs[sg].k; ++k, wcol += 8)
             acc = fmaf(segs[sg].a[swz(k, tid)], __ldg(wcol), acc);
         acc += __ldg(params + head[0].b);
-        if (kList) {
+        if (kOut) {
           pl.out[(size_t)(qw + tid) * pl.C + (kSigma ? 0 : 3)] = acc;
         } else {
           wstrip[tid * cs] = acc;
@@ -637,7 +646,7 @@ __device__ __forceinline__ int wg_forward_tile(const float* __restrict__ odv, co
       in1 = l == f.skip ? hs : none;
     }
   }
-  if (kList && !kSigma) {  // the warpgroup's rows of out, but sigma, from its strip
+  if (kOut && !kSigma) {  // the warpgroup's rows of out, but sigma, from its strip
     wg_bar(bar);  // every warp's heads are in the strip
     const int C = pl.C, np = min(kWgPts, nq - qw);
     float* out = pl.out + (size_t)qw * C;

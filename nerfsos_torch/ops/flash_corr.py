@@ -18,7 +18,9 @@ Their kernels, one family in ``csrc/flash_corr.cu``, each behind a wrapper
 with the same signature as its plain version here:
 
 - :func:`geo_row_stats` (K7a, replaces ``_row_stats`` / ``_rowsum_kernel``):
-  ``rowmean [B2, N]`` and one global mean a half ``gm [halves]``;
+  ``rowmean [B2, N]`` and one global mean a half ``gm [halves]``, from
+  pair tiles of 256 rows (no codes: 8 rows a lane) x ``TILE_COLS``
+  columns (:func:`row_stats_scratch`);
 - :func:`geo_single_means` / :func:`geo_single_grads` (K7b / K7c, replace
   ``_loss_kernel`` / ``_bwd_kernel``): one half, one head;
 - :func:`geo_pair_means` / :func:`geo_pair_grads` (K7d / K7e, replace
@@ -59,6 +61,13 @@ def tile_rows(heads: int, S: int) -> int:
 def tile_grid(N: int, S: int, heads: int) -> Tuple[int, int]:
     """(column tiles, row tiles) of a batch row's N x N pairs."""
     return -(-N // TILE_COLS), -(-N // (32 * tile_rows(heads, S)))
+
+
+def row_stats_scratch(B2: int, N: int) -> int:
+    """Floats of K7a's partials: a ``[B2, N]`` slice of row sums a column
+    tile (``tile_grid(N, 0, 0)``: 256-row tiles), then one sum a 128-row
+    block of each batch row."""
+    return (tile_grid(N, 0, 0)[0] * N + -(-N // 128)) * B2
 
 
 def means_scratch(B2: int, N: int, S: int, heads: int) -> int:
@@ -231,16 +240,20 @@ def _device(f1: torch.Tensor) -> bool:
 
 def geo_row_stats(f1: torch.Tensor, f2: torch.Tensor, max_depth: float,
                   halves: int = 2) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K7a; see :func:`geo_row_stats_plain`."""
+    """K7a; see :func:`geo_row_stats_plain`. The pair tiles' row sums, then
+    their sums in tile order and each half's mean (deterministic)."""
     if _device(f1):
         return geo_row_stats_plain(f1, f2, max_depth, halves)
     B2, N, _ = f1.shape
     _check(f1, f2, (), halves=halves)
     rowmean = torch.empty((B2, N), device=f1.device, dtype=torch.float32)
     gm = torch.empty(halves, device=f1.device, dtype=torch.float32)
+    n = row_stats_scratch(B2, N)
+    scratch = torch.empty(n, device=f1.device, dtype=torch.float32)
     with torch.cuda.device(f1.device):
-        code = _build.library().geo_row_stats(*_ptrs(f1, f2, rowmean, gm), B2, N, halves,
-                                              float(max_depth), _build.stream(f1.device))
+        code = _build.library().geo_row_stats(*_ptrs(f1, f2, rowmean, gm, scratch), n, B2, N,
+                                              halves, float(max_depth),
+                                              _build.stream(f1.device))
     _build.check(code, "geo_row_stats")
     geo_row_stats.launches += 1
     return rowmean, gm

@@ -27,10 +27,12 @@ plain ``NeRFField``'s, ``[N, 3]`` in and ``[N, C]`` out:
 The three forwards run K4's 128-point tile (``csrc/wg_tile.cuh``) in its
 point-list modes (``csrc/fused_field.cu`` ``field_wg_kernel``): a CTA a run
 of :func:`_field_plan`'s tiles, the weights from ``fused_render.pack_ring``
-through the tile's ring. Each wrapper runs its plain PyTorch version
-(:func:`sigma_plain`, :func:`field_plain`, :func:`mip_field_plain`,
-:func:`field_grads_plain`, same signature) for tensors on the CPU, and for
-CUDA tensors launches its kernel or raises; it never falls back.
+through the tile's ring. The backward's forward runs the same tile in its
+storing point-list mode (``field_bwd_forward_kernel``), with the same ring.
+Each wrapper runs its plain PyTorch version (:func:`sigma_plain`,
+:func:`field_plain`, :func:`mip_field_plain`, :func:`field_grads_plain`,
+same signature) for tensors on the CPU, and for CUDA tensors launches its
+kernel or raises; it never falls back.
 ``<wrapper>.launches`` counts the launches
 (``field_grads.input_grad_launches`` those in the input-gradient mode).
 The weights are packed by ``ops/fused_render.py``'s packers.
@@ -196,12 +198,10 @@ def _field_smem(fdesc: _build.MLPDesc, rd: _build.RingDesc, heads: bool) -> int:
     return 128 + 4 * (rd.stages * rd.stage_floats + 2 * rows * fr._TILE + strip)
 
 
-def _field_plan(fdesc: _build.MLPDesc, ring: _build.RingDesc, N: int, sms: int, heads: bool
-                ) -> Tuple[int, _build.RingDesc]:
-    """The field forwards' launch: ``per``, the 128-point tiles a CTA runs
-    (consecutive, about one CTA an SM of ``sms``, one wave), and the ring's
-    descriptor with as many stages (2 to ``MAX_RING_STAGES``) as the rest of
-    shared memory holds; raises where two do not fit."""
+def _field_ring(fdesc: _build.MLPDesc, ring: _build.RingDesc, heads: bool) -> _build.RingDesc:
+    """The point-list tile's ring descriptor (the field forwards' and the
+    field backward's forward) with as many stages (2 to ``MAX_RING_STAGES``)
+    as the rest of shared memory holds; raises where two do not fit."""
     rd = _build.RingDesc.from_buffer_copy(ring)
     rd.stages = 2
     if _field_smem(fdesc, rd, heads) > fr._MAX_SMEM:
@@ -210,8 +210,16 @@ def _field_plan(fdesc: _build.MLPDesc, ring: _build.RingDesc, N: int, sms: int, 
     while (rd.stages < _build.MAX_RING_STAGES
            and _field_smem(fdesc, rd, heads) + 4 * rd.stage_floats <= fr._MAX_SMEM):
         rd.stages += 1
+    return rd
+
+
+def _field_plan(fdesc: _build.MLPDesc, ring: _build.RingDesc, N: int, sms: int, heads: bool
+                ) -> Tuple[int, _build.RingDesc]:
+    """The field forwards' launch: ``per``, the 128-point tiles a CTA runs
+    (consecutive, about one CTA an SM of ``sms``, one wave), and
+    :func:`_field_ring`'s descriptor."""
     ntiles = max(1, -(-N // _TILE_POINTS))
-    return -(-ntiles // min(ntiles, sms)), rd
+    return -(-ntiles // min(ntiles, sms)), _field_ring(fdesc, ring, heads)
 
 
 def _sm_count(device: torch.device) -> int:
@@ -306,7 +314,9 @@ def field_grads(field: nn.Module, pts: torch.Tensor, dirs: torch.Tensor, g: torc
     """The field backward (K8f; K8c with ``input_grads``): the gradients of
     every parameter from the cotangent ``g [N, 4 + sem]`` of raw at ``pts,
     dirs [N, 3]``, and with ``input_grads`` those of pts and dirs; see
-    :func:`field_grads_plain`. One call launches the forward and the
+    :func:`field_grads_plain`. One call launches the forward (K4's tile in
+    its storing point-list mode, the weights through the ring of
+    ``fused_render.pack_ring`` with :func:`_field_ring`'s stages) and the
     reverse-sweep kernels (its input-gradient products through the ring of
     ``fused_render.pack_bwd_ring``, and with ``input_grads`` of
     :func:`pack_input_ring`) once per wave of 512-point chunks and the
@@ -320,10 +330,12 @@ def field_grads(field: nn.Module, pts: torch.Tensor, dirs: torch.Tensor, g: torc
     buf, fdesc = fr._packed(field, pts.device)
     if g.shape[1] != 4 + fdesc.sem_dim:
         raise ValueError(f"expected g [{N}, {4 + fdesc.sem_dim}], got {tuple(g.shape)}")
+    rbuf, ring = fr._ring(field, pts.device)
     bwd = fr._train_bwd(field, pts.device)[1]
     bring, brd = fr._bwd_ring(field, pts.device)
     desc, grid, group = fr._sweep_launch(field, fdesc, bwd, N, 1, pts.device, sem,
                                          input_grads=input_grads)
+    rd = _field_ring(fdesc, ring, True)
     iring, ird, dpts, ddirs = None, _build.RingDesc(), None, None
     if input_grads:
         ibuf, ibwd = fr._cached(field, pts.device, "_field_input_pack", pack_input_bwd)
@@ -339,10 +351,11 @@ def field_grads(field: nn.Module, pts: torch.Tensor, dirs: torch.Tensor, g: torc
         work = torch.empty(grid * desc.ws_size, device=pts.device, dtype=torch.float32)
         with torch.cuda.device(pts.device):
             code = _build.library().nerf_field_grads(
-                pts.data_ptr(), dirs.data_ptr(), g.data_ptr(), buf.data_ptr(), bring.data_ptr(),
-                None if iring is None else iring.data_ptr(), ctypes.byref(desc),
-                ctypes.byref(brd), ctypes.byref(ird), partial.data_ptr(), work.data_ptr(),
-                flat.data_ptr(), None if dpts is None else dpts.data_ptr(),
+                pts.data_ptr(), dirs.data_ptr(), g.data_ptr(), buf.data_ptr(), rbuf.data_ptr(),
+                bring.data_ptr(), None if iring is None else iring.data_ptr(),
+                ctypes.byref(desc), ctypes.byref(rd), ctypes.byref(brd), ctypes.byref(ird),
+                partial.data_ptr(), work.data_ptr(), flat.data_ptr(),
+                None if dpts is None else dpts.data_ptr(),
                 None if ddirs is None else ddirs.data_ptr(), N, grid, group,
                 _build.stream(pts.device))
         _build.check(code, "field_grads")

@@ -38,9 +38,13 @@ defaults) and the same run-directory layout. Implemented:
   three) and ``--vol_size``, into ``<basedir>/<expname>/eval/density.mrc``
   and ``density.ply``; the field kernel (K11 with ``--mipnerf``) queries it.
 
-``--no_batching`` and ``--eval_video`` stop with "not yet ported". Each
-RGB step draws its batch and its noise from ``(--seed, step)`` alone, so a
-resumed run trains as an uninterrupted one
+``--no_batching`` and ``--eval_video`` stop with "not yet ported". The
+train loop writes no test image (``--i_img``) and no video (``--i_video``)
+yet: a train run that would write either in the JAX entry point (the data
+directory holds ``rays_exhibit.npy``, or a multiple of ``--i_img`` or
+``--i_video`` lies within ``--max_steps``) says so in one line at its
+start. Each RGB step draws its batch and its noise from ``(--seed, step)``
+alone, so a resumed run trains as an uninterrupted one
 would (the JAX entry point restarts its batch stream); a patch step draws
 from ``(--seed, step)`` too, and its images from the dataset's per-epoch
 shuffle, which a resume starts afresh.
@@ -285,6 +289,22 @@ def _check_patch_tune(args) -> None:
                          "(the reference crashes here implicitly; we validate up front)")
 
 
+def unwritten_outputs_note(args, start: int) -> str:
+    """The line a train run from step ``start`` prints when the JAX entry
+    point would write test images (a multiple of ``--i_img`` within
+    ``--max_steps``) or videos (the data directory's ``rays_exhibit.npy``, or
+    a multiple of ``--i_video`` within ``--max_steps``), which the port does
+    not yet; '' when it would write neither."""
+    def due(every: int) -> bool:
+        return every > 0 and (start // every + 1) * every <= args.max_steps
+
+    exhibit = os.path.exists(os.path.join(args.data_path, "rays_exhibit.npy"))
+    if not (exhibit or due(args.i_img) or due(args.i_video)):
+        return ""
+    return ("[Warning!] test images (--i_img) and videos (--i_video, rays_exhibit.npy) are "
+            "not written by nerfsos_torch yet")
+
+
 def main(args, device=None) -> None:
     if not args.debug_nans:
         return _main(args, device)
@@ -374,6 +394,9 @@ def _main(args, device) -> None:
     if args.use_dino:
         print("[Warning!] the DINO foreground flip is not ported: cluster labels keep "
               "their k-means orientation")
+    note = "" if args.eval or args.eval_vol else unwritten_outputs_note(args, global_step)
+    if note:
+        print(note)
     print("Loading nerf data:", args.data_path)
     test_set = RayDataset(args.data_path, split="test", subsample=args.subsample,
                           use_masks=args.use_masks, bin_thres=args.bin_thres)

@@ -5,12 +5,13 @@ goes on the card: builds patched copies of the kernel sources under
 (``fused_rgb_train_grads``), K5 (``frozen_sem_grads``), K2
 (``fused_render``), K1 (``fused_coarse_weights``), K9 (``fused_mip_render``),
 K10a (``mip_train_render``), K10b (``mip_train_render_grads``), K8b
-(``ops.fused_field.field_forward``), K8a (``fused_sigma_apply``) or K11
-(``fused_mip_field_apply``) with each, in one process.
+(``ops.fused_field.field_forward``), K8a (``fused_sigma_apply``), K11
+(``fused_mip_field_apply``) or K8f/K8c (``field_grads``) with each, in one
+process.
 
     python -m nerfsos_torch.tools.tile_probe [--root DIR] [--rays 32768]
         [--samples 192[,64...]] [--variants base,wgclock]
-        [--kernel k4|k9|k10a|k10b|k6|k3|k5|k2|k1|k8b|k8a|k11]
+        [--kernel k4|k9|k10a|k10b|k6|k3|k5|k2|k1|k8b|k8a|k11|k8f|k8c]
 
 ``--root`` is the checkout whose package, kernels and ``chip_smoke.py`` are
 used (default: this one). To A/B K9 against the parent's, unpack the
@@ -27,7 +28,8 @@ never edited):
 
 - ``base``: the sources as they are;
 - ``wgclock`` (the 128-point tile of ``csrc/wg_tile.cuh``: K4, K2, K1, K9,
-  K10a, K3's, K6's and K10b's forward, the field forwards K8a/K8b/K11):
+  K10a, K3's, K6's, K10b's and K8f/K8c's forward, the field forwards
+  K8a/K8b/K11):
   clock64 counters, thread 0 of CTA 0, around its waits for a full ring
   stage, the layers' k loops, the waits for its own wgmma inside them, the
   layers' epilogues, the point-list modes' copy-out of a warpgroup's rows
@@ -80,7 +82,11 @@ field forward of the flagship field with the semantic head and its
 coordinates on ``--rays`` x ``--samples`` points uniform in the x14
 density grid's cube (4096 x 64: one 2^18-point export chunk) with random
 unit directions, ``k8a`` the sigma forward of the same field, ``k11`` the
-flagship mip field at random covariances below 1e-4. With ``--root``
+flagship mip field at random covariances below 1e-4; ``--kernel k8f``
+the field backward of that field (chip_smoke's ``[K8_bwd]``: the points of
+``--rays`` x ``--samples`` of ``ray_inputs``, a seeded cotangent), ``k8c``
+the same with the points' and directions' gradients (``fwdonly``: the
+forward alone). With ``--root``
 unpacked from a parent commit, the kernels are timed through that tree's
 wrappers (the same Python interface), ``base`` variant only, for an A/B
 in one call.
@@ -116,7 +122,7 @@ extern "C" int probe_read%s(unsigned long long* out) {
 """
 READER = _READER % ""  # train_render.cu's counters
 FIELD_READER = _READER % "_field"  # fused_field.cu's (a translation unit of its own)
-FIELD_KERNELS = ("k8a", "k8b", "k11")
+FIELD_KERNELS = ("k8a", "k8b", "k11", "k8f", "k8c")
 
 
 def _sub(text: str, old: str, new: str, count: int = 0) -> str:
@@ -285,9 +291,9 @@ def _patch_one(variant: str, csrc: str) -> None:
             lines[i] = "  PROBE_ADD(5, p_x);\n  return pos;"
             t = "\n".join(lines)
             # the point-list modes' copy-out of a warpgroup's rows
-            t = _sub(t, "  if (kList && !kSigma) {  // the warpgroup's rows of out",
+            t = _sub(t, "  if (kOut && !kSigma) {  // the warpgroup's rows of out",
                      "  long long p_o = clock64();\n"
-                     "  if (kList && !kSigma) {  // the warpgroup's rows of out", 1)
+                     "  if (kOut && !kSigma) {  // the warpgroup's rows of out", 1)
             return _sub(t, "      if (c != 3) out[e] = wstrip[p * cs + (c < 3 ? c : c - 1)];\n"
                         "    }\n  }\n", "      if (c != 3) out[e] = wstrip[p * cs + (c < 3 ? c : "
                         "c - 1)];\n    }\n  }\n  PROBE_ADD(6, p_o);\n", 1)
@@ -307,8 +313,15 @@ def _patch_one(variant: str, csrc: str) -> None:
             body = _sub(body, "  int pos = 0;\n", "  int pos = 0;\n  long long p_start = clock64();\n", 1)
             return _sub(body, "pl);\n}\n", "pl);\n  PROBE_ADD(0, p_start);\n}\n", 1)
 
-        edit("fused_field.cu", lambda t: _in_function(t, "    field_wg_kernel(", field)
-             + FIELD_READER)
+        def bwd_field(body):  # the field backward's forward tile loop
+            body = _sub(body, "  int pos = 0;\n", "  int pos = 0;\n  long long p_start = clock64();\n",
+                        1)
+            return _sub(body, "  // the consumers alone from here", "  PROBE_ADD(0, p_start);\n"
+                        "  // the consumers alone from here", 1)
+
+        edit("fused_field.cu", lambda t: _in_function(
+            _in_function(t, "    field_wg_kernel(", field), "    field_bwd_forward_kernel(",
+            bwd_field) + FIELD_READER)
     elif variant == "fwdonly":
         edit("train_render.cu", lambda t: _sub(
             t, "    train_reverse_kernel<kSem><<<grid, kThreads, kReverseSmem, st>>>(\n"
@@ -384,7 +397,8 @@ def _use(_build, root: str, variant: str):
     return lib
 
 
-KERNELS = ("k4", "k9", "k10a", "k10b", "k6", "k3", "k5", "k2", "k1", "k8b", "k8a", "k11")
+KERNELS = ("k4", "k9", "k10a", "k10b", "k6", "k3", "k5", "k2", "k1", "k8b", "k8a", "k11", "k8f",
+           "k8c")
 
 
 def parser() -> argparse.ArgumentParser:
@@ -408,12 +422,22 @@ def main() -> int:
         del sys.modules[m]  # the package and chip_smoke.py of root, not of this checkout
     from chip_smoke import (cuda_ms, grid_points, mip_ray_inputs, ray_inputs, seeded_field,
                             seeded_mip_field, smi_line, unit_dirs)
+    from nerfsos_torch.core.sampling import points_along_rays
     from nerfsos_torch import _build
     from nerfsos_torch.ops import fused_field as ff
     from nerfsos_torch.ops import fused_render as fr
 
     def runner(S: int):
         """The call to time at S samples a ray."""
+        if a.kernel in ("k8f", "k8c"):
+            field = seeded_field(43, net_depth=8, net_width=256, multires=10, multires_views=4,
+                                 use_semantics=True, sem_with_coord=True, sem_dim=2)
+            odv, z = ray_inputs(a.rays, S, seed=44)
+            pts = points_along_rays(odv[:, 0:3], odv[:, 3:6], z).reshape(-1, 3).contiguous()
+            dirs = odv[:, None, 6:9].expand(a.rays, S, 3).reshape(-1, 3).contiguous()
+            rng = np.random.default_rng(45)
+            g = torch.from_numpy(rng.normal(size=(pts.shape[0], 6)).astype(np.float32)).cuda()
+            return lambda: ff.field_grads(field, pts, dirs, g, input_grads=a.kernel == "k8c")
         if a.kernel in FIELD_KERNELS:
             n = a.rays * S
             pts, dirs = grid_points(n, 50), unit_dirs(n, 51)

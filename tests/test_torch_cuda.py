@@ -611,6 +611,28 @@ def test_k7_matches_plain(cuda, B2, N, S, maxd):
         assert float((a - ref).abs().max()) <= K7_TOL * float(ref.abs().max())
 
 
+@pytest.mark.parametrize("B2,N,halves", [(16, 4096, 2), (4, 1000, 2), (2, 77, 1), (3, 4133, 1),
+                                         (2, 256, 2)])  # past the tiles' edges
+@pytest.mark.parametrize("maxd", [15.0, 1.5])
+def test_k7a_matches_plain(cuda, B2, N, halves, maxd):
+    """K7a's pair tiles: rowmean and each half's gm to K7_TOL of the plain
+    version's, bitwise equal across two calls, one launch counted a call."""
+    from nerfsos_torch.ops import flash_corr as fc
+
+    f1, f2 = _geo_inputs(cuda, B2 + B2 % 2, N, 2, B2 * N)[:2]
+    f1, f2 = f1[:B2].contiguous(), f2[:B2].contiguous()
+    before = fc.geo_row_stats.launches
+    rm, gm = fc.geo_row_stats(f1, f2, maxd, halves)
+    rm2, gm2 = fc.geo_row_stats(f1, f2, maxd, halves)
+    rm_p, gm_p = fc.geo_row_stats_plain(f1, f2, maxd, halves)
+    torch.cuda.synchronize()
+    assert fc.geo_row_stats.launches == before + 2
+    assert torch.equal(rm, rm2) and torch.equal(gm, gm2) and torch.isfinite(rm).all()
+    assert rm.shape == (B2, N) and gm.shape == (halves,)
+    assert float((rm - rm_p).abs().max()) <= K7_TOL * float(rm_p.abs().max())
+    assert float(((gm - gm_p).abs() / gm_p.abs()).max()) <= K7_TOL
+
+
 def test_k7_fast_reciprocal_is_ieee(cuda):
     """The pair sweeps' reciprocal fast path is IEEE 1 / x in every bit on
     every float of [0.05, 2^95], where their in-range tiles take it."""

@@ -168,7 +168,7 @@ def _mip_prologue(gauss, E, Ep, hrows):
 
 
 def _k4_model(field, odv, z, noise_std, seed, save_semin, desc=None, sem_act=False,
-              sigma_only=False, mip=False, points=None, per=1):
+              sigma_only=False, mip=False, points=None, per=1, g=None, in_grad=False):
     """K4 as the kernel computes it, from pack_field's and pack_ring's
     buffers alone: chunks of rays, 128-point tiles of two 64-point
     warpgroups, each layer k-slice by k-slice in the ring's order.
@@ -193,11 +193,23 @@ def _k4_model(field, odv, z, noise_std, seed, save_semin, desc=None, sem_act=Fal
     its output column, the rgb logits and semantics go to the tile's strip
     (3 + sem floats a point) and each warpgroup copies its rows out after
     its last head. Returns the output rows (sigma ``[N]`` or raw
-    ``[N, 4 + sem]``), each float of which is checked to be written once."""
+    ``[N, 4 + sem]``), each float of which is checked to be written once.
+    With ``points=(pts, dirs)``, ``desc`` (``train_desc`` at S = 1) and the
+    cotangent ``g [N, 4 + sem]``: the field backward's forward (K8c/K8f,
+    the store mode with the point-list input), a CTA a chunk of
+    ``desc.rays_per_chunk`` points (``per`` = its tiles); no alpha head and
+    no output rows; after the tiles, g's columns into the cotangent planes
+    (P_DRGB rows 0-2, P_DSIG row 0, with the semantic head d_sem's rows <
+    sem; every other row and every point past the chunk's zero) of each
+    sub, and with ``in_grad`` (K8c) the point-PE cotangent plane's subs
+    zeroed whole. Returns the chunks' slices as the storing forward's."""
     buf, fdesc = fr.pack_field(field)
     ring, rd = fr.pack_ring(field)
     listed = points is not None
+    bwd_fwd = listed and desc is not None  # the field backward's forward
     depth, sem = fdesc.depth, fdesc.sem_dim
+    if bwd_fwd:
+        assert per * 128 == desc.rays_per_chunk and g.shape == (points[0].shape[0], 4 + sem)
     if listed:
         N = points[0].shape[0]
         C = 1 if sigma_only else 4 + sem
@@ -320,7 +332,7 @@ def _k4_model(field, odv, z, noise_std, seed, save_semin, desc=None, sem_act=Fal
                 xa = torch.cat([s for s in (in0, in1) if s is not None])
                 alpha = xa.t() @ wt_fp32(head[0])[:, 0] + buf[head[0].b]
                 strip[ql, 0] = alpha[live]
-                if listed:
+                if listed and not bwd_fwd:
                     put_row(r0 + ql, 0 if sigma_only else 3, alpha[live])
                 if sigma_only:
                     continue
@@ -346,12 +358,27 @@ def _k4_model(field, odv, z, noise_std, seed, save_semin, desc=None, sem_act=Fal
                     put(fr._P_HV, sub, v.t())
                 rgb = v[:, :head[3].k] @ wt_fp32(head[3])[:, :3] + buf[head[3].b:head[3].b + 3]
                 strip[ql, 2:5] = rgb[live]
-                if listed:  # the warpgroup's rows but sigma from the tile's strip
+                if listed and not bwd_fwd:  # the warpgroup's rows but sigma from the strip
                     tstrip[ql - 128 * t, 0:3] = rgb[live]
                     part = tstrip[ql - 128 * t]
                     for c in range(C):
                         if c != 3:
                             put_row(r0 + ql, c, part[:, c if c < 3 else c - 1])
+        if bwd_fwd:  # the consumers' copy of g into the cotangent planes
+            nsub = -(-nq // WG)
+            q = torch.arange(nsub * WG)
+            gq = torch.where((q < nq)[:, None], g[r0 + q.clamp(max=nq - 1)], 0.0).t()
+            p_dsem, p_gemb = fr._P_ACT0 + depth + 1, fr._P_ACT0 + depth + 3
+            cots = [(fr._P_DRGB, gq[0:3]), (fr._P_DSIG, gq[3:4])]
+            cots += [(p_dsem, gq[4:4 + sem])] if sem else []
+            for p, rows_g in cots:
+                full = torch.cat([rows_g, rows_g.new_zeros(8 - rows_g.shape[0], rows_g.shape[1])])
+                for sub in range(nsub):
+                    put(p, sub, full[:, WG * sub:WG * (sub + 1)])
+            if in_grad:
+                at, n = desc.plane[p_gemb], nsub * desc.rows[p_gemb] * fr._KLD
+                ws[at:at + n] = 0.0
+                writes[at:at + n] += 1
         if listed:
             continue
         strips.append(strip)
@@ -367,6 +394,9 @@ def _k4_model(field, odv, z, noise_std, seed, save_semin, desc=None, sem_act=Fal
     layers = range(depth) if sigma_only else fr.ring_layers(field)
     per_tile = sum(L[i].k // 8 for i in layers)
     assert stages["n"] == 2 * per_tile * sum(-(-nq // 128) for _, nq in spans)
+    if bwd_fwd:
+        assert not written.any()
+        return slices
     if listed:
         assert (written == 1).all() and not rows.isnan().any()
         return rows[:, 0] if sigma_only else rows
@@ -702,6 +732,141 @@ def test_storing_forward_model_feeds_the_reverse_sweep(mode, depth, sem, coord, 
         assert err < 1e-5, (name, err)
 
 
+def _jax_field_grads(depth, sem, dws, dbs):
+    """The JAX field backward's (dW, db) in ``_flatten_mlp_params`` order ->
+    the port's parameter names of one field."""
+    names = [f"pts_linears_{i}" for i in range(depth)]
+    names += ["alpha_linear", "feature_linear", "views_linears_0", "rgb_linear"]
+    names += ["sem_0", "sem_1"] if sem else []
+    tree = {"coarse": {"mlp": {n: {"kernel": np.asarray(w), "bias": np.asarray(b)}
+                               for n, w, b in zip(names, dws, dbs)}}}
+    return {k[len("nerf."):]: v for k, v in state_dict_from_jax_params(tree).items()}
+
+
+def _pe_grads(x, gx):
+    """``train_sweep.cuh`` pe_grads on feature-major rows: the stored x
+    ``[3, P]`` and the PE's cotangent ``[rows, P]`` -> ``[P, 3]``, each
+    phase rounded once an operation as the forward's PE rounds it."""
+    out = gx[:3].clone()
+    for b in range((gx.shape[0] - 3) // 6):
+        for h in range(2):
+            phase = x * 2.0 ** b + (float(np.float32(np.pi / 2)) if h else 0.0)
+            out = out + (gx[3 + 6 * b + 3 * h:6 + 6 * b + 3 * h] * torch.cos(phase)) * 2.0 ** b
+    return out.t()
+
+
+N_BWD = 555  # two 512-point chunks: the second's one tile ragged, its second warpgroup past N
+BWD_CASES = [  # (mode, depth, semantic head, its coordinates)
+    ("k8c", 5, True, True), ("k8c", 4, True, False), ("k8f", 4, True, True),
+    ("k8f", 3, False, False)]
+
+
+@pytest.mark.parametrize("mode,depth,sem,coord", BWD_CASES)
+def test_field_backward_forward_model_feeds_the_reverse_sweep(mode, depth, sem, coord):
+    """K8c's and K8f's forward (``field_bwd_forward_kernel``) is the tile's
+    store mode with the point-list input: the tile model on rows of points
+    in 512-point chunks (555 points: the last chunk one ragged tile whose
+    second warpgroup lies past N) writes every stored plane's float of its
+    subs once, g's columns into the cotangent planes (zero past N and in
+    the padding rows) and, for K8c, zeroes the point-PE cotangent plane;
+    no output row. The planes, fed through ``_emulate_k3``'s reverse sweep
+    with those cotangents (and for K8c the input-gradient matrices of
+    ``pack_input_bwd`` and the PE's chain rule from the stored x), give
+    ``field_grads_plain``'s gradients and the JAX package's
+    ``_fused_backward`` (K8c, with dpts/ddirs) or ``_fused_backward_pl``
+    (K8f), Pallas in interpret mode, each leaf to 1e-5 of its max."""
+    from test_torch_train_render import _emulate_k3
+
+    in_grad = mode == "k8c"
+    jcfg, params, tnet = _nets(depth, sem, coord)
+    field = tnet.nerf
+    pts, dirs, _ = _field_rows(N_BWD, 7 * depth + sem)
+    fdesc = fr.pack_field(field)[1]
+    C = 4 + fdesc.sem_dim
+    g = np.random.default_rng(depth).normal(size=(N_BWD, C)).astype(np.float32)
+    tp, td, tg = (torch.from_numpy(a) for a in (pts, dirs, g))
+    desc = fr.train_desc(field, fdesc, fr.pack_train_bwd(field)[1], 1, sem, input_grads=in_grad)
+    assert desc.rays_per_chunk == 512
+    with torch.no_grad():
+        slices = _k4_model(field, None, None, 0.0, 0, False, desc, sem_act=sem,
+                           points=(tp, td), per=4, g=tg, in_grad=in_grad)
+    stored = ([fr._P_EMB, fr._P_DEMB, fr._P_FEAT, fr._P_HV]
+              + [fr._P_ACT0 + i for i in range(depth + sem)])
+    cots = [fr._P_DRGB, fr._P_DSIG] + ([fr._P_ACT0 + depth + 1] if sem else [])
+    p_gemb = fr._P_ACT0 + depth + 3
+    planes = {p: [] for p in stored + cots}
+    assert [nq for *_, nq in slices] == [512, N_BWD - 512]
+    for ws, writes, nq in slices:
+        nsub = -(-nq // WG)
+        want = torch.zeros_like(writes)
+        for p in stored + cots:
+            rows, at = desc.rows[p], desc.plane[p]
+            want[at:at + nsub * rows * fr._KLD].view(nsub, rows, fr._KLD)[:, :, :WG] = 1
+            tiles = ws[at:at + nsub * rows * fr._KLD].view(nsub, rows, fr._KLD)[:, :, :WG]
+            planes[p].append(tiles.permute(1, 0, 2).reshape(rows, -1))
+        if in_grad:
+            want[desc.plane[p_gemb]:desc.plane[p_gemb] + nsub * desc.rows[p_gemb] * fr._KLD] = 1
+            assert not ws[desc.plane[p_gemb]:desc.plane[p_gemb + 1]].any()
+        assert torch.equal(writes, want)
+        assert not torch.stack([planes[p][-1][:, nq:].abs().sum() for p in cots]).any()
+    planes = {p: torch.cat([t[:, :512] for t in ts], 1)[:, :N_BWD] for p, ts in planes.items()}
+    drgb, dsig = planes[fr._P_DRGB], planes[fr._P_DSIG]
+    dsem = planes[fr._P_ACT0 + depth + 1] if sem else None
+    assert torch.equal(drgb[:3], tg[:, :3].t()) and not drgb[3:].any()
+    assert torch.equal(dsig[0], tg[:, 3]) and not dsig[1:].any()
+    if sem:
+        assert torch.equal(dsem[:2], tg[:, 4:].t()) and not dsem[2:].any()
+    fwd = dict(emb=planes[fr._P_EMB], demb=planes[fr._P_DEMB], feat=planes[fr._P_FEAT],
+               hv=planes[fr._P_HV], acts=[planes[fr._P_ACT0 + i] for i in range(depth)],
+               s_act=planes.get(fr._P_ACT0 + depth))
+    dys = {}
+    with torch.no_grad():
+        got, maps, w = _emulate_k3(field, None, None, None, False, 0.0, 0, fwd=fwd,
+                                   cot=(drgb, dsig, dsem), dys=dys)
+    assert maps is None and w is None
+    want, dp, dd = ff.field_grads_plain(field, tp, td, tg, input_grads=in_grad)
+    if in_grad:  # the reverse sweep's input-gradient products, then the PE's chain rule
+        ibuf, ibwd = ff.pack_input_bwd(field)
+
+        def product(i, dy):
+            L = ibwd[i]
+            m = ibuf[L.w:L.w + L.k * fr._pad8(L.n)].view(L.k, fr._pad8(L.n))
+            assert dy.shape[0] == L.k
+            return m[:, :L.n].t() @ dy
+
+        gemb = 0
+        for i in ff.input_ring_layers(field):
+            if i == depth + 2:
+                continue
+            dy = torch.cat([dys[depth + 1], dys[depth]]) if i == depth else dys[i]
+            gemb = gemb + product(i, dy)
+        gdemb = product(depth + 2, dys[depth + 2])
+        got["dpts"] = _pe_grads(fwd["emb"][:3], gemb)
+        got["ddirs"] = _pe_grads(fwd["demb"][:3], gdemb)
+        want = {**want, "dpts": dp, "ddirs": dd}
+    ws_j, bs_j = jff._flatten_mlp_params(params["coarse"]["mlp"], depth, sem)
+    args = (depth, (4,), jcfg.multires, jcfg.multires_views, sem, coord, "float32")
+    if in_grad:
+        dws, dbs, (jdp, jdd) = jff._fused_backward(tuple(ws_j), tuple(bs_j),
+                                                   (jnp.asarray(pts), jnp.asarray(dirs)),
+                                                   jnp.asarray(g), *args, block=128,
+                                                   interpret=True)
+        jax_want = {**_jax_field_grads(depth, sem, dws, dbs),
+                    "dpts": torch.from_numpy(np.array(jdp)),
+                    "ddirs": torch.from_numpy(np.array(jdd))}
+    else:
+        pd = jnp.asarray(np.concatenate([pts.T, dirs.T], 0))
+        dws, dbs = jff._fused_backward_pl(tuple(ws_j), tuple(bs_j), pd, jnp.asarray(g.T), *args,
+                                          block=128, interpret=True)
+        jax_want = _jax_field_grads(depth, sem, dws, dbs)
+    assert set(got) == set(want) == set(jax_want)
+    for ref in (want, jax_want):
+        for name, r in ref.items():
+            assert got[name].shape == r.shape, name
+            err = float((got[name] - r).abs().max()) / (float(r.abs().max()) + 1e-12)
+            assert err <= 1e-5, (name, err)
+
+
 def _field_rows(n, seed):
     """``n`` points in [-2, 2]^3, unit directions and small diagonal
     covariances ``[n, 3]`` (float32 numpy)."""
@@ -761,6 +926,53 @@ def test_field_forwards_are_the_tile_in_point_list_mode(kernel, depth, sem, coor
     assert got.shape == ((N_LIST,) if kernel == "k8a" else (N_LIST, 4 + 2 * sem))
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5, rtol=0)
     np.testing.assert_allclose(got.numpy(), jax_out, atol=1e-5, rtol=0)
+
+
+def test_field_grads_launches_with_the_forward_ring(monkeypatch):
+    """On the card field_grads (K8f, and K8c with ``input_grads``) calls the
+    library's ``nerf_field_grads`` once a call with ``pack_ring``'s buffer
+    and ``_field_ring``'s stages for its forward (K4's tile in its storing
+    point-list mode) beside the reverse sweep's rings, and counts the
+    launch (here on a library that records the calls)."""
+    torch.manual_seed(6)
+    field = NeRFField(net_depth=4, net_width=32, multires=4, multires_views=2,
+                      use_semantics=True, sem_with_coord=True, sem_dim=2)
+    pts, dirs, _ = (torch.from_numpy(a) for a in _field_rows(N_LIST, 5))
+    g = torch.ones(N_LIST, 6)
+    calls = []
+
+    class Lib:
+        def __getattr__(self, name):
+            return lambda *a: calls.append((name, a)) or 0
+
+    props = type("Props", (), {"multi_processor_count": 132})()
+    monkeypatch.setattr(ff, "_on_card", lambda t: True)
+    monkeypatch.setattr(fr._build, "library", Lib)
+    monkeypatch.setattr(fr._build, "stream", lambda device: None)
+    monkeypatch.setattr(fr.torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(fr.torch.cuda, "get_device_properties", lambda device: props)
+    cpu = torch.device("cpu")
+    buf, fdesc = fr._packed(field, cpu)
+    rbuf, ring = fr._ring(field, cpu)
+    bring, brd = fr._bwd_ring(field, cpu)
+    counts = ff.field_grads.launches, ff.field_grads.input_grad_launches
+    for input_grads in (False, True):
+        grads, dp, dd = ff.field_grads(field, pts, dirs, g, input_grads=input_grads)
+        (name, a), = calls[-1:]
+        assert name == "nerf_field_grads" and set(grads) == {n for n, _ in
+                                                           field.named_parameters()}
+        assert a[:6] == (pts.data_ptr(), dirs.data_ptr(), g.data_ptr(), buf.data_ptr(),
+                         rbuf.data_ptr(), bring.data_ptr())
+        assert torch.equal(rbuf, fr.pack_ring(field)[0])
+        rd = ff._field_ring(fdesc, ring, True)
+        assert bytes(a[8]._obj) == bytes(rd) and rd.stages == 4 and ring.stages == 0
+        assert bytes(a[9]._obj) == bytes(brd) and a[7]._obj.rays_per_chunk == 512
+        assert (a[6] is not None, a[14] is not None) == (input_grads, input_grads)
+        assert (dp is not None) == input_grads and a[14] == (dp.data_ptr() if input_grads
+                                                             else None)
+        assert a[16:] == (N_LIST, 1, 1, None)
+    assert (ff.field_grads.launches, ff.field_grads.input_grad_launches) == (
+        counts[0] + 2, counts[1] + 1)
 
 
 @pytest.mark.parametrize("sem,mip", [(True, False), (False, False), (False, True)])

@@ -13,13 +13,22 @@ column; the warps' dc1 are summed in warp order into the tile's dc1
 partial; a finish sums the partial slices in block order. The loss sweep
 sums each lane's valid rows, then the CTA in ``block_sum``'s tree, one
 partial a tile; the finish sums each half's partials a thread a strided
-run, then the same tree. Every scratch entry is written exactly once.
+run, then the same tree. K7a's sweep (the row stats) takes the same tiles
+without codes (256 rows): each lane's running sums of fd over its warp's
+columns, the warps' in warp order, one row-sum slice a column tile; a
+second kernel sums a row's slices in tile order over N (rowmean) and its
+128-row block's means in the tree, a third each half's block sums (gm).
+Every scratch entry is written exactly once.
 """
+import contextlib
+
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from nerfsos_torch.ops import flash_corr as fc
+from nerfsos_tpu.ops.pallas import flash_corr as jfc
 
 WARPS = 4
 
@@ -255,3 +264,120 @@ def test_k7_tile_grid_at_the_flagship_call():
     assert fc.means_scratch(16, 4096, 2, 2) == 16 * 16 * 16 * 2
     assert [fc.tile_rows(h, s) for h, s in ((1, 4), (1, 5), (2, 4), (2, 5), (2, 8))] == \
         [8, 4, 4, 2, 2]
+
+
+def _row_stats_model(f1, f2, max_depth, halves):
+    """K7a as its three kernels compute it: ``(rowmean [B2, N], gm
+    [halves])``, with every scratch entry written once."""
+    B2, N, _ = f1.shape
+    ncb, nrb = fc.tile_grid(N, 0, 0)
+    R, rows, wc = fc.tile_rows(0, 0), 32 * fc.tile_rows(0, 0), fc.TILE_COLS // WARPS
+    nblk = -(-N // 128)
+    scratch = torch.full((fc.row_stats_scratch(B2, N),), float("nan"))
+    writes = torch.zeros(scratch.shape, dtype=torch.int64)
+    part, w_part = (t[:ncb * B2 * N].view(ncb, B2, N) for t in (scratch, writes))
+    blk, w_blk = (t[ncb * B2 * N:].view(B2, nblk) for t in (scratch, writes))
+    for rb in range(nrb):
+        p = rb * rows + torch.arange(32)[:, None] + 32 * torch.arange(R)  # [lane, i]
+        ok = p < N
+        a = torch.where(ok[..., None], f1[:, p.clamp(max=N - 1)], torch.zeros(()))
+        for cb in range(ncb):
+            q0 = cb * fc.TILE_COLS
+            nc = min(fc.TILE_COLS, N - q0)
+            red = []
+            for w in range(WARPS):
+                v = torch.zeros(B2, 32, R)
+                for j in range(q0 + w * wc, q0 + min(nc, (w + 1) * wc)):  # in column order
+                    x = f2[:, j][:, None, None]
+                    v = v + torch.clamp(1.0 / (fc._l1(a, x, True) + 0.05), max=max_depth)
+                red.append(v)
+            s = red[0]
+            for w in range(1, WARPS):
+                s = s + red[w]
+            s = s.transpose(1, 2).reshape(B2, rows)  # tile row lane + 32 i
+            p0 = rb * rows
+            nr = min(rows, N - p0)
+            part[cb, :, p0:p0 + nr] = s[:, :nr]
+            w_part[cb, :, p0:p0 + nr] += 1
+    rowmean = part[0]
+    for c in range(1, ncb):
+        rowmean = rowmean + part[c]
+    rowmean = rowmean / N
+    padded = torch.cat([rowmean, torch.zeros(B2, nblk * 128 - N)], 1).view(B2, nblk, 128)
+    blk[:] = _block_sum(padded)
+    w_blk += 1
+    assert not scratch.isnan().any() and bool((writes == 1).all())
+    per_half = blk.reshape(halves, -1)  # each half's block sums in order
+    n = per_half.shape[1]
+    m = -(-n // 128)
+    x = torch.cat([per_half, torch.zeros(halves, m * 128 - n)], 1).view(halves, m, 128)
+    acc = torch.zeros(halves, 128)
+    for i in range(m):  # thread k sums block sums k, k + 128, ... in order
+        acc = acc + x[:, i]
+    return rowmean, _block_sum(acc) / float(B2 // halves * N)
+
+
+@pytest.mark.parametrize("B2,N,halves", [(4, 77, 2), (2, 300, 1), (4, 1000, 2)])
+@pytest.mark.parametrize("maxd", [15.0, 1.5])
+def test_k7a_row_tiles_match_plain(B2, N, halves, maxd):
+    """K7a's tiles at ragged N (no multiple of the 256-row or 256-column
+    tile): rowmean to 1e-5 of the plain version's largest, each half's gm
+    to 1e-5 of its own."""
+    f1, f2 = _inputs(B2, N, 1, 1, N + B2)[:2]
+    got = _row_stats_model(f1, f2, maxd, halves)
+    want = fc.geo_row_stats_plain(f1, f2, maxd, halves)
+    assert got[0].shape == want[0].shape == (B2, N) and got[1].shape == want[1].shape == (halves,)
+    assert _rel(got[0], want[0]) <= 1e-5
+    assert float(((got[1] - want[1]).abs() / want[1].abs()).max()) <= 1e-5
+
+
+def test_k7a_row_tiles_match_pallas():
+    """At 384 pixels (a ragged second tile both ways; the Pallas kernel
+    needs N a multiple of 128), the tile model against the JAX package's
+    ``_row_stats`` (interpret mode): rowmean to 1e-5 of its largest, each
+    half's gm to 1e-5 of the mean of the JAX rowmean over that half."""
+    f1, f2 = _inputs(4, 384, 1, 1, 9)[:2]
+    rm, gm = _row_stats_model(f1, f2, 15.0, 2)
+    rm_j, _ = jfc._row_stats(jnp.asarray(f1.numpy()),
+                             jnp.asarray(f2.numpy().transpose(0, 2, 1)), 15.0, True)
+    rm_j = torch.from_numpy(np.array(rm_j)[..., 0])
+    assert _rel(rm, rm_j) <= 1e-5
+    gm_j = torch.stack([rm_j[:2].mean(), rm_j[2:].mean()])
+    assert float(((gm - gm_j).abs() / gm_j.abs()).max()) <= 1e-5
+
+
+def test_k7a_tile_grid_at_the_flagship_call():
+    """16 x 4096 pixels: 256-row x 256-column tiles, 16 x 16 x 16 = 4096
+    CTAs; a 256-KiB slice of row sums a column tile and a batch row's 32
+    block sums."""
+    assert fc.tile_rows(0, 0) == 8 and fc.tile_grid(4096, 0, 0) == (16, 16)
+    assert fc.row_stats_scratch(16, 4096) == 16 * (16 * 4096 + 32)
+
+
+def test_k7a_wrapper_launches_with_its_scratch(monkeypatch):
+    """On the card geo_row_stats calls the library's ``geo_row_stats`` once
+    with a scratch of ``row_stats_scratch`` floats (the tiles' row sums and
+    the block sums) and counts the launch (here on a library that records
+    the call); for a CPU tensor it is the plain version."""
+    f1, f2 = _inputs(4, 300, 1, 1, 3)[:2]
+    want = fc.geo_row_stats_plain(f1, f2, 15.0, 2)
+    got = fc.geo_row_stats(f1, f2, 15.0, 2)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    calls = []
+
+    class Lib:
+        def geo_row_stats(self, *a):
+            calls.append(a)
+            return 0
+
+    monkeypatch.setattr(fc, "_device", lambda t: False)
+    monkeypatch.setattr(fc._build, "library", Lib)
+    monkeypatch.setattr(fc._build, "stream", lambda device: None)
+    monkeypatch.setattr(fc.torch.cuda, "device", lambda device: contextlib.nullcontext())
+    before = fc.geo_row_stats.launches
+    rm, gm = fc.geo_row_stats(f1, f2, 15.0, 2)
+    (a,) = calls
+    assert a[:4] == (f1.data_ptr(), f2.data_ptr(), rm.data_ptr(), gm.data_ptr())
+    assert a[5:] == (fc.row_stats_scratch(4, 300), 4, 300, 2, 15.0, None)
+    assert fc.row_stats_scratch(4, 300) == 4 * (2 * 300 + 3)
+    assert fc.geo_row_stats.launches == before + 1

@@ -106,9 +106,9 @@ def test_tile_probe_wgclock_counts_the_mip_mode(tmp_path):
 
 @pytest.mark.parametrize("variant", ["l1", "l1clock"])
 def test_tile_probe_rejects_the_old_tiles_variants(tmp_path, variant):
-    """The 64-point tile's variants went with the last kernel tile_probe
-    timed on it (K9's and K10a's ``train_render_kernel``): asking for one
-    raises rather than timing an unpatched build."""
+    """Variants of a retired design (``l1``, ``l1clock``) are not kept for
+    sources that no longer have their targets: asking for one raises rather
+    than timing an unpatched build."""
     csrc = tmp_path / "csrc"
     shutil.copytree(_build.CSRC_DIR, csrc)
     with pytest.raises(ValueError, match="unknown variant"):
@@ -118,9 +118,11 @@ def test_tile_probe_rejects_the_old_tiles_variants(tmp_path, variant):
 def test_tile_probe_wgclock_counts_the_field_forwards(tmp_path):
     """``wgclock`` also counts the field forwards' tile loop
     (``field_wg_kernel`` in ``csrc/fused_field.cu``, a translation unit of
-    its own, read by ``probe_read_field``) and the point-list modes'
-    copy-out in ``wg_tile.cuh``; K10b's forward is ``train_forward_wg_kernel``,
-    whose tile loop the K3/K6 counter already covers."""
+    its own, read by ``probe_read_field``), the field backward's forward's
+    (``field_bwd_forward_kernel``, before the consumers' copy of g), and
+    the point-list modes' copy-out in ``wg_tile.cuh``; K10b's forward is
+    ``train_forward_wg_kernel``, whose tile loop the K3/K6 counter already
+    covers."""
     csrc = tmp_path / "csrc"
     shutil.copytree(_build.CSRC_DIR, csrc)
     tile_probe._patch("wgclock", str(csrc))
@@ -128,6 +130,10 @@ def test_tile_probe_wgclock_counts_the_field_forwards(tmp_path):
     body = field[field.index("    field_wg_kernel("):]
     body = body[:body.index("\n}\n")]
     assert body.count("PROBE_ADD(0, p_start);") == 1 and "p_start = clock64();" in body
+    bwd = field[field.index("    field_bwd_forward_kernel("):]
+    bwd = bwd[:bwd.index("\n}\n")]
+    assert bwd.count("PROBE_ADD(0, p_start);") == 1 and bwd.index("p_start = clock64();") < \
+        bwd.index("PROBE_ADD(0, p_start);") < bwd.index("bar.sync 3")
     assert 'extern "C" int probe_read_field(' in field
     tile = (csrc / "wg_tile.cuh").read_text()
     assert "PROBE_ADD(6, p_o);" in tile and "long long p_o = clock64();" in tile
@@ -137,18 +143,19 @@ def test_tile_probe_wgclock_counts_the_field_forwards(tmp_path):
     assert "PROBE_ADD(0, p_start);" in fwd and "composite_chunk<kMode, kMip" in fwd
 
 
-@pytest.mark.parametrize("kernel", ["k8b", "k8a", "k11", "k10b", "k9", "k4", "k1"])
+@pytest.mark.parametrize("kernel", ["k8b", "k8a", "k11", "k10b", "k9", "k4", "k1", "k8f", "k8c"])
 def test_tile_probe_takes_the_tile_kernels(kernel):
     """``--kernel`` takes every kernel that runs K4's tile, the field
-    forwards and K10b among them, with the rays, samples and variants."""
+    forwards, K10b and the field backward (its forward) among them, with
+    the rays, samples and variants."""
     a = tile_probe.parser().parse_args(["--kernel", kernel, "--rays", "4096", "--samples",
                                         "64,32", "--variants", "base,wgclock"])
     assert (a.kernel, a.rays, a.samples, a.variants) == (kernel, 4096, "64,32", "base,wgclock")
 
 
-@pytest.mark.parametrize("kernel", ["k8c", "k8f", "k7"])
+@pytest.mark.parametrize("kernel", ["k7", "k8"])
 def test_tile_probe_rejects_kernels_off_the_tile(kernel, capsys):
-    """Kernels that run no part of K4's tile (the field backward, K7) are
-    refused by the argument parser."""
+    """Kernels that run no part of K4's tile (K7) and names of no one
+    kernel (K8 without its letter) are refused by the argument parser."""
     with pytest.raises(SystemExit):
         tile_probe.parser().parse_args(["--kernel", kernel])

@@ -1,7 +1,8 @@
 """The port's RGB train path vs nerfsos_tpu's, on tiny inputs (CPU): the LR
 schedule, Adam, the resume fast-forward, the semantic-head filter, the ray
 sampler, one whole fused train step, checkpoints with optimizer state,
-kill-and-resume, and ``run_nerf.main`` in train mode.
+kill-and-resume, and ``run_nerf.main`` in train mode (with its line for
+the test images and videos it does not write yet).
 """
 import json
 import os
@@ -326,3 +327,44 @@ def test_resume_with_partial_load_fast_forwards(tiny_scene):
     assert {int(s["step"]) for s in opt_state["state"].values()} == {1}
     lr = tstate.exp_decay_schedule(5e-4, 0.1, 250 * 1000)(2)
     assert opt_state["param_groups"][0]["lr"] == pytest.approx(lr, rel=1e-12)
+
+
+class _Stop(Exception):
+    pass
+
+
+NOTE_CASES = [  # (rays_exhibit.npy in the data directory, flags, the line printed)
+    (True, ["--max_steps", "2"], True), (False, ["--max_steps", "2", "--i_img", "2"], True),
+    (False, ["--max_steps", "3", "--i_video", "3"], True),
+    (False, ["--max_steps", "2", "--i_img", "3", "--i_video", "3"], False),
+    (False, ["--max_steps", "2"], False), (True, ["--max_steps", "2", "--eval"], False)]
+
+
+@pytest.mark.parametrize("exhibit,flags,printed", NOTE_CASES)
+def test_unwritten_images_and_videos_are_named_at_the_start(tmp_path, monkeypatch, capsys,
+                                                           exhibit, flags, printed):
+    """A train run in which the JAX entry point would write test images
+    (``--i_img`` within ``--max_steps``) or videos (``rays_exhibit.npy``,
+    ``--i_video`` within ``--max_steps``) prints one line saying the port
+    writes neither yet, before it loads its data; a run that would write
+    neither, or an ``--eval`` run, prints none. (The data loader is stopped
+    at once: the line comes first.)"""
+    data = tmp_path / "data"
+    data.mkdir()
+    if exhibit:
+        np.save(data / "rays_exhibit.npy", np.zeros((1, 2, 2, 6), np.float32))
+    (tmp_path / "logs" / "n").mkdir(parents=True)
+
+    def stop(*a, **kw):
+        raise _Stop
+
+    import nerfsos_torch.data.datasets as tdatasets
+    monkeypatch.setattr(tdatasets, "RayDataset", stop)
+    args, _ = run_nerf.create_arg_parser().parse_known_args(
+        ["--expname", "n", "--basedir", str(tmp_path / "logs"), "--data_path", str(data),
+         *TRAIN_FLAGS, *flags])
+    with pytest.raises(_Stop):
+        run_nerf.main(args, device="cpu")
+    lines = [x for x in capsys.readouterr().out.splitlines() if "--i_img" in x]
+    assert lines == ([run_nerf.unwritten_outputs_note(args, 0)] if printed else [])
+    assert not printed or "not written" in lines[0]

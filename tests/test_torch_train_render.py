@@ -161,7 +161,7 @@ def _emulate_forward(field, odv, z):
 
 
 def _emulate_k3(field, odv, z, gt, white, noise_std, seed, dmaps=None, dweights=None, fwd=None,
-                dx=None, dwb=None, mip=False):
+                dx=None, dwb=None, mip=False, cot=None, dys=None):
     """What csrc/train_render.cu computes, step for step, in feature-major
     torch matrices built only from the packed buffers: the forward
     (``fwd``, by default ``_emulate_forward``'s), the composite and its
@@ -178,7 +178,11 @@ def _emulate_k3(field, odv, z, gt, white, noise_std, seed, dmaps=None, dweights=
     ``segs`` and its cotangent rows ``dy``; by default one product and one
     sum. ``mip`` (K10b, with ``fwd`` given): ``z`` holds fenceposts
     ``[R, S + 1]``, an interval's distance is its length (no far pad) and
-    its depth the midpoint."""
+    its depth the midpoint. ``cot`` (the field backward, K8c/K8f, with
+    ``fwd`` given): the cotangent planes' rows ``(drgb [8, P], dsig [8, P],
+    dsem [8, P] or None)`` in place of the composite's (no composite: odv,
+    z and the maps are unused, maps and weights come back None).
+    ``dys``: a dict that gets each layer's cotangent rows by layer index."""
     fd = tfr.pack_field(field)[1]
     bbuf, bwd = tfr.pack_train_bwd(field)
     if dx is None:
@@ -186,14 +190,61 @@ def _emulate_k3(field, odv, z, gt, white, noise_std, seed, dmaps=None, dweights=
             y = _mm(bbuf, bwd[i], segs) + (0 if add is None else add)
             return y if gate is None else y * (gate > 0)
     depth, skip, sem = fd.depth, fd.skip, fd.sem_dim
-    Rn, S = z.shape[0], z.shape[1] - int(mip)
     fwd = _emulate_forward(field, odv, z) if fwd is None else fwd
     emb, demb, acts, feat, hv, s_act = (fwd[k] for k in ("emb", "demb", "acts", "feat", "hv",
                                                           "s_act"))
-    sigma, logits, semv = fwd["sigma"], fwd["logits"], fwd["semv"]
     h = [emb, acts[-1]] if depth - 1 == skip else [acts[-1]]
     ins = [[emb]] + [[emb, acts[i - 1]] if i - 1 == skip else [acts[i - 1]]
                      for i in range(1, depth)]
+    if cot is not None:
+        drgb, dsig, dsem = cot
+        k6_sem, maps, w = dsem is not None, None, None
+    else:
+        drgb, dsig, dsem, maps, w = _composite_cotangents(
+            fwd, odv, z, gt, white, noise_std, seed, dmaps, dweights, mip, sem)
+        k6_sem = dsem is not None
+
+    offs, size = tfr.grad_layout(field, k6_sem)
+    flat = torch.zeros(size)
+
+    def wgrad(layer, segs, dy):
+        if dys is not None:
+            dys[layer] = dy
+        gw, gb = offs[layer]
+        if dwb is None:
+            flat[gw:gb] = (torch.cat(segs) @ dy.t()).reshape(-1)
+            flat[gb:gb + dy.shape[0]] = dy.sum(1)
+        else:
+            w_, b_ = dwb(layer, segs, dy)
+            flat[gw:gb] = w_.reshape(-1)
+            flat[gb:gb + dy.shape[0]] = b_
+
+    k_alpha, k_feat, k_views, k_rgb = depth, depth + 1, depth + 2, depth + 3
+    wgrad(k_rgb, [hv], drgb)
+    dpv = dx(k_rgb, [drgb], hv)
+    wgrad(k_views, [feat, demb], dpv)
+    dfeat = dx(k_views, [dpv])
+    wgrad(k_feat, h, dfeat)
+    wgrad(k_alpha, h, dsig)
+    cur = dx(k_alpha, [dfeat, dsig], acts[-1])
+    if k6_sem:
+        wgrad(depth + 5, [s_act], dsem)
+        ds = dx(depth + 5, [dsem], s_act)
+        wgrad(depth + 4, h + ([emb] if fd.sem_with_coord else []), ds)
+        cur = dx(depth + 4, [ds], acts[-1], cur)
+    for i in range(depth - 1, -1, -1):
+        wgrad(i, ins[i], cur)
+        if i > 0:
+            cur = dx(i, [cur], acts[i - 1])
+    return tfr.unpack_grads(field, flat, k6_sem), maps, w
+
+
+def _composite_cotangents(fwd, odv, z, gt, white, noise_std, seed, dmaps, dweights, mip, sem):
+    """K3's, K6's and K10b's composite and its reverse per ray (see
+    ``_emulate_k3``): the cotangent planes' rows (drgb, dsig; dsem with
+    ``dmaps`` and the semantic head, else None), the maps and the weights."""
+    sigma, logits, semv = fwd["sigma"], fwd["logits"], fwd["semv"]
+    Rn, S = z.shape[0], z.shape[1] - int(mip)
     if noise_std > 0:
         sigma = sigma + tfr.noise_plain(seed, Rn, S, noise_std)
 
@@ -233,40 +284,10 @@ def _emulate_k3(field, odv, z, gt, white, noise_std, seed, dmaps=None, dweights=
     dsig = torch.where(sigma > 0, dalpha * e * D, torch.zeros_like(D)).reshape(1, -1)
     drgb = ((diff.t()[..., None] * w) * (rgb * (1 - rgb))).reshape(3, -1)
     dsig, drgb = _pad_rows(dsig, 8), _pad_rows(drgb, 8)
-    k6_sem = dmaps is not None and sem > 0
-
-    offs, size = tfr.grad_layout(field, k6_sem)
-    flat = torch.zeros(size)
-
-    def wgrad(layer, segs, dy):
-        gw, gb = offs[layer]
-        if dwb is None:
-            flat[gw:gb] = (torch.cat(segs) @ dy.t()).reshape(-1)
-            flat[gb:gb + dy.shape[0]] = dy.sum(1)
-        else:
-            w_, b_ = dwb(layer, segs, dy)
-            flat[gw:gb] = w_.reshape(-1)
-            flat[gb:gb + dy.shape[0]] = b_
-
-    k_alpha, k_feat, k_views, k_rgb = depth, depth + 1, depth + 2, depth + 3
-    wgrad(k_rgb, [hv], drgb)
-    dpv = dx(k_rgb, [drgb], hv)
-    wgrad(k_views, [feat, demb], dpv)
-    dfeat = dx(k_views, [dpv])
-    wgrad(k_feat, h, dfeat)
-    wgrad(k_alpha, h, dsig)
-    cur = dx(k_alpha, [dfeat, dsig], acts[-1])
-    if k6_sem:
+    dsem = None
+    if dmaps is not None and sem > 0:
         dsem = _pad_rows((dmaps[:, 5:].t()[..., None] * w).reshape(sem, -1), 8)
-        wgrad(depth + 5, [s_act], dsem)
-        ds = dx(depth + 5, [dsem], s_act)
-        wgrad(depth + 4, h + ([emb] if fd.sem_with_coord else []), ds)
-        cur = dx(depth + 4, [ds], acts[-1], cur)
-    for i in range(depth - 1, -1, -1):
-        wgrad(i, ins[i], cur)
-        if i > 0:
-            cur = dx(i, [cur], acts[i - 1])
-    return tfr.unpack_grads(field, flat, k6_sem), maps, w
+    return drgb, dsig, dsem, maps, w
 
 
 @pytest.mark.parametrize("sem,coord,white,noise,s", CASES)
