@@ -1,5 +1,6 @@
 """Smoke run of the PyTorch port on one CUDA card: kernels, the --eval path,
-the train path, the SOS finetune (frozen, full, random negatives),
+the train path, the SOS finetune (frozen, full, random negatives), the
+bf16 modes (--compute_dtype bfloat16: --eval and the frozen finetune),
 mip-NeRF (--mipnerf train and --eval), then the field kernels (--eval_vol
 and nets with no fine pass, --N_importance 0).
 
@@ -158,7 +159,20 @@ Phases (one line each; any failure raises and the exit code is nonzero):
      kernel once a ray block, the view vs the plain net's with the same
      noise, one sigma call vs plain and timed;
  29. [noimp_step]: the --N_importance 0 step at 1024 and 16384 rays, kernel
-     vs plain path with peak memory, and its two field calls timed alone.
+     vs plain path with peak memory, and its two field calls timed alone;
+ 30. the bf16 modes (``--compute_dtype bfloat16``, run after 12): [K1_bf16],
+     [K2_bf16], [K4_bf16], [K5_bf16] at the flagship width against their
+     bf16 plain versions (bf16_columns, bf16_stored: the bf16 rounding
+     flips bounded as a group, beside the readings of an fp32 control and
+     a tail fault; k5_bf16_over), two calls bitwise equal,
+     timed at the main paths' shapes beside the same call's fp32 kernel
+     and the bf16 bound; [eval_bf16] the 378x504 view at bf16 (the fp32
+     view again beside it, the bf16 counters alone launched, its last K1
+     and K2 calls vs plain); [sos_bf16] 20 frozen steps at bf16 from the
+     [train] run's fp32 checkpoint with a bf16 DINO (as [sos]); and
+     [sos_bf16_step] the bf16 and the fp32 frozen step in turns, with
+     peak memory, then the bf16 step split into its parts as [sos_step]'s
+     ([sos_bf16_step_part], [sos_bf16_step_split]).
 The last lines are the card, one JSON object with the kernels' numbers, and
 ``{"ok": true, "device": {...}}``. Scratch files go to build/chip_smoke/.
 """
@@ -257,6 +271,11 @@ K4_PTXAS = None
 K9_PTXAS = None
 FIELD_PTXAS = {}  # field_wg_kernel by input mode: kInList 3, kInListSigma 4, kInListGauss 5
 K5_PTXAS = None
+# the bf16 modes' lines: train_render_wg_kernel<kInPoint | kInSigma, true> (K4 and K2,
+# K1) and frozen_sem_kernel<true> (K5)
+K4_BF16_PTXAS = None
+K1_BF16_PTXAS = None
+K5_BF16_PTXAS = None
 FWD_PTXAS = {}
 REV_PTXAS = {}
 FIELD_BWD_PTXAS = {}
@@ -1121,17 +1140,35 @@ def k4_cost(field, R: int, S: int) -> dict:
     return bound_ms(nbytes, R * S * field_flops(field, "k2"))
 
 
-def k4_design(field, R: int, S: int, ms: float) -> dict:
+def k4_design(field, R: int, S: int, ms: float, bf16: bool = False) -> dict:
     """What K4's design moves and reaches on R x S points in ms: the weight
     bytes a point reads from L2 (pack_ring's stages, once per 128-point
-    tile), the achieved 3xTF32 rate and its peak, and ptxas's line for the
-    kernel."""
+    tile), the achieved 3xTF32 (``bf16``: bf16) rate and its peak, and
+    ptxas's line for the kernel."""
     from nerfsos_torch.ops import fused_render as fr
 
-    ring, _ = fr.pack_ring(field)
+    ring, _ = fr.pack_ring(field, bf16)
     return {"l2_weight_bytes_per_point": ring.numel() * 4 / 128,
             "achieved_tflop_s": R * S * field_flops(field, "k2") / ms / 1e9,
-            "mma_peak_tflop_s": FP32_MMA_FLOP_S / 1e12, "ptxas": repr(K4_PTXAS)}
+            "mma_peak_tflop_s": (BF16_FLOP_S if bf16 else FP32_MMA_FLOP_S) / 1e12,
+            "ptxas": repr(K4_BF16_PTXAS if bf16 else K4_PTXAS)}
+
+
+def k4_bf16_cost(field, R: int, S: int) -> dict:
+    """K4's bound at bf16: k4_cost's with sem_in and the weights in bf16
+    and the products at the bf16 rate."""
+    C = field.mlp.semantic_linear[0].in_features
+    return bf16_bound(4 * R * (9 + 2 * S + 7) + 2 * R * S * C + 2 * n_params(field),
+                      R * S * field_flops(field, "k2"))
+
+
+def k5_bf16_cost(field, R: int, S: int) -> dict:
+    """K5's bound at bf16: k5_cost's with sem_in in bf16 and the products at
+    the bf16 rate."""
+    C, H = field.mlp.semantic_linear[0].in_features, field.mlp.semantic_linear[0].out_features
+    sem = field.mlp.semantic_linear[2].out_features
+    return bf16_bound(2 * R * S * C + 4 * (R * S + R * 7 + 2 * (C * H + H + H * sem + sem)),
+                      R * S * (4 * C * H + 4 * H * sem))
 
 
 def k5_cost(field, R: int, S: int) -> dict:
@@ -1281,6 +1318,457 @@ def kernel_vs_plain_k6(fr, S: int) -> dict:
     phase("K6", rays=R, samples=S, **close, deterministic=True, ms=ms, plain_ms=plain_ms,
           **split, **k6_cost(field, R, S))
     return close
+
+
+# ----------------------------------------------------------------- bf16
+
+# The bf16 modes (--compute_dtype bfloat16: K1, K2 and K4 on the 128-point
+# tile's bf16 mode, K5's bf16 mode; wgmma m64nNk16 bf16). A kernel and its
+# bf16 plain version round the same operands to bf16 and accumulate in fp32
+# in other orders, so an activation within that fp32 rounding of a bf16
+# rounding boundary rounds the other way on the two sides (one bf16 step,
+# carried on by later layers and at times across a relu gate). At the
+# flagship width that is no rare event: a ray meets ~10^5 bf16 roundings,
+# ~0.1-0.3% of sem_in's entries differ, and up to 0.63% of a call's rows
+# move by more than TOL (the bf16 eval view's K2; by at most 3.8e-4 of the
+# column's scale, the SOS run's K4; H100). As GATE_MARGIN sets the points
+# near a gate apart, such rows are counted and bounded as a group
+# (bf16_columns): at most BF16_FLIP_ROWS of a call's rows may lie further
+# than the fp32 kernels' TOL from the plain version (per column, over the
+# scale max(1, max |plain|)), and no entry further than BF16_ENTRY of its
+# column's scale (about 5x the largest flip measured). Both calls' inputs
+# are seeded and the kernels deterministic, so these readings repeat run
+# to run. Each [K*_bf16] line prints them over their bounds beside two
+# controls: the fp32 kernel's output on the same inputs in place of the
+# bf16 one (control_*; refused wherever the bf16-vs-fp32 distance exceeds
+# the bounds), and the bf16 output with its last hundredth of rows each
+# given its predecessor's values (tail_fault_*: a ragged tail written from
+# the wrong ray), which bf16_columns requires the bounds to refuse. sem_in,
+# stored in bf16 on both sides (bf16_stored): a flip there is a whole bf16
+# step of an entry; at most BF16_STORED_SHARE of its entries may differ
+# (measured up to 0.31%), each within BF16_STORED_STEPS bf16 steps (2^-8)
+# of its column's largest value (measured up to 4.23, after 20 SOS steps).
+# K5's leaves: k5_bf16_over.
+BF16_SHARE = 0.1
+BF16_FLIP_ROWS = 0.01
+BF16_ENTRY = 2e-3
+BF16_STORED_SHARE = 1e-2
+BF16_STORED_STEPS = 8
+BF16_FLOP_S = 989e12  # H100 SXM dense bf16 tensor-core rate (NVIDIA data sheet, 700 W)
+
+
+def tail_fault(got):
+    """``got`` with its last hundredth of rows (one at least) each given the
+    values of the row before it."""
+    k = max(1, got.shape[0] // 100)
+    bad = got.clone()
+    bad[-k:] = got[-k - 1:-1]
+    return bad
+
+
+def bf16_columns(what: str, got, want, control=None) -> dict:
+    """``got`` (a kernel's bf16 mode) against ``want`` (its bf16 plain
+    version) within BF16_FLIP_ROWS and BF16_ENTRY (above), and the same
+    bounds' readings on ``control`` (the fp32 kernel's output on the same
+    inputs) and on tail_fault(got); raises if got is not within them or
+    the tail fault is."""
+    g, w = (t.detach().float().reshape(t.shape[0], -1) for t in (got, want))
+    scale = w.abs().amax(0).clamp(min=1.0)
+
+    def reading(x):
+        e = (x - w).abs() / scale
+        return float(e.max()) / BF16_ENTRY, float((e > TOL).any(1).float().mean()) / BF16_FLIP_ROWS
+
+    over, flips = reading(g)
+    fault = reading(tail_fault(g))
+    finite = bool(torch.isfinite(g).all())
+    if not (finite and over <= 1.0 and flips <= 1.0 and max(fault) > 1.0):
+        raise SystemExit(f"{what} at bf16 disagrees with its bf16 plain version: its largest "
+                         f"error at {over} of BF16_ENTRY, {flips} of BF16_FLIP_ROWS of its rows "
+                         f"beyond TOL, finite={finite}; or the bounds do not refuse a tail "
+                         f"fault ({fault})")
+    out = {"max_abs_err": float((g - w).abs().max()), "err_over_bound": over,
+           "flip_rows": flips * BF16_FLIP_ROWS, "flip_rows_over_bound": flips}
+    if control is not None:
+        out["control_over_bound"], out["control_flip_rows_over_bound"] = reading(
+            control.detach().float().reshape(g.shape))
+    out["tail_fault_over_bound"], out["tail_fault_flip_rows_over_bound"] = fault
+    return out
+
+
+def bf16_stored(what: str, got, want) -> dict:
+    """K4's bf16 sem_in against its bf16 plain version's within
+    BF16_STORED_SHARE and BF16_STORED_STEPS; raises. With the same bounds'
+    readings on tail_fault(got)."""
+    g, w = got.float(), want.float()
+    step = (w.abs().amax(0) * 2.0**-8).clamp(min=1e-30)
+
+    def reading(x):
+        return (float(((x - w).abs().amax(0) / step).max()) / BF16_STORED_STEPS,
+                float((x != w).float().mean()) / BF16_STORED_SHARE)
+
+    steps, differ = reading(g)
+    fault = reading(tail_fault(g))
+    if not (bool(torch.isfinite(g).all()) and steps <= 1.0 and differ <= 1.0):
+        raise SystemExit(f"{what} at bf16 disagrees with its bf16 plain version: "
+                         f"{differ * BF16_STORED_SHARE} of its entries differ (bound "
+                         f"{BF16_STORED_SHARE}), by up to {steps * BF16_STORED_STEPS} bf16 steps "
+                         f"of a column's largest (bound {BF16_STORED_STEPS})")
+    return {"differing_share": differ * BF16_STORED_SHARE, "max_steps": steps * BF16_STORED_STEPS,
+            "tail_fault_steps_over_bound": fault[0], "tail_fault_differing_over_bound": fault[1]}
+
+
+def k5_bf16_over(got, want, want32, allow):
+    """K5's bf16 leaves against their bf16 plain version: the worst leaf's
+    error, less its gate allowance, over the larger of BF16_SHARE of the
+    leaf's bf16-vs-fp32 distance and GRAD_TOL of its max (db1 is a sum of
+    the unrounded d_sem in both modes: its distance is 0); and the largest
+    error."""
+    over, err = 0.0, 0.0
+    for k, ref in want.items():
+        e = max_err(got[k], ref)
+        err = max(err, e)
+        bound = max(BF16_SHARE * max_err(ref, want32[k]), GRAD_TOL * float(ref.abs().max()))
+        over = max(over, max(0.0, e - allow[k]) / max(bound, 1e-30))
+    return over, err
+
+
+def bf16_bound(bytes_moved: float, flops: float) -> dict:
+    return bound_ms(bytes_moved, flops, BF16_FLOP_S)
+
+
+def kernel_vs_plain_bf16(fr) -> dict:
+    """[K1_bf16], [K2_bf16], [K4_bf16], [K5_bf16]: each kernel's bf16 mode at
+    the flagship width against its bf16 plain version (bf16_columns), two
+    calls bitwise equal, then timed at the main paths' shapes beside the
+    same call's fp32 kernel and the bf16 bound (bf16 products at
+    BF16_FLOP_S, bytes at HBM_BYTES_S): K1/K2 at the eval's 32768 rays a
+    launch, K4/K5 at the SOS step's 32768 rays (S = 192 and 64)."""
+    bf = torch.bfloat16
+    out = {}
+    # K1: the eval's coarse pass
+    field = seeded_field(0, net_depth=8, net_width=256, multires=10, multires_views=4)
+    for R, seed in ((8192, 0), (EVAL_CHUNK, 3)):
+        odv, z = ray_inputs(R, 64, seed=seed)
+        od = odv[:, :6].contiguous()
+        with torch.no_grad():
+            got = fr.fused_coarse_weights(field, od, z, bf)
+            again = fr.fused_coarse_weights(field, od, z, bf)
+            close = bf16_columns(f"K1 ({R} rays)", got, fr.coarse_weights_plain(field, od, z, bf),
+                                 fr.fused_coarse_weights(field, od, z))
+        if not torch.equal(got, again):
+            raise SystemExit("K1 at bf16: two calls differ")
+    with torch.no_grad():
+        ms = cuda_ms(lambda: fr.fused_coarse_weights(field, od, z, bf), reps=3)
+        ms32 = cuda_ms(lambda: fr.fused_coarse_weights(field, od, z), reps=3)
+        plain_ms = cuda_ms(lambda: fr.coarse_weights_plain(field, od, z, bf), reps=2, warmup=1)
+    bound = bf16_bound(4 * R * (6 + 2 * 64) + 2 * n_params(field),
+                       R * 64 * field_flops(field, "k1"))
+    phase("K1_bf16", rays=R, samples=64, **close, deterministic=True, ms=ms, fp32_ms=ms32,
+          plain_ms=plain_ms, **bound, ptxas=repr(K1_BF16_PTXAS))
+    out["K1"] = {"max_abs_err": close["max_abs_err"], "ms": ms, "plain_ms": plain_ms, **bound,
+                 "library_ms": None}
+
+    # K2: the eval's fine pass
+    field = seeded_field(1, net_depth=8, net_width=256, multires=10, multires_views=4,
+                         use_semantics=True, sem_with_coord=True, sem_dim=2)
+    odv, z = ray_inputs(8192, 192, seed=1)
+    with torch.no_grad():
+        got = fr.fused_render(field, odv, z, bf)
+        again = fr.fused_render(field, odv, z, bf)
+        want, control = fr.render_plain(field, odv, z, bf), fr.fused_render(field, odv, z)
+    close = bf16_columns("K2 maps", got[0], want[0], control[0])
+    close_w = bf16_columns("K2 weights", got[1], want[1], control[1])
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise SystemExit("K2 at bf16: two calls differ")
+    R = EVAL_CHUNK
+    odv, z = ray_inputs(R, 192, seed=2)
+    with torch.no_grad():
+        ms = cuda_ms(lambda: fr.fused_render(field, odv, z, bf), reps=3)
+        ms32 = cuda_ms(lambda: fr.fused_render(field, odv, z), reps=3)
+        plain_ms = cuda_ms(lambda: [fr.render_plain(field, odv[i:i + 8192], z[i:i + 8192], bf)
+                                    for i in range(0, R, 8192)], reps=2, warmup=1)
+    bound = bf16_bound(4 * R * (9 + 2 * 192 + 7) + 2 * n_params(field),
+                       R * 192 * field_flops(field, "k2"))
+    phase("K2_bf16", rays=8192, samples=192, maps=close, weights=close_w, deterministic=True,
+          timed_rays=R, ms=ms, fp32_ms=ms32,
+          plain_ms=plain_ms, **bound, ptxas=repr(K4_BF16_PTXAS))
+    out["K2"] = {"max_abs_err": max(close["max_abs_err"], close_w["max_abs_err"]), "ms": ms,
+                 "plain_ms": plain_ms, **bound, "library_ms": None}
+
+    # K4 and K5: the frozen SOS step's forward and backward
+    field = seeded_field(3, net_depth=8, net_width=256, multires=10, multires_views=4,
+                         use_semantics=True, sem_with_coord=True, sem_dim=2)
+    errs = {"K4": 0.0, "K5": 0.0}
+    for S in (64, 192):
+        R = 4096
+        odv, z = ray_inputs(R, S, seed=4 + S)
+        kw = dict(noise_std=1.0, seed=7654321, save_semin=True)
+        with torch.no_grad():
+            got = fr.train_render(field, odv, z, compute_dtype=bf, **kw)
+            again = fr.train_render(field, odv, z, compute_dtype=bf, **kw)
+            want = fr.train_render_plain(field, odv, z, compute_dtype=bf, **kw)
+            control = fr.train_render(field, odv, z, **{**kw, "save_semin": False})
+        if got[2].dtype != bf or not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise SystemExit(f"K4 at bf16 (S={S}): sem_in {got[2].dtype}, or two calls differ")
+        c4, c4w = (bf16_columns(f"K4 {n} (S={S})", *(t[i] for t in (got, want, control)))
+                   for i, n in enumerate(("maps", "weights")))
+        c4s = bf16_stored(f"K4 sem_in (S={S})", got[2], want[2])
+        del control
+        errs["K4"] = max(errs["K4"], c4["max_abs_err"], c4w["max_abs_err"])
+        _, w, sem_in = got
+        dmaps = torch.from_numpy(np.random.default_rng(S).normal(size=(R, 7)).astype(np.float32))
+        dmaps = dmaps.cuda()
+        g = fr.frozen_sem_grads(field, sem_in, w, dmaps, bf)
+        g2 = fr.frozen_sem_grads(field, sem_in, w, dmaps, bf)
+        want5 = fr.frozen_sem_grads_plain(field, sem_in, w, dmaps, bf)
+        want5_32, allow, near = plain_k5_with_allowance(field, sem_in.float(), w, dmaps)
+        torch.cuda.synchronize()
+        if not all(torch.equal(g[k], g2[k]) for k in g):
+            raise SystemExit(f"K5 at bf16 (S={S}): two calls differ")
+        over5, e5 = k5_bf16_over(g, want5, want5_32, allow)
+        if not (all(torch.isfinite(t).all() for t in g.values()) and over5 <= 1.0):
+            raise SystemExit(f"K5 at bf16 (S={S}) disagrees with its bf16 plain version: worst "
+                             f"leaf at {over5} of its bound")
+        errs["K5"] = max(errs["K5"], e5)
+        phase("K4_bf16", rays=R, samples=S, maps=c4, weights=c4w, sem_in=c4s,
+              deterministic=True)
+        phase("K5_bf16", rays=R, samples=S, max_abs_err=e5, err_over_bound=over5,
+              near_gate_points=near, deterministic=True)
+    R = 32768
+    for S in (192, 64):
+        odv, z = ray_inputs(R, S, seed=40 + S)
+        kw = dict(noise_std=1.0, seed=13579, save_semin=True)
+        with torch.no_grad():
+            ms = cuda_ms(lambda: fr.train_render(field, odv, z, compute_dtype=bf, **kw), reps=3)
+            ms32 = cuda_ms(lambda: fr.train_render(field, odv, z, **kw), reps=3)
+            plain_ms = cuda_ms(lambda: fr.train_render_plain(field, odv, z, compute_dtype=bf,
+                                                             **kw), reps=1, warmup=1)
+            _, w, sem_in = fr.train_render(field, odv, z, compute_dtype=bf, **kw)
+        bound = k4_bf16_cost(field, R, S)
+        phase("K4_bf16", rays=R, samples=S, ms=ms, fp32_ms=ms32, plain_ms=plain_ms, **bound,
+              achieved_tflop_s=R * S * field_flops(field, "k2") / ms / 1e9,
+              ptxas=repr(K4_BF16_PTXAS))
+        if S == 192:
+            out["K4"] = {"max_abs_err": errs["K4"], "ms": ms, "plain_ms": plain_ms, **bound,
+                         "library_ms": None}
+        dmaps = torch.from_numpy(np.random.default_rng(S).normal(size=(R, 7)).astype(np.float32))
+        dmaps = dmaps.cuda()
+        ms5 = cuda_ms(lambda: fr.frozen_sem_grads(field, sem_in, w, dmaps, bf), reps=3)
+        plain5 = cuda_ms(lambda: fr.frozen_sem_grads_plain(field, sem_in, w, dmaps, bf), reps=1,
+                         warmup=1)
+        sem32 = sem_in.float()
+        ms5_32 = cuda_ms(lambda: fr.frozen_sem_grads(field, sem32, w, dmaps), reps=3)
+        del sem32
+        bound5 = k5_bf16_cost(field, R, S)
+        phase("K5_bf16", rays=R, samples=S, ms=ms5, fp32_ms=ms5_32, plain_ms=plain5, **bound5,
+              ptxas=repr(K5_BF16_PTXAS))
+        if S == 192:
+            out["K5"] = {"max_abs_err": errs["K5"], "ms": ms5, "plain_ms": plain5, **bound5,
+                         "library_ms": None}
+        del sem_in, w
+        torch.cuda.empty_cache()
+    return out
+
+
+BF16_COUNTS = {"K1": "fused_coarse_weights", "K2": "fused_render", "K4": "train_render",
+               "K5": "frozen_sem_grads"}
+
+
+def zero_counts(fr) -> None:
+    for n in BF16_COUNTS.values():
+        getattr(fr, n).launches = getattr(fr, n).launches_bf16 = 0
+
+
+def read_counts(fr, what: str) -> dict:
+    """The bf16 launches of K1, K2, K4 and K5 since zero_counts; raises if any
+    of them launched in fp32 mode (a bf16 run must not)."""
+    f32 = {k: getattr(fr, n).launches for k, n in BF16_COUNTS.items()}
+    if any(f32.values()):
+        raise SystemExit(f"the bf16 {what} launched fp32 kernels: {f32}")
+    return {k: getattr(fr, n).launches_bf16 for k, n in BF16_COUNTS.items()}
+
+
+def eval_bf16_path(fr) -> dict:
+    """[eval_bf16]: the [eval] phase's view with ``--compute_dtype bfloat16``
+    (K1 and K2 in their bf16 mode, counts from 0), its seconds beside the
+    same view at fp32 run again just before it (the [eval] phase's run is
+    the process's first eval), finite metrics, and the view's last K1 and
+    K2 calls against their bf16 plain versions (bf16_columns) and a second
+    call, bitwise."""
+    from nerfsos_torch import run_nerf
+
+    bf = torch.bfloat16
+    flags = ("--eval", "--fast_mode", "--ret_cluster", "--clus_no_sfm", "--use_masks")
+    os.makedirs(os.path.join(WORK, "logs", "smoke_fp32"), exist_ok=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run_nerf.main(eval_args(*flags, "--expname", "smoke_fp32"))
+    torch.cuda.synchronize()
+    fp32_seconds = time.perf_counter() - t0
+    os.makedirs(os.path.join(WORK, "logs", "smoke_bf16"), exist_ok=True)
+    args = eval_args(*flags, "--compute_dtype", "bfloat16", "--expname", "smoke_bf16")
+    zero_counts(fr)
+    cap = Capture(fr, ["fused_coarse_weights", "fused_render"])
+    cap.on = True
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_nerf.main(args)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        cap.close()
+    launches = read_counts(fr, "--eval")
+    with open(os.path.join(WORK, "logs", "smoke_bf16", "eval", "log.json")) as f:
+        log = json.load(f)
+    if launches["K1"] < 1 or launches["K2"] < 1 or not all(
+            isinstance(log.get(k), float) and math.isfinite(log[k])
+            for k in ("total_mse", "total_psnr", "total_ssim")):
+        raise SystemExit(f"the bf16 --eval run: launches {launches}, log {log}")
+    (a1, _, w1), (a2, _, m2) = cap.calls["fused_coarse_weights"][-1], cap.calls["fused_render"][-1]
+    with torch.no_grad():
+        c1 = bf16_columns("K1 on the bf16 eval view", w1, fr.coarse_weights_plain(*a1),
+                          fr.fused_coarse_weights(*a1[:3]))
+        c2 = bf16_columns("K2 on the bf16 eval view", m2[0], fr.render_plain(*a2)[0],
+                          fr.fused_render(*a2[:3])[0])
+        same = (torch.equal(w1, fr.fused_coarse_weights(*a1))
+                and all(torch.equal(x, y) for x, y in zip(m2, fr.fused_render(*a2))))
+    if a1[3] != bf or a2[3] != bf or not same:
+        raise SystemExit("the bf16 eval view's K1/K2: not bf16, or two calls differ")
+    phase("eval_bf16", view=f"{H_VIEW}x{W_VIEW}", seconds=seconds, fp32_seconds=fp32_seconds,
+          launches=launches,
+          psnr=log["total_psnr"], k1=c1, k2=c2, deterministic=True)
+    return launches
+
+
+def sos_bf16_path(fr, fc) -> dict:
+    """[sos_bf16]: SOS_STEPS frozen finetune steps with ``--compute_dtype
+    bfloat16`` from the [train] run's fp32 last.ckpt, a seeded bf16 DINO: K4
+    and K5 in their bf16 mode (counts from 0, no fp32 launch), every loss
+    term finite, the trunk bitwise unchanged, the head moved, the final eval
+    through K1/K2's bf16 mode, the last step's K4 and K5 calls against their
+    bf16 plain versions and a second call, bitwise."""
+    from nerfsos_torch import run_nerf
+    from nerfsos_torch.engines import checkpoint as ckpt_lib
+    from nerfsos_torch.engines import sos
+
+    bf = torch.bfloat16
+    ckpt = os.path.join(WORK, "logs", "smoke_train", "checkpoints", "last.ckpt")
+    start_state, start_step, _ = ckpt_lib.load_checkpoint(ckpt)
+    last = start_step + SOS_STEPS - 1
+    args = sos_args(ckpt, start_step + SOS_STEPS, expname="smoke_sos_bf16",
+                    extra=["--compute_dtype", "bfloat16"])
+    zero_counts(fr)
+    rec = {"metrics": [], "objects": None, "dino": None, "start": None}
+    orig, orig_dino = sos.make_sos_train_step, run_nerf.build_dino
+    cap = Capture(fr, ["train_render", "frozen_sem_grads"])
+
+    def recording_make_step(net, *a, **kw):
+        rec["objects"] = (net, a, kw)
+        rec["start"] = {n: p.detach().cpu().clone() for n, p in net.state_dict().items()}
+        step = orig(net, *a, **kw)
+
+        def recorded(batch, global_step):
+            cap.on = global_step == last
+            try:
+                m = step(batch, global_step)
+            finally:
+                cap.on = False
+            rec["metrics"].append({k: float(v) for k, v in m.items()})
+            return m
+
+        return recorded
+
+    sos.make_sos_train_step = recording_make_step
+    run_nerf.build_dino = lambda *a: rec.__setitem__("dino", orig_dino(*a)) or rec["dino"]
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_nerf.main(args)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        sos.make_sos_train_step, run_nerf.build_dino = orig, orig_dino
+        cap.close()
+    launches = read_counts(fr, "frozen finetune")
+    rerenders = sum(1 for s in range(start_step, last + 1) if (s + 1) % args.i_print == 0
+                    or s + 1 == 1)
+    want = {"K4": 2 * SOS_STEPS + 2 * rerenders, "K5": 2 * SOS_STEPS}
+    if (len(rec["metrics"]) != SOS_STEPS or any(launches[k] != n for k, n in want.items())
+            or min(launches["K1"], launches["K2"]) < 1 or rec["dino"].vit.dtype != bf):
+        raise SystemExit(f"the bf16 SOS run: {len(rec['metrics'])} steps, launches {launches} "
+                         f"(expected {want} and K1/K2 in the final eval), DINO "
+                         f"{rec['dino'].vit.dtype}")
+    for m in rec["metrics"]:
+        if not all(math.isfinite(v) for v in m.values()) or 0.0 in (m["corr1"], m["geo_corr1"]):
+            raise SystemExit(f"a bf16 SOS loss term is not finite or is zero: {m}")
+    end_state, _, _ = ckpt_lib.load_checkpoint(os.path.join(WORK, "logs", "smoke_sos_bf16",
+                                                            "checkpoints", "last.ckpt"))
+    for k, v in end_state.items():
+        if "semantic_linear" in k:
+            if torch.equal(v, rec["start"][k]):
+                raise SystemExit(f"the semantic head did not move at bf16: {k}")
+        elif not torch.equal(v, start_state[k]):
+            raise SystemExit(f"a frozen trunk leaf changed at bf16: {k}")
+    checks = {}
+    for name, (a, kw, got) in zip(("coarse", "fine"), cap.calls["train_render"]):
+        with torch.no_grad():
+            refs = (fr.train_render_plain(*a, **kw),
+                    fr.train_render(*a, **{**kw, "compute_dtype": torch.float32,
+                                           "save_semin": False}))
+            checks[f"K4 {name}"] = {
+                n: bf16_columns(f"K4 {n} at step {last} ({name})", got[i],
+                                *(r[i] for r in refs))
+                for i, n in enumerate(("maps", "weights"))}
+            checks[f"K4 {name}"]["sem_in"] = bf16_stored(f"K4 sem_in at step {last} ({name})",
+                                                         got[2], refs[0][2])
+            del refs
+            again = fr.train_render(*a, **kw)
+        if kw["compute_dtype"] != bf or not all(torch.equal(x, y) for x, y in zip(got, again)):
+            raise SystemExit(f"K4 at step {last} ({name}): not bf16, or two calls differ")
+    for a, kw, got in cap.calls["frozen_sem_grads"]:
+        field, sem_in, w, dmaps, dtype = a
+        name = "coarse" if w.shape[1] == args.N_samples else "fine"
+        want5 = fr.frozen_sem_grads_plain(*a)
+        want32, allow, _ = plain_k5_with_allowance(field, sem_in.float(), w, dmaps)
+        over, _ = k5_bf16_over(got, want5, want32, allow)
+        again = fr.frozen_sem_grads(*a, **kw)
+        if dtype != bf or over > 1.0 or not all(torch.equal(got[k], again[k]) for k in got):
+            raise SystemExit(f"K5 at step {last} ({name}): {over} of its bound, or not bf16, or "
+                             "two calls differ")
+        checks[f"K5 {name}"] = over
+    phase("sos_bf16", steps=len(rec["metrics"]), seconds_incl_load_and_eval=seconds,
+          launches=launches, loss_first=rec["metrics"][0]["loss"],
+          corr1_last=rec["metrics"][-1]["corr1"], trunk_bitwise_equal=True, head_moved=True,
+          last_step=checks)
+    return {"launches": launches, "rec": rec, "args": args}
+
+
+def sos_bf16_step_timings(f32_run, bf16_run) -> None:
+    """[sos_bf16_step]: the frozen 32768-ray SOS step at bf16 beside the same
+    call's fp32 frozen step, in turns (fp32, bf16, bf16, fp32), each on the
+    same batch, ms from CUDA events and peak memory."""
+    from nerfsos_torch.data.datasets import PatchDataset
+    from nerfsos_torch.engines import sos
+
+    args = bf16_run["args"]
+    ds = PatchDataset(args.data_path, patch_size=args.patch_size,
+                      patch_stride=args.patch_stride, ret_k=True)
+    b = ds.sample_batch(np.random.default_rng(0), args.batch_size)
+    device = next(bf16_run["rec"]["objects"][0].parameters()).device
+    batch = {k: torch.as_tensor(b[k], device=device) for k in ("rays", "target")}
+    steps = {}
+    for name, run in (("fp32", f32_run), ("bf16", bf16_run)):
+        net, a, kw = run["rec"]["objects"]
+        steps[name] = sos.make_sos_train_step(net, *a, **kw)
+    for name in ("fp32", "bf16", "bf16", "fp32"):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(lambda: steps[name](batch, 0), reps=3, warmup=1)
+        phase("sos_bf16_step", compute_dtype=name, rays=batch["target"].shape[0], ms=ms,
+              peak_gib=torch.cuda.max_memory_allocated() / 2**30)
 
 
 def k7_single_pair_inputs(B: int, N: int, S: int, seed: int):
@@ -1488,7 +1976,7 @@ def sos_path(fr, fc) -> dict:
         errs[f"K4 {name}"] = max(e)
         del want4
     for a, kw, got in calls5:
-        field, sem_in, w, dmaps = a
+        field, sem_in, w, dmaps = a[:4]
         name = "coarse" if w.shape[1] == args.N_samples else "fine"
         close = check_k5(f"step {last}, {name}", got, *plain_k5_with_allowance(field, sem_in, w,
                                                                                 dmaps))
@@ -1705,7 +2193,8 @@ def sos_mode_path(fr, fc, mode: str) -> dict:
 
 
 def sos_step_timings(fr, fc, sos_run, name: str = "sos_step",
-                     bwd: str = "frozen_sem_grads", parts: bool = True) -> dict:
+                     bwd: str = "frozen_sem_grads", parts: bool = True,
+                     paths=("kernel", "plain", "kernel", "plain")) -> dict:
     """[sos_step] (``bwd`` K5, the frozen finetune), [sos_full_step] (K6,
     the full finetune) or, without its parts, [sos_randneg_step] (K5 and
     the single-head K7b/K7c): the 32768-ray SOS step (8 patches of 64x64) in ms
@@ -1719,7 +2208,8 @@ def sos_step_timings(fr, fc, sos_run, name: str = "sos_step",
     (``pack_field`` and the ring gathered from it, ``pack_ring``: again
     after every Adam step), the
     appearance loss (forward and backward), K7 forward and backward, and
-    Adam."""
+    Adam. A bf16 run's (``--compute_dtype bfloat16``) parts are its bf16
+    kernels, its bf16 ViT and its packing of the bf16 rings."""
     from nerfsos_torch.data.datasets import PatchDataset
     from nerfsos_torch.engines import sos
     from nerfsos_torch.losses.correlation import CorrelationLoss
@@ -1740,7 +2230,7 @@ def sos_step_timings(fr, fc, sos_run, name: str = "sos_step",
              fc: {n: getattr(fc, n + "_plain")
                   for n in ("geo_row_stats", "geo_quad_means", "geo_quad_grads",
                             "geo_single_means", "geo_single_grads")}}
-    for path in ("kernel", "plain", "kernel", "plain"):
+    for path in paths:
         saved = {}
         if path == "plain":
             for mod, fns in plain.items():
@@ -1787,25 +2277,29 @@ def sos_step_timings(fr, fc, sos_run, name: str = "sos_step",
         k7.close()
         extractor.get_vit_attn_feat, CorrelationLoss.pair_heads = orig_vit, orig_pair
     parts = {}
+    bf16 = k4kb.calls["train_render"][0][1].get("compute_dtype") == torch.bfloat16
     for part, (fa, fkw, _) in zip(("K4 coarse", "K4 fine"), k4kb.calls["train_render"]):
         with torch.no_grad():
             parts[part] = (cuda_ms(lambda: fr.train_render(*fa, **fkw), reps=3, warmup=1),
                            cuda_ms(lambda: fr.train_render_plain(*fa, **fkw), reps=2, warmup=1))
-        parts[part + " cost"] = k4_cost(fa[0], *fa[2].shape)
+        parts[part + " cost"] = (k4_bf16_cost if bf16 else k4_cost)(fa[0], *fa[2].shape)
     for fa, fkw, _ in k4kb.calls[bwd]:
         part = f"{bwd_key} coarse" if fa[2].shape[1] == args.N_samples else f"{bwd_key} fine"
         parts[part] = (cuda_ms(lambda: getattr(fr, bwd)(*fa, **fkw), reps=3, warmup=1),
                        cuda_ms(lambda: getattr(fr, bwd + "_plain")(*fa, **fkw), reps=2,
                                warmup=1))
-        parts[part + " cost"] = cost(fa[0], *fa[2].shape)
+        parts[part + " cost"] = (k5_bf16_cost if bf16 else cost)(fa[0], *fa[2].shape)
     with torch.no_grad():
         parts["ViT"] = (cuda_ms(lambda: orig_vit(vit_in[0]), reps=3, warmup=1), None)
         # the forward kernels' weight buffers of both fields, packed again
         # after each Adam step: pack_field's and the ring gathered from it
         # (pack_ring does both)
+        # (bf16: pack_field's buffer, which holds the biases and the heads
+        # the tile forms in registers, and the bf16 ring)
         fields = [fa[0] for fa, _, _ in k4kb.calls["train_render"]]
-        parts["weight packing"] = (cuda_ms(lambda: [fr.pack_ring(f) for f in fields], reps=3,
-                                           warmup=1), None)
+        parts["weight packing"] = (cuda_ms(
+            lambda: [(fr.pack_field(f), fr.pack_ring(f, True)) if bf16 else fr.pack_ring(f)
+                     for f in fields], reps=3, warmup=1), None)
 
     def app_fwd_bwd():
         coords, feat, c0, c1, sim = app_in[0]
@@ -1824,9 +2318,9 @@ def sos_step_timings(fr, fc, sos_run, name: str = "sos_step",
             design = {}
             if part.startswith("K4"):
                 fa = k4kb.calls["train_render"][part == "K4 fine"][0]
-                design = k4_design(fa[0], *fa[2].shape, v[0])
+                design = k4_design(fa[0], *fa[2].shape, v[0], bf16)
             if part.startswith("K5"):
-                design = {"ptxas": repr(K5_PTXAS)}
+                design = {"ptxas": repr(K5_BF16_PTXAS if bf16 else K5_PTXAS)}
             phase(f"{name}_part", part=part, ms=v[0], plain_ms=v[1],
                   **({"bound_ms": parts[part + " cost"]["bound_ms"]}
                      if part + " cost" in parts else {}), **design)
@@ -2709,25 +3203,29 @@ def main() -> int:
     lib_path = _build.build()
     _build.library()
     phase("build", seconds=time.perf_counter() - t0, lib=os.path.relpath(lib_path, ROOT))
-    global K1_PTXAS, K4_PTXAS, K5_PTXAS, K9_PTXAS
+    global K1_PTXAS, K4_PTXAS, K5_PTXAS, K9_PTXAS, K1_BF16_PTXAS, K4_BF16_PTXAS, K5_BF16_PTXAS
     with open(lib_path + ".log") as f:
         lines = f.read().splitlines()
     serialised = []  # ptxas's wgmma warnings
     for i, line in enumerate(lines):
         if "registers" in line or "spill" in line:
             print("  ptxas:", line.strip())
-        if "Compiling entry function" in line and "train_render_wg_kernelILi0E" in line:
-            K4_PTXAS = "; ".join(x.replace("ptxas info    :", "").strip()
-                                 for x in lines[i + 2:i + 4])
-        if "Compiling entry function" in line and "train_render_wg_kernelILi1E" in line:
-            K1_PTXAS = "; ".join(x.replace("ptxas info    :", "").strip()
-                                 for x in lines[i + 2:i + 4])
-        if "Compiling entry function" in line and "train_render_wg_kernelILi2E" in line:
-            K9_PTXAS = "; ".join(x.replace("ptxas info    :", "").strip()
-                                 for x in lines[i + 2:i + 4])
-        if "Compiling entry function" in line and "frozen_sem_kernel" in line:
-            K5_PTXAS = "; ".join(x.replace("ptxas info    :", "").strip()
-                                 for x in lines[i + 2:i + 4])
+        entry = "; ".join(x.replace("ptxas info    :", "").strip() for x in lines[i + 2:i + 4])
+        # train_render_wg_kernel<kIn, kBf16>, frozen_sem_kernel<kBf16>
+        if "Compiling entry function" in line and "train_render_wg_kernelILi0ELb0E" in line:
+            K4_PTXAS = entry
+        if "Compiling entry function" in line and "train_render_wg_kernelILi1ELb0E" in line:
+            K1_PTXAS = entry
+        if "Compiling entry function" in line and "train_render_wg_kernelILi2ELb0E" in line:
+            K9_PTXAS = entry
+        if "Compiling entry function" in line and "frozen_sem_kernelILb0E" in line:
+            K5_PTXAS = entry
+        if "Compiling entry function" in line and "train_render_wg_kernelILi0ELb1E" in line:
+            K4_BF16_PTXAS = entry
+        if "Compiling entry function" in line and "train_render_wg_kernelILi1ELb1E" in line:
+            K1_BF16_PTXAS = entry
+        if "Compiling entry function" in line and "frozen_sem_kernelILb1E" in line:
+            K5_BF16_PTXAS = entry
         if "Compiling entry function" in line and "train_forward_wg_kernel" in line:
             # (kLoss 1 or kCotangent 2, kInPoint 0 or kInMip 2)
             mode, kin = line.split("train_forward_wg_kernelILi")[1].split("ELi")[:2]
@@ -2755,10 +3253,12 @@ def main() -> int:
         if ("wgmma" in line and "warning" in line) or "(C75" in line:
             serialised.append(line.strip())
     if (K1_PTXAS is None or K4_PTXAS is None or K5_PTXAS is None or K9_PTXAS is None
+            or None in (K1_BF16_PTXAS, K4_BF16_PTXAS, K5_BF16_PTXAS)
             or sorted(FWD_PTXAS) != [(1, 0), (2, 0), (2, 2)] or len(REV_PTXAS) != 4
             or sorted(FIELD_PTXAS) != [3, 4, 5] or len(FIELD_BWD_PTXAS) != 4):
         raise SystemExit("no ptxas report for K1's, K4's and K9's kernel (train_render_wg_kernel "
-                         "in its three input modes), K5's (frozen_sem_kernel), K3's, K6's and "
+                         "in its three input modes, K1's and K4's also in the bf16 mode), K5's "
+                         "(frozen_sem_kernel, fp32 and bf16), K3's, K6's and "
                          "K10b's forward (train_forward_wg_kernel), the field forwards' three "
                          "point-list modes (field_wg_kernel), the field backward's forward's "
                          "four modes (field_bwd_forward_kernel) or the reverse sweep's four "
@@ -2810,7 +3310,15 @@ def main() -> int:
     rand_run = sos_mode_path(fr, fc, "randneg")
     torch.cuda.empty_cache()
     parts = sos_step_timings(fr, fc, sos_run)
-    del sos_run["rec"]
+    torch.cuda.empty_cache()
+    # the bf16 modes: the kernels, the --eval view, the frozen finetune and its step
+    bf16 = kernel_vs_plain_bf16(fr)
+    eval_bf16_launches = eval_bf16_path(fr)
+    sos_bf16 = sos_bf16_path(fr, fc)
+    sos_bf16_step_timings(sos_run, sos_bf16)
+    torch.cuda.empty_cache()
+    sos_step_timings(fr, fc, sos_bf16, "sos_bf16_step", paths=("kernel",))
+    del sos_run["rec"], sos_bf16["rec"]
     torch.cuda.empty_cache()
     full_parts = sos_step_timings(fr, fc, full_run, "sos_full_step", "train_render_grads")
     del full_run["rec"]
@@ -2931,6 +3439,20 @@ def main() -> int:
          **noimp_parts["K8f"]},
         {"name": "K11 fused_mip_field_apply", "route": "cuda", "source": tile_src,
          "replaces": f"{field_tpu}:1044", "launches": vol_launches["mip"], **k8["mip"]},
+        # the bf16 modes (--compute_dtype bfloat16): launches on the bf16 --eval view
+        # (K1, K2) and the bf16 frozen finetune (K4, K5), each counted from 0
+        {"name": "K1 fused_coarse_weights (bf16)", "route": "cuda", "source": tile_src,
+         "replaces": "nerfsos_tpu/ops/pallas/fused_render.py:458",
+         "launches": eval_bf16_launches["K1"], **bf16["K1"]},
+        {"name": "K2 fused_render (bf16)", "route": "cuda", "source": tile_src,
+         "replaces": "nerfsos_tpu/ops/pallas/fused_render.py:369",
+         "launches": eval_bf16_launches["K2"], **bf16["K2"]},
+        {"name": "K4 train_render (bf16)", "route": "cuda", "source": tile_src,
+         "replaces": "nerfsos_tpu/ops/pallas/fused_render.py:852",
+         "launches": sos_bf16["launches"]["K4"], **bf16["K4"]},
+        {"name": "K5 frozen_sem_grads (bf16)", "route": "cuda", "source": train_src,
+         "replaces": "nerfsos_tpu/ops/pallas/fused_render.py:1207",
+         "launches": sos_bf16["launches"]["K5"], **bf16["K5"]},
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -106,12 +106,14 @@ MAX_LAYERS = 16
 
 
 class MLPDesc(ctypes.Structure):
-    """Mirror of ``MLPDesc`` in ``csrc/tile_mlp.cuh``."""
+    """Mirror of ``MLPDesc`` in ``csrc/tile_mlp.cuh`` (``bf16``: the mode of K4's
+    tile that K1, K2 and K4 run at ``--compute_dtype bfloat16``; the K1/K4
+    entry points take their bf16 instantiation when it is set)."""
     _fields_ = [("layer", MLPLayer * MAX_LAYERS),
                 ("depth", ctypes.c_int), ("skip", ctypes.c_int),
                 ("hrows", ctypes.c_int), ("emb_dim", ctypes.c_int),
                 ("demb_dim", ctypes.c_int), ("sem_dim", ctypes.c_int),
-                ("sem_with_coord", ctypes.c_int)]
+                ("sem_with_coord", ctypes.c_int), ("bf16", ctypes.c_int)]
 
 
 MAX_PLANES = 10 + MAX_LAYERS
@@ -138,13 +140,15 @@ class RingDesc(ctypes.Structure):
 
 
 class FrozenDesc(ctypes.Structure):
-    """Mirror of ``FrozenDesc`` in ``csrc/train_render.cu``."""
+    """Mirror of ``FrozenDesc`` in ``csrc/train_render.cu`` (``bf16``: K5's bf16
+    mode, ``frozen_sem_kernel<true>``)."""
     _fields_ = [("b0", ctypes.c_longlong), ("w1", ctypes.c_longlong),
                 ("gw0", ctypes.c_longlong), ("gb0", ctypes.c_longlong),
                 ("gw1", ctypes.c_longlong), ("gb1", ctypes.c_longlong),
                 ("grad_size", ctypes.c_longlong), ("C", ctypes.c_int),
                 ("kslices", ctypes.c_int), ("hidden", ctypes.c_int), ("sem_dim", ctypes.c_int),
-                ("n_maps", ctypes.c_int), ("xstages", ctypes.c_int), ("wstages", ctypes.c_int)]
+                ("n_maps", ctypes.c_int), ("xstages", ctypes.c_int), ("wstages", ctypes.c_int),
+                ("bf16", ctypes.c_int)]
 
 
 def stream(device) -> ctypes.c_void_p:

@@ -393,28 +393,34 @@ __device__ __forceinline__ void zero_cotangent_padding(float* ws, const TrainDes
 // Gaussians and their integrated PE, and the composite is the mip one
 // (maps [R, 5]). The ring holds ring_order's layers: the trunk, then but
 // for kInSigma sem_0 (with the semantic head), feature and views.
-template <int kIn>
+// kBf16 (kInPoint, kInSigma): the tile's bf16 mode (wg_tile.cuh; K4, K2
+// and K1 at --compute_dtype bfloat16), the ring in pack_ring's bf16 layout,
+// sem_in a bf16 array; the composite is fp32 mode's.
+template <int kIn, bool kBf16 = false>
 __global__ void __launch_bounds__(kWgThreads, 1)
     train_render_wg_kernel(const float* __restrict__ odv, const float* __restrict__ z,
                            const float* __restrict__ params, const float* __restrict__ ring,
                            const __grid_constant__ TrainDesc d,
                            const __grid_constant__ RingDesc rd, float* __restrict__ maps,
-                           float* __restrict__ weights, float* __restrict__ semin, int R, int S,
-                           unsigned seed, float noise_std) {
+                           float* __restrict__ weights,
+                           typename std::conditional<kBf16, __nv_bfloat16, float>::type*
+                               __restrict__ semin,
+                           int R, int S, unsigned seed, float noise_std) {
   constexpr bool kMip = kIn == kInMip;
   extern __shared__ __align__(128) unsigned char wg_raw[];
   const WgCta cta = wg_cta(wg_raw, d.f, rd);
   const int rpc = d.rays_per_chunk, r0 = blockIdx.x * rpc, nr = min(rpc, R - r0), nq = nr * S;
   const int ntiles = (nq + kWgTile - 1) / kWgTile;
   __syncthreads();
-  if (!wg_consumer(ring, d.f, rd, cta.rg, ntiles, kIn != kInSigma)) return;
+  if (!wg_consumer<kBf16>(ring, d.f, rd, cta.rg, ntiles, kIn != kInSigma)) return;
   float* mine = cta.tiles + (threadIdx.x >> 7) * cta.per_wg;
   float* strip = cta.strip;
   const float* zc = z + (size_t)r0 * (kMip ? S + 1 : S);
   int pos = 0;
   for (int tile = 0; tile < ntiles; ++tile)
-    pos = wg_forward_tile<false, false, kIn>(odv, zc, r0, S, nq, tile, params, d, rd, cta.rg, pos,
-                                             mine, strip, semin, (long long)r0 * S, nullptr);
+    pos = wg_forward_tile<false, false, kIn, kBf16>(odv, zc, r0, S, nq, tile, params, d, rd,
+                                                    cta.rg, pos, mine, strip, semin,
+                                                    (long long)r0 * S, nullptr);
   asm volatile("bar.sync 3, %0;\n" ::"n"(kWgConsumers) : "memory");  // the strip is whole
   composite_chunk<kForward, kMip, kIn == kInSigma ? 6 : kMip ? 10 : 9>(
       odv, zc, nullptr, nullptr, d, nullptr, strip, maps, weights, r0, nr, S, 0, seed, noise_std,
@@ -482,6 +488,17 @@ constexpr int kSemBars = 256;     // bytes of the CTA's barriers
 constexpr int kSemMb = 3;         // m64 feature blocks of dW0 a dW0 warpgroup
 constexpr int kSemThreads = 512;  // F, D0, D1 and the producer warpgroup
 constexpr int kSemRelease = 12;   // arrivals a CTA frees an X stage with: 4 warps x 3
+// The bf16 mode (--compute_dtype bfloat16): a W0 k-slice is 16 rows of bf16
+// (1 KB), a stage kSemKs of them (4 KB); ds is the tile's four k16 slices
+// of bf16 (4 KB) at the start of kSemDs's room; sem_in's tiles are bf16.
+constexpr int kSemSlice16 = 8 * kSemCols;            // 4-byte words a bf16 k16 slice
+constexpr int kSemStage16 = kSemKs * kSemSlice16;    // words a bf16 W0 ring stage
+
+// words of a W0 ring stage, and bytes of a sem_in element, in each mode
+template <bool kBf16>
+__host__ __device__ constexpr int sem_stage_words() { return kBf16 ? kSemStage16 : kSemStage; }
+template <bool kBf16>
+__host__ __device__ constexpr int sem_x_bytes() { return kBf16 ? 2 : 4; }
 }  // namespace
 
 constexpr int kMaxSemWStages = 6;
@@ -493,9 +510,11 @@ struct FrozenDesc {
                                  //   dW1^T [hidden][sem_dim], db1 [sem_dim]
   long long grad_size;
   int C;                         // sem_in columns
-  int kslices;                   // W0^T's k-slices of 8 rows (C padded to 32) a rank
+  int kslices;                   // W0^T's k-slices of 8 rows (C padded to 32) a rank;
+                                 //   bf16: of 16 rows (C padded to 64)
   int hidden, sem_dim, n_maps;
   int xstages, wstages;          // sem_in tile stages (1-2), W0 ring stages (2-6)
+  int bf16;                      // 1: the bf16 mode (sem_in bf16, pack_frozen's bf16 ring)
 };
 
 namespace {
@@ -504,7 +523,7 @@ namespace {
 // dynamic shared memory: barriers (kSemBars), the X stages, ds, the W0 stages.
 struct SemCta {
   uint64_t *xfull, *xempty, *wfull, *wempty, *dsfull, *dsempty;
-  float *xs, *ds, *ws;
+  float *xs, *ds, *ws;  // bf16 mode: xs holds bf16 tiles, ds bf16 k16 slices
 };
 
 // The producer warp of the X ring: tile i of the cluster's run into stage
@@ -512,28 +531,31 @@ struct SemCta {
 // counts the other ranks' arrivals too); rank 0 multicasts each full tile
 // (64 rows of C floats, one contiguous block) to the cluster's CTAs, the
 // others only expect its bytes; the ragged last tile each CTA copies
-// itself, rows past np zeroed.
-__device__ __forceinline__ void sem_x_producer(const float* __restrict__ semin, const SemCta& c,
+// itself, rows past np zeroed. kBf16: sem_in's elements are bf16.
+template <bool kBf16>
+__device__ __forceinline__ void sem_x_producer(const void* __restrict__ semin, const SemCta& c,
                                                const FrozenDesc& d, uint32_t rank,
                                                long long t0, int nt, long long P) {
+  using XT = typename std::conditional<kBf16, uint16_t, float>::type;
   const int lane = threadIdx.x & 31, C = d.C;
   for (int i = 0; i < nt; ++i) {
     const int slot = i % d.xstages;
     const long long q0 = (t0 + i) * kSemPts;
     const int np = (int)min((long long)kSemPts, P - q0);
-    float* dst = c.xs + (size_t)slot * kSemPts * C;
+    XT* dst = reinterpret_cast<XT*>(c.xs) + (size_t)slot * kSemPts * C;
+    const XT* src = static_cast<const XT*>(semin) + q0 * C;
     if (lane == 0) mbar_wait(c.xempty + slot, ((i / d.xstages) & 1) ^ 1);
     __syncwarp();
     if (np == kSemPts) {
       if (lane == 0) {
-        const uint32_t bytes = kSemPts * C * 4;
+        const uint32_t bytes = kSemPts * C * sem_x_bytes<kBf16>();
         mbar_expect_tx(c.xfull + slot, bytes);
         if (rank == 0)
-          bulk_g2s_multicast(dst, semin + q0 * C, bytes, c.xfull + slot, (1 << kSemRanks) - 1);
+          bulk_g2s_multicast(reinterpret_cast<float*>(dst), reinterpret_cast<const float*>(src),
+                             bytes, c.xfull + slot, (1 << kSemRanks) - 1);
       }
     } else {
-      const float* src = semin + q0 * C;
-      for (int e = lane; e < kSemPts * C; e += 32) dst[e] = e < np * C ? __ldg(src + e) : 0.f;
+      for (int e = lane; e < kSemPts * C; e += 32) dst[e] = e < np * C ? __ldg(src + e) : XT(0);
       __syncwarp();
       if (lane == 0) mbar_arrive(c.xfull + slot);
     }
@@ -541,17 +563,19 @@ __device__ __forceinline__ void sem_x_producer(const float* __restrict__ semin, 
 }
 
 // The W0 ring's producer (one thread): this rank's k-slices of W0^T, every
-// tile of the run, kSemKs slices a stage.
+// tile of the run, kSemKs slices a stage (kBf16: bf16 k16 slices).
+template <bool kBf16>
 __device__ __forceinline__ void sem_w_producer(const float* __restrict__ ring, const SemCta& c,
                                                const FrozenDesc& d, int nt) {
+  constexpr int kStage = sem_stage_words<kBf16>();
   const int nst = d.kslices / kSemKs;
   int pos = 0;
   for (int i = 0; i < nt; ++i)
     for (int s = 0; s < nst; ++s, ++pos) {
       const int slot = pos % d.wstages;
       mbar_wait(c.wempty + slot, ((pos / d.wstages) & 1) ^ 1);
-      mbar_expect_tx(c.wfull + slot, kSemStage * 4);
-      bulk_g2s(c.ws + (size_t)slot * kSemStage, ring + (size_t)s * kSemStage, kSemStage * 4,
+      mbar_expect_tx(c.wfull + slot, kStage * 4);
+      bulk_g2s(c.ws + (size_t)slot * kStage, ring + (size_t)s * kStage, kStage * 4,
                c.wfull + slot);
     }
 }
@@ -596,7 +620,14 @@ __device__ __forceinline__ float sum_scatter4(const float (&v)[4], int g) {
 // up to 2, 4 or 8 (the sums' registers). At the end the four warps' sums
 // are added in order through the (then idle) W0 ring's shared memory into
 // the partial buffer gp.
-template <int kS>
+// kBf16: the JAX kernel's bf16 semantics (_train_frozen_bwd_kernel at
+// compute_dtype bfloat16): s_pre on bf16 wgmma m64n32k16 (A = the bf16
+// sem_in rows, k position j of a k16 slice its column 16 s + j), s_act =
+// bf16(relu(s_pre + b0)), d_sem_c = bf16(d_sem), ds = bf16([s_act > 0]
+// bf16(W1)^T d_sem_c) written as dW0's bf16 B operand (point p at k
+// position p % 16 of k16 slice p / 16), dW1 from s_act and d_sem_c, db0 from
+// the rounded ds, db1 from the unrounded d_sem.
+template <int kS, bool kBf16>
 __device__ __forceinline__ void sem_forward_wg(const float* __restrict__ weights,
                                                const float* __restrict__ dmaps,
                                                const float* __restrict__ params, const SemCta& c,
@@ -622,6 +653,21 @@ __device__ __forceinline__ void sem_forward_wg(const float* __restrict__ weights
     const float* x = c.xs + (size_t)slot * kSemPts * C;
     const float* xa = x + (size_t)pa * C;
     const float* xb = x + (size_t)pb * C;
+    const uint16_t* x16 = reinterpret_cast<const uint16_t*>(c.xs) + (size_t)slot * kSemPts * C;
+    const uint16_t* xa16 = x16 + (size_t)pa * C;
+    const uint16_t* xb16 = x16 + (size_t)pb * C;
+    // bf16: the A registers of the stage's k16 slices (0 past column C)
+    auto load16 = [&](int st, uint32_t (&a)[kSemKs][4]) {
+      auto col = [&](const uint16_t* r, int k) { return k < C ? r[k] : (uint16_t)0; };
+#pragma unroll
+      for (int kk = 0; kk < kSemKs; ++kk) {
+        const int k = 16 * (kSemKs * st + kk) + 2 * t;
+        a[kk][0] = pack_bf16(col(xa16, k), col(xa16, k + 1));
+        a[kk][1] = pack_bf16(col(xb16, k), col(xb16, k + 1));
+        a[kk][2] = pack_bf16(col(xa16, k + 8), col(xa16, k + 9));
+        a[kk][3] = pack_bf16(col(xb16, k + 8), col(xb16, k + 9));
+      }
+    };
     auto load = [&](int st, float (&v)[kSemKs][4]) {
 #pragma unroll
       for (int kk = 0; kk < kSemKs; ++kk) {
@@ -641,11 +687,25 @@ __device__ __forceinline__ void sem_forward_wg(const float* __restrict__ weights
     for (int st = 0; st < nst; ++st, ++wpos) {
       // the stage's A values are loaded while the W0 stage may still be
       // landing, and split after (a prefetch of the next stage's cost 16
-      // registers and spilled)
+      // registers and spilled); bf16: the A registers themselves
       float raw[kSemKs][4];
-      load(st, raw);
+      uint32_t a16[kSemKs][4];
+      if constexpr (kBf16) {
+        load16(st, a16);
+      } else {
+        load(st, raw);
+      }
       const int wslot = wpos % d.wstages;
       mbar_wait(c.wfull + wslot, (wpos / d.wstages) & 1);
+      if constexpr (kBf16) {
+        const float* b = c.ws + (size_t)wslot * kSemStage16;
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kSemKs; ++kk) {
+          float(&ac)[kSemCols / 2] = kk & 1 ? acc1 : acc;
+          WgmmaBf16<kSemCols>::mma(ac, a16[kk], b_desc(b + kk * kSemSlice16));
+        }
+      } else {
       uint32_t ahi[kSemKs][4], alo[kSemKs][4];
 #pragma unroll
       for (int kk = 0; kk < kSemKs; ++kk)
@@ -661,6 +721,7 @@ __device__ __forceinline__ void sem_forward_wg(const float* __restrict__ weights
           float(&ac)[kSemCols / 2] = kk & 1 ? acc1 : acc;
           Wgmma<kSemCols>::mma(ac, pr == 0 ? alo[kk] : ahi[kk], bd);
         }
+      }
       wgmma_commit();
       wgmma_wait<0>();
       if (lane == 0) mbar_arrive(c.wempty + wslot);  // the stage is free
@@ -683,9 +744,17 @@ __device__ __forceinline__ void sem_forward_wg(const float* __restrict__ weights
       da[j] = j < sem && va ? __ldg(ma + j) * wa : 0.f;
       dbv[j] = j < sem && vb ? __ldg(mb + j) * wb : 0.f;
     }
+    // the products' d_sem: bf16 rounded in the bf16 mode (the sums of db1 keep da, dbv)
+    float dca[kS], dcb[kS];
+#pragma unroll
+    for (int j = 0; j < kS; ++j) {
+      dca[j] = kBf16 ? bf16r(da[j]) : da[j];
+      dcb[j] = kBf16 ? bf16r(dbv[j]) : dbv[j];
+    }
     mbar_wait(c.dsempty, (i & 1) ^ 1);  // the dW0 warpgroups are done with the last ds
     float* sla = c.ds + (pa & 7) * kSemSlice;
     float* slb = c.ds + (pb & 7) * kSemSlice;
+    __nv_bfloat16* ds16 = reinterpret_cast<__nv_bfloat16*>(c.ds);
     // accumulator 4 q + 2 r + e: point row r (pa, pb), output n = 8 q + 2 t + e
     constexpr int kQ = kSemCols / 8;
 #pragma unroll
@@ -696,17 +765,29 @@ __device__ __forceinline__ void sem_forward_wg(const float* __restrict__ weights
         const int n = 8 * q + 2 * t + e;
         const bool live = n < nb;
         bias[q] = live ? __ldg(b0 + n0 + n) : 0.f;
-        const float sa = acc[4 * q + e] + bias[q], sb = acc[4 * q + 2 + e] + bias[q];
+        float sa = acc[4 * q + e] + bias[q], sb = acc[4 * q + 2 + e] + bias[q];
+        if (kBf16) {  // s_act, bf16 rounded: its sign gates ds
+          sa = bf16r(fmaxf(sa, 0.f));
+          sb = bf16r(fmaxf(sb, 0.f));
+        }
         float ga = 0.f, gb = 0.f;  // W1^T d_sem
 #pragma unroll
         for (int j = 0; j < kS; ++j) {
-          const float w1v = live && j < sem ? __ldg(w1 + (size_t)j * hidden + n0 + n) : 0.f;
-          ga = fmaf(w1v, da[j], ga);
-          gb = fmaf(w1v, dbv[j], gb);
+          float w1v = live && j < sem ? __ldg(w1 + (size_t)j * hidden + n0 + n) : 0.f;
+          if (kBf16) w1v = bf16r(w1v);
+          ga = fmaf(w1v, dca[j], ga);
+          gb = fmaf(w1v, dcb[j], gb);
         }
-        const float dsa = sa > 0.f ? ga : 0.f, dsb = sb > 0.f ? gb : 0.f;
-        store_b_split(sla, kSemCols, pa >> 3, n, dsa);
-        store_b_split(slb, kSemCols, pb >> 3, n, dsb);
+        float dsa = sa > 0.f ? ga : 0.f, dsb = sb > 0.f ? gb : 0.f;
+        if constexpr (kBf16) {
+          dsa = bf16r(dsa);
+          dsb = bf16r(dsb);
+          store_b_bf16(ds16 + (pa >> 4) * (2 * kSemSlice16), pa & 15, n, dsa);
+          store_b_bf16(ds16 + (pb >> 4) * (2 * kSemSlice16), pb & 15, n, dsb);
+        } else {
+          store_b_split(sla, kSemCols, pa >> 3, n, dsa);
+          store_b_split(slb, kSemCols, pb >> 3, n, dsb);
+        }
         v[q] = dsa + dsb;
       }
       db0r[e] += sum_scatter4(v, g);  // db0 of output 8 (g >> 1) + 2 t + e
@@ -714,8 +795,13 @@ __device__ __forceinline__ void sem_forward_wg(const float* __restrict__ weights
       for (int j = 0; j < kS; ++j) {
 #pragma unroll
         for (int q = 0; q < kQ; ++q)
-          v[q] = fmaxf(acc[4 * q + e] + bias[q], 0.f) * da[j] +
-                 fmaxf(acc[4 * q + 2 + e] + bias[q], 0.f) * dbv[j];
+          if (kBf16) {  // acc was left unrounded: s_act again
+            v[q] = bf16r(fmaxf(acc[4 * q + e] + bias[q], 0.f)) * dca[j] +
+                   bf16r(fmaxf(acc[4 * q + 2 + e] + bias[q], 0.f)) * dcb[j];
+          } else {
+            v[q] = fmaxf(acc[4 * q + e] + bias[q], 0.f) * da[j] +
+                   fmaxf(acc[4 * q + 2 + e] + bias[q], 0.f) * dbv[j];
+          }
         dw1r[e][j] += sum_scatter4(v, g);
       }
     }
@@ -775,7 +861,10 @@ __device__ __forceinline__ void sem_forward_wg(const float* __restrict__ weights
 // kk + 8 j, so a fragment's loads hit 32 banks for odd C), B = the F
 // warpgroup's ds; its accumulators stay in registers for the whole run and
 // go to the partial buffer gp at the end.
-template <int kNb>
+// kBf16: bf16 wgmma m64n32k16 over the tile's four k16 slices (k position j
+// of slice kk is point 16 kk + j), A = X^T from the bf16 X stage, B = F's
+// bf16 ds.
+template <int kNb, bool kBf16>
 __device__ __forceinline__ void sem_dw0_wg(int dwg, const SemCta& c, const FrozenDesc& d,
                                            uint32_t rank, int nt, float* gp) {
   const int lane = threadIdx.x & 31, w = (threadIdx.x >> 5) & 3, g = lane >> 2, t = lane & 3;
@@ -792,6 +881,23 @@ __device__ __forceinline__ void sem_dw0_wg(int dwg, const SemCta& c, const Froze
     mbar_wait(c.xfull + slot, (i / d.xstages) & 1);
     mbar_wait(c.dsfull, i & 1);
     const float* x = c.xs + (size_t)slot * kSemPts * C;
+    if constexpr (kBf16) {
+      const uint16_t* x16 = reinterpret_cast<const uint16_t*>(c.xs) + (size_t)slot * kSemPts * C;
+      for (int kk = 0; kk < kSemPts / 16; ++kk) {
+        if (kNb == 0) continue;
+        const int p0 = 16 * kk + 2 * t;  // the points of k positions 2 t, 2 t + 1 (+ 8)
+        uint32_t a[kNb > 0 ? kNb : 1][4];
+#pragma unroll
+        for (int u = 0; u < kNb; ++u)
+          xt_fragment_bf16(x16, C, C, 64 * (kSemMb * dwg + u) + m0, p0, p0 + 8, a[u]);
+        const uint64_t bd = b_desc(c.ds + kk * kSemSlice16);
+        wgmma_fence();
+#pragma unroll
+        for (int u = 0; u < kNb; ++u) WgmmaBf16<kSemCols>::mma(acc[u], a[u], bd);
+        wgmma_commit();
+        wgmma_wait<0>();
+      }
+    } else {
     for (int kk = 0; kk < 8; ++kk) {
       const int pa = kk + 8 * t, pb = pa + 32;  // the points of k positions t, t + 4
       if (kNb == 0) continue;
@@ -809,6 +915,7 @@ __device__ __forceinline__ void sem_dw0_wg(int dwg, const SemCta& c, const Froze
           Wgmma<kSemCols>::mma(acc[u], pr == 0 ? alo[u] : ahi[u], pr == 1 ? blo : bhi);
       wgmma_commit();
       wgmma_wait<0>();
+    }
     }
 #pragma unroll
     for (int u = 0; u < kNb; ++u)
@@ -833,8 +940,10 @@ __device__ __forceinline__ void sem_dw0_wg(int dwg, const SemCta& c, const Froze
 // K5: cluster k (CTAs 4 k .. 4 k + 3, rank r) takes tiles [k per, (k + 1)
 // per) of the P points and writes its share (sem_0's outputs 32 r ..) of
 // partial buffer k; every entry of the buffer is written by one CTA.
+// kBf16: the bf16 mode (sem_in bf16, pack_frozen's bf16 ring).
+template <bool kBf16>
 __global__ void __cluster_dims__(kSemRanks, 1, 1) __launch_bounds__(kSemThreads, 1)
-    frozen_sem_kernel(const float* __restrict__ semin, const float* __restrict__ weights,
+    frozen_sem_kernel(const void* __restrict__ semin, const float* __restrict__ weights,
                       const float* __restrict__ dmaps, const float* __restrict__ params,
                       const __grid_constant__ FrozenDesc d, float* __restrict__ partial,
                       long long P, int S, long long per) {
@@ -847,7 +956,8 @@ __global__ void __cluster_dims__(kSemRanks, 1, 1) __launch_bounds__(kSemThreads,
   c.dsfull = c.wempty + kMaxSemWStages;
   c.dsempty = c.dsfull + 1;
   c.xs = reinterpret_cast<float*>(sem_raw + kSemBars);
-  c.ds = c.xs + (size_t)d.xstages * kSemPts * d.C;
+  c.ds = reinterpret_cast<float*>(sem_raw + kSemBars +
+                                  (size_t)d.xstages * kSemPts * d.C * sem_x_bytes<kBf16>());
   c.ws = c.ds + kSemDs;
   const uint32_t rank = cluster_rank();
   const long long cl = blockIdx.x / kSemRanks, ntiles = (P + kSemPts - 1) / kSemPts;
@@ -875,29 +985,30 @@ __global__ void __cluster_dims__(kSemRanks, 1, 1) __launch_bounds__(kSemThreads,
   if (wg == 3) {
     const int warp = (threadIdx.x >> 5) & 3;
     if (warp == 0) {
-      sem_x_producer(semin, c, d, rank, t0, nt, P);
+      sem_x_producer<kBf16>(semin, c, d, rank, t0, nt, P);
     } else if (warp == 1 && (threadIdx.x & 31) == 0) {
-      sem_w_producer(params + (size_t)rank * d.kslices * kSemSlice, c, d, nt);
+      sem_w_producer<kBf16>(params + (size_t)rank * d.kslices * (kBf16 ? kSemSlice16 : kSemSlice),
+                            c, d, nt);
     }
   } else if (wg == 0) {
     if (d.sem_dim <= 2) {
-      sem_forward_wg<2>(weights, dmaps, params, c, d, rank, t0, nt, P, S, gp);
+      sem_forward_wg<2, kBf16>(weights, dmaps, params, c, d, rank, t0, nt, P, S, gp);
     } else if (d.sem_dim <= 4) {
-      sem_forward_wg<4>(weights, dmaps, params, c, d, rank, t0, nt, P, S, gp);
+      sem_forward_wg<4, kBf16>(weights, dmaps, params, c, d, rank, t0, nt, P, S, gp);
     } else {
-      sem_forward_wg<kMaxSem>(weights, dmaps, params, c, d, rank, t0, nt, P, S, gp);
+      sem_forward_wg<kMaxSem, kBf16>(weights, dmaps, params, c, d, rank, t0, nt, P, S, gp);
     }
   } else {
     // D0 takes feature blocks 0-2, D1 3-5, each those that start below C
     const int nblk = min(kSemMb, max(0, (d.C + 63) / 64 - kSemMb * (wg - 1)));
     if (nblk == 3) {
-      sem_dw0_wg<3>(wg - 1, c, d, rank, nt, gp);
+      sem_dw0_wg<3, kBf16>(wg - 1, c, d, rank, nt, gp);
     } else if (nblk == 2) {
-      sem_dw0_wg<2>(wg - 1, c, d, rank, nt, gp);
+      sem_dw0_wg<2, kBf16>(wg - 1, c, d, rank, nt, gp);
     } else if (nblk == 1) {
-      sem_dw0_wg<1>(wg - 1, c, d, rank, nt, gp);
+      sem_dw0_wg<1, kBf16>(wg - 1, c, d, rank, nt, gp);
     } else {
-      sem_dw0_wg<0>(wg - 1, c, d, rank, nt, gp);
+      sem_dw0_wg<0, kBf16>(wg - 1, c, d, rank, nt, gp);
     }
   }
   __syncwarp();
@@ -916,46 +1027,57 @@ int wg_smem(const TrainDesc* d, const RingDesc* rd, int S) {
 }
 
 // shared memory of K5 (frozen_sem_kernel); ops/fused_render.py _frozen_smem
-// computes the same
+// computes the same (bf16: half-size sem_in tiles and W0 stages)
 int frozen_smem(const FrozenDesc* d) {
-  return (int)(kSemBars + ((size_t)d->xstages * kSemPts * d->C + kSemDs +
-                      (size_t)d->wstages * kSemStage) * sizeof(float));
+  const size_t xb = d->bf16 ? 2 : 4, stage = d->bf16 ? kSemStage16 : kSemStage;
+  return (int)(kSemBars + (size_t)d->xstages * kSemPts * d->C * xb +
+               (kSemDs + (size_t)d->wstages * stage) * sizeof(float));
 }
 
-// One launch of train_render_wg_kernel<kIn>, a CTA a chunk of
+// One launch of train_render_wg_kernel<kIn, kBf16>, a CTA a chunk of
 // d->rays_per_chunk rays, the ring's layers from ring as rd describes.
-template <int kIn>
+template <int kIn, bool kBf16 = false>
 int render_wg(const float* rays, const float* z, const float* params, const float* ring,
-              const TrainDesc* d, const RingDesc* rd, float* maps, float* weights, float* semin,
+              const TrainDesc* d, const RingDesc* rd, float* maps, float* weights, void* semin,
               int R, int S, unsigned seed, float noise_std, void* stream) {
+  using SemT = typename std::conditional<kBf16, __nv_bfloat16, float>::type;
   const int smem = wg_smem(d, rd, S);
-  cudaError_t err = cudaFuncSetAttribute(train_render_wg_kernel<kIn>,
+  cudaError_t err = cudaFuncSetAttribute(train_render_wg_kernel<kIn, kBf16>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const int nchunks = (R + d->rays_per_chunk - 1) / d->rays_per_chunk;
-  train_render_wg_kernel<kIn><<<nchunks, kWgThreads, smem, (cudaStream_t)stream>>>(
-      rays, z, params, ring, *d, *rd, maps, weights, semin, R, S, seed, noise_std);
+  train_render_wg_kernel<kIn, kBf16><<<nchunks, kWgThreads, smem, (cudaStream_t)stream>>>(
+      rays, z, params, ring, *d, *rd, maps, weights, static_cast<SemT*>(semin), R, S, seed,
+      noise_std);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // K4 (and K2, noise 0 and semin null): odv [R, 9] and z [R, S] -> maps
-// [R, 5 + sem], weights [R, S] and, where semin is not null, sem_in.
+// [R, 5 + sem], weights [R, S] and, where semin is not null, sem_in (fp32,
+// or bf16 when d->f.bf16: the bf16 mode, the ring in pack_ring's bf16
+// layout).
 extern "C" int nerf_train_render(const float* odv, const float* z, const float* params,
                                  const float* ring, const TrainDesc* d, const RingDesc* rd,
-                                 float* maps, float* weights, float* semin, int R, int S,
+                                 float* maps, float* weights, void* semin, int R, int S,
                                  unsigned seed, float noise_std, void* stream) {
+  if (d->f.bf16)
+    return render_wg<kInPoint, true>(odv, z, params, ring, d, rd, maps, weights, semin, R, S,
+                                     seed, noise_std, stream);
   return render_wg<kInPoint>(odv, z, params, ring, d, rd, maps, weights, semin, R, S, seed,
                              noise_std, stream);
 }
 
 // K1: the eval's coarse pass, od [R, 6] and z [R, S] -> weights [R, S]:
 // K4's kernel in its sigma-only mode (the ring holds the trunk alone), no
-// noise.
+// noise; the bf16 mode when d->f.bf16.
 extern "C" int nerf_coarse_weights(const float* od, const float* z, const float* params,
                                    const float* ring, const TrainDesc* d, const RingDesc* rd,
                                    float* weights, int R, int S, void* stream) {
+  if (d->f.bf16)
+    return render_wg<kInSigma, true>(od, z, params, ring, d, rd, nullptr, weights, nullptr, R,
+                                     S, 0u, 0.f, stream);
   return render_wg<kInSigma>(od, z, params, ring, d, rd, nullptr, weights, nullptr, R, S, 0u,
                              0.f, stream);
 }
@@ -973,44 +1095,68 @@ extern "C" int nerf_mip_render(const float* odvr, const float* z, const float* p
                                const float* ring, const TrainDesc* d, const RingDesc* rd,
                                float* maps, float* weights, int R, int S, unsigned seed,
                                float noise_std, void* stream) {
+  if (d->f.bf16) return (int)cudaErrorInvalidValue;  // no bf16 mode (K9, K10a)
   return render_wg<kInMip>(odvr, z, params, ring, d, rd, maps, weights, nullptr, R, S, seed,
                            noise_std, stream);
 }
 
+namespace {
+
 // K5's clusters that fit on the card at once with d's shared memory
 // (cudaOccupancyMaxActiveClusters: four SMs of one GPC each), into *out.
-extern "C" int nerf_frozen_sem_clusters(const FrozenDesc* d, int* out) {
+template <bool kBf16>
+int frozen_sem_clusters(const FrozenDesc* d, int* out) {
   const int smem = frozen_smem(d);
-  cudaError_t err = cudaFuncSetAttribute(frozen_sem_kernel,
+  cudaError_t err = cudaFuncSetAttribute(frozen_sem_kernel<kBf16>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(kSemRanks * 256);
   cfg.blockDim = dim3(kSemThreads);
   cfg.dynamicSmemBytes = smem;
-  return (int)cudaOccupancyMaxActiveClusters(out, frozen_sem_kernel, &cfg);
+  return (int)cudaOccupancyMaxActiveClusters(out, frozen_sem_kernel<kBf16>, &cfg);
 }
 
-// K5: `clusters` clusters of four CTAs over P = R * S points, cluster k on
-// 64-point tiles [k per, (k + 1) per) with partial buffer k (d->grad_size
-// floats), then the partials summed in cluster order into grads.
-extern "C" int nerf_frozen_sem_grads(const float* semin, const float* weights,
-                                     const float* dmaps, const float* params,
-                                     const FrozenDesc* d, float* partial, float* grads,
-                                     long long P, int S, int clusters, long long per,
-                                     void* stream) {
-  const cudaStream_t st = (cudaStream_t)stream;
+template <bool kBf16>
+int frozen_sem_grads(const void* semin, const float* weights, const float* dmaps,
+                     const float* params, const FrozenDesc* d, float* partial, float* grads,
+                     long long P, int S, int clusters, long long per, cudaStream_t st) {
   const int smem = frozen_smem(d);
-  cudaError_t err = cudaFuncSetAttribute(frozen_sem_kernel,
+  cudaError_t err = cudaFuncSetAttribute(frozen_sem_kernel<kBf16>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  frozen_sem_kernel<<<kSemRanks * clusters, kSemThreads, smem, st>>>(
+  frozen_sem_kernel<kBf16><<<kSemRanks * clusters, kSemThreads, smem, st>>>(
       semin, weights, dmaps, params, *d, partial, P, S, per);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   reduce_partials<<<reduce_blocks(d->grad_size), 256, 0, st>>>(partial, grads, d->grad_size,
                                                                clusters);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// K5's clusters that fit on the card at once with d's shared memory, in
+// d->bf16's mode, into *out.
+extern "C" int nerf_frozen_sem_clusters(const FrozenDesc* d, int* out) {
+  return d->bf16 ? frozen_sem_clusters<true>(d, out) : frozen_sem_clusters<false>(d, out);
+}
+
+// K5: `clusters` clusters of four CTAs over P = R * S points, cluster k on
+// 64-point tiles [k per, (k + 1) per) with partial buffer k (d->grad_size
+// floats), then the partials summed in cluster order into grads. sem_in is
+// fp32, or bf16 when d->bf16 (the bf16 mode, pack_frozen's bf16 ring).
+extern "C" int nerf_frozen_sem_grads(const void* semin, const float* weights,
+                                     const float* dmaps, const float* params,
+                                     const FrozenDesc* d, float* partial, float* grads,
+                                     long long P, int S, int clusters, long long per,
+                                     void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (d->bf16)
+    return frozen_sem_grads<true>(semin, weights, dmaps, params, d, partial, grads, P, S,
+                                  clusters, per, st);
+  return frozen_sem_grads<false>(semin, weights, dmaps, params, d, partial, grads, P, S,
+                                 clusters, per, st);
 }
 
 namespace {

@@ -93,7 +93,32 @@
 // Precision: fp32 activations, 3xTF32 products (both operands split into
 // TF32 high and low parts), the PE phases with explicit round-to-nearest
 // (no fast-math).
+//
+// The bf16 mode (--compute_dtype bfloat16; kBf16, K1, K2 and K4 alone:
+// train_render_wg_kernel<kInSigma | kInPoint, true>) computes what the JAX
+// kernels compute at bf16 (nerfsos_tpu/ops/pallas/fused_render.py
+// _render_kernel, _sigma_weights_kernel, _train_render_kernel with
+// compute_dtype bfloat16): every product's operands rounded to bf16 (to
+// nearest even), the product accumulated in fp32, the fp32 bias added.
+//   * the host packs each layer's W^T in bf16 (ops/fused_render.pack_ring
+//     with bf16): a k step is 16 input rows, one k16 slice of 32 N bytes
+//     (half a TF32 stage) in wgmma's K-major no-swizzle layout with
+//     TF32's LBO and SBO, and one wgmma m64nNk16 bf16 takes the place of
+//     the three m64nNk8 TF32 products;
+//   * the activations stay fp32 in shared memory, as in fp32 mode, and each
+//     thread rounds its A operands as it loads them (cvt.rn.bf16x2.f32):
+//     the PE, computed in fp32, is rounded after its sin, as JAX rounds
+//     emb, and a relu output, feat and the view PE before the product that
+//     reads them, so the rounding lands where JAX's .astype(bf16) does.
+//     Within a k step, k position 2 t + e + 8 h holds input row 8 h + t +
+//     4 e (pack_ring's row order), so a thread's loads are fp32 mode's four
+//     bank-free loads of two 8-row steps;
+//   * the heads formed in registers round sem_0's relu output before sem_1,
+//     views' before rgb, and their weights; the alpha head (SIMT) reads h
+//     and W_alpha rounded; sem_in is stored in bf16 (K4).
 #pragma once
+
+#include <type_traits>
 
 #include "train_sweep.cuh"
 
@@ -170,7 +195,7 @@ struct WgRing {
 struct WgOut {
   float* h;
   bool relu;
-  float* semin;
+  void* semin;  // float, or bf16 in the bf16 mode
   int C, hn;
   LayerDesc head;
   float* strip;
@@ -183,7 +208,10 @@ struct WgOut {
 // segments' rows k (in order) of a[k][point] W^T[k][n], k step by k step as
 // the ring delivers W^T's k-slices, then the epilogue of o. Returns the
 // ring position after the layer's stages. kStore: o.plane may be set.
-template <int N, bool kStore>
+// kBf16: the bf16 mode, a k step of 16 rows (two 8-row steps of the
+// segments, the second zero past their last row) on one bf16 wgmma, the
+// heads' hidden activations and weights rounded to bf16, sem_in in bf16.
+template <int N, bool kStore, bool kBf16 = false>
 __device__ __forceinline__ int wg_layer(const float* __restrict__ params, const LayerDesc L,
                                         ASeg s0, ASeg s1, ASeg s2, const WgRing rg, int pos,
                                         const WgOut o) {
@@ -194,7 +222,8 @@ __device__ __forceinline__ int wg_layer(const float* __restrict__ params, const 
   float acc[N / 2];
 #pragma unroll
   for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
-  const int n1 = s0.k / 8, n2 = n1 + s1.k / 8, nsteps = n2 + s2.k / 8;
+  const int n1 = s0.k / 8, n2 = n1 + s1.k / 8, n8 = n2 + s2.k / 8;
+  const int nsteps = kBf16 ? (n8 + 1) / 2 : n8;
   auto load = [&](int ks, float (&v)[4]) {
     const float* a = ks < n1   ? s0.a + ks * 8 * kWgPts
                      : ks < n2 ? s1.a + (ks - n1) * 8 * kWgPts
@@ -206,24 +235,48 @@ __device__ __forceinline__ int wg_layer(const float* __restrict__ params, const 
   };
   int slot = pos % rg.nst;
   uint32_t phase = (pos / rg.nst) & 1;
-  float raw[4];
+  // kBf16: k position 2 t + e + 8 h of a k step is row 8 h + t + 4 e of its
+  // 16, so raw and raw2 hold 8-row steps 2 ks and 2 ks + 1 as fp32 mode
+  // loads them (raw2 zero past the segments' last row)
+  float raw[4], raw2[4] = {0.f, 0.f, 0.f, 0.f};
   load(0, raw);
+  if (kBf16 && n8 > 1) load(1, raw2);
   for (int ks = 0; ks < nsteps; ++ks) {
     // the A operands are written only once the last step's products are
     // done (reading an in-flight wgmma's registers is undefined); the next
     // step's activations are loaded as plain floats meanwhile
     uint32_t ahi[4], alo[4];
+    if constexpr (kBf16) {  // ahi: the bf16 pairs, point m0 (rows t, t + 4), point m0 + 8
+      ahi[0] = bf16x2(raw[0], raw[2]);
+      ahi[1] = bf16x2(raw[1], raw[3]);
+      ahi[2] = bf16x2(raw2[0], raw2[2]);
+      ahi[3] = bf16x2(raw2[1], raw2[3]);
+      if (ks + 1 < nsteps) {
+        load(2 * ks + 2, raw);
+        if (2 * ks + 3 < n8) {
+          load(2 * ks + 3, raw2);
+        } else {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) raw2[i] = 0.f;
+        }
+      }
+    } else {
 #pragma unroll
     for (int i = 0; i < 4; ++i) split(raw[i], ahi[i], alo[i]);
     if (ks + 1 < nsteps) load(ks + 1, raw);
+    }
     while (!mbar_try_wait(rg.full + slot, phase)) {
     }
     const float* b = rg.stages + (size_t)slot * rg.stage_floats;
     const uint64_t bhi = b_desc(b), blo = b_desc(b + N * 8);
     wgmma_fence();
+    if constexpr (kBf16) {
+      WgmmaBf16<N>::mma(acc, ahi, bhi);
+    } else {
     Wgmma<N>::mma(acc, alo, bhi);
     Wgmma<N>::mma(acc, ahi, blo);
     Wgmma<N>::mma(acc, ahi, bhi);
+    }
     wgmma_commit();
     wgmma_wait<0>();
     if (lane == 0) mbar_arrive(rg.empty + slot);  // the stage is free
@@ -240,8 +293,11 @@ __device__ __forceinline__ int wg_layer(const float* __restrict__ params, const 
   const float* __restrict__ bias = params + L.b;
   const int ldn = pad8(L.n);
   if (o.h) {
-    float* ra = o.semin && o.qw + m0 < o.nq ? o.semin + (size_t)m0 * o.C : nullptr;
-    float* rb = o.semin && o.qw + m0 + 8 < o.nq ? o.semin + (size_t)(m0 + 8) * o.C : nullptr;
+    // sem_in's type: bf16 in the bf16 mode (a float stored to it rounds to nearest even)
+    using SemT = typename std::conditional<kBf16, __nv_bfloat16, float>::type;
+    SemT* semin = static_cast<SemT*>(o.semin);
+    SemT* ra = semin && o.qw + m0 < o.nq ? semin + (size_t)m0 * o.C : nullptr;
+    SemT* rb = semin && o.qw + m0 + 8 < o.nq ? semin + (size_t)(m0 + 8) * o.C : nullptr;
 #pragma unroll
     for (int j = 0; j < N / 8; ++j) {
       const int n = 8 * j + 2 * t;
@@ -283,7 +339,11 @@ __device__ __forceinline__ int wg_layer(const float* __restrict__ params, const 
       const int n = 8 * j + 2 * t + e;
       if (n < ldn) {
         const float b = __ldg(bias + n);
-        const float va = fmaxf(acc[4 * j + e] + b, 0.f), vb = fmaxf(acc[4 * j + 2 + e] + b, 0.f);
+        float va = fmaxf(acc[4 * j + e] + b, 0.f), vb = fmaxf(acc[4 * j + 2 + e] + b, 0.f);
+        if (kBf16) {  // JAX rounds the hidden activation before the head's product
+          va = bf16r(va);
+          vb = bf16r(vb);
+        }
         if (kStore && o.plane) {
           o.plane[n * kLd + m0] = va;
           o.plane[n * kLd + m0 + 8] = vb;
@@ -291,7 +351,7 @@ __device__ __forceinline__ int wg_layer(const float* __restrict__ params, const 
 #pragma unroll
         for (int c = 0; c < kMaxSem; ++c)
           if (c < H.n) {
-            const float wv = __ldg(wt + n * ldo + c);
+            const float wv = kBf16 ? bf16r(__ldg(wt + n * ldo + c)) : __ldg(wt + n * ldo + c);
             s[c][0] = fmaf(va, wv, s[c][0]);
             s[c][1] = fmaf(vb, wv, s[c][1]);
           }
@@ -318,17 +378,17 @@ __device__ __forceinline__ int wg_layer(const float* __restrict__ params, const 
 }
 
 // wg_layer at the layer's ring width N (pack_ring's: 8, 16, 32, 64, 128 or 256)
-template <bool kStore>
+template <bool kStore, bool kBf16 = false>
 __device__ __forceinline__ int wg_layer_n(int N, const float* __restrict__ params,
                                           const LayerDesc L, ASeg s0, ASeg s1, ASeg s2,
                                           const WgRing rg, int pos, const WgOut& o) {
   switch (N) {
-    case 256: return wg_layer<256, kStore>(params, L, s0, s1, s2, rg, pos, o);
-    case 128: return wg_layer<128, kStore>(params, L, s0, s1, s2, rg, pos, o);
-    case 64: return wg_layer<64, kStore>(params, L, s0, s1, s2, rg, pos, o);
-    case 32: return wg_layer<32, kStore>(params, L, s0, s1, s2, rg, pos, o);
-    case 16: return wg_layer<16, kStore>(params, L, s0, s1, s2, rg, pos, o);
-    default: return wg_layer<8, kStore>(params, L, s0, s1, s2, rg, pos, o);
+    case 256: return wg_layer<256, kStore, kBf16>(params, L, s0, s1, s2, rg, pos, o);
+    case 128: return wg_layer<128, kStore, kBf16>(params, L, s0, s1, s2, rg, pos, o);
+    case 64: return wg_layer<64, kStore, kBf16>(params, L, s0, s1, s2, rg, pos, o);
+    case 32: return wg_layer<32, kStore, kBf16>(params, L, s0, s1, s2, rg, pos, o);
+    case 16: return wg_layer<16, kStore, kBf16>(params, L, s0, s1, s2, rg, pos, o);
+    default: return wg_layer<8, kStore, kBf16>(params, L, s0, s1, s2, rg, pos, o);
   }
 }
 
@@ -346,7 +406,9 @@ __device__ __forceinline__ int ring_order(const MLPDesc& f, int (&order)[kMaxLay
 }
 
 // The producer (one thread): every k-slice of every ring layer (heads:
-// ring_order's), tile after tile, each into the next free stage by one bulk copy.
+// ring_order's), tile after tile, each into the next free stage by one bulk
+// copy. kBf16: a slice is 16 rows of bf16 (32 n bytes, 8 n words of ring).
+template <bool kBf16 = false>
 __device__ __forceinline__ void ring_producer(const float* __restrict__ ring, const MLPDesc& f,
                                               const RingDesc& rd, const WgRing rg, int ntiles,
                                               bool heads) {
@@ -356,14 +418,16 @@ __device__ __forceinline__ void ring_producer(const float* __restrict__ ring, co
   uint32_t phase = 0;
   for (int tile = 0; tile < ntiles; ++tile)
     for (int l = 0; l < nl; ++l) {
-      const int li = order[l], n = rd.ncols[li], nsl = f.layer[li].k / 8;
-      const uint32_t bytes = n * 64;  // 8 rows x n outputs x {hi, lo} x 4 B
+      const int li = order[l], n = rd.ncols[li];
+      const int nsl = kBf16 ? (f.layer[li].k / 8 + 1) / 2 : f.layer[li].k / 8;
+      // 8 rows x n outputs x {hi, lo} x 4 B; bf16: 16 rows x n outputs x 2 B
+      const uint32_t bytes = kBf16 ? n * 32 : n * 64;
       const float* src = ring + rd.off[li];
       for (int s = 0; s < nsl; ++s) {
         while (!mbar_try_wait(rg.empty + slot, phase ^ 1)) {
         }
         mbar_expect_tx(rg.full + slot, bytes);
-        bulk_g2s(rg.stages + (size_t)slot * rg.stage_floats, src + (size_t)s * 16 * n, bytes,
+        bulk_g2s(rg.stages + (size_t)slot * rg.stage_floats, src + (size_t)s * (bytes / 4), bytes,
                  rg.full + slot);
         if (++slot == rg.nst) {
           slot = 0;
@@ -415,13 +479,15 @@ __device__ __forceinline__ WgCta wg_cta(unsigned char* raw, const MLPDesc& f,
 // their registers (setmaxnreg 40) and one thread streams ntiles tiles'
 // weights (ring_producer; heads false: the trunk's alone), and get false;
 // warps 0-7, the two consumer warpgroups, take 232 registers a thread (the
-// 128 accumulators of an N = 256 layer) and get true.
+// 128 accumulators of an N = 256 layer) and get true. kBf16: the ring's
+// bf16 slices (ring_producer<true>).
+template <bool kBf16 = false>
 __device__ __forceinline__ bool wg_consumer(const float* __restrict__ ring, const MLPDesc& f,
                                             const RingDesc& rd, const WgRing rg, int ntiles,
                                             bool heads = true) {
   if (threadIdx.x >= kWgConsumers) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
-    if (threadIdx.x == kWgConsumers) ring_producer(ring, f, rd, rg, ntiles, heads);
+    if (threadIdx.x == kWgConsumers) ring_producer<kBf16>(ring, f, rd, rg, ntiles, heads);
     return false;
   }
   asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
@@ -493,16 +559,19 @@ __device__ __forceinline__ void wg_store_rows(const float* src, float* dst, int 
 // points' rows out (rgb logits, sigma, semantics: raw's column order).
 // With kStore (the field backward's forward, kInList alone) a point-list
 // mode writes no outputs: the alpha head is skipped, pl.out is not read.
+// kBf16 (K1, K2, K4 at --compute_dtype bfloat16; kStore false, kInPoint or
+// kInSigma): the bf16 mode (wg_layer's), the alpha head on h and W_alpha
+// rounded to bf16, sem_in a bf16 array.
 // Returns the ring position after the tile.
-template <bool kStore, bool kSemAct, int kIn = kInPoint>
-__device__ __forceinline__ int wg_forward_tile(const float* __restrict__ odv, const float* zc,
-                                               int r0, int S, int nq, int tile,
-                                               const float* __restrict__ params,
-                                               const TrainDesc& d, const RingDesc& rd,
-                                               const WgRing rg, int pos, float* mine,
-                                               float* strip, float* __restrict__ semin,
-                                               long long base, float* ws,
-                                               const PointList pl = PointList{}) {
+template <bool kStore, bool kSemAct, int kIn = kInPoint, bool kBf16 = false>
+__device__ __forceinline__ int wg_forward_tile(
+    const float* __restrict__ odv, const float* zc, int r0, int S, int nq, int tile,
+    const float* __restrict__ params, const TrainDesc& d, const RingDesc& rd, const WgRing rg,
+    int pos, float* mine, float* strip,
+    typename std::conditional<kBf16, __nv_bfloat16, float>::type* __restrict__ semin,
+    long long base, float* ws, const PointList pl = PointList{}) {
+  static_assert(!kBf16 || (!kStore && (kIn == kInPoint || kIn == kInSigma)),
+                "the bf16 mode is K1's, K2's and K4's");
   constexpr bool kSigma = kIn == kInSigma || kIn == kInListSigma;
   constexpr bool kGauss = kIn == kInMip || kIn == kInListGauss;
   constexpr bool kList = kIn >= kInList;
@@ -584,7 +653,7 @@ __device__ __forceinline__ int wg_forward_tile(const float* __restrict__ odv, co
           const int off = part == 0 ? 0 : hoff + hn;
           for (int e = tid; e < np * E; e += 128) {
             const int p = e / E, c = e % E;
-            semin[(base + qw + p) * C + off + c] = emb[swz(c, p)];
+            semin[(base + qw + p) * C + off + c] = emb[swz(c, p)];  // bf16: rounded
           }
         }
       }
@@ -594,8 +663,13 @@ __device__ __forceinline__ int wg_forward_tile(const float* __restrict__ odv, co
         float acc = 0.f;
 #pragma unroll
         for (int sg = 0; sg < 2; ++sg)
-          for (int k = 0; k < segs[sg].k; ++k, wcol += 8)
-            acc = fmaf(segs[sg].a[swz(k, tid)], __ldg(wcol), acc);
+          for (int k = 0; k < segs[sg].k; ++k, wcol += 8) {
+            if (kBf16) {
+              acc = fmaf(bf16r(segs[sg].a[swz(k, tid)]), bf16r(__ldg(wcol)), acc);
+            } else {
+              acc = fmaf(segs[sg].a[swz(k, tid)], __ldg(wcol), acc);
+            }
+          }
         acc += __ldg(params + head[0].b);
         if (kOut) {
           pl.out[(size_t)(qw + tid) * pl.C + (kSigma ? 0 : 3)] = acc;
@@ -639,7 +713,7 @@ __device__ __forceinline__ int wg_forward_tile(const float* __restrict__ odv, co
       o.plane = plane(ws, d, out, sub);
       o.prow = d.rows[out];
     }
-    pos = wg_layer_n<kStore>(rd.ncols[li], params, f.layer[li], a0, a1, a2, rg, pos, o);
+    pos = wg_layer_n<kStore, kBf16>(rd.ncols[li], params, f.layer[li], a0, a1, a2, rg, pos, o);
     if (l < depth) {
       const ASeg hs{h, pad8(f.layer[l].n)};
       in0 = l == f.skip ? ASeg{emb, Ep} : hs;

@@ -51,7 +51,7 @@ from nerfsos_torch.losses.correlation import (CorrelationLoss, GeoCorrelationLos
                                               nerf_contrastive)
 from nerfsos_torch.losses.photometric import img2mse, mse2psnr
 from nerfsos_torch.models.extractor import normalize_imagenet, resize_nearest_torch
-from nerfsos_torch.models.nerf import NeRFNet
+from nerfsos_torch.models.nerf import NeRFNet, bf16_missing_kernel
 from nerfsos_torch.ops.kmeans import kmeans
 from nerfsos_torch.utils.metrics import adjusted_rand_score
 
@@ -125,10 +125,12 @@ def sos_loss_fn(net: NeRFNet, extractor, app_loss: CorrelationLoss, geo_loss: Ge
             side = P * cfg.patch_stride
             dino_in = normalize_imagenet(resize_nearest_torch(rgb_patches, side, side))
             dino = extractor.get_vit_attn_feat(dino_in)
-        tokens = dino["feat"]
+        # float32 for the losses (a bf16 stand-in's outputs are bf16; the
+        # JAX losses promote them on their first float32 operand)
+        tokens = dino["feat"].to(torch.float32)
         fs = math.isqrt(tokens.shape[1])
         feat = tokens.reshape(B, fs, fs, -1).permute(0, 3, 1, 2)
-        cls_all = dino["cls_"]
+        cls_all = dino["cls_"].to(torch.float32)
         sim_matrix = get_similarity_matrix(cls_all)
         sem0 = _to_patches(out["semantics0"], B, P)
         sem = _to_patches(out["semantics"], B, P)
@@ -183,6 +185,8 @@ def make_sos_train_step(net: NeRFNet, extractor, app_loss: CorrelationLoss,
     """``step(batch, global_step)``: one update of the parameters the
     optimizer holds (the semantic head alone under ``fix_backbone``, every
     leaf without it); returns the detached metrics (device tensors)."""
+    if net.fused and net.bf16 and not cfg.fix_backbone:
+        raise bf16_missing_kernel("the full SOS step's train-render backward K6")
     device = next(net.parameters()).device
     trained = [p for group in optimizer.param_groups for p in group["params"]]
 

@@ -29,7 +29,7 @@ import torch.nn as nn
 from nerfsos_torch.core import sampling
 from nerfsos_torch.engines.state import set_lr
 from nerfsos_torch.losses.photometric import img2mse, mse2psnr
-from nerfsos_torch.models.nerf import NeRFNet
+from nerfsos_torch.models.nerf import NeRFNet, bf16_missing_kernel
 from nerfsos_torch.ops import fused_render as fr
 
 Batch = Dict[str, torch.Tensor]  # rays [2, B, 3], target [B, 3] on the net's device
@@ -124,6 +124,8 @@ def make_rgb_train_step(net: nn.Module, optimizer: torch.optim.Optimizer,
     ``net_kwargs``: model statics for the autograd path (mip-NeRF's
     ``radii``)."""
     fused = supports_fused_rgb_loss(net)
+    if fused and net.bf16:
+        raise bf16_missing_kernel("the RGB train step K3")
     params = dict(net.named_parameters())
     device = next(net.parameters()).device
 

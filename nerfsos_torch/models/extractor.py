@@ -49,16 +49,19 @@ def resize_nearest_torch(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tenso
 
 
 class VitExtractor:
-    """A frozen DINO ViT (an ``nn.Module`` in ``.vit``) and its API."""
+    """A frozen DINO ViT (an ``nn.Module`` in ``.vit``) and its API. ``dtype``:
+    the ViT's (float32, or bfloat16 with flax's semantics; its outputs are
+    float32 either way)."""
 
-    def __init__(self, model_name: str = "dino_vits16", vit: Optional[VisionTransformer] = None):
+    def __init__(self, model_name: str = "dino_vits16", vit: Optional[VisionTransformer] = None,
+                 dtype: torch.dtype = torch.float32):
         self.patch_size = 8 if "8" in model_name else 16
         small = ("s" in model_name.replace("dino_vit", "")) or ("small" in model_name)
         self.embed_dim = 384 if small else 768
         self.num_heads = 6 if small else 12
         self.vit = vit if vit is not None else VisionTransformer(
             patch_size=self.patch_size, embed_dim=self.embed_dim, depth=12,
-            num_heads=self.num_heads)
+            num_heads=self.num_heads, dtype=dtype)
         self.vit.eval().requires_grad_(False)
 
     def to(self, device) -> "VitExtractor":
@@ -94,11 +97,15 @@ class SyntheticExtractor:
     """Photometric stand-in for DINO with ``VitExtractor``'s contract: token
     features are per-patch mean/std RGB (after the 224 resize and the
     normalisation) through a fixed projection, ``cls_`` their mean, ``attn``
-    the L1-normalised distance of each token's statistics from the image's."""
+    the L1-normalised distance of each token's statistics from the image's.
+    ``dtype`` (the JAX stand-in's): ``feat``, ``cls_`` (their mean) and
+    ``attn`` are of it."""
 
-    def __init__(self, embed_dim: int = 384, proj: Optional[torch.Tensor] = None):
+    def __init__(self, embed_dim: int = 384, proj: Optional[torch.Tensor] = None,
+                 dtype: torch.dtype = torch.float32):
         self.patch_size = 16
         self.embed_dim = embed_dim
+        self.dtype = dtype
         self.proj = synthetic_projection(embed_dim) if proj is None else proj
 
     def to(self, device) -> "SyntheticExtractor":
@@ -116,7 +123,7 @@ class SyntheticExtractor:
         mu = p.mean(dim=(2, 4))
         sd = torch.sqrt(torch.clamp((p * p).mean(dim=(2, 4)) - mu * mu, min=0.0))
         stats = torch.cat([mu, sd], dim=-1).reshape(B, gh * gw, 6)
-        feat = stats @ self.proj
+        feat = (stats @ self.proj).to(self.dtype)
         sal = (stats - stats.mean(dim=1, keepdim=True)).abs().sum(-1)
         attn = sal / torch.clamp(sal.sum(dim=-1, keepdim=True), min=1e-8)
-        return {"attn": attn[:, None, :], "cls_": feat.mean(dim=1), "feat": feat}
+        return {"attn": attn[:, None, :].to(self.dtype), "cls_": feat.mean(dim=1), "feat": feat}

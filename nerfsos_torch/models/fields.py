@@ -13,17 +13,22 @@ import torch
 import torch.nn as nn
 
 from nerfsos_torch.core import encoding
-from nerfsos_torch.models.mlp import NeRFMLP
+from nerfsos_torch.models.mlp import Dense, NeRFMLP
 
 
 class NeRFField(nn.Module):
-    """Classic NeRF field: PE(pts) [+ PE(dirs)] -> NeRFMLP -> raw channels."""
+    """Classic NeRF field: PE(pts) [+ PE(dirs)] -> NeRFMLP -> raw channels.
+    The PE is float32; ``compute_dtype`` is the MLP's (flax's bf16 semantics
+    at bfloat16, ``models/mlp.py``), and a ``dense`` given to
+    :meth:`forward`, :meth:`forward_parts` or :meth:`sigma` replaces its
+    products (the fused kernels' plain versions)."""
 
     def __init__(self, net_depth: int = 8, net_width: int = 256, skips: Sequence[int] = (4,),
                  use_viewdirs: bool = True, use_embed: bool = True, multires: int = 10,
                  multires_views: int = 4, conv_embed: bool = False, output_ch: int = 4,
                  use_semantics: bool = False, sem_layer: int = 2, sem_dim: int = 2,
-                 sem_with_coord: bool = False, sem_with_geo: bool = False):
+                 sem_with_coord: bool = False, sem_with_geo: bool = False,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         if conv_embed:
             raise NotImplementedError("conv_embed is not ported yet")
@@ -34,7 +39,8 @@ class NeRFField(nn.Module):
         self.mlp = NeRFMLP(input_ch, input_ch_views, depth=net_depth, width=net_width,
                            skips=skips, use_viewdirs=use_viewdirs, output_ch=output_ch,
                            use_semantics=use_semantics, sem_layer=sem_layer, sem_dim=sem_dim,
-                           sem_with_coord=sem_with_coord, sem_with_geo=sem_with_geo)
+                           sem_with_coord=sem_with_coord, sem_with_geo=sem_with_geo,
+                           compute_dtype=compute_dtype)
 
     def embed(self, pts: torch.Tensor) -> torch.Tensor:
         if not self.use_embed:
@@ -47,12 +53,14 @@ class NeRFField(nn.Module):
         return encoding.positional_encoding_fused(dirs, self.multires_views,
                                                   float(self.multires_views - 1))
 
-    def forward(self, pts: torch.Tensor, viewdirs: Optional[torch.Tensor]) -> torch.Tensor:
+    def forward(self, pts: torch.Tensor, viewdirs: Optional[torch.Tensor],
+                dense: Optional[Dense] = None) -> torch.Tensor:
         """``pts [..., S, 3]``, ``viewdirs [..., 3]`` (unit, broadcast over S)
         -> raw ``[..., S, 4 (+ sem_dim)]``."""
-        return self.forward_parts(pts, viewdirs)[0]
+        return self.forward_parts(pts, viewdirs, dense)[0]
 
-    def forward_parts(self, pts: torch.Tensor, viewdirs: Optional[torch.Tensor]
+    def forward_parts(self, pts: torch.Tensor, viewdirs: Optional[torch.Tensor],
+                      dense: Optional[Dense] = None
                       ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """(raw ``[..., S, C]``, the semantic head's input ``[N, sem_in]`` over
         the flattened points, or None without the head)."""
@@ -62,17 +70,17 @@ class NeRFField(nn.Module):
         if self.use_viewdirs:
             d = viewdirs[..., None, :].expand(pts.shape)
             demb = self.embed_views(d).reshape(emb.shape[0], -1)
-        out, sem_in = self.mlp.forward_parts(emb, demb)
+        out, sem_in = self.mlp.forward_parts(emb, demb, dense)
         return out.reshape(*lead, out.shape[-1]), sem_in
 
-    def sigma(self, pts: torch.Tensor) -> torch.Tensor:
-        """Densities only ``[..., S]``: the trunk and the alpha head."""
+    def sigma(self, pts: torch.Tensor, dense: Optional[Dense] = None) -> torch.Tensor:
+        """Densities only ``[..., S]`` (float32): the trunk and the alpha head."""
         lead = pts.shape[:-1]
         emb = self.embed(pts).reshape(-1, self.mlp.pts_linears[0].in_features)
-        h = self.mlp.trunk(emb)
+        h = self.mlp.trunk(emb, dense)
         layer = self.mlp.alpha_linear if self.use_viewdirs else self.mlp.output_linear
-        out = layer(h)[:, 3 if not self.use_viewdirs else 0]
-        return out.reshape(lead)
+        out = self.mlp.product(dense)(layer, h)[:, 3 if not self.use_viewdirs else 0]
+        return out.to(torch.float32).reshape(lead)
 
 
 class MipNeRFField(nn.Module):

@@ -119,8 +119,9 @@ class MipNeRFNet(nn.Module):
             raise ValueError("MipNeRFNet does not support use_semantics; "
                              "construct with use_semantics=False")
         if cfg.compute_dtype != "float32":
-            raise NotImplementedError(f"compute_dtype={cfg.compute_dtype!r}: the port "
-                                      "runs float32 only (bf16 kernels are later work)")
+            raise NotImplementedError(f"compute_dtype={cfg.compute_dtype!r}: mip-NeRF runs "
+                                      "float32 only (the mip kernels K9, K10a and K10b have no "
+                                      "bf16 mode yet)")
         self.cfg = cfg
         self.mip = MipNeRFField(net_depth=cfg.netdepth, net_width=cfg.netwidth, skips=(4,),
                                 use_viewdirs=cfg.use_viewdirs, use_embed=cfg.use_embed,

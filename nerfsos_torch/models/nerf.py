@@ -25,7 +25,15 @@ reference's module names, so a reference state dict loads with
   kernels, as in the plain route;
 - ``forward`` chunks the rays by ``ray_block``. Rays are independent, so the
   ragged last chunk needs no padding (the JAX version pads to a fixed block
-  shape for its compiled scan).
+  shape for its compiled scan);
+- ``compute_dtype="bfloat16"``: the eager fields run flax's bf16 semantics
+  (``models/mlp.py``), and a fused net runs K1, K2, K4 and K5 in their bf16
+  modes. The other kernels have no bf16 mode yet, so a fused bf16 net
+  refuses their routes before any kernel runs: ``n_importance <= 0`` (the
+  field forward and backward K8d/K8f) in the constructor, a noisy
+  density-only view (K8e, K8d) and ``field_query`` (K8b, ``--eval_vol``) at
+  the call, and a train render whose backward is K6 (without
+  ``frozen_backbone``) in ``ops/fused_render.fused_train_render``.
 """
 from __future__ import annotations
 
@@ -91,6 +99,14 @@ def _chunk_seeds(seeds: Tuple[int, int], chunk: int) -> Tuple[int, int]:
     return int(words[0] % (2**31 - 1)), int(words[1] % (2**31 - 1))
 
 
+def compute_dtype_of(name: str) -> torch.dtype:
+    """``--compute_dtype``'s torch dtype."""
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    if name not in dtypes:
+        raise NotImplementedError(f"compute_dtype={name!r}: float32 or bfloat16")
+    return dtypes[name]
+
+
 def _field(cfg: NeRFConfig, fine: bool) -> NeRFField:
     return NeRFField(
         net_depth=cfg.netdepth_fine if fine else cfg.netdepth,
@@ -98,7 +114,16 @@ def _field(cfg: NeRFConfig, fine: bool) -> NeRFField:
         skips=tuple(cfg.skips), use_viewdirs=cfg.use_viewdirs, use_embed=cfg.use_embed,
         multires=cfg.multires, multires_views=cfg.multires_views, conv_embed=cfg.conv_embed,
         output_ch=4, use_semantics=cfg.use_semantics, sem_layer=cfg.sem_layer,
-        sem_dim=cfg.sem_dim, sem_with_coord=cfg.sem_with_coord, sem_with_geo=cfg.sem_with_geo)
+        sem_dim=cfg.sem_dim, sem_with_coord=cfg.sem_with_coord, sem_with_geo=cfg.sem_with_geo,
+        compute_dtype=compute_dtype_of(cfg.compute_dtype))
+
+
+def bf16_missing_kernel(kernels: str) -> NotImplementedError:
+    """The refusal of a fused bf16 route whose kernels have no bf16 mode."""
+    return NotImplementedError(
+        f"compute_dtype bfloat16: {kernels} has no bf16 mode yet (K1, K2, K4 and K5 have: "
+        "the --eval render and the --fix_backbone finetune); --no_fused_field runs "
+        "every mode at bf16 on the eager field")
 
 
 class NeRFNet(nn.Module):
@@ -106,13 +131,15 @@ class NeRFNet(nn.Module):
 
     def __init__(self, cfg: NeRFConfig):
         super().__init__()
-        if cfg.compute_dtype != "float32":
-            raise NotImplementedError(f"compute_dtype={cfg.compute_dtype!r}: the port "
-                                      "runs float32 only (bf16 kernels are later work)")
+        self.compute_dtype = compute_dtype_of(cfg.compute_dtype)
         self.cfg = cfg
         self.nerf = _field(cfg, fine=False)
         self.nerf_fine = None if cfg.shared_fine else _field(cfg, fine=True)
         self.fused = cfg.fused_field and fr.supports_fused(cfg)
+        self.bf16 = self.compute_dtype == torch.bfloat16
+        if self.fused and self.bf16 and cfg.n_importance <= 0:
+            raise bf16_missing_kernel("a net with no fine pass (N_importance 0): the field "
+                                      "forward and backward K8d/K8f")
 
     @property
     def fine_field(self) -> NeRFField:
@@ -124,6 +151,8 @@ class NeRFNet(nn.Module):
         ``viewdirs [R, 3]``: the field kernels when fused, else the field."""
         if not self.fused:
             return field(pts, viewdirs)
+        if self.bf16:
+            raise bf16_missing_kernel("the field forward K8b/K8d")
         dirs = viewdirs[:, None, :].expand(pts.shape).reshape(-1, 3)
         raw = ff.fused_field_apply(field, pts.reshape(-1, 3), dirs)
         return raw.reshape(*pts.shape[:-1], raw.shape[-1])
@@ -133,6 +162,8 @@ class NeRFNet(nn.Module):
         sigma kernel when fused, else the field."""
         if not self.fused:
             return self.nerf.sigma(pts)
+        if self.bf16:
+            raise bf16_missing_kernel("the sigma forward K8a/K8e")
         return ff.fused_sigma_apply(self.nerf, pts.reshape(-1, 3)).reshape(pts.shape[:-1])
 
     def field_query(self, pts: torch.Tensor, viewdirs: torch.Tensor) -> torch.Tensor:
@@ -140,6 +171,8 @@ class NeRFNet(nn.Module):
         fine pass) at ``pts [N, 3]``, each seen from its ``viewdirs [N, 3]``:
         the field kernel when fused (``engines/eval.export_density``)."""
         if self.fused:
+            if self.bf16:
+                raise bf16_missing_kernel("the field forward K8b (--eval_vol)")
             return ff.fused_field_apply(self.fine_field, pts.contiguous(), viewdirs.contiguous())
         return ff.field_plain(self.fine_field, pts, viewdirs)
 
@@ -156,9 +189,13 @@ class NeRFNet(nn.Module):
         z_vals = sampling.stratified_sample(near, far, cfg.n_samples, perturb=perturb,
                                             lindisp=cfg.lindisp, generator=generator)
         sigma_only = not coarse_outputs and n_importance > 0
+        if self.fused and self.bf16 and sigma_only and raw_noise_std != 0.0:
+            raise bf16_missing_kernel("a noisy density-only view: the sigma forward K8e and "
+                                      "the field forward K8d")
         if self.fused and coarse_outputs and n_importance > 0 and viewdirs is not None:
             odv = torch.cat([rays_o, rays_d, viewdirs], dim=1).contiguous()
-            kw = dict(noise_std=raw_noise_std, frozen=cfg.frozen_backbone)
+            kw = dict(noise_std=raw_noise_std, frozen=cfg.frozen_backbone,
+                      compute_dtype=self.compute_dtype)
             maps0, w0 = fr.fused_train_render(self.nerf, odv, z_vals.contiguous(),
                                               seed=noise_seeds[0], **kw)
             ret0 = fr.finish_maps(maps0, w0, cfg.use_semantics, cfg.white_bkgd)
@@ -172,11 +209,11 @@ class NeRFNet(nn.Module):
             return ret
         if self.fused and sigma_only and raw_noise_std == 0.0 and viewdirs is not None:
             od = torch.cat([rays_o, rays_d], dim=1)
-            weights = fr.fused_coarse_weights(self.nerf, od, z_vals)
+            weights = fr.fused_coarse_weights(self.nerf, od, z_vals, self.compute_dtype)
             z_all, z_samples = sampling.importance_sample(z_vals, weights, n_importance,
                                                           det=det, generator=generator)
             maps, w_fine = fr.fused_render(self.fine_field, torch.cat([od, viewdirs], dim=1),
-                                           z_all)
+                                           z_all, self.compute_dtype)
             ret = fr.finish_maps(maps, w_fine, cfg.use_semantics, cfg.white_bkgd)
             ret["z_std"] = torch.std(z_samples, dim=-1, correction=0)
             return ret

@@ -18,6 +18,16 @@ would take TF32 by default). Non-224 inputs resize the position embedding
 as the JAX package does (``jax.image.resize(..., method="bicubic")``, see
 :func:`cubic_resize_matrix`); the SOS path always feeds 224 x 224, where no
 interpolation happens.
+
+``dtype=torch.bfloat16`` (``--compute_dtype bfloat16``) runs it as the JAX
+ViT does at ``dtype=bf16`` (flax's semantics, the parameters float32): every
+Linear casts its input, weight and bias to bf16 (a bf16 product, a bf16
+bias add), the residual stream is cast to bf16 after the position embedding
+and stays bf16 through the blocks' adds, the attention's products and
+softmax and the GELU run in bf16 op by op, as JAX's eager ops do (each
+rounded), the LayerNorms promote to float32 (their
+outputs float32, cast again by the next Linear), and the outputs are
+float32.
 """
 from __future__ import annotations
 
@@ -27,6 +37,32 @@ from typing import Dict
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+
+def _softmax(x: torch.Tensor) -> torch.Tensor:
+    """Softmax over the last axis; in bf16 as jax.nn.softmax's ops run, each
+    rounded to bf16 (exp of the shifted input, its sum, the quotient)."""
+    if x.dtype == torch.float32:
+        return torch.softmax(x, dim=-1)
+    e = torch.exp(x - x.amax(dim=-1, keepdim=True))
+    return e / e.sum(dim=-1, keepdim=True)
+
+
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    """The exact (erf) GELU; in bf16 as jax.nn.gelu(approximate=False)'s ops
+    run, each rounded to bf16: ``0.5 x erfc(-x bf16(sqrt(1/2)))``."""
+    if x.dtype == torch.float32:
+        return F.gelu(x)
+    sqrt_half = torch.tensor(math.sqrt(0.5), dtype=x.dtype, device=x.device)
+    return (0.5 * x) * torch.erfc(-x * sqrt_half)
+
+
+def _dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """flax's ``nn.Dense(dtype=dtype, param_dtype=float32)``: input, weight
+    and bias cast to ``dtype`` (the float32 layer itself at float32)."""
+    if dtype == torch.float32:
+        return layer(x)
+    return torch.matmul(x.to(dtype), layer.weight.to(dtype).t()) + layer.bias.to(dtype)
 
 
 def _keys_cubic(x: torch.Tensor) -> torch.Tensor:
@@ -55,50 +91,57 @@ def cubic_resize_matrix(n_in: int, n_out: int) -> torch.Tensor:
 
 
 class Mlp(nn.Module):
-    def __init__(self, dim: int, hidden: int):
+    def __init__(self, dim: int, hidden: int, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.fc1 = nn.Linear(dim, hidden)
         self.fc2 = nn.Linear(hidden, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(F.gelu(self.fc1(x)))
+        return _dense(self.fc2, _gelu(_dense(self.fc1, x, self.dtype)), self.dtype)
 
 
 class Attention(nn.Module):
-    def __init__(self, dim: int, num_heads: int):
+    def __init__(self, dim: int, num_heads: int, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.num_heads = num_heads
         self.scale = (dim // num_heads) ** -0.5
         self.qkv = nn.Linear(dim, dim * 3)
         self.proj = nn.Linear(dim, dim)
 
     def forward(self, x: torch.Tensor):
-        """``x [B, N, C]`` -> (out ``[B, N, C]``, attention ``[B, H, N, N]``)."""
+        """``x [B, N, C]`` -> (out ``[B, N, C]``, attention ``[B, H, N, N]``
+        float32)."""
         B, N, C = x.shape
-        qkv = self.qkv(x).reshape(B, N, 3, self.num_heads, C // self.num_heads)
+        qkv = _dense(self.qkv, x, self.dtype).reshape(B, N, 3, self.num_heads,
+                                                      C // self.num_heads)
         q, k, v = qkv.permute(2, 0, 3, 1, 4)
-        attn = torch.softmax((q @ k.transpose(-2, -1)) * self.scale, dim=-1)
+        attn = _softmax((q @ k.transpose(-2, -1)) * self.scale)
         out = (attn @ v).transpose(1, 2).reshape(B, N, C)
-        return self.proj(out), attn
+        return _dense(self.proj, out, self.dtype), attn.to(torch.float32)
 
 
 class Block(nn.Module):
-    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0):
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.norm1 = nn.LayerNorm(dim, eps=1e-6)
-        self.attn = Attention(dim, num_heads)
+        self.attn = Attention(dim, num_heads, dtype)
         self.norm2 = nn.LayerNorm(dim, eps=1e-6)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio))
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype)
 
     def forward(self, x: torch.Tensor):
-        y, attn = self.attn(self.norm1(x))
+        # the LayerNorms in float32, as flax's promote a bf16 input
+        y, attn = self.attn(self.norm1(x.to(torch.float32)))
         x = x + y
-        return x + self.mlp(self.norm2(x)), attn
+        return x + self.mlp(self.norm2(x.to(torch.float32))), attn
 
 
 class PatchEmbed(nn.Module):
-    def __init__(self, patch_size: int, embed_dim: int):
+    def __init__(self, patch_size: int, embed_dim: int, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.patch_size = patch_size
         self.proj = nn.Conv2d(3, embed_dim, kernel_size=patch_size, stride=patch_size)
 
@@ -109,22 +152,30 @@ class PatchEmbed(nn.Module):
         p = self.patch_size
         patches = (x.reshape(B, H // p, p, W // p, p, 3).permute(0, 1, 3, 5, 2, 4)
                    .reshape(B, (H // p) * (W // p), 3 * p * p))
-        return F.linear(patches, self.proj.weight.reshape(self.proj.out_channels, -1),
-                        self.proj.bias)
+        w = self.proj.weight.reshape(self.proj.out_channels, -1)
+        if self.dtype == torch.float32:
+            return F.linear(patches, w, self.proj.bias)
+        return (torch.matmul(patches.to(self.dtype), w.to(self.dtype).t())
+                + self.proj.bias.to(self.dtype))
 
 
 class VisionTransformer(nn.Module):
-    """DINO ViT; input NHWC, already normalised by the caller."""
+    """DINO ViT; input NHWC, already normalised by the caller. ``dtype``:
+    float32, or bfloat16 with flax's semantics (the module docstring)."""
 
     def __init__(self, patch_size: int = 16, embed_dim: int = 384, depth: int = 12,
-                 num_heads: int = 6, mlp_ratio: float = 4.0, pos_embed_size: int = 224):
+                 num_heads: int = 6, mlp_ratio: float = 4.0, pos_embed_size: int = 224,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise NotImplementedError(f"the ViT runs float32 or bfloat16, not {dtype}")
+        self.dtype = dtype
         self.patch_size = patch_size
-        self.patch_embed = PatchEmbed(patch_size, embed_dim)
+        self.patch_embed = PatchEmbed(patch_size, embed_dim, dtype)
         n_pos = (pos_embed_size // patch_size) ** 2 + 1
         self.cls_token = nn.Parameter(torch.zeros(1, 1, embed_dim))
         self.pos_embed = nn.Parameter(torch.zeros(1, n_pos, embed_dim))
-        self.blocks = nn.ModuleList([Block(embed_dim, num_heads, mlp_ratio)
+        self.blocks = nn.ModuleList([Block(embed_dim, num_heads, mlp_ratio, dtype)
                                      for _ in range(depth)])
         self.norm = nn.LayerNorm(embed_dim, eps=1e-6)
         # the reference DINO initialisation (truncated normal 0.02, zero bias)
@@ -150,10 +201,11 @@ class VisionTransformer(nn.Module):
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         """``x [B, H, W, 3]`` -> dict(tokens, attn_last, normed)."""
         B, H, W, _ = x.shape
-        x = self.patch_embed(x)
+        x = self.patch_embed(x).to(torch.float32)
         x = torch.cat([self.cls_token.expand(B, -1, -1), x], dim=1)
-        x = x + self.interpolate_pos_encoding(x.shape[1] - 1, H, W)
+        x = (x + self.interpolate_pos_encoding(x.shape[1] - 1, H, W)).to(self.dtype)
         attn = None
         for blk in self.blocks:
             x, attn = blk(x)
+        x = x.to(torch.float32)
         return {"tokens": x, "attn_last": attn, "normed": self.norm(x)}

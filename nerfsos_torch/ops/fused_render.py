@@ -59,6 +59,16 @@ Each wrapper takes its plain PyTorch version (:func:`coarse_weights_plain`,
 signature) for tensors on the CPU, and for CUDA tensors launches the
 hand-written kernel in ``csrc/train_render.cu`` or raises; it never falls
 back. ``<wrapper>.launches`` counts kernel launches.
+
+K1, K2, K4 and K5 also run at ``compute_dtype=torch.bfloat16`` (``--compute_dtype
+bfloat16``; replaces the Pallas kernels' bf16 mode): every product's
+operands rounded to bf16 (to nearest even), the product accumulated in
+float32 and the float32 bias added (``models/mlp.bf16_operands_dense``), the
+activations rounded where the JAX kernels' ``.astype(bf16)`` rounds them,
+``sem_in`` stored in bf16, the composite in float32; K5 as
+``_train_frozen_bwd_kernel`` at bf16 (:func:`frozen_sem_grads_plain`). Their
+bf16 launches count in ``<wrapper>.launches_bf16``. The other kernels have
+no bf16 mode: a bf16 net refuses their routes (``models/nerf.py``).
 """
 from __future__ import annotations
 
@@ -73,8 +83,21 @@ import torch.nn.functional as F
 from nerfsos_torch import _build
 from nerfsos_torch.core import render
 from nerfsos_torch.core.sampling import points_along_rays
+from nerfsos_torch.models.mlp import Dense, bf16_operands_dense, float32_dense, round_bf16
 
 _MAX_SEM = 8
+
+
+def is_bf16(compute_dtype: torch.dtype) -> bool:
+    """Whether a kernel runs its bf16 mode (float32 and bfloat16 only)."""
+    if compute_dtype not in (torch.float32, torch.bfloat16):
+        raise NotImplementedError(f"the kernels run float32 or bfloat16, not {compute_dtype}")
+    return compute_dtype == torch.bfloat16
+
+
+def kernel_dense(compute_dtype: torch.dtype) -> Dense:
+    """The product the kernels compute at ``compute_dtype``."""
+    return bf16_operands_dense if is_bf16(compute_dtype) else float32_dense
 
 
 def supports_fused(cfg) -> bool:
@@ -102,9 +125,11 @@ def _composite_weights(sigma: torch.Tensor, z: torch.Tensor, rays_d: torch.Tenso
     return (1.0 - e) * T
 
 
-def coarse_weights_plain(field: nn.Module, od: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+def coarse_weights_plain(field: nn.Module, od: torch.Tensor, z: torch.Tensor,
+                         compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Plain version of K1: ``od [R, 6]``, ``z [R, S]`` -> weights ``[R, S]``."""
-    sigma = field.sigma(points_along_rays(od[:, 0:3], od[:, 3:6], z))
+    sigma = field.sigma(points_along_rays(od[:, 0:3], od[:, 3:6], z),
+                        kernel_dense(compute_dtype))
     return _composite_weights(sigma, z, od[:, 3:6])
 
 
@@ -120,10 +145,12 @@ def _maps(raw: torch.Tensor, sigma: torch.Tensor, z: torch.Tensor,
     return torch.cat(cols, dim=-1), w
 
 
-def render_plain(field: nn.Module, odv: torch.Tensor,
-                 z: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def render_plain(field: nn.Module, odv: torch.Tensor, z: torch.Tensor,
+                 compute_dtype: torch.dtype = torch.float32
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of K2: ``odv [R, 9]``, ``z [R, S]`` -> (maps, weights)."""
-    raw = field(points_along_rays(odv[:, 0:3], odv[:, 3:6], z), odv[:, 6:9])
+    raw = field(points_along_rays(odv[:, 0:3], odv[:, 3:6], z), odv[:, 6:9],
+                kernel_dense(compute_dtype))
     return _maps(raw, raw[..., 3], z, odv[:, 3:6])
 
 
@@ -206,27 +233,30 @@ _PLAIN_CHUNK_POINTS = 1 << 20  # points per chunk of the plain versions below
 
 
 def train_render_plain(field: nn.Module, odv: torch.Tensor, z: torch.Tensor, *,
-                       noise_std: float, seed: int, save_semin: bool
+                       noise_std: float, seed: int, save_semin: bool,
+                       compute_dtype: torch.dtype = torch.float32
                        ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """Plain version of K4: ``odv [R, 9]``, ``z [R, S]`` -> (maps ``[R, 5 + sem]``,
     weights ``[R, S]``, and with ``save_semin`` the semantic head's input
-    ``sem_in [R * S, C]`` (point ``ray * S + sample``), else None), with
-    :func:`noise_plain` added to sigma before its relu. Runs in chunks of
-    rays so that the flagship batch fits on the card."""
+    ``sem_in [R * S, C]`` (point ``ray * S + sample``; bf16 at bf16), else
+    None), with :func:`noise_plain` added to sigma before its relu. Runs in
+    chunks of rays so that the flagship batch fits on the card."""
     R, S = z.shape
     noise = noise_plain(seed, R, S, noise_std, z.device) if noise_std > 0.0 else None
     maps, weights, sem_in = [], [], []
     step = max(1, _PLAIN_CHUNK_POINTS // max(S, 1))
+    dense = kernel_dense(compute_dtype)
     with torch.no_grad():
         for r0 in range(0, max(R, 1), step):  # one (empty) chunk when R == 0
             o, zc = odv[r0:r0 + step], z[r0:r0 + step]
-            raw, si = field.forward_parts(points_along_rays(o[:, 0:3], o[:, 3:6], zc), o[:, 6:9])
+            raw, si = field.forward_parts(points_along_rays(o[:, 0:3], o[:, 3:6], zc), o[:, 6:9],
+                                          dense)
             sigma = raw[..., 3] if noise is None else raw[..., 3] + noise[r0:r0 + step]
             m, w = _maps(raw, sigma, zc, o[:, 3:6])
             maps.append(m)
             weights.append(w)
             if save_semin:
-                sem_in.append(si)
+                sem_in.append(si.to(compute_dtype))
     return torch.cat(maps), torch.cat(weights), torch.cat(sem_in) if save_semin else None
 
 
@@ -266,12 +296,16 @@ _SEM_NAMES = ("mlp.semantic_linear.0.weight", "mlp.semantic_linear.0.bias",
 
 
 def frozen_sem_grads_plain(field: nn.Module, sem_in: torch.Tensor, weights: torch.Tensor,
-                           dmaps: torch.Tensor) -> Dict[str, torch.Tensor]:
+                           dmaps: torch.Tensor, compute_dtype: torch.dtype = torch.float32
+                           ) -> Dict[str, torch.Tensor]:
     """Plain version of K5: the gradients of ``sum(dmaps[:, 5:] * sem_map)``
     with respect to the semantic head's four leaves alone, where
     ``sem_map = sum_s w[r, s] * semantic_linear(sem_in[r * S + s])`` and the
     weights ``w`` are held constant. Keyed by ``_SEM_NAMES`` (the field's
-    parameter names)."""
+    parameter names). At bf16 (``sem_in`` bf16) the JAX kernel's bf16
+    backward (:func:`_frozen_sem_grads_bf16`)."""
+    if is_bf16(compute_dtype):
+        return _frozen_sem_grads_bf16(field, sem_in, weights, dmaps)
     R, S = weights.shape
     lin0, lin2 = field.mlp.semantic_linear[0], field.mlp.semantic_linear[2]
     leaves = [t.detach().requires_grad_() for t in (lin0.weight, lin0.bias, lin2.weight,
@@ -281,6 +315,35 @@ def frozen_sem_grads_plain(field: nn.Module, sem_in: torch.Tensor, weights: torc
         sem = F.linear(s_act, leaves[2], leaves[3])
         sem_map = (weights.reshape(-1, 1) * sem).reshape(R, S, -1).sum(1)
         grads = torch.autograd.grad(torch.sum(dmaps[:, 5:] * sem_map), leaves)
+    return dict(zip(_SEM_NAMES, grads))
+
+
+def _frozen_sem_grads_bf16(field: nn.Module, sem_in: torch.Tensor, weights: torch.Tensor,
+                           dmaps: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """K5's bf16 semantics (``_train_frozen_bwd_kernel`` at compute_dtype
+    bfloat16), over chunks of points: ``s_act = bf16(relu(sem_in
+    bf16(W0)^T + b0))``; ``d_sem = dmaps[ray, 5:] w``, ``d_sem_c =
+    bf16(d_sem)``; ``dW1 = d_sem_c^T s_act``, ``db1 = sum d_sem``; ``ds =
+    bf16([s_act > 0] d_sem_c bf16(W1))``; ``dW0 = ds^T sem_in``, ``db0 = sum
+    ds``; every product accumulated in float32."""
+    R, S = weights.shape
+    lin0, lin2 = field.mlp.semantic_linear[0], field.mlp.semantic_linear[2]
+    w0, w1 = round_bf16(lin0.weight.detach()), round_bf16(lin2.weight.detach())
+    b0 = lin0.bias.detach()
+    d_all = (dmaps[:, 5:].repeat_interleave(S, dim=0) * weights.reshape(-1, 1)).to(torch.float32)
+    grads = [torch.zeros_like(lin0.weight), torch.zeros_like(lin0.bias),
+             torch.zeros_like(lin2.weight), torch.zeros_like(lin2.bias)]
+    with torch.no_grad():
+        for p0 in range(0, R * S, _PLAIN_CHUNK_POINTS):
+            x = sem_in[p0:p0 + _PLAIN_CHUNK_POINTS].to(torch.float32)
+            d_sem = d_all[p0:p0 + _PLAIN_CHUNK_POINTS]
+            s_act = round_bf16(F.relu(x @ w0.t() + b0))
+            dc = round_bf16(d_sem)
+            ds = round_bf16(torch.where(s_act > 0, dc @ w1, torch.zeros_like(s_act)))
+            grads[0] += ds.t() @ x
+            grads[1] += ds.sum(0)
+            grads[2] += dc.t() @ s_act
+            grads[3] += d_sem.sum(0)
     return dict(zip(_SEM_NAMES, grads))
 
 
@@ -536,7 +599,7 @@ def _ring_from(field: nn.Module, buf: torch.Tensor, fdesc: _build.MLPDesc
                        list(range(depth)) + [depth + 1])
 
 
-def pack_ring(field: nn.Module) -> Tuple[torch.Tensor, _build.RingDesc]:
+def pack_ring(field: nn.Module, bf16: bool = False) -> Tuple[torch.Tensor, _build.RingDesc]:
     """The weights of the 128-point tile (K4, and K3's and K6's forward) for
     its ring of shared-memory stages, and the ring's descriptor (``stages``
     left 0: the wrapper sets it per call). For each of :func:`ring_layers`,
@@ -547,8 +610,57 @@ def pack_ring(field: nn.Module) -> Tuple[torch.Tensor, _build.RingDesc]:
     ``(j, h, r, c) = W^T[8 s + 4 h + c][8 j + r]`` (wgmma's K-major core
     matrices of 8 outputs x 4 inputs, the two k halves of an output group
     side by side). ``hrows`` is the widest ``N`` of the trunk and feature
-    (the rows each warpgroup's ``h`` tile holds)."""
+    (the rows each warpgroup's ``h`` tile holds).
+
+    ``bf16`` (K1, K2 and K4 at bf16): ``W^T`` rounded to bf16, its rows
+    padded to a multiple of 16, cut into k16 slices of 16 rows, each one
+    stage of ``[N / 8][2][8][8]`` bf16 with element ``(j, h, r, c) =
+    W^T[16 s + 8 h + c // 2 + 4 (c % 2)][8 j + r]`` (core matrices of 8
+    outputs x 8 inputs, 16 B, the two k halves side by side: the TF32
+    layout's LBO and SBO; k position ``8 h + c`` holds row ``8 h + c // 2 +
+    4 (c % 2)``, :func:`bf16_k_rows`). The buffer is float32 words, two
+    bf16 each; ``off`` and ``stage_floats`` count words."""
+    if bf16:
+        return _ring_bf16_from(field)
     return _ring_from(field, *pack_field(field))
+
+
+def bf16_k_rows() -> torch.Tensor:
+    """The input row (of 16) at each k position of a bf16 k16 step of K4's
+    tile: ``8 h + t + 4 e`` at ``2 t + e + 8 h``, so that a thread's A
+    operands are the rows fp32 mode loads (``csrc/wg_tile.cuh`` wg_layer)."""
+    q = torch.arange(16)
+    return 8 * (q // 8) + (q % 8) // 2 + 4 * (q % 2)
+
+
+def _ring_bf16_wt(wt: torch.Tensor) -> torch.Tensor:
+    """One layer's padded ``W^T [kpad, N]`` (N the wgmma width) in
+    :func:`pack_ring`'s bf16 layout: its k16 slices as float32 words."""
+    k16, n = -(-wt.shape[0] // 16) * 16, wt.shape[1]
+    w = wt.new_zeros((k16, n))
+    w[:wt.shape[0]] = wt
+    blk = (w.view(k16 // 16, 16, n)[:, bf16_k_rows(), :].view(k16 // 16, 2, 8, n // 8, 8)
+           .permute(0, 3, 1, 4, 2))  # [s, j, h, r, c]
+    return blk.reshape(-1).to(torch.bfloat16).view(torch.float32)
+
+
+def _ring_bf16_from(field: nn.Module) -> Tuple[torch.Tensor, _build.RingDesc]:
+    """:func:`pack_ring`'s bf16 layout, from the field's weights."""
+    layers = _field_layers(field)
+    depth = field.mlp.depth
+    rd = _build.RingDesc()
+    parts, off = [], 0
+    for i in ring_layers(field):
+        w, _ = _padded_wt(*layers[i])
+        n = _ring_n(layers[i][0].out_features)
+        wt = w.new_zeros((w.shape[0], n))
+        wt[:, :w.shape[1]] = w
+        parts.append(_ring_bf16_wt(wt))
+        rd.off[i], rd.ncols[i] = off, n
+        off += parts[-1].numel()
+    rd.hrows = max(rd.ncols[i] for i in list(range(depth)) + [depth + 1])
+    rd.stage_floats = 8 * max(rd.ncols[i] for i in ring_layers(field))
+    return torch.cat(parts).contiguous(), rd
 
 
 def _bwd_matrix(blocks: List[torch.Tensor]) -> torch.Tensor:
@@ -656,9 +768,13 @@ def _packed(field: nn.Module, device: torch.device) -> Tuple[torch.Tensor, _buil
     return _cached(field, device, "_fused_pack", pack_field)
 
 
-def _ring(field: nn.Module, device: torch.device) -> Tuple[torch.Tensor, _build.RingDesc]:
+def _ring(field: nn.Module, device: torch.device,
+          bf16: bool = False) -> Tuple[torch.Tensor, _build.RingDesc]:
     """:func:`pack_ring` on ``device`` once per weight state, gathered from
-    the cached :func:`_packed` buffer."""
+    the cached :func:`_packed` buffer (``bf16``: its bf16 layout, from the
+    weights)."""
+    if bf16:
+        return _cached(field, device, "_ring_bf16_pack", _ring_bf16_from)
     return _cached(field, device, "_ring_pack", lambda f: _ring_from(f, *_packed(f, device)))
 
 
@@ -804,7 +920,7 @@ _SEM_RANKS, _SEM_COLS, _SEM_PTS, _SEM_KS, _MAX_SEM_ROWS, _MAX_SEM_WSTAGES, _SEM_
     4, 32, 64, 4, 384, 6, 256
 
 
-def pack_frozen(field: nn.Module) -> Tuple[torch.Tensor, _build.FrozenDesc]:
+def pack_frozen(field: nn.Module, bf16: bool = False) -> Tuple[torch.Tensor, _build.FrozenDesc]:
     """K5's weights and descriptor (``xstages``/``wstages`` left 0: the
     wrapper sets them, :func:`_frozen_plan`). For each cluster rank ``r``
     (sem_0's outputs ``32 r .. 32 r + 31``), ``W0^T [C, hidden]`` with its
@@ -814,18 +930,29 @@ def pack_frozen(field: nn.Module) -> Tuple[torch.Tensor, _build.FrozenDesc]:
     4 h + c][32 r + 8 j + r8]`` (:func:`pack_ring`'s wgmma B layout at
     N = 32); then sem_0's bias and sem_1's weight ``[sem_dim, hidden]``.
     The gradient buffer holds dW0 as ``W0^T [C, hidden]``, db0, dW1 as
-    ``W1^T [hidden, sem_dim]`` and db1."""
+    ``W1^T [hidden, sem_dim]`` and db1.
+
+    ``bf16`` (K5 at bf16, ``d.bf16``): ``W0^T`` rounded to bf16, its rows
+    padded to a multiple of 64, in k16 slices of 16 rows as ``[4][2][8][8]``
+    bf16 with element ``(j, h, r8, c) = W0^T[16 s + 8 h + c][32 r + 8 j +
+    r8]`` (``kslices`` counts k16 slices); two bf16 a float32 word."""
     lin0, lin2 = field.mlp.semantic_linear[0], field.mlp.semantic_linear[2]
     C, hidden, sem = lin0.in_features, lin0.out_features, lin2.out_features
-    kslices = -(-C // (8 * _SEM_KS)) * _SEM_KS
+    rows = 16 if bf16 else 8  # a k-slice's
+    kslices = -(-C // (rows * _SEM_KS)) * _SEM_KS
     cols = _SEM_RANKS * _SEM_COLS
-    wt = lin0.weight.detach().new_zeros((8 * kslices, cols))
+    wt = lin0.weight.detach().new_zeros((rows * kslices, cols))
     wt[:C, :min(hidden, cols)] = lin0.weight.detach().t()[:, :cols]
-    hi = _tf32(wt)
-    parts = torch.stack([hi, _tf32(wt - hi)])  # [part, 8 s + 4 h + c, 32 rank + 8 j + r8]
-    ring = (parts.view(2, kslices, 2, 4, _SEM_RANKS, _SEM_COLS // 8, 8)
-            .permute(4, 1, 0, 5, 2, 6, 3).reshape(-1))
+    if bf16:
+        ring = (wt.to(torch.bfloat16).view(kslices, 2, 8, _SEM_RANKS, _SEM_COLS // 8, 8)
+                .permute(3, 0, 4, 1, 5, 2).reshape(-1).view(torch.float32))
+    else:
+        hi = _tf32(wt)
+        parts = torch.stack([hi, _tf32(wt - hi)])  # [part, 8 s + 4 h + c, 32 rank + 8 j + r8]
+        ring = (parts.view(2, kslices, 2, 4, _SEM_RANKS, _SEM_COLS // 8, 8)
+                .permute(4, 1, 0, 5, 2, 6, 3).reshape(-1))
     d = _build.FrozenDesc()
+    d.bf16 = int(bf16)
     d.b0 = ring.numel()
     d.w1 = d.b0 + hidden
     d.C, d.kslices, d.hidden, d.sem_dim, d.n_maps = C, kslices, hidden, sem, 5 + sem
@@ -846,12 +973,18 @@ def unpack_frozen(field: nn.Module, flat: torch.Tensor, d: _build.FrozenDesc
     return dict(zip(_SEM_NAMES, grads))
 
 
+def _sem_stage_bytes(d: _build.FrozenDesc) -> int:
+    """Bytes of a W0 ring stage of K5: ``_SEM_KS`` k-slices (TF32 parts of
+    8 rows, or bf16 of 16 rows)."""
+    return (2 if d.bf16 else 4) * 16 * _SEM_COLS * _SEM_KS
+
+
 def _frozen_smem(d: _build.FrozenDesc) -> int:
     """K5's shared memory (``frozen_smem`` in ``csrc/train_render.cu``): the
-    barriers, the sem_in tile stages, the tile's ds (TF32 parts) and the W0
-    ring's stages."""
-    return _SEM_BARS + 4 * (d.xstages * _SEM_PTS * d.C + 2 * _SEM_PTS * _SEM_COLS
-                      + d.wstages * 16 * _SEM_COLS * _SEM_KS)
+    barriers, the sem_in tile stages (bf16 at bf16), the tile's ds (TF32
+    parts; bf16 at bf16, in the same room) and the W0 ring's stages."""
+    return (_SEM_BARS + (2 if d.bf16 else 4) * d.xstages * _SEM_PTS * d.C
+            + 4 * 2 * _SEM_PTS * _SEM_COLS + d.wstages * _sem_stage_bytes(d))
 
 
 def _frozen_plan(d: _build.FrozenDesc) -> _build.FrozenDesc:
@@ -867,7 +1000,7 @@ def _frozen_plan(d: _build.FrozenDesc) -> _build.FrozenDesc:
         plan.wstages = 2
         if _frozen_smem(plan) <= _MAX_SMEM:
             while (plan.wstages < _MAX_SEM_WSTAGES
-                   and _frozen_smem(plan) + 4 * 16 * _SEM_COLS * _SEM_KS <= _MAX_SMEM):
+                   and _frozen_smem(plan) + _sem_stage_bytes(plan) <= _MAX_SMEM):
                 plan.wstages += 1
             return plan
     raise NotImplementedError(f"semantic head {d.C} -> {d.hidden}: K5's stages need "
@@ -894,50 +1027,64 @@ def _check_inputs(field: nn.Module, rays: torch.Tensor, cols: int, z: torch.Tens
                                   f"got {p.dtype} on {p.device}")
 
 
-def fused_coarse_weights(field: nn.Module, od: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+def _count(fn, bf16: bool) -> None:
+    """One launch of ``fn``'s kernel in its fp32 or bf16 mode."""
+    if bf16:
+        fn.launches_bf16 += 1
+    else:
+        fn.launches += 1
+
+
+def fused_coarse_weights(field: nn.Module, od: torch.Tensor, z: torch.Tensor,
+                         compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """K1: coarse eval pass, ``od [R, 6]``, ``z [R, S]`` -> weights ``[R, S]``;
     see :func:`coarse_weights_plain`. One launch of K4's kernel in its
     sigma-only mode (``csrc/train_render.cu``: the 128-point tile's trunk
     through its ring, the alpha head, the composite without noise), a CTA a
-    chunk of :func:`_wg_plan`'s rays."""
+    chunk of :func:`_wg_plan`'s rays; at bf16 in the tile's bf16 mode."""
     if od.device.type == "cpu":
-        return coarse_weights_plain(field, od, z)
+        return coarse_weights_plain(field, od, z, compute_dtype)
     if od.device.type != "cuda":
         raise NotImplementedError(f"no kernel for device {od.device}")
     _check_inputs(field, od, 6, z)
+    bf16 = is_bf16(compute_dtype)
     R, S = z.shape
     weights = torch.empty((R, S), device=od.device, dtype=torch.float32)
     if R == 0:
         return weights
     buf, fdesc = _packed(field, od.device)
-    rbuf, ring = _ring(field, od.device)
+    rbuf, ring = _ring(field, od.device, bf16)
     desc = _build.TrainDesc()
     desc.f = fdesc
+    desc.f.bf16 = int(bf16)
     desc.rays_per_chunk, rd = _wg_plan(fdesc, ring, S)
     with torch.cuda.device(od.device):
         code = _build.library().nerf_coarse_weights(
             od.data_ptr(), z.data_ptr(), buf.data_ptr(), rbuf.data_ptr(), ctypes.byref(desc),
             ctypes.byref(rd), weights.data_ptr(), R, S, _build.stream(od.device))
     _build.check(code, "fused_coarse_weights")
-    fused_coarse_weights.launches += 1
+    _count(fused_coarse_weights, bf16)
     return weights
 
 
-def fused_render(field: nn.Module, odv: torch.Tensor,
-                 z: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def fused_render(field: nn.Module, odv: torch.Tensor, z: torch.Tensor,
+                 compute_dtype: torch.dtype = torch.float32
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K2: fine eval pass, ``odv [R, 9]``, ``z [R, S]`` -> (maps, weights);
     see :func:`render_plain`. One launch of K4's kernel without noise and
     without ``sem_in`` (:func:`train_render`'s 128-point tile, the weights
     from :func:`pack_ring` through its ring; the two functions are the same
-    there), counted in ``fused_render.launches``."""
+    there), counted in ``fused_render.launches`` (``launches_bf16`` at
+    bf16)."""
     if odv.device.type == "cpu":
-        return render_plain(field, odv, z)
+        return render_plain(field, odv, z, compute_dtype)
     if odv.device.type != "cuda":
         raise NotImplementedError(f"no kernel for device {odv.device}")
     _check_inputs(field, odv, 9, z)
-    maps, weights, _ = _tile_forward(field, odv, z, 0.0, 0, False)
+    bf16 = is_bf16(compute_dtype)
+    maps, weights, _ = _tile_forward(field, odv, z, 0.0, 0, False, bf16)
     if z.shape[0] > 0:
-        fused_render.launches += 1
+        _count(fused_render, bf16)
     return maps, weights
 
 
@@ -1017,23 +1164,25 @@ def _wg_plan(fdesc: _build.MLPDesc, ring: _build.RingDesc, S: int) -> Tuple[int,
 
 
 def _tile_forward(field: nn.Module, odv: torch.Tensor, z: torch.Tensor, noise_std: float,
-                  seed: int, save_semin: bool
+                  seed: int, save_semin: bool, bf16: bool = False
                   ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """One launch of K4's kernel (``csrc/train_render.cu``
     ``train_render_wg_kernel``) on checked CUDA inputs, none for ``R == 0``:
     a CTA a chunk of :func:`_wg_plan`'s rays in tiles of 128 points, the
     weights from :func:`pack_ring` through its ring; raises where the plan
-    does not fit."""
+    does not fit. ``bf16``: the tile's bf16 mode, ``sem_in`` in bf16."""
     R, S = z.shape
     buf, fdesc = _packed(field, odv.device)
-    rbuf, ring = _ring(field, odv.device)
+    rbuf, ring = _ring(field, odv.device, bf16)
     desc = _build.TrainDesc()
     desc.f = fdesc
+    desc.f.bf16 = int(bf16)
     desc.rays_per_chunk, rd = _wg_plan(fdesc, ring, S)
     maps = torch.empty((R, 5 + fdesc.sem_dim), device=odv.device, dtype=torch.float32)
     weights = torch.empty((R, S), device=odv.device, dtype=torch.float32)
     sem_in = (torch.empty((R * S, field.mlp.semantic_linear[0].in_features), device=odv.device,
-                          dtype=torch.float32) if save_semin else None)
+                          dtype=torch.bfloat16 if bf16 else torch.float32)
+              if save_semin else None)
     if R > 0:
         with torch.cuda.device(odv.device):
             code = _build.library().nerf_train_render(
@@ -1046,23 +1195,25 @@ def _tile_forward(field: nn.Module, odv: torch.Tensor, z: torch.Tensor, noise_st
 
 
 def train_render(field: nn.Module, odv: torch.Tensor, z: torch.Tensor, *, noise_std: float,
-                 seed: int, save_semin: bool
+                 seed: int, save_semin: bool, compute_dtype: torch.dtype = torch.float32
                  ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """K4: the train forward, ``odv [R, 9]``, ``z [R, S]`` -> (maps, weights,
-    ``sem_in [R * S, C]`` or None); see :func:`train_render_plain`. One
-    launch: a CTA a chunk of rays in tiles of 128 points, the weights from
-    :func:`pack_ring` through its ring (``csrc/wg_tile.cuh``)."""
+    ``sem_in [R * S, C]`` (bf16 at bf16) or None); see
+    :func:`train_render_plain`. One launch: a CTA a chunk of rays in tiles
+    of 128 points, the weights from :func:`pack_ring` through its ring
+    (``csrc/wg_tile.cuh``; at bf16 in its bf16 mode)."""
     if odv.device.type == "cpu":
         return train_render_plain(field, odv, z, noise_std=noise_std, seed=seed,
-                                  save_semin=save_semin)
+                                  save_semin=save_semin, compute_dtype=compute_dtype)
     if odv.device.type != "cuda":
         raise NotImplementedError(f"no kernel for device {odv.device}")
     _check_inputs(field, odv, 9, z)
     if save_semin and not field.mlp.use_semantics:
         raise ValueError("save_semin needs the semantic head")
-    out = _tile_forward(field, odv, z, noise_std, seed, save_semin)
+    bf16 = is_bf16(compute_dtype)
+    out = _tile_forward(field, odv, z, noise_std, seed, save_semin, bf16)
     if z.shape[0] > 0:
-        train_render.launches += 1
+        _count(train_render, bf16)
     return out
 
 
@@ -1085,29 +1236,39 @@ def _frozen_clusters(device: torch.device, d: _build.FrozenDesc) -> int:
 
 
 def frozen_sem_grads(field: nn.Module, sem_in: torch.Tensor, weights: torch.Tensor,
-                     dmaps: torch.Tensor) -> Dict[str, torch.Tensor]:
-    """K5: the semantic head's gradients from the stored ``sem_in [R * S, C]``,
-    the forward's ``weights [R, S]`` and the maps' cotangent ``dmaps
-    [R, 5 + sem]``; see :func:`frozen_sem_grads_plain`. One call launches the
-    kernel (clusters of four CTAs, each cluster over a run of 64-point
-    tiles of sem_in multicast to its CTAs, each CTA 32 of sem_0's outputs, a
-    partial gradient buffer a cluster) and the reduction of the partials in
-    cluster order, and adds one to ``launches``."""
+                     dmaps: torch.Tensor, compute_dtype: torch.dtype = torch.float32
+                     ) -> Dict[str, torch.Tensor]:
+    """K5: the semantic head's gradients from the stored ``sem_in [R * S, C]``
+    (of ``compute_dtype``: bf16 at bf16), the forward's ``weights [R, S]``
+    and the maps' cotangent ``dmaps [R, 5 + sem]``; see
+    :func:`frozen_sem_grads_plain`. One call launches the kernel (clusters
+    of four CTAs, each cluster over a run of 64-point tiles of sem_in
+    multicast to its CTAs, each CTA 32 of sem_0's outputs, a partial
+    gradient buffer a cluster; at bf16 in its bf16 mode) and the reduction
+    of the partials in cluster order, and adds one to ``launches``
+    (``launches_bf16``)."""
     if sem_in.device.type == "cpu":
-        return frozen_sem_grads_plain(field, sem_in, weights, dmaps)
+        return frozen_sem_grads_plain(field, sem_in, weights, dmaps, compute_dtype)
     if sem_in.device.type != "cuda":
         raise NotImplementedError(f"no kernel for device {sem_in.device}")
+    bf16 = is_bf16(compute_dtype)
     R, S = weights.shape
     C = field.mlp.semantic_linear[0].in_features
-    for name, t, shape in (("sem_in", sem_in, (R * S, C)), ("weights", weights, (R, S)),
-                           ("dmaps", dmaps, (R, 5 + field.mlp.semantic_linear[2].out_features))):
-        if t.device != sem_in.device or t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous float32 on {sem_in.device}")
+    for name, t, shape, dtype in (
+            ("sem_in", sem_in, (R * S, C), compute_dtype),
+            ("weights", weights, (R, S), torch.float32),
+            ("dmaps", dmaps, (R, 5 + field.mlp.semantic_linear[2].out_features), torch.float32)):
+        if t.device != sem_in.device or t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous {dtype} on {sem_in.device}")
         if tuple(t.shape) != shape:
             raise ValueError(f"expected {name} {shape}, got {tuple(t.shape)}")
     if sem_in.data_ptr() % 16:
         raise ValueError("sem_in must start on a 16-byte boundary (its tiles are bulk copies)")
-    buf, d = _cached(field, sem_in.device, "_frozen_pack", pack_frozen)
+    if bf16:
+        buf, d = _cached(field, sem_in.device, "_frozen_pack_bf16",
+                         lambda f: pack_frozen(f, bf16=True))
+    else:
+        buf, d = _cached(field, sem_in.device, "_frozen_pack", pack_frozen)
     d = _frozen_plan(d)
     flat = torch.zeros(d.grad_size, device=sem_in.device, dtype=torch.float32)
     P = R * S
@@ -1122,7 +1283,7 @@ def frozen_sem_grads(field: nn.Module, sem_in: torch.Tensor, weights: torch.Tens
                 ctypes.byref(d), partial.data_ptr(), flat.data_ptr(), P, S, clusters, per,
                 _build.stream(sem_in.device))
         _build.check(code, "frozen_sem_grads")
-        frozen_sem_grads.launches += 1
+        _count(frozen_sem_grads, bf16)
     return unpack_frozen(field, flat, d)
 
 
@@ -1182,13 +1343,15 @@ class _TrainRender(torch.autograd.Function):
     dropped, as nothing but the semantic columns of the maps depends on the
     head). Without ``frozen``: K6, every leaf from the maps' and the
     weights' cotangents. Rays and z get no cotangent; an output that nothing
-    used gets None as its cotangent (a zero one)."""
+    used gets None as its cotangent (a zero one). K4 and K5 run at
+    ``compute_dtype``."""
 
     @staticmethod
-    def forward(ctx, field, odv, z, noise_std, seed, frozen, save, *params):
+    def forward(ctx, field, odv, z, noise_std, seed, frozen, save, compute_dtype, *params):
         maps, w, sem_in = train_render(field, odv, z, noise_std=noise_std, seed=seed,
-                                       save_semin=save)
+                                       save_semin=save, compute_dtype=compute_dtype)
         ctx.field, ctx.frozen, ctx.save, ctx.noise = field, frozen, save, (noise_std, seed)
+        ctx.compute_dtype = compute_dtype
         ctx.maps_shape = maps.shape
         ctx.set_materialize_grads(False)
         if save:
@@ -1204,7 +1367,8 @@ class _TrainRender(torch.autograd.Function):
         if ctx.frozen:
             if ctx.save and dmaps is not None:
                 sem_in, w = ctx.saved_tensors
-                grads = frozen_sem_grads(ctx.field, sem_in, w, dmaps.contiguous())
+                grads = frozen_sem_grads(ctx.field, sem_in, w, dmaps.contiguous(),
+                                         ctx.compute_dtype)
         elif dmaps is not None or dweights is not None:
             odv, z = ctx.saved_tensors
             if dmaps is None:
@@ -1212,23 +1376,29 @@ class _TrainRender(torch.autograd.Function):
             grads = train_render_grads(ctx.field, odv, z, dmaps.contiguous(),
                                        None if dweights is None else dweights.contiguous(),
                                        noise_std=ctx.noise[0], seed=ctx.noise[1])
-        return (None,) * 7 + tuple(grads.get(n) for n in names)
+        return (None,) * 8 + tuple(grads.get(n) for n in names)
 
 
 def fused_train_render(field: nn.Module, odv: torch.Tensor, z: torch.Tensor, *,
-                       noise_std: float, seed: int, frozen: bool
+                       noise_std: float, seed: int, frozen: bool,
+                       compute_dtype: torch.dtype = torch.float32
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The differentiable train render of one pass (replaces
     ``fused_train_render_planar``): ``odv [R, 9]``, ``z [R, S]`` -> (maps
     ``[R, 5 + sem]``, weights ``[R, S]``) through K4. With ``frozen`` (the
     ``--fix_backbone`` finetune) its backward is K5; ``sem_in`` is stored
     only when a gradient can be asked for. Without ``frozen`` the backward is
-    K6, which recomputes the forward and stores no ``sem_in``."""
+    K6, which recomputes the forward and stores no ``sem_in``. At bf16 K4 and
+    K5 run their bf16 modes, and a render whose backward would be K6 (no
+    bf16 mode) raises before K4 runs."""
     params = list(field.parameters())
-    save = (frozen and field.mlp.use_semantics and torch.is_grad_enabled()
-            and any(p.requires_grad for p in params))
+    grad = torch.is_grad_enabled() and any(p.requires_grad for p in params)
+    if is_bf16(compute_dtype) and grad and not frozen:
+        raise NotImplementedError("compute_dtype bfloat16: the full train-render backward "
+                                  "K6 has no bf16 mode yet (the frozen finetune, K5, has)")
+    save = frozen and field.mlp.use_semantics and grad
     return _TrainRender.apply(field, odv, z, float(noise_std), int(seed), bool(frozen), save,
-                              *params)
+                              compute_dtype, *params)
 
 
 def _mip_shapes(field: nn.Module, odvr: torch.Tensor, z: torch.Tensor) -> Tuple[int, int]:
@@ -1402,6 +1572,9 @@ fused_render.launches = 0
 fused_rgb_train_grads.launches = 0
 train_render.launches = 0
 frozen_sem_grads.launches = 0
+for _fn in (fused_coarse_weights, fused_render, train_render, frozen_sem_grads):
+    _fn.launches_bf16 = 0  # the bf16 modes' launches
+del _fn
 train_render_grads.launches = 0
 fused_mip_render.launches = 0
 mip_train_render.launches = 0

@@ -61,6 +61,16 @@ loss) run unless
 configuration is outside ``supports_fused``; on the CPU the same code path
 runs their plain versions.
 
+``--compute_dtype bfloat16`` runs the MLPs and the DINO ViT at bf16, as the
+JAX entry point does. On the fused kernels it covers ``--eval`` (K1, K2) and
+the ``--patch_tune --fix_backbone`` SOS finetune (K4, K5; its test-set
+views and its resume included); every other mode whose kernels have no
+bf16 mode yet (the RGB step K3, the full SOS step K6, ``--mipnerf``'s K9 and
+K10, ``--eval_vol``'s and ``--N_importance 0``'s field kernels) stops with one
+line before any data is loaded (:func:`bf16_refusal`). With
+``--no_fused_field`` every mode but ``--mipnerf`` runs at bf16 on the eager
+field.
+
 ``--debug_nans`` runs the whole of ``main`` under
 ``torch.autograd.set_detect_anomaly`` and checks each step's loss and
 gradients with ``utils/debug.assert_finite`` (``FloatingPointError`` on a
@@ -134,7 +144,9 @@ def create_arg_parser() -> ConfigArgumentParser:
                         help="accepted for parity")
     parser.add_argument("--compute_dtype", type=str, default="float32",
                         choices=["float32", "bfloat16"],
-                        help="MLP activation dtype (the port runs float32 only)")
+                        help="MLP and DINO activation dtype (bfloat16: --eval and the "
+                             "--fix_backbone finetune on the kernels; every mode with "
+                             "--no_fused_field but --mipnerf)")
     parser.add_argument("--no_fused_field", action="store_true",
                         help="render with plain PyTorch instead of the fused kernels")
 
@@ -217,11 +229,10 @@ def create_arg_parser() -> ConfigArgumentParser:
     return parser
 
 
-def build_model(args, device: torch.device):
-    """``NeRFNet`` (``MipNeRFNet`` under ``--mipnerf``, without the semantic
-    head) from the flags, initialised from ``--seed``, on ``device``."""
-    from nerfsos_torch.models.mip import MipNeRFNet
-    from nerfsos_torch.models.nerf import NeRFConfig, NeRFNet
+def model_config(args):
+    """The model's ``NeRFConfig`` from the flags (``fused_field`` where
+    ``--no_fused_field`` is not given and ``supports_fused`` holds)."""
+    from nerfsos_torch.models.nerf import NeRFConfig
     from nerfsos_torch.ops.fused_render import supports_fused
 
     cfg = NeRFConfig(
@@ -238,7 +249,16 @@ def build_model(args, device: torch.device):
         ray_block=args.ray_chunk, compute_dtype=args.compute_dtype,
         frozen_backbone=args.fix_backbone,
     )
-    cfg = dataclasses.replace(cfg, fused_field=not args.no_fused_field and supports_fused(cfg))
+    return dataclasses.replace(cfg, fused_field=not args.no_fused_field and supports_fused(cfg))
+
+
+def build_model(args, device: torch.device):
+    """``NeRFNet`` (``MipNeRFNet`` under ``--mipnerf``, without the semantic
+    head) from the flags, initialised from ``--seed``, on ``device``."""
+    from nerfsos_torch.models.mip import MipNeRFNet
+    from nerfsos_torch.models.nerf import NeRFNet
+
+    cfg = model_config(args)
     with torch.random.fork_rng(devices=[]):  # seeded init, global RNG left as it was
         torch.manual_seed(args.seed)
         net = MipNeRFNet(cfg) if args.mipnerf else NeRFNet(cfg)
@@ -263,16 +283,19 @@ def _resolve_device(args, device) -> torch.device:
 def build_dino(args, device: torch.device):
     """The frozen DINO extractor (JAX ``run_nerf.build_dino``): ViT-S/16 with
     the ``--dino_ckpt`` weights, seeded weights and a warning when the file
-    is missing, or the photometric stand-in with ``--dino_synthetic``."""
+    is missing, or the photometric stand-in with ``--dino_synthetic``; at
+    ``--compute_dtype``, as the JAX entry point runs it."""
     from nerfsos_torch.models.extractor import SyntheticExtractor, VitExtractor
+    from nerfsos_torch.models.nerf import compute_dtype_of
 
+    dtype = compute_dtype_of(args.compute_dtype)
     if args.dino_synthetic:
         print("> Photometric oracle extractor (--dino_synthetic): informative "
               "features without pretrained weights — quality gates only.")
-        return SyntheticExtractor().to(device)
+        return SyntheticExtractor(dtype=dtype).to(device)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(42)
-        dino = VitExtractor("dino_vits16")
+        dino = VitExtractor("dino_vits16", dtype=dtype)
     if args.dino_ckpt and os.path.exists(args.dino_ckpt):
         dino.load_torch_checkpoint(args.dino_ckpt)
         print(f"> Loaded DINO weights from {args.dino_ckpt}")
@@ -287,6 +310,33 @@ def _check_patch_tune(args) -> None:
     if not args.use_dino and (args.use_correlation or args.use_geoCorr):
         raise SystemExit("--use_correlation/--use_geoCorr require --use_dino "
                          "(the reference crashes here implicitly; we validate up front)")
+
+
+def bf16_refusal(args, sos_mode: bool) -> str:
+    """Why a ``--compute_dtype bfloat16`` run cannot run yet ('' when it
+    can): the modes whose kernels have no bf16 mode. The fused kernels run
+    bf16 for ``--eval`` (K1, K2) and the ``--fix_backbone`` SOS finetune (K4,
+    K5); the eager field (``--no_fused_field``, or a configuration outside
+    ``supports_fused``) runs every mode but ``--mipnerf``."""
+    if args.compute_dtype != "bfloat16":
+        return ""
+    if args.mipnerf:
+        return "mip-NeRF's kernels (K9, K10a, K10b) have no bf16 mode yet"
+    if not model_config(args).fused_field:
+        return ""
+    if args.N_importance <= 0:
+        missing = "a net with no fine pass runs the field kernels K8d/K8f"
+    elif args.eval:
+        return ""
+    elif args.eval_vol:
+        missing = "--eval_vol runs the field kernel K8b"
+    elif not sos_mode:
+        missing = "the RGB train step runs K3"
+    elif not args.fix_backbone:
+        missing = "the full SOS step's backward is K6 (--fix_backbone's, K5, has one)"
+    else:
+        return ""
+    return f"{missing}, which has no bf16 mode yet; --no_fused_field runs it on the eager field"
 
 
 def unwritten_outputs_note(args, start: int) -> str:
@@ -336,6 +386,9 @@ def _main(args, device) -> None:
                          "they need a fine pass, --N_importance > 0")
     if args.no_semantics:
         args.use_semantics = False
+    refusal = bf16_refusal(args, sos_mode)
+    if refusal:
+        raise SystemExit(f"--compute_dtype bfloat16: {refusal}")
     device = _resolve_device(args, device)
     print(f"> Semantic branch is {args.use_semantics}")
     print(f"> Device: {device}")

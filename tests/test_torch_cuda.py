@@ -8,7 +8,12 @@ repository's conftest imports jax):
     python -m pytest tests/test_torch_cuda.py -q --noconftest
 
 The tolerances and K3's allowance for relu gates that rounding flips are
-``chip_smoke.py``'s, where their reasoning is written down. K5 is held to GRAD_TOL on
+``chip_smoke.py``'s, where their reasoning is written down; so is the bound
+of the bf16 modes of K1, K2, K4 and K5 (``bf16_columns``, ``bf16_stored``:
+bf16 rounding flips bounded as a group, at most BF16_FLIP_ROWS of the rows
+beyond TOL, each entry within BF16_ENTRY of its column's scale; sem_in
+within BF16_STORED_SHARE and BF16_STORED_STEPS; ``k5_bf16_over``: each leaf
+within BF16_SHARE of its bf16-vs-fp32 distance or GRAD_TOL). K5 is held to GRAD_TOL on
 points whose semantic-head gates are clear of 0 (the others get weight 0); K6
 on rays whose trunk, views and semantic-head gates are clear of 0; K10b on
 rays whose trunk and views gates are clear of 0; the field backward on
@@ -20,7 +25,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (GATE_MARGIN, GRAD_TOL, INPUT_GRAD_MARGIN, K7_TOL, TOL, flip_allowance,
+from chip_smoke import (GATE_MARGIN, GRAD_TOL, INPUT_GRAD_MARGIN, K7_TOL, TOL, bf16_columns,
+                        bf16_stored, flip_allowance, k5_bf16_over,
                         plain_k3_with_gates, plain_k6_with_gates, plain_k10b_with_gates)
 from nerfsos_torch.core.sampling import points_along_rays
 from nerfsos_torch.models.fields import MipNeRFField, NeRFField
@@ -1162,3 +1168,111 @@ def test_reverse_ring_follows_a_weight_update(cuda, kernel):
     ring = fr._bwd_ring(field, cuda)[0]
     assert not torch.equal(ring, before)
     assert torch.equal(ring, fr.pack_bwd_ring(field)[0])
+
+
+# ----------------------------------------------------------------- the bf16 modes
+
+BF16 = torch.bfloat16
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("n,s", [(1000, 64), (37, 8), (3, 130)])
+def test_k1_bf16_matches_plain(cuda, shape, n, s):
+    field = _field(cuda, 0, **shape)
+    odv, z = _inputs(cuda, n, s, 1)
+    od = odv[:, :6].contiguous()
+    before = (fr.fused_coarse_weights.launches, fr.fused_coarse_weights.launches_bf16)
+    with torch.no_grad():
+        got = fr.fused_coarse_weights(field, od, z, BF16)
+        again = fr.fused_coarse_weights(field, od, z, BF16)
+        want = fr.coarse_weights_plain(field, od, z, BF16)
+    torch.cuda.synchronize()
+    assert (fr.fused_coarse_weights.launches,
+            fr.fused_coarse_weights.launches_bf16) == (before[0], before[1] + 2)
+    assert torch.equal(got, again)
+    bf16_columns("K1", got, want)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("sem,coord", [(True, True), (False, False)])
+@pytest.mark.parametrize("n,s", [(1000, 192), (37, 16)])
+def test_k2_bf16_matches_plain(cuda, shape, sem, coord, n, s):
+    field = _field(cuda, 1, use_semantics=sem, sem_with_coord=coord, sem_dim=2, **shape)
+    odv, z = _inputs(cuda, n, s, 2)
+    with torch.no_grad():
+        got = fr.fused_render(field, odv, z, BF16)
+        again = fr.fused_render(field, odv, z, BF16)
+        want = fr.render_plain(field, odv, z, BF16)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    for i, part in enumerate(("maps", "weights")):
+        bf16_columns(f"K2 {part}", got[i], want[i])
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("coord,noise", [(True, 1.0), (False, 0.0)])
+@pytest.mark.parametrize("n,s", [(41, 37), (300, 64), (77, 192)])
+def test_k4_bf16_matches_plain(cuda, shape, coord, noise, n, s):
+    """K4's bf16 mode on ragged tiles: maps and weights within bf16_columns'
+    bounds, sem_in (bf16) within bf16_stored's, two calls bitwise equal."""
+    field = _field(cuda, 5, use_semantics=True, sem_with_coord=coord, sem_dim=2, **shape)
+    odv, z = _inputs(cuda, n, s, 8)
+    kw = dict(noise_std=noise, seed=24680, save_semin=True)
+    with torch.no_grad():
+        got = fr.train_render(field, odv, z, compute_dtype=BF16, **kw)
+        again = fr.train_render(field, odv, z, compute_dtype=BF16, **kw)
+        want = fr.train_render_plain(field, odv, z, compute_dtype=BF16, **kw)
+    torch.cuda.synchronize()
+    assert got[2].dtype == BF16 and all(torch.equal(a, b) for a, b in zip(got, again))
+    for i, part in enumerate(("maps", "weights")):
+        bf16_columns(f"K4 {part}", got[i], want[i])
+    bf16_stored("K4 sem_in", got[2], want[2])
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("coord", [True, False])
+@pytest.mark.parametrize("n,s", [(37, 192), (4096, 64)])
+def test_k5_bf16_matches_plain(cuda, shape, coord, n, s):
+    """K5's bf16 mode on K4's bf16 sem_in (points near a semantic-head gate
+    given weight 0): each leaf within k5_bf16_over's bound of the bf16 plain
+    version (against the fp32 one on the same sem_in), two calls bitwise
+    equal."""
+    field = _field(cuda, 6, use_semantics=True, sem_with_coord=coord, sem_dim=2, **shape)
+    odv, z = _inputs(cuda, n, s, 9)
+    with torch.no_grad():
+        _, w, sem_in = fr.train_render(field, odv, z, noise_std=1.0, seed=7, save_semin=True,
+                                       compute_dtype=BF16)
+    w = _gate_clear_weights(field, sem_in.float(), w)
+    dmaps = torch.from_numpy(np.random.default_rng(10).normal(size=(n, 7)).astype(np.float32))
+    dmaps = dmaps.to(cuda)
+    before = fr.frozen_sem_grads.launches_bf16
+    got = fr.frozen_sem_grads(field, sem_in, w, dmaps, BF16)
+    again = fr.frozen_sem_grads(field, sem_in, w, dmaps, BF16)
+    want = fr.frozen_sem_grads_plain(field, sem_in, w, dmaps, BF16)
+    want32 = fr.frozen_sem_grads_plain(field, sem_in.float(), w, dmaps)
+    torch.cuda.synchronize()
+    assert fr.frozen_sem_grads.launches_bf16 == before + 2
+    for name, ref in want.items():
+        assert torch.equal(got[name], again[name]), name
+        assert torch.isfinite(got[name]).all(), name
+    assert k5_bf16_over(got, want, want32, {k: 0.0 for k in want})[0] <= 1.0
+
+
+def test_k4_k5_bf16_through_autograd(cuda):
+    """fused_train_render at bf16 with ``frozen``: K4's and K5's bf16 modes
+    (their bf16 counters, not the fp32 ones), semantic-head leaves only; K5
+    refuses an fp32 sem_in at bf16."""
+    field = _field(cuda, 7, use_semantics=True, sem_with_coord=True, sem_dim=2, **SHAPES[0])
+    odv, z = _inputs(cuda, 300, 64, 11)
+    counts = [(f.launches, f.launches_bf16) for f in (fr.train_render, fr.frozen_sem_grads)]
+    maps, w = fr.fused_train_render(field, odv, z, noise_std=1.0, seed=3, frozen=True,
+                                    compute_dtype=BF16)
+    (maps[:, 5:] * torch.arange(1.0, 3.0, device=cuda)).sum().backward()
+    torch.cuda.synchronize()
+    assert [(f.launches, f.launches_bf16) for f in (fr.train_render, fr.frozen_sem_grads)] == [
+        (c[0], c[1] + 1) for c in counts]
+    for name, p in field.named_parameters():
+        assert (p.grad is not None) == (name in fr._SEM_NAMES), name
+    _, w, sem_in = fr.train_render(field, odv, z, noise_std=0.0, seed=0, save_semin=True)
+    with pytest.raises(ValueError):
+        fr.frozen_sem_grads(field, sem_in, w, torch.zeros(300, 7, device=cuda), BF16)

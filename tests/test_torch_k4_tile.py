@@ -12,6 +12,9 @@ the mip composite) against their plain versions and the JAX package's
 kernels.
 """
 import contextlib
+import itertools
+import os
+import re
 
 import jax
 import jax.numpy as jnp
@@ -19,10 +22,12 @@ import numpy as np
 import pytest
 import torch
 
+from nerfsos_torch import _build
 from nerfsos_torch.engines.checkpoint import state_dict_from_jax_params
 from nerfsos_torch.models import mip as tmip
 from nerfsos_torch.models.fields import MipNeRFField, NeRFField
 from nerfsos_torch.models.mip import cast_rays
+from nerfsos_torch.models.mlp import round_bf16
 from nerfsos_torch.models.nerf import NeRFConfig as TorchConfig
 from nerfsos_torch.models.nerf import NeRFNet as TorchNet
 from nerfsos_torch.ops import fused_field as ff
@@ -1086,3 +1091,206 @@ def test_field_and_k10b_wrappers_launch_the_tile_with_a_ring(monkeypatch):
     with pytest.raises(NotImplementedError):
         fr.mip_train_render_grads(mfield, odvr.to("meta"), z.to("meta"), dmaps, dw,
                                   noise_std=1.0, seed=5)
+
+
+# ----------------------------------------------------------------- the bf16 mode
+
+
+def _desc_lbo_sbo():
+    """The LBO and SBO (bytes) that ``csrc/wgmma.cuh`` b_desc encodes for every
+    B operand: the two k halves' and the 8-output groups' distances."""
+    src = open(os.path.join(_build.CSRC_DIR, "wgmma.cuh")).read()
+    body = src[src.index("uint64_t b_desc("):]
+    lbo, sbo = map(int, re.findall(r"\((\d+) >> 4\)", body[:body.index("}")]))
+    return lbo, sbo
+
+
+def _bf16_slices(words, n):
+    """The bf16 k16 slices in ``words`` (float32 words, two bf16 each) read
+    through the K-major no-swizzle addressing of a wgmma B operand at the
+    descriptor's LBO and SBO (core matrices of 8 outputs x 16 B):
+    ``[slices, 16 k positions, n]`` in float32."""
+    lbo, sbo = _desc_lbo_sbo()
+    b16 = words.view(torch.bfloat16).to(torch.float32).view(-1, 16 * n)
+    q, col = torch.meshgrid(torch.arange(16), torch.arange(n), indexing="ij")
+    return b16[:, ((col // 8) * sbo + (q // 8) * lbo + (col % 8) * 16 + (q % 8) * 2) // 2]
+
+
+def _bf16_ring_layer(ring, rd, fdesc, i):
+    n, k16 = rd.ncols[i], -(-fdesc.layer[i].k // 16)
+    return _bf16_slices(ring[rd.off[i]:rd.off[i] + k16 * 8 * n], n)
+
+
+@pytest.mark.parametrize("depth,sem,coord,width", [(4, True, True, 32), (5, True, False, 16),
+                                                   (8, True, True, 256), (6, False, False, 64)])
+def test_bf16_ring_reads_back_through_the_descriptor(depth, sem, coord, width):
+    """pack_ring's bf16 layout (K1, K2 and K4 at bf16): each layer's k16
+    slices, read through the B operand's core matrices at b_desc's LBO/SBO
+    with k position q holding row bf16_k_rows()[q] of its 16, are the
+    layer's W^T rounded to bf16, its padding rows and columns zero; the
+    descriptor's offsets and stage size count float32 words (a slice is
+    16 x N bf16, 8 N words: ring_producer's 32 N bytes), and the plan fits."""
+    torch.manual_seed(depth + width)
+    field = NeRFField(net_depth=depth, net_width=width, multires=10 if width == 256 else 4,
+                      multires_views=4 if width == 256 else 2, use_semantics=sem,
+                      sem_with_coord=coord, sem_dim=2)
+    _, fdesc = fr.pack_field(field)
+    ring, rd = fr.pack_ring(field, bf16=True)
+    assert ring.dtype == torch.float32
+    rows = fr.bf16_k_rows()
+    assert sorted(rows.tolist()) == list(range(16))
+    off = 0
+    for i in fr.ring_layers(field):
+        lin, segs = fr._field_layers(field)[i]
+        n = rd.ncols[i]
+        assert rd.off[i] == off and n == fr._ring_n(lin.out_features)
+        k16 = -(-fdesc.layer[i].k // 16)
+        off += k16 * 8 * n
+        b = _bf16_ring_layer(ring, rd, fdesc, i)  # [s, q, n]
+        wt = torch.zeros(16 * k16, n)
+        wt[rows[None, :] + 16 * torch.arange(k16)[:, None]] = b
+        want, r, rp = torch.zeros(16 * k16, n), 0, 0
+        for k in segs:
+            want[rp:rp + k, :lin.out_features] = lin.weight.detach().t()[r:r + k]
+            r, rp = r + k, rp + fr._pad8(k)
+        assert torch.equal(wt, want.to(torch.bfloat16).to(torch.float32)), i
+    assert off == ring.numel()
+    assert rd.stage_floats == 8 * max(rd.ncols[i] for i in fr.ring_layers(field))
+    for S in (64, 192):
+        rpc, rds = fr._wg_plan(fdesc, rd, S)
+        assert 2 <= rds.stages <= 4 and fr._wg_smem(fdesc, rds, rpc, S) <= fr._MAX_SMEM
+
+
+@pytest.mark.parametrize("width,segs", [(32, [32, 32]), (16, [27, 16]), (64, [40])])
+def test_bf16_k_step_model_is_the_bf16_product(width, segs):
+    """wg_layer's bf16 k step modelled per thread: for 8-row steps 2 ks + h
+    a thread loads rows t and t + 4 of points m0 and m0 + 8 as in fp32 mode,
+    and bf16x2 puts row t in the lower half (k position 2 t + 8 h) and row
+    t + 4 in the upper (2 t + 1 + 8 h); with B read from the bf16 ring
+    through the descriptor, the summed wgmma products are the product of the
+    bf16-rounded inputs and W^T in float32 (models/mlp.bf16_operands_dense
+    without the bias), a k16 step past the segments' last 8 rows reading
+    zeros."""
+    torch.manual_seed(width)
+    K = sum(segs)
+    lin = torch.nn.Linear(K, width)
+    x = torch.randn(64, K) * 3.0
+    # the segments' rows, each padded to 8 (the tile's emb/h rows), then to 16
+    kpad = sum(fr._pad8(k) for k in segs)
+    xs = torch.zeros(64, -(-kpad // 16) * 16)
+    wt, r, rp = torch.zeros(xs.shape[1], width), 0, 0
+    for k in segs:
+        xs[:, rp:rp + k] = x[:, r:r + k]
+        wt[rp:rp + k] = lin.weight.detach().t()[r:r + k]
+        r, rp = r + k, rp + fr._pad8(k)
+    b16 = _bf16_slices(fr._ring_bf16_wt(wt), fr._ring_n(width))[:, :, :width]
+    acc = torch.zeros(64, width)
+    for ks in range(xs.shape[1] // 16):
+        a = torch.zeros(64, 16)
+        for h, t, e in itertools.product(range(2), range(4), range(2)):
+            row = 8 * (2 * ks + h) + t + 4 * e  # the fp32 load of 8-row step 2 ks + h
+            a[:, 2 * t + e + 8 * h] = xs[:, row] if row < kpad else 0.0
+        acc += round_bf16(a) @ b16[ks]
+    want = round_bf16(x) @ round_bf16(lin.weight.detach()).t()
+    assert float((acc - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+def test_pack_frozen_bf16_reads_back_w0():
+    """pack_frozen's bf16 ring: each rank's k16 slices read through the B
+    operand's core matrices at b_desc's LBO/SBO (wgmma.cuh b_offset_bf16)
+    are W0^T rounded to bf16 (k position q: row 16 s + q), zero-padded; the
+    descriptor counts k16 slices (C padded to 64) and sets bf16; the plan
+    fits in less shared memory than fp32's (half-size tiles and stages)."""
+    torch.manual_seed(2)
+    field = NeRFField(net_depth=8, net_width=256, multires=10, multires_views=4,
+                      use_semantics=True, sem_with_coord=True, sem_dim=2)
+    lin0 = field.mlp.semantic_linear[0]
+    C, hidden, cols = lin0.in_features, lin0.out_features, fr._SEM_COLS
+    buf, d = fr.pack_frozen(field, bf16=True)
+    assert (d.bf16, d.C, d.kslices) == (1, 319, 20)
+    want = torch.zeros(16 * d.kslices, fr._SEM_RANKS * cols)
+    want[:C, :hidden] = round_bf16(lin0.weight.detach().t())
+    per = d.kslices * 8 * cols  # words a rank
+    for rank in range(fr._SEM_RANKS):
+        b = _bf16_slices(buf[rank * per:(rank + 1) * per], cols)  # [s, q, n]
+        assert torch.equal(b.reshape(-1, cols), want[:, cols * rank:cols * (rank + 1)]), rank
+    assert d.b0 == fr._SEM_RANKS * per and torch.equal(buf[d.b0:d.w1], lin0.bias.detach())
+    plan = fr._frozen_plan(d)
+    f32 = fr._frozen_plan(fr.pack_frozen(field)[1])
+    assert fr._frozen_smem(plan) <= fr._MAX_SMEM and fr._frozen_smem(plan) < fr._frozen_smem(f32)
+
+
+def _emulate_k5_bf16(field, sem_in, w, dmaps):
+    """K5's bf16 mode in its dataflow, from pack_frozen's bf16 buffer alone:
+    per cluster rank and 64-point tile, F's product with A = the tile's bf16
+    rows in its point order (k position q of k16 slice s: column 16 s + q)
+    and B = the ring's slices through the descriptor; s_act, d_sem_c and ds
+    rounded to bf16 as frozen_sem_kernel's epilogue does, ds written into
+    dW0's B buffer (point p at k position p % 16 of slice p // 16,
+    b_offset_bf16) and read back through the descriptor by D against
+    xt_fragment_bf16's X^T (points 16 kk + q); the small sums."""
+    buf, d = fr.pack_frozen(field, bf16=True)
+    P, C = sem_in.shape
+    S, sem, hidden, cols = w.shape[1], d.sem_dim, d.hidden, fr._SEM_COLS
+    b0 = buf[d.b0:d.b0 + hidden]
+    w1 = round_bf16(buf[d.w1:d.w1 + sem * hidden].view(sem, hidden))
+    m = torch.arange(64)
+    pi = 4 * (m % 8) + m // 16 + 32 * ((m % 16) // 8)  # F: accumulator row m -> point
+    k, n = torch.meshgrid(torch.arange(16), torch.arange(cols), indexing="ij")
+    boff = (n // 8) * 128 + (k // 8) * 64 + (n % 8) * 8 + k % 8  # b_offset_bf16
+    flat = torch.zeros(d.grad_size)
+    dw0 = flat[d.gw0:d.gb0].view(C, hidden)
+    dw1 = flat[d.gw1:d.gb1].view(hidden, sem)
+    per = d.kslices * 8 * cols
+    for rank in range(fr._SEM_RANKS):
+        n0 = cols * rank
+        nb = min(cols, hidden - n0)
+        if nb <= 0:
+            continue
+        wring = _bf16_slices(buf[rank * per:(rank + 1) * per], cols)  # [s, q, n]
+        acc0 = torch.zeros(16 * d.kslices, cols)
+        for q0 in range(0, P, 64):
+            np_ = min(64, P - q0)
+            x = torch.zeros(64, 16 * d.kslices)
+            x[:np_, :C] = sem_in[q0:q0 + np_].to(torch.float32)
+            s_pre = sum(x[pi][:, 16 * s:16 * s + 16] @ wring[s] for s in range(d.kslices))
+            s_pre[:, :nb] += b0[n0:n0 + nb]
+            s_act = round_bf16(torch.relu(s_pre))
+            q = (q0 + pi).clamp(max=P - 1)
+            dsem = torch.where((pi < np_)[:, None], dmaps[q // S, 5:] * w.reshape(-1)[q, None],
+                               0.0)
+            dc = round_bf16(dsem)
+            w1b = torch.zeros(sem, cols)
+            w1b[:, :nb] = w1[:, n0:n0 + nb]
+            ds = round_bf16(torch.where(s_act > 0, dc @ w1b, 0.0))  # [row, output]
+            dsbuf = torch.zeros(4, 512)
+            dsbuf[(pi // 16)[:, None], ((n[0] // 8) * 128 + ((pi % 16) // 8)[:, None] * 64
+                                        + (n[0] % 8) * 8 + (pi % 8)[:, None])] = ds
+            for kk in range(4):
+                acc0 += x[16 * kk:16 * kk + 16].t() @ dsbuf[kk][boff]
+            dw1[n0:n0 + nb] += (s_act.t() @ dc)[:nb]
+            flat[d.gb0 + n0:d.gb0 + n0 + nb] += ds.sum(0)[:nb]
+            if rank == 0:
+                flat[d.gb1:d.grad_size] += dsem.sum(0)
+        dw0[:, n0:n0 + nb] = acc0[:C, :nb]
+    return fr.unpack_frozen(field, flat, d)
+
+
+@pytest.mark.parametrize("depth,coord,width", [(5, True, 16), (8, True, 64), (6, False, 32)])
+def test_k5_bf16_dataflow_matches_plain(depth, coord, width):
+    """_emulate_k5_bf16 (the bf16 ring, the tiles' point orders, ds in the
+    bf16 B layout, the gradient layout) reproduces frozen_sem_grads_plain at
+    bf16 to float32 summation order (1e-5 of each leaf's max)."""
+    torch.manual_seed(depth)
+    field = NeRFField(net_depth=depth, net_width=width, multires=4, multires_views=2,
+                      use_semantics=True, sem_with_coord=coord, sem_dim=3)
+    odv, z = (torch.from_numpy(a) for a in _inputs(2, 8))
+    _, w, sem_in = fr.train_render_plain(field, odv, z, noise_std=0.0, seed=0, save_semin=True,
+                                         compute_dtype=torch.bfloat16)
+    dmaps = torch.randn(R, 8)
+    got = _emulate_k5_bf16(field, sem_in, w, dmaps)
+    want = fr.frozen_sem_grads_plain(field, sem_in, w, dmaps, torch.bfloat16)
+    for k in want:
+        assert got[k].shape == want[k].shape, k
+        scale = float(want[k].abs().max()) + 1e-12
+        assert float((got[k] - want[k]).abs().max()) <= 1e-5 * scale, k
