@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch port on one CUDA card: kernels, the --eval path,
 the train path, the SOS finetune (frozen, full, random negatives), the
-bf16 modes (--compute_dtype bfloat16: --eval and the frozen finetune),
+bf16 modes (--compute_dtype bfloat16: --eval, the RGB pretrain and both
+finetunes),
 mip-NeRF (--mipnerf train and --eval), then the field kernels (--eval_vol
 and nets with no fine pass, --N_importance 0).
 
@@ -11,7 +12,7 @@ Phases (one line each; any failure raises and the exit code is nonzero):
   1. build the kernels from nerfsos_torch/csrc with nvcc, one compiler per
      source at once (seconds), and print ptxas's register/spill report,
      with [reverse_ptxas]: the reverse-sweep kernel's line in each of its
-     four modes, and any wgmma warning (C75xx: serialised wgmma); any such
+     six modes (four fp32, two bf16), and any wgmma warning (C75xx: serialised wgmma); any such
      warning (K1/K2/K4/K9's kernel, K3's, K6's and K10b's forward, the field
      forwards' kernel, K5's, the reverse sweep's bwd_layer and wgrad
      products) fails the run;
@@ -172,7 +173,20 @@ Phases (one line each; any failure raises and the exit code is nonzero):
      [train] run's fp32 checkpoint with a bf16 DINO (as [sos]); and
      [sos_bf16_step] the bf16 and the fp32 frozen step in turns, with
      peak memory, then the bf16 step split into its parts as [sos_step]'s
-     ([sos_bf16_step_part], [sos_bf16_step_split]).
+     ([sos_bf16_step_part], [sos_bf16_step_split]); then [K3_bf16] (1024
+     rays at S = 64 and 192, 4096 at 192) and [K6_bf16] (32768 rays at S =
+     192 and 64, the semantic head) against their bf16 plain versions (maps
+     and weights: bf16_columns; leaves: bf16_leaves), beside the readings
+     of an fp32 control and a fault (the gated cotangents left unrounded),
+     two calls bitwise, timed beside the same call's fp32 kernel and the
+     bf16 bound; [train_bf16] the [train] pretrain at bf16 (K3's bf16 mode
+     twice a step, the last step's calls vs plain); [train_step_bf16] the
+     1024- and 16384-ray RGB steps at bf16 and fp32 in turns; and after
+     [sos_full_step], [sos_full_bf16] 5 full finetune steps at bf16 (K6's
+     bf16 mode twice a step) and [sos_full_bf16_step] the full step at
+     bf16 and fp32 in turns, with peak memory. [fp32_train_kernels] (after
+     the K3 phases): digests of K3's and K6's fp32 outputs on seeded
+     inputs, held to FP32_FINGERPRINTS (the parent tree's), and their times.
 The last lines are the card, one JSON object with the kernels' numbers, and
 ``{"ok": true, "device": {...}}``. Scratch files go to build/chip_smoke/.
 """
@@ -630,11 +644,12 @@ def check_k6(what: str, got, want, slack, terms, kernel: str = "K6") -> dict:
 
 
 # forward_split's ptxas lines: the forward kernel's on K4's tile (K3, K6,
-# K10b: train_forward_wg_kernel's (mode, input mode); K8f, K8c:
+# K10b: train_forward_wg_kernel's (mode, input mode, kBf16); K8f, K8c:
 # field_bwd_forward_kernel's (kSem, kInGrad)) and the reverse-sweep
-# kernel's (kSem, kInGrad)
-SPLIT_PTXAS = {"K3": ((1, 0), (0, 0)), "K6": ((2, 0), (1, 0)), "K10b": ((2, 2), (0, 0)),
-               "K8f": ((1, 0), (1, 0)), "K8c": ((1, 1), (1, 1))}
+# kernel's (kSem, kInGrad, kBf16)
+SPLIT_PTXAS = {"K3": ((1, 0, 0), (0, 0, 0)), "K6": ((2, 0, 0), (1, 0, 0)),
+               "K10b": ((2, 2, 0), (0, 0, 0)), "K8f": ((1, 0), (1, 0, 0)),
+               "K8c": ((1, 1), (1, 1, 0))}
 
 
 def forward_split(run, kernel: str) -> dict:
@@ -681,10 +696,10 @@ def kernel_vs_plain_k3(fr, R: int, S: int, use_semantics: bool, white_bkgd: bool
     ms = cuda_ms(lambda: fr.fused_rgb_train_grads(field, odv, z, gt, **kw))
     plain_ms = cuda_ms(lambda: fr.rgb_train_grads_plain(field, odv, z, gt, **kw), reps=3)
     split = forward_split(lambda: fr.fused_rgb_train_grads(field, odv, z, gt, **kw), "K3")
-    flops = R * S * field_flops(field, "k3")
-    bound = bound_ms(4 * (R * (9 + 3 + 2 * S + got[1].shape[1]) + 2 * n_params(field)), flops)
+    bound = k3_cost(field, R, S, got[1].shape[1])
     phase("K3", rays=R, samples=S, semantics=use_semantics, white_bkgd=white_bkgd, **close,
-          deterministic=True, ms=ms, plain_ms=plain_ms, **split, tflop=flops / 1e12, **bound)
+          deterministic=True, ms=ms, plain_ms=plain_ms, **split,
+          tflop=R * S * field_flops(field, "k3") / 1e12, **bound)
     return {"max_abs_err": close["max_abs_err"], "ms": ms, "plain_ms": plain_ms, **bound,
             "library_ms": None}
 
@@ -1041,6 +1056,150 @@ def train_step_timings(fr) -> None:
                   ms=cuda_ms(pack, reps=5, warmup=1))
 
 
+TRAIN_COUNTS_BF16 = {"K1": "fused_coarse_weights", "K2": "fused_render",
+                     "K3": "fused_rgb_train_grads"}
+
+
+def train_bf16_path(fr) -> dict:
+    """[train_bf16]: the [train] phase's pretrain (its flags and views,
+    TRAIN_STEPS steps from the seed) at ``--compute_dtype bfloat16``: K3 in
+    its bf16 mode twice a step and the final eval through K1's and K2's
+    (bf16 counts set to 0 just before, no fp32 launch), the loss finite and
+    falling, the last step's two K3 calls against their bf16 plain versions
+    (bf16_columns, bf16_leaves) and a second call, bitwise."""
+    bf = torch.bfloat16
+    for n in TRAIN_COUNTS_BF16.values():
+        getattr(fr, n).launches_bf16 = 0
+    args = train_args(os.path.join(WORK, "data"), os.path.join(WORK, "logs"), TRAIN_STEPS,
+                      "smoke_train_bf16", extra=["--compute_dtype", "bfloat16"])
+    rec = run_train(fr, args, TRAIN_COUNTS_BF16, ["fused_rgb_train_grads"], TRAIN_STEPS - 1)
+    launches = {k: getattr(fr, n).launches_bf16 for k, n in TRAIN_COUNTS_BF16.items()}
+    losses = rec["losses"]
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    phase("train_bf16", steps=len(losses), seconds_incl_load_and_eval=rec["seconds"],
+          launches=launches, fp32_launches=rec["launches"], loss_first10=first,
+          loss_last10=last)
+    if (any(rec["launches"].values()) or launches["K3"] != 2 * TRAIN_STEPS
+            or min(launches["K1"], launches["K2"]) < 1):
+        raise SystemExit(f"the bf16 train run did not go through the bf16 kernels alone: bf16 "
+                         f"{launches}, fp32 {rec['launches']}")
+    if not (all(math.isfinite(x) for x in losses) and last < first):
+        raise SystemExit(f"bf16 train loss not finite or not falling: {losses}")
+    log = check_final_eval(os.path.join(WORK, "logs", "smoke_train_bf16"))
+    checks = {}
+    for name, ((field, odv, z, gt), kw, got) in zip(
+            ("coarse", "fine"), rec["calls"]["fused_rgb_train_grads"]):
+        want = fr.rgb_train_grads_plain(field, odv, z, gt, **kw)
+        witness = bf16_witness(lambda f: fr.rgb_train_grads_plain(f, odv, z, gt, **kw)[0],
+                               field, want[0])
+        again = fr.fused_rgb_train_grads(field, odv, z, gt, **kw)
+        if kw["compute_dtype"] != bf or not all(torch.equal(got[0][k], again[0][k])
+                                                for k in got[0]):
+            raise SystemExit(f"K3 at step {TRAIN_STEPS - 1} ({name}): not bf16, or two calls "
+                             "differ")
+        checks[name] = {"maps": bf16_columns(f"K3 maps ({name})", got[1], want[1]),
+                        "leaves": bf16_leaves(f"K3 ({name})", got[0], want[0], witness)}
+    phase("train_bf16_eval", psnr=log["total_psnr"], ssim=log["total_ssim"],
+          last_step=checks)
+    return launches
+
+
+def train_step_bf16_timings(fr) -> None:
+    """[train_step_bf16]: the flagship RGB step (grads and Adam, CUDA events)
+    at bf16 and at fp32 in turns (fp32, bf16, bf16, fp32) on the same
+    weights and batch, at 1024 rays (30 steps a turn) and 16384 rays (5),
+    with peak memory and each dtype's bound."""
+    from nerfsos_torch import run_nerf
+    from nerfsos_torch.data.datasets import RayDataset
+    from nerfsos_torch.engines import state as state_lib
+    from nerfsos_torch.engines.trainer import make_rgb_train_step
+
+    dataset = RayDataset(os.path.join(WORK, "data"), split="train")
+    near, far = dataset.near_far()
+    steps, nets = {}, {}
+    for name, dtype in (("fp32", "float32"), ("bf16", "bfloat16")):
+        args = train_args(os.path.join(WORK, "data"), os.path.join(WORK, "logs"), 0,
+                          extra=["--compute_dtype", dtype])
+        nets[name], _ = run_nerf.build_model(args, torch.device("cuda"))
+        opt = state_lib.make_optimizer(nets[name].parameters(), args.lrate)
+        steps[name] = make_rgb_train_step(
+            nets[name], opt, state_lib.exp_decay_schedule(args.lrate, args.decay_rate,
+                                                          args.decay_step * 1000),
+            near, far, args.rgb_w, args.seed)
+    per_ray = (args.N_samples * field_flops(nets["fp32"].nerf, "k3")
+               + (args.N_samples + args.N_importance) * field_flops(nets["fp32"].nerf_fine, "k3"))
+    for R, reps in ((1024, 30), (16384, 5)):
+        b = dataset.sample_batch(np.random.default_rng(R), R)
+        batch = {k: torch.as_tensor(b[k], device="cuda") for k in ("rays", "target")}
+        for name in ("fp32", "bf16", "bf16", "fp32"):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            ms = cuda_ms(lambda: steps[name](batch, 0), reps=reps, warmup=1)
+            rate = BF16_FLOP_S if name == "bf16" else FP32_MMA_FLOP_S
+            phase("train_step_bf16", compute_dtype=name, rays=R, steps=reps, ms=ms,
+                  rays_per_s=R / ms * 1e3, bound_ms=R * per_ray / rate * 1e3,
+                  peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+
+
+# The fp32 K3's and K6's outputs on fixed seeded inputs, as sha256 digests
+# (fp32_train_kernels), from this tree's parent on an NVIDIA H100 80GB HBM3
+# (nerfsos_torch/tools/fp32_train_kernels.py --root on the parent): the
+# bf16 modes share their kernels' sources, and their fp32 instantiations
+# must not move by a bit.
+FP32_FINGERPRINTS = {"K3": "806e3addc6b0784a", "K6": "099605c1c82da1b0"}
+
+
+def fp32_train_kernels(fr) -> dict:
+    """[fp32_train_kernels]: sha256 digests (16 hex digits) of K3's fp32
+    grads, maps and weights (1024 rays x 192 samples) and of K6's fp32 grads
+    (4096 x 64, the semantic head, seeded cotangents) on seeded
+    flagship-width inputs, held equal to FP32_FINGERPRINTS where it is set;
+    and the fp32 K3's ms at 1024 rays (S = 64, 192) and K6's at 32768 rays
+    (S = 192, 64), for an A/B against another tree in one call."""
+    import hashlib
+
+    def digest(tensors):
+        h = hashlib.sha256()
+        for t in tensors:
+            h.update(t.detach().float().contiguous().cpu().numpy().tobytes())
+        return h.hexdigest()[:16]
+
+    k3_field = seeded_field(2, net_depth=8, net_width=256, multires=10, multires_views=4,
+                            use_semantics=True, sem_dim=2)
+    k6_field = seeded_field(3, net_depth=8, net_width=256, multires=10, multires_views=4,
+                            use_semantics=True, sem_with_coord=True, sem_dim=2)
+    out, ms = {}, {}
+    for S in (192, 64):
+        odv, z = ray_inputs(1024, S, seed=5)
+        gt = torch.from_numpy(np.random.default_rng(6).uniform(0, 1, (1024, 3)).astype(np.float32))
+        kw = dict(white_bkgd=False, noise_std=1.0, seed=424242)
+        g, maps, w = fr.fused_rgb_train_grads(k3_field, odv, z, gt.cuda(), **kw)
+        if S == 192:
+            out["K3"] = digest([g[k] for k in sorted(g)] + [maps, w])
+        ms[f"K3 1024x{S}"] = cuda_ms(lambda: fr.fused_rgb_train_grads(k3_field, odv, z,
+                                                                      gt.cuda(), **kw))
+    for R, S in ((4096, 64), (32768, 192), (32768, 64)):
+        odv, z = ray_inputs(R, S, seed=7)
+        rng = np.random.default_rng(8)
+        dmaps = torch.from_numpy(rng.normal(size=(R, 7)).astype(np.float32)).cuda()
+        dw = torch.from_numpy(rng.normal(size=(R, S)).astype(np.float32)).cuda()
+        kw = dict(noise_std=1.0, seed=535353)
+        if R == 4096:
+            g = fr.train_render_grads(k6_field, odv, z, dmaps, dw, **kw)
+            out["K6"] = digest([g[k] for k in sorted(g)])
+        else:
+            ms[f"K6 {R}x{S}"] = cuda_ms(lambda: fr.train_render_grads(k6_field, odv, z, dmaps,
+                                                                       dw, **kw), reps=3)
+        del odv, z, dmaps, dw
+    torch.cuda.empty_cache()
+    phase("fp32_train_kernels", **out, expected=FP32_FINGERPRINTS, ms=ms)
+    if FP32_FINGERPRINTS is not None and out != FP32_FINGERPRINTS:
+        raise SystemExit(f"the fp32 K3/K6 outputs moved from the parent's: {out}, expected "
+                         f"{FP32_FINGERPRINTS}")
+    return out
+
+
 # ----------------------------------------------------------------- the SOS finetune
 
 
@@ -1180,12 +1339,14 @@ def k5_cost(field, R: int, S: int) -> dict:
                     R * S * (4 * C * H + 4 * H * sem))
 
 
-def k6_cost(field, R: int, S: int) -> dict:
-    """K6's bound: field_flops 'k6' a point; the rays, z, the maps' and the
-    weights' cotangents and the weights read once, the gradients written."""
+def k6_cost(field, R: int, S: int, bf16: bool = False) -> dict:
+    """K6's bound: field_flops 'k6' a point (``bf16``: at the bf16 rate);
+    the rays, z, the maps' and the weights' cotangents and the weights read
+    once, the gradients written."""
     nmaps = 5 + (field.mlp.semantic_linear[2].out_features if field.mlp.use_semantics else 0)
-    return bound_ms(4 * (R * (9 + 2 * S + nmaps) + 2 * n_params(field)),
-                    R * S * field_flops(field, "k6"))
+    nbytes = 4 * (R * (9 + 2 * S + nmaps) + 2 * n_params(field))
+    flops = R * S * field_flops(field, "k6")
+    return bf16_bound(nbytes, flops) if bf16 else bound_ms(nbytes, flops)
 
 
 def k7_ops(S: int, heads: int = 2) -> dict:
@@ -1433,6 +1594,157 @@ def k5_bf16_over(got, want, want32, allow):
     return over, err
 
 
+# K3's and K6's bf16 gradient leaves. At the flagship width the bf16 sweep's
+# leaves are chaotic in the last bit: a bf16 rounding that fp32 summation
+# order flips (one bf16 step of an activation) moves the later layers'
+# inputs by a fraction of a bf16 step, which flips further roundings and
+# relu gates, so two fp32 orders of the same bf16 semantics part like two
+# draws. The plain version with every bias scaled by 1 +- 2^-22 (below fp32
+# summation noise) moves its leaves about as far as the kernel lies from
+# it, and BF16_SHARE of the bf16-vs-fp32 distance, K5's bound, refused the
+# kernel at the flagship width. So each leaf is held to BF16_WITNESS times
+# that witness (bf16_witness: the larger of the two perturbations'
+# distances) or GRAD_TOL of its max, whichever is larger (bf16_leaves;
+# read 0.12 to 0.22 at [K3_bf16]'s and [K6_bf16]'s sizes, H100); and, where a
+# call is one wave of chunks, the kernel's reverse sweep is held to
+# BF16_PLANES_TOL of each leaf's max against the plain sweep
+# (fused_render.bf16_sweep) run on the activations and cotangents the
+# kernel's own storing forward left in the workspace (bf16_planes): the
+# gates are then the same on both sides, and what still differs is the
+# sweep's own bf16 roundings (dhv, d_feat, ds, each dpre) flipped by fp32
+# order and carried on linearly. That moved a leaf by 3.0e-4 to 3.4e-4 of
+# its max at 49152 and 65536 flagship points ([K6_bf16_planes]) and by
+# 1.18e-3 at 4096 (K6, 256 x 16, tests/test_torch_cuda.py; H100);
+# BF16_PLANES_TOL is 3.4x the largest. The fp32 kernel's leaves in the bf16
+# kernel's place read 14 to 85 times GRAD_TOL there.
+BF16_WITNESS = 10
+BF16_PLANES_TOL = 4e-3
+
+
+def bf16_witness(run, field, want) -> dict:
+    """Per leaf: the largest distance of ``run(f)`` (a bf16 plain version's
+    grads on field ``f``) from ``want`` (its grads on ``field``) over ``f`` =
+    ``field`` with every bias scaled by 1 + 2^-22 and by 1 - 2^-22."""
+    out = {k: 0.0 for k in want}
+    for sign in (1.0, -1.0):
+        f = copy.deepcopy(field)
+        with torch.no_grad():
+            for m in f.modules():
+                if isinstance(m, torch.nn.Linear):
+                    m.bias.mul_(1.0 + sign * 2.0**-22)
+        g = run(f)
+        for k, ref in want.items():
+            out[k] = max(out[k], max_err(g[k], ref))
+        del f, g
+    return out
+
+
+def bf16_leaves(what: str, got, want, witness, controls=None) -> dict:
+    """K3's and K6's bf16 gradient leaves against their bf16 plain version
+    (``want``): the worst leaf's error over the larger of BF16_WITNESS times
+    its ``witness`` (bf16_witness) and GRAD_TOL of its max; raises when it
+    is over 1. The same reading on each of ``controls`` (name -> grads)
+    is returned beside it."""
+    def reading(g):
+        over = 0.0
+        for k, ref in want.items():
+            bound = max(BF16_WITNESS * witness[k], GRAD_TOL * float(ref.abs().max()))
+            over = max(over, max_err(g[k], ref) / max(bound, 1e-30))
+        return over
+
+    over = reading(got)
+    finite = all(bool(torch.isfinite(t).all()) for t in got.values())
+    if not (set(got) == set(want) and finite and over <= 1.0):
+        raise SystemExit(f"{what} at bf16 disagrees with its bf16 plain version: worst leaf at "
+                         f"{over} of its bound, finite={finite}")
+    out = {"max_abs_err": max(max_err(got[k], ref) for k, ref in want.items()),
+           "leaf_err_over_bound": over}
+    for name, g in (controls or {}).items():
+        out[f"{name}_over_bound"] = reading(g)
+    return out
+
+
+def workspace_planes(fr, launch, R: int, S: int, p: int, n: int) -> torch.Tensor:
+    """Rows 0 .. n - 1 of workspace plane ``p`` of every point of a K3 or K6
+    call (``launch``: fused_render._train_grads_launch's workspace, desc,
+    grid, group) of one wave, ``[R * S, n]`` in point order: CTA b's slice
+    holds chunk b, sub j its points 64 j .. 64 j + 63 ([row][kLd])."""
+    work, d, grid, group = launch
+    rpc = d.rays_per_chunk
+    if group != 1 or -(-R // rpc) > grid:
+        raise SystemExit(f"workspace_planes needs one wave of chunks: R={R}, S={S}, "
+                         f"{-(-R // rpc)} chunks, grid {grid}, group {group}")
+    out = []
+    for b in range(-(-R // rpc)):
+        nq = min(rpc, R - b * rpc) * S
+        nsub, rows = -(-nq // 64), d.rows[p]
+        at = b * d.ws_size + d.plane[p]
+        t = work[at:at + nsub * rows * fr._KLD].view(nsub, rows, fr._KLD)[:, :n, :64]
+        out.append(t.permute(0, 2, 1).reshape(nsub * 64, n)[:nq])
+    return torch.cat(out)
+
+
+def bf16_planes(fr, what: str, field, got, launch, odv, z, sem: bool, controls=None) -> dict:
+    """What the bf16 storing forward of a one-wave K3 or K6 call (``launch``:
+    fused_render._train_grads_launch's workspace, on rays ``odv``, ``z``)
+    left in the workspace, and what its reverse sweep made of it: each
+    stored activation plane (the point and view PE, every trunk layer's
+    output, feat, hv and with ``sem`` (K6 with the head) s_act) against the
+    plain bf16 forward's (fused_render.bf16_train_forward) within
+    bf16_stored's bounds, and the kernel's leaves ``got`` against
+    fused_render.bf16_sweep run on the planes (the same gates) within
+    BF16_PLANES_TOL of each leaf's max; raises. With the
+    sweep's reading on each of ``controls`` (name -> a function of the
+    sweep, returning grads, e.g. the sweep under a fault)."""
+    mlp = field.mlp
+    R, S = z.shape
+
+    def plane(p, n):
+        return workspace_planes(fr, launch, R, S, p, n)
+
+    e = plane(fr._P_EMB, mlp.pts_linears[0].in_features)
+    dv = plane(fr._P_DEMB, mlp.views_linears[0].in_features - mlp.feature_linear.out_features)
+    acts = [plane(fr._P_ACT0 + i, lin.out_features) for i, lin in enumerate(mlp.pts_linears)]
+    feat = plane(fr._P_FEAT, mlp.feature_linear.out_features)
+    hv = plane(fr._P_HV, mlp.views_linears[0].out_features)
+    s_act = plane(fr._P_ACT0 + mlp.depth, mlp.semantic_linear[0].out_features) if sem else None
+    with torch.no_grad():
+        f = fr.bf16_train_forward(field, odv, z)
+    stored = {"emb": (e, f["e"]), "view PE": (dv, f["dv"]), "feat": (feat, f["feat"]),
+              "hv": (hv, f["hv"]), **{f"act{i}": (a, b) for i, (a, b) in
+                                      enumerate(zip(acts, f["acts"]))}}
+    if sem:
+        stored["s_act"] = (s_act, f["s_act"])
+    readings = {k: bf16_stored(f"{what} stored {k}", *v) for k, v in stored.items()}
+    args = (e, dv, acts, feat, hv, s_act, plane(fr._P_DRGB, 3), plane(fr._P_DSIG, 1),
+            plane(fr._P_ACT0 + mlp.depth + 1, mlp.semantic_linear[2].out_features)
+            if sem else None)
+
+    def sweep():
+        grads = {n: torch.zeros_like(p) for n, p in field.named_parameters()}
+        with torch.no_grad():
+            fr.bf16_sweep(field, grads, *args)
+        return grads
+
+    want = sweep()
+
+    def reading(g):
+        return max(max_err(g[k], ref) / max(BF16_PLANES_TOL * float(ref.abs().max()), 1e-30)
+                   for k, ref in want.items())
+
+    over = reading(got)
+    if not over <= 1.0:
+        raise SystemExit(f"{what}: the bf16 reverse sweep disagrees with the plain sweep on its "
+                         f"own forward's planes: worst leaf at {over} of BF16_PLANES_TOL")
+    out = {"stored_steps_over_bound": max(r["max_steps"] for r in readings.values())
+           / BF16_STORED_STEPS,
+           "stored_differing_share": max(r["differing_share"] for r in readings.values()),
+           "planes_leaf_err_over_tol": over}
+    for name, fn in (controls or {}).items():
+        out[f"planes_{name}_over_tol"] = reading(fn(sweep))
+    return out
+
+
 def bf16_bound(bytes_moved: float, flops: float) -> dict:
     return bound_ms(bytes_moved, flops, BF16_FLOP_S)
 
@@ -1568,6 +1880,152 @@ def kernel_vs_plain_bf16(fr) -> dict:
                          "library_ms": None}
         del sem_in, w
         torch.cuda.empty_cache()
+    return out
+
+
+def unrounded_gate_fault(fr, run):
+    """``run()`` with the bf16 plain versions' relu-gated cotangents (dhv,
+    ds, each trunk dpre) left unrounded: the fault of a reverse sweep whose
+    gate epilogue skips its bf16 rounding."""
+    saved = fr._bf16_gate
+    fr._bf16_gate = lambda act, d: torch.where(act > 0, d, torch.zeros_like(d))
+    try:
+        return run()
+    finally:
+        fr._bf16_gate = saved
+
+
+def k3_cost(field, R: int, S: int, maps_cols: int, bf16: bool = False) -> dict:
+    """K3's bound: field_flops 'k3' a point at the 3xTF32 (``bf16``: bf16)
+    rate; the rays, z, gt, maps and weights and the weights and gradients
+    moved once (bytes)."""
+    nbytes = 4 * (R * (9 + 3 + 2 * S + maps_cols) + 2 * n_params(field))
+    flops = R * S * field_flops(field, "k3")
+    return bf16_bound(nbytes, flops) if bf16 else bound_ms(nbytes, flops)
+
+
+K3_BF16_SHAPES = ((1024, 64), (4096, 192), (1024, 192))  # (rays, samples); the last one's
+K6_BF16_SHAPES = ((32768, 192), (32768, 64))             # numbers go to the kernels line
+BF16_PLANES_SHAPES = ((1024, 64), (256, 192))  # one wave of chunks: the planes check
+
+
+def kernel_vs_plain_k3_k6_bf16(fr) -> dict:
+    """[K3_bf16] at 1024 rays (S = 64, 192) and 4096 rays (S = 192) and
+    [K6_bf16] at the full SOS step's 32768 rays (S = 192, 64, the semantic
+    head), each at the flagship width: the bf16 mode against its bf16 plain
+    version (maps and weights: bf16_columns; every leaf: bf16_leaves, its
+    bf16_witness beside), with the readings of two controls (the fp32
+    kernel's output on the same inputs, and the bf16 plain version with its
+    gated cotangents left unrounded, unrounded_gate_fault), two calls
+    bitwise equal, timed beside the same call's fp32 kernel and the bf16
+    bound (products at BF16_FLOP_S); then [K3_bf16_planes] and
+    [K6_bf16_planes] at BF16_PLANES_SHAPES (bf16_planes, with the same two
+    controls on the sweep)."""
+    bf = torch.bfloat16
+    out = {}
+    k3_field = seeded_field(2, net_depth=8, net_width=256, multires=10, multires_views=4,
+                            use_semantics=True, sem_dim=2)
+    k6_field = seeded_field(3, net_depth=8, net_width=256, multires=10, multires_views=4,
+                            use_semantics=True, sem_with_coord=True, sem_dim=2)
+
+    def k3_inputs(R, S):
+        odv, z = ray_inputs(R, S, seed=2 + S)
+        gt = torch.from_numpy(np.random.default_rng(3).uniform(0, 1, (R, 3)).astype(np.float32))
+        return odv, z, gt.cuda()
+
+    def k6_inputs(R, S):
+        odv, z = ray_inputs(R, S, seed=40 + S)
+        rng = np.random.default_rng(S)
+        dmaps = torch.from_numpy(rng.normal(size=(R, 7)).astype(np.float32)).cuda()
+        return odv, z, dmaps, torch.from_numpy(rng.normal(size=(R, S)).astype(np.float32)).cuda()
+
+    kw3 = dict(white_bkgd=False, noise_std=1.0, seed=1234567)
+    kw6 = dict(noise_std=1.0, seed=13579)
+    field = k3_field
+    for R, S in K3_BF16_SHAPES:
+        odv, z, gt = k3_inputs(R, S)
+
+        def plain(f, dtype=bf):
+            return fr.rgb_train_grads_plain(f, odv, z, gt, compute_dtype=dtype, **kw3)
+
+        got = fr.fused_rgb_train_grads(field, odv, z, gt, compute_dtype=bf, **kw3)
+        again = fr.fused_rgb_train_grads(field, odv, z, gt, compute_dtype=bf, **kw3)
+        control = fr.fused_rgb_train_grads(field, odv, z, gt, **kw3)
+        want = plain(field)
+        witness = bf16_witness(lambda f: plain(f)[0], field, want[0])
+        fault = unrounded_gate_fault(fr, lambda: plain(field)[0])
+        torch.cuda.synchronize()
+        if not (all(torch.equal(got[0][k], again[0][k]) for k in got[0])
+                and torch.equal(got[1], again[1]) and torch.equal(got[2], again[2])):
+            raise SystemExit(f"K3 at bf16 (R={R} S={S}): two calls differ")
+        close = {"maps": bf16_columns(f"K3 maps (R={R} S={S})", got[1], want[1], control[1]),
+                 "weights": bf16_columns(f"K3 weights (R={R} S={S})", got[2], want[2],
+                                         control[2]),
+                 "leaves": bf16_leaves(f"K3 (R={R} S={S})", got[0], want[0], witness,
+                                       {"control": control[0], "fault": fault})}
+        del control, want, fault
+        ms = cuda_ms(lambda: fr.fused_rgb_train_grads(field, odv, z, gt, compute_dtype=bf, **kw3))
+        ms32 = cuda_ms(lambda: fr.fused_rgb_train_grads(field, odv, z, gt, **kw3))
+        plain_ms = cuda_ms(lambda: plain(field), reps=3)
+        bound = k3_cost(field, R, S, got[1].shape[1], bf16=True)
+        phase("K3_bf16", rays=R, samples=S, **close, deterministic=True, ms=ms, fp32_ms=ms32,
+              plain_ms=plain_ms, **bound, forward_ptxas=repr(FWD_PTXAS.get((1, 0, 1))),
+              reverse_ptxas=repr(REV_PTXAS.get((0, 0, 1))))
+        out["K3"] = {"max_abs_err": max(close["maps"]["max_abs_err"],
+                                        close["weights"]["max_abs_err"],
+                                        close["leaves"]["max_abs_err"]),
+                     "ms": ms, "plain_ms": plain_ms, **bound, "library_ms": None}
+    field = k6_field
+    for R, S in K6_BF16_SHAPES:
+        args = (field, *k6_inputs(R, S))
+
+        def plain(f, dtype=bf):
+            return fr.train_render_grads_plain(f, *args[1:], compute_dtype=dtype, **kw6)
+
+        got = fr.train_render_grads(*args, compute_dtype=bf, **kw6)
+        again = fr.train_render_grads(*args, compute_dtype=bf, **kw6)
+        control = fr.train_render_grads(*args, **kw6)
+        want = plain(field)
+        witness = bf16_witness(plain, field, want)
+        fault = unrounded_gate_fault(fr, lambda: plain(field))
+        torch.cuda.synchronize()
+        if not all(torch.equal(got[k], again[k]) for k in got):
+            raise SystemExit(f"K6 at bf16 (S={S}): two calls differ")
+        close = bf16_leaves(f"K6 (S={S})", got, want, witness,
+                            {"control": control, "fault": fault})
+        del control, want, fault
+        ms = cuda_ms(lambda: fr.train_render_grads(*args, compute_dtype=bf, **kw6), reps=3)
+        ms32 = cuda_ms(lambda: fr.train_render_grads(*args, **kw6), reps=3)
+        plain_ms = cuda_ms(lambda: plain(field), reps=1, warmup=1)
+        bound = k6_cost(field, R, S, bf16=True)
+        phase("K6_bf16", rays=R, samples=S, **close, deterministic=True, ms=ms, fp32_ms=ms32,
+              plain_ms=plain_ms, **bound, forward_ptxas=repr(FWD_PTXAS.get((2, 0, 1))),
+              reverse_ptxas=repr(REV_PTXAS.get((1, 0, 1))))
+        if (R, S) == K6_BF16_SHAPES[0]:
+            out["K6"] = {"max_abs_err": close["max_abs_err"], "ms": ms, "plain_ms": plain_ms,
+                         **bound, "library_ms": None}
+        del args
+        torch.cuda.empty_cache()
+    for R, S in BF16_PLANES_SHAPES:
+        for name, field in (("K3", k3_field), ("K6", k6_field)):
+            if name == "K3":
+                odv, z, gt = k3_inputs(R, S)
+                flat, *_, launch = fr._train_grads_launch(field, odv, z, gt, None, bf16=True,
+                                                         **kw3)
+                got = fr.unpack_grads(field, flat)
+                control = fr.fused_rgb_train_grads(field, odv, z, gt, **kw3)[0]
+            else:
+                odv, z, dmaps, dw = k6_inputs(R, S)
+                flat, *_, launch = fr._train_grads_launch(field, odv, z, dmaps, dw, bf16=True,
+                                                         white_bkgd=None, **kw6)
+                got = fr.unpack_grads(field, flat, True)
+                control = fr.train_render_grads(field, odv, z, dmaps, dw, **kw6)
+            close = bf16_planes(fr, f"{name} (R={R} S={S})", field, got, launch, odv, z,
+                                name == "K6",
+                                {"control": lambda sweep: control,
+                                 "fault": lambda sweep: unrounded_gate_fault(fr, sweep)})
+            phase(f"{name}_bf16_planes", rays=R, samples=S, **close)
+            del launch
     return out
 
 
@@ -1745,10 +2203,12 @@ def sos_bf16_path(fr, fc) -> dict:
     return {"launches": launches, "rec": rec, "args": args}
 
 
-def sos_bf16_step_timings(f32_run, bf16_run) -> None:
-    """[sos_bf16_step]: the frozen 32768-ray SOS step at bf16 beside the same
-    call's fp32 frozen step, in turns (fp32, bf16, bf16, fp32), each on the
-    same batch, ms from CUDA events and peak memory."""
+def sos_bf16_step_timings(f32_run, bf16_run, name: str = "sos_bf16_step", reps: int = 3) -> None:
+    """[sos_bf16_step] (``name``): the frozen 32768-ray SOS step at bf16
+    beside the same call's fp32 frozen step ([sos_full_bf16_step]: the full
+    step, both from their runs), in turns (fp32, bf16, bf16, fp32), each on
+    the same batch, ``reps`` steps a turn, ms from CUDA events and peak
+    memory."""
     from nerfsos_torch.data.datasets import PatchDataset
     from nerfsos_torch.engines import sos
 
@@ -1759,15 +2219,15 @@ def sos_bf16_step_timings(f32_run, bf16_run) -> None:
     device = next(bf16_run["rec"]["objects"][0].parameters()).device
     batch = {k: torch.as_tensor(b[k], device=device) for k in ("rays", "target")}
     steps = {}
-    for name, run in (("fp32", f32_run), ("bf16", bf16_run)):
+    for dtype, run in (("fp32", f32_run), ("bf16", bf16_run)):
         net, a, kw = run["rec"]["objects"]
-        steps[name] = sos.make_sos_train_step(net, *a, **kw)
-    for name in ("fp32", "bf16", "bf16", "fp32"):
+        steps[dtype] = sos.make_sos_train_step(net, *a, **kw)
+    for dtype in ("fp32", "bf16", "bf16", "fp32"):
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        ms = cuda_ms(lambda: steps[name](batch, 0), reps=3, warmup=1)
-        phase("sos_bf16_step", compute_dtype=name, rays=batch["target"].shape[0], ms=ms,
+        ms = cuda_ms(lambda: steps[dtype](batch, 0), reps=reps, warmup=1)
+        phase(name, compute_dtype=dtype, rays=batch["target"].shape[0], steps=reps, ms=ms,
               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
 
 
@@ -2049,14 +2509,18 @@ def kernel_vs_plain_k7(fc, calls) -> dict:
 MODE_STEPS = 5
 
 
-def sos_mode_path(fr, fc, mode: str) -> dict:
+def sos_mode_path(fr, fc, mode: str, bf16: bool = False) -> dict:
     """[sos_full] (the flagship finetune flags without --fix_backbone: the
     whole network trains, the train render's backward is K6) or
     [sos_randneg] (with --rand_neg: each head's geometry loss is two
     single-head means, K7a + K7b forward and K7c backward), MODE_STEPS steps
     from the [train] run's last.ckpt. Every kernel count is set to 0 just
     before and read just after; the last step's K6 (or K7b/K7c) calls are
-    kept and held against their plain versions."""
+    kept and held against their plain versions. ``bf16`` ([sos_full_bf16],
+    the full mode at ``--compute_dtype bfloat16``): the kernels of fused_render
+    count their bf16 launches (their fp32 counts must stay 0), and the last
+    step's K6 calls are held against their bf16 plain versions
+    (bf16_leaves) and a second call, bitwise."""
     from nerfsos_torch import run_nerf
     from nerfsos_torch.engines import checkpoint as ckpt_lib
     from nerfsos_torch.engines import sos
@@ -2065,8 +2529,9 @@ def sos_mode_path(fr, fc, mode: str) -> dict:
     start_state, start_step, _ = ckpt_lib.load_checkpoint(ckpt)
     last, end = start_step + MODE_STEPS - 1, start_step + MODE_STEPS
     full = mode == "full"
-    name = "sos_full" if full else "sos_randneg"
-    args = (sos_args(ckpt, end, "smoke_" + name, drop=("--fix_backbone",)) if full
+    name = ("sos_full" if full else "sos_randneg") + ("_bf16" if bf16 else "")
+    args = (sos_args(ckpt, end, "smoke_" + name, drop=("--fix_backbone",),
+                     extra=("--compute_dtype", "bfloat16") if bf16 else ()) if full
             else sos_args(ckpt, end, "smoke_" + name, extra=("--rand_neg",)))
     counted = {"K1": (fr, "fused_coarse_weights"), "K2": (fr, "fused_render"),
                "K4": (fr, "train_render"), "K5": (fr, "frozen_sem_grads"),
@@ -2076,6 +2541,8 @@ def sos_mode_path(fr, fc, mode: str) -> dict:
                "K7f": (fc, "geo_quad_means"), "K7g": (fc, "geo_quad_grads")}
     for mod, fn in counted.values():
         getattr(mod, fn).launches = 0
+        if hasattr(getattr(mod, fn), "launches_bf16"):
+            getattr(mod, fn).launches_bf16 = 0
     rec = {"metrics": [], "objects": None, "start": None}
     orig = sos.make_sos_train_step
     cap = (Capture(fr, ["train_render_grads"]) if full
@@ -2108,6 +2575,12 @@ def sos_mode_path(fr, fc, mode: str) -> dict:
         sos.make_sos_train_step = orig
         cap.close()
     launches = {k: getattr(mod, fn).launches for k, (mod, fn) in counted.items()}
+    if bf16:
+        fp32_launches = {k: n for k, n in launches.items() if counted[k][0] is fr and n}
+        if fp32_launches:
+            raise SystemExit(f"the bf16 {name} run launched fp32 kernels: {fp32_launches}")
+        launches.update({k: getattr(fr, fn).launches_bf16 for k, (mod, fn) in counted.items()
+                         if mod is fr})
     steps = [s for s, _ in rec["metrics"]]
     metrics = [{k: float(v) for k, v in m.items()} for _, m in rec["metrics"]]
     n = len(steps)
@@ -2160,10 +2633,20 @@ def sos_mode_path(fr, fc, mode: str) -> dict:
         for a, kw, got in calls:
             field, odv, z, dmaps, dweights = a
             part = "coarse" if z.shape[1] == args.N_samples else "fine"
-            close = check_k6(f"step {last}, {part}", got,
-                             *plain_k6_with_gates(field, odv, z, dmaps, dweights, kw))
+            if bf16:
+                again = fr.train_render_grads(*a, **kw)
+                if kw["compute_dtype"] != torch.bfloat16 or not all(
+                        torch.equal(got[k], again[k]) for k in got):
+                    raise SystemExit(f"K6 at step {last} ({part}): not bf16, or two calls "
+                                     "differ")
+                want = fr.train_render_grads_plain(*a, **kw)
+                close = bf16_leaves(f"K6 at step {last} ({part})", got, want, bf16_witness(
+                    lambda f: fr.train_render_grads_plain(f, *a[1:], **kw), field, want))
+            else:
+                close = check_k6(f"step {last}, {part}", got,
+                                 *plain_k6_with_gates(field, odv, z, dmaps, dweights, kw))
             errs[f"K6 {part}"] = close["max_abs_err"]
-            phase("sos_full_k6", step=last, field=part, rays=z.shape[0], samples=z.shape[1],
+            phase(f"{name}_k6", step=last, field=part, rays=z.shape[0], samples=z.shape[1],
                   **close)
     else:
         calls_m, calls_g = cap.calls["geo_single_means"], cap.calls["geo_single_grads"]
@@ -2293,13 +2776,10 @@ def sos_step_timings(fr, fc, sos_run, name: str = "sos_step",
         parts["ViT"] = (cuda_ms(lambda: orig_vit(vit_in[0]), reps=3, warmup=1), None)
         # the forward kernels' weight buffers of both fields, packed again
         # after each Adam step: pack_field's and the ring gathered from it
-        # (pack_ring does both)
-        # (bf16: pack_field's buffer, which holds the biases and the heads
-        # the tile forms in registers, and the bf16 ring)
+        # (pack_ring does both; bf16: the ring in its bf16 layout)
         fields = [fa[0] for fa, _, _ in k4kb.calls["train_render"]]
-        parts["weight packing"] = (cuda_ms(
-            lambda: [(fr.pack_field(f), fr.pack_ring(f, True)) if bf16 else fr.pack_ring(f)
-                     for f in fields], reps=3, warmup=1), None)
+        parts["weight packing"] = (cuda_ms(lambda: [fr.pack_ring(f, bf16) for f in fields],
+                                           reps=3, warmup=1), None)
 
     def app_fwd_bwd():
         coords, feat, c0, c1, sim = app_in[0]
@@ -3227,9 +3707,9 @@ def main() -> int:
         if "Compiling entry function" in line and "frozen_sem_kernelILb1E" in line:
             K5_BF16_PTXAS = entry
         if "Compiling entry function" in line and "train_forward_wg_kernel" in line:
-            # (kLoss 1 or kCotangent 2, kInPoint 0 or kInMip 2)
+            # (kLoss 1 or kCotangent 2, kInPoint 0 or kInMip 2, kBf16)
             mode, kin = line.split("train_forward_wg_kernelILi")[1].split("ELi")[:2]
-            FWD_PTXAS[(int(mode), int(kin[0]))] = "; ".join(
+            FWD_PTXAS[(int(mode), int(kin[0]), int(kin.split("ELb")[1][0]))] = "; ".join(
                 x.replace("ptxas info    :", "").strip() for x in lines[i + 2:i + 4])
         if "Compiling entry function" in line and "field_bwd_forward_kernel" in line:
             sem, ingrad = line.split("field_bwd_forward_kernelILb")[1].split("ELb")[:2]
@@ -3239,9 +3719,9 @@ def main() -> int:
             FIELD_PTXAS[int(line.split("field_wg_kernelILi")[1][0])] = "; ".join(
                 x.replace("ptxas info    :", "").strip() for x in lines[i + 2:i + 4])
         if "Compiling entry function" in line and "train_reverse_kernel" in line:
-            sem, ingrad = line.split("train_reverse_kernelILb")[1].split("ELb")[:2]
+            sem, ingrad, bf16 = line.split("train_reverse_kernelILb")[1].split("ELb")[:3]
             used = next(j for j in range(i, len(lines)) if "Used" in lines[j])
-            REV_PTXAS.setdefault((int(sem[0]), int(ingrad[0])), "; ".join(
+            REV_PTXAS.setdefault((int(sem[0]), int(ingrad[0]), int(bf16[0])), "; ".join(
                 x.replace("ptxas info    :", "").strip() for x in lines[i + 1:used + 1]
                 if "bytes" in x or "Used" in x))
         m = K7_KERNEL.search(line)
@@ -3254,14 +3734,15 @@ def main() -> int:
             serialised.append(line.strip())
     if (K1_PTXAS is None or K4_PTXAS is None or K5_PTXAS is None or K9_PTXAS is None
             or None in (K1_BF16_PTXAS, K4_BF16_PTXAS, K5_BF16_PTXAS)
-            or sorted(FWD_PTXAS) != [(1, 0), (2, 0), (2, 2)] or len(REV_PTXAS) != 4
+            or sorted(FWD_PTXAS) != [(1, 0, 0), (1, 0, 1), (2, 0, 0), (2, 0, 1), (2, 2, 0)]
+            or len(REV_PTXAS) != 6
             or sorted(FIELD_PTXAS) != [3, 4, 5] or len(FIELD_BWD_PTXAS) != 4):
         raise SystemExit("no ptxas report for K1's, K4's and K9's kernel (train_render_wg_kernel "
                          "in its three input modes, K1's and K4's also in the bf16 mode), K5's "
-                         "(frozen_sem_kernel, fp32 and bf16), K3's, K6's and "
+                         "(frozen_sem_kernel, fp32 and bf16), K3's, K6's (both also bf16) and "
                          "K10b's forward (train_forward_wg_kernel), the field forwards' three "
                          "point-list modes (field_wg_kernel), the field backward's forward's "
-                         "four modes (field_bwd_forward_kernel) or the reverse sweep's four "
+                         "four modes (field_bwd_forward_kernel) or the reverse sweep's six "
                          f"modes (train_reverse_kernel): forward {sorted(FWD_PTXAS)}, field "
                          f"{sorted(FIELD_PTXAS)}, field backward {sorted(FIELD_BWD_PTXAS)}")
     # every wgmma kernel keeps its pipeline: K1/K2/K4's, K5's, K3's, K6's,
@@ -3270,7 +3751,7 @@ def main() -> int:
     # and wgrad products (one inlined call site each, no call in the kernel)
     if serialised:
         raise SystemExit(f"ptxas serialised wgmma: {serialised}")
-    phase("reverse_ptxas", modes={f"kSem={k[0]},kInGrad={k[1]}": v
+    phase("reverse_ptxas", modes={f"kSem={k[0]},kInGrad={k[1]},kBf16={k[2]}": v
                                   for k, v in sorted(REV_PTXAS.items())},
           wgmma_warnings=serialised)
     for name, sass in sass_spills.functions(lib_path).items():
@@ -3293,6 +3774,7 @@ def main() -> int:
     kernel_vs_plain_k3(fr, 4096, 192, use_semantics=False, white_bkgd=True)
     kernel_vs_plain_k3(fr, 1024, 64, use_semantics=True, white_bkgd=False)
     kernel_vs_plain_k3(fr, 1024, 192, use_semantics=True, white_bkgd=False)
+    fp32_train_kernels(fr)
     train_launches = train_path(fr)
     resume_path(fr)
     train_step_timings(fr)
@@ -3317,11 +3799,18 @@ def main() -> int:
     sos_bf16 = sos_bf16_path(fr, fc)
     sos_bf16_step_timings(sos_run, sos_bf16)
     torch.cuda.empty_cache()
+    bf16.update(kernel_vs_plain_k3_k6_bf16(fr))
+    train_bf16_launches = train_bf16_path(fr)
+    train_step_bf16_timings(fr)
+    torch.cuda.empty_cache()
     sos_step_timings(fr, fc, sos_bf16, "sos_bf16_step", paths=("kernel",))
     del sos_run["rec"], sos_bf16["rec"]
     torch.cuda.empty_cache()
     full_parts = sos_step_timings(fr, fc, full_run, "sos_full_step", "train_render_grads")
-    del full_run["rec"]
+    torch.cuda.empty_cache()
+    full_bf16 = sos_mode_path(fr, fc, "full", bf16=True)
+    sos_bf16_step_timings(full_run, full_bf16, "sos_full_bf16_step", reps=5)
+    del full_run["rec"], full_bf16["rec"]
     torch.cuda.empty_cache()
     sos_step_timings(fr, fc, rand_run, "sos_randneg_step", parts=False)
     del rand_run["rec"]
@@ -3440,7 +3929,8 @@ def main() -> int:
         {"name": "K11 fused_mip_field_apply", "route": "cuda", "source": tile_src,
          "replaces": f"{field_tpu}:1044", "launches": vol_launches["mip"], **k8["mip"]},
         # the bf16 modes (--compute_dtype bfloat16): launches on the bf16 --eval view
-        # (K1, K2) and the bf16 frozen finetune (K4, K5), each counted from 0
+        # (K1, K2), the bf16 frozen finetune (K4, K5), the bf16 RGB pretrain (K3)
+        # and the bf16 full finetune (K6), each counted from 0
         {"name": "K1 fused_coarse_weights (bf16)", "route": "cuda", "source": tile_src,
          "replaces": "nerfsos_tpu/ops/pallas/fused_render.py:458",
          "launches": eval_bf16_launches["K1"], **bf16["K1"]},
@@ -3453,6 +3943,12 @@ def main() -> int:
         {"name": "K5 frozen_sem_grads (bf16)", "route": "cuda", "source": train_src,
          "replaces": "nerfsos_tpu/ops/pallas/fused_render.py:1207",
          "launches": sos_bf16["launches"]["K5"], **bf16["K5"]},
+        {"name": "K3 fused_rgb_train_grads (bf16)", "route": "cuda", "source": train_src,
+         "replaces": "nerfsos_tpu/ops/pallas/fused_render.py:940",
+         "launches": train_bf16_launches["K3"], **bf16["K3"]},
+        {"name": "K6 train_render_grads (bf16)", "route": "cuda", "source": train_src,
+         "replaces": "nerfsos_tpu/ops/pallas/fused_render.py:940",
+         "launches": full_bf16["launches"]["K6"], **bf16["K6"]},
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

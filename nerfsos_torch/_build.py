@@ -106,9 +106,10 @@ MAX_LAYERS = 16
 
 
 class MLPDesc(ctypes.Structure):
-    """Mirror of ``MLPDesc`` in ``csrc/tile_mlp.cuh`` (``bf16``: the mode of K4's
-    tile that K1, K2 and K4 run at ``--compute_dtype bfloat16``; the K1/K4
-    entry points take their bf16 instantiation when it is set)."""
+    """Mirror of ``MLPDesc`` in ``csrc/tile_mlp.cuh`` (``bf16``: the bf16 mode
+    that K1, K2, K3, K4 and K6 run at ``--compute_dtype bfloat16``; the
+    K1/K4 and K3/K6 entry points take their bf16 instantiations when it is
+    set, the mip and field entry points refuse it)."""
     _fields_ = [("layer", MLPLayer * MAX_LAYERS),
                 ("depth", ctypes.c_int), ("skip", ctypes.c_int),
                 ("hrows", ctypes.c_int), ("emb_dim", ctypes.c_int),
@@ -120,7 +121,9 @@ MAX_PLANES = 10 + MAX_LAYERS
 
 
 class TrainDesc(ctypes.Structure):
-    """Mirror of ``TrainDesc`` in ``csrc/train_sweep.cuh``."""
+    """Mirror of ``TrainDesc`` in ``csrc/train_sweep.cuh`` (``f.bf16`` picks
+    the bf16 mode of K3's and K6's forward and reverse sweep, whose rings
+    are then ``pack_ring``'s and ``pack_bwd_ring``'s bf16 layouts)."""
     _fields_ = [("f", MLPDesc), ("bwd", MLPLayer * MAX_LAYERS),
                 ("gw", ctypes.c_longlong * MAX_LAYERS), ("gb", ctypes.c_longlong * MAX_LAYERS),
                 ("grad_size", ctypes.c_longlong),

@@ -248,12 +248,14 @@ extern "C" int nerf_mip_field(const float* mean, const float* cov, const float* 
 // with dpts (then also ddirs, d->ibwd and iring as ird describes:
 // fused_field.pack_input_ring) the points' and directions' gradients
 // [N, 3]; `group` forward chunks a reverse sweep; see field_grads_launch.
+// It has no bf16 mode: d->f.bf16 is refused.
 extern "C" int nerf_field_grads(const float* pts, const float* dirs, const float* g,
                                 const float* params, const float* ring, const float* bring,
                                 const float* iring, const TrainDesc* d, const RingDesc* rd,
                                 const RingDesc* brd, const RingDesc* ird, float* partial,
                                 float* workspace, float* grads, float* dpts, float* ddirs, int N,
                                 int grid, int group, void* stream) {
+  if (d->f.bf16) return (int)cudaErrorInvalidValue;  // no bf16 mode (K8c, K8f)
   const cudaStream_t st = (cudaStream_t)stream;
   const bool sem = d->f.sem_dim > 0;
   if (dpts != nullptr) {

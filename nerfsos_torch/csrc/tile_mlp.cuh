@@ -34,8 +34,9 @@ struct MLPDesc {
   int demb_dim;        // 3 + 6 * multires_views
   int sem_dim;         // 0 without the semantic head
   int sem_with_coord;
-  int bf16;            // 1: the bf16 mode of K4's tile (K1, K2, K4 at --compute_dtype
-                       //   bfloat16), the ring in pack_ring's bf16 layout
+  int bf16;            // 1: the bf16 mode (--compute_dtype bfloat16) of K4's tile (K1,
+                       //   K2, K4) and of K3's and K6's kernels, the rings in
+                       //   pack_ring's and pack_bwd_ring's bf16 layouts
 };
 
 namespace {

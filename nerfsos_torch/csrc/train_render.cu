@@ -181,6 +181,20 @@
 // backward (~3.8 MFLOP a flagship point); the extra planes (s_act, d_sem,
 // ds: 264 rows a tile) add ~8% to the per-CTA workspace.
 //
+// K3 and K6 at --compute_dtype bfloat16 (_train_render_bwd_kernel with
+// compute_dtype bfloat16) run a bf16 mode of both kernels
+// (train_forward_wg_kernel<kMode, kInPoint, true>, train_reverse_kernel<kSem,
+// false, true>): the storing forward is K4's bf16 tile that also rounds each
+// stored activation to bf16 (emb, the view PE, every trunk layer's output,
+// feat, hv, s_act: JAX's bf16 values, in the fp32 planes); the composite and
+// its cotangent stay fp32 (P_DRGB, P_DSIG and d_sem unrounded, as JAX's bias
+// sums read them); the reverse sweep's dX and dW products run wgmma
+// m64nNk16 bf16 on operands rounded as they are loaded (the input-gradient
+// matrices in pack_bwd_ring's bf16 layout), and bwd_layer's epilogue rounds
+// dhv, d_feat, ds and each trunk dpre to bf16 after its gate, so the next
+// product and its bias sum see JAX's rounded values. The partials are summed
+// in CTA order, as in fp32 mode.
+//
 // mip-NeRF's three kernels:
 //   K9   fused_mip_render_planar -> _mip_render_kernel: the train forward
 //        without noise on odvr [R, 10] (o, d, viewdirs, radius) and
@@ -439,8 +453,11 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 // dmaps = aux and dweights). K10b (kCotangent, kIn kInMip): odv is odvr
 // [R, 10] and z fenceposts [R, S + 1], the tiles start from the intervals'
 // Gaussians and their integrated PE, and the composite is the mip one.
+// kBf16 (K3, K6 at --compute_dtype bfloat16; kInPoint): the tile's bf16
+// storing mode (the ring in pack_ring's bf16 layout, the workspace planes
+// holding the bf16 activations); the composite is fp32 mode's.
 // train_reverse_kernel then sweeps the slice.
-template <int kMode, int kIn = kInPoint>
+template <int kMode, int kIn = kInPoint, bool kBf16 = false>
 __global__ void __launch_bounds__(kWgThreads, 1)
     train_forward_wg_kernel(const float* __restrict__ odv, const float* __restrict__ z,
                             const float* __restrict__ aux, const float* __restrict__ dweights,
@@ -460,15 +477,14 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   const int ntiles = (nq + kWgTile - 1) / kWgTile, nsub = (nq + kPts - 1) / kPts;
   if (wave < group) zero_cotangent_padding<kMode>(ws, d, S);
   __syncthreads();
-  if (!wg_consumer(ring, d.f, rd, cta.rg, ntiles)) return;
+  if (!wg_consumer<kBf16>(ring, d.f, rd, cta.rg, ntiles)) return;
   float* mine = cta.tiles + (threadIdx.x >> 7) * cta.per_wg;
   float* strip = cta.strip;
   const float* zc = z + (size_t)r0 * (kMip ? S + 1 : S);
   int pos = 0;
   for (int tile = 0; tile < ntiles; ++tile)
-    pos = wg_forward_tile<true, kMode == kCotangent, kIn>(odv, zc, r0, S, nq, tile, params, d,
-                                                          rd, cta.rg, pos, mine, strip, nullptr,
-                                                          0, ws);
+    pos = wg_forward_tile<true, kMode == kCotangent, kIn, kBf16>(
+        odv, zc, r0, S, nq, tile, params, d, rd, cta.rg, pos, mine, strip, nullptr, 0, ws);
   asm volatile("bar.sync 3, %0;\n" ::"n"(kWgConsumers) : "memory");  // the strip is whole
   composite_chunk<kMode, kMip>(odv, zc, aux, dweights, d, ws, strip, maps, weights, r0, nr, S,
                                nsub, seed, noise_std, white_bkgd);
@@ -1169,8 +1185,10 @@ namespace {
 // the slice's planes (group_desc), then one reverse-sweep kernel over the
 // group's chunks (its input-gradient products' matrices from the backward
 // ring bring as brd describes); then the partials are summed into grads
-// [d->grad_size]. Returns the first CUDA error of the launches.
-template <int kMode, bool kSem, int kIn = kInPoint>
+// [d->grad_size]. kBf16: both kernels' bf16 modes (K3, K6 at
+// --compute_dtype bfloat16; the rings in their bf16 layouts). Returns the
+// first CUDA error of the launches.
+template <int kMode, bool kSem, int kIn = kInPoint, bool kBf16 = false>
 int train_grads(const float* odv, const float* z, const float* aux, const float* dweights,
                 const float* params, const float* ring, const float* bring,
                 const TrainDesc* d, const RingDesc* rd, const RingDesc* brd, float* maps,
@@ -1178,20 +1196,20 @@ int train_grads(const float* odv, const float* z, const float* aux, const float*
                 int grid, int group, unsigned seed, float noise_std, int white_bkgd,
                 cudaStream_t st) {
   const int fwd_smem = wg_smem(d, rd, S);
-  cudaError_t err = cudaFuncSetAttribute(train_forward_wg_kernel<kMode, kIn>,
+  cudaError_t err = cudaFuncSetAttribute(train_forward_wg_kernel<kMode, kIn, kBf16>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, fwd_smem);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(train_reverse_kernel<kSem>,
+    err = cudaFuncSetAttribute(train_reverse_kernel<kSem, false, kBf16>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, kReverseSmem);
   if (err != cudaSuccess) return (int)err;
   const long long nchunks = (R + d->rays_per_chunk - 1) / d->rays_per_chunk;
   for (int wave = 0; (long long)wave * group * grid < nchunks; ++wave) {
     for (int j = 0; j < group && (long long)(wave * group + j) * grid < nchunks; ++j) {
-      train_forward_wg_kernel<kMode, kIn><<<grid, kWgThreads, fwd_smem, st>>>(
+      train_forward_wg_kernel<kMode, kIn, kBf16><<<grid, kWgThreads, fwd_smem, st>>>(
           odv, z, aux, dweights, params, ring, group_desc(*d, j, S), *rd, maps, weights,
           workspace, R, S, wave * group + j, group, seed, noise_std, white_bkgd);
     }
-    train_reverse_kernel<kSem><<<grid, kThreads, kReverseSmem, st>>>(
+    train_reverse_kernel<kSem, false, kBf16><<<grid, kThreads, kReverseSmem, st>>>(
         bring, nullptr, *d, *brd, RingDesc{}, partial, workspace, R, S, wave, group, nullptr,
         nullptr);
     err = cudaGetLastError();
@@ -1205,7 +1223,8 @@ int train_grads(const float* odv, const float* z, const float* aux, const float*
 
 // K3: the RGB train pass, the forward's weights from ring (ops/fused_render
 // pack_ring) as rd describes, the reverse sweep's from bring (pack_bwd_ring)
-// as brd describes; see train_grads.
+// as brd describes; see train_grads. The bf16 mode when d->f.bf16 (both
+// rings in their bf16 layouts).
 extern "C" int nerf_rgb_train_grads(const float* odv, const float* z, const float* gt,
                                     const float* params, const float* ring, const float* bring,
                                     const TrainDesc* d, const RingDesc* rd, const RingDesc* brd,
@@ -1213,16 +1232,22 @@ extern "C" int nerf_rgb_train_grads(const float* odv, const float* z, const floa
                                     float* grads, int R, int S, int grid, int group,
                                     unsigned seed, float noise_std, int white_bkgd,
                                     void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (d->f.bf16)
+    return train_grads<kLoss, false, kInPoint, true>(odv, z, gt, nullptr, params, ring, bring, d,
+                                                     rd, brd, maps, weights, partial, workspace,
+                                                     grads, R, S, grid, group, seed, noise_std,
+                                                     white_bkgd, st);
   return train_grads<kLoss, false>(odv, z, gt, nullptr, params, ring, bring, d, rd, brd, maps,
                                    weights, partial, workspace, grads, R, S, grid, group, seed,
-                                   noise_std, white_bkgd, (cudaStream_t)stream);
+                                   noise_std, white_bkgd, st);
 }
 
 // K6: the train render's backward from the maps' cotangent dmaps [R, 5 + sem]
 // and the weights' dweights [R, S] (null: zero); d describes the semantic
 // head's planes and gradients when d->f.sem_dim > 0; the forward's weights
 // from ring as rd describes, the reverse sweep's from bring as brd
-// describes; see train_grads.
+// describes; see train_grads. The bf16 mode when d->f.bf16.
 extern "C" int nerf_train_render_grads(const float* odv, const float* z, const float* dmaps,
                                        const float* dweights, const float* params,
                                        const float* ring, const float* bring,
@@ -1231,6 +1256,14 @@ extern "C" int nerf_train_render_grads(const float* odv, const float* z, const f
                                        float* grads, int R, int S, int grid, int group,
                                        unsigned seed, float noise_std, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
+  if (d->f.bf16 && d->f.sem_dim > 0)
+    return train_grads<kCotangent, true, kInPoint, true>(
+        odv, z, dmaps, dweights, params, ring, bring, d, rd, brd, nullptr, nullptr, partial,
+        workspace, grads, R, S, grid, group, seed, noise_std, 0, st);
+  if (d->f.bf16)
+    return train_grads<kCotangent, false, kInPoint, true>(
+        odv, z, dmaps, dweights, params, ring, bring, d, rd, brd, nullptr, nullptr, partial,
+        workspace, grads, R, S, grid, group, seed, noise_std, 0, st);
   if (d->f.sem_dim > 0)
     return train_grads<kCotangent, true>(odv, z, dmaps, dweights, params, ring, bring, d, rd,
                                          brd, nullptr, nullptr, partial, workspace, grads, R, S,
@@ -1246,6 +1279,7 @@ extern "C" int nerf_train_render_grads(const float* odv, const float* z, const f
 // mip mode (the forward on K4's tile with the Gaussian and integrated-PE
 // prologue, its weights from ring as rd describes, the mip composite), the
 // reverse sweep's matrices from bring as brd describes; see train_grads.
+// It has no bf16 mode: d->f.bf16 is refused.
 extern "C" int nerf_mip_train_render_grads(const float* odvr, const float* z, const float* dmaps,
                                            const float* dweights, const float* params,
                                            const float* ring, const float* bring,
@@ -1253,6 +1287,7 @@ extern "C" int nerf_mip_train_render_grads(const float* odvr, const float* z, co
                                            const RingDesc* brd, float* partial, float* workspace,
                                            float* grads, int R, int S, int grid, int group,
                                            unsigned seed, float noise_std, void* stream) {
+  if (d->f.bf16) return (int)cudaErrorInvalidValue;  // no bf16 mode (K10b)
   return train_grads<kCotangent, false, kInMip>(odvr, z, dmaps, dweights, params, ring, bring, d,
                                                 rd, brd, nullptr, nullptr, partial, workspace,
                                                 grads, R, S, grid, group, seed, noise_std, 0,

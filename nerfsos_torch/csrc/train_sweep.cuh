@@ -9,6 +9,10 @@
 // the X and dY rows of each sub through a second ring of bulk copies), the
 // reverse sweep of the field MLP from the per-point cotangents of its
 // outputs, and the CTA-ordered reduction of the partial gradients.
+// K3 and K6 at --compute_dtype bfloat16 run a bf16 mode of both products
+// (wgmma m64nNk16 bf16, the operands rounded to bf16 as they are loaded, the
+// cotangents JAX rounds rounded in bwd_layer's epilogue); the workspace
+// planes stay fp32 and hold the bf16 values the storing forward rounded.
 #pragma once
 
 #include "tile_mlp.cuh"
@@ -55,11 +59,20 @@ struct XSegs {
 // the round's j-th 64-point sub ([8][kLd], as the plane holds them), and in
 // gate slot j that sub's rows 8 s .. 8 s + 7 of the gate plane (when the
 // product has a k-slice for every 8 outputs: the trunk, alpha's slot).
+// The bf16 mode's k step is 16 dY rows: the matrix's k16 slice in bf16 (8 N
+// floats' room), the two 8-row blocks of dY (and of the gate, for output
+// groups 2 s and 2 s + 1) in slots 2 j and 2 j + 1.
 constexpr int kBwdMaxN = 256;
 constexpr int kBwdSlot = 8 * kLd;
-constexpr int kBwdGate = 16 * kBwdMaxN + 4 * kBwdSlot;  // the gate slots' offset
-constexpr int kBwdStageFloats = kBwdGate + 4 * kBwdSlot;
 constexpr int kBwdStages = 4;
+
+template <bool kBf16>
+struct BwdStage {
+  static constexpr int kRows = kBf16 ? 2 : 1;                  // 8-row blocks a k step
+  static constexpr int kMat = (kBf16 ? 8 : 16) * kBwdMaxN;      // the matrix slice's room
+  static constexpr int kGate = kMat + 4 * kRows * kBwdSlot;    // the gate slots' offset
+  static constexpr int kFloats = kGate + 4 * kRows * kBwdSlot;
+};
 // wgrad's ring: kWgrStages stages, each a block of up to 64 rows of one
 // 64-point sub of a plane ([row][kLd], as the plane holds them, one bulk
 // copy a plane it spans); B: a sub's dY rows of a round as the wgmma B
@@ -99,34 +112,46 @@ struct BwdRing {
 // waits on no load of it: an epilogue that loads no gate took K6 at
 // 32768 x 192 from 567 to 528 ms (results wrong; H100,
 // nerfsos_torch/tools/tile_probe.py).
-template <int NP>
-__device__ __forceinline__ int bwd_pieces(const float* __restrict__ src, int N, int nk,
+template <int NP, bool kBf16>
+__device__ __forceinline__ int bwd_pieces(const float* __restrict__ src, int N, int nk8,
                                           int ldn, float* ws, const TrainDesc& d, int p0,
                                           int p1, int out, int gate, int nsub,
-                                          const BwdRing& br, int pos, bool add) {
+                                          const BwdRing& br, int pos, bool add, bool rnd) {
+  using St = BwdStage<kBf16>;
   const int tid = threadIdx.x, wg = tid >> 7, lane = tid & 31, w = (tid >> 5) & 3;
   const int g = lane >> 2, t = lane & 3;
   const int m0 = 16 * w + g;  // the thread's accumulator rows: points m0 and m0 + 8
   const int np = N / NP, per = 4 / np;  // pieces of N; subs a round
+  const int nk = (nk8 + St::kRows - 1) / St::kRows;  // k steps
   const int rounds = (nsub + per - 1) / per, total = rounds * nk, k0 = d.rows[p0];
-  const bool ring_gate = gate >= 0 && nk * 8 >= ldn;
+  const bool ring_gate = gate >= 0 && nk8 * 8 >= ldn;
   auto fill = [&](int f) {  // step f of the call
     const int r = f / nk, s = f - r * nk, at = pos + f, slot = at % kBwdStages;
     while (!mbar_try_wait(br.empty + slot, ((at / kBwdStages) & 1) ^ 1)) {
     }
-    const int nlive = min(per, nsub - r * per), row = 8 * s;
-    const int p = row < k0 ? p0 : p1, rr = row < k0 ? row : row - k0;
-    const bool gr = ring_gate && row < ldn;
-    float* st = br.stages + (size_t)slot * kBwdStageFloats;
-    mbar_expect_tx(br.full + slot, (uint32_t)(N * 64 + nlive * kBwdSlot * (gr ? 8 : 4)));
-    bulk_g2s(st, src + (size_t)s * 16 * N, N * 64, br.full + slot);
-    for (int u = 0; u < nlive; ++u) {
-      const int sub = r * per + u;
-      bulk_g2s(st + 16 * kBwdMaxN + u * kBwdSlot, plane(ws, d, p, sub) + rr * kLd,
-               kBwdSlot * 4, br.full + slot);
-      if (gr)
-        bulk_g2s(st + kBwdGate + u * kBwdSlot, plane(ws, d, gate, sub) + row * kLd,
-                 kBwdSlot * 4, br.full + slot);
+    const int nlive = min(per, nsub - r * per);
+    float* st = br.stages + (size_t)slot * St::kFloats;
+    const uint32_t mat = N * (kBf16 ? 32 : 64);  // bytes of the matrix's k-slice
+    uint32_t bytes = mat;
+    for (int e = 0; e < St::kRows; ++e) {
+      const int row = 8 * (St::kRows * s + e);
+      if (row < 8 * nk8) bytes += nlive * kBwdSlot * ((ring_gate && row < ldn) ? 8 : 4);
+    }
+    mbar_expect_tx(br.full + slot, bytes);
+    bulk_g2s(st, src + (size_t)s * (mat / 4), mat, br.full + slot);
+    for (int e = 0; e < St::kRows; ++e) {
+      const int row = 8 * (St::kRows * s + e);  // the block's first dY row
+      if (row >= 8 * nk8) break;                // the last bf16 step's absent block
+      const int p = row < k0 ? p0 : p1, rr = row < k0 ? row : row - k0;
+      const bool gr = ring_gate && row < ldn;
+      for (int u = 0; u < nlive; ++u) {
+        const int sub = r * per + u, at_u = (St::kRows * u + e) * kBwdSlot;
+        bulk_g2s(st + St::kMat + at_u, plane(ws, d, p, sub) + rr * kLd, kBwdSlot * 4,
+                 br.full + slot);
+        if (gr)
+          bulk_g2s(st + St::kGate + at_u, plane(ws, d, gate, sub) + row * kLd, kBwdSlot * 4,
+                   br.full + slot);
+      }
     }
   };
   if (tid == 0)
@@ -149,30 +174,48 @@ __device__ __forceinline__ int bwd_pieces(const float* __restrict__ src, int N, 
       }
       if (live) {
         // A fragment: a0 (point m0, k t), a1 (m0 + 8, t), a2 (m0, t + 4), a3 (m0 + 8, t + 4),
-        // split as split() does; its registers are rewritten only after the
-        // last step's products are done (wait_group 0)
-        const float* st = br.stages + (size_t)slot * kBwdStageFloats;
-        const float* a = st + 16 * kBwdMaxN + j * kBwdSlot + t * kLd + m0;
-        uint32_t ahi[4], alo[4];
-        split(a[0], ahi[0], alo[0]);
-        split(a[8], ahi[1], alo[1]);
-        split(a[4 * kLd], ahi[2], alo[2]);
-        split(a[4 * kLd + 8], ahi[3], alo[3]);
-        const uint64_t bhi = b_desc(st + n0 * 8), blo = b_desc(st + (N + n0) * 8);
-        wgmma_fence();
-        Wgmma<NP>::mma(acc, alo, bhi);
-        Wgmma<NP>::mma(acc, ahi, blo);
-        Wgmma<NP>::mma(acc, ahi, bhi);
-        wgmma_commit();
-        const int q = s - n0 / 8;  // the output group whose gate rows this step holds
-        if (ring_gate && q >= 0 && q < NP / 8 && 8 * s < ldn) {
-          const float* gt = st + kBwdGate + j * kBwdSlot + 2 * t * kLd + m0;
-          const uint32_t bits = (gt[0] > 0.f) | (gt[kLd] > 0.f) << 1 | (gt[8] > 0.f) << 2 |
-                                (gt[kLd + 8] > 0.f) << 3;
-          if (q < 8) {
-            mlo |= bits << (4 * q);
-          } else {
-            mhi |= bits << (4 * (q - 8));
+        // split as split() does (bf16: the k16 step's rows t, t + 4 of each
+        // 8-row block as bf16x2 pairs, pack_bwd_ring's k order; a block past
+        // the matrix's rows reads 0); its registers are rewritten only after
+        // the last step's products are done (wait_group 0)
+        const float* st = br.stages + (size_t)slot * St::kFloats;
+        const float* a = st + St::kMat + St::kRows * j * kBwdSlot + t * kLd + m0;
+        if constexpr (kBf16) {
+          const bool two = 2 * s + 1 < nk8;
+          const float* a2 = a + kBwdSlot;
+          const uint32_t ab[4] = {bf16x2(a[0], a[4 * kLd]), bf16x2(a[8], a[4 * kLd + 8]),
+                                  two ? bf16x2(a2[0], a2[4 * kLd]) : 0u,
+                                  two ? bf16x2(a2[8], a2[4 * kLd + 8]) : 0u};
+          const uint64_t bd = b_desc(st + n0 * 8);
+          wgmma_fence();
+          WgmmaBf16<NP>::mma(acc, ab, bd);
+          wgmma_commit();
+        } else {
+          uint32_t ahi[4], alo[4];
+          split(a[0], ahi[0], alo[0]);
+          split(a[8], ahi[1], alo[1]);
+          split(a[4 * kLd], ahi[2], alo[2]);
+          split(a[4 * kLd + 8], ahi[3], alo[3]);
+          const uint64_t bhi = b_desc(st + n0 * 8), blo = b_desc(st + (N + n0) * 8);
+          wgmma_fence();
+          Wgmma<NP>::mma(acc, alo, bhi);
+          Wgmma<NP>::mma(acc, ahi, blo);
+          Wgmma<NP>::mma(acc, ahi, bhi);
+          wgmma_commit();
+        }
+#pragma unroll
+        for (int e = 0; e < St::kRows; ++e) {
+          // the output group whose gate rows block e of this step holds
+          const int q = St::kRows * s + e - n0 / 8;
+          if (ring_gate && q >= 0 && q < NP / 8 && 8 * (St::kRows * s + e) < ldn) {
+            const float* gt = st + St::kGate + (St::kRows * j + e) * kBwdSlot + 2 * t * kLd + m0;
+            const uint32_t bits = (gt[0] > 0.f) | (gt[kLd] > 0.f) << 1 | (gt[8] > 0.f) << 2 |
+                                  (gt[kLd + 8] > 0.f) << 3;
+            if (q < 8) {
+              mlo |= bits << (4 * q);
+            } else {
+              mhi |= bits << (4 * (q - 8));
+            }
           }
         }
         wgmma_wait<0>();
@@ -184,8 +227,9 @@ __device__ __forceinline__ int bwd_pieces(const float* __restrict__ src, int N, 
     for (int i = 0; i < NP / 2; ++i) asm volatile("" : "+f"(acc[i])::"memory");
     // accumulator i: point m0 + 8 ((i >> 1) & 1), output n0 + 8 (i >> 2) + 2 t + (i & 1);
     // the epilogue: add adds out's value, then the gate (the ring's
-    // bits, or loaded), then the store of the plane's rows n < ldn (the
-    // matrices' bias is zero)
+    // bits, or loaded), then (bf16 with rnd) the rounding to bf16 of the
+    // cotangent JAX rounds, then the store of the plane's rows n < ldn
+    // (the matrices' bias is zero)
     float* o = plane(ws, d, out, sub) + (size_t)n0 * kLd + m0;
     const float* gp =
         gate >= 0 && !ring_gate ? plane(ws, d, gate, sub) + (size_t)n0 * kLd + m0 : nullptr;
@@ -214,6 +258,10 @@ __device__ __forceinline__ int bwd_pieces(const float* __restrict__ src, int N, 
 #pragma unroll
         for (int e = 0; e < 4; ++e) v[e] = (bits >> e) & 1u ? v[e] : 0.f;
       }
+      if (kBf16 && rnd) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) v[e] = bf16r(v[e]);
+      }
       r0[0] = v[0];
       r1[0] = v[1];
       r0[8] = v[2];
@@ -232,14 +280,20 @@ __device__ __forceinline__ int bwd_pieces(const float* __restrict__ src, int N, 
 // in 3xTF32 (lo x hi, hi x lo, hi x hi), A = a sub's dY from the stage in
 // registers, B = the stage's slice, in pieces of NP = min(N, 128) outputs
 // (64 accumulators a thread under the kernel's 128 registers). add: the
-// product is added to what out holds (before the gate). Returns the ring
-// position after the layer's stages. Inlined into the reverse kernel's one
-// call site, so no call splits a wgmma pipeline (ptxas serialises every
-// wgmma of a function whose pipeline crosses a call, C7510).
+// product is added to what out holds (before the gate). kBf16 (K3, K6 at
+// --compute_dtype bfloat16): the matrix in pack_bwd_ring's bf16 layout, a
+// k step of 16 dY rows rounded to bf16 at the A load (cvt.rn.bf16x2) on
+// one wgmma m64nNPk16 bf16, and with rnd the stored cotangent rounded to
+// bf16 after its gate (JAX's .astype(bf16) of dhv, d_feat, ds and each
+// trunk dpre). Returns the ring position after the layer's stages.
+// Inlined into the reverse kernel's one call site, so no call splits a
+// wgmma pipeline (ptxas serialises every wgmma of a function whose
+// pipeline crosses a call, C7510).
+template <bool kBf16>
 __device__ __forceinline__ int bwd_layer(const float* __restrict__ src, int N, const LayerDesc L,
                                          float* ws, const TrainDesc& d, int p0, int p1, int out,
                                          int gate, int nsub, const BwdRing br, int pos,
-                                         bool add) {
+                                         bool add, bool rnd) {
   // the planes' stores and wgrad's use of the stages before the bulk copies
   asm volatile("fence.proxy.async;\n" ::: "memory");
   __syncthreads();
@@ -247,19 +301,24 @@ __device__ __forceinline__ int bwd_layer(const float* __restrict__ src, int N, c
   switch (N) {
     case 256:
     case 128:
-      pos = bwd_pieces<128>(src, N, nk, ldn, ws, d, p0, p1, out, gate, nsub, br, pos, add);
+      pos = bwd_pieces<128, kBf16>(src, N, nk, ldn, ws, d, p0, p1, out, gate, nsub, br, pos,
+                                   add, rnd);
       break;
     case 64:
-      pos = bwd_pieces<64>(src, N, nk, ldn, ws, d, p0, p1, out, gate, nsub, br, pos, add);
+      pos = bwd_pieces<64, kBf16>(src, N, nk, ldn, ws, d, p0, p1, out, gate, nsub, br, pos,
+                                  add, rnd);
       break;
     case 32:
-      pos = bwd_pieces<32>(src, N, nk, ldn, ws, d, p0, p1, out, gate, nsub, br, pos, add);
+      pos = bwd_pieces<32, kBf16>(src, N, nk, ldn, ws, d, p0, p1, out, gate, nsub, br, pos,
+                                  add, rnd);
       break;
     case 16:
-      pos = bwd_pieces<16>(src, N, nk, ldn, ws, d, p0, p1, out, gate, nsub, br, pos, add);
+      pos = bwd_pieces<16, kBf16>(src, N, nk, ldn, ws, d, p0, p1, out, gate, nsub, br, pos,
+                                  add, rnd);
       break;
     default:
-      pos = bwd_pieces<8>(src, N, nk, ldn, ws, d, p0, p1, out, gate, nsub, br, pos, add);
+      pos = bwd_pieces<8, kBf16>(src, N, nk, ldn, ws, d, p0, p1, out, gate, nsub, br, pos,
+                                 add, rnd);
   }
   __syncthreads();  // out is whole before wgrad or the next product reads it
   return pos;
@@ -332,12 +391,13 @@ __device__ __forceinline__ void split4(float* hi, float* lo, float a, float b, f
 // wgrad at a piece width NP (see wgrad). Sub by sub of a round: the CTA
 // converts the sub's dY rows from their stages into B (and, in a piece's
 // first round, db's sums), then warpgroup w multiplies its X block's stage
-// into its accumulators, 8 k steps of three wgmma; after the round's last
-// sub each warpgroup adds its 64 x NP block into dW. Thread 0 fills the
-// ring: at the call's start, whenever it waits for a stage, once a k step,
-// and after the conversion (then waiting for a free slot) every X stage of
-// the sub; a slot is never waited for before its last use is done.
-template <int NP>
+// into its accumulators, 8 k steps of three wgmma (kBf16: 4 k16 steps of
+// one bf16 wgmma); after the round's last sub each warpgroup adds its
+// 64 x NP block into dW. Thread 0 fills the ring: at the call's start,
+// whenever it waits for a stage, once a k step, and after the conversion
+// (then waiting for a free slot) every X stage of the sub; a slot is never
+// waited for before its last use is done.
+template <int NP, bool kBf16>
 __device__ __forceinline__ int wgrad_rounds(float* ws, const TrainDesc& d, const XSegs X,
                                             int kpad, int dy, int ldn, float* __restrict__ dW,
                                             float* __restrict__ db, int nsub, const WgrRing& wr,
@@ -408,15 +468,22 @@ __device__ __forceinline__ int wgrad_rounds(float* ws, const TrainDesc& d, const
       // a half-warp); the 4 k positions of a half are 4 consecutive floats
       // of B's K-major core matrix (b_offset). A warp's 8 lanes of a
       // quarter take 8 consecutive rows, so their B stores hit 32 banks.
+      // kBf16: points 16 kk .. 16 kk + 15 are the k16 slice kk's k positions
+      // in order, rounded to bf16 as they are stored (store_b8_bf16)
       for (int i = tid; i < rd.nrow * 8; i += kThreads) {
         const int n = (i & 7) + 8 * (i >> 6), kk = (i >> 3) & 7;
         const float* y = wr.stages + (size_t)((pos + (n >> 6)) % K) * kWgrStageFloats +
                          (n & 63) * kLd + 8 * kk;
         const float4 v0 = *reinterpret_cast<const float4*>(y);
         const float4 v1 = *reinterpret_cast<const float4*>(y + 4);
-        float* bs = wr.b + kk * 16 * NP + (n >> 3) * 64 + (n & 7) * 4;
-        split4(bs, bs + 8 * NP, v0.x, v0.z, v1.x, v1.z);
-        split4(bs + 32, bs + 32 + 8 * NP, v0.y, v0.w, v1.y, v1.w);
+        if constexpr (kBf16) {
+          store_b8_bf16(reinterpret_cast<__nv_bfloat16*>(wr.b + (kk >> 1) * 8 * NP),
+                        8 * (kk & 1), n, v0, v1);
+        } else {
+          float* bs = wr.b + kk * 16 * NP + (n >> 3) * 64 + (n & 7) * 4;
+          split4(bs, bs + 8 * NP, v0.x, v0.z, v1.x, v1.z);
+          split4(bs + 32, bs + 32 + 8 * NP, v0.y, v0.w, v1.y, v1.w);
+        }
         if (sums)
           wr.db[kk * kWgrMaxN + n] = ((((((v0.x + v0.y) + v0.z) + v0.w) + v1.x) + v1.y) + v1.z) +
                                      v1.w;
@@ -440,22 +507,38 @@ __device__ __forceinline__ int wgrad_rounds(float* ws, const TrainDesc& d, const
         // points 8 kk + 2 t and + 1, a1 and a3 the same of row m0 + 8; rows
         // past kpad hold stale values, which reach only accumulator rows
         // that are never stored
+        // (kBf16: k positions 2 t, 2 t + 1 and 2 t + 8, 2 t + 9 of k16 slice
+        // kk are points 16 kk + 2 t, + 1 and 16 kk + 8 + 2 t, + 1: two float2
+        // a row, rounded to bf16 pairs, 32 banks a half-warp)
         const float* xa = wr.stages + (size_t)(q % K) * kWgrStageFloats + m0 * kLd + 2 * t;
-        for (int kk = 0; kk < 8; ++kk) {
-          const float2 u = *reinterpret_cast<const float2*>(xa + 8 * kk);
-          const float2 v = *reinterpret_cast<const float2*>(xa + 8 * kLd + 8 * kk);
-          uint32_t ahi[4], alo[4];
-          split(u.x, ahi[0], alo[0]);
-          split(v.x, ahi[1], alo[1]);
-          split(u.y, ahi[2], alo[2]);
-          split(v.y, ahi[3], alo[3]);
-          const float* bk = wr.b + kk * 16 * NP;
-          const uint64_t bhi = b_desc(bk), blo = b_desc(bk + 8 * NP);
-          wgmma_fence();
-          Wgmma<NP>::mma(acc, alo, bhi);
-          Wgmma<NP>::mma(acc, ahi, blo);
-          Wgmma<NP>::mma(acc, ahi, bhi);
-          wgmma_commit();
+        for (int kk = 0; kk < (kBf16 ? 4 : 8); ++kk) {
+          if constexpr (kBf16) {
+            const float* x0 = xa + 16 * kk;
+            const uint32_t ab[4] = {
+                a_pair_bf16(*reinterpret_cast<const float2*>(x0)),
+                a_pair_bf16(*reinterpret_cast<const float2*>(x0 + 8 * kLd)),
+                a_pair_bf16(*reinterpret_cast<const float2*>(x0 + 8)),
+                a_pair_bf16(*reinterpret_cast<const float2*>(x0 + 8 * kLd + 8))};
+            const uint64_t bk = b_desc(wr.b + kk * 8 * NP);
+            wgmma_fence();
+            WgmmaBf16<NP>::mma(acc, ab, bk);
+            wgmma_commit();
+          } else {
+            const float2 u = *reinterpret_cast<const float2*>(xa + 8 * kk);
+            const float2 v = *reinterpret_cast<const float2*>(xa + 8 * kLd + 8 * kk);
+            uint32_t ahi[4], alo[4];
+            split(u.x, ahi[0], alo[0]);
+            split(v.x, ahi[1], alo[1]);
+            split(u.y, ahi[2], alo[2]);
+            split(v.y, ahi[3], alo[3]);
+            const float* bk = wr.b + kk * 16 * NP;
+            const uint64_t bhi = b_desc(bk), blo = b_desc(bk + 8 * NP);
+            wgmma_fence();
+            Wgmma<NP>::mma(acc, alo, bhi);
+            Wgmma<NP>::mma(acc, ahi, blo);
+            Wgmma<NP>::mma(acc, ahi, bhi);
+            wgmma_commit();
+          }
           wgmma_wait<0>();
           if (tid == 0) pump(0);
         }
@@ -514,7 +597,11 @@ __device__ __forceinline__ int wgrad_rounds(float* ws, const TrainDesc& d, const
 // warpgroups take four 64-row blocks of X a round, so each sub's dY rows
 // are staged once a layer and its X rows once a piece of NP outputs (twice
 // for a 256-wide layer). The CTA's partial dW is read and written once a
-// round of the call. Returns the ring position after the call's stages.
+// round of the call. kBf16 (K3, K6 at --compute_dtype bfloat16): X and dY
+// rounded to bf16 (X at the A load, dY as B is written; db sums the
+// plane's values as they are), wgmma m64nNPk16 bf16 over 16 points a k
+// step. Returns the ring position after the call's stages.
+template <bool kBf16>
 __device__ __forceinline__ int wgrad(float* ws, const TrainDesc& d, const XSegs X, int dy,
                                      int ldn, float* __restrict__ dW, float* __restrict__ db,
                                      int nsub, const WgrRing& wr, int wpos) {
@@ -527,34 +614,38 @@ __device__ __forceinline__ int wgrad(float* ws, const TrainDesc& d, const XSegs 
   while (n < ldn && n < kWgrMaxN) n *= 2;
   switch (n) {
     case 128:
-      return wgrad_rounds<128>(ws, d, X, kpad, dy, ldn, dW, db, nsub, wr, wpos);
+      return wgrad_rounds<128, kBf16>(ws, d, X, kpad, dy, ldn, dW, db, nsub, wr, wpos);
     case 64:
-      return wgrad_rounds<64>(ws, d, X, kpad, dy, ldn, dW, db, nsub, wr, wpos);
+      return wgrad_rounds<64, kBf16>(ws, d, X, kpad, dy, ldn, dW, db, nsub, wr, wpos);
     case 32:
-      return wgrad_rounds<32>(ws, d, X, kpad, dy, ldn, dW, db, nsub, wr, wpos);
+      return wgrad_rounds<32, kBf16>(ws, d, X, kpad, dy, ldn, dW, db, nsub, wr, wpos);
     case 16:
-      return wgrad_rounds<16>(ws, d, X, kpad, dy, ldn, dW, db, nsub, wr, wpos);
+      return wgrad_rounds<16, kBf16>(ws, d, X, kpad, dy, ldn, dW, db, nsub, wr, wpos);
     default:
-      return wgrad_rounds<8>(ws, d, X, kpad, dy, ldn, dW, db, nsub, wr, wpos);
+      return wgrad_rounds<8, kBf16>(ws, d, X, kpad, dy, ldn, dW, db, nsub, wr, wpos);
   }
 }
 
 // One step of the reverse sweep: a layer's dW product (wgrad: X planes x,
 // dY plane dy of ldn rows) or its input-gradient product (bwd_layer: dY
 // planes p0, p1 into out, gated by gate, added with add; in: its emb
-// columns' matrix, K8c).
+// columns' matrix, K8c; rnd: in the bf16 mode out is a cotangent JAX
+// rounds to bf16 once it is whole).
 struct SweepStep {
   XSegs x;
   int layer, dy, ldn, p0, p1, out, gate;
-  bool dx, add, in;
+  bool dx, add, in, rnd;
 };
 constexpr int kMaxSteps = 4 * kMaxLayers;
 // The reverse kernel's shared memory: both rings' barriers (256 B), the
 // sweep's steps and their count, then the stages that bwd_layer and wgrad
 // take in turn.
 constexpr int kRevHead = (256 + kMaxSteps * (int)sizeof(SweepStep) + 4 + 127) / 128 * 128;
-constexpr int kRevFloats =
-    kBwdStages * kBwdStageFloats > kWgrFloats ? kBwdStages * kBwdStageFloats : kWgrFloats;
+constexpr int kRevFloats = kBwdStages * BwdStage<false>::kFloats > kWgrFloats
+                               ? kBwdStages * BwdStage<false>::kFloats
+                               : kWgrFloats;
+static_assert(kBwdStages * BwdStage<true>::kFloats <= kRevFloats,
+              "the bf16 mode's backward ring fits the reverse kernel's stages");
 constexpr int kReverseSmem = kRevHead + kRevFloats * (int)sizeof(float);
 
 // The chain rule of the PE for nq points from sub sub0 on: from the
@@ -610,6 +701,9 @@ __device__ int sweep_steps(const TrainDesc& d, SweepStep* tab) {
     s.dx = true;
     s.add = add;
     s.in = in;
+    // every cotangent but alpha's slot's output where sem_0's is still to be
+    // added into it (the input-gradient modes have no bf16 mode)
+    s.rnd = !in && !(kSem && layer == k_alpha);
     s.layer = layer;
     s.p0 = p0;
     s.p1 = p1;
@@ -670,14 +764,17 @@ __device__ int sweep_steps(const TrainDesc& d, SweepStep* tab) {
 // depth + 4), and both run back through the PE's chain rule into dpts
 // and ddirs [R * S, 3]. The steps (sweep_steps) run from one table, so
 // bwd_layer and wgrad each have one inlined call site and the kernel makes
-// no call inside a wgmma pipeline.
-template <bool kSem, bool kInGrad = false>
+// no call inside a wgmma pipeline. kBf16 (K3, K6 at --compute_dtype
+// bfloat16; not with kInGrad): bwd_layer's and wgrad's bf16 modes, the
+// input-gradient matrices in pack_bwd_ring's bf16 layout.
+template <bool kSem, bool kInGrad = false, bool kBf16 = false>
 __global__ void __launch_bounds__(kThreads, 1)
     train_reverse_kernel(const float* __restrict__ bring, const float* __restrict__ iring,
                          const __grid_constant__ TrainDesc d, const __grid_constant__ RingDesc br,
                          const __grid_constant__ RingDesc bi, float* __restrict__ partial,
                          float* __restrict__ workspace, int R, int S, int wave, int group,
                          float* __restrict__ dpts, float* __restrict__ ddirs) {
+  static_assert(!(kInGrad && kBf16), "the input-gradient mode (K8c) has no bf16 mode");
   extern __shared__ __align__(128) unsigned char rev_raw[];
   uint64_t* bars = reinterpret_cast<uint64_t*>(rev_raw);
   SweepStep* tab = reinterpret_cast<SweepStep*>(rev_raw + 256);
@@ -721,10 +818,11 @@ __global__ void __launch_bounds__(kThreads, 1)
       const float* src = s.in ? iring + bi.off[s.layer] : bring + br.off[s.layer];
       const int N = s.in ? bi.ncols[s.layer] : br.ncols[s.layer];
       const LayerDesc L = s.in ? d.ibwd[s.layer] : d.bwd[s.layer];
-      pos = bwd_layer(src, N, L, ws, d, s.p0, s.p1, s.out, s.gate, nsub, ring, pos, s.add);
+      pos = bwd_layer<kBf16>(src, N, L, ws, d, s.p0, s.p1, s.out, s.gate, nsub, ring, pos, s.add,
+                             s.rnd);
     } else {
-      wpos = wgrad(ws, d, s.x, s.dy, s.ldn, gpart + d.gw[s.layer], gpart + d.gb[s.layer], nsub,
-                   wr, wpos);
+      wpos = wgrad<kBf16>(ws, d, s.x, s.dy, s.ldn, gpart + d.gw[s.layer], gpart + d.gb[s.layer],
+                          nsub, wr, wpos);
     }
   }
   if (kInGrad) {

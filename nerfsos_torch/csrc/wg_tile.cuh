@@ -94,12 +94,16 @@
 // TF32 high and low parts), the PE phases with explicit round-to-nearest
 // (no fast-math).
 //
-// The bf16 mode (--compute_dtype bfloat16; kBf16, K1, K2 and K4 alone:
-// train_render_wg_kernel<kInSigma | kInPoint, true>) computes what the JAX
-// kernels compute at bf16 (nerfsos_tpu/ops/pallas/fused_render.py
-// _render_kernel, _sigma_weights_kernel, _train_render_kernel with
-// compute_dtype bfloat16): every product's operands rounded to bf16 (to
-// nearest even), the product accumulated in fp32, the fp32 bias added.
+// The bf16 mode (--compute_dtype bfloat16; kBf16: K1, K2 and K4,
+// train_render_wg_kernel<kInSigma | kInPoint, true>, and K3's and K6's
+// storing forward, train_forward_wg_kernel<kLoss | kCotangent, kInPoint,
+// true>) computes what the JAX kernels compute at bf16
+// (nerfsos_tpu/ops/pallas/fused_render.py _render_kernel,
+// _sigma_weights_kernel, _train_render_kernel and _train_render_bwd_kernel's
+// forward with compute_dtype bfloat16): every product's operands rounded to
+// bf16 (to nearest even), the product accumulated in fp32, the fp32 bias
+// added; the storing forward keeps the rounded activations (h and the
+// workspace planes hold bf16 values in fp32).
 //   * the host packs each layer's W^T in bf16 (ops/fused_render.pack_ring
 //     with bf16): a k step is 16 input rows, one k16 slice of 32 N bytes
 //     (half a TF32 stage) in wgmma's K-major no-swizzle layout with
@@ -210,7 +214,8 @@ struct WgOut {
 // ring position after the layer's stages. kStore: o.plane may be set.
 // kBf16: the bf16 mode, a k step of 16 rows (two 8-row steps of the
 // segments, the second zero past their last row) on one bf16 wgmma, the
-// heads' hidden activations and weights rounded to bf16, sem_in in bf16.
+// heads' hidden activations and weights rounded to bf16, sem_in in bf16;
+// with kStore the layer mode's outputs rounded to bf16 in h and the plane.
 template <int N, bool kStore, bool kBf16 = false>
 __device__ __forceinline__ int wg_layer(const float* __restrict__ params, const LayerDesc L,
                                         ASeg s0, ASeg s1, ASeg s2, const WgRing rg, int pos,
@@ -306,6 +311,10 @@ __device__ __forceinline__ int wg_layer(const float* __restrict__ params, const 
       if (o.relu) {
 #pragma unroll
         for (int i = 0; i < 4; ++i) v[i] = fmaxf(v[i], 0.f);
+      }
+      if (kStore && kBf16) {  // h and the workspace hold the bf16 activations JAX keeps
+#pragma unroll
+        for (int i = 0; i < 4; ++i) v[i] = bf16r(v[i]);
       }
       o.h[swz(n, m0)] = v[0];
       o.h[swz(n + 1, m0)] = v[1];
@@ -524,12 +533,16 @@ __device__ __forceinline__ void ipe_rows_wg(float* buf, const float* g, int rows
   }
 }
 
-// Rows [0, rows) of a warpgroup tile, unswizzled, to a workspace tile [rows][kLd].
+// Rows [0, rows) of a warpgroup tile, unswizzled, to a workspace tile
+// [rows][kLd] (kBf16: each value rounded to bf16, as JAX keeps emb and the
+// view PE).
+template <bool kBf16>
 __device__ __forceinline__ void wg_store_rows(const float* src, float* dst, int rows) {
   for (int i = threadIdx.x & 127; i < rows * (kWgPts / 4); i += 128) {
     const int k = i / (kWgPts / 4), p = (i % (kWgPts / 4)) * 4;
-    *reinterpret_cast<float4*>(dst + k * kLd + p) =
-        *reinterpret_cast<const float4*>(src + swz(k, p));
+    float4 v = *reinterpret_cast<const float4*>(src + swz(k, p));
+    if (kBf16) v = make_float4(bf16r(v.x), bf16r(v.y), bf16r(v.z), bf16r(v.w));
+    *reinterpret_cast<float4*>(dst + k * kLd + p) = v;
   }
 }
 
@@ -559,9 +572,11 @@ __device__ __forceinline__ void wg_store_rows(const float* src, float* dst, int 
 // points' rows out (rgb logits, sigma, semantics: raw's column order).
 // With kStore (the field backward's forward, kInList alone) a point-list
 // mode writes no outputs: the alpha head is skipped, pl.out is not read.
-// kBf16 (K1, K2, K4 at --compute_dtype bfloat16; kStore false, kInPoint or
-// kInSigma): the bf16 mode (wg_layer's), the alpha head on h and W_alpha
-// rounded to bf16, sem_in a bf16 array.
+// kBf16 (K1, K2, K4 at --compute_dtype bfloat16: kInPoint or kInSigma; K3's
+// and K6's storing forward: kStore, kInPoint): the bf16 mode (wg_layer's),
+// the alpha head on h and W_alpha rounded to bf16, sem_in a bf16 array; in
+// the store mode every stored activation is its bf16 value (JAX's ins[i],
+// acts[i], feat, hv, s_act, emb and the view PE).
 // Returns the ring position after the tile.
 template <bool kStore, bool kSemAct, int kIn = kInPoint, bool kBf16 = false>
 __device__ __forceinline__ int wg_forward_tile(
@@ -570,8 +585,8 @@ __device__ __forceinline__ int wg_forward_tile(
     int pos, float* mine, float* strip,
     typename std::conditional<kBf16, __nv_bfloat16, float>::type* __restrict__ semin,
     long long base, float* ws, const PointList pl = PointList{}) {
-  static_assert(!kBf16 || (!kStore && (kIn == kInPoint || kIn == kInSigma)),
-                "the bf16 mode is K1's, K2's and K4's");
+  static_assert(!kBf16 || kIn == kInPoint || (!kStore && kIn == kInSigma),
+                "the bf16 mode is K1's, K2's, K4's and K3's and K6's storing forward's");
   constexpr bool kSigma = kIn == kInSigma || kIn == kInListSigma;
   constexpr bool kGauss = kIn == kInMip || kIn == kInListGauss;
   constexpr bool kList = kIn >= kInList;
@@ -628,8 +643,8 @@ __device__ __forceinline__ int wg_forward_tile(
   if (!kSigma) pe_rows_wg(demb, Ed);
   wg_bar(bar);  // emb is whole (and h's scratch rows read) before layer 0
   if (store) {
-    wg_store_rows(emb, plane(ws, d, P_EMB, sub), Ep);
-    wg_store_rows(demb, plane(ws, d, P_DEMB, sub), Edp);
+    wg_store_rows<kBf16>(emb, plane(ws, d, P_EMB, sub), Ep);
+    wg_store_rows<kBf16>(demb, plane(ws, d, P_DEMB, sub), Edp);
   }
 
   // the ring's layers in order (ring_order): the trunk, each output over h;

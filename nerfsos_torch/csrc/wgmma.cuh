@@ -517,6 +517,19 @@ __device__ __forceinline__ void store_b_bf16(__nv_bfloat16* slice, int k, int n,
   slice[b_offset_bf16(k, n)] = __float2bfloat16_rn(v);
 }
 
+// The reverse sweep's wgrad at bf16: the eight consecutive k k0 .. k0 + 7
+// (k0 a multiple of 8) of output n of a bf16 k16 slice, from a and b in k
+// order, rounded to bf16 (to nearest even): one 16-byte store
+__device__ __forceinline__ void store_b8_bf16(__nv_bfloat16* slice, int k0, int n, float4 a,
+                                              float4 b) {
+  *reinterpret_cast<uint4*>(slice + b_offset_bf16(k0, n)) =
+      make_uint4(bf16x2(a.x, a.y), bf16x2(a.z, a.w), bf16x2(b.x, b.y), bf16x2(b.z, b.w));
+}
+
+// The A fragment pair of bf16 k positions k and k + 1 from two consecutive
+// fp32 values (the reverse sweep's rows of points, in point order)
+__device__ __forceinline__ uint32_t a_pair_bf16(float2 v) { return bf16x2(v.x, v.y); }
+
 // two bf16 values' bits in one register, lo in the lower half
 __device__ __forceinline__ uint32_t pack_bf16(uint16_t lo, uint16_t hi) {
   return (uint32_t)lo | ((uint32_t)hi << 16);

@@ -51,7 +51,7 @@ from nerfsos_torch.losses.correlation import (CorrelationLoss, GeoCorrelationLos
                                               nerf_contrastive)
 from nerfsos_torch.losses.photometric import img2mse, mse2psnr
 from nerfsos_torch.models.extractor import normalize_imagenet, resize_nearest_torch
-from nerfsos_torch.models.nerf import NeRFNet, bf16_missing_kernel
+from nerfsos_torch.models.nerf import NeRFNet
 from nerfsos_torch.ops.kmeans import kmeans
 from nerfsos_torch.utils.metrics import adjusted_rand_score
 
@@ -185,8 +185,6 @@ def make_sos_train_step(net: NeRFNet, extractor, app_loss: CorrelationLoss,
     """``step(batch, global_step)``: one update of the parameters the
     optimizer holds (the semantic head alone under ``fix_backbone``, every
     leaf without it); returns the detached metrics (device tensors)."""
-    if net.fused and net.bf16 and not cfg.fix_backbone:
-        raise bf16_missing_kernel("the full SOS step's train-render backward K6")
     device = next(net.parameters()).device
     trained = [p for group in optimizer.param_groups for p in group["params"]]
 

@@ -29,7 +29,7 @@ import torch.nn as nn
 from nerfsos_torch.core import sampling
 from nerfsos_torch.engines.state import set_lr
 from nerfsos_torch.losses.photometric import img2mse, mse2psnr
-from nerfsos_torch.models.nerf import NeRFNet, bf16_missing_kernel
+from nerfsos_torch.models.nerf import NeRFNet
 from nerfsos_torch.ops import fused_render as fr
 
 Batch = Dict[str, torch.Tensor]  # rays [2, B, 3], target [B, 3] on the net's device
@@ -81,7 +81,8 @@ def fused_rgb_value_and_grads(net: NeRFNet, batch: Batch, near: float, far: floa
                               ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
     """Grads keyed by ``net.named_parameters()`` names and the metrics
     ``img0``, ``img1``, ``psnr``, ``psnr0``, ``loss``. ``grads_fn`` is the K3
-    wrapper, or its plain version to time the step without the kernel."""
+    wrapper, or its plain version to time the step without the kernel; it
+    runs at the net's compute dtype (K3's bf16 mode at bf16)."""
     cfg = net.cfg
     rays_o = batch["rays"][0].to(torch.float32)
     rays_d = batch["rays"][1].to(torch.float32)
@@ -93,7 +94,8 @@ def fused_rgb_value_and_grads(net: NeRFNet, batch: Batch, near: float, far: floa
     z_vals = sampling.stratified_sample(near_b, far_b, cfg.n_samples, perturb=cfg.perturb,
                                         lindisp=cfg.lindisp, generator=generator)
     odv = torch.cat([rays_o, rays_d, viewdirs], dim=1).contiguous()
-    kw = dict(white_bkgd=cfg.white_bkgd, noise_std=cfg.raw_noise_std)
+    kw = dict(white_bkgd=cfg.white_bkgd, noise_std=cfg.raw_noise_std,
+              compute_dtype=net.compute_dtype)
 
     g_c, maps0, w0 = grads_fn(net.nerf, odv, z_vals.contiguous(), gt, seed=noise_seeds[0], **kw)
     z_all, _ = sampling.importance_sample(z_vals, w0, cfg.n_importance,
@@ -124,8 +126,6 @@ def make_rgb_train_step(net: nn.Module, optimizer: torch.optim.Optimizer,
     ``net_kwargs``: model statics for the autograd path (mip-NeRF's
     ``radii``)."""
     fused = supports_fused_rgb_loss(net)
-    if fused and net.bf16:
-        raise bf16_missing_kernel("the RGB train step K3")
     params = dict(net.named_parameters())
     device = next(net.parameters()).device
 

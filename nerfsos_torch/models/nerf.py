@@ -27,13 +27,13 @@ reference's module names, so a reference state dict loads with
   ragged last chunk needs no padding (the JAX version pads to a fixed block
   shape for its compiled scan);
 - ``compute_dtype="bfloat16"``: the eager fields run flax's bf16 semantics
-  (``models/mlp.py``), and a fused net runs K1, K2, K4 and K5 in their bf16
-  modes. The other kernels have no bf16 mode yet, so a fused bf16 net
-  refuses their routes before any kernel runs: ``n_importance <= 0`` (the
-  field forward and backward K8d/K8f) in the constructor, a noisy
-  density-only view (K8e, K8d) and ``field_query`` (K8b, ``--eval_vol``) at
-  the call, and a train render whose backward is K6 (without
-  ``frozen_backbone``) in ``ops/fused_render.fused_train_render``.
+  (``models/mlp.py``), and a fused net runs K1-K6 in their bf16 modes (K4's
+  train render with K5 or K6 as its backward; the RGB step's K3 in
+  ``engines/trainer.py``). The field kernels have no bf16 mode yet, so a
+  fused bf16 net refuses their routes before any kernel runs:
+  ``n_importance <= 0`` (the field forward and backward K8d/K8f) in the
+  constructor, a noisy density-only view (K8e, K8d) and ``field_query``
+  (K8b, ``--eval_vol``) at the call.
 """
 from __future__ import annotations
 
@@ -121,8 +121,8 @@ def _field(cfg: NeRFConfig, fine: bool) -> NeRFField:
 def bf16_missing_kernel(kernels: str) -> NotImplementedError:
     """The refusal of a fused bf16 route whose kernels have no bf16 mode."""
     return NotImplementedError(
-        f"compute_dtype bfloat16: {kernels} has no bf16 mode yet (K1, K2, K4 and K5 have: "
-        "the --eval render and the --fix_backbone finetune); --no_fused_field runs "
+        f"compute_dtype bfloat16: {kernels} has no bf16 mode yet (K1-K6 have: the RGB "
+        "pretrain, the --eval render and both SOS finetunes); --no_fused_field runs "
         "every mode at bf16 on the eager field")
 
 

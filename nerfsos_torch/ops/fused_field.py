@@ -308,7 +308,7 @@ def fused_mip_field_apply(field: nn.Module, mean: torch.Tensor, cov: torch.Tenso
 
 
 def field_grads(field: nn.Module, pts: torch.Tensor, dirs: torch.Tensor, g: torch.Tensor, *,
-                input_grads: bool
+                input_grads: bool, compute_dtype: torch.dtype = torch.float32
                 ) -> Tuple[Dict[str, torch.Tensor], Optional[torch.Tensor],
                            Optional[torch.Tensor]]:
     """The field backward (K8f; K8c with ``input_grads``): the gradients of
@@ -321,7 +321,11 @@ def field_grads(field: nn.Module, pts: torch.Tensor, dirs: torch.Tensor, g: torc
     ``fused_render.pack_bwd_ring``, and with ``input_grads`` of
     :func:`pack_input_ring`) once per wave of 512-point chunks and the
     reduction of the CTAs' partial gradients, and adds one to ``launches``
-    (and, with ``input_grads``, to ``input_grad_launches``)."""
+    (and, with ``input_grads``, to ``input_grad_launches``). It has no bf16
+    mode: ``compute_dtype`` bfloat16 raises, on any device."""
+    if fr.is_bf16(compute_dtype):
+        raise NotImplementedError("compute_dtype bfloat16: the field backward K8c/K8f "
+                                  "(field_grads) has no bf16 mode yet")
     if not _on_card(pts):
         return field_grads_plain(field, pts, dirs, g, input_grads=input_grads)
     N = pts.shape[0]

@@ -60,15 +60,19 @@ signature) for tensors on the CPU, and for CUDA tensors launches the
 hand-written kernel in ``csrc/train_render.cu`` or raises; it never falls
 back. ``<wrapper>.launches`` counts kernel launches.
 
-K1, K2, K4 and K5 also run at ``compute_dtype=torch.bfloat16`` (``--compute_dtype
-bfloat16``; replaces the Pallas kernels' bf16 mode): every product's
-operands rounded to bf16 (to nearest even), the product accumulated in
-float32 and the float32 bias added (``models/mlp.bf16_operands_dense``), the
-activations rounded where the JAX kernels' ``.astype(bf16)`` rounds them,
-``sem_in`` stored in bf16, the composite in float32; K5 as
-``_train_frozen_bwd_kernel`` at bf16 (:func:`frozen_sem_grads_plain`). Their
-bf16 launches count in ``<wrapper>.launches_bf16``. The other kernels have
-no bf16 mode: a bf16 net refuses their routes (``models/nerf.py``).
+K1, K2, K3, K4, K5 and K6 also run at ``compute_dtype=torch.bfloat16``
+(``--compute_dtype bfloat16``; replaces the Pallas kernels' bf16 mode):
+every product's operands rounded to bf16 (to nearest even), the product
+accumulated in float32 and the float32 bias added
+(``models/mlp.bf16_operands_dense``), the activations rounded where the JAX
+kernels' ``.astype(bf16)`` rounds them, ``sem_in`` stored in bf16, the
+composite in float32; K5 as ``_train_frozen_bwd_kernel`` at bf16
+(:func:`frozen_sem_grads_plain`), K3 and K6 as ``_train_render_bwd_kernel``
+at bf16 (:func:`_train_grads_bf16`: the reverse sweep's products on bf16
+operands, its cotangents rounded where JAX rounds them). Their bf16 launches
+count in ``<wrapper>.launches_bf16``. The other kernels (the mip kernels
+K9, K10a, K10b and the field kernels) have no bf16 mode: a bf16 net refuses
+their routes (``models/nerf.py``), and K10b's wrapper raises at bf16.
 """
 from __future__ import annotations
 
@@ -198,9 +202,155 @@ def noise_plain(seed: int, R: int, S: int, std: float, device=None) -> torch.Ten
     return ((std * r) * torch.cos(two_pi * u2)).reshape(R, S)
 
 
+def _rgb_objective(gt: torch.Tensor, white_bkgd: bool):
+    """K3's loss on the maps of rays ``r0 ..``: ``sum((rgb_map - gt)^2)``
+    (``rgb_map + 1 - acc`` under ``white_bkgd``)."""
+    def objective(maps: torch.Tensor, w: torch.Tensor, r0: int) -> torch.Tensor:
+        rgbm = maps[:, 0:3] + (1.0 - maps[:, 4:5]) if white_bkgd else maps[:, 0:3]
+        return torch.sum((rgbm - gt[r0:r0 + maps.shape[0]]) ** 2)
+    return objective
+
+
+def _cotangent_objective(dmaps: torch.Tensor, dweights: Optional[torch.Tensor]):
+    """K6's ``sum(dmaps * maps) + sum(dweights * weights)`` on rays ``r0 ..``."""
+    def objective(maps: torch.Tensor, w: torch.Tensor, r0: int) -> torch.Tensor:
+        obj = torch.sum(dmaps[r0:r0 + maps.shape[0]] * maps)
+        if dweights is not None:
+            obj = obj + torch.sum(dweights[r0:r0 + maps.shape[0]] * w)
+        return obj
+    return objective
+
+
+def _bf16_gate(act: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """A relu-gated cotangent as JAX's bf16 sweep keeps it:
+    ``bf16([act > 0] d)``."""
+    return round_bf16(torch.where(act > 0, d, torch.zeros_like(d)))
+
+
+def bf16_sweep(field: nn.Module, grads: Dict[str, torch.Tensor], e: torch.Tensor,
+               dv: torch.Tensor, acts: List[torch.Tensor], feat: torch.Tensor,
+               hv: torch.Tensor, s_act: Optional[torch.Tensor], d_rgb: torch.Tensor,
+               d_sig: torch.Tensor, d_sem: Optional[torch.Tensor]) -> None:
+    """The bf16 reverse sweep of ``_train_render_bwd_kernel`` over points
+    (rows) from the forward's bf16 activations (``e`` the point PE, ``dv``
+    the view PE, each trunk layer's output, ``feat``, ``hv``, ``s_act``) and
+    the composite's float32 cotangents of the rgb logits, sigma and (with
+    ``d_sem``: K6 with the semantic head, which it then sweeps) the
+    semantics; adds each leaf's gradient into ``grads`` (by parameter name).
+    Every product multiplies bf16 operands in float32 (``dW = bf16(dY)^T
+    bf16(X)``, ``dX = bf16(dY) bf16(W)``); ``dhv``, ``d_feat``, ``ds`` and
+    every trunk ``dpre`` are rounded to bf16 after their relu gate and their
+    bias sums add the rounded values, while the bias sums of ``d_rgb``,
+    ``d_sigma`` and ``d_sem`` add the unrounded ones; ``dh`` is the float32
+    sum of the feature, alpha and sem_0 input gradients."""
+    mlp = field.mlp
+    E = mlp.pts_linears[0].in_features
+    names = {id(p): n for n, p in field.named_parameters()}
+
+    def add(lin: nn.Linear, dy: torch.Tensor, x: torch.Tensor, db: torch.Tensor) -> None:
+        grads[names[id(lin.weight)]] += round_bf16(dy).t() @ round_bf16(x)
+        grads[names[id(lin.bias)]] += db.sum(0)
+
+    def dx(dy: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
+        return round_bf16(dy) @ round_bf16(lin.weight.detach())
+
+    ins, h = [], e
+    for i, a in enumerate(acts):
+        ins.append(h)
+        h = torch.cat([e, a], -1) if i in mlp.skips else a
+    hv_in = torch.cat([feat, dv], -1)
+    add(mlp.rgb_linear, d_rgb, hv, d_rgb)
+    dhv = _bf16_gate(hv, dx(d_rgb, mlp.rgb_linear))
+    add(mlp.views_linears[0], dhv, hv_in, dhv)
+    d_feat = round_bf16(dx(dhv, mlp.views_linears[0])[:, :feat.shape[1]])
+    add(mlp.feature_linear, d_feat, h, d_feat)
+    add(mlp.alpha_linear, d_sig, h, d_sig)
+    dh = dx(d_feat, mlp.feature_linear) + dx(d_sig, mlp.alpha_linear)
+    if d_sem is not None:
+        lin0, lin2 = mlp.semantic_linear[0], mlp.semantic_linear[2]
+        add(lin2, d_sem, s_act, d_sem)
+        ds = _bf16_gate(s_act, dx(d_sem, lin2))
+        add(lin0, ds, torch.cat([h, e], -1) if mlp.sem_with_coord else h, ds)
+        dh = dh + dx(ds, lin0)[:, :h.shape[1]]
+    for i in range(mlp.depth - 1, -1, -1):
+        if i in mlp.skips:
+            dh = dh[:, E:]  # the skip input's emb columns: no gradient needed
+        dpre = _bf16_gate(acts[i], dh)
+        add(mlp.pts_linears[i], dpre, ins[i], dpre)
+        if i > 0:
+            dh = dx(dpre, mlp.pts_linears[i])
+
+
+def bf16_train_forward(field: nn.Module, odv: torch.Tensor, z: torch.Tensor
+                       ) -> Dict[str, object]:
+    """The forward of ``_train_render_bwd_kernel`` at bf16 over the points
+    of ``odv [R, 9]``, ``z [R, S]`` (rows, point ``ray * S + sample``): the
+    activations it keeps in bf16 (``e`` the point PE, ``dv`` the view PE,
+    ``acts`` each trunk layer's ``bf16(relu(.))``, ``feat``, ``hv`` and,
+    with the semantic head, ``s_act``), every product on bf16 operands with
+    float32 accumulation and the float32 bias (:func:`bf16_operands_dense`),
+    and the heads' float32 outputs (``heads``: the rgb logits, sigma
+    without noise and the semantics)."""
+    mlp = field.mlp
+    dense = bf16_operands_dense
+    pts = points_along_rays(odv[:, 0:3], odv[:, 3:6], z)
+    n = pts.shape[0] * z.shape[1]
+    e = round_bf16(field.embed(pts).reshape(n, mlp.pts_linears[0].in_features))
+    dv = round_bf16(field.embed_views(odv[:, None, 6:9].expand(pts.shape)).reshape(n, -1))
+    acts, h = [], e
+    for i, lin in enumerate(mlp.pts_linears):
+        acts.append(round_bf16(F.relu(dense(lin, h))))
+        h = torch.cat([e, acts[-1]], -1) if i in mlp.skips else acts[-1]
+    feat = round_bf16(dense(mlp.feature_linear, h))
+    hv = round_bf16(F.relu(dense(mlp.views_linears[0], torch.cat([feat, dv], -1))))
+    out = dict(e=e, dv=dv, acts=acts, feat=feat, hv=hv, s_act=None,
+               heads=[dense(mlp.rgb_linear, hv), dense(mlp.alpha_linear, h)])
+    if mlp.use_semantics:
+        out["s_act"] = round_bf16(F.relu(dense(mlp.semantic_linear[0], torch.cat([h, e], -1)
+                                              if mlp.sem_with_coord else h)))
+        out["heads"].append(dense(mlp.semantic_linear[2], out["s_act"]))
+    return out
+
+
+def _train_grads_bf16(field: nn.Module, odv: torch.Tensor, z: torch.Tensor, objective, *,
+                      noise_std: float, seed: int, sweep_sem: bool
+                      ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor, torch.Tensor]:
+    """K3's and K6's bf16 semantics (``_train_render_bwd_kernel`` at
+    compute_dtype bfloat16), over chunks of rays; returns (grads by
+    parameter name, maps, weights): :func:`bf16_train_forward`; the
+    composite and its cotangent in float32 (autograd of ``objective`` with
+    respect to the rgb logits, sigma and the semantics); then
+    :func:`bf16_sweep`, the semantic head swept with ``sweep_sem`` (K6 with
+    the head; K3's head gets zeros, its cotangent being zero)."""
+    R, S = z.shape
+    z = z.detach()
+    noise = noise_plain(seed, R, S, noise_std, z.device) if noise_std > 0.0 else None
+    grads = {n: torch.zeros_like(p) for n, p in field.named_parameters()}
+    maps, weights = [], []
+    step = max(1, _PLAIN_CHUNK_POINTS // max(S, 1))
+    with torch.no_grad():
+        for r0 in range(0, max(R, 1), step):  # one (empty) chunk when R == 0
+            o, zc = odv[r0:r0 + step], z[r0:r0 + step]
+            f = bf16_train_forward(field, o, zc)
+            heads = [t.requires_grad_() for t in f["heads"]]
+            with torch.enable_grad():
+                raw = torch.cat(heads, -1).view(o.shape[0], S, -1)
+                sigma = raw[..., 3] if noise is None else raw[..., 3] + noise[r0:r0 + step]
+                m, w = _maps(raw, sigma, zc, o[:, 3:6])
+                d_rgb, d_sig, *d_sem = torch.autograd.grad(objective(m, w, r0), heads,
+                                                           allow_unused=True)
+            maps.append(m.detach())
+            weights.append(w.detach())
+            if zc.numel():
+                bf16_sweep(field, grads, f["e"], f["dv"], f["acts"], f["feat"], f["hv"],
+                           f["s_act"], d_rgb, d_sig, d_sem[0] if sweep_sem else None)
+    return grads, torch.cat(maps), torch.cat(weights)
+
+
 def rgb_train_grads_plain(field: nn.Module, odv: torch.Tensor, z: torch.Tensor,
                           gt: torch.Tensor, *, white_bkgd: bool, noise_std: float,
-                          seed: int) -> Tuple[Dict[str, torch.Tensor], torch.Tensor, torch.Tensor]:
+                          seed: int, compute_dtype: torch.dtype = torch.float32
+                          ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor, torch.Tensor]:
     """Plain version of K3: autograd of ``sum((rgb_map - gt)^2)`` through the
     field and the composite, with :func:`noise_plain` added to sigma before
     its relu (``rgb_map + 1 - acc`` under ``white_bkgd``; z is detached).
@@ -210,7 +360,11 @@ def rgb_train_grads_plain(field: nn.Module, odv: torch.Tensor, z: torch.Tensor,
     ``[R, S]``). The semantic columns of the maps get no cotangent, so the
     semantic head's grads are zeros. Every parameter gets its gradient,
     whether it requires one or not (a ``--fix_backbone`` optimizer drops
-    the frozen ones)."""
+    the frozen ones). At bf16 the JAX kernel's bf16 sweep
+    (:func:`_train_grads_bf16`)."""
+    if is_bf16(compute_dtype):
+        return _train_grads_bf16(field, odv, z, _rgb_objective(gt, white_bkgd),
+                                 noise_std=noise_std, seed=seed, sweep_sem=False)
     R, S = z.shape
     z = z.detach()
     leaves = {n: p.detach().requires_grad_() for n, p in field.named_parameters()}
@@ -262,12 +416,20 @@ def train_render_plain(field: nn.Module, odv: torch.Tensor, z: torch.Tensor, *,
 
 def train_render_grads_plain(field: nn.Module, odv: torch.Tensor, z: torch.Tensor,
                              dmaps: torch.Tensor, dweights: Optional[torch.Tensor], *,
-                             noise_std: float, seed: int) -> Dict[str, torch.Tensor]:
+                             noise_std: float, seed: int,
+                             compute_dtype: torch.dtype = torch.float32
+                             ) -> Dict[str, torch.Tensor]:
     """Plain version of K6: the VJP of :func:`train_render_plain`'s maps and
     weights, ``sum(dmaps * maps) + sum(dweights * weights)`` differentiated
     with respect to every parameter of the field (``dweights=None``: a zero
     cotangent), keyed by ``field.named_parameters()`` names; z is constant.
-    Runs in chunks of rays, each chunk's graph freed before the next."""
+    Runs in chunks of rays, each chunk's graph freed before the next. At
+    bf16 the JAX kernel's bf16 sweep (:func:`_train_grads_bf16`, the
+    semantic head swept)."""
+    if is_bf16(compute_dtype):
+        return _train_grads_bf16(field, odv, z, _cotangent_objective(dmaps, dweights),
+                                 noise_std=noise_std, seed=seed,
+                                 sweep_sem=field.mlp.use_semantics)[0]
     R, S = z.shape
     z = z.detach()
     noise = noise_plain(seed, R, S, noise_std, z.device) if noise_std > 0.0 else None
@@ -551,14 +713,17 @@ def ring_layers(field: nn.Module) -> List[int]:
 
 def _ring_index(field: nn.Module, attr: str, layers: Sequence[_build.MLPLayer],
                 order: List[int], numel: int, device: torch.device,
-                h_layers: Sequence[int] = ()) -> Tuple[torch.Tensor, _build.RingDesc]:
+                h_layers: Sequence[int] = (), bf16: bool = False
+                ) -> Tuple[torch.Tensor, _build.RingDesc]:
     """Where each float of a ring's buffer lies in the packed buffer its
     ``layers`` describe (``numel`` floats in ``pack_field``'s per-layer
-    format; index ``numel`` for a padding column, read as 0), for the layers
-    in ``order``, and the ring's descriptor (``hrows``: the widest N of
-    ``h_layers``): kept on the field under ``attr`` for the layers' shapes,
-    per device."""
-    key = (tuple((layers[i].w, layers[i].k, layers[i].n) for i in order), numel, device)
+    format; index ``numel`` for a padding row or column, read as 0), for the
+    layers in ``order``, and the ring's descriptor (``hrows``: the widest N
+    of ``h_layers``): kept on the field under ``attr`` for the layers'
+    shapes, per device. ``bf16``: :func:`pack_ring`'s bf16 layout (each
+    entry of a layer's float32 ``W^T`` once, two a float32 word after the
+    gather's rounding; ``off`` and ``stage_floats`` in words)."""
+    key = (tuple((layers[i].w, layers[i].k, layers[i].n) for i in order), numel, device, bf16)
     cached = field.__dict__.get(attr)
     if cached is None or cached[0] != key:
         rd = _build.RingDesc()
@@ -566,15 +731,22 @@ def _ring_index(field: nn.Module, attr: str, layers: Sequence[_build.MLPLayer],
         for i in order:
             L = layers[i]
             ldn, n = _pad8(L.n), _ring_n(L.n)
-            s, part, j, h, r, c = torch.meshgrid(
-                *(torch.arange(x) for x in (L.k // 8, 2, n // 8, 2, 8, 4)), indexing="ij")
-            row, col = 8 * s + 4 * h + c, 8 * j + r
-            src = L.w + (1 + part) * L.k * ldn + row * ldn + col  # the hi, then the lo parts
-            parts.append(torch.where(col < ldn, src, numel).reshape(-1))
+            if bf16:
+                s, j, h, r, c = torch.meshgrid(
+                    *(torch.arange(x) for x in (-(-L.k // 16), n // 8, 2, 8, 8)), indexing="ij")
+                row, col = 16 * s + bf16_k_rows()[8 * h + c], 8 * j + r
+                src, valid = L.w + row * ldn + col, (col < ldn) & (row < L.k)
+            else:
+                s, part, j, h, r, c = torch.meshgrid(
+                    *(torch.arange(x) for x in (L.k // 8, 2, n // 8, 2, 8, 4)), indexing="ij")
+                row, col = 8 * s + 4 * h + c, 8 * j + r
+                src = L.w + (1 + part) * L.k * ldn + row * ldn + col  # the hi, then the lo parts
+                valid = col < ldn
+            parts.append(torch.where(valid, src, numel).reshape(-1))
             rd.off[i], rd.ncols[i] = off, n
-            off += parts[-1].numel()
+            off += parts[-1].numel() // (2 if bf16 else 1)
         rd.hrows = max((rd.ncols[i] for i in h_layers), default=0)
-        rd.stage_floats = 16 * max(rd.ncols[i] for i in order)
+        rd.stage_floats = (8 if bf16 else 16) * max(rd.ncols[i] for i in order)
         cached = (key, torch.cat(parts).to(device), rd)
         field.__dict__[attr] = cached
     return cached[1], cached[2]
@@ -582,21 +754,27 @@ def _ring_index(field: nn.Module, attr: str, layers: Sequence[_build.MLPLayer],
 
 def gather_ring(field: nn.Module, attr: str, buf: torch.Tensor,
                 layers: Sequence[_build.MLPLayer], order: List[int],
-                h_layers: Sequence[int] = ()) -> Tuple[torch.Tensor, _build.RingDesc]:
+                h_layers: Sequence[int] = (), bf16: bool = False
+                ) -> Tuple[torch.Tensor, _build.RingDesc]:
     """A ring buffer from the packed buffer ``buf`` (``pack_field``'s
     per-layer format, ``layers`` its descriptors): one gather of the TF32
-    parts of the layers in ``order``, so each layer is split once per weight
-    state; see :func:`pack_ring`."""
-    idx, rd = _ring_index(field, attr, layers, order, buf.numel(), buf.device, h_layers)
-    return torch.cat([buf, buf.new_zeros(1)])[idx], _build.RingDesc.from_buffer_copy(rd)
+    parts (``bf16``: of the float32 entries, then rounded to bf16; its index
+    kept under ``attr`` + ``_bf16``) of the layers in ``order``, so each
+    layer is split once per weight state; see :func:`pack_ring`."""
+    idx, rd = _ring_index(field, attr + ("_bf16" if bf16 else ""), layers, order, buf.numel(),
+                          buf.device, h_layers, bf16)
+    ring = torch.cat([buf, buf.new_zeros(1)])[idx]
+    if bf16:
+        ring = ring.to(torch.bfloat16).view(torch.float32)
+    return ring, _build.RingDesc.from_buffer_copy(rd)
 
 
-def _ring_from(field: nn.Module, buf: torch.Tensor, fdesc: _build.MLPDesc
+def _ring_from(field: nn.Module, buf: torch.Tensor, fdesc: _build.MLPDesc, bf16: bool = False
                ) -> Tuple[torch.Tensor, _build.RingDesc]:
     """:func:`pack_ring` from ``pack_field``'s buffer ``buf`` of ``field``."""
     depth = field.mlp.depth
     return gather_ring(field, "_ring_index", buf, fdesc.layer, ring_layers(field),
-                       list(range(depth)) + [depth + 1])
+                       list(range(depth)) + [depth + 1], bf16)
 
 
 def pack_ring(field: nn.Module, bf16: bool = False) -> Tuple[torch.Tensor, _build.RingDesc]:
@@ -620,9 +798,7 @@ def pack_ring(field: nn.Module, bf16: bool = False) -> Tuple[torch.Tensor, _buil
     layout's LBO and SBO; k position ``8 h + c`` holds row ``8 h + c // 2 +
     4 (c % 2)``, :func:`bf16_k_rows`). The buffer is float32 words, two
     bf16 each; ``off`` and ``stage_floats`` count words."""
-    if bf16:
-        return _ring_bf16_from(field)
-    return _ring_from(field, *pack_field(field))
+    return _ring_from(field, *pack_field(field), bf16)
 
 
 def bf16_k_rows() -> torch.Tensor:
@@ -631,36 +807,6 @@ def bf16_k_rows() -> torch.Tensor:
     operands are the rows fp32 mode loads (``csrc/wg_tile.cuh`` wg_layer)."""
     q = torch.arange(16)
     return 8 * (q // 8) + (q % 8) // 2 + 4 * (q % 2)
-
-
-def _ring_bf16_wt(wt: torch.Tensor) -> torch.Tensor:
-    """One layer's padded ``W^T [kpad, N]`` (N the wgmma width) in
-    :func:`pack_ring`'s bf16 layout: its k16 slices as float32 words."""
-    k16, n = -(-wt.shape[0] // 16) * 16, wt.shape[1]
-    w = wt.new_zeros((k16, n))
-    w[:wt.shape[0]] = wt
-    blk = (w.view(k16 // 16, 16, n)[:, bf16_k_rows(), :].view(k16 // 16, 2, 8, n // 8, 8)
-           .permute(0, 3, 1, 4, 2))  # [s, j, h, r, c]
-    return blk.reshape(-1).to(torch.bfloat16).view(torch.float32)
-
-
-def _ring_bf16_from(field: nn.Module) -> Tuple[torch.Tensor, _build.RingDesc]:
-    """:func:`pack_ring`'s bf16 layout, from the field's weights."""
-    layers = _field_layers(field)
-    depth = field.mlp.depth
-    rd = _build.RingDesc()
-    parts, off = [], 0
-    for i in ring_layers(field):
-        w, _ = _padded_wt(*layers[i])
-        n = _ring_n(layers[i][0].out_features)
-        wt = w.new_zeros((w.shape[0], n))
-        wt[:, :w.shape[1]] = w
-        parts.append(_ring_bf16_wt(wt))
-        rd.off[i], rd.ncols[i] = off, n
-        off += parts[-1].numel()
-    rd.hrows = max(rd.ncols[i] for i in list(range(depth)) + [depth + 1])
-    rd.stage_floats = 8 * max(rd.ncols[i] for i in ring_layers(field))
-    return torch.cat(parts).contiguous(), rd
 
 
 def _bwd_matrix(blocks: List[torch.Tensor]) -> torch.Tensor:
@@ -733,12 +879,12 @@ def bwd_ring_layers(field: nn.Module) -> List[int]:
             + list(range(depth - 1, 0, -1)))
 
 
-def _bwd_ring_from(field: nn.Module, buf: torch.Tensor, bwd: List[_build.MLPLayer]
-                   ) -> Tuple[torch.Tensor, _build.RingDesc]:
-    return gather_ring(field, "_bwd_ring_index", buf, bwd, bwd_ring_layers(field))
+def _bwd_ring_from(field: nn.Module, buf: torch.Tensor, bwd: List[_build.MLPLayer],
+                   bf16: bool = False) -> Tuple[torch.Tensor, _build.RingDesc]:
+    return gather_ring(field, "_bwd_ring_index", buf, bwd, bwd_ring_layers(field), bf16=bf16)
 
 
-def pack_bwd_ring(field: nn.Module) -> Tuple[torch.Tensor, _build.RingDesc]:
+def pack_bwd_ring(field: nn.Module, bf16: bool = False) -> Tuple[torch.Tensor, _build.RingDesc]:
     """The reverse sweep's input-gradient matrices for its ring of
     shared-memory stages (``csrc/train_sweep.cuh`` bwd_layer), and the
     ring's descriptor: :func:`pack_train_bwd`'s matrices ``Wb [k = dY rows,
@@ -747,8 +893,15 @@ def pack_bwd_ring(field: nn.Module) -> Tuple[torch.Tensor, _build.RingDesc]:
     TF32 high parts, then the low parts, element ``(j, h, r, c) = Wb[8 s +
     4 h + c][8 j + r]``, the columns padded to the wgmma width ``N``:
     ``off``/``ncols`` by forward layer index; ``stages`` and ``hrows`` are
-    not read)."""
-    return _bwd_ring_from(field, *pack_train_bwd(field))
+    not read).
+
+    ``bf16`` (K3 and K6 at bf16): each ``Wb`` rounded to bf16, its rows
+    padded to a multiple of 16 and cut into k16 slices as :func:`pack_ring`
+    cuts a layer in its bf16 layout (element ``(j, h, r, c) = Wb[16 s + 8 h
+    + c // 2 + 4 (c % 2)][8 j + r]``, :func:`bf16_k_rows`' order, so that a
+    thread's A operands are the dY rows fp32 mode loads); two bf16 a float32
+    word, ``off`` in words."""
+    return _bwd_ring_from(field, *pack_train_bwd(field), bf16)
 
 
 def _cached(field: nn.Module, device: torch.device, attr: str, pack):
@@ -771,11 +924,10 @@ def _packed(field: nn.Module, device: torch.device) -> Tuple[torch.Tensor, _buil
 def _ring(field: nn.Module, device: torch.device,
           bf16: bool = False) -> Tuple[torch.Tensor, _build.RingDesc]:
     """:func:`pack_ring` on ``device`` once per weight state, gathered from
-    the cached :func:`_packed` buffer (``bf16``: its bf16 layout, from the
-    weights)."""
-    if bf16:
-        return _cached(field, device, "_ring_bf16_pack", _ring_bf16_from)
-    return _cached(field, device, "_ring_pack", lambda f: _ring_from(f, *_packed(f, device)))
+    the cached :func:`_packed` buffer (``bf16``: its bf16 layout, cached
+    apart)."""
+    return _cached(field, device, "_ring_bf16_pack" if bf16 else "_ring_pack",
+                   lambda f: _ring_from(f, *_packed(f, device), bf16))
 
 
 def _train_bwd(field: nn.Module, device: torch.device
@@ -783,11 +935,13 @@ def _train_bwd(field: nn.Module, device: torch.device
     return _cached(field, device, "_fused_train_pack", pack_train_bwd)
 
 
-def _bwd_ring(field: nn.Module, device: torch.device) -> Tuple[torch.Tensor, _build.RingDesc]:
-    """:func:`pack_bwd_ring` on ``device`` once per weight state, gathered
-    from the cached :func:`pack_train_bwd` buffer."""
-    return _cached(field, device, "_bwd_ring_pack",
-                   lambda f: _bwd_ring_from(f, *_train_bwd(f, device)))
+def _bwd_ring(field: nn.Module, device: torch.device,
+              bf16: bool = False) -> Tuple[torch.Tensor, _build.RingDesc]:
+    """:func:`pack_bwd_ring` on ``device`` once per weight state, from the
+    cached :func:`pack_train_bwd` buffer (``bf16``: its bf16 layout, cached
+    apart)."""
+    return _cached(field, device, "_bwd_ring_bf16_pack" if bf16 else "_bwd_ring_pack",
+                   lambda f: _bwd_ring_from(f, *_train_bwd(f, device), bf16))
 
 
 # K3's workspace planes (csrc/train_render.cu ``enum Plane``; K6 adds s_act,
@@ -1089,7 +1243,8 @@ def fused_render(field: nn.Module, odv: torch.Tensor, z: torch.Tensor,
 
 
 def fused_rgb_train_grads(field: nn.Module, odv: torch.Tensor, z: torch.Tensor, gt: torch.Tensor,
-                          *, white_bkgd: bool, noise_std: float, seed: int
+                          *, white_bkgd: bool, noise_std: float, seed: int,
+                          compute_dtype: torch.dtype = torch.float32
                           ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor, torch.Tensor]:
     """K3: one RGB train pass, ``odv [R, 9]``, ``z [R, S]``, ``gt [R, 3]`` ->
     (unscaled grads by parameter name, maps ``[R, 5 + sem]``, weights
@@ -1098,10 +1253,12 @@ def fused_rgb_train_grads(field: nn.Module, odv: torch.Tensor, z: torch.Tensor, 
     K4's 128-point tile, the weights from :func:`pack_ring` through its ring)
     and the reverse-sweep kernels (the input-gradient matrices from
     :func:`pack_bwd_ring` through the reverse sweep's ring) once per wave of
-    chunks and the reduction, and adds one to ``launches``."""
+    chunks and the reduction, and adds one to ``launches``. At bf16 the
+    kernels' bf16 modes (the rings in their bf16 layouts), counted in
+    ``launches_bf16``."""
     if odv.device.type == "cpu":
         return rgb_train_grads_plain(field, odv, z, gt, white_bkgd=white_bkgd,
-                                     noise_std=noise_std, seed=seed)
+                                     noise_std=noise_std, seed=seed, compute_dtype=compute_dtype)
     if odv.device.type != "cuda":
         raise NotImplementedError(f"no kernel for device {odv.device}")
     _check_inputs(field, odv, 9, z)
@@ -1109,29 +1266,67 @@ def fused_rgb_train_grads(field: nn.Module, odv: torch.Tensor, z: torch.Tensor, 
         raise ValueError(f"gt must be contiguous float32 on {odv.device}")
     if tuple(gt.shape) != (odv.shape[0], 3):
         raise ValueError(f"expected gt [R, 3], got {tuple(gt.shape)}")
+    bf16 = is_bf16(compute_dtype)
+    flat, maps, weights, _ = _train_grads_launch(field, odv, z, gt, None, noise_std=noise_std,
+                                                 seed=seed, white_bkgd=white_bkgd, bf16=bf16)
+    if z.shape[0] > 0:
+        _count(fused_rgb_train_grads, bf16)
+    return unpack_grads(field, flat), maps, weights
+
+
+def _train_grads_launch(field: nn.Module, odv: torch.Tensor, z: torch.Tensor, aux: torch.Tensor,
+                        dweights: Optional[torch.Tensor], *, noise_std: float, seed: int,
+                        white_bkgd: Optional[bool], bf16: bool):
+    """K3's (``white_bkgd`` given: ``aux`` is gt) or K6's (``white_bkgd``
+    None: ``aux`` is dmaps, with ``dweights``) launches on checked CUDA
+    inputs, none for ``R == 0``: the storing forward on K4's tile (a chunk
+    of :func:`_wg_plan`'s rays, the weights from :func:`pack_ring` through
+    its ring) and the reverse sweep in waves (the input-gradient matrices
+    from :func:`pack_bwd_ring` through its ring), then the reduction; with
+    ``bf16`` both in their bf16 modes, the rings in their bf16 layouts.
+    Returns the flat gradient buffer, K3's maps and weights (None for K6)
+    and ``(workspace, train_desc, grid, group)``: after a call of one wave
+    (a chunk a CTA, group 1) each CTA's slice of the workspace holds its
+    chunk's planes."""
     R, S = z.shape
+    k3 = white_bkgd is not None
+    sem = field.mlp.use_semantics and not k3
     buf, fdesc = _packed(field, odv.device)
-    rbuf, ring = _ring(field, odv.device)
+    rbuf, ring = _ring(field, odv.device, bf16)
     rpc, rd = _wg_plan(fdesc, ring, S)
     bwd = _train_bwd(field, odv.device)[1]
-    bring, brd = _bwd_ring(field, odv.device)
-    desc, grid, group = _sweep_launch(field, fdesc, bwd, R, S, odv.device, rays_per_chunk=rpc)
-    maps = torch.empty((R, 5 + fdesc.sem_dim), device=odv.device, dtype=torch.float32)
-    weights = torch.empty((R, S), device=odv.device, dtype=torch.float32)
+    bring, brd = _bwd_ring(field, odv.device, bf16)
+    desc, grid, group = _sweep_launch(field, fdesc, bwd, R, S, odv.device, sem,
+                                      rays_per_chunk=rpc)
+    desc.f.bf16 = int(bf16)
+    maps = weights = None
+    if k3:
+        maps = torch.empty((R, 5 + fdesc.sem_dim), device=odv.device, dtype=torch.float32)
+        weights = torch.empty((R, S), device=odv.device, dtype=torch.float32)
     flat = torch.zeros(desc.grad_size, device=odv.device, dtype=torch.float32)
+    work = torch.empty(grid * desc.ws_size if R > 0 else 0, device=odv.device,
+                       dtype=torch.float32)
     if R > 0:
         partial = torch.empty(grid * desc.grad_size, device=odv.device, dtype=torch.float32)
-        work = torch.empty(grid * desc.ws_size, device=odv.device, dtype=torch.float32)
+        lib = _build.library()
         with torch.cuda.device(odv.device):
-            code = _build.library().nerf_rgb_train_grads(
-                odv.data_ptr(), z.data_ptr(), gt.data_ptr(), buf.data_ptr(), rbuf.data_ptr(),
-                bring.data_ptr(), ctypes.byref(desc), ctypes.byref(rd), ctypes.byref(brd),
-                maps.data_ptr(), weights.data_ptr(), partial.data_ptr(), work.data_ptr(),
-                flat.data_ptr(), R, S, grid, group, noise_seed(seed), float(noise_std),
-                int(white_bkgd), _build.stream(odv.device))
-        _build.check(code, "fused_rgb_train_grads")
-        fused_rgb_train_grads.launches += 1
-    return unpack_grads(field, flat), maps, weights
+            if k3:
+                code = lib.nerf_rgb_train_grads(
+                    odv.data_ptr(), z.data_ptr(), aux.data_ptr(), buf.data_ptr(),
+                    rbuf.data_ptr(), bring.data_ptr(), ctypes.byref(desc), ctypes.byref(rd),
+                    ctypes.byref(brd), maps.data_ptr(), weights.data_ptr(), partial.data_ptr(),
+                    work.data_ptr(), flat.data_ptr(), R, S, grid, group, noise_seed(seed),
+                    float(noise_std), int(white_bkgd), _build.stream(odv.device))
+            else:
+                code = lib.nerf_train_render_grads(
+                    odv.data_ptr(), z.data_ptr(), aux.data_ptr(),
+                    None if dweights is None else dweights.data_ptr(), buf.data_ptr(),
+                    rbuf.data_ptr(), bring.data_ptr(), ctypes.byref(desc), ctypes.byref(rd),
+                    ctypes.byref(brd), partial.data_ptr(), work.data_ptr(), flat.data_ptr(), R,
+                    S, grid, group, noise_seed(seed), float(noise_std),
+                    _build.stream(odv.device))
+        _build.check(code, "fused_rgb_train_grads" if k3 else "train_render_grads")
+    return flat, maps, weights, (work, desc, grid, group)
 
 
 def _wg_smem(fdesc: _build.MLPDesc, rd: _build.RingDesc, rays_per_chunk: int, S: int) -> int:
@@ -1289,7 +1484,8 @@ def frozen_sem_grads(field: nn.Module, sem_in: torch.Tensor, weights: torch.Tens
 
 def train_render_grads(field: nn.Module, odv: torch.Tensor, z: torch.Tensor,
                        dmaps: torch.Tensor, dweights: Optional[torch.Tensor], *,
-                       noise_std: float, seed: int) -> Dict[str, torch.Tensor]:
+                       noise_std: float, seed: int,
+                       compute_dtype: torch.dtype = torch.float32) -> Dict[str, torch.Tensor]:
     """K6: the gradients of every parameter of the field from the maps'
     cotangent ``dmaps [R, 5 + sem]`` and the weights' ``dweights [R, S]``
     (None: zero), recomputing the forward of ``odv [R, 9]``, ``z [R, S]``
@@ -1297,10 +1493,11 @@ def train_render_grads(field: nn.Module, odv: torch.Tensor, z: torch.Tensor,
     launches K3's forward (on K4's tile) and reverse-sweep kernels (its
     input-gradient products through the ring of :func:`pack_bwd_ring`) in
     their cotangent mode once per wave of chunks and the reduction, and adds
-    one to ``launches``."""
+    one to ``launches``. At bf16 the kernels' bf16 modes, counted in
+    ``launches_bf16``."""
     if odv.device.type == "cpu":
         return train_render_grads_plain(field, odv, z, dmaps, dweights, noise_std=noise_std,
-                                        seed=seed)
+                                        seed=seed, compute_dtype=compute_dtype)
     if odv.device.type != "cuda":
         raise NotImplementedError(f"no kernel for device {odv.device}")
     _check_inputs(field, odv, 9, z)
@@ -1314,27 +1511,12 @@ def train_render_grads(field: nn.Module, odv: torch.Tensor, z: torch.Tensor,
             raise ValueError(f"{name} must be contiguous float32 on {odv.device}")
         if tuple(t.shape) != shape:
             raise ValueError(f"expected {name} {shape}, got {tuple(t.shape)}")
-    sem = field.mlp.use_semantics
-    rbuf, ring = _ring(field, odv.device)
-    rpc, rd = _wg_plan(fdesc, ring, S)
-    bwd = _train_bwd(field, odv.device)[1]
-    bring, brd = _bwd_ring(field, odv.device)
-    desc, grid, group = _sweep_launch(field, fdesc, bwd, R, S, odv.device, sem,
-                                      rays_per_chunk=rpc)
-    flat = torch.zeros(desc.grad_size, device=odv.device, dtype=torch.float32)
+    bf16 = is_bf16(compute_dtype)
+    flat, *_ = _train_grads_launch(field, odv, z, dmaps, dweights, noise_std=noise_std,
+                                   seed=seed, white_bkgd=None, bf16=bf16)
     if R > 0:
-        partial = torch.empty(grid * desc.grad_size, device=odv.device, dtype=torch.float32)
-        work = torch.empty(grid * desc.ws_size, device=odv.device, dtype=torch.float32)
-        with torch.cuda.device(odv.device):
-            code = _build.library().nerf_train_render_grads(
-                odv.data_ptr(), z.data_ptr(), dmaps.data_ptr(),
-                None if dweights is None else dweights.data_ptr(), buf.data_ptr(),
-                rbuf.data_ptr(), bring.data_ptr(), ctypes.byref(desc), ctypes.byref(rd),
-                ctypes.byref(brd), partial.data_ptr(), work.data_ptr(), flat.data_ptr(), R, S,
-                grid, group, noise_seed(seed), float(noise_std), _build.stream(odv.device))
-        _build.check(code, "train_render_grads")
-        train_render_grads.launches += 1
-    return unpack_grads(field, flat, sem)
+        _count(train_render_grads, bf16)
+    return unpack_grads(field, flat, field.mlp.use_semantics)
 
 
 class _TrainRender(torch.autograd.Function):
@@ -1343,7 +1525,7 @@ class _TrainRender(torch.autograd.Function):
     dropped, as nothing but the semantic columns of the maps depends on the
     head). Without ``frozen``: K6, every leaf from the maps' and the
     weights' cotangents. Rays and z get no cotangent; an output that nothing
-    used gets None as its cotangent (a zero one). K4 and K5 run at
+    used gets None as its cotangent (a zero one). K4, K5 and K6 run at
     ``compute_dtype``."""
 
     @staticmethod
@@ -1375,7 +1557,8 @@ class _TrainRender(torch.autograd.Function):
                 dmaps = odv.new_zeros(ctx.maps_shape)
             grads = train_render_grads(ctx.field, odv, z, dmaps.contiguous(),
                                        None if dweights is None else dweights.contiguous(),
-                                       noise_std=ctx.noise[0], seed=ctx.noise[1])
+                                       noise_std=ctx.noise[0], seed=ctx.noise[1],
+                                       compute_dtype=ctx.compute_dtype)
         return (None,) * 8 + tuple(grads.get(n) for n in names)
 
 
@@ -1388,14 +1571,10 @@ def fused_train_render(field: nn.Module, odv: torch.Tensor, z: torch.Tensor, *,
     ``[R, 5 + sem]``, weights ``[R, S]``) through K4. With ``frozen`` (the
     ``--fix_backbone`` finetune) its backward is K5; ``sem_in`` is stored
     only when a gradient can be asked for. Without ``frozen`` the backward is
-    K6, which recomputes the forward and stores no ``sem_in``. At bf16 K4 and
-    K5 run their bf16 modes, and a render whose backward would be K6 (no
-    bf16 mode) raises before K4 runs."""
+    K6, which recomputes the forward and stores no ``sem_in``. At bf16 K4,
+    K5 and K6 run their bf16 modes."""
     params = list(field.parameters())
     grad = torch.is_grad_enabled() and any(p.requires_grad for p in params)
-    if is_bf16(compute_dtype) and grad and not frozen:
-        raise NotImplementedError("compute_dtype bfloat16: the full train-render backward "
-                                  "K6 has no bf16 mode yet (the frozen finetune, K5, has)")
     save = frozen and field.mlp.use_semantics and grad
     return _TrainRender.apply(field, odv, z, float(noise_std), int(seed), bool(frozen), save,
                               compute_dtype, *params)
@@ -1500,7 +1679,8 @@ def _mip_grads_launch(field: nn.Module, odvr: torch.Tensor, z: torch.Tensor,
 
 def mip_train_render_grads(field: nn.Module, odvr: torch.Tensor, z: torch.Tensor,
                            dmaps: torch.Tensor, dweights: Optional[torch.Tensor], *,
-                           noise_std: float, seed: int) -> Dict[str, torch.Tensor]:
+                           noise_std: float, seed: int,
+                           compute_dtype: torch.dtype = torch.float32) -> Dict[str, torch.Tensor]:
     """K10b: the gradients of every parameter of the mip field from the
     maps' cotangent ``dmaps [R, 5]`` and the weights' ``dweights [R, S]``
     (None: zero), recomputing the forward of ``odvr [R, 10]``,
@@ -1510,7 +1690,11 @@ def mip_train_render_grads(field: nn.Module, odvr: torch.Tensor, z: torch.Tensor
     weights from :func:`pack_ring` through its ring) and reverse-sweep
     kernels (through the ring of :func:`pack_bwd_ring`) in their mip
     cotangent mode once per wave of chunks and the reduction, and adds one
-    to ``launches``."""
+    to ``launches``. It has no bf16 mode: ``compute_dtype`` bfloat16 raises,
+    on any device."""
+    if is_bf16(compute_dtype):
+        raise NotImplementedError("compute_dtype bfloat16: K10b (mip_train_render_grads) has "
+                                  "no bf16 mode yet")
     if odvr.device.type == "cpu":
         return mip_train_render_grads_plain(field, odvr, z, dmaps, dweights,
                                             noise_std=noise_std, seed=seed)
@@ -1572,10 +1756,11 @@ fused_render.launches = 0
 fused_rgb_train_grads.launches = 0
 train_render.launches = 0
 frozen_sem_grads.launches = 0
-for _fn in (fused_coarse_weights, fused_render, train_render, frozen_sem_grads):
+train_render_grads.launches = 0
+for _fn in (fused_coarse_weights, fused_render, fused_rgb_train_grads, train_render,
+            frozen_sem_grads, train_render_grads):
     _fn.launches_bf16 = 0  # the bf16 modes' launches
 del _fn
-train_render_grads.launches = 0
 fused_mip_render.launches = 0
 mip_train_render.launches = 0
 mip_train_render_grads.launches = 0

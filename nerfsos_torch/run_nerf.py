@@ -62,12 +62,13 @@ configuration is outside ``supports_fused``; on the CPU the same code path
 runs their plain versions.
 
 ``--compute_dtype bfloat16`` runs the MLPs and the DINO ViT at bf16, as the
-JAX entry point does. On the fused kernels it covers ``--eval`` (K1, K2) and
-the ``--patch_tune --fix_backbone`` SOS finetune (K4, K5; its test-set
-views and its resume included); every other mode whose kernels have no
-bf16 mode yet (the RGB step K3, the full SOS step K6, ``--mipnerf``'s K9 and
-K10, ``--eval_vol``'s and ``--N_importance 0``'s field kernels) stops with one
-line before any data is loaded (:func:`bf16_refusal`). With
+JAX entry point does. On the fused kernels it covers the RGB pretrain (K3;
+also ``--patch_tune`` without the SOS losses), ``--eval`` (K1, K2), the
+``--patch_tune --fix_backbone`` SOS finetune (K4, K5) and the full
+``--patch_tune`` finetune (K4, K6), their test-set views and resumes
+included; every mode whose kernels have no bf16 mode yet (``--mipnerf``'s
+K9 and K10, ``--eval_vol``'s and ``--N_importance 0``'s field kernels) stops
+with one line before any data is loaded (:func:`bf16_refusal`). With
 ``--no_fused_field`` every mode but ``--mipnerf`` runs at bf16 on the eager
 field.
 
@@ -144,8 +145,8 @@ def create_arg_parser() -> ConfigArgumentParser:
                         help="accepted for parity")
     parser.add_argument("--compute_dtype", type=str, default="float32",
                         choices=["float32", "bfloat16"],
-                        help="MLP and DINO activation dtype (bfloat16: --eval and the "
-                             "--fix_backbone finetune on the kernels; every mode with "
+                        help="MLP and DINO activation dtype (bfloat16: the RGB pretrain, "
+                             "--eval and both SOS finetunes on the kernels; every mode with "
                              "--no_fused_field but --mipnerf)")
     parser.add_argument("--no_fused_field", action="store_true",
                         help="render with plain PyTorch instead of the fused kernels")
@@ -312,11 +313,12 @@ def _check_patch_tune(args) -> None:
                          "(the reference crashes here implicitly; we validate up front)")
 
 
-def bf16_refusal(args, sos_mode: bool) -> str:
+def bf16_refusal(args) -> str:
     """Why a ``--compute_dtype bfloat16`` run cannot run yet ('' when it
     can): the modes whose kernels have no bf16 mode. The fused kernels run
-    bf16 for ``--eval`` (K1, K2) and the ``--fix_backbone`` SOS finetune (K4,
-    K5); the eager field (``--no_fused_field``, or a configuration outside
+    bf16 for the RGB pretrain (K3), ``--eval`` (K1, K2) and both SOS
+    finetunes (K4 with K5 under ``--fix_backbone``, with K6 without it); the
+    eager field (``--no_fused_field``, or a configuration outside
     ``supports_fused``) runs every mode but ``--mipnerf``."""
     if args.compute_dtype != "bfloat16":
         return ""
@@ -326,14 +328,8 @@ def bf16_refusal(args, sos_mode: bool) -> str:
         return ""
     if args.N_importance <= 0:
         missing = "a net with no fine pass runs the field kernels K8d/K8f"
-    elif args.eval:
-        return ""
-    elif args.eval_vol:
+    elif args.eval_vol and not args.eval:
         missing = "--eval_vol runs the field kernel K8b"
-    elif not sos_mode:
-        missing = "the RGB train step runs K3"
-    elif not args.fix_backbone:
-        missing = "the full SOS step's backward is K6 (--fix_backbone's, K5, has one)"
     else:
         return ""
     return f"{missing}, which has no bf16 mode yet; --no_fused_field runs it on the eager field"
@@ -386,7 +382,7 @@ def _main(args, device) -> None:
                          "they need a fine pass, --N_importance > 0")
     if args.no_semantics:
         args.use_semantics = False
-    refusal = bf16_refusal(args, sos_mode)
+    refusal = bf16_refusal(args)
     if refusal:
         raise SystemExit(f"--compute_dtype bfloat16: {refusal}")
     device = _resolve_device(args, device)

@@ -324,7 +324,7 @@ def _patch_one(variant: str, csrc: str) -> None:
             bwd_field) + FIELD_READER)
     elif variant == "fwdonly":
         edit("train_render.cu", lambda t: _sub(
-            t, "    train_reverse_kernel<kSem><<<grid, kThreads, kReverseSmem, st>>>(\n"
+            t, "    train_reverse_kernel<kSem, false, kBf16><<<grid, kThreads, kReverseSmem, st>>>(\n"
                "        bring, nullptr, *d, *brd, RingDesc{}, partial, workspace, R, S, wave, group, "
                "nullptr,\n        nullptr);\n", "", 1))
         edit("fused_field.cu", lambda t: _sub(

@@ -2,8 +2,10 @@
 K1, K2, K4 and K5 against the JAX Pallas kernels at bf16 (interpret mode),
 the eager bf16 field and the bf16 ViT against JAX's bf16 XLA modules, one
 frozen SOS step at bf16 against JAX, ``run_nerf.main`` at bf16 (``--eval``,
-the ``--fix_backbone`` finetune and its resume), and the refusal of every
-fused route whose kernels have no bf16 mode yet.
+the ``--fix_backbone`` finetune and its resume), the refusal of every
+fused route whose kernels have no bf16 mode yet, and the RGB pretrain's and
+the full finetune's routes (K3, K6) passing it (their kernels' bf16 modes:
+tests/test_torch_bf16_train.py).
 
 Two bf16 semantics are held here (``models/mlp.py``): the fused kernels'
 (each product's operands rounded to bf16, the product and the bias in
@@ -40,6 +42,19 @@ from nerfsos_tpu.models import vit as jvit
 from nerfsos_tpu.models.nerf import NeRFConfig as JaxConfig
 from nerfsos_tpu.models.nerf import NeRFNet as JaxNet
 from nerfsos_tpu.ops.pallas import fused_render as jfr
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for torch in this module's tests (the count found
+    is restored after): the tier-1 run's pytest workers share the machine's
+    cores, and torch's default of a thread a core in each worker
+    oversubscribes them many times over."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
+
 
 BF16 = torch.bfloat16
 TINY = dict(netwidth=32, netdepth=5, netwidth_fine=32, netdepth_fine=5, n_samples=8,
@@ -510,9 +525,6 @@ def test_run_nerf_bf16_eval_and_frozen_finetune(patch_scene, tmp_path, monkeypat
 
 
 @pytest.mark.parametrize("flags,kernel", [
-    ([], "K3"),  # the RGB train step
-    (["--patch_tune", "--batch_size", "2", "--patch_size", "8", "--patch_stride", "2",
-      "--use_dino", "--use_geoCorr"], "K6"),  # the full SOS step
     (["--mipnerf"], "K9"),
     (["--N_importance", "0"], "K8d"),
     (["--eval_vol"], "K8b"),
@@ -528,6 +540,23 @@ def test_bf16_refuses_modes_without_bf16_kernels(tmp_path, flags, kernel):
     assert not (tmp_path / "logs").exists()
 
 
+@pytest.mark.parametrize("flags", [
+    [],  # the RGB pretrain (K3)
+    ["--patch_tune", "--batch_size", "2", "--patch_size", "8", "--patch_stride", "2",
+     "--use_dino", "--use_geoCorr"],  # the full SOS finetune (K6)
+])
+def test_bf16_runs_the_rgb_and_full_sos_routes(tmp_path, flags):
+    """The RGB pretrain and the full SOS finetune, refused at bf16 until K3
+    and K6 had their bf16 modes, pass the entry's refusal now: main goes on
+    to load the (missing) data."""
+    args, _ = run_nerf.create_arg_parser().parse_known_args(
+        ["--expname", "x", "--basedir", str(tmp_path / "logs"), "--data_path",
+         str(tmp_path / "missing"), *SOS_FLAGS, *flags])
+    assert run_nerf.bf16_refusal(args) == ""
+    with pytest.raises(FileNotFoundError, match="missing"):
+        run_nerf.main(args, device="cpu")
+
+
 def test_bf16_rgb_step_runs_on_the_eager_field(patch_scene, tmp_path):
     """--no_fused_field at bf16: the RGB train step on flax-semantics bf16
     layers (autograd through bf16), a finite loss and moved weights."""
@@ -538,17 +567,21 @@ def test_bf16_rgb_step_runs_on_the_eager_field(patch_scene, tmp_path):
 
 
 def test_fused_bf16_routes_refuse_in_the_library():
-    """The library's own refusals, before any kernel: a train render whose
-    backward is K6, the RGB step's K3, a noisy density-only view (K8e),
-    field_query (K8b) and a net with no fine pass (K8d/K8f)."""
+    """The library's own refusals, before any kernel: a noisy density-only
+    view (K8e), field_query (K8b) and a net with no fine pass (K8d/K8f);
+    the routes of K6 (a train render whose backward is K6) and K3 (the RGB
+    step) run at bf16 now, each leaf getting its gradient."""
     _, _, tnet = _nets()
     odv, z = (torch.from_numpy(a) for a in _inputs(0, 8))
-    with pytest.raises(NotImplementedError, match="K6"):
-        tfr.fused_train_render(tnet.nerf, odv, z, noise_std=0.0, seed=0, frozen=False,
-                               compute_dtype=BF16)
-    with pytest.raises(NotImplementedError, match="K3"):
-        ttrainer.make_rgb_train_step(tnet, tstate.make_optimizer(tnet, 1e-3),
-                                     lambda s: 1e-3, 2.0, 6.0)
+    maps, _ = tfr.fused_train_render(tnet.nerf, odv, z, noise_std=0.0, seed=0, frozen=False,
+                                     compute_dtype=BF16)
+    maps.sum().backward()
+    assert all(p.grad is not None for p in tnet.nerf.parameters())
+    step = ttrainer.make_rgb_train_step(tnet, tstate.make_optimizer(tnet, 1e-3),
+                                        lambda s: 1e-3, 2.0, 6.0)
+    m = step({"rays": torch.from_numpy(np.stack([odv[:, 0:3], odv[:, 3:6]])),
+              "target": torch.rand(R, 3)}, 0)
+    assert torch.isfinite(m["loss"])
     rays = torch.from_numpy(np.random.default_rng(0).normal(size=(2, 4, 3)).astype(np.float32))
     with pytest.raises(NotImplementedError, match="K8e"):
         tnet(rays, (1.0, 4.0), coarse_outputs=False, raw_noise_std=1.0)
@@ -560,3 +593,28 @@ def test_fused_bf16_routes_refuse_in_the_library():
     with torch.no_grad():  # the forward alone (K4) runs, as the finetune's ARI re-render does
         out = tnet(rays, (1.0, 4.0))
     assert torch.isfinite(out["rgb"]).all()
+
+
+@pytest.mark.parametrize("kernel", ["K10b", "K8f", "K8c"])
+def test_sweeps_without_bf16_refuse_it(kernel):
+    """The reverse sweeps with no bf16 mode, K10b (the mip backward) and the
+    field backward K8f/K8c, raise a named error at bf16 on any device (no
+    float32 run in its place); their C entries refuse a bf16 descriptor
+    (tests/test_torch_cuda.py)."""
+    from nerfsos_torch.models.fields import MipNeRFField, NeRFField
+    from nerfsos_torch.ops import fused_field as tff
+
+    rng = np.random.default_rng(0)
+    if kernel == "K10b":
+        field = MipNeRFField(net_depth=5, net_width=16, multires=4, multires_views=2)
+        odvr = torch.from_numpy(rng.normal(size=(4, 10)).astype(np.float32))
+        z = torch.from_numpy(np.sort(rng.uniform(1, 4, (4, 9)), 1).astype(np.float32))
+        with pytest.raises(NotImplementedError, match="K10b"):
+            tfr.mip_train_render_grads(field, odvr, z, torch.zeros(4, 5), None, noise_std=0.0,
+                                       seed=0, compute_dtype=BF16)
+    else:
+        field = NeRFField(net_depth=5, net_width=16, multires=4, multires_views=2)
+        pts = torch.from_numpy(rng.normal(size=(8, 3)).astype(np.float32))
+        with pytest.raises(NotImplementedError, match="K8c/K8f"):
+            tff.field_grads(field, pts, pts, torch.zeros(8, 4), input_grads=kernel == "K8c",
+                            compute_dtype=BF16)

@@ -13,12 +13,18 @@ of the bf16 modes of K1, K2, K4 and K5 (``bf16_columns``, ``bf16_stored``:
 bf16 rounding flips bounded as a group, at most BF16_FLIP_ROWS of the rows
 beyond TOL, each entry within BF16_ENTRY of its column's scale; sem_in
 within BF16_STORED_SHARE and BF16_STORED_STEPS; ``k5_bf16_over``: each leaf
-within BF16_SHARE of its bf16-vs-fp32 distance or GRAD_TOL). K5 is held to GRAD_TOL on
+within BF16_SHARE of its bf16-vs-fp32 distance or GRAD_TOL; K3's and K6's bf16
+leaves within BF16_WITNESS of their plain version's last-bit sensitivity or
+GRAD_TOL over several waves, ``bf16_leaves``; on one wave their stored planes
+within bf16_stored's bounds of the plain forward and their reverse sweep
+within BF16_PLANES_TOL of the plain sweep on those planes, ``bf16_planes``).
+K5 is held to GRAD_TOL on
 points whose semantic-head gates are clear of 0 (the others get weight 0); K6
 on rays whose trunk, views and semantic-head gates are clear of 0; K10b on
 rays whose trunk and views gates are clear of 0; the field backward on
 points whose trunk, views and semantic-head gates are clear of 0.
 """
+import ctypes
 import itertools
 
 import numpy as np
@@ -26,7 +32,8 @@ import pytest
 import torch
 
 from chip_smoke import (GATE_MARGIN, GRAD_TOL, INPUT_GRAD_MARGIN, K7_TOL, TOL, bf16_columns,
-                        bf16_stored, flip_allowance, k5_bf16_over,
+                        bf16_leaves, bf16_planes, bf16_stored, bf16_witness, flip_allowance,
+                        k5_bf16_over,
                         plain_k3_with_gates, plain_k6_with_gates, plain_k10b_with_gates)
 from nerfsos_torch.core.sampling import points_along_rays
 from nerfsos_torch.models.fields import MipNeRFField, NeRFField
@@ -1276,3 +1283,226 @@ def test_k4_k5_bf16_through_autograd(cuda):
     _, w, sem_in = fr.train_render(field, odv, z, noise_std=0.0, seed=0, save_semin=True)
     with pytest.raises(ValueError):
         fr.frozen_sem_grads(field, sem_in, w, torch.zeros(300, 7, device=cuda), BF16)
+
+
+def _ring_bytes(field, bf16):
+    """The forward ring's and the backward ring's buffers of ``field``."""
+    device = next(field.parameters()).device
+    return fr._ring(field, device, bf16)[0], fr._bwd_ring(field, device, bf16)[0]
+
+
+def _k3_bf16(field, odv, z, gt, kw):
+    """K3's bf16 mode on a call of one wave of chunks: its grads, maps and
+    weights, its bf16 plain version's, and its stored planes and reverse
+    sweep held to the plain forward and sweep (bf16_planes)."""
+    got = fr.fused_rgb_train_grads(field, odv, z, gt, compute_dtype=BF16, **kw)
+    flat, *_, launch = fr._train_grads_launch(field, odv, z, gt, None, bf16=True, **kw)
+    assert all(torch.equal(v, fr.unpack_grads(field, flat)[k]) for k, v in got[0].items())
+    bf16_planes(fr, "K3", field, got[0], launch, odv, z, False)
+    return got, fr.rgb_train_grads_plain(field, odv, z, gt, compute_dtype=BF16, **kw)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("s,sem,white", [(64, True, False), (192, True, False), (16, False, True)])
+@pytest.mark.parametrize("n", [37, 256])
+def test_k3_bf16_matches_plain(cuda, shape, s, sem, white, n):
+    """K3's bf16 mode (the storing forward and the reverse sweep on wgmma
+    bf16), one wave of chunks: maps and weights within bf16_columns' bounds
+    of the bf16 plain version, the stored planes within bf16_stored's of
+    the plain forward, the gradients within BF16_PLANES_TOL of the plain
+    sweep on those planes (bf16_planes; the semantic head's exactly 0), two
+    calls bitwise equal, counted in ``launches_bf16`` alone."""
+    field = _field(cuda, 2, use_semantics=sem, sem_with_coord=sem, sem_dim=2, **shape)
+    odv, z, gt = _k3_inputs(cuda, n, s, 5)
+    kw = dict(white_bkgd=white, noise_std=1.0, seed=987654)
+    before = (fr.fused_rgb_train_grads.launches, fr.fused_rgb_train_grads.launches_bf16)
+    got, want = _k3_bf16(field, odv, z, gt, kw)
+    again = fr.fused_rgb_train_grads(field, odv, z, gt, compute_dtype=BF16, **kw)
+    torch.cuda.synchronize()
+    assert (fr.fused_rgb_train_grads.launches,
+            fr.fused_rgb_train_grads.launches_bf16) == (before[0], before[1] + 2)
+    assert all(torch.equal(got[0][k], again[0][k]) for k in got[0])
+    assert torch.equal(got[1], again[1]) and torch.equal(got[2], again[2])
+    bf16_columns("K3 maps", got[1], want[1])
+    bf16_columns("K3 weights", got[2], want[2])
+    for name, g in got[0].items():
+        if "semantic_linear" in name:
+            assert not g.any(), name
+
+
+def _k6_bf16(field, odv, z, dmaps, dw, kw):
+    """K6's bf16 mode on a call of one wave of chunks, its stored planes and
+    reverse sweep held to the plain forward and sweep (bf16_planes)."""
+    got = fr.train_render_grads(field, odv, z, dmaps, dw, compute_dtype=BF16, **kw)
+    flat, *_, launch = fr._train_grads_launch(field, odv, z, dmaps, dw, bf16=True,
+                                              white_bkgd=None, **kw)
+    sem = field.mlp.use_semantics
+    assert all(torch.equal(v, fr.unpack_grads(field, flat, sem)[k]) for k, v in got.items())
+    bf16_planes(fr, "K6", field, got, launch, odv, z, sem)
+    return got
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("s,coord,dweights", [(64, True, True), (192, True, False),
+                                              (16, False, True)])
+@pytest.mark.parametrize("n", [37, 256])
+def test_k6_bf16_matches_plain(cuda, shape, s, coord, dweights, n):
+    """K6's bf16 mode with the semantic head, one wave of chunks: the stored
+    planes within bf16_stored's bounds of the plain forward, the gradients
+    within BF16_PLANES_TOL of the plain sweep on them, two calls bitwise
+    equal, counted in ``launches_bf16`` alone."""
+    field = _field(cuda, 8, use_semantics=True, sem_with_coord=coord, sem_dim=2, **shape)
+    odv, z = _inputs(cuda, n, s, 13)
+    rng = np.random.default_rng(n + s)
+    dmaps = torch.from_numpy(rng.normal(size=(n, 7)).astype(np.float32)).to(cuda)
+    dw = (torch.from_numpy(rng.normal(size=(n, s)).astype(np.float32)).to(cuda) if dweights
+          else None)
+    kw = dict(noise_std=1.0, seed=13579)
+    before = (fr.train_render_grads.launches, fr.train_render_grads.launches_bf16)
+    got = _k6_bf16(field, odv, z, dmaps, dw, kw)
+    again = fr.train_render_grads(field, odv, z, dmaps, dw, compute_dtype=BF16, **kw)
+    torch.cuda.synchronize()
+    assert (fr.train_render_grads.launches,
+            fr.train_render_grads.launches_bf16) == (before[0], before[1] + 2)
+    assert all(torch.equal(got[k], again[k]) for k in got)
+
+
+def test_k6_bf16_without_semantics(cuda):
+    """A field without the semantic head: K6's bf16 sweep of its layers alone."""
+    field = _field(cuda, 9, **SHAPES[0])
+    odv, z = _inputs(cuda, 500, 64, 14)
+    dmaps = torch.from_numpy(np.random.default_rng(1).normal(size=(500, 5)).astype(np.float32))
+    _k6_bf16(field, odv, z, dmaps.to(cuda), None, dict(noise_std=0.0, seed=0))
+
+
+@pytest.mark.parametrize("kernel", ["k3", "k6"])
+def test_k3_k6_bf16_over_waves_match_plain(cuda, kernel):
+    """K3's and K6's bf16 modes over several waves of grouped chunks (3000
+    rays x 64 at the flagship width): every leaf within bf16_leaves' bound
+    of the bf16 plain version (BF16_WITNESS times its own last-bit
+    sensitivity, bf16_witness), K3's maps and weights within bf16_columns'."""
+    field = _field(cuda, 11, use_semantics=True, sem_with_coord=True, sem_dim=2, **SHAPES[0])
+    odv, z, gt = _k3_inputs(cuda, 3000, 64, 16)
+    if kernel == "k3":
+        kw = dict(white_bkgd=False, noise_std=1.0, seed=97)
+        got = fr.fused_rgb_train_grads(field, odv, z, gt, compute_dtype=BF16, **kw)
+
+        def plain(f):
+            return fr.rgb_train_grads_plain(f, odv, z, gt, compute_dtype=BF16, **kw)
+
+        want = plain(field)
+        bf16_columns("K3 maps", got[1], want[1])
+        bf16_columns("K3 weights", got[2], want[2])
+        bf16_leaves("K3", got[0], want[0], bf16_witness(lambda f: plain(f)[0], field, want[0]))
+    else:
+        rng = np.random.default_rng(17)
+        dmaps = torch.from_numpy(rng.normal(size=(3000, 7)).astype(np.float32)).to(cuda)
+        kw = dict(noise_std=1.0, seed=97)
+        got = fr.train_render_grads(field, odv, z, dmaps, None, compute_dtype=BF16, **kw)
+
+        def plain(f):
+            return fr.train_render_grads_plain(f, odv, z, dmaps, None, compute_dtype=BF16, **kw)
+
+        want = plain(field)
+        bf16_leaves("K6", got, want, bf16_witness(plain, field, want))
+
+
+def test_k4_k6_bf16_through_autograd(cuda):
+    """fused_train_render at bf16 without ``frozen``: K4's and K6's bf16
+    modes (their bf16 counters, not the fp32 ones), a gradient on every
+    leaf, bitwise K6's bf16 mode on the same cotangent; K5 does not run."""
+    field = _field(cuda, 10, use_semantics=True, sem_with_coord=True, sem_dim=2, **SHAPES[0])
+    odv, z = _inputs(cuda, 300, 64, 15)
+    fns = (fr.train_render, fr.train_render_grads, fr.frozen_sem_grads)
+    counts = [(f.launches, f.launches_bf16) for f in fns]
+    maps, w = fr.fused_train_render(field, odv, z, noise_std=1.0, seed=3, frozen=False,
+                                    compute_dtype=BF16)
+    dmaps = torch.arange(1.0, 8.0, device=cuda).expand(300, 7).contiguous()
+    (maps * dmaps).sum().backward()
+    torch.cuda.synchronize()
+    assert [(f.launches, f.launches_bf16) for f in fns] == [
+        (counts[0][0], counts[0][1] + 1), (counts[1][0], counts[1][1] + 1), counts[2]]
+    want = fr.train_render_grads(field, odv, z, dmaps, None, noise_std=1.0, seed=3,
+                                 compute_dtype=BF16)
+    for name, p in field.named_parameters():
+        assert torch.equal(p.grad, want[name]), name
+
+
+@pytest.mark.parametrize("kernel", ["k3", "k6"])
+def test_bf16_rings_follow_a_weight_update(cuda, kernel):
+    """K3's and K6's bf16 rings (``pack_ring``'s and ``pack_bwd_ring``'s bf16
+    layouts, cached apart from the fp32 ones) are packed anew after an
+    in-place weight update, equal fresh packings, and the kernel follows
+    the plain forward and sweep on its own planes (bf16_planes)."""
+    field = _field(cuda, 50, use_semantics=kernel == "k6", sem_with_coord=True, sem_dim=2,
+                   **SHAPES[0])
+    odv, z, gt = _k3_inputs(cuda, 300, 64, 52)
+    dmaps = torch.from_numpy(np.random.default_rng(3).normal(size=(300, 7)).astype(np.float32))
+    dmaps = dmaps.to(cuda)
+
+    def check():
+        if kernel == "k3":
+            _k3_bf16(field, odv, z, gt, dict(white_bkgd=False, noise_std=1.0, seed=5353))
+        else:
+            _k6_bf16(field, odv, z, dmaps, None, dict(noise_std=1.0, seed=5353))
+
+    check()
+    before = [t.clone() for t in _ring_bytes(field, True)]
+    with torch.no_grad():
+        field.mlp.rgb_linear.weight.mul_(-0.75)
+        field.mlp.pts_linears[3].weight.mul_(0.9)
+    check()
+    after = _ring_bytes(field, True)
+    assert not any(torch.equal(a, b) for a, b in zip(after, before))
+    assert torch.equal(after[0], fr.pack_ring(field, True)[0])
+    assert torch.equal(after[1], fr.pack_bwd_ring(field, True)[0])
+
+
+def test_sweep_entries_without_bf16_refuse_it(cuda):
+    """K10b's and the field backward's C entries return
+    cudaErrorInvalidValue for a bf16 descriptor (no fp32 run in its place),
+    and their wrappers raise at bf16."""
+    from nerfsos_torch import _build
+
+    mip = _mip_field(cuda, 3, **SHAPES[1])
+    odvr, z = _mip_inputs(cuda, 8, 7, 4)
+    dmaps = torch.zeros(8, 5, device=cuda)
+    with pytest.raises(NotImplementedError, match="K10b"):
+        fr.mip_train_render_grads(mip, odvr, z, dmaps, None, noise_std=0.0, seed=0,
+                                  compute_dtype=BF16)
+    field = _field(cuda, 3, **SHAPES[1])
+    pts, dirs = _field_points(cuda, 64, 5)
+    with pytest.raises(NotImplementedError, match="K8c/K8f"):
+        ff.field_grads(field, pts, dirs, torch.zeros(64, 4, device=cuda), input_grads=False,
+                       compute_dtype=BF16)
+    # the C entries themselves, with the fp32 rings and a descriptor set to bf16
+    buf, fdesc = fr._packed(mip, cuda)
+    rbuf, ring = fr._ring(mip, cuda)
+    rpc, rd = fr._wg_plan(fdesc, ring, 7)
+    bwd = fr._train_bwd(mip, cuda)[1]
+    bring, brd = fr._bwd_ring(mip, cuda)
+    desc, grid, group = fr._sweep_launch(mip, fdesc, bwd, 8, 7, cuda, rays_per_chunk=rpc)
+    desc.f.bf16 = 1
+    partial = torch.zeros(grid * desc.grad_size, device=cuda)
+    work = torch.zeros(grid * desc.ws_size, device=cuda)
+    flat = torch.zeros(desc.grad_size, device=cuda)
+    code = _build.library().nerf_mip_train_render_grads(
+        odvr.data_ptr(), z.data_ptr(), dmaps.data_ptr(), None, buf.data_ptr(), rbuf.data_ptr(),
+        bring.data_ptr(), ctypes.byref(desc), ctypes.byref(rd), ctypes.byref(brd),
+        partial.data_ptr(), work.data_ptr(), flat.data_ptr(), 8, 7, grid, group, 0, 0.0,
+        _build.stream(cuda))
+    assert code == 1 and not flat.any()  # cudaErrorInvalidValue, nothing written
+    buf, fdesc = fr._packed(field, cuda)
+    desc, grid, group = fr._sweep_launch(field, fdesc, fr._train_bwd(field, cuda)[1], 64, 1,
+                                         cuda, False)
+    desc.f.bf16 = 1
+    rbuf, ring = fr._ring(field, cuda)
+    bring, brd = fr._bwd_ring(field, cuda)
+    flat = torch.zeros(desc.grad_size, device=cuda)
+    code = _build.library().nerf_field_grads(
+        pts.data_ptr(), dirs.data_ptr(), torch.zeros(64, 4, device=cuda).data_ptr(),
+        buf.data_ptr(), rbuf.data_ptr(), bring.data_ptr(), None, ctypes.byref(desc),
+        ctypes.byref(ff._field_ring(fdesc, ring, True)), ctypes.byref(brd),
+        ctypes.byref(_build.RingDesc()), partial.data_ptr(), work.data_ptr(), flat.data_ptr(),
+        None, None, 64, grid, group, _build.stream(cuda))
+    assert code == 1 and not flat.any()

@@ -38,6 +38,19 @@ from nerfsos_tpu.models.nerf import NeRFNet as JaxNet
 from nerfsos_tpu.ops.pallas import fused_field as jff
 from nerfsos_tpu.ops.pallas import fused_render as jfr
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for torch in this module's tests (the count found
+    is restored after): the tier-1 run's pytest workers share the machine's
+    cores, and torch's default of a thread a core in each worker
+    oversubscribes them many times over."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
+
+
 R = 20  # 160 or 320 points: the last 128-point tile is ragged
 WG = 64  # points a consumer warpgroup
 
@@ -1116,6 +1129,18 @@ def _bf16_slices(words, n):
     return b16[:, ((col // 8) * sbo + (q // 8) * lbo + (col % 8) * 16 + (q % 8) * 2) // 2]
 
 
+def _ring_bf16_wt(wt):
+    """One layer's padded ``W^T [kpad, N]`` (N the wgmma width) in
+    pack_ring's bf16 layout, cut slice by slice: its k16 slices as float32
+    words (the reference the ring's gather is held to)."""
+    k16, n = -(-wt.shape[0] // 16) * 16, wt.shape[1]
+    w = wt.new_zeros((k16, n))
+    w[:wt.shape[0]] = wt
+    blk = (w.view(k16 // 16, 16, n)[:, fr.bf16_k_rows(), :].view(k16 // 16, 2, 8, n // 8, 8)
+           .permute(0, 3, 1, 4, 2))  # [s, j, h, r, c]
+    return blk.reshape(-1).to(torch.bfloat16).view(torch.float32)
+
+
 def _bf16_ring_layer(ring, rd, fdesc, i):
     n, k16 = rd.ncols[i], -(-fdesc.layer[i].k // 16)
     return _bf16_slices(ring[rd.off[i]:rd.off[i] + k16 * 8 * n], n)
@@ -1154,6 +1179,9 @@ def test_bf16_ring_reads_back_through_the_descriptor(depth, sem, coord, width):
             want[rp:rp + k, :lin.out_features] = lin.weight.detach().t()[r:r + k]
             r, rp = r + k, rp + fr._pad8(k)
         assert torch.equal(wt, want.to(torch.bfloat16).to(torch.float32)), i
+        padded = torch.zeros(fdesc.layer[i].k, n)
+        padded[:, :fr._pad8(lin.out_features)] = fr._padded_wt(lin, segs)[0]
+        assert torch.equal(ring[rd.off[i]:off], _ring_bf16_wt(padded)), i  # the gather's cut
     assert off == ring.numel()
     assert rd.stage_floats == 8 * max(rd.ncols[i] for i in fr.ring_layers(field))
     for S in (64, 192):
@@ -1183,7 +1211,7 @@ def test_bf16_k_step_model_is_the_bf16_product(width, segs):
         xs[:, rp:rp + k] = x[:, r:r + k]
         wt[rp:rp + k] = lin.weight.detach().t()[r:r + k]
         r, rp = r + k, rp + fr._pad8(k)
-    b16 = _bf16_slices(fr._ring_bf16_wt(wt), fr._ring_n(width))[:, :, :width]
+    b16 = _bf16_slices(_ring_bf16_wt(wt), fr._ring_n(width))[:, :, :width]
     acc = torch.zeros(64, width)
     for ks in range(xs.shape[1] // 16):
         a = torch.zeros(64, 16)

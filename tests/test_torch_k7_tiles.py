@@ -30,6 +30,19 @@ import torch
 from nerfsos_torch.ops import flash_corr as fc
 from nerfsos_tpu.ops.pallas import flash_corr as jfc
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for torch in this module's tests (the count found
+    is restored after): the tier-1 run's pytest workers share the machine's
+    cores, and torch's default of a thread a core in each worker
+    oversubscribes them many times over."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
+
+
 WARPS = 4
 
 

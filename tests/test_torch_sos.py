@@ -42,6 +42,19 @@ from nerfsos_tpu.models.nerf import NeRFConfig as JaxConfig
 from nerfsos_tpu.models.nerf import NeRFNet as JaxNet
 from nerfsos_tpu.ops.pallas import fused_render as jfr
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for torch in this module's tests (the count found
+    is restored after): the tier-1 run's pytest workers share the machine's
+    cores, and torch's default of a thread a core in each worker
+    oversubscribes them many times over."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
+
+
 B, P, STRIDE = 2, 8, 2
 NEAR, FAR = 2.0, 6.0
 NET = dict(netwidth=16, netdepth=5, netwidth_fine=16, netdepth_fine=5, n_samples=4,

@@ -22,6 +22,19 @@ from nerfsos_tpu.models.nerf import NeRFNet as JaxNet
 from nerfsos_tpu.ops.pallas import flash_corr as jfc
 from nerfsos_tpu.ops.pallas import fused_render as jfr
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for torch in this module's tests (the count found
+    is restored after): the tier-1 run's pytest workers share the machine's
+    cores, and torch's default of a thread a core in each worker
+    oversubscribes them many times over."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
+
+
 TINY = dict(netwidth=16, netwidth_fine=16, n_samples=8, n_importance=8, multires=4,
             multires_views=2, use_semantics=True)
 R = 20  # not a multiple of the 8-ray Pallas block
