@@ -3,7 +3,8 @@ the train path, the SOS finetune (frozen, full, random negatives), the
 bf16 modes (--compute_dtype bfloat16: --eval, the RGB pretrain and both
 finetunes),
 mip-NeRF (--mipnerf train and --eval), then the field kernels (--eval_vol
-and nets with no fine pass, --N_importance 0).
+and nets with no fine pass, --N_importance 0), then mip-NeRF at bf16
+(train, --eval and --eval_vol).
 
     python3 chip_smoke.py
 
@@ -185,8 +186,24 @@ Phases (one line each; any failure raises and the exit code is nonzero):
      [sos_full_step], [sos_full_bf16] 5 full finetune steps at bf16 (K6's
      bf16 mode twice a step) and [sos_full_bf16_step] the full step at
      bf16 and fp32 in turns, with peak memory. [fp32_train_kernels] (after
-     the K3 phases): digests of K3's and K6's fp32 outputs on seeded
-     inputs, held to FP32_FINGERPRINTS (the parent tree's), and their times.
+     the K3 phases): digests of K3's, K6's, K9's, K10a's, K10b's and K11's
+     fp32 outputs on seeded inputs, held to FP32_FINGERPRINTS (the parent
+     tree's), and their times;
+ 31. mip-NeRF at bf16 (after 25): [K9_bf16] at 32768 rays a launch,
+     [K10a_bf16] and [K10b_bf16] at 1024 rays (S = 63 and 190),
+     [K10b_bf16_planes] (one wave: the stored planes and the sweep, as
+     [K6_bf16_planes]) and [K11_bf16] at 2^18 points, against their bf16
+     plain versions (bf16_columns; K10b: bf16_leaves beside bf16_witness)
+     beside the readings of the fp32 kernel and a tail fault (K10b: the
+     unrounded gate fault), two calls bitwise, timed beside the same call's
+     fp32 kernel and the bf16 bound; [mip_train_bf16] 30 --mipnerf steps at
+     bf16 (K10a/K10b's bf16 modes twice a step, the last step's K10b calls
+     vs plain), [mip_eval_bf16] the 378x504 --eval --mipnerf view at bf16
+     (the fp32 view of the same checkpoint beside it; its last K9 calls vs
+     plain), [eval_vol_bf16] --eval_vol --mipnerf at bf16 (64 K11 launches,
+     the volume vs the export through K11's bf16 plain version, the fp32
+     export beside it), and [mip_bf16_step] the 1024- and 16384-ray mip
+     steps at bf16 and fp32 in turns, with peak memory.
 The last lines are the card, one JSON object with the kernels' numbers, and
 ``{"ok": true, "device": {...}}``. Scratch files go to build/chip_smoke/.
 """
@@ -283,12 +300,14 @@ MUFU_LANES_PER_CLOCK = 16
 K1_PTXAS = None
 K4_PTXAS = None
 K9_PTXAS = None
-FIELD_PTXAS = {}  # field_wg_kernel by input mode: kInList 3, kInListSigma 4, kInListGauss 5
+# field_wg_kernel by (input mode, kBf16): kInList 3, kInListSigma 4, kInListGauss 5
+FIELD_PTXAS = {}
 K5_PTXAS = None
-# the bf16 modes' lines: train_render_wg_kernel<kInPoint | kInSigma, true> (K4 and K2,
-# K1) and frozen_sem_kernel<true> (K5)
+# the bf16 modes' lines: train_render_wg_kernel<kInPoint | kInSigma | kInMip, true> (K4
+# and K2, K1, K9 and K10a) and frozen_sem_kernel<true> (K5)
 K4_BF16_PTXAS = None
 K1_BF16_PTXAS = None
+K9_BF16_PTXAS = None
 K5_BF16_PTXAS = None
 FWD_PTXAS = {}
 REV_PTXAS = {}
@@ -648,7 +667,8 @@ def check_k6(what: str, got, want, slack, terms, kernel: str = "K6") -> dict:
 # field_bwd_forward_kernel's (kSem, kInGrad)) and the reverse-sweep
 # kernel's (kSem, kInGrad, kBf16)
 SPLIT_PTXAS = {"K3": ((1, 0, 0), (0, 0, 0)), "K6": ((2, 0, 0), (1, 0, 0)),
-               "K10b": ((2, 2, 0), (0, 0, 0)), "K8f": ((1, 0), (1, 0, 0)),
+               "K10b": ((2, 2, 0), (0, 0, 0)), "K10b_bf16": ((2, 2, 1), (0, 0, 1)),
+               "K8f": ((1, 0), (1, 0, 0)),
                "K8c": ((1, 1), (1, 1, 0))}
 
 
@@ -1142,22 +1162,30 @@ def train_step_bf16_timings(fr) -> None:
                   peak_gib=torch.cuda.max_memory_allocated() / 2**30)
 
 
-# The fp32 K3's and K6's outputs on fixed seeded inputs, as sha256 digests
-# (fp32_train_kernels), from this tree's parent on an NVIDIA H100 80GB HBM3
-# (nerfsos_torch/tools/fp32_train_kernels.py --root on the parent): the
-# bf16 modes share their kernels' sources, and their fp32 instantiations
-# must not move by a bit.
-FP32_FINGERPRINTS = {"K3": "806e3addc6b0784a", "K6": "099605c1c82da1b0"}
+# The fp32 K3's, K6's, K9's, K10a's, K10b's and K11's outputs on fixed
+# seeded inputs, as sha256 digests (fp32_train_kernels), from this tree's
+# parent on an NVIDIA H100 80GB HBM3 (nerfsos_torch/tools/fp32_train_kernels.py
+# --root on the parent): the bf16 modes share their kernels' sources, and
+# their fp32 instantiations must not move by a bit.
+FP32_FINGERPRINTS = {"K3": "806e3addc6b0784a", "K6": "099605c1c82da1b0",
+                     "K9": "2467f0fc761c5430", "K10a": "41bd02c1ad3cb367",
+                     "K10b": "08182680a80f63ed", "K11": "367b6f56084c2655"}
 
 
 def fp32_train_kernels(fr) -> dict:
     """[fp32_train_kernels]: sha256 digests (16 hex digits) of K3's fp32
-    grads, maps and weights (1024 rays x 192 samples) and of K6's fp32 grads
-    (4096 x 64, the semantic head, seeded cotangents) on seeded
-    flagship-width inputs, held equal to FP32_FINGERPRINTS where it is set;
-    and the fp32 K3's ms at 1024 rays (S = 64, 192) and K6's at 32768 rays
-    (S = 192, 64), for an A/B against another tree in one call."""
+    grads, maps and weights (1024 rays x 192 samples), of K6's fp32 grads
+    (4096 x 64, the semantic head, seeded cotangents), of K9's and K10a's
+    maps and weights (4096 rays x 190 intervals; K10a with noise 1), of
+    K10b's grads (1024 x 190, seeded cotangents) and of K11's raw (2^16
+    points, covariances below 1e-4) on seeded flagship-width inputs, held
+    equal to FP32_FINGERPRINTS where it is set; and the fp32 K3's ms at 1024
+    rays (S = 64, 192), K6's at 32768 rays (S = 192, 64), K9's at 32768 x
+    190 and K10b's at 1024 x 190, for an A/B against another tree in one
+    call."""
     import hashlib
+
+    from nerfsos_torch.ops import fused_field as ff
 
     def digest(tensors):
         h = hashlib.sha256()
@@ -1192,10 +1220,28 @@ def fp32_train_kernels(fr) -> dict:
             ms[f"K6 {R}x{S}"] = cuda_ms(lambda: fr.train_render_grads(k6_field, odv, z, dmaps,
                                                                        dw, **kw), reps=3)
         del odv, z, dmaps, dw
+    mip = seeded_mip_field(7)
+    with torch.no_grad():
+        odvr, z = mip_ray_inputs(4096, 190, seed=9)
+        out["K9"] = digest(fr.fused_mip_render(mip, odvr, z))
+        out["K10a"] = digest(fr.mip_train_render(mip, odvr, z, noise_std=1.0, seed=97531))
+        odvr, z = mip_ray_inputs(EVAL_CHUNK, 190, seed=10)
+        ms["K9 32768x190"] = cuda_ms(lambda: fr.fused_mip_render(mip, odvr, z), reps=3)
+        pts, dirs = grid_points(1 << 16, 11), unit_dirs(1 << 16, 12)
+        cov = (torch.rand(1 << 16, 3, generator=torch.Generator().manual_seed(13)) * 1e-4).cuda()
+        out["K11"] = digest([ff.fused_mip_field_apply(mip, pts, cov, dirs)])
+    odvr, z = mip_ray_inputs(1024, 190, seed=14)
+    rng = np.random.default_rng(15)
+    dmaps = torch.from_numpy(rng.normal(size=(1024, 5)).astype(np.float32)).cuda()
+    dw = torch.from_numpy(rng.normal(size=(1024, 190)).astype(np.float32)).cuda()
+    kw = dict(noise_std=1.0, seed=86420)
+    g = fr.mip_train_render_grads(mip, odvr, z, dmaps, dw, **kw)
+    out["K10b"] = digest([g[k] for k in sorted(g)])
+    ms["K10b 1024x190"] = cuda_ms(lambda: fr.mip_train_render_grads(mip, odvr, z, dmaps, dw, **kw))
     torch.cuda.empty_cache()
     phase("fp32_train_kernels", **out, expected=FP32_FINGERPRINTS, ms=ms)
     if FP32_FINGERPRINTS is not None and out != FP32_FINGERPRINTS:
-        raise SystemExit(f"the fp32 K3/K6 outputs moved from the parent's: {out}, expected "
+        raise SystemExit(f"the fp32 K3/K6/mip outputs moved from the parent's: {out}, expected "
                          f"{FP32_FINGERPRINTS}")
     return out
 
@@ -1684,20 +1730,23 @@ def workspace_planes(fr, launch, R: int, S: int, p: int, n: int) -> torch.Tensor
     return torch.cat(out)
 
 
-def bf16_planes(fr, what: str, field, got, launch, odv, z, sem: bool, controls=None) -> dict:
+def bf16_planes(fr, what: str, field, got, launch, odv, z, sem: bool, controls=None,
+                mip: bool = False) -> dict:
     """What the bf16 storing forward of a one-wave K3 or K6 call (``launch``:
-    fused_render._train_grads_launch's workspace, on rays ``odv``, ``z``)
-    left in the workspace, and what its reverse sweep made of it: each
-    stored activation plane (the point and view PE, every trunk layer's
-    output, feat, hv and with ``sem`` (K6 with the head) s_act) against the
-    plain bf16 forward's (fused_render.bf16_train_forward) within
+    fused_render._train_grads_launch's workspace, on rays ``odv``, ``z``;
+    with ``mip`` a K10b call, fused_render._mip_grads_launch's, on odvr and
+    fenceposts) left in the workspace, and what its reverse sweep made of
+    it: each stored activation plane (the point (K10b: the integrated) and
+    view PE, every trunk layer's output, feat, hv and with ``sem`` (K6 with
+    the head) s_act) against the plain bf16 forward's
+    (fused_render.bf16_train_forward; bf16_mip_forward) within
     bf16_stored's bounds, and the kernel's leaves ``got`` against
     fused_render.bf16_sweep run on the planes (the same gates) within
     BF16_PLANES_TOL of each leaf's max; raises. With the
     sweep's reading on each of ``controls`` (name -> a function of the
     sweep, returning grads, e.g. the sweep under a fault)."""
     mlp = field.mlp
-    R, S = z.shape
+    R, S = z.shape[0], z.shape[1] - int(mip)
 
     def plane(p, n):
         return workspace_planes(fr, launch, R, S, p, n)
@@ -1709,7 +1758,7 @@ def bf16_planes(fr, what: str, field, got, launch, odv, z, sem: bool, controls=N
     hv = plane(fr._P_HV, mlp.views_linears[0].out_features)
     s_act = plane(fr._P_ACT0 + mlp.depth, mlp.semantic_linear[0].out_features) if sem else None
     with torch.no_grad():
-        f = fr.bf16_train_forward(field, odv, z)
+        f = (fr.bf16_mip_forward if mip else fr.bf16_train_forward)(field, odv, z)
     stored = {"emb": (e, f["e"]), "view PE": (dv, f["dv"]), "feat": (feat, f["feat"]),
               "hv": (hv, f["hv"]), **{f"act{i}": (a, b) for i, (a, b) in
                                       enumerate(zip(acts, f["acts"]))}}
@@ -2840,17 +2889,21 @@ def mip_ray_inputs(n: int, s: int, seed: int):
     return torch.cat([odv, torch.full_like(odv[:, :1], MIP_RADII)], dim=1).contiguous(), z
 
 
-def mip_cost(field, R: int, S: int, kind: str) -> dict:
+def mip_cost(field, R: int, S: int, kind: str, bf16: bool = False) -> dict:
     """Bounds of the mip kernels over R rays of S intervals: K9/K10a the
     forward of every layer a point (``field_flops`` 'k2'), odvr, z, maps and
     weights moved once; K10b the forward, input- and weight-gradient products
     of every layer (``field_flops`` 'k3': the mip field has no semantic
     head), odvr, z, the two cotangents and the weights read once, the
-    gradients written."""
+    gradients written. ``bf16``: the products at the bf16 rate, the weights
+    read in bf16."""
     rays = 4 * R * (10 + (S + 1) + 5 + S)
+    w = 2 if bf16 else 4
     if kind == "K10b":
-        return bound_ms(rays + 8 * n_params(field), R * S * field_flops(field, "k3"))
-    return bound_ms(rays + 4 * n_params(field), R * S * field_flops(field, "k2"))
+        nbytes, flops = rays + (w + 4) * n_params(field), R * S * field_flops(field, "k3")
+    else:
+        nbytes, flops = rays + w * n_params(field), R * S * field_flops(field, "k2")
+    return bf16_bound(nbytes, flops) if bf16 else bound_ms(nbytes, flops)
 
 
 def mip_eval_launch(fr, field, S: int, kw: dict, seed: int) -> dict:
@@ -3211,16 +3264,19 @@ def field_bwd_flops(field, input_grads: bool) -> float:
     return flops
 
 
-def field_cost(field, n: int, kind: str, input_grads: bool = False) -> dict:
+def field_cost(field, n: int, kind: str, input_grads: bool = False, bf16: bool = False) -> dict:
     """Bounds of the field kernels over ``n`` points: 'sigma' the trunk and
     the alpha head (``field_flops`` 'k1'), points in and sigma out; 'field'
     every layer ('k2'), points and directions in, raw out; 'mip' the same
     with the covariances in; 'bwd' ``field_bwd_flops``, points, directions
     and the cotangent in, the gradients (and dpts/ddirs) out. The weights
-    are read once."""
+    are read once (``bf16``, K11 at bf16: in bf16, the products at the bf16
+    rate)."""
     C = 4 + (field.mlp.semantic_linear[2].out_features
              if getattr(field.mlp, "use_semantics", False) else 0)
     w = 4 * n_params(field)
+    if kind == "mip" and bf16:
+        return bf16_bound(4 * n * (9 + C) + w // 2, n * field_flops(field, "k2"))
     if kind == "sigma":
         return bound_ms(4 * n * 4 + w, n * field_flops(field, "k1"))
     if kind == "field":
@@ -3237,17 +3293,17 @@ def scaled_err(got: torch.Tensor, want: torch.Tensor) -> float:
     return float(((got - want).abs() / want.abs().amax(0).clamp(min=1.0)).max())
 
 
-def field_design(ff, field, N: int, mode: int) -> dict:
+def field_design(ff, field, N: int, mode: int, bf16: bool = False) -> dict:
     """[K8_design]: the field forward's launch on N points in input mode
-    ``mode`` (FIELD_PTXAS's key): its ring stages and tiles a CTA
-    (``_field_plan``), the CTAs, and ptxas's line for the kernel."""
+    ``mode`` (FIELD_PTXAS's key, with ``bf16``): its ring stages and tiles a
+    CTA (``_field_plan``), the CTAs, and ptxas's line for the kernel."""
     from nerfsos_torch.ops import fused_render as fr
 
     dev = next(field.parameters()).device
-    per, rd = ff._field_plan(fr._packed(field, dev)[1], fr._ring(field, dev)[1], N,
+    per, rd = ff._field_plan(fr._packed(field, dev)[1], fr._ring(field, dev, bf16)[1], N,
                              ff._sm_count(dev), mode != 4)
     return {"ring_stages": rd.stages, "tiles_per_cta": per, "ctas": -(-N // (128 * per)),
-            "ptxas": repr(FIELD_PTXAS.get(mode))}
+            "ptxas": repr(FIELD_PTXAS.get((mode, int(bf16))))}
 
 
 def kernel_vs_plain_k8(ff) -> dict:
@@ -3660,6 +3716,393 @@ def noimp_step_timings(ff) -> dict:
         phase("noimp_step_part", part=name, points=a[1].shape[0], **parts[name])
     return parts
 
+# ----------------------------------------------------------------- mip-NeRF at bf16
+
+MIP_BF16_PLANES_SHAPES = ((1024, 63), (256, 190))  # (rays, intervals): one wave of chunks
+
+
+def kernel_vs_plain_mip_bf16(fr, ff) -> dict:
+    """[K9_bf16] at the eval path's 32768 rays a launch (S = 63, 190),
+    [K10a_bf16] at the mip step's 1024 rays with noise 1 (S = 63, 190),
+    [K10b_bf16] on those rays with seeded map and weight cotangents,
+    [K10b_bf16_planes] at MIP_BF16_PLANES_SHAPES and [K11_bf16] at 2^18
+    points of the x14 grid (covariances below 1e-4 and zero, as the
+    export's), each at the flagship width: the bf16 mode against its bf16
+    plain version (maps, weights and raw: bf16_columns; K10b's leaves:
+    bf16_leaves beside their bf16_witness; its stored planes and sweep:
+    bf16_planes), with the readings of the fp32 kernel's output on the same
+    inputs (and for K10b of the plain version with its gated cotangents left
+    unrounded, unrounded_gate_fault), two calls bitwise equal, timed beside
+    the same call's fp32 kernel and the bf16 bound. Returns the kernels
+    line's numbers: K9 at 32768 x 190, K10a and K10b at 1024 x 190, K11 at
+    zero covariances."""
+    bf = torch.bfloat16
+    out = {}
+    field = seeded_mip_field(5)
+    for S in (63, 190):
+        R = EVAL_CHUNK
+        odvr, z = mip_ray_inputs(R, S, seed=70 + S)
+        with torch.no_grad():
+            got = fr.fused_mip_render(field, odvr, z, bf)
+            again = fr.fused_mip_render(field, odvr, z, bf)
+            want = fr.mip_render_plain(field, odvr, z, bf)
+            control = fr.fused_mip_render(field, odvr, z)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise SystemExit(f"K9 at bf16 (S={S}): two calls differ")
+        close = {n: bf16_columns(f"K9 {n} (S={S})", got[i], want[i], control[i])
+                 for i, n in enumerate(("maps", "weights"))}
+        del again, want, control
+        with torch.no_grad():
+            ms = cuda_ms(lambda: fr.fused_mip_render(field, odvr, z, bf), reps=3)
+            ms32 = cuda_ms(lambda: fr.fused_mip_render(field, odvr, z), reps=3)
+            plain_ms = cuda_ms(lambda: fr.mip_render_plain(field, odvr, z, bf), reps=2, warmup=1)
+        bound = mip_cost(field, R, S, "K9", bf16=True)
+        phase("K9_bf16", rays=R, samples=S, **close, deterministic=True, ms=ms, fp32_ms=ms32,
+              plain_ms=plain_ms, **bound, ptxas=repr(K9_BF16_PTXAS))
+        if S == 190:
+            out["K9"] = {"max_abs_err": max(c["max_abs_err"] for c in close.values()), "ms": ms,
+                         "plain_ms": plain_ms, **bound, "library_ms": None}
+
+    field = seeded_mip_field(6)
+    kw = dict(noise_std=1.0, seed=2468)
+    for S in (63, 190):
+        R = 1024
+        odvr, z = mip_ray_inputs(R, S, seed=80 + S)
+        with torch.no_grad():
+            got = fr.mip_train_render(field, odvr, z, compute_dtype=bf, **kw)
+            again = fr.mip_train_render(field, odvr, z, compute_dtype=bf, **kw)
+            want = fr.mip_train_render_plain(field, odvr, z, compute_dtype=bf, **kw)
+            control = fr.mip_train_render(field, odvr, z, **kw)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise SystemExit(f"K10a at bf16 (S={S}): two calls differ")
+        close = {n: bf16_columns(f"K10a {n} (S={S})", got[i], want[i], control[i])
+                 for i, n in enumerate(("maps", "weights"))}
+        with torch.no_grad():
+            ms = cuda_ms(lambda: fr.mip_train_render(field, odvr, z, compute_dtype=bf, **kw))
+            ms32 = cuda_ms(lambda: fr.mip_train_render(field, odvr, z, **kw))
+            plain_ms = cuda_ms(lambda: fr.mip_train_render_plain(field, odvr, z, compute_dtype=bf,
+                                                                 **kw), reps=3)
+        bound = mip_cost(field, R, S, "K10a", bf16=True)
+        phase("K10a_bf16", rays=R, samples=S, noise_std=1.0, **close, deterministic=True, ms=ms,
+              fp32_ms=ms32, plain_ms=plain_ms, **bound, ptxas=repr(K9_BF16_PTXAS))
+        if S == 190:
+            out["K10a"] = {"max_abs_err": max(c["max_abs_err"] for c in close.values()),
+                           "ms": ms, "plain_ms": plain_ms, **bound, "library_ms": None}
+
+        rng = np.random.default_rng(210 + S)
+        dmaps = torch.from_numpy(rng.normal(size=(R, 5)).astype(np.float32)).cuda()
+        dweights = torch.from_numpy(rng.normal(size=(R, S)).astype(np.float32)).cuda()
+
+        def plain(f, dtype=bf):
+            return fr.mip_train_render_grads_plain(f, odvr, z, dmaps, dweights,
+                                                   compute_dtype=dtype, **kw)
+
+        def run(dtype=bf):
+            return fr.mip_train_render_grads(field, odvr, z, dmaps, dweights, compute_dtype=dtype,
+                                             **kw)
+
+        g, again, control = run(), run(), run(torch.float32)
+        want = plain(field)
+        witness = bf16_witness(plain, field, want)
+        fault = unrounded_gate_fault(fr, lambda: plain(field))
+        torch.cuda.synchronize()
+        if not all(torch.equal(g[k], again[k]) for k in g):
+            raise SystemExit(f"K10b at bf16 (S={S}): two calls differ")
+        close = bf16_leaves(f"K10b (S={S})", g, want, witness,
+                            {"control": control, "fault": fault})
+        del again, control, want, fault
+        ms = cuda_ms(run)
+        ms32 = cuda_ms(lambda: run(torch.float32))
+        plain_ms = cuda_ms(lambda: plain(field), reps=3)
+        bound = mip_cost(field, R, S, "K10b", bf16=True)
+        split = forward_split(run, "K10b_bf16") if S == 190 else {}
+        phase("K10b_bf16", rays=R, samples=S, **close, deterministic=True, ms=ms, fp32_ms=ms32,
+              plain_ms=plain_ms, **bound, **split)
+        if S == 190:
+            out["K10b"] = {"max_abs_err": close["max_abs_err"], "ms": ms, "plain_ms": plain_ms,
+                           **bound, "library_ms": None}
+    for R, S in MIP_BF16_PLANES_SHAPES:
+        odvr, z = mip_ray_inputs(R, S, seed=90 + S)
+        rng = np.random.default_rng(220 + S)
+        dmaps = torch.from_numpy(rng.normal(size=(R, 5)).astype(np.float32)).cuda()
+        dweights = torch.from_numpy(rng.normal(size=(R, S)).astype(np.float32)).cuda()
+        flat, launch = fr._mip_grads_launch(field, odvr, z, dmaps, dweights, kw["noise_std"],
+                                            kw["seed"], True)
+        got = fr.unpack_grads(field, flat)
+        control = fr.mip_train_render_grads(field, odvr, z, dmaps, dweights, **kw)
+        close = bf16_planes(fr, f"K10b (R={R} S={S})", field, got, launch, odvr, z, False,
+                            {"control": lambda sweep: control,
+                             "fault": lambda sweep: unrounded_gate_fault(fr, sweep)}, mip=True)
+        phase("K10b_bf16_planes", rays=R, samples=S, **close)
+        del launch
+
+    mip = seeded_mip_field(42)
+    N = FIELD_POINTS
+    pts, dirs = grid_points(N, 50), unit_dirs(N, 51)
+    g = torch.Generator().manual_seed(53)
+    for zero in (False, True):
+        cov = torch.zeros_like(pts) if zero else (torch.rand(N, 3, generator=g) * 1e-4).cuda()
+        with torch.no_grad():
+            got = ff.fused_mip_field_apply(mip, pts, cov, dirs, bf)
+            again = ff.fused_mip_field_apply(mip, pts, cov, dirs, bf)
+            want = ff.mip_field_plain(mip, pts, cov, dirs, bf)
+            control = ff.fused_mip_field_apply(mip, pts, cov, dirs)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise SystemExit(f"K11 at bf16 (zero_cov={zero}): two calls differ")
+            close = bf16_columns(f"K11 (zero_cov={zero})", got, want, control)
+            ms = cuda_ms(lambda: ff.fused_mip_field_apply(mip, pts, cov, dirs, bf))
+            ms32 = cuda_ms(lambda: ff.fused_mip_field_apply(mip, pts, cov, dirs))
+            plain_ms = cuda_ms(lambda: ff.mip_field_plain(mip, pts, cov, dirs, bf), reps=3)
+        bound = field_cost(mip, N, "mip", bf16=True)
+        phase("K11_bf16", points=N, zero_cov=zero, **close, deterministic=True, ms=ms,
+              fp32_ms=ms32, plain_ms=plain_ms, **bound, **field_design(ff, mip, N, 5, bf16=True))
+        if zero:
+            out["K11"] = {"max_abs_err": close["max_abs_err"], "ms": ms, "plain_ms": plain_ms,
+                          **bound, "library_ms": None}
+    return out
+
+
+def bf16_volume(vol, want, control, witness) -> dict:
+    """The bf16 export's density volume against the one exported through
+    K11's bf16 plain version: every voxel within BF16_ENTRY of max(1, the
+    largest density), and the share of voxels beyond TOL of it within
+    BF16_SHARE of that share in ``control`` (the fp32 export of the same
+    checkpoint): K5's rule (k5_bf16_over) on the share. bf16_columns'
+    BF16_FLIP_ROWS, set on seeded fields, refused the trained flagship mip
+    field's 256^3 grid at 1.09% of its voxels moved by a rounding flip
+    (H100; [K11_bf16]'s seeded field reads 0.40-0.45% at 2^18 grid
+    points), while the fp32 export lies beyond TOL on most voxels. Raises.
+    ``witness`` (the plain export with every bias scaled by 1 + 2^-22, as
+    bf16_witness perturbs): its share beside, the plain version's own
+    sensitivity. A voxel's tail fault is not read here, as neighbouring
+    voxels hold alike densities ([K11_bf16] reads it on scattered points)."""
+    scale = max(1.0, float(np.abs(want).max()))
+
+    def reading(x):
+        e = np.abs(x - want) / scale
+        return float(e.max()) / BF16_ENTRY, float((e > TOL).mean())
+
+    over, share = reading(vol)
+    c_over, c_share = reading(control)
+    share_over = share / max(BF16_SHARE * c_share, 1e-30)
+    if not (np.isfinite(vol).all() and over <= 1.0 and share_over <= 1.0):
+        raise SystemExit(f"the bf16 export's volume disagrees with its bf16 plain version's: "
+                         f"its largest error at {over} of BF16_ENTRY, {share} of its voxels "
+                         f"beyond TOL ({share_over} of BF16_SHARE of the fp32 export's "
+                         f"{c_share})")
+    return {"max_abs_err": float(np.abs(vol - want).max()), "err_over_bound": over,
+            "flip_voxels": share, "flip_voxels_over_bound": share_over,
+            "control_over_bound": c_over, "control_flip_voxels": c_share,
+            "witness_flip_voxels": reading(witness)[1]}
+
+
+def mip_bf16_paths(fr, ff) -> dict:
+    """The --mipnerf paths at --compute_dtype bfloat16, each with the bf16
+    counts of its kernels set to 0 just before and read just after, and no
+    fp32 launch: [mip_train_bf16] ``run_nerf.main`` with mip_args' flags,
+    MIP_STEPS steps from the seed (K10a and K10b twice a step, K9 in the
+    final eval), the loss finite and falling, the last step's two K10b calls
+    against their bf16 plain version (bf16_leaves beside bf16_witness) and
+    a second call, bitwise; [mip_eval_bf16] ``--eval`` on the 378x504 test
+    view from that run's checkpoint (K9 twice a ray block), its seconds
+    beside the same view's at fp32 from the same checkpoint run just
+    before, finite metrics, the view's last two K9 calls against their bf16
+    plain version (bf16_columns) and a second call, bitwise;
+    [eval_vol_bf16] ``--eval_vol`` on that checkpoint (K11 64 times), the
+    volume against the export with K11's bf16 plain version in the kernel's
+    place (bf16_columns), its seconds beside the fp32 export's of the same
+    checkpoint. Returns the bf16 launches of K9 (the view), K10a, K10b (the
+    train run) and K11 (the export)."""
+    from nerfsos_torch import run_nerf
+    from nerfsos_torch.engines import checkpoint as ckpt_lib
+    from nerfsos_torch.engines import eval as eval_lib
+    from nerfsos_torch.utils import io as io_utils
+
+    bf = torch.bfloat16
+    bf16_flags = ("--compute_dtype", "bfloat16", "--expname", "smoke_mip_bf16")
+    counted = {**MIP_COUNTS, "K11": "fused_mip_field_apply"}
+
+    def zero():
+        for k, n in counted.items():
+            w = getattr(ff if k == "K11" else fr, n)
+            w.launches = w.launches_bf16 = 0
+
+    def read(what):
+        f32 = {k: getattr(ff if k == "K11" else fr, n).launches for k, n in counted.items()}
+        if any(f32.values()):
+            raise SystemExit(f"the bf16 {what} launched fp32 kernels: {f32}")
+        return {k: getattr(ff if k == "K11" else fr, n).launches_bf16 for k, n in counted.items()}
+
+    zero()
+    rec = run_train(fr, mip_args(MIP_STEPS, *bf16_flags), MIP_COUNTS, ["mip_train_render_grads"],
+                    MIP_STEPS - 1)
+    launches = read("mip train run")
+    losses = rec["losses"]
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    phase("mip_train_bf16", steps=len(losses), views=f"8x{H_VIEW}x{W_VIEW}",
+          seconds_incl_load_and_eval=rec["seconds"], launches=launches, loss_first10=first,
+          loss_last10=last)
+    if (rec["steps"] != list(range(MIP_STEPS)) or launches["K10a"] != 2 * MIP_STEPS
+            or launches["K10b"] != 2 * MIP_STEPS or launches["K9"] < 1):
+        raise SystemExit(f"the bf16 mip train run did not go through the bf16 kernels as "
+                         f"expected: steps {rec['steps']}, launches {launches}")
+    if not (all(math.isfinite(x) for x in losses) and last < first):
+        raise SystemExit(f"bf16 mip train loss not finite or not falling: {losses}")
+    run_dir = os.path.join(WORK, "logs", "smoke_mip_bf16")
+    check_final_eval(run_dir)
+    out = {"K10a": launches["K10a"], "K10b": launches["K10b"]}
+    checks = {}
+    for (field, odvr, z, dmaps, dweights), kw, got in rec["calls"]["mip_train_render_grads"]:
+        part = "coarse" if z.shape[1] == 64 else "fine"
+
+        def plain(f):
+            return fr.mip_train_render_grads_plain(f, odvr, z, dmaps, dweights, **kw)
+
+        want = plain(field)
+        again = fr.mip_train_render_grads(field, odvr, z, dmaps, dweights, **kw)
+        if kw["compute_dtype"] != bf or not all(torch.equal(got[k], again[k]) for k in got):
+            raise SystemExit(f"K10b at step {MIP_STEPS - 1} ({part}): not bf16, or two calls "
+                             "differ")
+        checks[part] = bf16_leaves(f"K10b at step {MIP_STEPS - 1} ({part})", got, want,
+                                   bf16_witness(plain, field, want))
+    if len(checks) != 2:
+        raise SystemExit(f"captured {len(rec['calls']['mip_train_render_grads'])} K10b calls of "
+                         f"step {MIP_STEPS - 1}")
+    phase("mip_train_bf16_k10b", step=MIP_STEPS - 1, **checks)
+    del rec
+
+    ckpt = os.path.join(run_dir, "checkpoints", "last.ckpt")
+    os.remove(os.path.join(run_dir, "eval", "log.json"))  # the train run's final eval wrote one
+    os.makedirs(os.path.join(WORK, "logs", "smoke_mip_fp32"), exist_ok=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run_nerf.main(mip_args(0, "--eval", "--expname", "smoke_mip_fp32", "--ckpt_path", ckpt))
+    torch.cuda.synchronize()
+    fp32_seconds = time.perf_counter() - t0
+    args = mip_args(0, "--eval", *bf16_flags)
+    zero()
+    cap = Capture(fr, ["fused_mip_render"])
+    cap.on = True
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_nerf.main(args)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        cap.close()
+    launches = read("--eval --mipnerf")
+    blocks = -(-H_VIEW * W_VIEW // args.ray_chunk)
+    log = check_final_eval(run_dir)
+    if launches["K9"] != 2 * blocks:
+        raise SystemExit(f"the bf16 --eval --mipnerf launched K9 {launches} times, not 2 x "
+                         f"{blocks}")
+    checks = {}
+    for (field, odvr, z, dtype), _, got in cap.calls["fused_mip_render"][-2:]:
+        part = "coarse" if z.shape[1] == args.N_samples else "fine"
+        with torch.no_grad():
+            want = fr.mip_render_plain(field, odvr, z, dtype)
+            control = fr.fused_mip_render(field, odvr, z)
+            again = fr.fused_mip_render(field, odvr, z, dtype)
+        if dtype != bf or not all(torch.equal(x, y) for x, y in zip(got, again)):
+            raise SystemExit("the bf16 mip eval view's K9: not bf16, or two calls differ")
+        checks[part] = {n: bf16_columns(f"K9 {n} on the bf16 mip eval view ({part})", got[i],
+                                        want[i], control[i])
+                        for i, n in enumerate(("maps", "weights"))}
+    phase("mip_eval_bf16", view=f"{H_VIEW}x{W_VIEW}", seconds=seconds, fp32_seconds=fp32_seconds,
+          launches={"K9": launches["K9"]}, ray_blocks=blocks, psnr=log["total_psnr"],
+          ssim=log["total_ssim"], last_calls=checks, deterministic=True)
+    out["K9"] = launches["K9"]
+    del cap
+
+    args = mip_args(0, "--eval_vol", *bf16_flags)
+    zero()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run_nerf.main(args)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read("--eval_vol --mipnerf")
+    side = int(args.vol_extents[0] / args.vol_size)
+    chunks = -(-side**3 // EXPORT_CHUNK)
+    vol = io_utils.read_mrc(os.path.join(run_dir, "eval", "density.mrc"))
+    if launches["K11"] != chunks or vol.shape != (side,) * 3:
+        raise SystemExit(f"the bf16 --eval_vol --mipnerf launched K11 {launches} times, not "
+                         f"{chunks}, or wrote a volume of {vol.shape}")
+    state = ckpt_lib.load_checkpoint(ckpt)[0]
+    nets = {}
+    for dtype in ("bfloat16", "float32"):
+        nets[dtype] = run_nerf.build_model(mip_args(0, "--compute_dtype", dtype),
+                                           torch.device("cuda"))[0]
+        nets[dtype].load_state_dict(state)
+    nets["witness"] = copy.deepcopy(nets["bfloat16"])
+    with torch.no_grad():
+        for m in nets["witness"].modules():
+            if isinstance(m, torch.nn.Linear):
+                m.bias.mul_(1.0 + 2.0**-22)
+    secs, vols = {}, {}
+    saved = ff.fused_mip_field_apply
+    for path, net in (("fp32", nets["float32"]), ("bf16", nets["bfloat16"]),
+                      ("plain", nets["bfloat16"]), ("witness", nets["witness"])):
+        if path in ("plain", "witness"):  # K11's bf16 plain version in the kernel's place
+            ff.fused_mip_field_apply = lambda f, m, c, d, dt: ff.mip_field_plain(f, m, c, d, dt)
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            vols[path] = eval_lib.export_density(net, extents=(args.vol_extents[0],) * 3,
+                                                 voxel_size=args.vol_size)
+            torch.cuda.synchronize()
+            secs[path] = time.perf_counter() - t0
+        finally:
+            ff.fused_mip_field_apply = saved
+    close = bf16_volume(vol, vols["plain"], vols["fp32"], vols["witness"])
+    if not np.array_equal(vol, vols["bf16"]):
+        raise SystemExit("the bf16 --eval_vol --mipnerf volume differs from a second export")
+    phase("eval_vol_bf16", field="mip", grid=vol.shape, seconds=seconds,
+          launches={"K11": launches["K11"]}, export_s=secs["bf16"], export_fp32_s=secs["fp32"],
+          export_plain_s=secs["plain"], volume=close, deterministic=True)
+    out["K11"] = launches["K11"]
+    return out
+
+
+def mip_step_bf16_timings(fr) -> None:
+    """[mip_bf16_step]: the mip train step (mip_args' flags; grads and Adam,
+    CUDA events) at bf16 and at fp32 in turns (fp32, bf16, bf16, fp32) on
+    the same weights and batch, at 1024 rays (20 steps a turn) and 16384
+    rays (3), with peak memory and each dtype's bound."""
+    from nerfsos_torch import run_nerf
+    from nerfsos_torch.data.datasets import RayDataset
+    from nerfsos_torch.engines import state as state_lib
+    from nerfsos_torch.engines.trainer import make_rgb_train_step
+
+    dataset = RayDataset(os.path.join(WORK, "data"), split="train")
+    test = RayDataset(os.path.join(WORK, "data"), split="test")
+    steps = {}
+    for name, dtype in (("fp32", "float32"), ("bf16", "bfloat16")):
+        args = mip_args(0, "--compute_dtype", dtype)
+        net, _ = run_nerf.build_model(args, torch.device("cuda"))
+        opt = state_lib.make_optimizer(net, args.lrate)
+        steps[name] = make_rgb_train_step(
+            net, opt, state_lib.exp_decay_schedule(args.lrate, args.decay_rate,
+                                                   args.decay_step * 1000),
+            *test.near_far(), args.rgb_w, args.seed, net_kwargs={"radii": test.radii()})
+    per_ray = (2 * args.N_samples - 2 + args.N_importance) * field_flops(net.mip, "k3")
+    for R, reps in ((1024, 20), (16384, 3)):
+        b = dataset.sample_batch(np.random.default_rng(R), R)
+        batch = {k: torch.as_tensor(b[k], device="cuda") for k in ("rays", "target")}
+        for name in ("fp32", "bf16", "bf16", "fp32"):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            ms = cuda_ms(lambda: steps[name](batch, 0), reps=reps, warmup=1)
+            rate = BF16_FLOP_S if name == "bf16" else FP32_MMA_FLOP_S
+            phase("mip_bf16_step", compute_dtype=name, rays=R, steps=reps, ms=ms,
+                  rays_per_s=R / ms * 1e3, bound_ms=R * per_ray / rate * 1e3,
+                  peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -3684,6 +4127,7 @@ def main() -> int:
     _build.library()
     phase("build", seconds=time.perf_counter() - t0, lib=os.path.relpath(lib_path, ROOT))
     global K1_PTXAS, K4_PTXAS, K5_PTXAS, K9_PTXAS, K1_BF16_PTXAS, K4_BF16_PTXAS, K5_BF16_PTXAS
+    global K9_BF16_PTXAS
     with open(lib_path + ".log") as f:
         lines = f.read().splitlines()
     serialised = []  # ptxas's wgmma warnings
@@ -3704,6 +4148,8 @@ def main() -> int:
             K4_BF16_PTXAS = entry
         if "Compiling entry function" in line and "train_render_wg_kernelILi1ELb1E" in line:
             K1_BF16_PTXAS = entry
+        if "Compiling entry function" in line and "train_render_wg_kernelILi2ELb1E" in line:
+            K9_BF16_PTXAS = entry
         if "Compiling entry function" in line and "frozen_sem_kernelILb1E" in line:
             K5_BF16_PTXAS = entry
         if "Compiling entry function" in line and "train_forward_wg_kernel" in line:
@@ -3716,7 +4162,8 @@ def main() -> int:
             FIELD_BWD_PTXAS[(int(sem[0]), int(ingrad[0]))] = "; ".join(
                 x.replace("ptxas info    :", "").strip() for x in lines[i + 2:i + 4])
         if "Compiling entry function" in line and "field_wg_kernelILi" in line:
-            FIELD_PTXAS[int(line.split("field_wg_kernelILi")[1][0])] = "; ".join(
+            mode = line.split("field_wg_kernelILi")[1]
+            FIELD_PTXAS[(int(mode[0]), int(mode.split("ELb")[1][0]))] = "; ".join(
                 x.replace("ptxas info    :", "").strip() for x in lines[i + 2:i + 4])
         if "Compiling entry function" in line and "train_reverse_kernel" in line:
             sem, ingrad, bf16 = line.split("train_reverse_kernelILb")[1].split("ELb")[:3]
@@ -3733,15 +4180,18 @@ def main() -> int:
         if ("wgmma" in line and "warning" in line) or "(C75" in line:
             serialised.append(line.strip())
     if (K1_PTXAS is None or K4_PTXAS is None or K5_PTXAS is None or K9_PTXAS is None
-            or None in (K1_BF16_PTXAS, K4_BF16_PTXAS, K5_BF16_PTXAS)
-            or sorted(FWD_PTXAS) != [(1, 0, 0), (1, 0, 1), (2, 0, 0), (2, 0, 1), (2, 2, 0)]
+            or None in (K1_BF16_PTXAS, K4_BF16_PTXAS, K5_BF16_PTXAS, K9_BF16_PTXAS)
+            or sorted(FWD_PTXAS) != [(1, 0, 0), (1, 0, 1), (2, 0, 0), (2, 0, 1), (2, 2, 0),
+                                     (2, 2, 1)]
             or len(REV_PTXAS) != 6
-            or sorted(FIELD_PTXAS) != [3, 4, 5] or len(FIELD_BWD_PTXAS) != 4):
+            or sorted(FIELD_PTXAS) != [(3, 0), (4, 0), (5, 0), (5, 1)]
+            or len(FIELD_BWD_PTXAS) != 4):
         raise SystemExit("no ptxas report for K1's, K4's and K9's kernel (train_render_wg_kernel "
-                         "in its three input modes, K1's and K4's also in the bf16 mode), K5's "
-                         "(frozen_sem_kernel, fp32 and bf16), K3's, K6's (both also bf16) and "
-                         "K10b's forward (train_forward_wg_kernel), the field forwards' three "
-                         "point-list modes (field_wg_kernel), the field backward's forward's "
+                         "in its three input modes, each also in the bf16 mode), K5's "
+                         "(frozen_sem_kernel, fp32 and bf16), K3's, K6's and K10b's forward "
+                         "(train_forward_wg_kernel, each also bf16), the field forwards' three "
+                         "point-list modes (field_wg_kernel; K11's also bf16), the field "
+                         "backward's forward's "
                          "four modes (field_bwd_forward_kernel) or the reverse sweep's six "
                          f"modes (train_reverse_kernel): forward {sorted(FWD_PTXAS)}, field "
                          f"{sorted(FIELD_PTXAS)}, field backward {sorted(FIELD_BWD_PTXAS)}")
@@ -3828,6 +4278,13 @@ def main() -> int:
     k8_bwd = kernel_vs_plain_k8_bwd(ff)
     torch.cuda.empty_cache()
     vol_launches = eval_vol_path(ff)
+    torch.cuda.empty_cache()
+    # the mip kernels' bf16 modes, then the --mipnerf paths at bf16
+    mip_bf16 = kernel_vs_plain_mip_bf16(fr, ff)
+    torch.cuda.empty_cache()
+    mip_bf16_launches = mip_bf16_paths(fr, ff)
+    mip_step_bf16_timings(fr)
+    torch.cuda.empty_cache()
     noimp_launches = train_noimp_path(fr, ff)
     sos_noimp_path(fr, ff)
     sigma = sigma_noise_path(ff)
@@ -3949,6 +4406,20 @@ def main() -> int:
         {"name": "K6 train_render_grads (bf16)", "route": "cuda", "source": train_src,
          "replaces": "nerfsos_tpu/ops/pallas/fused_render.py:940",
          "launches": full_bf16["launches"]["K6"], **bf16["K6"]},
+        # the mip kernels' bf16 modes: launches on the bf16 --eval --mipnerf view (K9),
+        # the bf16 --mipnerf train run (K10a, K10b) and its bf16 export (K11)
+        {"name": "K9 fused_mip_render (bf16)", "route": "cuda", "source": tile_src,
+         "replaces": "nerfsos_tpu/ops/pallas/fused_render.py:1843",
+         "launches": mip_bf16_launches["K9"], **mip_bf16["K9"]},
+        {"name": "K10a mip_train_render (bf16)", "route": "cuda", "source": tile_src,
+         "replaces": "nerfsos_tpu/ops/pallas/fused_render.py:2040",
+         "launches": mip_bf16_launches["K10a"], **mip_bf16["K10a"]},
+        {"name": "K10b mip_train_render_grads (bf16)", "route": "cuda", "source": train_src,
+         "replaces": "nerfsos_tpu/ops/pallas/fused_render.py:2097",
+         "launches": mip_bf16_launches["K10b"], **mip_bf16["K10b"]},
+        {"name": "K11 fused_mip_field_apply (bf16)", "route": "cuda", "source": tile_src,
+         "replaces": f"{field_tpu}:1044", "launches": mip_bf16_launches["K11"],
+         **mip_bf16["K11"]},
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -64,7 +64,12 @@
 // Precision: the PE phases reach |x| 2^9 rad (7.2e3 at the x14 grid of the
 // density export) and are formed with explicit round-to-nearest operations
 // in the plain version's order, as are the IPE's; accurate sinf/cosf/expf,
-// no fast-math, fp32 throughout.
+// no fast-math, fp32 throughout. K11 also runs at --compute_dtype bfloat16
+// (_field_kernel_pl with ipe at compute_dtype bfloat16): the tile's bf16
+// mode (field_wg_kernel<kInListGauss, true>: the IPE exact in fp32, then
+// rounded as the products read it, every product on wgmma bf16 with fp32
+// accumulation and bias, the ring in pack_ring's bf16 layout). The other
+// field kernels have no bf16 mode: their entries refuse a bf16 descriptor.
 
 #include "wg_tile.cuh"
 
@@ -73,8 +78,9 @@ namespace {
 // The sigma forward (kInListSigma), the field forward (kInList) and K11
 // (kInListGauss) on K4's tile: CTA b takes the tiles of points [b per 128,
 // (b + 1) per 128) of the N (the ring's weights for each), point q's
-// outputs to row q of out [N, C].
-template <int kIn>
+// outputs to row q of out [N, C]. kBf16 (kInListGauss alone): the tile's
+// bf16 mode.
+template <int kIn, bool kBf16 = false>
 __global__ void __launch_bounds__(kWgThreads, 1)
     field_wg_kernel(const float* __restrict__ pts, const float* __restrict__ cov,
                     const float* __restrict__ dirs, const float* __restrict__ params,
@@ -87,15 +93,15 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   const int nq = (int)min((long long)per * kWgTile, N - base);
   const int ntiles = (nq + kWgTile - 1) / kWgTile;
   __syncthreads();
-  if (!wg_consumer(ring, d.f, rd, cta.rg, ntiles, kIn != kInListSigma)) return;
+  if (!wg_consumer<kBf16>(ring, d.f, rd, cta.rg, ntiles, kIn != kInListSigma)) return;
   float* mine = cta.tiles + (threadIdx.x >> 7) * cta.per_wg;
   const PointList pl{pts + base * 3, cov ? cov + base * 3 : nullptr,
                      dirs ? dirs + base * 3 : nullptr, out + base * C, C};
   int pos = 0;
   for (int tile = 0; tile < ntiles; ++tile)
-    pos = wg_forward_tile<false, false, kIn>(nullptr, nullptr, 0, 1, nq, tile, params, d, rd,
-                                             cta.rg, pos, mine, cta.strip, nullptr, 0, nullptr,
-                                             pl);
+    pos = wg_forward_tile<false, false, kIn, kBf16>(nullptr, nullptr, 0, 1, nq, tile, params, d,
+                                                    rd, cta.rg, pos, mine, cta.strip, nullptr, 0,
+                                                    nullptr, pl);
 }
 
 // shared memory of field_wg_kernel: the ring's barriers and stages, two
@@ -109,18 +115,18 @@ int field_smem(const TrainDesc* d, const RingDesc* rd, bool heads) {
                          sizeof(float));
 }
 
-// One launch of field_wg_kernel<kIn> over N > 0 points, `per` tiles a CTA.
-template <int kIn>
+// One launch of field_wg_kernel<kIn, kBf16> over N > 0 points, `per` tiles a CTA.
+template <int kIn, bool kBf16 = false>
 int field_launch(const float* pts, const float* cov, const float* dirs, const float* params,
                  const float* ring, const TrainDesc* d, const RingDesc* rd, float* out, int C,
                  long long N, int per, cudaStream_t st) {
   const int smem = field_smem(d, rd, kIn != kInListSigma);
-  cudaError_t err = cudaFuncSetAttribute(field_wg_kernel<kIn>,
+  cudaError_t err = cudaFuncSetAttribute(field_wg_kernel<kIn, kBf16>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const long long span = (long long)per * kWgTile, grid = (N + span - 1) / span;
-  field_wg_kernel<kIn><<<(unsigned)grid, kWgThreads, smem, st>>>(pts, cov, dirs, params, ring, *d,
-                                                                 *rd, out, C, N, per);
+  field_wg_kernel<kIn, kBf16><<<(unsigned)grid, kWgThreads, smem, st>>>(
+      pts, cov, dirs, params, ring, *d, *rd, out, C, N, per);
   return (int)cudaGetLastError();
 }
 
@@ -214,29 +220,36 @@ int field_grads_launch(const float* pts, const float* dirs, const float* g, cons
 
 // K8a/K8e: sigma [N] of pts [N, 3], the trunk's weights from ring (ops/
 // fused_render.pack_ring) as rd describes, `per` 128-point tiles a CTA; one
-// launch.
+// launch. It has no bf16 mode: d->f.bf16 is refused.
 extern "C" int nerf_field_sigma(const float* pts, const float* params, const float* ring,
                                 const TrainDesc* d, const RingDesc* rd, float* sigma,
                                 long long N, int per, void* stream) {
+  if (d->f.bf16) return (int)cudaErrorInvalidValue;  // no bf16 mode (K8a/K8e)
   return field_launch<kInListSigma>(pts, nullptr, nullptr, params, ring, d, rd, sigma, 1, N, per,
                                     (cudaStream_t)stream);
 }
 
 // K8b/K8d: raw [N, 4 + sem] (rgb logits, sigma, semantics) of pts and
 // dirs [N, 3], every layer's weights from ring as rd describes; one launch.
+// It has no bf16 mode: d->f.bf16 is refused.
 extern "C" int nerf_field(const float* pts, const float* dirs, const float* params,
                           const float* ring, const TrainDesc* d, const RingDesc* rd, float* raw,
                           long long N, int per, void* stream) {
+  if (d->f.bf16) return (int)cudaErrorInvalidValue;  // no bf16 mode (K8b/K8d)
   return field_launch<kInList>(pts, nullptr, dirs, params, ring, d, rd, raw, 4 + d->f.sem_dim, N,
                                per, (cudaStream_t)stream);
 }
 
 // K11: raw [N, 4] of the mip field at the Gaussians (mean, diagonal cov
-// [N, 3]) seen from dirs [N, 3]; one launch.
+// [N, 3]) seen from dirs [N, 3]; one launch. The bf16 mode when d->f.bf16
+// (the ring in pack_ring's bf16 layout).
 extern "C" int nerf_mip_field(const float* mean, const float* cov, const float* dirs,
                               const float* params, const float* ring, const TrainDesc* d,
                               const RingDesc* rd, float* raw, long long N, int per,
                               void* stream) {
+  if (d->f.bf16)
+    return field_launch<kInListGauss, true>(mean, cov, dirs, params, ring, d, rd, raw, 4, N, per,
+                                            (cudaStream_t)stream);
   return field_launch<kInListGauss>(mean, cov, dirs, params, ring, d, rd, raw, 4, N, per,
                                     (cudaStream_t)stream);
 }

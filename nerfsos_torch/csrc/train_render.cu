@@ -223,6 +223,14 @@
 // CTA-ordered reduction) is K4's and K6's. Bound: the same arithmetic as
 // K4 and K6 without the semantic head (~1.18 MFLOP a point forward, ~3x
 // that for K10b); the Gaussian and the 60 sin/exp of a point are ~1% of it.
+// At --compute_dtype bfloat16 (_mip_render_kernel, _mip_train_kernel and
+// _mip_train_bwd_kernel with compute_dtype bfloat16) the three run the bf16
+// modes of K4's tile and of K6's kernels in the mip mode
+// (train_render_wg_kernel<kInMip, true>, train_forward_wg_kernel<kCotangent,
+// kInMip, true>, train_reverse_kernel<false, false, true>): the Gaussians
+// and the integrated PE stay exact fp32, the IPE is rounded to bf16 as the
+// products read it (and as K10b's forward stores it), and the composite and
+// its cotangent stay fp32, as K6's bf16 mode has them.
 
 // The forward tile, the reverse sweep and the reduction live in
 // train_sweep.cuh, which the field kernels (fused_field.cu) share.
@@ -407,9 +415,9 @@ __device__ __forceinline__ void zero_cotangent_padding(float* ws, const TrainDes
 // Gaussians and their integrated PE, and the composite is the mip one
 // (maps [R, 5]). The ring holds ring_order's layers: the trunk, then but
 // for kInSigma sem_0 (with the semantic head), feature and views.
-// kBf16 (kInPoint, kInSigma): the tile's bf16 mode (wg_tile.cuh; K4, K2
-// and K1 at --compute_dtype bfloat16), the ring in pack_ring's bf16 layout,
-// sem_in a bf16 array; the composite is fp32 mode's.
+// kBf16 (kInPoint, kInSigma, kInMip): the tile's bf16 mode (wg_tile.cuh; K4,
+// K2, K1, K9 and K10a at --compute_dtype bfloat16), the ring in pack_ring's
+// bf16 layout, sem_in a bf16 array; the composite is fp32 mode's.
 template <int kIn, bool kBf16 = false>
 __global__ void __launch_bounds__(kWgThreads, 1)
     train_render_wg_kernel(const float* __restrict__ odv, const float* __restrict__ z,
@@ -453,9 +461,10 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 // dmaps = aux and dweights). K10b (kCotangent, kIn kInMip): odv is odvr
 // [R, 10] and z fenceposts [R, S + 1], the tiles start from the intervals'
 // Gaussians and their integrated PE, and the composite is the mip one.
-// kBf16 (K3, K6 at --compute_dtype bfloat16; kInPoint): the tile's bf16
-// storing mode (the ring in pack_ring's bf16 layout, the workspace planes
-// holding the bf16 activations); the composite is fp32 mode's.
+// kBf16 (K3, K6 at --compute_dtype bfloat16, kInPoint; K10b, kInMip): the
+// tile's bf16 storing mode (the ring in pack_ring's bf16 layout, the
+// workspace planes holding the bf16 activations); the composite is fp32
+// mode's.
 // train_reverse_kernel then sweeps the slice.
 template <int kMode, int kIn = kInPoint, bool kBf16 = false>
 __global__ void __launch_bounds__(kWgThreads, 1)
@@ -1106,12 +1115,15 @@ extern "C" const char* nerf_error_string(int code) {
 // fenceposts z [R, S + 1] -> maps [R, 5] and weights [R, S], with the sigma
 // noise of seed: K4's kernel in its mip mode (the ring holds the trunk,
 // feature and views). The two TPU kernels differ by the noise alone, so
-// they are one kernel here.
+// they are one kernel here. The bf16 mode when d->f.bf16 (the ring in
+// pack_ring's bf16 layout).
 extern "C" int nerf_mip_render(const float* odvr, const float* z, const float* params,
                                const float* ring, const TrainDesc* d, const RingDesc* rd,
                                float* maps, float* weights, int R, int S, unsigned seed,
                                float noise_std, void* stream) {
-  if (d->f.bf16) return (int)cudaErrorInvalidValue;  // no bf16 mode (K9, K10a)
+  if (d->f.bf16)
+    return render_wg<kInMip, true>(odvr, z, params, ring, d, rd, maps, weights, nullptr, R, S,
+                                   seed, noise_std, stream);
   return render_wg<kInMip>(odvr, z, params, ring, d, rd, maps, weights, nullptr, R, S, seed,
                            noise_std, stream);
 }
@@ -1185,7 +1197,7 @@ namespace {
 // the slice's planes (group_desc), then one reverse-sweep kernel over the
 // group's chunks (its input-gradient products' matrices from the backward
 // ring bring as brd describes); then the partials are summed into grads
-// [d->grad_size]. kBf16: both kernels' bf16 modes (K3, K6 at
+// [d->grad_size]. kBf16: both kernels' bf16 modes (K3, K6, K10b at
 // --compute_dtype bfloat16; the rings in their bf16 layouts). Returns the
 // first CUDA error of the launches.
 template <int kMode, bool kSem, int kIn = kInPoint, bool kBf16 = false>
@@ -1279,7 +1291,8 @@ extern "C" int nerf_train_render_grads(const float* odv, const float* z, const f
 // mip mode (the forward on K4's tile with the Gaussian and integrated-PE
 // prologue, its weights from ring as rd describes, the mip composite), the
 // reverse sweep's matrices from bring as brd describes; see train_grads.
-// It has no bf16 mode: d->f.bf16 is refused.
+// The bf16 mode when d->f.bf16 (both rings in their bf16 layouts: K6's
+// bf16 kernels without the semantic head, in the mip mode).
 extern "C" int nerf_mip_train_render_grads(const float* odvr, const float* z, const float* dmaps,
                                            const float* dweights, const float* params,
                                            const float* ring, const float* bring,
@@ -1287,7 +1300,10 @@ extern "C" int nerf_mip_train_render_grads(const float* odvr, const float* z, co
                                            const RingDesc* brd, float* partial, float* workspace,
                                            float* grads, int R, int S, int grid, int group,
                                            unsigned seed, float noise_std, void* stream) {
-  if (d->f.bf16) return (int)cudaErrorInvalidValue;  // no bf16 mode (K10b)
+  if (d->f.bf16)
+    return train_grads<kCotangent, false, kInMip, true>(
+        odvr, z, dmaps, dweights, params, ring, bring, d, rd, brd, nullptr, nullptr, partial,
+        workspace, grads, R, S, grid, group, seed, noise_std, 0, (cudaStream_t)stream);
   return train_grads<kCotangent, false, kInMip>(odvr, z, dmaps, dweights, params, ring, bring, d,
                                                 rd, brd, nullptr, nullptr, partial, workspace,
                                                 grads, R, S, grid, group, seed, noise_std, 0,

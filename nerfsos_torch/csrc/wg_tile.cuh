@@ -95,12 +95,16 @@
 // (no fast-math).
 //
 // The bf16 mode (--compute_dtype bfloat16; kBf16: K1, K2 and K4,
-// train_render_wg_kernel<kInSigma | kInPoint, true>, and K3's and K6's
-// storing forward, train_forward_wg_kernel<kLoss | kCotangent, kInPoint,
-// true>) computes what the JAX kernels compute at bf16
+// train_render_wg_kernel<kInSigma | kInPoint, true>, K9 and K10a,
+// train_render_wg_kernel<kInMip, true>, K3's, K6's and K10b's storing
+// forward, train_forward_wg_kernel<kLoss | kCotangent, kInPoint | kInMip,
+// true>, and K11, fused_field.cu field_wg_kernel<kInListGauss, true>)
+// computes what the JAX kernels compute at bf16
 // (nerfsos_tpu/ops/pallas/fused_render.py _render_kernel,
-// _sigma_weights_kernel, _train_render_kernel and _train_render_bwd_kernel's
-// forward with compute_dtype bfloat16): every product's operands rounded to
+// _sigma_weights_kernel, _train_render_kernel, _train_render_bwd_kernel's
+// forward, _mip_render_kernel, _mip_train_kernel and _mip_train_bwd_kernel's
+// forward, fused_field.py _field_kernel_pl with ipe, with compute_dtype
+// bfloat16): every product's operands rounded to
 // bf16 (to nearest even), the product accumulated in fp32, the fp32 bias
 // added; the storing forward keeps the rounded activations (h and the
 // workspace planes hold bf16 values in fp32).
@@ -112,8 +116,12 @@
 //   * the activations stay fp32 in shared memory, as in fp32 mode, and each
 //     thread rounds its A operands as it loads them (cvt.rn.bf16x2.f32):
 //     the PE, computed in fp32, is rounded after its sin, as JAX rounds
-//     emb, and a relu output, feat and the view PE before the product that
-//     reads them, so the rounding lands where JAX's .astype(bf16) does.
+//     emb (the mip modes' integrated PE after its exact fp32 exp and sin,
+//     as JAX rounds _ipe_in_kernel_pl's rows), and a relu output, feat and
+//     the view PE before the product that reads them, so the rounding lands
+//     where JAX's .astype(bf16) does. The mip modes' 60-row embedding pads
+//     to 64 rows (zeroed by wg_cta) and the skip layer's 60 + 256 inputs to
+//     64 + 256, both whole k16 steps, as K2's 63-row one does.
 //     Within a k step, k position 2 t + e + 8 h holds input row 8 h + t +
 //     4 e (pack_ring's row order), so a thread's loads are fp32 mode's four
 //     bank-free loads of two 8-row steps;
@@ -572,8 +580,9 @@ __device__ __forceinline__ void wg_store_rows(const float* src, float* dst, int 
 // points' rows out (rgb logits, sigma, semantics: raw's column order).
 // With kStore (the field backward's forward, kInList alone) a point-list
 // mode writes no outputs: the alpha head is skipped, pl.out is not read.
-// kBf16 (K1, K2, K4 at --compute_dtype bfloat16: kInPoint or kInSigma; K3's
-// and K6's storing forward: kStore, kInPoint): the bf16 mode (wg_layer's),
+// kBf16 (K1, K2, K4, K9, K10a at --compute_dtype bfloat16: kInPoint, kInSigma
+// or kInMip; K3's, K6's and K10b's storing forward: kStore, kInPoint or
+// kInMip; K11: kInListGauss): the bf16 mode (wg_layer's),
 // the alpha head on h and W_alpha rounded to bf16, sem_in a bf16 array; in
 // the store mode every stored activation is its bf16 value (JAX's ins[i],
 // acts[i], feat, hv, s_act, emb and the view PE).
@@ -585,8 +594,10 @@ __device__ __forceinline__ int wg_forward_tile(
     int pos, float* mine, float* strip,
     typename std::conditional<kBf16, __nv_bfloat16, float>::type* __restrict__ semin,
     long long base, float* ws, const PointList pl = PointList{}) {
-  static_assert(!kBf16 || kIn == kInPoint || (!kStore && kIn == kInSigma),
-                "the bf16 mode is K1's, K2's, K4's and K3's and K6's storing forward's");
+  static_assert(!kBf16 || kIn == kInPoint || kIn == kInMip ||
+                    (!kStore && (kIn == kInSigma || kIn == kInListGauss)),
+                "the bf16 mode is K1's, K2's, K4's, K9's, K10a's and K11's and K3's, K6's "
+                "and K10b's storing forward's");
   constexpr bool kSigma = kIn == kInSigma || kIn == kInListSigma;
   constexpr bool kGauss = kIn == kInMip || kIn == kInListGauss;
   constexpr bool kList = kIn >= kInList;

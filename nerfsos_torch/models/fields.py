@@ -86,18 +86,23 @@ class NeRFField(nn.Module):
 class MipNeRFField(nn.Module):
     """mip-NeRF field: IPE(mean, cov) [+ PE(dirs)] -> NeRFMLP -> raw
     ``(rgb, sigma)``. The trunk's input is the 60-wide IPE at ``multires``
-    10, with no raw-input columns; no semantic head."""
+    10, with no raw-input columns; no semantic head. The IPE is float32;
+    ``compute_dtype`` is the MLP's (flax's bf16 semantics at bfloat16), and
+    a ``dense`` given to :meth:`forward` replaces its products (the mip
+    kernels' plain versions)."""
 
     def __init__(self, net_depth: int = 8, net_width: int = 256, skips: Sequence[int] = (4,),
                  use_viewdirs: bool = True, use_embed: bool = True, multires: int = 10,
-                 multires_views: int = 4, output_ch: int = 4):
+                 multires_views: int = 4, output_ch: int = 4,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.use_viewdirs, self.use_embed = use_viewdirs, use_embed
         self.multires, self.multires_views = multires, multires_views
         input_ch = encoding.ipe_dim(3, multires) if use_embed else 3
         input_ch_views = encoding.pe_dim(3, multires_views) if use_embed else 3
         self.mlp = NeRFMLP(input_ch, input_ch_views, depth=net_depth, width=net_width,
-                           skips=skips, use_viewdirs=use_viewdirs, output_ch=output_ch)
+                           skips=skips, use_viewdirs=use_viewdirs, output_ch=output_ch,
+                           compute_dtype=compute_dtype)
 
     def embed(self, mean: torch.Tensor, cov: torch.Tensor) -> torch.Tensor:
         if not self.use_embed:
@@ -105,8 +110,14 @@ class MipNeRFField(nn.Module):
         return encoding.integrated_positional_encoding(mean, cov, self.multires,
                                                        float(self.multires - 1))
 
-    def forward(self, mean: torch.Tensor, cov: torch.Tensor,
-                viewdirs: Optional[torch.Tensor]) -> torch.Tensor:
+    def embed_views(self, dirs: torch.Tensor) -> torch.Tensor:
+        if not self.use_embed:
+            return dirs
+        return encoding.positional_encoding_fused(dirs, self.multires_views,
+                                                  float(self.multires_views - 1))
+
+    def forward(self, mean: torch.Tensor, cov: torch.Tensor, viewdirs: Optional[torch.Tensor],
+                dense: Optional[Dense] = None) -> torch.Tensor:
         """Gaussians ``mean, cov [..., S, 3]`` (diagonal covariances),
         ``viewdirs [..., 3]`` (unit, broadcast over S) -> raw ``[..., S, 4]``."""
         lead = mean.shape[:-1]
@@ -114,8 +125,6 @@ class MipNeRFField(nn.Module):
         demb = None
         if self.use_viewdirs:
             d = viewdirs[..., None, :].expand(mean.shape)
-            demb = (encoding.positional_encoding_fused(d, self.multires_views,
-                                                       float(self.multires_views - 1))
-                    if self.use_embed else d).reshape(emb.shape[0], -1)
-        out = self.mlp(emb, demb)
+            demb = self.embed_views(d).reshape(emb.shape[0], -1)
+        out = self.mlp.forward_parts(emb, demb, dense)[0]
         return out.reshape(*lead, out.shape[-1])

@@ -20,7 +20,10 @@ Port of ``nerfsos_tpu/models/mip.py``:
   the generator;
 - ``forward`` chunks the rays by ``ray_block`` and threads ``radii``;
 - :meth:`MipNeRFNet.field_query` queries the field at given Gaussians, on
-  K11 when fused (``engines/eval.export_density``).
+  K11 when fused (``engines/eval.export_density``);
+- ``compute_dtype="bfloat16"``: the eager field runs flax's bf16 semantics
+  (``models/mlp.py``; the IPE stays float32), and a fused net runs K9,
+  K10a, K10b and K11 in their bf16 modes.
 """
 from __future__ import annotations
 
@@ -33,7 +36,7 @@ import torch.nn as nn
 from nerfsos_torch.core import sampling
 from nerfsos_torch.core.render import mip_volumetric_render
 from nerfsos_torch.models.fields import MipNeRFField
-from nerfsos_torch.models.nerf import NeRFConfig, _chunk_seeds
+from nerfsos_torch.models.nerf import NeRFConfig, _chunk_seeds, compute_dtype_of
 from nerfsos_torch.ops import fused_field as ff
 from nerfsos_torch.ops import fused_render as fr
 
@@ -118,25 +121,23 @@ class MipNeRFNet(nn.Module):
         if cfg.use_semantics:
             raise ValueError("MipNeRFNet does not support use_semantics; "
                              "construct with use_semantics=False")
-        if cfg.compute_dtype != "float32":
-            raise NotImplementedError(f"compute_dtype={cfg.compute_dtype!r}: mip-NeRF runs "
-                                      "float32 only (the mip kernels K9, K10a and K10b have no "
-                                      "bf16 mode yet)")
         self.cfg = cfg
+        self.compute_dtype = compute_dtype_of(cfg.compute_dtype)
         self.mip = MipNeRFField(net_depth=cfg.netdepth, net_width=cfg.netwidth, skips=(4,),
                                 use_viewdirs=cfg.use_viewdirs, use_embed=cfg.use_embed,
-                                multires=cfg.multires, multires_views=cfg.multires_views)
+                                multires=cfg.multires, multires_views=cfg.multires_views,
+                                compute_dtype=self.compute_dtype)
         self.fused = cfg.fused_field and fr.supports_fused(cfg)
 
     def field_query(self, mean: torch.Tensor, cov: torch.Tensor,
                     viewdirs: torch.Tensor) -> torch.Tensor:
         """raw ``[N, 4]`` of the field at the Gaussians ``mean`` and diagonal
         ``cov [N, 3]``, each seen from its ``viewdirs [N, 3]``: K11 when
-        fused, else the field."""
+        fused (at the net's compute dtype), else the field."""
         if self.fused:
             return ff.fused_mip_field_apply(self.mip, mean.contiguous(), cov.contiguous(),
-                                            viewdirs.contiguous())
-        return ff.mip_field_plain(self.mip, mean, cov, viewdirs)
+                                            viewdirs.contiguous(), self.compute_dtype)
+        return self.mip(mean[:, None, :], cov[:, None, :], viewdirs)[:, 0]
 
     def render_rays(self, rays_o: torch.Tensor, rays_d: torch.Tensor,
                     viewdirs: Optional[torch.Tensor], near: torch.Tensor, far: torch.Tensor,
@@ -151,13 +152,15 @@ class MipNeRFNet(nn.Module):
         if self.fused and viewdirs is not None:
             odvr = torch.cat([rays_o, rays_d, viewdirs, radii], dim=1).contiguous()
             fused_train = train or raw_noise_std > 0.0
+            cd = self.compute_dtype
 
             def render(z, seed):
                 if fused_train:
                     maps, w = fr.fused_mip_train_render(self.mip, odvr, z.contiguous(),
-                                                        noise_std=raw_noise_std, seed=seed)
+                                                        noise_std=raw_noise_std, seed=seed,
+                                                        compute_dtype=cd)
                 else:
-                    maps, w = fr.fused_mip_render(self.mip, odvr, z.contiguous())
+                    maps, w = fr.fused_mip_render(self.mip, odvr, z.contiguous(), cd)
                 return fr.finish_mip_maps(maps, w, cfg.white_bkgd)
         else:
             def render(z, seed):

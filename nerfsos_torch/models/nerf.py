@@ -29,8 +29,9 @@ reference's module names, so a reference state dict loads with
 - ``compute_dtype="bfloat16"``: the eager fields run flax's bf16 semantics
   (``models/mlp.py``), and a fused net runs K1-K6 in their bf16 modes (K4's
   train render with K5 or K6 as its backward; the RGB step's K3 in
-  ``engines/trainer.py``). The field kernels have no bf16 mode yet, so a
-  fused bf16 net refuses their routes before any kernel runs:
+  ``engines/trainer.py``). The classic field kernels (K8a-K8f) have no bf16
+  mode yet (mip-NeRF's K11 has one), so a fused bf16 net refuses their
+  routes before any kernel runs:
   ``n_importance <= 0`` (the field forward and backward K8d/K8f) in the
   constructor, a noisy density-only view (K8e, K8d) and ``field_query``
   (K8b, ``--eval_vol``) at the call.
@@ -122,8 +123,9 @@ def bf16_missing_kernel(kernels: str) -> NotImplementedError:
     """The refusal of a fused bf16 route whose kernels have no bf16 mode."""
     return NotImplementedError(
         f"compute_dtype bfloat16: {kernels} has no bf16 mode yet (K1-K6 have: the RGB "
-        "pretrain, the --eval render and both SOS finetunes); --no_fused_field runs "
-        "every mode at bf16 on the eager field")
+        "pretrain, the --eval render and both SOS finetunes; so have the mip kernels K9, "
+        "K10a, K10b and K11: every --mipnerf mode); --no_fused_field runs every mode at "
+        "bf16 on the eager field")
 
 
 class NeRFNet(nn.Module):

@@ -14,7 +14,10 @@ plain ``NeRFField``'s, ``[N, 3]`` in and ``[N, C]`` out:
   (rgb logits, sigma, semantics);
 - :func:`fused_mip_field_apply` (K11 ``fused_mip_apply_planar``): the mip
   field at diagonal Gaussians ``mean, cov [N, 3]`` seen from ``dirs`` ->
-  raw ``[N, 4]``;
+  raw ``[N, 4]``; also at ``compute_dtype=torch.bfloat16`` (the tile's bf16
+  mode: the integrated PE formed in float32, then rounded, every product
+  on bf16 operands, as ``_field_kernel_pl`` at bf16), counted in
+  ``launches_bf16``;
 - :func:`field_grads` (K8f ``_fused_backward_pl``, and K8c
   ``_fused_backward`` in its input-gradient mode): the gradients of every
   parameter from a cotangent ``g [N, 4 + sem]`` of raw, and in the
@@ -64,10 +67,14 @@ def sigma_plain(field: nn.Module, pts: torch.Tensor) -> torch.Tensor:
 
 
 def mip_field_plain(field: nn.Module, mean: torch.Tensor, cov: torch.Tensor,
-                    dirs: torch.Tensor) -> torch.Tensor:
+                    dirs: torch.Tensor, compute_dtype: torch.dtype = torch.float32
+                    ) -> torch.Tensor:
     """Plain version of K11: the ``MipNeRFField`` at the Gaussians ``mean``
-    and diagonal ``cov [N, 3]`` seen from ``dirs [N, 3]`` -> raw ``[N, 4]``."""
-    return field(mean[:, None, :], cov[:, None, :], dirs)[:, 0]
+    and diagonal ``cov [N, 3]`` seen from ``dirs [N, 3]`` -> raw ``[N, 4]``,
+    its products those of the kernel at ``compute_dtype``
+    (``fused_render.kernel_dense``)."""
+    return field(mean[:, None, :], cov[:, None, :], dirs,
+                 dense=fr.kernel_dense(compute_dtype))[:, 0]
 
 
 def field_grads_plain(field: nn.Module, pts: torch.Tensor, dirs: torch.Tensor, g: torch.Tensor,
@@ -227,18 +234,21 @@ def _sm_count(device: torch.device) -> int:
 
 
 def _field_launch(field: nn.Module, name: str, out: torch.Tensor, heads: bool,
-                  *inputs: torch.Tensor) -> None:
+                  *inputs: torch.Tensor, bf16: bool = False) -> None:
     """One launch of the library's field forward ``name``
     (``nerf_field_sigma``, ``nerf_field`` or ``nerf_mip_field``) on checked
     ``inputs`` of ``N > 0`` rows into ``out``: the packed weights, the ring
     of ``fused_render.pack_ring`` (the trunk's stages alone unless
-    ``heads``) and :func:`_field_plan`'s tiles a CTA and ring stages."""
+    ``heads``) and :func:`_field_plan`'s tiles a CTA and ring stages.
+    ``bf16`` (``nerf_mip_field`` alone): the tile's bf16 mode, the ring in
+    its bf16 layout."""
     device, N = out.device, out.shape[0]
     buf, fdesc = fr._packed(field, device)
-    rbuf, ring = fr._ring(field, device)
+    rbuf, ring = fr._ring(field, device, bf16)
     per, rd = _field_plan(fdesc, ring, N, _sm_count(device), heads)
     desc = _build.TrainDesc()
     desc.f = fdesc
+    desc.f.bf16 = int(bf16)
     with torch.cuda.device(device):
         code = getattr(_build.library(), name)(
             *(t.data_ptr() for t in inputs), buf.data_ptr(), rbuf.data_ptr(), ctypes.byref(desc),
@@ -288,22 +298,25 @@ def field_forward(field: nn.Module, pts: torch.Tensor, dirs: torch.Tensor) -> to
 
 
 def fused_mip_field_apply(field: nn.Module, mean: torch.Tensor, cov: torch.Tensor,
-                          dirs: torch.Tensor) -> torch.Tensor:
+                          dirs: torch.Tensor, compute_dtype: torch.dtype = torch.float32
+                          ) -> torch.Tensor:
     """K11: the ``MipNeRFField`` at ``mean, cov [N, 3]`` seen from ``dirs
     [N, 3]`` -> raw ``[N, 4]``; see :func:`mip_field_plain`. One launch of
     K4's tile in its Gaussian point-list mode (the Gaussians in h's scratch
-    rows, their integrated PE). Forward only, as the JAX package's only
-    caller of K11 is a render."""
+    rows, their integrated PE; at bf16 in its bf16 mode, counted in
+    ``launches_bf16``). Forward only, as the JAX package's only caller of
+    K11 is a render."""
     if not _on_card(mean):
-        return mip_field_plain(field, mean, cov, dirs)
+        return mip_field_plain(field, mean, cov, dirs, compute_dtype)
     N = mean.shape[0]
     _check_points(field, N, mean=mean, cov=cov, dirs=dirs)
     if field.mlp.use_semantics:
         raise NotImplementedError("the mip field kernel has no semantic head")
+    bf16 = fr.is_bf16(compute_dtype)
     raw = torch.empty((N, 4), device=mean.device, dtype=torch.float32)
     if N > 0:
-        _field_launch(field, "nerf_mip_field", raw, True, mean, cov, dirs)
-        fused_mip_field_apply.launches += 1
+        _field_launch(field, "nerf_mip_field", raw, True, mean, cov, dirs, bf16=bf16)
+        fr._count(fused_mip_field_apply, bf16)
     return raw
 
 
@@ -405,5 +418,6 @@ def fused_field_apply(field: nn.Module, pts: torch.Tensor, dirs: torch.Tensor) -
 fused_sigma_apply.launches = 0
 field_forward.launches = 0
 fused_mip_field_apply.launches = 0
+fused_mip_field_apply.launches_bf16 = 0
 field_grads.launches = 0
 field_grads.input_grad_launches = 0

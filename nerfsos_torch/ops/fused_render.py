@@ -60,8 +60,9 @@ signature) for tensors on the CPU, and for CUDA tensors launches the
 hand-written kernel in ``csrc/train_render.cu`` or raises; it never falls
 back. ``<wrapper>.launches`` counts kernel launches.
 
-K1, K2, K3, K4, K5 and K6 also run at ``compute_dtype=torch.bfloat16``
-(``--compute_dtype bfloat16``; replaces the Pallas kernels' bf16 mode):
+K1-K6 and the mip kernels K9, K10a and K10b also run at
+``compute_dtype=torch.bfloat16`` (``--compute_dtype bfloat16``; replaces the
+Pallas kernels' bf16 mode):
 every product's operands rounded to bf16 (to nearest even), the product
 accumulated in float32 and the float32 bias added
 (``models/mlp.bf16_operands_dense``), the activations rounded where the JAX
@@ -69,10 +70,13 @@ kernels' ``.astype(bf16)`` rounds them, ``sem_in`` stored in bf16, the
 composite in float32; K5 as ``_train_frozen_bwd_kernel`` at bf16
 (:func:`frozen_sem_grads_plain`), K3 and K6 as ``_train_render_bwd_kernel``
 at bf16 (:func:`_train_grads_bf16`: the reverse sweep's products on bf16
-operands, its cotangents rounded where JAX rounds them). Their bf16 launches
-count in ``<wrapper>.launches_bf16``. The other kernels (the mip kernels
-K9, K10a, K10b and the field kernels) have no bf16 mode: a bf16 net refuses
-their routes (``models/nerf.py``), and K10b's wrapper raises at bf16.
+operands, its cotangents rounded where JAX rounds them); K9 and K10a as
+``_mip_render_kernel`` and ``_mip_train_kernel`` at bf16 (the integrated PE
+formed in float32, then rounded), K10b as ``_mip_train_bwd_kernel`` at bf16
+(K6's bf16 sweep without the semantic head, :func:`bf16_mip_forward`).
+Their bf16 launches count in ``<wrapper>.launches_bf16``. The field kernels
+but K11 (``ops/fused_field.py``) have no bf16 mode: a bf16 net refuses
+their routes (``models/nerf.py``).
 """
 from __future__ import annotations
 
@@ -291,12 +295,35 @@ def bf16_train_forward(field: nn.Module, odv: torch.Tensor, z: torch.Tensor
     float32 accumulation and the float32 bias (:func:`bf16_operands_dense`),
     and the heads' float32 outputs (``heads``: the rgb logits, sigma
     without noise and the semantics)."""
-    mlp = field.mlp
-    dense = bf16_operands_dense
     pts = points_along_rays(odv[:, 0:3], odv[:, 3:6], z)
     n = pts.shape[0] * z.shape[1]
-    e = round_bf16(field.embed(pts).reshape(n, mlp.pts_linears[0].in_features))
-    dv = round_bf16(field.embed_views(odv[:, None, 6:9].expand(pts.shape)).reshape(n, -1))
+    e = field.embed(pts).reshape(n, field.mlp.pts_linears[0].in_features)
+    return _bf16_mlp_forward(field, e, field.embed_views(odv[:, None, 6:9].expand(pts.shape))
+                             .reshape(n, -1))
+
+
+def bf16_mip_forward(field: nn.Module, odvr: torch.Tensor, z: torch.Tensor
+                     ) -> Dict[str, object]:
+    """The forward of ``_mip_train_bwd_kernel`` at bf16 over the intervals
+    of ``odvr [R, 10]``, fenceposts ``z [R, S + 1]`` (rows, point ``ray * S +
+    interval``): :func:`bf16_train_forward`'s activations and heads with the
+    integrated PE of the intervals' cone-frustum Gaussians (float32, then
+    rounded to bf16) as ``e``."""
+    from nerfsos_torch.models.mip import cast_rays
+
+    means, covs = cast_rays(z, odvr[:, 0:3], odvr[:, 3:6], odvr[:, 9:10])
+    n = means.shape[0] * means.shape[1]
+    e = field.embed(means, covs).reshape(n, field.mlp.pts_linears[0].in_features)
+    return _bf16_mlp_forward(field, e, field.embed_views(odvr[:, None, 6:9].expand(means.shape))
+                             .reshape(n, -1))
+
+
+def _bf16_mlp_forward(field: nn.Module, e: torch.Tensor, dv: torch.Tensor) -> Dict[str, object]:
+    """The bf16 forwards' MLP on the float32 point and view encodings ``e``
+    and ``dv`` (rows), each rounded to bf16 first."""
+    mlp = field.mlp
+    dense = bf16_operands_dense
+    e, dv = round_bf16(e), round_bf16(dv)
     acts, h = [], e
     for i, lin in enumerate(mlp.pts_linears):
         acts.append(round_bf16(F.relu(dense(lin, h))))
@@ -313,7 +340,7 @@ def bf16_train_forward(field: nn.Module, odv: torch.Tensor, z: torch.Tensor
 
 
 def _train_grads_bf16(field: nn.Module, odv: torch.Tensor, z: torch.Tensor, objective, *,
-                      noise_std: float, seed: int, sweep_sem: bool
+                      noise_std: float, seed: int, sweep_sem: bool, mip: bool = False
                       ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor, torch.Tensor]:
     """K3's and K6's bf16 semantics (``_train_render_bwd_kernel`` at
     compute_dtype bfloat16), over chunks of rays; returns (grads by
@@ -321,8 +348,11 @@ def _train_grads_bf16(field: nn.Module, odv: torch.Tensor, z: torch.Tensor, obje
     composite and its cotangent in float32 (autograd of ``objective`` with
     respect to the rgb logits, sigma and the semantics); then
     :func:`bf16_sweep`, the semantic head swept with ``sweep_sem`` (K6 with
-    the head; K3's head gets zeros, its cotangent being zero)."""
-    R, S = z.shape
+    the head; K3's head gets zeros, its cotangent being zero). ``mip``
+    (K10b, ``_mip_train_bwd_kernel`` at bf16): ``odv`` is odvr ``[R, 10]``
+    and ``z`` fenceposts ``[R, S + 1]``, the forward
+    :func:`bf16_mip_forward`, the composite the mip one."""
+    R, S = z.shape[0], z.shape[1] - int(mip)
     z = z.detach()
     noise = noise_plain(seed, R, S, noise_std, z.device) if noise_std > 0.0 else None
     grads = {n: torch.zeros_like(p) for n, p in field.named_parameters()}
@@ -331,12 +361,12 @@ def _train_grads_bf16(field: nn.Module, odv: torch.Tensor, z: torch.Tensor, obje
     with torch.no_grad():
         for r0 in range(0, max(R, 1), step):  # one (empty) chunk when R == 0
             o, zc = odv[r0:r0 + step], z[r0:r0 + step]
-            f = bf16_train_forward(field, o, zc)
+            f = (bf16_mip_forward if mip else bf16_train_forward)(field, o, zc)
             heads = [t.requires_grad_() for t in f["heads"]]
             with torch.enable_grad():
                 raw = torch.cat(heads, -1).view(o.shape[0], S, -1)
                 sigma = raw[..., 3] if noise is None else raw[..., 3] + noise[r0:r0 + step]
-                m, w = _maps(raw, sigma, zc, o[:, 3:6])
+                m, w = (_mip_maps if mip else _maps)(raw, sigma, zc, o[:, 3:6])
                 d_rgb, d_sig, *d_sem = torch.autograd.grad(objective(m, w, r0), heads,
                                                            allow_unused=True)
             maps.append(m.detach())
@@ -518,15 +548,18 @@ def finish_maps(maps: torch.Tensor, weights: torch.Tensor, use_semantics: bool,
 
 
 def _mip_raw(field: nn.Module, odvr: torch.Tensor, z: torch.Tensor,
-             params: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+             params: Optional[Dict[str, torch.Tensor]] = None,
+             dense: Optional[Dense] = None) -> torch.Tensor:
     """The field's raw ``[R, S, 4]`` (with ``params`` in place of its own
-    parameters, when given) on the cone-frustum Gaussians of the intervals
-    between the fenceposts ``z [R, S + 1]``."""
+    parameters, when given; ``dense`` its products) on the cone-frustum
+    Gaussians of the intervals between the fenceposts ``z [R, S + 1]``."""
     from nerfsos_torch.models.mip import cast_rays
 
     means, covs = cast_rays(z, odvr[:, 0:3], odvr[:, 3:6], odvr[:, 9:10])
     args = (means, covs, odvr[:, 6:9])
-    return field(*args) if params is None else torch.func.functional_call(field, params, args)
+    if params is None:
+        return field(*args, dense=dense)
+    return torch.func.functional_call(field, params, args)
 
 
 def _mip_maps(raw: torch.Tensor, sigma: torch.Tensor, z: torch.Tensor,
@@ -546,18 +579,24 @@ def _mip_maps(raw: torch.Tensor, sigma: torch.Tensor, z: torch.Tensor,
 
 
 def mip_train_render_plain(field: nn.Module, odvr: torch.Tensor, z: torch.Tensor, *,
-                           noise_std: float, seed: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                           noise_std: float, seed: int,
+                           compute_dtype: torch.dtype = torch.float32
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of K10a: ``odvr [R, 10]``, fenceposts ``z [R, S + 1]``
     -> (maps ``[R, 5]``, weights ``[R, S]``), with :func:`noise_plain` added
-    to sigma before its relu. Runs in chunks of rays."""
+    to sigma before its relu. Runs in chunks of rays. At bf16 every product
+    on bf16 operands (:func:`kernel_dense`): the integrated PE, each relu
+    output, feat, the view PE and hv rounded where they are read, as
+    ``_mip_train_kernel`` rounds them."""
     R, S = z.shape[0], z.shape[1] - 1
     noise = noise_plain(seed, R, S, noise_std, z.device) if noise_std > 0.0 else None
     maps, weights = [], []
     step = max(1, _PLAIN_CHUNK_POINTS // max(S, 1))
+    dense = kernel_dense(compute_dtype)
     with torch.no_grad():
         for r0 in range(0, max(R, 1), step):  # one (empty) chunk when R == 0
             o, zc = odvr[r0:r0 + step], z[r0:r0 + step]
-            raw = _mip_raw(field, o, zc)
+            raw = _mip_raw(field, o, zc, dense=dense)
             sigma = raw[..., 3] if noise is None else raw[..., 3] + noise[r0:r0 + step]
             m, w = _mip_maps(raw, sigma, zc, o[:, 3:6])
             maps.append(m)
@@ -565,21 +604,29 @@ def mip_train_render_plain(field: nn.Module, odvr: torch.Tensor, z: torch.Tensor
     return torch.cat(maps), torch.cat(weights)
 
 
-def mip_render_plain(field: nn.Module, odvr: torch.Tensor,
-                     z: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def mip_render_plain(field: nn.Module, odvr: torch.Tensor, z: torch.Tensor,
+                     compute_dtype: torch.dtype = torch.float32
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of K9: ``odvr [R, 10]``, fenceposts ``z [R, S + 1]`` ->
     (maps ``[R, 5]``, weights ``[R, S]``)."""
-    return mip_train_render_plain(field, odvr, z, noise_std=0.0, seed=0)
+    return mip_train_render_plain(field, odvr, z, noise_std=0.0, seed=0,
+                                  compute_dtype=compute_dtype)
 
 
 def mip_train_render_grads_plain(field: nn.Module, odvr: torch.Tensor, z: torch.Tensor,
                                  dmaps: torch.Tensor, dweights: Optional[torch.Tensor], *,
-                                 noise_std: float, seed: int) -> Dict[str, torch.Tensor]:
+                                 noise_std: float, seed: int,
+                                 compute_dtype: torch.dtype = torch.float32
+                                 ) -> Dict[str, torch.Tensor]:
     """Plain version of K10b: the VJP of :func:`mip_train_render_plain`'s
     maps and weights with respect to every parameter of the field
     (``dweights=None``: a zero cotangent), keyed by
     ``field.named_parameters()`` names; rays and z are constant. Runs in
-    chunks of rays, each chunk's graph freed before the next."""
+    chunks of rays, each chunk's graph freed before the next. At bf16 the
+    JAX kernel's bf16 sweep (:func:`_train_grads_bf16` with ``mip``)."""
+    if is_bf16(compute_dtype):
+        return _train_grads_bf16(field, odvr, z, _cotangent_objective(dmaps, dweights),
+                                 noise_std=noise_std, seed=seed, sweep_sem=False, mip=True)[0]
     R, S = z.shape[0], z.shape[1] - 1
     z = z.detach()
     noise = noise_plain(seed, R, S, noise_std, z.device) if noise_std > 0.0 else None
@@ -1591,17 +1638,19 @@ def _mip_shapes(field: nn.Module, odvr: torch.Tensor, z: torch.Tensor) -> Tuple[
 
 
 def _mip_forward(field: nn.Module, odvr: torch.Tensor, z: torch.Tensor, noise_std: float,
-                 seed: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                 seed: int, bf16: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """One launch of K4's kernel in its mip mode (K9 without noise, K10a
     with; ``csrc/train_render.cu`` ``train_render_wg_kernel<kInMip>``) on
     checked CUDA inputs, none for ``R == 0``: a CTA a chunk of
     :func:`_wg_plan`'s rays in tiles of 128 intervals, the weights from
-    :func:`pack_ring` through its ring; raises where the plan does not fit."""
+    :func:`pack_ring` through its ring; raises where the plan does not fit.
+    ``bf16``: the tile's bf16 mode, the ring in its bf16 layout."""
     R, S = _mip_shapes(field, odvr, z)
     buf, fdesc = _packed(field, odvr.device)
-    rbuf, ring = _ring(field, odvr.device)
+    rbuf, ring = _ring(field, odvr.device, bf16)
     desc = _build.TrainDesc()
     desc.f = fdesc
+    desc.f.bf16 = int(bf16)
     desc.rays_per_chunk, rd = _wg_plan(fdesc, ring, S)
     maps = torch.empty((R, 5), device=odvr.device, dtype=torch.float32)
     weights = torch.empty((R, S), device=odvr.device, dtype=torch.float32)
@@ -1615,57 +1664,67 @@ def _mip_forward(field: nn.Module, odvr: torch.Tensor, z: torch.Tensor, noise_st
     return maps, weights
 
 
-def fused_mip_render(field: nn.Module, odvr: torch.Tensor,
-                     z: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def fused_mip_render(field: nn.Module, odvr: torch.Tensor, z: torch.Tensor,
+                     compute_dtype: torch.dtype = torch.float32
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K9: the mip eval pass, ``odvr [R, 10]``, fenceposts ``z [R, S + 1]``
     -> (maps ``[R, 5]``, weights ``[R, S]``); see :func:`mip_render_plain`.
     One launch of K4's kernel in its mip mode without noise
-    (:func:`_mip_forward`), counted in ``fused_mip_render.launches``."""
+    (:func:`_mip_forward`; at bf16 in its bf16 mode), counted in
+    ``fused_mip_render.launches`` (``launches_bf16``)."""
     if odvr.device.type == "cpu":
-        return mip_render_plain(field, odvr, z)
+        return mip_render_plain(field, odvr, z, compute_dtype)
     if odvr.device.type != "cuda":
         raise NotImplementedError(f"no kernel for device {odvr.device}")
-    out = _mip_forward(field, odvr, z, 0.0, 0)
+    bf16 = is_bf16(compute_dtype)
+    out = _mip_forward(field, odvr, z, 0.0, 0, bf16)
     if z.shape[0] > 0:
-        fused_mip_render.launches += 1
+        _count(fused_mip_render, bf16)
     return out
 
 
 def mip_train_render(field: nn.Module, odvr: torch.Tensor, z: torch.Tensor, *,
-                     noise_std: float, seed: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                     noise_std: float, seed: int, compute_dtype: torch.dtype = torch.float32
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K10a: the mip train forward, ``odvr [R, 10]``, ``z [R, S + 1]`` ->
     (maps, weights) with the sigma noise of ``seed``; see
     :func:`mip_train_render_plain`. One launch of K4's kernel in its mip
-    mode (:func:`_mip_forward`)."""
+    mode (:func:`_mip_forward`; at bf16 in its bf16 mode)."""
     if odvr.device.type == "cpu":
-        return mip_train_render_plain(field, odvr, z, noise_std=noise_std, seed=seed)
+        return mip_train_render_plain(field, odvr, z, noise_std=noise_std, seed=seed,
+                                      compute_dtype=compute_dtype)
     if odvr.device.type != "cuda":
         raise NotImplementedError(f"no kernel for device {odvr.device}")
-    out = _mip_forward(field, odvr, z, noise_std, seed)
+    bf16 = is_bf16(compute_dtype)
+    out = _mip_forward(field, odvr, z, noise_std, seed, bf16)
     if z.shape[0] > 0:
-        mip_train_render.launches += 1
+        _count(mip_train_render, bf16)
     return out
 
 
 def _mip_grads_launch(field: nn.Module, odvr: torch.Tensor, z: torch.Tensor,
                       dmaps: torch.Tensor, dweights: Optional[torch.Tensor], noise_std: float,
-                      seed: int) -> torch.Tensor:
+                      seed: int, bf16: bool = False):
     """K10b's launches on checked CUDA inputs (none for ``R == 0``): K6's
     storing forward on K4's tile in its mip mode (a chunk of
     :func:`_wg_plan`'s rays, the weights from :func:`pack_ring` through its
-    ring) and reverse sweep in waves, and the reduction; returns the flat
-    gradient buffer."""
+    ring) and reverse sweep in waves, and the reduction; with ``bf16`` both
+    in their bf16 modes, the rings in their bf16 layouts. Returns the flat
+    gradient buffer and ``(workspace, train_desc, grid, group)``, as
+    :func:`_train_grads_launch` does."""
     R, S = z.shape[0], z.shape[1] - 1
     buf, fdesc = _packed(field, odvr.device)
-    rbuf, ring = _ring(field, odvr.device)
+    rbuf, ring = _ring(field, odvr.device, bf16)
     rpc, rd = _wg_plan(fdesc, ring, S)
     bwd = _train_bwd(field, odvr.device)[1]
-    bring, brd = _bwd_ring(field, odvr.device)
+    bring, brd = _bwd_ring(field, odvr.device, bf16)
     desc, grid, group = _sweep_launch(field, fdesc, bwd, R, S, odvr.device, rays_per_chunk=rpc)
+    desc.f.bf16 = int(bf16)
     flat = torch.zeros(desc.grad_size, device=odvr.device, dtype=torch.float32)
+    work = torch.empty(grid * desc.ws_size if R > 0 else 0, device=odvr.device,
+                       dtype=torch.float32)
     if R > 0:
         partial = torch.empty(grid * desc.grad_size, device=odvr.device, dtype=torch.float32)
-        work = torch.empty(grid * desc.ws_size, device=odvr.device, dtype=torch.float32)
         with torch.cuda.device(odvr.device):
             code = _build.library().nerf_mip_train_render_grads(
                 odvr.data_ptr(), z.data_ptr(), dmaps.data_ptr(),
@@ -1674,7 +1733,7 @@ def _mip_grads_launch(field: nn.Module, odvr: torch.Tensor, z: torch.Tensor,
                 ctypes.byref(brd), partial.data_ptr(), work.data_ptr(), flat.data_ptr(), R, S,
                 grid, group, noise_seed(seed), float(noise_std), _build.stream(odvr.device))
         _build.check(code, "mip_train_render_grads")
-    return flat
+    return flat, (work, desc, grid, group)
 
 
 def mip_train_render_grads(field: nn.Module, odvr: torch.Tensor, z: torch.Tensor,
@@ -1690,14 +1749,12 @@ def mip_train_render_grads(field: nn.Module, odvr: torch.Tensor, z: torch.Tensor
     weights from :func:`pack_ring` through its ring) and reverse-sweep
     kernels (through the ring of :func:`pack_bwd_ring`) in their mip
     cotangent mode once per wave of chunks and the reduction, and adds one
-    to ``launches``. It has no bf16 mode: ``compute_dtype`` bfloat16 raises,
-    on any device."""
-    if is_bf16(compute_dtype):
-        raise NotImplementedError("compute_dtype bfloat16: K10b (mip_train_render_grads) has "
-                                  "no bf16 mode yet")
+    to ``launches``. At bf16 the kernels' bf16 modes, counted in
+    ``launches_bf16``."""
     if odvr.device.type == "cpu":
         return mip_train_render_grads_plain(field, odvr, z, dmaps, dweights,
-                                            noise_std=noise_std, seed=seed)
+                                            noise_std=noise_std, seed=seed,
+                                            compute_dtype=compute_dtype)
     if odvr.device.type != "cuda":
         raise NotImplementedError(f"no kernel for device {odvr.device}")
     R, S = _mip_shapes(field, odvr, z)
@@ -1708,21 +1765,24 @@ def mip_train_render_grads(field: nn.Module, odvr: torch.Tensor, z: torch.Tensor
             raise ValueError(f"{name} must be contiguous float32 on {odvr.device}")
         if tuple(t.shape) != shape:
             raise ValueError(f"expected {name} {shape}, got {tuple(t.shape)}")
-    flat = _mip_grads_launch(field, odvr, z, dmaps, dweights, noise_std, seed)
+    bf16 = is_bf16(compute_dtype)
+    flat, _ = _mip_grads_launch(field, odvr, z, dmaps, dweights, noise_std, seed, bf16)
     if R > 0:
-        mip_train_render_grads.launches += 1
+        _count(mip_train_render_grads, bf16)
     return unpack_grads(field, flat)
 
 
 class _MipTrainRender(torch.autograd.Function):
     """K10a forward, K10b backward: every leaf from the maps' and the
     weights' cotangents; rays and z get none. An output that nothing used
-    gets None as its cotangent (a zero one)."""
+    gets None as its cotangent (a zero one). Both run at ``compute_dtype``."""
 
     @staticmethod
-    def forward(ctx, field, odvr, z, noise_std, seed, *params):
-        maps, w = mip_train_render(field, odvr, z, noise_std=noise_std, seed=seed)
+    def forward(ctx, field, odvr, z, noise_std, seed, compute_dtype, *params):
+        maps, w = mip_train_render(field, odvr, z, noise_std=noise_std, seed=seed,
+                                   compute_dtype=compute_dtype)
         ctx.field, ctx.noise, ctx.maps_shape = field, (noise_std, seed), maps.shape
+        ctx.compute_dtype = compute_dtype
         ctx.set_materialize_grads(False)
         ctx.save_for_backward(odvr, z)
         return maps, w
@@ -1737,30 +1797,27 @@ class _MipTrainRender(torch.autograd.Function):
                 dmaps = odvr.new_zeros(ctx.maps_shape)
             grads = mip_train_render_grads(ctx.field, odvr, z, dmaps.contiguous(),
                                            None if dweights is None else dweights.contiguous(),
-                                           noise_std=ctx.noise[0], seed=ctx.noise[1])
-        return (None,) * 5 + tuple(grads.get(n) for n in names)
+                                           noise_std=ctx.noise[0], seed=ctx.noise[1],
+                                           compute_dtype=ctx.compute_dtype)
+        return (None,) * 6 + tuple(grads.get(n) for n in names)
 
 
 def fused_mip_train_render(field: nn.Module, odvr: torch.Tensor, z: torch.Tensor, *,
-                           noise_std: float, seed: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                           noise_std: float, seed: int,
+                           compute_dtype: torch.dtype = torch.float32
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The differentiable mip train render of one pass (replaces
     ``fused_mip_train_render_planar``): ``odvr [R, 10]``, ``z [R, S + 1]``
     -> (maps ``[R, 5]``, weights ``[R, S]``) through K10a, whose backward is
-    K10b (it recomputes the forward; nothing is stored but the inputs)."""
-    return _MipTrainRender.apply(field, odvr, z, float(noise_std), int(seed),
+    K10b (it recomputes the forward; nothing is stored but the inputs). At
+    bf16 both run their bf16 modes."""
+    return _MipTrainRender.apply(field, odvr, z, float(noise_std), int(seed), compute_dtype,
                                  *field.parameters())
 
 
-fused_coarse_weights.launches = 0
-fused_render.launches = 0
-fused_rgb_train_grads.launches = 0
-train_render.launches = 0
-frozen_sem_grads.launches = 0
-train_render_grads.launches = 0
 for _fn in (fused_coarse_weights, fused_render, fused_rgb_train_grads, train_render,
-            frozen_sem_grads, train_render_grads):
+            frozen_sem_grads, train_render_grads, fused_mip_render, mip_train_render,
+            mip_train_render_grads):
+    _fn.launches = 0
     _fn.launches_bf16 = 0  # the bf16 modes' launches
 del _fn
-fused_mip_render.launches = 0
-mip_train_render.launches = 0
-mip_train_render_grads.launches = 0

@@ -64,13 +64,14 @@ runs their plain versions.
 ``--compute_dtype bfloat16`` runs the MLPs and the DINO ViT at bf16, as the
 JAX entry point does. On the fused kernels it covers the RGB pretrain (K3;
 also ``--patch_tune`` without the SOS losses), ``--eval`` (K1, K2), the
-``--patch_tune --fix_backbone`` SOS finetune (K4, K5) and the full
-``--patch_tune`` finetune (K4, K6), their test-set views and resumes
-included; every mode whose kernels have no bf16 mode yet (``--mipnerf``'s
-K9 and K10, ``--eval_vol``'s and ``--N_importance 0``'s field kernels) stops
-with one line before any data is loaded (:func:`bf16_refusal`). With
-``--no_fused_field`` every mode but ``--mipnerf`` runs at bf16 on the eager
-field.
+``--patch_tune --fix_backbone`` SOS finetune (K4, K5), the full
+``--patch_tune`` finetune (K4, K6) and every mode of ``--mipnerf`` (train:
+K10a with K10b; ``--eval``: K9; ``--eval_vol``: K11), their test-set views
+and resumes included; the modes whose field kernels have no bf16 mode yet
+(``--N_importance 0``'s K8d/K8f and the classic ``--eval_vol``'s K8b) stop
+with one line before any data is loaded (:func:`bf16_refusal`), and so does
+a noisy density-only view in the library (K8e, ``models/nerf.py``). With
+``--no_fused_field`` every mode runs at bf16 on the eager field.
 
 ``--debug_nans`` runs the whole of ``main`` under
 ``torch.autograd.set_detect_anomaly`` and checks each step's loss and
@@ -146,8 +147,8 @@ def create_arg_parser() -> ConfigArgumentParser:
     parser.add_argument("--compute_dtype", type=str, default="float32",
                         choices=["float32", "bfloat16"],
                         help="MLP and DINO activation dtype (bfloat16: the RGB pretrain, "
-                             "--eval and both SOS finetunes on the kernels; every mode with "
-                             "--no_fused_field but --mipnerf)")
+                             "--eval, both SOS finetunes and every --mipnerf mode on the "
+                             "kernels; every mode with --no_fused_field)")
     parser.add_argument("--no_fused_field", action="store_true",
                         help="render with plain PyTorch instead of the fused kernels")
 
@@ -316,14 +317,13 @@ def _check_patch_tune(args) -> None:
 def bf16_refusal(args) -> str:
     """Why a ``--compute_dtype bfloat16`` run cannot run yet ('' when it
     can): the modes whose kernels have no bf16 mode. The fused kernels run
-    bf16 for the RGB pretrain (K3), ``--eval`` (K1, K2) and both SOS
-    finetunes (K4 with K5 under ``--fix_backbone``, with K6 without it); the
-    eager field (``--no_fused_field``, or a configuration outside
-    ``supports_fused``) runs every mode but ``--mipnerf``."""
-    if args.compute_dtype != "bfloat16":
+    bf16 for the RGB pretrain (K3), ``--eval`` (K1, K2), both SOS finetunes
+    (K4 with K5 under ``--fix_backbone``, with K6 without it) and every mode
+    of ``--mipnerf`` (K10a/K10b, K9, K11); the eager field
+    (``--no_fused_field``, or a configuration outside ``supports_fused``)
+    runs every mode."""
+    if args.compute_dtype != "bfloat16" or args.mipnerf:
         return ""
-    if args.mipnerf:
-        return "mip-NeRF's kernels (K9, K10a, K10b) have no bf16 mode yet"
     if not model_config(args).fused_field:
         return ""
     if args.N_importance <= 0:

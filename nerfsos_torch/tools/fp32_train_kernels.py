@@ -1,8 +1,8 @@
-"""K3's and K6's fp32 kernels of a checkout on the card, for an A/B against
-another tree in one call: runs chip_smoke.py's ``[fp32_train_kernels]``
-phase (the digests of their outputs on seeded flagship-width inputs and
-their times) with that checkout's package and this checkout's
-``chip_smoke.py``.
+"""K3's, K6's and the mip kernels' (K9, K10a, K10b, K11) fp32 kernels of a
+checkout on the card, for an A/B against another tree in one call: runs
+chip_smoke.py's ``[fp32_train_kernels]`` phase (the digests of their
+outputs on seeded flagship-width inputs and their times) with that
+checkout's package and this checkout's ``chip_smoke.py``.
 
     python -m nerfsos_torch.tools.fp32_train_kernels [--root DIR]
 

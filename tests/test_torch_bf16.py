@@ -3,9 +3,10 @@ K1, K2, K4 and K5 against the JAX Pallas kernels at bf16 (interpret mode),
 the eager bf16 field and the bf16 ViT against JAX's bf16 XLA modules, one
 frozen SOS step at bf16 against JAX, ``run_nerf.main`` at bf16 (``--eval``,
 the ``--fix_backbone`` finetune and its resume), the refusal of every
-fused route whose kernels have no bf16 mode yet, and the RGB pretrain's and
-the full finetune's routes (K3, K6) passing it (their kernels' bf16 modes:
-tests/test_torch_bf16_train.py).
+fused route whose kernels have no bf16 mode yet, and the RGB pretrain's,
+the full finetune's and ``--mipnerf``'s routes (K3, K6; K9-K11) passing it
+(their kernels' bf16 modes: tests/test_torch_bf16_train.py,
+tests/test_torch_mip_bf16.py).
 
 Two bf16 semantics are held here (``models/mlp.py``): the fused kernels'
 (each product's operands rounded to bf16, the product and the bias in
@@ -525,7 +526,7 @@ def test_run_nerf_bf16_eval_and_frozen_finetune(patch_scene, tmp_path, monkeypat
 
 
 @pytest.mark.parametrize("flags,kernel", [
-    (["--mipnerf"], "K9"),
+    (["--N_importance", "0", "--eval"], "K8d"),
     (["--N_importance", "0"], "K8d"),
     (["--eval_vol"], "K8b"),
 ])
@@ -544,11 +545,12 @@ def test_bf16_refuses_modes_without_bf16_kernels(tmp_path, flags, kernel):
     [],  # the RGB pretrain (K3)
     ["--patch_tune", "--batch_size", "2", "--patch_size", "8", "--patch_stride", "2",
      "--use_dino", "--use_geoCorr"],  # the full SOS finetune (K6)
+    ["--mipnerf", "--eval_vol"],  # mip-NeRF (K9, K10a, K10b; K11 for the export)
 ])
 def test_bf16_runs_the_rgb_and_full_sos_routes(tmp_path, flags):
-    """The RGB pretrain and the full SOS finetune, refused at bf16 until K3
-    and K6 had their bf16 modes, pass the entry's refusal now: main goes on
-    to load the (missing) data."""
+    """The RGB pretrain, the full SOS finetune and --mipnerf, refused at bf16
+    until K3, K6 and the mip kernels had their bf16 modes, pass the entry's
+    refusal now: main goes on to load the (missing) data."""
     args, _ = run_nerf.create_arg_parser().parse_known_args(
         ["--expname", "x", "--basedir", str(tmp_path / "logs"), "--data_path",
          str(tmp_path / "missing"), *SOS_FLAGS, *flags])
@@ -595,26 +597,45 @@ def test_fused_bf16_routes_refuse_in_the_library():
     assert torch.isfinite(out["rgb"]).all()
 
 
-@pytest.mark.parametrize("kernel", ["K10b", "K8f", "K8c"])
+@pytest.mark.parametrize("kernel", ["K8f", "K8c"])
 def test_sweeps_without_bf16_refuse_it(kernel):
-    """The reverse sweeps with no bf16 mode, K10b (the mip backward) and the
-    field backward K8f/K8c, raise a named error at bf16 on any device (no
-    float32 run in its place); their C entries refuse a bf16 descriptor
+    """The reverse sweeps with no bf16 mode, the field backward K8f/K8c,
+    raise a named error at bf16 on any device (no float32 run in its
+    place); their C entry refuses a bf16 descriptor
     (tests/test_torch_cuda.py)."""
-    from nerfsos_torch.models.fields import MipNeRFField, NeRFField
+    from nerfsos_torch.models.fields import NeRFField
     from nerfsos_torch.ops import fused_field as tff
 
     rng = np.random.default_rng(0)
-    if kernel == "K10b":
-        field = MipNeRFField(net_depth=5, net_width=16, multires=4, multires_views=2)
-        odvr = torch.from_numpy(rng.normal(size=(4, 10)).astype(np.float32))
-        z = torch.from_numpy(np.sort(rng.uniform(1, 4, (4, 9)), 1).astype(np.float32))
-        with pytest.raises(NotImplementedError, match="K10b"):
-            tfr.mip_train_render_grads(field, odvr, z, torch.zeros(4, 5), None, noise_std=0.0,
-                                       seed=0, compute_dtype=BF16)
-    else:
-        field = NeRFField(net_depth=5, net_width=16, multires=4, multires_views=2)
-        pts = torch.from_numpy(rng.normal(size=(8, 3)).astype(np.float32))
-        with pytest.raises(NotImplementedError, match="K8c/K8f"):
-            tff.field_grads(field, pts, pts, torch.zeros(8, 4), input_grads=kernel == "K8c",
-                            compute_dtype=BF16)
+    field = NeRFField(net_depth=5, net_width=16, multires=4, multires_views=2)
+    pts = torch.from_numpy(rng.normal(size=(8, 3)).astype(np.float32))
+    with pytest.raises(NotImplementedError, match="K8c/K8f"):
+        tff.field_grads(field, pts, pts, torch.zeros(8, 4), input_grads=kernel == "K8c",
+                        compute_dtype=BF16)
+
+
+def test_k10b_bf16_wrapper_runs_on_the_cpu():
+    """K10b (the mip backward), refused at bf16 until it had its bf16 mode,
+    runs at bf16 now: on CPU tensors its wrapper is its bf16 plain version
+    (K6's bf16 sweep on the mip forward) and counts no launch, and it lies
+    far from the float32 version (tests/test_torch_mip_bf16.py holds it
+    against JAX)."""
+    from nerfsos_torch.models.fields import MipNeRFField
+
+    rng = np.random.default_rng(0)
+    torch.manual_seed(0)
+    field = MipNeRFField(net_depth=5, net_width=16, multires=4, multires_views=2)
+    odvr = torch.from_numpy(rng.normal(size=(4, 10)).astype(np.float32))
+    z = torch.from_numpy(np.sort(rng.uniform(1, 4, (4, 9)), 1).astype(np.float32))
+    dmaps = torch.from_numpy(rng.normal(size=(4, 5)).astype(np.float32))
+    kw = dict(noise_std=1.0, seed=3)
+    counts = (tfr.mip_train_render_grads.launches, tfr.mip_train_render_grads.launches_bf16)
+    got = tfr.mip_train_render_grads(field, odvr, z, dmaps, None, compute_dtype=BF16, **kw)
+    want = tfr.mip_train_render_grads_plain(field, odvr, z, dmaps, None, compute_dtype=BF16,
+                                            **kw)
+    got32 = tfr.mip_train_render_grads(field, odvr, z, dmaps, None, **kw)
+    assert counts == (tfr.mip_train_render_grads.launches,
+                      tfr.mip_train_render_grads.launches_bf16)
+    assert set(got) == {n for n, _ in field.named_parameters()}
+    assert all(torch.equal(got[k], want[k]) for k in got)
+    assert max(float((got[k] - got32[k]).abs().max()) for k in got) > 1e-3

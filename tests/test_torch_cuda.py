@@ -18,7 +18,8 @@ leaves within BF16_WITNESS of their plain version's last-bit sensitivity or
 GRAD_TOL over several waves, ``bf16_leaves``; on one wave their stored planes
 within bf16_stored's bounds of the plain forward and their reverse sweep
 within BF16_PLANES_TOL of the plain sweep on those planes, ``bf16_planes``).
-K5 is held to GRAD_TOL on
+The mip kernels' bf16 modes (K9, K10a, K10b, K11) are held as K1-K6's are
+(K10b's one wave by ``bf16_planes`` with ``mip``). K5 is held to GRAD_TOL on
 points whose semantic-head gates are clear of 0 (the others get weight 0); K6
 on rays whose trunk, views and semantic-head gates are clear of 0; K10b on
 rays whose trunk and views gates are clear of 0; the field backward on
@@ -988,6 +989,175 @@ def test_mip_field_matches_plain(cuda, shape, zero_cov, n):
         assert torch.equal(got, ff.fused_mip_field_apply(field, mean, cov, dirs))
 
 
+# ----------------------------------------------------------------- the mip kernels at bf16
+
+
+def _dense_mip_field(device, seed, **kw):
+    """``_mip_field`` with its alpha bias raised by 1: the flagship field's
+    default init gives a density of about 0 everywhere, so every ray's maps
+    and weights would be 0 and bf16_columns' tail fault (a row given its
+    predecessor's values) would move nothing."""
+    field = _mip_field(device, seed, **kw)
+    with torch.no_grad():
+        field.mlp.alpha_linear.bias.add_(1.0)
+    return field
+
+
+@pytest.mark.parametrize("shape", MIP_SHAPES)
+@pytest.mark.parametrize("noise", [0.0, 1.0])
+@pytest.mark.parametrize("n,s", [(2, 63), (37, 7), (1000, 63), (300, 190), (301, 190)])
+def test_k9_k10a_bf16_match_plain(cuda, shape, noise, n, s):
+    """K9 (no noise) and K10a (noise 1) in their bf16 mode (K4's tile in its
+    mip mode at bf16): maps and weights within bf16_columns' bounds of the
+    bf16 plain version, two calls bitwise equal, counted in
+    ``launches_bf16`` alone."""
+    field = _dense_mip_field(cuda, 20, **shape)
+    odvr, z = _mip_inputs(cuda, n, s, 21)
+    if noise == 0.0:
+        wrapper, plain, kw = fr.fused_mip_render, fr.mip_render_plain, {}
+    else:
+        wrapper, plain = fr.mip_train_render, fr.mip_train_render_plain
+        kw = dict(noise_std=noise, seed=97531)
+    before = (wrapper.launches, wrapper.launches_bf16)
+    with torch.no_grad():
+        got = wrapper(field, odvr, z, compute_dtype=BF16, **kw)
+        again = wrapper(field, odvr, z, compute_dtype=BF16, **kw)
+        want = plain(field, odvr, z, compute_dtype=BF16, **kw)
+    torch.cuda.synchronize()
+    assert (wrapper.launches, wrapper.launches_bf16) == (before[0], before[1] + 2)
+    assert got[0].shape == (n, 5) and got[1].shape == (n, s)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    for i, part in enumerate(("maps", "weights")):
+        bf16_columns(f"K9/K10a {part}", got[i], want[i])
+
+
+def _k10b_bf16(field, odvr, z, dmaps, dw, kw):
+    """K10b's bf16 mode on a call of one wave of chunks, its stored planes
+    (the integrated PE among them) and reverse sweep held to the plain bf16
+    mip forward and sweep (bf16_planes)."""
+    got = fr.mip_train_render_grads(field, odvr, z, dmaps, dw, compute_dtype=BF16, **kw)
+    flat, launch = fr._mip_grads_launch(field, odvr, z, dmaps, dw, kw["noise_std"], kw["seed"],
+                                        True)
+    assert all(torch.equal(v, fr.unpack_grads(field, flat)[k]) for k, v in got.items())
+    bf16_planes(fr, "K10b", field, got, launch, odvr, z, False, mip=True)
+    return got
+
+
+@pytest.mark.parametrize("shape", MIP_SHAPES)
+@pytest.mark.parametrize("n,s", [(37, 63), (256, 190), (37, 7)])
+@pytest.mark.parametrize("dweights", [True, False])
+def test_k10b_bf16_matches_plain(cuda, shape, n, s, dweights):
+    """K10b's bf16 mode (K6's bf16 kernels in the mip cotangent mode), one
+    wave of chunks: the stored planes within bf16_stored's bounds of the
+    plain bf16 mip forward, the gradients within BF16_PLANES_TOL of the
+    plain sweep on them, two calls bitwise equal, counted in
+    ``launches_bf16`` alone."""
+    field = _dense_mip_field(cuda, 22, **shape)
+    odvr, z = _mip_inputs(cuda, n, s, 23)
+    rng = np.random.default_rng(n + s)
+    dmaps = torch.from_numpy(rng.normal(size=(n, 5)).astype(np.float32)).to(cuda)
+    dw = (torch.from_numpy(rng.normal(size=(n, s)).astype(np.float32)).to(cuda) if dweights
+          else None)
+    kw = dict(noise_std=1.0, seed=13579)
+    before = (fr.mip_train_render_grads.launches, fr.mip_train_render_grads.launches_bf16)
+    got = _k10b_bf16(field, odvr, z, dmaps, dw, kw)
+    again = fr.mip_train_render_grads(field, odvr, z, dmaps, dw, compute_dtype=BF16, **kw)
+    torch.cuda.synchronize()
+    assert (fr.mip_train_render_grads.launches,
+            fr.mip_train_render_grads.launches_bf16) == (before[0], before[1] + 2)
+    assert all(torch.equal(got[k], again[k]) and torch.isfinite(got[k]).all() for k in got)
+
+
+def test_k10b_bf16_over_waves_matches_plain(cuda):
+    """K10b's bf16 mode over several waves of grouped chunks (3000 rays x 63
+    at the flagship width): every leaf within bf16_leaves' bound of the bf16
+    plain version (BF16_WITNESS times its own last-bit sensitivity)."""
+    field = _dense_mip_field(cuda, 24, **MIP_SHAPES[0])
+    odvr, z = _mip_inputs(cuda, 3000, 63, 25)
+    dmaps = torch.from_numpy(np.random.default_rng(26).normal(size=(3000, 5)).astype(np.float32))
+    dmaps = dmaps.to(cuda)
+    kw = dict(noise_std=1.0, seed=97)
+    got = fr.mip_train_render_grads(field, odvr, z, dmaps, None, compute_dtype=BF16, **kw)
+
+    def plain(f):
+        return fr.mip_train_render_grads_plain(f, odvr, z, dmaps, None, compute_dtype=BF16, **kw)
+
+    want = plain(field)
+    bf16_leaves("K10b", got, want, bf16_witness(plain, field, want))
+
+
+def test_mip_bf16_through_autograd(cuda):
+    """fused_mip_train_render at bf16: K10a's and K10b's bf16 modes (their
+    bf16 counters, not the fp32 ones), a gradient on every leaf, bitwise
+    K10b's bf16 mode on the same cotangent."""
+    field = _dense_mip_field(cuda, 26, **MIP_SHAPES[0])
+    odvr, z = _mip_inputs(cuda, 300, 63, 27)
+    fns = (fr.mip_train_render, fr.mip_train_render_grads)
+    counts = [(f.launches, f.launches_bf16) for f in fns]
+    maps, w = fr.fused_mip_train_render(field, odvr, z, noise_std=1.0, seed=3,
+                                        compute_dtype=BF16)
+    dmaps = torch.arange(1.0, 6.0, device=cuda).expand(300, 5).contiguous()
+    (maps * dmaps).sum().backward()
+    torch.cuda.synchronize()
+    assert [(f.launches, f.launches_bf16) for f in fns] == [(c[0], c[1] + 1) for c in counts]
+    want = fr.mip_train_render_grads(field, odvr, z, dmaps, None, noise_std=1.0, seed=3,
+                                     compute_dtype=BF16)
+    for name, p in field.named_parameters():
+        assert torch.equal(p.grad, want[name]), name
+
+
+@pytest.mark.parametrize("shape", MIP_SHAPES)
+@pytest.mark.parametrize("zero_cov", [True, False])
+@pytest.mark.parametrize("n", [127, 129, 4097])
+def test_mip_field_bf16_matches_plain(cuda, shape, zero_cov, n):
+    """K11 in its bf16 mode (K4's tile in its Gaussian point-list mode at
+    bf16): raw within bf16_columns' bounds of the bf16 plain version, two
+    calls bitwise equal, counted in ``launches_bf16`` alone. Ragged tiles
+    and CTAs of at least 100 points: bf16_columns allows a hundredth of the
+    rows a rounding flip (one of 65 points flipped at the flagship width)."""
+    field = _mip_field(cuda, 33, **shape)
+    mean, dirs = _field_points(cuda, n, 34)
+    cov = (torch.zeros_like(mean) if zero_cov
+           else torch.rand(n, 3, generator=torch.Generator().manual_seed(1)).to(cuda) * 0.01)
+    f = ff.fused_mip_field_apply
+    before = (f.launches, f.launches_bf16)
+    with torch.no_grad():
+        got = f(field, mean, cov, dirs, BF16)
+        again = f(field, mean, cov, dirs, BF16)
+        want = ff.mip_field_plain(field, mean, cov, dirs, BF16)
+    torch.cuda.synchronize()
+    assert (f.launches, f.launches_bf16) == (before[0], before[1] + 2)
+    assert got.shape == (n, 4) and torch.equal(got, again)
+    bf16_columns("K11", got, want)
+
+
+def test_mip_bf16_rings_follow_a_weight_update(cuda):
+    """The mip kernels' bf16 rings are packed anew after an in-place weight
+    update: K9 and K11 follow their bf16 plain versions and K10b its plain
+    sweep on its own planes before and after."""
+    field = _dense_mip_field(cuda, 28, **MIP_SHAPES[0])
+    odvr, z = _mip_inputs(cuda, 256, 63, 29)
+    mean, dirs = _field_points(cuda, 500, 30)
+    cov = mean.abs() * 0.001
+    dmaps = torch.from_numpy(np.random.default_rng(3).normal(size=(256, 5)).astype(np.float32))
+    dmaps = dmaps.to(cuda)
+
+    def check():
+        with torch.no_grad():
+            got, want = (fr.fused_mip_render(field, odvr, z, BF16),
+                         fr.mip_render_plain(field, odvr, z, BF16))
+            bf16_columns("K9 maps", got[0], want[0])
+            bf16_columns("K11", ff.fused_mip_field_apply(field, mean, cov, dirs, BF16),
+                         ff.mip_field_plain(field, mean, cov, dirs, BF16))
+        _k10b_bf16(field, odvr, z, dmaps, None, dict(noise_std=1.0, seed=5353))
+
+    check()
+    with torch.no_grad():
+        field.mlp.rgb_linear.weight.mul_(-0.75)
+        field.mlp.pts_linears[3].weight.mul_(0.9)
+    check()
+
+
 def _gate_clear_points(field, n, seed, sem, margin, pool=8192):
     """``_field_points`` for ``n`` points none of which has a trunk or views
     (with ``sem``, semantic-head) relu input within ``margin`` of 0 (of its
@@ -1459,45 +1629,26 @@ def test_bf16_rings_follow_a_weight_update(cuda, kernel):
 
 
 def test_sweep_entries_without_bf16_refuse_it(cuda):
-    """K10b's and the field backward's C entries return
-    cudaErrorInvalidValue for a bf16 descriptor (no fp32 run in its place),
-    and their wrappers raise at bf16."""
+    """The field kernels' C entries (the field backward's and the classic
+    field forwards') return cudaErrorInvalidValue for a bf16 descriptor (no
+    fp32 run in its place), and the field backward's wrapper raises at
+    bf16."""
     from nerfsos_torch import _build
 
-    mip = _mip_field(cuda, 3, **SHAPES[1])
-    odvr, z = _mip_inputs(cuda, 8, 7, 4)
-    dmaps = torch.zeros(8, 5, device=cuda)
-    with pytest.raises(NotImplementedError, match="K10b"):
-        fr.mip_train_render_grads(mip, odvr, z, dmaps, None, noise_std=0.0, seed=0,
-                                  compute_dtype=BF16)
     field = _field(cuda, 3, **SHAPES[1])
     pts, dirs = _field_points(cuda, 64, 5)
     with pytest.raises(NotImplementedError, match="K8c/K8f"):
         ff.field_grads(field, pts, dirs, torch.zeros(64, 4, device=cuda), input_grads=False,
                        compute_dtype=BF16)
     # the C entries themselves, with the fp32 rings and a descriptor set to bf16
-    buf, fdesc = fr._packed(mip, cuda)
-    rbuf, ring = fr._ring(mip, cuda)
-    rpc, rd = fr._wg_plan(fdesc, ring, 7)
-    bwd = fr._train_bwd(mip, cuda)[1]
-    bring, brd = fr._bwd_ring(mip, cuda)
-    desc, grid, group = fr._sweep_launch(mip, fdesc, bwd, 8, 7, cuda, rays_per_chunk=rpc)
-    desc.f.bf16 = 1
-    partial = torch.zeros(grid * desc.grad_size, device=cuda)
-    work = torch.zeros(grid * desc.ws_size, device=cuda)
-    flat = torch.zeros(desc.grad_size, device=cuda)
-    code = _build.library().nerf_mip_train_render_grads(
-        odvr.data_ptr(), z.data_ptr(), dmaps.data_ptr(), None, buf.data_ptr(), rbuf.data_ptr(),
-        bring.data_ptr(), ctypes.byref(desc), ctypes.byref(rd), ctypes.byref(brd),
-        partial.data_ptr(), work.data_ptr(), flat.data_ptr(), 8, 7, grid, group, 0, 0.0,
-        _build.stream(cuda))
-    assert code == 1 and not flat.any()  # cudaErrorInvalidValue, nothing written
     buf, fdesc = fr._packed(field, cuda)
     desc, grid, group = fr._sweep_launch(field, fdesc, fr._train_bwd(field, cuda)[1], 64, 1,
                                          cuda, False)
     desc.f.bf16 = 1
     rbuf, ring = fr._ring(field, cuda)
     bring, brd = fr._bwd_ring(field, cuda)
+    partial = torch.zeros(grid * desc.grad_size, device=cuda)
+    work = torch.zeros(grid * desc.ws_size, device=cuda)
     flat = torch.zeros(desc.grad_size, device=cuda)
     code = _build.library().nerf_field_grads(
         pts.data_ptr(), dirs.data_ptr(), torch.zeros(64, 4, device=cuda).data_ptr(),
@@ -1505,4 +1656,18 @@ def test_sweep_entries_without_bf16_refuse_it(cuda):
         ctypes.byref(ff._field_ring(fdesc, ring, True)), ctypes.byref(brd),
         ctypes.byref(_build.RingDesc()), partial.data_ptr(), work.data_ptr(), flat.data_ptr(),
         None, None, 64, grid, group, _build.stream(cuda))
-    assert code == 1 and not flat.any()
+    assert code == 1 and not flat.any()  # cudaErrorInvalidValue, nothing written
+    fd = _build.TrainDesc()
+    fd.f = fdesc
+    fd.f.bf16 = 1
+    rd = ff._field_ring(fdesc, ring, True)
+    raw = torch.zeros(64, 4, device=cuda)
+    code = _build.library().nerf_field(pts.data_ptr(), dirs.data_ptr(), buf.data_ptr(),
+                                       rbuf.data_ptr(), ctypes.byref(fd), ctypes.byref(rd),
+                                       raw.data_ptr(), 64, 1, _build.stream(cuda))
+    assert code == 1
+    code = _build.library().nerf_field_sigma(pts.data_ptr(), buf.data_ptr(), rbuf.data_ptr(),
+                                             ctypes.byref(fd), ctypes.byref(rd), raw.data_ptr(),
+                                             64, 1, _build.stream(cuda))
+    torch.cuda.synchronize()
+    assert code == 1 and not raw.any()

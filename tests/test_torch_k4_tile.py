@@ -598,8 +598,8 @@ def test_mip_wrappers_launch_the_tile_with_a_ring(monkeypatch):
     odvr, z = (torch.from_numpy(a) for a in _mip_inputs(3, 63))
     seen = []
 
-    def forward(f, o, zz, noise_std, seed):
-        seen.append((f, o, zz, noise_std, seed))
+    def forward(f, o, zz, noise_std, seed, bf16):
+        seen.append((f, o, zz, noise_std, seed, bf16))
         return "maps", "weights"
 
     monkeypatch.setattr(fr, "_mip_forward", forward)
@@ -609,7 +609,7 @@ def test_mip_wrappers_launch_the_tile_with_a_ring(monkeypatch):
     assert fr.mip_train_render(field, *card, noise_std=1.0, seed=5) == ("maps", "weights")
     assert (fr.fused_mip_render.launches, fr.mip_train_render.launches) == (
         counts[0] + 1, counts[1] + 1)
-    assert [s[3:] for s in seen] == [(0.0, 0), (1.0, 5)]
+    assert [s[3:] for s in seen] == [(0.0, 0, False), (1.0, 5, False)]
     assert all(s[0] is field and s[1] is card[0] and s[2] is card[1] for s in seen)
     monkeypatch.undo()
 
@@ -1038,10 +1038,10 @@ def test_field_and_k10b_wrappers_launch_the_tile_with_a_ring(monkeypatch):
     seen = []
     monkeypatch.setattr(ff, "_check_points", lambda *a, **k: None)
     monkeypatch.setattr(fr, "_check_inputs", lambda *a, **k: None)
-    monkeypatch.setattr(ff, "_field_launch", lambda f, name, out, heads, *ins: seen.append(
-        (f, name, tuple(out.shape), heads, ins)))
-    monkeypatch.setattr(fr, "_mip_grads_launch", lambda *a: seen.append(a) or torch.zeros(
-        fr.grad_layout(mfield)[1]))
+    monkeypatch.setattr(ff, "_field_launch", lambda f, name, out, heads, *ins, bf16=False: seen.append(
+        (f, name, tuple(out.shape), heads, ins, bf16)))
+    monkeypatch.setattr(fr, "_mip_grads_launch", lambda *a: seen.append(a) or (torch.zeros(
+        fr.grad_layout(mfield)[1]), None))
     card = [t.as_subclass(_OnCard) for t in (pts, dirs, cov, odvr, z, dmaps, dw)]
     counts = (ff.fused_sigma_apply.launches, ff.field_forward.launches,
               ff.fused_mip_field_apply.launches, fr.mip_train_render_grads.launches)
@@ -1057,7 +1057,8 @@ def test_field_and_k10b_wrappers_launch_the_tile_with_a_ring(monkeypatch):
                                           ("nerf_field", (N_LIST, 6), True),
                                           ("nerf_mip_field", (N_LIST, 4), True)]
     assert [len(s[4]) for s in seen[:3]] == [1, 2, 3] and seen[3][0] is mfield
-    assert seen[3][1] is card[3] and seen[3][2] is card[4] and seen[3][5:] == (1.0, 5)
+    assert seen[2][5] is False  # fp32: K11's tile in its fp32 mode
+    assert seen[3][1] is card[3] and seen[3][2] is card[4] and seen[3][5:] == (1.0, 5, False)
     monkeypatch.undo()
 
     calls = []
@@ -1086,7 +1087,7 @@ def test_field_and_k10b_wrappers_launch_the_tile_with_a_ring(monkeypatch):
         assert a[k:k + 2] == (buf.data_ptr(), rbuf.data_ptr())
         assert a[k + 2]._obj.f.emb_dim == fdesc.emb_dim and bytes(a[k + 3]._obj) == bytes(rd)
         assert rd.stages == 4 and a[k + 4:] == (out.data_ptr(), N_LIST, per, None)
-    flat = fr._mip_grads_launch(mfield, odvr, z, dmaps, dw, 1.0, 5)
+    flat, _ = fr._mip_grads_launch(mfield, odvr, z, dmaps, dw, 1.0, 5)
     (got, a), = calls[-1:]
     buf, fdesc = fr._packed(mfield, odvr.device)
     rbuf, ring = fr._ring(mfield, odvr.device)
