@@ -4,16 +4,19 @@ bf16 modes (--compute_dtype bfloat16: --eval, the RGB pretrain and both
 finetunes),
 mip-NeRF (--mipnerf train and --eval), then the field kernels (--eval_vol
 and nets with no fine pass, --N_importance 0), then mip-NeRF at bf16
-(train, --eval and --eval_vol).
+(train, --eval and --eval_vol), then the classic field kernels at bf16
+(--eval_vol, --N_importance 0 and the noisy density-only view).
 
     python3 chip_smoke.py
 
 Phases (one line each; any failure raises and the exit code is nonzero):
   0. the card (nvidia-smi name and power limit), torch and CUDA versions;
   1. build the kernels from nerfsos_torch/csrc with nvcc, one compiler per
-     source at once (seconds), and print ptxas's register/spill report,
+     source at once, and beside them tools/tile_probe's fwdonly copy of the
+     sources (forward_split's library) in a process of its own, and print
+     ptxas's register/spill report,
      with [reverse_ptxas]: the reverse-sweep kernel's line in each of its
-     six modes (four fp32, two bf16), and any wgmma warning (C75xx: serialised wgmma); any such
+     eight modes (four fp32, four bf16), and any wgmma warning (C75xx: serialised wgmma); any such
      warning (K1/K2/K4/K9's kernel, K3's, K6's and K10b's forward, the field
      forwards' kernel, K5's, the reverse sweep's bwd_layer and wgrad
      products) fails the run;
@@ -186,8 +189,9 @@ Phases (one line each; any failure raises and the exit code is nonzero):
      [sos_full_step], [sos_full_bf16] 5 full finetune steps at bf16 (K6's
      bf16 mode twice a step) and [sos_full_bf16_step] the full step at
      bf16 and fp32 in turns, with peak memory. [fp32_train_kernels] (after
-     the K3 phases): digests of K3's, K6's, K9's, K10a's, K10b's and K11's
-     fp32 outputs on seeded inputs, held to FP32_FINGERPRINTS (the parent
+     the K3 phases): digests of K3's, K6's, K9's, K10a's, K10b's, K11's and
+     K8a's, K8b's, K8f's and K8c's fp32 outputs on seeded inputs, held to
+     FP32_FINGERPRINTS (the parent
      tree's), and their times;
  31. mip-NeRF at bf16 (after 25): [K9_bf16] at 32768 rays a launch,
      [K10a_bf16] and [K10b_bf16] at 1024 rays (S = 63 and 190),
@@ -203,12 +207,33 @@ Phases (one line each; any failure raises and the exit code is nonzero):
      plain), [eval_vol_bf16] --eval_vol --mipnerf at bf16 (64 K11 launches,
      the volume vs the export through K11's bf16 plain version, the fp32
      export beside it), and [mip_bf16_step] the 1024- and 16384-ray mip
-     steps at bf16 and fp32 in turns, with peak memory.
+     steps at bf16 and fp32 in turns, with peak memory;
+ 32. the classic field kernels at bf16 (after 29): [K8_bf16] the sigma
+     forward (K8a/K8e) at 2^18 grid points and 32768 x 64 points of rays,
+     the field forward under K8b's head rule (the heads' hidden activations
+     unrounded) and under K8d's at 2^18 and 1024 x 64 points, and each on
+     4097 points near the origin, against its bf16 plain version
+     (bf16_points) beside the fp32 kernel's, the nudged plain version's and
+     the other rule's readings; [K8_bwd_bf16] K8f and K8c at 1024 x 64 points
+     (bf16_leaves beside bf16_witness, the fp32 kernel's and the unrounded-g
+     fault's readings beside; the forward/reverse split) and
+     [K8_bwd_bf16_planes] (bf16_planes on the call's workspace); each two
+     calls bitwise, timed beside the same call's fp32 kernel and the bf16
+     bound; [eval_vol_bf16] with the classic field (64 launches of K8b's
+     head rule on its own count, none of K8d's, the volume vs the export
+     through K8b's bf16 plain version, bf16_volume); [train_noimp_bf16]
+     the [train_noimp] run at bf16 (the bf16 counters alone, the last
+     step's K8f call vs plain);
+     [noimp_bf16_step] the 1024- and 16384-ray --N_importance 0 steps at
+     bf16 and fp32 in turns, with peak memory; [sigma_noise_bf16] the noisy
+     density-only view at bf16 (K8e and K8d once a ray block), its last
+     K8e and K8d calls vs plain on their own inputs.
 The last lines are the card, one JSON object with the kernels' numbers, and
 ``{"ok": true, "device": {...}}``. Scratch files go to build/chip_smoke/.
 """
 from __future__ import annotations
 
+import atexit
 import copy
 import dataclasses
 import json
@@ -321,8 +346,14 @@ K7_PTXAS = {}
 K7_SASS = {}
 
 
+START = time.perf_counter()
+
+
 def phase(name: str, **fields) -> None:
-    print(f"[{name}] " + " ".join(f"{k}={v}" for k, v in fields.items()), flush=True)
+    """One phase line: its fields, then the seconds since the script began
+    (``at_s``: where the run's time went)."""
+    print(f"[{name}] " + " ".join(f"{k}={v}" for k, v in fields.items())
+          + f" at_s={time.perf_counter() - START:.1f}", flush=True)
 
 
 def smi_line() -> str:
@@ -664,12 +695,36 @@ def check_k6(what: str, got, want, slack, terms, kernel: str = "K6") -> dict:
 
 # forward_split's ptxas lines: the forward kernel's on K4's tile (K3, K6,
 # K10b: train_forward_wg_kernel's (mode, input mode, kBf16); K8f, K8c:
-# field_bwd_forward_kernel's (kSem, kInGrad)) and the reverse-sweep
+# field_bwd_forward_kernel's (kSem, kInGrad, kBf16)) and the reverse-sweep
 # kernel's (kSem, kInGrad, kBf16)
 SPLIT_PTXAS = {"K3": ((1, 0, 0), (0, 0, 0)), "K6": ((2, 0, 0), (1, 0, 0)),
                "K10b": ((2, 2, 0), (0, 0, 0)), "K10b_bf16": ((2, 2, 1), (0, 0, 1)),
-               "K8f": ((1, 0), (1, 0, 0)),
-               "K8c": ((1, 1), (1, 1, 0))}
+               "K8f": ((1, 0, 0), (1, 0, 0)), "K8c": ((1, 1, 0), (1, 1, 0)),
+               "K8f_bf16": ((1, 0, 1), (1, 0, 1)), "K8c_bf16": ((1, 1, 1), (1, 1, 1))}
+
+
+FWDONLY_BUILD = None  # the process building forward_split's library (start_fwdonly_build)
+
+
+def start_fwdonly_build() -> None:
+    """Starts the build of ``tools/tile_probe``'s ``fwdonly`` copy of the
+    sources (forward_split's library) in a process of its own, beside the
+    kernels' own build: one nvcc a source of each, all at once. Stopped at
+    exit if it is still running."""
+    global FWDONLY_BUILD
+    code = ("import sys; sys.path.insert(0, sys.argv[1]); from nerfsos_torch import _build; "
+            "from nerfsos_torch.tools import tile_probe; "
+            "tile_probe.prepare(_build, sys.argv[1], 'fwdonly'); _build.build()")
+    with open(os.path.join(WORK, "fwdonly_build.log"), "w") as log:
+        FWDONLY_BUILD = subprocess.Popen([sys.executable, "-c", code, ROOT], stdout=log,
+                                         stderr=subprocess.STDOUT)
+
+    def stop():
+        if FWDONLY_BUILD is not None and FWDONLY_BUILD.poll() is None:
+            FWDONLY_BUILD.kill()
+            FWDONLY_BUILD.wait()
+
+    atexit.register(stop)
 
 
 def forward_split(run, kernel: str) -> dict:
@@ -685,6 +740,11 @@ def forward_split(run, kernel: str) -> dict:
     from nerfsos_torch import _build
     from nerfsos_torch.tools import tile_probe
 
+    global FWDONLY_BUILD
+    if FWDONLY_BUILD is not None:  # its library is the one tile_probe._use loads below
+        if FWDONLY_BUILD.wait() != 0:
+            raise SystemExit(f"the fwdonly build failed: {os.path.join(WORK, 'fwdonly_build.log')}")
+        FWDONLY_BUILD = None
     whole = cuda_ms(run)
     saved = _build.CSRC_DIR, _build.BUILD_DIR
     try:
@@ -695,7 +755,7 @@ def forward_split(run, kernel: str) -> dict:
         _build.library.cache_clear()
         _build.library()
     fwd_mode, rev_mode = SPLIT_PTXAS[kernel]
-    fwd_ptxas = FIELD_BWD_PTXAS if kernel in ("K8f", "K8c") else FWD_PTXAS
+    fwd_ptxas = FIELD_BWD_PTXAS if kernel.startswith("K8") else FWD_PTXAS
     return {"forward_ms": fwd, "reverse_ms": whole - fwd,
             "forward_ptxas": repr(fwd_ptxas.get(fwd_mode)),
             "reverse_ptxas": repr(REV_PTXAS.get(rev_mode))}
@@ -1162,14 +1222,17 @@ def train_step_bf16_timings(fr) -> None:
                   peak_gib=torch.cuda.max_memory_allocated() / 2**30)
 
 
-# The fp32 K3's, K6's, K9's, K10a's, K10b's and K11's outputs on fixed
+# The fp32 K3's, K6's, K9's, K10a's, K10b's, K11's and the classic field
+# kernels' (K8a, K8b, K8f, K8c) outputs on fixed
 # seeded inputs, as sha256 digests (fp32_train_kernels), from this tree's
 # parent on an NVIDIA H100 80GB HBM3 (nerfsos_torch/tools/fp32_train_kernels.py
 # --root on the parent): the bf16 modes share their kernels' sources, and
 # their fp32 instantiations must not move by a bit.
 FP32_FINGERPRINTS = {"K3": "806e3addc6b0784a", "K6": "099605c1c82da1b0",
                      "K9": "2467f0fc761c5430", "K10a": "41bd02c1ad3cb367",
-                     "K10b": "08182680a80f63ed", "K11": "367b6f56084c2655"}
+                     "K10b": "08182680a80f63ed", "K11": "367b6f56084c2655",
+                     "K8a": "48804a3b48b8ac6e", "K8b": "acdf0969904792aa",
+                     "K8f": "0acefffd9bfa549f", "K8c": "314cb57e3398c4a6"}
 
 
 def fp32_train_kernels(fr) -> dict:
@@ -1177,8 +1240,12 @@ def fp32_train_kernels(fr) -> dict:
     grads, maps and weights (1024 rays x 192 samples), of K6's fp32 grads
     (4096 x 64, the semantic head, seeded cotangents), of K9's and K10a's
     maps and weights (4096 rays x 190 intervals; K10a with noise 1), of
-    K10b's grads (1024 x 190, seeded cotangents) and of K11's raw (2^16
-    points, covariances below 1e-4) on seeded flagship-width inputs, held
+    K10b's grads (1024 x 190, seeded cotangents), of K11's raw (2^16
+    points, covariances below 1e-4), of the sigma forward's (K8a) and the
+    field forward's (K8b) outputs (2^16 points of the x14 grid) and of the
+    field backward's grads (K8f) and, in its input-gradient mode (K8c),
+    grads, dpts and ddirs (256 x 64 points of rays, a seeded cotangent) on
+    seeded flagship-width inputs (the semantic head with coordinates), held
     equal to FP32_FINGERPRINTS where it is set; and the fp32 K3's ms at 1024
     rays (S = 64, 192), K6's at 32768 rays (S = 192, 64), K9's at 32768 x
     190 and K10b's at 1024 x 190, for an A/B against another tree in one
@@ -1238,11 +1305,23 @@ def fp32_train_kernels(fr) -> dict:
     g = fr.mip_train_render_grads(mip, odvr, z, dmaps, dw, **kw)
     out["K10b"] = digest([g[k] for k in sorted(g)])
     ms["K10b 1024x190"] = cuda_ms(lambda: fr.mip_train_render_grads(mip, odvr, z, dmaps, dw, **kw))
+    k8_field = seeded_field(16, net_depth=8, net_width=256, multires=10, multires_views=4,
+                            use_semantics=True, sem_with_coord=True, sem_dim=2)
+    with torch.no_grad():
+        pts, dirs = grid_points(1 << 16, 17), unit_dirs(1 << 16, 18)
+        out["K8a"] = digest([ff.fused_sigma_apply(k8_field, pts)])
+        out["K8b"] = digest([ff.field_forward(k8_field, pts, dirs)])
+    pts, dirs = noimp_points(256, 64, seed=19)
+    g = torch.from_numpy(np.random.default_rng(20).normal(size=(pts.shape[0], 6))
+                         .astype(np.float32)).cuda()
+    for name, input_grads in (("K8f", False), ("K8c", True)):
+        grads, dp, dd = ff.field_grads(k8_field, pts, dirs, g, input_grads=input_grads)
+        out[name] = digest([grads[k] for k in sorted(grads)] + ([dp, dd] if input_grads else []))
     torch.cuda.empty_cache()
     phase("fp32_train_kernels", **out, expected=FP32_FINGERPRINTS, ms=ms)
     if FP32_FINGERPRINTS is not None and out != FP32_FINGERPRINTS:
-        raise SystemExit(f"the fp32 K3/K6/mip outputs moved from the parent's: {out}, expected "
-                         f"{FP32_FINGERPRINTS}")
+        raise SystemExit(f"the fp32 K3/K6/mip/field outputs moved from the parent's: {out}, "
+                         f"expected {FP32_FINGERPRINTS}")
     return out
 
 
@@ -1667,17 +1746,24 @@ BF16_WITNESS = 10
 BF16_PLANES_TOL = 4e-3
 
 
+def nudged(module, sign: float = 1.0):
+    """A copy of ``module`` with every bias scaled by 1 + sign * 2^-22: a
+    bf16 plain version run on it moves by the rounding flips alone."""
+    m = copy.deepcopy(module)
+    with torch.no_grad():
+        for lin in m.modules():
+            if isinstance(lin, torch.nn.Linear):
+                lin.bias.mul_(1.0 + sign * 2.0**-22)
+    return m
+
+
 def bf16_witness(run, field, want) -> dict:
     """Per leaf: the largest distance of ``run(f)`` (a bf16 plain version's
     grads on field ``f``) from ``want`` (its grads on ``field``) over ``f`` =
-    ``field`` with every bias scaled by 1 + 2^-22 and by 1 - 2^-22."""
+    ``nudged(field, +-1)``."""
     out = {k: 0.0 for k in want}
     for sign in (1.0, -1.0):
-        f = copy.deepcopy(field)
-        with torch.no_grad():
-            for m in f.modules():
-                if isinstance(m, torch.nn.Linear):
-                    m.bias.mul_(1.0 + sign * 2.0**-22)
+        f = nudged(field, sign)
         g = run(f)
         for k, ref in want.items():
             out[k] = max(out[k], max_err(g[k], ref))
@@ -1731,34 +1817,47 @@ def workspace_planes(fr, launch, R: int, S: int, p: int, n: int) -> torch.Tensor
 
 
 def bf16_planes(fr, what: str, field, got, launch, odv, z, sem: bool, controls=None,
-                mip: bool = False) -> dict:
+                mip: bool = False, points=None, inputs=None) -> dict:
     """What the bf16 storing forward of a one-wave K3 or K6 call (``launch``:
     fused_render._train_grads_launch's workspace, on rays ``odv``, ``z``;
     with ``mip`` a K10b call, fused_render._mip_grads_launch's, on odvr and
-    fenceposts) left in the workspace, and what its reverse sweep made of
-    it: each stored activation plane (the point (K10b: the integrated) and
-    view PE, every trunk layer's output, feat, hv and with ``sem`` (K6 with
-    the head) s_act) against the plain bf16 forward's
-    (fused_render.bf16_train_forward; bf16_mip_forward) within
-    bf16_stored's bounds, and the kernel's leaves ``got`` against
-    fused_render.bf16_sweep run on the planes (the same gates) within
-    BF16_PLANES_TOL of each leaf's max; raises. With the
-    sweep's reading on each of ``controls`` (name -> a function of the
-    sweep, returning grads, e.g. the sweep under a fault)."""
+    fenceposts; with ``points`` = (pts, dirs) a K8f or K8c call,
+    fused_field._field_grads_launch's, odv and z unused) left in the
+    workspace, and what its reverse sweep made of it: each stored
+    activation plane (the point (K10b: the integrated) and view PE, every
+    trunk layer's output, feat, hv and with ``sem`` (K6, K8c/K8f with the
+    head) s_act) against the plain bf16 forward's
+    (fused_render.bf16_train_forward; bf16_mip_forward;
+    _bf16_mlp_forward on the points' PE) within bf16_stored's bounds, and
+    the kernel's leaves ``got`` against fused_render.bf16_sweep run on the
+    planes (the same gates) within BF16_PLANES_TOL of each leaf's max;
+    raises. With the sweep's reading on each of ``controls`` (name -> a
+    function of the sweep, returning grads, e.g. the sweep under a
+    fault). ``inputs`` (K8c: its dpts and ddirs): held within
+    BF16_PLANES_TOL of their max against the sweep's float32 PE cotangents
+    run back through the PE's chain rule (autograd of the float32 PE at the
+    points); raises."""
+    from nerfsos_torch.models.mlp import round_bf16
+
     mlp = field.mlp
-    R, S = z.shape[0], z.shape[1] - int(mip)
+    R, S = (points[0].shape[0], 1) if points else (z.shape[0], z.shape[1] - int(mip))
 
     def plane(p, n):
         return workspace_planes(fr, launch, R, S, p, n)
 
     e = plane(fr._P_EMB, mlp.pts_linears[0].in_features)
     dv = plane(fr._P_DEMB, mlp.views_linears[0].in_features - mlp.feature_linear.out_features)
+    if points:  # the point-list store keeps the PE in fp32 (K8c's chain rule reads it)
+        e, dv = round_bf16(e), round_bf16(dv)
     acts = [plane(fr._P_ACT0 + i, lin.out_features) for i, lin in enumerate(mlp.pts_linears)]
     feat = plane(fr._P_FEAT, mlp.feature_linear.out_features)
     hv = plane(fr._P_HV, mlp.views_linears[0].out_features)
     s_act = plane(fr._P_ACT0 + mlp.depth, mlp.semantic_linear[0].out_features) if sem else None
     with torch.no_grad():
-        f = (fr.bf16_mip_forward if mip else fr.bf16_train_forward)(field, odv, z)
+        if points:
+            f = fr._bf16_mlp_forward(field, field.embed(points[0]), field.embed_views(points[1]))
+        else:
+            f = (fr.bf16_mip_forward if mip else fr.bf16_train_forward)(field, odv, z)
     stored = {"emb": (e, f["e"]), "view PE": (dv, f["dv"]), "feat": (feat, f["feat"]),
               "hv": (hv, f["hv"]), **{f"act{i}": (a, b) for i, (a, b) in
                                       enumerate(zip(acts, f["acts"]))}}
@@ -1769,11 +1868,11 @@ def bf16_planes(fr, what: str, field, got, launch, odv, z, sem: bool, controls=N
             plane(fr._P_ACT0 + mlp.depth + 1, mlp.semantic_linear[2].out_features)
             if sem else None)
 
-    def sweep():
+    def sweep(pe_cotangents=False):
         grads = {n: torch.zeros_like(p) for n, p in field.named_parameters()}
         with torch.no_grad():
-            fr.bf16_sweep(field, grads, *args)
-        return grads
+            pe = fr.bf16_sweep(field, grads, *args, pe_cotangents=pe_cotangents)
+        return (grads, pe) if pe_cotangents else grads
 
     want = sweep()
 
@@ -1789,6 +1888,17 @@ def bf16_planes(fr, what: str, field, got, launch, odv, z, sem: bool, controls=N
            / BF16_STORED_STEPS,
            "stored_differing_share": max(r["differing_share"] for r in readings.values()),
            "planes_leaf_err_over_tol": over}
+    if inputs is not None:
+        pe = sweep(True)[1]
+        with torch.enable_grad():
+            p, d = (t.detach().requires_grad_() for t in points)
+            want_in = torch.autograd.grad((field.embed(p), field.embed_views(d)), (p, d), pe)
+        over_in = max(max_err(a, b) / max(BF16_PLANES_TOL * float(b.abs().max()), 1e-30)
+                      for a, b in zip(inputs, want_in))
+        if not over_in <= 1.0:
+            raise SystemExit(f"{what}: the bf16 sweep's input gradients disagree with the plain "
+                             f"sweep's on its own forward's planes: {over_in} of BF16_PLANES_TOL")
+        out["planes_input_grads_err_over_tol"] = over_in
     for name, fn in (controls or {}).items():
         out[f"planes_{name}_over_tol"] = reading(fn(sweep))
     return out
@@ -3270,21 +3380,21 @@ def field_cost(field, n: int, kind: str, input_grads: bool = False, bf16: bool =
     every layer ('k2'), points and directions in, raw out; 'mip' the same
     with the covariances in; 'bwd' ``field_bwd_flops``, points, directions
     and the cotangent in, the gradients (and dpts/ddirs) out. The weights
-    are read once (``bf16``, K11 at bf16: in bf16, the products at the bf16
-    rate)."""
+    are read once (``bf16``, the bf16 modes: in bf16, the products at the
+    bf16 rate)."""
     C = 4 + (field.mlp.semantic_linear[2].out_features
              if getattr(field.mlp, "use_semantics", False) else 0)
     w = 4 * n_params(field)
-    if kind == "mip" and bf16:
-        return bf16_bound(4 * n * (9 + C) + w // 2, n * field_flops(field, "k2"))
+    wr = w // 2 if bf16 else w  # the weights' bytes as the kernel reads them
+    cost = bf16_bound if bf16 else bound_ms
     if kind == "sigma":
-        return bound_ms(4 * n * 4 + w, n * field_flops(field, "k1"))
+        return cost(4 * n * 4 + wr, n * field_flops(field, "k1"))
     if kind == "field":
-        return bound_ms(4 * n * (6 + C) + w, n * field_flops(field, "k2"))
+        return cost(4 * n * (6 + C) + wr, n * field_flops(field, "k2"))
     if kind == "mip":
-        return bound_ms(4 * n * (9 + C) + w, n * field_flops(field, "k2"))
-    return bound_ms(4 * n * (6 + C + (6 if input_grads else 0)) + 2 * w,
-                    n * field_bwd_flops(field, input_grads))
+        return cost(4 * n * (9 + C) + wr, n * field_flops(field, "k2"))
+    return cost(4 * n * (6 + C + (6 if input_grads else 0)) + wr + w,
+                n * field_bwd_flops(field, input_grads))
 
 
 def scaled_err(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -3293,17 +3403,19 @@ def scaled_err(got: torch.Tensor, want: torch.Tensor) -> float:
     return float(((got - want).abs() / want.abs().amax(0).clamp(min=1.0)).max())
 
 
-def field_design(ff, field, N: int, mode: int, bf16: bool = False) -> dict:
+def field_design(ff, field, N: int, mode: int, bf16: bool = False,
+                 f32_heads: bool = False) -> dict:
     """[K8_design]: the field forward's launch on N points in input mode
-    ``mode`` (FIELD_PTXAS's key, with ``bf16``): its ring stages and tiles a
-    CTA (``_field_plan``), the CTAs, and ptxas's line for the kernel."""
+    ``mode`` (FIELD_PTXAS's key, with ``bf16`` and K8b's head rule
+    ``f32_heads``): its ring stages and tiles a CTA (``_field_plan``), the
+    CTAs, and ptxas's line for the kernel."""
     from nerfsos_torch.ops import fused_render as fr
 
     dev = next(field.parameters()).device
     per, rd = ff._field_plan(fr._packed(field, dev)[1], fr._ring(field, dev, bf16)[1], N,
                              ff._sm_count(dev), mode != 4)
     return {"ring_stages": rd.stages, "tiles_per_cta": per, "ctas": -(-N // (128 * per)),
-            "ptxas": repr(FIELD_PTXAS.get((mode, int(bf16))))}
+            "ptxas": repr(FIELD_PTXAS.get((mode, int(bf16), int(f32_heads))))}
 
 
 def kernel_vs_plain_k8(ff) -> dict:
@@ -3650,7 +3762,7 @@ def sigma_noise_path(ff) -> dict:
                          f"and the field kernel once each of {blocks} ray blocks")
     if not all(torch.isfinite(v).all() for v in out["kernel"].values()) or frac > 1e-3:
         raise SystemExit(f"{frac:.2%} of rays differ by more than 1e-3 from the plain path")
-    (field, pts), _, got = cap.calls["fused_sigma_apply"][0]
+    (field, pts, _), _, got = cap.calls["fused_sigma_apply"][0]  # (field, pts, float32)
     with torch.no_grad():
         want = ff.sigma_plain(field, pts)
         err = scaled_err(got, want)
@@ -3899,6 +4011,50 @@ def bf16_volume(vol, want, control, witness) -> dict:
             "witness_flip_voxels": reading(witness)[1]}
 
 
+def bf16_points(what: str, got, want, control, others=None, varied: bool = True) -> dict:
+    """A field forward's bf16 outputs (a row a point) against its bf16 plain
+    version: every entry within BF16_ENTRY of its column's scale max(1,
+    max |plain|), and the share of rows beyond TOL within BF16_SHARE of
+    that share in ``control`` (the fp32 kernel's output on the same
+    points): bf16_volume's rule, K5's on the share. A row is one point, so
+    a rounding flip that moves a point's output is not averaged away as in
+    a ray's composite: K8d's rule rounds the heads' hidden activations, 256
+    entries a point with the semantic head, and 1.6% of 2^18 grid points
+    moved beyond TOL ([K8_bf16], H100), over bf16_columns' 1% (the fp32
+    kernel's output: 99.8%, the other head rule's: 96.6%). Raises; raises
+    too if the bounds do not refuse tail_fault(got), unless not ``varied``:
+    points near the origin (norm ~2), whose outputs under the default init
+    may differ from point to point by less than TOL (the fault's one row
+    at 127 points), so that no bound can be required to refuse it. The
+    same readings on each of ``others`` (name -> an output)."""
+    g, w, c = (t.detach().float().reshape(t.shape[0], -1) for t in (got, want, control))
+    scale = w.abs().amax(0).clamp(min=1.0)
+
+    def reading(x):
+        e = (x - w).abs() / scale
+        return float(e.max()) / BF16_ENTRY, float((e > TOL).any(1).float().mean())
+
+    over, share = reading(g)
+    c_over, c_share = reading(c)
+    bound = max(BF16_SHARE * c_share, 1e-30)
+    fault = reading(tail_fault(g))
+    finite = bool(torch.isfinite(g).all())
+    refused = max(fault[0], fault[1] / bound) > 1.0 or not varied
+    if not (finite and over <= 1.0 and share <= bound and refused):
+        raise SystemExit(f"{what} at bf16 disagrees with its bf16 plain version: its largest "
+                         f"error at {over} of BF16_ENTRY, {share} of its rows beyond TOL (bound "
+                         f"{bound}: BF16_SHARE of the fp32 kernel's {c_share}), finite={finite}; "
+                         f"or the bounds do not refuse a tail fault ({fault})")
+    out = {"max_abs_err": float((g - w).abs().max()), "err_over_bound": over,
+           "flip_rows": share, "flip_rows_over_bound": share / bound,
+           "control_over_bound": c_over, "control_flip_rows": c_share,
+           "tail_fault_over_bound": fault[0], "tail_fault_flip_rows_over_bound": fault[1] / bound}
+    for name, x in (others or {}).items():
+        o, sh = reading(x.detach().float().reshape(g.shape))
+        out[f"{name}_over_bound"], out[f"{name}_flip_rows_over_bound"] = o, sh / bound
+    return out
+
+
 def mip_bf16_paths(fr, ff) -> dict:
     """The --mipnerf paths at --compute_dtype bfloat16, each with the bf16
     counts of its kernels set to 0 just before and read just after, and no
@@ -4038,11 +4194,7 @@ def mip_bf16_paths(fr, ff) -> dict:
         nets[dtype] = run_nerf.build_model(mip_args(0, "--compute_dtype", dtype),
                                            torch.device("cuda"))[0]
         nets[dtype].load_state_dict(state)
-    nets["witness"] = copy.deepcopy(nets["bfloat16"])
-    with torch.no_grad():
-        for m in nets["witness"].modules():
-            if isinstance(m, torch.nn.Linear):
-                m.bias.mul_(1.0 + 2.0**-22)
+    nets["witness"] = nudged(nets["bfloat16"])
     secs, vols = {}, {}
     saved = ff.fused_mip_field_apply
     for path, net in (("fp32", nets["float32"]), ("bf16", nets["bfloat16"]),
@@ -4104,28 +4256,436 @@ def mip_step_bf16_timings(fr) -> None:
                   peak_gib=torch.cuda.max_memory_allocated() / 2**30)
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device visible", file=sys.stderr)
-        return 1
-    smi = smi_line()
-    phase("device", nvidia_smi=repr(smi), torch=torch.__version__, cuda=torch.version.cuda,
-          count=torch.cuda.device_count())
-    if torch.backends.cuda.matmul.allow_tf32:
-        raise SystemExit("torch.backends.cuda.matmul.allow_tf32 must be off")
+# ----------------------------------------------------------------- the field kernels at bf16
 
-    from nerfsos_torch import _build
-    from nerfsos_torch.ops import flash_corr as fc
-    from nerfsos_torch.ops import fused_field as ff
+NOIMP_BF16_COUNTS = {"K8d": "field_forward", "K8f": "field_grads", "K8e": "fused_sigma_apply"}
+
+
+def zero_field_counts(ff) -> None:
+    """Every count of the classic field wrappers (fp32 and bf16, the
+    input-gradient mode's and K8b's head rule's too) set to 0."""
+    for name in NOIMP_BF16_COUNTS.values():
+        w = getattr(ff, name)
+        w.launches = w.launches_bf16 = 0
+    ff.field_grads.input_grad_launches = ff.field_grads.input_grad_launches_bf16 = 0
+    ff.field_forward.launches_bf16_f32_heads = 0
+
+
+def read_field_counts(ff, what: str) -> dict:
+    """The classic field wrappers' bf16 counts (K8b: the field forward's
+    under its head rule; K8c: the input-gradient mode's); raises if any
+    fp32 launch was counted."""
+    f32 = {k: getattr(ff, n).launches for k, n in NOIMP_BF16_COUNTS.items()}
+    if any(f32.values()) or ff.field_grads.input_grad_launches:
+        raise SystemExit(f"the bf16 {what} launched fp32 field kernels: {f32}")
+    out = {k: getattr(ff, n).launches_bf16 for k, n in NOIMP_BF16_COUNTS.items()}
+    out["K8b"] = ff.field_forward.launches_bf16_f32_heads
+    out["K8c"] = ff.field_grads.input_grad_launches_bf16
+    return out
+
+
+def noimp_points(R: int, S: int, seed: int):
+    """The points and unit directions ``[R * S, 3]`` of ``ray_inputs``' rays."""
+    odv, z = ray_inputs(R, S, seed=seed)
+    pts = (odv[:, None, 0:3] + odv[:, None, 3:6] * z[..., None]).reshape(-1, 3).contiguous()
+    return pts, odv[:, None, 6:9].expand(R, S, 3).reshape(-1, 3).contiguous()
+
+
+def kernel_vs_plain_k8_bf16(ff) -> dict:
+    """[K8_bf16]: the classic field forwards' bf16 modes at the flagship
+    width (8 x 256, multires 10/4, the semantic head with coordinates):
+    the sigma forward (K8a/K8e) on 2^18 points of the x14 grid (an export
+    chunk) and on 32768 x 64 points of rays (a noisy density-only view's
+    coarse call), the field forward under K8b's head rule (f32_heads) and
+    under K8d's on 2^18 grid points and on 1024 x 64 points of rays (the
+    --N_importance 0 step's call); each also on 4097 points near the origin
+    (norm ~2, bf16_points not ``varied``: no tail fault read there is
+    required to be refused). Each against its bf16 plain version
+    (bf16_points), beside the readings of the fp32 kernel's output, of the
+    plain version on the field nudged both ways (``nudged``: its rounding
+    flips alone) and, for a head rule, of the other rule's kernel output on
+    the same inputs; two calls bitwise equal; timed beside the same call's
+    fp32 kernel and the bf16 bound, with the launch's ring stages, tiles a
+    CTA and ptxas line. Returns the kernels line's numbers: K8a at 32768 x
+    64, K8b at 2^18, K8d at 1024 x 64. Held by bf16_points (a row a
+    point)."""
+    bf = torch.bfloat16
+    field = seeded_field(41, net_depth=8, net_width=256, multires=10, multires_views=4,
+                         use_semantics=True, sem_with_coord=True, sem_dim=2)
+    out = {}
+
+    def check(name, run, plain, run32, cost, design, others=None, varied=True, **fields):
+        with torch.no_grad():
+            got, again, want, control = run(), run(), plain(field), run32()
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise SystemExit(f"{name} at bf16 ({fields}): two calls differ")
+            beside = {f"witness{sign:+.0f}": plain(nudged(field, sign)) for sign in (1.0, -1.0)}
+            beside.update({k: f() for k, f in (others or {}).items()})
+            close = bf16_points(f"{name} ({fields})", got, want, control, beside, varied)
+            del got, again, want, control, beside
+            ms, ms32 = cuda_ms(run), cuda_ms(run32)
+            plain_ms = cuda_ms(lambda: plain(field), reps=3)
+        phase("K8_bf16", kernel=name, **fields, **close, deterministic=True, ms=ms, fp32_ms=ms32,
+              plain_ms=plain_ms, **cost, **design)
+        return {"max_abs_err": close["max_abs_err"], "ms": ms, "plain_ms": plain_ms, **cost,
+                "library_ms": None}
+
+    N = FIELD_POINTS
+    shapes = {"grid": (grid_points(N, 50), unit_dirs(N, 51))}
+    shapes["rays"] = noimp_points(1024, 64, seed=46)
+    near = torch.randn(4097, 3, generator=torch.Generator().manual_seed(52)).mul(2.0).cuda()
+    shapes["near"] = (near, unit_dirs(4097, 53))
+    for where, (pts, dirs) in shapes.items():
+        n = pts.shape[0]
+        for rule, heads in (("K8b", True), ("K8d", False)):
+            other = "K8d" if heads else "K8b"
+            res = check(
+                "field forward", lambda: ff.field_forward(field, pts, dirs, bf, heads),
+                lambda f: ff.field_plain(f, pts, dirs, bf, heads),
+                lambda: ff.field_forward(field, pts, dirs),
+                field_cost(field, n, "field", bf16=True),
+                field_design(ff, field, n, 3, bf16=True, f32_heads=heads),
+                {f"{other}_rule": lambda: ff.field_forward(field, pts, dirs, bf, not heads)},
+                where != "near", points=n, where=where, head_rule=rule)
+            if (where, rule) in (("grid", "K8b"), ("rays", "K8d")):
+                out[rule] = res
+    sig = {"grid": shapes["grid"][0], "rays": noimp_points(32768, 64, seed=47)[0], "near": near}
+    del shapes
+    for where, pts in sig.items():
+        n = pts.shape[0]
+        res = check("sigma forward", lambda: ff.fused_sigma_apply(field, pts, bf),
+                    lambda f: ff.sigma_plain(f, pts, bf), lambda: ff.fused_sigma_apply(field, pts),
+                    field_cost(field, n, "sigma", bf16=True),
+                    field_design(ff, field, n, 4, bf16=True), varied=where != "near", points=n,
+                    where=where)
+        if where == "rays":
+            out["K8a"] = res
+    return out
+
+
+def unrounded_g_fault(ff, run):
+    """``run()`` with the field backward's bf16 plain version leaving the
+    cotangent g unrounded: the fault of a backward that skips g's rounding
+    (its bias sums and products then read fp32 values)."""
+    saved = ff.round_bf16
+    ff.round_bf16 = lambda x: x
+    try:
+        return run()
+    finally:
+        ff.round_bf16 = saved
+
+
+def kernel_vs_plain_k8_bwd_bf16(ff) -> dict:
+    """[K8_bwd_bf16]: the field backward's bf16 mode at the --N_importance 0
+    step's size (1024 rays x 64 samples of ``ray_inputs``, the [K8_bwd]
+    phase's field and cotangent), weights only (K8f) and with dpts/ddirs
+    (K8c): every leaf (and K8c's dpts and ddirs as two leaves more) against
+    the bf16 plain version (bf16_leaves beside bf16_witness), beside the
+    readings of the fp32 kernel's output and of the plain version with g
+    left unrounded (unrounded_g_fault); two calls bitwise equal; timed
+    beside the same call's fp32 kernel and the bf16 bound, with its
+    forward/reverse split. Then [K8_bwd_bf16_planes]: the same call (one
+    wave of chunks) through fused_field._field_grads_launch, its stored
+    planes and its sweep held by bf16_planes (the unrounded gate fault's
+    reading beside). Returns the kernels line's numbers."""
     from nerfsos_torch.ops import fused_render as fr
-    from nerfsos_torch.tools import sass_spills
 
-    shutil.rmtree(WORK, ignore_errors=True)
-    os.makedirs(WORK)
+    bf = torch.bfloat16
+    field = seeded_field(43, net_depth=8, net_width=256, multires=10, multires_views=4,
+                         use_semantics=True, sem_with_coord=True, sem_dim=2)
+    pts, dirs = noimp_points(1024, 64, seed=44)
+    N = pts.shape[0]
+    g = torch.from_numpy(np.random.default_rng(45).normal(size=(N, 6)).astype(np.float32)).cuda()
+    out = {}
+    for input_grads in (False, True):
+        kernel = "K8c" if input_grads else "K8f"
+
+        def run(dtype=bf):
+            return ff.field_grads(field, pts, dirs, g, input_grads=input_grads,
+                                  compute_dtype=dtype)
+
+        def plain(f):
+            return ff.field_grads_plain(f, pts, dirs, g, input_grads=input_grads,
+                                        compute_dtype=bf)
+
+        def leaves(res):  # the grads, and K8c's dpts and ddirs as two leaves more
+            grads, dp, dd = res
+            return {**grads, **({"dpts": dp, "ddirs": dd} if input_grads else {})}
+
+        zero_field_counts(ff)
+        got, again = leaves(run()), leaves(run())
+        launches = read_field_counts(ff, kernel)
+        if launches != {"K8d": 0, "K8f": 2, "K8e": 0, "K8b": 0, "K8c": 2 * input_grads}:
+            raise SystemExit(f"{kernel} at bf16: two calls counted {launches}")
+        control = leaves(run(torch.float32))
+        want = leaves(plain(field))
+        witness = bf16_witness(lambda f: leaves(plain(f)), field, want)
+        fault = leaves(unrounded_g_fault(ff, lambda: plain(field)))
+        torch.cuda.synchronize()
+        if not all(torch.equal(got[k], again[k]) for k in got):
+            raise SystemExit(f"{kernel} at bf16: two calls differ")
+        close = bf16_leaves(kernel, got, want, witness, {"control": control, "fault": fault})
+        del again, want, fault
+        ms, ms32 = cuda_ms(run), cuda_ms(lambda: run(torch.float32))
+        plain_ms = cuda_ms(lambda: plain(field), reps=3)
+        cost = field_cost(field, N, "bwd", input_grads, bf16=True)
+        split = forward_split(run, f"{kernel}_bf16")
+        phase("K8_bwd_bf16", mode=kernel, points=N, launches=launches, **close,
+              deterministic=True, ms=ms, fp32_ms=ms32, plain_ms=plain_ms, **split, **cost)
+        out[kernel] = {"max_abs_err": close["max_abs_err"], "ms": ms, "plain_ms": plain_ms,
+                       **cost, "library_ms": None}
+        flat, dp, dd, launch = ff._field_grads_launch(field, pts, dirs, g, input_grads, True)
+        planes = bf16_planes(fr, kernel, field, fr.unpack_grads(field, flat, True), launch,
+                             None, None, True,
+                             {"control": lambda sweep: control,
+                              "fault": lambda sweep: unrounded_gate_fault(fr, sweep)},
+                             points=(pts, dirs), inputs=(dp, dd) if input_grads else None)
+        phase("K8_bwd_bf16_planes", mode=kernel, points=N, **planes)
+        del launch, control, got
+    return out
+
+
+def bf16_classic_export(ff) -> int:
+    """[eval_vol_bf16] with the classic field: ``run_nerf.main --eval_vol
+    --compute_dtype bfloat16`` on the [eval] phase's seeded flagship .ckpt
+    (the fine field at a 256^3 grid, 64 chunks): the field forward's count
+    under K8b's head rule (``launches_bf16_f32_heads``), set to 0 just
+    before, reads 64 just after, and no other field kernel (K8d's rule
+    included) and no fp32 launch is counted; the volume against the export
+    with the field forward's bf16 plain version in the kernel's place,
+    called with the same rule (bf16_volume, the fp32 export and the plain
+    export on the nudged net beside), bitwise equal to a second export, its
+    seconds beside the fp32 and the plain exports'. Returns K8b's
+    launches."""
+    from nerfsos_torch import run_nerf
+    from nerfsos_torch.engines import checkpoint as ckpt_lib
+    from nerfsos_torch.engines import eval as eval_lib
+    from nerfsos_torch.utils import io as io_utils
+
+    args = eval_args("--eval_vol", "--compute_dtype", "bfloat16", "--expname", "smoke_vol_bf16")
+    zero_field_counts(ff)
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
-    lib_path = _build.build()
-    _build.library()
-    phase("build", seconds=time.perf_counter() - t0, lib=os.path.relpath(lib_path, ROOT))
+    run_nerf.main(args)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_field_counts(ff, "classic --eval_vol")
+    side = int(args.vol_extents[0] / args.vol_size)
+    chunks = -(-side**3 // EXPORT_CHUNK)
+    vol = io_utils.read_mrc(os.path.join(WORK, "logs", "smoke_vol_bf16", "eval", "density.mrc"))
+    if (launches != {"K8d": 0, "K8f": 0, "K8e": 0, "K8b": chunks, "K8c": 0}
+            or vol.shape != (side,) * 3):
+        raise SystemExit(f"the bf16 classic --eval_vol launched {launches}, not K8b's head rule "
+                         f"{chunks} times alone, or wrote a volume of {vol.shape}")
+    state = ckpt_lib.load_checkpoint(os.path.join(WORK, "seeded.ckpt"))[0]
+    nets = {}
+    for dtype in ("bfloat16", "float32"):
+        nets[dtype] = run_nerf.build_model(eval_args("--compute_dtype", dtype),
+                                           torch.device("cuda"))[0]
+        nets[dtype].load_state_dict(state)
+        nets[dtype].eval()
+    nets["witness"] = nudged(nets["bfloat16"])
+    secs, vols = {}, {}
+    saved = ff.field_forward
+    for path, net in (("fp32", nets["float32"]), ("bf16", nets["bfloat16"]),
+                      ("plain", nets["bfloat16"]), ("witness", nets["witness"])):
+        if path in ("plain", "witness"):  # the bf16 plain version in the kernel's place
+            ff.field_forward = lambda f, p, d, cd, f32_heads=False: ff.field_plain(f, p, d, cd,
+                                                                                   f32_heads)
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                vols[path] = eval_lib.export_density(net, extents=(args.vol_extents[0],) * 3,
+                                                     voxel_size=args.vol_size)
+            torch.cuda.synchronize()
+            secs[path] = time.perf_counter() - t0
+        finally:
+            ff.field_forward = saved
+    close = bf16_volume(vol, vols["plain"], vols["fp32"], vols["witness"])
+    if not np.array_equal(vol, vols["bf16"]):
+        raise SystemExit("the bf16 classic --eval_vol volume differs from a second export")
+    phase("eval_vol_bf16", field="classic", grid=vol.shape, seconds=seconds,
+          launches=launches, export_s=secs["bf16"], export_fp32_s=secs["fp32"],
+          export_plain_s=secs["plain"], volume=close, deterministic=True)
+    return launches["K8b"]
+
+
+def train_noimp_bf16_path(fr, ff) -> dict:
+    """[train_noimp_bf16]: the [train_noimp] run (configs/flower_full.txt's
+    flags, --N_importance 0) at --compute_dtype bfloat16, TRAIN_STEPS steps
+    from the seed. The field kernels' counts, fp32 and bf16, set to 0 just
+    before: the bf16 backward (K8f) once a step, the bf16 forward (K8d)
+    once a step and once a ray block of the final eval, no fp32 launch, no
+    K8c, K8e or K1-K4; the loss finite and falling; the last step's K8f call
+    against its bf16 plain version (bf16_leaves beside bf16_witness) and a
+    second call, bitwise. Returns the bf16 launches."""
+    bf = torch.bfloat16
+    args = train_args(os.path.join(WORK, "data"), os.path.join(WORK, "logs"), TRAIN_STEPS,
+                      expname="smoke_noimp_bf16",
+                      extra=("--N_importance", "0", "--compute_dtype", "bfloat16"))
+    other = {n: getattr(fr, n).launches_bf16 for n in (*TRAIN_COUNTS.values(), "train_render")}
+    zero_field_counts(ff)
+    rec = run_train(fr, args, NOIMP_BF16_COUNTS, ["field_grads"], TRAIN_STEPS - 1, mod=ff)
+    launches, losses = read_field_counts(ff, "--N_importance 0 run"), rec["losses"]
+    blocks = -(-H_VIEW * W_VIEW // args.ray_chunk)
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    phase("train_noimp_bf16", steps=len(losses), views=f"8x{H_VIEW}x{W_VIEW}",
+          seconds_incl_load_and_eval=rec["seconds"], launches=launches, eval_ray_blocks=blocks,
+          loss_first10=first, loss_last10=last)
+    if rec["steps"] != list(range(TRAIN_STEPS)):
+        raise SystemExit(f"the bf16 --N_importance 0 run ran steps {rec['steps']}")
+    if (launches != {"K8d": TRAIN_STEPS + blocks, "K8f": TRAIN_STEPS, "K8e": 0, "K8b": 0, "K8c": 0}
+            or any(getattr(fr, n).launches_bf16 != c for n, c in other.items())):
+        raise SystemExit(f"the bf16 --N_importance 0 run did not go through the bf16 field "
+                         f"kernels alone: {launches}")
+    if not (all(math.isfinite(x) for x in losses) and last < first):
+        raise SystemExit(f"the bf16 --N_importance 0 loss is not finite or not falling: {losses}")
+    log = check_final_eval(os.path.join(WORK, "logs", "smoke_noimp_bf16"))
+    calls = rec["calls"]["field_grads"]
+    if len(calls) != 1:
+        raise SystemExit(f"captured {len(calls)} K8f calls of step {TRAIN_STEPS - 1}")
+    (field, pts, dirs, g), kw, got = calls[0]
+
+    def plain(f):
+        return ff.field_grads_plain(f, pts, dirs, g, **kw)[0]
+
+    want = plain(field)
+    again = ff.field_grads(field, pts, dirs, g, **kw)[0]
+    if kw.get("compute_dtype") != bf or not all(torch.equal(got[0][k], again[k]) for k in again):
+        raise SystemExit(f"K8f at step {TRAIN_STEPS - 1}: not bf16, or two calls differ")
+    close = bf16_leaves(f"K8f at step {TRAIN_STEPS - 1}", got[0], want,
+                        bf16_witness(plain, field, want))
+    phase("train_noimp_bf16_k8f", step=TRAIN_STEPS - 1, points=pts.shape[0],
+          psnr=log["total_psnr"], ssim=log["total_ssim"], **close)
+    return launches
+
+
+def noimp_bf16_step_timings() -> None:
+    """[noimp_bf16_step]: the --N_importance 0 RGB step (the [noimp_step]
+    flags; autograd through the field forward and backward, then Adam, CUDA
+    events) at bf16 and at fp32 in turns (fp32, bf16, bf16, fp32) on the
+    same weights and batch, at 1024 rays (30 steps a turn) and 16384 rays
+    (5), with peak memory and each dtype's bound."""
+    from nerfsos_torch import run_nerf
+    from nerfsos_torch.data.datasets import RayDataset
+    from nerfsos_torch.engines import state as state_lib
+    from nerfsos_torch.engines.trainer import make_rgb_train_step
+
+    dataset = RayDataset(os.path.join(WORK, "data"), split="train")
+    steps = {}
+    for name, dtype in (("fp32", "float32"), ("bf16", "bfloat16")):
+        args = train_args(os.path.join(WORK, "data"), os.path.join(WORK, "logs"), 0,
+                          extra=("--N_importance", "0", "--compute_dtype", dtype))
+        net, _ = run_nerf.build_model(args, torch.device("cuda"))
+        opt = state_lib.make_optimizer(net, args.lrate)
+        steps[name] = make_rgb_train_step(
+            net, opt, state_lib.exp_decay_schedule(args.lrate, args.decay_rate,
+                                                   args.decay_step * 1000),
+            *dataset.near_far(), args.rgb_w, args.seed)
+    per_ray = args.N_samples * (field_flops(net.nerf, "k2") + field_bwd_flops(net.nerf, False))
+    for R, reps in ((1024, 30), (16384, 5)):
+        b = dataset.sample_batch(np.random.default_rng(R), R)
+        batch = {k: torch.as_tensor(b[k], device="cuda") for k in ("rays", "target")}
+        for name in ("fp32", "bf16", "bf16", "fp32"):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            ms = cuda_ms(lambda: steps[name](batch, 0), reps=reps, warmup=1)
+            rate = BF16_FLOP_S if name == "bf16" else FP32_MMA_FLOP_S
+            phase("noimp_bf16_step", compute_dtype=name, rays=R, steps=reps, ms=ms,
+                  rays_per_s=R / ms * 1e3, bound_ms=R * per_ray / rate * 1e3,
+                  peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+
+
+def sigma_noise_bf16_path(ff) -> dict:
+    """[sigma_noise_bf16]: the [sigma_noise] view (the [eval] phase's seeded
+    flagship .ckpt, ``forward(..., coarse_outputs=False, raw_noise_std=1.0)``)
+    at --compute_dtype bfloat16: the bf16 sigma (K8e) and field (K8d)
+    kernels once a ray block, no fp32 launch (counts set to 0 just before);
+    the view's last K8e and K8d calls against their bf16 plain versions on
+    their own inputs (bf16_points, the fp32 kernels' outputs beside) and a
+    second call, bitwise; the seconds of the bf16 view, of the fp32 view
+    and of the view with both wrappers' bf16 plain versions in the kernels'
+    place (the same noise), and the bf16 view's rgb distance from those two
+    beside (a flip in a coarse density moves the fine pass's importance
+    samples, so the views are not held to each other, as [eval_bf16]).
+    Returns the bf16 launches."""
+    from nerfsos_torch import run_nerf
+    from nerfsos_torch.data.datasets import RayDataset
+    from nerfsos_torch.engines import checkpoint as ckpt_lib
+
+    bf = torch.bfloat16
+    state, _, _ = ckpt_lib.load_checkpoint(os.path.join(WORK, "seeded.ckpt"))
+    nets = {}
+    for dtype in ("bfloat16", "float32"):
+        nets[dtype] = run_nerf.build_model(eval_args("--eval", "--compute_dtype", dtype),
+                                           torch.device("cuda"))[0]
+        nets[dtype].load_state_dict(state)
+        nets[dtype].eval()
+    dataset = RayDataset(os.path.join(WORK, "data"), split="test")
+    rays = torch.as_tensor(dataset.get_view(0)["rays"], device="cuda")
+    near_far = dataset.near_far()
+    blocks = -(-H_VIEW * W_VIEW // nets["bfloat16"].cfg.ray_block)
+    plain = {"fused_sigma_apply": lambda f, p, cd=torch.float32: ff.sigma_plain(f, p, cd),
+             "field_forward": lambda f, p, d, cd=torch.float32, f32_heads=False:
+             ff.field_plain(f, p, d, cd, f32_heads)}
+    out, secs, launches, calls = {}, {}, None, None
+    for path, net in (("bf16", nets["bfloat16"]), ("plain", nets["bfloat16"]),
+                      ("fp32", nets["float32"])):
+        saved = {n: getattr(ff, n) for n in plain} if path == "plain" else {}
+        for n in saved:
+            setattr(ff, n, plain[n])
+        if path == "bf16":
+            zero_field_counts(ff)
+            cap = Capture(ff, list(plain))
+            cap.on = True
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                out[path] = net(rays, near_far, train=False, coarse_outputs=False,
+                                raw_noise_std=1.0,
+                                generator=torch.Generator(device="cuda").manual_seed(7))
+            torch.cuda.synchronize()
+            secs[path] = time.perf_counter() - t0
+        finally:
+            for n, f in saved.items():
+                setattr(ff, n, f)
+            if path == "bf16":
+                cap.close()
+                launches, calls = read_field_counts(ff, "noisy density-only view"), cap.calls
+    if launches != {"K8d": blocks, "K8f": 0, "K8e": blocks, "K8b": 0, "K8c": 0}:
+        raise SystemExit(f"the bf16 noisy density-only view launched {launches}, not the bf16 "
+                         f"sigma and field kernels once each of {blocks} ray blocks")
+    if not all(torch.isfinite(v).all() for v in out["bf16"].values()):
+        raise SystemExit("the bf16 noisy density-only view is not finite")
+    checks = {}
+    for name, key in (("K8e", "fused_sigma_apply"), ("K8d", "field_forward")):
+        if len(calls[key]) != blocks:
+            raise SystemExit(f"captured {len(calls[key])} {name} calls of {blocks} ray blocks")
+        a, kw, got = calls[key][-1]
+        with torch.no_grad():
+            again = getattr(ff, key)(*a, **kw)
+            want = plain[key](*a, **kw)
+            control = getattr(ff, key)(*a[:-1])  # the fp32 kernel on the same inputs
+        if a[-1] != bf or not torch.equal(got, again):
+            raise SystemExit(f"the bf16 noisy view's {name}: not bf16, or two calls differ")
+        checks[name] = dict(points=a[1].shape[0], **bf16_points(
+            f"the bf16 noisy view's last {name} call", got, want, control))
+    d_rgb = {k: float((out["bf16"]["rgb"] - out[k]["rgb"]).abs().amax(-1).gt(1e-3).float().mean())
+             for k in ("plain", "fp32")}
+    phase("sigma_noise_bf16", view=f"{H_VIEW}x{W_VIEW}", ray_blocks=blocks, launches=launches,
+          seconds=secs["bf16"], fp32_seconds=secs["fp32"], plain_seconds=secs["plain"],
+          last_calls=checks, frac_rays_rgb_over_1e_3=d_rgb, deterministic=True)
+    return launches
+
+
+def read_ptxas(lib_path: str) -> None:
+    """ptxas's lines for the kernels the phases print (K1_PTXAS .. REV_PTXAS)
+    from the library's build log, printing every register/spill line;
+    raises if a kernel's line is missing or ptxas serialised a wgmma."""
     global K1_PTXAS, K4_PTXAS, K5_PTXAS, K9_PTXAS, K1_BF16_PTXAS, K4_BF16_PTXAS, K5_BF16_PTXAS
     global K9_BF16_PTXAS
     with open(lib_path + ".log") as f:
@@ -4158,12 +4718,13 @@ def main() -> int:
             FWD_PTXAS[(int(mode), int(kin[0]), int(kin.split("ELb")[1][0]))] = "; ".join(
                 x.replace("ptxas info    :", "").strip() for x in lines[i + 2:i + 4])
         if "Compiling entry function" in line and "field_bwd_forward_kernel" in line:
-            sem, ingrad = line.split("field_bwd_forward_kernelILb")[1].split("ELb")[:2]
-            FIELD_BWD_PTXAS[(int(sem[0]), int(ingrad[0]))] = "; ".join(
+            sem, ingrad, bf16 = line.split("field_bwd_forward_kernelILb")[1].split("ELb")[:3]
+            FIELD_BWD_PTXAS[(int(sem[0]), int(ingrad[0]), int(bf16[0]))] = "; ".join(
                 x.replace("ptxas info    :", "").strip() for x in lines[i + 2:i + 4])
         if "Compiling entry function" in line and "field_wg_kernelILi" in line:
-            mode = line.split("field_wg_kernelILi")[1]
-            FIELD_PTXAS[(int(mode[0]), int(mode.split("ELb")[1][0]))] = "; ".join(
+            # field_wg_kernel<kIn, kBf16, kHeadF32>
+            mode, bf16, heads = line.split("field_wg_kernelILi")[1].split("ELb")[:3]
+            FIELD_PTXAS[(int(mode[0]), int(bf16[0]), int(heads[0]))] = "; ".join(
                 x.replace("ptxas info    :", "").strip() for x in lines[i + 2:i + 4])
         if "Compiling entry function" in line and "train_reverse_kernel" in line:
             sem, ingrad, bf16 = line.split("train_reverse_kernelILb")[1].split("ELb")[:3]
@@ -4183,16 +4744,17 @@ def main() -> int:
             or None in (K1_BF16_PTXAS, K4_BF16_PTXAS, K5_BF16_PTXAS, K9_BF16_PTXAS)
             or sorted(FWD_PTXAS) != [(1, 0, 0), (1, 0, 1), (2, 0, 0), (2, 0, 1), (2, 2, 0),
                                      (2, 2, 1)]
-            or len(REV_PTXAS) != 6
-            or sorted(FIELD_PTXAS) != [(3, 0), (4, 0), (5, 0), (5, 1)]
-            or len(FIELD_BWD_PTXAS) != 4):
+            or len(REV_PTXAS) != 8
+            or sorted(FIELD_PTXAS) != [(3, 0, 0), (3, 1, 0), (3, 1, 1), (4, 0, 0), (4, 1, 0),
+                                       (5, 0, 0), (5, 1, 0)]
+            or len(FIELD_BWD_PTXAS) != 8):
         raise SystemExit("no ptxas report for K1's, K4's and K9's kernel (train_render_wg_kernel "
                          "in its three input modes, each also in the bf16 mode), K5's "
                          "(frozen_sem_kernel, fp32 and bf16), K3's, K6's and K10b's forward "
                          "(train_forward_wg_kernel, each also bf16), the field forwards' three "
-                         "point-list modes (field_wg_kernel; K11's also bf16), the field "
-                         "backward's forward's "
-                         "four modes (field_bwd_forward_kernel) or the reverse sweep's six "
+                         "point-list modes (field_wg_kernel, each also bf16, kInList in both "
+                         "head rules), the field backward's forward's "
+                         "eight modes (field_bwd_forward_kernel) or the reverse sweep's eight "
                          f"modes (train_reverse_kernel): forward {sorted(FWD_PTXAS)}, field "
                          f"{sorted(FIELD_PTXAS)}, field backward {sorted(FIELD_BWD_PTXAS)}")
     # every wgmma kernel keeps its pipeline: K1/K2/K4's, K5's, K3's, K6's,
@@ -4204,6 +4766,32 @@ def main() -> int:
     phase("reverse_ptxas", modes={f"kSem={k[0]},kInGrad={k[1]},kBf16={k[2]}": v
                                   for k, v in sorted(REV_PTXAS.items())},
           wgmma_warnings=serialised)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible", file=sys.stderr)
+        return 1
+    smi = smi_line()
+    phase("device", nvidia_smi=repr(smi), torch=torch.__version__, cuda=torch.version.cuda,
+          count=torch.cuda.device_count())
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise SystemExit("torch.backends.cuda.matmul.allow_tf32 must be off")
+
+    from nerfsos_torch import _build
+    from nerfsos_torch.ops import flash_corr as fc
+    from nerfsos_torch.ops import fused_field as ff
+    from nerfsos_torch.ops import fused_render as fr
+    from nerfsos_torch.tools import sass_spills
+
+    shutil.rmtree(WORK, ignore_errors=True)
+    os.makedirs(WORK)
+    t0 = time.perf_counter()
+    start_fwdonly_build()
+    lib_path = _build.build()
+    _build.library()
+    phase("build", seconds=time.perf_counter() - t0, lib=os.path.relpath(lib_path, ROOT))
+    read_ptxas(lib_path)
     for name, sass in sass_spills.functions(lib_path).items():
         m = K7_KERNEL.search(name)
         if m:
@@ -4290,6 +4878,17 @@ def main() -> int:
     sigma = sigma_noise_path(ff)
     torch.cuda.empty_cache()
     noimp_parts = noimp_step_timings(ff)
+    torch.cuda.empty_cache()
+    # the classic field kernels' bf16 modes, then their paths at bf16
+    k8_bf16 = kernel_vs_plain_k8_bf16(ff)
+    k8_bf16.update(kernel_vs_plain_k8_bwd_bf16(ff))
+    torch.cuda.empty_cache()
+    vol_bf16_classic = bf16_classic_export(ff)
+    torch.cuda.empty_cache()
+    noimp_bf16_launches = train_noimp_bf16_path(fr, ff)
+    noimp_bf16_step_timings()
+    torch.cuda.empty_cache()
+    sigma_bf16_launches = sigma_noise_bf16_path(ff)
     sos_launches = sos_run["launches"]
     full_launches, rand_launches = full_run["launches"], rand_run["launches"]
 
@@ -4420,6 +5019,30 @@ def main() -> int:
         {"name": "K11 fused_mip_field_apply (bf16)", "route": "cuda", "source": tile_src,
          "replaces": f"{field_tpu}:1044", "launches": mip_bf16_launches["K11"],
          **mip_bf16["K11"]},
+        # the classic field kernels' bf16 modes: launches on the bf16 noisy
+        # density-only view (K8a/K8e, K8d there too), the bf16 classic export
+        # (K8b, on launches_bf16_f32_heads) and the bf16 --N_importance 0 run
+        # (K8d, K8f; K8c: no path asks for the points' gradients); K8a/K8e
+        # timed at the view's 32768 x 64 points, K8b at the export's
+        # 2^18-point chunks, K8d, K8f and K8c at the --N_importance 0 step's
+        # 1024 x 64 ([K8_bf16], [K8_bwd_bf16])
+        {"name": "K8a fused_sigma_apply (bf16)", "route": "cuda", "source": tile_src,
+         "replaces": f"{field_tpu}:115", "launches": sigma_bf16_launches["K8e"],
+         **k8_bf16["K8a"]},
+        {"name": "K8e fused_sigma_apply (planar twin) (bf16)", "route": "cuda",
+         "source": tile_src, "replaces": f"{field_tpu}:688",
+         "launches": sigma_bf16_launches["K8e"], **k8_bf16["K8a"]},
+        {"name": "K8b field_forward (bf16, f32_heads)", "route": "cuda", "source": tile_src,
+         "replaces": f"{field_tpu}:68", "launches": vol_bf16_classic, **k8_bf16["K8b"]},
+        {"name": "K8d field_forward (planar twin) (bf16)", "route": "cuda", "source": tile_src,
+         "replaces": f"{field_tpu}:638", "launches": noimp_bf16_launches["K8d"],
+         **k8_bf16["K8d"]},
+        {"name": "K8c field_grads (input-gradient mode) (bf16)", "route": "cuda",
+         "source": field_src, "replaces": f"{field_tpu}:346",
+         "launches": noimp_bf16_launches["K8c"], **k8_bf16["K8c"]},
+        {"name": "K8f field_grads (bf16)", "route": "cuda", "source": field_src,
+         "replaces": f"{field_tpu}:818", "launches": noimp_bf16_launches["K8f"],
+         **k8_bf16["K8f"]},
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -107,9 +107,8 @@ MAX_LAYERS = 16
 
 class MLPDesc(ctypes.Structure):
     """Mirror of ``MLPDesc`` in ``csrc/tile_mlp.cuh`` (``bf16``: the bf16 mode
-    that K1, K2, K3, K4 and K6 run at ``--compute_dtype bfloat16``; the
-    K1/K4 and K3/K6 entry points take their bf16 instantiations when it is
-    set, the mip and field entry points refuse it)."""
+    that every kernel runs at ``--compute_dtype bfloat16``; each entry point
+    takes its bf16 instantiation when it is set)."""
     _fields_ = [("layer", MLPLayer * MAX_LAYERS),
                 ("depth", ctypes.c_int), ("skip", ctypes.c_int),
                 ("hrows", ctypes.c_int), ("emb_dim", ctypes.c_int),
@@ -122,8 +121,9 @@ MAX_PLANES = 10 + MAX_LAYERS
 
 class TrainDesc(ctypes.Structure):
     """Mirror of ``TrainDesc`` in ``csrc/train_sweep.cuh`` (``f.bf16`` picks
-    the bf16 mode of K3's and K6's forward and reverse sweep, whose rings
-    are then ``pack_ring``'s and ``pack_bwd_ring``'s bf16 layouts)."""
+    the bf16 mode of the storing forwards and the reverse sweep (K3, K6,
+    K10b, K8c/K8f), whose rings are then ``pack_ring``'s and
+    ``pack_bwd_ring``'s bf16 layouts)."""
     _fields_ = [("f", MLPDesc), ("bwd", MLPLayer * MAX_LAYERS),
                 ("gw", ctypes.c_longlong * MAX_LAYERS), ("gb", ctypes.c_longlong * MAX_LAYERS),
                 ("grad_size", ctypes.c_longlong),
@@ -187,7 +187,7 @@ def library() -> ctypes.CDLL:
                                                 ctypes.c_uint, f32, vp]
     i64 = ctypes.c_longlong
     lib.nerf_field_sigma.argtypes = [vp, vp, vp, train_p, ring_p, vp, i64, i32, vp]
-    lib.nerf_field.argtypes = [vp, vp, vp, vp, train_p, ring_p, vp, i64, i32, vp]
+    lib.nerf_field.argtypes = [vp, vp, vp, vp, train_p, ring_p, vp, i64, i32, i32, vp]
     lib.nerf_mip_field.argtypes = [vp, vp, vp, vp, vp, train_p, ring_p, vp, i64, i32, vp]
     lib.nerf_field_grads.argtypes = [vp] * 7 + [train_p, ring_p, ring_p, ring_p] + [vp] * 5 + [
         i32, i32, i32, vp]

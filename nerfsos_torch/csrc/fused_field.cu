@@ -64,12 +64,20 @@
 // Precision: the PE phases reach |x| 2^9 rad (7.2e3 at the x14 grid of the
 // density export) and are formed with explicit round-to-nearest operations
 // in the plain version's order, as are the IPE's; accurate sinf/cosf/expf,
-// no fast-math, fp32 throughout. K11 also runs at --compute_dtype bfloat16
-// (_field_kernel_pl with ipe at compute_dtype bfloat16): the tile's bf16
-// mode (field_wg_kernel<kInListGauss, true>: the IPE exact in fp32, then
-// rounded as the products read it, every product on wgmma bf16 with fp32
-// accumulation and bias, the ring in pack_ring's bf16 layout). The other
-// field kernels have no bf16 mode: their entries refuse a bf16 descriptor.
+// no fast-math, fp32 throughout.
+// Every kernel also runs at --compute_dtype bfloat16 (the JAX kernels at
+// compute_dtype bfloat16), its entry taking the mode from d->f.bf16: the
+// forwards in the tile's bf16 mode (field_wg_kernel<kIn, true>: the PE or
+// IPE exact in fp32, then rounded as the products read it, every product on
+// wgmma bf16 with fp32 accumulation and bias, the ring in pack_ring's bf16
+// layout). The field forward's twins round differently at bf16 (K8b keeps
+// the heads' hidden activations s and hv in fp32 before sem_1 and rgb, K8d
+// rounds them), so nerf_field takes the rule (f32_heads: K8b's). The
+// backward (K8c/K8f at bf16) stores the bf16 activations (the PE in fp32:
+// its products round it, K8c's chain rule reads it exact), rounds g to
+// bf16 before anything else reads it, the bias sums included, as both JAX
+// backwards do, and runs the reverse sweep's bf16 mode; K8c's PE
+// cotangents and chain rule stay fp32.
 
 #include "wg_tile.cuh"
 
@@ -78,9 +86,9 @@ namespace {
 // The sigma forward (kInListSigma), the field forward (kInList) and K11
 // (kInListGauss) on K4's tile: CTA b takes the tiles of points [b per 128,
 // (b + 1) per 128) of the N (the ring's weights for each), point q's
-// outputs to row q of out [N, C]. kBf16 (kInListGauss alone): the tile's
-// bf16 mode.
-template <int kIn, bool kBf16 = false>
+// outputs to row q of out [N, C]. kBf16: the tile's bf16 mode; kHeadF32
+// (kInList at bf16): K8b's head rule.
+template <int kIn, bool kBf16 = false, bool kHeadF32 = false>
 __global__ void __launch_bounds__(kWgThreads, 1)
     field_wg_kernel(const float* __restrict__ pts, const float* __restrict__ cov,
                     const float* __restrict__ dirs, const float* __restrict__ params,
@@ -99,9 +107,9 @@ __global__ void __launch_bounds__(kWgThreads, 1)
                      dirs ? dirs + base * 3 : nullptr, out + base * C, C};
   int pos = 0;
   for (int tile = 0; tile < ntiles; ++tile)
-    pos = wg_forward_tile<false, false, kIn, kBf16>(nullptr, nullptr, 0, 1, nq, tile, params, d,
-                                                    rd, cta.rg, pos, mine, cta.strip, nullptr, 0,
-                                                    nullptr, pl);
+    pos = wg_forward_tile<false, false, kIn, kBf16, kHeadF32>(nullptr, nullptr, 0, 1, nq, tile,
+                                                              params, d, rd, cta.rg, pos, mine,
+                                                              cta.strip, nullptr, 0, nullptr, pl);
 }
 
 // shared memory of field_wg_kernel: the ring's barriers and stages, two
@@ -115,19 +123,30 @@ int field_smem(const TrainDesc* d, const RingDesc* rd, bool heads) {
                          sizeof(float));
 }
 
-// One launch of field_wg_kernel<kIn, kBf16> over N > 0 points, `per` tiles a CTA.
-template <int kIn, bool kBf16 = false>
+// One launch of field_wg_kernel<kIn, kBf16, kHeadF32> over N > 0 points,
+// `per` tiles a CTA.
+template <int kIn, bool kBf16 = false, bool kHeadF32 = false>
 int field_launch(const float* pts, const float* cov, const float* dirs, const float* params,
                  const float* ring, const TrainDesc* d, const RingDesc* rd, float* out, int C,
                  long long N, int per, cudaStream_t st) {
   const int smem = field_smem(d, rd, kIn != kInListSigma);
-  cudaError_t err = cudaFuncSetAttribute(field_wg_kernel<kIn, kBf16>,
+  cudaError_t err = cudaFuncSetAttribute(field_wg_kernel<kIn, kBf16, kHeadF32>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const long long span = (long long)per * kWgTile, grid = (N + span - 1) / span;
-  field_wg_kernel<kIn, kBf16><<<(unsigned)grid, kWgThreads, smem, st>>>(
+  field_wg_kernel<kIn, kBf16, kHeadF32><<<(unsigned)grid, kWgThreads, smem, st>>>(
       pts, cov, dirs, params, ring, *d, *rd, out, C, N, per);
   return (int)cudaGetLastError();
+}
+
+// field_launch in the mode of d->f.bf16
+template <int kIn>
+int field_launch_mode(const float* pts, const float* cov, const float* dirs, const float* params,
+                      const float* ring, const TrainDesc* d, const RingDesc* rd, float* out,
+                      int C, long long N, int per, cudaStream_t st) {
+  if (d->f.bf16)
+    return field_launch<kIn, true>(pts, cov, dirs, params, ring, d, rd, out, C, N, per, st);
+  return field_launch<kIn>(pts, cov, dirs, params, ring, d, rd, out, C, N, per, st);
 }
 
 // Wave `wave` of the field backward's forward on K4's tile: CTA b takes
@@ -139,8 +158,11 @@ int field_launch(const float* pts, const float* cov, const float* dirs, const fl
 // too); then the consumers copy the cotangent of each output from
 // g [N, 4 + sem] into the planes that K6's composite fills (rgb logits,
 // sigma, semantics), zero in their padding rows and past N. kInGrad: the
-// plane the sweep gathers the point PE's cotangent in is zeroed.
-template <bool kSem, bool kInGrad>
+// plane the sweep gathers the point PE's cotangent in is zeroed. kBf16: the
+// tile's bf16 store mode, the ring in pack_ring's bf16 layout, and g
+// rounded to bf16 in the planes (both JAX backwards round it before any
+// product or bias sum reads it).
+template <bool kSem, bool kInGrad, bool kBf16>
 __global__ void __launch_bounds__(kWgThreads, 1)
     field_bwd_forward_kernel(const float* __restrict__ pts, const float* __restrict__ dirs,
                              const float* __restrict__ g, const float* __restrict__ params,
@@ -156,13 +178,14 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   const int nq = min(rpc, N - c * rpc);
   const int ntiles = (nq + kWgTile - 1) / kWgTile, nsub = (nq + kPts - 1) / kPts;
   __syncthreads();
-  if (!wg_consumer(ring, d.f, rd, cta.rg, ntiles)) return;
+  if (!wg_consumer<kBf16>(ring, d.f, rd, cta.rg, ntiles)) return;
   float* mine = cta.tiles + (threadIdx.x >> 7) * cta.per_wg;
   const PointList pl{pts + base * 3, nullptr, dirs + base * 3, nullptr, 0};
   int pos = 0;
   for (int tile = 0; tile < ntiles; ++tile)
-    pos = wg_forward_tile<true, kSem, kInList>(nullptr, nullptr, 0, 1, nq, tile, params, d, rd,
-                                               cta.rg, pos, mine, cta.strip, nullptr, 0, ws, pl);
+    pos = wg_forward_tile<true, kSem, kInList, kBf16>(nullptr, nullptr, 0, 1, nq, tile, params, d,
+                                                      rd, cta.rg, pos, mine, cta.strip, nullptr,
+                                                      0, ws, pl);
   // the consumers alone from here: the producer warpgroup has returned
   asm volatile("bar.sync 3, %0;\n" ::"n"(kWgConsumers) : "memory");
   const int sem = d.f.sem_dim, C = 4 + sem;
@@ -171,9 +194,10 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     const int sub = e / (8 * kPts), r = e / kPts % 8, p = e % kPts, q = sub * kPts + p;
     const bool live = q < nq;
     const float* gq = g + (size_t)(base + (live ? q : 0)) * C;
-    plane(ws, d, P_DRGB, sub)[r * kLd + p] = live && r < 3 ? gq[r] : 0.f;
-    plane(ws, d, P_DSIG, sub)[r * kLd + p] = live && r == 0 ? gq[3] : 0.f;
-    if (kSem) plane(ws, d, p_dsem, sub)[r * kLd + p] = live && r < sem ? gq[4 + r] : 0.f;
+    auto cot = [](float v) { return kBf16 ? bf16r(v) : v; };
+    plane(ws, d, P_DRGB, sub)[r * kLd + p] = live && r < 3 ? cot(gq[r]) : 0.f;
+    plane(ws, d, P_DSIG, sub)[r * kLd + p] = live && r == 0 ? cot(gq[3]) : 0.f;
+    if (kSem) plane(ws, d, p_dsem, sub)[r * kLd + p] = live && r < sem ? cot(gq[4 + r]) : 0.f;
   }
   if (kInGrad) {  // the chunk's tiles of a plane are contiguous
     float* gemb = plane(ws, d, p_gemb, 0);
@@ -187,27 +211,27 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 // of each (field_bwd_forward_kernel on K4's tile, its weights from ring as
 // rd describes), chunk j of the group into sub j nsf .. of the slice's
 // planes (group_desc), then one reverse sweep over the group's chunks; then
-// the partials are summed into grads [d->grad_size]. Returns the first CUDA
-// error.
-template <bool kSem, bool kInGrad>
+// the partials are summed into grads [d->grad_size]; kBf16: both kernels'
+// bf16 modes. Returns the first CUDA error.
+template <bool kSem, bool kInGrad, bool kBf16>
 int field_grads_launch(const float* pts, const float* dirs, const float* g, const float* params,
                        const float* ring, const float* bring, const float* iring,
                        const TrainDesc* d, const RingDesc* rd, const RingDesc* brd,
                        const RingDesc* ird, float* partial, float* workspace, float* grads,
                        float* dpts, float* ddirs, int N, int grid, int group, cudaStream_t st) {
   const int fwd_smem = field_smem(d, rd, true);
-  cudaError_t err = cudaFuncSetAttribute(field_bwd_forward_kernel<kSem, kInGrad>,
+  cudaError_t err = cudaFuncSetAttribute(field_bwd_forward_kernel<kSem, kInGrad, kBf16>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, fwd_smem);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(train_reverse_kernel<kSem, kInGrad>,
+    err = cudaFuncSetAttribute(train_reverse_kernel<kSem, kInGrad, kBf16>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, kReverseSmem);
   if (err != cudaSuccess) return (int)err;
   const long long nchunks = (N + d->rays_per_chunk - 1) / d->rays_per_chunk;
   for (int wave = 0; (long long)wave * group * grid < nchunks; ++wave) {
     for (int j = 0; j < group && (long long)(wave * group + j) * grid < nchunks; ++j)
-      field_bwd_forward_kernel<kSem, kInGrad><<<grid, kWgThreads, fwd_smem, st>>>(
+      field_bwd_forward_kernel<kSem, kInGrad, kBf16><<<grid, kWgThreads, fwd_smem, st>>>(
           pts, dirs, g, params, ring, group_desc(*d, j, 1), *rd, workspace, N, wave * group + j);
-    train_reverse_kernel<kSem, kInGrad><<<grid, kThreads, kReverseSmem, st>>>(
+    train_reverse_kernel<kSem, kInGrad, kBf16><<<grid, kThreads, kReverseSmem, st>>>(
         bring, iring, *d, *brd, *ird, partial, workspace, N, 1, wave, group, dpts, ddirs);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
@@ -220,24 +244,27 @@ int field_grads_launch(const float* pts, const float* dirs, const float* g, cons
 
 // K8a/K8e: sigma [N] of pts [N, 3], the trunk's weights from ring (ops/
 // fused_render.pack_ring) as rd describes, `per` 128-point tiles a CTA; one
-// launch. It has no bf16 mode: d->f.bf16 is refused.
+// launch. The bf16 mode when d->f.bf16 (the ring in pack_ring's bf16 layout).
 extern "C" int nerf_field_sigma(const float* pts, const float* params, const float* ring,
                                 const TrainDesc* d, const RingDesc* rd, float* sigma,
                                 long long N, int per, void* stream) {
-  if (d->f.bf16) return (int)cudaErrorInvalidValue;  // no bf16 mode (K8a/K8e)
-  return field_launch<kInListSigma>(pts, nullptr, nullptr, params, ring, d, rd, sigma, 1, N, per,
-                                    (cudaStream_t)stream);
+  return field_launch_mode<kInListSigma>(pts, nullptr, nullptr, params, ring, d, rd, sigma, 1, N,
+                                         per, (cudaStream_t)stream);
 }
 
 // K8b/K8d: raw [N, 4 + sem] (rgb logits, sigma, semantics) of pts and
 // dirs [N, 3], every layer's weights from ring as rd describes; one launch.
-// It has no bf16 mode: d->f.bf16 is refused.
+// The bf16 mode when d->f.bf16, with K8b's head rule when f32_heads (the
+// heads' hidden activations unrounded before sem_1 and rgb), else K8d's.
 extern "C" int nerf_field(const float* pts, const float* dirs, const float* params,
                           const float* ring, const TrainDesc* d, const RingDesc* rd, float* raw,
-                          long long N, int per, void* stream) {
-  if (d->f.bf16) return (int)cudaErrorInvalidValue;  // no bf16 mode (K8b/K8d)
-  return field_launch<kInList>(pts, nullptr, dirs, params, ring, d, rd, raw, 4 + d->f.sem_dim, N,
-                               per, (cudaStream_t)stream);
+                          long long N, int per, int f32_heads, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int C = 4 + d->f.sem_dim;
+  if (d->f.bf16 && f32_heads)
+    return field_launch<kInList, true, true>(pts, nullptr, dirs, params, ring, d, rd, raw, C, N,
+                                             per, st);
+  return field_launch_mode<kInList>(pts, nullptr, dirs, params, ring, d, rd, raw, C, N, per, st);
 }
 
 // K11: raw [N, 4] of the mip field at the Gaussians (mean, diagonal cov
@@ -247,12 +274,29 @@ extern "C" int nerf_mip_field(const float* mean, const float* cov, const float* 
                               const float* params, const float* ring, const TrainDesc* d,
                               const RingDesc* rd, float* raw, long long N, int per,
                               void* stream) {
-  if (d->f.bf16)
-    return field_launch<kInListGauss, true>(mean, cov, dirs, params, ring, d, rd, raw, 4, N, per,
-                                            (cudaStream_t)stream);
-  return field_launch<kInListGauss>(mean, cov, dirs, params, ring, d, rd, raw, 4, N, per,
-                                    (cudaStream_t)stream);
+  return field_launch_mode<kInListGauss>(mean, cov, dirs, params, ring, d, rd, raw, 4, N, per,
+                                         (cudaStream_t)stream);
 }
+
+namespace {
+
+// field_grads_launch in the mode of d->f.bf16
+template <bool kSem, bool kInGrad>
+int field_grads_mode(const float* pts, const float* dirs, const float* g, const float* params,
+                     const float* ring, const float* bring, const float* iring,
+                     const TrainDesc* d, const RingDesc* rd, const RingDesc* brd,
+                     const RingDesc* ird, float* partial, float* workspace, float* grads,
+                     float* dpts, float* ddirs, int N, int grid, int group, cudaStream_t st) {
+  if (d->f.bf16)
+    return field_grads_launch<kSem, kInGrad, true>(pts, dirs, g, params, ring, bring, iring, d, rd,
+                                                   brd, ird, partial, workspace, grads, dpts,
+                                                   ddirs, N, grid, group, st);
+  return field_grads_launch<kSem, kInGrad, false>(pts, dirs, g, params, ring, bring, iring, d, rd,
+                                                  brd, ird, partial, workspace, grads, dpts,
+                                                  ddirs, N, grid, group, st);
+}
+
+}  // namespace
 
 // K8f (dpts null) and K8c: the field's dW/db from g [N, 4 + sem] into grads
 // [d->grad_size] (K6's layout), the forward's weights from ring (ops/
@@ -261,30 +305,29 @@ extern "C" int nerf_mip_field(const float* mean, const float* cov, const float* 
 // with dpts (then also ddirs, d->ibwd and iring as ird describes:
 // fused_field.pack_input_ring) the points' and directions' gradients
 // [N, 3]; `group` forward chunks a reverse sweep; see field_grads_launch.
-// It has no bf16 mode: d->f.bf16 is refused.
+// The bf16 mode when d->f.bf16 (the three rings in their bf16 layouts).
 extern "C" int nerf_field_grads(const float* pts, const float* dirs, const float* g,
                                 const float* params, const float* ring, const float* bring,
                                 const float* iring, const TrainDesc* d, const RingDesc* rd,
                                 const RingDesc* brd, const RingDesc* ird, float* partial,
                                 float* workspace, float* grads, float* dpts, float* ddirs, int N,
                                 int grid, int group, void* stream) {
-  if (d->f.bf16) return (int)cudaErrorInvalidValue;  // no bf16 mode (K8c, K8f)
   const cudaStream_t st = (cudaStream_t)stream;
   const bool sem = d->f.sem_dim > 0;
   if (dpts != nullptr) {
     if (sem)
-      return field_grads_launch<true, true>(pts, dirs, g, params, ring, bring, iring, d, rd, brd,
-                                            ird, partial, workspace, grads, dpts, ddirs, N, grid,
-                                            group, st);
-    return field_grads_launch<false, true>(pts, dirs, g, params, ring, bring, iring, d, rd, brd,
-                                           ird, partial, workspace, grads, dpts, ddirs, N, grid,
-                                           group, st);
+      return field_grads_mode<true, true>(pts, dirs, g, params, ring, bring, iring, d, rd, brd,
+                                          ird, partial, workspace, grads, dpts, ddirs, N, grid,
+                                          group, st);
+    return field_grads_mode<false, true>(pts, dirs, g, params, ring, bring, iring, d, rd, brd,
+                                         ird, partial, workspace, grads, dpts, ddirs, N, grid,
+                                         group, st);
   }
   if (sem)
-    return field_grads_launch<true, false>(pts, dirs, g, params, ring, bring, nullptr, d, rd,
-                                           brd, ird, partial, workspace, grads, nullptr, nullptr,
-                                           N, grid, group, st);
-  return field_grads_launch<false, false>(pts, dirs, g, params, ring, bring, nullptr, d, rd, brd,
-                                          ird, partial, workspace, grads, nullptr, nullptr, N,
-                                          grid, group, st);
+    return field_grads_mode<true, false>(pts, dirs, g, params, ring, bring, nullptr, d, rd, brd,
+                                         ird, partial, workspace, grads, nullptr, nullptr, N,
+                                         grid, group, st);
+  return field_grads_mode<false, false>(pts, dirs, g, params, ring, bring, nullptr, d, rd, brd,
+                                        ird, partial, workspace, grads, nullptr, nullptr, N, grid,
+                                        group, st);
 }

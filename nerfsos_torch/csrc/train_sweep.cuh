@@ -9,10 +9,11 @@
 // the X and dY rows of each sub through a second ring of bulk copies), the
 // reverse sweep of the field MLP from the per-point cotangents of its
 // outputs, and the CTA-ordered reduction of the partial gradients.
-// K3 and K6 at --compute_dtype bfloat16 run a bf16 mode of both products
-// (wgmma m64nNk16 bf16, the operands rounded to bf16 as they are loaded, the
-// cotangents JAX rounds rounded in bwd_layer's epilogue); the workspace
-// planes stay fp32 and hold the bf16 values the storing forward rounded.
+// K3, K6, K10b and K8c/K8f at --compute_dtype bfloat16 run a bf16 mode of
+// both products (wgmma m64nNk16 bf16, the operands rounded to bf16 as they
+// are loaded, the cotangents JAX rounds rounded in bwd_layer's epilogue);
+// the workspace planes stay fp32 and hold the bf16 values the storing
+// forward rounded.
 #pragma once
 
 #include "tile_mlp.cuh"
@@ -280,7 +281,7 @@ __device__ __forceinline__ int bwd_pieces(const float* __restrict__ src, int N, 
 // in 3xTF32 (lo x hi, hi x lo, hi x hi), A = a sub's dY from the stage in
 // registers, B = the stage's slice, in pieces of NP = min(N, 128) outputs
 // (64 accumulators a thread under the kernel's 128 registers). add: the
-// product is added to what out holds (before the gate). kBf16 (K3, K6 at
+// product is added to what out holds (before the gate). kBf16 (the sweeps at
 // --compute_dtype bfloat16): the matrix in pack_bwd_ring's bf16 layout, a
 // k step of 16 dY rows rounded to bf16 at the A load (cvt.rn.bf16x2) on
 // one wgmma m64nNPk16 bf16, and with rnd the stored cotangent rounded to
@@ -597,7 +598,7 @@ __device__ __forceinline__ int wgrad_rounds(float* ws, const TrainDesc& d, const
 // warpgroups take four 64-row blocks of X a round, so each sub's dY rows
 // are staged once a layer and its X rows once a piece of NP outputs (twice
 // for a 256-wide layer). The CTA's partial dW is read and written once a
-// round of the call. kBf16 (K3, K6 at --compute_dtype bfloat16): X and dY
+// round of the call. kBf16 (the sweeps at --compute_dtype bfloat16): X and dY
 // rounded to bf16 (X at the A load, dY as B is written; db sums the
 // plane's values as they are), wgmma m64nNPk16 bf16 over 16 points a k
 // step. Returns the ring position after the call's stages.
@@ -702,7 +703,7 @@ __device__ int sweep_steps(const TrainDesc& d, SweepStep* tab) {
     s.add = add;
     s.in = in;
     // every cotangent but alpha's slot's output where sem_0's is still to be
-    // added into it (the input-gradient modes have no bf16 mode)
+    // added into it and the PE's (K8c's, which JAX keeps in fp32)
     s.rnd = !in && !(kSem && layer == k_alpha);
     s.layer = layer;
     s.p0 = p0;
@@ -764,9 +765,12 @@ __device__ int sweep_steps(const TrainDesc& d, SweepStep* tab) {
 // depth + 4), and both run back through the PE's chain rule into dpts
 // and ddirs [R * S, 3]. The steps (sweep_steps) run from one table, so
 // bwd_layer and wgrad each have one inlined call site and the kernel makes
-// no call inside a wgmma pipeline. kBf16 (K3, K6 at --compute_dtype
-// bfloat16; not with kInGrad): bwd_layer's and wgrad's bf16 modes, the
-// input-gradient matrices in pack_bwd_ring's bf16 layout.
+// no call inside a wgmma pipeline. kBf16 (K3, K6, K10b and K8c/K8f at
+// --compute_dtype bfloat16): bwd_layer's and wgrad's bf16 modes, the
+// input-gradient matrices in pack_bwd_ring's bf16 layout (K8c's emb
+// columns in pack_input_ring's); K8c's PE cotangents stay fp32 and
+// unrounded, and pe_grads exact fp32 on the stored fp32 points and
+// directions, as JAX keeps d_demb, demb_acc and its phases.
 template <bool kSem, bool kInGrad = false, bool kBf16 = false>
 __global__ void __launch_bounds__(kThreads, 1)
     train_reverse_kernel(const float* __restrict__ bring, const float* __restrict__ iring,
@@ -774,7 +778,6 @@ __global__ void __launch_bounds__(kThreads, 1)
                          const __grid_constant__ RingDesc bi, float* __restrict__ partial,
                          float* __restrict__ workspace, int R, int S, int wave, int group,
                          float* __restrict__ dpts, float* __restrict__ ddirs) {
-  static_assert(!(kInGrad && kBf16), "the input-gradient mode (K8c) has no bf16 mode");
   extern __shared__ __align__(128) unsigned char rev_raw[];
   uint64_t* bars = reinterpret_cast<uint64_t*>(rev_raw);
   SweepStep* tab = reinterpret_cast<SweepStep*>(rev_raw + 256);

@@ -98,16 +98,21 @@
 // train_render_wg_kernel<kInSigma | kInPoint, true>, K9 and K10a,
 // train_render_wg_kernel<kInMip, true>, K3's, K6's and K10b's storing
 // forward, train_forward_wg_kernel<kLoss | kCotangent, kInPoint | kInMip,
-// true>, and K11, fused_field.cu field_wg_kernel<kInListGauss, true>)
-// computes what the JAX kernels compute at bf16
-// (nerfsos_tpu/ops/pallas/fused_render.py _render_kernel,
-// _sigma_weights_kernel, _train_render_kernel, _train_render_bwd_kernel's
-// forward, _mip_render_kernel, _mip_train_kernel and _mip_train_bwd_kernel's
-// forward, fused_field.py _field_kernel_pl with ipe, with compute_dtype
-// bfloat16): every product's operands rounded to
-// bf16 (to nearest even), the product accumulated in fp32, the fp32 bias
-// added; the storing forward keeps the rounded activations (h and the
-// workspace planes hold bf16 values in fp32).
+// true>, the field forwards, fused_field.cu field_wg_kernel<kInListSigma |
+// kInList | kInListGauss, true>, and K8c/K8f's storing forward,
+// field_bwd_forward_kernel<kSem, kInGrad, true>) computes what the JAX
+// kernels compute at bf16 (nerfsos_tpu/ops/pallas/fused_render.py
+// _render_kernel, _sigma_weights_kernel, _train_render_kernel,
+// _train_render_bwd_kernel's forward, _mip_render_kernel, _mip_train_kernel
+// and _mip_train_bwd_kernel's forward; fused_field.py's six field kernels
+// and _field_kernel_pl with ipe, with compute_dtype bfloat16): every
+// product's operands rounded to bf16 (to nearest even), the product
+// accumulated in fp32, the fp32 bias added; the storing forward keeps the
+// rounded activations (h and the workspace planes hold bf16 values in
+// fp32). The field forward's twins differ at bf16: K8d (_field_kernel_pl)
+// rounds the heads' hidden activations s and hv before sem_1 and rgb, K8b
+// (_field_kernel) keeps them in fp32 (an fp32 x bf16 dot promotes to fp32),
+// so field_wg_kernel<kInList, true> takes the rule as kHeadF32.
 //   * the host packs each layer's W^T in bf16 (ops/fused_render.pack_ring
 //     with bf16): a k step is 16 input rows, one k16 slice of 32 N bytes
 //     (half a TF32 stage) in wgmma's K-major no-swizzle layout with
@@ -126,8 +131,9 @@
 //     4 e (pack_ring's row order), so a thread's loads are fp32 mode's four
 //     bank-free loads of two 8-row steps;
 //   * the heads formed in registers round sem_0's relu output before sem_1,
-//     views' before rgb, and their weights; the alpha head (SIMT) reads h
-//     and W_alpha rounded; sem_in is stored in bf16 (K4).
+//     views' before rgb (not under kHeadF32), and their weights; the alpha
+//     head (SIMT) reads h and W_alpha rounded; sem_in is stored in bf16
+//     (K4).
 #pragma once
 
 #include <type_traits>
@@ -224,10 +230,14 @@ struct WgOut {
 // segments, the second zero past their last row) on one bf16 wgmma, the
 // heads' hidden activations and weights rounded to bf16, sem_in in bf16;
 // with kStore the layer mode's outputs rounded to bf16 in h and the plane.
-template <int N, bool kStore, bool kBf16 = false>
+// kHeadF32 (K8b's rule, the bf16 forward alone): the heads' hidden
+// activation enters the head's product unrounded, its weights rounded (the
+// row-major JAX kernel multiplies its fp32 s and hv by bf16 weights).
+template <int N, bool kStore, bool kBf16 = false, bool kHeadF32 = false>
 __device__ __forceinline__ int wg_layer(const float* __restrict__ params, const LayerDesc L,
                                         ASeg s0, ASeg s1, ASeg s2, const WgRing rg, int pos,
                                         const WgOut o) {
+  static_assert(!kHeadF32 || (kBf16 && !kStore), "K8b's head rule is the bf16 forward's");
   const int lane = threadIdx.x & 31, w = (threadIdx.x >> 5) & 3, g = lane >> 2, t = lane & 3;
   const int m0 = 16 * w + g;  // the thread's accumulator rows: points m0 and m0 + 8
   // A fragment: a0 (point m0, k t), a1 (m0 + 8, t), a2 (m0, t + 4), a3 (m0 + 8, t + 4)
@@ -357,7 +367,7 @@ __device__ __forceinline__ int wg_layer(const float* __restrict__ params, const 
       if (n < ldn) {
         const float b = __ldg(bias + n);
         float va = fmaxf(acc[4 * j + e] + b, 0.f), vb = fmaxf(acc[4 * j + 2 + e] + b, 0.f);
-        if (kBf16) {  // JAX rounds the hidden activation before the head's product
+        if (kBf16 && !kHeadF32) {  // JAX rounds the hidden activation before the head's product
           va = bf16r(va);
           vb = bf16r(vb);
         }
@@ -395,17 +405,17 @@ __device__ __forceinline__ int wg_layer(const float* __restrict__ params, const 
 }
 
 // wg_layer at the layer's ring width N (pack_ring's: 8, 16, 32, 64, 128 or 256)
-template <bool kStore, bool kBf16 = false>
+template <bool kStore, bool kBf16 = false, bool kHeadF32 = false>
 __device__ __forceinline__ int wg_layer_n(int N, const float* __restrict__ params,
                                           const LayerDesc L, ASeg s0, ASeg s1, ASeg s2,
                                           const WgRing rg, int pos, const WgOut& o) {
   switch (N) {
-    case 256: return wg_layer<256, kStore, kBf16>(params, L, s0, s1, s2, rg, pos, o);
-    case 128: return wg_layer<128, kStore, kBf16>(params, L, s0, s1, s2, rg, pos, o);
-    case 64: return wg_layer<64, kStore, kBf16>(params, L, s0, s1, s2, rg, pos, o);
-    case 32: return wg_layer<32, kStore, kBf16>(params, L, s0, s1, s2, rg, pos, o);
-    case 16: return wg_layer<16, kStore, kBf16>(params, L, s0, s1, s2, rg, pos, o);
-    default: return wg_layer<8, kStore, kBf16>(params, L, s0, s1, s2, rg, pos, o);
+    case 256: return wg_layer<256, kStore, kBf16, kHeadF32>(params, L, s0, s1, s2, rg, pos, o);
+    case 128: return wg_layer<128, kStore, kBf16, kHeadF32>(params, L, s0, s1, s2, rg, pos, o);
+    case 64: return wg_layer<64, kStore, kBf16, kHeadF32>(params, L, s0, s1, s2, rg, pos, o);
+    case 32: return wg_layer<32, kStore, kBf16, kHeadF32>(params, L, s0, s1, s2, rg, pos, o);
+    case 16: return wg_layer<16, kStore, kBf16, kHeadF32>(params, L, s0, s1, s2, rg, pos, o);
+    default: return wg_layer<8, kStore, kBf16, kHeadF32>(params, L, s0, s1, s2, rg, pos, o);
   }
 }
 
@@ -582,22 +592,28 @@ __device__ __forceinline__ void wg_store_rows(const float* src, float* dst, int 
 // mode writes no outputs: the alpha head is skipped, pl.out is not read.
 // kBf16 (K1, K2, K4, K9, K10a at --compute_dtype bfloat16: kInPoint, kInSigma
 // or kInMip; K3's, K6's and K10b's storing forward: kStore, kInPoint or
-// kInMip; K11: kInListGauss): the bf16 mode (wg_layer's),
+// kInMip; the field forwards: kInListSigma, kInList, kInListGauss; K8c/K8f's
+// storing forward: kStore, kInList): the bf16 mode (wg_layer's),
 // the alpha head on h and W_alpha rounded to bf16, sem_in a bf16 array; in
 // the store mode every stored activation is its bf16 value (JAX's ins[i],
-// acts[i], feat, hv, s_act, emb and the view PE).
-// Returns the ring position after the tile.
-template <bool kStore, bool kSemAct, int kIn = kInPoint, bool kBf16 = false>
+// acts[i], feat, hv, s_act, emb and the view PE), but for the point-list
+// store mode's emb and view PE, kept in fp32: the reverse sweep's products
+// round them as they read them, and K8c's chain rule (pe_grads) reads the
+// exact points and directions in their rows 0-2, as JAX forms its phases
+// from the fp32 inputs. kHeadF32 (kInList's bf16 forward alone): K8b's head
+// rule (wg_layer's). Returns the ring position after the tile.
+template <bool kStore, bool kSemAct, int kIn = kInPoint, bool kBf16 = false,
+          bool kHeadF32 = false>
 __device__ __forceinline__ int wg_forward_tile(
     const float* __restrict__ odv, const float* zc, int r0, int S, int nq, int tile,
     const float* __restrict__ params, const TrainDesc& d, const RingDesc& rd, const WgRing rg,
     int pos, float* mine, float* strip,
     typename std::conditional<kBf16, __nv_bfloat16, float>::type* __restrict__ semin,
     long long base, float* ws, const PointList pl = PointList{}) {
-  static_assert(!kBf16 || kIn == kInPoint || kIn == kInMip ||
-                    (!kStore && (kIn == kInSigma || kIn == kInListGauss)),
-                "the bf16 mode is K1's, K2's, K4's, K9's, K10a's and K11's and K3's, K6's "
-                "and K10b's storing forward's");
+  static_assert(!kBf16 || !kStore || kIn == kInPoint || kIn == kInMip || kIn == kInList,
+                "the storing forward's bf16 mode is K3's, K6's, K10b's and K8c/K8f's");
+  static_assert(!kHeadF32 || (kBf16 && !kStore && kIn == kInList),
+                "K8b's head rule is the bf16 field forward's");
   constexpr bool kSigma = kIn == kInSigma || kIn == kInListSigma;
   constexpr bool kGauss = kIn == kInMip || kIn == kInListGauss;
   constexpr bool kList = kIn >= kInList;
@@ -654,8 +670,8 @@ __device__ __forceinline__ int wg_forward_tile(
   if (!kSigma) pe_rows_wg(demb, Ed);
   wg_bar(bar);  // emb is whole (and h's scratch rows read) before layer 0
   if (store) {
-    wg_store_rows<kBf16>(emb, plane(ws, d, P_EMB, sub), Ep);
-    wg_store_rows<kBf16>(demb, plane(ws, d, P_DEMB, sub), Edp);
+    wg_store_rows<kBf16 && !kList>(emb, plane(ws, d, P_EMB, sub), Ep);
+    wg_store_rows<kBf16 && !kList>(demb, plane(ws, d, P_DEMB, sub), Edp);
   }
 
   // the ring's layers in order (ring_order): the trunk, each output over h;
@@ -739,7 +755,8 @@ __device__ __forceinline__ int wg_forward_tile(
       o.plane = plane(ws, d, out, sub);
       o.prow = d.rows[out];
     }
-    pos = wg_layer_n<kStore, kBf16>(rd.ncols[li], params, f.layer[li], a0, a1, a2, rg, pos, o);
+    pos = wg_layer_n<kStore, kBf16, kHeadF32>(rd.ncols[li], params, f.layer[li], a0, a1, a2, rg,
+                                              pos, o);
     if (l < depth) {
       const ASeg hs{h, pad8(f.layer[l].n)};
       in0 = l == f.skip ? ASeg{emb, Ep} : hs;

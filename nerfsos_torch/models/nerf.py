@@ -27,14 +27,12 @@ reference's module names, so a reference state dict loads with
   ragged last chunk needs no padding (the JAX version pads to a fixed block
   shape for its compiled scan);
 - ``compute_dtype="bfloat16"``: the eager fields run flax's bf16 semantics
-  (``models/mlp.py``), and a fused net runs K1-K6 in their bf16 modes (K4's
-  train render with K5 or K6 as its backward; the RGB step's K3 in
-  ``engines/trainer.py``). The classic field kernels (K8a-K8f) have no bf16
-  mode yet (mip-NeRF's K11 has one), so a fused bf16 net refuses their
-  routes before any kernel runs:
-  ``n_importance <= 0`` (the field forward and backward K8d/K8f) in the
-  constructor, a noisy density-only view (K8e, K8d) and ``field_query``
-  (K8b, ``--eval_vol``) at the call.
+  (``models/mlp.py``), and a fused net runs every kernel in its bf16 mode:
+  K1-K6 (K4's train render with K5 or K6 as its backward; the RGB step's K3
+  in ``engines/trainer.py``) and the field kernels, each with the rounding
+  of the JAX route it replaces: the planar twins' (K8d, K8e, K8f) for the
+  renders and the backward, the row-major K8b's for ``field_query``
+  (``export_density`` calls JAX's row-major ``fused_field_apply``).
 """
 from __future__ import annotations
 
@@ -119,15 +117,6 @@ def _field(cfg: NeRFConfig, fine: bool) -> NeRFField:
         compute_dtype=compute_dtype_of(cfg.compute_dtype))
 
 
-def bf16_missing_kernel(kernels: str) -> NotImplementedError:
-    """The refusal of a fused bf16 route whose kernels have no bf16 mode."""
-    return NotImplementedError(
-        f"compute_dtype bfloat16: {kernels} has no bf16 mode yet (K1-K6 have: the RGB "
-        "pretrain, the --eval render and both SOS finetunes; so have the mip kernels K9, "
-        "K10a, K10b and K11: every --mipnerf mode); --no_fused_field runs every mode at "
-        "bf16 on the eager field")
-
-
 class NeRFNet(nn.Module):
     """Coarse/fine renderer with the reference's ``nerf`` / ``nerf_fine`` children."""
 
@@ -139,9 +128,6 @@ class NeRFNet(nn.Module):
         self.nerf_fine = None if cfg.shared_fine else _field(cfg, fine=True)
         self.fused = cfg.fused_field and fr.supports_fused(cfg)
         self.bf16 = self.compute_dtype == torch.bfloat16
-        if self.fused and self.bf16 and cfg.n_importance <= 0:
-            raise bf16_missing_kernel("a net with no fine pass (N_importance 0): the field "
-                                      "forward and backward K8d/K8f")
 
     @property
     def fine_field(self) -> NeRFField:
@@ -153,10 +139,8 @@ class NeRFNet(nn.Module):
         ``viewdirs [R, 3]``: the field kernels when fused, else the field."""
         if not self.fused:
             return field(pts, viewdirs)
-        if self.bf16:
-            raise bf16_missing_kernel("the field forward K8b/K8d")
         dirs = viewdirs[:, None, :].expand(pts.shape).reshape(-1, 3)
-        raw = ff.fused_field_apply(field, pts.reshape(-1, 3), dirs)
+        raw = ff.fused_field_apply(field, pts.reshape(-1, 3), dirs, self.compute_dtype)
         return raw.reshape(*pts.shape[:-1], raw.shape[-1])
 
     def _sigma(self, pts: torch.Tensor) -> torch.Tensor:
@@ -164,19 +148,19 @@ class NeRFNet(nn.Module):
         sigma kernel when fused, else the field."""
         if not self.fused:
             return self.nerf.sigma(pts)
-        if self.bf16:
-            raise bf16_missing_kernel("the sigma forward K8a/K8e")
-        return ff.fused_sigma_apply(self.nerf, pts.reshape(-1, 3)).reshape(pts.shape[:-1])
+        return ff.fused_sigma_apply(self.nerf, pts.reshape(-1, 3),
+                                    self.compute_dtype).reshape(pts.shape[:-1])
 
     def field_query(self, pts: torch.Tensor, viewdirs: torch.Tensor) -> torch.Tensor:
         """raw ``[N, C]`` of the fine field (the coarse one of a net with no
         fine pass) at ``pts [N, 3]``, each seen from its ``viewdirs [N, 3]``:
-        the field kernel when fused (``engines/eval.export_density``)."""
+        the field kernel when fused (``engines/eval.export_density``; at bf16
+        K8b's head rule, as JAX's export takes the row-major kernel), else
+        the field. Forward only."""
         if self.fused:
-            if self.bf16:
-                raise bf16_missing_kernel("the field forward K8b (--eval_vol)")
-            return ff.fused_field_apply(self.fine_field, pts.contiguous(), viewdirs.contiguous())
-        return ff.field_plain(self.fine_field, pts, viewdirs)
+            return ff.field_forward(self.fine_field, pts.contiguous(), viewdirs.contiguous(),
+                                    self.compute_dtype, f32_heads=True)
+        return self.fine_field(pts[:, None, :], viewdirs)[:, 0]
 
     def render_rays(self, rays_o: torch.Tensor, rays_d: torch.Tensor,
                     viewdirs: Optional[torch.Tensor], near: torch.Tensor, far: torch.Tensor, *,
@@ -191,9 +175,6 @@ class NeRFNet(nn.Module):
         z_vals = sampling.stratified_sample(near, far, cfg.n_samples, perturb=perturb,
                                             lindisp=cfg.lindisp, generator=generator)
         sigma_only = not coarse_outputs and n_importance > 0
-        if self.fused and self.bf16 and sigma_only and raw_noise_std != 0.0:
-            raise bf16_missing_kernel("a noisy density-only view: the sigma forward K8e and "
-                                      "the field forward K8d")
         if self.fused and coarse_outputs and n_importance > 0 and viewdirs is not None:
             odv = torch.cat([rays_o, rays_d, viewdirs], dim=1).contiguous()
             kw = dict(noise_std=raw_noise_std, frozen=cfg.frozen_backbone,

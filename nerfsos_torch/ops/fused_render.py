@@ -74,9 +74,8 @@ operands, its cotangents rounded where JAX rounds them); K9 and K10a as
 ``_mip_render_kernel`` and ``_mip_train_kernel`` at bf16 (the integrated PE
 formed in float32, then rounded), K10b as ``_mip_train_bwd_kernel`` at bf16
 (K6's bf16 sweep without the semantic head, :func:`bf16_mip_forward`).
-Their bf16 launches count in ``<wrapper>.launches_bf16``. The field kernels
-but K11 (``ops/fused_field.py``) have no bf16 mode: a bf16 net refuses
-their routes (``models/nerf.py``).
+Their bf16 launches count in ``<wrapper>.launches_bf16``, as do those of
+the field kernels' bf16 modes (``ops/fused_field.py``: K8a–K8f, K11).
 """
 from __future__ import annotations
 
@@ -234,7 +233,8 @@ def _bf16_gate(act: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
 def bf16_sweep(field: nn.Module, grads: Dict[str, torch.Tensor], e: torch.Tensor,
                dv: torch.Tensor, acts: List[torch.Tensor], feat: torch.Tensor,
                hv: torch.Tensor, s_act: Optional[torch.Tensor], d_rgb: torch.Tensor,
-               d_sig: torch.Tensor, d_sem: Optional[torch.Tensor]) -> None:
+               d_sig: torch.Tensor, d_sem: Optional[torch.Tensor], pe_cotangents: bool = False
+               ) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
     """The bf16 reverse sweep of ``_train_render_bwd_kernel`` over points
     (rows) from the forward's bf16 activations (``e`` the point PE, ``dv``
     the view PE, each trunk layer's output, ``feat``, ``hv``, ``s_act``) and
@@ -246,7 +246,11 @@ def bf16_sweep(field: nn.Module, grads: Dict[str, torch.Tensor], e: torch.Tensor
     every trunk ``dpre`` are rounded to bf16 after their relu gate and their
     bias sums add the rounded values, while the bias sums of ``d_rgb``,
     ``d_sigma`` and ``d_sem`` add the unrounded ones; ``dh`` is the float32
-    sum of the feature, alpha and sem_0 input gradients."""
+    sum of the feature, alpha and sem_0 input gradients. ``pe_cotangents``
+    (K8c, ``_field_bwd_kernel`` at bf16): also returns the float32
+    cotangents of ``e`` (gathered from sem_0's coordinate columns, the skip
+    input's emb columns and layer 0, in that order) and of ``dv`` (the views
+    layer's), unrounded; else None."""
     mlp = field.mlp
     E = mlp.pts_linears[0].in_features
     names = {id(p): n for n, p in field.named_parameters()}
@@ -266,23 +270,33 @@ def bf16_sweep(field: nn.Module, grads: Dict[str, torch.Tensor], e: torch.Tensor
     add(mlp.rgb_linear, d_rgb, hv, d_rgb)
     dhv = _bf16_gate(hv, dx(d_rgb, mlp.rgb_linear))
     add(mlp.views_linears[0], dhv, hv_in, dhv)
-    d_feat = round_bf16(dx(dhv, mlp.views_linears[0])[:, :feat.shape[1]])
+    dhv_in = dx(dhv, mlp.views_linears[0])
+    d_feat = round_bf16(dhv_in[:, :feat.shape[1]])
     add(mlp.feature_linear, d_feat, h, d_feat)
     add(mlp.alpha_linear, d_sig, h, d_sig)
     dh = dx(d_feat, mlp.feature_linear) + dx(d_sig, mlp.alpha_linear)
+    d_e = torch.zeros_like(e) if pe_cotangents else None
     if d_sem is not None:
         lin0, lin2 = mlp.semantic_linear[0], mlp.semantic_linear[2]
         add(lin2, d_sem, s_act, d_sem)
         ds = _bf16_gate(s_act, dx(d_sem, lin2))
         add(lin0, ds, torch.cat([h, e], -1) if mlp.sem_with_coord else h, ds)
-        dh = dh + dx(ds, lin0)[:, :h.shape[1]]
+        dsem_in = dx(ds, lin0)
+        dh = dh + dsem_in[:, :h.shape[1]]
+        if pe_cotangents and mlp.sem_with_coord:
+            d_e = d_e + dsem_in[:, h.shape[1]:]
     for i in range(mlp.depth - 1, -1, -1):
         if i in mlp.skips:
-            dh = dh[:, E:]  # the skip input's emb columns: no gradient needed
+            if pe_cotangents:
+                d_e = d_e + dh[:, :E]
+            dh = dh[:, E:]  # the skip input's emb columns
         dpre = _bf16_gate(acts[i], dh)
         add(mlp.pts_linears[i], dpre, ins[i], dpre)
-        if i > 0:
+        if i > 0 or pe_cotangents:
             dh = dx(dpre, mlp.pts_linears[i])
+    if not pe_cotangents:
+        return None
+    return d_e + dh, dhv_in[:, feat.shape[1]:]
 
 
 def bf16_train_forward(field: nn.Module, odv: torch.Tensor, z: torch.Tensor

@@ -62,16 +62,15 @@ configuration is outside ``supports_fused``; on the CPU the same code path
 runs their plain versions.
 
 ``--compute_dtype bfloat16`` runs the MLPs and the DINO ViT at bf16, as the
-JAX entry point does. On the fused kernels it covers the RGB pretrain (K3;
-also ``--patch_tune`` without the SOS losses), ``--eval`` (K1, K2), the
-``--patch_tune --fix_backbone`` SOS finetune (K4, K5), the full
-``--patch_tune`` finetune (K4, K6) and every mode of ``--mipnerf`` (train:
-K10a with K10b; ``--eval``: K9; ``--eval_vol``: K11), their test-set views
-and resumes included; the modes whose field kernels have no bf16 mode yet
-(``--N_importance 0``'s K8d/K8f and the classic ``--eval_vol``'s K8b) stop
-with one line before any data is loaded (:func:`bf16_refusal`), and so does
-a noisy density-only view in the library (K8e, ``models/nerf.py``). With
-``--no_fused_field`` every mode runs at bf16 on the eager field.
+JAX entry point does. Every mode runs on the kernels' bf16 modes: the RGB
+pretrain (K3; also ``--patch_tune`` without the SOS losses), ``--eval``
+(K1, K2), the ``--patch_tune --fix_backbone`` SOS finetune (K4, K5), the
+full ``--patch_tune`` finetune (K4, K6), every mode of ``--mipnerf``
+(train: K10a with K10b; ``--eval``: K9; ``--eval_vol``: K11), a net with
+no fine pass (``--N_importance 0``: K8d with K8f), the classic
+``--eval_vol`` (K8b) and a noisy density-only view (K8e, K8d), their
+test-set views and resumes included. With ``--no_fused_field`` every mode
+runs at bf16 on the eager field.
 
 ``--debug_nans`` runs the whole of ``main`` under
 ``torch.autograd.set_detect_anomaly`` and checks each step's loss and
@@ -314,27 +313,6 @@ def _check_patch_tune(args) -> None:
                          "(the reference crashes here implicitly; we validate up front)")
 
 
-def bf16_refusal(args) -> str:
-    """Why a ``--compute_dtype bfloat16`` run cannot run yet ('' when it
-    can): the modes whose kernels have no bf16 mode. The fused kernels run
-    bf16 for the RGB pretrain (K3), ``--eval`` (K1, K2), both SOS finetunes
-    (K4 with K5 under ``--fix_backbone``, with K6 without it) and every mode
-    of ``--mipnerf`` (K10a/K10b, K9, K11); the eager field
-    (``--no_fused_field``, or a configuration outside ``supports_fused``)
-    runs every mode."""
-    if args.compute_dtype != "bfloat16" or args.mipnerf:
-        return ""
-    if not model_config(args).fused_field:
-        return ""
-    if args.N_importance <= 0:
-        missing = "a net with no fine pass runs the field kernels K8d/K8f"
-    elif args.eval_vol and not args.eval:
-        missing = "--eval_vol runs the field kernel K8b"
-    else:
-        return ""
-    return f"{missing}, which has no bf16 mode yet; --no_fused_field runs it on the eager field"
-
-
 def unwritten_outputs_note(args, start: int) -> str:
     """The line a train run from step ``start`` prints when the JAX entry
     point would write test images (a multiple of ``--i_img`` within
@@ -382,9 +360,6 @@ def _main(args, device) -> None:
                          "they need a fine pass, --N_importance > 0")
     if args.no_semantics:
         args.use_semantics = False
-    refusal = bf16_refusal(args)
-    if refusal:
-        raise SystemExit(f"--compute_dtype bfloat16: {refusal}")
     device = _resolve_device(args, device)
     print(f"> Semantic branch is {args.use_semantics}")
     print(f"> Device: {device}")

@@ -1,5 +1,6 @@
-"""K3's, K6's and the mip kernels' (K9, K10a, K10b, K11) fp32 kernels of a
-checkout on the card, for an A/B against another tree in one call: runs
+"""K3's, K6's, the mip kernels' (K9, K10a, K10b, K11) and the classic field
+kernels' (K8a, K8b, K8f, K8c) fp32 kernels of a checkout on the card, for an
+A/B against another tree in one call: runs
 chip_smoke.py's ``[fp32_train_kernels]`` phase (the digests of their
 outputs on seeded flagship-width inputs and their times) with that
 checkout's package and this checkout's ``chip_smoke.py``.

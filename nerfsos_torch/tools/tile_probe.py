@@ -328,7 +328,7 @@ def _patch_one(variant: str, csrc: str) -> None:
                "        bring, nullptr, *d, *brd, RingDesc{}, partial, workspace, R, S, wave, group, "
                "nullptr,\n        nullptr);\n", "", 1))
         edit("fused_field.cu", lambda t: _sub(
-            t, "    train_reverse_kernel<kSem, kInGrad><<<grid, kThreads, kReverseSmem, st>>>(\n"
+            t, "    train_reverse_kernel<kSem, kInGrad, kBf16><<<grid, kThreads, kReverseSmem, st>>>(\n"
                "        bring, iring, *d, *brd, *ird, partial, workspace, N, 1, wave, group, dpts, "
                "ddirs);\n", "", 1))
     elif variant == "sweepclock":
@@ -377,9 +377,9 @@ def _sources(variant: str) -> str:
     return "+".join(parts) or "base"
 
 
-def _use(_build, root: str, variant: str):
-    """Point _build at a patched copy of root's sources and load its library
-    (built unless one for the same sources is there)."""
+def prepare(_build, root: str, variant: str) -> str:
+    """Point _build at a patched copy of root's sources (its build directory
+    beside it); returns the variant's source patches."""
     variant = _sources(variant)
     base = os.path.join(root, "build", "tile_probe", variant)
     csrc = os.path.join(base, "csrc")
@@ -388,6 +388,13 @@ def _use(_build, root: str, variant: str):
     _patch(variant, csrc)
     _build.CSRC_DIR, _build.BUILD_DIR = csrc, os.path.join(base, "kernels")
     _build.library.cache_clear()
+    return variant
+
+
+def _use(_build, root: str, variant: str):
+    """Point _build at a patched copy of root's sources and load its library
+    (built unless one for the same sources is there)."""
+    variant = prepare(_build, root, variant)
     lib = _build.library()
     if _clock(variant):
         for fn in (lib.probe_read, *([lib.probe_read_field] if _clock(variant) == "wgclock"

@@ -2,11 +2,11 @@
 K1, K2, K4 and K5 against the JAX Pallas kernels at bf16 (interpret mode),
 the eager bf16 field and the bf16 ViT against JAX's bf16 XLA modules, one
 frozen SOS step at bf16 against JAX, ``run_nerf.main`` at bf16 (``--eval``,
-the ``--fix_backbone`` finetune and its resume), the refusal of every
-fused route whose kernels have no bf16 mode yet, and the RGB pretrain's,
-the full finetune's and ``--mipnerf``'s routes (K3, K6; K9-K11) passing it
-(their kernels' bf16 modes: tests/test_torch_bf16_train.py,
-tests/test_torch_mip_bf16.py).
+the ``--fix_backbone`` finetune and its resume), and the RGB pretrain's,
+the full finetune's, ``--mipnerf``'s, ``--N_importance 0``'s and the
+classic ``--eval_vol``'s routes passing the entry (their kernels' bf16
+modes: tests/test_torch_bf16_train.py, tests/test_torch_mip_bf16.py,
+tests/test_torch_field_bf16.py).
 
 Two bf16 semantics are held here (``models/mlp.py``): the fused kernels'
 (each product's operands rounded to bf16, the product and the bias in
@@ -525,36 +525,24 @@ def test_run_nerf_bf16_eval_and_frozen_finetune(patch_scene, tmp_path, monkeypat
     assert all(d == BF16 for _, d in seen)
 
 
-@pytest.mark.parametrize("flags,kernel", [
-    (["--N_importance", "0", "--eval"], "K8d"),
-    (["--N_importance", "0"], "K8d"),
-    (["--eval_vol"], "K8b"),
-])
-def test_bf16_refuses_modes_without_bf16_kernels(tmp_path, flags, kernel):
-    """Each fused mode outside the slice stops with one line naming its
-    kernel before any data is loaded (the data directory does not exist)."""
-    args, _ = run_nerf.create_arg_parser().parse_known_args(
-        ["--expname", "x", "--basedir", str(tmp_path / "logs"), "--data_path",
-         str(tmp_path / "missing"), *SOS_FLAGS, *flags])
-    with pytest.raises(SystemExit, match=rf"--compute_dtype bfloat16: .*{kernel}"):
-        run_nerf.main(args, device="cpu")
-    assert not (tmp_path / "logs").exists()
-
-
 @pytest.mark.parametrize("flags", [
     [],  # the RGB pretrain (K3)
     ["--patch_tune", "--batch_size", "2", "--patch_size", "8", "--patch_stride", "2",
      "--use_dino", "--use_geoCorr"],  # the full SOS finetune (K6)
     ["--mipnerf", "--eval_vol"],  # mip-NeRF (K9, K10a, K10b; K11 for the export)
+    ["--N_importance", "0", "--eval"],  # a net with no fine pass (K8d)
+    ["--N_importance", "0"],  # its training (K8d, K8f)
+    ["--eval_vol"],  # the classic export (K8b)
 ])
 def test_bf16_runs_the_rgb_and_full_sos_routes(tmp_path, flags):
-    """The RGB pretrain, the full SOS finetune and --mipnerf, refused at bf16
-    until K3, K6 and the mip kernels had their bf16 modes, pass the entry's
-    refusal now: main goes on to load the (missing) data."""
+    """The RGB pretrain, the full SOS finetune, --mipnerf, a net with no fine
+    pass and the classic --eval_vol, each refused at bf16 until its kernels
+    had their bf16 modes, pass the entry now: main goes on to load the
+    (missing) data (the run directory exists: --eval reads a trained one)."""
     args, _ = run_nerf.create_arg_parser().parse_known_args(
         ["--expname", "x", "--basedir", str(tmp_path / "logs"), "--data_path",
          str(tmp_path / "missing"), *SOS_FLAGS, *flags])
-    assert run_nerf.bf16_refusal(args) == ""
+    (tmp_path / "logs" / "x").mkdir(parents=True)
     with pytest.raises(FileNotFoundError, match="missing"):
         run_nerf.main(args, device="cpu")
 
@@ -566,52 +554,6 @@ def test_bf16_rgb_step_runs_on_the_eager_field(patch_scene, tmp_path):
                 "--max_steps", "1")
     state, gstep, _ = tckpt.load_checkpoint(str(run / "checkpoints" / "last.ckpt"))
     assert gstep == 1 and all(torch.isfinite(v).all() for v in state.values())
-
-
-def test_fused_bf16_routes_refuse_in_the_library():
-    """The library's own refusals, before any kernel: a noisy density-only
-    view (K8e), field_query (K8b) and a net with no fine pass (K8d/K8f);
-    the routes of K6 (a train render whose backward is K6) and K3 (the RGB
-    step) run at bf16 now, each leaf getting its gradient."""
-    _, _, tnet = _nets()
-    odv, z = (torch.from_numpy(a) for a in _inputs(0, 8))
-    maps, _ = tfr.fused_train_render(tnet.nerf, odv, z, noise_std=0.0, seed=0, frozen=False,
-                                     compute_dtype=BF16)
-    maps.sum().backward()
-    assert all(p.grad is not None for p in tnet.nerf.parameters())
-    step = ttrainer.make_rgb_train_step(tnet, tstate.make_optimizer(tnet, 1e-3),
-                                        lambda s: 1e-3, 2.0, 6.0)
-    m = step({"rays": torch.from_numpy(np.stack([odv[:, 0:3], odv[:, 3:6]])),
-              "target": torch.rand(R, 3)}, 0)
-    assert torch.isfinite(m["loss"])
-    rays = torch.from_numpy(np.random.default_rng(0).normal(size=(2, 4, 3)).astype(np.float32))
-    with pytest.raises(NotImplementedError, match="K8e"):
-        tnet(rays, (1.0, 4.0), coarse_outputs=False, raw_noise_std=1.0)
-    with pytest.raises(NotImplementedError, match="K8b"):
-        tnet.field_query(rays[0], rays[1])
-    with pytest.raises(NotImplementedError, match="K8d"):
-        TorchNet(TorchConfig(**{**TINY, "n_importance": 0}, fused_field=True,
-                             compute_dtype="bfloat16"))
-    with torch.no_grad():  # the forward alone (K4) runs, as the finetune's ARI re-render does
-        out = tnet(rays, (1.0, 4.0))
-    assert torch.isfinite(out["rgb"]).all()
-
-
-@pytest.mark.parametrize("kernel", ["K8f", "K8c"])
-def test_sweeps_without_bf16_refuse_it(kernel):
-    """The reverse sweeps with no bf16 mode, the field backward K8f/K8c,
-    raise a named error at bf16 on any device (no float32 run in its
-    place); their C entry refuses a bf16 descriptor
-    (tests/test_torch_cuda.py)."""
-    from nerfsos_torch.models.fields import NeRFField
-    from nerfsos_torch.ops import fused_field as tff
-
-    rng = np.random.default_rng(0)
-    field = NeRFField(net_depth=5, net_width=16, multires=4, multires_views=2)
-    pts = torch.from_numpy(rng.normal(size=(8, 3)).astype(np.float32))
-    with pytest.raises(NotImplementedError, match="K8c/K8f"):
-        tff.field_grads(field, pts, pts, torch.zeros(8, 4), input_grads=kernel == "K8c",
-                        compute_dtype=BF16)
 
 
 def test_k10b_bf16_wrapper_runs_on_the_cpu():

@@ -18,8 +18,9 @@ leaves within BF16_WITNESS of their plain version's last-bit sensitivity or
 GRAD_TOL over several waves, ``bf16_leaves``; on one wave their stored planes
 within bf16_stored's bounds of the plain forward and their reverse sweep
 within BF16_PLANES_TOL of the plain sweep on those planes, ``bf16_planes``).
-The mip kernels' bf16 modes (K9, K10a, K10b, K11) are held as K1-K6's are
-(K10b's one wave by ``bf16_planes`` with ``mip``). K5 is held to GRAD_TOL on
+The mip kernels' bf16 modes (K9, K10a, K10b, K11) and the classic field
+kernels' (K8a-K8f) are held as K1-K6's are (K10b's one wave by
+``bf16_planes`` with ``mip``, K8c/K8f's with ``points``). K5 is held to GRAD_TOL on
 points whose semantic-head gates are clear of 0 (the others get weight 0); K6
 on rays whose trunk, views and semantic-head gates are clear of 0; K10b on
 rays whose trunk and views gates are clear of 0; the field backward on
@@ -33,8 +34,8 @@ import pytest
 import torch
 
 from chip_smoke import (GATE_MARGIN, GRAD_TOL, INPUT_GRAD_MARGIN, K7_TOL, TOL, bf16_columns,
-                        bf16_leaves, bf16_planes, bf16_stored, bf16_witness, flip_allowance,
-                        k5_bf16_over,
+                        bf16_leaves, bf16_planes, bf16_points, bf16_stored, bf16_witness,
+                        flip_allowance, k5_bf16_over,
                         plain_k3_with_gates, plain_k6_with_gates, plain_k10b_with_gates)
 from nerfsos_torch.core.sampling import points_along_rays
 from nerfsos_torch.models.fields import MipNeRFField, NeRFField
@@ -1628,46 +1629,234 @@ def test_bf16_rings_follow_a_weight_update(cuda, kernel):
     assert torch.equal(after[1], fr.pack_bwd_ring(field, True)[0])
 
 
-def test_sweep_entries_without_bf16_refuse_it(cuda):
-    """The field kernels' C entries (the field backward's and the classic
-    field forwards') return cudaErrorInvalidValue for a bf16 descriptor (no
-    fp32 run in its place), and the field backward's wrapper raises at
-    bf16."""
+# ----------------------------------------------------------------- the classic field kernels at bf16
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("sem,coord", [(True, True), (True, False), (False, False)])
+@pytest.mark.parametrize("n", [127, 129, 4097])
+@pytest.mark.parametrize("scale", [2.0, 8.0])
+def test_field_forwards_bf16_match_plain(cuda, shape, sem, coord, n, scale):
+    """The sigma forward (K8a/K8e) and the field forward under K8b's head
+    rule (f32_heads) and K8d's in their bf16 modes (K4's tile in its
+    point-list modes at bf16): each within bf16_points' bounds of its bf16
+    plain version (the fp32 kernel's output its control), two calls bitwise
+    equal, counted in ``launches_bf16`` alone, K8b's rule in
+    ``launches_bf16_f32_heads``; sigma is the same in the three (one trunk,
+    one alpha head). At norm ~2 the flagship default init's outputs differ
+    from point to point by less than TOL, so the tail fault is not required
+    to be refused there (bf16_points not ``varied``); at norm ~8 (the
+    export grid's reach) it is."""
+    field = _field(cuda, 60, use_semantics=sem, sem_with_coord=coord, sem_dim=2, **shape)
+    pts, dirs = _field_points(cuda, n, 61, scale=scale)
+    varied = scale > 2.0
+    fns = (ff.fused_sigma_apply, ff.field_forward)
+    before = [(f.launches, f.launches_bf16) for f in fns]
+    heads_before = ff.field_forward.launches_bf16_f32_heads
+    with torch.no_grad():
+        sig, sig2 = (ff.fused_sigma_apply(field, pts, BF16) for _ in range(2))
+        raw = {h: [ff.field_forward(field, pts, dirs, BF16, h) for _ in range(2)]
+               for h in (True, False)}
+        torch.cuda.synchronize()
+        counts = [(f.launches, f.launches_bf16) for f in fns]
+        heads_count = ff.field_forward.launches_bf16_f32_heads
+        bf16_points("K8a", sig, ff.sigma_plain(field, pts, BF16), ff.fused_sigma_apply(field, pts),
+                    varied=varied)
+        for h, (got, again) in raw.items():
+            assert got.shape == (n, 4 + 2 * sem) and torch.equal(got, again)
+            bf16_points(f"K8b/K8d f32_heads={h}", got,
+                        ff.field_plain(field, pts, dirs, BF16, f32_heads=h),
+                        ff.field_forward(field, pts, dirs), varied=varied)
+    assert counts == [(before[0][0], before[0][1] + 2), (before[1][0], before[1][1] + 2)]
+    assert heads_count == heads_before + 2
+    assert torch.equal(sig, sig2) and torch.equal(raw[True][0][:, 3], sig)
+    assert torch.equal(raw[False][0][:, 3], sig)
+
+
+def _field_grads_bf16(field, pts, dirs, g, input_grads):
+    """The field backward's bf16 mode on a call of one wave of chunks: the
+    wrapper's grads (and dpts, ddirs), equal to those of
+    ``_field_grads_launch`` at bf16, whose stored planes and reverse sweep
+    (with K8c its input gradients) are held to the plain forward and sweep
+    (bf16_planes)."""
+    got = ff.field_grads(field, pts, dirs, g, input_grads=input_grads, compute_dtype=BF16)
+    flat, dp, dd, launch = ff._field_grads_launch(field, pts, dirs, g, input_grads, True)
+    sem = field.mlp.use_semantics
+    assert all(torch.equal(v, fr.unpack_grads(field, flat, sem)[k]) for k, v in got[0].items())
+    if input_grads:
+        assert torch.equal(got[1], dp) and torch.equal(got[2], dd)
+    bf16_planes(fr, "K8c" if input_grads else "K8f", field, got[0], launch, None, None, sem,
+                points=(pts, dirs), inputs=(dp, dd) if input_grads else None)
+    return got
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("sem,coord", [(True, True), (True, False), (False, False)])
+@pytest.mark.parametrize("input_grads", [False, True])
+@pytest.mark.parametrize("n", [37, 1000])
+def test_field_grads_bf16_match_plain(cuda, shape, sem, coord, input_grads, n):
+    """The field backward's bf16 mode (K8f; K8c with dpts and ddirs), one
+    wave of chunks: the stored planes within bf16_stored's bounds of the
+    plain bf16 forward, the gradients (and K8c's input gradients) within
+    BF16_PLANES_TOL of the plain sweep on them (bf16_planes), two calls
+    bitwise equal, counted in ``launches_bf16`` (and
+    ``input_grad_launches_bf16``) alone."""
+    field = _field(cuda, 62, use_semantics=sem, sem_with_coord=coord, sem_dim=2, **shape)
+    pts, dirs = _field_points(cuda, n, 63)
+    g = torch.from_numpy(np.random.default_rng(n).normal(size=(n, 4 + 2 * sem))
+                         .astype(np.float32)).to(cuda)
+    f = ff.field_grads
+    before = (f.launches, f.launches_bf16, f.input_grad_launches, f.input_grad_launches_bf16)
+    got = _field_grads_bf16(field, pts, dirs, g, input_grads)
+    again = f(field, pts, dirs, g, input_grads=input_grads, compute_dtype=BF16)
+    torch.cuda.synchronize()
+    assert (f.launches, f.launches_bf16, f.input_grad_launches, f.input_grad_launches_bf16) == (
+        before[0], before[1] + 2, before[2], before[3] + 2 * input_grads)
+    assert all(torch.equal(got[0][k], again[0][k]) and torch.isfinite(got[0][k]).all()
+               for k in got[0])
+    if input_grads:
+        assert torch.equal(got[1], again[1]) and torch.equal(got[2], again[2])
+        assert got[1].shape == got[2].shape == (n, 3)
+    else:
+        assert got[1] is None and got[2] is None
+
+
+@pytest.mark.parametrize("input_grads", [False, True])
+def test_field_grads_bf16_over_waves_match_plain(cuda, input_grads):
+    """The field backward's bf16 mode over several waves of grouped chunks
+    (70000 points at the flagship width, the semantic head with
+    coordinates): every leaf (and K8c's dpts and ddirs as two leaves more)
+    within bf16_leaves' bound of the bf16 plain version (BF16_WITNESS times
+    its own last-bit sensitivity)."""
+    field = _field(cuda, 64, use_semantics=True, sem_with_coord=True, sem_dim=2, **SHAPES[0])
+    pts, dirs = _field_points(cuda, 70000, 65)
+    g = torch.from_numpy(np.random.default_rng(66).normal(size=(70000, 6)).astype(np.float32))
+    g = g.to(cuda)
+
+    def leaves(res):
+        grads, dp, dd = res
+        return {**grads, **({"dpts": dp, "ddirs": dd} if input_grads else {})}
+
+    def plain(f):
+        return leaves(ff.field_grads_plain(f, pts, dirs, g, input_grads=input_grads,
+                                           compute_dtype=BF16))
+
+    got = leaves(ff.field_grads(field, pts, dirs, g, input_grads=input_grads,
+                                compute_dtype=BF16))
+    want = plain(field)
+    bf16_leaves("K8c" if input_grads else "K8f", got, want, bf16_witness(plain, field, want))
+
+
+def test_field_bf16_through_autograd(cuda):
+    """fused_field_apply at bf16: the field forward (K8d's rule) and as its
+    backward the field backward in their bf16 modes (their bf16 counters,
+    not the fp32 ones), the input-gradient mode only when pts or dirs needs
+    a gradient; the parameters' gradients bitwise those of field_grads at
+    bf16 on the same cotangent."""
+    field = _field(cuda, 67, use_semantics=True, sem_with_coord=True, sem_dim=2, **SHAPES[0])
+    pts, dirs = _field_points(cuda, 300, 68)
+    f, fwd = ff.field_grads, ff.field_forward
+    for want_inputs in (False, True):
+        p, d = pts.clone().requires_grad_(want_inputs), dirs.clone().requires_grad_(want_inputs)
+        before = (fwd.launches, fwd.launches_bf16, f.launches, f.launches_bf16,
+                  f.input_grad_launches_bf16)
+        field.zero_grad(set_to_none=True)
+        raw = ff.fused_field_apply(field, p, d, BF16)
+        assert torch.equal(raw.detach(), ff.field_forward(field, pts, dirs, BF16))
+        (raw ** 2).sum().backward()
+        torch.cuda.synchronize()
+        assert (fwd.launches, fwd.launches_bf16, f.launches, f.launches_bf16,
+                f.input_grad_launches_bf16) == (before[0], before[1] + 2, before[2],
+                                                before[3] + 1, before[4] + want_inputs)
+        want = ff.field_grads(field, pts, dirs, (2 * raw).detach(), input_grads=want_inputs,
+                              compute_dtype=BF16)
+        for name, q in field.named_parameters():
+            assert torch.equal(q.grad, want[0][name]), name
+        if want_inputs:
+            assert torch.equal(p.grad, want[1]) and torch.equal(d.grad, want[2])
+        else:
+            assert p.grad is None and d.grad is None
+
+
+def test_field_bf16_rings_follow_a_weight_update(cuda):
+    """The field kernels' bf16 rings (the forward's, the backward's and
+    K8c's input-gradient ring, cached apart from the fp32 ones) are packed
+    anew after an in-place weight update and equal fresh packings; the
+    forwards follow their bf16 plain versions and the backward its plain
+    sweep on its own planes before and after."""
+    field = _field(cuda, 69, use_semantics=True, sem_with_coord=True, sem_dim=2, **SHAPES[0])
+    pts, dirs = _field_points(cuda, 1000, 70, scale=8.0)  # outputs that differ point to point
+    g = torch.from_numpy(np.random.default_rng(71).normal(size=(1000, 6)).astype(np.float32))
+    g = g.to(cuda)
+
+    def check():
+        with torch.no_grad():
+            bf16_points("K8d", ff.field_forward(field, pts, dirs, BF16),
+                        ff.field_plain(field, pts, dirs, BF16), ff.field_forward(field, pts, dirs))
+        _field_grads_bf16(field, pts, dirs, g, True)
+
+    check()
+    before = [t.clone() for t in _ring_bytes(field, True)]
+    iring = field._field_input_ring_bf16[1].clone()  # _cached's (key, buffer, descriptor)
+    with torch.no_grad():
+        field.mlp.rgb_linear.weight.mul_(-0.75)
+        field.mlp.pts_linears[0].weight.mul_(0.9)
+    check()
+    after = _ring_bytes(field, True)
+    assert not any(torch.equal(a, b) for a, b in zip(after, before))
+    assert torch.equal(after[0], fr.pack_ring(field, True)[0])
+    assert torch.equal(after[1], fr.pack_bwd_ring(field, True)[0])
+    inew = field._field_input_ring_bf16[1]
+    assert not torch.equal(inew, iring) and torch.equal(inew, ff.pack_input_ring(field, True)[0])
+
+
+def test_field_entries_run_the_bf16_mode(cuda):
+    """The field kernels' C entries take their bf16 mode from a bf16
+    descriptor (with the rings in their bf16 layouts): nerf_field in both
+    head rules, nerf_field_sigma and nerf_field_grads return 0 and write
+    what the wrappers' bf16 modes return, bit for bit."""
     from nerfsos_torch import _build
 
     field = _field(cuda, 3, **SHAPES[1])
-    pts, dirs = _field_points(cuda, 64, 5)
-    with pytest.raises(NotImplementedError, match="K8c/K8f"):
-        ff.field_grads(field, pts, dirs, torch.zeros(64, 4, device=cuda), input_grads=False,
-                       compute_dtype=BF16)
-    # the C entries themselves, with the fp32 rings and a descriptor set to bf16
+    n = 64
+    pts, dirs = _field_points(cuda, n, 5)
+    g = torch.from_numpy(np.random.default_rng(6).normal(size=(n, 4)).astype(np.float32))
+    g = g.to(cuda)
     buf, fdesc = fr._packed(field, cuda)
-    desc, grid, group = fr._sweep_launch(field, fdesc, fr._train_bwd(field, cuda)[1], 64, 1,
-                                         cuda, False)
-    desc.f.bf16 = 1
-    rbuf, ring = fr._ring(field, cuda)
-    bring, brd = fr._bwd_ring(field, cuda)
-    partial = torch.zeros(grid * desc.grad_size, device=cuda)
-    work = torch.zeros(grid * desc.ws_size, device=cuda)
-    flat = torch.zeros(desc.grad_size, device=cuda)
-    code = _build.library().nerf_field_grads(
-        pts.data_ptr(), dirs.data_ptr(), torch.zeros(64, 4, device=cuda).data_ptr(),
-        buf.data_ptr(), rbuf.data_ptr(), bring.data_ptr(), None, ctypes.byref(desc),
-        ctypes.byref(ff._field_ring(fdesc, ring, True)), ctypes.byref(brd),
-        ctypes.byref(_build.RingDesc()), partial.data_ptr(), work.data_ptr(), flat.data_ptr(),
-        None, None, 64, grid, group, _build.stream(cuda))
-    assert code == 1 and not flat.any()  # cudaErrorInvalidValue, nothing written
+    rbuf, ring = fr._ring(field, cuda, True)
     fd = _build.TrainDesc()
     fd.f = fdesc
     fd.f.bf16 = 1
     rd = ff._field_ring(fdesc, ring, True)
-    raw = torch.zeros(64, 4, device=cuda)
-    code = _build.library().nerf_field(pts.data_ptr(), dirs.data_ptr(), buf.data_ptr(),
-                                       rbuf.data_ptr(), ctypes.byref(fd), ctypes.byref(rd),
-                                       raw.data_ptr(), 64, 1, _build.stream(cuda))
-    assert code == 1
-    code = _build.library().nerf_field_sigma(pts.data_ptr(), buf.data_ptr(), rbuf.data_ptr(),
-                                             ctypes.byref(fd), ctypes.byref(rd), raw.data_ptr(),
-                                             64, 1, _build.stream(cuda))
+    per = ff._field_plan(fdesc, ring, n, ff._sm_count(cuda), True)[0]
+    lib = _build.library()
+    for heads in (0, 1):
+        raw = torch.zeros(n, 4, device=cuda)
+        code = lib.nerf_field(pts.data_ptr(), dirs.data_ptr(), buf.data_ptr(), rbuf.data_ptr(),
+                              ctypes.byref(fd), ctypes.byref(rd), raw.data_ptr(), n, per, heads,
+                              _build.stream(cuda))
+        torch.cuda.synchronize()
+        assert code == 0 and torch.equal(raw, ff.field_forward(field, pts, dirs, BF16, heads))
+    rs = ff._field_ring(fdesc, ring, False)
+    sigma = torch.zeros(n, device=cuda)
+    code = lib.nerf_field_sigma(pts.data_ptr(), buf.data_ptr(), rbuf.data_ptr(),
+                                ctypes.byref(fd), ctypes.byref(rs), sigma.data_ptr(), n, per,
+                                _build.stream(cuda))
     torch.cuda.synchronize()
-    assert code == 1 and not raw.any()
+    assert code == 0 and torch.equal(sigma, ff.fused_sigma_apply(field, pts, BF16))
+    desc, grid, group = fr._sweep_launch(field, fdesc, fr._train_bwd(field, cuda)[1], n, 1, cuda,
+                                         False)
+    desc.f.bf16 = 1
+    bring, brd = fr._bwd_ring(field, cuda, True)
+    partial = torch.zeros(grid * desc.grad_size, device=cuda)
+    work = torch.zeros(grid * desc.ws_size, device=cuda)
+    flat = torch.zeros(desc.grad_size, device=cuda)
+    code = lib.nerf_field_grads(
+        pts.data_ptr(), dirs.data_ptr(), g.data_ptr(), buf.data_ptr(), rbuf.data_ptr(),
+        bring.data_ptr(), None, ctypes.byref(desc), ctypes.byref(rd), ctypes.byref(brd),
+        ctypes.byref(_build.RingDesc()), partial.data_ptr(), work.data_ptr(), flat.data_ptr(),
+        None, None, n, grid, group, _build.stream(cuda))
+    torch.cuda.synchronize()
+    want = ff.field_grads(field, pts, dirs, g, input_grads=False, compute_dtype=BF16)[0]
+    assert code == 0
+    assert all(torch.equal(v, want[k]) for k, v in fr.unpack_grads(field, flat).items())

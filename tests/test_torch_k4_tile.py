@@ -1038,8 +1038,9 @@ def test_field_and_k10b_wrappers_launch_the_tile_with_a_ring(monkeypatch):
     seen = []
     monkeypatch.setattr(ff, "_check_points", lambda *a, **k: None)
     monkeypatch.setattr(fr, "_check_inputs", lambda *a, **k: None)
-    monkeypatch.setattr(ff, "_field_launch", lambda f, name, out, heads, *ins, bf16=False: seen.append(
-        (f, name, tuple(out.shape), heads, ins, bf16)))
+    monkeypatch.setattr(ff, "_field_launch", lambda f, name, out, heads, *ins, bf16=False,
+                        f32_heads=None: seen.append((f, name, tuple(out.shape), heads, ins, bf16,
+                                                     f32_heads)))
     monkeypatch.setattr(fr, "_mip_grads_launch", lambda *a: seen.append(a) or (torch.zeros(
         fr.grad_layout(mfield)[1]), None))
     card = [t.as_subclass(_OnCard) for t in (pts, dirs, cov, odvr, z, dmaps, dw)]
@@ -1058,6 +1059,7 @@ def test_field_and_k10b_wrappers_launch_the_tile_with_a_ring(monkeypatch):
                                           ("nerf_mip_field", (N_LIST, 4), True)]
     assert [len(s[4]) for s in seen[:3]] == [1, 2, 3] and seen[3][0] is mfield
     assert seen[2][5] is False  # fp32: K11's tile in its fp32 mode
+    assert seen[0][5:] == (False, None) and seen[1][5:] == (False, False)  # K8a, K8b/K8d fp32
     assert seen[3][1] is card[3] and seen[3][2] is card[4] and seen[3][5:] == (1.0, 5, False)
     monkeypatch.undo()
 
@@ -1105,6 +1107,36 @@ def test_field_and_k10b_wrappers_launch_the_tile_with_a_ring(monkeypatch):
     with pytest.raises(NotImplementedError):
         fr.mip_train_render_grads(mfield, odvr.to("meta"), z.to("meta"), dmaps, dw,
                                   noise_std=1.0, seed=5)
+
+
+def test_field_forward_counts_each_bf16_head_rule_apart(monkeypatch):
+    """On CUDA tensors at bf16 the field forward launches its bf16 mode
+    with the head rule it is given, and counts K8b's rule (f32_heads) in
+    ``launches_bf16_f32_heads`` and K8d's in ``launches_bf16``, each alone;
+    the sigma forward's bf16 launch goes to its own ``launches_bf16``."""
+    field = NeRFField(net_depth=4, net_width=32, multires=4, multires_views=2,
+                      use_semantics=True, sem_with_coord=True, sem_dim=2)
+    pts, dirs = (torch.from_numpy(a).as_subclass(_OnCard) for a in _field_rows(N_LIST, 3)[:2])
+    seen = []
+    monkeypatch.setattr(ff, "_check_points", lambda *a, **k: None)
+    monkeypatch.setattr(ff, "_field_launch", lambda f, name, out, heads, *ins, bf16=False,
+                        f32_heads=None: seen.append((name, bf16, f32_heads)))
+    monkeypatch.setattr(torch, "empty", lambda shape, **kw: torch.zeros(shape))
+    fwd, sig = ff.field_forward, ff.fused_sigma_apply
+
+    def counts():
+        return (fwd.launches, fwd.launches_bf16, fwd.launches_bf16_f32_heads, sig.launches,
+                sig.launches_bf16)
+
+    before = counts()
+    ff.field_forward(field, pts, dirs, torch.bfloat16, f32_heads=True)
+    assert [a - b for a, b in zip(counts(), before)] == [0, 0, 1, 0, 0]
+    ff.field_forward(field, pts, dirs, torch.bfloat16)
+    ff.field_forward(field, pts, dirs, torch.float32, f32_heads=True)  # fp32: one rule
+    ff.fused_sigma_apply(field, pts, torch.bfloat16)
+    assert [a - b for a, b in zip(counts(), before)] == [1, 1, 1, 0, 1]
+    assert seen == [("nerf_field", True, True), ("nerf_field", True, False),
+                    ("nerf_field", False, False), ("nerf_field_sigma", True, None)]
 
 
 # ----------------------------------------------------------------- the bf16 mode

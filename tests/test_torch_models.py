@@ -128,11 +128,7 @@ def test_shared_fine_field():
 
 
 @pytest.mark.parametrize("over", [{"conv_embed": True}, {"sem_layer": 3},
-                                  {"sem_with_geo": True},
-                                  # bf16 runs (tests/test_torch_bf16.py) but for fused routes
-                                  # whose kernels have no bf16 mode: here K8d/K8f
-                                  {"compute_dtype": "bfloat16", "fused_field": True,
-                                   "n_importance": 0}])
+                                  {"sem_with_geo": True}])
 def test_unported_options_raise(over):
     with pytest.raises(NotImplementedError):
         TorchNet(TorchConfig(**{**TINY, **over}))
