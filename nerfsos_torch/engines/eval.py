@@ -2,11 +2,12 @@
 export.
 
 Port of ``nerfsos_tpu/engines/eval.py`` (``make_render_fn``,
-``eval_one_view``, ``evaluate``, ``export_density``): the same metrics, the same files
-(``rgb_/depth_/depth_*_/alpha_/sem_/clus_*.png``, ``log.json``, ``log.txt``)
-and the same ``log.json`` keys. Differences: LPIPS is reported as NaN (null in
-``log.json``), as the JAX engine does when no weights are given; the DINO
-foreground flip of the cluster labels is not ported; ``depth_*_.png`` has no
+``eval_one_view``, ``find_fg_flip``, ``evaluate``, ``export_density``): the
+same metrics, the same files (``rgb_/depth_/depth_*_/alpha_/sem_/clus_*.png``,
+``log.json``, ``log.txt``), the same ``log.json`` keys, and the cluster
+labels of ``clus_*.png`` oriented by the DINO attention when an extractor
+is given. Differences: LPIPS is reported as NaN (null in ``log.json``), as
+the JAX engine does when no weights are given; ``depth_*_.png`` has no
 colorbar strip.
 """
 from __future__ import annotations
@@ -21,6 +22,7 @@ import torch
 import torch.nn as nn
 
 from nerfsos_torch.losses.photometric import img2mse, mse2psnr
+from nerfsos_torch.models.extractor import resize_nearest_torch
 from nerfsos_torch.models.mip import MipNeRFNet
 from nerfsos_torch.models.nerf import NeRFNet
 from nerfsos_torch.ops.kmeans import segmap_cluster
@@ -129,12 +131,40 @@ def eval_one_view(render_fn, batch: Dict[str, np.ndarray], *, clus_no_sfm: bool 
     return ret, metrics
 
 
+@torch.no_grad()
+def find_fg_flip(dino, rgb: np.ndarray, clustering: np.ndarray) -> np.ndarray:
+    """Cluster labels ``[H, W, 1]`` oriented so that label 1 is the
+    foreground the extractor ``dino`` attends to (JAX ``find_fg_flip``;
+    reference ``engines/eval.py:133-144``): the image ``rgb [H, W, 3]``
+    cropped to a multiple of the patch size, the no-resize CLS attention
+    nearest-upsampled to ``H x W``, the labels flipped when cluster 0 holds
+    more attention a pixel than cluster 1. An image smaller than a patch
+    has no attention to go by: its labels are kept (the JAX function
+    raises on it)."""
+    H, W = rgb.shape[:2]
+    ps = dino.patch_size
+    Hc, Wc = (H // ps) * ps, (W // ps) * ps
+    if Hc == 0 or Wc == 0:
+        return clustering
+    x = torch.from_numpy(np.ascontiguousarray(rgb[None, :Hc, :Wc, :], dtype=np.float32))
+    attn = dino.get_vit_attn_feat(x.to(dino.device), resize=False)["attn"]
+    attn = attn.to(torch.float32).reshape(1, Hc // ps, Wc // ps, 1)
+    attn = resize_nearest_torch(attn, H, W)[0, :, :, 0].cpu().numpy()
+    if np.mean(attn[clustering[..., 0] == 1]) < np.mean(attn[clustering[..., 0] == 0]):
+        return np.ones_like(clustering) - clustering
+    return clustering
+
+
 def evaluate(net: nn.Module, dataset, save_dir: Optional[str] = None, fast_mode: bool = False,
              ret_cluster: bool = False, clus_no_sfm: bool = False, n_cluster: int = 2,
-             kmeans_first: Optional[int] = None, **net_kwargs) -> Dict[str, float]:
+             kmeans_first: Optional[int] = None, dino=None,
+             **net_kwargs) -> Dict[str, float]:
     """Test-set sweep: metrics per view, PNGs and ``log.json``/``log.txt``.
     Without a semantic head (mip-NeRF) the ARI metrics are 0 and no
-    ``sem_``/``clus_`` images are written."""
+    ``sem_``/``clus_`` images are written. With an extractor ``dino`` the
+    cluster labels written to ``clus_*.png`` are oriented by
+    :func:`find_fg_flip` (JAX's ``find_fg``), after the metrics (an ARI does
+    not see the flip)."""
     near, far = dataset.near_far()
     render_fn = make_render_fn(net, near, far, **net_kwargs)
 
@@ -148,6 +178,9 @@ def evaluate(net: nn.Module, dataset, save_dir: Optional[str] = None, fast_mode:
                                      n_cluster=n_cluster, kmeans_first=kmeans_first)
         for k in METRIC_KEYS:
             all_metrics[k].append(metrics.get(k, 0.0))
+        clustering = ret.get("clustering")
+        if clustering is not None and dino is not None:
+            clustering = find_fg_flip(dino, ret["rgb"], clustering)
         print(f"[TEST] Iter {i+1}/{n_views} " +
               " ".join(f"{k}: {metrics.get(k, 0.0):.4f}" for k in METRIC_KEYS))
 
@@ -162,9 +195,9 @@ def evaluate(net: nn.Module, dataset, save_dir: Optional[str] = None, fast_mode:
             if "sem" in ret:
                 write_png(os.path.join(save_dir, f"sem_{i:03d}.png"),
                           (ret["sem"][..., 0] * 255).astype(np.uint8))
-            if ret_cluster and "clustering" in ret:
+            if ret_cluster and clustering is not None:
                 write_png(os.path.join(save_dir, f"clus_{i:03d}.png"),
-                          (ret["clustering"][..., 0] * 255).astype(np.uint8))
+                          (clustering[..., 0] * 255).astype(np.uint8))
 
     def mean(k):
         return float(np.mean(all_metrics[k])) if all_metrics[k] else 0.0

@@ -68,6 +68,10 @@ class VitExtractor:
         self.vit.to(device)
         return self
 
+    @property
+    def device(self) -> torch.device:
+        return next(self.vit.parameters()).device
+
     def load_torch_checkpoint(self, path: str) -> None:
         """Load DINO weights (e.g. ``dino_deitsmall16_pretrain.pth``)."""
         sd = torch.load(path, map_location="cpu", weights_only=True)
@@ -111,6 +115,10 @@ class SyntheticExtractor:
     def to(self, device) -> "SyntheticExtractor":
         self.proj = self.proj.to(device)
         return self
+
+    @property
+    def device(self) -> torch.device:
+        return self.proj.device
 
     def get_vit_attn_feat(self, x: torch.Tensor, resize: bool = True) -> Dict[str, torch.Tensor]:
         if resize:

@@ -10,7 +10,9 @@ state dict loads with ``load_state_dict``:
   (W+dirs -> W/2), ``rgb_linear``;
 - ``semantic_linear`` = Sequential(Linear, ReLU, Linear), keys ``.0``/``.2``,
   fed ``[h, pts_embed]`` when ``sem_with_coord``;
-- output channels ``[rgb, alpha, semantics]``.
+- output channels ``[rgb, alpha, semantics]``;
+- every layer's initial weights drawn as the JAX package's flax ``Dense``
+  draws them (:func:`flax_dense_init_`), not by torch's ``nn.Linear`` law.
 
 Two bf16 semantics live here, and they differ:
 
@@ -28,6 +30,7 @@ Two bf16 semantics live here, and they differ:
 """
 from __future__ import annotations
 
+import math
 from typing import Callable, Optional, Sequence, Tuple
 
 import torch
@@ -51,6 +54,19 @@ def bf16_operands_dense(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
 
 def float32_dense(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
     return layer(x)
+
+
+@torch.no_grad()
+def flax_dense_init_(layer: nn.Module) -> None:
+    """flax ``nn.Dense``'s (and ``nn.Conv``'s) default initialisation (the
+    JAX ``NeRFMLP``'s and ``VisionTransformer``'s): the weight from
+    ``lecun_normal``, a standard normal truncated at +-2 scaled to variance
+    1 / fan_in (a Linear's inputs, a convolution's inputs times its window),
+    and a zero bias; from torch's global generator."""
+    nn.init.trunc_normal_(layer.weight, a=-2.0, b=2.0)
+    # flax's truncated_normal stddev: 1 / the std of a normal truncated at +-2
+    layer.weight.mul_(math.sqrt(1.0 / layer.weight[0].numel()) / 0.87962566103423978)
+    layer.bias.zero_()
 
 
 class NeRFMLP(nn.Module):
@@ -87,15 +103,18 @@ class NeRFMLP(nn.Module):
 
         if not use_viewdirs:
             self.output_linear = nn.Linear(self.h_dim, output_ch)
-            return
-        self.alpha_linear = nn.Linear(self.h_dim, 1)
-        self.feature_linear = nn.Linear(self.h_dim, width)
-        self.views_linears = nn.ModuleList([nn.Linear(width + input_ch_views, width // 2)])
-        self.rgb_linear = nn.Linear(width // 2, output_ch - 1)
-        if use_semantics:
+        else:
+            self.alpha_linear = nn.Linear(self.h_dim, 1)
+            self.feature_linear = nn.Linear(self.h_dim, width)
+            self.views_linears = nn.ModuleList([nn.Linear(width + input_ch_views, width // 2)])
+            self.rgb_linear = nn.Linear(width // 2, output_ch - 1)
+        if use_viewdirs and use_semantics:
             sem_in = self.h_dim + (input_ch if sem_with_coord else 0)
             self.semantic_linear = nn.Sequential(
                 nn.Linear(sem_in, width // 2), nn.ReLU(), nn.Linear(width // 2, sem_dim))
+        for m in self.modules():
+            if isinstance(m, nn.Linear):
+                flax_dense_init_(m)
 
     def product(self, dense: Optional[Dense]) -> Dense:
         """``dense``, or the module's own product at its compute dtype."""

@@ -38,6 +38,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from nerfsos_torch.models.mlp import flax_dense_init_
+
 
 def _softmax(x: torch.Tensor) -> torch.Tensor:
     """Softmax over the last axis; in bf16 as jax.nn.softmax's ops run, each
@@ -178,13 +180,14 @@ class VisionTransformer(nn.Module):
         self.blocks = nn.ModuleList([Block(embed_dim, num_heads, mlp_ratio, dtype)
                                      for _ in range(depth)])
         self.norm = nn.LayerNorm(embed_dim, eps=1e-6)
-        # the reference DINO initialisation (truncated normal 0.02, zero bias)
-        nn.init.trunc_normal_(self.pos_embed, std=0.02)
-        nn.init.trunc_normal_(self.cls_token, std=0.02)
+        # the JAX package's seeded ViT: flax's truncated_normal(0.02) (a
+        # normal of std 0.02 cut at +-2 std) for the two embeddings, flax's
+        # default for its Dense and Conv layers
+        nn.init.trunc_normal_(self.pos_embed, std=0.02, a=-0.04, b=0.04)
+        nn.init.trunc_normal_(self.cls_token, std=0.02, a=-0.04, b=0.04)
         for m in self.modules():
-            if isinstance(m, nn.Linear):
-                nn.init.trunc_normal_(m.weight, std=0.02)
-                nn.init.zeros_(m.bias)
+            if isinstance(m, (nn.Linear, nn.Conv2d)):
+                flax_dense_init_(m)
 
     def interpolate_pos_encoding(self, npatch: int, w: int, h: int) -> torch.Tensor:
         N = self.pos_embed.shape[1] - 1

@@ -12,7 +12,10 @@ defaults) and the same run-directory layout. Implemented:
   ``last.ckpt`` and a final eval into ``eval/``. It resumes from the newest
   checkpoint of the run (``--no_reload`` starts afresh);
 - ``--eval``: render the test split, write metrics and images to
-  ``<basedir>/<expname>/eval``;
+  ``<basedir>/<expname>/eval``. Every eval (``--eval``, the test-set
+  evals, the final one) of a run with ``--use_dino`` orients the cluster
+  labels of ``clus_*.png`` by the extractor's attention (the DINO
+  foreground flip, ``engines/eval.find_fg_flip``);
 - ``--patch_tune`` with the SOS losses (``--use_dino`` and
   ``--use_correlation``/``--use_geoCorr``): the NeRF-SOS finetune on
   ``PatchDataset`` batches (``engines/sos.py``), of the semantic head alone
@@ -255,7 +258,9 @@ def model_config(args):
 
 def build_model(args, device: torch.device):
     """``NeRFNet`` (``MipNeRFNet`` under ``--mipnerf``, without the semantic
-    head) from the flags, initialised from ``--seed``, on ``device``."""
+    head) from the flags, on ``device``; its MLPs start from the JAX entry
+    point's initial weights at ``--seed`` (``models/seeded``)."""
+    from nerfsos_torch.models import seeded
     from nerfsos_torch.models.mip import MipNeRFNet
     from nerfsos_torch.models.nerf import NeRFNet
 
@@ -263,6 +268,7 @@ def build_model(args, device: torch.device):
     with torch.random.fork_rng(devices=[]):  # seeded init, global RNG left as it was
         torch.manual_seed(args.seed)
         net = MipNeRFNet(cfg) if args.mipnerf else NeRFNet(cfg)
+    seeded.jax_seeded_init_(net, args.seed)
     return net.to(device).eval(), cfg
 
 
@@ -384,7 +390,7 @@ def _main(args, device) -> None:
         net, args.lrate, fix_backbone=args.fix_backbone)
     print("Num of Params:", sum(p.numel() for p in net.parameters()))
     print(f"> Fused kernels: {net.fused}")
-    dino = build_dino(args, device) if sos_mode else None
+    dino = build_dino(args, device) if args.use_dino else None
 
     global_step = 0
     ckpt_path = args.ckpt_path
@@ -415,9 +421,6 @@ def _main(args, device) -> None:
             if opt_state is None:
                 state_lib.fast_forward_lr(optimizer, schedule, global_step)
 
-    if args.use_dino:
-        print("[Warning!] the DINO foreground flip is not ported: cluster labels keep "
-              "their k-means orientation")
     note = "" if args.eval or args.eval_vol else unwritten_outputs_note(args, global_step)
     if note:
         print(note)
@@ -430,7 +433,7 @@ def _main(args, device) -> None:
     def do_evaluate(save_dir):
         return eval_lib.evaluate(net, test_set, save_dir=save_dir, fast_mode=args.fast_mode,
                                  ret_cluster=args.ret_cluster, clus_no_sfm=args.clus_no_sfm,
-                                 n_cluster=args.N_cluster, **net_kwargs)
+                                 n_cluster=args.N_cluster, dino=dino, **net_kwargs)
 
     if args.eval:
         print("> Start to evaluate")

@@ -1,4 +1,5 @@
-"""Image helpers in numpy: ``to8b``, a jet colormap, and a PNG writer.
+"""Image helpers in numpy: ``to8b``, a jet colormap, a PNG writer and a
+reader of its PNGs.
 
 Port of what the eval engine uses from ``nerfsos_tpu/utils/io.py`` and
 ``utils/vis.py`` without imageio, matplotlib or cv2: the PNG is written with
@@ -83,3 +84,30 @@ def write_png(path: str, arr: np.ndarray) -> None:
     with open(path, "wb") as f:
         f.write(b"\x89PNG\r\n\x1a\n" + _png_chunk(b"IHDR", ihdr)
                 + _png_chunk(b"IDAT", zlib.compress(raw, 6)) + _png_chunk(b"IEND", b""))
+
+
+def read_png(path: str) -> np.ndarray:
+    """A PNG as ``write_png`` writes it (8 bits, not interlaced, filter 0 on
+    every row) -> ``[H, W]`` or ``[H, W, C]`` uint8."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError(f"{path}: not a PNG")
+    pos, idat, ihdr = 8, b"", None
+    while pos < len(data):
+        (n,) = struct.unpack(">I", data[pos:pos + 4])
+        tag, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
+        if tag == b"IHDR":
+            ihdr = struct.unpack(">IIBBBBB", body)
+        elif tag == b"IDAT":
+            idat += body
+        pos += 12 + n
+    w, h, depth, color_type, _, _, interlace = ihdr
+    channels = {0: 1, 2: 3, 6: 4}.get(color_type)
+    if depth != 8 or channels is None or interlace:
+        raise ValueError(f"{path}: not a PNG of write_png's kind (IHDR {ihdr})")
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + w * channels)
+    if rows[:, 0].any():
+        raise ValueError(f"{path}: a row filter other than 0")
+    img = rows[:, 1:].reshape(h, w, channels)
+    return img[..., 0] if channels == 1 else img

@@ -6,6 +6,7 @@ the JAX ``NeRFNet`` on its XLA path, which ``tests/test_fused_render.py``
 already ties to the Pallas kernels.
 """
 import dataclasses
+import math
 
 import jax
 import jax.numpy as jnp
@@ -154,3 +155,30 @@ def test_checkpoint_save_load(tmp_path):
     assert torch.equal(wide.state_dict()["nerf.mlp.semantic_linear.2.weight"], before)
     assert torch.equal(wide.state_dict()["nerf.mlp.pts_linears.0.weight"],
                        state["nerf.mlp.pts_linears.0.weight"])
+
+
+@pytest.mark.parametrize("viewdirs", [True, False])
+def test_default_init_draws_as_flax_dense(viewdirs):
+    """The port's fresh net draws every weight as the JAX package's flax
+    ``Dense`` does (``lecun_normal``: a normal truncated at 2 sigma, variance
+    1 / fan_in; zero biases), not by torch's ``nn.Linear`` law (uniform, a
+    third of that variance, uniform biases): the same law on every leaf of
+    the flagship 8 x 256 net with its semantic head, JAX's drawn beside."""
+    kw = dict(use_semantics=True, sem_with_coord=True, use_viewdirs=viewdirs)
+    jparams = _np_params(JaxNet(JaxConfig(**kw)).init(jax.random.PRNGKey(0)))
+    torch.manual_seed(0)
+    got = TorchNet(TorchConfig(**kw)).state_dict()
+    want = tckpt.state_dict_from_jax_params(jparams)
+    assert got.keys() == want.keys()
+    for k, v in got.items():
+        w = want[k]
+        assert v.shape == w.shape, k
+        if k.endswith("bias"):
+            assert not v.any() and not w.any(), k
+            continue
+        fan_in, n = v.shape[1], v.numel()
+        bound = 2 * math.sqrt(1.0 / fan_in) / 0.87962566103423978
+        for x in (v, w):
+            assert float(x.abs().max()) <= bound * (1 + 1e-6), k
+            # the std of n draws: within 6 of its standard errors of 1/sqrt(fan_in)
+            assert abs(float(x.std()) * math.sqrt(fan_in) - 1) < 6 / math.sqrt(n) + 0.02, k

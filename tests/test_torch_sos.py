@@ -328,6 +328,42 @@ def test_vit_state_dict_round_trips_the_reference_names():
         np.testing.assert_array_equal(a, b, err_msg=jax.tree_util.keystr(path))
 
 
+def test_seeded_vit_draws_as_the_jax_vit():
+    """A fresh ViT draws its weights by the JAX package's law, JAX's drawn
+    beside: flax's default (lecun normal: a normal cut at 2 sigma, variance
+    1 / fan_in, a zero bias) for every Dense and the patch convolution
+    (fan_in 3 x 16 x 16), truncated_normal(0.02) for the two embeddings,
+    LayerNorms at one and zero."""
+    import math
+
+    je = jext.VitExtractor("dino_vits16")
+    je.vit = jvit.VisionTransformer(patch_size=16, embed_dim=64, depth=2, num_heads=2,
+                                    pos_embed_size=224)
+    want = tckpt.vit_state_dict_from_jax_params(_np(je.init(jax.random.PRNGKey(3))))
+    torch.manual_seed(3)
+    got = TorchViT(patch_size=16, embed_dim=64, depth=2, num_heads=2).state_dict()
+    assert got.keys() == want.keys()
+    for k, v in got.items():
+        w = want[k]
+        assert v.shape == w.shape, k
+        if "norm" in k:
+            fill = 1.0 if k.endswith("weight") else 0.0
+            assert bool((v == fill).all()) and bool((w == fill).all()), k
+            continue
+        if k.endswith("bias"):
+            assert not v.any() and not w.any(), k
+            continue
+        # scale: the multiplier of a standard normal cut at +-2, whose std is 0.8796...
+        trunc_std = 0.87962566103423978
+        embed = k in ("cls_token", "pos_embed")
+        scale = 0.02 if embed else math.sqrt(1.0 / v[0].numel()) / trunc_std
+        n = v.numel()
+        for x in (v, w):
+            assert float(x.abs().max()) <= 2 * scale * (1 + 1e-6), k
+            # the std of n draws: within 6 of its standard errors of the law's
+            assert abs(float(x.std()) / (scale * trunc_std) - 1) < 6 / math.sqrt(n) + 0.02, k
+
+
 def test_synthetic_extractor_matches_jax():
     je = jext.SyntheticExtractor(embed_dim=24)
     te = text.SyntheticExtractor(embed_dim=24,

@@ -49,6 +49,7 @@ def test_png_round_trips_through_imageio(tmp_path, rng, shape):
     image.write_png(path, arr)
     back = np.asarray(imageio.imread(path))
     np.testing.assert_array_equal(back, arr[..., 0] if shape[-1:] == (1,) else arr)
+    np.testing.assert_array_equal(image.read_png(path), back)
 
 
 def test_png_rejects_float(tmp_path):
