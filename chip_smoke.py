@@ -75,7 +75,7 @@ Phases (one line each; any failure raises and the exit code is nonzero):
      scripts/train_flower_node0.sh (8 patches of 64x64, stride 6, ViT-S/16
      with seeded weights, both correlation losses) on 8 train views of
      384x512, from the [train] run's last.ckpt (trained without
-     --sem_with_coord), 20 steps: K4 twice a step and twice per ARI
+     --sem_with_coord), 10 steps: K4 twice a step and twice per ARI
      re-render, K5 twice a step, K7a/K7f/K7g once a step; every loss term
      finite and the correlation terms nonzero; the trunk bitwise equal to
      the checkpoint's and the semantic head moved; the final eval through
@@ -174,7 +174,7 @@ Phases (one line each; any failure raises and the exit code is nonzero):
      timed at the main paths' shapes beside the same call's fp32 kernel
      and the bf16 bound; [eval_bf16] the 378x504 view at bf16 (the fp32
      view again beside it, the bf16 counters alone launched, its last K1
-     and K2 calls vs plain); [sos_bf16] 20 frozen steps at bf16 from the
+     and K2 calls vs plain); [sos_bf16] 10 frozen steps at bf16 from the
      [train] run's fp32 checkpoint with a bf16 DINO (as [sos]); and
      [sos_bf16_step] the bf16 and the fp32 frozen step in turns, with
      peak memory, then the bf16 step split into its parts as [sos_step]'s
@@ -193,7 +193,8 @@ Phases (one line each; any failure raises and the exit code is nonzero):
      the K3 phases): digests of K3's, K6's, K9's, K10a's, K10b's, K11's and
      K8a's, K8b's, K8f's and K8c's fp32 outputs on seeded inputs, held to
      FP32_FINGERPRINTS (the parent
-     tree's), and their times;
+     tree's), and their times; [bf16_train_kernels] the same calls' digests
+     in their bf16 modes, held to BF16_FINGERPRINTS;
  31. mip-NeRF at bf16 (after 25): [K9_bf16] at 32768 rays a launch,
      [K10a_bf16] and [K10b_bf16] at 1024 rays (S = 63 and 190),
      [K10b_bf16_planes] (one wave: the stored planes and the sweep, as
@@ -250,9 +251,34 @@ Phases (one line each; any failure raises and the exit code is nonzero):
      finding the gate's design allows for (recorded, the control and the
      thresholds unchanged: PERF.md §7), not a fault of the run. The gate's
      nets start from the JAX entry point's initial weights at --seed 0
-     (models/seeded.py), as every seeded run of the port does.
-The last lines are the card, one JSON object with the kernels' numbers, and
-``{"ok": true, "device": {...}}``. Scratch files go to build/chip_smoke/.
+     (models/seeded.py), as every seeded run of the port does;
+ 34. a raw scene to trained views and videos through the port alone (just
+     before 33; the fp32 runs' nets of the port's default initialisation,
+     the bf16 runs' of torch's nn.Linear law, as every bf16 check's):
+     [gen_dataset] two raw scenes of the analytic sphere written as PNGs by
+     the port (an LLFF one, 12 views of 378x504 in images_8/ with
+     poses_bounds.npy; a Blender one, RGBA 800x800, 8/2/2 views with
+     transforms_*.json) prepared by ``python -m nerfsos_torch.data.
+     gen_dataset`` at flower_full.txt's and lego.txt's flags, rays_exhibit
+     cut to 4 frames; [train_nobatch] 30 steps at lego.txt's flags
+     (--no_batching, half_res, white_bkgd) with --precrop_iters 20 (bf16:
+     [train_nobatch_bf16], 10 steps, --precrop_iters 5): every ray of a
+     cropped step in the centre crop, K3 twice a step at the run's dtype,
+     the last step's K3 calls vs plain (bf16: bf16_columns and
+     bf16_leaves, as [train_bf16]); [nobatch_step] that step at 1024 rays, fp32
+     and bf16 in turns; [video] a 4-step flower_full.txt
+     train on the LLFF scene with --i_img and --i_video due once each, then
+     --eval --eval_video (and [video_bf16]): K1 and K2 6 times a frame,
+     every K1 call of the --i_img and video frames vs plain and every K2
+     call at the plain coarse pass's z (fp32: on the rays whose last
+     sample's density is clear of 0; bf16: a frame's calls together by
+     bf16_columns beside the fp32 kernels), the mp4s written (cv2 or imageio;
+     else write_video's error), the --i_img frame's whole-frame reading
+     beside the nudged plain path's ([video_frame]).
+The last lines are [timing] (the seconds of each phase, each
+translation unit's nvcc seconds), the card, one JSON object with the
+kernels' numbers, and ``{"ok": true, "device": {...}}``. Scratch files go to
+build/chip_smoke/.
 """
 from __future__ import annotations
 
@@ -266,6 +292,7 @@ import re
 import shutil
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -370,13 +397,19 @@ K7_SASS = {}
 
 
 START = time.perf_counter()
+PHASE_SECONDS: dict = {}  # a phase name's seconds: since the line before each of its lines
+_LAST_LINE = [0.0]
 
 
 def phase(name: str, **fields) -> None:
     """One phase line: its fields, then the seconds since the script began
-    (``at_s``: where the run's time went)."""
-    print(f"[{name}] " + " ".join(f"{k}={v}" for k, v in fields.items())
-          + f" at_s={time.perf_counter() - START:.1f}", flush=True)
+    (``at_s``: where the run's time went); the seconds since the line
+    before are added to the phase's total in PHASE_SECONDS ([timing])."""
+    at = time.perf_counter() - START
+    PHASE_SECONDS[name] = PHASE_SECONDS.get(name, 0.0) + at - _LAST_LINE[0]
+    _LAST_LINE[0] = at
+    print(f"[{name}] " + " ".join(f"{k}={v}" for k, v in fields.items()) + f" at_s={at:.1f}",
+          flush=True)
 
 
 def smi_line() -> str:
@@ -732,15 +765,17 @@ FWDONLY_BUILD = None  # the process building forward_split's library (start_fwdo
 def start_fwdonly_build() -> None:
     """Starts the build of ``tools/tile_probe``'s ``fwdonly`` copy of the
     sources (forward_split's library) in a process of its own, beside the
-    kernels' own build: one nvcc a source of each, all at once. Stopped at
-    exit if it is still running."""
+    kernels' own build: one nvcc a translation unit of each, all at once,
+    this one's at the lowest priority (nice 19), so that the kernels' own
+    build takes the cores first. Stopped at exit if it is still running."""
     global FWDONLY_BUILD
     code = ("import sys; sys.path.insert(0, sys.argv[1]); from nerfsos_torch import _build; "
             "from nerfsos_torch.tools import tile_probe; "
             "tile_probe.prepare(_build, sys.argv[1], 'fwdonly'); _build.build()")
     with open(os.path.join(WORK, "fwdonly_build.log"), "w") as log:
         FWDONLY_BUILD = subprocess.Popen([sys.executable, "-c", code, ROOT], stdout=log,
-                                         stderr=subprocess.STDOUT)
+                                         stderr=subprocess.STDOUT,
+                                         preexec_fn=lambda: os.nice(19))
 
     def stop():
         if FWDONLY_BUILD is not None and FWDONLY_BUILD.poll() is None:
@@ -1210,7 +1245,7 @@ def train_bf16_path(fr) -> dict:
 def train_step_bf16_timings(fr) -> None:
     """[train_step_bf16]: the flagship RGB step (grads and Adam, CUDA events)
     at bf16 and at fp32 in turns (fp32, bf16, bf16, fp32) on the same
-    weights and batch, at 1024 rays (30 steps a turn) and 16384 rays (5),
+    weights and batch, at 1024 rays (15 steps a turn) and 16384 rays (3),
     with peak memory and each dtype's bound."""
     from nerfsos_torch import run_nerf
     from nerfsos_torch.data.datasets import RayDataset
@@ -1231,7 +1266,7 @@ def train_step_bf16_timings(fr) -> None:
             near, far, args.rgb_w, args.seed)
     per_ray = (args.N_samples * field_flops(nets["fp32"].nerf, "k3")
                + (args.N_samples + args.N_importance) * field_flops(nets["fp32"].nerf_fine, "k3"))
-    for R, reps in ((1024, 30), (16384, 5)):
+    for R, reps in ((1024, 15), (16384, 3)):
         b = dataset.sample_batch(np.random.default_rng(R), R)
         batch = {k: torch.as_tensor(b[k], device="cuda") for k in ("rays", "target")}
         for name in ("fp32", "bf16", "bf16", "fp32"):
@@ -1256,9 +1291,17 @@ FP32_FINGERPRINTS = {"K3": "806e3addc6b0784a", "K6": "099605c1c82da1b0",
                      "K10b": "08182680a80f63ed", "K11": "367b6f56084c2655",
                      "K8a": "48804a3b48b8ac6e", "K8b": "acdf0969904792aa",
                      "K8f": "0acefffd9bfa549f", "K8c": "314cb57e3398c4a6"}
+# The same calls' outputs in their bf16 modes (--compute_dtype bfloat16),
+# from the tree before csrc's larger sources were compiled in parts
+# (nerfsos_torch/_build.PARTS), by the same tool, on the same card.
+BF16_FINGERPRINTS = {"K3": "312d4c590672dd41", "K6": "d9164c54d6c4af1a",
+                     "K9": "8875a76e49e5d460", "K10a": "ce72cea3c94c2e5c",
+                     "K10b": "30c8b5d3212868c7", "K11": "3c4389f9b138d6d9",
+                     "K8a": "8cd5bd880cb927fd", "K8b": "bb351a4f4563c51d",
+                     "K8f": "7ddb763aae897376", "K8c": "fe015e51551923b2"}
 
 
-def fp32_train_kernels(fr) -> dict:
+def fp32_train_kernels(fr, bf16: bool = False) -> dict:
     """[fp32_train_kernels]: sha256 digests (16 hex digits) of K3's fp32
     grads, maps and weights (1024 rays x 192 samples), of K6's fp32 grads
     (4096 x 64, the semantic head, seeded cotangents), of K9's and K10a's
@@ -1272,7 +1315,9 @@ def fp32_train_kernels(fr) -> dict:
     equal to FP32_FINGERPRINTS where it is set; and the fp32 K3's ms at 1024
     rays (S = 64, 192), K6's at 32768 rays (S = 192, 64), K9's at 32768 x
     190 and K10b's at 1024 x 190, for an A/B against another tree in one
-    call."""
+    call. With ``bf16``, [bf16_train_kernels]: the same calls' digests in
+    their bf16 modes, held equal to BF16_FINGERPRINTS where it is set, not
+    timed."""
     import hashlib
 
     from nerfsos_torch.ops import fused_field as ff
@@ -1288,15 +1333,20 @@ def fp32_train_kernels(fr) -> dict:
     k6_field = seeded_field(3, net_depth=8, net_width=256, multires=10, multires_views=4,
                             use_semantics=True, sem_with_coord=True, sem_dim=2)
     out, ms = {}, {}
+    dt = {"compute_dtype": torch.bfloat16 if bf16 else torch.float32}
+
+    def timed(name, fn, **kw):
+        if not bf16:
+            ms[name] = cuda_ms(fn, **kw)
+
     for S in (192, 64):
         odv, z = ray_inputs(1024, S, seed=5)
         gt = torch.from_numpy(np.random.default_rng(6).uniform(0, 1, (1024, 3)).astype(np.float32))
         kw = dict(white_bkgd=False, noise_std=1.0, seed=424242)
-        g, maps, w = fr.fused_rgb_train_grads(k3_field, odv, z, gt.cuda(), **kw)
+        g, maps, w = fr.fused_rgb_train_grads(k3_field, odv, z, gt.cuda(), **kw, **dt)
         if S == 192:
             out["K3"] = digest([g[k] for k in sorted(g)] + [maps, w])
-        ms[f"K3 1024x{S}"] = cuda_ms(lambda: fr.fused_rgb_train_grads(k3_field, odv, z,
-                                                                      gt.cuda(), **kw))
+        timed(f"K3 1024x{S}", lambda: fr.fused_rgb_train_grads(k3_field, odv, z, gt.cuda(), **kw))
     for R, S in ((4096, 64), (32768, 192), (32768, 64)):
         odv, z = ray_inputs(R, S, seed=7)
         rng = np.random.default_rng(8)
@@ -1304,47 +1354,49 @@ def fp32_train_kernels(fr) -> dict:
         dw = torch.from_numpy(rng.normal(size=(R, S)).astype(np.float32)).cuda()
         kw = dict(noise_std=1.0, seed=535353)
         if R == 4096:
-            g = fr.train_render_grads(k6_field, odv, z, dmaps, dw, **kw)
+            g = fr.train_render_grads(k6_field, odv, z, dmaps, dw, **kw, **dt)
             out["K6"] = digest([g[k] for k in sorted(g)])
         else:
-            ms[f"K6 {R}x{S}"] = cuda_ms(lambda: fr.train_render_grads(k6_field, odv, z, dmaps,
-                                                                       dw, **kw), reps=3)
+            timed(f"K6 {R}x{S}", lambda: fr.train_render_grads(k6_field, odv, z, dmaps, dw, **kw),
+                  reps=3)
         del odv, z, dmaps, dw
     mip = seeded_mip_field(7)
     with torch.no_grad():
         odvr, z = mip_ray_inputs(4096, 190, seed=9)
-        out["K9"] = digest(fr.fused_mip_render(mip, odvr, z))
-        out["K10a"] = digest(fr.mip_train_render(mip, odvr, z, noise_std=1.0, seed=97531))
+        out["K9"] = digest(fr.fused_mip_render(mip, odvr, z, **dt))
+        out["K10a"] = digest(fr.mip_train_render(mip, odvr, z, noise_std=1.0, seed=97531, **dt))
         odvr, z = mip_ray_inputs(EVAL_CHUNK, 190, seed=10)
-        ms["K9 32768x190"] = cuda_ms(lambda: fr.fused_mip_render(mip, odvr, z), reps=3)
+        timed("K9 32768x190", lambda: fr.fused_mip_render(mip, odvr, z), reps=3)
         pts, dirs = grid_points(1 << 16, 11), unit_dirs(1 << 16, 12)
         cov = (torch.rand(1 << 16, 3, generator=torch.Generator().manual_seed(13)) * 1e-4).cuda()
-        out["K11"] = digest([ff.fused_mip_field_apply(mip, pts, cov, dirs)])
+        out["K11"] = digest([ff.fused_mip_field_apply(mip, pts, cov, dirs, **dt)])
     odvr, z = mip_ray_inputs(1024, 190, seed=14)
     rng = np.random.default_rng(15)
     dmaps = torch.from_numpy(rng.normal(size=(1024, 5)).astype(np.float32)).cuda()
     dw = torch.from_numpy(rng.normal(size=(1024, 190)).astype(np.float32)).cuda()
     kw = dict(noise_std=1.0, seed=86420)
-    g = fr.mip_train_render_grads(mip, odvr, z, dmaps, dw, **kw)
+    g = fr.mip_train_render_grads(mip, odvr, z, dmaps, dw, **kw, **dt)
     out["K10b"] = digest([g[k] for k in sorted(g)])
-    ms["K10b 1024x190"] = cuda_ms(lambda: fr.mip_train_render_grads(mip, odvr, z, dmaps, dw, **kw))
+    timed("K10b 1024x190", lambda: fr.mip_train_render_grads(mip, odvr, z, dmaps, dw, **kw))
     k8_field = seeded_field(16, net_depth=8, net_width=256, multires=10, multires_views=4,
                             use_semantics=True, sem_with_coord=True, sem_dim=2)
     with torch.no_grad():
         pts, dirs = grid_points(1 << 16, 17), unit_dirs(1 << 16, 18)
-        out["K8a"] = digest([ff.fused_sigma_apply(k8_field, pts)])
-        out["K8b"] = digest([ff.field_forward(k8_field, pts, dirs)])
+        out["K8a"] = digest([ff.fused_sigma_apply(k8_field, pts, **dt)])
+        out["K8b"] = digest([ff.field_forward(k8_field, pts, dirs, **dt)])
     pts, dirs = noimp_points(256, 64, seed=19)
     g = torch.from_numpy(np.random.default_rng(20).normal(size=(pts.shape[0], 6))
                          .astype(np.float32)).cuda()
     for name, input_grads in (("K8f", False), ("K8c", True)):
-        grads, dp, dd = ff.field_grads(k8_field, pts, dirs, g, input_grads=input_grads)
+        grads, dp, dd = ff.field_grads(k8_field, pts, dirs, g, input_grads=input_grads, **dt)
         out[name] = digest([grads[k] for k in sorted(grads)] + ([dp, dd] if input_grads else []))
     torch.cuda.empty_cache()
-    phase("fp32_train_kernels", **out, expected=FP32_FINGERPRINTS, ms=ms)
-    if FP32_FINGERPRINTS is not None and out != FP32_FINGERPRINTS:
-        raise SystemExit(f"the fp32 K3/K6/mip/field outputs moved from the parent's: {out}, "
-                         f"expected {FP32_FINGERPRINTS}")
+    expected = BF16_FINGERPRINTS if bf16 else FP32_FINGERPRINTS
+    name = "bf16" if bf16 else "fp32"
+    phase(f"{name}_train_kernels", **out, expected=expected, **({} if bf16 else {"ms": ms}))
+    if expected is not None and out != expected:
+        raise SystemExit(f"the {name} K3/K6/mip/field outputs moved from the parent's: {out}, "
+                         f"expected {expected}")
     return out
 
 
@@ -1705,25 +1757,25 @@ def bf16_columns(what: str, got, want, control=None) -> dict:
     return out
 
 
-def bf16_stored(what: str, got, want) -> dict:
+def bf16_stored(what: str, got, want, share: float = BF16_STORED_SHARE) -> dict:
     """K4's bf16 sem_in against its bf16 plain version's within
-    BF16_STORED_SHARE and BF16_STORED_STEPS; raises. With the same bounds'
-    readings on tail_fault(got)."""
+    BF16_STORED_SHARE (or ``share``) and BF16_STORED_STEPS; raises. With the
+    same bounds' readings on tail_fault(got)."""
     g, w = got.float(), want.float()
     step = (w.abs().amax(0) * 2.0**-8).clamp(min=1e-30)
 
     def reading(x):
         return (float(((x - w).abs().amax(0) / step).max()) / BF16_STORED_STEPS,
-                float((x != w).float().mean()) / BF16_STORED_SHARE)
+                float((x != w).float().mean()) / share)
 
     steps, differ = reading(g)
     fault = reading(tail_fault(g))
     if not (bool(torch.isfinite(g).all()) and steps <= 1.0 and differ <= 1.0):
         raise SystemExit(f"{what} at bf16 disagrees with its bf16 plain version: "
-                         f"{differ * BF16_STORED_SHARE} of its entries differ (bound "
-                         f"{BF16_STORED_SHARE}), by up to {steps * BF16_STORED_STEPS} bf16 steps "
+                         f"{differ * share} of its entries differ (bound "
+                         f"{share}), by up to {steps * BF16_STORED_STEPS} bf16 steps "
                          f"of a column's largest (bound {BF16_STORED_STEPS})")
-    return {"differing_share": differ * BF16_STORED_SHARE, "max_steps": steps * BF16_STORED_STEPS,
+    return {"differing_share": differ * share, "max_steps": steps * BF16_STORED_STEPS,
             "tail_fault_steps_over_bound": fault[0], "tail_fault_differing_over_bound": fault[1]}
 
 
@@ -1794,6 +1846,27 @@ def bf16_witness(run, field, want) -> dict:
     return out
 
 
+def ulp_step(x: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
+    """``x`` with each entry stepped one float32 ulp up or down (signs from
+    ``gen``)."""
+    up = torch.rand(x.shape, generator=gen, device=x.device) < 0.5
+    return torch.where(up, torch.nextafter(x, torch.full_like(x, float("inf"))),
+                       torch.nextafter(x, torch.full_like(x, -float("inf"))))
+
+
+def z_ulp_draws(run, z, draws: int, seed: int = 2):
+    """Yield ``run(zz)``, a bf16 plain version's outputs, over ``draws``
+    draws of ``zz``: every sample depth of ``z`` one float32 ulp up or down
+    (signs from a seed). A point's position, whose last bit the positional
+    encoding multiplies by up to 2^9 pi, so that it flips the bf16 rounding
+    of encoding entries: the rounding bf16_witness's bias nudges leave
+    alone, and the one they cannot reach on a net of the JAX law, whose
+    biases start at zero (tests/bf16_ulp_spread.py)."""
+    gen = torch.Generator(device=z.device).manual_seed(seed)
+    for _ in range(draws):
+        yield run(ulp_step(z, gen))
+
+
 def bf16_leaves(what: str, got, want, witness, controls=None) -> dict:
     """K3's and K6's bf16 gradient leaves against their bf16 plain version
     (``want``): the worst leaf's error over the larger of BF16_WITNESS times
@@ -1840,7 +1913,7 @@ def workspace_planes(fr, launch, R: int, S: int, p: int, n: int) -> torch.Tensor
 
 
 def bf16_planes(fr, what: str, field, got, launch, odv, z, sem: bool, controls=None,
-                mip: bool = False, points=None, inputs=None) -> dict:
+                mip: bool = False, points=None, inputs=None, stored_share=None) -> dict:
     """What the bf16 storing forward of a one-wave K3 or K6 call (``launch``:
     fused_render._train_grads_launch's workspace, on rays ``odv``, ``z``;
     with ``mip`` a K10b call, fused_render._mip_grads_launch's, on odvr and
@@ -1854,7 +1927,8 @@ def bf16_planes(fr, what: str, field, got, launch, odv, z, sem: bool, controls=N
     _bf16_mlp_forward on the points' PE) within bf16_stored's bounds, and
     the kernel's leaves ``got`` against fused_render.bf16_sweep run on the
     planes (the same gates) within BF16_PLANES_TOL of each leaf's max;
-    raises. With the sweep's reading on each of ``controls`` (name -> a
+    raises. ``stored_share`` (plane name -> share): bf16_stored's share
+    bound for that plane in place of BF16_STORED_SHARE. With the sweep's reading on each of ``controls`` (name -> a
     function of the sweep, returning grads, e.g. the sweep under a
     fault). ``inputs`` (K8c: its dpts and ddirs): held within
     BF16_PLANES_TOL of their max against the sweep's float32 PE cotangents
@@ -1886,7 +1960,9 @@ def bf16_planes(fr, what: str, field, got, launch, odv, z, sem: bool, controls=N
                                       enumerate(zip(acts, f["acts"]))}}
     if sem:
         stored["s_act"] = (s_act, f["s_act"])
-    readings = {k: bf16_stored(f"{what} stored {k}", *v) for k, v in stored.items()}
+    readings = {k: bf16_stored(f"{what} stored {k}", *v,
+                               **({"share": stored_share[k]} if stored_share else {}))
+                for k, v in stored.items()}
     args = (e, dv, acts, feat, hv, s_act, plane(fr._P_DRGB, 3), plane(fr._P_DSIG, 1),
             plane(fr._P_ACT0 + mlp.depth + 1, mlp.semantic_linear[2].out_features)
             if sem else None)
@@ -2385,7 +2461,7 @@ def sos_bf16_path(fr, fc) -> dict:
     return {"launches": launches, "rec": rec, "args": args}
 
 
-def sos_bf16_step_timings(f32_run, bf16_run, name: str = "sos_bf16_step", reps: int = 3) -> None:
+def sos_bf16_step_timings(f32_run, bf16_run, name: str = "sos_bf16_step", reps: int = 2) -> None:
     """[sos_bf16_step] (``name``): the frozen 32768-ray SOS step at bf16
     beside the same call's fp32 frozen step ([sos_full_bf16_step]: the full
     step, both from their runs), in turns (fp32, bf16, bf16, fp32), each on
@@ -2478,7 +2554,7 @@ def kernel_vs_plain_k7s(fc) -> dict:
     return out
 
 
-SOS_STEPS = 20
+SOS_STEPS = 10
 
 
 def sos_args(ckpt: str, max_steps: int, expname: str = "smoke_sos", drop=(), extra=()):
@@ -2583,8 +2659,8 @@ def sos_path(fr, fc) -> dict:
         if 0.0 in (m["corr0"], m["corr1"], m["geo_corr0"], m["geo_corr1"]):
             raise SystemExit(f"an SOS correlation term is zero: {m}")
     run_dir = os.path.join(WORK, "logs", "smoke_sos")
-    check_checkpoints(run_dir, [f"{start_step + 10:08d}.ckpt", f"{start_step + 20:08d}.ckpt",
-                                "latest.ckpt", "last.ckpt"])
+    check_checkpoints(run_dir, [f"{start_step + k:08d}.ckpt" for k in range(10, SOS_STEPS + 1, 10)]
+                      + ["latest.ckpt", "last.ckpt"])
     end_state, end_step, _ = ckpt_lib.load_checkpoint(os.path.join(run_dir, "checkpoints",
                                                                    "last.ckpt"))
     for k, v in end_state.items():
@@ -2859,7 +2935,7 @@ def sos_mode_path(fr, fc, mode: str, bf16: bool = False) -> dict:
 
 def sos_step_timings(fr, fc, sos_run, name: str = "sos_step",
                      bwd: str = "frozen_sem_grads", parts: bool = True,
-                     paths=("kernel", "plain", "kernel", "plain")) -> dict:
+                     paths=("kernel", "plain", "kernel")) -> dict:
     """[sos_step] (``bwd`` K5, the frozen finetune), [sos_full_step] (K6,
     the full finetune) or, without its parts, [sos_randneg_step] (K5 and
     the single-head K7b/K7c): the 32768-ray SOS step (8 patches of 64x64) in ms
@@ -2906,7 +2982,7 @@ def sos_step_timings(fr, fc, sos_run, name: str = "sos_step",
             torch.cuda.synchronize()
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
-            ms = cuda_ms(lambda: step(batch, 0), reps=3, warmup=1)
+            ms = cuda_ms(lambda: step(batch, 0), reps=2, warmup=1)
             peak = torch.cuda.max_memory_allocated() / 2**30
         finally:
             for (mod, n), f in saved.items():
@@ -3181,8 +3257,8 @@ def mip_train_path(fr) -> dict:
     if not (all(math.isfinite(x) for x in losses) and last < first):
         raise SystemExit(f"mip train loss not finite or not falling: {losses}")
     run_dir = os.path.join(WORK, "logs", "smoke_mip")
-    check_checkpoints(run_dir, ["00000010.ckpt", "00000020.ckpt", "00000030.ckpt",
-                                "latest.ckpt", "last.ckpt"])
+    check_checkpoints(run_dir, [f"{k:08d}.ckpt" for k in range(10, MIP_STEPS + 1, 10)]
+                      + ["latest.ckpt", "last.ckpt"])
     log = check_final_eval(run_dir)
     phase("mip_train_eval", psnr=log["total_psnr"], ssim=log["total_ssim"])
     calls = rec["calls"]["mip_train_render_grads"]
@@ -3281,13 +3357,13 @@ def step_paths(name: str, step, dataset, mod, plain: dict) -> dict:
     """[``name``]: ``step`` (a train step: grads and Adam) timed with CUDA
     events at 1024 and 16384 rays of ``dataset`` on the kernel path and on
     the plain path (each wrapper of ``mod`` named in ``plain`` swapped for
-    its plain version), in turns (kernel, plain, kernel, plain), with peak
+    its plain version), in turns (kernel, plain, kernel), with peak
     memory; returns the ms by (rays, path)."""
     out = {}
     for R in (1024, 16384):
         b = dataset.sample_batch(np.random.default_rng(R), R)
         batch = {k: torch.as_tensor(b[k], device="cuda") for k in ("rays", "target")}
-        for path in ("kernel", "plain", "kernel", "plain"):
+        for path in ("kernel", "plain", "kernel"):
             saved = {n: getattr(mod, n) for n in plain} if path == "plain" else {}
             for n in saved:
                 setattr(mod, n, plain[n])
@@ -4246,7 +4322,7 @@ def mip_bf16_paths(fr, ff) -> dict:
 def mip_step_bf16_timings(fr) -> None:
     """[mip_bf16_step]: the mip train step (mip_args' flags; grads and Adam,
     CUDA events) at bf16 and at fp32 in turns (fp32, bf16, bf16, fp32) on
-    the same weights and batch, at 1024 rays (20 steps a turn) and 16384
+    the same weights and batch, at 1024 rays (10 steps a turn) and 16384
     rays (3), with peak memory and each dtype's bound."""
     from nerfsos_torch import run_nerf
     from nerfsos_torch.data.datasets import RayDataset
@@ -4265,7 +4341,7 @@ def mip_step_bf16_timings(fr) -> None:
                                                    args.decay_step * 1000),
             *test.near_far(), args.rgb_w, args.seed, net_kwargs={"radii": test.radii()})
     per_ray = (2 * args.N_samples - 2 + args.N_importance) * field_flops(net.mip, "k3")
-    for R, reps in ((1024, 20), (16384, 3)):
+    for R, reps in ((1024, 10), (16384, 2)):
         b = dataset.sample_batch(np.random.default_rng(R), R)
         batch = {k: torch.as_tensor(b[k], device="cuda") for k in ("rays", "target")}
         for name in ("fp32", "bf16", "bf16", "fp32"):
@@ -4589,8 +4665,8 @@ def noimp_bf16_step_timings() -> None:
     """[noimp_bf16_step]: the --N_importance 0 RGB step (the [noimp_step]
     flags; autograd through the field forward and backward, then Adam, CUDA
     events) at bf16 and at fp32 in turns (fp32, bf16, bf16, fp32) on the
-    same weights and batch, at 1024 rays (30 steps a turn) and 16384 rays
-    (5), with peak memory and each dtype's bound."""
+    same weights and batch, at 1024 rays (15 steps a turn) and 16384 rays
+    (3), with peak memory and each dtype's bound."""
     from nerfsos_torch import run_nerf
     from nerfsos_torch.data.datasets import RayDataset
     from nerfsos_torch.engines import state as state_lib
@@ -4608,7 +4684,7 @@ def noimp_bf16_step_timings() -> None:
                                                    args.decay_step * 1000),
             *dataset.near_far(), args.rgb_w, args.seed)
     per_ray = args.N_samples * (field_flops(net.nerf, "k2") + field_bwd_flops(net.nerf, False))
-    for R, reps in ((1024, 30), (16384, 5)):
+    for R, reps in ((1024, 15), (16384, 3)):
         b = dataset.sample_batch(np.random.default_rng(R), R)
         batch = {k: torch.as_tensor(b[k], device="cuda") for k in ("rays", "target")}
         for name in ("fp32", "bf16", "bf16", "fp32"):
@@ -4703,6 +4779,489 @@ def sigma_noise_bf16_path(ff) -> dict:
           seconds=secs["bf16"], fp32_seconds=secs["fp32"], plain_seconds=secs["plain"],
           last_calls=checks, frac_rays_rgb_over_1e_3=d_rgb, deterministic=True)
     return launches
+
+
+# ----------------------------------------------------------- raw scenes, --no_batching, videos
+
+RAW_LLFF_VIEWS = 12  # the flower scene has 34; 12 keep llffhold 8's two test views
+RAW_BLENDER_VIEWS = (8, 2, 2)  # nerf_synthetic's lego has 100, 100, 200
+BLENDER_SIZE = 800  # nerf_synthetic's, 400 x 400 at half_res
+EXHIBIT_FRAMES = 4  # rays_exhibit.npy cut after preparation (LLFF 120 poses, Blender 40)
+NOBATCH_STEPS, NOBATCH_PRECROP = 30, 20  # configs/lego.txt: precrop_iters 500
+NOBATCH_STEPS_BF16, NOBATCH_PRECROP_BF16 = 10, 5
+VIDEO_STEPS, VIDEO_I_IMG = 4, 3  # --i_img due at step 3, --i_video at step 4
+
+
+def raw_scene(name: str) -> str:
+    return os.path.join(WORK, f"raw_{name}")
+
+
+def gen_dataset_path() -> dict:
+    """[gen_dataset]: two raw scenes of the analytic sphere written with the
+    port's PNG writer (data/synthetic), an LLFF one (RAW_LLFF_VIEWS views of
+    378 x 504 in images_8/, the flower scene's layout after minification,
+    with poses_bounds.npy and masks/) and a Blender one (RGBA 800 x 800,
+    RAW_BLENDER_VIEWS train/val/test views, transforms_*.json), each
+    prepared by ``python -m nerfsos_torch.data.gen_dataset`` with its
+    config's flags (flower_full.txt at --factor 8; lego.txt: half_res,
+    white_bkgd, test_skip 8), its seconds and array shapes; rays_exhibit.npy
+    is then cut to EXHIBIT_FRAMES frames. The arrays' shapes are checked,
+    every ray and colour finite, colours in [0, 1]."""
+    from nerfsos_torch.data import synthetic
+
+    t0 = time.perf_counter()
+    synthetic.write_llff_scene(raw_scene("llff"), H_VIEW, W_VIEW, RAW_LLFF_VIEWS, factor=8)
+    synthetic.write_blender_scene(raw_scene("blender"), BLENDER_SIZE, RAW_BLENDER_VIEWS)
+    write_s = time.perf_counter() - t0
+    try:
+        import PIL  # noqa: F401
+
+        route = "PIL"
+    except ImportError:
+        route = "numpy"
+    configs = os.path.join(ROOT, "configs")
+    flags = {"llff": ["--config", os.path.join(configs, "flower_full.txt"), "--data_type", "llff",
+                      "--factor", "8"],
+             "blender": ["--config", os.path.join(configs, "lego.txt")]}
+    n_train = {"llff": RAW_LLFF_VIEWS - 2, "blender": RAW_BLENDER_VIEWS[0]}
+    size = {"llff": (H_VIEW, W_VIEW), "blender": (BLENDER_SIZE // 2, BLENDER_SIZE // 2)}
+    out = {}
+    for name, argv in flags.items():
+        root = raw_scene(name)
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "nerfsos_torch.data.gen_dataset", *argv,
+                               "--data_path", root], cwd=ROOT, capture_output=True, text=True,
+                              timeout=600)
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise SystemExit(f"gen_dataset on the {name} scene failed:\n{proc.stderr[-3000:]}")
+        path = os.path.join(root, "rays_exhibit.npy")
+        exhibit = np.load(path)
+        np.save(path, exhibit[:EXHIBIT_FRAMES])
+        shapes = {f[:-4]: list(np.load(os.path.join(root, f), mmap_mode="r").shape)
+                  for f in sorted(os.listdir(root))
+                  if f.endswith(".npy") and f != "poses_bounds.npy"}
+        with open(os.path.join(root, "meta.json")) as f:
+            meta = json.load(f)
+        H, W = size[name]
+        rays, rgbs = np.load(os.path.join(root, "rays_train.npy")), np.load(
+            os.path.join(root, "rgbs_train.npy"))
+        if (shapes["rays_train"] != [n_train[name], H, W, 2, 3]
+                or shapes["rgbs_test"][1:] != [H, W, 3]
+                or (meta["H"], meta["W"]) != (H, W) or not np.isfinite(rays).all()
+                or not (np.isfinite(rgbs).all() and rgbs.min() >= 0 and rgbs.max() <= 1)):
+            raise SystemExit(f"gen_dataset on the {name} scene: shapes {shapes}, meta {meta}")
+        phase("gen_dataset", scene=name, seconds=seconds, image_route=route,
+              exhibit_frames=f"{exhibit.shape[0]}->{EXHIBIT_FRAMES}", near=meta["near"],
+              far=meta["far"], shapes=shapes)
+        out[name] = seconds
+    phase("gen_dataset_scenes", write_s=write_s,
+          llff=f"{RAW_LLFF_VIEWS}x{H_VIEW}x{W_VIEW} images_8",
+          blender=f"{'/'.join(map(str, RAW_BLENDER_VIEWS))}x{BLENDER_SIZE}x{BLENDER_SIZE} RGBA")
+    return out
+
+
+def train_nobatch_path(fr, bf16: bool = False) -> dict:
+    """[train_nobatch] / [train_nobatch_bf16]: ``run_nerf.main`` with
+    configs/lego.txt's flags (--no_batching, 8 x 256 with view directions,
+    64 + 128 samples, N_rand 1024, white_bkgd) on the [gen_dataset] Blender
+    scene (half_res: 8 train views of 400 x 400), NOBATCH_STEPS steps with
+    --precrop_iters NOBATCH_PRECROP (bf16: NOBATCH_STEPS_BF16 and
+    NOBATCH_PRECROP_BF16, so that both runs cross the boundary): every
+    batch one image's 1024 rays, each of them a ray of the centre crop while
+    the step (counted from 1) is below --precrop_iters and not all of them
+    after; K3 twice a step at the run's dtype (counts from 0, none at the
+    other); the loss finite; the last step's two K3 calls against the
+    plain version (fp32: check_k3 with the gate allowance, as [train_k3];
+    bf16: as [train_bf16], the maps by bf16_columns and the leaves by
+    bf16_leaves on bf16_witness, two calls bitwise equal, with the fp32
+    kernel's readings beside). The fp32 run's nets draw the JAX entry
+    point's weights (models/seeded), the bf16 run's torch's nn.Linear law,
+    the fixtures of every bf16 check ([train_bf16]): on the JAX law's zero
+    biases bf16_witness's nudges move nothing (PERF.md §6, the JAX law at
+    bf16 in tests/test_torch_cuda.py and tests/bf16_ulp_spread.py)."""
+    from nerfsos_torch import run_nerf
+    from nerfsos_torch.data.datasets import ViewDataset
+
+    name = "train_nobatch_bf16" if bf16 else "train_nobatch"
+    steps, precrop = ((NOBATCH_STEPS_BF16, NOBATCH_PRECROP_BF16) if bf16
+                      else (NOBATCH_STEPS, NOBATCH_PRECROP))
+    argv = ["--config", os.path.join(ROOT, "configs", "lego.txt"), "--expname", name,
+            "--basedir", os.path.join(WORK, "logs"), "--data_path", raw_scene("blender"),
+            "--max_steps", str(steps), "--precrop_iters", str(precrop), "--precrop_frac", "0.5",
+            "--i_print", "10", "--i_weights", str(steps), "--i_testset", "1000000",
+            "--fast_mode", *(["--compute_dtype", "bfloat16"] if bf16 else [])]
+    args, _ = run_nerf.create_arg_parser().parse_known_args(argv)
+    batches, keys = [], {}
+    orig = ViewDataset.sample_batch
+
+    def spy(self, rng, batch_size, step=10**9):
+        batch = orig(self, rng, batch_size, step=step)
+        if "crop" not in keys:  # every ray of the centre crops, as sorted 24-byte keys
+            h0, h1, w0, w1 = self.crop()
+            crop = np.ascontiguousarray(self._rays[:, h0:h1, w0:w1]).reshape(-1, 6)
+            keys["crop"] = np.sort(crop.view(np.dtype((np.void, 24))).ravel())
+        k = np.ascontiguousarray(batch["rays"].transpose(1, 0, 2)).reshape(-1, 6).view(
+            np.dtype((np.void, 24))).ravel()
+        pos = np.minimum(np.searchsorted(keys["crop"], k), len(keys["crop"]) - 1)
+        batches.append((step, float((keys["crop"][pos] == k).mean()), batch_size))
+        return batch
+
+    count = "launches_bf16" if bf16 else "launches"
+    other = "launches" if bf16 else "launches_bf16"
+    fr.fused_rgb_train_grads.launches = fr.fused_rgb_train_grads.launches_bf16 = 0
+    ViewDataset.sample_batch = spy
+    try:
+        rec = run_train(fr, args, {}, ["fused_rgb_train_grads"], steps - 1)
+    finally:
+        ViewDataset.sample_batch = orig
+    k3, k3_other = getattr(fr.fused_rgb_train_grads, count), getattr(fr.fused_rgb_train_grads,
+                                                                     other)
+    losses = rec["losses"]
+    inside = [share for step, share, _ in batches if step < precrop]
+    after = [share for step, share, _ in batches if step >= precrop]
+    phase(name, steps=len(losses), view=f"{BLENDER_SIZE // 2}x{BLENDER_SIZE // 2} (half_res)",
+          precrop_iters=precrop,
+          seconds_incl_load_and_eval=rec["seconds"], launches={"K3": k3},
+          other_dtype_launches={"K3": k3_other}, loss_first=losses[0], loss_last=losses[-1],
+          cropped_steps=len(inside), min_crop_share_before=min(inside),
+          max_crop_share_after=max(after))
+    if ([s for s, _, _ in batches] != list(range(1, steps + 1))
+            or any(b != args.batch_size for _, _, b in batches)):
+        raise SystemExit(f"{name}: sampled steps/batches {batches}")
+    if min(inside) != 1.0 or max(after) == 1.0 or len(inside) != precrop - 1:
+        raise SystemExit(f"{name}: a ray outside the centre crop before step {precrop}, or none "
+                         f"outside it after: {batches}")
+    if k3 != 2 * steps or k3_other != 0:
+        raise SystemExit(f"{name}: K3 launched {k3} times at its dtype ({k3_other} at the other), "
+                         f"not {2 * steps}")
+    if not all(math.isfinite(x) for x in losses):
+        raise SystemExit(f"{name}: loss not finite: {losses}")
+    check_final_eval(os.path.join(WORK, "logs", name))
+    calls = rec["calls"]["fused_rgb_train_grads"]
+    if len(calls) != 2:
+        raise SystemExit(f"{name}: captured {len(calls)} K3 calls of step {steps - 1}")
+    for field_name, ((field, odv, z, gt), kw, got) in zip(("coarse", "fine"), calls):
+        if bf16:
+            want = fr.rgb_train_grads_plain(field, odv, z, gt, **kw)
+            witness = bf16_witness(lambda f: fr.rgb_train_grads_plain(f, odv, z, gt, **kw)[0],
+                                   field, want[0])
+            again = fr.fused_rgb_train_grads(field, odv, z, gt, **kw)
+            f32 = fr.fused_rgb_train_grads(field, odv, z, gt,
+                                           **{**kw, "compute_dtype": torch.float32})
+            if kw["compute_dtype"] != torch.bfloat16 or not all(
+                    torch.equal(got[0][k], again[0][k]) for k in got[0]):
+                raise SystemExit(f"{name} K3 ({field_name}): not bf16, or two calls differ")
+            close = {"maps": bf16_columns(f"{name} K3 maps ({field_name})", got[1], want[1],
+                                          f32[1]),
+                     "leaves": bf16_leaves(f"{name} K3 ({field_name})", got[0], want[0], witness,
+                                           {"fp32": f32[0]})}
+        else:
+            close = check_k3(f"{name} step {steps - 1}, {field_name}", got,
+                             *plain_k3_with_gates(field, odv, z, gt, kw))
+        phase(f"{name}_k3", step=steps - 1, field=field_name, rays=z.shape[0],
+              samples=z.shape[1], white_bkgd=kw.get("white_bkgd"), **close)
+    return {"K3": k3, "seconds": rec["seconds"]}
+
+
+def nobatch_step_timings() -> None:
+    """[nobatch_step]: the ``--no_batching`` RGB step (configs/lego.txt's
+    flags; grads and Adam, CUDA events) on one 1024-ray batch of a
+    [gen_dataset] Blender view past the centre crop, at fp32 and at bf16 in
+    turns (fp32, bf16, bf16, fp32), 15 steps a turn, with peak memory and
+    each dtype's bound; the nets of the port's default initialisation."""
+    from nerfsos_torch import run_nerf
+    from nerfsos_torch.data.datasets import ViewDataset
+    from nerfsos_torch.engines import state as state_lib
+    from nerfsos_torch.engines.trainer import make_rgb_train_step
+
+    steps, nets = {}, {}
+    for name, dtype in (("fp32", "float32"), ("bf16", "bfloat16")):
+        argv = ["--config", os.path.join(ROOT, "configs", "lego.txt"), "--expname", "nobatch_step",
+                "--basedir", os.path.join(WORK, "logs"), "--data_path", raw_scene("blender"),
+                "--compute_dtype", dtype]
+        args, _ = run_nerf.create_arg_parser().parse_known_args(argv)
+        dataset = ViewDataset(args.data_path, split="train", precrop_iters=args.precrop_iters,
+                              precrop_frac=args.precrop_frac)
+        nets[name], _ = run_nerf.build_model(args, torch.device("cuda"))
+        opt = state_lib.make_optimizer(nets[name].parameters(), args.lrate)
+        steps[name] = make_rgb_train_step(
+            nets[name], opt, state_lib.exp_decay_schedule(args.lrate, args.decay_rate,
+                                                          args.decay_step * 1000),
+            *dataset.near_far(), args.rgb_w, args.seed)
+    per_ray = (args.N_samples * field_flops(nets["fp32"].nerf, "k3")
+               + (args.N_samples + args.N_importance) * field_flops(nets["fp32"].nerf_fine, "k3"))
+    b = dataset.sample_batch(np.random.default_rng(0), args.batch_size, step=args.precrop_iters)
+    batch = {k: torch.as_tensor(b[k], device="cuda") for k in ("rays", "target")}
+    for name in ("fp32", "bf16", "bf16", "fp32"):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(lambda: steps[name](batch, 0), reps=15, warmup=1)
+        rate = BF16_FLOP_S if name == "bf16" else FP32_MMA_FLOP_S
+        phase("nobatch_step", compute_dtype=name, rays=args.batch_size, steps=15, ms=ms,
+              rays_per_s=args.batch_size / ms * 1e3, bound_ms=args.batch_size * per_ray / rate * 1e3,
+              peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    del steps, nets
+    torch.cuda.empty_cache()
+
+
+LAST_GATE_RAYS = 1e-2  # the share of a call's rays last_gate_clear may leave unheld
+
+
+def last_gate_clear(fr, field, odv, z) -> torch.Tensor:
+    """Per ray: whether the density of its last sample (``field``'s plain
+    fp32 output before its relu) is clear of 0 by GATE_MARGIN of the
+    call's largest such |density|. The last interval is 1e10 long, so a
+    density within rounding of 0 that the kernel and the plain version
+    round to opposite signs gives that sample an alpha of 1 in one and 0
+    in the other: the ray's last weight is its whole transmittance (a ray
+    of the JAX-law nets at fixed z: acc 0.556 vs 1.0, H100)."""
+    from nerfsos_torch.core.sampling import points_along_rays
+
+    sig = field(points_along_rays(odv[:, 0:3], odv[:, 3:6], z[:, -1:].contiguous()),
+                odv[:, 6:9], fr.kernel_dense(torch.float32))[:, 0, 3].abs()
+    return sig > GATE_MARGIN * sig.max()
+
+
+def video_path(fr, bf16: bool = False) -> dict:
+    """[video] / [video_bf16]: on the [gen_dataset] LLFF scene at
+    configs/flower_full.txt's flags and net (378 x 504 views, 8 x 256, 64 +
+    128 samples, the semantic head), a VIDEO_STEPS-step train with --i_img
+    due at step VIDEO_I_IMG and --i_video at step VIDEO_STEPS (both once),
+    then ``--eval --eval_video`` from its checkpoint; the fp32 run's nets
+    draw the JAX entry point's initial weights (models/seeded), the bf16
+    run's torch's nn.Linear law, the fixtures of every bf16 check
+    ([eval_bf16]; [train_nobatch]'s docstring). Every rendered frame (the
+    --i_img view, the exhibit frames of each video, the evals' views) is
+    counted: K1 and K2 launch ceil(H W / --ray_chunk) times a frame at the
+    run's dtype (counts from 0, none at the other). Every K1 call of the
+    --i_img and video frames is held against its plain version (fp32: TOL
+    on the rays whose last sample's density is clear of 0, last_gate_clear,
+    at most LAST_GATE_RAYS of a call's rays left out and counted; bf16: a
+    frame's calls together by bf16_columns, as [eval_bf16] holds K1 and K2,
+    the fp32 kernels' readings beside), and every K2 call at fixed z: the
+    plain coarse pass's importance samples fed to the kernel and the plain
+    version alike (the kernel's own coarse weights put a sample a CDF bin
+    apart now and then). The --i_img frame's whole-frame rgb against the plain path's,
+    beside the plain path against itself on the field nudged by 1 +- 2^-22
+    (tools/render_init_law's reading; information only). Where cv2 or
+    imageio is importable every mp4 must exist; where neither is, both runs
+    must stop with write_video's error naming both."""
+    from nerfsos_torch import run_nerf
+    from nerfsos_torch.core import sampling
+    from nerfsos_torch.engines import eval as eval_lib
+    from nerfsos_torch.models.nerf import NeRFNet
+    from nerfsos_torch.tools.render_init_law import nudged as nudged_net
+    from nerfsos_torch.utils.io import video_writer
+    from nerfsos_torch.utils.summary import tensorboard_available
+
+    name = "video_bf16" if bf16 else "video"
+    run_dir = os.path.join(WORK, "logs", name)
+    writer = video_writer()
+    common = ["--config", os.path.join(ROOT, "configs", "flower_full.txt"), "--expname", name,
+              "--basedir", os.path.join(WORK, "logs"), "--data_path", raw_scene("llff"),
+              "--factor", "8", "--fast_mode", "--ret_cluster",
+              *(["--compute_dtype", "bfloat16"] if bf16 else [])]
+    runs = {"train": [*common, "--max_steps", str(VIDEO_STEPS), "--i_img", str(VIDEO_I_IMG),
+                      "--i_video", str(VIDEO_STEPS), "--i_weights", str(VIDEO_STEPS),
+                      "--i_print", str(VIDEO_STEPS), "--i_testset", "1000000"],
+            "eval": [*common, "--eval", "--eval_video"]}
+    count = "launches_bf16" if bf16 else "launches"
+    other = "launches" if bf16 else "launches_bf16"
+    wrappers = {"K1": "fused_coarse_weights", "K2": "fused_render"}
+    frames, where = [], ["i_img"]
+    orig_view, orig_video, orig_eval = (eval_lib.eval_one_view, eval_lib.render_video,
+                                        eval_lib.evaluate)
+
+    def launches():
+        return {k: getattr(getattr(fr, n), count) for k, n in wrappers.items()}
+
+    def view(render_fn, batch, **kw):
+        before, n1, n2 = launches(), len(cap.calls["fused_coarse_weights"]), len(
+            cap.calls["fused_render"])
+        t0 = time.perf_counter()
+        ret, metrics = orig_view(render_fn, batch, **kw)
+        seconds = time.perf_counter() - t0  # the frame's arrays are on the host: done
+        now = launches()
+        frames.append({"where": where[-1], "launches": {k: now[k] - before[k] for k in now},
+                       "seconds": seconds,
+                       "k1": cap.calls["fused_coarse_weights"][n1:],
+                       "k2": cap.calls["fused_render"][n2:],
+                       "rays": batch["rays"] if where[-1] == "i_img" else None,
+                       "rgb": ret["rgb"] if where[-1] == "i_img" else None})
+        if where[-1] not in ("i_img", "video"):  # the evals' views: counted, not held
+            frames[-1]["k1"] = frames[-1]["k2"] = []
+        return ret, metrics
+
+    def within(label, fn):
+        def wrapped(*a, **kw):
+            where.append(label)
+            try:
+                return fn(*a, **kw)
+            finally:
+                where.pop()
+        return wrapped
+
+    for n in wrappers.values():
+        getattr(fr, n).launches = getattr(fr, n).launches_bf16 = 0
+    cap = Capture(fr, list(wrappers.values()))
+    cap.on = True
+    eval_lib.eval_one_view = view
+    eval_lib.render_video = within("video", orig_video)
+    eval_lib.evaluate = within("eval", orig_eval)
+    stops, seconds = {}, {}
+    try:
+        for run, argv in runs.items():
+            args, _ = run_nerf.create_arg_parser().parse_known_args(argv)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                run_nerf.main(args)
+            except RuntimeError as e:  # write_video's, where no mp4 writer imports
+                if writer != "none" or "cv2" not in str(e) or "imageio" not in str(e):
+                    raise
+                stops[run] = str(e)
+            torch.cuda.synchronize()
+            seconds[run] = time.perf_counter() - t0
+    finally:
+        eval_lib.eval_one_view, eval_lib.render_video, eval_lib.evaluate = (
+            orig_view, orig_video, orig_eval)
+        cap.close()
+    stray = {k: getattr(getattr(fr, n), other) for k, n in wrappers.items()}
+    total = launches()
+    chunk = run_nerf.create_arg_parser().parse_known_args(runs["eval"])[0].ray_chunk
+    per_frame = math.ceil(H_VIEW * W_VIEW / chunk)
+    kinds = [f["where"] for f in frames]
+    expected = (["i_img"] + ["video"] * EXHIBIT_FRAMES + ([] if "train" in stops else ["eval"])
+                + ["eval"] + ["video"] * EXHIBIT_FRAMES)
+    frame_s = sorted(f["seconds"] for f in frames if f["where"] == "video")
+    phase(name, writer=writer, tensorboard=tensorboard_available(), frames=kinds,
+          seconds=seconds, video_frame_s_median=frame_s[len(frame_s) // 2] if frame_s else None,
+          video_frame_s=[round(x, 3) for x in frame_s], launches=total, other_dtype_launches=stray,
+          per_frame=sorted({tuple(f["launches"].values()) for f in frames}),
+          stopped={k: v[:120] for k, v in stops.items()})
+    if kinds != expected:
+        raise SystemExit(f"{name}: rendered frames {kinds}, not {expected}")
+    if any(f["launches"] != {"K1": per_frame, "K2": per_frame} for f in frames) or any(
+            stray.values()):
+        raise SystemExit(f"{name}: K1/K2 launches a frame {[f['launches'] for f in frames]}, "
+                         f"other dtype {stray}")
+    if writer == "none":
+        if set(stops) != {"train", "eval"}:
+            raise SystemExit(f"{name}: no mp4 writer, yet the runs did not stop at their videos: "
+                             f"{stops}")
+    else:
+        want = [f"{k}_{s}.mp4" for s in (VIDEO_STEPS, name)
+                for k in ("rgb", "disp", "sem", "clus")]
+        missing = [f for f in want if not (os.path.exists(os.path.join(run_dir, f))
+                                           and os.path.getsize(os.path.join(run_dir, f)) > 0)]
+        if stops or missing:
+            raise SystemExit(f"{name}: mp4s missing {missing}, stops {stops}")
+
+    # every K1 call of the --i_img and video frames vs plain, every K2 call at fixed z
+    worst = {"K1": 0.0, "K2": 0.0}
+    held = near_rays = all_rays = 0
+    near_err = 0.0
+    with torch.no_grad():
+        for f in frames:
+            frame = {"k1": [], "k1_plain": [], "k1_fp32": [], "k2": [], "k2_plain": [],
+                     "k2_fp32": []}
+            for (a1, _, w1), (a2, _, _) in zip(f["k1"], f["k2"]):
+                field_c, od, z_c, dtype = a1
+                field_f, odv, _, _ = a2
+                w_plain = fr.coarse_weights_plain(field_c, od, z_c, dtype)
+                n_imp = a2[2].shape[1] - z_c.shape[1]
+                z_fix, _ = sampling.importance_sample(z_c, w_plain, n_imp, det=True)
+                got2 = fr.fused_render(field_f, odv, z_fix, dtype)
+                want2 = fr.render_plain(field_f, odv, z_fix, dtype)
+                if bf16:  # held as a whole frame below, beside the fp32 kernels
+                    for k, v in (("k1", w1), ("k1_plain", w_plain),
+                                 ("k1_fp32", fr.fused_coarse_weights(field_c, od, z_c,
+                                                                     torch.float32)),
+                                 ("k2", got2[0]), ("k2_plain", want2[0]),
+                                 ("k2_fp32", fr.fused_render(field_f, odv, z_fix,
+                                                             torch.float32)[0])):
+                        frame[k].append(v)
+                else:
+                    # rays whose last sample's density is within rounding of 0
+                    # (last_gate_clear) are counted, not held
+                    c1, c2 = last_gate_clear(fr, field_c, odv, z_c), last_gate_clear(
+                        fr, field_f, odv, z_fix)
+                    e1 = max_err(w1[c1], w_plain[c1])
+                    e2 = max(max_err(got2[0][c2], want2[0][c2]), max_err(got2[1][c2], want2[1][c2]))
+                    near = (~c1).logical_or(~c2)
+                    near_rays += int(near.sum())
+                    all_rays += near.numel()
+                    if near.any():
+                        near_err = max(near_err, max_err(w1[~c1], w_plain[~c1]) if (~c1).any()
+                                       else 0.0, max_err(got2[0][~c2], want2[0][~c2])
+                                       if (~c2).any() else 0.0)
+                    if not (torch.isfinite(w1).all() and e1 <= TOL and e2 <= TOL
+                            and near.float().mean() <= LAST_GATE_RAYS):
+                        col = (got2[0] - want2[0]).abs()
+                        ray = int(col.amax(1).argmax())
+                        phase(f"{name}_k2_diag", where=f["where"], k1_err=e1, k2_err=e2,
+                              near_rays=int(near.sum()), rays=near.numel(),
+                              maps_col_err=col.amax(0).tolist(), ray=ray,
+                              ray_last_sample_clear=[bool(c1[ray]), bool(c2[ray])],
+                              kernel_maps=got2[0][ray].tolist(),
+                              plain_maps=want2[0][ray].tolist())
+                        raise SystemExit(f"{name}: a {f['where']} frame's K1 ({e1}) or K2 at fixed "
+                                         f"z ({e2}) disagrees with its plain version (tol {TOL}) on "
+                                         f"rays whose last density is clear of 0, or "
+                                         f"{int(near.sum())} of {near.numel()} rays are not clear")
+                    worst["K1"], worst["K2"] = max(worst["K1"], e1), max(worst["K2"], e2)
+                held += 1
+                del got2, want2, w_plain, z_fix
+            if bf16 and frame["k1"]:
+                # the frame's rays in a seeded order: the tail fault then takes
+                # another part of the view's values, not a neighbouring pixel's
+                cat = {k: torch.cat(v) for k, v in frame.items()}
+                perm = torch.randperm(cat["k1"].shape[0], generator=torch.Generator().manual_seed(0)
+                                      ).to(cat["k1"].device)
+                c1 = bf16_columns(f"{name} K1 ({f['where']} frame)", cat["k1"][perm],
+                                  cat["k1_plain"][perm], cat["k1_fp32"][perm])
+                c2 = bf16_columns(f"{name} K2 at fixed z ({f['where']} frame)", cat["k2"][perm],
+                                  cat["k2_plain"][perm], cat["k2_fp32"][perm])
+                worst["K1"] = max(worst["K1"], c1["err_over_bound"], c1["flip_rows_over_bound"])
+                worst["K2"] = max(worst["K2"], c2["err_over_bound"], c2["flip_rows_over_bound"])
+                del cat
+    n_held_frames = sum(1 for f in frames if f["k1"])
+    phase(f"{name}_kernels", frames_held=n_held_frames, calls_held=held,
+          **({"k1_over_bound": worst["K1"], "k2_fixed_z_over_bound": worst["K2"]} if bf16 else
+             {"k1_max_abs_err": worst["K1"], "k2_fixed_z_max_abs_err": worst["K2"], "tol": TOL,
+              "rays_last_density_near_0": near_rays, "rays": all_rays,
+              "their_max_abs_err": near_err}))
+    if held != n_held_frames * per_frame or n_held_frames != 1 + EXHIBIT_FRAMES * (
+            1 if "train" in stops else 2):
+        raise SystemExit(f"{name}: held {held} calls of {n_held_frames} frames")
+
+    # the --i_img frame, whole: kernel path vs plain path, beside the plain path nudged
+    (img,) = [f for f in frames if f["where"] == "i_img"]
+    field_c, field_f = img["k1"][0][0][0], img["k2"][0][0][0]
+    args, _ = run_nerf.create_arg_parser().parse_known_args(runs["eval"])
+    plain = NeRFNet(dataclasses.replace(run_nerf.model_config(args), fused_field=False))
+    plain = plain.cuda().eval()
+    plain.nerf.load_state_dict(field_c.state_dict())
+    plain.nerf_fine.load_state_dict(field_f.state_dict())
+    with open(os.path.join(raw_scene("llff"), "meta.json")) as fh:
+        meta = json.load(fh)
+    near_far = (meta["near"], meta["far"])
+    rgb = {"kernel": torch.as_tensor(img["rgb"], device="cuda")}
+    for k, net in (("plain", plain), ("plain_up", nudged_net(plain, 1.0)),
+                   ("plain_down", nudged_net(plain, -1.0))):
+        rgb[k] = eval_lib.make_render_fn(net, *near_far)(img["rays"])["rgb"]
+        del net
+    fractions = {}
+    for k in ("kernel", "plain_up", "plain_down"):
+        d = (rgb[k] - rgb["plain"]).abs().amax(dim=-1)
+        fractions[f"{k}_vs_plain"] = {"max_abs_diff": float(d.max()),
+                                      "frac_rays_over_1e_3": float((d > 1e-3).float().mean())}
+    phase(f"{name}_frame", view=f"{H_VIEW}x{W_VIEW}", **fractions)
+    del frames, rgb, plain
+    torch.cuda.empty_cache()
+    return {"K1": total["K1"], "K2": total["K2"], "seconds": seconds, "writer": writer}
 
 
 GATE_FINETUNES = ("geo", "app", "control")
@@ -5007,18 +5566,20 @@ def main() -> int:
     start_fwdonly_build()
     lib_path = _build.build()
     _build.library()
-    phase("build", seconds=time.perf_counter() - t0, lib=os.path.relpath(lib_path, ROOT))
+    with open(lib_path + ".log") as f:  # each translation unit's nvcc seconds and the link's
+        units = dict(kv.split("=") for kv in f.read().splitlines()[1].split()[1:])
+    phase("build", seconds=time.perf_counter() - t0, lib=os.path.relpath(lib_path, ROOT),
+          unit_seconds=units)
     read_ptxas(lib_path)
-    for name, sass in sass_spills.functions(lib_path).items():
-        m = K7_KERNEL.search(name)
-        if m:
-            K7_SASS[m.group(1)] = sass_spills.inner_loop(sass)
-    k7_kernels = ["rowsum_tile_kernel"] + [f"{k}_tile_kernelILi{h}ELi{c}E" for k in ("loss", "grad")
-                                      for h in (1, 2) for c in range(1, 9)]
-    if sorted(K7_PTXAS) != sorted(k7_kernels) or not all(
-            K7_SASS.get(k, {}).get("mufu") for k in k7_kernels):
-        raise SystemExit(f"no ptxas line or no SASS pair loop with its reciprocals for some of "
-                         f"K7's kernels: ptxas {sorted(K7_PTXAS)}, SASS {K7_SASS}")
+
+    def k7_sass():  # the library's SASS (cuobjdump, ~30 s) beside the first phases
+        for name, sass in sass_spills.functions(lib_path).items():
+            m = K7_KERNEL.search(name)
+            if m:
+                K7_SASS[m.group(1)] = sass_spills.inner_loop(sass)
+
+    sass_thread = threading.Thread(target=k7_sass)
+    sass_thread.start()
 
     k1 = kernel_vs_plain_k1(fr)
     k2 = kernel_vs_plain_k2(fr, use_semantics=True)
@@ -5030,6 +5591,7 @@ def main() -> int:
     kernel_vs_plain_k3(fr, 1024, 64, use_semantics=True, white_bkgd=False)
     kernel_vs_plain_k3(fr, 1024, 192, use_semantics=True, white_bkgd=False)
     fp32_train_kernels(fr)
+    fp32_train_kernels(fr, bf16=True)
     train_launches = train_path(fr)
     resume_path(fr)
     train_step_timings(fr)
@@ -5038,6 +5600,13 @@ def main() -> int:
     kernel_vs_plain_k6(fr, 64)
     k6 = kernel_vs_plain_k6(fr, 192)
     sos_run = sos_path(fr, fc)
+    sass_thread.join()
+    k7_kernels = ["rowsum_tile_kernel"] + [f"{k}_tile_kernelILi{h}ELi{c}E" for k in ("loss", "grad")
+                                      for h in (1, 2) for c in range(1, 9)]
+    if sorted(K7_PTXAS) != sorted(k7_kernels) or not all(
+            K7_SASS.get(k, {}).get("mufu") for k in k7_kernels):
+        raise SystemExit(f"no ptxas line or no SASS pair loop with its reciprocals for some of "
+                         f"K7's kernels: ptxas {sorted(K7_PTXAS)}, SASS {K7_SASS}")
     k7 = kernel_vs_plain_k7(fc, sos_run["k7_calls"])
     del sos_run["k4_calls"], sos_run["k5_calls"], sos_run["k7_calls"]
     k7s = kernel_vs_plain_k7s(fc)
@@ -5064,7 +5633,7 @@ def main() -> int:
     full_parts = sos_step_timings(fr, fc, full_run, "sos_full_step", "train_render_grads")
     torch.cuda.empty_cache()
     full_bf16 = sos_mode_path(fr, fc, "full", bf16=True)
-    sos_bf16_step_timings(full_run, full_bf16, "sos_full_bf16_step", reps=5)
+    sos_bf16_step_timings(full_run, full_bf16, "sos_full_bf16_step", reps=3)
     del full_run["rec"], full_bf16["rec"]
     torch.cuda.empty_cache()
     sos_step_timings(fr, fc, rand_run, "sos_randneg_step", parts=False)
@@ -5109,6 +5678,23 @@ def main() -> int:
     torch.cuda.empty_cache()
     # the SOS quality gate at fp32 and bf16, then its negative control, with
     # the port's default initialisation (the JAX entry point's draws)
+    mlp.flax_dense_init_, seeded.jax_seeded_init_ = port_init, port_seeded
+    # a raw scene to trained views and videos through the port alone: data
+    # preparation, --no_batching with precrop (K3), --i_img, --i_video and
+    # --eval --eval_video (K1, K2); at fp32 with the port's default
+    # initialisation (the JAX entry point's draws), at bf16 on torch's
+    # nn.Linear draws, the fixtures of every bf16 check ([train_bf16],
+    # [eval_bf16])
+    gen_dataset_path()
+    nobatch = train_nobatch_path(fr)
+    nobatch_step_timings()
+    torch.cuda.empty_cache()
+    video = video_path(fr)
+    torch.cuda.empty_cache()
+    mlp.flax_dense_init_, seeded.jax_seeded_init_ = lambda layer: None, lambda net, seed: None
+    nobatch_bf16 = train_nobatch_path(fr, bf16=True)
+    video_bf16 = video_path(fr, bf16=True)
+    torch.cuda.empty_cache()
     mlp.flax_dense_init_, seeded.jax_seeded_init_ = port_init, port_seeded
     gate32 = sos_gate_path(fr, fc, ff, "float32", "sos_gate")
     torch.cuda.empty_cache()
@@ -5272,6 +5858,21 @@ def main() -> int:
          "replaces": f"{field_tpu}:818", "launches": noimp_bf16_launches["K8f"],
          **k8_bf16["K8f"]},
     ]
+    # the new paths' launches beside the rows' main-path counts, each counted from 0
+    path_launches = {
+        "K1 fused_coarse_weights": {"video": video["K1"]},
+        "K2 fused_render": {"video": video["K2"]},
+        "K3 fused_rgb_train_grads": {"train_nobatch": nobatch["K3"]},
+        "K1 fused_coarse_weights (bf16)": {"video": video_bf16["K1"]},
+        "K2 fused_render (bf16)": {"video": video_bf16["K2"]},
+        "K3 fused_rgb_train_grads (bf16)": {"train_nobatch": nobatch_bf16["K3"]}}
+    for row in kernels:
+        if row["name"] in path_launches:
+            row["path_launches"] = path_launches[row["name"]]
+    print("[timing] " + json.dumps({
+        "total_s": round(time.perf_counter() - START, 1),
+        "build_units_s": {k: float(v) for k, v in units.items()},
+        "phases_s": {k: round(v, 1) for k, v in PHASE_SECONDS.items()}}), flush=True)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -3,7 +3,10 @@
 On first use one ``nvcc`` per source in ``csrc/`` compiles it to an object
 file, all of them at once, and a last ``nvcc`` links the objects into one
 library under ``build/kernels/`` at the repository root (listed in
-``.gitignore``). The library name carries a hash of the sources and headers,
+``.gitignore``). The two largest sources are compiled in parts (``PARTS``:
+one ``nvcc`` a part, ``-DNERF_PART=p``, each part holding some of the
+file's kernel instantiations), so that the build's longest compile is a
+part's, not the file's. The library name carries a hash of the sources and headers,
 so an edited source is rebuilt and a stale library is never loaded. The library
 has a plain C interface and is bound with ``ctypes``: pointers and the stream
 go as ``c_void_p``, and every launch function returns its ``cudaError_t``,
@@ -17,6 +20,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from typing import List
 
@@ -25,6 +29,11 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# translation-unit parts of a source (its NERF_PART guards); one unit when
+# SPLIT is off (tools/tile_probe's clock variants, whose counters are one
+# unit's)
+PARTS = {"train_render.cu": 7, "fused_field.cu": 6}
+SPLIT = True
 
 
 def sources() -> List[str]:
@@ -52,14 +61,28 @@ def library_path() -> str:
         with open(src, "rb") as f:
             h.update(os.path.basename(src).encode() + b"\0" + f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(repr(sorted(PARTS.items()) if SPLIT else None).encode())
     return os.path.join(BUILD_DIR, f"libnerfsos_kernels_{h.hexdigest()[:16]}.so")
+
+
+def units() -> List[tuple]:
+    """``(name, source, nvcc -D flags)`` of each translation unit: a source,
+    or each part of a source in ``PARTS``."""
+    out = []
+    for src in sources():
+        base = os.path.basename(src)
+        n = PARTS.get(base, 1) if SPLIT else 1
+        out += [(base if n == 1 else f"{base}:{p}", src, [] if n == 1 else [f"-DNERF_PART={p}"])
+                for p in range(n)]
+    return out
 
 
 def build() -> str:
     """Compile the sources unless the library for them exists; returns its path.
 
     The compilers' resource reports (``-Xptxas -v``: registers, shared memory,
-    spills per kernel) are kept beside the library as ``<lib>.log``.
+    spills per kernel) are kept beside the library as ``<lib>.log``, after
+    a line of each unit's and the link's seconds.
     """
     path = library_path()
     if os.path.exists(path):
@@ -68,27 +91,37 @@ def build() -> str:
     tmp = f"{path}.{os.getpid()}.tmp"
     nvcc = _nvcc()
     t0 = time.perf_counter()
-    objs, procs = [], []
-    for src in sources():
-        obj = f"{tmp}.{os.path.basename(src)}.o"
-        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+    objs, runs = [], []
+
+    def run(name, cmd):  # one compiler, its seconds and its report
+        start = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        runs.append((name, cmd, proc.returncode, proc.stderr, time.perf_counter() - start))
+
+    threads = []
+    for i, (name, src, defs) in enumerate(units()):
+        obj = f"{tmp}.{i}.{os.path.basename(src)}.o"
         objs.append(obj)
-        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                            stderr=subprocess.PIPE, text=True)))
-    log = []
-    for cmd, proc in procs:  # wait for every compiler before raising
-        _, err = proc.communicate()
-        log.append((cmd, proc.returncode, err))
-    for cmd, code, err in log:
+        threads.append(threading.Thread(target=run, args=(
+            name, [nvcc, *NVCC_FLAGS, *defs, "-c", "-o", obj, src])))
+        threads[-1].start()
+    for t in threads:  # wait for every compiler before raising
+        t.join()
+    runs.sort(key=lambda r: [u[0] for u in units()].index(r[0]))
+    for _, cmd, code, err, _ in runs:
         if code != 0:
             raise RuntimeError(f"nvcc failed ({code}): {' '.join(cmd)}\n{err}")
     link = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", tmp, *objs]
+    start = time.perf_counter()
     proc = subprocess.run(link, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr}")
+    seconds = {name: secs for name, _, _, _, secs in runs}
+    seconds["link"] = time.perf_counter() - start
     with open(path + ".log", "w") as f:
         f.write(f"{time.perf_counter() - t0:.1f} s\n")
-        for cmd, _, err in log:
+        f.write("seconds " + " ".join(f"{k}={v:.1f}" for k, v in seconds.items()) + "\n")
+        for _, cmd, _, err, _ in runs:
             f.write(f"{' '.join(cmd)}\n{err}")
     for obj in objs:
         os.remove(obj)

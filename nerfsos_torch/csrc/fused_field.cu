@@ -81,6 +81,18 @@
 
 #include "wg_tile.cuh"
 
+// Translation-unit parts (nerfsos_torch/_build.py PARTS), as in
+// train_render.cu: compiled as one unit this file holds every kernel; with
+// -DNERF_PART=p part p holds the launches of its own kernels, which the C
+// entry points of part 0 call: 0 the field forwards at fp32, 1 at bf16,
+// 2 the field backward at fp32 without the input gradients (K8f), 3 with
+// them (K8c), 4 and 5 the same at bf16.
+#ifdef NERF_PART
+#define NERF_IN_PART(p) (NERF_PART == (p))
+#else
+#define NERF_IN_PART(p) 1
+#endif
+
 namespace {
 
 // The sigma forward (kInListSigma), the field forward (kInList) and K11
@@ -137,16 +149,6 @@ int field_launch(const float* pts, const float* cov, const float* dirs, const fl
   field_wg_kernel<kIn, kBf16, kHeadF32><<<(unsigned)grid, kWgThreads, smem, st>>>(
       pts, cov, dirs, params, ring, *d, *rd, out, C, N, per);
   return (int)cudaGetLastError();
-}
-
-// field_launch in the mode of d->f.bf16
-template <int kIn>
-int field_launch_mode(const float* pts, const float* cov, const float* dirs, const float* params,
-                      const float* ring, const TrainDesc* d, const RingDesc* rd, float* out,
-                      int C, long long N, int per, cudaStream_t st) {
-  if (d->f.bf16)
-    return field_launch<kIn, true>(pts, cov, dirs, params, ring, d, rd, out, C, N, per, st);
-  return field_launch<kIn>(pts, cov, dirs, params, ring, d, rd, out, C, N, per, st);
 }
 
 // Wave `wave` of the field backward's forward on K4's tile: CTA b takes
@@ -242,14 +244,88 @@ int field_grads_launch(const float* pts, const float* dirs, const float* g, cons
 
 }  // namespace
 
+// The parts' launches (see NERF_PART): field_wg_kernel's in input mode kin
+// (kInListSigma, kInList, kInListGauss; f32_heads: K8b's head rule at
+// bf16), and the field backward (both kernels, every wave, the reduction)
+// with or without the semantic head's planes: K8f's weights only, K8c's
+// with the input gradients.
+#define NERF_FIELD_ARGS                                                                     \
+  int kin, bool f32_heads, const float *pts, const float *cov, const float *dirs,           \
+      const float *params, const float *ring, const TrainDesc *d, const RingDesc *rd,        \
+      float *out, int C, long long N, int per, cudaStream_t st
+#define NERF_FIELD_GRADS_ARGS                                                               \
+  bool sem, const float *pts, const float *dirs, const float *g,               \
+      const float *params, const float *ring, const float *bring, const float *iring,        \
+      const TrainDesc *d, const RingDesc *rd, const RingDesc *brd, const RingDesc *ird,      \
+      float *partial, float *workspace, float *grads, float *dpts, float *ddirs, int N,       \
+      int grid, int group, cudaStream_t st
+
+int field_f32(NERF_FIELD_ARGS);
+int field_bf16(NERF_FIELD_ARGS);
+int k8f_f32(NERF_FIELD_GRADS_ARGS);
+int k8c_f32(NERF_FIELD_GRADS_ARGS);
+int k8f_bf16(NERF_FIELD_GRADS_ARGS);
+int k8c_bf16(NERF_FIELD_GRADS_ARGS);
+
+#define NERF_FIELD_PASS pts, cov, dirs, params, ring, d, rd, out, C, N, per, st
+#define NERF_FIELD_GRADS_PASS pts, dirs, g, params, ring, bring, iring, d, rd, brd, ird, \
+    partial, workspace, grads, dpts, ddirs, N, grid, group, st
+
+#if NERF_IN_PART(0)
+int field_f32(NERF_FIELD_ARGS) {
+  if (kin == kInListSigma) return field_launch<kInListSigma>(NERF_FIELD_PASS);
+  if (kin == kInListGauss) return field_launch<kInListGauss>(NERF_FIELD_PASS);
+  return field_launch<kInList>(NERF_FIELD_PASS);
+}
+#endif
+
+#if NERF_IN_PART(1)
+int field_bf16(NERF_FIELD_ARGS) {
+  if (kin == kInListSigma) return field_launch<kInListSigma, true>(NERF_FIELD_PASS);
+  if (kin == kInListGauss) return field_launch<kInListGauss, true>(NERF_FIELD_PASS);
+  if (f32_heads) return field_launch<kInList, true, true>(NERF_FIELD_PASS);
+  return field_launch<kInList, true>(NERF_FIELD_PASS);
+}
+#endif
+
+#if NERF_IN_PART(2)
+int k8f_f32(NERF_FIELD_GRADS_ARGS) {
+  return sem ? field_grads_launch<true, false, false>(NERF_FIELD_GRADS_PASS)
+             : field_grads_launch<false, false, false>(NERF_FIELD_GRADS_PASS);
+}
+#endif
+
+#if NERF_IN_PART(3)
+int k8c_f32(NERF_FIELD_GRADS_ARGS) {
+  return sem ? field_grads_launch<true, true, false>(NERF_FIELD_GRADS_PASS)
+             : field_grads_launch<false, true, false>(NERF_FIELD_GRADS_PASS);
+}
+#endif
+
+#if NERF_IN_PART(4)
+int k8f_bf16(NERF_FIELD_GRADS_ARGS) {
+  return sem ? field_grads_launch<true, false, true>(NERF_FIELD_GRADS_PASS)
+             : field_grads_launch<false, false, true>(NERF_FIELD_GRADS_PASS);
+}
+#endif
+
+#if NERF_IN_PART(5)
+int k8c_bf16(NERF_FIELD_GRADS_ARGS) {
+  return sem ? field_grads_launch<true, true, true>(NERF_FIELD_GRADS_PASS)
+             : field_grads_launch<false, true, true>(NERF_FIELD_GRADS_PASS);
+}
+#endif
+
+#if NERF_IN_PART(0)
 // K8a/K8e: sigma [N] of pts [N, 3], the trunk's weights from ring (ops/
 // fused_render.pack_ring) as rd describes, `per` 128-point tiles a CTA; one
 // launch. The bf16 mode when d->f.bf16 (the ring in pack_ring's bf16 layout).
 extern "C" int nerf_field_sigma(const float* pts, const float* params, const float* ring,
                                 const TrainDesc* d, const RingDesc* rd, float* sigma,
                                 long long N, int per, void* stream) {
-  return field_launch_mode<kInListSigma>(pts, nullptr, nullptr, params, ring, d, rd, sigma, 1, N,
-                                         per, (cudaStream_t)stream);
+  return (d->f.bf16 ? field_bf16 : field_f32)(kInListSigma, false, pts, nullptr, nullptr,
+                                              params, ring, d, rd, sigma, 1, N, per,
+                                              (cudaStream_t)stream);
 }
 
 // K8b/K8d: raw [N, 4 + sem] (rgb logits, sigma, semantics) of pts and
@@ -259,12 +335,9 @@ extern "C" int nerf_field_sigma(const float* pts, const float* params, const flo
 extern "C" int nerf_field(const float* pts, const float* dirs, const float* params,
                           const float* ring, const TrainDesc* d, const RingDesc* rd, float* raw,
                           long long N, int per, int f32_heads, void* stream) {
-  const cudaStream_t st = (cudaStream_t)stream;
-  const int C = 4 + d->f.sem_dim;
-  if (d->f.bf16 && f32_heads)
-    return field_launch<kInList, true, true>(pts, nullptr, dirs, params, ring, d, rd, raw, C, N,
-                                             per, st);
-  return field_launch_mode<kInList>(pts, nullptr, dirs, params, ring, d, rd, raw, C, N, per, st);
+  return (d->f.bf16 ? field_bf16 : field_f32)(kInList, f32_heads != 0, pts, nullptr, dirs,
+                                              params, ring, d, rd, raw, 4 + d->f.sem_dim, N, per,
+                                              (cudaStream_t)stream);
 }
 
 // K11: raw [N, 4] of the mip field at the Gaussians (mean, diagonal cov
@@ -274,29 +347,9 @@ extern "C" int nerf_mip_field(const float* mean, const float* cov, const float* 
                               const float* params, const float* ring, const TrainDesc* d,
                               const RingDesc* rd, float* raw, long long N, int per,
                               void* stream) {
-  return field_launch_mode<kInListGauss>(mean, cov, dirs, params, ring, d, rd, raw, 4, N, per,
-                                         (cudaStream_t)stream);
+  return (d->f.bf16 ? field_bf16 : field_f32)(kInListGauss, false, mean, cov, dirs, params, ring,
+                                              d, rd, raw, 4, N, per, (cudaStream_t)stream);
 }
-
-namespace {
-
-// field_grads_launch in the mode of d->f.bf16
-template <bool kSem, bool kInGrad>
-int field_grads_mode(const float* pts, const float* dirs, const float* g, const float* params,
-                     const float* ring, const float* bring, const float* iring,
-                     const TrainDesc* d, const RingDesc* rd, const RingDesc* brd,
-                     const RingDesc* ird, float* partial, float* workspace, float* grads,
-                     float* dpts, float* ddirs, int N, int grid, int group, cudaStream_t st) {
-  if (d->f.bf16)
-    return field_grads_launch<kSem, kInGrad, true>(pts, dirs, g, params, ring, bring, iring, d, rd,
-                                                   brd, ird, partial, workspace, grads, dpts,
-                                                   ddirs, N, grid, group, st);
-  return field_grads_launch<kSem, kInGrad, false>(pts, dirs, g, params, ring, bring, iring, d, rd,
-                                                  brd, ird, partial, workspace, grads, dpts,
-                                                  ddirs, N, grid, group, st);
-}
-
-}  // namespace
 
 // K8f (dpts null) and K8c: the field's dW/db from g [N, 4 + sem] into grads
 // [d->grad_size] (K6's layout), the forward's weights from ring (ops/
@@ -312,22 +365,10 @@ extern "C" int nerf_field_grads(const float* pts, const float* dirs, const float
                                 const RingDesc* brd, const RingDesc* ird, float* partial,
                                 float* workspace, float* grads, float* dpts, float* ddirs, int N,
                                 int grid, int group, void* stream) {
-  const cudaStream_t st = (cudaStream_t)stream;
-  const bool sem = d->f.sem_dim > 0;
-  if (dpts != nullptr) {
-    if (sem)
-      return field_grads_mode<true, true>(pts, dirs, g, params, ring, bring, iring, d, rd, brd,
-                                          ird, partial, workspace, grads, dpts, ddirs, N, grid,
-                                          group, st);
-    return field_grads_mode<false, true>(pts, dirs, g, params, ring, bring, iring, d, rd, brd,
-                                         ird, partial, workspace, grads, dpts, ddirs, N, grid,
-                                         group, st);
-  }
-  if (sem)
-    return field_grads_mode<true, false>(pts, dirs, g, params, ring, bring, nullptr, d, rd, brd,
-                                         ird, partial, workspace, grads, nullptr, nullptr, N,
-                                         grid, group, st);
-  return field_grads_mode<false, false>(pts, dirs, g, params, ring, bring, nullptr, d, rd, brd,
-                                        ird, partial, workspace, grads, nullptr, nullptr, N, grid,
-                                        group, st);
+  const bool ingrad = dpts != nullptr;
+  return (ingrad ? (d->f.bf16 ? k8c_bf16 : k8c_f32) : (d->f.bf16 ? k8f_bf16 : k8f_f32))(
+      d->f.sem_dim > 0, pts, dirs, g, params, ring, bring, ingrad ? iring : nullptr, d, rd, brd,
+      ird, partial, workspace, grads, dpts, ingrad ? ddirs : nullptr, N, grid, group,
+      (cudaStream_t)stream);
 }
+#endif

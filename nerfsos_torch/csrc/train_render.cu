@@ -236,6 +236,20 @@
 // train_sweep.cuh, which the field kernels (fused_field.cu) share.
 #include "wg_tile.cuh"
 
+// Translation-unit parts (nerfsos_torch/_build.py PARTS). Compiled as one
+// unit (NERF_PART undefined) this file holds every kernel. _build compiles
+// it once a part with -DNERF_PART=p, so that one nvcc a part runs at once:
+// part p holds the launches (and so the instantiations) of its kernels,
+// each a function of external linkage that the C entry points of part 0
+// (and K5's of part 2) call: 0 train_render_wg_kernel at fp32, 1 at bf16,
+// 2 K5, 3 the storing forwards at fp32, 4 at bf16, 5 the reverse sweeps at
+// fp32, 6 at bf16.
+#ifdef NERF_PART
+#define NERF_IN_PART(p) (NERF_PART == (p))
+#else
+#define NERF_IN_PART(p) 1
+#endif
+
 namespace {
 
 __device__ __forceinline__ uint32_t mix32(uint32_t x) {
@@ -1077,8 +1091,125 @@ int render_wg(const float* rays, const float* z, const float* params, const floa
   return (int)cudaGetLastError();
 }
 
+// Wave `wave` of train_grads's storing forward: the forward kernel
+// (train_forward_wg_kernel<kMode, kIn, kBf16>) of each of the group's
+// chunks j (chunk (wave * group + j) grid .. of the rays), into sub j nsf ..
+// of the workspace slices' planes (group_desc).
+template <int kMode, int kIn, bool kBf16>
+int forward_wave(const float* odv, const float* z, const float* aux, const float* dweights,
+                 const float* params, const float* ring, const TrainDesc* d, const RingDesc* rd,
+                 float* maps, float* weights, float* workspace, int R, int S, int grid, int wave,
+                 int group, unsigned seed, float noise_std, int white_bkgd, cudaStream_t st) {
+  const int smem = wg_smem(d, rd, S);
+  cudaError_t err = cudaFuncSetAttribute(train_forward_wg_kernel<kMode, kIn, kBf16>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long nchunks = (R + d->rays_per_chunk - 1) / d->rays_per_chunk;
+  for (int j = 0; j < group && (long long)(wave * group + j) * grid < nchunks; ++j) {
+    train_forward_wg_kernel<kMode, kIn, kBf16><<<grid, kWgThreads, smem, st>>>(
+        odv, z, aux, dweights, params, ring, group_desc(*d, j, S), *rd, maps, weights,
+        workspace, R, S, wave * group + j, group, seed, noise_std, white_bkgd);
+  }
+  return (int)cudaGetLastError();
+}
+
+// Wave `wave`'s reverse sweep (train_reverse_kernel<kSem, false, kBf16>)
+// over the group's chunks, its input-gradient products' matrices from the
+// backward ring bring as brd describes.
+template <bool kSem, bool kBf16>
+int reverse_wave(const float* bring, const TrainDesc* d, const RingDesc* brd, float* partial,
+                 float* workspace, int R, int S, int grid, int wave, int group, cudaStream_t st) {
+  cudaError_t err = cudaFuncSetAttribute(train_reverse_kernel<kSem, false, kBf16>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         kReverseSmem);
+  if (err != cudaSuccess) return (int)err;
+  train_reverse_kernel<kSem, false, kBf16><<<grid, kThreads, kReverseSmem, st>>>(
+      bring, nullptr, *d, *brd, RingDesc{}, partial, workspace, R, S, wave, group, nullptr,
+      nullptr);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
+// The parts' launches (see NERF_PART): train_render_wg_kernel's in input
+// mode kin (kInPoint, kInSigma, kInMip), a storing forward's wave in mode
+// `mode` (kLoss: kInPoint alone; kCotangent: kInPoint or kInMip), a reverse
+// sweep's wave with or without the semantic head's planes; _f32 and _bf16
+// the two dtypes' kernels.
+#define NERF_RENDER_ARGS                                                                    \
+  int kin, const float *rays, const float *z, const float *params, const float *ring,      \
+      const TrainDesc *d, const RingDesc *rd, float *maps, float *weights, void *semin, int R, \
+      int S, unsigned seed, float noise_std, void *stream
+#define NERF_FORWARD_ARGS                                                                    \
+  int mode, int kin, const float *odv, const float *z, const float *aux,                     \
+      const float *dweights, const float *params, const float *ring, const TrainDesc *d,     \
+      const RingDesc *rd, float *maps, float *weights, float *workspace, int R, int S,        \
+      int grid, int wave, int group, unsigned seed, float noise_std, int white_bkgd,          \
+      cudaStream_t st
+#define NERF_REVERSE_ARGS                                                                    \
+  bool sem, const float *bring, const TrainDesc *d, const RingDesc *brd, float *partial,     \
+      float *workspace, int R, int S, int grid, int wave, int group, cudaStream_t st
+
+int render_f32(NERF_RENDER_ARGS);
+int render_bf16(NERF_RENDER_ARGS);
+int forward_wave_f32(NERF_FORWARD_ARGS);
+int forward_wave_bf16(NERF_FORWARD_ARGS);
+int reverse_wave_f32(NERF_REVERSE_ARGS);
+int reverse_wave_bf16(NERF_REVERSE_ARGS);
+
+#define NERF_RENDER_PASS rays, z, params, ring, d, rd, maps, weights, semin, R, S, seed, \
+    noise_std, stream
+#define NERF_FORWARD_PASS odv, z, aux, dweights, params, ring, d, rd, maps, weights, \
+    workspace, R, S, grid, wave, group, seed, noise_std, white_bkgd, st
+#define NERF_REVERSE_PASS bring, d, brd, partial, workspace, R, S, grid, wave, group, st
+
+#if NERF_IN_PART(0)
+int render_f32(NERF_RENDER_ARGS) {
+  if (kin == kInSigma) return render_wg<kInSigma>(NERF_RENDER_PASS);
+  if (kin == kInMip) return render_wg<kInMip>(NERF_RENDER_PASS);
+  return render_wg<kInPoint>(NERF_RENDER_PASS);
+}
+#endif
+
+#if NERF_IN_PART(1)
+int render_bf16(NERF_RENDER_ARGS) {
+  if (kin == kInSigma) return render_wg<kInSigma, true>(NERF_RENDER_PASS);
+  if (kin == kInMip) return render_wg<kInMip, true>(NERF_RENDER_PASS);
+  return render_wg<kInPoint, true>(NERF_RENDER_PASS);
+}
+#endif
+
+#if NERF_IN_PART(3)
+int forward_wave_f32(NERF_FORWARD_ARGS) {
+  if (mode == kLoss) return forward_wave<kLoss, kInPoint, false>(NERF_FORWARD_PASS);
+  if (kin == kInMip) return forward_wave<kCotangent, kInMip, false>(NERF_FORWARD_PASS);
+  return forward_wave<kCotangent, kInPoint, false>(NERF_FORWARD_PASS);
+}
+#endif
+
+#if NERF_IN_PART(4)
+int forward_wave_bf16(NERF_FORWARD_ARGS) {
+  if (mode == kLoss) return forward_wave<kLoss, kInPoint, true>(NERF_FORWARD_PASS);
+  if (kin == kInMip) return forward_wave<kCotangent, kInMip, true>(NERF_FORWARD_PASS);
+  return forward_wave<kCotangent, kInPoint, true>(NERF_FORWARD_PASS);
+}
+#endif
+
+#if NERF_IN_PART(5)
+int reverse_wave_f32(NERF_REVERSE_ARGS) {
+  return sem ? reverse_wave<true, false>(NERF_REVERSE_PASS)
+             : reverse_wave<false, false>(NERF_REVERSE_PASS);
+}
+#endif
+
+#if NERF_IN_PART(6)
+int reverse_wave_bf16(NERF_REVERSE_ARGS) {
+  return sem ? reverse_wave<true, true>(NERF_REVERSE_PASS)
+             : reverse_wave<false, true>(NERF_REVERSE_PASS);
+}
+#endif
+
+#if NERF_IN_PART(0)
 // K4 (and K2, noise 0 and semin null): odv [R, 9] and z [R, S] -> maps
 // [R, 5 + sem], weights [R, S] and, where semin is not null, sem_in (fp32,
 // or bf16 when d->f.bf16: the bf16 mode, the ring in pack_ring's bf16
@@ -1087,11 +1218,8 @@ extern "C" int nerf_train_render(const float* odv, const float* z, const float* 
                                  const float* ring, const TrainDesc* d, const RingDesc* rd,
                                  float* maps, float* weights, void* semin, int R, int S,
                                  unsigned seed, float noise_std, void* stream) {
-  if (d->f.bf16)
-    return render_wg<kInPoint, true>(odv, z, params, ring, d, rd, maps, weights, semin, R, S,
-                                     seed, noise_std, stream);
-  return render_wg<kInPoint>(odv, z, params, ring, d, rd, maps, weights, semin, R, S, seed,
-                             noise_std, stream);
+  return (d->f.bf16 ? render_bf16 : render_f32)(kInPoint, odv, z, params, ring, d, rd, maps,
+                                                weights, semin, R, S, seed, noise_std, stream);
 }
 
 // K1: the eval's coarse pass, od [R, 6] and z [R, S] -> weights [R, S]:
@@ -1100,11 +1228,8 @@ extern "C" int nerf_train_render(const float* odv, const float* z, const float* 
 extern "C" int nerf_coarse_weights(const float* od, const float* z, const float* params,
                                    const float* ring, const TrainDesc* d, const RingDesc* rd,
                                    float* weights, int R, int S, void* stream) {
-  if (d->f.bf16)
-    return render_wg<kInSigma, true>(od, z, params, ring, d, rd, nullptr, weights, nullptr, R,
-                                     S, 0u, 0.f, stream);
-  return render_wg<kInSigma>(od, z, params, ring, d, rd, nullptr, weights, nullptr, R, S, 0u,
-                             0.f, stream);
+  return (d->f.bf16 ? render_bf16 : render_f32)(kInSigma, od, z, params, ring, d, rd, nullptr,
+                                                weights, nullptr, R, S, 0u, 0.f, stream);
 }
 
 extern "C" const char* nerf_error_string(int code) {
@@ -1121,13 +1246,12 @@ extern "C" int nerf_mip_render(const float* odvr, const float* z, const float* p
                                const float* ring, const TrainDesc* d, const RingDesc* rd,
                                float* maps, float* weights, int R, int S, unsigned seed,
                                float noise_std, void* stream) {
-  if (d->f.bf16)
-    return render_wg<kInMip, true>(odvr, z, params, ring, d, rd, maps, weights, nullptr, R, S,
-                                   seed, noise_std, stream);
-  return render_wg<kInMip>(odvr, z, params, ring, d, rd, maps, weights, nullptr, R, S, seed,
-                           noise_std, stream);
+  return (d->f.bf16 ? render_bf16 : render_f32)(kInMip, odvr, z, params, ring, d, rd, maps,
+                                                weights, nullptr, R, S, seed, noise_std, stream);
 }
+#endif
 
+#if NERF_IN_PART(2)
 namespace {
 
 // K5's clusters that fit on the card at once with d's shared memory
@@ -1186,7 +1310,9 @@ extern "C" int nerf_frozen_sem_grads(const void* semin, const float* weights,
   return frozen_sem_grads<false>(semin, weights, dmaps, params, d, partial, grads, P, S,
                                  clusters, per, st);
 }
+#endif
 
+#if NERF_IN_PART(0)
 namespace {
 
 // grid CTAs (each with a d->ws_size workspace slice and a d->grad_size partial
@@ -1197,35 +1323,24 @@ namespace {
 // the slice's planes (group_desc), then one reverse-sweep kernel over the
 // group's chunks (its input-gradient products' matrices from the backward
 // ring bring as brd describes); then the partials are summed into grads
-// [d->grad_size]. kBf16: both kernels' bf16 modes (K3, K6, K10b at
+// [d->grad_size]. bf16: both kernels' bf16 modes (K3, K6, K10b at
 // --compute_dtype bfloat16; the rings in their bf16 layouts). Returns the
 // first CUDA error of the launches.
-template <int kMode, bool kSem, int kIn = kInPoint, bool kBf16 = false>
-int train_grads(const float* odv, const float* z, const float* aux, const float* dweights,
-                const float* params, const float* ring, const float* bring,
-                const TrainDesc* d, const RingDesc* rd, const RingDesc* brd, float* maps,
-                float* weights, float* partial, float* workspace, float* grads, int R, int S,
-                int grid, int group, unsigned seed, float noise_std, int white_bkgd,
-                cudaStream_t st) {
-  const int fwd_smem = wg_smem(d, rd, S);
-  cudaError_t err = cudaFuncSetAttribute(train_forward_wg_kernel<kMode, kIn, kBf16>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, fwd_smem);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(train_reverse_kernel<kSem, false, kBf16>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, kReverseSmem);
-  if (err != cudaSuccess) return (int)err;
+int train_grads(int mode, bool sem, int kin, bool bf16, const float* odv, const float* z,
+                const float* aux, const float* dweights, const float* params,
+                const float* ring, const float* bring, const TrainDesc* d, const RingDesc* rd,
+                const RingDesc* brd, float* maps, float* weights, float* partial,
+                float* workspace, float* grads, int R, int S, int grid, int group,
+                unsigned seed, float noise_std, int white_bkgd, cudaStream_t st) {
   const long long nchunks = (R + d->rays_per_chunk - 1) / d->rays_per_chunk;
   for (int wave = 0; (long long)wave * group * grid < nchunks; ++wave) {
-    for (int j = 0; j < group && (long long)(wave * group + j) * grid < nchunks; ++j) {
-      train_forward_wg_kernel<kMode, kIn, kBf16><<<grid, kWgThreads, fwd_smem, st>>>(
-          odv, z, aux, dweights, params, ring, group_desc(*d, j, S), *rd, maps, weights,
-          workspace, R, S, wave * group + j, group, seed, noise_std, white_bkgd);
-    }
-    train_reverse_kernel<kSem, false, kBf16><<<grid, kThreads, kReverseSmem, st>>>(
-        bring, nullptr, *d, *brd, RingDesc{}, partial, workspace, R, S, wave, group, nullptr,
-        nullptr);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
+    int err = (bf16 ? forward_wave_bf16 : forward_wave_f32)(
+        mode, kin, odv, z, aux, dweights, params, ring, d, rd, maps, weights, workspace, R, S,
+        grid, wave, group, seed, noise_std, white_bkgd, st);
+    if (err == 0)
+      err = (bf16 ? reverse_wave_bf16 : reverse_wave_f32)(sem, bring, d, brd, partial, workspace,
+                                                          R, S, grid, wave, group, st);
+    if (err != 0) return err;
   }
   reduce_partials<<<reduce_blocks(d->grad_size), 256, 0, st>>>(partial, grads, d->grad_size, grid);
   return (int)cudaGetLastError();
@@ -1244,15 +1359,9 @@ extern "C" int nerf_rgb_train_grads(const float* odv, const float* z, const floa
                                     float* grads, int R, int S, int grid, int group,
                                     unsigned seed, float noise_std, int white_bkgd,
                                     void* stream) {
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (d->f.bf16)
-    return train_grads<kLoss, false, kInPoint, true>(odv, z, gt, nullptr, params, ring, bring, d,
-                                                     rd, brd, maps, weights, partial, workspace,
-                                                     grads, R, S, grid, group, seed, noise_std,
-                                                     white_bkgd, st);
-  return train_grads<kLoss, false>(odv, z, gt, nullptr, params, ring, bring, d, rd, brd, maps,
-                                   weights, partial, workspace, grads, R, S, grid, group, seed,
-                                   noise_std, white_bkgd, st);
+  return train_grads(kLoss, false, kInPoint, d->f.bf16, odv, z, gt, nullptr, params, ring,
+                     bring, d, rd, brd, maps, weights, partial, workspace, grads, R, S, grid,
+                     group, seed, noise_std, white_bkgd, (cudaStream_t)stream);
 }
 
 // K6: the train render's backward from the maps' cotangent dmaps [R, 5 + sem]
@@ -1267,22 +1376,10 @@ extern "C" int nerf_train_render_grads(const float* odv, const float* z, const f
                                        const RingDesc* brd, float* partial, float* workspace,
                                        float* grads, int R, int S, int grid, int group,
                                        unsigned seed, float noise_std, void* stream) {
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (d->f.bf16 && d->f.sem_dim > 0)
-    return train_grads<kCotangent, true, kInPoint, true>(
-        odv, z, dmaps, dweights, params, ring, bring, d, rd, brd, nullptr, nullptr, partial,
-        workspace, grads, R, S, grid, group, seed, noise_std, 0, st);
-  if (d->f.bf16)
-    return train_grads<kCotangent, false, kInPoint, true>(
-        odv, z, dmaps, dweights, params, ring, bring, d, rd, brd, nullptr, nullptr, partial,
-        workspace, grads, R, S, grid, group, seed, noise_std, 0, st);
-  if (d->f.sem_dim > 0)
-    return train_grads<kCotangent, true>(odv, z, dmaps, dweights, params, ring, bring, d, rd,
-                                         brd, nullptr, nullptr, partial, workspace, grads, R, S,
-                                         grid, group, seed, noise_std, 0, st);
-  return train_grads<kCotangent, false>(odv, z, dmaps, dweights, params, ring, bring, d, rd,
-                                        brd, nullptr, nullptr, partial, workspace, grads, R, S,
-                                        grid, group, seed, noise_std, 0, st);
+  return train_grads(kCotangent, d->f.sem_dim > 0, kInPoint, d->f.bf16, odv, z, dmaps,
+                     dweights, params, ring, bring, d, rd, brd, nullptr, nullptr, partial,
+                     workspace, grads, R, S, grid, group, seed, noise_std, 0,
+                     (cudaStream_t)stream);
 }
 
 // K10b: the mip train render's backward from the maps' cotangent dmaps
@@ -1300,12 +1397,8 @@ extern "C" int nerf_mip_train_render_grads(const float* odvr, const float* z, co
                                            const RingDesc* brd, float* partial, float* workspace,
                                            float* grads, int R, int S, int grid, int group,
                                            unsigned seed, float noise_std, void* stream) {
-  if (d->f.bf16)
-    return train_grads<kCotangent, false, kInMip, true>(
-        odvr, z, dmaps, dweights, params, ring, bring, d, rd, brd, nullptr, nullptr, partial,
-        workspace, grads, R, S, grid, group, seed, noise_std, 0, (cudaStream_t)stream);
-  return train_grads<kCotangent, false, kInMip>(odvr, z, dmaps, dweights, params, ring, bring, d,
-                                                rd, brd, nullptr, nullptr, partial, workspace,
-                                                grads, R, S, grid, group, seed, noise_std, 0,
-                                                (cudaStream_t)stream);
+  return train_grads(kCotangent, false, kInMip, d->f.bf16, odvr, z, dmaps, dweights, params,
+                     ring, bring, d, rd, brd, nullptr, nullptr, partial, workspace, grads, R, S,
+                     grid, group, seed, noise_std, 0, (cudaStream_t)stream);
 }
+#endif

@@ -1,16 +1,20 @@
 """Ray datasets (numpy): per-view access for evaluation, the shuffled ray
-pool for training.
+pool, the patch and the per-view samplers for training, the exhibit path.
 
-Reads the prepared dataset layout of ``nerfsos_tpu/data/datasets.py`` (the
-reference's on-disk contract): ``meta.json`` with ``near``/``far``/``focal``/
-``H``/``W``, ``rays_{split}[_x{subsample}].npy`` ``[N, H, W, 2, 3]``,
-``rgbs_{split}*.npy`` ``[N, H, W, 3]`` and optional ``masks_{split}.npy``.
-Ported: ``get_view`` and, for the ``train`` split, the flat ray pool and
-``sample_batch`` (``--N_rand`` rays drawn with replacement); the patch
-sampler :class:`PatchDataset` (``--patch_tune``), with a numpy copy of the
-JAX package's ``gather_patches``. Not yet: the per-view sampler
-(``ViewDataset``, ``--no_batching``) and the raw-scene preparation
-(``gen_dataset``).
+Port of ``nerfsos_tpu/data/datasets.py``. Reads the prepared dataset layout
+(the reference's on-disk contract, written by ``data/gen_dataset``):
+``meta.json`` with ``near``/``far``/``focal``/``H``/``W``,
+``rays_{split}[_x{subsample}].npy`` ``[N, H, W, 2, 3]``, ``rgbs_{split}*.npy``
+``[N, H, W, 3]`` and optional ``masks_{split}.npy``. Given the run's flags
+(``args``), a directory without ``meta.json`` is prepared first from the raw
+scene at ``args.data_path`` (``gen_dataset.generate_dataset``), as the JAX
+datasets do. :class:`RayDataset` (``get_view``; for the ``train`` split the
+flat ray pool, ``--N_rand`` rays drawn with replacement),
+:class:`PatchDataset` (``--patch_tune``, with a numpy copy of the JAX
+package's ``gather_patches``), :class:`ViewDataset` (``--no_batching``:
+one image a step, the centre crop for ``--precrop_iters`` steps) and
+:class:`ExhibitDataset` (``rays_exhibit.npy``, the videos' render path)
+draw as the JAX samplers do from the same numpy ``Generator``.
 """
 from __future__ import annotations
 
@@ -26,12 +30,17 @@ class RayDataset:
     """Per-image rays (and targets, masks) of one split."""
 
     def __init__(self, root_dir: str, split: str = "test", subsample: int = 0,
-                 use_masks: bool = True, bin_thres: float = 0.3, ret_k: bool = False):
+                 use_masks: bool = True, bin_thres: float = 0.3, ret_k: bool = False,
+                 args=None, rgb: bool = True):
         meta_path = os.path.join(root_dir, "meta.json")
         if not os.path.exists(meta_path):
-            raise FileNotFoundError(
-                f"{meta_path} missing: prepare the dataset first (raw-scene preparation "
-                "is not ported yet)")
+            if args is None:
+                raise FileNotFoundError(f"{meta_path} missing: prepare the dataset with "
+                                        "python -m nerfsos_torch.data.gen_dataset")
+            print("Dataset not prepared, generating rays ...")
+            from nerfsos_torch.data.gen_dataset import generate_dataset
+
+            generate_dataset(args, root_dir)
         with open(meta_path) as f:
             self.meta = json.load(f)
         for k in ("near", "far"):
@@ -40,7 +49,7 @@ class RayDataset:
         sfx = f"_x{subsample}" if subsample else ""
         self.rays = np.load(os.path.join(root_dir, f"rays_{split}{sfx}.npy"), mmap_mode="r")
         rgb_path = os.path.join(root_dir, f"rgbs_{split}{sfx}.npy")
-        self.rgbs = np.load(rgb_path, mmap_mode="r") if os.path.exists(rgb_path) else None
+        self.rgbs = np.load(rgb_path, mmap_mode="r") if rgb and os.path.exists(rgb_path) else None
         if use_masks:
             mask_path = os.path.join(root_dir, f"masks_{split}.npy")
             if os.path.exists(mask_path):
@@ -157,3 +166,58 @@ class PatchDataset(RayDataset):
             "poses": self.poses[img_idx].astype(np.float32),
             "start_idx": np.stack([h_idx, w_idx], -1).astype(np.float32),
         }
+
+
+class ViewDataset(RayDataset):
+    """One image a step, ``batch_size`` of its pixels drawn without
+    replacement (``--no_batching``); before ``precrop_iters`` steps only
+    from the centre crop of ``precrop_frac`` of each side. The step is an
+    argument (the reference's sampler counted its own calls)."""
+
+    def __init__(self, root_dir: str, split: str = "train", precrop_iters: int = 0,
+                 precrop_frac: float = 0.5, **kw):
+        super().__init__(root_dir, split=split, **kw)
+        self.precrop_iters = precrop_iters
+        self.precrop_frac = precrop_frac
+        self._rays = np.asarray(self.rays)
+        self._rgbs = np.asarray(self.rgbs)
+
+    def __len__(self) -> int:
+        return self.image_count
+
+    def crop(self) -> Tuple[int, int, int, int]:
+        """The centre crop's rows ``[h0, h1)`` and columns ``[w0, w1)``."""
+        H, W = self.height, self.width
+        dH, dW = int(H // 2 * self.precrop_frac), int(W // 2 * self.precrop_frac)
+        return H // 2 - dH, H // 2 + dH, W // 2 - dW, W // 2 + dW
+
+    def sample_batch(self, rng: np.random.Generator, batch_size: int,
+                     step: int = 10**9) -> Dict[str, np.ndarray]:
+        """``rays [2, B, 3]``, ``target [B, 3]`` of one random image; step
+        ``step`` (the JAX loop's count, from 1) samples the centre crop while
+        ``step < precrop_iters``."""
+        i = int(rng.integers(0, self.image_count))
+        H, W = self.height, self.width
+        if step < self.precrop_iters:
+            h0, h1, w0, w1 = self.crop()
+            hs = rng.integers(h0, h1, size=batch_size)
+            ws = rng.integers(w0, w1, size=batch_size)
+        else:
+            flat = rng.choice(H * W, size=batch_size, replace=False)
+            hs, ws = flat // W, flat % W
+        rays = self._rays[i, hs, ws]  # [B, 2, 3]
+        return {"rays": np.ascontiguousarray(rays.transpose(1, 0, 2)),
+                "target": self._rgbs[i, hs, ws]}
+
+
+class ExhibitDataset(RayDataset):
+    """The render path's rays (``rays_exhibit.npy``), the frames of the
+    videos; no targets, no masks."""
+
+    def __init__(self, root_dir: str, **kw):
+        kw.setdefault("use_masks", False)
+        super().__init__(root_dir, split="exhibit", rgb=False, **kw)
+
+    def get_view(self, i: int) -> Dict[str, np.ndarray]:
+        """Rays ``[2, H, W, 3]``."""
+        return {"rays": np.asarray(self.rays[i]).transpose(2, 0, 1, 3)}

@@ -12,35 +12,16 @@ import os
 
 import numpy as np
 
+from nerfsos_torch.data.poses import pose_spherical
+from nerfsos_torch.data.ray_utils import persp_intrinsics, persp_rays_batch
+
 R_CAM, R_SPHERE, R_BG = 4.0, 1.0, 8.0
 NEAR, FAR = 2.0, 13.0
 
 
-def pose_spherical(theta_deg: float, phi_deg: float, radius: float) -> np.ndarray:
-    """Blender-style camera-to-world pose on a sphere of ``radius``."""
-    th, phi = np.deg2rad(theta_deg), np.deg2rad(phi_deg)
-    trans = np.eye(4)
-    trans[2, 3] = radius
-    rp = np.eye(4)
-    rp[1, 1], rp[1, 2] = np.cos(phi), -np.sin(phi)
-    rp[2, 1], rp[2, 2] = np.sin(phi), np.cos(phi)
-    rt = np.eye(4)
-    rt[0, 0], rt[0, 2] = np.cos(th), -np.sin(th)
-    rt[2, 0], rt[2, 2] = np.sin(th), np.cos(th)
-    flip = np.array([[-1, 0, 0, 0], [0, 0, 1, 0], [0, 1, 0, 0], [0, 0, 0, 1]], dtype=np.float64)
-    return flip @ rt @ rp @ trans
-
-
 def persp_rays(height: int, width: int, focal: float, c2ws: np.ndarray) -> np.ndarray:
     """Pinhole rays for poses ``[N, 3|4, 4]`` -> ``[N, H, W, 2, 3]`` float32."""
-    c2ws = np.asarray(c2ws)[:, :3, :4]
-    j, i = np.meshgrid(np.arange(height, dtype=np.float64), np.arange(width, dtype=np.float64),
-                       indexing="ij")
-    dirs = np.stack([(i - width / 2.0) / focal, -(j - height / 2.0) / focal, -np.ones_like(i)],
-                    axis=-1)
-    rays_d = np.einsum("hwc,nrc->nhwr", dirs, c2ws[:, :3, :3])
-    rays_o = np.broadcast_to(c2ws[:, None, None, :3, 3], rays_d.shape)
-    return np.stack([rays_o, rays_d], axis=-2).astype(np.float32)
+    return persp_rays_batch(height, width, persp_intrinsics(height, width, focal), c2ws)
 
 
 def _texture(p: np.ndarray, freq: float, base: np.ndarray, amp: float) -> np.ndarray:
@@ -98,3 +79,68 @@ def write_sphere_scene(root: str, height: int, width: int, n_views: int = 1,
     np.save(os.path.join(root, f"poses_{split}.npy"), poses[:, :3, :4].astype(np.float32))
     with open(os.path.join(root, "meta.json"), "w") as f:
         json.dump({"H": height, "W": width, "focal": focal, "near": NEAR, "far": FAR}, f)
+
+
+def write_llff_scene(root: str, height: int, width: int, n_views: int = 12,
+                     factor: int = 8) -> None:
+    """A raw LLFF scene of the analytic sphere (the layout of
+    ``nerf_llff_data/<scene>`` after minification): ``n_views`` forward-facing
+    PNGs of ``height x width`` in ``images_{factor}/`` (and the same files in
+    ``images/``, of which the loader reads only the first file's shape),
+    their masks in ``masks/`` and ``poses_bounds.npy`` (LLFF's
+    [down, right, back] camera axes, the full-resolution ``H, W, focal``
+    column, each view's near and far depth). The cameras sit on a circle of
+    radius 0.5 at distance ``R_CAM`` looking at the sphere."""
+    from nerfsos_torch.data.poses import normalize, viewmatrix
+    from nerfsos_torch.utils.image import write_png
+
+    focal = 1.1 * width
+    poses = []
+    for i in range(n_views):
+        th = 2.0 * np.pi * i / n_views
+        pos = np.array([0.5 * np.cos(th), 0.5 * np.sin(th), R_CAM])
+        poses.append(viewmatrix(normalize(pos), np.array([0.0, 1.0, 0.0]), pos))
+    poses = np.stack(poses)  # [N, 3, 4], NeRF's [right, up, back]
+    rays = persp_rays(height, width, focal, poses)
+    for d in ("images", f"images_{factor}", "masks"):
+        os.makedirs(os.path.join(root, d), exist_ok=True)
+    for i, r in enumerate(rays):
+        rgb, mask = render_analytic(r)
+        img = np.round(rgb * 255).astype(np.uint8)
+        for d in ("images", f"images_{factor}"):
+            write_png(os.path.join(root, d, f"image{i:03d}.png"), img)
+        write_png(os.path.join(root, "masks", f"image{i:03d}.png"),
+                  (mask[..., 0] * 255).astype(np.uint8))
+    llff = np.concatenate([-poses[:, :, 1:2], poses[:, :, 0:1], poses[:, :, 2:4]], 2)
+    hwf = np.broadcast_to(np.array([height * factor, width * factor, focal * factor],
+                                   np.float64)[None, :, None], (n_views, 3, 1))
+    bounds = np.tile([[R_CAM - 1.5, R_CAM + R_BG]], (n_views, 1))
+    np.save(os.path.join(root, "poses_bounds.npy"),
+            np.concatenate([np.concatenate([llff, hwf], 2).reshape(n_views, 15), bounds], 1))
+
+
+def write_blender_scene(root: str, size: int, counts=(8, 2, 2),
+                        camera_angle_x: float = 0.6911112070083618) -> None:
+    """A raw Blender scene of the analytic sphere (the layout of
+    ``nerf_synthetic/<scene>``): RGBA PNGs of ``size x size``, the sphere
+    opaque on a transparent background, ``counts`` views of the train, val
+    and test splits on the upper hemisphere of radius ``R_CAM``, and
+    ``transforms_{split}.json``."""
+    from nerfsos_torch.utils.image import write_png
+
+    focal = 0.5 * size / np.tan(0.5 * camera_angle_x)
+    for s, (split, n) in enumerate(zip(("train", "val", "test"), counts)):
+        os.makedirs(os.path.join(root, split), exist_ok=True)
+        angles = np.linspace(-180.0, 180.0, n, endpoint=False) + 37.0 * s
+        poses = np.stack([pose_spherical(a, -30.0 - 10.0 * (i % 2), R_CAM)
+                          for i, a in enumerate(angles)])
+        frames = []
+        for i, r in enumerate(persp_rays(size, size, focal, poses)):
+            rgb, mask = render_analytic(r)
+            rgba = np.concatenate([rgb * mask, mask], -1)
+            write_png(os.path.join(root, split, f"r_{i}.png"),
+                      np.round(rgba * 255).astype(np.uint8))
+            frames.append({"file_path": f"./{split}/r_{i}",
+                           "transform_matrix": poses[i].tolist()})
+        with open(os.path.join(root, f"transforms_{split}.json"), "w") as f:
+            json.dump({"camera_angle_x": camera_angle_x, "frames": frames}, f)

@@ -1,14 +1,15 @@
-"""Evaluation engine: per-view eval, the test-set sweep and the density
-export.
+"""Evaluation engine: per-view eval, the test-set sweep, the exhibit videos
+and the density export.
 
 Port of ``nerfsos_tpu/engines/eval.py`` (``make_render_fn``,
-``eval_one_view``, ``find_fg_flip``, ``evaluate``, ``export_density``): the
-same metrics, the same files (``rgb_/depth_/depth_*_/alpha_/sem_/clus_*.png``,
-``log.json``, ``log.txt``), the same ``log.json`` keys, and the cluster
-labels of ``clus_*.png`` oriented by the DINO attention when an extractor
-is given. Differences: LPIPS is reported as NaN (null in ``log.json``), as
-the JAX engine does when no weights are given; ``depth_*_.png`` has no
-colorbar strip.
+``eval_one_view``, ``find_fg_flip``, ``evaluate``, ``render_video``,
+``export_density``): the same metrics, the same files
+(``rgb_/depth_/depth_*_/alpha_/sem_/clus_*.png``, ``log.json``, ``log.txt``;
+``rgb/disp/sem/clus{_suffix}.mp4``), the same ``log.json`` keys, and the
+cluster labels of ``clus_*.png`` and ``clus*.mp4`` oriented by the DINO
+attention when an extractor is given. Differences: LPIPS is reported as NaN
+(null in ``log.json``), as the JAX engine does when no weights are given;
+``depth_*_.png`` has no colorbar strip.
 """
 from __future__ import annotations
 
@@ -229,6 +230,53 @@ def evaluate(net: nn.Module, dataset, save_dir: Optional[str] = None, fast_mode:
     return {"mse": totals["total_mse"], "psnr": totals["total_psnr"],
             "ssim": totals["total_ssim"], "lpips": totals["total_lpips"],
             **{k: totals[f"total_{k}"] for k in ["clus_ari", "clus_ari_fg", "sem_ari", "sem_ari_fg"]}}
+
+
+def render_video(net: nn.Module, dataset, save_dir: str, suffix: str = "", fps: int = 30,
+                 quality: int = 8, ret_cluster: bool = True, clus_no_sfm: bool = False,
+                 n_cluster: int = 2, dino=None, kmeans_first: Optional[int] = None,
+                 **net_kwargs) -> Dict[str, np.ndarray]:
+    """The exhibit path's videos (JAX ``render_video``; reference
+    ``engines/eval.py:215-274``): every view of ``dataset``
+    (``ExhibitDataset``) through :func:`eval_one_view`, then
+    ``rgb{_suffix}.mp4``, ``disp{_suffix}.mp4`` and, with a semantic head,
+    ``sem{_suffix}.mp4`` and (``ret_cluster``) ``clus{_suffix}.mp4`` under
+    ``save_dir``, the cluster labels oriented by :func:`find_fg_flip` when
+    an extractor ``dino`` is given (``kmeans_first`` as in
+    :func:`evaluate`). Returns the frames' arrays (``rgb``, ``disp``, and
+    ``sem``/``clus`` where written)."""
+    near, far = dataset.near_far()
+    render_fn = make_render_fn(net, near, far, **net_kwargs)
+    rgbs, disps, sems, clusters = [], [], [], []
+    for i in range(len(dataset)):
+        ret, _ = eval_one_view(render_fn, dataset.get_view(i), clus_no_sfm=clus_no_sfm,
+                               n_cluster=n_cluster, kmeans_first=kmeans_first)
+        if "sem" in ret:
+            sems.append(ret["sem"])
+        if ret_cluster and "clustering" in ret:
+            clustering = ret["clustering"]
+            if dino is not None:
+                clustering = find_fg_flip(dino, ret["rgb"], clustering)
+            clusters.append(clustering)
+        rgbs.append(ret["rgb"])
+        disps.append(ret["disp"])
+
+    sfx = f"_{suffix}" if suffix else ""
+    os.makedirs(save_dir, exist_ok=True)
+    frames = {"rgb": np.stack(rgbs, 0), "disp": np.stack(disps, 0)}
+    io_utils.write_video(os.path.join(save_dir, f"rgb{sfx}.mp4"), to8b(frames["rgb"]),
+                         fps=fps, quality=quality)
+    io_utils.write_video(os.path.join(save_dir, f"disp{sfx}.mp4"),
+                         to8b(frames["disp"] / np.max(frames["disp"])), fps=fps, quality=quality)
+    if sems:
+        frames["sem"] = np.stack(sems, 0)
+        io_utils.write_video(os.path.join(save_dir, f"sem{sfx}.mp4"), to8b(frames["sem"]),
+                             fps=fps, quality=quality)
+    if clusters:
+        frames["clus"] = np.stack(clusters, 0)
+        io_utils.write_video(os.path.join(save_dir, f"clus{sfx}.mp4"),
+                             (frames["clus"] * 255).astype(np.uint8), fps=fps, quality=quality)
+    return frames
 
 
 @torch.no_grad()

@@ -41,13 +41,28 @@ defaults) and the same run-directory layout. Implemented:
   three) and ``--vol_size``, into ``<basedir>/<expname>/eval/density.mrc``
   and ``density.ply``; the field kernel (K11 with ``--mipnerf``) queries it.
 
-``--no_batching`` and ``--eval_video`` stop with "not yet ported". The
-train loop writes no test image (``--i_img``) and no video (``--i_video``)
-yet: a train run that would write either in the JAX entry point (the data
-directory holds ``rays_exhibit.npy``, or a multiple of ``--i_img`` or
-``--i_video`` lies within ``--max_steps``) says so in one line at its
-start. Each RGB step draws its batch and its noise from ``(--seed, step)``
-alone, so a resumed run trains as an uninterrupted one
+- ``--no_batching``: the RGB train step on one image a step
+  (``ViewDataset``), the centre crop of ``--precrop_frac`` of each side
+  while the step, counted from 1 as the JAX loop counts it, is below
+  ``--precrop_iters`` (all 8 Blender configs);
+- ``--i_img``: the test view ``--log_img_idx`` rendered and scored, its rgb
+  and disparity written to TensorBoard (``utils/summary.add_image``; not
+  written without the ``tensorboard`` package); ``--i_video``: the exhibit
+  path's videos (``rays_exhibit.npy``, ``engines/eval.render_video``) into
+  the run directory, suffixed with the step; ``--eval_video``: the
+  restored net's videos into the run directory, suffixed with
+  ``--expname``, and no training (without an exhibit set it trains, as the
+  JAX entry point does); with ``--eval``, the same after the eval (the JAX
+  entry point returns from ``--eval`` before its ``--eval_video``). The
+  videos are mp4s through cv2 or imageio (``utils/io.write_video``), which
+  raises when neither is importable; a run that would write images or
+  videos that this machine cannot write says so in one line at its start
+  (``unwritten_outputs_note``).
+
+A data directory without ``meta.json`` is prepared from the raw scene
+first (``data/gen_dataset``, the ``--data_type`` flags), as the JAX entry
+point does. Each RGB step draws its batch and its noise from ``(--seed,
+step)`` alone, so a resumed run trains as an uninterrupted one
 would (the JAX entry point restarts its batch stream); a patch step draws
 from ``(--seed, step)`` too, and its images from the dataset's per-epoch
 shuffle, which a resume starts afresh.
@@ -320,19 +335,29 @@ def _check_patch_tune(args) -> None:
 
 
 def unwritten_outputs_note(args, start: int) -> str:
-    """The line a train run from step ``start`` prints when the JAX entry
-    point would write test images (a multiple of ``--i_img`` within
-    ``--max_steps``) or videos (the data directory's ``rays_exhibit.npy``, or
-    a multiple of ``--i_video`` within ``--max_steps``), which the port does
-    not yet; '' when it would write neither."""
+    """The line a run from step ``start`` prints when it would write test
+    images (a multiple of ``--i_img`` within ``--max_steps``) and the
+    ``tensorboard`` package that takes them is missing, or videos (the data
+    directory's ``rays_exhibit.npy`` with a multiple of ``--i_video`` within
+    ``--max_steps`` or ``--eval_video``) and neither cv2 nor imageio is
+    there to encode them; '' when it would write neither or can write
+    both."""
+    from nerfsos_torch.utils.io import video_writer
+    from nerfsos_torch.utils.summary import tensorboard_available
+
     def due(every: int) -> bool:
         return every > 0 and (start // every + 1) * every <= args.max_steps
 
     exhibit = os.path.exists(os.path.join(args.data_path, "rays_exhibit.npy"))
-    if not (exhibit or due(args.i_img) or due(args.i_video)):
-        return ""
-    return ("[Warning!] test images (--i_img) and videos (--i_video, rays_exhibit.npy) are "
-            "not written by nerfsos_torch yet")
+    missing = []
+    train = not args.eval
+    if train and due(args.i_img) and not tensorboard_available():
+        missing.append("test images (--i_img): no tensorboard package, they are not written")
+    if (exhibit and (args.eval_video or train and due(args.i_video))
+            and video_writer() == "none"):
+        missing.append("videos (--i_video, --eval_video): neither cv2 nor imageio, the run "
+                       "stops with an error at its first video")
+    return "[Warning!] " + "; ".join(missing) if missing else ""
 
 
 def main(args, device=None) -> None:
@@ -344,17 +369,16 @@ def main(args, device=None) -> None:
 
 
 def _main(args, device) -> None:
-    from nerfsos_torch.data.datasets import PatchDataset, RayDataset
+    from nerfsos_torch.data.datasets import (ExhibitDataset, PatchDataset, RayDataset,
+                                             ViewDataset)
     from nerfsos_torch.engines import checkpoint as ckpt_lib
     from nerfsos_torch.engines import eval as eval_lib
     from nerfsos_torch.engines import state as state_lib
     from nerfsos_torch.engines.trainer import make_rgb_train_step
     from nerfsos_torch.utils import debug
+    from nerfsos_torch.utils.image import to8b
     from nerfsos_torch.utils.summary import SummaryWriter
 
-    for flag in ("eval_video",) + (() if args.eval or args.eval_vol else ("no_batching",)):
-        if getattr(args, flag):
-            raise SystemExit(f"--{flag}: not yet ported to nerfsos_torch")
     patch_mode = args.patch_tune and not args.eval
     if patch_mode:
         _check_patch_tune(args)
@@ -421,12 +445,17 @@ def _main(args, device) -> None:
             if opt_state is None:
                 state_lib.fast_forward_lr(optimizer, schedule, global_step)
 
-    note = "" if args.eval or args.eval_vol else unwritten_outputs_note(args, global_step)
+    note = "" if args.eval_vol else unwritten_outputs_note(args, global_step)
     if note:
         print(note)
     print("Loading nerf data:", args.data_path)
-    test_set = RayDataset(args.data_path, split="test", subsample=args.subsample,
+    test_set = RayDataset(args.data_path, split="test", args=args, subsample=args.subsample,
                           use_masks=args.use_masks, bin_thres=args.bin_thres)
+    try:
+        exhibit_set = ExhibitDataset(args.data_path, args=args, subsample=args.subsample)
+    except FileNotFoundError:
+        exhibit_set = None
+        print("Warning: No exhibit set!")
     # mip-NeRF's base radius, from the test split as the JAX entry point takes it
     net_kwargs = {"radii": test_set.radii()} if args.mipnerf else {}
 
@@ -435,9 +464,20 @@ def _main(args, device) -> None:
                                  ret_cluster=args.ret_cluster, clus_no_sfm=args.clus_no_sfm,
                                  n_cluster=args.N_cluster, dino=dino, **net_kwargs)
 
+    def do_video(save_dir, suffix):
+        return eval_lib.render_video(net, exhibit_set, save_dir=save_dir, suffix=suffix,
+                                     ret_cluster=args.ret_cluster, clus_no_sfm=args.clus_no_sfm,
+                                     n_cluster=args.N_cluster, dino=dino, **net_kwargs)
+
     if args.eval:
         print("> Start to evaluate")
         do_evaluate(os.path.join(run_dir, "eval"))
+        if args.eval_video and exhibit_set is not None:
+            do_video(run_dir, args.expname)
+        return
+
+    if args.eval_video and exhibit_set is not None:
+        do_video(run_dir, args.expname)
         return
 
     if args.eval_vol:
@@ -453,13 +493,18 @@ def _main(args, device) -> None:
         return
 
     near, far = test_set.near_far()
-    if patch_mode:
-        train_set = PatchDataset(args.data_path, split="train", subsample=args.subsample,
-                                 patch_size=args.patch_size, patch_stride=args.patch_stride,
-                                 bin_thres=args.bin_thres, ret_k=args.use_geoCorr)
+    if args.no_batching:
+        train_set = ViewDataset(args.data_path, split="train", args=args,
+                                subsample=args.subsample, precrop_iters=args.precrop_iters,
+                                precrop_frac=args.precrop_frac)
+    elif patch_mode:
+        train_set = PatchDataset(args.data_path, split="train", args=args,
+                                 subsample=args.subsample, patch_size=args.patch_size,
+                                 patch_stride=args.patch_stride, bin_thres=args.bin_thres,
+                                 ret_k=args.use_geoCorr)
     else:
-        train_set = RayDataset(args.data_path, split="train", subsample=args.subsample,
-                               bin_thres=args.bin_thres)
+        train_set = RayDataset(args.data_path, split="train", args=args,
+                               subsample=args.subsample, bin_thres=args.bin_thres)
     if sos_mode:
         from nerfsos_torch.engines.sos import SOSConfig, make_sos_train_step, online_seg_metrics
         from nerfsos_torch.losses.correlation import CorrelationLoss, GeoCorrelationLoss
@@ -488,8 +533,11 @@ def _main(args, device) -> None:
     print(f"> Start Iteration from {global_step}")
     time0 = time.time()
     while global_step < args.max_steps:
-        batch = train_set.sample_batch(np.random.default_rng([args.seed, global_step]),
-                                       args.batch_size)
+        rng = np.random.default_rng([args.seed, global_step])
+        if args.no_batching and not patch_mode:  # the JAX loop's step, counted from 1
+            batch = train_set.sample_batch(rng, args.batch_size, step=global_step + 1)
+        else:
+            batch = train_set.sample_batch(rng, args.batch_size)
         device_batch = {k: torch.as_tensor(batch[k], device=device) for k in ("rays", "target")}
         metrics = step_fn(device_batch, global_step)
         if args.debug_nans:
@@ -531,6 +579,14 @@ def _main(args, device) -> None:
             writer.add_scalar("train/psnr", m["psnr"], global_step)
             writer.add_scalar("l_rate/group_0", schedule(global_step), global_step)
 
+        if global_step % args.i_img == 0:
+            view = test_set.get_view(args.log_img_idx)
+            render_fn = eval_lib.make_render_fn(net, near, far, **net_kwargs)
+            ret, _ = eval_lib.eval_one_view(render_fn, view, clus_no_sfm=args.clus_no_sfm,
+                                            n_cluster=args.N_cluster)
+            writer.add_image("test/rgb", to8b(ret["rgb"]), global_step)
+            writer.add_image("test/disp", to8b(ret["disp"] / np.max(ret["disp"])), global_step)
+
         if global_step % args.i_weights == 0:
             print("Checkpointing at", os.path.join(ckpt_dir, f"{global_step:08d}.ckpt"))
             save(f"{global_step:08d}.ckpt")
@@ -541,6 +597,9 @@ def _main(args, device) -> None:
             md = do_evaluate(os.path.join(run_dir, f"testset_{global_step:08d}"))
             writer.add_scalar("test/mse", md["mse"], global_step)
             writer.add_scalar("test/psnr", md["psnr"], global_step)
+
+        if global_step % args.i_video == 0 and exhibit_set is not None:
+            do_video(run_dir, str(global_step))
 
     save("last.ckpt")
     writer.close()

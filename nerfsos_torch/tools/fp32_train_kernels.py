@@ -3,14 +3,16 @@ kernels' (K8a, K8b, K8f, K8c) fp32 kernels of a checkout on the card, for an
 A/B against another tree in one call: runs
 chip_smoke.py's ``[fp32_train_kernels]`` phase (the digests of their
 outputs on seeded flagship-width inputs and their times) with that
-checkout's package and this checkout's ``chip_smoke.py``.
+checkout's package and this checkout's ``chip_smoke.py``, then the same
+calls in their bf16 modes (``[bf16_train_kernels]``, digests alone).
 
     python -m nerfsos_torch.tools.fp32_train_kernels [--root DIR]
 
 ``--root`` is the checkout whose package runs (default: this one), e.g. a
 parent unpacked under ``build/parent`` by ``git archive``; its kernels are
 built under its own ``build/kernels``. Its digests are what
-``chip_smoke.FP32_FINGERPRINTS`` holds this tree's to.
+``chip_smoke.FP32_FINGERPRINTS`` and ``BF16_FINGERPRINTS`` hold this
+tree's to.
 """
 from __future__ import annotations
 
@@ -42,10 +44,12 @@ def main() -> int:
         return 1
     if os.path.dirname(os.path.abspath(fr.__file__)) != os.path.join(root, "nerfsos_torch", "ops"):
         raise SystemExit(f"imported {fr.__file__}, not the package of {root}")
-    chip_smoke.FP32_FINGERPRINTS = None  # print another tree's digests, hold them to nothing
+    # print another tree's digests, hold them to nothing
+    chip_smoke.FP32_FINGERPRINTS = chip_smoke.BF16_FINGERPRINTS = None
     chip_smoke.phase("fp32_train_kernels_tree", root=root,
                      nvidia_smi=repr(chip_smoke.smi_line()))
     chip_smoke.fp32_train_kernels(fr)
+    chip_smoke.fp32_train_kernels(fr, bf16=True)
     return 0
 
 

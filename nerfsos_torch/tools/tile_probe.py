@@ -324,9 +324,10 @@ def _patch_one(variant: str, csrc: str) -> None:
             bwd_field) + FIELD_READER)
     elif variant == "fwdonly":
         edit("train_render.cu", lambda t: _sub(
-            t, "    train_reverse_kernel<kSem, false, kBf16><<<grid, kThreads, kReverseSmem, st>>>(\n"
-               "        bring, nullptr, *d, *brd, RingDesc{}, partial, workspace, R, S, wave, group, "
-               "nullptr,\n        nullptr);\n", "", 1))
+            t, "    if (err == 0)\n      err = (bf16 ? reverse_wave_bf16 : reverse_wave_f32)(sem, "
+               "bring, d, brd, partial, workspace,\n"
+               "                                                          R, S, grid, wave, group, "
+               "st);\n", "", 1))
         edit("fused_field.cu", lambda t: _sub(
             t, "    train_reverse_kernel<kSem, kInGrad, kBf16><<<grid, kThreads, kReverseSmem, st>>>(\n"
                "        bring, iring, *d, *brd, *ird, partial, workspace, N, 1, wave, group, dpts, "
@@ -387,6 +388,7 @@ def prepare(_build, root: str, variant: str) -> str:
     shutil.copytree(os.path.join(root, "nerfsos_torch", "csrc"), csrc)
     _patch(variant, csrc)
     _build.CSRC_DIR, _build.BUILD_DIR = csrc, os.path.join(base, "kernels")
+    _build.SPLIT = not _clock(variant)  # a clock variant's counters are one unit's
     _build.library.cache_clear()
     return variant
 

@@ -1,5 +1,5 @@
 """Image helpers in numpy: ``to8b``, a jet colormap, a PNG writer and a
-reader of its PNGs.
+PNG reader (8-bit gray/RGB(A), every row filter).
 
 Port of what the eval engine uses from ``nerfsos_tpu/utils/io.py`` and
 ``utils/vis.py`` without imageio, matplotlib or cv2: the PNG is written with
@@ -86,9 +86,48 @@ def write_png(path: str, arr: np.ndarray) -> None:
                 + _png_chunk(b"IDAT", zlib.compress(raw, 6)) + _png_chunk(b"IEND", b""))
 
 
+_PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # gray, RGB, gray + alpha, RGBA
+
+
+def _unfilter(rows: np.ndarray, bpp: int) -> np.ndarray:
+    """Undo the PNG row filters (0 none, 1 Sub, 2 Up, 3 Average, 4 Paeth) of
+    ``rows [H, 1 + W * bpp]`` uint8 -> ``[H, W * bpp]`` uint8."""
+    h, n = rows.shape[0], rows.shape[1] - 1
+    out = np.zeros((h, n), np.uint8)
+    prev = np.zeros(n, np.int32)
+    for y in range(h):
+        ft, x = int(rows[y, 0]), rows[y, 1:].astype(np.int32)
+        if ft == 0:
+            cur = x
+        elif ft == 1:  # Sub: a running sum over each byte's channel, mod 256
+            cur = np.cumsum(x.reshape(-1, bpp), axis=0).reshape(-1) & 0xFF
+        elif ft == 2:  # Up
+            cur = (x + prev) & 0xFF
+        elif ft in (3, 4):  # Average, Paeth: byte by byte, each reads its left neighbour
+            cur, up = x.tolist(), prev.tolist()
+            for i in range(n):
+                a = cur[i - bpp] if i >= bpp else 0
+                b = up[i]
+                if ft == 3:
+                    cur[i] = (cur[i] + ((a + b) >> 1)) & 0xFF
+                    continue
+                c = up[i - bpp] if i >= bpp else 0
+                p = a + b - c
+                pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+                cur[i] = (cur[i] + (a if pa <= pb and pa <= pc else b if pb <= pc else c)) & 0xFF
+            cur = np.asarray(cur, np.int32)
+        else:
+            raise ValueError(f"PNG row filter {ft}")
+        out[y] = cur
+        prev = cur
+    return out
+
+
 def read_png(path: str) -> np.ndarray:
-    """A PNG as ``write_png`` writes it (8 bits, not interlaced, filter 0 on
-    every row) -> ``[H, W]`` or ``[H, W, C]`` uint8."""
+    """An 8-bit, non-interlaced gray, gray + alpha, RGB or RGBA PNG, any row
+    filters -> ``[H, W]`` or ``[H, W, C]`` uint8, the array PIL gives for the
+    same file (PNG is lossless). Palette, 16-bit and interlaced files raise
+    ``ValueError``: those need PIL."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:8] != b"\x89PNG\r\n\x1a\n":
@@ -101,13 +140,14 @@ def read_png(path: str) -> np.ndarray:
             ihdr = struct.unpack(">IIBBBBB", body)
         elif tag == b"IDAT":
             idat += body
+        elif tag == b"IEND":
+            break
         pos += 12 + n
     w, h, depth, color_type, _, _, interlace = ihdr
-    channels = {0: 1, 2: 3, 6: 4}.get(color_type)
+    channels = _PNG_CHANNELS.get(color_type)
     if depth != 8 or channels is None or interlace:
-        raise ValueError(f"{path}: not a PNG of write_png's kind (IHDR {ihdr})")
+        raise ValueError(f"{path}: only 8-bit non-interlaced gray/RGB(A) PNGs are read "
+                         f"without PIL (IHDR {ihdr})")
     rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + w * channels)
-    if rows[:, 0].any():
-        raise ValueError(f"{path}: a row filter other than 0")
-    img = rows[:, 1:].reshape(h, w, channels)
+    img = _unfilter(rows, channels).reshape(h, w, channels)
     return img[..., 0] if channels == 1 else img

@@ -1,12 +1,17 @@
-"""Writers of the density export: MRC volumes and binary PLY point clouds.
+"""Writers of the density export (MRC volumes, binary PLY point clouds) and
+of the exhibit videos (mp4).
 
-Port of ``write_mrc``, ``read_mrc``, ``write_ply_points`` and
-``write_voxel_ply`` of ``nerfsos_tpu/utils/io.py`` (numpy only), byte for
-byte: the reference writes these files with ``mrc`` and ``open3d``, and the
-MRC2014 header and the binary PLY are written directly instead.
+Port of ``write_mrc``, ``read_mrc``, ``write_ply_points``,
+``write_voxel_ply`` and ``write_video`` of ``nerfsos_tpu/utils/io.py``. The
+first four are numpy only, byte for byte: the reference writes these files
+with ``mrc`` and ``open3d``, and the MRC2014 header and the binary PLY are
+written directly instead. ``write_video`` encodes through cv2's mp4v writer,
+else imageio, as the JAX package does, and raises a plain error when
+neither is importable; both are imported only there.
 """
 from __future__ import annotations
 
+import importlib.util
 import struct
 from typing import Optional
 
@@ -79,3 +84,44 @@ def write_voxel_ply(path: str, occupancy: np.ndarray, thres: float = 1e-6) -> No
     xyz = np.stack((occupancy > thres).nonzero(), -1).astype(np.float32)
     xyz = xyz / np.array(occupancy.shape)
     write_ply_points(path, xyz)
+
+
+def video_writer() -> str:
+    """The mp4 route :func:`write_video` takes here: ``"cv2"``, ``"imageio"``
+    or ``"none"`` (neither importable: it raises)."""
+    for name in ("cv2", "imageio"):
+        try:
+            if importlib.util.find_spec(name) is not None:
+                return name
+        except ValueError:  # a module set to None in sys.modules
+            continue
+    return "none"
+
+
+def write_video(path: str, frames: np.ndarray, fps: int = 30, quality: int = 8) -> None:
+    """An mp4 of ``frames [T, H, W, 3]`` (or ``[T, H, W]``, ``[T, H, W, 1]``)
+    uint8: cv2's mp4v writer, else (cv2 missing or its writer not opening)
+    imageio's; ``RuntimeError`` naming both when neither is importable."""
+    frames = np.asarray(frames)
+    if frames.ndim == 3:
+        frames = np.repeat(frames[..., None], 3, axis=-1)
+    if frames.ndim == 4 and frames.shape[-1] == 1:
+        frames = np.repeat(frames, 3, axis=-1)
+    try:
+        import cv2
+    except ImportError:
+        cv2 = None
+    if cv2 is not None:
+        h, w = frames.shape[1:3]
+        vw = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), fps, (w, h))
+        if vw.isOpened():
+            for f in frames:
+                vw.write(cv2.cvtColor(np.ascontiguousarray(f), cv2.COLOR_RGB2BGR))
+            vw.release()
+            return
+    try:
+        import imageio
+    except ImportError:
+        raise RuntimeError(f"{path}: writing an mp4 needs cv2 (its mp4v writer) or imageio, "
+                           "and neither is importable") from None
+    imageio.mimwrite(path, frames, fps=fps, quality=quality)

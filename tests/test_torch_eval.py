@@ -179,11 +179,13 @@ def test_run_nerf_eval_end_to_end(tmp_path):
 @pytest.mark.parametrize("mode", [["--patch_tune"], ["--no_batching"], ["--eval_video"],
                                   ["--eval_vol"], ["--eval", "--mipnerf"]])
 def test_unported_modes_exit(tmp_path, mode):
-    """Each of these modes stops with "not yet ported", but ``--patch_tune``
-    alone, which now runs the RGB finetune on patches (one step here),
-    ``--eval --mipnerf``, which now renders the test view from a mip
-    checkpoint, and ``--eval_vol``, which now exports the checkpoint's
-    density on the ``--vol_extents 0.2 --vol_size 0.02`` grid."""
+    """Each of these modes once stopped with "not yet ported"; each runs now:
+    ``--patch_tune`` alone the RGB finetune on patches and ``--no_batching``
+    the RGB step on one image a step (four steps here, two in the centre
+    crop), ``--eval_video`` the exhibit path's videos (the test view's rays
+    as ``rays_exhibit.npy``), ``--eval --mipnerf`` the test view from a mip
+    checkpoint, and ``--eval_vol`` the checkpoint's density on the
+    ``--vol_extents 0.2 --vol_size 0.02`` grid."""
     data, logs, ckpt = _scene(tmp_path, EVAL_CFG, height=4, width=4)
     if mode == ["--eval_vol"]:
         args, _ = run_nerf.create_arg_parser().parse_known_args(
@@ -201,17 +203,22 @@ def test_unported_modes_exit(tmp_path, mode):
         log = json.load(open(logs / "t" / "eval" / "log.json"))
         assert len(log["mse"]) == 1 and np.isfinite(log["total_psnr"])
         return
-    if mode == ["--patch_tune"]:
-        write_sphere_scene(str(data), height=4, width=4, n_views=2, split="train")
-        mode = [*mode, "--patch_size", "2", "--batch_size", "2", "--max_steps", "4"]
-    args, _ = run_nerf.create_arg_parser().parse_known_args(_argv(data, logs, ckpt, *mode))
-    if "--max_steps" in mode:
+    if mode == ["--eval_video"]:
+        np.save(data / "rays_exhibit.npy", np.load(data / "rays_test.npy"))
+        args, _ = run_nerf.create_arg_parser().parse_known_args(
+            _argv(data, logs, ckpt, *mode, "--ret_cluster"))
         run_nerf.main(args, device="cpu")
-        state, step, opt = tckpt.load_checkpoint(str(logs / "t" / "checkpoints" / "last.ckpt"))
-        assert step == 4 and len(opt["state"]) == len(state)  # Adam holds every leaf
+        assert {f"{k}_t.mp4" for k in ("rgb", "disp", "sem", "clus")} <= set(
+            os.listdir(logs / "t"))
+        assert not os.path.exists(logs / "t" / "checkpoints" / "last.ckpt")  # no training
         return
-    with pytest.raises(SystemExit, match="not yet ported"):
-        run_nerf.main(args, device="cpu")
+    write_sphere_scene(str(data), height=4, width=4, n_views=2, split="train")
+    mode = [*mode, "--batch_size", "2", "--max_steps", "4"]
+    mode += ["--patch_size", "2"] if "--patch_tune" in mode else ["--precrop_iters", "3"]
+    args, _ = run_nerf.create_arg_parser().parse_known_args(_argv(data, logs, ckpt, *mode))
+    run_nerf.main(args, device="cpu")
+    state, step, opt = tckpt.load_checkpoint(str(logs / "t" / "checkpoints" / "last.ckpt"))
+    assert step == 4 and len(opt["state"]) == len(state)  # Adam holds every leaf
 
 
 def test_main_without_a_card_raises(tmp_path):
@@ -228,10 +235,23 @@ def test_main_without_a_card_raises(tmp_path):
 _HYGIENE = r"""
 import sys
 for m in ("jax", "jaxlib", "flax", "optax", "orbax", "sklearn", "imageio", "matplotlib",
-          "cv2", "nerfsos_tpu"):
+          "cv2", "PIL", "nerfsos_tpu"):
     sys.modules[m] = None
+import os
 import torch
 import nerfsos_torch.run_nerf
+import nerfsos_torch.data.datasets as ds_mod
+import nerfsos_torch.data.gen_dataset as gen
+import nerfsos_torch.data.image_io
+import nerfsos_torch.data.load_blender
+import nerfsos_torch.data.load_deepvoxels
+import nerfsos_torch.data.load_linemod
+import nerfsos_torch.data.load_llff
+import nerfsos_torch.data.load_tankstemple
+import nerfsos_torch.data.load_toydesk
+import nerfsos_torch.data.poses
+import nerfsos_torch.data.ray_utils
+from nerfsos_torch.data.synthetic import write_blender_scene
 import nerfsos_torch.engines.eval as ev
 import nerfsos_torch.engines.checkpoint
 import nerfsos_torch.engines.state as st
@@ -260,6 +280,13 @@ r = np.random.default_rng(1)
 m = step({"rays": torch.from_numpy(r.normal(size=(2, 16, 3)).astype(np.float32)),
           "target": torch.from_numpy(r.random((16, 3)).astype(np.float32))}, 0)
 assert tr.supports_fused_rgb_loss(net) and np.isfinite(float(m["loss"]))
+scene = os.path.join(sys.argv[1], "scene")
+write_blender_scene(scene, 8, (2, 1, 1))  # PNGs of the port's own writer: numpy decodes them
+args, _ = gen.create_arg_parser().parse_known_args(
+    ["--data_type", "blender", "--data_path", scene, "--half_res", "--white_bkgd"])
+gen.generate_dataset(args, scene)
+view = ds_mod.ViewDataset(scene, precrop_iters=2).sample_batch(np.random.default_rng(0), 4, 1)
+assert view["rays"].shape == (2, 4, 3) and np.isfinite(view["target"]).all()
 print("OK")
 """
 

@@ -346,22 +346,31 @@ class _Stop(Exception):
     pass
 
 
-NOTE_CASES = [  # (rays_exhibit.npy in the data directory, flags, the line printed)
-    (True, ["--max_steps", "2"], True), (False, ["--max_steps", "2", "--i_img", "2"], True),
-    (False, ["--max_steps", "3", "--i_video", "3"], True),
-    (False, ["--max_steps", "2", "--i_img", "3", "--i_video", "3"], False),
-    (False, ["--max_steps", "2"], False), (True, ["--max_steps", "2", "--eval"], False)]
+NOTE_CASES = [  # (rays_exhibit.npy in the data directory, flags, writers there, line printed)
+    (True, ["--max_steps", "2", "--i_video", "2"], False, True),
+    (False, ["--max_steps", "2", "--i_img", "2"], False, True),
+    (True, ["--max_steps", "3", "--i_img", "3", "--i_video", "3"], True, False),
+    (False, ["--max_steps", "2", "--i_img", "3", "--i_video", "3"], False, False),
+    (True, ["--max_steps", "2", "--eval", "--eval_video"], False, True),
+    (True, ["--max_steps", "2", "--i_img", "2", "--i_video", "2", "--eval"], False, False)]
 
 
-@pytest.mark.parametrize("exhibit,flags,printed", NOTE_CASES)
+@pytest.mark.parametrize("exhibit,flags,writers,printed", NOTE_CASES)
 def test_unwritten_images_and_videos_are_named_at_the_start(tmp_path, monkeypatch, capsys,
-                                                           exhibit, flags, printed):
-    """A train run in which the JAX entry point would write test images
-    (``--i_img`` within ``--max_steps``) or videos (``rays_exhibit.npy``,
-    ``--i_video`` within ``--max_steps``) prints one line saying the port
-    writes neither yet, before it loads its data; a run that would write
-    neither, or an ``--eval`` run, prints none. (The data loader is stopped
-    at once: the line comes first.)"""
+                                                           exhibit, flags, writers, printed):
+    """A run that would write test images (``--i_img`` within
+    ``--max_steps``) with no ``tensorboard`` package to take them, or videos
+    (``rays_exhibit.npy`` with ``--i_video`` within ``--max_steps`` or
+    ``--eval_video``) with neither cv2 nor imageio to encode them, prints
+    one line naming what it cannot write, before it loads its data; a run
+    that would write neither, that can write both, or an ``--eval`` run
+    without ``--eval_video``, prints none. (The data loader is stopped at
+    once: the line comes first.)"""
+    from nerfsos_torch.utils import io as tio_mod
+    from nerfsos_torch.utils import summary as tsummary
+
+    monkeypatch.setattr(tio_mod, "video_writer", lambda: "cv2" if writers else "none")
+    monkeypatch.setattr(tsummary, "tensorboard_available", lambda: writers)
     data = tmp_path / "data"
     data.mkdir()
     if exhibit:
@@ -378,6 +387,7 @@ def test_unwritten_images_and_videos_are_named_at_the_start(tmp_path, monkeypatc
          *TRAIN_FLAGS, *flags])
     with pytest.raises(_Stop):
         run_nerf.main(args, device="cpu")
-    lines = [x for x in capsys.readouterr().out.splitlines() if "--i_img" in x]
+    lines = [x for x in capsys.readouterr().out.splitlines() if "[Warning!]" in x]
     assert lines == ([run_nerf.unwritten_outputs_note(args, 0)] if printed else [])
-    assert not printed or "not written" in lines[0]
+    assert not printed or ("--i_img" in lines[0]) == ("--i_img" in flags and "--eval" not in flags)
+    assert not printed or ("--eval_video" in lines[0]) == exhibit
